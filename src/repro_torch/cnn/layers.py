@@ -1,0 +1,248 @@
+"""Layout-polymorphic CNN layers (``repro/cnn/layers.py``).
+
+Every op executes natively in its assigned layout.  ``impl`` selects the
+engine:
+  * "cuda"  — the hand-written kernels (direct-CHWN conv K1, virtual-im2col
+              NCHW conv K2, fused softmax K4), the counterpart of the
+              reference's "pallas" engine.  A CPU tensor runs each kernel's
+              plain version instead; a CUDA tensor runs the kernel.
+  * "torch" — the decomposed plain PyTorch engine (the counterpart of the
+              reference's "xla"): the oracle the kernels are held against.
+Weights are canonical [Co, Ci, F, F] for conv and [in, out] for fc, as
+``init_cnn`` makes them in both packages.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+from torch.nn import functional as nnf
+
+from repro_torch.configs.base import CNNConfig
+from repro_torch.core.transform import apply_transform
+from repro_torch.kernels.conv.ops import (conv_direct_chwn,
+                                          conv_im2col_nchw_fused)
+from repro_torch.kernels.conv.ref import conv_ref
+from repro_torch.kernels.softmax.ops import softmax as softmax_kernel
+from repro_torch.kernels.softmax.ref import softmax_ref
+from repro_torch.shapes import conv_out_hw, pool_out_hw
+
+IMPLS = ("cuda", "torch")
+
+
+def _check_impl(impl: str) -> None:
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; known: {IMPLS}")
+
+
+def fused_conv_block(x: torch.Tensor, w: torch.Tensor, layout: str,
+                     stride: int = 1, pad: int = 0, *,
+                     bias: Optional[torch.Tensor] = None, relu: bool = False,
+                     pool: Optional[Tuple[int, int, str]] = None,
+                     res: Optional[torch.Tensor] = None,
+                     res_layout: Optional[str] = None,
+                     src_layout: Optional[str] = None,
+                     dst_layout: Optional[str] = None,
+                     impl: str = "cuda") -> torch.Tensor:
+    """One fused-engine node: conv[+bias][+residual add][+relu][+pool]
+    executed natively in ``layout``, consuming ``src_layout`` input and
+    producing ``dst_layout`` output.  ``res`` (stored in ``res_layout``) is
+    added before the ReLU, the ResNet epilogue order.  ``impl="cuda"`` runs
+    it as ONE kernel of the ``layout``'s engine."""
+    _check_impl(impl)
+    src = src_layout or layout
+    dst = dst_layout or layout
+    rlay = res_layout or layout
+    if impl == "torch":
+        return conv_ref(x, w, stride, pad, bias=bias, relu=relu, pool=pool,
+                        res=res, res_layout=rlay, src_layout=src,
+                        dst_layout=dst)
+    kw = dict(bias=bias, relu=relu, pool=pool, res=res, res_layout=rlay,
+              src_layout=src, dst_layout=dst)
+    if layout == "CHWN":
+        return conv_direct_chwn(x, w.permute(1, 2, 3, 0).contiguous(),
+                                stride, pad, **kw)
+    if layout == "NCHW":
+        return conv_im2col_nchw_fused(x, w, stride, pad, **kw)
+    raise ValueError(f"no conv engine computes in layout {layout!r}")
+
+
+def conv_forward(x: torch.Tensor, w: torch.Tensor, layout: str,
+                 stride: int = 1, pad: int = 0,
+                 impl: str = "cuda") -> torch.Tensor:
+    """Bare conv in ``layout`` (x and the result both in it)."""
+    return fused_conv_block(x, w, layout, stride, pad, impl=impl)
+
+
+def pool_forward(x: torch.Tensor, layout: str, F: int, S: int,
+                 op: str = "max", impl: str = "cuda",
+                 dst_layout: Optional[str] = None) -> torch.Tensor:
+    """Standalone max/avg pool over the H, W dims of ``x`` (in ``layout``),
+    written in ``dst_layout``.  Its kernel (K3, the reference's
+    ``kernels/pool/pool.py``) is not ported yet: the "cuda" engine raises
+    for a CUDA tensor, and runs the plain version for a CPU tensor."""
+    _check_impl(impl)
+    if impl == "cuda" and x.device.type != "cpu":
+        raise NotImplementedError(
+            "standalone pooling on the card needs the pool kernel K3 "
+            "(repro/kernels/pool/pool.py::pool_chwn_pallas/pool_nchw_"
+            "pallas), which is not ported yet")
+    xn = apply_transform(x, layout, "NCHW")
+    y = (nnf.max_pool2d(xn, F, S) if op == "max"
+         else nnf.avg_pool2d(xn, F, S))
+    return apply_transform(y, "NCHW", dst_layout or layout)
+
+
+def flatten_forward(x: torch.Tensor, layout: str) -> torch.Tensor:
+    """-> [N, features] regardless of layout."""
+    if layout == "CHWN":
+        C, H, W, N = x.shape
+        return x.reshape(C * H * W, N).t()
+    return x.reshape(x.shape[0], -1)
+
+
+def fc_forward(x2d: torch.Tensor, w: torch.Tensor,
+               b: torch.Tensor) -> torch.Tensor:
+    """y = xW + b, accumulated in float32 (``torch.matmul``; TF32 must be
+    off for fp32 exactness: ``torch.backends.cuda.matmul.allow_tf32``)."""
+    y = torch.matmul(x2d.float(), w.float())
+    return (y + b.float()).to(x2d.dtype)
+
+
+def softmax_forward(x2d: torch.Tensor, impl: str = "cuda") -> torch.Tensor:
+    _check_impl(impl)
+    if impl == "cuda":
+        return softmax_kernel(x2d.contiguous())
+    return softmax_ref(x2d)
+
+
+def relu_forward(x: torch.Tensor) -> torch.Tensor:
+    return torch.relu(x)
+
+
+def concat_forward(xs: Sequence[torch.Tensor], layout: str) -> torch.Tensor:
+    """Channel concat of the merge inputs (U-Net skip join)."""
+    return torch.cat(list(xs), dim=0 if layout == "CHWN" else 1)
+
+
+def upsample_forward(x: torch.Tensor, layout: str,
+                     factor: int) -> torch.Tensor:
+    """Nearest-neighbour spatial x``factor`` (the U-Net decoder expand)."""
+    ha, wa = (1, 2) if layout == "CHWN" else (2, 3)
+    return x.repeat_interleave(factor, dim=ha).repeat_interleave(factor,
+                                                                 dim=wa)
+
+
+# ---------------------------------------------------------------------------
+# parameter init + shape propagation
+# ---------------------------------------------------------------------------
+
+def resolved_cfg_inputs(cfg: CNNConfig) -> List[Tuple[int, ...]]:
+    """Per-layer producer INDICES from the config's name-based ``inputs``
+    edges (-1 is the network input; empty means "the previous layer")."""
+    idx = {spec.name: i for i, spec in enumerate(cfg.layers)}
+    rins: List[Tuple[int, ...]] = []
+    for i, spec in enumerate(cfg.layers):
+        if spec.inputs:
+            try:
+                ins = tuple(idx[nm] for nm in spec.inputs)
+            except KeyError as e:
+                raise ValueError(
+                    f"layer {spec.name!r}: unknown input layer {e.args[0]!r}")
+            for p in ins:
+                if p >= i:
+                    raise ValueError(
+                        f"layer {spec.name!r}: input {cfg.layers[p].name!r} "
+                        "is not an earlier layer (layers must be "
+                        "topologically ordered)")
+        else:
+            ins = (i - 1,) if i else (-1,)
+        rins.append(ins)
+    return rins
+
+
+def layer_shapes(cfg: CNNConfig) -> List[Tuple[int, ...]]:
+    """Logical NCHW output shape after each layer, propagated along the
+    graph edges; merge nodes validate that their branches meet."""
+    rins = resolved_cfg_inputs(cfg)
+    in_shape = (cfg.batch, cfg.in_channels, cfg.image_hw, cfg.image_hw)
+    out: List[Tuple[int, ...]] = []
+
+    def shp(p: int) -> Tuple[int, ...]:
+        return in_shape if p < 0 else out[p]
+
+    for i, spec in enumerate(cfg.layers):
+        s0 = shp(rins[i][0])
+        if spec.kind == "conv":
+            hw = conv_out_hw(s0[2], spec.kernel, spec.stride, spec.pad)
+            out.append((cfg.batch, spec.out_channels, hw, hw))
+        elif spec.kind == "pool":
+            hw = pool_out_hw(s0[2], spec.kernel, spec.stride)
+            out.append((s0[0], s0[1], hw, hw))
+        elif spec.kind == "flatten":
+            out.append((s0[0], math.prod(s0[1:])))
+        elif spec.kind == "fc":
+            out.append((cfg.batch, spec.fc_out))
+        elif spec.kind == "add":
+            shs = [shp(p) for p in rins[i]]
+            if any(s != shs[0] for s in shs):
+                raise ValueError(f"{spec.name}: add operands disagree "
+                                 f"({shs})")
+            out.append(shs[0])
+        elif spec.kind == "concat":
+            shs = [shp(p) for p in rins[i]]
+            if any(s[0] != shs[0][0] or s[2:] != shs[0][2:] for s in shs):
+                raise ValueError(f"{spec.name}: concat operands disagree "
+                                 f"on batch/spatial dims ({shs})")
+            out.append((shs[0][0], sum(s[1] for s in shs)) + shs[0][2:])
+        elif spec.kind == "upsample":
+            f = spec.kernel
+            out.append((s0[0], s0[1], s0[2] * f, s0[3] * f))
+        else:                            # act/softmax inherit their input
+            out.append(s0)
+    return out
+
+
+def init_cnn(cfg: CNNConfig, seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
+    """Random float32 weights as a numpy tree {layer: {"w": ..., "b": ...}}:
+    conv w [Co, Ci, F, F] ~ N(0, 1/(Ci*F*F)), fc w [in, out] ~ N(0, 1/in)
+    and b = 0, the reference ``init_cnn``'s distribution.  The numbers come
+    from ``numpy.random.default_rng(seed)``, so both packages can be handed
+    the same tree (``params_from_numpy`` here, ``jnp.asarray`` there)."""
+    rng = np.random.default_rng(seed)
+    params: Dict[str, Dict[str, np.ndarray]] = {}
+    rins = resolved_cfg_inputs(cfg)
+    shapes = layer_shapes(cfg)
+
+    def in_dim(i: int) -> int:           # channels (4-D) or features (2-D)
+        p = rins[i][0]
+        return cfg.in_channels if p < 0 else shapes[p][1]
+
+    def normal(shape, std) -> np.ndarray:
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std))
+
+    for i, spec in enumerate(cfg.layers):
+        if spec.kind == "conv":
+            ci = in_dim(i)
+            params[spec.name] = {"w": normal(
+                (spec.out_channels, ci, spec.kernel, spec.kernel),
+                1.0 / math.sqrt(ci * spec.kernel * spec.kernel))}
+        elif spec.kind == "fc":
+            feat = in_dim(i)
+            params[spec.name] = {
+                "w": normal((feat, spec.fc_out), 1.0 / math.sqrt(feat)),
+                "b": np.zeros((spec.fc_out,), np.float32),
+            }
+    return params
+
+
+def params_from_numpy(tree: Dict[str, Dict[str, np.ndarray]],
+                      device) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The same tree as float32 tensors on ``device``."""
+    return {layer: {k: torch.as_tensor(np.asarray(v, np.float32),
+                                       device=device)
+                    for k, v in p.items()}
+            for layer, p in tree.items()}

@@ -1,0 +1,192 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``*.cu`` in a ``csrc`` directory under ``repro_torch/kernels`` is
+compiled by ``nvcc`` for Hopper (``sm_90a``) into ONE shared library with a
+plain C interface, loaded with ``ctypes``.  No source includes PyTorch's
+headers, so the build takes seconds, not minutes.  The sources compile in
+parallel (one ``nvcc -c`` each, all started together) and link once.
+
+The build happens at first use, never at import (importing the package
+must work on a machine without ``nvcc``), into
+``<checkout>/build/repro_torch/<hash>/`` where the hash covers every
+source and the flags, so an edited source rebuilds and an unchanged one
+loads the cached library.  Each C entry point takes its pointers and the
+CUDA stream as ``void*`` and returns ``cudaGetLastError()`` as an int.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, List, Optional, TextIO
+
+import torch
+
+_KERNELS_DIR = Path(__file__).resolve().parent
+BUILD_ROOT = _KERNELS_DIR.parents[2] / "build" / "repro_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+LIB_NAME = "libreprotorch_kernels.so"
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# C signature of every entry point: name -> argtypes (restype is int)
+SIGNATURES: Dict[str, List] = {
+    # x, w, bias, res, y, N, Ci, H, W, Co, F, S, pad, pool_F, pool_S,
+    # pool_avg, relu, src_nchw, dst_nchw, res_nchw, stream
+    "conv_chwn_forward": [P] * 5 + [I] * 15 + [P],
+    "conv_nchw_forward": [P] * 5 + [I] * 15 + [P],
+    # x, y, rows, cols, stream
+    "softmax_forward": [P, P, I, I, P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or refused a source."""
+
+
+def _csrc(suffix: str) -> List[Path]:
+    return sorted(p for p in _KERNELS_DIR.rglob(f"*{suffix}")
+                  if p.parent.name == "csrc")
+
+
+def sources() -> List[Path]:
+    return _csrc(".cu")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(cuda_home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise KernelBuildError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the CUDA "
+        "kernels build only on a machine with the CUDA toolkit")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources() + _csrc(".cuh"):
+        h.update(p.relative_to(_KERNELS_DIR).as_posix().encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(log: Optional[TextIO] = None) -> Path:
+    """Compile every source (in parallel) and link the library; returns
+    its path.  A cached library with the same source hash is reused.  With
+    ``log``, each kernel's registers, shared memory and spills
+    (``ptxas -v``) are written to it."""
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists():
+        return lib_path
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    # a private scratch dir per build: concurrent builders never share
+    # object files, and the finished library lands by atomic rename
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        extra = ["-Xptxas", "-v"] if log is not None else []
+        procs = []
+        for i, src in enumerate(sources()):
+            obj = Path(tmp) / f"{i}_{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors, logs = [], []
+        for src, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(out)
+            if proc.returncode != 0:
+                errors.append(f"{src.name}:\n{out}")
+        if errors:
+            raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
+        tmp_lib = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
+             *[str(obj) for _, obj, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
+        if log is not None:
+            log.write("".join(logs))
+        os.replace(tmp_lib, lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if err != 0:
+        what = library().cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed: {what} ({err})")
+
+
+def on_cpu(name: str, x) -> bool:
+    """True for a CPU tensor (the wrapper runs the plain version), False for
+    a CUDA tensor (it launches the kernel); any other device raises."""
+    if x.device.type == "cpu":
+        return True
+    if x.device.type == "cuda":
+        return False
+    raise ValueError(f"{name}: tensors on {x.device} are not supported "
+                     "(CUDA runs the kernel, CPU the plain version)")
+
+
+def require_cuda_f32(name: str, device, **tensors) -> None:
+    """Raise unless every given tensor is a contiguous float32 tensor on
+    ``device``: the kernels take nothing else."""
+    for arg, t in tensors.items():
+        if t is None:
+            continue
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, x on {device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
+                            "float32 only")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{name}: {arg} has {t.numel()} elements; the "
+                             "kernel indexes with 32-bit ints")
+
+
+def stream_of(device) -> int:
+    """The current CUDA stream of ``device``, as the pointer the C entry
+    points take."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def toolchain_missing() -> Optional[str]:
+    """Why the kernels cannot run here (no CUDA device, no nvcc), or None
+    when they can.  Tests that need the card skip with this reason."""
+    if not torch.cuda.is_available():
+        return "no CUDA device"
+    try:
+        _nvcc()
+    except KernelBuildError as e:
+        return str(e)
+    return None

@@ -1,0 +1,158 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA device and ``nvcc`` and skips with the reason
+where either is missing.  The module imports neither ``jax`` nor the
+reference package, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_card.py
+
+(``--noconftest``: the repository's conftest imports jax.)  Tolerances:
+conv rtol 1e-4 / atol 1e-3, softmax atol 1e-6, with TF32 off for the plain
+conv (cuDNN's TF32 keeps about three digits).
+"""
+from __future__ import annotations
+
+import itertools
+import random
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.layout import perm_between
+from repro_torch.kernels import _build
+from repro_torch.kernels.conv import ops as conv_ops
+from repro_torch.kernels.conv.ref import conv_ref
+from repro_torch.kernels.softmax.ops import softmax
+from repro_torch.kernels.softmax.ref import softmax_ref
+
+# (engine, N, Ci, H, Co, F, S, pad, pool, relu, bias, res, src, dst)
+CONV_CASES = [
+    ("CHWN", 32, 3, 20, 64, 3, 1, 1, None, True, False, False, "NCHW", "NCHW"),
+    ("CHWN", 130, 3, 47, 20, 11, 4, 0, (3, 2, "max"), True, False, False,
+     "NCHW", "CHWN"),
+    ("CHWN", 3, 7, 13, 17, 5, 1, 2, (3, 2, "max"), True, True, True,
+     "CHWN", "CHWN"),
+    ("CHWN", 5, 4, 12, 9, 3, 2, 1, (2, 2, "avg"), False, False, True,
+     "CHWN", "NCHW"),
+    ("CHWN", 2, 3, 16, 8, 1, 1, 0, (4, 4, "avg"), True, True, False,
+     "NCHW", "CHWN"),
+    ("NCHW", 2, 3, 33, 64, 3, 1, 1, (2, 2, "max"), True, False, False,
+     "NCHW", "NCHW"),
+    ("NCHW", 3, 16, 15, 33, 3, 1, 1, None, True, True, True, "NCHW", "NCHW"),
+    ("NCHW", 1, 5, 23, 12, 5, 2, 2, (3, 2, "max"), False, True, False,
+     "CHWN", "NCHW"),
+    ("NCHW", 4, 6, 30, 16, 11, 4, 2, None, True, False, True, "CHWN",
+     "CHWN"),
+    ("NCHW", 2, 8, 9, 24, 1, 2, 0, (2, 2, "avg"), True, False, False,
+     "NCHW", "CHWN"),
+    ("NCHW", 3, 2, 7, 3, 3, 1, 1, (5, 3, "max"), True, True, True, "NCHW",
+     "NCHW"),
+    ("NCHW", 2, 4, 9, 70, 3, 1, 1, (7, 1, "avg"), False, True, False,
+     "CHWN", "NCHW"),
+    ("CHWN", 40, 5, 11, 130, 3, 2, 0, (2, 1, "max"), True, True, True,
+     "CHWN", "CHWN"),
+]
+
+
+
+
+def _seeded_grid(n_cases: int, seed: int = 0):
+    """A seeded sample of engine x stride x pad x F x pool x relu x bias x
+    residual x src/dst, with sizes drawn per case (ragged Co, odd N)."""
+    axes = [("CHWN", "NCHW"), (1, 2, 4), (0, 1, 2), (1, 3, 5, 11),
+            (None, (2, 2, "max"), (3, 2, "max"), (2, 2, "avg")),
+            (False, True), (False, True), (False, True),
+            tuple(itertools.product(("NCHW", "CHWN"), repeat=2))]
+    rnd = random.Random(seed)
+    cases = []
+    for eng, S, pad, F, pool, relu, bias, res, (src, dst) in rnd.sample(
+            list(itertools.product(*axes)), n_cases):
+        Ho = rnd.randint(5, 9)
+        H = max(1, (Ho - 1) * S + F - 2 * pad + rnd.randint(0, S - 1))
+        cases.append((eng, rnd.choice([1, 3, 33, 130]), rnd.randint(1, 9),
+                      H, rnd.choice([5, 64, 70, 129]), F, S, pad, pool, relu,
+                      bias, res, src, dst))
+    return cases
+
+
+CONV_CASES += _seeded_grid(40)
+
+
+@pytest.fixture
+def card():
+    reason = _build.toolchain_missing()
+    if reason:
+        pytest.skip(reason)
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _case_id(c):
+    eng, N, Ci, H, Co, F, S, p, pool, *_rest, src, dst = c
+    ptag = "nopool" if pool is None else f"{pool[2]}{pool[0]}s{pool[1]}"
+    return f"{eng}-N{N}-C{Ci}-H{H}-K{Co}-F{F}-S{S}-P{p}-{ptag}-{src}to{dst}"
+
+
+@pytest.mark.parametrize("case", CONV_CASES,
+                         ids=[_case_id(c) for c in CONV_CASES])
+def test_conv_kernel_matches_plain(case, card):
+    eng, N, Ci, H, Co, F, S, pad, pool, relu, bias, res, src, dst = case
+    gen = torch.Generator().manual_seed(CONV_CASES.index(case))
+    Ho = (H + 2 * pad - F) // S + 1
+    x = torch.randn(N, Ci, H, H, generator=gen)
+    w = torch.randn(Co, Ci, F, F, generator=gen) / np.sqrt(Ci * F * F)
+    b = torch.randn(Co, generator=gen) if bias else None
+    r = torch.randn(N, Co, Ho, Ho, generator=gen) if res else None
+    rlay = "CHWN" if CONV_CASES.index(case) % 2 else "NCHW"
+
+    def to(t, layout=None):
+        if t is None:
+            return None
+        if layout is not None:
+            t = t.permute(perm_between("NCHW", layout))
+        return t.contiguous().to(card)
+
+    kw = dict(bias=to(b), relu=relu, pool=pool, res=to(r, rlay),
+              res_layout=rlay, src_layout=src, dst_layout=dst)
+    if eng == "CHWN":
+        wrapper, wk = conv_ops.conv_direct_chwn, to(w.permute(1, 2, 3, 0))
+    else:
+        wrapper, wk = conv_ops.conv_im2col_nchw_fused, to(w)
+    before = wrapper.launches
+    got = wrapper(to(x, src), wk, S, pad, **kw)
+    want = conv_ref(to(x, src), to(w), S, pad, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def test_conv_kernel_rejects_what_it_does_not_take(card):
+    x = torch.zeros(2, 3, 8, 8, device=card)
+    w = torch.zeros(4, 3, 3, 3, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        conv_ops.conv_im2col_nchw_fused(x.double(), w.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_ops.conv_im2col_nchw_fused(x.transpose(2, 3), w)
+    with pytest.raises(ValueError, match="channels"):
+        conv_ops.conv_im2col_nchw_fused(x, torch.zeros(4, 5, 3, 3,
+                                                       device=card))
+    with pytest.raises(ValueError, match="does not fit"):
+        conv_ops.conv_im2col_nchw_fused(x, w, pool=(7, 2, "max"))
+    with pytest.raises(ValueError, match="taps"):
+        conv_ops.conv_im2col_nchw_fused(torch.zeros(1, 3, 16, 16,
+                                                    device=card), w,
+                                        pool=(12, 1, "max"))
+
+
+@pytest.mark.parametrize("shape", [(1, 10), (5, 37), (32, 1000),
+                                   (128, 1000), (3, 5000)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_softmax_kernel_matches_plain(shape, card):
+    x = (torch.randn(*shape, generator=torch.Generator().manual_seed(1))
+         * 4).to(card)
+    before = softmax.launches
+    got = softmax(x)
+    torch.cuda.synchronize()
+    assert softmax.launches == before + 1
+    torch.testing.assert_close(got, softmax_ref(x), rtol=0, atol=1e-6)

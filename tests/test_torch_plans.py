@@ -1,0 +1,126 @@
+"""The port's packaged plan files are the reference planner's own output.
+
+``repro_torch/plans/{vgg16,alexnet}.plans.json`` are written by the
+reference ``repro.serve.plan_cache.PlanCache.save`` (fp32, uniform,
+stack="off", full-size network ids, every pow-2 bucket up to the
+network's Table-1 batch).  Regenerate them with
+
+    PYTHONPATH=src python tests/test_torch_plans.py
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+import pytest
+
+from repro import dtypes as ref_dtypes
+from repro.configs.cnn_networks import CNN_CONFIGS, reduced_cnn
+from repro.serve.plan_cache import PlanCache, network_id
+
+from repro_torch import dtypes as port_dtypes
+
+from repro_torch.configs import cnn_networks as port_networks
+from repro_torch.launch.cnn_serve import packaged_plans
+from repro_torch.serve import plan_cache as port_plan_cache
+
+# network -> largest bucket the packaged file holds (the Table-1 batch)
+PACKAGED = {"vgg16": 32, "alexnet": 128}
+
+
+def write_reference_plans(network: str, max_bucket: int, path: str) -> str:
+    """Plan every pow-2 bucket up to ``max_bucket`` with the reference
+    planner (fp32, uniform, stacks off) and save the cache to ``path``."""
+    cfg = CNN_CONFIGS[network]
+    cache = PlanCache(max_bucket=max_bucket)
+    b = 1
+    while b <= max_bucket:
+        cache.fused_plan(cfg, b, dtype="float32", stack="off")
+        b *= 2
+    return cache.save(path)
+
+
+@pytest.mark.parametrize("network", sorted(PACKAGED))
+def test_packaged_plans_match_reference(network, tmp_path):
+    fresh = write_reference_plans(network, PACKAGED[network],
+                                  str(tmp_path / f"{network}.plans.json"))
+    with open(fresh) as f, open(packaged_plans(network)) as g:
+        assert json.load(g) == json.load(f)
+
+
+@pytest.mark.parametrize("network", sorted(CNN_CONFIGS))
+def test_network_id_matches_reference(network):
+    ref = CNN_CONFIGS[network]
+    port = port_networks.CNN_CONFIGS[network]
+    assert repr(port.layers) == repr(ref.layers)
+    assert port_plan_cache.network_id(port) == network_id(ref)
+    assert (port_plan_cache.network_id(port_networks.reduced_cnn(port))
+            == network_id(reduced_cnn(ref)))
+
+
+@pytest.mark.parametrize("name", ["float32", "fp32", "f32", "bf16",
+                                  "bfloat16", "fp16", "int8", "i8"])
+def test_dtype_names_match_reference(name):
+    canon = port_dtypes.canon_dtype(name)
+    assert canon == ref_dtypes.canon_dtype(name)
+    assert port_dtypes.dtype_bytes(name) == ref_dtypes.dtype_bytes(name)
+    assert (port_dtypes.torch_dtype(name).itemsize
+            == port_dtypes.dtype_bytes(name))
+    with pytest.raises(ValueError, match="unknown storage dtype"):
+        port_dtypes.canon_dtype("fp8")
+
+
+def test_vgg16_bucket32_flips_conv1_1_to_chwn():
+    cache = port_plan_cache.PlanCache(str(packaged_plans("vgg16")))
+    cfg = port_networks.CNN_CONFIGS["vgg16"]
+    big = cache.peek_fused(cfg, 32, stack="off")
+    assert big.conv_signature == "C" + "N" * 12
+    conv1_1 = big.ops[0]
+    assert (conv1_1.name, conv1_1.kind) == ("conv1_1", "conv")
+    assert (conv1_1.src_layout, conv1_1.layout,
+            conv1_1.dst_layout) == ("NCHW", "CHWN", "NCHW")
+    assert cache.peek_fused(cfg, 8, stack="off").conv_signature == "N" * 13
+    assert big.transforms == [] and big.stacked_convs == 0
+
+
+def test_alexnet_bucket128_runs_every_conv_on_chwn():
+    cache = port_plan_cache.PlanCache(str(packaged_plans("alexnet")))
+    plan = cache.peek_fused(port_networks.CNN_CONFIGS["alexnet"], 128,
+                            stack="off")
+    assert plan.conv_signature == "CCCCC"
+    convs = [op for op in plan.ops if op.kind == "conv"]
+    assert [(op.src_layout, op.dst_layout) for op in convs] == [
+        ("NCHW", "CHWN"), ("CHWN", "CHWN"), ("CHWN", "CHWN"),
+        ("CHWN", "CHWN"), ("CHWN", "NCHW")]
+
+
+def test_plan_cache_miss_raises_and_never_plans(tmp_path):
+    cache = port_plan_cache.PlanCache(str(packaged_plans("vgg16")))
+    cfg = port_networks.CNN_CONFIGS["vgg16"]
+    with pytest.raises(port_plan_cache.PlanMissError, match="no planner"):
+        cache.fused_plan(cfg, 4, stack="auto")
+    plan, bucket, hit = cache.fused_plan(cfg, 5, stack="off")
+    assert (bucket, hit) == (8, True) and cache.planner_calls == 0
+    # what the port saves, the reference loads to the same plans
+    out = cache.save(str(tmp_path / "resaved.json"))
+    ref = PlanCache(out)
+    assert ref.corrupt_recoveries == []
+    ref_plan = ref.peek_fused(CNN_CONFIGS["vgg16"], 5, stack="off")
+    assert ref_plan.conv_signature == plan.conv_signature
+
+
+def test_corrupt_plan_file_raises(tmp_path):
+    path = tmp_path / "vgg16.plans.json"
+    obj = json.loads(packaged_plans("vgg16").read_text())
+    obj["fused"][0]["plan"]["total_s"] += 1.0     # stale checksum
+    path.write_text(json.dumps(obj))
+    with pytest.raises(port_plan_cache.CorruptStateError, match="checksum"):
+        port_plan_cache.PlanCache(str(path))
+
+
+if __name__ == "__main__":
+    for net, mb in PACKAGED.items():
+        dst = packaged_plans(net)
+        os.makedirs(dst.parent, exist_ok=True)
+        print(write_reference_plans(net, mb, str(dst)), file=sys.stderr)
