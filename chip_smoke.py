@@ -5,20 +5,30 @@
 
 1. Prints the card (``nvidia-smi`` name and power limit) and builds the
    kernels from this checkout's CUDA sources with nvcc (sm_90a), timed.
-2. Kernel phase: for every distinct conv and softmax launch of the served
-   plans (full-width VGG16 at buckets 32 and 8, AlexNet at bucket 128), runs
-   the kernel and its plain PyTorch version on the same inputs on the card,
-   holds them together (conv rtol 1e-4 / atol 1e-3, softmax atol 1e-6) and
-   times the kernel, the plain version and one library call for the same
-   function (cuDNN conv + ReLU + pool; torch.softmax) with CUDA events.
-3. Serving phase, the main path: 40 seeded requests of full-width VGG16
-   through ``CNNServer(max_bucket=32)`` (one batch at bucket 32, one at 8)
-   and 128 of AlexNet (one batch at bucket 128).  Every answer is held
-   against the torch engine on the card (max abs 1e-5), and each kernel's
-   launch count must equal what the plans call for.  Afterwards each
-   batch's whole forward is timed warm (CUDA events) through the kernels
-   and through the torch engine.
-4. Prints one JSON line of every kernel (launches, error, times, bound),
+2. Kernel phase: for every distinct launch of the served plans (conv K1/K2,
+   conv->conv stack K5a/K5b, softmax K4), runs the kernel and its plain
+   PyTorch version on the same inputs on the card, holds them together
+   (conv and stack rtol 1e-4 / atol 1e-3, softmax atol 1e-6) and times the
+   kernel, the plain version and one library chain for the same function
+   (cuDNN conv [+ residual] + ReLU [+ pool], twice for a stack;
+   torch.softmax) with CUDA events.
+3. Serving phase, the main path, each path with the launch counts zeroed
+   just before it and read just after, through ``CNNServer(reduced=False)``
+   at full width:
+     stack="off" (the reference's second rung): 40 seeded VGG16 requests at
+       max_bucket 32 (one batch at bucket 32, one at 8), 128 AlexNet
+       requests at max_bucket 128;
+     stack="auto" (its top rung, conv->conv stacks): the same VGG16 and
+       AlexNet traffic, and 40 ResNet-18 requests at max_bucket 32.
+   Every answer is held against the torch engine on the card (max abs
+   1e-5), and each kernel's launch count must equal what the plans call
+   for.  Afterwards each batch's whole forward is timed warm (CUDA events)
+   through the kernels and through the torch engine.
+4. Stacked against unstacked: for VGG16 and ResNet-18 at bucket 32, the
+   warm whole forward at stack "auto", at "off" and through the torch
+   engine, and the peak device memory of one forward at "auto" and "off"
+   (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``).
+5. Prints one JSON line of every kernel (launches, error, times, bound),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
 TF32 is off throughout.  Any failure raises: the script then exits
@@ -50,8 +60,10 @@ from repro_torch.configs.cnn_networks import CNN_CONFIGS  # noqa: E402
 from repro_torch.core.layout import perm_between  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv.ops import (conv_direct_chwn,  # noqa: E402
-                                          conv_im2col_nchw_fused)
-from repro_torch.kernels.conv.ref import conv_ref  # noqa: E402
+                                          conv_im2col_nchw_fused,
+                                          conv_stack_chwn, conv_stack_nchw,
+                                          stack_tiling)
+from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref  # noqa: E402
 from repro_torch.kernels.softmax.ops import softmax  # noqa: E402
 from repro_torch.kernels.softmax.ref import softmax_ref  # noqa: E402
 from repro_torch.launch.cnn_serve import (CNNServer,  # noqa: E402
@@ -67,8 +79,12 @@ CONV_RTOL, CONV_ATOL = 1e-4, 1e-3
 SOFTMAX_ATOL = 1e-6
 PROBS_ATOL = 1e-5
 
-# the main path: (network, max_bucket, requests)
-SERVED = [("vgg16", 32, 40), ("alexnet", 128, 128)]
+# the main path: (network, max_bucket, requests, stack policy)
+SERVED = [("vgg16", 32, 40, "off"), ("alexnet", 128, 128, "off"),
+          ("vgg16", 32, 40, "auto"), ("alexnet", 128, 128, "auto"),
+          ("resnet18", 32, 40, "auto")]
+# stacked against unstacked: (network, bucket)
+COMPARED = [("vgg16", 32), ("resnet18", 32)]
 
 KERNELS = {
     "conv_chwn": {"route": "cuda",
@@ -80,7 +96,17 @@ KERNELS = {
     "softmax": {"route": "cuda",
                 "source": "src/repro_torch/kernels/softmax/csrc/softmax.cu",
                 "replaces": "src/repro/kernels/softmax/softmax.py:27"},
+    "conv_stack_chwn": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/conv/csrc/conv_stack_chwn.cu",
+        "replaces": "src/repro/kernels/conv/stack.py:192"},
+    "conv_stack_nchw": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/conv/csrc/conv_stack_nchw.cu",
+        "replaces": "src/repro/kernels/conv/stack.py:292"},
 }
+STACK_KERNELS = {"conv_stack_chwn": ("CHWN", conv_stack_chwn),
+                 "conv_stack_nchw": ("NCHW", conv_stack_nchw)}
 
 
 def card_line() -> str:
@@ -130,14 +156,16 @@ def bound_ms(flops: float, nbytes: float):
 
 # -- the launches the served plans make ------------------------------------
 
-def plan_launches(network: str, bucket: int):
-    """(kernel, case) for every kernel launch of the packaged plan of
-    ``network`` at ``bucket``, in plan order."""
+def plan_launches(network: str, bucket: int, stack: str):
+    """(kernel, case) for every kernel launch of the packaged ``stack``
+    plan of ``network`` at ``bucket``, in plan order.  A conv case carries
+    its folded residual's layout (None without one)."""
     cfg = CNN_CONFIGS[network].replace(batch=bucket)
     plan = PlanCache(str(packaged_plans(network))).peek_fused(
-        cfg, bucket, stack="off")
+        cfg, bucket, stack=stack)
     if plan is None:
-        raise LookupError(f"no packaged {network} plan at bucket {bucket}")
+        raise LookupError(f"no packaged {network} plan at bucket {bucket} "
+                          f"(stack={stack})")
     shapes, rins = layer_shapes(cfg), resolved_cfg_inputs(cfg)
     out = []
     for op in plan.ops:
@@ -149,23 +177,66 @@ def plan_launches(network: str, bucket: int):
             if op.pool_index is not None:
                 ps = cfg.layers[op.pool_index]
                 pool = (ps.kernel, ps.stride, ps.pool_op)
+            res = op.res_layout if op.res_index is not None else None
+            if op.stack_index is not None:
+                spec2 = cfg.layers[op.stack_index]
+                kern = ("conv_stack_chwn" if op.layout == "CHWN"
+                        else "conv_stack_nchw")
+                out.append((kern, (bucket, ci, h, spec.out_channels,
+                                   spec2.out_channels, spec.kernel,
+                                   spec.stride, spec.pad, spec2.kernel,
+                                   spec2.stride, spec2.pad, pool,
+                                   op.stack_relu, op.relu, res,
+                                   op.src_layout, op.dst_layout)))
+                continue
             kern = "conv_chwn" if op.layout == "CHWN" else "conv_nchw"
             out.append((kern, (bucket, ci, h, spec.out_channels, spec.kernel,
-                               spec.stride, spec.pad, pool, op.relu,
+                               spec.stride, spec.pad, pool, op.relu, res,
                                op.src_layout, op.dst_layout)))
         elif op.kind == "softmax":
             out.append(("softmax", (bucket, cfg.num_classes)))
     return out
 
 
+def _library_epilogue(y, r_nchw, relu: bool, pool):
+    if r_nchw is not None:
+        y = y + r_nchw
+    if relu:
+        y = torch.relu_(y)
+    if pool is not None:
+        y = (nnf.max_pool2d(y, pool[0], pool[1]) if pool[2] == "max"
+             else nnf.avg_pool2d(y, pool[0], pool[1]))
+    return y
+
+
+def _measure(kernel, plain, library, flops: float, nbytes: float) -> dict:
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rel = err / max(want.abs().max().item(), 1e-30)
+    torch.testing.assert_close(got, want, rtol=CONV_RTOL, atol=CONV_ATOL)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    return {"max_abs_err": err, "max_rel_err": rel, "ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": nbytes}
+
+
 def conv_case(kern: str, case, dev, seed: int) -> dict:
-    N, Ci, H, Co, F, S, pad, pool, relu, src, dst = case
+    N, Ci, H, Co, F, S, pad, pool, relu, rlay, src, dst = case
     gen = torch.Generator(device=dev).manual_seed(seed)
+    Ho = conv_out_hw(H, F, S, pad)
     x_nchw = torch.randn(N, Ci, H, H, device=dev, generator=gen)
     w = torch.randn(Co, Ci, F, F, device=dev, generator=gen) \
         / math.sqrt(Ci * F * F)
+    r_nchw = (torch.randn(N, Co, Ho, Ho, device=dev, generator=gen)
+              if rlay else None)
     x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
-    kw = dict(relu=relu, pool=pool, src_layout=src, dst_layout=dst)
+    r = (r_nchw.permute(perm_between("NCHW", rlay)).contiguous()
+         if rlay else None)
+    engine = "CHWN" if kern == "conv_chwn" else "NCHW"
+    kw = dict(relu=relu, pool=pool, res=r, res_layout=rlay or engine,
+              src_layout=src, dst_layout=dst)
     if kern == "conv_chwn":
         wk = w.permute(1, 2, 3, 0).contiguous()
 
@@ -179,27 +250,66 @@ def conv_case(kern: str, case, dev, seed: int) -> dict:
         return conv_ref(x, w, S, pad, **kw)
 
     def library():
-        y = nnf.conv2d(x_nchw, w, stride=S, padding=pad)
-        if relu:
-            y = torch.relu_(y)
-        if pool is not None:
-            y = (nnf.max_pool2d(y, pool[0], pool[1]) if pool[2] == "max"
-                 else nnf.avg_pool2d(y, pool[0], pool[1]))
-        return y
+        return _library_epilogue(nnf.conv2d(x_nchw, w, stride=S, padding=pad),
+                                 r_nchw, relu, pool)
 
-    got, want = kernel(), plain()
-    torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    rel = err / max(want.abs().max().item(), 1e-30)
-    torch.testing.assert_close(got, want, rtol=CONV_RTOL, atol=CONV_ATOL)
-    Ho = conv_out_hw(H, F, S, pad)
     flops = 2.0 * N * Co * Ho * Ho * Ci * F * F
-    nbytes = 4.0 * (x.numel() + w.numel() + got.numel())
-    b_ms, b_by = bound_ms(flops, nbytes)
-    return {"max_abs_err": err, "max_rel_err": rel, "ms": cuda_ms(kernel),
-            "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
-            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-            "bytes": nbytes}
+    out_hw = Ho if pool is None else (Ho - pool[0]) // pool[1] + 1
+    nbytes = 4.0 * (x.numel() + w.numel() + N * Co * out_hw * out_hw
+                    + (r.numel() if rlay else 0))
+    return _measure(kernel, plain, library, flops, nbytes)
+
+
+def stack_case(kern: str, case, dev, seed: int) -> dict:
+    (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, relu2, rlay,
+     src, dst) = case
+    engine, wrapper = STACK_KERNELS[kern]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Ho1 = conv_out_hw(H, F1, S1, P1)
+    Ho2 = conv_out_hw(Ho1, F2, S2, P2)
+    x_nchw = torch.randn(N, Ci, H, H, device=dev, generator=gen)
+    w1 = torch.randn(Cm, Ci, F1, F1, device=dev, generator=gen) \
+        / math.sqrt(Ci * F1 * F1)
+    w2 = torch.randn(Co, Cm, F2, F2, device=dev, generator=gen) \
+        / math.sqrt(Cm * F2 * F2)
+    r_nchw = (torch.randn(N, Co, Ho2, Ho2, device=dev, generator=gen)
+              if rlay else None)
+    x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
+    r = (r_nchw.permute(perm_between("NCHW", rlay)).contiguous()
+         if rlay else None)
+    kw = dict(relu1=relu1, relu2=relu2, pool=pool, res=r,
+              res_layout=rlay or engine, src_layout=src, dst_layout=dst)
+    if engine == "CHWN":
+        w1k = w1.permute(1, 2, 3, 0).contiguous()
+        w2k = w2.permute(1, 2, 3, 0).contiguous()
+    else:
+        w1k, w2k = w1, w2
+
+    def kernel():
+        return wrapper(x, w1k, w2k, S1, P1, S2, P2, **kw)
+
+    def plain():
+        return conv_stack_ref(x, w1, w2, S1, P1, S2, P2, **kw)
+
+    def library():
+        y = nnf.conv2d(x_nchw, w1, stride=S1, padding=P1)
+        if relu1:
+            y = torch.relu_(y)
+        return _library_epilogue(nnf.conv2d(y, w2, stride=S2, padding=P2),
+                                 r_nchw, relu2, pool)
+
+    flops = 2.0 * N * (Cm * Ho1 * Ho1 * Ci * F1 * F1
+                       + Co * Ho2 * Ho2 * Cm * F2 * F2)
+    out_hw = Ho2 if pool is None else (Ho2 - pool[0]) // pool[1] + 1
+    nbytes = 4.0 * (x.numel() + w1.numel() + w2.numel()
+                    + N * Co * out_hw * out_hw + (r.numel() if rlay else 0))
+    m = _measure(kernel, plain, library, flops, nbytes)
+    t = stack_tiling(engine, N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2,
+                     pool)
+    m.update(executed_flops=float(t.executed_flops),
+             smem_bytes=t.smem_bytes, blocks=t.blocks,
+             tile={"bm": t.bm, "nb": t.nb, "uth": t.uth, "utw": t.utw})
+    return m
 
 
 def softmax_case(case, dev, seed: int) -> dict:
@@ -233,12 +343,12 @@ def kernel_phase(dev):
     """Measure every distinct launch of the main path once; returns the
     cases with their multiplicity (launches on the main path)."""
     mult, batches = {}, []
-    for network, cap, n_req in SERVED:
+    for network, cap, n_req, stack in SERVED:
         for B in batch_sizes(n_req, cap):
             bucket = PlanCache(str(packaged_plans(network)),
                                max_bucket=cap).bucket(B)
-            keys = plan_launches(network, bucket)
-            batches.append((network, bucket, keys))
+            keys = plan_launches(network, bucket, stack)
+            batches.append((network, bucket, stack, keys))
             for kern, case in keys:
                 row = mult.setdefault((kern, case), {
                     "network": network, "kernel": kern, "case": case,
@@ -246,25 +356,36 @@ def kernel_phase(dev):
                 row["launches"] += 1
     for i, ((kern, case), row) in enumerate(mult.items()):
         t0 = time.perf_counter()
-        m = (softmax_case(case, dev, i) if kern == "softmax"
-             else conv_case(kern, case, dev, i))
+        if kern == "softmax":
+            m = softmax_case(case, dev, i)
+        elif kern in STACK_KERNELS:
+            m = stack_case(kern, case, dev, i)
+        else:
+            m = conv_case(kern, case, dev, i)
         row.update(m)
-        print(f"kernel {kern:<9s} {row['network']:<7s} case={case} "
+        extra = ""
+        if kern in STACK_KERNELS:
+            extra = (f" executed_GFLOP={m['executed_flops'] / 1e9:.2f} "
+                     f"direct_GFLOP={m['flops'] / 1e9:.2f} "
+                     f"smem_per_block={m['smem_bytes']} "
+                     f"blocks={m['blocks']} tile={m['tile']}")
+        print(f"kernel {kern:<15s} {row['network']:<8s} case={case} "
               f"x{row['launches']}: max_abs_err={m['max_abs_err']:.3g} "
               f"max_rel_err={m['max_rel_err']:.3g} ms={m['ms']:.4f} "
               f"plain_ms={m['plain_ms']:.4f} "
               f"library_ms={m['library_ms']:.4f} "
-              f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}) "
+              f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}){extra} "
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
     # per served forward: each kernel's launches summed
-    for network, bucket, keys in batches:
+    for network, bucket, stack, keys in batches:
         for kern in KERNELS:
             rows = [mult[k] for k in keys if k[0] == kern]
             if rows:
                 tot = {f: sum(r[f] for r in rows)
                        for f in ("ms", "plain_ms", "library_ms", "bound_ms",
                                  "flops", "bytes")}
-                print(f"forward {network} bucket={bucket} {kern}: "
+                print(f"forward {network} bucket={bucket} stack={stack} "
+                      f"{kern}: "
                       f"launches={len(rows)} ms={tot['ms']:.4f} "
                       f"plain_ms={tot['plain_ms']:.4f} "
                       f"library_ms={tot['library_ms']:.4f} "
@@ -280,8 +401,9 @@ def serving_phase(dev):
     """Serve the main path through CNNServer; returns launches per kernel
     over the whole main path."""
     total = {k: 0 for k in K.WRAPPERS}
-    for network, cap, n_req in SERVED:
-        srv = CNNServer(network, reduced=False, max_bucket=cap, seed=0)
+    for network, cap, n_req, stack in SERVED:
+        srv = CNNServer(network, reduced=False, max_bucket=cap, seed=0,
+                        stack=stack)
         rng = np.random.default_rng(1)
         c, h = srv.cfg.in_channels, srv.cfg.image_hw
         images = [rng.standard_normal((c, h, h), np.float32)
@@ -298,9 +420,9 @@ def serving_phase(dev):
         params = srv.model.params()
         for B in batch_sizes(n_req, cap):
             bucket = srv.cache.bucket(B)
-            for kern, _ in plan_launches(network, bucket):
+            for kern, _ in plan_launches(network, bucket, stack):
                 want_counts[kern] += 1
-            plan = srv.cache.peek_fused(srv.cfg, B, stack="off")
+            plan = srv.cache.peek_fused(srv.cfg, B, stack=stack)
             x = torch.from_numpy(np.stack(images[start:start + B])).to(dev)
             xb = pad_to_bucket(x, bucket)
             y, _ = forward_fused(params, xb, srv.cfg, plan, impl="torch")
@@ -320,20 +442,22 @@ def serving_phase(dev):
             err = float(np.abs(got - want).max())
             if err > PROBS_ATOL:
                 raise AssertionError(
-                    f"{network} bucket {bucket}: served probabilities differ "
+                    f"{network} bucket {bucket} stack={stack}: served "
+                    f"probabilities differ "
                     f"from the torch engine by {err:.3g} > {PROBS_ATOL}")
             worst = max(worst, err)
             start += B
         if counts != want_counts:
-            raise AssertionError(f"{network}: launches {counts} != the "
-                                 f"plans' {want_counts}")
-        print(f"serve {network}: {n_req} requests in {wall:.3f}s, launches "
-              f"{counts} (= the plans'), max |probs - torch engine| = "
-              f"{worst:.3g}")
+            raise AssertionError(f"{network} stack={stack}: launches "
+                                 f"{counts} != the plans' {want_counts}")
+        print(f"serve {network} stack={stack}: {n_req} requests in "
+              f"{wall:.3f}s, launches {counts} (= the plans'), max |probs - "
+              f"torch engine| = {worst:.3g}")
         for line in srv.report_lines():
             print(line)
         for bucket, ms_k, ms_t in warm:
-            print(f"warm forward {network} bucket={bucket}: kernels "
+            print(f"warm forward {network} bucket={bucket} stack={stack}: "
+                  f"kernels "
                   f"{ms_k:.3f} ms ({1e3 * bucket / ms_k:.1f} img/s), torch "
                   f"engine (cuDNN, TF32 off) {ms_t:.3f} ms "
                   f"({1e3 * bucket / ms_t:.1f} img/s)")
@@ -342,6 +466,60 @@ def serving_phase(dev):
         del srv
         torch.cuda.empty_cache()
     return total
+
+
+def stack_compare(dev):
+    """Warm whole-forward time and peak device memory of one forward,
+    stacked ("auto") against unstacked ("off") plans, on the same weights
+    and batch; the torch engine's forward beside them.  Outside the main
+    path: these launches are not counted."""
+    out = []
+    for network, bucket in COMPARED:
+        srv = CNNServer(network, reduced=False, max_bucket=bucket, seed=0)
+        cfg, params = srv.cfg, srv.model.params()
+        rng = np.random.default_rng(2)
+        x = torch.from_numpy(rng.standard_normal(
+            (bucket, cfg.in_channels, cfg.image_hw, cfg.image_hw),
+            np.float32)).to(dev)
+        plans = {s: srv.cache.peek_fused(cfg, bucket, stack=s)
+                 for s in ("auto", "off")}
+        row = {"network": network, "bucket": bucket}
+        ys = {}
+        for s, plan in plans.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            y, st = forward_fused(params, x, cfg, plan)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            ys[s] = y
+            row[s] = {"peak_bytes": peak, "peak_over_base_bytes": peak - base,
+                      "modeled_bytes": st.hbm_bytes,
+                      "stacks": plan.stacked_convs,
+                      "ms": cuda_ms(lambda plan=plan: forward_fused(
+                          params, x, cfg, plan), max_reps=20)}
+        row["torch_ms"] = cuda_ms(lambda: forward_fused(
+            params, x, cfg, plans["off"], impl="torch"), max_reps=20)
+        diff = (ys["auto"] - ys["off"]).abs().max().item()
+        if diff > PROBS_ATOL:
+            raise AssertionError(f"{network}: stacked and unstacked "
+                                 f"forwards differ by {diff:.3g}")
+        a, o = row["auto"], row["off"]
+        print(f"stacked vs unstacked {network} bucket={bucket}: warm "
+              f"forward auto {a['ms']:.3f} ms, off {o['ms']:.3f} ms, torch "
+              f"engine {row['torch_ms']:.3f} ms; peak device memory of one "
+              f"forward auto {a['peak_bytes'] / 2**20:.1f} MiB (+"
+              f"{a['peak_over_base_bytes'] / 2**20:.1f} over weights and "
+              f"input), off {o['peak_bytes'] / 2**20:.1f} MiB (+"
+              f"{o['peak_over_base_bytes'] / 2**20:.1f}); modeled MB auto "
+              f"{a['modeled_bytes'] / 1e6:.1f}, off "
+              f"{o['modeled_bytes'] / 1e6:.1f}; stacks {a['stacks']}; "
+              f"max |auto - off| = {diff:.3g}", flush=True)
+        out.append(row)
+        del srv, params, ys, x
+        torch.cuda.empty_cache()
+    return out
 
 
 def kernels_line(cases, launches) -> dict:
@@ -401,11 +579,16 @@ def main() -> int:
         t0 = time.perf_counter()
         launches = serving_phase(dev)
         print(f"serving phase: {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        compared = stack_compare(dev)
+        print(f"stack comparison: {time.perf_counter() - t0:.1f}s",
+              flush=True)
     line = kernels_line(cases, launches)
     if args.json:
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"card": card, "cases": cases, **line,
+                                   "stack_compare": compared,
                                    "ptxas": ptxas.getvalue()}, indent=1))
     print(json.dumps(line))
     print(card)

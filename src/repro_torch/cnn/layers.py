@@ -3,7 +3,8 @@
 Every op executes natively in its assigned layout.  ``impl`` selects the
 engine:
   * "cuda"  — the hand-written kernels (direct-CHWN conv K1, virtual-im2col
-              NCHW conv K2, fused softmax K4), the counterpart of the
+              NCHW conv K2, fused softmax K4, conv->conv stacks K5a/K5b),
+              the counterpart of the
               reference's "pallas" engine.  A CPU tensor runs each kernel's
               plain version instead; a CUDA tensor runs the kernel.
   * "torch" — the decomposed plain PyTorch engine (the counterpart of the
@@ -23,7 +24,8 @@ from torch.nn import functional as nnf
 from repro_torch.configs.base import CNNConfig
 from repro_torch.core.transform import apply_transform
 from repro_torch.kernels.conv.ops import (conv_direct_chwn,
-                                          conv_im2col_nchw_fused)
+                                          conv_im2col_nchw_fused,
+                                          conv_stack_chwn, conv_stack_nchw)
 from repro_torch.kernels.conv.ref import conv_ref
 from repro_torch.kernels.softmax.ops import softmax as softmax_kernel
 from repro_torch.kernels.softmax.ref import softmax_ref
@@ -66,6 +68,42 @@ def fused_conv_block(x: torch.Tensor, w: torch.Tensor, layout: str,
                                 stride, pad, **kw)
     if layout == "NCHW":
         return conv_im2col_nchw_fused(x, w, stride, pad, **kw)
+    raise ValueError(f"no conv engine computes in layout {layout!r}")
+
+
+def fused_conv_stack(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                     layout: str, stride1: int = 1, pad1: int = 0,
+                     stride2: int = 1, pad2: int = 0, *, relu1: bool = False,
+                     relu2: bool = False,
+                     pool: Optional[Tuple[int, int, str]] = None,
+                     res: Optional[torch.Tensor] = None,
+                     res_layout: Optional[str] = None,
+                     src_layout: Optional[str] = None,
+                     dst_layout: Optional[str] = None,
+                     impl: str = "cuda") -> torch.Tensor:
+    """Cross-layer stack node: conv1[+relu] -> conv2[+residual add][+relu]
+    [+pool] executed natively in ``layout``.  ``w1``/``w2`` are canonical
+    [Co, Ci, F, F].  ``impl="cuda"`` runs it as ONE kernel (K5a for CHWN,
+    K5b for NCHW) whose mid activation never reaches device memory;
+    ``impl="torch"`` decomposes it into two conv blocks (the oracle)."""
+    _check_impl(impl)
+    src = src_layout or layout
+    dst = dst_layout or layout
+    rlay = res_layout or layout
+    if impl == "torch":
+        y = fused_conv_block(x, w1, layout, stride1, pad1, relu=relu1,
+                             src_layout=src, impl="torch")
+        return fused_conv_block(y, w2, layout, stride2, pad2, relu=relu2,
+                                pool=pool, res=res, res_layout=rlay,
+                                dst_layout=dst, impl="torch")
+    kw = dict(relu1=relu1, relu2=relu2, pool=pool, res=res, res_layout=rlay,
+              src_layout=src, dst_layout=dst)
+    if layout == "CHWN":
+        return conv_stack_chwn(x, w1.permute(1, 2, 3, 0).contiguous(),
+                               w2.permute(1, 2, 3, 0).contiguous(), stride1,
+                               pad1, stride2, pad2, **kw)
+    if layout == "NCHW":
+        return conv_stack_nchw(x, w1, w2, stride1, pad1, stride2, pad2, **kw)
     raise ValueError(f"no conv engine computes in layout {layout!r}")
 
 

@@ -3,13 +3,14 @@
 ``forward_fused`` runs a ``FusedPlan`` op by op: each conv op is ONE
 kernel launch that folds its ReLU, its pool and every re-layout into the
 conv's output write (or its input read), so no standalone transform pass
-runs on a stock plan.  ``RunStats`` reports the modeled device-memory
-traffic with the reference's accounting, so the two packages report the
-same bytes for the same plan.
+runs on a stock plan.  A stack op (``op.stack_index``) runs two convs in
+one launch, and their mid activation is never stored.  ``RunStats``
+reports the modeled device-memory traffic with the reference's accounting,
+so the two packages report the same bytes for the same plan.
 
-Inference at one uniform dtype is what runs here; conv->conv stack ops
-(the stack kernel K5), int8 storage boundaries and training raise
-``NotImplementedError``.  ``FusedCNN`` owns the parameters for a server.
+Inference at one uniform dtype is what runs here; int8 storage boundaries
+and training raise ``NotImplementedError``.  ``FusedCNN`` owns the
+parameters for a server.
 """
 from __future__ import annotations
 
@@ -73,10 +74,11 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
     (class probabilities [N, classes], stats).
 
     ``impl="cuda"`` executes each conv op as one kernel (K1 for a CHWN op,
-    K2 for an NCHW op) and the softmax as K4; ``impl="torch"`` decomposes
-    them into plain PyTorch (the oracle).  Tensors are addressed by
-    producer layer index (``op.inputs``/``op.out_index``) and refcounted,
-    so a branch buffer lives exactly until its last consumer."""
+    K2 for an NCHW op, K5a/K5b for a stack op) and the softmax as K4;
+    ``impl="torch"`` decomposes them into plain PyTorch (the oracle).
+    Tensors are addressed by producer layer index (``op.inputs``/
+    ``op.out_index``) and refcounted, so a branch buffer lives exactly
+    until its last consumer."""
     if training:
         raise NotImplementedError(
             "fused training needs the backward kernels (K6 wgrad, K7 pool "
@@ -111,16 +113,36 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
     for op in plan.ops:
         spec = cfg.layers[op.index]
         x, cur = take(op.inputs[0] if op.inputs else prev_key)
-        if op.stack_index is not None:
-            raise NotImplementedError(
-                f"op {op.name!r} is a conv->conv stack; the stack kernel K5 "
-                "(repro/kernels/conv/stack.py) is not ported yet: run a "
-                "stack='off' plan")
         if _is_int8(op.src_dtype) or _is_int8(op.dst_dtype):
             raise NotImplementedError(
                 f"op {op.name!r} stores int8; mixed-dtype plans are not "
                 "ported yet: run a policy='uniform' plan")
-        if op.kind == "conv":
+        if op.kind == "conv" and op.stack_index is not None:
+            # conv->conv stack: ``op.index`` is conv1, ``op.stack_index``
+            # conv2; the mid activation stays on chip, so the bytes are the
+            # input, both weights and the final output (+ the skip's read)
+            spec2 = cfg.layers[op.stack_index]
+            p1, p2 = params[spec.name], params[spec2.name]
+            pool = None
+            if op.pool_index is not None:
+                ps = cfg.layers[op.pool_index]
+                pool = (ps.kernel, ps.stride, ps.pool_op)
+            res = res_lay = None
+            if op.res_index is not None:   # residual folds into conv2
+                res, res_lay = take(op.res_index)
+                stats.hbm_bytes += _nbytes(res)
+            in_b = _nbytes(x)
+            x = CL.fused_conv_stack(x, p1["w"], p2["w"], op.layout,
+                                    spec.stride, spec.pad, spec2.stride,
+                                    spec2.pad, relu1=op.stack_relu,
+                                    relu2=op.relu, pool=pool, res=res,
+                                    res_layout=res_lay, src_layout=cur,
+                                    dst_layout=op.dst_layout, impl=impl)
+            stats.hbm_bytes += (in_b + _nbytes(p1["w"]) + _nbytes(p2["w"])
+                                + _nbytes(x))
+            stats.fused_ops += 1
+            cur = op.dst_layout
+        elif op.kind == "conv":
             p = params[spec.name]
             pool = None
             if op.pool_index is not None:

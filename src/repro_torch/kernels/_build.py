@@ -39,6 +39,11 @@ SIGNATURES: Dict[str, List] = {
     # pool_avg, relu, src_nchw, dst_nchw, res_nchw, stream
     "conv_chwn_forward": [P] * 5 + [I] * 15 + [P],
     "conv_nchw_forward": [P] * 5 + [I] * 15 + [P],
+    # x, w1, b1, w2, b2, res, y, N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2,
+    # P2, pool_F, pool_S, pool_avg, relu1, relu2, src_nchw, dst_nchw,
+    # res_nchw, bm, nb, uth, utw, stream
+    "conv_stack_chwn_forward": [P] * 7 + [I] * 24 + [P],
+    "conv_stack_nchw_forward": [P] * 7 + [I] * 24 + [P],
     # x, y, rows, cols, stream
     "softmax_forward": [P, P, I, I, P],
 }

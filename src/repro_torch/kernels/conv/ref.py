@@ -1,11 +1,13 @@
-"""Plain PyTorch version of the fused conv block both conv kernels compute.
+"""Plain PyTorch versions of what the conv kernels compute.
 
-permute to NCHW -> conv2d (+bias) -> +residual -> ReLU -> max/avg pool ->
-permute to the destination layout.  The wrappers in ``ops.py`` run it for
-tensors on the CPU, and the tests and ``chip_smoke.py`` hold the kernels
-against it.  On the card, compare it with TF32 off
-(``torch.backends.cudnn.allow_tf32 = False``): cuDNN's default keeps only
-about three digits of an fp32 conv.
+``conv_ref`` (K1, K2): permute to NCHW -> conv2d (+bias) -> +residual ->
+ReLU -> max/avg pool -> permute to the destination layout.
+``conv_stack_ref`` (K5a, K5b): two ``conv_ref`` calls, conv1 (+bias1,
++ReLU) into the mid tensor and conv2 with the full epilogue.  The wrappers
+in ``ops.py`` run them for tensors on the CPU, and the tests and
+``chip_smoke.py`` hold the kernels against them.  On the card, compare
+them with TF32 off (``torch.backends.cudnn.allow_tf32 = False``): cuDNN's
+default keeps only about three digits of an fp32 conv.
 """
 from __future__ import annotations
 
@@ -38,3 +40,23 @@ def conv_ref(x: torch.Tensor, w_oihw: torch.Tensor, stride: int = 1,
         y = (F.max_pool2d(y, pF, pS) if op == "max"
              else F.avg_pool2d(y, pF, pS))
     return y.permute(perm_between("NCHW", dst_layout)).contiguous()
+
+
+def conv_stack_ref(x: torch.Tensor, w1_oihw: torch.Tensor,
+                   w2_oihw: torch.Tensor, stride1: int = 1, pad1: int = 0,
+                   stride2: int = 1, pad2: int = 0, *,
+                   bias1: Optional[torch.Tensor] = None,
+                   bias2: Optional[torch.Tensor] = None, relu1: bool = True,
+                   relu2: bool = False,
+                   pool: Optional[Tuple[int, int, str]] = None,
+                   res: Optional[torch.Tensor] = None,
+                   res_layout: str = "NCHW", src_layout: str = "NCHW",
+                   dst_layout: str = "NCHW") -> torch.Tensor:
+    """conv1 [+bias1] [+ReLU] -> conv2 [+bias2] [+residual] [+ReLU]
+    [+pool], with canonical weights [Cm, Ci, F1, F1] and [Co, Cm, F2, F2].
+    The mid tensor is NCHW here; the stack kernels never store it."""
+    mid = conv_ref(x, w1_oihw, stride1, pad1, bias=bias1, relu=relu1,
+                   src_layout=src_layout, dst_layout="NCHW")
+    return conv_ref(mid, w2_oihw, stride2, pad2, bias=bias2, relu=relu2,
+                    pool=pool, res=res, res_layout=res_layout,
+                    src_layout="NCHW", dst_layout=dst_layout)

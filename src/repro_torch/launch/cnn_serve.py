@@ -8,12 +8,15 @@ the reference planner wrote (``serve.plan_cache``); by default the one
 packaged for the network in ``repro_torch/plans/``.  The port has no
 planner yet, so a bucket without a plan in the file raises.
 
-The plans served are the reference's ``stack="off"`` plans at the uniform
-float32 dtype: every conv op is one K1 (CHWN) or K2 (NCHW) launch and the
-classifier softmax one K4 launch.  There is no degradation ladder: a
-failing kernel raises, and the admitted batch returns to the front of the
-queue first.  The report shows per-bucket plan-cache hit rates, the plans'
-conv layouts, modeled device-memory bytes and images/s.
+The plans served are the reference's plans at the uniform float32 dtype,
+at the server's ``stack`` policy: ``"auto"`` (the reference's top rung,
+``pallas+stacks``) fuses conv->conv pairs into one K5a (CHWN) or K5b
+(NCHW) launch, ``"off"`` (its second rung) does not.  Every other conv op
+is one K1 (CHWN) or K2 (NCHW) launch and the classifier softmax one K4
+launch.  There is no degradation ladder: a failing kernel raises, and the
+admitted batch returns to the front of the queue first.  The report
+shows per-bucket plan-cache hit rates, the plans' conv layouts and stacks,
+modeled device-memory bytes and images/s.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ from repro_torch.serve.plan_cache import PlanCache, pad_to_bucket
 
 PLANS_DIR = Path(__file__).resolve().parents[1] / "plans"
 DTYPE = "float32"
-STACK_POLICY = "off"        # stack plans need the stack kernel K5
+STACK_POLICIES = ("auto", "off")
 
 
 class NonFiniteOutput(RuntimeError):
@@ -89,11 +92,17 @@ class CNNServer:
     ``reduced`` shrinks the big nets to 96 px as the reference server does
     by default; ``reduced=False`` serves the published widths.  The
     weights are random, from ``init_cnn(cfg, seed)``.  ``cache_path``
-    defaults to the packaged plan file of ``network``."""
+    defaults to the packaged plan file of ``network``.  ``stack`` is the
+    plans' stack policy: "auto" (conv->conv stacks, the reference's
+    operating point) or "off"."""
 
     def __init__(self, network: str = "lenet", *, reduced: bool = True,
                  max_bucket: int = 64, cache_path: Optional[str] = None,
-                 device=None, seed: int = 0):
+                 device=None, seed: int = 0, stack: str = "auto"):
+        if stack not in STACK_POLICIES:
+            raise ValueError(f"unknown stack policy {stack!r}; known: "
+                             f"{STACK_POLICIES}")
+        self.stack = stack
         self.device = resolve_device(device)
         cfg = CNN_CONFIGS[network]
         if reduced and cfg.image_hw > 96:
@@ -136,7 +145,7 @@ class CNNServer:
         try:
             t0 = time.perf_counter()
             plan, bucket, hit = self.cache.fused_plan(
-                self.cfg, B, dtype=DTYPE, stack=STACK_POLICY)
+                self.cfg, B, dtype=DTYPE, stack=self.stack)
             x = torch.from_numpy(np.stack([r.image for r in batch]))
             x = pad_to_bucket(x.to(self.device, torch.float32), bucket)
             with torch.inference_mode():
@@ -178,12 +187,12 @@ class CNNServer:
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "cpu")
         lines = [f"net={self.cfg.name} image_hw={self.cfg.image_hw} "
-                 f"dtype={DTYPE} stack={STACK_POLICY} device={dev} "
+                 f"dtype={DTYPE} stack={self.stack} device={dev} "
                  f"planner_calls={self.cache.planner_calls}"]
         for b in sorted(self.reports):
             rep = self.reports[b]
             plan = self.cache.peek_fused(self.cfg, b, dtype=DTYPE,
-                                         stack=STACK_POLICY)
+                                         stack=self.stack)
             ips = rep.images / rep.seconds if rep.seconds else 0.0
             lines.append(
                 f"  bucket={b:<4d} batches={rep.batches:<4d} "
@@ -191,6 +200,7 @@ class CNNServer:
                 f"hit_rate={rep.hit_rate:.2f} "
                 f"conv_layouts={plan.conv_signature} "
                 f"conv_dtypes={plan.dtype_signature} "
+                f"stacks={plan.stacked_convs} "
                 f"modeled_MB={rep.hbm_bytes / 1e6:.1f} img/s={ips:.1f}")
         return lines
 

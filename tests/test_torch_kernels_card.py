@@ -7,8 +7,8 @@ reference package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_kernels_card.py
 
 (``--noconftest``: the repository's conftest imports jax.)  Tolerances:
-conv rtol 1e-4 / atol 1e-3, softmax atol 1e-6, with TF32 off for the plain
-conv (cuDNN's TF32 keeps about three digits).
+conv and conv stack rtol 1e-4 / atol 1e-3, softmax atol 1e-6, with TF32
+off for the plain conv (cuDNN's TF32 keeps about three digits).
 """
 from __future__ import annotations
 
@@ -22,7 +22,7 @@ import torch
 from repro_torch.core.layout import perm_between
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv import ops as conv_ops
-from repro_torch.kernels.conv.ref import conv_ref
+from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref
 from repro_torch.kernels.softmax.ops import softmax
 from repro_torch.kernels.softmax.ref import softmax_ref
 
@@ -156,3 +156,120 @@ def test_softmax_kernel_matches_plain(shape, card):
     torch.cuda.synchronize()
     assert softmax.launches == before + 1
     torch.testing.assert_close(got, softmax_ref(x), rtol=0, atol=1e-6)
+
+
+# conv -> conv stacks (K5a, K5b):
+# (engine, N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, bias,
+#  res_layout or None, src, dst)
+STACK_CASES = [
+    # every main-path stack shape, at a small batch
+    ("NCHW", 2, 3, 224, 64, 64, 3, 1, 1, 3, 1, 1, (2, 2, "max"), True,
+     False, None, "NCHW", "NCHW"),                     # VGG16 conv1_1->1_2
+    ("NCHW", 2, 64, 112, 128, 128, 3, 1, 1, 3, 1, 1, (2, 2, "max"), True,
+     False, None, "NCHW", "NCHW"),                     # VGG16 conv2_1->2_2
+    ("NCHW", 2, 128, 56, 256, 256, 3, 1, 1, 3, 1, 1, None, True, False,
+     None, "NCHW", "NCHW"),                            # VGG16 conv3_1->3_2
+    ("CHWN", 16, 256, 13, 384, 384, 3, 1, 1, 3, 1, 1, None, True, False,
+     None, "CHWN", "CHWN"),                            # AlexNet conv3->4
+    ("NCHW", 2, 64, 55, 64, 64, 3, 1, 1, 3, 1, 1, None, True, False,
+     "NCHW", "NCHW", "NCHW"),                          # ResNet-18 l1b1/l1b2
+    ("NCHW", 2, 64, 55, 128, 128, 3, 2, 1, 3, 1, 1, None, True, False,
+     "CHWN", "NCHW", "NCHW"),                          # ResNet-18 l2b1
+    ("NCHW", 2, 128, 28, 128, 128, 3, 1, 1, 3, 1, 1, None, True, False,
+     "NCHW", "NCHW", "NCHW"),                          # ResNet-18 l2b2
+    ("NCHW", 2, 128, 28, 256, 256, 3, 2, 1, 3, 1, 1, None, True, False,
+     "CHWN", "NCHW", "NCHW"),                          # ResNet-18 l3b1
+    # edges: Ho = 1, ragged channel counts, residual in the other layout,
+    # stride-2 conv1 on CHWN, folds, a 2-wide conv2 padding, avg pool
+    ("NCHW", 3, 3, 5, 5, 7, 3, 1, 0, 3, 1, 0, None, True, True, None,
+     "NCHW", "NCHW"),
+    ("CHWN", 3, 3, 5, 5, 7, 3, 1, 0, 3, 1, 0, None, True, True, None,
+     "CHWN", "CHWN"),
+    ("CHWN", 5, 7, 11, 70, 130, 3, 1, 1, 3, 1, 1, None, True, True,
+     "NCHW", "NCHW", "CHWN"),
+    ("NCHW", 3, 9, 12, 65, 129, 3, 1, 1, 3, 1, 1, (2, 2, "max"), True,
+     True, "CHWN", "CHWN", "NCHW"),
+    ("CHWN", 9, 6, 17, 33, 40, 3, 2, 1, 3, 1, 1, None, True, False, "CHWN",
+     "NCHW", "NCHW"),
+    ("NCHW", 2, 4, 9, 6, 5, 5, 1, 2, 1, 1, 0, (3, 2, "max"), True, True,
+     None, "NCHW", "CHWN"),
+    ("NCHW", 2, 3, 10, 8, 9, 3, 1, 1, 3, 2, 2, (2, 2, "avg"), False, True,
+     "NCHW", "NCHW", "NCHW"),
+]
+
+
+def _stack_id(c):
+    eng, N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, *_r, src, dst = c
+    ptag = "nopool" if pool is None else f"{pool[2]}{pool[0]}s{pool[1]}"
+    return (f"{eng}-N{N}-C{Ci}-H{H}-M{Cm}-K{Co}-F{F1}S{S1}P{P1}-"
+            f"F{F2}S{S2}P{P2}-{ptag}-{src}to{dst}")
+
+
+def _run_stack(case, dev, b1=None, seed=0):
+    (eng, N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, bias, rlay,
+     src, dst) = case
+    gen = torch.Generator().manual_seed(seed)
+    Ho1 = (H + 2 * P1 - F1) // S1 + 1
+    Ho2 = (Ho1 + 2 * P2 - F2) // S2 + 1
+    x = torch.randn(N, Ci, H, H, generator=gen)
+    w1 = torch.randn(Cm, Ci, F1, F1, generator=gen) / np.sqrt(Ci * F1 * F1)
+    w2 = torch.randn(Co, Cm, F2, F2, generator=gen) / np.sqrt(Cm * F2 * F2)
+    if b1 is None and bias:
+        b1 = torch.randn(Cm, generator=gen)
+    b2 = torch.randn(Co, generator=gen) if bias else None
+    r = torch.randn(N, Co, Ho2, Ho2, generator=gen) if rlay else None
+
+    def to(t, layout=None):
+        if t is None:
+            return None
+        if layout is not None:
+            t = t.permute(perm_between("NCHW", layout))
+        return t.contiguous().to(dev)
+
+    kw = dict(bias1=to(b1), bias2=to(b2), relu1=relu1, relu2=True,
+              pool=pool, res=to(r, rlay), res_layout=rlay or eng,
+              src_layout=src, dst_layout=dst)
+    if eng == "CHWN":
+        wrapper = conv_ops.conv_stack_chwn
+        w1k, w2k = to(w1.permute(1, 2, 3, 0)), to(w2.permute(1, 2, 3, 0))
+    else:
+        wrapper, w1k, w2k = conv_ops.conv_stack_nchw, to(w1), to(w2)
+    before = wrapper.launches
+    got = wrapper(to(x, src), w1k, w2k, S1, P1, S2, P2, **kw)
+    want = conv_stack_ref(to(x, src), to(w1), to(w2), S1, P1, S2, P2, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("case", STACK_CASES,
+                         ids=[_stack_id(c) for c in STACK_CASES])
+def test_stack_kernel_matches_plain(case, card):
+    got, want = _run_stack(case, card, seed=STACK_CASES.index(case))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("engine", ["CHWN", "NCHW"])
+def test_stack_kernel_reads_conv2_padding_as_zero(engine, card):
+    """A large positive bias1 without ReLU makes conv1 nonzero everywhere,
+    also on windows just outside the mid's edge: the kernel must read
+    conv2's padding (2 wide here) as zero, not as conv1 evaluated there."""
+    case = (engine, 4, 3, 9, 6, 5, 3, 1, 1, 5, 1, 2, None, False, False,
+            None, engine, engine)
+    got, want = _run_stack(case, card, b1=torch.full((6,), 10.0))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def test_stack_kernel_rejects_what_it_does_not_hold(card):
+    x = torch.zeros(1, 3, 200, 200, device=card)
+    w1 = torch.zeros(8, 3, 3, 3, device=card)
+    w2 = torch.zeros(8, 8, 11, 11, device=card)
+    before = conv_ops.conv_stack_nchw.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        conv_ops.conv_stack_nchw(x, w1, w2, 1, 1, 4, 0,
+                                 pool=(11, 1, "max"))
+    with pytest.raises(TypeError, match="float32"):
+        conv_ops.conv_stack_nchw(x[:, :, :8, :8].double(), w1.double(),
+                                 torch.zeros(8, 8, 3, 3, device=card,
+                                             dtype=torch.float64))
+    assert conv_ops.conv_stack_nchw.launches == before

@@ -95,10 +95,6 @@ def test_fused_cnn_module_runs_the_plan():
 def test_unported_plan_features_raise():
     _, _, cfg, plan, tree, x = _setup("vgg16")
     params = params_from_numpy(tree, "cpu")
-    stacked = dataclasses.replace(plan, ops=[
-        dataclasses.replace(plan.ops[0], stack_index=2)] + plan.ops[1:])
-    with pytest.raises(NotImplementedError, match="K5"):
-        forward_fused(params, torch.from_numpy(x), cfg, stacked)
     mixed = dataclasses.replace(plan, ops=[
         dataclasses.replace(plan.ops[0], dst_dtype="int8")] + plan.ops[1:])
     with pytest.raises(NotImplementedError, match="int8"):

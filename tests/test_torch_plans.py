@@ -1,8 +1,8 @@
 """The port's packaged plan files are the reference planner's own output.
 
-``repro_torch/plans/{vgg16,alexnet}.plans.json`` are written by the
-reference ``repro.serve.plan_cache.PlanCache.save`` (fp32, uniform,
-stack="off", full-size network ids, every pow-2 bucket up to the
+``repro_torch/plans/{vgg16,alexnet,resnet18}.plans.json`` are written by
+the reference ``repro.serve.plan_cache.PlanCache.save`` (fp32, uniform,
+both stack policies, full-size network ids, every pow-2 bucket up to the
 network's Table-1 batch).  Regenerate them with
 
     PYTHONPATH=src python tests/test_torch_plans.py
@@ -26,17 +26,19 @@ from repro_torch.launch.cnn_serve import packaged_plans
 from repro_torch.serve import plan_cache as port_plan_cache
 
 # network -> largest bucket the packaged file holds (the Table-1 batch)
-PACKAGED = {"vgg16": 32, "alexnet": 128}
+PACKAGED = {"vgg16": 32, "alexnet": 128, "resnet18": 32}
 
 
 def write_reference_plans(network: str, max_bucket: int, path: str) -> str:
     """Plan every pow-2 bucket up to ``max_bucket`` with the reference
-    planner (fp32, uniform, stacks off) and save the cache to ``path``."""
+    planner (fp32, uniform, stacks "auto" and "off") and save the cache to
+    ``path``."""
     cfg = CNN_CONFIGS[network]
     cache = PlanCache(max_bucket=max_bucket)
     b = 1
     while b <= max_bucket:
-        cache.fused_plan(cfg, b, dtype="float32", stack="off")
+        for stack in ("auto", "off"):
+            cache.fused_plan(cfg, b, dtype="float32", stack=stack)
         b *= 2
     return cache.save(path)
 
@@ -95,11 +97,50 @@ def test_alexnet_bucket128_runs_every_conv_on_chwn():
         ("CHWN", "CHWN"), ("CHWN", "NCHW")]
 
 
+def test_vgg16_bucket32_auto_stacks_three_nchw_pairs():
+    cache = port_plan_cache.PlanCache(str(packaged_plans("vgg16")))
+    plan = cache.peek_fused(port_networks.CNN_CONFIGS["vgg16"], 32)
+    assert plan.conv_signature == "N" * 13 and plan.stacked_convs == 3
+    stacks = [op for op in plan.ops if op.stack_index is not None]
+    assert [(op.name, op.pool_index is not None) for op in stacks] == [
+        ("conv1_1", True), ("conv2_1", True), ("conv3_1", False)]
+    assert all(op.stack_relu and op.relu for op in stacks)
+
+
+def test_alexnet_bucket128_auto_stacks_conv3_conv4_on_chwn():
+    cache = port_plan_cache.PlanCache(str(packaged_plans("alexnet")))
+    cfg = port_networks.CNN_CONFIGS["alexnet"]
+    plan = cache.peek_fused(cfg, 128)
+    assert plan.conv_signature == "CCCCC" and plan.stacked_convs == 1
+    (op,) = [op for op in plan.ops if op.stack_index is not None]
+    assert (op.name, cfg.layers[op.stack_index].name) == ("conv3", "conv4")
+    assert (op.src_layout, op.layout, op.dst_layout) == ("CHWN",) * 3
+
+
+def test_resnet18_bucket32_auto_plan():
+    cache = port_plan_cache.PlanCache(str(packaged_plans("resnet18")))
+    cfg = port_networks.CNN_CONFIGS["resnet18"]
+    plan = cache.peek_fused(cfg, 32)
+    stacks = {op.name: op for op in plan.ops if op.stack_index is not None}
+    assert sorted(stacks) == ["l1b1_convA", "l1b2_convA", "l2b1_convA",
+                              "l2b2_convA", "l3b1_convA"]
+    assert all(op.layout == "NCHW" and op.res_index is not None
+               for op in stacks.values())
+    assert {n: op.res_layout for n, op in stacks.items()} == {
+        "l1b1_convA": "NCHW", "l1b2_convA": "NCHW", "l2b1_convA": "CHWN",
+        "l2b2_convA": "NCHW", "l3b1_convA": "CHWN"}
+    # the global average pool folds into the last conv's epilogue
+    last = [op for op in plan.ops if op.kind == "conv"][-1]
+    assert last.name == "l4b2_convB"
+    assert cfg.layers[last.pool_index].name == "gap"
+    assert not any(op.kind == "pool" for op in plan.ops)
+
+
 def test_plan_cache_miss_raises_and_never_plans(tmp_path):
     cache = port_plan_cache.PlanCache(str(packaged_plans("vgg16")))
     cfg = port_networks.CNN_CONFIGS["vgg16"]
     with pytest.raises(port_plan_cache.PlanMissError, match="no planner"):
-        cache.fused_plan(cfg, 4, stack="auto")
+        cache.fused_plan(cfg, 4, dtype="bfloat16")
     plan, bucket, hit = cache.fused_plan(cfg, 5, stack="off")
     assert (bucket, hit) == (8, True) and cache.planner_calls == 0
     # what the port saves, the reference loads to the same plans

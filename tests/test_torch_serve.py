@@ -1,9 +1,12 @@
 """The port's ``CNNServer`` answers as the reference ``CNNServer`` does.
 
-The reference planner writes a ``stack="off"`` plan file; the port's server
-(on the CPU, where its kernels' plain versions run) loads it and never
-plans.  Both servers carry the same weights (the port's ``init_cnn`` tree)
-and answer the same seeded requests; probabilities agree within 1e-5.
+The reference planner writes a plan file with both stack policies; the
+port's server (on the CPU, where its kernels' plain versions run) loads it
+and never plans.  At ``stack="auto"`` it serves the plans of the reference
+server's top rung (``pallas+stacks``, here executed by the reference's xla
+engine), conv->conv stacks included.  Both servers carry the same weights
+(the port's ``init_cnn`` tree) and answer the same seeded requests;
+probabilities agree within 1e-5.
 """
 from __future__ import annotations
 
@@ -28,20 +31,24 @@ def _reference_plan_file(ref_srv, path, max_bucket: int) -> str:
     cache = RefPlanCache(max_bucket=max_bucket)
     b = 1
     while b <= max_bucket:
-        cache.fused_plan(ref_srv.cfg, b, dtype="float32", stack="off")
+        for stack in ("auto", "off"):
+            cache.fused_plan(ref_srv.cfg, b, dtype="float32", stack=stack)
         b *= 2
     return cache.save(str(path))
 
 
 @pytest.mark.parametrize("network,n_requests", [("lenet", 12),
-                                                ("alexnet", 6)])
+                                                ("alexnet", 6),
+                                                ("resnet18", 6)])
 def test_server_answers_like_reference(network, n_requests, tmp_path):
     max_bucket = 8
     ref = RefServer(network, max_bucket=max_bucket, impl="xla",
                     calibration="analytic")
+    assert (ref.ladder[0].stack, ref.ladder[0].impl) == ("auto", "xla")
     path = _reference_plan_file(ref, tmp_path / "plans.json", max_bucket)
     srv = CNNServer(network, max_bucket=max_bucket, cache_path=path,
                     device="cpu", seed=5)
+    assert srv.stack == "auto"
     assert repr(srv.cfg.layers) == repr(ref.cfg.layers)
     ref.params = jax.tree.map(jnp.asarray, init_cnn(srv.cfg, seed=5))
 
@@ -57,7 +64,17 @@ def test_server_answers_like_reference(network, n_requests, tmp_path):
                                    atol=PROB_ATOL)
     assert srv.cache.planner_calls == 0
     lines = srv.report_lines()
-    assert "planner_calls=0" in lines[0]
+    assert "planner_calls=0" in lines[0] and "stack=auto" in lines[0]
+    # the second rung's plans answer the same
+    off = CNNServer(network, max_bucket=max_bucket, cache_path=path,
+                    device="cpu", seed=5, stack="off")
+    got_off = off.run([ImageRequest(i, im) for i, im in enumerate(images)])
+    for rid in range(n_requests):
+        np.testing.assert_allclose(got_off[rid], want[rid], rtol=0,
+                                   atol=PROB_ATOL)
+    assert "stack=off" in off.report_lines()[0]
+    with pytest.raises(ValueError, match="stack policy"):
+        CNNServer(network, cache_path=path, device="cpu", stack="on")
     assert all("hit_rate=1.00" in ln for ln in lines[1:])
     # fp32 means fp32 on the card too: the server turns TF32 off
     assert not torch.backends.cudnn.allow_tf32
