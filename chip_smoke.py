@@ -28,7 +28,23 @@
    warm whole forward at stack "auto", at "off" and through the torch
    engine, and the peak device memory of one forward at "auto" and "off"
    (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``).
-5. Prints one JSON line of every kernel (launches, error, times, bound),
+5. Unfused phase, the paper's own experiment (Fig. 14/15) and the main
+   path's third part: AlexNet (227 px, batch 128) and VGG16 (224 px,
+   batch 32) at full width, seed-0 weights, each in the modes
+   "cuda-convnet" (every layer CHWN), "cudnn" (every layer NCHW) and "opt"
+   (the reference planner's per-layer layouts), through ``plan_network``
+   and ``forward(impl="cuda")``: bare convs on K1/K2, standalone pools on
+   K3a/K3b, re-layouts on the tiled transpose K9a, the softmax on K4.  Each forward runs with the launch counts zeroed
+   just before it; the counts must equal what the layouts call for, the
+   probabilities must be within 1e-5 of the torch engine's and the
+   ``RunStats`` equal to its.  Then each forward is timed warm beside the
+   torch engine's.  The kernel phase also holds every distinct K3a, K3b
+   and K9a launch of this path (max pool and transpose exactly, avg pool
+   atol 1e-6; the library call is ``max_pool2d`` on the same data in NCHW
+   and ``permute(...).contiguous()``), and one K9b case off the path
+   (NCHW -> NHWC of VGG16 conv1_1's output), which is listed with 0
+   launches and its per-launch times.
+6. Prints one JSON line of every kernel (launches, error, times, bound),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
 TF32 is off throughout.  Any failure raises: the script then exits
@@ -55,20 +71,28 @@ sys.path.insert(0, str(REPO / "src"))
 
 from repro_torch import kernels as K  # noqa: E402
 from repro_torch.cnn.layers import layer_shapes, resolved_cfg_inputs  # noqa: E402
-from repro_torch.cnn.network import forward_fused, input_shape  # noqa: E402
+from repro_torch.cnn.layers import init_cnn, params_from_numpy  # noqa: E402
+from repro_torch.cnn.network import (forward, forward_fused,  # noqa: E402
+                                     input_shape, plan_network)
 from repro_torch.configs.cnn_networks import CNN_CONFIGS  # noqa: E402
-from repro_torch.core.layout import perm_between  # noqa: E402
+from repro_torch.core.layout import perm_between, plan_transform  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv.ops import (conv_direct_chwn,  # noqa: E402
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn, conv_stack_nchw,
                                           stack_tiling)
 from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref  # noqa: E402
+from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw  # noqa: E402
+from repro_torch.kernels.pool.ref import pool_ref  # noqa: E402
 from repro_torch.kernels.softmax.ops import softmax  # noqa: E402
 from repro_torch.kernels.softmax.ref import softmax_ref  # noqa: E402
-from repro_torch.launch.cnn_serve import (CNNServer,  # noqa: E402
-                                          ImageRequest, packaged_plans)
-from repro_torch.serve.plan_cache import PlanCache, pad_to_bucket  # noqa: E402
+from repro_torch.kernels.transpose.ops import (transpose2d,  # noqa: E402
+                                               transpose2d_batched)
+from repro_torch.kernels.transpose.ref import (  # noqa: E402
+    transpose2d_batched_ref, transpose2d_ref)
+from repro_torch.launch.cnn_serve import CNNServer, ImageRequest  # noqa: E402
+from repro_torch.serve.plan_cache import (PlanCache,  # noqa: E402
+                                          packaged_plans, pad_to_bucket)
 from repro_torch.shapes import conv_out_hw  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense, at the full 700 W power limit)
@@ -77,6 +101,7 @@ PEAK_HBM_BYTES = 3.35e12         # HBM3 bytes/s
 
 CONV_RTOL, CONV_ATOL = 1e-4, 1e-3
 SOFTMAX_ATOL = 1e-6
+AVG_POOL_ATOL = 1e-6             # max pool and transposes: exact
 PROBS_ATOL = 1e-5
 
 # the main path: (network, max_bucket, requests, stack policy)
@@ -85,6 +110,12 @@ SERVED = [("vgg16", 32, 40, "off"), ("alexnet", 128, 128, "off"),
           ("resnet18", 32, 40, "auto")]
 # stacked against unstacked: (network, bucket)
 COMPARED = [("vgg16", 32), ("resnet18", 32)]
+# the unfused executor: (network, batch), each in every mode
+UNFUSED = [("alexnet", 128), ("vgg16", 32)]
+MODES = ("cuda-convnet", "cudnn", "opt")
+# the one K9b case, off the main path: NCHW -> NHWC of VGG16 conv1_1's
+# output [32, 64, 224, 224], collapsed to [N, C, H*W]
+K9B_CASE = (32, 64, 224 * 224)
 
 KERNELS = {
     "conv_chwn": {"route": "cuda",
@@ -104,9 +135,30 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/conv/csrc/conv_stack_nchw.cu",
         "replaces": "src/repro/kernels/conv/stack.py:292"},
+    "pool_chwn": {"route": "cuda",
+                  "source": "src/repro_torch/kernels/pool/csrc/pool.cu",
+                  "replaces": "src/repro/kernels/pool/pool.py:40"},
+    "pool_nchw": {"route": "cuda",
+                  "source": "src/repro_torch/kernels/pool/csrc/pool.cu",
+                  "replaces": "src/repro/kernels/pool/pool.py:82"},
+    "transpose2d": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/transpose/csrc/transpose.cu",
+        "replaces": "src/repro/kernels/transpose/transpose.py:25"},
+    "transpose2d_batched": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/transpose/csrc/transpose.cu",
+        "replaces": "src/repro/kernels/transpose/transpose.py:43"},
 }
+# kernels held in the kernel phase that no path of this script launches
+OFF_PATH = ("transpose2d_batched",)
 STACK_KERNELS = {"conv_stack_chwn": ("CHWN", conv_stack_chwn),
                  "conv_stack_nchw": ("NCHW", conv_stack_nchw)}
+POOL_KERNELS = {"pool_chwn": ("CHWN", pool_chwn),
+                "pool_nchw": ("NCHW", pool_nchw)}
+TRANSPOSE_KERNELS = {"transpose2d": (transpose2d, transpose2d_ref),
+                     "transpose2d_batched": (transpose2d_batched,
+                                             transpose2d_batched_ref)}
 
 
 def card_line() -> str:
@@ -198,6 +250,46 @@ def plan_launches(network: str, bucket: int, stack: str):
     return out
 
 
+def unfused_launches(network: str, batch: int, mode: str):
+    """(layouts, [(kernel, case)]) of the unfused ``forward`` of
+    ``network`` at ``batch`` in ``mode``, in layer order: what the layouts
+    call for, worked out from the config alone.  A re-layout (before a
+    conv or pool whose layout differs from its input's, never after
+    flatten) is one K9a launch on the collapsed 2-D matrix."""
+    cfg = CNN_CONFIGS[network].replace(batch=batch)
+    layouts = plan_network(cfg, mode)
+    shapes, rins = layer_shapes(cfg), resolved_cfg_inputs(cfg)
+    held = {-1: "NCHW"}
+    flat, out = False, []
+    for i, (spec, lay) in enumerate(zip(cfg.layers, layouts)):
+        p = rins[i][0]
+        cur, shp = held[p], (input_shape(cfg) if p < 0 else shapes[p])
+        if spec.kind in ("add", "concat", "upsample"):
+            raise ValueError(f"{network}: no merge layers on this path")
+        if spec.kind in ("conv", "pool") and lay != cur and not flat:
+            tp = plan_transform(cur, lay)
+            if not tp.is_2d_transpose:
+                raise ValueError(f"{network}: {cur}->{lay} is not 2-D")
+            stored = tuple(shp["NCHW".index(d)] for d in cur)
+            out.append(("transpose2d", tp.collapsed_shape(stored)))
+            cur = lay
+        if spec.kind == "conv":
+            kern = "conv_chwn" if cur == "CHWN" else "conv_nchw"
+            out.append((kern, (batch, shp[1], shp[2], spec.out_channels,
+                               spec.kernel, spec.stride, spec.pad, None,
+                               False, None, cur, cur)))
+        elif spec.kind == "pool":
+            kern = "pool_chwn" if cur == "CHWN" else "pool_nchw"
+            out.append((kern, (tuple(shp), spec.kernel, spec.stride,
+                               spec.pool_op)))
+        elif spec.kind == "softmax":
+            out.append(("softmax", (batch, cfg.num_classes)))
+        elif spec.kind == "flatten":
+            flat = True
+        held[i] = cur
+    return layouts, out
+
+
 def _library_epilogue(y, r_nchw, relu: bool, pool):
     if r_nchw is not None:
         y = y + r_nchw
@@ -209,12 +301,13 @@ def _library_epilogue(y, r_nchw, relu: bool, pool):
     return y
 
 
-def _measure(kernel, plain, library, flops: float, nbytes: float) -> dict:
+def _measure(kernel, plain, library, flops: float, nbytes: float,
+             rtol: float = CONV_RTOL, atol: float = CONV_ATOL) -> dict:
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     rel = err / max(want.abs().max().item(), 1e-30)
-    torch.testing.assert_close(got, want, rtol=CONV_RTOL, atol=CONV_ATOL)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
     b_ms, b_by = bound_ms(flops, nbytes)
     return {"max_abs_err": err, "max_rel_err": rel, "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
@@ -339,27 +432,84 @@ def softmax_case(case, dev, seed: int) -> dict:
             "bound_by": b_by, "flops": flops, "bytes": nbytes}
 
 
+def pool_case(kern: str, case, dev, seed: int) -> dict:
+    """K3a/K3b on its own layout (dst = src, the unfused path's use); the
+    folded write (dst = the other layout) is checked and timed beside."""
+    (N, C, H, W), F, S, op = case
+    src, wrapper = POOL_KERNELS[kern]
+    other = "NCHW" if src == "CHWN" else "CHWN"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x_nchw = torch.randn(N, C, H, W, device=dev, generator=gen)
+    x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
+    tol = (0.0, 0.0) if op == "max" else (0.0, AVG_POOL_ATOL)
+
+    def kernel(dst=src):
+        return wrapper(x, F, S, op, dst_layout=dst)
+
+    def plain():
+        return pool_ref(x, F, S, op, src, src)
+
+    def library():
+        return (nnf.max_pool2d(x_nchw, F, S) if op == "max"
+                else nnf.avg_pool2d(x_nchw, F, S))
+
+    Ho, Wo = (H - F) // S + 1, (W - F) // S + 1
+    out = N * C * Ho * Wo
+    m = _measure(kernel, plain, library, float(F * F * out),
+                 4.0 * (x.numel() + out), *tol)
+    folded = kernel(other)
+    torch.testing.assert_close(folded, pool_ref(x, F, S, op, src, other),
+                               rtol=tol[0], atol=tol[1])
+    m["folded_ms"] = cuda_ms(lambda: kernel(other))
+    return m
+
+
+def transpose_case(kern: str, case, dev, seed: int) -> dict:
+    wrapper, ref = TRANSPOSE_KERNELS[kern]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(*case, device=dev, generator=gen)
+    perm = (1, 0) if len(case) == 2 else (0, 2, 1)
+    return _measure(lambda: wrapper(x), lambda: ref(x),
+                    lambda: x.permute(perm).contiguous(), 0.0,
+                    8.0 * x.numel(), rtol=0.0, atol=0.0)
+
+
 def kernel_phase(dev):
     """Measure every distinct launch of the main path once; returns the
     cases with their multiplicity (launches on the main path)."""
     mult, batches = {}, []
+
+    def add(network, label, keys):
+        batches.append((network, label, keys))
+        for kern, case in keys:
+            row = mult.setdefault((kern, case), {
+                "network": network, "kernel": kern, "case": case,
+                "launches": 0})
+            row["launches"] += 1
+
     for network, cap, n_req, stack in SERVED:
         for B in batch_sizes(n_req, cap):
             bucket = PlanCache(str(packaged_plans(network)),
                                max_bucket=cap).bucket(B)
-            keys = plan_launches(network, bucket, stack)
-            batches.append((network, bucket, stack, keys))
-            for kern, case in keys:
-                row = mult.setdefault((kern, case), {
-                    "network": network, "kernel": kern, "case": case,
-                    "launches": 0})
-                row["launches"] += 1
+            add(network, f"bucket={bucket} stack={stack}",
+                plan_launches(network, bucket, stack))
+    for network, batch in UNFUSED:
+        for mode in MODES:
+            add(network, f"batch={batch} unfused {mode}",
+                unfused_launches(network, batch, mode)[1])
+    for kern in OFF_PATH:
+        mult[(kern, K9B_CASE)] = {"network": "vgg16", "kernel": kern,
+                                  "case": K9B_CASE, "launches": 0}
     for i, ((kern, case), row) in enumerate(mult.items()):
         t0 = time.perf_counter()
         if kern == "softmax":
             m = softmax_case(case, dev, i)
         elif kern in STACK_KERNELS:
             m = stack_case(kern, case, dev, i)
+        elif kern in POOL_KERNELS:
+            m = pool_case(kern, case, dev, i)
+        elif kern in TRANSPOSE_KERNELS:
+            m = transpose_case(kern, case, dev, i)
         else:
             m = conv_case(kern, case, dev, i)
         row.update(m)
@@ -369,6 +519,8 @@ def kernel_phase(dev):
                      f"direct_GFLOP={m['flops'] / 1e9:.2f} "
                      f"smem_per_block={m['smem_bytes']} "
                      f"blocks={m['blocks']} tile={m['tile']}")
+        if kern in POOL_KERNELS:
+            extra = f" folded_dst_ms={m['folded_ms']:.4f}"
         print(f"kernel {kern:<15s} {row['network']:<8s} case={case} "
               f"x{row['launches']}: max_abs_err={m['max_abs_err']:.3g} "
               f"max_rel_err={m['max_rel_err']:.3g} ms={m['ms']:.4f} "
@@ -376,16 +528,15 @@ def kernel_phase(dev):
               f"library_ms={m['library_ms']:.4f} "
               f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}){extra} "
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
-    # per served forward: each kernel's launches summed
-    for network, bucket, stack, keys in batches:
+    # per forward: each kernel's launches summed
+    for network, label, keys in batches:
         for kern in KERNELS:
             rows = [mult[k] for k in keys if k[0] == kern]
             if rows:
                 tot = {f: sum(r[f] for r in rows)
                        for f in ("ms", "plain_ms", "library_ms", "bound_ms",
                                  "flops", "bytes")}
-                print(f"forward {network} bucket={bucket} stack={stack} "
-                      f"{kern}: "
+                print(f"forward {network} {label} {kern}: "
                       f"launches={len(rows)} ms={tot['ms']:.4f} "
                       f"plain_ms={tot['plain_ms']:.4f} "
                       f"library_ms={tot['library_ms']:.4f} "
@@ -522,9 +673,87 @@ def stack_compare(dev):
     return out
 
 
+def unfused_phase(dev):
+    """Run the unfused executor in every mode (the main path's third part;
+    each forward is its own path, counts zeroed just before it and read
+    just after); returns (launches per kernel over all of them, rows)."""
+    total = {k: 0 for k in K.WRAPPERS}
+    rows = []
+    for network, batch in UNFUSED:
+        cfg = CNN_CONFIGS[network].replace(batch=batch)
+        params = params_from_numpy(init_cnn(cfg, 0), dev)
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            input_shape(cfg), np.float32)).to(dev)
+        for mode in MODES:
+            layouts, keys = unfused_launches(network, batch, mode)
+            want_counts = {k: 0 for k in K.WRAPPERS}
+            for kern, _ in keys:
+                want_counts[kern] += 1
+            K.reset_launch_counts()
+            y, st = forward(params, x, cfg, layouts, impl="cuda")
+            torch.cuda.synchronize()
+            counts = K.launch_counts()
+            y_t, st_t = forward(params, x, cfg, layouts, impl="torch")
+            torch.cuda.synchronize()
+            if tuple(y.shape) != (batch, cfg.num_classes):
+                raise AssertionError(f"{network} {mode}: output shape "
+                                     f"{tuple(y.shape)}")
+            if not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{network} {mode}: non-finite output")
+            err = (y - y_t).abs().max().item()
+            if err > PROBS_ATOL:
+                raise AssertionError(
+                    f"{network} {mode}: probabilities differ from the torch "
+                    f"engine by {err:.3g} > {PROBS_ATOL}")
+            if st != st_t:
+                raise AssertionError(f"{network} {mode}: RunStats {st} != "
+                                     f"the torch engine's {st_t}")
+            if st.transforms != want_counts["transpose2d"]:
+                raise AssertionError(
+                    f"{network} {mode}: {st.transforms} transforms, the "
+                    f"layouts call for {want_counts['transpose2d']}")
+            if counts != want_counts:
+                raise AssertionError(f"{network} {mode}: launches {counts} "
+                                     f"!= the layouts' {want_counts}")
+            ms_k = cuda_ms(lambda: forward(params, x, cfg, layouts,
+                                           impl="cuda"), max_reps=20)
+            ms_t = cuda_ms(lambda: forward(params, x, cfg, layouts,
+                                           impl="torch"), max_reps=20)
+            sig = "".join(l[0] for l in layouts)
+            launched = {k: v for k, v in counts.items() if v}
+            print(f"unfused {network} batch={batch} mode={mode} layouts="
+                  f"{sig} transforms={st.transforms} "
+                  f"transform_MB={st.transform_bytes / 1e6:.1f} "
+                  f"modeled_MB={st.hbm_bytes / 1e6:.1f}: kernels "
+                  f"{ms_k:.3f} ms ({1e3 * batch / ms_k:.1f} img/s), torch "
+                  f"engine (cuDNN, TF32 off) {ms_t:.3f} ms "
+                  f"({1e3 * batch / ms_t:.1f} img/s); launches {launched} "
+                  f"(= the layouts'); max |probs - torch engine| = "
+                  f"{err:.3g}", flush=True)
+            rows.append({"network": network, "batch": batch, "mode": mode,
+                         "layouts": sig, "transforms": st.transforms,
+                         "transform_bytes": st.transform_bytes,
+                         "hbm_bytes": st.hbm_bytes, "ms": ms_k,
+                         "torch_ms": ms_t, "launches": launched,
+                         "max_abs_err": err})
+            for k, v in counts.items():
+                total[k] += v
+        mine = [r for r in rows if r["network"] == network]
+        best = min(mine, key=lambda r: r["ms"])
+        best_t = min(mine, key=lambda r: r["torch_ms"])
+        print(f"unfused {network}: fastest mode on the kernels "
+              f"{best['mode']} ({best['ms']:.3f} ms); on the torch engine "
+              f"{best_t['mode']} ({best_t['torch_ms']:.3f} ms)", flush=True)
+        del params, x, y, y_t
+        torch.cuda.empty_cache()
+    return total, rows
+
+
 def kernels_line(cases, launches) -> dict:
     """One entry per kernel: times and bound summed over the main path's
-    launches (each distinct launch timed once, times its multiplicity)."""
+    launches (each distinct launch timed once, times its multiplicity).  A
+    kernel off the path (``OFF_PATH``) shows 0 launches and the times of
+    its one case."""
     out = []
     for kern, meta in KERNELS.items():
         rows = [r for r in cases if r["kernel"] == kern]
@@ -533,11 +762,16 @@ def kernels_line(cases, launches) -> dict:
                                  f"{sum(r['launches'] for r in rows)} "
                                  f"launches, the main path made "
                                  f"{launches[kern]}")
-        if launches[kern] == 0:
+        if kern in OFF_PATH:
+            if launches[kern] or len(rows) != 1:
+                raise AssertionError(f"{kern}: expected one case off the "
+                                     f"main path, got {len(rows)} cases "
+                                     f"and {launches[kern]} launches")
+        elif launches[kern] == 0:
             raise AssertionError(f"{kern} was not launched on the main path")
 
         def total(key):
-            return sum(r[key] * r["launches"] for r in rows)
+            return sum(r[key] * (r["launches"] or 1) for r in rows)
 
         t_ops = total("flops") / PEAK_FP32_FLOPS
         t_bytes = total("bytes") / PEAK_HBM_BYTES
@@ -583,12 +817,18 @@ def main() -> int:
         compared = stack_compare(dev)
         print(f"stack comparison: {time.perf_counter() - t0:.1f}s",
               flush=True)
+        t0 = time.perf_counter()
+        unfused_counts, unfused = unfused_phase(dev)
+        for k, v in unfused_counts.items():
+            launches[k] += v
+        print(f"unfused phase: {time.perf_counter() - t0:.1f}s", flush=True)
     line = kernels_line(cases, launches)
     if args.json:
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)
         out.write_text(json.dumps({"card": card, "cases": cases, **line,
                                    "stack_compare": compared,
+                                   "unfused": unfused,
                                    "ptxas": ptxas.getvalue()}, indent=1))
     print(json.dumps(line))
     print(card)

@@ -3,8 +3,8 @@
 Every op executes natively in its assigned layout.  ``impl`` selects the
 engine:
   * "cuda"  — the hand-written kernels (direct-CHWN conv K1, virtual-im2col
-              NCHW conv K2, fused softmax K4, conv->conv stacks K5a/K5b),
-              the counterpart of the
+              NCHW conv K2, standalone pools K3a/K3b, fused softmax K4,
+              conv->conv stacks K5a/K5b), the counterpart of the
               reference's "pallas" engine.  A CPU tensor runs each kernel's
               plain version instead; a CUDA tensor runs the kernel.
   * "torch" — the decomposed plain PyTorch engine (the counterpart of the
@@ -19,14 +19,14 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.nn import functional as nnf
 
 from repro_torch.configs.base import CNNConfig
-from repro_torch.core.transform import apply_transform
 from repro_torch.kernels.conv.ops import (conv_direct_chwn,
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn, conv_stack_nchw)
 from repro_torch.kernels.conv.ref import conv_ref
+from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw
+from repro_torch.kernels.pool.ref import pool_ref
 from repro_torch.kernels.softmax.ops import softmax as softmax_kernel
 from repro_torch.kernels.softmax.ref import softmax_ref
 from repro_torch.shapes import conv_out_hw, pool_out_hw
@@ -118,19 +118,18 @@ def pool_forward(x: torch.Tensor, layout: str, F: int, S: int,
                  op: str = "max", impl: str = "cuda",
                  dst_layout: Optional[str] = None) -> torch.Tensor:
     """Standalone max/avg pool over the H, W dims of ``x`` (in ``layout``),
-    written in ``dst_layout``.  Its kernel (K3, the reference's
-    ``kernels/pool/pool.py``) is not ported yet: the "cuda" engine raises
-    for a CUDA tensor, and runs the plain version for a CPU tensor."""
+    written in ``dst_layout``.  ``impl="cuda"`` runs the pool kernel of the
+    source layout (K3a for CHWN, K3b for NCHW; on a CPU tensor its plain
+    version)."""
     _check_impl(impl)
-    if impl == "cuda" and x.device.type != "cpu":
-        raise NotImplementedError(
-            "standalone pooling on the card needs the pool kernel K3 "
-            "(repro/kernels/pool/pool.py::pool_chwn_pallas/pool_nchw_"
-            "pallas), which is not ported yet")
-    xn = apply_transform(x, layout, "NCHW")
-    y = (nnf.max_pool2d(xn, F, S) if op == "max"
-         else nnf.avg_pool2d(xn, F, S))
-    return apply_transform(y, "NCHW", dst_layout or layout)
+    dst = dst_layout or layout
+    if impl == "torch":
+        return pool_ref(x, F, S, op, layout, dst)
+    if layout == "CHWN":
+        return pool_chwn(x, F, S, op, dst_layout=dst)
+    if layout == "NCHW":
+        return pool_nchw(x, F, S, op, dst_layout=dst)
+    raise ValueError(f"no pool kernel reads layout {layout!r}")
 
 
 def flatten_forward(x: torch.Tensor, layout: str) -> torch.Tensor:

@@ -1,35 +1,130 @@
-"""Fused CNN executor (``repro/cnn/network.py``, the fused half).
+"""Layout-aware CNN executors (``repro/cnn/network.py``).
 
-``forward_fused`` runs a ``FusedPlan`` op by op: each conv op is ONE
-kernel launch that folds its ReLU, its pool and every re-layout into the
-conv's output write (or its input read), so no standalone transform pass
-runs on a stock plan.  A stack op (``op.stack_index``) runs two convs in
-one launch, and their mid activation is never stored.  ``RunStats``
-reports the modeled device-memory traffic with the reference's accounting,
-so the two packages report the same bytes for the same plan.
+Two executors, as in the reference:
 
-Inference at one uniform dtype is what runs here; int8 storage boundaries
-and training raise ``NotImplementedError``.  ``FusedCNN`` owns the
-parameters for a server.
+* The paper's unfused executor.  ``plan_network`` assigns a layout per
+  layer in one of the paper's §VI modes ("cuda-convnet": every layer CHWN;
+  "cudnn": every layer NCHW; "opt": per layer, read from the reference
+  planner's packaged assignment, or the §IV.D heuristic under given
+  thresholds).  ``forward`` runs each conv and pool natively in its layout
+  (a bare conv: no bias, no epilogue) and inserts a standalone transform
+  wherever consecutive layers disagree; on the "cuda" engine that
+  transform is the tiled transpose kernel K9.
+* The fused executor.  ``forward_fused`` runs a ``FusedPlan`` op by op:
+  each conv op is ONE kernel launch that folds its ReLU, its pool and every
+  re-layout into the conv's output write (or its input read), so no
+  standalone transform pass runs on a stock plan.  A stack op
+  (``op.stack_index``) runs two convs in one launch, and their mid
+  activation is never stored.
+
+Both report ``RunStats``: the modeled device-memory traffic with the
+reference's accounting, so the two packages report the same bytes for the
+same plan.  Inference at one uniform dtype is what runs here; int8 storage
+boundaries and training raise ``NotImplementedError``.  ``FusedCNN`` owns
+the parameters for a server.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.configs.base import CNNConfig
+from repro_torch.configs.paper_table1 import ConvLayer, PoolLayer
 from repro_torch.cnn import layers as CL
-from repro_torch.core.selector import FusedPlan
+from repro_torch.core.selector import (FusedPlan, LayerDesc,
+                                       paper_heuristic_layouts)
 from repro_torch.core.transform import apply_transform
-from repro_torch.dtypes import INT8_DTYPE, canon_dtype
+from repro_torch.dtypes import (DEFAULT_DTYPE, INT8_DTYPE, canon_dtype,
+                                dtype_bytes)
+from repro_torch.perfmodel import Thresholds
+from repro_torch.serve.plan_cache import (PlanCache, PlanMissError,
+                                          packaged_plans)
+
+MODES = ("cuda-convnet", "cudnn", "opt")
+
+
+def network_descs(cfg: CNNConfig,
+                  dtype: str = DEFAULT_DTYPE) -> List[LayerDesc]:
+    """Selector LayerDescs for ``cfg`` at a storage ``dtype``, as the
+    reference makes them: linear configs carry no explicit edges, graph
+    configs name the producers that differ from "the previous layer"."""
+    db = dtype_bytes(dtype)
+    descs = []
+    rins = CL.resolved_cfg_inputs(cfg)
+    shapes = CL.layer_shapes(cfg)
+    in_shp = input_shape(cfg)
+    for i, (spec, shp) in enumerate(zip(cfg.layers, shapes)):
+        s0 = in_shp if rins[i][0] < 0 else shapes[rins[i][0]]
+        lin = (i - 1,) if i else (-1,)
+        ins = () if rins[i] == lin else rins[i]
+        if spec.kind == "conv":
+            conv = ConvLayer(spec.name, cfg.batch, spec.out_channels, s0[2],
+                             spec.kernel, s0[1], spec.stride, cfg.name,
+                             pad=spec.pad)
+            descs.append(LayerDesc(spec.name, "conv", conv=conv,
+                                   out_shape=shp, dtype_bytes=db,
+                                   inputs=ins))
+        elif spec.kind == "pool":
+            pool = PoolLayer(spec.name, cfg.batch, s0[1], s0[2], spec.kernel,
+                             spec.stride, cfg.name)
+            descs.append(LayerDesc(spec.name, "pool", pool=pool,
+                                   out_shape=shp, dtype_bytes=db,
+                                   inputs=ins))
+        else:
+            if spec.kind not in ("relu", "fc", "softmax", "flatten",
+                                 "add", "concat", "upsample"):
+                raise ValueError(f"unsupported layer kind: {spec.kind!r}")
+            kind = "act" if spec.kind == "relu" else spec.kind
+            descs.append(LayerDesc(spec.name, kind, out_shape=shp,
+                                   dtype_bytes=db, inputs=ins))
+    return descs
 
 
 def input_shape(cfg: CNNConfig) -> Tuple[int, int, int, int]:
     return (cfg.batch, cfg.in_channels, cfg.image_hw, cfg.image_hw)
+
+
+def plan_network(cfg: CNNConfig, mode: str = "opt",
+                 thresholds: Optional[Thresholds] = None,
+                 use_dp: bool = True,
+                 dtype: str = DEFAULT_DTYPE) -> List[str]:
+    """Per-layer layout list for the unfused ``forward``, in one of the
+    paper's modes.  "opt" with ``use_dp`` is the reference planner's DP
+    assignment at ``cfg.batch``, read from the network's packaged plan file
+    (the port has no DP planner yet): a network, batch or dtype the file
+    does not hold raises ``PlanMissError``.  "opt" without ``use_dp`` is
+    the paper's single-scan heuristic under ``thresholds``, which must be
+    given (the reference's default thresholds come from its TPU model)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; known: {MODES}")
+    if mode == "cuda-convnet":
+        return ["CHWN"] * len(cfg.layers)
+    if mode == "cudnn":
+        return ["NCHW"] * len(cfg.layers)
+    if not use_dp:
+        if thresholds is None:
+            raise ValueError(
+                "plan_network(use_dp=False) needs explicit thresholds: the "
+                "port has no threshold calibration yet")
+        return paper_heuristic_layouts(network_descs(cfg, dtype), thresholds)
+    path = packaged_plans(cfg.name)
+    if not path.exists():
+        raise PlanMissError(f"no packaged plan file for {cfg.name!r} "
+                            f"({path}), and the port has no planner yet")
+    cache = PlanCache(str(path))
+    try:
+        bucket = cache.bucket(cfg.batch)
+    except ValueError as e:             # beyond the file's largest bucket
+        raise PlanMissError(str(e)) from e
+    if bucket != cfg.batch:
+        raise PlanMissError(
+            f"batch {cfg.batch} is not a plan bucket: the packaged "
+            "assignments are planned at pow-2 batches only")
+    return list(cache.assignment(cfg, cfg.batch, dtype=dtype)[0].layouts)
 
 
 @dataclass
@@ -65,6 +160,99 @@ def _acct_pool(stats: RunStats, in_b: int, out_b: int) -> None:
 
 def _is_int8(dtype_name: str) -> bool:
     return bool(dtype_name) and canon_dtype(dtype_name) == INT8_DTYPE
+
+
+def forward(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
+            layouts: List[str], impl: str = "cuda",
+            training: bool = False) -> Tuple[torch.Tensor, RunStats]:
+    """Run the network unfused in the per-layer ``layouts``; x enters as
+    NCHW.  Returns (class probabilities [N, classes], stats).
+
+    ``impl="cuda"`` runs each conv as a bare K1 (CHWN) or K2 (NCHW) launch,
+    each pool as K3a (CHWN) or K3b (NCHW), each re-layout as the
+    transpose kernel K9 and the softmax as K4; ``impl="torch"`` is the
+    plain engine (the oracle), whose re-layouts are
+    ``permute().contiguous()``.  A re-layout happens only before a conv or
+    a pool whose layout differs from its input's (never after flatten),
+    and at add/concat/upsample."""
+    if training:
+        raise NotImplementedError(
+            "unfused training needs the backward kernels (K6 wgrad, K7 pool "
+            "backward, K8 softmax cross-entropy), which are not ported yet")
+    stats = RunStats()
+    rins = CL.resolved_cfg_inputs(cfg)
+    last_use: Dict[int, int] = {}
+    for i, ins in enumerate(rins):
+        for p in ins:
+            last_use[p] = i
+    # produced tensors by layer index (-1 = the network input); a write is
+    # counted once at its producer, every consumer counts its own read
+    outs: Dict[int, Tuple[torch.Tensor, str]] = {-1: (x_nchw, "NCHW")}
+    flat = False
+    x = x_nchw
+
+    def retuned(t: torch.Tensor, t_lay: str, lay: str) -> torch.Tensor:
+        """Re-layout ``t`` into ``lay``, counting the standalone pass."""
+        if t_lay == lay:
+            return t
+        stats.transforms += 1
+        stats.transform_bytes += 2 * _nbytes(t)
+        stats.hbm_bytes += 2 * _nbytes(t)
+        return apply_transform(t, t_lay, lay, use_kernel=impl == "cuda")
+
+    for i, (spec, lay) in enumerate(zip(cfg.layers, layouts)):
+        x, cur = outs[rins[i][0]]
+        if spec.kind in ("conv", "pool") and lay != cur and not flat:
+            x = retuned(x, cur, lay)
+            cur = lay
+        if spec.kind == "conv":
+            w = params[spec.name]["w"]
+            in_b = _nbytes(x)
+            x = CL.conv_forward(x, w, cur, spec.stride, spec.pad, impl=impl)
+            stats.hbm_bytes += in_b + _nbytes(w) + _nbytes(x)
+        elif spec.kind == "pool":
+            in_b = _nbytes(x)
+            x = CL.pool_forward(x, cur, spec.kernel, spec.stride,
+                                spec.pool_op, impl=impl)
+            _acct_pool(stats, in_b, _nbytes(x))
+        elif spec.kind == "relu":
+            x = CL.relu_forward(x)
+            _acct_eltwise(stats, x)
+        elif spec.kind == "flatten":
+            _acct_flatten(stats, x, cur)
+            x = CL.flatten_forward(x, cur)
+            flat = True
+        elif spec.kind == "fc":
+            p = params[spec.name]
+            in_b = _nbytes(x)
+            x = CL.fc_forward(x, p["w"], p["b"])
+            _acct_fc(stats, in_b + _nbytes(p["w"]) + _nbytes(p["b"])
+                     + _nbytes(x))
+        elif spec.kind == "softmax":
+            x = CL.softmax_forward(x, impl=impl)
+            _acct_eltwise(stats, x)
+        elif spec.kind == "add":
+            b2, b_lay = outs[rins[i][1]]
+            x = retuned(x, cur, lay) + retuned(b2, b_lay, lay)
+            cur = lay
+            stats.hbm_bytes += 3 * _nbytes(x)
+        elif spec.kind == "concat":
+            parts = [retuned(x, cur, lay)]
+            parts += [retuned(*outs[p], lay) for p in rins[i][1:]]
+            x = CL.concat_forward(parts, lay)
+            cur = lay
+            stats.hbm_bytes += 2 * _nbytes(x)
+        elif spec.kind == "upsample":
+            x = CL.upsample_forward(retuned(x, cur, lay), lay, spec.kernel)
+            cur = lay
+            stats.hbm_bytes += 2 * _nbytes(x)
+        else:
+            raise ValueError(f"unsupported layer kind: {spec.kind!r}")
+        outs[i] = (x, cur)
+        for p in set(rins[i]):
+            if last_use[p] == i:
+                outs.pop(p, None)
+    return x, stats
 
 
 def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
@@ -108,7 +296,7 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
         stats.transforms += 1
         stats.transform_bytes += 2 * _nbytes(t)
         stats.hbm_bytes += 2 * _nbytes(t)
-        return apply_transform(t, t_lay, lay)
+        return apply_transform(t, t_lay, lay, use_kernel=impl == "cuda")
 
     for op in plan.ops:
         spec = cfg.layers[op.index]

@@ -37,6 +37,10 @@ class TransformPlan:
     def is_identity(self) -> bool:
         return self.perm == tuple(range(len(self.perm)))
 
+    @property
+    def is_2d_transpose(self) -> bool:
+        return len(self.perm) == 2 and self.perm == (1, 0)
+
     def collapsed_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
         dims = dict(zip(self.src, shape))
         return tuple(math.prod(dims[d] for d in g) for g in self.groups_src)

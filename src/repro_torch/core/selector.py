@@ -1,16 +1,66 @@
-"""The fused execution plan's data model (``repro/core/selector.py``).
+"""Layout assignment records and the plan data model
+(``repro/core/selector.py``).
 
-Only the plan records live here so far: ``FusedOp`` (one kernel launch of
+``LayerDesc`` is one network layer as the selector sees it; ``Assignment``
+is an unfused per-layer layout plan; ``paper_heuristic_layouts`` is the
+paper's §IV.D single-scan assignment.  ``FusedOp`` (one kernel launch of
 the fused engine) and ``FusedPlan`` (the ops in order plus the planner's
-accounting).  Their fields, names and defaults match the reference field
-for field, because the port runs the reference planner's plans, loaded
-from the plan-cache JSON (``serve.plan_cache``).  The planner itself (the
-layout DP and its cost model) is not ported yet.
+accounting) are the fused plan's records.  Fields, names and defaults match
+the reference field for field, because the port runs the reference
+planner's plans, loaded from the plan-cache JSON (``serve.plan_cache``).
+The planners themselves (the layout DP ``assign_layouts``, ``plan_fused``
+and their cost model) are not ported yet.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
+
+from repro_torch.configs.paper_table1 import ConvLayer, PoolLayer
+from repro_torch.perfmodel import (Thresholds, select_conv_layout,
+                                   select_pool_layout)
+
+# the reference traffic model's default element size
+# (``repro/perfmodel/traffic.py``), which a bare LayerDesc carries
+DEFAULT_DTYPE_BYTES = 2
+
+
+@dataclass
+class LayerDesc:
+    """One network layer as seen by the selector."""
+    name: str
+    kind: str                       # conv | pool | act | fc | softmax |
+                                    # flatten | add | concat | upsample
+    conv: Optional[ConvLayer] = None
+    pool: Optional[PoolLayer] = None
+    out_shape: Tuple[int, ...] = ()   # logical NCHW shape of the output
+    dtype_bytes: int = DEFAULT_DTYPE_BYTES   # storage element size
+    trainable: bool = True          # False: frozen params, wgrad skipped
+    # producer layer indices (-1 is the network input); empty = "the
+    # previous layer", the linear default
+    inputs: Tuple[int, ...] = ()
+
+
+@dataclass
+class Assignment:
+    layouts: List[str]
+    transforms: List[int]           # indices i where a transform happens before layer i
+    total_s: float
+    dtypes: List[str] = field(default_factory=list)  # per-layer storage dtype
+
+
+def paper_heuristic_layouts(layers: Sequence[LayerDesc],
+                            th: Thresholds) -> List[str]:
+    """The paper's §IV.D single-scan field assignment (no DP)."""
+    out = []
+    cur = "NCHW"
+    for l in layers:
+        if l.kind == "conv" and l.conv is not None:
+            cur = select_conv_layout(l.conv, th)
+        elif l.kind == "pool":
+            cur = select_pool_layout(l.pool)
+        out.append(cur)    # act/fc/softmax inherit the incoming layout
+    return out
 
 
 @dataclass(frozen=True)

@@ -1,26 +1,53 @@
-"""Standalone layout transform (paper §IV.C), as plain tensor code.
+"""Standalone layout transform (paper §IV.C).
 
 ``apply_transform`` collapses common dim groups (``layout.plan_transform``)
-and runs the minimal permute.  The fused executor only reaches it for a
-re-layout that no kernel absorbed; no stock plan has one.  The tiled
-transpose kernel that ``repro/core/transform.py`` can dispatch to is not on
-the executor's path and is not ported yet.
+and runs the minimal transpose.  With ``use_kernel=True`` a collapsed 2-D
+transpose goes to the tiled transpose kernel K9a and a batched one (a
+3-axis permutation that keeps its leading group, e.g. NCHW -> NHWC) to
+K9b (``repro_torch.kernels.transpose``), as ``use_pallas`` does in
+``repro/core/transform.py``; on a CUDA tensor that launches the kernel or
+raises, and a permutation neither kernel covers raises too.  The executors
+set ``use_kernel`` from their engine: "cuda" takes the kernels, "torch"
+takes ``use_kernel=False``, which is ``permute().contiguous()``, the
+counterpart of the reference's XLA transpose.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.layout import plan_transform
+from repro_torch.core.layout import perm_between, plan_transform
 
 
-def apply_transform(x: torch.Tensor, src: str, dst: str) -> torch.Tensor:
+def apply_transform(x: torch.Tensor, src: str, dst: str, *,
+                    use_kernel: bool = False) -> torch.Tensor:
     """Re-layout ``x`` from layout ``src`` to ``dst`` (a contiguous copy)."""
     if src == dst:
         return x
     plan = plan_transform(src, dst)
     if plan.is_identity:
         return x
+    if use_kernel and x.device.type != "cpu" and not x.is_contiguous():
+        # a reshape would copy it: the permute the kernel stands for
+        raise ValueError(f"{src} -> {dst}: the transpose kernel takes a "
+                         "contiguous x")
     xc = x.reshape(plan.collapsed_shape(x.shape))
-    yc = xc.permute(plan.perm).contiguous()
+    if use_kernel and plan.is_2d_transpose:
+        # imported here: the kernels package imports this module
+        from repro_torch.kernels.transpose.ops import transpose2d
+        yc = transpose2d(xc)
+    elif use_kernel and len(plan.perm) == 3 and plan.perm[0] == 0:
+        from repro_torch.kernels.transpose.ops import transpose2d_batched
+        yc = transpose2d_batched(xc)
+    elif use_kernel and x.device.type != "cpu":
+        raise NotImplementedError(
+            f"{src} -> {dst} collapses to the permutation {plan.perm}, "
+            "which no transpose kernel covers")
+    else:
+        yc = xc.permute(plan.perm).contiguous()
     dims = dict(zip(src, x.shape))
     return yc.reshape(tuple(dims[d] for d in dst))
+
+
+def naive_transform(x: torch.Tensor, src: str, dst: str) -> torch.Tensor:
+    """The paper's Fig. 7a baseline: direct 4-D permute, no collapsing."""
+    return x.permute(perm_between(src, dst)).contiguous()

@@ -1,8 +1,11 @@
 """The port's hand-written CUDA kernels and their wrappers.
 
 K1 (``conv.ops.conv_direct_chwn``), K2 (``conv.ops.conv_im2col_nchw_fused``),
-K4 (``softmax.ops.softmax``) and the conv->conv stacks K5a
-(``conv.ops.conv_stack_chwn``) and K5b (``conv.ops.conv_stack_nchw``).
+the standalone pools K3a (``pool.ops.pool_chwn``) and K3b
+(``pool.ops.pool_nchw``), K4 (``softmax.ops.softmax``), the conv->conv
+stacks K5a (``conv.ops.conv_stack_chwn``) and K5b
+(``conv.ops.conv_stack_nchw``), and the tiled transposes K9a
+(``transpose.ops.transpose2d``) and K9b (``transpose.ops.transpose2d_batched``).
 Each wrapper counts the kernels it launches; ``launch_counts``/
 ``reset_launch_counts`` read and zero them.
 """
@@ -13,7 +16,10 @@ from typing import Dict
 from repro_torch.kernels.conv.ops import (conv_direct_chwn,
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn, conv_stack_nchw)
+from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw
 from repro_torch.kernels.softmax.ops import softmax
+from repro_torch.kernels.transpose.ops import (transpose2d,
+                                               transpose2d_batched)
 
 WRAPPERS = {
     "conv_chwn": conv_direct_chwn,
@@ -21,6 +27,10 @@ WRAPPERS = {
     "softmax": softmax,
     "conv_stack_chwn": conv_stack_chwn,
     "conv_stack_nchw": conv_stack_nchw,
+    "pool_chwn": pool_chwn,
+    "pool_nchw": pool_nchw,
+    "transpose2d": transpose2d,
+    "transpose2d_batched": transpose2d_batched,
 }
 
 

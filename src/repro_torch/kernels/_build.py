@@ -46,6 +46,11 @@ SIGNATURES: Dict[str, List] = {
     "conv_stack_nchw_forward": [P] * 7 + [I] * 24 + [P],
     # x, y, rows, cols, stream
     "softmax_forward": [P, P, I, I, P],
+    # x, y, N, C, H, W, F, S, avg, dst_nchw, stream
+    "pool_chwn_forward": [P, P] + [I] * 8 + [P],
+    "pool_nchw_forward": [P, P] + [I] * 8 + [P],
+    # x, y, B, M, N, stream
+    "transpose_forward": [P, P, I, I, I, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

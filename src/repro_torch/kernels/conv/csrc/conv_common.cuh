@@ -36,6 +36,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "../../csrc/nan_max.cuh"
+
 namespace repro {
 
 constexpr int kThreads = 128;
@@ -240,10 +242,7 @@ conv_gemm_kernel(const ConvArgs a) {
       float r = a.pool_avg ? 0.f : -INFINITY;
       for (int t = 0; t < a.T; ++t) {
         const float v = Ts[m][t * a.BU + ul];
-        if (a.pool_avg)
-          r += v;
-        else if (v > r || v != v)
-          r = v;  // NaN-propagating max
+        r = a.pool_avg ? r + v : nan_max(r, v);
       }
       a.y[(long long)col.n * a.ys.n + (long long)co * a.ys.c +
           col.uh * a.ys.h + col.uw * a.ys.w] = a.pool_avg ? r / area : r;

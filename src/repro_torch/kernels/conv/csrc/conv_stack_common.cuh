@@ -441,10 +441,7 @@ conv_stack_kernel(const StackArgs a) {
       float r = a.pool_avg ? 0.f : -INFINITY;
       for (int tp = 0; tp < a.T; ++tp) {
         const float v = Ts[m * TSTR + tp * a.BU + ul];
-        if (a.pool_avg)
-          r += v;
-        else if (v > r || v != v)
-          r = v;  // NaN-propagating max
+        r = a.pool_avg ? r + v : nan_max(r, v);
       }
       a.y[(long long)col.n * a.ys.n + (long long)co * a.ys.c +
           col.uh * a.ys.h + col.uw * a.ys.w] = a.pool_avg ? r / area : r;

@@ -1,0 +1,70 @@
+"""Wrappers of the standalone pool kernels (K3a/K3b, ``csrc/pool.cu``).
+
+``pool_chwn`` pools a CHWN tensor (the paper's preferred layout, §V.A),
+``pool_nchw`` an NCHW one; each writes its result in ``dst_layout``.  For a
+CPU tensor a wrapper returns the plain version (``ref.pool_ref``); for a
+CUDA tensor it launches its kernel or raises.  Launches are counted in
+``pool_chwn.launches`` and ``pool_nchw.launches``.  The reference wrappers'
+N/C-tile padding and ``autotune_nt`` are not carried over.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.pool.ref import pool_ref
+from repro_torch.shapes import pool_out_hw
+
+_LAYOUTS = ("CHWN", "NCHW")
+
+
+def _pool(wrapper, entry: str, src: str, x: torch.Tensor, F: int, S: int,
+          op: str, dst_layout: str) -> torch.Tensor:
+    name = wrapper.__name__
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected a 4-D {src} tensor, got shape "
+                         f"{tuple(x.shape)}")
+    if op not in ("max", "avg"):
+        raise ValueError(f"{name}: unknown pool op {op!r}")
+    if dst_layout not in _LAYOUTS:
+        raise ValueError(f"{name}: dst_layout={dst_layout!r} not in "
+                         f"{_LAYOUTS}")
+    N, C, H, W = (x.shape[src.index(d)] for d in "NCHW")
+    Ho, Wo = pool_out_hw(H, F, S), pool_out_hw(W, F, S)
+    if F < 1 or S < 1 or Ho < 1 or Wo < 1:
+        raise ValueError(f"{name}: a {F}x{F} window at stride {S} does not "
+                         f"fit {H}x{W}")
+    if _build.on_cpu(name, x):
+        return pool_ref(x, F, S, op, src, dst_layout)
+    _build.require_cuda_f32(name, x.device, x=x)
+    dims = {"N": N, "C": C, "H": Ho, "W": Wo}
+    y = torch.empty(tuple(dims[d] for d in dst_layout), device=x.device,
+                    dtype=x.dtype)
+    err = getattr(_build.library(), entry)(
+        x.data_ptr(), y.data_ptr(), N, C, H, W, F, S, int(op == "avg"),
+        int(dst_layout == "NCHW"), _build.stream_of(x.device))
+    _build.check(name, err)
+    wrapper.launches += 1
+    return y
+
+
+def pool_chwn(x: torch.Tensor, F: int, S: int, op: str = "max",
+              dst_layout: str = "CHWN") -> torch.Tensor:
+    """K3a: x [C, H, W, N] -> [C, Ho, Wo, N] (or [N, C, Ho, Wo] for
+    ``dst_layout="NCHW"``).  Threads run along N (coalesced); each makes
+    four neighbouring outputs of a row from one pass over their columns."""
+    return _pool(pool_chwn, "pool_chwn_forward", "CHWN", x, F, S, op,
+                 dst_layout)
+
+
+def pool_nchw(x: torch.Tensor, F: int, S: int, op: str = "max",
+              dst_layout: str = "NCHW") -> torch.Tensor:
+    """K3b: x [N, C, H, W] -> [N, C, Ho, Wo] (or [C, Ho, Wo, N] for
+    ``dst_layout="CHWN"``).  Windows slide along the contiguous W: the
+    strided access the paper measures for this layout."""
+    return _pool(pool_nchw, "pool_nchw_forward", "NCHW", x, F, S, op,
+                 dst_layout)
+
+
+pool_chwn.launches = 0
+pool_nchw.launches = 0

@@ -24,7 +24,6 @@ import argparse
 import dataclasses
 import time
 from collections import deque
-from pathlib import Path
 from typing import Deque, Dict, List, Optional
 
 import numpy as np
@@ -34,9 +33,9 @@ from repro_torch.cnn.layers import init_cnn
 from repro_torch.cnn.network import FusedCNN, batch_output_ok
 from repro_torch.configs.cnn_networks import (CNN_BUILDERS, CNN_CONFIGS,
                                               reduced_cnn)
-from repro_torch.serve.plan_cache import PlanCache, pad_to_bucket
+from repro_torch.serve.plan_cache import (PlanCache, packaged_plans,
+                                          pad_to_bucket)
 
-PLANS_DIR = Path(__file__).resolve().parents[1] / "plans"
 DTYPE = "float32"
 STACK_POLICIES = ("auto", "off")
 
@@ -56,10 +55,6 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device: the port runs on the card; pass device='cpu' "
             "to run the kernels' plain versions on the CPU")
     return torch.device("cuda")
-
-
-def packaged_plans(network: str) -> Path:
-    return PLANS_DIR / f"{network}.plans.json"
 
 
 @dataclasses.dataclass

@@ -8,11 +8,13 @@ padded rows never touch the real ones.
 
 The port has no planner yet.  Its ``PlanCache`` reads the plan-cache JSON
 that the reference's ``repro.serve.plan_cache.PlanCache.save`` writes
-(versions 1 and 2) and serves the plans in it: a key that is in the file
-is a hit, a key that is not raises ``PlanMissError``.  This is the
-reference's warm-restart path, where ``planner_calls`` stays 0.  What the
-file carries besides fused plans (threshold rows, unfused assignments) is
-kept verbatim so ``save`` writes it back unchanged.
+(versions 1 and 2) and serves what is in it: the fused plans
+(``fused_plan``) and the unfused executor's layout assignments
+(``assignment``).  A key that is in the file is a hit, a key that is not
+raises ``PlanMissError``.  This is the reference's warm-restart path, where
+``planner_calls`` stays 0.  What else the file carries (threshold rows) is
+kept verbatim so ``save`` writes it back unchanged.  The plan files
+packaged with the port are in ``repro_torch/plans/`` (``packaged_plans``).
 """
 from __future__ import annotations
 
@@ -21,13 +23,14 @@ import hashlib
 import json
 from collections import OrderedDict
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import CNNConfig
-from repro_torch.core.selector import FusedOp, FusedPlan
+from repro_torch.core.selector import Assignment, FusedOp, FusedPlan
 from repro_torch.dtypes import DEFAULT_DTYPE, canon_dtype
 from repro_torch.runtime.resilience import (CorruptStateError,
                                             atomic_json_dump,
@@ -35,7 +38,14 @@ from repro_torch.runtime.resilience import (CorruptStateError,
 
 # the parts of a plan-cache file this port does not use; they are carried
 # through load -> save unchanged
-_PASSTHROUGH = ("max_entries", "thresholds", "thresholds_hw", "unfused")
+_PASSTHROUGH = ("max_entries", "thresholds", "thresholds_hw")
+
+PLANS_DIR = Path(__file__).resolve().parents[1] / "plans"
+
+
+def packaged_plans(network: str) -> Path:
+    """The plan file packaged for ``network`` (it may not exist)."""
+    return PLANS_DIR / f"{network}.plans.json"
 
 
 class PlanMissError(KeyError):
@@ -117,8 +127,20 @@ def _plan_from_obj(obj: Dict) -> FusedPlan:
                          "intermediate_roundtrip_bytes", 0))
 
 
+def _assignment_from_obj(obj: Dict) -> Assignment:
+    return Assignment(layouts=list(obj["layouts"]),
+                      transforms=list(obj["transforms"]),
+                      total_s=obj["total_s"],
+                      dtypes=list(obj.get("dtypes", [])))
+
+
+def _key_from_obj(obj: Dict) -> PlanKey:
+    return PlanKey(**{**obj, "dtype": canon_dtype(obj["dtype"])})
+
+
 class PlanCache:
-    """Fused plans by ``PlanKey``, loaded from a reference plan-cache file.
+    """Fused plans and unfused assignments by ``PlanKey``, loaded from a
+    reference plan-cache file.
 
     ``planner_calls`` exists for the serving report's sake and stays 0:
     every plan served came from the file.  Caller-supplied
@@ -134,6 +156,7 @@ class PlanCache:
         self.max_bucket = 256 if max_bucket is None else max_bucket
         self.planner_calls = 0
         self._fused: "OrderedDict[PlanKey, FusedPlan]" = OrderedDict()
+        self._unfused: "OrderedDict[PlanKey, Assignment]" = OrderedDict()
         self._passthrough: Dict[str, Any] = {}
         if path:
             self.load(path)
@@ -168,6 +191,21 @@ class PlanCache:
         self._fused.move_to_end(key)     # recency order, as saved
         return plan, key.bucket, True
 
+    def assignment(self, cfg: CNNConfig, batch: Optional[int] = None, *,
+                   dtype: str = DEFAULT_DTYPE, training: bool = False,
+                   policy: str = "uniform") -> Tuple[Assignment, int, bool]:
+        """The cached unfused layout assignment for ``batch``'s bucket:
+        (assignment, bucket, hit).  A miss raises ``PlanMissError``."""
+        key = self._key(cfg, batch, dtype, training, policy, "auto")
+        a = self._unfused.get(key)
+        if a is None:
+            raise PlanMissError(
+                f"no cached unfused assignment for {key} in {self.path!r}, "
+                "and the port has no planner yet: write it with the "
+                "reference's repro.serve.plan_cache.PlanCache.save")
+        self._unfused.move_to_end(key)
+        return a, key.bucket, True
+
     def peek_fused(self, cfg: CNNConfig, batch: Optional[int] = None, *,
                    dtype: str = DEFAULT_DTYPE, training: bool = False,
                    policy: str = "uniform", stack: str = "auto"
@@ -187,7 +225,9 @@ class PlanCache:
             "thresholds": self._passthrough.get("thresholds", {}),
             "fused": [{"key": k.as_dict(), "plan": dataclasses.asdict(p)}
                       for k, p in self._fused.items()],
-            "unfused": self._passthrough.get("unfused", []),
+            "unfused": [{"key": k.as_dict(),
+                         "plan": dataclasses.asdict(a)}
+                        for k, a in self._unfused.items()],
         }
         if "thresholds_hw" in self._passthrough:
             obj["thresholds_hw"] = self._passthrough["thresholds_hw"]
@@ -219,10 +259,11 @@ class PlanCache:
                 f"unknown plan-cache version {obj.get('version')!r} in "
                 f"{path!r}")
         try:
-            fused = [(PlanKey(**{**ent["key"],
-                                 "dtype": canon_dtype(ent["key"]["dtype"])}),
-                      _plan_from_obj(ent["plan"]))
+            fused = [(_key_from_obj(ent["key"]), _plan_from_obj(ent["plan"]))
                      for ent in obj.get("fused", ())]
+            unfused = [(_key_from_obj(ent["key"]),
+                        _assignment_from_obj(ent["plan"]))
+                       for ent in obj.get("unfused", ())]
         except (KeyError, TypeError, ValueError) as e:
             raise CorruptStateError(
                 f"{path}: malformed plan entry ({e})") from e
@@ -231,5 +272,6 @@ class PlanCache:
         if not self._explicit["max_bucket"]:
             self.max_bucket = obj.get("max_bucket", self.max_bucket)
         self._fused.update(fused)
+        self._unfused.update(unfused)
         self._passthrough = {k: obj[k] for k in _PASSTHROUGH if k in obj}
         self.path = path

@@ -2,8 +2,9 @@
 
 ``repro_torch/plans/{vgg16,alexnet,resnet18}.plans.json`` are written by
 the reference ``repro.serve.plan_cache.PlanCache.save`` (fp32, uniform,
-both stack policies, full-size network ids, every pow-2 bucket up to the
-network's Table-1 batch).  Regenerate them with
+full-size network ids, every pow-2 bucket up to the network's Table-1
+batch): the fused plans at both stack policies and the unfused executor's
+"opt" assignment.  Regenerate them with
 
     PYTHONPATH=src python tests/test_torch_plans.py
 """
@@ -16,13 +17,15 @@ import sys
 import pytest
 
 from repro import dtypes as ref_dtypes
+from repro.configs import paper_table1 as ref_table1
 from repro.configs.cnn_networks import CNN_CONFIGS, reduced_cnn
 from repro.serve.plan_cache import PlanCache, network_id
 
 from repro_torch import dtypes as port_dtypes
 
 from repro_torch.configs import cnn_networks as port_networks
-from repro_torch.launch.cnn_serve import packaged_plans
+from repro_torch.configs import paper_table1 as port_table1
+from repro_torch.serve.plan_cache import packaged_plans
 from repro_torch.serve import plan_cache as port_plan_cache
 
 # network -> largest bucket the packaged file holds (the Table-1 batch)
@@ -31,14 +34,15 @@ PACKAGED = {"vgg16": 32, "alexnet": 128, "resnet18": 32}
 
 def write_reference_plans(network: str, max_bucket: int, path: str) -> str:
     """Plan every pow-2 bucket up to ``max_bucket`` with the reference
-    planner (fp32, uniform, stacks "auto" and "off") and save the cache to
-    ``path``."""
+    planner (fp32, uniform; fused at stacks "auto" and "off", and the
+    unfused assignment) and save the cache to ``path``."""
     cfg = CNN_CONFIGS[network]
     cache = PlanCache(max_bucket=max_bucket)
     b = 1
     while b <= max_bucket:
         for stack in ("auto", "off"):
             cache.fused_plan(cfg, b, dtype="float32", stack=stack)
+        cache.assignment(cfg, b, dtype="float32")
         b *= 2
     return cache.save(path)
 
@@ -149,6 +153,45 @@ def test_plan_cache_miss_raises_and_never_plans(tmp_path):
     assert ref.corrupt_recoveries == []
     ref_plan = ref.peek_fused(CNN_CONFIGS["vgg16"], 5, stack="off")
     assert ref_plan.conv_signature == plan.conv_signature
+
+
+@pytest.mark.parametrize("network", sorted(PACKAGED))
+def test_plan_cache_round_trips_the_reference_file(network, tmp_path):
+    """Fused plans and unfused assignments load and save back to the
+    reference's own JSON."""
+    src = packaged_plans(network)
+    cache = port_plan_cache.PlanCache(str(src))
+    out = cache.save(str(tmp_path / f"{network}.plans.json"))
+    with open(src) as f, open(out) as g:
+        want, got = json.load(f), json.load(g)
+    assert got == want and len(got["unfused"]) > 0
+
+
+def test_unfused_assignment_hit_and_miss():
+    cache = port_plan_cache.PlanCache(str(packaged_plans("alexnet")))
+    cfg = port_networks.CNN_CONFIGS["alexnet"]
+    a, bucket, hit = cache.assignment(cfg, 100)
+    assert (bucket, hit) == (128, True) and cache.planner_calls == 0
+    assert a.layouts == ["CHWN"] * len(cfg.layers) and a.transforms == [0]
+    assert a.dtypes == ["float32"] * len(cfg.layers)
+    ref, _, _ = PlanCache(str(packaged_plans("alexnet"))).assignment(
+        CNN_CONFIGS["alexnet"], 100)
+    assert (a.layouts, a.transforms, a.total_s) == (ref.layouts,
+                                                    ref.transforms,
+                                                    ref.total_s)
+    with pytest.raises(port_plan_cache.PlanMissError, match="unfused"):
+        cache.assignment(cfg, 8, dtype="bf16")
+    with pytest.raises(port_plan_cache.PlanMissError, match="unfused"):
+        cache.assignment(cfg, 8, training=True)
+
+
+def test_paper_table1_reprs_match_reference():
+    assert repr(port_table1.CONV_LAYERS) == repr(ref_table1.CONV_LAYERS)
+    assert repr(port_table1.POOL_LAYERS) == repr(ref_table1.POOL_LAYERS)
+    for port_l, ref_l in zip(port_table1.CONV_LAYERS, ref_table1.CONV_LAYERS):
+        assert port_l.out_hw == ref_l.out_hw
+    assert ([l.overlapped for l in port_table1.POOL_LAYERS]
+            == [l.overlapped for l in ref_table1.POOL_LAYERS])
 
 
 def test_corrupt_plan_file_raises(tmp_path):
