@@ -44,7 +44,30 @@
    and ``permute(...).contiguous()``), and one K9b case off the path
    (NCHW -> NHWC of VGG16 conv1_1's output), which is listed with 0
    launches and its per-launch times.
-6. Prints one JSON line of every kernel (launches, error, times, bound),
+6. Training phase, the main path's fourth part, outside inference mode:
+   VGG16 b32, AlexNet b128 and ResNet-18 b32 at full width, seed-0
+   weights, seeded input and labels, the packaged stack="auto" plan, 3
+   SGD-with-momentum steps of ``make_train_step_fused`` on the kernels
+   (forward K1/K2 with ``save_act`` where they pool, K5, K4; backward K7a/
+   K7b, dgrad on K1/K2, the weight gradient K6, the stack recompute on
+   K1/K2, K9a for a residual's gradient in another layout) and the same 3
+   steps on the torch engine and on it in float64.  Each step runs with
+   the launch counts zeroed just before it; they must equal
+   ``train_launches`` (worked out from the plan).  Every loss finite, and
+   within 1e-4 of the torch engine's loss at the same parameters; the
+   step-1 gradient of every parameter, against the torch engine's and a
+   float64 run of it, within 1e-4 scale-relative on 99.9 % of its
+   elements and within 1e-3 on all (``_step1_gradients`` says why); then
+   one warm step of each engine is timed and the peak device memory of a
+   step read.  The kernel phase also holds every distinct training launch:
+   K6 against its plain version in float64 (1e-5 scale-relative, and two
+   launches bitwise equal; library ``conv2d_weight``), K7 (max exactly,
+   avg atol 1e-6; library the autograd backward of ``max_pool2d``/
+   ``avg_pool2d`` times the ReLU mask), dgrad on K1/K2 (library
+   ``conv2d_input``, also within the conv tolerance of it) and K1/K2 with
+   ``save_act``; and one K8 case off the path (VGG16's [32, 1000];
+   library ``cross_entropy``), listed with 0 launches.
+7. Prints one JSON line of every kernel (launches, error, times, bound),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
 TF32 is off throughout.  Any failure raises: the script then exits
@@ -73,19 +96,28 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.cnn.layers import layer_shapes, resolved_cfg_inputs  # noqa: E402
 from repro_torch.cnn.layers import init_cnn, params_from_numpy  # noqa: E402
 from repro_torch.cnn.network import (forward, forward_fused,  # noqa: E402
-                                     input_shape, plan_network)
+                                     init_velocity, input_shape,
+                                     loss_fn_fused, make_train_step_fused,
+                                     plan_network, value_and_grad)
 from repro_torch.configs.cnn_networks import CNN_CONFIGS  # noqa: E402
 from repro_torch.core.layout import perm_between, plan_transform  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.conv.ops import (conv_direct_chwn,  # noqa: E402
+from repro_torch.kernels.conv.backward import (conv_wgrad,  # noqa: E402
+                                               dgrad_problem)
+from repro_torch.kernels.conv.ops import (_conv, conv_direct_chwn,  # noqa: E402
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn, conv_stack_nchw,
                                           stack_tiling)
-from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref  # noqa: E402
+from repro_torch.kernels.conv.ref import (conv_ref,  # noqa: E402
+                                          conv_stack_ref, wgrad_ref)
+from repro_torch.kernels.pool.backward import (  # noqa: E402
+    pool_backward_chwn, pool_backward_nchw)
 from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw  # noqa: E402
-from repro_torch.kernels.pool.ref import pool_ref  # noqa: E402
-from repro_torch.kernels.softmax.ops import softmax  # noqa: E402
-from repro_torch.kernels.softmax.ref import softmax_ref  # noqa: E402
+from repro_torch.kernels.pool.ref import (pool_backward_ref,  # noqa: E402
+                                          pool_ref)
+from repro_torch.kernels.softmax.ops import softmax, softmax_xent  # noqa: E402
+from repro_torch.kernels.softmax.ref import (softmax_ref,  # noqa: E402
+                                             softmax_xent_ref)
 from repro_torch.kernels.transpose.ops import (transpose2d,  # noqa: E402
                                                transpose2d_batched)
 from repro_torch.kernels.transpose.ref import (  # noqa: E402
@@ -93,7 +125,7 @@ from repro_torch.kernels.transpose.ref import (  # noqa: E402
 from repro_torch.launch.cnn_serve import CNNServer, ImageRequest  # noqa: E402
 from repro_torch.serve.plan_cache import (PlanCache,  # noqa: E402
                                           packaged_plans, pad_to_bucket)
-from repro_torch.shapes import conv_out_hw  # noqa: E402
+from repro_torch.shapes import conv_out_hw, pool_out_hw  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12          # CUDA cores, fp32
@@ -103,6 +135,11 @@ CONV_RTOL, CONV_ATOL = 1e-4, 1e-3
 SOFTMAX_ATOL = 1e-6
 AVG_POOL_ATOL = 1e-6             # max pool and transposes: exact
 PROBS_ATOL = 1e-5
+LOSS_ATOL = 1e-4                 # train-step losses against the torch engine
+GRAD_TOL = 1e-4                  # step-1 gradients, scale-relative ...
+GRAD_OUTLIERS = 1e-3             # ... for all but this fraction of each
+GRAD_OUTLIER_TOL = 1e-3          # parameter's elements, and all within this
+WGRAD_TOL = 1e-5                 # K6 against float64, scale-relative
 
 # the main path: (network, max_bucket, requests, stack policy)
 SERVED = [("vgg16", 32, 40, "off"), ("alexnet", 128, 128, "off"),
@@ -113,9 +150,15 @@ COMPARED = [("vgg16", 32), ("resnet18", 32)]
 # the unfused executor: (network, batch), each in every mode
 UNFUSED = [("alexnet", 128), ("vgg16", 32)]
 MODES = ("cuda-convnet", "cudnn", "opt")
+# the training phase: (network, batch), TRAIN_STEPS SGD steps each on the
+# packaged stack="auto" plan
+TRAINED = [("vgg16", 32), ("alexnet", 128), ("resnet18", 32)]
+TRAIN_STEPS = 3
 # the one K9b case, off the main path: NCHW -> NHWC of VGG16 conv1_1's
 # output [32, 64, 224, 224], collapsed to [N, C, H*W]
 K9B_CASE = (32, 64, 224 * 224)
+# the one K8 case, off the main path: VGG16's classifier at batch 32
+K8_CASE = (32, 1000)
 
 KERNELS = {
     "conv_chwn": {"route": "cuda",
@@ -149,9 +192,25 @@ KERNELS = {
         "route": "cuda",
         "source": "src/repro_torch/kernels/transpose/csrc/transpose.cu",
         "replaces": "src/repro/kernels/transpose/transpose.py:43"},
+    "wgrad": {"route": "cuda",
+              "source": "src/repro_torch/kernels/conv/csrc/wgrad.cu",
+              "replaces": "src/repro/kernels/conv/backward.py:149"},
+    "pool_backward_chwn": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/pool/csrc/pool_backward.cu",
+        "replaces": "src/repro/kernels/pool/backward.py:123"},
+    "pool_backward_nchw": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/pool/csrc/pool_backward.cu",
+        "replaces": "src/repro/kernels/pool/backward.py:146"},
+    "softmax_xent": {"route": "cuda",
+                     "source": "src/repro_torch/kernels/softmax/csrc/"
+                               "softmax.cu",
+                     "replaces": "src/repro/kernels/softmax/softmax.py:53"},
 }
-# kernels held in the kernel phase that no path of this script launches
-OFF_PATH = ("transpose2d_batched",)
+# kernels held in the kernel phase that no path of this script launches,
+# with their one case
+OFF_PATH = {"transpose2d_batched": K9B_CASE, "softmax_xent": K8_CASE}
 STACK_KERNELS = {"conv_stack_chwn": ("CHWN", conv_stack_chwn),
                  "conv_stack_nchw": ("NCHW", conv_stack_nchw)}
 POOL_KERNELS = {"pool_chwn": ("CHWN", pool_chwn),
@@ -159,6 +218,8 @@ POOL_KERNELS = {"pool_chwn": ("CHWN", pool_chwn),
 TRANSPOSE_KERNELS = {"transpose2d": (transpose2d, transpose2d_ref),
                      "transpose2d_batched": (transpose2d_batched,
                                              transpose2d_batched_ref)}
+POOL_BWD_KERNELS = {"pool_backward_chwn": ("CHWN", pool_backward_chwn),
+                    "pool_backward_nchw": ("NCHW", pool_backward_nchw)}
 
 
 def card_line() -> str:
@@ -288,6 +349,110 @@ def unfused_launches(network: str, batch: int, mode: str):
             flat = True
         held[i] = cur
     return layouts, out
+
+
+def _engine_kernel(layout: str) -> str:
+    return "conv_chwn" if layout == "CHWN" else "conv_nchw"
+
+
+def _conv_backward_launches(N, ci, h, co, F, S, pad, engine, pool, relu,
+                            res_layout, src, dst, needs_dx, save_act):
+    """(kernel, case) of one fused conv's training launches, its forward
+    included: the forward (with ``save_act`` where it pools), K7 through
+    the pool, dgrad on the engine's kernel unless the input needs no
+    gradient, K6, and the K9a re-layout of a folded residual's gradient."""
+    out = []
+    ho = conv_out_hw(h, F, S, pad)
+    conv = (N, ci, h, co, F, S, pad, pool, relu, res_layout, src, dst)
+    if save_act:
+        out.append((_engine_kernel(engine), ("save_act",) + conv))
+    if pool is not None:
+        kern = ("pool_backward_chwn" if engine == "CHWN"
+                else "pool_backward_nchw")
+        out.append((kern, (N, co, ho, pool[0], pool[1], pool[2], dst,
+                           relu)))
+        g_lay = engine
+    else:
+        g_lay = dst
+    if needs_dx:
+        out.append((_engine_kernel(engine), ("dgrad", N, ci, h, co, F, S,
+                                             pad, g_lay, src)))
+    out.append(("wgrad", (N, ci, h, co, F, S, pad, src, g_lay)))
+    if res_layout and res_layout != g_lay:
+        tp = plan_transform(g_lay, res_layout)
+        stored = tuple({"N": N, "C": co, "H": ho, "W": ho}[d] for d in g_lay)
+        out.append(("transpose2d", tp.collapsed_shape(stored)))
+    return out
+
+
+def train_launches(network: str, batch: int):
+    """(kernel, case) for every kernel launch of one training step
+    (``make_train_step_fused``, impl="cuda") over the packaged
+    stack="auto" plan of ``network`` at ``batch``: what the plan calls for,
+    worked out from it alone.  A conv op launches its forward (with
+    ``save_act`` where it pools), then in the backward K7 where it pools,
+    dgrad on its engine's kernel (not for the network input, which needs no
+    gradient), K6, and a K9a re-layout where a folded residual's layout
+    differs from the gradient's.  A stack op launches K5, then recomputes
+    conv1 (and conv2 with ``save_act`` where it pools) and runs both convs'
+    backwards.  The softmax is K4 forward; its gradient is plain
+    arithmetic."""
+    cfg = CNN_CONFIGS[network].replace(batch=batch)
+    plan = PlanCache(str(packaged_plans(network))).peek_fused(
+        cfg, batch, stack="auto")
+    shapes, rins = layer_shapes(cfg), resolved_cfg_inputs(cfg)
+    out, prev_key = [], -1
+    for op in plan.ops:
+        needs_dx = (op.inputs[0] if op.inputs else prev_key) != -1
+        prev_key = op.out_index if op.out_index >= 0 else op.index
+        if op.kind in ("pool", "add", "concat", "upsample"):
+            raise ValueError(f"{network}: a standalone {op.kind} op is not "
+                             "on this path")
+        if op.kind == "softmax":
+            out.append(("softmax", (batch, cfg.num_classes)))
+        if op.kind != "conv":
+            continue
+        spec = cfg.layers[op.index]
+        p = rins[op.index][0]
+        _, ci, h, _ = input_shape(cfg) if p < 0 else shapes[p]
+        pool = None
+        if op.pool_index is not None:
+            ps = cfg.layers[op.pool_index]
+            pool = (ps.kernel, ps.stride, ps.pool_op)
+        res = op.res_layout if op.res_index is not None else None
+        E = op.layout
+        if op.stack_index is None:
+            if pool is None:
+                out.append((_engine_kernel(E), (
+                    batch, ci, h, spec.out_channels, spec.kernel,
+                    spec.stride, spec.pad, None, op.relu, res,
+                    op.src_layout, op.dst_layout)))
+            out += _conv_backward_launches(
+                batch, ci, h, spec.out_channels, spec.kernel, spec.stride,
+                spec.pad, E, pool, op.relu, res, op.src_layout,
+                op.dst_layout, needs_dx, save_act=pool is not None)
+            continue
+        spec2 = cfg.layers[op.stack_index]
+        cm = spec.out_channels
+        h1 = conv_out_hw(h, spec.kernel, spec.stride, spec.pad)
+        out.append((("conv_stack_chwn" if E == "CHWN" else "conv_stack_nchw"),
+                    (batch, ci, h, cm, spec2.out_channels, spec.kernel,
+                     spec.stride, spec.pad, spec2.kernel, spec2.stride,
+                     spec2.pad, pool, op.stack_relu, op.relu, res,
+                     op.src_layout, op.dst_layout)))
+        # the backward: recompute y1, then conv2's and conv1's backwards
+        out.append((_engine_kernel(E), (batch, ci, h, cm, spec.kernel,
+                                        spec.stride, spec.pad, None,
+                                        op.stack_relu, None, op.src_layout,
+                                        E)))
+        out += _conv_backward_launches(
+            batch, cm, h1, spec2.out_channels, spec2.kernel, spec2.stride,
+            spec2.pad, E, pool, op.relu, res, E, op.dst_layout, True,
+            save_act=pool is not None)
+        out += _conv_backward_launches(
+            batch, ci, h, cm, spec.kernel, spec.stride, spec.pad, E, None,
+            op.stack_relu, None, op.src_layout, E, needs_dx, save_act=False)
+    return out
 
 
 def _library_epilogue(y, r_nchw, relu: bool, pool):
@@ -474,18 +639,185 @@ def transpose_case(kern: str, case, dev, seed: int) -> dict:
                     8.0 * x.numel(), rtol=0.0, atol=0.0)
 
 
+def _scaled_err(got, want) -> float:
+    """max |got - want| over max(1, max |want|), in float64."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() / max(1.0, want.abs().max().item())
+            ).item()
+
+
+def save_act_case(kern: str, case, dev, seed: int) -> dict:
+    """K1/K2 with the ``save_act`` output (the training forward of a pooled
+    conv): y and z held against ``conv_ref``'s; the library is the same
+    cuDNN chain as the forward's."""
+    N, Ci, H, Co, F, S, pad, pool, relu, rlay, src, dst = case[1:]
+    engine = "CHWN" if kern == "conv_chwn" else "NCHW"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Ho = conv_out_hw(H, F, S, pad)
+    x_nchw = torch.randn(N, Ci, H, H, device=dev, generator=gen)
+    w = torch.randn(Co, Ci, F, F, device=dev, generator=gen) \
+        / math.sqrt(Ci * F * F)
+    r_nchw = (torch.randn(N, Co, Ho, Ho, device=dev, generator=gen)
+              if rlay else None)
+    x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
+    r = (r_nchw.permute(perm_between("NCHW", rlay)).contiguous()
+         if rlay else None)
+    wk = w.permute(1, 2, 3, 0).contiguous() if engine == "CHWN" else w
+    kw = dict(relu=relu, pool=pool, res=r, res_layout=rlay or engine,
+              src_layout=src, dst_layout=dst)
+    y, z = _conv(engine, x, wk, S, pad, save_act=True, **kw)
+    y_ref, z_ref = conv_ref(x, w, S, pad, save_act=True, act_layout=engine,
+                            **kw)
+    torch.testing.assert_close(y, y_ref, rtol=CONV_RTOL, atol=CONV_ATOL)
+
+    def library():
+        return _library_epilogue(nnf.conv2d(x_nchw, w, stride=S, padding=pad),
+                                 r_nchw, relu, pool)
+
+    out_hw = pool_out_hw(Ho, pool[0], pool[1])
+    return _measure(
+        lambda: _conv(engine, x, wk, S, pad, save_act=True, **kw)[1],
+        lambda: conv_ref(x, w, S, pad, save_act=True, act_layout=engine,
+                         **kw)[1], library,
+        2.0 * N * Co * Ho * Ho * Ci * F * F,
+        4.0 * (x.numel() + w.numel() + N * Co * (out_hw ** 2 + Ho * Ho)
+               + (r.numel() if rlay else 0)))
+
+
+def dgrad_case(kern: str, case, dev, seed: int) -> dict:
+    """dgrad on K1/K2: the kernel on the dilated, rotated problem (the
+    dilation built once, outside the timing), against ``conv_ref`` on the
+    same problem and against ``torch.nn.grad.conv2d_input`` (both at the
+    conv tolerance)."""
+    N, Ci, H, Co, F, S, pad, g_lay, dst = case[1:]
+    engine = "CHWN" if kern == "conv_chwn" else "NCHW"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Ho = conv_out_hw(H, F, S, pad)
+    g_nchw = torch.randn(N, Co, Ho, Ho, device=dev, generator=gen)
+    w = torch.randn(Co, Ci, F, F, device=dev, generator=gen) \
+        / math.sqrt(Ci * F * F)
+    g = g_nchw.permute(perm_between("NCHW", g_lay)).contiguous()
+    gd, wt, p = dgrad_problem(g, w, (H, H), S, pad, g_lay)
+    wk = wt.permute(1, 2, 3, 0).contiguous() if engine == "CHWN" else wt
+
+    def kernel():
+        return _conv(engine, gd, wk, 1, p, src_layout=g_lay, dst_layout=dst)
+
+    def library():
+        return torch.nn.grad.conv2d_input((N, Ci, H, H), w, g_nchw,
+                                          stride=S, padding=pad)
+
+    m = _measure(kernel,
+                 lambda: conv_ref(gd, wt, 1, p, src_layout=g_lay,
+                                  dst_layout=dst), library,
+                 2.0 * N * Co * Ho * Ho * Ci * F * F,
+                 4.0 * (g.numel() + w.numel() + N * Ci * H * H))
+    torch.testing.assert_close(kernel().permute(perm_between(dst, "NCHW")),
+                               library(), rtol=CONV_RTOL, atol=CONV_ATOL)
+    return m
+
+
+def wgrad_case(case, dev, seed: int) -> dict:
+    """K6 against its plain version in float64 (the error reported is the
+    kernel's own, scale-relative), timed beside the plain version in
+    float32 and ``torch.nn.grad.conv2d_weight``."""
+    N, Ci, H, Co, F, S, pad, x_lay, g_lay = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Ho = conv_out_hw(H, F, S, pad)
+    x_nchw = torch.randn(N, Ci, H, H, device=dev, generator=gen)
+    g_nchw = torch.randn(N, Co, Ho, Ho, device=dev, generator=gen)
+    x = x_nchw.permute(perm_between("NCHW", x_lay)).contiguous()
+    g = g_nchw.permute(perm_between("NCHW", g_lay)).contiguous()
+    kw = dict(x_layout=x_lay, g_layout=g_lay)
+
+    def kernel():
+        return conv_wgrad(x, g, F, S, pad, **kw)
+
+    got = kernel()
+    want = wgrad_ref(x, g, F, S, pad, dtype=torch.float64, **kw)
+    abs_err = (got.double() - want).abs().max().item()
+    err = _scaled_err(got, want)
+    del want
+    if err > WGRAD_TOL:
+        raise AssertionError(f"K6 {case}: {err:.3g} from float64 (scale-"
+                             f"relative) > {WGRAD_TOL}")
+    if not torch.equal(got, kernel()):
+        raise AssertionError(f"K6 {case}: two launches differ")
+    flops = 2.0 * Co * Ci * F * F * N * Ho * Ho
+    b_ms, b_by = bound_ms(flops, 4.0 * (x.numel() + g.numel()
+                                        + Co * Ci * F * F))
+    return {"max_abs_err": abs_err, "max_rel_err": err,
+            "ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(lambda: wgrad_ref(x, g, F, S, pad, **kw)),
+            "library_ms": cuda_ms(lambda: torch.nn.grad.conv2d_weight(
+                x_nchw, (Co, Ci, F, F), g_nchw, stride=S, padding=pad)),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": 4.0 * (x.numel() + g.numel() + Co * Ci * F * F)}
+
+
+def pool_bwd_case(kern: str, case, dev, seed: int) -> dict:
+    """K7a/K7b on a seeded pre-pool activation z (half of it negative, so
+    the ReLU mask matters) and gradient, against ``pool_backward_ref``:
+    max exactly, avg within atol 1e-6.  The library is the autograd
+    backward of ``max_pool2d``/``avg_pool2d`` in NCHW times the mask."""
+    N, C, H, F, S, op, g_lay, relu = case
+    layout, wrapper = POOL_BWD_KERNELS[kern]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    Ho = pool_out_hw(H, F, S)
+    z_nchw = torch.randn(N, C, H, H, device=dev, generator=gen)
+    g_nchw = torch.randn(N, C, Ho, Ho, device=dev, generator=gen)
+    z = z_nchw.permute(perm_between("NCHW", layout)).contiguous()
+    g = g_nchw.permute(perm_between("NCHW", g_lay)).contiguous()
+    mask = (z_nchw > 0).float() if relu else None
+    if op == "max":
+        _, idx = nnf.max_pool2d(z_nchw, F, S, return_indices=True)
+
+        def library():
+            d = torch.ops.aten.max_pool2d_with_indices_backward(
+                g_nchw, z_nchw, [F, F], [S, S], [0, 0], [1, 1], False, idx)
+            return d * mask if relu else d
+    else:
+        def library():
+            d = torch.ops.aten.avg_pool2d_backward(
+                g_nchw, z_nchw, [F, F], [S, S], [0, 0], False, True, None)
+            return d * mask if relu else d
+
+    windows = (-(-F // S)) ** 2
+    tol = (0.0, 0.0) if op == "max" else (0.0, AVG_POOL_ATOL)
+    return _measure(
+        lambda: wrapper(z, g, F, S, op, g_layout=g_lay, relu_mask=relu),
+        lambda: pool_backward_ref(z, g, F, S, op, layout, g_lay, relu),
+        library, float(N * C * H * H * windows * (F * F if op == "max"
+                                                  else 1)),
+        4.0 * (2 * z.numel() + g.numel()), *tol)
+
+
+def xent_case(case, dev, seed: int) -> dict:
+    """K8 against ``softmax_xent_ref`` (rtol/atol 1e-5); the library is
+    ``F.cross_entropy(reduction="none")``."""
+    rows, cols = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, cols, device=dev, generator=gen) * 4
+    labels = torch.randint(0, cols, (rows,), device=dev, generator=gen)
+    return _measure(lambda: softmax_xent(x, labels),
+                    lambda: softmax_xent_ref(x, labels),
+                    lambda: nnf.cross_entropy(x, labels, reduction="none"),
+                    3.0 * rows * cols, 4.0 * rows * cols + 12.0 * rows,
+                    rtol=1e-5, atol=1e-5)
+
+
 def kernel_phase(dev):
     """Measure every distinct launch of the main path once; returns the
     cases with their multiplicity (launches on the main path)."""
     mult, batches = {}, []
 
-    def add(network, label, keys):
-        batches.append((network, label, keys))
+    def add(network, label, keys, kind="forward", times=1):
+        batches.append((kind, network, label, keys))
         for kern, case in keys:
             row = mult.setdefault((kern, case), {
                 "network": network, "kernel": kern, "case": case,
                 "launches": 0})
-            row["launches"] += 1
+            row["launches"] += times
 
     for network, cap, n_req, stack in SERVED:
         for B in batch_sizes(n_req, cap):
@@ -497,13 +829,26 @@ def kernel_phase(dev):
         for mode in MODES:
             add(network, f"batch={batch} unfused {mode}",
                 unfused_launches(network, batch, mode)[1])
-    for kern in OFF_PATH:
-        mult[(kern, K9B_CASE)] = {"network": "vgg16", "kernel": kern,
-                                  "case": K9B_CASE, "launches": 0}
+    for network, batch in TRAINED:
+        add(network, f"batch={batch} stack=auto", train_launches(
+            network, batch), kind="training step", times=TRAIN_STEPS)
+    for kern, case in OFF_PATH.items():
+        mult[(kern, case)] = {"network": "vgg16", "kernel": kern,
+                              "case": case, "launches": 0}
     for i, ((kern, case), row) in enumerate(mult.items()):
         t0 = time.perf_counter()
         if kern == "softmax":
             m = softmax_case(case, dev, i)
+        elif kern == "softmax_xent":
+            m = xent_case(case, dev, i)
+        elif kern == "wgrad":
+            m = wgrad_case(case, dev, i)
+        elif kern in POOL_BWD_KERNELS:
+            m = pool_bwd_case(kern, case, dev, i)
+        elif case[0] == "save_act":
+            m = save_act_case(kern, case, dev, i)
+        elif case[0] == "dgrad":
+            m = dgrad_case(kern, case, dev, i)
         elif kern in STACK_KERNELS:
             m = stack_case(kern, case, dev, i)
         elif kern in POOL_KERNELS:
@@ -528,15 +873,15 @@ def kernel_phase(dev):
               f"library_ms={m['library_ms']:.4f} "
               f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}){extra} "
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
-    # per forward: each kernel's launches summed
-    for network, label, keys in batches:
+    # per forward (and training step): each kernel's launches summed
+    for kind, network, label, keys in batches:
         for kern in KERNELS:
             rows = [mult[k] for k in keys if k[0] == kern]
             if rows:
                 tot = {f: sum(r[f] for r in rows)
                        for f in ("ms", "plain_ms", "library_ms", "bound_ms",
                                  "flops", "bytes")}
-                print(f"forward {network} {label} {kern}: "
+                print(f"{kind} {network} {label} {kern}: "
                       f"launches={len(rows)} ms={tot['ms']:.4f} "
                       f"plain_ms={tot['plain_ms']:.4f} "
                       f"library_ms={tot['library_ms']:.4f} "
@@ -749,6 +1094,166 @@ def unfused_phase(dev):
     return total, rows
 
 
+def _step1_gradients(network, cfg, plan, params, x, labels) -> dict:
+    """The step-1 gradient of every parameter on the kernels, on the torch
+    engine, and on the torch engine in float64 (the oracle); not counted
+    on the main path.  For each pair, the largest max-abs scale-relative
+    difference over the parameters (|d| / max(1, max|ref|)) and the largest
+    fraction of a parameter's elements beyond ``GRAD_TOL`` in that form.
+    Fails unless, against the torch engine and against float64, at least
+    ``1 - GRAD_OUTLIERS`` of every parameter's elements are within
+    ``GRAD_TOL`` and all within ``GRAD_OUTLIER_TOL``: a ReLU pre-activation
+    within rounding of zero lands on the other side of the mask in one of
+    two fp32 evaluations, and that one element moves a few weight-gradient
+    entries by |g|*|x| (the torch engine's own distance to float64 shows
+    the same outliers)."""
+    p64 = {l: {k: v.double() for k, v in p.items()}
+           for l, p in params.items()}
+    runs = {"cuda": (params, x, "cuda"), "torch": (params, x, "torch"),
+            "f64": (p64, x.double(), "torch")}
+    g = {name: value_and_grad(
+        lambda p, a, b, impl=impl: loss_fn_fused(p, a, b, cfg, plan, impl),
+        ps, xs, labels)[1] for name, (ps, xs, impl) in runs.items()}
+    del p64
+    out = {}
+    for a, b in (("cuda", "torch"), ("cuda", "f64"), ("torch", "f64")):
+        worst, frac = 0.0, 0.0
+        for layer, gs in g[b].items():
+            for k, ref in gs.items():
+                ref = ref.double()
+                d = (g[a][layer][k].double() - ref).abs() / max(
+                    1.0, ref.abs().max().item())
+                worst = max(worst, d.max().item())
+                frac = max(frac, (d > GRAD_TOL).double().mean().item())
+        out[f"{a}_vs_{b}_max"] = float(f"{worst:.3g}")
+        out[f"{a}_vs_{b}_frac_over_tol"] = float(f"{frac:.3g}")
+        if a == "cuda" and (frac > GRAD_OUTLIERS
+                            or worst > GRAD_OUTLIER_TOL):
+            raise AssertionError(
+                f"train {network}: step-1 gradients {a} vs {b}: "
+                f"{frac:.3g} of a parameter's elements beyond {GRAD_TOL} "
+                f"(at most {GRAD_OUTLIERS}), largest {worst:.3g} (at most "
+                f"{GRAD_OUTLIER_TOL}), scale-relative")
+    return out
+
+
+def training_phase(dev):
+    """Train each of ``TRAINED`` at full width from the seed-0 weights on
+    its packaged stack="auto" plan: ``TRAIN_STEPS`` SGD-with-momentum steps
+    of ``make_train_step_fused`` on the kernels (the main path's training
+    part: counts zeroed just before each step and read just after, equal
+    to ``train_launches``), and the same steps from the same start on the
+    torch engine and on the torch engine in float64.  Every loss finite;
+    at every step the kernels' loss within ``LOSS_ATOL`` of the torch
+    engine's loss at the same parameters (the kernels' trajectory); the
+    step-1 gradients held as ``_step1_gradients`` says.  The three
+    independent trajectories are reported beside, not gated: from step 3
+    on, a ReLU mask flip in one fp32 run moves a loss that falls by
+    tenths a step by ~1e-4, and the torch engine departs from its own
+    float64 run by that much.  Then one warm step on each engine is timed
+    (CUDA events) and the peak device memory of a step is read.  Runs
+    outside inference mode (autograd needs it).  Returns (launches per
+    kernel over the counted steps, rows)."""
+    total = {k: 0 for k in K.WRAPPERS}
+    rows = []
+    for network, batch in TRAINED:
+        cfg = CNN_CONFIGS[network].replace(batch=batch)
+        plan = PlanCache(str(packaged_plans(network))).peek_fused(
+            cfg, batch, stack="auto")
+        want = {k: 0 for k in K.WRAPPERS}
+        for kern, _ in train_launches(network, batch):
+            want[kern] += 1
+        params = params_from_numpy(init_cnn(cfg, 0), dev)
+        rng = np.random.default_rng(4)
+        x = torch.from_numpy(rng.standard_normal(
+            input_shape(cfg), np.float32)).to(dev)
+        labels = torch.from_numpy(rng.integers(
+            0, cfg.num_classes, batch)).to(dev)
+        grad = _step1_gradients(network, cfg, plan, params, x, labels)
+        losses, same_point = {}, []
+        for run in ("cuda", "torch", "f64"):
+            impl = "torch" if run == "f64" else run
+            dt = torch.float64 if run == "f64" else torch.float32
+            step = make_train_step_fused(cfg, plan, impl=impl)
+            p = {l: {k: v.to(dt) for k, v in q.items()}
+                 for l, q in params.items()}
+            v, xr, ls = init_velocity(p), x.to(dt), []
+            for _ in range(TRAIN_STEPS):
+                if run == "cuda":   # the torch engine at the same point
+                    with torch.no_grad():
+                        same_point.append(loss_fn_fused(
+                            p, x, labels, cfg, plan, "torch").item())
+                K.reset_launch_counts()
+                p, v, loss = step(p, v, xr, labels)
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+                if run != "cuda" and any(counts.values()):
+                    raise AssertionError(f"train {network}: the torch engine "
+                                         f"launched {counts}")
+                if run == "cuda":
+                    if counts != want:
+                        raise AssertionError(
+                            f"train {network}: launches {counts} != the "
+                            f"plan's {want}")
+                    for k, n in counts.items():
+                        total[k] += n
+                ls.append(loss.item())
+            losses[run] = ls
+            del p, v, xr
+        if not all(math.isfinite(v) for ls in losses.values() for v in ls):
+            raise AssertionError(f"train {network}: non-finite loss {losses}")
+        diffs = [abs(a - b) for a, b in zip(losses["cuda"], same_point)]
+        if max(diffs) >= LOSS_ATOL:
+            raise AssertionError(
+                f"train {network}: losses {losses['cuda']} differ from the "
+                f"torch engine's at the same parameters {same_point} by "
+                f"{max(diffs):.3g} >= {LOSS_ATOL}")
+        apart = {f"{a}_vs_{b}": [float(f"{abs(u - w):.3g}") for u, w in
+                                 zip(losses[a], losses[b])]
+                 for a, b in (("cuda", "torch"), ("cuda", "f64"),
+                              ("torch", "f64"))}
+        row = {"network": network, "batch": batch, "losses": losses,
+               "torch_at_same_params": same_point, "loss_diffs": diffs,
+               "trajectories_apart": apart, "grad": grad,
+               "launches": {k: v for k, v in want.items() if v}}
+        vel = init_velocity(params)
+        for impl in ("cuda", "torch"):
+            step = make_train_step_fused(cfg, plan, impl=impl)
+            row[f"{impl}_ms"] = cuda_ms(lambda: step(params, vel, x, labels),
+                                        max_reps=10)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            out = step(params, vel, x, labels)
+            torch.cuda.synchronize()
+            row[f"{impl}_peak_bytes"] = torch.cuda.max_memory_allocated()
+            row[f"{impl}_peak_over_base_bytes"] = (
+                row[f"{impl}_peak_bytes"] - base)
+            del out
+        print(f"train {network} batch={batch} stack=auto: losses kernels "
+              f"{losses['cuda']}, torch engine at the same parameters "
+              f"{same_point} (max diff {max(diffs):.3g}); independent "
+              f"trajectories torch engine {losses['torch']}, float64 "
+              f"{losses['f64']}, apart {apart}; step-1 gradients {grad}; "
+              f"launches per step {row['launches']} (= "
+              f"the plan's); warm step kernels {row['cuda_ms']:.3f} ms "
+              f"({1e3 * batch / row['cuda_ms']:.1f} img/s), torch engine "
+              f"(cuDNN, TF32 off) {row['torch_ms']:.3f} ms "
+              f"({1e3 * batch / row['torch_ms']:.1f} img/s); peak device "
+              f"memory of a step kernels "
+              f"{row['cuda_peak_bytes'] / 2**20:.1f} MiB (+"
+              f"{row['cuda_peak_over_base_bytes'] / 2**20:.1f} over weights "
+              f"and input), torch engine "
+              f"{row['torch_peak_bytes'] / 2**20:.1f} MiB (+"
+              f"{row['torch_peak_over_base_bytes'] / 2**20:.1f})",
+              flush=True)
+        rows.append(row)
+        del params, vel, x, labels
+        torch.cuda.empty_cache()
+    return total, rows
+
+
 def kernels_line(cases, launches) -> dict:
     """One entry per kernel: times and bound summed over the main path's
     launches (each distinct launch timed once, times its multiplicity).  A
@@ -822,6 +1327,12 @@ def main() -> int:
         for k, v in unfused_counts.items():
             launches[k] += v
         print(f"unfused phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    # autograd needs tensors made outside inference mode
+    t0 = time.perf_counter()
+    train_counts, trained = training_phase(dev)
+    for k, v in train_counts.items():
+        launches[k] += v
+    print(f"training phase: {time.perf_counter() - t0:.1f}s", flush=True)
     line = kernels_line(cases, launches)
     if args.json:
         out = Path(args.json)
@@ -829,6 +1340,7 @@ def main() -> int:
         out.write_text(json.dumps({"card": card, "cases": cases, **line,
                                    "stack_compare": compared,
                                    "unfused": unfused,
+                                   "training": trained,
                                    "ptxas": ptxas.getvalue()}, indent=1))
     print(json.dumps(line))
     print(card)

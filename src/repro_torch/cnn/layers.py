@@ -9,6 +9,10 @@ engine:
               plain version instead; a CUDA tensor runs the kernel.
   * "torch" — the decomposed plain PyTorch engine (the counterpart of the
               reference's "xla"): the oracle the kernels are held against.
+Both engines are differentiable: "torch" by plain autograd, "cuda" through
+the kernels' autograd Functions (the conv, stack, pool and softmax
+wrappers; dgrad on K1/K2, the weight gradient K6, the pool backward K7),
+the counterparts of the reference's custom VJPs.
 Weights are canonical [Co, Ci, F, F] for conv and [in, out] for fc, as
 ``init_cnn`` makes them in both packages.
 """

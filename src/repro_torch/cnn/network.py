@@ -19,9 +19,18 @@ Two executors, as in the reference:
 
 Both report ``RunStats``: the modeled device-memory traffic with the
 reference's accounting, so the two packages report the same bytes for the
-same plan.  Inference at one uniform dtype is what runs here; int8 storage
-boundaries and training raise ``NotImplementedError``.  ``FusedCNN`` owns
-the parameters for a server.
+same plan; ``training=True`` adds the backward pass's bytes
+(``bwd_hbm_bytes``).  Both run at one uniform dtype; int8 storage
+boundaries raise ``NotImplementedError``.  ``FusedCNN`` owns the
+parameters for a server.
+
+Training, as the reference's: ``make_train_step_fused`` is SGD with
+momentum over ``loss_fn_fused``, the fused forward whose backward flows
+through the kernels' autograd Functions (K1/K2 with ``save_act``, dgrad on
+K1/K2, K6, K7, the stack recompute); ``make_train_step`` autodiffs the
+unfused ``forward`` (on the plain engine by default, as the reference
+autodiffs its XLA forward).  Parameters are a plain {layer: {"w", "b"}}
+dict of tensors.
 """
 from __future__ import annotations
 
@@ -40,7 +49,7 @@ from repro_torch.core.selector import (FusedPlan, LayerDesc,
 from repro_torch.core.transform import apply_transform
 from repro_torch.dtypes import (DEFAULT_DTYPE, INT8_DTYPE, canon_dtype,
                                 dtype_bytes)
-from repro_torch.perfmodel import Thresholds
+from repro_torch.perfmodel import Thresholds, conv_backward_bytes
 from repro_torch.serve.plan_cache import (PlanCache, PlanMissError,
                                           packaged_plans)
 
@@ -133,29 +142,55 @@ class RunStats:
     transform_bytes: int = 0        # device-memory bytes those passes moved
     fused_ops: int = 0              # kernels that folded an epilogue/layout
     hbm_bytes: int = 0              # modeled forward traffic of the run
+    bwd_hbm_bytes: int = 0          # modeled backward traffic (training)
+
+    @property
+    def total_hbm_bytes(self) -> int:
+        return self.hbm_bytes + self.bwd_hbm_bytes
 
 
 def _nbytes(x: torch.Tensor) -> int:
     return x.numel() * x.element_size()
 
 
+def _conv_desc(spec, x: torch.Tensor, layout: str, batch: int,
+               net: str) -> ConvLayer:
+    """The cost model's ConvLayer of a conv from its input ``x`` (in
+    ``layout``), as the reference's executor makes it."""
+    hw = x.shape[2] if layout == "NCHW" else x.shape[1]
+    ci = x.shape[1] if layout == "NCHW" else x.shape[0]
+    return ConvLayer(spec.name, batch, spec.out_channels, hw, spec.kernel,
+                     ci, spec.stride, net, pad=spec.pad)
+
+
 # Per-kind traffic accounting, as the reference prices each layer kind.
-def _acct_eltwise(stats: RunStats, x: torch.Tensor) -> None:
-    """relu / softmax: read + write."""
-    stats.hbm_bytes += 2 * _nbytes(x)
+def _acct(stats: RunStats, fwd_b: int, bwd_b: int, training: bool) -> None:
+    stats.hbm_bytes += fwd_b
+    if training:
+        stats.bwd_hbm_bytes += bwd_b
 
 
-def _acct_flatten(stats: RunStats, x: torch.Tensor, cur_layout: str) -> None:
-    """Free reshape from NCHW; a real re-layout from CHWN."""
-    stats.hbm_bytes += 2 * _nbytes(x) if cur_layout == "CHWN" else 0
+def _acct_eltwise(stats: RunStats, x: torch.Tensor, training: bool) -> None:
+    """relu / softmax: fwd read+write; bwd read g + read mask/out + write."""
+    _acct(stats, 2 * _nbytes(x), 3 * _nbytes(x), training)
 
 
-def _acct_fc(stats: RunStats, io_b: int) -> None:
-    stats.hbm_bytes += io_b
+def _acct_flatten(stats: RunStats, x: torch.Tensor, cur_layout: str,
+                  training: bool) -> None:
+    """Free reshape from NCHW; a real re-layout from CHWN (both ways)."""
+    b = 2 * _nbytes(x) if cur_layout == "CHWN" else 0
+    _acct(stats, b, b, training)
 
 
-def _acct_pool(stats: RunStats, in_b: int, out_b: int) -> None:
-    stats.hbm_bytes += in_b + out_b
+def _acct_fc(stats: RunStats, io_b: int, training: bool) -> None:
+    """bwd dx = g W^T, dW = x^T g, db: the same traffic again."""
+    _acct(stats, io_b, io_b, training)
+
+
+def _acct_pool(stats: RunStats, in_b: int, out_b: int,
+               training: bool) -> None:
+    """bwd: read g + read input (max mask) + write dx."""
+    _acct(stats, in_b + out_b, 2 * in_b + out_b, training)
 
 
 def _is_int8(dtype_name: str) -> bool:
@@ -174,11 +209,9 @@ def forward(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
     plain engine (the oracle), whose re-layouts are
     ``permute().contiguous()``.  A re-layout happens only before a conv or
     a pool whose layout differs from its input's (never after flatten),
-    and at add/concat/upsample."""
-    if training:
-        raise NotImplementedError(
-            "unfused training needs the backward kernels (K6 wgrad, K7 pool "
-            "backward, K8 softmax cross-entropy), which are not ported yet")
+    and at add/concat/upsample.  ``training`` also accounts the plain
+    autograd backward in ``stats.bwd_hbm_bytes`` (shape arithmetic, as the
+    reference prices it)."""
     stats = RunStats()
     rins = CL.resolved_cfg_inputs(cfg)
     last_use: Dict[int, int] = {}
@@ -197,7 +230,7 @@ def forward(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
             return t
         stats.transforms += 1
         stats.transform_bytes += 2 * _nbytes(t)
-        stats.hbm_bytes += 2 * _nbytes(t)
+        _acct(stats, 2 * _nbytes(t), 2 * _nbytes(t), training)
         return apply_transform(t, t_lay, lay, use_kernel=impl == "cuda")
 
     for i, (spec, lay) in enumerate(zip(cfg.layers, layouts)):
@@ -208,18 +241,22 @@ def forward(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
         if spec.kind == "conv":
             w = params[spec.name]["w"]
             in_b = _nbytes(x)
+            if training:
+                desc = _conv_desc(spec, x, cur, cfg.batch, cfg.name)
+                stats.bwd_hbm_bytes += conv_backward_bytes(
+                    desc, cur, x.element_size(), fused=False)
             x = CL.conv_forward(x, w, cur, spec.stride, spec.pad, impl=impl)
             stats.hbm_bytes += in_b + _nbytes(w) + _nbytes(x)
         elif spec.kind == "pool":
             in_b = _nbytes(x)
             x = CL.pool_forward(x, cur, spec.kernel, spec.stride,
                                 spec.pool_op, impl=impl)
-            _acct_pool(stats, in_b, _nbytes(x))
+            _acct_pool(stats, in_b, _nbytes(x), training)
         elif spec.kind == "relu":
             x = CL.relu_forward(x)
-            _acct_eltwise(stats, x)
+            _acct_eltwise(stats, x, training)
         elif spec.kind == "flatten":
-            _acct_flatten(stats, x, cur)
+            _acct_flatten(stats, x, cur, training)
             x = CL.flatten_forward(x, cur)
             flat = True
         elif spec.kind == "fc":
@@ -227,25 +264,26 @@ def forward(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
             in_b = _nbytes(x)
             x = CL.fc_forward(x, p["w"], p["b"])
             _acct_fc(stats, in_b + _nbytes(p["w"]) + _nbytes(p["b"])
-                     + _nbytes(x))
+                     + _nbytes(x), training)
         elif spec.kind == "softmax":
             x = CL.softmax_forward(x, impl=impl)
-            _acct_eltwise(stats, x)
+            _acct_eltwise(stats, x, training)
         elif spec.kind == "add":
             b2, b_lay = outs[rins[i][1]]
             x = retuned(x, cur, lay) + retuned(b2, b_lay, lay)
             cur = lay
-            stats.hbm_bytes += 3 * _nbytes(x)
+            # fwd: read both operands + write; bwd: pure gradient fan-out
+            _acct(stats, 3 * _nbytes(x), 0, training)
         elif spec.kind == "concat":
             parts = [retuned(x, cur, lay)]
             parts += [retuned(*outs[p], lay) for p in rins[i][1:]]
             x = CL.concat_forward(parts, lay)
             cur = lay
-            stats.hbm_bytes += 2 * _nbytes(x)
+            _acct(stats, 2 * _nbytes(x), 2 * _nbytes(x), training)
         elif spec.kind == "upsample":
             x = CL.upsample_forward(retuned(x, cur, lay), lay, spec.kernel)
             cur = lay
-            stats.hbm_bytes += 2 * _nbytes(x)
+            _acct(stats, 2 * _nbytes(x), 2 * _nbytes(x), training)
         else:
             raise ValueError(f"unsupported layer kind: {spec.kind!r}")
         outs[i] = (x, cur)
@@ -266,11 +304,11 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
     ``impl="torch"`` decomposes them into plain PyTorch (the oracle).
     Tensors are addressed by producer layer index (``op.inputs``/
     ``op.out_index``) and refcounted, so a branch buffer lives exactly
-    until its last consumer."""
-    if training:
-        raise NotImplementedError(
-            "fused training needs the backward kernels (K6 wgrad, K7 pool "
-            "backward, K8 softmax cross-entropy), which are not ported yet")
+    until its last consumer.  The forward is differentiable on both
+    engines; ``training`` also accounts its backward (activation stash,
+    one-kernel pool+mask backward, dgrad/wgrad with the re-layouts folded,
+    the stack's replay) in ``stats.bwd_hbm_bytes``, as the reference
+    prices it."""
     stats = RunStats()
     nref: Dict[int, int] = {}
     for op in plan.ops:
@@ -295,7 +333,7 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
             return t
         stats.transforms += 1
         stats.transform_bytes += 2 * _nbytes(t)
-        stats.hbm_bytes += 2 * _nbytes(t)
+        _acct(stats, 2 * _nbytes(t), 2 * _nbytes(t), training)
         return apply_transform(t, t_lay, lay, use_kernel=impl == "cuda")
 
     for op in plan.ops:
@@ -320,6 +358,23 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
                 res, res_lay = take(op.res_index)
                 stats.hbm_bytes += _nbytes(res)
             in_b = _nbytes(x)
+            if training:
+                # a training run over a stack replays the unfused pair, so
+                # price both convs plus the rematerialized mid round trip
+                d1 = _conv_desc(spec, x, cur, cfg.batch, cfg.name)
+                d2 = ConvLayer(spec2.name, cfg.batch, spec2.out_channels,
+                               d1.out_hw, spec2.kernel, spec.out_channels,
+                               spec2.stride, cfg.name, pad=spec2.pad)
+                db = x.element_size()
+                mid_b = cfg.batch * spec.out_channels * d1.out_hw ** 2 * db
+                stats.bwd_hbm_bytes += (
+                    conv_backward_bytes(d1, op.layout, db,
+                                        relu=op.stack_relu, fused=True)
+                    + conv_backward_bytes(d2, op.layout, db, relu=op.relu,
+                                          pool=pool[:2] if pool else None,
+                                          fused=True,
+                                          residual=res is not None)
+                    + 2 * mid_b)
             x = CL.fused_conv_stack(x, p1["w"], p2["w"], op.layout,
                                     spec.stride, spec.pad, spec2.stride,
                                     spec2.pad, relu1=op.stack_relu,
@@ -341,6 +396,12 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
                 res, res_lay = take(op.res_index)
                 stats.hbm_bytes += _nbytes(res)   # epilogue's second read
             in_b = _nbytes(x)
+            if training:
+                desc = _conv_desc(spec, x, cur, cfg.batch, cfg.name)
+                stats.bwd_hbm_bytes += conv_backward_bytes(
+                    desc, op.layout, x.element_size(), relu=op.relu,
+                    pool=pool[:2] if pool else None, bias="b" in p,
+                    fused=True, residual=res is not None)
             x = CL.fused_conv_block(x, p["w"], op.layout, spec.stride,
                                     spec.pad, bias=p.get("b"), relu=op.relu,
                                     pool=pool, res=res, res_layout=res_lay,
@@ -359,41 +420,42 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
             x = CL.pool_forward(x, cur, spec.kernel, spec.stride,
                                 spec.pool_op, impl=impl,
                                 dst_layout=op.dst_layout)
-            _acct_pool(stats, in_b, _nbytes(x))
+            _acct_pool(stats, in_b, _nbytes(x), training)
             if op.dst_layout != op.layout:
                 stats.fused_ops += 1
             cur = op.dst_layout
         elif spec.kind == "relu":    # un-folded act (post-flatten)
             x = CL.relu_forward(x)
-            _acct_eltwise(stats, x)
+            _acct_eltwise(stats, x, training)
         elif op.kind == "flatten":
-            _acct_flatten(stats, x, cur)
+            _acct_flatten(stats, x, cur, training)
             x = CL.flatten_forward(x, cur)
         elif op.kind == "fc":
             p = params[spec.name]
             in_b = _nbytes(x)
             x = CL.fc_forward(x, p["w"], p["b"])
             _acct_fc(stats, in_b + _nbytes(p["w"]) + _nbytes(p["b"])
-                     + _nbytes(x))
+                     + _nbytes(x), training)
         elif op.kind == "softmax":
             x = CL.softmax_forward(x, impl=impl)
-            _acct_eltwise(stats, x)
+            _acct_eltwise(stats, x, training)
         elif op.kind == "add":       # standalone residual add (un-folded)
             b2, b_lay = take(op.inputs[1])
             x = retuned(x, cur, op.layout) + retuned(b2, b_lay, op.layout)
             cur = op.layout
-            stats.hbm_bytes += 3 * _nbytes(x)
+            # fwd: read both operands + write; bwd: pure gradient fan-out
+            _acct(stats, 3 * _nbytes(x), 0, training)
         elif op.kind == "concat":
             parts = [retuned(x, cur, op.layout)]
             parts += [retuned(*take(p), op.layout) for p in op.inputs[1:]]
             x = CL.concat_forward(parts, op.layout)
             cur = op.layout
-            stats.hbm_bytes += 2 * _nbytes(x)
+            _acct(stats, 2 * _nbytes(x), 2 * _nbytes(x), training)
         elif op.kind == "upsample":
             x = CL.upsample_forward(retuned(x, cur, op.layout), op.layout,
                                     spec.kernel)
             cur = op.layout
-            stats.hbm_bytes += 2 * _nbytes(x)
+            _acct(stats, 2 * _nbytes(x), 2 * _nbytes(x), training)
         else:
             raise ValueError(f"unknown op kind {op.kind!r}")
         prev_key = op.out_index if op.out_index >= 0 else op.index
@@ -405,6 +467,89 @@ def batch_output_ok(y: torch.Tensor) -> torch.Tensor:
     """One all-finite reduction over the class probabilities: a 0-d bool
     tensor (on y's device) that is False for a poisoned batch."""
     return torch.isfinite(y.float()).all()
+
+
+# ---------------------------------------------------------------------------
+# training: SGD with momentum over the fused or the unfused forward
+# ---------------------------------------------------------------------------
+
+def _nll(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean negative log-likelihood of ``labels`` under the class
+    probabilities, as the reference takes it (log of probabilities clipped
+    at 1e-20)."""
+    logp = torch.log(torch.clamp(probs.float(), min=1e-20))
+    return -torch.gather(logp, 1, labels[:, None]).mean()
+
+
+def loss_fn(params: Dict, x_nchw: torch.Tensor, labels: torch.Tensor,
+            cfg: CNNConfig, layouts: List[str],
+            impl: str = "torch") -> torch.Tensor:
+    """Differentiable NLL over the unfused ``forward`` (the reference
+    autodiffs its XLA forward, hence the plain engine by default)."""
+    probs, _ = forward(params, x_nchw, cfg, layouts, impl=impl)
+    return _nll(probs, labels)
+
+
+def loss_fn_fused(params: Dict, x_nchw: torch.Tensor, labels: torch.Tensor,
+                  cfg: CNNConfig, plan: FusedPlan,
+                  impl: str = "cuda") -> torch.Tensor:
+    """Differentiable NLL over the FUSED engine: the forward runs the fused
+    kernels and the backward flows through their autograd Functions
+    (dgrad on K1/K2, K6, the one-kernel pool+mask backward K7, the stack
+    recompute)."""
+    probs, _ = forward_fused(params, x_nchw, cfg, plan, impl=impl)
+    return _nll(probs, labels)
+
+
+def value_and_grad(loss, params: Dict, *args) -> Tuple[torch.Tensor, Dict]:
+    """(loss(params, *args), its gradient as a tree like ``params``), with
+    ``torch.autograd.grad``; ``params`` itself is left untouched."""
+    leaves = {layer: {k: v.detach().requires_grad_(True)
+                      for k, v in p.items()}
+              for layer, p in params.items()}
+    keys = [(layer, k) for layer, p in leaves.items() for k in p]
+    with torch.enable_grad():
+        value = loss(leaves, *args)
+        grads = torch.autograd.grad(value, [leaves[l][k] for l, k in keys])
+    tree: Dict[str, Dict[str, torch.Tensor]] = {layer: {} for layer in params}
+    for (layer, k), gr in zip(keys, grads):
+        tree[layer][k] = gr
+    return value.detach(), tree
+
+
+def _sgd_step(loss, lr: float, momentum: float):
+    def step(params: Dict, vel: Dict, x: torch.Tensor, y: torch.Tensor):
+        value, grads = value_and_grad(loss, params, x, y)
+        new_vel = {layer: {k: momentum * vel[layer][k] - lr * g
+                           for k, g in gs.items()}
+                   for layer, gs in grads.items()}
+        new_params = {layer: {k: params[layer][k] + v for k, v in vs.items()}
+                      for layer, vs in new_vel.items()}
+        return new_params, new_vel, value
+    return step
+
+
+def make_train_step(cfg: CNNConfig, layouts: List[str], lr: float = 0.01,
+                    momentum: float = 0.9, impl: str = "torch"):
+    """``step(params, vel, x, labels) -> (params, vel, loss)``: one SGD step
+    with momentum (vel = momentum*vel - lr*grad; params += vel) over the
+    unfused ``forward``."""
+    return _sgd_step(lambda p, x, y: loss_fn(p, x, y, cfg, layouts, impl),
+                     lr, momentum)
+
+
+def make_train_step_fused(cfg: CNNConfig, plan: FusedPlan, lr: float = 0.01,
+                          momentum: float = 0.9, impl: str = "cuda"):
+    """The layout-aware twin of ``make_train_step``: the same SGD step over
+    the fused engine (``loss_fn_fused``)."""
+    return _sgd_step(lambda p, x, y: loss_fn_fused(p, x, y, cfg, plan, impl),
+                     lr, momentum)
+
+
+def init_velocity(params: Dict) -> Dict:
+    """Zero momentum, shaped like ``params``."""
+    return {layer: {k: torch.zeros_like(v) for k, v in p.items()}
+            for layer, p in params.items()}
 
 
 class FusedCNN(nn.Module):

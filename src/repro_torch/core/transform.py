@@ -9,7 +9,9 @@ K9b (``repro_torch.kernels.transpose``), as ``use_pallas`` does in
 raises, and a permutation neither kernel covers raises too.  The executors
 set ``use_kernel`` from their engine: "cuda" takes the kernels, "torch"
 takes ``use_kernel=False``, which is ``permute().contiguous()``, the
-counterpart of the reference's XLA transpose.
+counterpart of the reference's XLA transpose.  Both are differentiable:
+the gradient of a re-layout is the inverse re-layout, on the same kernels
+when ``use_kernel`` (``_TransformFn``).
 """
 from __future__ import annotations
 
@@ -18,14 +20,34 @@ import torch
 from repro_torch.core.layout import perm_between, plan_transform
 
 
+class _TransformFn(torch.autograd.Function):
+    """A re-layout on the transpose kernels, whose gradient is the inverse
+    re-layout on them."""
+
+    @staticmethod
+    def forward(ctx, x, src, dst):
+        ctx.conf = (src, dst)
+        return _relayout(x, src, dst, True)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst = ctx.conf
+        return _relayout(g.contiguous(), dst, src, True), None, None
+
+
 def apply_transform(x: torch.Tensor, src: str, dst: str, *,
                     use_kernel: bool = False) -> torch.Tensor:
     """Re-layout ``x`` from layout ``src`` to ``dst`` (a contiguous copy)."""
-    if src == dst:
+    if src == dst or plan_transform(src, dst).is_identity:
         return x
+    if use_kernel and torch.is_grad_enabled() and x.requires_grad:
+        return _TransformFn.apply(x, src, dst)
+    return _relayout(x, src, dst, use_kernel)
+
+
+def _relayout(x: torch.Tensor, src: str, dst: str,
+              use_kernel: bool) -> torch.Tensor:
     plan = plan_transform(src, dst)
-    if plan.is_identity:
-        return x
     if use_kernel and x.device.type != "cpu" and not x.is_contiguous():
         # a reshape would copy it: the permute the kernel stands for
         raise ValueError(f"{src} -> {dst}: the transpose kernel takes a "

@@ -4,20 +4,28 @@ K1 (``conv.ops.conv_direct_chwn``), K2 (``conv.ops.conv_im2col_nchw_fused``),
 the standalone pools K3a (``pool.ops.pool_chwn``) and K3b
 (``pool.ops.pool_nchw``), K4 (``softmax.ops.softmax``), the conv->conv
 stacks K5a (``conv.ops.conv_stack_chwn``) and K5b
-(``conv.ops.conv_stack_nchw``), and the tiled transposes K9a
+(``conv.ops.conv_stack_nchw``), the weight gradient K6
+(``conv.backward.conv_wgrad``), the pool backwards K7a
+(``pool.backward.pool_backward_chwn``) and K7b
+(``pool.backward.pool_backward_nchw``), the row cross entropy K8
+(``softmax.ops.softmax_xent``), and the tiled transposes K9a
 (``transpose.ops.transpose2d``) and K9b (``transpose.ops.transpose2d_batched``).
-Each wrapper counts the kernels it launches; ``launch_counts``/
-``reset_launch_counts`` read and zero them.
+dgrad has no kernel of its own: it runs on K1/K2.  Each wrapper counts the
+kernels it launches; ``launch_counts``/``reset_launch_counts`` read and
+zero them.
 """
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.kernels.conv.backward import conv_wgrad
 from repro_torch.kernels.conv.ops import (conv_direct_chwn,
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn, conv_stack_nchw)
+from repro_torch.kernels.pool.backward import (pool_backward_chwn,
+                                               pool_backward_nchw)
 from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw
-from repro_torch.kernels.softmax.ops import softmax
+from repro_torch.kernels.softmax.ops import softmax, softmax_xent
 from repro_torch.kernels.transpose.ops import (transpose2d,
                                                transpose2d_batched)
 
@@ -31,6 +39,10 @@ WRAPPERS = {
     "pool_nchw": pool_nchw,
     "transpose2d": transpose2d,
     "transpose2d_batched": transpose2d_batched,
+    "wgrad": conv_wgrad,
+    "pool_backward_chwn": pool_backward_chwn,
+    "pool_backward_nchw": pool_backward_nchw,
+    "softmax_xent": softmax_xent,
 }
 
 

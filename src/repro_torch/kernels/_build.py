@@ -35,10 +35,13 @@ LIB_NAME = "libreprotorch_kernels.so"
 P, I = ctypes.c_void_p, ctypes.c_int
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES: Dict[str, List] = {
-    # x, w, bias, res, y, N, Ci, H, W, Co, F, S, pad, pool_F, pool_S,
+    # x, w, bias, res, y, z, N, Ci, H, W, Co, F, S, pad, pool_F, pool_S,
     # pool_avg, relu, src_nchw, dst_nchw, res_nchw, stream
-    "conv_chwn_forward": [P] * 5 + [I] * 15 + [P],
-    "conv_nchw_forward": [P] * 5 + [I] * 15 + [P],
+    "conv_chwn_forward": [P] * 6 + [I] * 15 + [P],
+    "conv_nchw_forward": [P] * 6 + [I] * 15 + [P],
+    # x, g, ws, dw, N, Ci, H, W, Co, F, S, pad, x_nchw, g_nchw,
+    # p_per_split, splits, stream
+    "wgrad_forward": [P] * 4 + [I] * 12 + [P],
     # x, w1, b1, w2, b2, res, y, N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2,
     # P2, pool_F, pool_S, pool_avg, relu1, relu2, src_nchw, dst_nchw,
     # res_nchw, bm, nb, uth, utw, stream
@@ -46,9 +49,14 @@ SIGNATURES: Dict[str, List] = {
     "conv_stack_nchw_forward": [P] * 7 + [I] * 24 + [P],
     # x, y, rows, cols, stream
     "softmax_forward": [P, P, I, I, P],
+    # x, labels, loss, rows, cols, stream
+    "softmax_xent_forward": [P, P, P, I, I, P],
     # x, y, N, C, H, W, F, S, avg, dst_nchw, stream
     "pool_chwn_forward": [P, P] + [I] * 8 + [P],
     "pool_nchw_forward": [P, P] + [I] * 8 + [P],
+    # x, g, dx, N, C, H, W, F, S, avg, relu_mask, g_nchw, stream
+    "pool_backward_chwn": [P] * 3 + [I] * 9 + [P],
+    "pool_backward_nchw": [P] * 3 + [I] * 9 + [P],
     # x, y, B, M, N, stream
     "transpose_forward": [P, P, I, I, I, P],
 }

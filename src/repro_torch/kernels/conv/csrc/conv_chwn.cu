@@ -16,17 +16,22 @@
 // contiguous run.  It does not use the tensor cores (fp32 exactness); the
 // TPU kernel's halo stitch, row/channel padding and N tiling have no
 // counterpart here.
+//
+// With z (the save_act output, for training), it also writes the conv
+// output before the pool, as [Co, Ho, Wo, N] (CHWN)
+// (conv_common.cuh says how overlapping windows share the writes).
 #include "conv_common.cuh"
 
 extern "C" int conv_chwn_forward(const void* x, const void* w,
                                  const void* bias, const void* res, void* y,
-                                 int N, int Ci, int H, int W, int Co, int F,
-                                 int S, int pad, int pool_F, int pool_S,
-                                 int pool_avg, int relu, int src_nchw,
-                                 int dst_nchw, int res_nchw, void* stream) {
+                                 void* z, int N, int Ci, int H, int W, int Co,
+                                 int F, int S, int pad, int pool_F,
+                                 int pool_S, int pool_avg, int relu,
+                                 int src_nchw, int dst_nchw, int res_nchw,
+                                 void* stream) {
   // w [Ci, F, F, Co] is [K, Co]
-  return repro::conv_forward<true>(x, w, bias, res, y, N, Ci, H, W, Co, F, S,
-                                   pad, pool_F, pool_S, pool_avg, relu,
+  return repro::conv_forward<true>(x, w, bias, res, y, z, N, Ci, H, W, Co,
+                                   F, S, pad, pool_F, pool_S, pool_avg, relu,
                                    src_nchw, dst_nchw, res_nchw,
                                    /*wsO=*/1, /*wsK=*/Co, stream);
 }

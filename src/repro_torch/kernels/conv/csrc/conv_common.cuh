@@ -31,6 +31,16 @@
 // not a code path; a fold against the engine's order (NCHW input or output
 // on the CHWN engine) reads or writes with stride C*H*W between
 // neighbouring threads, served by L1/L2.
+//
+// The save_act output (training).  With ``z`` given, the kernel also writes
+// the conv output after bias, residual and ReLU and before the pool, in
+// the engine's own layout (CHWN for K1, NCHW for K2): the activation the
+// backward pass needs for its ReLU mask and its max-pool routing.  With a
+// pool, the block writes z from its finished tile; where windows overlap
+// (3/2), a conv output that several units recompute is written by one of
+// them only: the unit whose window holds it in its first pS rows (and
+// columns), or the last unit row (column) for the rows past them.  Conv
+// outputs under no window are never computed: the wrapper zero-fills z.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -62,6 +72,7 @@ struct ConvArgs {
   const float* bias;  // [Co] or null
   const float* res;   // conv-output (pre-pool) shape, or null
   float* y;
+  float* z;       // save_act: the pre-pool activation, or null
   int N, Ci, H, W, Co, F, S, pad, K;
   int Ho, Wo;     // conv output
   int UH, UW;     // unit grid: the pooled output, or the conv output
@@ -69,7 +80,7 @@ struct ConvArgs {
   int pF, pS, pool_avg, relu;  // pF == 0: no pool
   int T, BU;      // taps per unit, units per block
   int wsO, wsK;
-  Strides xs, ys, rs;
+  Strides xs, ys, rs, zs;
 };
 
 // GEMM column c of block bx: its unit, and the conv output its tap is
@@ -224,11 +235,20 @@ conv_gemm_kernel(const ConvArgs a) {
                    (long long)co * a.rs.c + col.oh * a.rs.h +
                    col.ow * a.rs.w);
       if (a.relu) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
-      if (POOL)
+      bool save = a.z != nullptr;
+      if (POOL) {
         Ts[m][c] = v;
-      else
+        // one writer per conv output where windows overlap
+        const int t = c / a.BU, dy = t / a.pF, dx = t - dy * a.pF;
+        save = save && (dy < a.pS || col.uh == a.UH - 1) &&
+               (dx < a.pS || col.uw == a.UW - 1);
+      } else {
         a.y[(long long)col.n * a.ys.n + (long long)co * a.ys.c +
             col.oh * a.ys.h + col.ow * a.ys.w] = v;
+      }
+      if (save)
+        a.z[(long long)col.n * a.zs.n + (long long)co * a.zs.c +
+            col.oh * a.zs.h + col.ow * a.zs.w] = v;
     }
   }
   if (POOL) {
@@ -251,11 +271,12 @@ conv_gemm_kernel(const ConvArgs a) {
 }
 
 // Shared host entry: fills ConvArgs and launches.  Each engine passes its
-// weight layout as (wsO, wsK).  Returns cudaGetLastError().
+// weight layout as (wsO, wsK); z (or null) is [N, Co, Ho, Wo] in the
+// engine's layout.  Returns cudaGetLastError().
 template <bool N_FASTEST>
 int conv_forward(const void* x, const void* w, const void* bias,
-                 const void* res, void* y, int N, int Ci, int H, int W,
-                 int Co, int F, int S, int pad, int pool_F, int pool_S,
+                 const void* res, void* y, void* z, int N, int Ci, int H,
+                 int W, int Co, int F, int S, int pad, int pool_F, int pool_S,
                  int pool_avg, int relu, int src_nchw, int dst_nchw,
                  int res_nchw, int wsO, int wsK, void* stream) {
   ConvArgs a;
@@ -264,6 +285,7 @@ int conv_forward(const void* x, const void* w, const void* bias,
   a.bias = static_cast<const float*>(bias);
   a.res = static_cast<const float*>(res);
   a.y = static_cast<float*>(y);
+  a.z = static_cast<float*>(z);
   a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Co = Co; a.F = F; a.S = S;
   a.pad = pad;
   a.K = Ci * F * F;
@@ -273,6 +295,7 @@ int conv_forward(const void* x, const void* w, const void* bias,
   a.wsO = wsO; a.wsK = wsK;
   a.xs = layout_strides(src_nchw, N, Ci, H, W);
   a.rs = layout_strides(res_nchw, N, Co, a.Ho, a.Wo);
+  a.zs = layout_strides(!N_FASTEST, N, Co, a.Ho, a.Wo);
   const bool pool = pool_F > 0;
   if (pool) {
     a.UH = (a.Ho - pool_F) / pool_S + 1;

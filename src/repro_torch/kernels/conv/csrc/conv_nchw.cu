@@ -19,17 +19,22 @@
 // a warp's NCHW gathers and stores run along W.  No tensor cores (fp32
 // exactness); the TPU kernel's halo stitch and channel/row padding have no
 // counterpart here.
+//
+// With z (the save_act output, for training), it also writes the conv
+// output before the pool, as [N, Co, Ho, Wo] (NCHW)
+// (conv_common.cuh says how overlapping windows share the writes).
 #include "conv_common.cuh"
 
 extern "C" int conv_nchw_forward(const void* x, const void* w,
                                  const void* bias, const void* res, void* y,
-                                 int N, int Ci, int H, int W, int Co, int F,
-                                 int S, int pad, int pool_F, int pool_S,
-                                 int pool_avg, int relu, int src_nchw,
-                                 int dst_nchw, int res_nchw, void* stream) {
+                                 void* z, int N, int Ci, int H, int W, int Co,
+                                 int F, int S, int pad, int pool_F,
+                                 int pool_S, int pool_avg, int relu,
+                                 int src_nchw, int dst_nchw, int res_nchw,
+                                 void* stream) {
   // w [Co, Ci, F, F] is [Co, K]
-  return repro::conv_forward<false>(x, w, bias, res, y, N, Ci, H, W, Co, F,
-                                    S, pad, pool_F, pool_S, pool_avg, relu,
+  return repro::conv_forward<false>(x, w, bias, res, y, z, N, Ci, H, W, Co,
+                                    F, S, pad, pool_F, pool_S, pool_avg, relu,
                                     src_nchw, dst_nchw, res_nchw,
                                     /*wsO=*/Ci * F * F, /*wsK=*/1, stream);
 }

@@ -15,6 +15,14 @@ For a CPU tensor a wrapper returns the plain version (``ref.conv_ref``,
 ``ref.conv_stack_ref``).  For a CUDA tensor it launches its kernel or
 raises; it never falls back, and a stack never splits into two convs.
 Each wrapper counts its launches in ``<wrapper>.launches``.
+
+When an input requires grad, the wrappers run as ``torch.autograd
+.Function``s (``_ConvFn``, ``_StackFn``), the counterparts of the
+reference's custom VJPs: the forward saves the pre-pool activation
+(``save_act``, the kernels' second output ``z``) where it pools, and the
+backward (``conv_backward``) runs the pool backward K7, dgrad on the
+engine's own conv kernel, the weight gradient K6 and, for a stack, the
+recompute of its mid activation on K1/K2.
 """
 from __future__ import annotations
 
@@ -24,11 +32,19 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core.transform import apply_transform
 from repro_torch.kernels import _build
+from repro_torch.kernels.conv.backward import (bias_grad, conv_dgrad,
+                                               conv_wgrad)
 from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref
+from repro_torch.kernels.pool.backward import pool_backward
 from repro_torch.shapes import conv_out_hw, pool_out_hw
 
 _LAYOUTS = ("NCHW", "CHWN")
+_ENTRY = {"CHWN": "conv_chwn_forward", "NCHW": "conv_nchw_forward"}
+_WEIGHT_SHAPE = {"CHWN": "[Ci,F,F,Co]", "NCHW": "[Co,Ci,F,F]"}
+_STACK_ENTRY = {"CHWN": "conv_stack_chwn_forward",
+                "NCHW": "conv_stack_nchw_forward"}
 # a block holds every tap of a pool window among its 128 GEMM columns
 # (BN in csrc/conv_common.cuh)
 _MAX_POOL_TAPS = 128
@@ -104,9 +120,10 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
-def _launch(entry: str, wrapper, x, w, Ci: int, Co: int, F: int, stride: int,
-            pad: int, bias, relu: bool, pool, res, res_layout: str,
-            src_layout: str, dst_layout: str) -> torch.Tensor:
+def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
+            F: int, stride: int, pad: int, bias, relu: bool, pool, res,
+            res_layout: str, src_layout: str, dst_layout: str,
+            save_act: bool):
     name = wrapper.__name__
     _check_layouts(name, src_layout=src_layout, dst_layout=dst_layout,
                    res_layout=res_layout)
@@ -118,14 +135,133 @@ def _launch(entry: str, wrapper, x, w, Ci: int, Co: int, F: int, stride: int,
                                           res, res_layout)
     _build.require_cuda_f32(name, x.device, x=x, w=w, bias=bias, res=res)
     y = _output(name, x, dst_layout, N, Co, OH, OW)
+    z = None
+    if save_act:
+        # conv outputs under no pool window are never computed: zero them
+        covered = not pF or (pF >= pS and (Ho - pF) % pS == 0
+                             and (Wo - pF) % pS == 0)
+        z = (torch.empty if covered else torch.zeros)(
+            _shape(engine, N, Co, Ho, Wo), device=x.device,
+            dtype=torch.float32)
     err = getattr(_build.library(), entry)(
         x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(res), y.data_ptr(),
-        N, Ci, H, W, Co, F, stride, pad, pF, pS, avg, int(relu),
+        _ptr(z), N, Ci, H, W, Co, F, stride, pad, pF, pS, avg, int(relu),
         int(src_layout == "NCHW"), int(dst_layout == "NCHW"),
         int(res_layout == "NCHW"), _build.stream_of(x.device))
     _build.check(name, err)
     wrapper.launches += 1
-    return y
+    return (y, z) if save_act else y
+
+
+def _conv(engine: str, x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+          pad: int = 0, *, bias: Optional[torch.Tensor] = None,
+          relu: bool = False, pool: Optional[Tuple[int, int, str]] = None,
+          res: Optional[torch.Tensor] = None, res_layout: Optional[str] = None,
+          src_layout: Optional[str] = None, dst_layout: Optional[str] = None,
+          save_act: bool = False):
+    """One fused conv on ``engine``'s kernel (K1 for "CHWN", w
+    [Ci,F,F,Co]; K2 for "NCHW", w [Co,Ci,F,F]), outside autograd: its plain
+    version for a CPU tensor, the kernel for a CUDA tensor.  With
+    ``save_act`` returns ``(y, z)``, z the pre-pool activation in the
+    engine's layout."""
+    wrapper = conv_direct_chwn if engine == "CHWN" else conv_im2col_nchw_fused
+    if w.dim() != 4:
+        raise ValueError(f"w must be {_WEIGHT_SHAPE[engine]}, got "
+                         f"{tuple(w.shape)}")
+    src, dst = src_layout or engine, dst_layout or engine
+    rlay = res_layout or engine
+    if _build.on_cpu(wrapper.__name__, x):
+        w_oihw = w.permute(3, 0, 1, 2) if engine == "CHWN" else w
+        return conv_ref(x, w_oihw, stride, pad, bias=bias, relu=relu,
+                        pool=pool, res=res, res_layout=rlay, src_layout=src,
+                        dst_layout=dst, save_act=save_act, act_layout=engine)
+    if engine == "CHWN":
+        Ci, F, _, Co = w.shape
+    else:
+        Co, Ci, F, _ = w.shape
+    return _launch(_ENTRY[engine], wrapper, engine, x, w, Ci, Co, F, stride,
+                   pad, bias, relu, pool, res, rlay, src, dst, save_act)
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
+def conv_backward(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                  act: Optional[torch.Tensor], *, engine: str, stride: int,
+                  pad: int, relu: bool,
+                  pool: Optional[Tuple[int, int, str]], res_layout: str,
+                  src_layout: str, dst_layout: str,
+                  needs: Tuple[bool, bool, bool, bool]):
+    """Gradients (dx, dw, dbias, dres) of one fused conv, as the
+    reference's ``_conv_bwd`` (``repro/kernels/conv/ops.py``) computes
+    them; ``needs`` says which to compute (None for the others).
+
+    ``g`` arrives in ``dst_layout``; ``act`` is the saved activation: the
+    pre-pool ``z`` (engine layout) with a pool, else the output y (for the
+    ReLU mask).  With a pool, K7 routes g through the max mask or the avg
+    scatter and applies the ReLU mask in one pass; without, the mask is
+    ``g * (y > 0)``.  dgrad is the engine's own conv kernel on the
+    dilated, rotated problem, written straight in ``src_layout``; dw comes
+    from K6 (in the engine's weight layout); a folded residual's gradient
+    is the masked gradient, re-laid-out into ``res_layout`` (K9a on the
+    card)."""
+    need_dx, need_dw, need_db, need_dres = needs
+    F = w.shape[1] if engine == "CHWN" else w.shape[2]
+    g = g.contiguous()
+    if pool is not None:
+        ga = pool_backward(act, g, pool[0], pool[1], pool[2], layout=engine,
+                           g_layout=dst_layout, relu_mask=relu)
+        g_lay = engine
+    else:
+        ga = g * (act > 0) if relu else g
+        g_lay = dst_layout
+    dx = dw = db = dres = None
+    if need_dx:
+        w_oihw = w.permute(3, 0, 1, 2) if engine == "CHWN" else w
+        _, _, H, W = _dims(x, src_layout)
+        dx = conv_dgrad(ga, w_oihw, (H, W), stride, pad, layout=engine,
+                        g_layout=g_lay, dst_layout=src_layout)
+    if need_dw:
+        dw = conv_wgrad(x, ga, F, stride, pad, x_layout=src_layout,
+                        g_layout=g_lay)
+        if engine == "CHWN":
+            dw = dw.permute(1, 2, 3, 0).contiguous()
+    if need_db:
+        db = bias_grad(ga, g_lay)
+    if need_dres:
+        dres = apply_transform(ga, g_lay, res_layout, use_kernel=True)
+    return dx, dw, db, dres
+
+
+class _ConvFn(torch.autograd.Function):
+    """K1/K2 with their gradient: the forward saves the pre-pool activation
+    (``save_act``) when it pools, the backward is ``conv_backward``."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, res, engine, stride, pad, relu, pool,
+                res_layout, src_layout, dst_layout):
+        kw = dict(bias=bias, relu=relu, pool=pool, res=res,
+                  res_layout=res_layout, src_layout=src_layout,
+                  dst_layout=dst_layout)
+        if pool is not None:
+            y, act = _conv(engine, x, w, stride, pad, save_act=True, **kw)
+        else:
+            y = _conv(engine, x, w, stride, pad, **kw)
+            act = y if relu else None
+        ctx.conf = dict(engine=engine, stride=stride, pad=pad, relu=relu,
+                        pool=pool, res_layout=res_layout,
+                        src_layout=src_layout, dst_layout=dst_layout)
+        ctx.save_for_backward(x, w, act)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, act = ctx.saved_tensors
+        grads = conv_backward(g, x, w, act, needs=ctx.needs_input_grad[:4],
+                              **ctx.conf)
+        return grads + (None,) * 8
 
 
 def conv_direct_chwn(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -138,17 +274,14 @@ def conv_direct_chwn(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     """K1, the direct CHWN engine: x [Ci,H,W,N] (or [N,Ci,H,W] for src
     NCHW), w [Ci,F,F,Co] -> [Co,Ho',Wo',N] (or NCHW for dst NCHW), with the
     optional fused bias/residual-add/ReLU/pool epilogue (``res`` is the
-    skip tensor, conv-output shape, stored in ``res_layout``)."""
-    if w.dim() != 4:
-        raise ValueError(f"w must be [Ci,F,F,Co], got {tuple(w.shape)}")
-    if _build.on_cpu("conv_direct_chwn", x):
-        return conv_ref(x, w.permute(3, 0, 1, 2), stride, pad, bias=bias,
-                        relu=relu, pool=pool, res=res, res_layout=res_layout,
-                        src_layout=src_layout, dst_layout=dst_layout)
-    Ci, F, _, Co = w.shape
-    return _launch("conv_chwn_forward", conv_direct_chwn, x, w, Ci, Co, F,
-                   stride, pad, bias, relu, pool, res, res_layout,
-                   src_layout, dst_layout)
+    skip tensor, conv-output shape, stored in ``res_layout``).
+    Differentiable (``_ConvFn``) when an input requires grad."""
+    if _wants_grad(x, w, bias, res):
+        return _ConvFn.apply(x, w, bias, res, "CHWN", stride, pad, relu,
+                             pool, res_layout, src_layout, dst_layout)
+    return _conv("CHWN", x, w, stride, pad, bias=bias, relu=relu, pool=pool,
+                 res=res, res_layout=res_layout, src_layout=src_layout,
+                 dst_layout=dst_layout)
 
 
 def conv_im2col_nchw_fused(x: torch.Tensor, w: torch.Tensor,
@@ -162,17 +295,14 @@ def conv_im2col_nchw_fused(x: torch.Tensor, w: torch.Tensor,
                            dst_layout: str = "NCHW") -> torch.Tensor:
     """K2, the virtual-im2col NCHW engine: x [N,Ci,H,W] (or [Ci,H,W,N] for
     src CHWN), w canonical [Co,Ci,F,F] -> [N,Co,Ho',Wo'] (or CHWN for dst
-    CHWN), with the same optional fused epilogue as K1."""
-    if w.dim() != 4:
-        raise ValueError(f"w must be [Co,Ci,F,F], got {tuple(w.shape)}")
-    if _build.on_cpu("conv_im2col_nchw_fused", x):
-        return conv_ref(x, w, stride, pad, bias=bias, relu=relu, pool=pool,
-                        res=res, res_layout=res_layout,
-                        src_layout=src_layout, dst_layout=dst_layout)
-    Co, Ci, F, _ = w.shape
-    return _launch("conv_nchw_forward", conv_im2col_nchw_fused, x, w, Ci, Co,
-                   F, stride, pad, bias, relu, pool, res, res_layout,
-                   src_layout, dst_layout)
+    CHWN), with the same optional fused epilogue as K1; differentiable
+    like it."""
+    if _wants_grad(x, w, bias, res):
+        return _ConvFn.apply(x, w, bias, res, "NCHW", stride, pad, relu,
+                             pool, res_layout, src_layout, dst_layout)
+    return _conv("NCHW", x, w, stride, pad, bias=bias, relu=relu, pool=pool,
+                 res=res, res_layout=res_layout, src_layout=src_layout,
+                 dst_layout=dst_layout)
 
 
 # ---------------------------------------------------------------------------
@@ -350,10 +480,87 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
     return y
 
 
-def _stack_weights(name: str, w1, w2, shape: str):
+def _stack(engine: str, x, w1, w2, stride1: int, pad1: int, stride2: int,
+           pad2: int, bias1, bias2, relu1: bool, relu2: bool, pool, res,
+           res_layout: str, src_layout: str, dst_layout: str):
+    """One conv->conv stack on ``engine``'s kernel (K5a for "CHWN", K5b for
+    "NCHW"), outside autograd."""
+    wrapper = conv_stack_chwn if engine == "CHWN" else conv_stack_nchw
+    name = wrapper.__name__
     if w1.dim() != 4 or w2.dim() != 4:
-        raise ValueError(f"{name}: w1/w2 must be 4-D {shape} weights, got "
-                         f"{tuple(w1.shape)} / {tuple(w2.shape)}")
+        raise ValueError(f"{name}: w1/w2 must be 4-D {_WEIGHT_SHAPE[engine]} "
+                         f"weights, got {tuple(w1.shape)} / "
+                         f"{tuple(w2.shape)}")
+    if engine == "CHWN":
+        (Ci, F1, _, Cm), (Cm2, F2, _, Co) = w1.shape, w2.shape
+    else:
+        (Cm, Ci, F1, _), (Co, Cm2, F2, _) = w1.shape, w2.shape
+    if Cm2 != Cm:
+        raise ValueError(f"{name}: w2 takes {Cm2} channels, w1 makes {Cm}")
+    return _stack_launch(_STACK_ENTRY[engine], wrapper, engine, x, w1, w2,
+                         Ci, Cm, Co, F1, F2, stride1, pad1, stride2, pad2,
+                         bias1, bias2, relu1, relu2, pool, res, res_layout,
+                         src_layout, dst_layout)
+
+
+class _StackFn(torch.autograd.Function):
+    """K5a/K5b with their gradient, as the reference's
+    ``_stack_bwd_unfused``: the backward recomputes the mid activation y1
+    with one conv1 launch (K1/K2), then runs the two convs' backwards
+    (``conv_backward``).  conv2's ReLU mask comes from the saved stack
+    output; where the stack pools, conv2 is recomputed once more with
+    ``save_act`` for the pre-pool activation that the pool backward
+    routes through."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, res, engine, stride1, pad1, stride2,
+                pad2, relu1, relu2, pool, res_layout, src_layout,
+                dst_layout):
+        y = _stack(engine, x, w1, w2, stride1, pad1, stride2, pad2, b1, b2,
+                   relu1, relu2, pool, res, res_layout, src_layout,
+                   dst_layout)
+        ctx.conf = (engine, stride1, pad1, stride2, pad2, relu1, relu2,
+                    pool, res_layout, src_layout, dst_layout)
+        ctx.save_for_backward(x, w1, b1, w2, b2, res, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, b2, res, y = ctx.saved_tensors
+        (engine, stride1, pad1, stride2, pad2, relu1, relu2, pool,
+         res_layout, src_layout, dst_layout) = ctx.conf
+        need_x, need_w1, need_b1, need_w2, need_b2, need_res = \
+            ctx.needs_input_grad[:6]
+        y1 = _conv(engine, x, w1, stride1, pad1, bias=b1, relu=relu1,
+                   src_layout=src_layout, dst_layout=engine)
+        if pool is not None:
+            _, act2 = _conv(engine, y1, w2, stride2, pad2, bias=b2,
+                            relu=relu2, pool=pool, res=res,
+                            res_layout=res_layout, src_layout=engine,
+                            dst_layout=dst_layout, save_act=True)
+        else:
+            act2 = y
+        dy1, dw2, db2, dres = conv_backward(
+            g, y1, w2, act2, engine=engine, stride=stride2, pad=pad2,
+            relu=relu2, pool=pool, res_layout=res_layout, src_layout=engine,
+            dst_layout=dst_layout, needs=(True, need_w2, need_b2, need_res))
+        dx, dw1, db1, _ = conv_backward(
+            dy1, x, w1, y1, engine=engine, stride=stride1, pad=pad1,
+            relu=relu1, pool=None, res_layout=engine, src_layout=src_layout,
+            dst_layout=engine, needs=(need_x, need_w1, need_b1, False))
+        return (dx, dw1, db1, dw2, db2, dres) + (None,) * 11
+
+
+def _stack_public(engine, x, w1, w2, stride1, pad1, stride2, pad2, bias1,
+                  bias2, relu1, relu2, pool, res, res_layout, src_layout,
+                  dst_layout):
+    args = (stride1, pad1, stride2, pad2)
+    if _wants_grad(x, w1, w2, bias1, bias2, res):
+        return _StackFn.apply(x, w1, bias1, w2, bias2, res, engine, *args,
+                              relu1, relu2, pool, res_layout, src_layout,
+                              dst_layout)
+    return _stack(engine, x, w1, w2, *args, bias1, bias2, relu1, relu2, pool,
+                  res, res_layout, src_layout, dst_layout)
 
 
 def conv_stack_chwn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -368,17 +575,11 @@ def conv_stack_chwn(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     """K5a, the conv->conv stack on the CHWN engine: x [Ci,H,W,N] (or
     [N,Ci,H,W] for src NCHW), w1 [Ci,F1,F1,Cm], w2 [Cm,F2,F2,Co] ->
     [Co,Ho2',Wo2',N] (or NCHW for dst NCHW).  conv1 carries bias1[+ReLU];
-    conv2 the full bias/residual-add/ReLU/pool epilogue."""
-    _stack_weights("conv_stack_chwn", w1, w2, "[Ci,F,F,Co]")
-    Ci, F1, _, Cm = w1.shape
-    Cm2, F2, _, Co = w2.shape
-    if Cm2 != Cm:
-        raise ValueError(f"conv_stack_chwn: w2 takes {Cm2} channels, w1 "
-                         f"makes {Cm}")
-    return _stack_launch("conv_stack_chwn_forward", conv_stack_chwn, "CHWN",
-                         x, w1, w2, Ci, Cm, Co, F1, F2, stride1, pad1,
-                         stride2, pad2, bias1, bias2, relu1, relu2, pool,
-                         res, res_layout, src_layout, dst_layout)
+    conv2 the full bias/residual-add/ReLU/pool epilogue.  Differentiable
+    (``_StackFn``) when an input requires grad."""
+    return _stack_public("CHWN", x, w1, w2, stride1, pad1, stride2, pad2,
+                         bias1, bias2, relu1, relu2, pool, res, res_layout,
+                         src_layout, dst_layout)
 
 
 def conv_stack_nchw(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
@@ -394,16 +595,9 @@ def conv_stack_nchw(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     [N,Ci,H,W] (or [Ci,H,W,N] for src CHWN), canonical w1 [Cm,Ci,F1,F1],
     w2 [Co,Cm,F2,F2] -> [N,Co,Ho2',Wo2'] (or CHWN for dst CHWN); otherwise
     as ``conv_stack_chwn``."""
-    _stack_weights("conv_stack_nchw", w1, w2, "[Co,Ci,F,F]")
-    Cm, Ci, F1, _ = w1.shape
-    Co, Cm2, F2, _ = w2.shape
-    if Cm2 != Cm:
-        raise ValueError(f"conv_stack_nchw: w2 takes {Cm2} channels, w1 "
-                         f"makes {Cm}")
-    return _stack_launch("conv_stack_nchw_forward", conv_stack_nchw, "NCHW",
-                         x, w1, w2, Ci, Cm, Co, F1, F2, stride1, pad1,
-                         stride2, pad2, bias1, bias2, relu1, relu2, pool,
-                         res, res_layout, src_layout, dst_layout)
+    return _stack_public("NCHW", x, w1, w2, stride1, pad1, stride2, pad2,
+                         bias1, bias2, relu1, relu2, pool, res, res_layout,
+                         src_layout, dst_layout)
 
 
 conv_direct_chwn.launches = 0

@@ -1,9 +1,12 @@
 """Plain PyTorch versions of what the conv kernels compute.
 
 ``conv_ref`` (K1, K2): permute to NCHW -> conv2d (+bias) -> +residual ->
-ReLU -> max/avg pool -> permute to the destination layout.
+ReLU -> max/avg pool -> permute to the destination layout; with
+``save_act`` also the pre-pool activation (the kernels' ``z`` output).
 ``conv_stack_ref`` (K5a, K5b): two ``conv_ref`` calls, conv1 (+bias1,
-+ReLU) into the mid tensor and conv2 with the full epilogue.  The wrappers
++ReLU) into the mid tensor and conv2 with the full epilogue.
+``wgrad_ref`` (K6): the conv weight gradient as one contraction per filter
+tap, in any float dtype (float64 is the card's oracle).  The wrappers
 in ``ops.py`` run them for tensors on the CPU, and the tests and
 ``chip_smoke.py`` hold the kernels against them.  On the card, compare
 them with TF32 off (``torch.backends.cudnn.allow_tf32 = False``): cuDNN's
@@ -17,29 +20,47 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.layout import perm_between
+from repro_torch.shapes import pool_out_hw
 
 
 def conv_ref(x: torch.Tensor, w_oihw: torch.Tensor, stride: int = 1,
              pad: int = 0, *, bias: Optional[torch.Tensor] = None,
              relu: bool = False, pool: Optional[Tuple[int, int, str]] = None,
              res: Optional[torch.Tensor] = None, res_layout: str = "NCHW",
-             src_layout: str = "NCHW", dst_layout: str = "NCHW"
-             ) -> torch.Tensor:
+             src_layout: str = "NCHW", dst_layout: str = "NCHW",
+             save_act: bool = False, act_layout: str = "NCHW"):
     """x in ``src_layout``; w canonical [Co, Ci, F, F]; ``res`` (the skip
     tensor of a folded residual add, conv-output shape) in ``res_layout``.
     Returns the result in ``dst_layout``, pooled when ``pool`` is
-    ``(F, S, "max" | "avg")``."""
+    ``(F, S, "max" | "avg")``.  With ``save_act`` returns ``(y, z)``: z is
+    the conv output after bias, residual and ReLU, before the pool, in
+    ``act_layout``, and 0 at the conv outputs under no pool window (the
+    kernels never compute those)."""
     y = F.conv2d(x.permute(perm_between(src_layout, "NCHW")), w_oihw,
                  bias, stride=stride, padding=pad)
     if res is not None:
         y = y + res.permute(perm_between(res_layout, "NCHW"))
     if relu:
         y = torch.relu(y)
+    z = y
     if pool is not None:
         pF, pS, op = pool
         y = (F.max_pool2d(y, pF, pS) if op == "max"
              else F.avg_pool2d(y, pF, pS))
-    return y.permute(perm_between("NCHW", dst_layout)).contiguous()
+        if save_act:
+            z = torch.where(_in_windows(z.shape[2], pF, pS, z.device)[:, None]
+                            & _in_windows(z.shape[3], pF, pS, z.device),
+                            z, 0.0)
+    y = y.permute(perm_between("NCHW", dst_layout)).contiguous()
+    if save_act:
+        return y, z.permute(perm_between("NCHW", act_layout)).contiguous()
+    return y
+
+
+def _in_windows(n: int, pF: int, pS: int, device) -> torch.Tensor:
+    """Which of ``n`` rows some pool window (F = pF, stride pS) reads."""
+    r = torch.arange(n, device=device)
+    return (r % pS < pF) & (r < (pool_out_hw(n, pF, pS) - 1) * pS + pF)
 
 
 def conv_stack_ref(x: torch.Tensor, w1_oihw: torch.Tensor,
@@ -60,3 +81,27 @@ def conv_stack_ref(x: torch.Tensor, w1_oihw: torch.Tensor,
     return conv_ref(mid, w2_oihw, stride2, pad2, bias=bias2, relu=relu2,
                     pool=pool, res=res, res_layout=res_layout,
                     src_layout="NCHW", dst_layout=dst_layout)
+
+
+def wgrad_ref(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
+              pad: int = 0, *, x_layout: str = "NCHW",
+              g_layout: str = "NCHW",
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """Weight gradient of conv(x, w, S, pad) -> canonical [Co, Ci, F, F]:
+    for each filter tap (dy, dx), the contraction of g [N, Co, Ho, Wo]
+    with the tap's strided window of the padded x over (n, oh, ow), as
+    the reference's ``_wgrad_kernel`` sums its taps.  ``x`` in
+    ``x_layout``, ``g`` in ``g_layout``; computed and returned in
+    ``dtype`` (default x's)."""
+    dtype = dtype or x.dtype
+    xn = x.permute(perm_between(x_layout, "NCHW")).to(dtype)
+    gn = g.permute(perm_between(g_layout, "NCHW")).to(dtype)
+    if pad:
+        xn = torch.nn.functional.pad(xn, (pad, pad, pad, pad))
+    Ho, Wo = gn.shape[2], gn.shape[3]
+    taps = [torch.einsum("nohw,nchw->oc", gn,
+                         xn[:, :, dy:dy + (Ho - 1) * S + 1:S,
+                            dx:dx + (Wo - 1) * S + 1:S])
+            for dy in range(F) for dx in range(F)]
+    Co, Ci = taps[0].shape
+    return torch.stack(taps, -1).reshape(Co, Ci, F, F)

@@ -1,0 +1,103 @@
+"""Wrappers of the pool backward kernels K7a/K7b (``csrc/pool_backward.cu``),
+the counterpart of ``repro/kernels/pool/backward.py``.
+
+``pool_backward`` routes a pooled gradient back onto the pool's input:
+max to each window's first maximal element in row-major tap order, avg as
+g/F^2 over the window, with the ReLU mask optionally folded into the same
+pass.  It reads g in the downstream layout (``g_layout``) and writes dx in
+the pool input's layout.  A CHWN input runs K7a (``pool_backward_chwn``),
+an NCHW one K7b (``pool_backward_nchw``); the identity pool (F = S = 1) is
+a re-layout of g and runs no K7.  For a CPU tensor a wrapper returns the
+plain version (``ref.pool_backward_ref``); for a CUDA tensor it launches
+its kernel or raises.  Launches are counted in
+``pool_backward_chwn.launches`` and ``pool_backward_nchw.launches``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core.transform import apply_transform
+from repro_torch.kernels import _build
+from repro_torch.kernels.pool.ref import pool_backward_ref
+from repro_torch.shapes import pool_out_hw
+
+_LAYOUTS = ("CHWN", "NCHW")
+
+
+def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
+                   g: torch.Tensor, F: int, S: int, op: str,
+                   g_layout: Optional[str], relu_mask: bool) -> torch.Tensor:
+    name = wrapper.__name__
+    g_layout = g_layout or layout
+    if op not in ("max", "avg"):
+        raise ValueError(f"{name}: unknown pool op {op!r}")
+    if g_layout not in _LAYOUTS:
+        raise ValueError(f"{name}: g_layout={g_layout!r} not in {_LAYOUTS}")
+    if x.dim() != 4 or g.dim() != 4:
+        raise ValueError(f"{name}: x and g must be 4-D")
+    N, C, H, W = (x.shape[layout.index(d)] for d in "NCHW")
+    Ho, Wo = pool_out_hw(H, F, S), pool_out_hw(W, F, S)
+    if F < 1 or S < 1 or Ho < 1 or Wo < 1:
+        raise ValueError(f"{name}: a {F}x{F} window at stride {S} does not "
+                         f"fit {H}x{W}")
+    want = tuple({"N": N, "C": C, "H": Ho, "W": Wo}[d] for d in g_layout)
+    if tuple(g.shape) != want:
+        raise ValueError(f"{name}: g shape {tuple(g.shape)} != {want} "
+                         f"({g_layout})")
+    if _build.on_cpu(name, x):
+        return pool_backward_ref(x, g, F, S, op, layout, g_layout, relu_mask)
+    _build.require_cuda_f32(name, x.device, x=x, g=g)
+    dx = torch.empty_like(x)
+    err = getattr(_build.library(), entry)(
+        x.data_ptr(), g.data_ptr(), dx.data_ptr(), N, C, H, W, F, S,
+        int(op == "avg"), int(relu_mask), int(g_layout == "NCHW"),
+        _build.stream_of(x.device))
+    _build.check(name, err)
+    wrapper.launches += 1
+    return dx
+
+
+def pool_backward_chwn(x: torch.Tensor, g: torch.Tensor, F: int, S: int,
+                       op: str = "max", g_layout: Optional[str] = None,
+                       relu_mask: bool = False) -> torch.Tensor:
+    """K7a: x [C, H, W, N], g [C, Ho, Wo, N] (or NCHW for ``g_layout``)
+    -> dx [C, H, W, N].  Lanes on n: loads and stores coalesce."""
+    return _pool_backward(pool_backward_chwn, "pool_backward_chwn", "CHWN",
+                          x, g, F, S, op, g_layout, relu_mask)
+
+
+def pool_backward_nchw(x: torch.Tensor, g: torch.Tensor, F: int, S: int,
+                       op: str = "max", g_layout: Optional[str] = None,
+                       relu_mask: bool = False) -> torch.Tensor:
+    """K7b: x [N, C, H, W], g [N, C, Ho, Wo] (or CHWN for ``g_layout``)
+    -> dx [N, C, H, W].  One thread per element, along w."""
+    return _pool_backward(pool_backward_nchw, "pool_backward_nchw", "NCHW",
+                          x, g, F, S, op, g_layout, relu_mask)
+
+
+def pool_backward(x: torch.Tensor, g: torch.Tensor, F: int, S: int,
+                  op: str = "max", *, layout: str = "CHWN",
+                  g_layout: Optional[str] = None,
+                  relu_mask: bool = False) -> torch.Tensor:
+    """dx of pool(x, F, S, op): x the pool input in ``layout``, g the pooled
+    output's gradient in ``g_layout``.  Returns dx in ``layout``; rows/cols
+    beyond the last window get zero gradient.  ``relu_mask`` multiplies dx
+    by (x > 0) in the same pass."""
+    g_layout = g_layout or layout
+    if F == 1 and S == 1:
+        # identity pool: dx is g re-laid-out (K9a on the card), masked
+        ga = apply_transform(g, g_layout, layout, use_kernel=True).float()
+        if relu_mask:
+            ga = ga * (x > 0.0)
+        return ga.to(x.dtype)
+    if layout == "CHWN":
+        return pool_backward_chwn(x, g, F, S, op, g_layout, relu_mask)
+    if layout == "NCHW":
+        return pool_backward_nchw(x, g, F, S, op, g_layout, relu_mask)
+    raise ValueError(f"no pool backward kernel reads layout {layout!r}")
+
+
+pool_backward_chwn.launches = 0
+pool_backward_nchw.launches = 0

@@ -5,13 +5,17 @@
 CPU tensor a wrapper returns the plain version (``ref.pool_ref``); for a
 CUDA tensor it launches its kernel or raises.  Launches are counted in
 ``pool_chwn.launches`` and ``pool_nchw.launches``.  The reference wrappers'
-N/C-tile padding and ``autotune_nt`` are not carried over.
+N/C-tile padding and ``autotune_nt`` are not carried over.  When x
+requires grad, the wrappers run as a ``torch.autograd.Function`` whose
+backward is the pool backward K7 (``backward.pool_backward``), reading the
+gradient in ``dst_layout``, as the reference's custom VJPs do.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.pool.backward import pool_backward
 from repro_torch.kernels.pool.ref import pool_ref
 from repro_torch.shapes import pool_out_hw
 
@@ -48,13 +52,38 @@ def _pool(wrapper, entry: str, src: str, x: torch.Tensor, F: int, S: int,
     return y
 
 
+class _PoolFn(torch.autograd.Function):
+    """K3a/K3b with their gradient over K7a/K7b."""
+
+    @staticmethod
+    def forward(ctx, x, wrapper, entry, src, F, S, op, dst_layout):
+        ctx.conf = (F, S, op, src, dst_layout)
+        ctx.save_for_backward(x)
+        return _pool(wrapper, entry, src, x, F, S, op, dst_layout)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        F, S, op, src, dst_layout = ctx.conf
+        dx = pool_backward(x, g.contiguous(), F, S, op, layout=src,
+                           g_layout=dst_layout)
+        return (dx,) + (None,) * 7
+
+
+def _pool_public(wrapper, entry: str, src: str, x: torch.Tensor, F: int,
+                 S: int, op: str, dst_layout: str) -> torch.Tensor:
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _PoolFn.apply(x, wrapper, entry, src, F, S, op, dst_layout)
+    return _pool(wrapper, entry, src, x, F, S, op, dst_layout)
+
+
 def pool_chwn(x: torch.Tensor, F: int, S: int, op: str = "max",
               dst_layout: str = "CHWN") -> torch.Tensor:
     """K3a: x [C, H, W, N] -> [C, Ho, Wo, N] (or [N, C, Ho, Wo] for
     ``dst_layout="NCHW"``).  Threads run along N (coalesced); each makes
     four neighbouring outputs of a row from one pass over their columns."""
-    return _pool(pool_chwn, "pool_chwn_forward", "CHWN", x, F, S, op,
-                 dst_layout)
+    return _pool_public(pool_chwn, "pool_chwn_forward", "CHWN", x, F, S, op,
+                        dst_layout)
 
 
 def pool_nchw(x: torch.Tensor, F: int, S: int, op: str = "max",
@@ -62,8 +91,8 @@ def pool_nchw(x: torch.Tensor, F: int, S: int, op: str = "max",
     """K3b: x [N, C, H, W] -> [N, C, Ho, Wo] (or [C, Ho, Wo, N] for
     ``dst_layout="CHWN"``).  Windows slide along the contiguous W: the
     strided access the paper measures for this layout."""
-    return _pool(pool_nchw, "pool_nchw_forward", "NCHW", x, F, S, op,
-                 dst_layout)
+    return _pool_public(pool_nchw, "pool_nchw_forward", "NCHW", x, F, S, op,
+                        dst_layout)
 
 
 pool_chwn.launches = 0

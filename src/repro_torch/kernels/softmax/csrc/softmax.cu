@@ -15,8 +15,22 @@
 // memory sees one read of x (the second read hits L1/L2) and one write.
 // The TPU kernel's row-block sizing against a VMEM budget has no
 // counterpart here.
+//
+// K8: row-wise softmax cross entropy, loss[r] = lse(x[r]) - x[r, label[r]].
+//
+// Replaces repro/kernels/softmax/softmax.py::softmax_xent_pallas (body
+// _softmax_xent_kernel).  What bounds it on an H100: bytes (one read of the
+// row, ~3 FLOPs an element), and at a classifier's [batch, 1000] the launch.
+// Design: one warp per row, eight rows a block; the lanes stride the row
+// (coalesced), reduce the max with warp shuffles, then the sum of
+// exp(x - max), all in fp32, and lane 0 reads the gold logit by label and
+// writes lse - gold.  The max propagates NaN (nan_max) as jnp.max does, so
+// a row that holds a NaN gets a NaN loss, as in the reference.  Labels are
+// int64 (PyTorch's own); the wrapper checks their range.
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "../../csrc/nan_max.cuh"
 
 namespace {
 
@@ -63,7 +77,43 @@ softmax_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
     yr[c] = expf(xr[c] - m) / s;
 }
 
+constexpr int kXentWarps = 8;
+
+__global__ void __launch_bounds__(32 * kXentWarps)
+softmax_xent_kernel(const float* __restrict__ x,
+                    const long long* __restrict__ labels,
+                    float* __restrict__ loss, int rows, int cols) {
+  const int row = blockIdx.x * kXentWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= rows) return;
+  const float* xr = x + (long long)row * cols;
+  float m = -INFINITY;
+  for (int c = lane; c < cols; c += 32) m = nan_max(m, xr[c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, off));
+  float s = 0.f;
+  for (int c = lane; c < cols; c += 32) s += expf(xr[c] - m);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) loss[row] = (logf(s) + m) - xr[labels[row]];
+}
+
 }  // namespace
+
+// K8: x [rows, cols] f32, labels [rows] int64 in [0, cols) -> loss [rows].
+extern "C" int softmax_xent_forward(const void* x, const void* labels,
+                                    void* loss, int rows, int cols,
+                                    void* stream) {
+  if (rows > 0 && cols > 0)
+    softmax_xent_kernel<<<(rows + kXentWarps - 1) / kXentWarps,
+                          32 * kXentWarps, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const long long*>(labels),
+        static_cast<float*>(loss), rows, cols);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int softmax_forward(const void* x, void* y, int rows, int cols,
                                void* stream) {

@@ -1,20 +1,21 @@
-"""Wrapper of the row softmax kernel (K4, ``csrc/softmax.cu``).
+"""Wrappers of the softmax kernels (``csrc/softmax.cu``): the row softmax
+K4 (``softmax``) and the row cross entropy K8 (``softmax_xent``).
 
-For a CPU tensor it returns the plain version (``ref.softmax_ref``); for a
-CUDA tensor it launches the kernel or raises.  Launches are counted in
-``softmax.launches``.
+For a CPU tensor each returns the plain version (``ref.softmax_ref``,
+``ref.softmax_xent_ref``); for a CUDA tensor it launches its kernel or
+raises.  Launches are counted in ``softmax.launches`` and
+``softmax_xent.launches``.  ``softmax`` is differentiable: the gradient is
+the reference's closed form on the saved output, in plain tensor ops.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.softmax.ref import softmax_ref
+from repro_torch.kernels.softmax.ref import softmax_ref, softmax_xent_ref
 
 
-def softmax(x: torch.Tensor) -> torch.Tensor:
-    """Fused row softmax of a float32 [N, C] matrix (paper §V.B: max,
-    shift, exp, sum and normalize in one kernel)."""
+def _softmax(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2:
         raise ValueError(f"softmax takes [N, C], got {tuple(x.shape)}")
     if _build.on_cpu("softmax", x):
@@ -29,4 +30,62 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+class _SoftmaxFn(torch.autograd.Function):
+    """K4 with the closed-form softmax gradient on its saved output (the
+    reference's ``_softmax_bwd``): dx = (g - sum(g * y)) * y."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _softmax(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yf, gf = y.float(), g.float()
+        return ((gf - (gf * yf).sum(-1, keepdim=True)) * yf).to(y.dtype)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Fused row softmax of a float32 [N, C] matrix (paper §V.B: max,
+    shift, exp, sum and normalize in one kernel); differentiable."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SoftmaxFn.apply(x)
+    return _softmax(x)
+
+
+def softmax_xent(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """K8: row-wise cross entropy of float32 logits x [N, C] against int64
+    ``labels`` [N] in [0, C): ``lse(x) - x[label]`` -> [N] float32.  The
+    label range is checked here (the kernel reads the gold logit by
+    label)."""
+    if x.dim() != 2 or labels.shape != (x.shape[0],):
+        raise ValueError(f"softmax_xent takes x [N, C] and labels [N], got "
+                         f"{tuple(x.shape)} and {tuple(labels.shape)}")
+    if labels.dtype != torch.int64:
+        raise TypeError(f"softmax_xent: labels are {labels.dtype}, not int64")
+    if labels.device != x.device:
+        raise ValueError(f"softmax_xent: labels on {labels.device}, x on "
+                         f"{x.device}")
+    if labels.numel() and not bool(((labels >= 0)
+                                    & (labels < x.shape[1])).all()):
+        raise ValueError(f"softmax_xent: a label is outside [0, "
+                         f"{x.shape[1]})")
+    if _build.on_cpu("softmax_xent", x):
+        return softmax_xent_ref(x, labels)
+    _build.require_cuda_f32("softmax_xent", x.device, x=x)
+    if not labels.is_contiguous():
+        raise ValueError("softmax_xent: labels must be contiguous")
+    loss = torch.empty(x.shape[0], device=x.device, dtype=torch.float32)
+    rows, cols = x.shape
+    err = _build.library().softmax_xent_forward(
+        x.data_ptr(), labels.data_ptr(), loss.data_ptr(), rows, cols,
+        _build.stream_of(x.device))
+    _build.check("softmax_xent", err)
+    softmax_xent.launches += 1
+    return loss
+
+
 softmax.launches = 0
+softmax_xent.launches = 0

@@ -1,0 +1,340 @@
+"""The port's backward primitives against the reference's, on the CPU.
+
+The same seeded numpy inputs go through the reference's backward (its
+Pallas kernels in interpret mode, as ``tests/test_backward.py`` runs them)
+and through the port (on CPU tensors every wrapper runs its kernel's plain
+version; the autograd Functions around them are the ones the card runs):
+
+* ``conv_dgrad``, ``conv_wgrad`` (K6) and ``bias_grad`` over the grid of
+  ``tests/test_backward.py::CONV_GRID``, both layouts, and dgrad with the
+  g / dst layout folds;
+* fused-block gradients (bias, residual, ReLU, pools 2/2 and 3/2, avg,
+  src/dst and residual layout folds) through ``fused_conv_block``;
+* stack gradients through ``fused_conv_stack``;
+* ``pool_backward`` (K7a/K7b) for windows (2,2), (3,2), (3,3), max and
+  avg, both layouts, the ``g_layout`` fold and ``relu_mask``; ties route
+  exactly as the reference's;
+* the softmax gradient, and ``softmax_xent`` (K8).
+
+Tolerance: the reference's ``assert_grads_close`` form at 1e-5
+(``|got - ref| <= 1e-5 * max(1, max|ref|)``); max-pool ties are exact.
+"""
+from __future__ import annotations
+
+import itertools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.cnn import layers as ref_layers
+from repro.kernels.conv import backward as ref_bwd
+from repro.kernels.pool.backward import pool_backward as ref_pool_backward
+from repro.kernels.softmax import ops as ref_softmax
+
+from repro_torch.cnn import layers as port_layers
+from repro_torch.core.layout import perm_between
+from repro_torch.kernels.conv.backward import (bias_grad, conv_dgrad,
+                                               conv_wgrad)
+from repro_torch.kernels.pool.backward import pool_backward
+from repro_torch.kernels.softmax.ops import softmax, softmax_xent
+from repro_torch.shapes import conv_out_hw, pool_out_hw
+from tests.test_backward import CONV_GRID
+
+TOL = 1e-5
+OTHER = {"NCHW": "CHWN", "CHWN": "NCHW"}
+
+
+def assert_grads_close(got, ref, tol: float = TOL) -> None:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    scale = max(1.0, np.abs(ref).max())
+    np.testing.assert_allclose(got, ref, rtol=tol, atol=tol * scale)
+
+
+def _to(layout: str, a_nchw: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a_nchw.transpose(perm_between("NCHW",
+                                                              layout)))
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _j(a):
+    return None if a is None else jnp.asarray(a)
+
+
+# --------------------------------------------------------------------------
+# dgrad / wgrad / bias-grad primitives
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("layout", ["CHWN", "NCHW"])
+@pytest.mark.parametrize("Ci,H,N,F,Co,S,pad", CONV_GRID)
+def test_conv_backward_primitives(Ci, H, N, F, Co, S, pad, layout):
+    rng = np.random.default_rng(Ci * 100 + H * 10 + F + S)
+    Ho = conv_out_hw(H, F, S, pad)
+    x = _to(layout, rng.standard_normal((N, Ci, H, H), np.float32))
+    w = rng.standard_normal((Co, Ci, F, F), np.float32) * np.float32(0.1)
+    g = _to(layout, rng.standard_normal((N, Co, Ho, Ho), np.float32))
+    ref_dx = ref_bwd.conv_dgrad(_j(g), _j(w), (H, H), S, pad, layout=layout)
+    ref_dw = ref_bwd.conv_wgrad(_j(x), _j(g), F, S, pad, x_layout=layout,
+                                g_layout=layout)
+    dx = conv_dgrad(_t(g), _t(w), (H, H), S, pad, layout=layout)
+    dw = conv_wgrad(_t(x), _t(g), F, S, pad, x_layout=layout,
+                    g_layout=layout)
+    assert tuple(dx.shape) == x.shape and tuple(dw.shape) == w.shape
+    assert_grads_close(dx.numpy(), ref_dx)
+    assert_grads_close(dw.numpy(), ref_dw)
+    assert_grads_close(bias_grad(_t(g), layout).numpy(),
+                       ref_bwd.bias_grad(_j(g), layout))
+
+
+@pytest.mark.parametrize("layout,g_layout,dst", [
+    ("CHWN", "NCHW", "NCHW"), ("NCHW", "CHWN", "CHWN"),
+    ("CHWN", "CHWN", "NCHW"), ("NCHW", "NCHW", "CHWN")])
+def test_dgrad_and_wgrad_layout_folds(layout, g_layout, dst):
+    """dgrad reads g in the downstream layout and writes dx in the upstream
+    one; wgrad takes any (x, g) layout pair."""
+    Ci, H, N, F, Co, S, pad = 3, 10, 4, 3, 8, 2, 1
+    rng = np.random.default_rng(7)
+    Ho = conv_out_hw(H, F, S, pad)
+    xn = rng.standard_normal((N, Ci, H, H), np.float32)
+    w = rng.standard_normal((Co, Ci, F, F), np.float32) * np.float32(0.1)
+    gn = rng.standard_normal((N, Co, Ho, Ho), np.float32)
+    ref_dx = ref_bwd.conv_dgrad(_j(_to(g_layout, gn)), _j(w), (H, H), S, pad,
+                                layout=layout, g_layout=g_layout,
+                                dst_layout=dst)
+    dx = conv_dgrad(_t(_to(g_layout, gn)), _t(w), (H, H), S, pad,
+                    layout=layout, g_layout=g_layout, dst_layout=dst)
+    assert_grads_close(dx.numpy(), ref_dx)
+    ref_dw = ref_bwd.conv_wgrad(_j(_to(dst, xn)), _j(_to(g_layout, gn)), F,
+                                S, pad, x_layout=dst, g_layout=g_layout)
+    dw = conv_wgrad(_t(_to(dst, xn)), _t(_to(g_layout, gn)), F, S, pad,
+                    x_layout=dst, g_layout=g_layout)
+    assert_grads_close(dw.numpy(), ref_dw)
+
+
+# --------------------------------------------------------------------------
+# fused conv block: the whole epilogue's gradient through _ConvFn
+# --------------------------------------------------------------------------
+BLOCK_CASES = {  # name: (pool, S, pad, residual, src/dst/res other)
+    "max3s2": ((3, 2, "max"), 1, 1, False, False),
+    "avg2_s2": ((2, 2, "avg"), 2, 2, False, False),
+    "res_max2_folds": ((2, 2, "max"), 1, 1, True, True),
+    "res_nopool_folds": (None, 2, 1, True, True),
+    "max3s2_folds": ((3, 2, "max"), 1, 0, False, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BLOCK_CASES))
+@pytest.mark.parametrize("layout", ["CHWN", "NCHW"])
+def test_fused_block_grads(name, layout):
+    pool, S, pad, want_res, folds = BLOCK_CASES[name]
+    Ci, H, N, F, Co = 3, 10, 4, 3, 8
+    rng = np.random.default_rng(len(name))
+    Ho = conv_out_hw(H, F, S, pad)
+    other = OTHER[layout] if folds else layout
+    src, dst, rlay = other, other, other
+    x = _to(src, rng.standard_normal((N, Ci, H, H), np.float32))
+    w = rng.standard_normal((Co, Ci, F, F), np.float32) * np.float32(0.2)
+    b = rng.standard_normal((Co,), np.float32) * np.float32(0.5)
+    res = (_to(rlay, rng.standard_normal((N, Co, Ho, Ho), np.float32))
+           if want_res else None)
+    out_hw = Ho if pool is None else pool_out_hw(Ho, pool[0], pool[1])
+    r = _to(dst, rng.standard_normal((N, Co, out_hw, out_hw), np.float32))
+    kw = dict(relu=True, pool=pool, res_layout=rlay, src_layout=src,
+              dst_layout=dst)
+    names = ["x", "w", "b"] + (["res"] if want_res else [])
+
+    def ref_loss(*args):
+        d = dict(zip(names, args))
+        y = ref_layers.fused_conv_block(
+            d["x"], d["w"], layout, S, pad, bias=d["b"], res=d.get("res"),
+            impl="pallas", **kw)
+        return (y * _j(r)).sum()
+
+    args = [x, w, b] + ([res] if want_res else [])
+    ref_g = jax.grad(ref_loss, tuple(range(len(args))))(*map(_j, args))
+    ts = [_t(a).requires_grad_(True) for a in args]
+    d = dict(zip(names, ts))
+    y = port_layers.fused_conv_block(d["x"], d["w"], layout, S, pad,
+                                     bias=d["b"], res=d.get("res"),
+                                     impl="cuda", **kw)
+    got = torch.autograd.grad((y * _t(r)).sum(), ts)
+    for a, c in zip(got, ref_g):
+        assert_grads_close(a.numpy(), c)
+
+
+# --------------------------------------------------------------------------
+# stacks: the backward replays the pair (recompute on K1/K2)
+# --------------------------------------------------------------------------
+STACK_CASES = {  # name: (layout, H, Ci, Cm, Co, S1, P1, pool, residual,
+    #                 src/dst/res in the other layout)
+    "plain": ("CHWN", 8, 3, 5, 6, 1, 1, None, False, False),
+    "pool_max_folds": ("NCHW", 9, 4, 6, 5, 1, 1, (2, 2, "max"), False,
+                       True),
+    "s1_2_res": ("CHWN", 11, 3, 5, 7, 2, 1, None, True, False),
+    "res_pool_avg_folds": ("NCHW", 8, 3, 5, 7, 1, 1, (2, 2, "avg"), True,
+                           True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STACK_CASES))
+def test_stack_grads(name):
+    layout, H, Ci, Cm, Co, S1, P1, pool, want_res, folds = STACK_CASES[name]
+    rng = np.random.default_rng(len(name) + 11)
+    N = 2
+    Ho1 = conv_out_hw(H, 3, S1, P1)
+    Ho2 = conv_out_hw(Ho1, 3, 1, 1)
+    other = OTHER[layout] if folds else layout
+    x = _to(other, rng.standard_normal((N, Ci, H, H), np.float32))
+    w1 = rng.standard_normal((Cm, Ci, 3, 3), np.float32) * np.float32(0.2)
+    w2 = rng.standard_normal((Co, Cm, 3, 3), np.float32) * np.float32(0.2)
+    res = (_to(other, rng.standard_normal((N, Co, Ho2, Ho2), np.float32))
+           if want_res else None)
+    out_hw = Ho2 if pool is None else pool_out_hw(Ho2, pool[0], pool[1])
+    r = _to(other, rng.standard_normal((N, Co, out_hw, out_hw), np.float32))
+    kw = dict(relu1=True, relu2=True, pool=pool, res_layout=other,
+              src_layout=other, dst_layout=other)
+    args = [x, w1, w2] + ([res] if want_res else [])
+
+    def ref_loss(x, w1, w2, res=None):
+        y = ref_layers.fused_conv_stack(x, w1, w2, layout, S1, P1, 1, 1,
+                                        res=res, nt=2, impl="pallas", **kw)
+        return (y * _j(r)).sum()
+
+    ref_g = jax.grad(ref_loss, tuple(range(len(args))))(*map(_j, args))
+    ts = [_t(a).requires_grad_(True) for a in args]
+    y = port_layers.fused_conv_stack(*ts[:3], layout, S1, P1, 1, 1,
+                                     res=ts[3] if want_res else None,
+                                     impl="cuda", **kw)
+    got = torch.autograd.grad((y * _t(r)).sum(), ts)
+    for a, c in zip(got, ref_g):
+        assert_grads_close(a.numpy(), c)
+
+
+# --------------------------------------------------------------------------
+# pool backward (K7a / K7b)
+# --------------------------------------------------------------------------
+POOL_CASES = list(itertools.product(
+    ("CHWN", "NCHW"), ((2, 2), (3, 2), (3, 3)), ("max", "avg")))
+
+
+@pytest.mark.parametrize("layout,window,op", POOL_CASES,
+                         ids=[f"{l}-{o}{f}s{s}"
+                              for l, (f, s), o in POOL_CASES])
+def test_pool_backward_matches_reference(layout, window, op):
+    F, S = window
+    rng = np.random.default_rng(F * 10 + S)
+    N, C, H = 5, 4, 13
+    Ho = pool_out_hw(H, F, S)
+    x = _to(layout, rng.standard_normal((N, C, H, H), np.float32))
+    gn = rng.standard_normal((N, C, Ho, Ho), np.float32)
+    # the g_layout fold everywhere, the ReLU mask on every other case
+    g_layout, relu_mask = OTHER[layout], F == 3
+    g = _to(g_layout, gn)
+    want = ref_pool_backward(_j(x), _j(g), F, S, op, layout=layout,
+                             g_layout=g_layout, relu_mask=relu_mask)
+    got = pool_backward(_t(x), _t(g), F, S, op, layout=layout,
+                        g_layout=g_layout, relu_mask=relu_mask)
+    assert got.shape == x.shape
+    if op == "max" and F == S:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        assert_grads_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("layout", ["CHWN", "NCHW"])
+@pytest.mark.parametrize("window", [(2, 2), (3, 2)])
+def test_max_pool_backward_ties_route_exactly(layout, window):
+    """Constant and quantized inputs tie inside windows: the gradient goes
+    to the FIRST maximal element, exactly as the reference routes it."""
+    F, S = window
+    rng = np.random.default_rng(3)
+    for xn in (np.ones((2, 3, 9, 9), np.float32),
+               rng.integers(-1, 2, (2, 3, 9, 9)).astype(np.float32)):
+        Ho = pool_out_hw(9, F, S)
+        x = _to(layout, xn)
+        g = _to(layout, rng.standard_normal((2, 3, Ho, Ho), np.float32))
+        want = ref_pool_backward(_j(x), _j(g), F, S, "max", layout=layout)
+        got = pool_backward(_t(x), _t(g), F, S, "max", layout=layout)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_pool_backward_nan_window_routes_nothing():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((1, 2, 6, 6), np.float32)
+    x[0, 1, 2, 3] = np.nan
+    g = rng.standard_normal((1, 2, 3, 3), np.float32)
+    want = np.asarray(ref_pool_backward(_j(x), _j(g), 2, 2, "max",
+                                        layout="NCHW"))
+    got = pool_backward(_t(x), _t(g), 2, 2, "max", layout="NCHW").numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not got[0, 1, 2:4, 2:4].any()
+
+
+def test_identity_pool_backward_is_the_masked_relayout():
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 3, 4, 4), np.float32)
+    g = _to("CHWN", rng.standard_normal((2, 3, 4, 4), np.float32))
+    want = ref_pool_backward(_j(x), _j(g), 1, 1, "avg", layout="NCHW",
+                             g_layout="CHWN", relu_mask=True)
+    got = pool_backward(_t(x), _t(g), 1, 1, "avg", layout="NCHW",
+                        g_layout="CHWN", relu_mask=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("layout", ["CHWN", "NCHW"])
+def test_standalone_pool_gradient_matches_reference(layout):
+    """``pool_chwn``/``pool_nchw`` are differentiable over K7, reading the
+    gradient in their ``dst_layout``."""
+    from repro.kernels.pool import ops as ref_pool_ops
+    from repro_torch.kernels.pool import ops as pool_ops
+    rng = np.random.default_rng(6)
+    x = _to(layout, rng.standard_normal((4, 6, 13, 13), np.float32))
+    r = _to(OTHER[layout], rng.standard_normal((4, 6, 6, 6), np.float32))
+    ref_fn = (ref_pool_ops.pool_chwn if layout == "CHWN"
+              else ref_pool_ops.pool_nchw)
+    fn = pool_ops.pool_chwn if layout == "CHWN" else pool_ops.pool_nchw
+    want = jax.grad(lambda a: (ref_fn(a, 3, 2, "max",
+                                      dst_layout=OTHER[layout])
+                               * _j(r)).sum())(_j(x))
+    xt = _t(x).requires_grad_(True)
+    (got,) = torch.autograd.grad(
+        (fn(xt, 3, 2, "max", dst_layout=OTHER[layout]) * _t(r)).sum(), [xt])
+    assert_grads_close(got.numpy(), want)
+
+
+# --------------------------------------------------------------------------
+# softmax gradient and cross entropy (K8)
+# --------------------------------------------------------------------------
+def test_softmax_gradient_matches_reference():
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((32, 50), np.float32) * np.float32(3)
+    r = rng.standard_normal((32, 50), np.float32)
+    want = jax.grad(lambda a: (ref_softmax.softmax(a) * _j(r)).sum())(_j(x))
+    xt = _t(x).requires_grad_(True)
+    (got,) = torch.autograd.grad((softmax(xt) * _t(r)).sum(), [xt])
+    assert_grads_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("rows,cols", [(32, 1000), (5, 10), (1, 3)])
+def test_softmax_xent_matches_reference(rows, cols):
+    rng = np.random.default_rng(rows + cols)
+    x = rng.standard_normal((rows, cols), np.float32) * np.float32(4)
+    labels = rng.integers(0, cols, rows)
+    want = ref_softmax.softmax_xent(_j(x), jnp.asarray(labels, jnp.int32))
+    got = softmax_xent(_t(x), torch.from_numpy(labels).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+
+
+def test_softmax_xent_rejects_bad_labels():
+    x = torch.zeros(3, 4)
+    with pytest.raises(ValueError, match="outside"):
+        softmax_xent(x, torch.tensor([0, 4, 1]))
+    with pytest.raises(TypeError, match="int64"):
+        softmax_xent(x, torch.tensor([0, 1, 1], dtype=torch.int32))
+    with pytest.raises(ValueError, match=r"\[N\]"):
+        softmax_xent(x, torch.tensor([0, 1]))

@@ -44,7 +44,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "for m in ('perfmodel.calibration', 'kernels.pool.ops', "
-        "'kernels.transpose.ops', 'configs.paper_table1'):\n"
+        "'kernels.transpose.ops', 'configs.paper_table1', "
+        "'perfmodel.traffic', 'kernels.conv.backward', "
+        "'kernels.pool.backward'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")

@@ -99,5 +99,3 @@ def test_unported_plan_features_raise():
         dataclasses.replace(plan.ops[0], dst_dtype="int8")] + plan.ops[1:])
     with pytest.raises(NotImplementedError, match="int8"):
         forward_fused(params, torch.from_numpy(x), cfg, mixed)
-    with pytest.raises(NotImplementedError, match="training"):
-        forward_fused(params, torch.from_numpy(x), cfg, plan, training=True)

@@ -208,7 +208,8 @@ def test_forward_fused_on_stacked_plans_matches_reference(network, batch):
         assert dataclasses.astuple(st) == (ref_st.transforms,
                                            ref_st.transform_bytes,
                                            ref_st.fused_ops,
-                                           ref_st.hbm_bytes)
+                                           ref_st.hbm_bytes,
+                                           ref_st.bwd_hbm_bytes)
     assert (conv_ops.conv_stack_chwn.launches,
             conv_ops.conv_stack_nchw.launches) == before
 

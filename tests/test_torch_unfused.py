@@ -177,8 +177,3 @@ def test_what_the_port_cannot_plan_or_run_raises():
         plan_network(vgg, "opt", use_dp=False)
     with pytest.raises(ValueError, match="unknown mode"):
         plan_network(vgg, "fastest")
-    _, cfg = _cfgs("lenet", 3)
-    tree, x = _inputs(cfg)
-    with pytest.raises(NotImplementedError, match="K6"):
-        forward(params_from_numpy(tree, "cpu"), torch.from_numpy(x), cfg,
-                plan_network(cfg, "cudnn"), training=True)
