@@ -67,7 +67,29 @@
    ``conv2d_input``, also within the conv tolerance of it) and K1/K2 with
    ``save_act``; and one K8 case off the path (VGG16's [32, 1000];
    library ``cross_entropy``), listed with 0 launches.
-7. Prints one JSON line of every kernel (launches, error, times, bound),
+7. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
+   path of the tiled matmul K10: the 12 Table-1 layers
+   (``configs/paper_table1.py``) at their published N, HW, F, Ci, Co and
+   S, seeded fp32 data, each through the matrix-expansion baseline
+   ``conv_im2col_nchw`` (a materialized patch matrix, its matmul one K10
+   launch), K2, K1 on the CHWN copy and the FFT conv
+   ``conv_forward(impl="fft")``; counts zeroed before and read after (12
+   each of K10, K2, K1); each engine held against ``conv_ref`` (FFT at
+   rtol 1e-3 / atol 1e-2), timed beside cuDNN, with the baseline's peak
+   device memory.  The K1/K2 launches of this phase join their kernels'
+   rows.
+8. LM kernel phase, the path of K11 and K12, every width from
+   ``get_config``: K11 on qwen2-7b's attention (one 4096-token sequence,
+   28 heads of 128, its 4 KV heads repeated, causal) in fp32 and bf16 and
+   on whisper-base's encoder (8 clips of 1500 frames, 8 heads of 64);
+   K12 on qwen2-7b's head (4096 tokens, D 3584, V 152064) in fp32 and
+   bf16 and on gemma2-27b's (1024 tokens, D 4608, V 256000, softcap 30).
+   Counts zeroed before and read after (one launch a case); each case
+   held against its plain version (fp32 rtol / atol 1e-4, bf16 atol 8 *
+   BF16_EPS), K12 three runs bitwise equal, timed beside
+   ``F.scaled_dot_product_attention`` or ``h @ tableᵀ`` +
+   ``F.cross_entropy``.
+9. Prints one JSON line of every kernel (launches, error, times, bound),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
 TF32 is off throughout.  Any failure raises: the script then exits
@@ -93,23 +115,36 @@ REPO = Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO / "src"))
 
 from repro_torch import kernels as K  # noqa: E402
+from repro_torch.cnn.layers import conv_forward  # noqa: E402
 from repro_torch.cnn.layers import layer_shapes, resolved_cfg_inputs  # noqa: E402
 from repro_torch.cnn.layers import init_cnn, params_from_numpy  # noqa: E402
 from repro_torch.cnn.network import (forward, forward_fused,  # noqa: E402
                                      init_velocity, input_shape,
                                      loss_fn_fused, make_train_step_fused,
                                      plan_network, value_and_grad)
+from repro_torch.configs import TRAIN_4K, get_config  # noqa: E402
 from repro_torch.configs.cnn_networks import CNN_CONFIGS  # noqa: E402
+from repro_torch.configs.paper_table1 import CONV_LAYERS  # noqa: E402
 from repro_torch.core.layout import perm_between, plan_transform  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv.backward import (conv_wgrad,  # noqa: E402
                                                dgrad_problem)
 from repro_torch.kernels.conv.ops import (_conv, conv_direct_chwn,  # noqa: E402
+                                          conv_im2col_nchw,
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn, conv_stack_nchw,
                                           stack_tiling)
 from repro_torch.kernels.conv.ref import (conv_ref,  # noqa: E402
-                                          conv_stack_ref, wgrad_ref)
+                                          conv_stack_ref, im2col_nchw,
+                                          wgrad_ref)
+from repro_torch.kernels.crossentropy.ops import fused_xent  # noqa: E402
+from repro_torch.kernels.crossentropy.ref import xent_ref  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    flash_attention)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    flash_attention_ref)
+from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
+from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.pool.backward import (  # noqa: E402
     pool_backward_chwn, pool_backward_nchw)
 from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw  # noqa: E402
@@ -130,6 +165,7 @@ from repro_torch.shapes import conv_out_hw, pool_out_hw  # noqa: E402
 # NVIDIA H100 SXM data sheet (dense, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12          # CUDA cores, fp32
 PEAK_HBM_BYTES = 3.35e12         # HBM3 bytes/s
+PEAK_BF16_FLOPS = 989e12         # tensor cores, bf16
 
 CONV_RTOL, CONV_ATOL = 1e-4, 1e-3
 SOFTMAX_ATOL = 1e-6
@@ -140,6 +176,9 @@ GRAD_TOL = 1e-4                  # step-1 gradients, scale-relative ...
 GRAD_OUTLIERS = 1e-3             # ... for all but this fraction of each
 GRAD_OUTLIER_TOL = 1e-3          # parameter's elements, and all within this
 WGRAD_TOL = 1e-5                 # K6 against float64, scale-relative
+FFT_RTOL, FFT_ATOL = 1e-3, 1e-2  # the FFT conv (the reference's own)
+LM_TOL = 1e-4                    # K11, K12 fp32 (rtol and atol)
+BF16_ATOL = 8 * 2.0 ** -8        # K11, K12 bf16: 8 * BF16_EPS
 
 # the main path: (network, max_bucket, requests, stack policy)
 SERVED = [("vgg16", 32, 40, "off"), ("alexnet", 128, 128, "off"),
@@ -159,6 +198,11 @@ TRAIN_STEPS = 3
 K9B_CASE = (32, 64, 224 * 224)
 # the one K8 case, off the main path: VGG16's classifier at batch 32
 K8_CASE = (32, 1000)
+# the LM kernel phase: whisper-base's encoder attention over a batch of 8
+# clips; gemma2-27b's head over a quarter of one train_4k sequence (its
+# plain version materializes [T, 256000] fp32 logits: 1 GB at T 1024)
+WHISPER_CLIPS = 8
+GEMMA_TOKENS = TRAIN_4K.seq_len // 4
 
 KERNELS = {
     "conv_chwn": {"route": "cuda",
@@ -207,6 +251,18 @@ KERNELS = {
                      "source": "src/repro_torch/kernels/softmax/csrc/"
                                "softmax.cu",
                      "replaces": "src/repro/kernels/softmax/softmax.py:53"},
+    "matmul": {"route": "cuda",
+               "source": "src/repro_torch/kernels/matmul/csrc/matmul.cu",
+               "replaces": "src/repro/kernels/matmul/matmul.py:30"},
+    "flash_attention": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:62"},
+    "fused_xent": {
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/crossentropy/csrc/crossentropy.cu",
+        "replaces": "src/repro/kernels/crossentropy/crossentropy.py:59"},
 }
 # kernels held in the kernel phase that no path of this script launches,
 # with their one case
@@ -260,9 +316,11 @@ def cuda_ms(fn, min_reps: int = 3, max_reps: int = 50,
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float):
-    """(least time in ms, what sets it) on the card's published peaks."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    """(least time in ms, what sets it) on the card's published peaks: the
+    operations at ``peak`` (fp32 on the CUDA cores, or bf16 on the tensor
+    cores for bf16 inputs) and the bytes at the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -467,17 +525,23 @@ def _library_epilogue(y, r_nchw, relu: bool, pool):
 
 
 def _measure(kernel, plain, library, flops: float, nbytes: float,
-             rtol: float = CONV_RTOL, atol: float = CONV_ATOL) -> dict:
-    got, want = kernel(), plain()
+             rtol: float = CONV_RTOL, atol: float = CONV_ATOL,
+             peak: float = PEAK_FP32_FLOPS, got=None) -> dict:
+    """Hold ``kernel()`` (or ``got``, its output from the main path)
+    against ``plain()``, then time the kernel, the plain version and the
+    library call; the bound is on ``peak``."""
+    got = kernel() if got is None else got
+    want = plain()
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    rel = err / max(want.abs().max().item(), 1e-30)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(want.float().abs().max().item(), 1e-30)
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
-    b_ms, b_by = bound_ms(flops, nbytes)
+    del got, want
+    b_ms, b_by = bound_ms(flops, nbytes, peak)
     return {"max_abs_err": err, "max_rel_err": rel, "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(plain), "library_ms": cuda_ms(library),
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-            "bytes": nbytes}
+            "bytes": nbytes, "peak_flops": peak}
 
 
 def conv_case(kern: str, case, dev, seed: int) -> dict:
@@ -1254,6 +1318,299 @@ def training_phase(dev):
     return total, rows
 
 
+def _expect_counts(label: str, counts, want) -> None:
+    full = {k: want.get(k, 0) for k in K.WRAPPERS}
+    if counts != full:
+        raise AssertionError(f"{label}: launches {counts} != {full}")
+
+
+def _peak_over_base(fn) -> int:
+    """Device memory ``fn`` allocates at its peak, over what was allocated
+    before it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def conv_layer_phase(dev):
+    """The paper's Fig. 3 / Table 1 comparison of conv engines, the K10
+    path: every Table-1 layer at its published shape (pad 0, seeded fp32
+    data) through the matrix-expansion baseline ``conv_im2col_nchw`` (its
+    matmul one K10 launch), the virtual-im2col K2, the direct K1 on the
+    CHWN copy and the FFT conv ``conv_forward(impl="fft")``, each held
+    against ``conv_ref`` (K10/K2/K1 at the conv tolerance, FFT at the
+    reference's rtol 1e-3 / atol 1e-2).  The launch counts are zeroed just
+    before the layers run and read just after: K10, K2 and K1 12 each.
+    Then each engine is timed warm beside cuDNN (``F.conv2d``, TF32 off),
+    K10 alone on the materialized patch matrix beside its plain version
+    and ``torch.matmul``, and the baseline's peak device memory read.
+    Returns (launches per kernel, kernel cases, per-layer rows)."""
+    data = []
+    for i, layer in enumerate(CONV_LAYERS):
+        gen = torch.Generator(device=dev).manual_seed(100 + i)
+        x = torch.randn(layer.N, layer.Ci, layer.HW, layer.HW, device=dev,
+                        generator=gen)
+        w = torch.randn(layer.Co, layer.Ci, layer.F, layer.F, device=dev,
+                        generator=gen) / math.sqrt(layer.Ci * layer.F ** 2)
+        data.append((x, w))
+    errs = []
+    K.reset_launch_counts()
+    for layer, (x, w) in zip(CONV_LAYERS, data):
+        S, pad = layer.S, layer.pad
+        want = conv_ref(x, w, S, pad)
+        xc = x.permute(1, 2, 3, 0).contiguous()
+        wc = w.permute(1, 2, 3, 0).contiguous()
+        got = {"im2col+K10": conv_im2col_nchw(x, w, S, pad),
+               "K2": conv_im2col_nchw_fused(x, w, S, pad),
+               "K1": conv_direct_chwn(xc, wc, S, pad).permute(3, 0, 1, 2),
+               "fft": conv_forward(x, w, "NCHW", S, pad, impl="fft")}
+        err = {}
+        for engine, y in got.items():
+            if tuple(y.shape) != tuple(want.shape):
+                raise AssertionError(f"{layer.name} {engine}: shape "
+                                     f"{tuple(y.shape)} != "
+                                     f"{tuple(want.shape)}")
+            err[engine] = (y - want).abs().max().item()
+            print(f"table1 {layer.name} {engine}: max |y - conv_ref| = "
+                  f"{err[engine]:.3g} (max |conv_ref| "
+                  f"{want.abs().max().item():.3g})", flush=True)
+            rtol, atol = ((FFT_RTOL, FFT_ATOL) if engine == "fft"
+                          else (CONV_RTOL, CONV_ATOL))
+            torch.testing.assert_close(y, want, rtol=rtol, atol=atol)
+        errs.append(err)
+        del got, want, xc, wc
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    n = len(CONV_LAYERS)
+    _expect_counts("table1", counts,
+                   {"matmul": n, "conv_nchw": n, "conv_chwn": n})
+
+    cases, rows = [], []
+    for layer, (x, w), err in zip(CONV_LAYERS, data, errs):
+        t0 = time.perf_counter()
+        S, pad, F = layer.S, layer.pad, layer.F
+        Ho = layer.out_hw
+        patches, _ = im2col_nchw(x, F, S, pad)
+        wmat = w.reshape(layer.Co, -1).T
+        M, Kd = patches.shape
+        out = layer.N * layer.Co * Ho * Ho
+        flops = 2.0 * out * Kd
+        conv_bytes = 4.0 * (x.numel() + w.numel() + out)
+        mm = _measure(lambda: matmul(patches, wmat),
+                      lambda: matmul_ref(patches, wmat),
+                      lambda: torch.matmul(patches, wmat), flops,
+                      4.0 * (M * Kd + Kd * layer.Co + M * layer.Co))
+        xc = x.permute(1, 2, 3, 0).contiguous()
+        wc = w.permute(1, 2, 3, 0).contiguous()
+
+        def cudnn():
+            return nnf.conv2d(x, w, stride=S, padding=pad)
+
+        k2 = _measure(lambda: conv_im2col_nchw_fused(x, w, S, pad),
+                      lambda: conv_ref(x, w, S, pad), cudnn, flops,
+                      conv_bytes)
+        k1 = _measure(lambda: conv_direct_chwn(xc, wc, S, pad),
+                      lambda: conv_ref(xc, w, S, pad, src_layout="CHWN",
+                                       dst_layout="CHWN"),
+                      cudnn, flops, conv_bytes)
+        tag = {"network": "table1", "case": layer.name, "launches": 1}
+        cases += [{**tag, "kernel": "matmul", **mm},
+                  {**tag, "kernel": "conv_nchw", **k2},
+                  {**tag, "kernel": "conv_chwn", **k1}]
+        row = {"layer": layer.name, "net": layer.net, "N": layer.N,
+               "Ci": layer.Ci, "HW": layer.HW, "F": F, "Co": layer.Co,
+               "S": S, "M": M, "K": Kd, "gflop": flops / 1e9,
+               "patch_bytes": 4 * M * Kd, "errors": err,
+               "k10_ms": mm["ms"], "k10_plain_ms": mm["plain_ms"],
+               "k10_bound_ms": mm["bound_ms"],
+               "baseline_ms": cuda_ms(lambda: conv_im2col_nchw(x, w, S,
+                                                               pad)),
+               "k2_ms": k2["ms"], "k1_ms": k1["ms"],
+               "fft_ms": cuda_ms(lambda: conv_forward(x, w, "NCHW", S, pad,
+                                                      impl="fft")),
+               "cudnn_ms": k2["library_ms"],
+               "conv_bound_ms": k2["bound_ms"],
+               "baseline_peak_bytes": _peak_over_base(
+                   lambda: conv_im2col_nchw(x, w, S, pad)),
+               "fft_peak_bytes": _peak_over_base(
+                   lambda: conv_forward(x, w, "NCHW", S, pad, impl="fft"))}
+        rows.append(row)
+        print(f"table1 {layer.name} ({layer.net}) N={layer.N} Ci={layer.Ci} "
+              f"HW={layer.HW} F={F} Co={layer.Co} S={S}: "
+              f"{row['gflop']:.2f} GFLOP, patch matrix [{M}, {Kd}] "
+              f"{row['patch_bytes'] / 2**20:.1f} MiB; ms: baseline "
+              f"(im2col + K10) {row['baseline_ms']:.3f} (K10 alone "
+              f"{mm['ms']:.3f}, its plain {mm['plain_ms']:.3f}, "
+              f"torch.matmul {mm['library_ms']:.3f}), K2 {k2['ms']:.3f}, "
+              f"K1 {k1['ms']:.3f}, FFT {row['fft_ms']:.3f}, cuDNN "
+              f"{row['cudnn_ms']:.3f}, bound {k2['bound_ms']:.3f} "
+              f"({k2['bound_by']}); peak over base: baseline "
+              f"{row['baseline_peak_bytes'] / 2**20:.1f} MiB, FFT "
+              f"{row['fft_peak_bytes'] / 2**20:.1f} MiB; K10 vs plain "
+              f"{mm['max_abs_err']:.3g} [{time.perf_counter() - t0:.1f}s]",
+              flush=True)
+        del patches, wmat, xc, wc
+    tot = {k: sum(r[k] for r in rows) for k in
+           ("gflop", "patch_bytes", "baseline_ms", "k10_ms", "k2_ms",
+            "k1_ms", "fft_ms", "cudnn_ms", "k10_bound_ms", "conv_bound_ms")}
+    print(f"table1 total: {tot['gflop']:.1f} GFLOP, patch matrices "
+          f"{tot['patch_bytes'] / 1e9:.2f} GB; ms: baseline "
+          f"{tot['baseline_ms']:.3f} (K10 {tot['k10_ms']:.3f}, bound "
+          f"{tot['k10_bound_ms']:.3f}), K2 {tot['k2_ms']:.3f}, K1 "
+          f"{tot['k1_ms']:.3f}, FFT {tot['fft_ms']:.3f}, cuDNN "
+          f"{tot['cudnn_ms']:.3f}; launches {counts['matmul']} K10, "
+          f"{counts['conv_nchw']} K2, {counts['conv_chwn']} K1", flush=True)
+    del data
+    torch.cuda.empty_cache()
+    return counts, cases, rows
+
+
+def lm_cases():
+    """The LM kernel phase's cases, every width from the configs: K11 on
+    qwen2-7b's attention (one train_4k sequence, its KV heads repeated to
+    its query heads, causal) in fp32 and bf16 and on whisper-base's encoder
+    (``WHISPER_CLIPS`` clips of ``encoder_seq`` frames, not causal); K12 on
+    qwen2-7b's head (train_4k tokens) in fp32 and bf16 and on gemma2-27b's
+    (``GEMMA_TOKENS`` tokens, its final-logit softcap)."""
+    qwen, gemma, whisper = (get_config(a) for a in
+                            ("qwen2_7b", "gemma2_27b", "whisper_base"))
+    S = TRAIN_4K.seq_len
+    attn = [("qwen2_7b", 1, qwen.num_heads, qwen.num_kv_heads, S,
+             qwen.head_dim, True, torch.float32),
+            ("qwen2_7b", 1, qwen.num_heads, qwen.num_kv_heads, S,
+             qwen.head_dim, True, torch.bfloat16),
+            ("whisper_base encoder", WHISPER_CLIPS, whisper.num_heads,
+             whisper.num_kv_heads, whisper.encoder_seq, whisper.head_dim,
+             False, torch.float32)]
+    xent = [("qwen2_7b", S, qwen.d_model, qwen.vocab_size,
+             qwen.final_logit_softcap, torch.float32),
+            ("qwen2_7b", S, qwen.d_model, qwen.vocab_size,
+             qwen.final_logit_softcap, torch.bfloat16),
+            ("gemma2_27b", GEMMA_TOKENS, gemma.d_model, gemma.vocab_size,
+             gemma.final_logit_softcap, torch.float32)]
+    return attn, xent
+
+
+def _attn_inputs(case, dev, seed):
+    _, B, H, Hkv, S, D, _, dtype = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, H, S, D, device=dev, generator=gen).to(dtype)
+    # K11 has no GQA: the caller repeats each KV head over its query group
+    k, v = (torch.randn(B, Hkv, S, D, device=dev, generator=gen).to(dtype)
+            .repeat_interleave(H // Hkv, dim=1) for _ in range(2))
+    return q, k, v
+
+
+def _xent_inputs(case, dev, seed):
+    _, T, D, V, _, dtype = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    h = torch.randn(T, D, device=dev, generator=gen).to(dtype)
+    table = (torch.randn(V, D, device=dev, generator=gen) * 0.02).to(dtype)
+    labels = torch.randint(0, V, (T,), device=dev, generator=gen)
+    return h, table, labels
+
+
+def lm_phase(dev):
+    """The LM kernel path: each case of ``lm_cases`` once through its
+    wrapper, the launch counts zeroed just before and read just after (K11
+    and K12 one launch a case).  Then each case is held against its plain
+    version on the card (fp32 rtol / atol 1e-4, bf16 atol 8 * BF16_EPS),
+    K12 run twice more for bitwise equality, and each is timed beside the
+    plain version and the library (``F.scaled_dot_product_attention``;
+    ``h @ tableᵀ``, softcapped, then ``F.cross_entropy``), TF32 off.
+    Returns (launches per kernel, kernel cases)."""
+    attn, xent = lm_cases()
+    a_in = [_attn_inputs(c, dev, 200 + i) for i, c in enumerate(attn)]
+    x_in = [_xent_inputs(c, dev, 300 + i) for i, c in enumerate(xent)]
+    K.reset_launch_counts()
+    a_out = [flash_attention(q, k, v, causal=c[6])
+             for c, (q, k, v) in zip(attn, a_in)]
+    x_out = [fused_xent(h, t, lab, softcap=c[4])
+             for c, (h, t, lab) in zip(xent, x_in)]
+    torch.cuda.synchronize()
+    counts = K.launch_counts()
+    _expect_counts("lm", counts, {"flash_attention": len(attn),
+                                  "fused_xent": len(xent)})
+    cases = []
+    for c, (q, k, v), got in zip(attn, a_in, a_out):
+        t0 = time.perf_counter()
+        name, B, H, _, S, D, causal, dtype = c
+        bf16 = dtype == torch.bfloat16
+        tol = (0.0, BF16_ATOL) if bf16 else (LM_TOL, LM_TOL)
+        shape = (B, H, S, D)
+        if tuple(got.shape) != shape or got.dtype != dtype or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K11 {name}: {tuple(got.shape)} "
+                                 f"{got.dtype}, or non-finite")
+        q3, k3, v3 = (t.reshape(B * H, S, D) for t in (q, k, v))
+        pairs = S * (S + 1) // 2 if causal else S * S
+        m = _measure(lambda: flash_attention(q, k, v, causal=causal),
+                     lambda: flash_attention_ref(q3, k3, v3, causal),
+                     lambda: nnf.scaled_dot_product_attention(
+                         q, k, v, is_causal=causal),
+                     4.0 * B * H * pairs * D,
+                     q.element_size() * 4.0 * q.numel(), *tol,
+                     peak=PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS,
+                     got=got.reshape(B * H, S, D))
+        lib_err = (got.float() - nnf.scaled_dot_product_attention(
+            q, k, v, is_causal=causal).float()).abs().max().item()
+        m.update(network=name, kernel="flash_attention", launches=1,
+                 case=(B, H, S, D, causal, str(dtype)), library_err=lib_err)
+        cases.append(m)
+        print(f"lm K11 {name} B={B} H={H} S={S} D={D} causal={causal} "
+              f"{dtype}: {m['flops'] / 1e9:.1f} GFLOP; ms {m['ms']:.3f} "
+              f"({m['flops'] / m['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{m['plain_ms']:.3f}, SDPA {m['library_ms']:.3f}, bound "
+              f"{m['bound_ms']:.3f} ({m['bound_by']}); max |kernel - "
+              f"plain| {m['max_abs_err']:.3g}, |kernel - SDPA| "
+              f"{lib_err:.3g} [{time.perf_counter() - t0:.1f}s]", flush=True)
+    for c, (h, table, labels), got in zip(xent, x_in, x_out):
+        t0 = time.perf_counter()
+        name, T, D, V, cap, dtype = c
+        bf16 = dtype == torch.bfloat16
+        tol = (0.0, BF16_ATOL) if bf16 else (LM_TOL, LM_TOL)
+        if tuple(got.shape) != (T,) or got.dtype != torch.float32 or \
+                not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"K12 {name}: {tuple(got.shape)} "
+                                 f"{got.dtype}, or non-finite")
+        for _ in range(2):
+            if not torch.equal(got, fused_xent(h, table, labels, cap)):
+                raise AssertionError(f"K12 {name}: two runs differ")
+
+        def library():
+            z = h @ table.T
+            if cap is not None:
+                z = cap * torch.tanh(z / cap)
+            return nnf.cross_entropy(z.float(), labels, reduction="none")
+
+        m = _measure(lambda: fused_xent(h, table, labels, cap),
+                     lambda: xent_ref(h, table, labels, cap), library,
+                     2.0 * T * V * D,
+                     h.element_size() * float(T * D + V * D) + 12.0 * T,
+                     *tol, peak=PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS,
+                     got=got)
+        m.update(network=name, kernel="fused_xent", launches=1,
+                 case=(T, D, V, cap, str(dtype)), bitwise_equal_runs=3)
+        cases.append(m)
+        print(f"lm K12 {name} T={T} D={D} V={V} softcap={cap} {dtype}: "
+              f"{m['flops'] / 1e12:.2f} TFLOP; ms {m['ms']:.3f} "
+              f"({m['flops'] / m['ms'] / 1e9:.1f} TFLOP/s), plain "
+              f"{m['plain_ms']:.3f}, matmul+cross_entropy "
+              f"{m['library_ms']:.3f}, bound {m['bound_ms']:.3f} "
+              f"({m['bound_by']}); max |kernel - plain| "
+              f"{m['max_abs_err']:.3g}; 3 runs bitwise equal "
+              f"[{time.perf_counter() - t0:.1f}s]", flush=True)
+    del a_in, x_in, a_out, x_out
+    torch.cuda.empty_cache()
+    return counts, cases
+
+
 def kernels_line(cases, launches) -> dict:
     """One entry per kernel: times and bound summed over the main path's
     launches (each distinct launch timed once, times its multiplicity).  A
@@ -1278,7 +1635,8 @@ def kernels_line(cases, launches) -> dict:
         def total(key):
             return sum(r[key] * (r["launches"] or 1) for r in rows)
 
-        t_ops = total("flops") / PEAK_FP32_FLOPS
+        t_ops = sum(r["flops"] * (r["launches"] or 1)
+                    / r.get("peak_flops", PEAK_FP32_FLOPS) for r in rows)
         t_bytes = total("bytes") / PEAK_HBM_BYTES
         out.append({"name": kern, **meta, "launches": launches[kern],
                     "max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -1304,12 +1662,12 @@ def main() -> int:
     print(f"card: {card} (torch {torch.__version__}, CUDA "
           f"{torch.version.cuda})", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     ptxas = io.StringIO()
     lib = _build.build(log=ptxas)
     _build.library()
-    print(f"build: {time.perf_counter() - t0:.1f}s -> "
-          f"{lib.relative_to(REPO)}", flush=True)
+    build_s = time.perf_counter() - t0
+    print(f"build: {build_s:.1f}s -> {lib.relative_to(REPO)}", flush=True)
 
     with torch.inference_mode():
         t0 = time.perf_counter()
@@ -1327,6 +1685,18 @@ def main() -> int:
         for k, v in unfused_counts.items():
             launches[k] += v
         print(f"unfused phase: {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        t1_counts, t1_cases, table1 = conv_layer_phase(dev)
+        print(f"conv-layer phase: {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        t0 = time.perf_counter()
+        lm_counts, lm_rows = lm_phase(dev)
+        print(f"LM kernel phase: {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        for counts in (t1_counts, lm_counts):
+            for k, v in counts.items():
+                launches[k] += v
+        cases += t1_cases + lm_rows
     # autograd needs tensors made outside inference mode
     t0 = time.perf_counter()
     train_counts, trained = training_phase(dev)
@@ -1337,9 +1707,12 @@ def main() -> int:
     if args.json:
         out = Path(args.json)
         out.parent.mkdir(parents=True, exist_ok=True)
-        out.write_text(json.dumps({"card": card, "cases": cases, **line,
+        out.write_text(json.dumps({"card": card, "build_s": build_s,
+                                   "seconds": time.perf_counter() - t_start,
+                                   "cases": cases, **line,
                                    "stack_compare": compared,
                                    "unfused": unfused,
+                                   "table1": table1,
                                    "training": trained,
                                    "ptxas": ptxas.getvalue()}, indent=1))
     print(json.dumps(line))

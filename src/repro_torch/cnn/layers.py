@@ -9,6 +9,8 @@ engine:
               plain version instead; a CUDA tensor runs the kernel.
   * "torch" — the decomposed plain PyTorch engine (the counterpart of the
               reference's "xla"): the oracle the kernels are held against.
+  * "fft"   — ``conv_forward`` only: the frequency-domain conv (NCHW; the
+              cuDNN-FFT analogue), in ``torch.fft``.
 Both engines are differentiable: "torch" by plain autograd, "cuda" through
 the kernels' autograd Functions (the conv, stack, pool and softmax
 wrappers; dgrad on K1/K2, the weight gradient K6, the pool backward K7),
@@ -26,6 +28,7 @@ import torch
 
 from repro_torch.configs.base import CNNConfig
 from repro_torch.kernels.conv.ops import (conv_direct_chwn,
+                                          conv_fft_nchw,
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn, conv_stack_nchw)
 from repro_torch.kernels.conv.ref import conv_ref
@@ -114,7 +117,15 @@ def fused_conv_stack(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
 def conv_forward(x: torch.Tensor, w: torch.Tensor, layout: str,
                  stride: int = 1, pad: int = 0,
                  impl: str = "cuda") -> torch.Tensor:
-    """Bare conv in ``layout`` (x and the result both in it)."""
+    """Bare conv in ``layout`` (x and the result both in it).  Besides the
+    two engines, ``impl="fft"`` runs the frequency-domain conv
+    (``conv_fft_nchw``, the paper's cuDNN-FFT mode), bound to NCHW as the
+    reference's is."""
+    if impl == "fft":
+        if layout != "NCHW":
+            raise ValueError("FFT conv is bound to NCHW (paper §IV.A), got "
+                             f"layout {layout!r}")
+        return conv_fft_nchw(x, w, stride, pad)
     return fused_conv_block(x, w, layout, stride, pad, impl=impl)
 
 

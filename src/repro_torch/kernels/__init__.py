@@ -8,8 +8,12 @@ stacks K5a (``conv.ops.conv_stack_chwn``) and K5b
 (``conv.backward.conv_wgrad``), the pool backwards K7a
 (``pool.backward.pool_backward_chwn``) and K7b
 (``pool.backward.pool_backward_nchw``), the row cross entropy K8
-(``softmax.ops.softmax_xent``), and the tiled transposes K9a
-(``transpose.ops.transpose2d``) and K9b (``transpose.ops.transpose2d_batched``).
+(``softmax.ops.softmax_xent``), the tiled transposes K9a
+(``transpose.ops.transpose2d``) and K9b (``transpose.ops.transpose2d_batched``),
+the tiled matmul K10 (``matmul.ops.matmul``, under the matrix-expansion
+conv ``conv.ops.conv_im2col_nchw``), the flash attention K11
+(``flash_attention.ops.flash_attention``) and the fused unembed + cross
+entropy K12 (``crossentropy.ops.fused_xent``).
 dgrad has no kernel of its own: it runs on K1/K2.  Each wrapper counts the
 kernels it launches; ``launch_counts``/``reset_launch_counts`` read and
 zero them.
@@ -22,6 +26,9 @@ from repro_torch.kernels.conv.backward import conv_wgrad
 from repro_torch.kernels.conv.ops import (conv_direct_chwn,
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn, conv_stack_nchw)
+from repro_torch.kernels.crossentropy.ops import fused_xent
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.pool.backward import (pool_backward_chwn,
                                                pool_backward_nchw)
 from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw
@@ -43,6 +50,9 @@ WRAPPERS = {
     "pool_backward_chwn": pool_backward_chwn,
     "pool_backward_nchw": pool_backward_nchw,
     "softmax_xent": softmax_xent,
+    "matmul": matmul,
+    "flash_attention": flash_attention,
+    "fused_xent": fused_xent,
 }
 
 

@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "libreprotorch_kernels.so"
 
 P, I = ctypes.c_void_p, ctypes.c_int
+L, F = ctypes.c_longlong, ctypes.c_float
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES: Dict[str, List] = {
     # x, w, bias, res, y, z, N, Ci, H, W, Co, F, S, pad, pool_F, pool_S,
@@ -59,6 +60,13 @@ SIGNATURES: Dict[str, List] = {
     "pool_backward_nchw": [P] * 3 + [I] * 9 + [P],
     # x, y, B, M, N, stream
     "transpose_forward": [P, P, I, I, I, P],
+    # x, y, out, M, N, K, sxm, sxk, syk, syn, bf16, stream
+    "matmul_forward": [P] * 3 + [I] * 3 + [L] * 4 + [I, P],
+    # q, k, v, out, BH, Sq, Sk, D, causal, scale, bf16, stream
+    "flash_attention_forward": [P] * 4 + [I] * 5 + [F, I, P],
+    # h, table, labels, ws, loss, T, V, D, softcap, tiles_per_split,
+    # splits, bf16, stream
+    "xent_forward": [P] * 5 + [I] * 3 + [F] + [I] * 3 + [P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -190,6 +198,27 @@ def require_cuda_f32(name: str, device, **tensors) -> None:
         if t.numel() >= 2 ** 31:
             raise ValueError(f"{name}: {arg} has {t.numel()} elements; the "
                              "kernel indexes with 32-bit ints")
+
+
+def require_cuda_float(name: str, device, contiguous: bool = True,
+                       **tensors) -> torch.dtype:
+    """Raise unless every given tensor is on ``device`` and all share one
+    dtype, float32 or bfloat16 (the LM kernels K11/K12 and the matmul K10
+    take either), and, with ``contiguous``, are contiguous; returns that
+    dtype."""
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1:
+        raise TypeError(f"{name}: mixed dtypes {sorted(map(str, dtypes))}")
+    dtype = dtypes.pop()
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: {dtype}; the kernel takes float32 or "
+                        "bfloat16")
+    for arg, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, not {device}")
+        if contiguous and not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    return dtype
 
 
 def stream_of(device) -> int:

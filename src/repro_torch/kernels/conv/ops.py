@@ -23,6 +23,10 @@ reference's custom VJPs: the forward saves the pre-pool activation
 backward (``conv_backward``) runs the pool backward K7, dgrad on the
 engine's own conv kernel, the weight gradient K6 and, for a stack, the
 recompute of its mid activation on K1/K2.
+
+Beside them sit the paper's other two conv engines, inference only: the
+matrix-expansion baseline ``conv_im2col_nchw`` (a materialized patch
+matrix, its matmul on K10) and the FFT conv ``conv_fft_nchw``.
 """
 from __future__ import annotations
 
@@ -36,7 +40,9 @@ from repro_torch.core.transform import apply_transform
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv.backward import (bias_grad, conv_dgrad,
                                                conv_wgrad)
-from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref
+from repro_torch.kernels.conv.ref import (conv_ref, conv_stack_ref,
+                                          im2col_nchw)
+from repro_torch.kernels.matmul.ops import matmul
 from repro_torch.kernels.pool.backward import pool_backward
 from repro_torch.shapes import conv_out_hw, pool_out_hw
 
@@ -598,6 +604,51 @@ def conv_stack_nchw(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return _stack_public("NCHW", x, w1, w2, stride1, pad1, stride2, pad2,
                          bias1, bias2, relu1, relu2, pool, res, res_layout,
                          src_layout, dst_layout)
+
+
+# ---------------------------------------------------------------------------
+# the paper's other conv engines: matrix expansion (on K10) and FFT
+# ---------------------------------------------------------------------------
+
+def conv_im2col_nchw(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                     pad: int = 0, use_kernel_mm: bool = True
+                     ) -> torch.Tensor:
+    """im2col + matmul, NCHW: x [N,Ci,H,W], w [Co,Ci,F,F] -> [N,Co,Ho,Wo].
+    The seed baseline (``repro/kernels/conv/ops.py::conv_im2col_nchw``):
+    the patch matrix [N*Ho*Wo, Ci*F*F] is materialized (the paper's
+    'matrix expansion' traffic) and only its product with the weights runs
+    on a kernel, K10 (``use_kernel_mm=False``: ``patches @ wmat``, the
+    reference's ``use_pallas_mm=False``).  The weight matrix is
+    ``w.reshape(Co, -1).T``, a strided view K10 reads without a copy."""
+    N = x.shape[0]
+    Co, Ci, F, _ = w.shape
+    patches, (_, Ho, Wo) = im2col_nchw(x, F, stride, pad)
+    wmat = w.reshape(Co, Ci * F * F).T             # [Ci*F*F, Co]
+    out = matmul(patches, wmat) if use_kernel_mm else patches @ wmat
+    return out.reshape(N, Ho, Wo, Co).permute(0, 3, 1, 2).contiguous()
+
+
+def conv_fft_nchw(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                  pad: int = 0) -> torch.Tensor:
+    """FFT conv (NCHW; ``repro/kernels/conv/ops.py::conv_fft_nchw``): pads
+    the filter to the image size and multiplies in the frequency domain
+    (the paper's cuDNN-FFT mode, memory overhead included).  No kernel of
+    the port's own: ``torch.fft`` (cuFFT on the card), as the reference
+    leaves it to XLA.  Only exact for stride 1; a strided layer subsamples
+    the full conv."""
+    F = w.shape[2]
+    if pad:
+        x = torch.nn.functional.pad(x, (pad, pad, pad, pad))
+    H, W = x.shape[2], x.shape[3]
+    Hf, Wf = H + F - 1, W + F - 1
+    xf = torch.fft.rfft2(x.float(), s=(Hf, Wf))            # [N,Ci,Hf,Wf']
+    wf = torch.fft.rfft2(w.flip(2, 3).float(), s=(Hf, Wf))
+    yf = torch.einsum("nchw,ochw->nohw", xf, wf)
+    y = torch.fft.irfft2(yf, s=(Hf, Wf))
+    y = y[:, :, F - 1:H, F - 1:W]                          # valid region
+    if stride > 1:
+        y = y[:, :, ::stride, ::stride]
+    return y.to(x.dtype).contiguous()
 
 
 conv_direct_chwn.launches = 0

@@ -6,7 +6,9 @@ ReLU -> max/avg pool -> permute to the destination layout; with
 ``conv_stack_ref`` (K5a, K5b): two ``conv_ref`` calls, conv1 (+bias1,
 +ReLU) into the mid tensor and conv2 with the full epilogue.
 ``wgrad_ref`` (K6): the conv weight gradient as one contraction per filter
-tap, in any float dtype (float64 is the card's oracle).  The wrappers
+tap, in any float dtype (float64 is the card's oracle).
+``im2col_nchw``: the matrix expansion of the baseline
+``ops.conv_im2col_nchw``, whose matmul runs on K10.  The wrappers
 in ``ops.py`` run them for tensors on the CPU, and the tests and
 ``chip_smoke.py`` hold the kernels against them.  On the card, compare
 them with TF32 off (``torch.backends.cudnn.allow_tf32 = False``): cuDNN's
@@ -105,3 +107,19 @@ def wgrad_ref(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
             for dy in range(F) for dx in range(F)]
     Co, Ci = taps[0].shape
     return torch.stack(taps, -1).reshape(Co, Ci, F, F)
+
+
+def im2col_nchw(x: torch.Tensor, F: int, stride: int = 1, pad: int = 0
+                ) -> Tuple[torch.Tensor, Tuple[int, int, int]]:
+    """x [N, Ci, H, W] -> (patches [N*Ho*Wo, Ci*F*F], (N, Ho, Wo)): the
+    paper's matrix expansion (``repro/kernels/conv/ref.py::im2col_nchw``),
+    one row per output position (n, oh, ow), columns in (ci, dy, dx)
+    order.  The patch matrix is materialized: its traffic is the point of
+    the baseline."""
+    N, Ci = x.shape[:2]
+    if pad:
+        x = torch.nn.functional.pad(x, (pad, pad, pad, pad))
+    win = x.unfold(2, F, stride).unfold(3, F, stride)  # [N,Ci,Ho,Wo,F,F]
+    Ho, Wo = win.shape[2], win.shape[3]
+    patches = win.permute(0, 2, 3, 1, 4, 5).reshape(N * Ho * Wo, Ci * F * F)
+    return patches, (N, Ho, Wo)

@@ -46,7 +46,10 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "for m in ('perfmodel.calibration', 'kernels.pool.ops', "
         "'kernels.transpose.ops', 'configs.paper_table1', "
         "'perfmodel.traffic', 'kernels.conv.backward', "
-        "'kernels.pool.backward'):\n"
+        "'kernels.pool.backward', 'kernels.matmul.ops', "
+        "'kernels.flash_attention.ops', 'kernels.crossentropy.ops', "
+        "'configs.registry', 'configs.qwen2_7b', 'configs.gemma2_27b', "
+        "'configs.whisper_base'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
