@@ -11,7 +11,10 @@
    (conv and stack rtol 1e-4 / atol 1e-3, softmax atol 1e-6) and times the
    kernel, the plain version and one library chain for the same function
    (cuDNN conv [+ residual] + ReLU [+ pool], twice for a stack;
-   torch.softmax) with CUDA events.
+   torch.softmax) with CUDA events.  K5a runs once more counting the FLOPs
+   its blocks execute and the cluster they ran in, which must equal
+   ``stack_tiling``'s; the line shows the cluster, executed/direct FLOPs,
+   the executed TFLOP/s and how many clusters the card holds at once.
 3. Serving phase, the main path, each path with the launch counts zeroed
    just before it and read just after, through ``CNNServer(reduced=False)``
    at full width:
@@ -88,7 +91,8 @@
    held against its plain version (fp32 rtol / atol 1e-4, bf16 atol 8 *
    BF16_EPS), K12 three runs bitwise equal, timed beside
    ``F.scaled_dot_product_attention`` or ``h @ tableᵀ`` +
-   ``F.cross_entropy``.
+   ``F.cross_entropy``; a line gives K11's largest bf16 error and every
+   case's TFLOP/s.
 9. Prints one JSON line of every kernel (launches, error, times, bound),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
@@ -132,8 +136,10 @@ from repro_torch.kernels.conv.backward import (conv_wgrad,  # noqa: E402
 from repro_torch.kernels.conv.ops import (_conv, conv_direct_chwn,  # noqa: E402
                                           conv_im2col_nchw,
                                           conv_im2col_nchw_fused,
-                                          conv_stack_chwn, conv_stack_nchw,
-                                          stack_tiling)
+                                          conv_stack_chwn,
+                                          conv_stack_chwn_counted,
+                                          conv_stack_nchw,
+                                          stack_max_clusters, stack_tiling)
 from repro_torch.kernels.conv.ref import (conv_ref,  # noqa: E402
                                           conv_stack_ref, im2col_nchw,
                                           wgrad_ref)
@@ -629,8 +635,22 @@ def stack_case(kern: str, case, dev, seed: int) -> dict:
     t = stack_tiling(engine, N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2,
                      pool)
     m.update(executed_flops=float(t.executed_flops),
-             smem_bytes=t.smem_bytes, blocks=t.blocks,
+             smem_bytes=t.smem_bytes, blocks=t.blocks, cluster=t.cluster,
              tile={"bm": t.bm, "nb": t.nb, "uth": t.uth, "utw": t.utw})
+    if engine == "CHWN":
+        # K5a counts what its blocks execute and the cluster they ran in
+        y, counted, cluster = conv_stack_chwn_counted(
+            x, w1k, w2k, S1, P1, S2, P2, **kw)
+        torch.testing.assert_close(y, plain(), rtol=CONV_RTOL,
+                                   atol=CONV_ATOL)
+        if counted != t.executed_flops or cluster != t.cluster:
+            raise AssertionError(
+                f"K5a {case}: the kernel executed {counted} FLOPs in "
+                f"clusters of {cluster}; stack_tiling says "
+                f"{t.executed_flops} in clusters of {t.cluster}")
+        m.update(counted_flops=float(counted), counted_cluster=cluster,
+                 resident_clusters=stack_max_clusters(
+                     N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2, pool, t))
     return m
 
 
@@ -926,8 +946,17 @@ def kernel_phase(dev):
         if kern in STACK_KERNELS:
             extra = (f" executed_GFLOP={m['executed_flops'] / 1e9:.2f} "
                      f"direct_GFLOP={m['flops'] / 1e9:.2f} "
+                     f"executed/direct="
+                     f"{m['executed_flops'] / m['flops']:.3f} "
+                     f"executed_TFLOP/s="
+                     f"{m['executed_flops'] / m['ms'] / 1e9:.1f} "
                      f"smem_per_block={m['smem_bytes']} "
-                     f"blocks={m['blocks']} tile={m['tile']}")
+                     f"blocks={m['blocks']} cluster={m['cluster']} "
+                     f"tile={m['tile']}")
+            if "counted_flops" in m:
+                extra += (f" counted_GFLOP={m['counted_flops'] / 1e9:.2f} "
+                          f"counted_cluster={m['counted_cluster']} "
+                          f"resident_clusters={m['resident_clusters']}")
         if kern in POOL_KERNELS:
             extra = f" folded_dst_ms={m['folded_ms']:.4f}"
         print(f"kernel {kern:<15s} {row['network']:<8s} case={case} "
@@ -1570,6 +1599,15 @@ def lm_phase(dev):
               f"{m['bound_ms']:.3f} ({m['bound_by']}); max |kernel - "
               f"plain| {m['max_abs_err']:.3g}, |kernel - SDPA| "
               f"{lib_err:.3g} [{time.perf_counter() - t0:.1f}s]", flush=True)
+    bf16_errs = [r["max_abs_err"] for r in cases
+                 if r["kernel"] == "flash_attention" and "bfloat16" in
+                 r["case"][-1]]
+    print(f"lm K11 largest bf16 error against the plain version "
+          f"{max(bf16_errs):.3g} (tolerance {BF16_ATOL:.3g}); TFLOP/s "
+          + ", ".join(f"{r['case'][-1].split('.')[-1]} "
+                      f"{r['flops'] / r['ms'] / 1e9:.1f}"
+                      for r in cases if r["kernel"] == "flash_attention"),
+          flush=True)
     for c, (h, table, labels), got in zip(xent, x_in, x_out):
         t0 = time.perf_counter()
         name, T, D, V, cap, dtype = c

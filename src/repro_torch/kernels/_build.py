@@ -45,9 +45,12 @@ SIGNATURES: Dict[str, List] = {
     "wgrad_forward": [P] * 4 + [I] * 12 + [P],
     # x, w1, b1, w2, b2, res, y, N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2,
     # P2, pool_F, pool_S, pool_avg, relu1, relu2, src_nchw, dst_nchw,
-    # res_nchw, bm, nb, uth, utw, stream
-    "conv_stack_chwn_forward": [P] * 7 + [I] * 24 + [P],
+    # res_nchw, bm, nb, uth, utw, [cluster, stats,] stream
+    "conv_stack_chwn_forward": [P] * 7 + [I] * 25 + [P, P],
     "conv_stack_nchw_forward": [P] * 7 + [I] * 24 + [P],
+    # N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pool_F, pool_S, bm, nb,
+    # uth, utw, cluster, out
+    "conv_stack_chwn_max_clusters": [I] * 19 + [ctypes.POINTER(I)],
     # x, y, rows, cols, stream
     "softmax_forward": [P, P, I, I, P],
     # x, labels, loss, rows, cols, stream

@@ -1,9 +1,12 @@
-// Fused conv -> conv stack shared by the two stack engines
-// (conv_stack_chwn.cu, conv_stack_nchw.cu): conv1 [+bias1] [+ReLU] into a
-// mid activation that never leaves the SM, then conv2 with the full
-// epilogue of the single-conv kernels (bias2 -> residual -> ReLU -> max/avg
-// pool), reading x in the producer's layout and writing y in the
-// consumer's.  fp32 FMA on the CUDA cores, fp32 accumulation.
+// Fused conv -> conv stack of the NCHW engine K5b (conv_stack_nchw.cu);
+// the CHWN engine K5a (conv_stack_chwn.cu) runs its own cluster kernel on
+// the tile and column helpers here (StackArgs, make_tile, scol, mid_span).
+// The K5b kernel (its host entry is in conv_stack_nchw.cu): conv1
+// [+bias1] [+ReLU] into a mid activation that never leaves the SM, then
+// conv2 with the full epilogue of the single-conv kernels (bias2 ->
+// residual -> ReLU -> max/avg pool), reading x in the producer's layout
+// and writing y in the consumer's.  fp32 FMA on the CUDA cores, fp32
+// accumulation.
 //
 // A block owns one conv2 output tile: TBM output channels by TBN GEMM
 // columns, where the columns are NB images x UTH x UTW units x T taps (a
@@ -209,7 +212,7 @@ struct Shape {
   static constexpr int BSTR = TBN > kRA ? TBN : kRA;
 };
 
-template <bool N_FASTEST, bool POOL, int GM>
+template <bool POOL, int GM>
 __global__ void __launch_bounds__(kThreads)
 conv_stack_kernel(const StackArgs a) {
   using S = Shape<GM>;
@@ -226,12 +229,12 @@ conv_stack_kernel(const StackArgs a) {
                                     // tile [TBM][TBN + 1]
 
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const Tile t = make_tile<N_FASTEST>(a);
+  const Tile t = make_tile<false>(a);
   const int co0 = blockIdx.y * TBM;
 
   // phase B: the conv2 column this thread gathers, and its mid base
   const int cB = tid % TBN, kkB0 = (tid / TBN) * RPT_B;
-  const SCol gb = scol<N_FASTEST>(a, t, cB);
+  const SCol gb = scol<false>(a, t, cB);
   const int ohb = gb.oh * a.S2 - a.P2, owb = gb.ow * a.S2 - a.P2;
   const int rbase = gb.nl * t.rs_n + (ohb - t.mh_lo) * t.rs_h +
                     (owb - t.mw_lo) * t.rs_w;
@@ -256,17 +259,10 @@ conv_stack_kernel(const StackArgs a) {
       int nl, mhl, mwl;
       {
         const int rr = rok ? r : 0;
-        if (N_FASTEST) {
-          nl = rr % t.NBc;
-          const int q = rr / t.NBc;
-          mwl = q % t.MWc;
-          mhl = q / t.MWc;
-        } else {
-          mwl = rr % t.MWc;
-          const int q = rr / t.MWc;
-          mhl = q % t.MHc;
-          nl = q / t.MHc;
-        }
+        mwl = rr % t.MWc;
+        const int q = rr / t.MWc;
+        mhl = q % t.MHc;
+        nl = q / t.MHc;
       }
       const float* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
       const int ih0 = (t.mh_lo + mhl) * a.S1 - a.P1;
@@ -289,8 +285,7 @@ conv_stack_kernel(const StackArgs a) {
 #pragma unroll
         for (int i = 0; i < WPT_A; ++i) {
           const int e = tid + i * kThreads;
-          const int m = N_FASTEST ? e % kCM : e / kBK;
-          const int kk = N_FASTEST ? e / kCM : e % kBK;
+          const int m = e / kBK, kk = e % kBK;
           const int k = k0 + kk;
           ra[i] = (m < cmn && k < a.K1)
                       ? __ldg(a.w1 + (long long)(cm0 + m) * a.w1O +
@@ -305,8 +300,7 @@ conv_stack_kernel(const StackArgs a) {
 #pragma unroll
         for (int i = 0; i < WPT_A; ++i) {
           const int e = tid + i * kThreads;
-          const int m = N_FASTEST ? e % kCM : e / kBK;
-          const int kk = N_FASTEST ? e / kCM : e % kBK;
+          const int m = e / kBK, kk = e % kBK;
           As[kk * ASTR + m] = ra[i];
         }
       };
@@ -368,8 +362,7 @@ conv_stack_kernel(const StackArgs a) {
 #pragma unroll
       for (int i = 0; i < WPT_B; ++i) {
         const int e = tid + i * kThreads;
-        const int m = N_FASTEST ? e % TBM : e / kBK;
-        const int kk = N_FASTEST ? e / TBM : e % kBK;
+        const int m = e / kBK, kk = e % kBK;
         const int co = co0 + m, k = k0 + kk;
         ra[i] = (co < a.Co && k < K2c)
                     ? __ldg(a.w2 + (long long)co * a.w2O +
@@ -383,8 +376,7 @@ conv_stack_kernel(const StackArgs a) {
 #pragma unroll
       for (int i = 0; i < WPT_B; ++i) {
         const int e = tid + i * kThreads;
-        const int m = N_FASTEST ? e % TBM : e / kBK;
-        const int kk = N_FASTEST ? e / TBM : e % kBK;
+        const int m = e / kBK, kk = e % kBK;
         As[kk * ASTR + m] = ra[i];
       }
     };
@@ -411,7 +403,7 @@ conv_stack_kernel(const StackArgs a) {
 #pragma unroll
   for (int j = 0; j < 4 * GN; ++j) {
     const int c = (j / 4) * 64 + tx * 4 + (j % 4);
-    const SCol col = scol<N_FASTEST>(a, t, c);
+    const SCol col = scol<false>(a, t, c);
 #pragma unroll
     for (int i = 0; i < 4 * GM; ++i) {
       const int m = (i / 4) * 64 + ty * 4 + (i % 4);
@@ -435,7 +427,7 @@ conv_stack_kernel(const StackArgs a) {
     const float area = (float)(a.pF * a.pF);
     for (int e = tid; e < TBM * a.BU; e += kThreads) {
       const int m = e / a.BU, ul = e - m * a.BU;
-      const SCol col = scol<N_FASTEST>(a, t, ul);  // tap 0 of unit ul
+      const SCol col = scol<false>(a, t, ul);  // tap 0 of unit ul
       const int co = co0 + m;
       if (!col.ok || co >= a.Co) continue;
       float r = a.pool_avg ? 0.f : -INFINITY;
@@ -446,98 +438,6 @@ conv_stack_kernel(const StackArgs a) {
       a.y[(long long)col.n * a.ys.n + (long long)co * a.ys.c +
           col.uh * a.ys.h + col.uw * a.ys.w] = a.pool_avg ? r / area : r;
     }
-  }
-}
-
-// dynamic shared memory of one block, in bytes (ops.py::stack_tiling
-// computes the same number)
-template <int GM>
-inline long long smem_bytes(int rstr, bool pool) {
-  using S = Shape<GM>;
-  long long slab = (long long)kCM * rstr;
-  const long long ts = pool ? (long long)S::TBM * (S::TBN + 1) : 0;
-  if (ts > slab) slab = ts;
-  return 4 * ((long long)kBK * S::ASTR + (long long)kBK * S::BSTR + slab);
-}
-
-template <bool N_FASTEST, bool POOL, int GM>
-int launch(const StackArgs& a, dim3 grid, cudaStream_t st) {
-  const long long bytes = smem_bytes<GM>(a.RSTR, POOL);
-  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = conv_stack_kernel<N_FASTEST, POOL, GM>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, (size_t)bytes, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Shared host entry: fills StackArgs from the shapes and the tile the
-// wrapper chose (bm output channels; nb x uth x utw units), and launches.
-// Each engine passes its weight layouts.  Returns a cudaError_t code.
-template <bool N_FASTEST>
-int stack_forward(const void* x, const void* w1, const void* b1,
-                  const void* w2, const void* b2, const void* res, void* y,
-                  int N, int Ci, int H, int W, int Cm, int F1, int S1, int P1,
-                  int Co, int F2, int S2, int P2, int pool_F, int pool_S,
-                  int pool_avg, int relu1, int relu2, int src_nchw,
-                  int dst_nchw, int res_nchw, int bm, int nb, int uth,
-                  int utw, int w1O, int w1K, int w2O, int w2K, void* stream) {
-  StackArgs a;
-  a.x = static_cast<const float*>(x);
-  a.w1 = static_cast<const float*>(w1);
-  a.b1 = static_cast<const float*>(b1);
-  a.w2 = static_cast<const float*>(w2);
-  a.b2 = static_cast<const float*>(b2);
-  a.res = static_cast<const float*>(res);
-  a.y = static_cast<float*>(y);
-  a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Cm = Cm;
-  a.F1 = F1; a.S1 = S1; a.P1 = P1; a.K1 = Ci * F1 * F1;
-  a.Ho1 = (H + 2 * P1 - F1) / S1 + 1;
-  a.Wo1 = (W + 2 * P1 - F1) / S1 + 1;
-  a.Co = Co; a.F2 = F2; a.S2 = S2; a.P2 = P2;
-  a.Ho2 = (a.Ho1 + 2 * P2 - F2) / S2 + 1;
-  a.Wo2 = (a.Wo1 + 2 * P2 - F2) / S2 + 1;
-  a.pF = pool_F; a.pS = pool_S; a.pool_avg = pool_avg;
-  a.relu1 = relu1; a.relu2 = relu2;
-  const bool pool = pool_F > 0;
-  if (pool) {
-    a.UH = (a.Ho2 - pool_F) / pool_S + 1;
-    a.UW = (a.Wo2 - pool_F) / pool_S + 1;
-    a.T = pool_F * pool_F;
-  } else {
-    a.UH = a.Ho2;
-    a.UW = a.Wo2;
-    a.T = 1;
-  }
-  const int gm = bm / 64;
-  if ((gm != 1 && gm != 2 && gm != 4) || bm % 64 || nb < 1 || uth < 1 ||
-      utw < 1 || (long long)nb * uth * utw * a.T > kTile / bm)
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.NB = nb; a.UTH = uth; a.UTW = utw; a.BU = nb * uth * utw;
-  a.nTH = (a.UH + uth - 1) / uth;
-  a.nTW = (a.UW + utw - 1) / utw;
-  const int oth = pool ? (uth - 1) * pool_S + pool_F : uth;
-  const int otw = pool ? (utw - 1) * pool_S + pool_F : utw;
-  a.RSTR = nb * ((oth - 1) * S2 + F2) * ((otw - 1) * S2 + F2);
-  a.w1O = w1O; a.w1K = w1K; a.w2O = w2O; a.w2K = w2K;
-  a.xs = layout_strides(src_nchw, N, Ci, H, W);
-  a.rs = layout_strides(res_nchw, N, Co, a.Ho2, a.Wo2);
-  a.ys = layout_strides(dst_nchw, N, Co, a.UH, a.UW);
-  if (N <= 0 || Co <= 0 || a.UH <= 0 || a.UW <= 0)
-    return static_cast<int>(cudaGetLastError());
-  const dim3 grid(((N + nb - 1) / nb) * a.nTH * a.nTW, (Co + bm - 1) / bm);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (gm) {
-    case 1:
-      return pool ? launch<N_FASTEST, true, 1>(a, grid, st)
-                  : launch<N_FASTEST, false, 1>(a, grid, st);
-    case 2:
-      return pool ? launch<N_FASTEST, true, 2>(a, grid, st)
-                  : launch<N_FASTEST, false, 2>(a, grid, st);
-    default:
-      return pool ? launch<N_FASTEST, true, 4>(a, grid, st)
-                  : launch<N_FASTEST, false, 4>(a, grid, st);
   }
 }
 

@@ -30,6 +30,7 @@ matrix, its matmul on K10) and the FFT conv ``conv_fft_nchw``.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -315,23 +316,38 @@ def conv_im2col_nchw_fused(x: torch.Tensor, w: torch.Tensor,
 # conv -> conv stacks (K5a, K5b): the mid activation never leaves the SM
 # ---------------------------------------------------------------------------
 
-# the design constants of csrc/conv_stack_common.cuh
+# the design constants of csrc/conv_stack_common.cuh (K5b)
 _STACK_THREADS = 256
 _STACK_BK = 8             # reduction slice
 _STACK_CM = 64            # mid channels per chunk
 _STACK_RA = 128           # mid positions per conv1 pass
 _STACK_TILE = 16384       # conv2 tile: bm x (16384 // bm) columns
 _STACK_BMS = (64, 128, 256)
+# ... and of csrc/conv_stack_chwn.cu (K5a, the cluster kernel)
+_CL_BK = 16               # reduction slice of both phases
+_CL_CM = 64               # mid channels per chunk
+_CL_PASS = 128            # mid positions of a conv1 pass (a 64-wide tail)
+_CL_MAX = 8               # the portable cluster size
 SMEM_PER_BLOCK = 232448   # 227 KB: the most shared memory an H100 block has
 _SMS = 132                # H100 SXM streaming multiprocessors
+# clusters of 1..8 blocks resident at once on an H100 SXM at one block an
+# SM (cudaOccupancyMaxActiveClusters of K5a, conv_stack_chwn_max_clusters;
+# the SMs of a GPC that no whole cluster fills stay idle)
+_H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+# what a conv1 FLOP of K5a costs beside a conv2 FLOP in a 64-wide pass (a
+# 4 x 4 thread tile: one shared-memory load for 8 FMAs, against 10.7 in
+# the 128-wide 4 x 8 passes; H100 timings of the AlexNet stack's tiles)
+_CL_TAIL_COST = 1.4
 
 
 @dataclass(frozen=True)
 class StackTiling:
-    """How the stack kernel cuts one launch: ``bm`` output channels by
-    ``nb`` images x ``uth`` x ``utw`` output units per block, and what that
-    costs (``blocks``, shared memory per block, and the FLOPs it executes,
-    beside ``direct_flops`` of the two convs without any recompute)."""
+    """How a stack kernel cuts one launch: ``bm`` output channels by ``nb``
+    images x ``uth`` x ``utw`` output units per block, ``cluster`` blocks
+    (along Co) sharing one conv1 (K5a; 1 for K5b), and what that costs:
+    ``blocks``, the shared memory of one block, and the FLOPs the kernel
+    executes beside ``direct_flops`` of the two convs without any
+    recompute."""
     bm: int
     nb: int
     uth: int
@@ -340,6 +356,7 @@ class StackTiling:
     smem_bytes: int
     executed_flops: int
     direct_flops: int
+    cluster: int = 1
 
 
 def _smem_bytes(bm: int, rstr: int, pool: bool) -> int:
@@ -348,6 +365,17 @@ def _smem_bytes(bm: int, rstr: int, pool: bool) -> int:
     bstr = max(bn, _STACK_RA)
     slab = max(_STACK_CM * rstr, bm * (bn + 1) if pool else 0)
     return 4 * (_STACK_BK * astr + _STACK_BK * bstr + slab)
+
+
+def _cluster_smem_bytes(bm: int, rstr: int, pool: bool) -> int:
+    """One K5a block's dynamic shared memory (``smem_bytes`` in
+    csrc/conv_stack_chwn.cu): the double-buffered ring of both phases'
+    slices, then the mid slab (or the pool tile over it)."""
+    bn = _STACK_TILE // bm
+    ring = max(2 * _CL_BK * (_CL_CM + 4 + _CL_PASS),
+               2 * _CL_BK * (bm + 4 + bn))
+    slab = max(_CL_CM * rstr, bm * (bn + 1) if pool else 0)
+    return 4 * (ring + slab)
 
 
 @functools.lru_cache(maxsize=None)
@@ -367,16 +395,106 @@ def _mid_spans(U: int, UT: int, pF: int, pS: int, S2: int, F2: int, P2: int,
 
 
 @functools.lru_cache(maxsize=None)
+def _rank_passes(ra: int, cl: int) -> Tuple[int, int, float]:
+    """(128-wide, 64-wide) conv1 passes that the ``cl`` ranks of a cluster
+    run together over a tile of ``ra`` mid positions, and the slowest
+    rank's share in positions (a 64-wide pass weighed ``_CL_TAIL_COST``):
+    each rank takes a range of ``ceil(ra / cl)`` positions rounded up to
+    whole 64-position passes (the last rank the rest), in passes of 128
+    and one of 64 where no more than 64 remain (as
+    ``cluster_stack_kernel`` does)."""
+    rr = -(-(-(-ra // cl)) // 64) * 64
+    wide = tail = 0
+    slowest = 0.0
+    for q in range(cl):
+        n = max(0, min(rr, ra - q * rr))
+        w, t = n // _CL_PASS + (n % _CL_PASS > 64), 0 < n % _CL_PASS <= 64
+        wide, tail = wide + w, tail + t
+        slowest = max(slowest, w * _CL_PASS + t * 64 * _CL_TAIL_COST)
+    return wide, tail, slowest
+
+
+def _cluster_tiling(N, Ci, Cm, Co, F1, F2, S2, P2, Ho1, Wo1, UH, UW, T, pF,
+                    pS, pool, direct) -> Optional[StackTiling]:
+    """K5a's tile: ``bm`` and the cluster that covers Co (CL = ceil(Co /
+    bm) blocks when that is at most 8, else Co in several clusters) and the
+    spatial tile (``nb`` >= min(8, N) images, multiples of 4 so the x
+    gather copies 16 bytes); the one with the least work per wave of
+    resident clusters."""
+    K1, chunks = Ci * F1 * F1, -(-Cm // _CL_CM)
+    k1_exec = -(-K1 // _CL_BK) * _CL_BK
+    k2_exec = sum(-(-min(_CL_CM, Cm - c) * F2 * F2 // _CL_BK) * _CL_BK
+                  for c in range(0, Cm, _CL_CM))
+    best, best_key = None, None
+    for bm in _STACK_BMS:
+        bn = _STACK_TILE // bm
+        units = bn // T
+        if units < 1:
+            continue
+        co_tiles = -(-Co // bm)
+        groups = -(-co_tiles // _CL_MAX)
+        cl = -(-co_tiles // groups)
+        if N <= 8:
+            nbs = [N] if N <= units else []
+        else:
+            nbs = list(range(8, min(N + 3, units) + 1, 4))
+        nbs = nbs or [min(N, units)]  # a pool window wider than 8 images
+        for nb in nbs:
+            n_tiles = ((nb, N // nb),) + (((N % nb, 1),) if N % nb else ())
+            nbmax = min(nb, N)
+            for uth in range(1, UH + 1):
+                if nb * uth > units:
+                    break
+                hs = _mid_spans(UH, uth, pF, pS, S2, F2, P2, Ho1)
+                for utw in range(1, UW + 1):
+                    if nb * uth * utw > units:
+                        break
+                    ws = _mid_spans(UW, utw, pF, pS, S2, F2, P2, Wo1)
+                    rstr = nbmax * max(h for h, _ in hs) * max(
+                        w for w, _ in ws)
+                    rstr = -(-rstr // 4) * 4
+                    tiles = -(-N // nb) * -(-UH // uth) * -(-UW // utw)
+                    clusters = tiles * groups
+                    waves = -(-clusters // _H100_CLUSTERS[cl])
+                    conv2 = 2 * clusters * cl * bm * bn * k2_exec
+                    smem = _cluster_smem_bytes(bm, rstr, pool is not None)
+                    if smem > SMEM_PER_BLOCK:
+                        continue
+                    wide = tail = 0
+                    slowest = 0.0    # summed over the tiles
+                    for nbc, cn in n_tiles:
+                        for sh, ch in hs:
+                            for sw, cw in ws:
+                                w_, t_, s_ = _rank_passes(nbc * sh * sw, cl)
+                                n = cn * ch * cw
+                                wide, tail = wide + n * w_, tail + n * t_
+                                slowest += n * s_
+                    per_pos = 2 * groups * chunks * _CL_CM * k1_exec
+                    conv1 = per_pos * (wide * _CL_PASS + tail * 64)
+                    executed = conv1 + conv2
+                    # a cluster waits for its slowest rank's conv1
+                    cost = conv2 / cl + per_pos * slowest
+                    key = (waves * cost / clusters, executed, smem)
+                    if best_key is None or key < best_key:
+                        best_key = key
+                        best = StackTiling(bm, nb, uth, utw, clusters * cl,
+                                           smem, executed, direct,
+                                           cluster=cl)
+    return best
+
+
+@functools.lru_cache(maxsize=None)
 def stack_tiling(engine: str, N: int, Ci: int, H: int, W: int, Cm: int,
                  F1: int, S1: int, P1: int, Co: int, F2: int, S2: int,
                  P2: int, pool: Optional[Tuple[int, int, str]] = None
                  ) -> StackTiling:
-    """The block tile of one stack launch: among the tiles whose shared
-    memory fits a block, the one with the least executed work per wave of
-    132 blocks (the kernel recomputes conv1 on each tile's halo and once
-    per ``bm``-wide slice of Co).  The CHWN engine keeps at least 8 images
-    (or all of them) in a tile so its gathers run along n.  Raises
-    ``ValueError`` when no tile fits."""
+    """The block tile of one stack launch, among the tiles whose shared
+    memory fits a block, with the least executed work per wave.  K5b
+    ("NCHW") recomputes conv1 on each tile's halo and once per ``bm``-wide
+    slice of Co; K5a ("CHWN") shares one conv1 over a cluster of blocks
+    that covers Co, and keeps at least 8 images (or all of them) in a tile
+    so its gathers run along n.  ``executed_flops`` is what the kernel
+    executes.  Raises ``ValueError`` when no tile fits."""
     Ho1, Wo1 = conv_out_hw(H, F1, S1, P1), conv_out_hw(W, F1, S1, P1)
     Ho2, Wo2 = conv_out_hw(Ho1, F2, S2, P2), conv_out_hw(Wo1, F2, S2, P2)
     pF, pS = (pool[0], pool[1]) if pool else (0, 0)
@@ -385,6 +503,24 @@ def stack_tiling(engine: str, N: int, Ci: int, H: int, W: int, Cm: int,
               else (Ho2, Wo2))
     K1, K2 = Ci * F1 * F1, Cm * F2 * F2
     direct = 2 * N * (Cm * Ho1 * Wo1 * K1 + Co * Ho2 * Wo2 * K2)
+    if engine == "CHWN":
+        best = _cluster_tiling(N, Ci, Cm, Co, F1, F2, S2, P2, Ho1, Wo1, UH,
+                               UW, T, pF, pS, pool, direct)
+    else:
+        best = _nchw_tiling(N, Cm, Co, F2, S2, P2, Ho1, Wo1, UH, UW, T, pF,
+                            pS, pool, K1, direct)
+    if best is None:
+        raise ValueError(
+            f"conv stack: no block tile of a {Ho2}x{Wo2} conv2 output "
+            f"(F2={F2}, S2={S2}, pool={pool}) fits the {SMEM_PER_BLOCK} "
+            "bytes of shared memory a block can use")
+    return best
+
+
+def _nchw_tiling(N, Cm, Co, F2, S2, P2, Ho1, Wo1, UH, UW, T, pF, pS, pool,
+                 K1, direct) -> Optional[StackTiling]:
+    """K5b's tile: the least executed work per wave of 132 blocks; conv1
+    runs on each tile's halo once per ``bm``-wide slice of Co."""
     chunks = [min(_STACK_CM, Cm - c) for c in range(0, Cm, _STACK_CM)]
     k2_exec = sum(-(-c * F2 * F2 // _STACK_BK) * _STACK_BK for c in chunks)
     k1_exec = -(-K1 // _STACK_BK) * _STACK_BK
@@ -398,8 +534,6 @@ def stack_tiling(engine: str, N: int, Ci: int, H: int, W: int, Cm: int,
         # powers of two up to the one that covers N
         nbs = [1 << i for i in range(12) if (1 << i) <= units
                and (1 << i) < 2 * N]
-        if engine == "CHWN":
-            nbs = [nb for nb in nbs if nb >= min(8, N)] or nbs[-1:]
         for nb in nbs:
             # (images in a tile, tiles with that many)
             n_tiles = ((nb, N // nb),) + (((N % nb, 1),) if N % nb else ())
@@ -433,11 +567,6 @@ def stack_tiling(engine: str, N: int, Ci: int, H: int, W: int, Cm: int,
                     best_key = key
                     best = StackTiling(bm, nb, uth, utw, blocks, smem,
                                        executed, direct)
-    if best is None:
-        raise ValueError(
-            f"conv stack: no block tile of a {Ho2}x{Wo2} conv2 output "
-            f"(F2={F2}, S2={S2}, pool={pool}) fits the {SMEM_PER_BLOCK} "
-            "bytes of shared memory a block can use")
     return best
 
 
@@ -445,9 +574,10 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
                   Cm: int, Co: int, F1: int, F2: int, stride1: int,
                   pad1: int, stride2: int, pad2: int, bias1, bias2,
                   relu1: bool, relu2: bool, pool, res, res_layout: str,
-                  src_layout: str, dst_layout: str):
+                  src_layout: str, dst_layout: str, stats=None):
     """Check a stack call; on the CPU return the plain version, on the
-    card launch the kernel."""
+    card launch the kernel.  ``stats`` (K5a only): two int64 on the card
+    that the kernel adds its executed FLOPs and its cluster size to."""
     name = wrapper.__name__
     _check_layouts(name, src_layout=src_layout, dst_layout=dst_layout,
                    res_layout=res_layout)
@@ -474,13 +604,14 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
     _build.require_cuda_f32(name, x.device, x=x, w1=w1, w2=w2, bias1=bias1,
                             bias2=bias2, res=res)
     y = _output(name, x, dst_layout, N, Co, OH, OW)
+    cluster = (tiling.cluster, _ptr(stats)) if engine == "CHWN" else ()
     err = getattr(_build.library(), entry)(
         x.data_ptr(), w1.data_ptr(), _ptr(bias1), w2.data_ptr(), _ptr(bias2),
         _ptr(res), y.data_ptr(), N, Ci, H, W, Cm, F1, stride1, pad1, Co, F2,
         stride2, pad2, pF, pS, avg, int(relu1), int(relu2),
         int(src_layout == "NCHW"), int(dst_layout == "NCHW"),
         int(res_layout == "NCHW"), tiling.bm, tiling.nb, tiling.uth,
-        tiling.utw, _build.stream_of(x.device))
+        tiling.utw, *cluster, _build.stream_of(x.device))
     _build.check(name, err)
     wrapper.launches += 1
     return y
@@ -488,7 +619,7 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
 
 def _stack(engine: str, x, w1, w2, stride1: int, pad1: int, stride2: int,
            pad2: int, bias1, bias2, relu1: bool, relu2: bool, pool, res,
-           res_layout: str, src_layout: str, dst_layout: str):
+           res_layout: str, src_layout: str, dst_layout: str, stats=None):
     """One conv->conv stack on ``engine``'s kernel (K5a for "CHWN", K5b for
     "NCHW"), outside autograd."""
     wrapper = conv_stack_chwn if engine == "CHWN" else conv_stack_nchw
@@ -506,7 +637,7 @@ def _stack(engine: str, x, w1, w2, stride1: int, pad1: int, stride2: int,
     return _stack_launch(_STACK_ENTRY[engine], wrapper, engine, x, w1, w2,
                          Ci, Cm, Co, F1, F2, stride1, pad1, stride2, pad2,
                          bias1, bias2, relu1, relu2, pool, res, res_layout,
-                         src_layout, dst_layout)
+                         src_layout, dst_layout, stats)
 
 
 class _StackFn(torch.autograd.Function):
@@ -604,6 +735,46 @@ def conv_stack_nchw(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     return _stack_public("NCHW", x, w1, w2, stride1, pad1, stride2, pad2,
                          bias1, bias2, relu1, relu2, pool, res, res_layout,
                          src_layout, dst_layout)
+
+
+def conv_stack_chwn_counted(x: torch.Tensor, w1: torch.Tensor,
+                            w2: torch.Tensor, stride1: int = 1,
+                            pad1: int = 0, stride2: int = 1, pad2: int = 0,
+                            **kw) -> Tuple[torch.Tensor, int, int]:
+    """K5a once on the card (arguments as ``conv_stack_chwn``, outside
+    autograd), with the kernel counting what it runs: (y, the FLOPs its
+    blocks executed, the cluster size they ran in).  What shows that
+    ``stack_tiling`` prices the kernel exactly and that it launches as a
+    cluster."""
+    if _build.on_cpu("conv_stack_chwn_counted", x):
+        raise ValueError("conv_stack_chwn_counted: the count comes from the "
+                         "kernel; pass CUDA tensors")
+    stats = torch.zeros(2, dtype=torch.int64, device=x.device)
+    kw = {"bias1": None, "bias2": None, "relu1": True, "relu2": False,
+          "pool": None, "res": None, "res_layout": "CHWN",
+          "src_layout": "CHWN", "dst_layout": "CHWN", **kw}
+    y = _stack("CHWN", x, w1, w2, stride1, pad1, stride2, pad2,
+               kw["bias1"], kw["bias2"], kw["relu1"], kw["relu2"],
+               kw["pool"], kw["res"], kw["res_layout"], kw["src_layout"],
+               kw["dst_layout"], stats=stats)
+    flops, cluster = stats.tolist()
+    return y, flops, cluster
+
+
+def stack_max_clusters(N: int, Ci: int, H: int, W: int, Cm: int, F1: int,
+                       S1: int, P1: int, Co: int, F2: int, S2: int, P2: int,
+                       pool: Optional[Tuple[int, int, str]],
+                       tiling: StackTiling) -> int:
+    """How many of K5a's clusters at ``tiling`` the card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+    _build.check("stack_max_clusters",
+                 _build.library().conv_stack_chwn_max_clusters(
+                     N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pF, pS,
+                     tiling.bm, tiling.nb, tiling.uth, tiling.utw,
+                     tiling.cluster, ctypes.byref(n)))
+    return n.value
 
 
 # ---------------------------------------------------------------------------

@@ -120,3 +120,48 @@ def test_flash_attention_refuses_bad_shapes():
     with pytest.raises(ValueError, match=r"\[B, H, S, D\]"):
         flash_attention(torch.zeros(8, 16), torch.zeros(8, 16),
                         torch.zeros(8, 16))
+
+
+def _bf16_p_emulation(q, k, v, causal, bkv=64):
+    """The arithmetic of K11's tensor-core kernel in plain torch: per
+    64-key tile, s = q kᵀ in f32 from the bf16 inputs, the online softmax
+    in f32, and P rounded to bf16 before P @ V (f32 accumulation); the one
+    place it departs from the reference, which multiplies p @ v in f32."""
+    q, k, v = (t.float() for t in (q, k, v))
+    BH, Sq, D = q.shape
+    Sk = k.shape[1]
+    m = torch.full((BH, Sq), -1e30)
+    l = torch.zeros(BH, Sq)
+    o = torch.zeros(BH, Sq, D)
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, bkv):
+        kpos = torch.arange(k0, min(Sk, k0 + bkv))[None, :]
+        s = torch.einsum("bqd,bkd->bqk", q, k[:, k0:k0 + bkv]) / np.sqrt(D)
+        keep = (kpos <= qpos) if causal else torch.ones_like(s[0], dtype=bool)
+        s = torch.where(keep, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        o = o * alpha[..., None] + torch.einsum(
+            "bqk,bkd->bqd", p.bfloat16().float(), v[:, k0:k0 + bkv])
+        m = m_new
+    return (o / l.clamp_min(1e-30)[..., None]).bfloat16()
+
+
+def test_bf16_p_rounding_holds_the_reference_tolerance():
+    """S 512, D 128, causal: rounding P to bf16 (the tensor-core kernel's
+    P @ V operand) stays within 8 * BF16_EPS of the reference kernel on the
+    same bf16 inputs (interpret mode, as its bf16 test runs it)."""
+    q, k, v = _qkv((2, 512, 128), (2, 512, 128), 512)
+    want = np.asarray(ref_flash(*(jnp.asarray(a, jnp.bfloat16)
+                                  for a in (q, k, v)),
+                                causal=True).astype(jnp.float32))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    got = _bf16_p_emulation(tq, tk, tv, True)
+    err = np.abs(got.float().numpy() - want).max()
+    assert err <= 8 * BF16_EPS
+    # and the plain version (f32 P) agrees with it as closely
+    plain = flash_attention_ref(tq, tk, tv, True)
+    np.testing.assert_allclose(got.float().numpy(), plain.float().numpy(),
+                               rtol=0, atol=8 * BF16_EPS)

@@ -273,3 +273,108 @@ def test_stack_kernel_rejects_what_it_does_not_hold(card):
                                  torch.zeros(8, 8, 3, 3, device=card,
                                              dtype=torch.float64))
     assert conv_ops.conv_stack_nchw.launches == before
+
+
+# K5a's cluster kernel: the full AlexNet shape, Co that no C * bm matches,
+# N < 8 (one tile of all images; N 5 takes the 4-byte copies), the pool and
+# residual epilogues and the layout folds; the kernel counts the FLOPs it
+# executes and the cluster it ran in, held to ``stack_tiling``.
+# (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, bias,
+#  res_layout or None, src, dst)
+K5A_CASES = [
+    (128, 256, 13, 384, 384, 3, 1, 1, 3, 1, 1, None, True, False, None,
+     "CHWN", "CHWN"),                                  # AlexNet conv3->4
+    (16, 8, 9, 20, 130, 3, 1, 1, 3, 1, 1, None, True, True, "CHWN", "CHWN",
+     "CHWN"),
+    (12, 6, 11, 24, 40, 3, 1, 1, 3, 1, 1, (2, 2, "max"), True, True, "NCHW",
+     "CHWN", "NCHW"),
+    (5, 7, 11, 70, 130, 3, 1, 1, 3, 1, 1, None, True, True, "NCHW", "NCHW",
+     "CHWN"),
+    (4, 16, 12, 24, 40, 3, 1, 1, 3, 1, 1, (3, 2, "max"), True, False, None,
+     "CHWN", "CHWN"),
+    (6, 9, 10, 12, 9, 3, 1, 1, 3, 2, 2, (2, 2, "avg"), False, True, "NCHW",
+     "NCHW", "CHWN"),
+    (20, 32, 14, 96, 200, 3, 2, 1, 3, 1, 1, None, True, True, "CHWN",
+     "CHWN", "CHWN"),
+]
+
+
+def _k5a_inputs(case, dev, seed):
+    (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, bias, rlay, src,
+     dst) = case
+    gen = torch.Generator().manual_seed(seed)
+    Ho1 = (H + 2 * P1 - F1) // S1 + 1
+    Ho2 = (Ho1 + 2 * P2 - F2) // S2 + 1
+    x = torch.randn(N, Ci, H, H, generator=gen)
+    w1 = torch.randn(Cm, Ci, F1, F1, generator=gen) / np.sqrt(Ci * F1 * F1)
+    w2 = torch.randn(Co, Cm, F2, F2, generator=gen) / np.sqrt(Cm * F2 * F2)
+    b1 = torch.randn(Cm, generator=gen) if bias else None
+    b2 = torch.randn(Co, generator=gen) if bias else None
+    r = torch.randn(N, Co, Ho2, Ho2, generator=gen) if rlay else None
+
+    def to(t, layout=None):
+        if t is None:
+            return None
+        if layout is not None:
+            t = t.permute(perm_between("NCHW", layout))
+        return t.contiguous().to(dev)
+
+    kw = dict(bias1=to(b1), bias2=to(b2), relu1=relu1, relu2=True,
+              pool=pool, res=to(r, rlay), res_layout=rlay or "CHWN",
+              src_layout=src, dst_layout=dst)
+    args = (to(x, src), to(w1.permute(1, 2, 3, 0)), to(w2.permute(1, 2, 3, 0)),
+            S1, P1, S2, P2)
+    want = conv_stack_ref(to(x, src), to(w1), to(w2), S1, P1, S2, P2, **kw)
+    tiling = conv_ops.stack_tiling("CHWN", N, Ci, H, H, Cm, F1, S1, P1, Co,
+                                   F2, S2, P2, pool)
+    return args, kw, want, tiling
+
+
+@pytest.mark.parametrize("case", K5A_CASES,
+                         ids=[_stack_id(("CHWN",) + c) for c in K5A_CASES])
+def test_k5a_cluster_kernel_matches_plain_and_its_tiling(case, card):
+    args, kw, want, tiling = _k5a_inputs(case, card, K5A_CASES.index(case))
+    before = conv_ops.conv_stack_chwn.launches
+    got, flops, cluster = conv_ops.conv_stack_chwn_counted(*args, **kw)
+    assert conv_ops.conv_stack_chwn.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    assert cluster == tiling.cluster
+    assert flops == tiling.executed_flops
+    if case[0] == 128:                               # AlexNet at b128
+        assert cluster > 1 and flops <= 2 * tiling.direct_flops
+    # the wrapper's own launch gives the same result
+    torch.testing.assert_close(conv_ops.conv_stack_chwn(*args, **kw), got,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bm,cluster", [(64, 3), (64, 8), (128, 2)])
+def test_k5a_blocks_with_an_empty_co_slice_meet_every_barrier(
+        bm, cluster, card, monkeypatch):
+    """Clusters wider than Co: the blocks past Co compute their share of
+    conv1 and reach every cluster barrier (an early return would hang the
+    cluster); the result is unchanged."""
+    case = (12, 6, 11, 24, 40, 3, 1, 1, 3, 1, 1, (2, 2, "max"), True, True,
+            "NCHW", "CHWN", "NCHW")
+    args, kw, want, tiling = _k5a_inputs(case, card, 3)
+    forced = conv_ops.StackTiling(bm, 8, 2, 2, 0, 0, 0, 0, cluster=cluster)
+    monkeypatch.setattr(conv_ops, "stack_tiling", lambda *a, **k: forced)
+    got, _, ran_in = conv_ops.conv_stack_chwn_counted(*args, **kw)
+    assert ran_in == cluster and cluster * bm > 40 + bm
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+def test_k5a_refused_cluster_launch_raises(card, monkeypatch):
+    """A cluster of 16 blocks is past the portable 8: the launch is refused
+    and the wrapper raises, with no result and no launch counted; the next
+    launch is unaffected."""
+    case = K5A_CASES[2]
+    args, kw, want, tiling = _k5a_inputs(case, card, 2)
+    forced = conv_ops.StackTiling(64, 8, 2, 2, 0, 0, 0, 0, cluster=16)
+    before = conv_ops.conv_stack_chwn.launches
+    with monkeypatch.context() as m:
+        m.setattr(conv_ops, "stack_tiling", lambda *a, **k: forced)
+        with pytest.raises(RuntimeError, match="CUDA launch failed"):
+            conv_ops.conv_stack_chwn(*args, **kw)
+    assert conv_ops.conv_stack_chwn.launches == before
+    torch.testing.assert_close(conv_ops.conv_stack_chwn(*args, **kw), want,
+                               rtol=1e-4, atol=1e-3)

@@ -43,12 +43,16 @@ MATMUL_SHAPES = [(256, 256, 256), (100, 300, 50), (8, 1024, 128), (1, 7, 3),
 CONV_CASES = [(1, 28, 28, 32, 5, 16, 1, 0), (16, 14, 14, 64, 5, 16, 1, 2),
               (3, 32, 32, 32, 3, 8, 2, 0), (8, 13, 13, 32, 3, 16, 1, 1)]
 # (BH, Sq, Sk, D, causal): full and ragged tiles, Sq != Sk both ways, every
-# head-dim tile (64, 128, 256) with D below it
+# head-dim tile (64, 128, 256) with D below it; one query row over many
+# keys; D 16 and 256 on ragged tiles (the bf16 kernel's 32-key tiles at D
+# 256 hold rows whose every key in the tile is masked)
 ATTN_CASES = [(4, 256, 256, 64, True), (2, 128, 128, 32, False),
               (6, 512, 512, 128, True), (3, 100, 100, 64, True),
               (3, 100, 100, 64, False), (2, 64, 128, 32, True),
               (2, 130, 70, 96, True), (1, 1, 1, 16, True),
-              (2, 200, 200, 200, False), (2, 96, 96, 256, True)]
+              (2, 200, 200, 200, False), (2, 96, 96, 256, True),
+              (2, 1, 300, 64, False), (2, 1, 300, 128, True),
+              (3, 130, 130, 16, True), (2, 150, 70, 256, False)]
 # (T, V, D, softcap): the reference's cases and ragged T/V beside them
 XENT_CASES = [(64, 1000, 128, None), (128, 513, 64, None),
               (32, 2000, 96, 30.0), (16, 128, 32, None), (1, 300, 48, None),
@@ -137,6 +141,42 @@ def test_flash_attention_4d_and_the_library_agree(card):
     lib = torch.nn.functional.scaled_dot_product_attention(q, k, v,
                                                            is_causal=True)
     torch.testing.assert_close(got, lib, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_attention_masked_keys_carry_no_weight(dtype, card):
+    """Causal row r keeps keys 0..r only.  Every later key scores ~32 above
+    key 0 (it would take all the weight if a mask leaked), so row 0 is
+    exactly v[0] and row r the softmax over keys 0..r alone."""
+    BH, S, D = 2, 80, 64
+    gen = torch.Generator(device=card).manual_seed(21)
+    q = torch.ones(BH, S, D, device=card)
+    k = torch.randn(BH, S, D, device=card, generator=gen) * 0.1
+    k[:, 1:] += 4.0                   # later keys score far higher
+    v = torch.randn(BH, S, D, device=card, generator=gen)
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    got = _counted("flash_attention",
+                   lambda: flash_attention(q, k, v, causal=True))
+    rtol, atol = _tol(dtype, (1e-4, 1e-4))
+    torch.testing.assert_close(got[:, 0].float(), v[:, 0].float(),
+                               rtol=rtol, atol=atol)
+    torch.testing.assert_close(got.float(),
+                               flash_attention_ref(q, k, v, True).float(),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_flash_attention_refused_launch_raises(dtype, card, monkeypatch):
+    """Past the wrapper's head-dim check (widened here), the kernel's entry
+    refuses D 300; the wrapper raises instead of returning a result, and
+    counts no launch."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    monkeypatch.setattr(fa_ops, "MAX_HEAD_DIM", 512)
+    q = torch.zeros(1, 8, 300, device=card, dtype=dtype)
+    before = launch_counts()["flash_attention"]
+    with pytest.raises(RuntimeError, match="CUDA launch failed"):
+        fa_ops.flash_attention(q, q, q)
+    assert launch_counts()["flash_attention"] == before
 
 
 def test_flash_attention_refuses_head_dims_past_256(card):

@@ -261,3 +261,149 @@ def test_cpu_stack_wrappers_launch_nothing():
                                   (False,) * 4, 0))
     assert (conv_ops.conv_stack_chwn.launches,
             conv_ops.conv_stack_nchw.launches) == before
+
+
+# -- (d) K5a's cluster tiling (pure Python, the kernel's own arithmetic) ----
+
+def _packaged_chwn_stacks(network):
+    """(bucket, stack shape) of every CHWN stack in the packaged
+    stack="auto" plans of ``network``, at every bucket the file holds."""
+    from repro_torch.cnn.layers import layer_shapes, resolved_cfg_inputs
+    from repro_torch.serve.plan_cache import PlanCache, packaged_plans
+    cache = PlanCache(str(packaged_plans(network)))
+    out = []
+    b = cache.min_bucket
+    while b <= cache.max_bucket:
+        cfg = port_networks.CNN_CONFIGS[network].replace(batch=b)
+        plan = cache.peek_fused(cfg, b, stack="auto")
+        if plan is not None:
+            shapes, rins = layer_shapes(cfg), resolved_cfg_inputs(cfg)
+            for op in plan.ops:
+                if op.kind != "conv" or op.stack_index is None \
+                        or op.layout != "CHWN":
+                    continue
+                s1, s2 = cfg.layers[op.index], cfg.layers[op.stack_index]
+                p = rins[op.index][0]
+                _, ci, h, _ = input_shape(cfg) if p < 0 else shapes[p]
+                pool = None
+                if op.pool_index is not None:
+                    ps = cfg.layers[op.pool_index]
+                    pool = (ps.kernel, ps.stride, ps.pool_op)
+                out.append((b, (b, ci, h, h, s1.out_channels, s1.kernel,
+                                s1.stride, s1.pad, s2.out_channels,
+                                s2.kernel, s2.stride, s2.pad, pool)))
+        b *= 2
+    return out
+
+
+def _kernel_work(shape, t):
+    """FLOPs ``cluster_stack_kernel`` executes at tiling ``t``, counted
+    block by block as the kernel runs them (make_tile's clipped box, each
+    rank's range of it in whole 64-position passes, conv1 passes of 128
+    positions and a 64-wide tail, kBK-deep slices) -- independent of
+    ``stack_tiling``'s grouped count."""
+    N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pool = shape
+    Ho1, Wo1 = (H + 2 * P1 - F1) // S1 + 1, (W + 2 * P1 - F1) // S1 + 1
+    Ho2, Wo2 = (Ho1 + 2 * P2 - F2) // S2 + 1, (Wo1 + 2 * P2 - F2) // S2 + 1
+    pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+    UH, UW = (((Ho2 - pF) // pS + 1, (Wo2 - pF) // pS + 1) if pool
+              else (Ho2, Wo2))
+    BK, CM = 16, 64
+
+    def span(o0, on, M1):
+        m0, m1 = o0 * S2 - P2, (o0 + on - 1) * S2 - P2 + F2
+        return max(0, min(m1, M1) - max(m0, 0))
+
+    groups = -(-(-(-Co // t.bm)) // t.cluster)
+    nsl1 = -(-(Ci * F1 * F1) // BK)
+    total = 0
+    for n0 in range(0, N, t.nb):
+        for uh0 in range(0, UH, t.uth):
+            for uw0 in range(0, UW, t.utw):
+                nbc = min(t.nb, N - n0)
+                uhn, uwn = min(t.uth, UH - uh0), min(t.utw, UW - uw0)
+                if pool:
+                    mh = span(uh0 * pS, (uhn - 1) * pS + pF, Ho1)
+                    mw = span(uw0 * pS, (uwn - 1) * pS + pF, Wo1)
+                else:
+                    mh, mw = span(uh0, uhn, Ho1), span(uw0, uwn, Wo1)
+                ra = nbc * mh * mw
+                rr = (-(-ra // t.cluster) + 63) // 64 * 64
+                for _ in range(groups):
+                    for rank in range(t.cluster):
+                        lo = min(ra, rank * rr)
+                        hi = min(ra, lo + rr)
+                        for cm0 in range(0, Cm, CM):
+                            cmn = min(CM, Cm - cm0)
+                            p0 = lo
+                            while p0 < hi:          # 128 wide, a 64 tail
+                                width = 128 if hi - p0 > 64 else 64
+                                total += CM * width * nsl1 * BK
+                                p0 += width
+                            total += (t.bm * (16384 // t.bm)
+                                      * -(-(cmn * F2 * F2) // BK) * BK)
+    return 2 * total
+
+
+# synthetic CHWN stacks beside the packaged ones: the card tests' shapes
+# (N < 8, Co 130 / 40, pools, a stride-2 conv1), a deep Co and a large map
+SYNTHETIC_CHWN = [
+    (16, 256, 13, 13, 384, 3, 1, 1, 384, 3, 1, 1, None),
+    (5, 7, 11, 11, 70, 3, 1, 1, 130, 3, 1, 1, None),
+    (9, 6, 17, 17, 33, 3, 2, 1, 40, 3, 1, 1, None),
+    (3, 3, 5, 5, 5, 3, 1, 0, 7, 3, 1, 0, None),
+    (4, 16, 12, 12, 24, 3, 1, 1, 40, 3, 1, 1, (2, 2, "max")),
+    (12, 8, 15, 15, 20, 3, 1, 1, 130, 3, 1, 1, (3, 2, "max")),
+    (8, 9, 10, 10, 12, 3, 1, 1, 9, 3, 2, 2, (2, 2, "avg")),
+    (32, 64, 28, 28, 96, 3, 1, 1, 2304, 3, 1, 1, None),
+    (64, 32, 56, 56, 64, 3, 1, 1, 64, 3, 1, 1, (2, 2, "max")),
+]
+
+
+def _check_cluster_tiling(shape):
+    t = conv_ops.stack_tiling("CHWN", *shape)
+    N, Co = shape[0], shape[8]
+    co_tiles = -(-Co // t.bm)
+    groups = -(-co_tiles // t.cluster)
+    grid_y = t.cluster * groups
+    assert 1 <= t.cluster <= 8
+    assert grid_y % t.cluster == 0 and grid_y * t.bm >= Co
+    assert groups == -(-co_tiles // 8)         # one cluster covers Co if it can
+    assert t.blocks % grid_y == 0
+    assert t.smem_bytes <= conv_ops.SMEM_PER_BLOCK
+    assert t.nb >= min(8, N) or t.nb * t.uth * t.utw > 0
+    assert t.executed_flops >= t.direct_flops > 0
+    assert t.executed_flops == _kernel_work(shape, t)
+    return t
+
+
+@pytest.mark.parametrize("network", ["alexnet", "vgg16", "resnet18"])
+def test_cluster_tiling_of_every_packaged_chwn_stack(network):
+    stacks = _packaged_chwn_stacks(network)
+    if network == "alexnet":
+        assert [b for b, _ in stacks] == [128]    # conv3 -> conv4 at b128
+    for _, shape in stacks:
+        _check_cluster_tiling(shape)
+
+
+@pytest.mark.parametrize("shape", SYNTHETIC_CHWN, ids=str)
+def test_cluster_tiling_prices_the_kernel_exactly(shape):
+    t = _check_cluster_tiling(shape)
+    if shape[0] >= 8:
+        assert t.nb >= 8                       # gathers run along n
+
+
+def test_alexnet_conv3_conv4_executes_at_most_twice_the_direct_work():
+    (_, shape), = _packaged_chwn_stacks("alexnet")
+    t = conv_ops.stack_tiling("CHWN", *shape)
+    assert t.cluster * t.bm >= 384 and t.cluster > 1
+    # a tile that recomputes conv1 once per Co slice executes 4.15x
+    assert t.executed_flops / t.direct_flops <= 2.0
+
+
+def test_nchw_stack_tiling_is_the_old_one():
+    """K5b keeps its design: no cluster."""
+    t = conv_ops.stack_tiling("NCHW", 32, 3, 224, 224, 64, 3, 1, 1, 64, 3,
+                              1, 1, (2, 2, "max"))
+    assert t.cluster == 1
+    assert (t.bm, t.nb, t.uth, t.utw) == (64, 1, 8, 8)
