@@ -64,9 +64,12 @@
    one warm step of each engine is timed and the peak device memory of a
    step read.  The kernel phase also holds every distinct training launch:
    K6 against its plain version in float64 (1e-5 scale-relative, and two
-   launches bitwise equal; library ``conv2d_weight``), K7 (max exactly,
-   avg atol 1e-6; library the autograd backward of ``max_pool2d``/
-   ``avg_pool2d`` times the ReLU mask), dgrad on K1/K2 (library
+   launches bitwise equal; library ``conv2d_weight``; its line adds the
+   executed TFLOP/s and the bound of its own design, three TF32 products
+   per fp32 one on the tensor cores, beside the fp32 one), K7 (max
+   exactly, avg atol 1e-6; library the autograd backward of
+   ``max_pool2d``/``avg_pool2d`` times the ReLU mask; K7a's line adds the
+   share of its byte bound reached), dgrad on K1/K2 (library
    ``conv2d_input``, also within the conv tolerance of it) and K1/K2 with
    ``save_act``; and one K8 case off the path (VGG16's [32, 1000];
    library ``cross_entropy``), listed with 0 launches.
@@ -172,6 +175,7 @@ from repro_torch.shapes import conv_out_hw, pool_out_hw  # noqa: E402
 PEAK_FP32_FLOPS = 67e12          # CUDA cores, fp32
 PEAK_HBM_BYTES = 3.35e12         # HBM3 bytes/s
 PEAK_BF16_FLOPS = 989e12         # tensor cores, bf16
+PEAK_TF32_FLOPS = 495e12         # tensor cores, TF32
 
 CONV_RTOL, CONV_ATOL = 1e-4, 1e-3
 SOFTMAX_ATOL = 1e-6
@@ -828,9 +832,12 @@ def wgrad_case(case, dev, seed: int) -> dict:
     if not torch.equal(got, kernel()):
         raise AssertionError(f"K6 {case}: two launches differ")
     flops = 2.0 * Co * Ci * F * F * N * Ho * Ho
-    b_ms, b_by = bound_ms(flops, 4.0 * (x.numel() + g.numel()
-                                        + Co * Ci * F * F))
+    nbytes = 4.0 * (x.numel() + g.numel() + Co * Ci * F * F)
+    b_ms, b_by = bound_ms(flops, nbytes)
     return {"max_abs_err": abs_err, "max_rel_err": err,
+            # the design's own bound: 3xTF32 runs 3 TF32 products per term
+            "design_bound_ms": bound_ms(3 * flops, nbytes,
+                                        PEAK_TF32_FLOPS)[0],
             "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(lambda: wgrad_ref(x, g, F, S, pad, **kw)),
             "library_ms": cuda_ms(lambda: torch.nn.grad.conv2d_weight(
@@ -959,6 +966,11 @@ def kernel_phase(dev):
                           f"resident_clusters={m['resident_clusters']}")
         if kern in POOL_KERNELS:
             extra = f" folded_dst_ms={m['folded_ms']:.4f}"
+        if kern == "wgrad":
+            extra = (f" TFLOP/s={m['flops'] / m['ms'] / 1e9:.1f} "
+                     f"bound_3xtf32_ms={m['design_bound_ms']:.4f}")
+        if kern == "pool_backward_chwn":
+            extra = f" bound_share={m['bound_ms'] / m['ms']:.3f}"
         print(f"kernel {kern:<15s} {row['network']:<8s} case={case} "
               f"x{row['launches']}: max_abs_err={m['max_abs_err']:.3g} "
               f"max_rel_err={m['max_rel_err']:.3g} ms={m['ms']:.4f} "
@@ -966,6 +978,16 @@ def kernel_phase(dev):
               f"library_ms={m['library_ms']:.4f} "
               f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}){extra} "
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
+    k6 = [r for r in mult.values() if r["kernel"] == "wgrad"]
+    tot = {f: sum(r[f] * r["launches"] for r in k6)
+           for f in ("ms", "flops", "bound_ms", "design_bound_ms",
+                     "library_ms")}
+    print(f"K6 over the main path: launches={sum(r['launches'] for r in k6)}"
+          f" ms={tot['ms']:.3f} TFLOP/s={tot['flops'] / tot['ms'] / 1e9:.1f}"
+          f" bound_fp32_ms={tot['bound_ms']:.3f} "
+          f"bound_3xtf32_ms={tot['design_bound_ms']:.3f} "
+          f"library_ms={tot['library_ms']:.3f} max_rel_err="
+          f"{max(r['max_rel_err'] for r in k6):.3g}", flush=True)
     # per forward (and training step): each kernel's launches summed
     for kind, network, label, keys in batches:
         for kern in KERNELS:

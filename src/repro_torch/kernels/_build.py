@@ -40,9 +40,9 @@ SIGNATURES: Dict[str, List] = {
     # pool_avg, relu, src_nchw, dst_nchw, res_nchw, stream
     "conv_chwn_forward": [P] * 6 + [I] * 15 + [P],
     "conv_nchw_forward": [P] * 6 + [I] * 15 + [P],
-    # x, g, ws, dw, N, Ci, H, W, Co, F, S, pad, x_nchw, g_nchw,
+    # x, g, ws, dw, N, Ci, H, W, Co, F, S, pad, x_nchw, g_nchw, bm, bn,
     # p_per_split, splits, stream
-    "wgrad_forward": [P] * 4 + [I] * 12 + [P],
+    "wgrad_forward": [P] * 4 + [I] * 14 + [P],
     # x, w1, b1, w2, b2, res, y, N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2,
     # P2, pool_F, pool_S, pool_avg, relu1, relu2, src_nchw, dst_nchw,
     # res_nchw, bm, nb, uth, utw, [cluster, stats,] stream
@@ -58,8 +58,9 @@ SIGNATURES: Dict[str, List] = {
     # x, y, N, C, H, W, F, S, avg, dst_nchw, stream
     "pool_chwn_forward": [P, P] + [I] * 8 + [P],
     "pool_nchw_forward": [P, P] + [I] * 8 + [P],
-    # x, g, dx, N, C, H, W, F, S, avg, relu_mask, g_nchw, stream
-    "pool_backward_chwn": [P] * 3 + [I] * 9 + [P],
+    # x, g, dx, N, C, H, W, F, S, avg, relu_mask, g_nchw, [band, win_rows,]
+    # stream
+    "pool_backward_chwn": [P] * 3 + [I] * 11 + [P],
     "pool_backward_nchw": [P] * 3 + [I] * 9 + [P],
     # x, y, B, M, N, stream
     "transpose_forward": [P, P, I, I, I, P],

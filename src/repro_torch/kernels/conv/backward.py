@@ -15,15 +15,18 @@ that no window consumed, as zeros.  The conv then writes exactly the H x W
 gradient, with no padded copy and no slice.  For S == 1 nothing is
 materialized at all.
 
-wgrad (the weight gradient) is K6, an implicit GEMM with split-K over the
-output positions; ``conv_wgrad`` is its wrapper.  ``bias_grad`` is a plain
+wgrad (the weight gradient) is K6, a GEMM over the virtual im2col matrix
+on the tensor cores in fp32 accuracy (3xTF32), with split-K over the
+output positions; ``conv_wgrad`` is its wrapper and ``wgrad_tiling`` picks
+its block tile and splits.  ``bias_grad`` is a plain
 reduction, as in the reference.  For a CPU tensor ``conv_wgrad`` returns the
 plain version (``ref.wgrad_ref``); for a CUDA tensor it launches K6 or
 raises, and counts its launches in ``conv_wgrad.launches``.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -32,10 +35,14 @@ from repro_torch.kernels.conv.ref import wgrad_ref
 from repro_torch.shapes import conv_out_hw
 
 _SMS = 132                # H100 SXM streaming multiprocessors
-# the design constants of csrc/wgrad.cu
-_WG_BM, _WG_BN, _WG_BP = 64, 128, 32
-_WG_BLOCKS = 8 * _SMS     # blocks to aim for: a few resident per SM, twice
-_WG_MIN_SLICES = 16       # reduction slices a split takes at least
+_HBM_BYTES_S = 3.35e12    # H100 SXM device memory, bytes/s
+_WG_BP = 32               # positions per slice of csrc/wgrad.cu
+_WG_MAX_SPLITS = 65535    # gridDim.z
+# the splits' cost model: the rate a block's tensor-core work is assumed
+# to run at (3xTF32, fp32-equivalent FLOP/s over the card), and the
+# pipeline fill and tile write of a block, in slices
+_WG_RATE = 50e12
+_WG_BLOCK_OVERHEAD = 2
 
 
 def _spatial_axes(layout: str) -> Tuple[int, int]:
@@ -109,17 +116,47 @@ def bias_grad(g: torch.Tensor, layout: str = "CHWN") -> torch.Tensor:
     return g.float().sum(axes)
 
 
-def wgrad_splits(Co: int, K: int, P: int) -> Tuple[int, int]:
-    """K6's split of the reduction over ``P`` output positions for a
-    [Co, K] weight gradient: (positions per split, splits).  Enough splits
-    that the smallest layer still fills the card (about ``_WG_BLOCKS``
-    blocks of 64 x 128 outputs), but each split at least
-    ``_WG_MIN_SLICES`` slices of 32 positions."""
-    tiles = -(-Co // _WG_BM) * -(-K // _WG_BN)
+class WgradTiling(NamedTuple):
+    """K6's launch: a ``bm`` (co) x ``bn`` (k) block tile, ``splits``
+    ranges of ``per`` output positions each (a multiple of 32)."""
+    bm: int
+    bn: int
+    per: int
+    splits: int
+    tiles: int           # block tiles over [Co, K]
+    ws_elems: int        # split workspace [splits, Co, K], 0 for one split
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_tiling(Co: int, K: int, P: int) -> WgradTiling:
+    """K6's tile and split of the reduction over ``P`` output positions for
+    a [Co, K] weight gradient.  The tile is 128 x 128, 64 rows where Co <=
+    64 and 32 or 64 columns where K <= 32 or 64, so thin layers do not
+    multiply padding.  The splits minimise a modeled time: the waves of
+    resident blocks (one an SM) times a block's slices plus its fill,
+    each slice at ``_WG_RATE``, plus the workspace each split writes and
+    the sum reads back; among splits that give at least one block an SM
+    where the positions allow it."""
+    bm = 64 if Co <= 64 else 128
+    bn = 32 if K <= 32 else 64 if K <= 64 else 128
+    tiles = -(-Co // bm) * -(-K // bn)
     slices = -(-P // _WG_BP)
-    want = max(1, min(-(-_WG_BLOCKS // tiles), slices // _WG_MIN_SLICES))
-    per = -(-slices // want) * _WG_BP
-    return per, -(-P // per)
+    t_slice = 2.0 * bm * bn * _WG_BP * _SMS / _WG_RATE
+    best = None
+    for s in range(1, min(slices, _WG_MAX_SPLITS) + 1):
+        per = -(-slices // s)
+        if -(-slices // per) != s:     # the same ranges as fewer splits
+            continue
+        blocks = tiles * s
+        t = -(-blocks // _SMS) * (per + _WG_BLOCK_OVERHEAD) * t_slice
+        if s > 1:
+            t += (2 * s + 1) * Co * K * 4 / _HBM_BYTES_S
+        key = (blocks < _SMS, t, s)
+        if best is None or key < best[0]:
+            best = (key, s, per)
+    _, s, per = best
+    return WgradTiling(bm, bn, per * _WG_BP, s, tiles,
+                       s * Co * K if s > 1 else 0)
 
 
 def conv_wgrad(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
@@ -147,18 +184,18 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
         return wgrad_ref(x, g, F, S, pad, x_layout=x_layout,
                          g_layout=g_layout)
     _build.require_cuda_f32("conv_wgrad", x.device, x=x, g=g)
-    K = Ci * F * F
-    per, splits = wgrad_splits(Co, K, N * Ho * Wo)
-    dw = torch.empty((Co, Ci, F, F), device=x.device, dtype=torch.float32)
-    ws = (torch.empty((splits, Co, K), device=x.device, dtype=torch.float32)
-          if splits > 1 else None)
-    if ws is not None and ws.numel() >= 2 ** 31:
+    t = wgrad_tiling(Co, Ci * F * F, N * Ho * Wo)
+    if t.ws_elems >= 2 ** 31:
         raise ValueError("conv_wgrad: the split workspace needs 2^31 or "
                          "more elements")
+    dw = torch.empty((Co, Ci, F, F), device=x.device, dtype=torch.float32)
+    ws = (torch.empty((t.splits, Co, Ci * F * F), device=x.device,
+                      dtype=torch.float32) if t.splits > 1 else None)
     err = _build.library().wgrad_forward(
         x.data_ptr(), g.data_ptr(), ws.data_ptr() if ws is not None else None,
         dw.data_ptr(), N, Ci, H, W, Co, F, S, pad, int(x_layout == "NCHW"),
-        int(g_layout == "NCHW"), per, splits, _build.stream_of(x.device))
+        int(g_layout == "NCHW"), t.bm, t.bn, t.per, t.splits,
+        _build.stream_of(x.device))
     _build.check("conv_wgrad", err)
     conv_wgrad.launches += 1
     return dw

@@ -14,7 +14,8 @@ its kernel or raises.  Launches are counted in
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,6 +25,54 @@ from repro_torch.kernels.pool.ref import pool_backward_ref
 from repro_torch.shapes import pool_out_hw
 
 _LAYOUTS = ("CHWN", "NCHW")
+# K7a's block: the shared memory it aims at (several blocks an SM), the
+# most dx rows it takes, and what a block may use at all on an H100
+_K7A_SMEM_AIM = 32 * 1024
+_K7A_MAX_BAND = 16
+_SMEM_PER_BLOCK = 232448
+
+
+class PoolBand(NamedTuple):
+    """K7a's split of the H rows: blocks of ``band`` dx rows (the last one
+    shorter), each touching at most ``win_rows`` window rows."""
+    band: int
+    bands: int
+    win_rows: int
+    smem_bytes: int
+
+
+def band_windows(h0: int, h1: int, H: int, F: int, S: int):
+    """The window rows [lo, hi] that touch dx rows [h0, h1) of an F x F /
+    S pool over H rows (hi < lo: none), as K7a's block computes them."""
+    Ho = pool_out_hw(H, F, S)
+    lo = (h0 - F + S) // S if h0 >= F else 0
+    return lo, min(Ho - 1, (h1 - 1) // S)
+
+
+@functools.lru_cache(maxsize=None)
+def pool_backward_band(H: int, W: int, F: int, S: int) -> PoolBand:
+    """K7a's band: the most rows (up to ``_K7A_MAX_BAND``) whose block
+    fits ``_K7A_SMEM_AIM`` bytes of shared memory (window g values [win][33]
+    floats, taps [win][32] shorts, ReLU words [band * W]), or one row
+    where none does; raises where even one row exceeds a block's 227 KB."""
+    Wo = pool_out_hw(W, F, S)
+
+    def tiling(b: int) -> PoolBand:
+        rows = 0
+        for h0 in range(0, H, b):
+            lo, hi = band_windows(h0, min(H, h0 + b), H, F, S)
+            rows = max(rows, hi - lo + 1)
+        rows = max(rows, 1)
+        smem = rows * Wo * (33 * 4 + 32 * 2) + b * W * 4
+        return PoolBand(b, -(-H // b), rows, smem)
+
+    fits = [t for t in map(tiling, range(1, min(H, _K7A_MAX_BAND) + 1))
+            if t.smem_bytes <= _K7A_SMEM_AIM]
+    best = fits[-1] if fits else tiling(1)
+    if best.smem_bytes > _SMEM_PER_BLOCK:
+        raise ValueError(f"pool_backward_chwn: one row of a {W}-wide pool "
+                         f"needs {best.smem_bytes} bytes of shared memory")
+    return best
 
 
 def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
@@ -50,10 +99,12 @@ def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
         return pool_backward_ref(x, g, F, S, op, layout, g_layout, relu_mask)
     _build.require_cuda_f32(name, x.device, x=x, g=g)
     dx = torch.empty_like(x)
-    err = getattr(_build.library(), entry)(
-        x.data_ptr(), g.data_ptr(), dx.data_ptr(), N, C, H, W, F, S,
-        int(op == "avg"), int(relu_mask), int(g_layout == "NCHW"),
-        _build.stream_of(x.device))
+    args = [x.data_ptr(), g.data_ptr(), dx.data_ptr(), N, C, H, W, F, S,
+            int(op == "avg"), int(relu_mask), int(g_layout == "NCHW")]
+    if layout == "CHWN":
+        band = pool_backward_band(H, W, F, S)
+        args += [band.band, band.win_rows]
+    err = getattr(_build.library(), entry)(*args, _build.stream_of(x.device))
     _build.check(name, err)
     wrapper.launches += 1
     return dx
@@ -63,7 +114,9 @@ def pool_backward_chwn(x: torch.Tensor, g: torch.Tensor, F: int, S: int,
                        op: str = "max", g_layout: Optional[str] = None,
                        relu_mask: bool = False) -> torch.Tensor:
     """K7a: x [C, H, W, N], g [C, Ho, Wo, N] (or NCHW for ``g_layout``)
-    -> dx [C, H, W, N].  Lanes on n: loads and stores coalesce."""
+    -> dx [C, H, W, N].  A block takes one channel, a band of rows
+    (``pool_backward_band``) and 32 images on the lanes; it finds each
+    window's first maximum once, then forms dx from shared memory."""
     return _pool_backward(pool_backward_chwn, "pool_backward_chwn", "CHWN",
                           x, g, F, S, op, g_layout, relu_mask)
 

@@ -14,7 +14,11 @@ version; the autograd Functions around them are the ones the card runs):
 * ``pool_backward`` (K7a/K7b) for windows (2,2), (3,2), (3,3), max and
   avg, both layouts, the ``g_layout`` fold and ``relu_mask``; ties route
   exactly as the reference's;
-* the softmax gradient, and ``softmax_xent`` (K8).
+* the softmax gradient, and ``softmax_xent`` (K8);
+* what the CPU can say about the card's kernels: K6's 3xTF32 arithmetic,
+  emulated in torch, against float64 over a long reduction; K6's tile and
+  split choice (``wgrad_tiling``) for every launch of the training path;
+  K7a's row bands (``pool_backward_band``).
 
 Tolerance: the reference's ``assert_grads_close`` form at 1e-5
 (``|got - ref| <= 1e-5 * max(1, max|ref|)``); max-pool ties are exact.
@@ -37,8 +41,9 @@ from repro.kernels.softmax import ops as ref_softmax
 from repro_torch.cnn import layers as port_layers
 from repro_torch.core.layout import perm_between
 from repro_torch.kernels.conv.backward import (bias_grad, conv_dgrad,
-                                               conv_wgrad)
-from repro_torch.kernels.pool.backward import pool_backward
+                                               conv_wgrad, wgrad_tiling)
+from repro_torch.kernels.pool.backward import (band_windows, pool_backward,
+                                               pool_backward_band)
 from repro_torch.kernels.softmax.ops import softmax, softmax_xent
 from repro_torch.shapes import conv_out_hw, pool_out_hw
 from tests.test_backward import CONV_GRID
@@ -338,3 +343,161 @@ def test_softmax_xent_rejects_bad_labels():
         softmax_xent(x, torch.tensor([0, 1, 1], dtype=torch.int32))
     with pytest.raises(ValueError, match=r"\[N\]"):
         softmax_xent(x, torch.tensor([0, 1]))
+
+
+# --------------------------------------------------------------------------
+# K6 on the card: its arithmetic and its tiling
+# --------------------------------------------------------------------------
+SMS = 132                      # H100 SXM streaming multiprocessors
+SMEM_PER_BLOCK = 232448        # what one H100 block may use
+
+
+def _rna_tf32(a: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds."""
+    u = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = (u + 0x1000) & 0xFFFFE000
+    u = torch.where(u >= 2 ** 31, u - 2 ** 32, u)
+    return u.to(torch.int32).view(torch.float32)
+
+
+def _trunc_tf32(a: torch.Tensor) -> torch.Tensor:
+    """fp32 cut to TF32: the tensor core reads the top 19 bits."""
+    u = a.contiguous().view(torch.int32) & -0x2000
+    return u.view(torch.float32)
+
+
+def _wgrad_emulated(g: torch.Tensor, x: torch.Tensor, split: bool):
+    """K6's sum dw = g @ x over P positions as the kernel forms it: each
+    32-position slice's products summed in fp32 from zero, then added to an
+    fp32 total in slice order.  ``split``: the 3xTF32 products
+    (g_small x_big + g_big x_small + g_big x_big, big rounded to TF32 and
+    small = v - big as the tensor core reads it); else one TF32 product."""
+    gb, xb = _rna_tf32(g), _rna_tf32(x)
+    gs, xs = _trunc_tf32(g - gb), _trunc_tf32(x - xb)
+    co, P = g.shape
+
+    def slices(a_, b_):    # [slices, Co, K], each slice's sum in fp32
+        return torch.bmm(a_.reshape(co, -1, 32).transpose(0, 1),
+                         b_.reshape(-1, 32, b_.shape[1]))
+
+    part = slices(gb, xb)
+    if split:
+        part = (slices(gs, xb) + slices(gb, xs)) + part
+    total = torch.zeros(co, x.shape[1], dtype=torch.float32)
+    for s in part:
+        total = total + s
+    return total
+
+
+def test_3xtf32_holds_the_wgrad_tolerance_and_one_pass_tf32_does_not():
+    """Over 128K positions of narrow channels, the 3xTF32 split product
+    summed in fp32 stays within K6's 1e-5 (scale-relative to float64);
+    one TF32 product a term keeps ~11 bits and misses it."""
+    rng = np.random.default_rng(17)
+    P = 1 << 17
+    g = torch.from_numpy(rng.standard_normal((4, P), np.float32))
+    x = torch.from_numpy(rng.standard_normal((P, 8), np.float32))
+    want = g.double() @ x.double()
+    scale = max(1.0, want.abs().max().item())
+
+    def err(split):
+        return ((_wgrad_emulated(g, x, split).double() - want).abs().max()
+                .item() / scale)
+
+    assert err(True) <= TOL
+    assert err(False) > TOL
+
+
+def test_rna_tf32_rounds_to_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                         # one TF32 ulp above 1
+    v = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -12, one + 2.0 ** -11, 3.0],
+                     dtype=torch.float32)
+    want = torch.tensor([one, -one, 1.0, one + 2.0 ** -10, 3.0],
+                        dtype=torch.float32)
+    assert torch.equal(_rna_tf32(v), want)
+
+
+def _main_path_wgrad_cases(network: str):
+    from chip_smoke import TRAINED, train_launches
+    (batch,) = [b for n, b in TRAINED if n == network]
+    return [case for kern, case in train_launches(network, batch)
+            if kern == "wgrad"]
+
+
+def _check_wgrad_tiling(Co, K, P):
+    t = wgrad_tiling(Co, K, P)
+    assert t.bm in (64, 128) and t.bn in (32, 64, 128)
+    assert t.bm == (64 if Co <= 64 else 128)
+    assert t.bn == (32 if K <= 32 else 64 if K <= 64 else 128)
+    assert t.tiles == -(-Co // t.bm) * -(-K // t.bn)    # tiles cover Co x K
+    assert t.per % 32 == 0 and t.per > 0
+    assert t.splits * t.per >= P > (t.splits - 1) * t.per  # none is empty
+    assert 1 <= t.splits <= 65535
+    assert t.ws_elems == (t.splits * Co * K if t.splits > 1 else 0)
+    assert t.ws_elems < 2 ** 31
+    return t
+
+
+@pytest.mark.parametrize("network,launches", [("vgg16", 13),
+                                              ("alexnet", 5),
+                                              ("resnet18", 20)])
+def test_wgrad_tiling_of_every_training_launch(network, launches):
+    """Every K6 launch of the training path: tiles cover [Co, K], the
+    splits cover the positions, the workspace stays under 2^31 elements,
+    and the grid has at least one block an SM."""
+    cases = _main_path_wgrad_cases(network)
+    assert len(cases) == launches
+    for N, Ci, H, Co, F, S, pad, _, _ in cases:
+        Ho = conv_out_hw(H, F, S, pad)
+        t = _check_wgrad_tiling(Co, Ci * F * F, N * Ho * Ho)
+        assert t.tiles * t.splits >= SMS
+
+
+@pytest.mark.parametrize("Co,K,P", [(70, 27, 4 * 19 * 19), (33, 27, 8),
+                                    (384, 64, 40), (96, 363, 387200),
+                                    (1, 1, 1), (512, 4608, 1568)])
+def test_wgrad_tiling_edges(Co, K, P):
+    t = _check_wgrad_tiling(Co, K, P)
+    # fewer positions than one block an SM needs: one slice a split
+    if t.tiles * -(-P // 32) < SMS:
+        assert t.per == 32
+
+
+# --------------------------------------------------------------------------
+# K7a on the card: its row bands
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("H,F,S", [(55, 3, 2), (27, 3, 2), (13, 3, 2),
+                                   (224, 2, 2), (15, 7, 7), (23, 3, 2),
+                                   (16, 2, 2), (9, 3, 1), (11, 5, 2),
+                                   (7, 7, 1), (40, 3, 3)])
+def test_pool_backward_bands_cover_every_row_and_window(H, F, S):
+    """The bands cover H once; the windows a band's block visits are all
+    the windows of every element of the band, within ``win_rows`` of them
+    (the shared memory it was given); each window row is visited once by
+    each band that owns one of its rows, and by no other."""
+    b = pool_backward_band(H, H, F, S)
+    assert b.bands == -(-H // b.band) and b.smem_bytes <= SMEM_PER_BLOCK
+    Ho = pool_out_hw(H, F, S)
+    visits = [0] * Ho
+    for h0 in range(0, H, b.band):
+        h1 = min(H, h0 + b.band)
+        lo, hi = band_windows(h0, h1, H, F, S)
+        assert hi - lo + 1 <= b.win_rows
+        for oh in range(max(lo, 0), hi + 1):
+            visits[oh] += 1
+        for h in range(h0, h1):
+            for oh in range(Ho):
+                if oh * S <= h < oh * S + F:
+                    assert lo <= oh <= hi, (h, oh, lo, hi)
+    for oh in range(Ho):
+        owners = {r // b.band for r in range(oh * S, oh * S + F)}
+        assert visits[oh] == len(owners)
+
+
+def test_pool_backward_band_of_the_training_path():
+    """AlexNet's three 3/2 pools fit the block's shared-memory aim."""
+    for H in (55, 27, 13):
+        b = pool_backward_band(H, H, 3, 2)
+        assert b.smem_bytes <= 32 * 1024 and b.band >= 8

@@ -11,9 +11,10 @@ package:
 Tolerances: K6 against its float64 plain version at 1e-5 scale-relative
 (``|got - ref| <= 1e-5 * max(1, max|ref|)``), so the error is the kernel's
 own; K7 exact for max pooling where windows do not overlap and for ties,
-1e-6 scale-relative otherwise; K8 rtol 1e-5; the ``z`` output exactly the
-conv output of the same kernel launch without a pool (0 under no pool
-window), y and z within the conv tolerance (rtol 1e-4 / atol 1e-3) of
+1e-6 scale-relative otherwise (K7a's own cases: max exact everywhere,
+avg 1e-6); K8 rtol 1e-5; the ``z`` output exactly the conv output of the
+same kernel launch without a pool (0 under no pool window), y and z
+within the conv tolerance (rtol 1e-4 / atol 1e-3) of
 ``conv_ref``'s; dgrad within 1e-5 scale-relative of
 ``torch.nn.grad.conv2d_input`` (TF32 off).
 """
@@ -29,7 +30,8 @@ from repro_torch.core.layout import perm_between
 from repro_torch.kernels import _build
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.kernels.conv import ops as conv_ops
-from repro_torch.kernels.conv.backward import conv_dgrad, conv_wgrad
+from repro_torch.kernels.conv.backward import (conv_dgrad, conv_wgrad,
+                                               wgrad_tiling)
 from repro_torch.kernels.conv.ref import conv_ref, wgrad_ref
 from repro_torch.kernels.pool import backward as pool_bwd
 from repro_torch.kernels.pool.ref import pool_backward_ref
@@ -39,10 +41,18 @@ from repro_torch.shapes import conv_out_hw, pool_out_hw
 
 LAYOUT_PAIRS = list(itertools.product(("CHWN", "NCHW"), repeat=2))
 # (N, Ci, H, Co, F, S, pad): strides 1/2/4, F 1/3/5/7/11, Ci=3, ragged Co,
-# N=1, and one reduction long enough to need many splits
+# N=1, and one reduction long enough to need many splits; then the tensor-
+# core design's edges: AlexNet conv1 (11x11/4, Wo 55), Co 96 and 384, the
+# ragged rows Wo 55, 27, 13 and 7 and stride 2 (4-byte copies), K <= 64
+# (1x1 stride 2 with Ci 64; K 27 is the first shape), one split (144 tiles
+# over one 32-position slice)
 WGRAD_SHAPES = [(4, 3, 19, 70, 3, 1, 1), (2, 5, 23, 65, 5, 2, 2),
                 (1, 3, 35, 33, 11, 4, 0), (3, 8, 15, 129, 1, 2, 0),
-                (2, 4, 17, 64, 7, 1, 3), (8, 64, 56, 64, 3, 1, 1)]
+                (2, 4, 17, 64, 7, 1, 3), (8, 64, 56, 64, 3, 1, 1),
+                (4, 3, 227, 96, 11, 4, 0), (8, 16, 55, 96, 3, 1, 1),
+                (4, 32, 27, 384, 3, 1, 1), (16, 24, 13, 40, 3, 1, 1),
+                (32, 64, 14, 128, 3, 2, 1), (8, 64, 56, 128, 1, 2, 0),
+                (2, 512, 4, 512, 3, 1, 1)]
 POOL_CASES = list(itertools.product(("CHWN", "NCHW"), ((2, 2), (3, 2),
                                                       (3, 3), (7, 7)),
                                     ("max", "avg")))
@@ -94,6 +104,15 @@ def test_wgrad_kernel_matches_float64(shape, x_layout, g_layout, card):
     _close_scaled(dw, want, 1e-5)
 
 
+def test_wgrad_shapes_take_one_split_and_many():
+    """The shapes above reach both ends of K6's split-K: one split (the
+    partials kernel writes dw) and many (the fixed-order sum)."""
+    splits = {wgrad_tiling(Co, Ci * F * F,
+                           N * conv_out_hw(H, F, S, pad) ** 2).splits
+              for N, Ci, H, Co, F, S, pad in WGRAD_SHAPES}
+    assert 1 in splits and max(splits) >= 100
+
+
 def _pool_input(layout, N, C, H, gen, dev, ties: bool):
     if ties:  # few distinct values: many windows tie
         x = torch.randint(-2, 3, (N, C, H, H), generator=gen,
@@ -143,6 +162,83 @@ def test_pool_backward_kernel_nan_window_routes_nothing(layout, card):
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     got_n = got.permute(perm_between(layout, "NCHW"))
     assert not got_n[1, 2, 2:4, 2:4].any()
+
+
+# K7a's own cases: AlexNet's three 3/2 pools of the training path (g CHWN,
+# CHWN, NCHW) at N 4 and 33 (a ragged lane chunk)
+K7A_ALEXNET = [(96, 55, "CHWN"), (256, 27, "CHWN"), (256, 13, "NCHW")]
+
+
+@pytest.mark.parametrize("N", [4, 33])
+@pytest.mark.parametrize("C,H,g_layout", K7A_ALEXNET,
+                         ids=[f"{c}x{h}-g{g}" for c, h, g in K7A_ALEXNET])
+def test_k7a_alexnet_pools_match_plain(C, H, g_layout, N, card):
+    gen = torch.Generator(device=card).manual_seed(C + H + N)
+    x = _randn("CHWN", (N, C, H, H), gen, card)
+    Ho = pool_out_hw(H, 3, 2)
+    g = _randn(g_layout, (N, C, Ho, Ho), gen, card)
+    for op in ("max", "avg"):
+        before = pool_bwd.pool_backward_chwn.launches
+        got = pool_bwd.pool_backward_chwn(x, g, 3, 2, op, g_layout=g_layout,
+                                          relu_mask=True)
+        want = pool_backward_ref(x, g, 3, 2, op, "CHWN", g_layout, True)
+        torch.cuda.synchronize()
+        assert pool_bwd.pool_backward_chwn.launches == before + 1
+        if op == "max":
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        else:
+            _close_scaled(got, want, 1e-6)
+
+
+def _special_windows(N, C, H, gen, dev):
+    """NCHW input whose 3/2 windows tie (small integers), hold a NaN, are
+    all -inf, or mix -inf with +inf."""
+    x = torch.randint(-2, 3, (N, C, H, H), generator=gen, device=dev).float()
+    x[0, 0, 0:3, 0:3] = -float("inf")            # an all -inf window
+    x[0, 1, 4:7, 4:7] = -float("inf")            # -inf around one NaN
+    x[0, 1, 5, 5] = float("nan")
+    x[-1, 0, 2, 2] = float("inf")                 # a corner shared by 4
+    x[-1, 0, 2, 4] = float("inf")                 # windows, two +inf ties
+    x[1 % N, 0, 8:11, 0:3] = -float("inf")        # -inf over a band edge
+    return x
+
+
+@pytest.mark.parametrize("N,H", [(4, 17), (33, 23)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_k7a_ties_nan_and_all_inf_windows_route_as_the_reference(N, H,
+                                                                 relu,
+                                                                 card):
+    gen = torch.Generator(device=card).manual_seed(N * H)
+    xn = _special_windows(N, 3, H, gen, card)
+    x = xn.permute(perm_between("NCHW", "CHWN")).contiguous()
+    Ho = pool_out_hw(H, 3, 2)
+    for g_layout in ("CHWN", "NCHW"):
+        g = _randn(g_layout, (N, 3, Ho, Ho), gen, card)
+        got = pool_bwd.pool_backward_chwn(x, g, 3, 2, "max",
+                                          g_layout=g_layout, relu_mask=relu)
+        want = pool_backward_ref(x, g, 3, 2, "max", "CHWN", g_layout, relu)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+        gn = got.permute(perm_between("CHWN", "NCHW"))
+        assert not gn[0, 1, 4:7, 4:7].any()          # the NaN window
+
+
+def test_k7a_band_edge_splits_overlapping_windows(card):
+    """A pool whose rows span several bands, with 3/2 windows straddling
+    every band edge (the edge's window row is visited by both blocks)."""
+    H = 61
+    band = pool_bwd.pool_backward_band(H, H, 3, 2)
+    assert band.bands > 1 and band.band % 2 == 0   # edges split a window
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = _randn("CHWN", (40, 5, H, H), gen, card)
+    Ho = pool_out_hw(H, 3, 2)
+    for g_layout in ("CHWN", "NCHW"):
+        g = _randn(g_layout, (40, 5, Ho, Ho), gen, card)
+        got = pool_bwd.pool_backward_chwn(x, g, 3, 2, "max",
+                                          g_layout=g_layout, relu_mask=True)
+        want = pool_backward_ref(x, g, 3, 2, "max", "CHWN", g_layout, True)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("rows,cols", [(32, 1000), (128, 1000), (7, 10),
