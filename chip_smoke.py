@@ -11,8 +11,14 @@
    (conv and stack rtol 1e-4 / atol 1e-3, softmax atol 1e-6) and times the
    kernel, the plain version and one library chain for the same function
    (cuDNN conv [+ residual] + ReLU [+ pool], twice for a stack;
-   torch.softmax) with CUDA events.  K5a runs once more counting the FLOPs
-   its blocks execute and the cluster they ran in, which must equal
+   torch.softmax) with CUDA events.  K1 (3xTF32 on the tensor cores) is
+   also held against a float64 run of its plain version, within 1e-5
+   scale-relative, on every case (forward, save_act, dgrad, Table 1); its
+   lines add that error, the bound of its own design (three TF32 products
+   per fp32 one) and, where it pools, its block tile and the FLOPs the
+   tile executes over the direct ones (``conv_tiling``).  K5a runs once
+   more counting the FLOPs its blocks execute and the cluster they ran in,
+   which must equal
    ``stack_tiling``'s; the line shows the cluster, executed/direct FLOPs,
    the executed TFLOP/s and how many clusters the card holds at once.
 3. Serving phase, the main path, each path with the launch counts zeroed
@@ -92,11 +98,15 @@
    bf16 and on gemma2-27b's (1024 tokens, D 4608, V 256000, softcap 30).
    Counts zeroed before and read after (one launch a case); each case
    held against its plain version (fp32 rtol / atol 1e-4, bf16 atol 8 *
-   BF16_EPS), K12 three runs bitwise equal, timed beside
+   BF16_EPS), K12 three runs bitwise equal and its largest error
+   scale-relative to a float64 run reported, timed beside
    ``F.scaled_dot_product_attention`` or ``h @ tableᵀ`` +
    ``F.cross_entropy``; a line gives K11's largest bf16 error and every
    case's TFLOP/s.
-9. Prints one JSON line of every kernel (launches, error, times, bound),
+9. Prints a "K1 over the main path" and a "K12 over the main path" line in
+   the form of K6's (launches, ms, TFLOP/s, both bounds, library ms, the
+   largest error from float64), then one JSON line of every kernel
+   (launches, error, times, bound),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
 TF32 is off throughout.  Any failure raises: the script then exits
@@ -141,7 +151,7 @@ from repro_torch.kernels.conv.ops import (_conv, conv_direct_chwn,  # noqa: E402
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn,
                                           conv_stack_chwn_counted,
-                                          conv_stack_nchw,
+                                          conv_stack_nchw, conv_tiling,
                                           stack_max_clusters, stack_tiling)
 from repro_torch.kernels.conv.ref import (conv_ref,  # noqa: E402
                                           conv_stack_ref, im2col_nchw,
@@ -186,6 +196,7 @@ GRAD_TOL = 1e-4                  # step-1 gradients, scale-relative ...
 GRAD_OUTLIERS = 1e-3             # ... for all but this fraction of each
 GRAD_OUTLIER_TOL = 1e-3          # parameter's elements, and all within this
 WGRAD_TOL = 1e-5                 # K6 against float64, scale-relative
+TC_FP32_TOL = 1e-5               # K1 (3xTF32) against float64, the same
 FFT_RTOL, FFT_ATOL = 1e-3, 1e-2  # the FFT conv (the reference's own)
 LM_TOL = 1e-4                    # K11, K12 fp32 (rtol and atol)
 BF16_ATOL = 8 * 2.0 ** -8        # K11, K12 bf16: 8 * BF16_EPS
@@ -589,7 +600,13 @@ def conv_case(kern: str, case, dev, seed: int) -> dict:
     out_hw = Ho if pool is None else (Ho - pool[0]) // pool[1] + 1
     nbytes = 4.0 * (x.numel() + w.numel() + N * Co * out_hw * out_hw
                     + (r.numel() if rlay else 0))
-    return _measure(kernel, plain, library, flops, nbytes)
+    m = _measure(kernel, plain, library, flops, nbytes)
+    if kern == "conv_chwn":
+        want64 = conv_ref(x.double(), w.double(), S, pad,
+                          **{**kw, "res": r.double() if rlay else None})
+        _k1_fp32_gate(m, [(kernel(), want64)], case)
+        _k1_tile(m, case, N, Ci, H, Co, F, S, pad, pool)
+    return m
 
 
 def stack_case(kern: str, case, dev, seed: int) -> dict:
@@ -734,6 +751,29 @@ def _scaled_err(got, want) -> float:
             ).item()
 
 
+def _k1_fp32_gate(m: dict, pairs, case) -> dict:
+    """K1's accuracy gate on the tensor cores: each (kernel output, the
+    same in float64) within ``TC_FP32_TOL`` scale-relative; adds the
+    largest error and the design's own bound (3xTF32: three TF32 products
+    per fp32 one on the tensor cores) to ``m``."""
+    err = max(_scaled_err(got, want64) for got, want64 in pairs)
+    if err > TC_FP32_TOL:
+        raise AssertionError(f"K1 {case}: {err:.3g} from float64 (scale-"
+                             f"relative) > {TC_FP32_TOL}")
+    m.update(f64_err=err, design_bound_ms=bound_ms(
+        3 * m["flops"], m["bytes"], PEAK_TF32_FLOPS)[0])
+    return m
+
+
+def _k1_tile(m: dict, case, N, Ci, H, Co, F, S, pad, pool) -> dict:
+    """K1's block tile (``conv_tiling``) and the FLOPs it executes."""
+    t = conv_tiling(N, Ci, H, H, Co, F, S, pad, pool)
+    m.update(executed_flops=float(t.executed_flops),
+             tile={"bm": t.bm, "nb": t.nb, "ph": t.ph, "pw": t.pw},
+             blocks=t.blocks, smem_bytes=t.smem_bytes)
+    return m
+
+
 def save_act_case(kern: str, case, dev, seed: int) -> dict:
     """K1/K2 with the ``save_act`` output (the training forward of a pooled
     conv): y and z held against ``conv_ref``'s; the library is the same
@@ -763,13 +803,20 @@ def save_act_case(kern: str, case, dev, seed: int) -> dict:
                                  r_nchw, relu, pool)
 
     out_hw = pool_out_hw(Ho, pool[0], pool[1])
-    return _measure(
+    m = _measure(
         lambda: _conv(engine, x, wk, S, pad, save_act=True, **kw)[1],
         lambda: conv_ref(x, w, S, pad, save_act=True, act_layout=engine,
                          **kw)[1], library,
         2.0 * N * Co * Ho * Ho * Ci * F * F,
         4.0 * (x.numel() + w.numel() + N * Co * (out_hw ** 2 + Ho * Ho)
                + (r.numel() if rlay else 0)))
+    if kern == "conv_chwn":
+        y64, z64 = conv_ref(x.double(), w.double(), S, pad, save_act=True,
+                            act_layout=engine,
+                            **{**kw, "res": r.double() if rlay else None})
+        _k1_fp32_gate(m, [(y, y64), (z, z64)], case)
+        _k1_tile(m, case, N, Ci, H, Co, F, S, pad, pool)
+    return m
 
 
 def dgrad_case(kern: str, case, dev, seed: int) -> dict:
@@ -802,6 +849,10 @@ def dgrad_case(kern: str, case, dev, seed: int) -> dict:
                  4.0 * (g.numel() + w.numel() + N * Ci * H * H))
     torch.testing.assert_close(kernel().permute(perm_between(dst, "NCHW")),
                                library(), rtol=CONV_RTOL, atol=CONV_ATOL)
+    if kern == "conv_chwn":
+        _k1_fp32_gate(m, [(kernel(), conv_ref(gd.double(), wt.double(), 1,
+                                              p, src_layout=g_lay,
+                                              dst_layout=dst))], case)
     return m
 
 
@@ -834,7 +885,7 @@ def wgrad_case(case, dev, seed: int) -> dict:
     flops = 2.0 * Co * Ci * F * F * N * Ho * Ho
     nbytes = 4.0 * (x.numel() + g.numel() + Co * Ci * F * F)
     b_ms, b_by = bound_ms(flops, nbytes)
-    return {"max_abs_err": abs_err, "max_rel_err": err,
+    return {"max_abs_err": abs_err, "max_rel_err": err, "f64_err": err,
             # the design's own bound: 3xTF32 runs 3 TF32 products per term
             "design_bound_ms": bound_ms(3 * flops, nbytes,
                                         PEAK_TF32_FLOPS)[0],
@@ -971,6 +1022,14 @@ def kernel_phase(dev):
                      f"bound_3xtf32_ms={m['design_bound_ms']:.4f}")
         if kern == "pool_backward_chwn":
             extra = f" bound_share={m['bound_ms'] / m['ms']:.3f}"
+        if kern == "conv_chwn":
+            extra = (f" f64_err={m['f64_err']:.3g} TFLOP/s="
+                     f"{m['flops'] / m['ms'] / 1e9:.1f} "
+                     f"bound_3xtf32_ms={m['design_bound_ms']:.4f}")
+            if "tile" in m and m["tile"]["nb"]:
+                extra += (f" executed/direct="
+                          f"{m['executed_flops'] / m['flops']:.3f} "
+                          f"tile={m['tile']} blocks={m['blocks']}")
         print(f"kernel {kern:<15s} {row['network']:<8s} case={case} "
               f"x{row['launches']}: max_abs_err={m['max_abs_err']:.3g} "
               f"max_rel_err={m['max_rel_err']:.3g} ms={m['ms']:.4f} "
@@ -978,16 +1037,8 @@ def kernel_phase(dev):
               f"library_ms={m['library_ms']:.4f} "
               f"bound_ms={m['bound_ms']:.4f} ({m['bound_by']}){extra} "
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
-    k6 = [r for r in mult.values() if r["kernel"] == "wgrad"]
-    tot = {f: sum(r[f] * r["launches"] for r in k6)
-           for f in ("ms", "flops", "bound_ms", "design_bound_ms",
-                     "library_ms")}
-    print(f"K6 over the main path: launches={sum(r['launches'] for r in k6)}"
-          f" ms={tot['ms']:.3f} TFLOP/s={tot['flops'] / tot['ms'] / 1e9:.1f}"
-          f" bound_fp32_ms={tot['bound_ms']:.3f} "
-          f"bound_3xtf32_ms={tot['design_bound_ms']:.3f} "
-          f"library_ms={tot['library_ms']:.3f} max_rel_err="
-          f"{max(r['max_rel_err'] for r in k6):.3g}", flush=True)
+    print(tensor_core_line("K6", [r for r in mult.values()
+                                  if r["kernel"] == "wgrad"]), flush=True)
     # per forward (and training step): each kernel's launches summed
     for kind, network, label, keys in batches:
         for kern in KERNELS:
@@ -1470,6 +1521,9 @@ def conv_layer_phase(dev):
                       lambda: conv_ref(xc, w, S, pad, src_layout="CHWN",
                                        dst_layout="CHWN"),
                       cudnn, flops, conv_bytes)
+        _k1_fp32_gate(k1, [(conv_direct_chwn(xc, wc, S, pad).permute(
+            3, 0, 1, 2), conv_ref(x.double(), w.double(), S, pad))],
+            layer.name)
         tag = {"network": "table1", "case": layer.name, "launches": 1}
         cases += [{**tag, "kernel": "matmul", **mm},
                   {**tag, "kernel": "conv_nchw", **k2},
@@ -1655,8 +1709,19 @@ def lm_phase(dev):
                      h.element_size() * float(T * D + V * D) + 12.0 * T,
                      *tol, peak=PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS,
                      got=got)
+        # the largest error scale-relative to a float64 run (512 tokens at
+        # a time: the float64 logits of all of them would not fit)
+        want64 = torch.cat([xent_ref(h[i:i + 512].double(), table.double(),
+                                     labels[i:i + 512], cap)
+                            for i in range(0, T, 512)])
         m.update(network=name, kernel="fused_xent", launches=1,
-                 case=(T, D, V, cap, str(dtype)), bitwise_equal_runs=3)
+                 case=(T, D, V, cap, str(dtype)), bitwise_equal_runs=3,
+                 f64_err=_scaled_err(got, want64),
+                 # the design's own bound: bf16 on the tensor cores, or
+                 # 3xTF32 (three TF32 products per fp32 one)
+                 design_bound_ms=(m["bound_ms"] if bf16 else bound_ms(
+                     3 * m["flops"], m["bytes"], PEAK_TF32_FLOPS)[0]))
+        del want64
         cases.append(m)
         print(f"lm K12 {name} T={T} D={D} V={V} softcap={cap} {dtype}: "
               f"{m['flops'] / 1e12:.2f} TFLOP; ms {m['ms']:.3f} "
@@ -1664,11 +1729,29 @@ def lm_phase(dev):
               f"{m['plain_ms']:.3f}, matmul+cross_entropy "
               f"{m['library_ms']:.3f}, bound {m['bound_ms']:.3f} "
               f"({m['bound_by']}); max |kernel - plain| "
-              f"{m['max_abs_err']:.3g}; 3 runs bitwise equal "
+              f"{m['max_abs_err']:.3g}, from float64 {m['f64_err']:.3g} "
+              f"(scale-relative); 3 runs bitwise equal "
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
     del a_in, x_in, a_out, x_out
     torch.cuda.empty_cache()
     return counts, cases
+
+
+def tensor_core_line(label: str, rows) -> str:
+    """One tensor-core kernel (K1, K6, K12) summed over the main path's
+    launches: ms, TFLOP/s, the bound on the fp32 peak (the bf16 one for
+    bf16 cases) and the design's own (3xTF32: three TF32 products at 495
+    TFLOP/s; bf16 cases their bf16 bound), the library time and the
+    largest error scale-relative to float64."""
+    def tot(f):
+        return sum(r[f] * (r["launches"] or 1) for r in rows)
+    return (f"{label} over the main path: launches="
+            f"{sum(r['launches'] for r in rows)} ms={tot('ms'):.3f} "
+            f"TFLOP/s={tot('flops') / tot('ms') / 1e9:.1f} "
+            f"bound_fp32_ms={tot('bound_ms'):.3f} "
+            f"bound_3xtf32_ms={tot('design_bound_ms'):.3f} "
+            f"library_ms={tot('library_ms'):.3f} "
+            f"max_rel_err={max(r['f64_err'] for r in rows):.3g}")
 
 
 def kernels_line(cases, launches) -> dict:
@@ -1757,6 +1840,10 @@ def main() -> int:
             for k, v in counts.items():
                 launches[k] += v
         cases += t1_cases + lm_rows
+        for kern, label in (("conv_chwn", "K1"), ("fused_xent", "K12")):
+            print(tensor_core_line(label, [r for r in cases
+                                           if r["kernel"] == kern]),
+                  flush=True)
     # autograd needs tensors made outside inference mode
     t0 = time.perf_counter()
     train_counts, trained = training_phase(dev)

@@ -37,8 +37,8 @@ L, F = ctypes.c_longlong, ctypes.c_float
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES: Dict[str, List] = {
     # x, w, bias, res, y, z, N, Ci, H, W, Co, F, S, pad, pool_F, pool_S,
-    # pool_avg, relu, src_nchw, dst_nchw, res_nchw, stream
-    "conv_chwn_forward": [P] * 6 + [I] * 15 + [P],
+    # pool_avg, relu, src_nchw, dst_nchw, res_nchw, [bm, nb, ph, pw,] stream
+    "conv_chwn_forward": [P] * 6 + [I] * 19 + [P],
     "conv_nchw_forward": [P] * 6 + [I] * 15 + [P],
     # x, g, ws, dw, N, Ci, H, W, Co, F, S, pad, x_nchw, g_nchw, bm, bn,
     # p_per_split, splits, stream

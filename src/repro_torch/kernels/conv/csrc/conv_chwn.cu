@@ -2,36 +2,569 @@
 //
 // Replaces repro/kernels/conv/conv.py::conv_chwn_pallas (body _conv_kernel),
 // the cuda-convnet analogue the paper pairs with CHWN: out[co,ho,wo,n] +=
-// x[ci,ho*S+dy,wo*S+dx,n] * w[ci,dy,dx,co], fp32 accumulate, then bias ->
+// x[ci,ho*S+dy,wo*S+dx,n] * w[ci,dy,dx,co], fp32 accuracy, then bias ->
 // residual -> ReLU -> max/avg pool, reading x in src_layout and writing y
 // in dst_layout.  x is [Ci,H,W,N] or [N,Ci,H,W]; w is [Ci,F,F,Co]; y is
-// [Co,Ho',Wo',N] or [N,Co,Ho',Wo'] (Ho', Wo' after the pool).
+// [Co,Ho',Wo',N] or [N,Co,Ho',Wo'] (Ho', Wo' after the pool).  dgrad runs
+// here too, as the stride-1 conv of the dilated gradient.
 //
-// What bounds it on an H100: at the paper's shapes the conv is far above
-// the fp32 ridge (2*Ci*F*F FLOPs per output against a few bytes), so the
-// bound is the CUDA cores' fp32 FMA rate.  The design (conv_common.cuh) is
-// an implicit GEMM with shared-memory tiles and an 8 x 8 register tile per
-// thread, so each operand loaded from shared memory feeds 8 FMAs, with n
-// the fastest column so a warp's CHWN gathers and stores are one
-// contiguous run.  It does not use the tensor cores (fp32 exactness); the
-// TPU kernel's halo stitch, row/channel padding and N tiling have no
-// counterpart here.
+// What bounds it on an H100: operations.  It is an implicit GEMM out[co,
+// col] = sum_k w[k, co] P[k, col], k = (ci, dy, dx) over K = Ci*F*F and a
+// column per conv output (n, oh, ow), n fastest (the CHWN engine's order:
+// a run of columns is a run of n, contiguous in CHWN); P is the virtual
+// im2col matrix, gathered from x with the padding halo read as zero.
+// 2*Co*K FLOPs per output against a few bytes.  fp32 FMA on the CUDA cores
+// peaks at 67 TFLOP/s; the tensor cores do 495 TFLOP/s in TF32.
 //
-// With z (the save_act output, for training), it also writes the conv
-// output before the pool, as [Co, Ho, Wo, N] (CHWN)
-// (conv_common.cuh says how overlapping windows share the writes).
-#include "conv_common.cuh"
+// Arithmetic: fp32 accuracy from the tensor cores by the 3xTF32 split of
+// K6 (csrc/mma.cuh: big rounded to TF32 in two integer ops, small passed
+// raw, three TF32 products a term on mma.sync m16n8k8).  The tensor core
+// truncates as it accumulates, so each 32-deep reduction slice is summed
+// from zero in the mma registers and then added to fp32 registers.
+//
+// Design.  A block owns a BM (co: 128, or 64 where Co <= 64 or the block
+// pools) x columns tile.  Its 512 threads are two producer warpgroups,
+// which only copy, and two consumer warpgroups, which only multiply (K6's
+// split: a warp that both issues cp.async and runs mma stalls its mma).
+// The producers stage each 32-deep slice of w ([k][co], contiguous along
+// co) and of P ([k][column], contiguous along n in CHWN) through a
+// 3-stage cp.async ring: 16-byte copies where 4 columns are 4 contiguous,
+// aligned, in-range elements, else 4-byte copies with zero fill (the
+// padding halo, ragged N, an NCHW source, strided taps).  Named barriers
+// pass each stage: FULL when it landed, EMPTY when it was multiplied.
+// Both operands arrive reduction-minor, so the m16n8k8 fragments are read
+// from [k][m] and [k][n] shared rows whose stride is 8 mod 32 floats.  The
+// GEMM's rows and columns are permuted within each 16 so that what one
+// lane needs at one k sits side by side: mma row g is channel 2g and row
+// g + 8 channel 2g + 1, and column g of a pair of n tiles is column 2g
+// (first tile) and 2g + 1 (second); so a fragment is two float2 loads, and
+// a half warp's float2 loads (k = t, t + 4) hit 32 banks.
+//
+// Every pass's sums go through shared memory.  Without a pool a block
+// takes 128 consecutive columns, stages its sums in the freed ring, and
+// applies bias, residual and ReLU as it stores, a warp along 32 columns
+// (a run of n, contiguous in CHWN).  With a pool it owns a rectangle of
+// POOLED outputs (ph x pw of them, for nb images) and computes the conv
+// outputs under it once, (ph-1)*pS+pF by (pw-1)*pS+pF positions per
+// image, in passes of 128 columns, into a shared tile; only the halo rows
+// and columns that neighbouring rectangles share are computed twice
+// (ops.conv_tiling picks the rectangle and prices the executed FLOPs
+// exactly: AlexNet's 3/2 layers execute 1.16-1.28x their direct FLOPs,
+// against 2.25x when every window recomputed its taps).  After the last
+// pass the block applies the epilogue on the tile, then pools from it and
+// stores.  The save_act output z (training) is written from the same
+// tile, one writer per conv output: the block whose rectangle starts the
+// window rows (columns) it lies in, the last rectangle for the rows past
+// them; conv outputs under no window are never written (the wrapper
+// zero-fills z then).
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
+#include "../../csrc/mma.cuh"
+#include "../../csrc/nan_max.cuh"
+#include "conv_common.cuh"  // Strides, layout_strides
+
+namespace {
+
+using namespace repro::mma;
+using repro::Strides;
+
+constexpr int kConsumers = 256;  // two warpgroups: the mma
+constexpr int kProducers = 256;  // two warpgroups: the copies
+constexpr int kThreads = kConsumers + kProducers;
+constexpr int kConsumerRegs = 168;  // setmaxnreg, as K6
+constexpr int kProducerRegs = 80;
+constexpr int BN = 128;      // GEMM columns of a pass
+constexpr int BK = 32;       // reduction slice, the flush length
+constexpr int kStages = 3;   // cp.async ring depth
+constexpr int kRowPad = 8;   // shared row stride = width + 8 (8 mod 32)
+constexpr int kSmemMax = 232448;
+constexpr int kStaticBytes = 3 * BN * 4;  // colofs
+constexpr int kPoolBar = 1 + 2 * kStages;  // consumers only
+
+struct K1Args {
+  const float* x;
+  const float* w;     // [K, Co]
+  const float* bias;  // [Co] or null
+  const float* res;   // conv-output shape, or null
+  float* y;
+  float* z;           // save_act: the pre-pool activation (CHWN), or null
+  int N, Ci, H, W, Co, F, S, pad, K, Ho, Wo;
+  int pF, pS, pool_avg, relu;  // pF == 0: no pool
+  int UH, UW;                  // the pooled output
+  int nb, ph, pw;              // pooled rectangle: images, rows, columns
+  int tiles_h, tiles_w;        // rectangles along UH and UW
+  int cs;                      // row stride of the shared conv tile
+  int cols;                    // no pool: N*Ho*Wo columns
+  int vec_x, vec_w;            // 16-byte copies allowed
+  Strides xs, ys, rs, zs;
+};
+
+// the columns of one block: a run of global columns (no pool), or the
+// conv outputs under one pooled rectangle, (rh, rw, n) with n fastest
+struct Tile {
+  int c0;        // no pool: the first global column
+  int n0, nbt, ph0, pht, pw0, pwt, oh0, ow0, rht, rwt;
+  int C;          // columns of the tile
+};
+
+__device__ __forceinline__ Tile make_tile(const K1Args& a) {
+  Tile t;
+  if (a.pF == 0) {
+    t.c0 = blockIdx.x * BN;
+    t.C = min(BN, a.cols - t.c0);
+    t.n0 = t.nbt = t.ph0 = t.pht = t.pw0 = t.pwt = 0;
+    t.oh0 = t.ow0 = t.rht = t.rwt = 0;
+    return t;
+  }
+  int b = blockIdx.x;
+  const int tw = b % a.tiles_w;
+  b /= a.tiles_w;
+  const int th = b % a.tiles_h, tn = b / a.tiles_h;
+  t.c0 = 0;
+  t.n0 = tn * a.nb;
+  t.nbt = min(a.nb, a.N - t.n0);
+  t.ph0 = th * a.ph;
+  t.pht = min(a.ph, a.UH - t.ph0);
+  t.pw0 = tw * a.pw;
+  t.pwt = min(a.pw, a.UW - t.pw0);
+  t.oh0 = t.ph0 * a.pS;
+  t.ow0 = t.pw0 * a.pS;
+  t.rht = (t.pht - 1) * a.pS + a.pF;
+  t.rwt = (t.pwt - 1) * a.pS + a.pF;
+  t.C = t.nbt * t.rht * t.rwt;
+  return t;
+}
+
+// (n, oh, ow) of column c of the tile (c < t.C)
+__device__ __forceinline__ void column(const K1Args& a, const Tile& t, int c,
+                                       int& n, int& oh, int& ow) {
+  if (a.pF == 0) {
+    const int gc = t.c0 + c, r = gc / a.N;
+    n = gc - r * a.N;
+    ow = r % a.Wo;
+    oh = r / a.Wo;
+  } else {
+    const int nl = c % t.nbt, r = c / t.nbt;
+    n = t.n0 + nl;
+    ow = t.ow0 + r % t.rwt;
+    oh = t.oh0 + r / t.rwt;
+  }
+}
+
+__host__ __device__ constexpr int ring_floats(int bm) {
+  return kStages * BK * ((bm + kRowPad) + (BN + kRowPad));
+}
+
+// stage s of the ring: FULL and EMPTY barriers (barrier 0 is __syncthreads)
+__device__ __forceinline__ int full_bar(int s) { return 1 + s; }
+__device__ __forceinline__ int empty_bar(int s) { return 1 + kStages + s; }
+
+template <int BM, bool POOL>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_chwn_kernel(const K1Args a) {
+  constexpr int SA = BM + kRowPad, SB = BN + kRowPad;
+  constexpr int STAGE = BK * (SA + SB);
+  constexpr int WM = BM / 32;   // consumer warps along co, 32 rows each
+  constexpr int WN = 8 / WM;    // consumer warps along the columns
+  constexpr int WTN = BN / WN;  // columns per consumer warp
+  constexpr int NT = WTN / 8;   // m16n8 tiles per consumer warp
+  constexpr int ACH = BM / 4;   // 16-byte chunks of a w row
+  constexpr int APT = BK * ACH / kProducers;  // w chunks per producer
+  static_assert(WM * WN == 8 && NT % 2 == 0 && APT >= 1, "tile");
+  extern __shared__ __align__(16) float smem[];  // ring, then the conv tile
+  __shared__ int colofs[3][BN];  // no pool: y, res, z offset of a column
+
+  const Tile t = make_tile(a);
+  const int co0 = blockIdx.y * BM;
+  const int kslices = (a.K + BK - 1) / BK;
+  const int passes = (t.C + BN - 1) / BN;
+  const int nsl = passes * kslices;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroups: every slice's copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    const int q = pt % 32, row0 = pt / 32;  // P: column chunk, first row
+    const int FF = a.F * a.F;
+    int cur = -1;          // the pass whose columns xb/ih/iw/ok describe
+    int xb[4], ih[4], iw[4];
+    bool ok[4], cont = false;
+    // (ci, dy, dx) of this thread's P rows row0 + 8 i in the next slice,
+    // stepped by BK = (sci, sdy, sdx) in the mixed radix (Ci, F, F)
+    int kci[BK / 8], kdy[BK / 8], kdx[BK / 8];
+    const int sci = BK / FF, sdy = (BK - sci * FF) / a.F;
+    const int sdx = BK - sci * FF - sdy * a.F;
+    auto stage = [&](int sl) {
+      const int pass = sl / kslices, k0 = (sl - pass * kslices) * BK;
+      float* As = smem + (sl % kStages) * STAGE;
+      float* Bs = As + BK * SA;
+      if (k0 == 0) {  // a pass starts over at k = 0
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) {
+          const int k = row0 + 8 * i, ci = k / FF, rem = k - ci * FF;
+          kci[i] = ci;
+          kdy[i] = rem / a.F;
+          kdx[i] = rem - kdy[i] * a.F;
+        }
+      }
+      if (pass != cur) {  // this thread's 4 columns of the new pass
+        cur = pass;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int c = pass * BN + 4 * q + j;
+          int n = 0, oh = 0, ow = 0;
+          ok[j] = c < t.C;
+          if (ok[j]) column(a, t, c, n, oh, ow);
+          ih[j] = oh * a.S - a.pad;
+          iw[j] = ow * a.S - a.pad;
+          xb[j] = n * a.xs.n + ih[j] * a.xs.h + iw[j] * a.xs.w;
+        }
+        cont = a.vec_x && ok[3] && xb[1] == xb[0] + 1 &&
+               xb[2] == xb[0] + 2 && xb[3] == xb[0] + 3;
+      }
+      // P: rows row0 + 8 i of the slice, columns 4q .. 4q + 3
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) {
+        const int r = row0 + 8 * i, k = k0 + r;
+        float* d = Bs + r * SB + 4 * q;
+        const int dy = kdy[i], dx = kdx[i];
+        const int ko = kci[i] * a.xs.c + dy * a.xs.h + dx * a.xs.w;
+        // on to the next slice's k
+        kdx[i] += sdx;
+        if (kdx[i] >= a.F) {
+          kdx[i] -= a.F;
+          ++kdy[i];
+        }
+        kdy[i] += sdy;
+        if (kdy[i] >= a.F) {
+          kdy[i] -= a.F;
+          ++kci[i];
+        }
+        kci[i] += sci;
+        bool v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = ok[j] && k < a.K &&
+                 static_cast<unsigned>(ih[j] + dy) <
+                     static_cast<unsigned>(a.H) &&
+                 static_cast<unsigned>(iw[j] + dx) <
+                     static_cast<unsigned>(a.W);
+        if (cont && v[0] && v[1] && v[2] && v[3] && ((xb[0] + ko) & 3) == 0) {
+          cp16(d, a.x + xb[0] + ko, true);
+        } else if (!(v[0] || v[1] || v[2] || v[3])) {
+          cp16(d, a.x, false);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            cp4(d + j, v[j] ? a.x + xb[j] + ko : a.x, v[j]);
+        }
+      }
+      // w: chunk e of the [BK][BM] slice, co fastest
+#pragma unroll
+      for (int i = 0; i < APT; ++i) {
+        const int e = pt + kProducers * i;
+        const int r = e / ACH, cq = e - r * ACH;
+        const int k = k0 + r, co = co0 + 4 * cq;
+        float* d = As + r * SA + 4 * cq;
+        const float* src = a.w + static_cast<long long>(k) * a.Co + co;
+        if (k < a.K && a.vec_w && co + 3 < a.Co) {
+          cp16(d, src, true);
+        } else if (k >= a.K || co >= a.Co) {
+          cp16(d, a.w, false);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            cp4(d + j, co + j < a.Co ? src + j : a.w, co + j < a.Co);
+        }
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < nsl) stage(s);
+      cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      cp_wait<kStages - 2>();  // slice sl has landed: announce it
+      bar_arrive(full_bar(sl % kStages), kThreads);
+      const int nx = sl + kStages - 1;
+      if (nx < nsl) {
+        if (nx >= kStages) bar_sync(empty_bar(nx % kStages), kThreads);
+        stage(nx);
+      }
+      cp_commit();
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: the products and the epilogue ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  if (!POOL && tid < t.C) {  // y, res and z offsets of column tid (n, oh, ow)
+    int n, oh, ow;
+    column(a, t, tid, n, oh, ow);
+    colofs[0][tid] = n * a.ys.n + oh * a.ys.h + ow * a.ys.w;
+    colofs[1][tid] = n * a.rs.n + oh * a.rs.h + ow * a.rs.w;
+    colofs[2][tid] = n * a.zs.n + oh * a.zs.h + ow * a.zs.w;
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;
+  float* tile = smem + kStages * STAGE;  // POOL: [BM][cs] conv outputs
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  int sl = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int cvalid = min(BN, t.C - pass * BN);  // columns of this pass
+    float total[2][NT][4];
+    float acc[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) total[mt][nt][e] = 0.f;
+    for (int ks = 0; ks < kslices; ++ks, ++sl) {
+      const int buf = sl % kStages;
+      bar_sync(full_bar(buf), kThreads);
+      const float* As = smem + buf * STAGE;
+      const float* Bs = As + BK * SA;
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 8) {
+        unsigned abig[2][4], asmall[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          // mma row g is shared column 2g of the 16-row block, row g + 8
+          // column 2g + 1: a0, a1 (k t) and a2, a3 (k t + 4) as float2
+          const float* pa = As + (kk + tq) * SA + wm * 32 + mt * 16 + 2 * g;
+          const float2 lo = *reinterpret_cast<const float2*>(pa);
+          const float2 hi = *reinterpret_cast<const float2*>(pa + 4 * SA);
+          split_tf32(lo.x, abig[mt][0], asmall[mt][0]);
+          split_tf32(lo.y, abig[mt][1], asmall[mt][1]);
+          split_tf32(hi.x, abig[mt][2], asmall[mt][2]);
+          split_tf32(hi.y, abig[mt][3], asmall[mt][3]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; nt += 2) {
+          const int nc = wn * WTN + nt * 8;
+          if (nc >= cvalid) continue;  // past the pass's last column
+          // mma column g of n tiles nt and nt + 1 is shared column 2g and
+          // 2g + 1 of their 16: b0 (k t) and b1 (k t + 4) of both as float2
+          const float* pb = Bs + (kk + tq) * SB + nc + 2 * g;
+          const float2 lo = *reinterpret_cast<const float2*>(pb);
+          const float2 hi = *reinterpret_cast<const float2*>(pb + 4 * SB);
+          unsigned b0big[2], b0small[2], b1big[2], b1small[2];
+          split_tf32(lo.x, b0big[0], b0small[0]);
+          split_tf32(lo.y, b0big[1], b0small[1]);
+          split_tf32(hi.x, b1big[0], b1small[0]);
+          split_tf32(hi.y, b1big[1], b1small[1]);
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              float (&c)[4] = acc[mt][nt + p];
+              if (kk == 0)
+                mma_tf32(c, asmall[mt], b0big[p], b1big[p], zero);
+              else
+                mma_tf32(c, asmall[mt], b0big[p], b1big[p], c);
+              mma_tf32(c, abig[mt], b0small[p], b1small[p], c);
+              mma_tf32(c, abig[mt], b0big[p], b1big[p], c);
+            }
+          }
+        }
+      }
+      // the stage is free for the producers (they wait only for the
+      // stages they refill)
+      if (sl + kStages < nsl) bar_arrive(empty_bar(buf), kThreads);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (wn * WTN + (nt & ~1) * 8 >= cvalid) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) total[mt][nt][e] += acc[mt][nt][e];
+        }
+    }
+
+    // the pass's sums into the conv tile, four adjacent columns (of a pair
+    // of n tiles) a float4: accumulator e of (mt, nt) is channel wm*32 +
+    // mt*16 + 2g + (e >= 2), column 4 tq + 2 (e & 1) + (nt & 1) of the pair
+    if (!POOL) bar_sync(kPoolBar, kConsumers);  // the ring is read no more
+    float* T = POOL ? tile + pass * BN : smem;
+    const int ts = POOL ? a.cs : SB;
+#pragma unroll
+    for (int nt = 0; nt < NT; nt += 2) {
+      const int cl = wn * WTN + nt * 8 + 4 * tq;
+      if (cl >= cvalid) continue;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float4*>(T + (wm * 32 + mt * 16 + 2 * g + h) * ts +
+                                     cl) =
+              make_float4(total[mt][nt][2 * h], total[mt][nt + 1][2 * h],
+                          total[mt][nt][2 * h + 1],
+                          total[mt][nt + 1][2 * h + 1]);
+    }
+  }
+  bar_sync(kPoolBar, kConsumers);
+  const int mrows = min(BM, a.Co - co0);
+
+  if (!POOL) {
+    // bias, residual, ReLU and the stores, a warp along 32 columns: a run
+    // of n, contiguous in CHWN; into NCHW, where a block's columns are
+    // whole runs of N (N divides 128), the positions of one n come first
+    const int npos = (a.ys.n != 1 && BN % a.N == 0) ? BN / a.N : 0;
+    for (int e = tid; e < mrows * BN; e += kConsumers) {
+      const int m = e / BN, j = e - m * BN;
+      const int c = npos ? (j % npos) * a.N + j / npos : j;
+      if (c >= t.C) continue;
+      const int co = co0 + m;
+      float v = smem[m * SB + c];
+      if (a.bias) v += __ldg(a.bias + co);
+      if (a.res)
+        v += __ldg(a.res + colofs[1][c] + static_cast<long long>(co) * a.rs.c);
+      if (a.relu) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+      a.y[colofs[0][c] + static_cast<long long>(co) * a.ys.c] = v;
+      if (a.z) a.z[colofs[2][c] + static_cast<long long>(co) * a.zs.c] = v;
+    }
+    return;
+  }
+
+  // ---- with a pool: bias, residual, ReLU and z on the tile, then the
+  // windows ----
+  // one z writer per conv output: rows (columns) before the next
+  // rectangle's first window, all of them in the last rectangle; none
+  // under no window
+  const bool last_h = t.ph0 + t.pht == a.UH, last_w = t.pw0 + t.pwt == a.UW;
+  for (int e = tid; e < mrows * t.C; e += kConsumers) {
+    const int m = e / t.C, c = e - m * t.C;
+    const int co = co0 + m;
+    float* p = tile + m * a.cs + c;
+    float v = *p;
+    if (a.bias) v += __ldg(a.bias + co);
+    if (a.res || a.z) {
+      const int nl = c % t.nbt, r = c / t.nbt;
+      const int rw = r % t.rwt, rh = r / t.rwt;
+      const long long n = t.n0 + nl;
+      const int oh = t.oh0 + rh, ow = t.ow0 + rw;
+      if (a.res)
+        v += __ldg(a.res + n * a.rs.n + static_cast<long long>(co) * a.rs.c +
+                   oh * a.rs.h + ow * a.rs.w);
+      if (a.relu) v = v < 0.f ? 0.f : v;
+      if (a.z && (rh < t.pht * a.pS || last_h) && rh % a.pS < a.pF &&
+          (rw < t.pwt * a.pS || last_w) && rw % a.pS < a.pF)
+        a.z[n * a.zs.n + static_cast<long long>(co) * a.zs.c + oh * a.zs.h +
+            ow * a.zs.w] = v;
+    } else if (a.relu) {
+      v = v < 0.f ? 0.f : v;
+    }
+    *p = v;
+  }
+  bar_sync(kPoolBar, kConsumers);
+  const int outs = t.pht * t.pwt * t.nbt;
+  const float area = static_cast<float>(a.pF * a.pF);
+  for (int e = tid; e < mrows * outs; e += kConsumers) {
+    const int m = e / outs;
+    int r = e - m * outs;
+    const int nl = r % t.nbt;
+    r /= t.nbt;
+    const int pwl = r % t.pwt, phl = r / t.pwt;
+    const float* row = tile + m * a.cs;
+    float acc = a.pool_avg ? 0.f : -INFINITY;
+    for (int i = 0; i < a.pF; ++i)
+      for (int j = 0; j < a.pF; ++j) {
+        const float v =
+            row[((phl * a.pS + i) * t.rwt + pwl * a.pS + j) * t.nbt + nl];
+        acc = a.pool_avg ? acc + v : nan_max(acc, v);
+      }
+    a.y[static_cast<long long>(t.n0 + nl) * a.ys.n +
+        static_cast<long long>(co0 + m) * a.ys.c + (t.ph0 + phl) * a.ys.h +
+        (t.pw0 + pwl) * a.ys.w] = a.pool_avg ? acc / area : acc;
+  }
+}
+
+template <int BM, bool POOL>
+cudaError_t launch(const K1Args& a, int blocks, int smem, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_chwn_kernel<BM, POOL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks, (a.Co + BM - 1) / BM);
+  conv_chwn_kernel<BM, POOL><<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// w [Ci, F, F, Co] is [K, Co]; z (or null) is [Co, Ho, Wo, N].  The block
+// tile is bm (64 or 128) output channels by 128 consecutive columns
+// without a pool, or by the conv outputs under nb images x ph x pw pooled
+// outputs with one (ops.conv_tiling).  Returns cudaGetLastError().
 extern "C" int conv_chwn_forward(const void* x, const void* w,
                                  const void* bias, const void* res, void* y,
                                  void* z, int N, int Ci, int H, int W, int Co,
                                  int F, int S, int pad, int pool_F,
                                  int pool_S, int pool_avg, int relu,
                                  int src_nchw, int dst_nchw, int res_nchw,
+                                 int bm, int nb, int ph, int pw,
                                  void* stream) {
-  // w [Ci, F, F, Co] is [K, Co]
-  return repro::conv_forward<true>(x, w, bias, res, y, z, N, Ci, H, W, Co,
-                                   F, S, pad, pool_F, pool_S, pool_avg, relu,
-                                   src_nchw, dst_nchw, res_nchw,
-                                   /*wsO=*/1, /*wsK=*/Co, stream);
+  K1Args a;
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.res = static_cast<const float*>(res);
+  a.y = static_cast<float*>(y);
+  a.z = static_cast<float*>(z);
+  a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Co = Co; a.F = F; a.S = S;
+  a.pad = pad;
+  a.K = Ci * F * F;
+  a.Ho = (H + 2 * pad - F) / S + 1;
+  a.Wo = (W + 2 * pad - F) / S + 1;
+  a.pF = pool_F; a.pS = pool_S; a.pool_avg = pool_avg; a.relu = relu;
+  a.xs = repro::layout_strides(src_nchw, N, Ci, H, W);
+  a.rs = repro::layout_strides(res_nchw, N, Co, a.Ho, a.Wo);
+  a.zs = repro::layout_strides(false, N, Co, a.Ho, a.Wo);
+  a.vec_x = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.vec_w = reinterpret_cast<uintptr_t>(w) % 16 == 0 && Co % 4 == 0;
+  const long long cols = static_cast<long long>(N) * a.Ho * a.Wo;
+  if (cols >= 0x7fffffffLL - BN) return static_cast<int>(cudaErrorInvalidValue);
+  a.cols = static_cast<int>(cols);
+  const bool pool = pool_F > 0;
+  long long blocks;
+  int smem = 4 * ring_floats(bm);
+  if (pool) {
+    a.UH = (a.Ho - pool_F) / pool_S + 1;
+    a.UW = (a.Wo - pool_F) / pool_S + 1;
+    if (nb < 1 || ph < 1 || pw < 1 || a.UH < 1 || a.UW < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    a.nb = nb; a.ph = ph; a.pw = pw;
+    a.tiles_h = (a.UH + ph - 1) / ph;
+    a.tiles_w = (a.UW + pw - 1) / pw;
+    const int cmax = min(nb, N) * ((min(ph, a.UH) - 1) * pool_S + pool_F) *
+                     ((min(pw, a.UW) - 1) * pool_S + pool_F);
+    a.cs = (cmax + 31) / 32 * 32 + 8;
+    smem += 4 * bm * a.cs;
+    blocks = static_cast<long long>((N + nb - 1) / nb) * a.tiles_h *
+             a.tiles_w;
+  } else {
+    a.UH = a.Ho; a.UW = a.Wo;
+    a.nb = a.ph = a.pw = a.tiles_h = a.tiles_w = a.cs = 0;
+    blocks = (cols + BN - 1) / BN;
+  }
+  a.ys = repro::layout_strides(dst_nchw, N, Co, a.UH, a.UW);
+  if (cols <= 0 || Co <= 0) return static_cast<int>(cudaGetLastError());
+  if (smem + kStaticBytes > kSmemMax || blocks > 0x7fffffffLL ||
+      (bm != 64 && bm != 128))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nblk = static_cast<int>(blocks);
+  cudaError_t e;
+  if (bm == 64)
+    e = pool ? launch<64, true>(a, nblk, smem, st)
+             : launch<64, false>(a, nblk, smem, st);
+  else
+    e = pool ? launch<128, true>(a, nblk, smem, st)
+             : launch<128, false>(a, nblk, smem, st);
+  return static_cast<int>(e);
 }

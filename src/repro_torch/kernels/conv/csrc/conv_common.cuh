@@ -1,7 +1,7 @@
-// Fused convolution shared by the two conv engines (conv_chwn.cu,
-// conv_nchw.cu): conv -> +bias -> +residual -> ReLU -> max/avg pool, read
-// in the producer's layout and written in the consumer's layout, fp32 FMA
-// on the CUDA cores with fp32 accumulation.
+// The fused convolution of the NCHW engine K2 (conv_nchw.cu): conv ->
+// +bias -> +residual -> ReLU -> max/avg pool, read in the producer's layout
+// and written in the consumer's layout, fp32 FMA on the CUDA cores with
+// fp32 accumulation.  Strides and layout_strides also serve K1, K5 and K6.
 //
 // The conv is an implicit GEMM: out[co, col] = sum_k w[co, k] * P[k, col],
 // k = (ci, dy, dx) over Ci*F*F, where P is the im2col patch matrix.  P is
@@ -23,18 +23,16 @@
 // there.  Windows that overlap (AlexNet's 3/2) are recomputed by each unit
 // that owns them: 2.25x the conv FLOPs for 3/2, none for 2/2.
 //
-// The two engines differ in the order of the units, which is the order of
-// a warp's gathers and stores: the CHWN engine puts n fastest (coalesced
-// in CHWN), the NCHW engine the output column (coalesced along W in NCHW).
-// Every tensor is addressed through four element strides, one per logical
-// dim (n, c, h, w), so a src/dst/residual layout fold is a stride choice,
-// not a code path; a fold against the engine's order (NCHW input or output
-// on the CHWN engine) reads or writes with stride C*H*W between
-// neighbouring threads, served by L1/L2.
+// The units run with the output column fastest, which is the order of a
+// warp's gathers and stores: coalesced along W in NCHW.  Every tensor is
+// addressed through four element strides, one per logical dim (n, c, h,
+// w), so a src/dst/residual layout fold is a stride choice, not a code
+// path; a fold against the engine's order (a CHWN input or output) reads
+// or writes with stride N between neighbouring threads, served by L1/L2.
 //
 // The save_act output (training).  With ``z`` given, the kernel also writes
 // the conv output after bias, residual and ReLU and before the pool, in
-// the engine's own layout (CHWN for K1, NCHW for K2): the activation the
+// NCHW, the engine's own layout: the activation the
 // backward pass needs for its ReLU mask and its max-pool routing.  With a
 // pool, the block writes z from its finished tile; where windows overlap
 // (3/2), a conv output that several units recompute is written by one of
@@ -68,7 +66,7 @@ inline Strides layout_strides(bool nchw, int N, int C, int H, int W) {
 
 struct ConvArgs {
   const float* x;
-  const float* w;     // addressed as w[co * wsO + k * wsK], k = (ci,dy,dx)
+  const float* w;     // [Co, K], k = (ci, dy, dx)
   const float* bias;  // [Co] or null
   const float* res;   // conv-output (pre-pool) shape, or null
   float* y;
@@ -79,7 +77,6 @@ struct ConvArgs {
   int units;      // N * UH * UW
   int pF, pS, pool_avg, relu;  // pF == 0: no pool
   int T, BU;      // taps per unit, units per block
-  int wsO, wsK;
   Strides xs, ys, rs, zs;
 };
 
@@ -89,24 +86,16 @@ struct Column {
   bool ok;
 };
 
-template <bool N_FASTEST>
 __device__ __forceinline__ Column column(const ConvArgs& a, int bx, int c) {
   Column col;
   const int t = c / a.BU;
   const int u = bx * a.BU + (c - t * a.BU);
   col.ok = t < a.T && u < a.units;
   const int uu = col.ok ? u : 0;
-  if (N_FASTEST) {
-    col.n = uu % a.N;
-    const int r = uu / a.N;
-    col.uw = r % a.UW;
-    col.uh = r / a.UW;
-  } else {
-    col.uw = uu % a.UW;
-    const int r = uu / a.UW;
-    col.uh = r % a.UH;
-    col.n = r / a.UH;
-  }
+  col.uw = uu % a.UW;
+  const int r = uu / a.UW;
+  col.uh = r % a.UH;
+  col.n = r / a.UH;
   if (a.pF > 0) {  // tap t of the unit's pool window
     const int tt = col.ok ? t : 0;
     col.oh = col.uh * a.pS + tt / a.pF;
@@ -118,7 +107,7 @@ __device__ __forceinline__ Column column(const ConvArgs& a, int bx, int c) {
   return col;
 }
 
-template <bool N_FASTEST, bool POOL>
+template <bool POOL>
 __global__ void __launch_bounds__(kThreads)
 conv_gemm_kernel(const ConvArgs a) {
   __shared__ __align__(16) float As[BK][BM + 4];
@@ -132,19 +121,18 @@ conv_gemm_kernel(const ConvArgs a) {
   const int co0 = blockIdx.y * BM;
 
   // the column this thread gathers from x, and where it is in k
-  const Column g = column<N_FASTEST>(a, bx, tid);
+  const Column g = column(a, bx, tid);
   const float* xcol = a.x + (long long)g.n * a.xs.n;
   const int ih0 = g.oh * a.S - a.pad, iw0 = g.ow * a.S - a.pad;
   int kci = 0, kdy = 0, kdx = 0;  // (ci, dy, dx) of the next k to gather
 
   float rb[BK], ra[kWeightsPerThread];
-  // weights: the CHWN engine's w is [K, Co] (co fastest), the NCHW
-  // engine's [Co, K] (k fastest); neighbouring threads read neighbouring
-  // addresses either way
+  // weights: w is [Co, K] (k fastest), so neighbouring threads read
+  // neighbouring k
   auto weight_slot = [&](int i, int& m, int& kk) {
     const int e = tid + i * kThreads;
-    m = N_FASTEST ? e % BM : e / BK;
-    kk = N_FASTEST ? e / BM : e % BK;
+    m = e / BK;
+    kk = e % BK;
   };
   auto gather = [&](int k0) {
 #pragma unroll
@@ -168,7 +156,7 @@ conv_gemm_kernel(const ConvArgs a) {
       weight_slot(i, m, kk);
       const int co = co0 + m, k = k0 + kk;
       ra[i] = (co < a.Co && k < a.K)
-                  ? __ldg(a.w + (long long)co * a.wsO + (long long)k * a.wsK)
+                  ? __ldg(a.w + (long long)co * a.K + k)
                   : 0.f;
     }
   };
@@ -222,7 +210,7 @@ conv_gemm_kernel(const ConvArgs a) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int c = j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4);
-    const Column col = column<N_FASTEST>(a, bx, c);
+    const Column col = column(a, bx, c);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const int m = i < 4 ? ty * 4 + i : 32 + ty * 4 + (i - 4);
@@ -256,7 +244,7 @@ conv_gemm_kernel(const ConvArgs a) {
     const float area = (float)(a.pF * a.pF);
     for (int e = tid; e < BM * a.BU; e += kThreads) {
       const int m = e / a.BU, ul = e - m * a.BU;
-      const Column col = column<N_FASTEST>(a, bx, ul);  // tap 0 of unit ul
+      const Column col = column(a, bx, ul);  // tap 0 of unit ul
       const int co = co0 + m;
       if (!col.ok || co >= a.Co) continue;
       float r = a.pool_avg ? 0.f : -INFINITY;
@@ -268,56 +256,6 @@ conv_gemm_kernel(const ConvArgs a) {
           col.uh * a.ys.h + col.uw * a.ys.w] = a.pool_avg ? r / area : r;
     }
   }
-}
-
-// Shared host entry: fills ConvArgs and launches.  Each engine passes its
-// weight layout as (wsO, wsK); z (or null) is [N, Co, Ho, Wo] in the
-// engine's layout.  Returns cudaGetLastError().
-template <bool N_FASTEST>
-int conv_forward(const void* x, const void* w, const void* bias,
-                 const void* res, void* y, void* z, int N, int Ci, int H,
-                 int W, int Co, int F, int S, int pad, int pool_F, int pool_S,
-                 int pool_avg, int relu, int src_nchw, int dst_nchw,
-                 int res_nchw, int wsO, int wsK, void* stream) {
-  ConvArgs a;
-  a.x = static_cast<const float*>(x);
-  a.w = static_cast<const float*>(w);
-  a.bias = static_cast<const float*>(bias);
-  a.res = static_cast<const float*>(res);
-  a.y = static_cast<float*>(y);
-  a.z = static_cast<float*>(z);
-  a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Co = Co; a.F = F; a.S = S;
-  a.pad = pad;
-  a.K = Ci * F * F;
-  a.Ho = (H + 2 * pad - F) / S + 1;
-  a.Wo = (W + 2 * pad - F) / S + 1;
-  a.pF = pool_F; a.pS = pool_S; a.pool_avg = pool_avg; a.relu = relu;
-  a.wsO = wsO; a.wsK = wsK;
-  a.xs = layout_strides(src_nchw, N, Ci, H, W);
-  a.rs = layout_strides(res_nchw, N, Co, a.Ho, a.Wo);
-  a.zs = layout_strides(!N_FASTEST, N, Co, a.Ho, a.Wo);
-  const bool pool = pool_F > 0;
-  if (pool) {
-    a.UH = (a.Ho - pool_F) / pool_S + 1;
-    a.UW = (a.Wo - pool_F) / pool_S + 1;
-    a.T = pool_F * pool_F;
-  } else {
-    a.UH = a.Ho;
-    a.UW = a.Wo;
-    a.T = 1;
-  }
-  if (a.T > BN) return static_cast<int>(cudaErrorInvalidValue);
-  a.BU = BN / a.T;
-  a.units = N * a.UH * a.UW;
-  a.ys = layout_strides(dst_nchw, N, Co, a.UH, a.UW);
-  if (a.units <= 0 || Co <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((a.units + a.BU - 1) / a.BU, (Co + BM - 1) / BM);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (pool)
-    conv_gemm_kernel<N_FASTEST, true><<<grid, kThreads, 0, st>>>(a);
-  else
-    conv_gemm_kernel<N_FASTEST, false><<<grid, kThreads, 0, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace repro

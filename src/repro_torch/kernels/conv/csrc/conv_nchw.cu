@@ -12,8 +12,8 @@
 // x is [N,Ci,H,W] or [Ci,H,W,N]; w is canonical [Co,Ci,F,F]; y is
 // [N,Co,Ho',Wo'] or [Co,Ho',Wo',N].
 //
-// What bounds it on an H100: as for K1, the fp32 FMA rate of the CUDA
-// cores at the paper's shapes.  A block multiplies a 64-filter x 128-column
+// What bounds it on an H100: the fp32 FMA rate of the CUDA cores at the
+// paper's shapes.  A block multiplies a 64-filter x 128-column
 // tile through shared memory, each thread an 8 x 8 register tile of it
 // (conv_common.cuh), and the output column is the fastest GEMM column, so
 // a warp's NCHW gathers and stores run along W.  No tensor cores (fp32
@@ -25,6 +25,10 @@
 // (conv_common.cuh says how overlapping windows share the writes).
 #include "conv_common.cuh"
 
+using namespace repro;
+
+// w [Co, Ci, F, F] is [Co, K]; z (or null) is [N, Co, Ho, Wo].  Returns
+// cudaGetLastError().
 extern "C" int conv_nchw_forward(const void* x, const void* w,
                                  const void* bias, const void* res, void* y,
                                  void* z, int N, int Ci, int H, int W, int Co,
@@ -32,9 +36,42 @@ extern "C" int conv_nchw_forward(const void* x, const void* w,
                                  int pool_S, int pool_avg, int relu,
                                  int src_nchw, int dst_nchw, int res_nchw,
                                  void* stream) {
-  // w [Co, Ci, F, F] is [Co, K]
-  return repro::conv_forward<false>(x, w, bias, res, y, z, N, Ci, H, W, Co,
-                                    F, S, pad, pool_F, pool_S, pool_avg, relu,
-                                    src_nchw, dst_nchw, res_nchw,
-                                    /*wsO=*/Ci * F * F, /*wsK=*/1, stream);
+  ConvArgs a;
+  a.x = static_cast<const float*>(x);
+  a.w = static_cast<const float*>(w);
+  a.bias = static_cast<const float*>(bias);
+  a.res = static_cast<const float*>(res);
+  a.y = static_cast<float*>(y);
+  a.z = static_cast<float*>(z);
+  a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Co = Co; a.F = F; a.S = S;
+  a.pad = pad;
+  a.K = Ci * F * F;
+  a.Ho = (H + 2 * pad - F) / S + 1;
+  a.Wo = (W + 2 * pad - F) / S + 1;
+  a.pF = pool_F; a.pS = pool_S; a.pool_avg = pool_avg; a.relu = relu;
+  a.xs = layout_strides(src_nchw, N, Ci, H, W);
+  a.rs = layout_strides(res_nchw, N, Co, a.Ho, a.Wo);
+  a.zs = layout_strides(true, N, Co, a.Ho, a.Wo);
+  const bool pool = pool_F > 0;
+  if (pool) {
+    a.UH = (a.Ho - pool_F) / pool_S + 1;
+    a.UW = (a.Wo - pool_F) / pool_S + 1;
+    a.T = pool_F * pool_F;
+  } else {
+    a.UH = a.Ho;
+    a.UW = a.Wo;
+    a.T = 1;
+  }
+  if (a.T > BN) return static_cast<int>(cudaErrorInvalidValue);
+  a.BU = BN / a.T;
+  a.units = N * a.UH * a.UW;
+  a.ys = layout_strides(dst_nchw, N, Co, a.UH, a.UW);
+  if (a.units <= 0 || Co <= 0) return static_cast<int>(cudaGetLastError());
+  const dim3 grid((a.units + a.BU - 1) / a.BU, (Co + BM - 1) / BM);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (pool)
+    conv_gemm_kernel<true><<<grid, kThreads, 0, st>>>(a);
+  else
+    conv_gemm_kernel<false><<<grid, kThreads, 0, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -63,9 +63,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/mma.cuh"
 #include "conv_common.cuh"  // Strides, layout_strides
 
 namespace {
+
+using namespace repro::mma;
 
 constexpr int kConsumers = 256;     // two warpgroups: the mma
 constexpr int kProducers = 256;     // two warpgroups: the copies
@@ -90,57 +93,11 @@ struct WgradArgs {
   repro::Strides xs, gs;
 };
 
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// v = big + small: big is v rounded to TF32 (10 mantissa bits) to nearest
-// with ties away from zero (half an ulp added to the magnitude, the low 13
-// bits cleared), small the exact rest, which mma reads truncated to TF32
-__device__ __forceinline__ void split_tf32(float v, unsigned& big,
-                                           unsigned& small) {
-  big = (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-  small = __float_as_uint(v - __uint_as_float(big));
-}
-
-// d = a . b + c on one m16n8k8 TF32 tile, fp32 accumulation
-__device__ __forceinline__ void mma_tf32(float (&d)[4],
-                                         const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1, const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
 template <int BM, int BN>
 constexpr int smem_bytes() {
   return kStages * (BM + BN) * kRow * static_cast<int>(sizeof(float));
 }
 
-// named barrier `id` over `n` threads: arrive without waiting, or wait
-__device__ __forceinline__ void bar_arrive(int id, int n) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
 // stage s of the ring: FULL (its slice landed) and EMPTY (its slice was
 // multiplied) barriers; barrier 0 is __syncthreads
 __device__ __forceinline__ int full_bar(int s) { return 1 + s; }

@@ -52,9 +52,23 @@ _ENTRY = {"CHWN": "conv_chwn_forward", "NCHW": "conv_nchw_forward"}
 _WEIGHT_SHAPE = {"CHWN": "[Ci,F,F,Co]", "NCHW": "[Co,Ci,F,F]"}
 _STACK_ENTRY = {"CHWN": "conv_stack_chwn_forward",
                 "NCHW": "conv_stack_nchw_forward"}
-# a block holds every tap of a pool window among its 128 GEMM columns
+# K2's block holds every tap of a pool window among its 128 GEMM columns
 # (BN in csrc/conv_common.cuh)
 _MAX_POOL_TAPS = 128
+SMEM_PER_BLOCK = 232448   # 227 KB: the most shared memory an H100 block has
+_SMS = 132                # H100 SXM streaming multiprocessors
+# the design constants of csrc/conv_chwn.cu (K1)
+_K1_BN = 128              # GEMM columns of a pass
+_K1_BK = 32               # reduction slice
+_K1_STAGES = 3            # cp.async ring depth
+_K1_PAD = 8               # shared row stride = width + 8 floats
+_K1_BMS = (64, 128)       # output channels of a block
+# what a slice of a 64-row tile costs beside a 128-row one's (half the
+# work, but the same fragment loads feed half the mma): modeled, and set so
+# that AlexNet's 3/2 layers take the 64-row rectangles that
+# tools/kernel_variants.py --tiles times fastest on the card
+_K1_BM64_COST = 0.55
+_K1_FILL = 2              # pipeline fill and pool of a block, in slices
 
 
 def _dims(x: torch.Tensor, layout: str) -> Tuple[int, int, int, int]:
@@ -127,6 +141,112 @@ def _ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+@dataclass(frozen=True)
+class ConvTiling:
+    """How K1 cuts one launch: ``bm`` output channels by, without a pool
+    (``nb == 0``), 128 consecutive columns (conv outputs, n fastest) a
+    block, or, with a pool, the conv outputs under ``ph`` x ``pw`` pooled
+    outputs of ``nb`` images (a rectangle; neighbouring rectangles share
+    ``pF - pS`` rows and columns of conv outputs, computed by both).  What
+    that costs: ``blocks``, the shared memory of one block, and the FLOPs
+    the blocks execute (2*K for every conv output of every block, on every
+    one of its channels below Co; tile padding not counted) beside
+    ``direct_flops`` (every conv output once)."""
+    bm: int
+    nb: int
+    ph: int
+    pw: int
+    blocks: int
+    smem_bytes: int
+    executed_flops: int
+    direct_flops: int
+
+
+def _k1_smem(bm: int, cmax: int) -> int:
+    """One K1 block's shared memory (``conv_chwn_forward``): the ring, with
+    a pool the [bm][cs] conv tile of ``cmax`` columns, and the static table
+    of column offsets."""
+    ring = _K1_STAGES * _K1_BK * (bm + _K1_PAD + _K1_BN + _K1_PAD)
+    cs = -(-cmax // 32) * 32 + 8 if cmax else 0
+    return 4 * (ring + bm * cs + 3 * _K1_BN)
+
+
+def _spans(U: int, t: int) -> Tuple[Tuple[int, int], ...]:
+    """(size, count) of the tiles of ``t`` along ``U``: full ones, then the
+    rest."""
+    out = ((t, U // t),) if U // t else ()
+    return out + (((U % t, 1),) if U % t else ())
+
+
+@functools.lru_cache(maxsize=None)
+def conv_tiling(N: int, Ci: int, H: int, W: int, Co: int, F: int, S: int,
+                pad: int, pool: Optional[Tuple[int, int, str]] = None
+                ) -> ConvTiling:
+    """K1's block tile.  Without a pool: 128 consecutive columns by 128
+    output channels (64 where Co <= 64).  With a pool: the rectangle of
+    pooled outputs (and ``bm``) with the least modeled time among those
+    whose conv tile fits a block's shared memory, ``nb`` at least 8 images
+    (or all of them) where one fits, so a run of 8 columns is 32 bytes of a
+    CHWN row.  The modeled time is the waves of resident blocks (one an
+    SM) times the mean block's slices: the 8-column groups of each pass
+    that hold a column, a 64-row slice weighed ``_K1_BM64_COST``, plus
+    ``_K1_FILL``.  Raises ``ValueError`` when no rectangle fits."""
+    Ho, Wo = conv_out_hw(H, F, S, pad), conv_out_hw(W, F, S, pad)
+    K = Ci * F * F
+    direct = 2 * K * Co * N * Ho * Wo
+    if pool is None:
+        bm = 64 if Co <= 64 else 128
+        blocks = -(-(N * Ho * Wo) // _K1_BN) * -(-Co // bm)
+        return ConvTiling(bm, 0, 0, 0, blocks, _k1_smem(bm, 0), direct,
+                          direct)
+    pF, pS = pool[0], pool[1]
+    UH, UW = pool_out_hw(Ho, pF, pS), pool_out_hw(Wo, pF, pS)
+    kslices = -(-K // _K1_BK)
+    best, best_key = None, None
+    for bm in _K1_BMS:
+        co_tiles = -(-Co // bm)
+        eff = _K1_BM64_COST if bm == 64 else 1.0
+        for nb in sorted({min(N, v) for v in (1, 2, 4, 8, 16, 32)}):
+            ns = _spans(N, nb)
+            for ph in range(1, UH + 1):
+                rh = (ph - 1) * pS + pF
+                if _k1_smem(bm, nb * rh * pF) > SMEM_PER_BLOCK:
+                    break
+                hs = [((t - 1) * pS + pF, c) for t, c in _spans(UH, ph)]
+                for pw in range(1, UW + 1):
+                    rw = (pw - 1) * pS + pF
+                    smem = _k1_smem(bm, nb * rh * rw)
+                    if smem > SMEM_PER_BLOCK:
+                        break
+                    ws = [((t - 1) * pS + pF, c) for t, c in _spans(UW, pw)]
+                    tiles = work = 0
+                    for nbt, cn in ns:
+                        for rht, ch in hs:
+                            for rwt, cw in ws:
+                                C, n = nbt * rht * rwt, cn * ch * cw
+                                groups = sum(-(-min(_K1_BN, C - c0) // 8)
+                                             for c0 in range(0, C, _K1_BN))
+                                tiles += n
+                                work += n * (groups * 8 / _K1_BN * kslices
+                                             * eff + _K1_FILL)
+                    blocks = tiles * co_tiles
+                    executed = (2 * K * Co * N * sum(r * c for r, c in hs)
+                                * sum(r * c for r, c in ws))
+                    waves = -(-blocks // _SMS)
+                    key = (nb < min(8, N), waves * work / tiles, executed,
+                           smem)
+                    if best_key is None or key < best_key:
+                        best_key = key
+                        best = ConvTiling(bm, nb, ph, pw, blocks, smem,
+                                          executed, direct)
+    if best is None:
+        raise ValueError(
+            f"conv_direct_chwn: no block tile of the {Ho}x{Wo} conv output "
+            f"under pool {pool} fits the {SMEM_PER_BLOCK} bytes of shared "
+            "memory a block can use")
+    return best
+
+
 def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
             F: int, stride: int, pad: int, bias, relu: bool, pool, res,
             res_layout: str, src_layout: str, dst_layout: str,
@@ -150,11 +270,16 @@ def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
         z = (torch.empty if covered else torch.zeros)(
             _shape(engine, N, Co, Ho, Wo), device=x.device,
             dtype=torch.float32)
+    tile = ()
+    if engine == "CHWN":
+        t = conv_tiling(N, Ci, H, W, Co, F, stride, pad,
+                        tuple(pool) if pool else None)
+        tile = (t.bm, t.nb, t.ph, t.pw)
     err = getattr(_build.library(), entry)(
         x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(res), y.data_ptr(),
         _ptr(z), N, Ci, H, W, Co, F, stride, pad, pF, pS, avg, int(relu),
         int(src_layout == "NCHW"), int(dst_layout == "NCHW"),
-        int(res_layout == "NCHW"), _build.stream_of(x.device))
+        int(res_layout == "NCHW"), *tile, _build.stream_of(x.device))
     _build.check(name, err)
     wrapper.launches += 1
     return (y, z) if save_act else y
@@ -328,8 +453,6 @@ _CL_BK = 16               # reduction slice of both phases
 _CL_CM = 64               # mid channels per chunk
 _CL_PASS = 128            # mid positions of a conv1 pass (a 64-wide tail)
 _CL_MAX = 8               # the portable cluster size
-SMEM_PER_BLOCK = 232448   # 227 KB: the most shared memory an H100 block has
-_SMS = 132                # H100 SXM streaming multiprocessors
 # clusters of 1..8 blocks resident at once on an H100 SXM at one block an
 # SM (cudaOccupancyMaxActiveClusters of K5a, conv_stack_chwn_max_clusters;
 # the SMs of a GPC that no whole cluster fills stay idle)

@@ -25,21 +25,30 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.crossentropy.ref import xent_ref
 
-_TILE = 128               # tokens and vocab columns a block tile holds
+_TILE = 128               # tokens and vocab rows a block tile holds
 _SMS = 132                # H100 SXM streaming multiprocessors
-_TARGET_BLOCKS = 16 * _SMS
 _MAX_GRID_Y = 65535
+# a block's pipeline fill and final combine, in vocab tiles (modeled)
+_FILL_TILES = 0.5
 
 
 def xent_splits(T: int, V: int) -> Tuple[int, int]:
-    """(vocab tiles per split, splits) for T tokens and V columns: enough
-    splits that the (token tile, split) grid holds ~16 blocks an SM, each
-    split a contiguous run of 128-column vocab tiles, none empty."""
+    """(vocab tiles per split, splits) for T tokens and V columns: the
+    split whose (token tile, split) grid has the least modeled time, the
+    waves of resident blocks (one an SM: the kernel's 128 KB ring) times a
+    block's vocab tiles plus ``_FILL_TILES``; each split a contiguous run of
+    128-row vocab tiles, none empty, fewer splits on a tie."""
     t_tiles, v_tiles = -(-T // _TILE), -(-V // _TILE)
-    want = min(v_tiles, _MAX_GRID_Y,
-               max(1, -(-_TARGET_BLOCKS // max(t_tiles, 1))))
-    per = -(-v_tiles // want)
-    return per, -(-v_tiles // per)
+    t_tiles = max(t_tiles, 1)
+    best = None
+    for per in range(1, v_tiles + 1):
+        splits = -(-v_tiles // per)
+        if splits > _MAX_GRID_Y or -(-v_tiles // splits) != per:
+            continue   # too many, or the same ranges as a smaller per
+        cost = -(-(t_tiles * splits) // _SMS) * (per + _FILL_TILES)
+        if best is None or (cost, splits) < best[0]:
+            best = ((cost, splits), per, splits)
+    return best[1], best[2]
 
 
 def fused_xent(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,

@@ -48,7 +48,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "../../csrc/mma.cuh"
+
 namespace {
+
+using namespace repro::mma;
 
 constexpr int kThreads = 128;
 constexpr int BQ = 64;             // query rows per block
@@ -64,24 +68,6 @@ struct FlashArgs {
   float scale;
   int vec;  // rows 16-byte aligned: cp.async 16 bytes, else element loads
 };
-
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 template <int ROWS = BQ>
 __device__ __forceinline__ int first_q_tile(const FlashArgs& a) {
@@ -284,13 +270,6 @@ flash_f32_kernel(const FlashArgs a) {
 
 // ========================= bf16: tensor cores ============================
 
-// element offset of 16-byte chunk c of row r in a [rows][DT] bf16 tile
-// whose chunk index is XORed with r mod 8
-template <int DT>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * DT + ((c ^ (r & 7)) << 3);
-}
-
 template <int DT>
 __host__ __device__ constexpr int bkv_bf16() {
   return DT <= 128 ? 64 : 32;
@@ -334,36 +313,6 @@ __device__ __forceinline__ void load_bf16(__nv_bfloat16* dst,
                                        : __float2bfloat16(0.f);
     }
   }
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-// c += a (16 x 16, row) * b (16 x 8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
-                                         unsigned b0, unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 template <int DT>

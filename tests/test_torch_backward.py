@@ -45,6 +45,8 @@ from repro_torch.kernels.conv.backward import (bias_grad, conv_dgrad,
 from repro_torch.kernels.pool.backward import (band_windows, pool_backward,
                                                pool_backward_band)
 from repro_torch.kernels.softmax.ops import softmax, softmax_xent
+from repro_torch.kernels.tf32 import rna_tf32 as _rna_tf32
+from repro_torch.kernels.tf32 import trunc_tf32 as _trunc_tf32
 from repro_torch.shapes import conv_out_hw, pool_out_hw
 from tests.test_backward import CONV_GRID
 
@@ -350,21 +352,6 @@ def test_softmax_xent_rejects_bad_labels():
 # --------------------------------------------------------------------------
 SMS = 132                      # H100 SXM streaming multiprocessors
 SMEM_PER_BLOCK = 232448        # what one H100 block may use
-
-
-def _rna_tf32(a: torch.Tensor) -> torch.Tensor:
-    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
-    from zero, as ``cvt.rna.tf32.f32`` rounds."""
-    u = a.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    u = (u + 0x1000) & 0xFFFFE000
-    u = torch.where(u >= 2 ** 31, u - 2 ** 32, u)
-    return u.to(torch.int32).view(torch.float32)
-
-
-def _trunc_tf32(a: torch.Tensor) -> torch.Tensor:
-    """fp32 cut to TF32: the tensor core reads the top 19 bits."""
-    u = a.contiguous().view(torch.int32) & -0x2000
-    return u.view(torch.float32)
 
 
 def _wgrad_emulated(g: torch.Tensor, x: torch.Tensor, split: bool):

@@ -22,6 +22,7 @@ import torch
 from repro_torch.core.layout import perm_between
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv import ops as conv_ops
+from repro_torch.kernels.conv.backward import conv_dgrad
 from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref
 from repro_torch.kernels.softmax.ops import softmax
 from repro_torch.kernels.softmax.ref import softmax_ref
@@ -143,6 +144,143 @@ def test_conv_kernel_rejects_what_it_does_not_take(card):
         conv_ops.conv_im2col_nchw_fused(torch.zeros(1, 3, 16, 16,
                                                     device=card), w,
                                         pool=(12, 1, "max"))
+
+
+# --------------------------------------------------------------------------
+# K1 on the tensor cores (3xTF32) with its pooled tiles, at every main-path
+# shape class and a reduced batch
+# --------------------------------------------------------------------------
+K1_TOL = 1e-5   # scale-relative to float64
+
+# (N, Ci, H, Co, F, S, pad, src, dst): AlexNet's conv1, conv2 and conv5 with
+# their 3/2 max pools, as the fused plans and the training forward run them
+K1_ALEXNET = [(16, 3, 227, 96, 11, 4, 0, "NCHW", "CHWN"),
+              (16, 96, 27, 256, 5, 1, 2, "CHWN", "CHWN"),
+              (16, 384, 13, 256, 3, 1, 1, "CHWN", "NCHW")]
+
+
+def _k1_inputs(N, Ci, H, Co, F, S, pad, src, card, seed, res_layout=None):
+    gen = torch.Generator().manual_seed(seed)
+    Ho = (H + 2 * pad - F) // S + 1
+    x = torch.randn(N, Ci, H, H, generator=gen)
+    w = torch.randn(Co, Ci, F, F, generator=gen) / np.sqrt(Ci * F * F)
+    b = torch.randn(Co, generator=gen) * 0.1
+    r = (torch.randn(N, Co, Ho, Ho, generator=gen) if res_layout else None)
+    xs = x.permute(perm_between("NCHW", src)).contiguous().to(card)
+    rr = (r.permute(perm_between("NCHW", res_layout)).contiguous().to(card)
+          if res_layout else None)
+    return xs, w.to(card), b.to(card), rr
+
+
+def _k1_scaled_err(got, want64):
+    return ((got.double() - want64).abs().max()
+            / max(1.0, want64.abs().max().item())).item()
+
+
+@pytest.mark.parametrize("case", K1_ALEXNET, ids=["conv1", "conv2", "conv5"])
+def test_k1_alexnet_pooled_layers_and_save_act(case, card):
+    """y and the save_act z (one writer per conv output, 0 under no window)
+    against the plain version and float64."""
+    N, Ci, H, Co, F, S, pad, src, dst = case
+    x, w, b, _ = _k1_inputs(N, Ci, H, Co, F, S, pad, src, card, 5)
+    kw = dict(bias=b, relu=True, pool=(3, 2, "max"), src_layout=src,
+              dst_layout=dst)
+    wk = w.permute(1, 2, 3, 0).contiguous()
+    before = conv_ops.conv_direct_chwn.launches
+    y, z = conv_ops._conv("CHWN", x, wk, S, pad, save_act=True, **kw)
+    torch.cuda.synchronize()
+    assert conv_ops.conv_direct_chwn.launches == before + 1
+    y_ref, z_ref = conv_ref(x, w, S, pad, save_act=True, act_layout="CHWN",
+                            **kw)
+    torch.testing.assert_close(y, y_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(z, z_ref, rtol=1e-4, atol=1e-3)
+    y64, z64 = conv_ref(x.double(), w.double(), S, pad, save_act=True,
+                        act_layout="CHWN", **{**kw, "bias": b.double()})
+    assert _k1_scaled_err(y, y64) <= K1_TOL
+    assert _k1_scaled_err(z, z64) <= K1_TOL
+
+
+@pytest.mark.parametrize("pool", [None, (3, 2, "max"), (2, 2, "max")],
+                         ids=["nopool", "max3s2", "max2s2"])
+def test_k1_nan_runs_through_relu_and_the_max_pool(pool, card):
+    x, w, b, _ = _k1_inputs(9, 6, 15, 70, 3, 1, 1, "CHWN", card, 6)
+    x[0, 4, 4, 2] = float("nan")     # x is [Ci, H, W, N]
+    x[3, 10, 11, 7] = float("nan")
+    kw = dict(bias=b, relu=True, pool=pool)
+    got = conv_ops.conv_direct_chwn(x, w.permute(1, 2, 3, 0).contiguous(), 1,
+                                    1, **kw)
+    want = conv_ref(x, w, 1, 1, src_layout="CHWN", dst_layout="CHWN", **kw)
+    assert torch.isnan(got).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("src,dst,rlay",
+                         list(itertools.product(("NCHW", "CHWN"), repeat=3)))
+@pytest.mark.parametrize("pool", [None, (3, 2, "max"), (2, 2, "avg")],
+                         ids=["nopool", "max3s2", "avg2s2"])
+def test_k1_every_layout_fold(src, dst, rlay, pool, card):
+    x, w, b, r = _k1_inputs(12, 5, 13, 36, 3, 1, 1, src, card, 7,
+                            res_layout=rlay)
+    kw = dict(bias=b, relu=True, pool=pool, res=r, res_layout=rlay,
+              src_layout=src, dst_layout=dst)
+    got = conv_ops.conv_direct_chwn(x, w.permute(1, 2, 3, 0).contiguous(), 1,
+                                    1, **kw)
+    torch.testing.assert_close(got, conv_ref(x, w, 1, 1, **kw), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("N", [1, 3, 33, 130])
+@pytest.mark.parametrize("Co", [5, 70, 129])
+@pytest.mark.parametrize("pool", [None, (3, 2, "max")],
+                         ids=["nopool", "max3s2"])
+def test_k1_ragged_batch_and_channels(N, Co, pool, card):
+    x, w, b, _ = _k1_inputs(N, 4, 11, Co, 3, 1, 0, "CHWN", card, N + Co)
+    kw = dict(bias=b, relu=False, pool=pool)
+    got = conv_ops.conv_direct_chwn(x, w.permute(1, 2, 3, 0).contiguous(), 1,
+                                    0, **kw)
+    want = conv_ref(x, w, 1, 0, src_layout="CHWN", dst_layout="CHWN", **kw)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("Ci,F", [(3, 3), (3, 5), (3, 11), (5, 1), (7, 7)],
+                         ids=lambda v: str(v))
+def test_k1_reductions_that_are_no_multiple_of_the_slice(Ci, F, card):
+    """Ci*F*F = 27, 75, 363, 5, 343: the last 32-deep slice is ragged."""
+    x, w, b, _ = _k1_inputs(8, Ci, 23, 64, F, 2, F // 2, "CHWN", card, F)
+    got = conv_ops.conv_direct_chwn(x, w.permute(1, 2, 3, 0).contiguous(), 2,
+                                    F // 2)
+    want64 = conv_ref(x.double(), w.double(), 2, F // 2, src_layout="CHWN",
+                      dst_layout="CHWN")
+    assert _k1_scaled_err(got, want64) <= K1_TOL
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("g_layout,dst", [("CHWN", "CHWN"),
+                                          ("CHWN", "NCHW")])
+def test_k1_dgrad_at_every_stride(S, g_layout, dst, card):
+    """dgrad on K1 (the stride-1 conv of the dilated gradient) against
+    float64 and ``conv2d_input``."""
+    N, Ci, H, Co, F, pad = 6, 16, 19, 40, (5 if S < 4 else 11), 2
+    Ho = (H + 2 * pad - F) // S + 1
+    gen = torch.Generator().manual_seed(S)
+    g = torch.randn(N, Co, Ho, Ho, generator=gen)
+    w = torch.randn(Co, Ci, F, F, generator=gen) / np.sqrt(Ci * F * F)
+    gl = g.permute(perm_between("NCHW", g_layout)).contiguous().to(card)
+    before = conv_ops.conv_direct_chwn.launches
+    dx = conv_dgrad(gl, w.to(card), (H, H), S, pad, layout="CHWN",
+                    g_layout=g_layout, dst_layout=dst)
+    torch.cuda.synchronize()
+    assert conv_ops.conv_direct_chwn.launches == before + 1
+    want64 = torch.nn.grad.conv2d_input((N, Ci, H, H), w.double(),
+                                        g.double(), stride=S, padding=pad)
+    got = dx.permute(perm_between(dst, "NCHW")).cpu()
+    assert _k1_scaled_err(got, want64) <= K1_TOL
+    torch.testing.assert_close(
+        got, torch.nn.grad.conv2d_input((N, Ci, H, H), w, g, stride=S,
+                                        padding=pad),
+        rtol=1e-4, atol=1e-3)
 
 
 @pytest.mark.parametrize("shape", [(1, 10), (5, 37), (32, 1000),

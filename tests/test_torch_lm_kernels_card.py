@@ -224,3 +224,59 @@ def test_fused_xent_labels_that_hit_no_column(card):
     torch.testing.assert_close(got[:5], lse[:5], rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got, xent_ref(h, table, labels), rtol=1e-4,
                                atol=1e-4)
+
+
+# K12 on the tensor cores: (T, V, D, softcap) with T and V no multiple of
+# the 128 x 128 tile (T 1, 130; V 1000, 50257) and D no multiple of a
+# stage's 64 bf16 / 32 fp32 (D 72, 200)
+XENT_TC_CASES = [(1, 1000, 72, None), (130, 1000, 200, 30.0),
+                 (1, 50257, 200, None), (130, 50257, 72, 30.0)]
+
+
+def _xent_inputs(T, V, D, dtype, card, seed):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    h = torch.randn(T, D, device=card, generator=gen).to(dtype)
+    table = (torch.randn(V, D, device=card, generator=gen) * 0.02).to(dtype)
+    labels = torch.randint(0, V, (T,), device=card, generator=gen)
+    return h, table, labels
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("case", XENT_TC_CASES, ids=str)
+def test_fused_xent_tensor_core_tiles_match_plain_and_float64(case, dtype,
+                                                              card):
+    T, V, D, cap = case
+    h, table, labels = _xent_inputs(T, V, D, dtype, card, T + V + D)
+    got = _counted("fused_xent", lambda: fused_xent(h, table, labels, cap))
+    rtol, atol = _tol(dtype, (1e-4, 1e-4))
+    torch.testing.assert_close(got, xent_ref(h, table, labels, cap),
+                               rtol=rtol, atol=atol)
+    z = h.double() @ table.double().T          # float64 logits
+    if cap is not None:
+        z = cap * torch.tanh(z / cap)
+    want64 = torch.logsumexp(z, -1) - z.gather(1, labels[:, None])[:, 0]
+    torch.testing.assert_close(got.double(), want64, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fused_xent_three_runs_bitwise_equal_on_the_tensor_cores(dtype,
+                                                                 card):
+    h, table, labels = _xent_inputs(130, 50257, 200, dtype, card, 21)
+    runs = [_counted("fused_xent", lambda: fused_xent(h, table, labels, 30.0))
+            for _ in range(3)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+def test_fused_xent_labels_outside_the_vocab_on_the_tensor_cores(dtype,
+                                                                 card):
+    h, table, _ = _xent_inputs(130, 1000, 72, dtype, card, 22)
+    labels = torch.arange(130, device=card) * 17 - 600   # -600 .. 1593
+    got = _counted("fused_xent", lambda: fused_xent(h, table, labels, 30.0))
+    rtol, atol = _tol(dtype, (1e-4, 1e-4))
+    torch.testing.assert_close(got, xent_ref(h, table, labels, 30.0),
+                               rtol=rtol, atol=atol)
+    out = (labels < 0) | (labels >= 1000)
+    z = 30.0 * torch.tanh(h.float() @ table.float().T / 30.0)
+    torch.testing.assert_close(got[out], torch.logsumexp(z, -1)[out],
+                               rtol=rtol, atol=atol)

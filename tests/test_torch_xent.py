@@ -125,7 +125,8 @@ def test_fused_xent_refuses_bad_arguments():
 
 
 @pytest.mark.parametrize("T,V", [(4096, 152064), (1024, 256000), (1, 10),
-                                 (130, 513), (100000, 129)])
+                                 (130, 513), (100000, 129), (1, 1000),
+                                 (130, 50257), (1, 1), (4096, 1)])
 def test_vocab_splits_cover_the_vocab_without_empty_splits(T, V):
     per, splits = xent_splits(T, V)
     v_tiles = -(-V // 128)
