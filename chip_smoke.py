@@ -20,7 +20,12 @@
    more counting the FLOPs its blocks execute and the cluster they ran in,
    which must equal
    ``stack_tiling``'s; the line shows the cluster, executed/direct FLOPs,
-   the executed TFLOP/s and how many clusters the card holds at once.
+   the executed TFLOP/s and how many clusters the card holds at once.  K5b
+   (3xTF32 on the tensor cores) runs once more counting the FLOPs its
+   blocks execute, which must equal ``stack_tiling``'s, and that output is
+   held within 1e-5 scale-relative of a float64 run of its plain version;
+   its line adds the counted FLOPs, that error, the executed TFLOP/s,
+   executed/direct, its tile and the bound of its own design.
 3. Serving phase, the main path, each path with the launch counts zeroed
    just before it and read just after, through ``CNNServer(reduced=False)``
    at full width:
@@ -88,8 +93,11 @@
    ``conv_forward(impl="fft")``; counts zeroed before and read after (12
    each of K10, K2, K1); each engine held against ``conv_ref`` (FFT at
    rtol 1e-3 / atol 1e-2), timed beside cuDNN, with the baseline's peak
-   device memory.  The K1/K2 launches of this phase join their kernels'
-   rows.
+   device memory.  K10 (3xTF32 on the tensor cores) is also held within
+   1e-5 scale-relative of the float64 product on every layer; its line
+   adds that error, its TFLOP/s, the bound of its own design and its tile
+   and split of K (``matmul_tiling``).  The K1/K2 launches of this phase
+   join their kernels' rows.
 8. LM kernel phase, the path of K11 and K12, every width from
    ``get_config``: K11 on qwen2-7b's attention (one 4096-token sequence,
    28 heads of 128, its 4 KV heads repeated, causal) in fp32 and bf16 and
@@ -103,9 +111,10 @@
    ``F.scaled_dot_product_attention`` or ``h @ tableᵀ`` +
    ``F.cross_entropy``; a line gives K11's largest bf16 error and every
    case's TFLOP/s.
-9. Prints a "K1 over the main path" and a "K12 over the main path" line in
-   the form of K6's (launches, ms, TFLOP/s, both bounds, library ms, the
-   largest error from float64), then one JSON line of every kernel
+9. Prints "K1 over the main path", "K5b ...", "K10 ..." and "K12 ..." lines
+   in the form of K6's (launches, ms, TFLOP/s, K5b's executed TFLOP/s and
+   executed/direct, both bounds, library ms, the largest error from
+   float64), then one JSON line of every kernel
    (launches, error, times, bound),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
@@ -151,7 +160,9 @@ from repro_torch.kernels.conv.ops import (_conv, conv_direct_chwn,  # noqa: E402
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn,
                                           conv_stack_chwn_counted,
-                                          conv_stack_nchw, conv_tiling,
+                                          conv_stack_nchw,
+                                          conv_stack_nchw_counted,
+                                          conv_tiling,
                                           stack_max_clusters, stack_tiling)
 from repro_torch.kernels.conv.ref import (conv_ref,  # noqa: E402
                                           conv_stack_ref, im2col_nchw,
@@ -162,7 +173,8 @@ from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref)
-from repro_torch.kernels.matmul.ops import matmul  # noqa: E402
+from repro_torch.kernels.matmul.ops import (matmul,  # noqa: E402
+                                            matmul_tiling)
 from repro_torch.kernels.matmul.ref import matmul_ref  # noqa: E402
 from repro_torch.kernels.pool.backward import (  # noqa: E402
     pool_backward_chwn, pool_backward_nchw)
@@ -604,7 +616,7 @@ def conv_case(kern: str, case, dev, seed: int) -> dict:
     if kern == "conv_chwn":
         want64 = conv_ref(x.double(), w.double(), S, pad,
                           **{**kw, "res": r.double() if rlay else None})
-        _k1_fp32_gate(m, [(kernel(), want64)], case)
+        _fp32_gate(m, [(kernel(), want64)], f"K1 {case}")
         _k1_tile(m, case, N, Ci, H, Co, F, S, pad, pool)
     return m
 
@@ -658,6 +670,20 @@ def stack_case(kern: str, case, dev, seed: int) -> dict:
     m.update(executed_flops=float(t.executed_flops),
              smem_bytes=t.smem_bytes, blocks=t.blocks, cluster=t.cluster,
              tile={"bm": t.bm, "nb": t.nb, "uth": t.uth, "utw": t.utw})
+    if engine == "NCHW":
+        # K5b (3xTF32 on the tensor cores) against float64, and the FLOPs
+        # its blocks count against the tiling's
+        y, counted = conv_stack_nchw_counted(x, w1k, w2k, S1, P1, S2, P2,
+                                             **kw)
+        k64 = {**kw, "res": r.double() if rlay else None}
+        _fp32_gate(m, [(y, conv_stack_ref(x.double(), w1.double(),
+                                          w2.double(), S1, P1, S2, P2,
+                                          **k64))], f"K5b {case}")
+        if counted != t.executed_flops:
+            raise AssertionError(
+                f"K5b {case}: the kernel executed {counted} FLOPs; "
+                f"stack_tiling says {t.executed_flops}")
+        m.update(counted_flops=float(counted))
     if engine == "CHWN":
         # K5a counts what its blocks execute and the cluster they ran in
         y, counted, cluster = conv_stack_chwn_counted(
@@ -751,14 +777,14 @@ def _scaled_err(got, want) -> float:
             ).item()
 
 
-def _k1_fp32_gate(m: dict, pairs, case) -> dict:
-    """K1's accuracy gate on the tensor cores: each (kernel output, the
-    same in float64) within ``TC_FP32_TOL`` scale-relative; adds the
-    largest error and the design's own bound (3xTF32: three TF32 products
-    per fp32 one on the tensor cores) to ``m``."""
+def _fp32_gate(m: dict, pairs, what) -> dict:
+    """The accuracy gate of the 3xTF32 kernels (K1, K5b, K10): each (kernel
+    output, the same in float64) within ``TC_FP32_TOL`` scale-relative;
+    adds the largest error and the design's own bound (3xTF32: three TF32
+    products per fp32 one on the tensor cores) to ``m``."""
     err = max(_scaled_err(got, want64) for got, want64 in pairs)
     if err > TC_FP32_TOL:
-        raise AssertionError(f"K1 {case}: {err:.3g} from float64 (scale-"
+        raise AssertionError(f"{what}: {err:.3g} from float64 (scale-"
                              f"relative) > {TC_FP32_TOL}")
     m.update(f64_err=err, design_bound_ms=bound_ms(
         3 * m["flops"], m["bytes"], PEAK_TF32_FLOPS)[0])
@@ -814,7 +840,7 @@ def save_act_case(kern: str, case, dev, seed: int) -> dict:
         y64, z64 = conv_ref(x.double(), w.double(), S, pad, save_act=True,
                             act_layout=engine,
                             **{**kw, "res": r.double() if rlay else None})
-        _k1_fp32_gate(m, [(y, y64), (z, z64)], case)
+        _fp32_gate(m, [(y, y64), (z, z64)], f"K1 {case}")
         _k1_tile(m, case, N, Ci, H, Co, F, S, pad, pool)
     return m
 
@@ -850,9 +876,9 @@ def dgrad_case(kern: str, case, dev, seed: int) -> dict:
     torch.testing.assert_close(kernel().permute(perm_between(dst, "NCHW")),
                                library(), rtol=CONV_RTOL, atol=CONV_ATOL)
     if kern == "conv_chwn":
-        _k1_fp32_gate(m, [(kernel(), conv_ref(gd.double(), wt.double(), 1,
-                                              p, src_layout=g_lay,
-                                              dst_layout=dst))], case)
+        _fp32_gate(m, [(kernel(), conv_ref(gd.double(), wt.double(), 1, p,
+                                           src_layout=g_lay,
+                                           dst_layout=dst))], f"K1 {case}")
     return m
 
 
@@ -1011,10 +1037,14 @@ def kernel_phase(dev):
                      f"smem_per_block={m['smem_bytes']} "
                      f"blocks={m['blocks']} cluster={m['cluster']} "
                      f"tile={m['tile']}")
-            if "counted_flops" in m:
+            if kern == "conv_stack_chwn":
                 extra += (f" counted_GFLOP={m['counted_flops'] / 1e9:.2f} "
                           f"counted_cluster={m['counted_cluster']} "
                           f"resident_clusters={m['resident_clusters']}")
+            else:
+                extra += (f" counted_GFLOP={m['counted_flops'] / 1e9:.2f} "
+                          f"f64_err={m['f64_err']:.3g} "
+                          f"bound_3xtf32_ms={m['design_bound_ms']:.4f}")
         if kern in POOL_KERNELS:
             extra = f" folded_dst_ms={m['folded_ms']:.4f}"
         if kern == "wgrad":
@@ -1508,6 +1538,12 @@ def conv_layer_phase(dev):
                       lambda: matmul_ref(patches, wmat),
                       lambda: torch.matmul(patches, wmat), flops,
                       4.0 * (M * Kd + Kd * layer.Co + M * layer.Co))
+        _fp32_gate(mm, [(matmul(patches, wmat),
+                         patches.double() @ wmat.double())],
+                   f"K10 {layer.name}")
+        mt = matmul_tiling(M, layer.Co, Kd)
+        mm.update(tile={"bm": mt.bm, "bn": mt.bn, "splits": mt.splits},
+                  blocks=mt.blocks)
         xc = x.permute(1, 2, 3, 0).contiguous()
         wc = w.permute(1, 2, 3, 0).contiguous()
 
@@ -1521,9 +1557,9 @@ def conv_layer_phase(dev):
                       lambda: conv_ref(xc, w, S, pad, src_layout="CHWN",
                                        dst_layout="CHWN"),
                       cudnn, flops, conv_bytes)
-        _k1_fp32_gate(k1, [(conv_direct_chwn(xc, wc, S, pad).permute(
+        _fp32_gate(k1, [(conv_direct_chwn(xc, wc, S, pad).permute(
             3, 0, 1, 2), conv_ref(x.double(), w.double(), S, pad))],
-            layer.name)
+            f"K1 {layer.name}")
         tag = {"network": "table1", "case": layer.name, "launches": 1}
         cases += [{**tag, "kernel": "matmul", **mm},
                   {**tag, "kernel": "conv_nchw", **k2},
@@ -1558,8 +1594,10 @@ def conv_layer_phase(dev):
               f"({k2['bound_by']}); peak over base: baseline "
               f"{row['baseline_peak_bytes'] / 2**20:.1f} MiB, FFT "
               f"{row['fft_peak_bytes'] / 2**20:.1f} MiB; K10 vs plain "
-              f"{mm['max_abs_err']:.3g} [{time.perf_counter() - t0:.1f}s]",
-              flush=True)
+              f"{mm['max_abs_err']:.3g}, from float64 {mm['f64_err']:.3g}, "
+              f"{flops / mm['ms'] / 1e9:.1f} TFLOP/s, 3xTF32 bound "
+              f"{mm['design_bound_ms']:.3f}, tile {mm['tile']} "
+              f"[{time.perf_counter() - t0:.1f}s]", flush=True)
         del patches, wmat, xc, wc
     tot = {k: sum(r[k] for r in rows) for k in
            ("gflop", "patch_bytes", "baseline_ms", "k10_ms", "k2_ms",
@@ -1738,16 +1776,23 @@ def lm_phase(dev):
 
 
 def tensor_core_line(label: str, rows) -> str:
-    """One tensor-core kernel (K1, K6, K12) summed over the main path's
-    launches: ms, TFLOP/s, the bound on the fp32 peak (the bf16 one for
-    bf16 cases) and the design's own (3xTF32: three TF32 products at 495
-    TFLOP/s; bf16 cases their bf16 bound), the library time and the
-    largest error scale-relative to float64."""
+    """One tensor-core kernel (K1, K5b, K6, K10, K12) summed over the main
+    path's launches: ms, TFLOP/s (direct FLOPs; where the rows know what
+    the kernel executed, also the executed rate), the bound on the fp32
+    peak (the bf16 one for bf16 cases) and the design's own (3xTF32: three
+    TF32 products at 495 TFLOP/s; bf16 cases their bf16 bound), the library
+    time and the largest error scale-relative to float64."""
     def tot(f):
         return sum(r[f] * (r["launches"] or 1) for r in rows)
+    executed = ""
+    if all("executed_flops" in r for r in rows):
+        executed = (f"executed_TFLOP/s="
+                    f"{tot('executed_flops') / tot('ms') / 1e9:.1f} "
+                    f"executed/direct="
+                    f"{tot('executed_flops') / tot('flops'):.3f} ")
     return (f"{label} over the main path: launches="
             f"{sum(r['launches'] for r in rows)} ms={tot('ms'):.3f} "
-            f"TFLOP/s={tot('flops') / tot('ms') / 1e9:.1f} "
+            f"TFLOP/s={tot('flops') / tot('ms') / 1e9:.1f} {executed}"
             f"bound_fp32_ms={tot('bound_ms'):.3f} "
             f"bound_3xtf32_ms={tot('design_bound_ms'):.3f} "
             f"library_ms={tot('library_ms'):.3f} "
@@ -1840,7 +1885,8 @@ def main() -> int:
             for k, v in counts.items():
                 launches[k] += v
         cases += t1_cases + lm_rows
-        for kern, label in (("conv_chwn", "K1"), ("fused_xent", "K12")):
+        for kern, label in (("conv_chwn", "K1"), ("conv_stack_nchw", "K5b"),
+                            ("matmul", "K10"), ("fused_xent", "K12")):
             print(tensor_core_line(label, [r for r in cases
                                            if r["kernel"] == kern]),
                   flush=True)

@@ -45,9 +45,9 @@ SIGNATURES: Dict[str, List] = {
     "wgrad_forward": [P] * 4 + [I] * 14 + [P],
     # x, w1, b1, w2, b2, res, y, N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2,
     # P2, pool_F, pool_S, pool_avg, relu1, relu2, src_nchw, dst_nchw,
-    # res_nchw, bm, nb, uth, utw, [cluster, stats,] stream
+    # res_nchw, bm, nb, uth, utw, [cluster,] stats, stream
     "conv_stack_chwn_forward": [P] * 7 + [I] * 25 + [P, P],
-    "conv_stack_nchw_forward": [P] * 7 + [I] * 24 + [P],
+    "conv_stack_nchw_forward": [P] * 7 + [I] * 24 + [P, P],
     # N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pool_F, pool_S, bm, nb,
     # uth, utw, cluster, out
     "conv_stack_chwn_max_clusters": [I] * 19 + [ctypes.POINTER(I)],
@@ -64,8 +64,9 @@ SIGNATURES: Dict[str, List] = {
     "pool_backward_nchw": [P] * 3 + [I] * 9 + [P],
     # x, y, B, M, N, stream
     "transpose_forward": [P, P, I, I, I, P],
-    # x, y, out, M, N, K, sxm, sxk, syk, syn, bf16, stream
-    "matmul_forward": [P] * 3 + [I] * 3 + [L] * 4 + [I, P],
+    # x, y, out, ws, M, N, K, sxm, sxk, syk, syn, bf16, bm, bn,
+    # k_per_split, splits, stream
+    "matmul_forward": [P] * 4 + [I] * 3 + [L] * 4 + [I] * 5 + [P],
     # q, k, v, out, BH, Sq, Sk, D, causal, scale, bf16, stream
     "flash_attention_forward": [P] * 4 + [I] * 5 + [F, I, P],
     # h, table, labels, ws, loss, T, V, D, softcap, tiles_per_split,

@@ -53,13 +53,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "conv_stack_common.cuh"  // StackArgs, Tile, make_tile, scol
+#include "conv_stack_common.cuh"  // StackArgs, Tile, make_tile
 
 namespace repro {
 namespace stack_cluster {
 
 namespace cg = cooperative_groups;
-using stack::SCol;
 using stack::StackArgs;
 using stack::Tile;
 
@@ -78,6 +77,36 @@ struct ClusterArgs {
 };
 
 // (c, dy, dx) of a reduction index k = (c, dy, dx) over c*F*F
+// GEMM column c of the block's conv2 tile: its unit and the conv2 output
+// its tap is (columns run n fastest, then the unit column, the unit row,
+// the pool tap)
+struct SCol {
+  int n, nl, uh, uw, oh, ow;
+  bool ok;
+};
+
+__device__ __forceinline__ SCol scol(const StackArgs& a, const Tile& t,
+                                     int c) {
+  SCol s;
+  const int tap = c / a.BU, ul = c - tap * a.BU;
+  s.nl = ul % a.NB;
+  const int q = ul / a.NB;
+  const int uwl = q % a.UTW, uhl = q / a.UTW;
+  s.ok = tap < a.T && s.nl < t.NBc && uhl < t.UTHc && uwl < t.UTWc;
+  s.n = t.n0 + s.nl;
+  s.uh = t.uh0 + uhl;
+  s.uw = t.uw0 + uwl;
+  if (a.pF > 0) {
+    const int tt = s.ok ? tap : 0;
+    s.oh = s.uh * a.pS + tt / a.pF;
+    s.ow = s.uw * a.pS + tt % a.pF;
+  } else {
+    s.oh = s.uh;
+    s.ow = s.uw;
+  }
+  return s;
+}
+
 struct KIdx {
   int c, dy, dx;
 };
@@ -325,7 +354,9 @@ cluster_stack_kernel(const ClusterArgs p) {
   // touch 4 and 8 distinct 16-byte words
   const int ty = (warp & 3) * 4 + (lane >> 3);
   const int tx = (warp >> 2) * 8 + (lane & 7);
-  const Tile t = stack::make_tile<true>(a);
+  const Tile t = stack::make_tile(a);
+  // the mid slab's positions run n fastest: r = nl + NBc * (mwl + MWc * mhl)
+  const int rs_w = t.NBc, rs_h = t.NBc * t.MWc;
   const int co0 = blockIdx.y * TBM;
 
   // phase A: this rank's range [p_lo, p_hi) of the tile's mid positions,
@@ -334,10 +365,9 @@ cluster_stack_kernel(const ClusterArgs p) {
   const int p_lo = min(t.RA, rank * RR), p_hi = min(t.RA, p_lo + RR);
   // phase B: the conv2 column this thread gathers, and its slab base
   const int cB = tid % TBN, kkB0 = (tid / TBN) * RPT_B;
-  const SCol gb = stack::scol<true>(a, t, cB);
+  const SCol gb = scol(a, t, cB);
   const int ohb = gb.oh * a.S2 - a.P2, owb = gb.ow * a.S2 - a.P2;
-  const int rbase = gb.nl * t.rs_n + (ohb - t.mh_lo) * t.rs_h +
-                    (owb - t.mw_lo) * t.rs_w;
+  const int rbase = gb.nl + (ohb - t.mh_lo) * rs_h + (owb - t.mw_lo) * rs_w;
 
   const KIdx dk1 = kidx(kBK, a.F1), dk2 = kidx(kBK, a.F2);
   const int F2sq = a.F2 * a.F2;
@@ -410,8 +440,8 @@ cluster_stack_kernel(const ClusterArgs p) {
         // outside [0, Ho1) x [0, Wo1) is conv2's zero padding
         const bool ok = gb.ok && k0 + kkB0 + kk < K2c && mh >= 0 &&
                         mh < a.Ho1 && mw >= 0 && mw < a.Wo1;
-        rb[kk] = ok ? mid[st.c * a.RSTR + rbase + st.dy * t.rs_h +
-                          st.dx * t.rs_w]
+        rb[kk] = ok ? mid[st.c * a.RSTR + rbase + st.dy * rs_h +
+                          st.dx * rs_w]
                     : 0.f;
         kstep(st, a.F2);
       }
@@ -509,7 +539,7 @@ cluster_stack_kernel(const ClusterArgs p) {
 #pragma unroll
   for (int j = 0; j < 4 * GN; ++j) {
     const int c = (j / 4) * 64 + tx * 4 + (j % 4);
-    const SCol col = stack::scol<true>(a, t, c);
+    const SCol col = scol(a, t, c);
 #pragma unroll
     for (int i = 0; i < 4 * GM; ++i) {
       const int m = (i / 4) * 64 + ty * 4 + (i % 4);
@@ -533,7 +563,7 @@ cluster_stack_kernel(const ClusterArgs p) {
     const float area = (float)(a.pF * a.pF);
     for (int e = tid; e < TBM * a.BU; e += kThreads) {
       const int m = e / a.BU, ul = e - m * a.BU;
-      const SCol col = stack::scol<true>(a, t, ul);  // tap 0 of unit ul
+      const SCol col = scol(a, t, ul);  // tap 0 of unit ul
       const int co = co0 + m;
       if (!col.ok || co >= a.Co) continue;
       float r = a.pool_avg ? 0.f : -INFINITY;

@@ -2,133 +2,696 @@
 //
 // Replaces repro/kernels/conv/stack.py::conv_stack_nchw_pallas (body
 // _stack_nchw_kernel): the same function as K5a (conv1 [+bias1] [+ReLU] ->
-// conv2 with the bias/residual/ReLU/pool epilogue, mid kept on chip) with
-// canonical weights w1 [Cm,Ci,F1,F1], w2 [Co,Cm,F2,F2].  x is [N,Ci,H,W]
-// or [Ci,H,W,N]; y is [N,Co,Ho',Wo'] or [Co,Ho',Wo',N]; the residual is
-// read in its own layout (ResNet-18's CHWN skip from a K1 projection
-// folds into this NCHW stack).
+// conv2 with the bias/residual/ReLU/pool epilogue, the mid activation kept
+// on chip) with canonical weights w1 [Cm,Ci,F1,F1], w2 [Co,Cm,F2,F2].  x is
+// [N,Ci,H,W] or [Ci,H,W,N]; y is [N,Co,Ho',Wo'] or [Co,Ho',Wo',N]; the
+// residual is read in its own layout (ResNet-18's CHWN skip from a K1
+// projection folds into this NCHW stack).  Mid positions outside [0, Ho1)
+// x [0, Wo1) are conv2's zero padding: never computed, read as 0.
 //
-// What bounds it on an H100: operations, as for K5a.  VGG16's three stacks
-// (conv1_1 -> 1_2 and conv2_1 -> 2_2 with the 2/2 max-pool epilogue,
-// conv3_1 -> 3_2) and ResNet-18's five residual stacks are all above the
-// fp32 ridge: 67 TFLOP/s of fp32 FMA is the limit, and the mid tensor
-// (411 MB for VGG16 conv1_1 at batch 32) is what the stack keeps out of
-// device memory, not what bounds it.  The design (conv_stack_common.cuh)
-// chunks the mid channels through a shared-memory slab between the two
-// implicit GEMMs; the output column is the fastest column, so a warp's
-// NCHW gathers and stores run along W, and the block's conv2 tile is a
-// rectangle of one image so its halo stays small.  No tensor cores (fp32
-// exactness).
-#include "conv_stack_common.cuh"
+// What bounds it on an H100: operations.  VGG16's three stacks and
+// ResNet-18's five do 2*(Cm*K1 + Co*K2) FLOPs a conv2 output (K1 = Ci*F1^2,
+// K2 = Cm*F2^2) against a few bytes; the mid tensor (411 MB for VGG16
+// conv1_1 at batch 32) is what the stack keeps out of device memory.  fp32
+// FMA on the CUDA cores peaks at 67 TFLOP/s, the TF32 tensor cores at 495.
+//
+// Arithmetic: fp32 accuracy from the tensor cores by the 3xTF32 split of
+// K6 (csrc/mma.cuh), in both implicit GEMMs; each chain of at most 32
+// reduction terms is summed from zero in the mma registers and added to
+// fp32 registers (the tensor core truncates as it accumulates).  The mid
+// slab holds the fp32 conv1 outputs, and conv2 splits them again as it
+// loads its fragments (storing them split, a (big, small) pair a value,
+// doubled the slab and ran 1.8 % slower on the card: PERF.md, "Tried").
+//
+// Design.  A block owns BM output channels (64, 128 or 256; BN = 16384/BM
+// GEMM columns) by a rectangle of conv2 outputs: NB images x OH x OW (with a
+// pool, the outputs under UTH x UTW pooled outputs, computed once per
+// block).  The reduction over conv2's Cm runs in chunks of 32 mid channels:
+//   phase A: conv1 for the chunk over the block's mid box (the rectangle
+//     plus its F2 - 1 halo, clipped to the real mid extent), an implicit
+//     GEMM [32 x box positions] over K1, in 8-position mma tiles (no
+//     rounding of the box beyond 8), passes of 256 positions; bias1 and
+//     ReLU, then into a shared slab [32][RSTR] that holds the unclipped box
+//     with zeros outside the real extent;
+//   phase B: conv2's terms of the chunk from the slab into the output
+//     registers.
+// Both GEMMs step their reduction as (8 input channels) x (one tap): an
+// mma k index is a channel, its tap fixed for the step, so an operand tile
+// is never expanded into im2col form.  A phase-A stage holds the w1 slice
+// ([32][ga 8 F1^2], contiguous along k in w1) and the x box ([ga 8][NB x
+// XH x XW], contiguous along w in NCHW) of ga 8-channel groups of Ci (as
+// many as fit the slot a phase-B stage needs), and reads a tap as a
+// shifted window of the box; a phase-B stage holds the w2 slice ([BM][8
+// F2^2]) of 8 mid channels and reads a tap as a shifted window of the
+// slab.  Weight rows are 8 ga F^2 + 4 floats (4 mod 8), so the scalar
+// fragment loads (row g, column t F^2 + tap) hit 32 banks; box and slab
+// channels are 8 mod 32 floats apart, so a tile of 8 positions along a row
+// (column g, channel t) does too.  3x3 convs get their own instantiation
+// with the taps unrolled.
+//
+// 384 threads, K1's split: one producer warpgroup only copies (cp.async:
+// 16 bytes where 4 box columns are in range and aligned, the weight rows
+// where K is a multiple of 4; 4 bytes with zero fill at the halo, for a
+// stride-2 conv1 or a CHWN source), two consumer warpgroups only multiply,
+// passing a ring of stages (3; 2 at BM 256) on named barriers, FULL when a
+// stage landed and EMPTY when it was used.  One producer warpgroup, not
+// K1's two: at 384 threads a thread has 168 registers (at 512, 128, and
+// the consumers, which hold conv2's sums and a chain of them beside
+// conv1's, spilled); setmaxnreg moves the producer's spare ones to the
+// consumers.  Phase A's 8 warps each take the 32 mid channels by 4
+// 8-position tiles (dealt round-robin), phase B's are BM/32 x 8/(BM/32),
+// each 32 channels by 8 column tiles dealt round-robin.  After the last
+// chunk the sums go through shared memory for the epilogue (bias2 ->
+// residual -> ReLU -> max (nan_max) or avg pool), stored along w.  Conv1
+// is recomputed on each block's halo and once per BM-wide slice of Co;
+// ops.stack_tiling picks the tile and prices the FLOPs the blocks execute,
+// which the kernel adds to ``stats`` when given.
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
 
-namespace repro {
-namespace stack {
+#include "../../csrc/mma.cuh"
+#include "../../csrc/nan_max.cuh"
+#include "conv_stack_common.cuh"  // StackArgs, Tile, make_tile, mid_span
 
-// dynamic shared memory of one block, in bytes (ops.py::stack_tiling
-// computes the same number)
-template <int GM>
-inline long long smem_bytes(int rstr, bool pool) {
-  using S = Shape<GM>;
-  long long slab = (long long)kCM * rstr;
-  const long long ts = pool ? (long long)S::TBM * (S::TBN + 1) : 0;
-  if (ts > slab) slab = ts;
-  return 4 * ((long long)kBK * S::ASTR + (long long)kBK * S::BSTR + slab);
+namespace {
+
+using namespace repro::mma;
+using repro::stack::StackArgs;
+using repro::stack::Tile;
+
+constexpr int kConsumers = 256;  // two warpgroups: the mma
+constexpr int kProducers = 128;  // one warpgroup: the copies
+constexpr int kThreads = kConsumers + kProducers;
+// registers of a thread of each role (setmaxnreg): 384 x 168 at launch,
+// then 256 x 224 + 128 x 56, the same 64512
+constexpr int kConsumerRegs = 224;
+constexpr int kProducerRegs = 56;
+constexpr int kCM = 32;            // mid channels of a chunk
+constexpr int kPassTiles = 32;     // 8-position tiles of a conv1 pass
+constexpr int kTile = 16384;       // BM * BN
+constexpr int kSmemMax = 232448;   // 227 KB, what an H100 block may use
+
+struct K5bArgs {
+  StackArgs s;
+  int FF1, FF2;          // taps of conv1 and conv2
+  int SA1, SA2;          // weight slice row strides: 8 ga F1^2 + 4, 8 F2^2 + 4
+  int XSTR;              // x box channel stride (8 mod 32)
+  int STAGE;             // floats of a ring stage
+  int ga;                // 8-channel groups of Ci a phase-A stage holds
+  int a_stages, chunks;  // phase-A stages a pass; 32-channel chunks of Cm
+  int vec_x, vec_w1, vec_w2;  // 16-byte copies allowed
+  unsigned long long* stats;  // executed FLOPs, or null
+};
+
+// a block's rectangle: conv2 outputs, its unclipped mid box and x box
+struct Box {
+  int OH, OW, oh0, ow0;   // conv2 outputs of the rectangle, the first one
+  int RH, RW;             // the unclipped mid box of an image
+  int dh, dw;             // the clipped box's offset in it
+  int PA, ntA, passes;    // clipped box positions, their 8-tiles, passes
+  int C, ntB;             // conv2 columns (NB x OH x OW), their 8-tiles
+  int XH, XW, ih0, iw0, sh;  // x box of an image: rows, columns (a
+                             // multiple of 4), origin (iw0 aligned down to
+                             // 4) and the first column's shift in it
+};
+
+__device__ __forceinline__ Box make_box(const K5bArgs& a, const Tile& t) {
+  const StackArgs& s = a.s;
+  Box b;
+  const bool pool = s.pF > 0;
+  b.oh0 = pool ? t.uh0 * s.pS : t.uh0;
+  b.ow0 = pool ? t.uw0 * s.pS : t.uw0;
+  b.OH = pool ? (t.UTHc - 1) * s.pS + s.pF : t.UTHc;
+  b.OW = pool ? (t.UTWc - 1) * s.pS + s.pF : t.UTWc;
+  b.RH = (b.OH - 1) * s.S2 + s.F2;
+  b.RW = (b.OW - 1) * s.S2 + s.F2;
+  const int mh_u = b.oh0 * s.S2 - s.P2, mw_u = b.ow0 * s.S2 - s.P2;
+  b.dh = t.mh_lo - mh_u;
+  b.dw = t.mw_lo - mw_u;
+  b.PA = t.NBc * t.MHc * t.MWc;
+  b.ntA = (b.PA + 7) / 8;
+  b.passes = (b.ntA + kPassTiles - 1) / kPassTiles;
+  b.C = t.NBc * b.OH * b.OW;
+  b.ntB = (b.C + 7) / 8;
+  const int iws = mw_u * s.S1 - s.P1;
+  b.ih0 = mh_u * s.S1 - s.P1;
+  b.iw0 = iws & ~3;
+  b.sh = iws - b.iw0;
+  b.XH = (b.RH - 1) * s.S1 + s.F1;
+  b.XW = (b.sh + (b.RW - 1) * s.S1 + s.F1 + 3) & ~3;
+  return b;
 }
 
-template <bool POOL, int GM>
-int launch(const StackArgs& a, dim3 grid, cudaStream_t st) {
-  const long long bytes = smem_bytes<GM>(a.RSTR, POOL);
-  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = conv_stack_kernel<POOL, GM>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, (size_t)bytes, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Host entry of K5b: fills StackArgs from the shapes and the tile the
-// wrapper chose (bm output channels; nb x uth x utw units), and launches.
-// The caller passes the weight layouts.  Returns a cudaError_t code.
-int stack_forward(const void* x, const void* w1, const void* b1,
-                  const void* w2, const void* b2, const void* res, void* y,
-                  int N, int Ci, int H, int W, int Cm, int F1, int S1, int P1,
-                  int Co, int F2, int S2, int P2, int pool_F, int pool_S,
-                  int pool_avg, int relu1, int relu2, int src_nchw,
-                  int dst_nchw, int res_nchw, int bm, int nb, int uth,
-                  int utw, int w1O, int w1K, int w2O, int w2K, void* stream) {
-  StackArgs a;
-  a.x = static_cast<const float*>(x);
-  a.w1 = static_cast<const float*>(w1);
-  a.b1 = static_cast<const float*>(b1);
-  a.w2 = static_cast<const float*>(w2);
-  a.b2 = static_cast<const float*>(b2);
-  a.res = static_cast<const float*>(res);
-  a.y = static_cast<float*>(y);
-  a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Cm = Cm;
-  a.F1 = F1; a.S1 = S1; a.P1 = P1; a.K1 = Ci * F1 * F1;
-  a.Ho1 = (H + 2 * P1 - F1) / S1 + 1;
-  a.Wo1 = (W + 2 * P1 - F1) / S1 + 1;
-  a.Co = Co; a.F2 = F2; a.S2 = S2; a.P2 = P2;
-  a.Ho2 = (a.Ho1 + 2 * P2 - F2) / S2 + 1;
-  a.Wo2 = (a.Wo1 + 2 * P2 - F2) / S2 + 1;
-  a.pF = pool_F; a.pS = pool_S; a.pool_avg = pool_avg;
-  a.relu1 = relu1; a.relu2 = relu2;
-  const bool pool = pool_F > 0;
-  if (pool) {
-    a.UH = (a.Ho2 - pool_F) / pool_S + 1;
-    a.UW = (a.Wo2 - pool_F) / pool_S + 1;
-    a.T = pool_F * pool_F;
+// stage s of the block's walk: (chunk, phase A pass and 8-channel group of
+// Ci, or phase B 8-channel group of the chunk)
+struct StageId {
+  int chunk, pass, oct, q;  // oct: the first 8-channel group; q >= 0: B
+};
+__device__ __forceinline__ StageId stage_id(const K5bArgs& a, const Box& b,
+                                            int sl) {
+  const int na = b.passes * a.a_stages, per = na + kCM / 8;
+  StageId id;
+  id.chunk = sl / per;
+  const int r = sl - id.chunk * per;
+  if (r < na) {
+    id.pass = r / a.a_stages;
+    id.oct = (r - id.pass * a.a_stages) * a.ga;
+    id.q = -1;
   } else {
-    a.UH = a.Ho2;
-    a.UW = a.Wo2;
-    a.T = 1;
+    id.pass = id.oct = 0;
+    id.q = r - na;
   }
-  const int gm = bm / 64;
-  if ((gm != 1 && gm != 2 && gm != 4) || bm % 64 || nb < 1 || uth < 1 ||
-      utw < 1 || (long long)nb * uth * utw * a.T > kTile / bm)
-    return static_cast<int>(cudaErrorInvalidValue);
-  a.NB = nb; a.UTH = uth; a.UTW = utw; a.BU = nb * uth * utw;
-  a.nTH = (a.UH + uth - 1) / uth;
-  a.nTW = (a.UW + utw - 1) / utw;
-  const int oth = pool ? (uth - 1) * pool_S + pool_F : uth;
-  const int otw = pool ? (utw - 1) * pool_S + pool_F : utw;
-  a.RSTR = nb * ((oth - 1) * S2 + F2) * ((otw - 1) * S2 + F2);
-  a.w1O = w1O; a.w1K = w1K; a.w2O = w2O; a.w2K = w2K;
-  a.xs = layout_strides(src_nchw, N, Ci, H, W);
-  a.rs = layout_strides(res_nchw, N, Co, a.Ho2, a.Wo2);
-  a.ys = layout_strides(dst_nchw, N, Co, a.UH, a.UW);
-  if (N <= 0 || Co <= 0 || a.UH <= 0 || a.UW <= 0)
-    return static_cast<int>(cudaGetLastError());
-  const dim3 grid(((N + nb - 1) / nb) * a.nTH * a.nTW, (Co + bm - 1) / bm);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (gm) {
-    case 1:
-      return pool ? launch<true, 1>(a, grid, st)
-                  : launch<false, 1>(a, grid, st);
-    case 2:
-      return pool ? launch<true, 2>(a, grid, st)
-                  : launch<false, 2>(a, grid, st);
-    default:
-      return pool ? launch<true, 4>(a, grid, st)
-                  : launch<false, 4>(a, grid, st);
+  return id;
+}
+
+// named barriers (0 is __syncthreads): FULL and EMPTY of each ring stage,
+// and one of the consumers alone
+__device__ __forceinline__ int full_bar(int s) { return 1 + s; }
+template <int NS>
+__device__ __forceinline__ int empty_bar(int s) { return 1 + NS + s; }
+template <int NS>
+__device__ __forceinline__ int cons_bar() { return 1 + 2 * NS; }
+
+// 4 floats of a weight row from src to dst by cp.async, zero past the
+// first `valid` (16 bytes at once where vec and all 4 are valid)
+__device__ __forceinline__ void copy_quad(float* dst, const float* src,
+                                          const float* any, int valid,
+                                          bool vec) {
+  if (vec && valid >= 4) {
+    cp16(dst, src, true);
+  } else if (valid <= 0) {
+    cp16(dst, any, false);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      cp4(dst + j, j < valid ? src + j : any, j < valid);
   }
 }
 
-}  // namespace stack
-}  // namespace repro
+// F1T, F2T: the convs' filter sizes where fixed at compile time (3), else 0
+template <int BM, bool POOL, int F1T, int F2T>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_stack_nchw_kernel(const K5bArgs a) {
+  constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
+  constexpr int BN = kTile / BM;
+  constexpr int WM = BM / 32;   // phase B warps along Co, 32 rows each
+  constexpr int WN = 8 / WM;    // phase B warps along the columns
+  constexpr int TS = BN + 8;    // epilogue tile row stride
+  extern __shared__ __align__(16) float smem[];  // ring, then the slab
+  const StackArgs& s = a.s;
+  const Tile t = repro::stack::make_tile(s);
+  const Box b = make_box(a, t);
+  const int co0 = blockIdx.y * BM;
+  // the slab: 32 mid channels of conv1 outputs, [32][RSTR]
+  float* slab = smem + (NS * a.STAGE > BM * TS ? NS * a.STAGE : BM * TS);
+  const int last = a.chunks - 1;
+  const int nsl = a.chunks * (b.passes * a.a_stages + kCM / 8) - kCM / 8 +
+                  (min(kCM, s.Cm - last * kCM) + 7) / 8;
+  const int tid = threadIdx.x;
 
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroup: every stage's copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    const int XQ = b.XW / 4;            // 16-byte quads of an x box row
+    const int xrows = t.NBc * b.XH;     // x box rows of one channel
+    auto stage = [&](int sl) {
+      const StageId id = stage_id(a, b, sl);
+      float* st = smem + (sl % NS) * a.STAGE;
+      if (id.q < 0) {
+        // w1 rows cm0 .. cm0 + 31, k1 [oct * 8 F1^2, + ga 8 F1^2)
+        const int w = 8 * a.ga * a.FF1, wq = w / 4;
+        const int k0 = id.oct * 8 * a.FF1;
+        for (int e = pt; e < kCM * wq; e += kProducers) {
+          const int r = e / wq, c = 4 * (e - r * wq);
+          const int cm = id.chunk * kCM + r;
+          const int valid = cm < s.Cm ? min(4, s.K1 - (k0 + c)) : 0;
+          copy_quad(st + r * a.SA1 + c,
+                    s.w1 + static_cast<long long>(cm) * s.K1 + k0 + c, s.w1,
+                    valid, a.vec_w1);
+        }
+        // the x box of channels oct * 8 .. + 8 ga - 1: [8 ga][NB][XH][XW]
+        float* xs = st + kCM * a.SA1;
+        for (int e = pt; e < 8 * a.ga * xrows * XQ; e += kProducers) {
+          const int xq = e % XQ, row = e / XQ;
+          const int c8 = row / xrows, rr = row - c8 * xrows;
+          const int nl = rr / b.XH, xh = rr - nl * b.XH;
+          const int ci = id.oct * 8 + c8, ih = b.ih0 + xh;
+          const int iw = b.iw0 + 4 * xq;
+          float* d = xs + c8 * a.XSTR + rr * b.XW + 4 * xq;
+          const bool rok = ci < s.Ci && static_cast<unsigned>(ih) <
+                                            static_cast<unsigned>(s.H);
+          const long long base = static_cast<long long>(t.n0 + nl) * s.xs.n +
+                                 static_cast<long long>(ci) * s.xs.c +
+                                 static_cast<long long>(ih) * s.xs.h;
+          if (!rok || iw >= s.W || iw + 4 <= 0) {
+            cp16(d, s.x, false);
+          } else if (a.vec_x && iw >= 0 && iw + 4 <= s.W) {
+            cp16(d, s.x + base + iw, true);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const bool ok = static_cast<unsigned>(iw + j) <
+                              static_cast<unsigned>(s.W);
+              cp4(d + j, ok ? s.x + base + (iw + j) * s.xs.w : s.x, ok);
+            }
+          }
+        }
+      } else {
+        // w2 rows co0 .. co0 + BM - 1, k2 [(chunk 32 + q 8) F2^2, + 8 F2^2)
+        const int w = 8 * a.FF2, wq = w / 4;
+        const int k0 = (id.chunk * kCM + id.q * 8) * a.FF2;
+        for (int e = pt; e < BM * wq; e += kProducers) {
+          const int r = e / wq, c = 4 * (e - r * wq);
+          const int co = co0 + r;
+          const int valid = co < s.Co ? min(4, s.Cm * a.FF2 - (k0 + c)) : 0;
+          copy_quad(st + r * a.SA2 + c,
+                    s.w2 + static_cast<long long>(co) * s.Cm * a.FF2 + k0 + c,
+                    s.w2, valid, a.vec_w2);
+        }
+      }
+    };
+#pragma unroll
+    for (int q = 0; q < NS - 1; ++q) {
+      if (q < nsl) stage(q);
+      cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      cp_wait<NS - 2>();  // stage sl has landed: announce it
+      bar_arrive(full_bar(sl % NS), kThreads);
+      const int nx = sl + NS - 1;
+      if (nx < nsl) {
+        if (nx >= NS) bar_sync(empty_bar<NS>(nx % NS), kThreads);
+        stage(nx);
+      }
+      cp_commit();
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: both GEMMs and the epilogue ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;      // phase B
+  const int RS = a.s.RSTR;
+  // the taps: compile-time for 3x3 convs (the loops unroll), else the
+  // arguments'
+  const int F1 = F1T ? F1T : s.F1, F2 = F2T ? F2T : s.F2;
+  const int FF1 = F1 * F1, FF2 = F2 * F2;
+  const int SA1 = a.SA1, SA2 = 8 * FF2 + 4;
+  constexpr int U1 = F1T ? F1T * F1T : 1, U2 = F2T ? F2T * F2T : 1;
+  for (int e = tid; e < kCM * RS; e += kConsumers)
+    slab[e] = 0.f;
+
+  // phase B: the slab offset of column g of each of this warp's column
+  // tiles (ct = nt * WN + wn); past the last column, the last one
+  int boff[8];
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int c = min((nt * WN + wn) * 8 + g, b.C - 1);
+    const int nl = c / (b.OH * b.OW), r = c - nl * b.OH * b.OW;
+    const int ohl = r / b.OW, owl = r - ohl * b.OW;
+    boff[nt] = nl * b.RH * b.RW + ohl * s.S2 * b.RW + owl * s.S2;
+  }
+  const int ntw = (b.ntB - wn + WN - 1) / WN;  // this warp's column tiles
+
+  float totB[2][8][4], accB[2][8][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) totB[mt][nt][e] = 0.f;
+
+  int sl = 0;
+  for (int ch = 0; ch < a.chunks; ++ch) {
+    const int cm0 = ch * kCM;
+    // ---- phase A: conv1 of mid channels cm0 .. cm0 + 31 ----
+    for (int p = 0; p < b.passes; ++p) {
+      // this warp's tiles of the clipped box: jt = p * 32 + j * 8 + warp
+      const int nj = min(4, max(0, (b.ntA - p * kPassTiles - warp + 7) / 8));
+      int xoff[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int pos =
+            min((p * kPassTiles + j * 8 + warp) * 8 + g, b.PA - 1);
+        const int nl = pos / (t.MHc * t.MWc), r = pos - nl * t.MHc * t.MWc;
+        const int mh = r / t.MWc, mw = r - mh * t.MWc;
+        xoff[j] = nl * b.XH * b.XW + (mh + b.dh) * s.S1 * b.XW +
+                  (mw + b.dw) * s.S1 + b.sh;
+      }
+      float totA[2][4][4], accA[2][4][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) totA[mt][j][e] = 0.f;
+      for (int o = 0; o < a.a_stages; ++o, ++sl) {
+        const int buf = sl % NS;
+        bar_sync(full_bar(buf), kThreads);
+        for (int o2 = 0; o2 < a.ga; ++o2) {
+          const float* W1s = smem + buf * a.STAGE + g * SA1 + o2 * 8 * FF1;
+          const float* Xs =
+              smem + buf * a.STAGE + kCM * SA1 + (o2 * 8 + tq) * a.XSTR;
+#pragma unroll U1
+          for (int r = 0; r < FF1; ++r) {
+            if ((r & 3) == 0) {  // a chain of 4 taps (32 terms) from zero
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) accA[mt][j][e] = 0.f;
+            }
+            // a0 (row g, k t), a1 (row g + 8, k t), a2 (g, t + 4), a3
+            // (g + 8, t + 4): k is input channel o2 * 8 + k at tap r
+            unsigned abig[2][4], asmall[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const float* pa = W1s + mt * 16 * SA1 + tq * FF1 + r;
+              split_tf32(pa[0], abig[mt][0], asmall[mt][0]);
+              split_tf32(pa[8 * SA1], abig[mt][1], asmall[mt][1]);
+              split_tf32(pa[4 * FF1], abig[mt][2], asmall[mt][2]);
+              split_tf32(pa[8 * SA1 + 4 * FF1], abig[mt][3], asmall[mt][3]);
+            }
+            const float* xr = Xs + (r / F1) * b.XW + r % F1;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (j >= nj) break;
+              unsigned b0big, b0small, b1big, b1small;
+              split_tf32(xr[xoff[j]], b0big, b0small);
+              split_tf32(xr[4 * a.XSTR + xoff[j]], b1big, b1small);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_tf32(accA[mt][j], asmall[mt], b0big, b1big, accA[mt][j]);
+                mma_tf32(accA[mt][j], abig[mt], b0small, b1small, accA[mt][j]);
+                mma_tf32(accA[mt][j], abig[mt], b0big, b1big, accA[mt][j]);
+              }
+            }
+            if ((r & 3) == 3 || r == FF1 - 1) {  // flush the chain
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+#pragma unroll
+                  for (int e = 0; e < 4; ++e) totA[mt][j][e] += accA[mt][j][e];
+            }
+          }
+        }
+        if (sl + NS < nsl) bar_arrive(empty_bar<NS>(buf), kThreads);
+      }
+      // bias1, ReLU, into the slab at the clipped box's positions; the
+      // previous chunk's phase B must be done with the slab first
+      if (p == 0) bar_sync(cons_bar<NS>(), kConsumers);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= nj) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pos =
+              (p * kPassTiles + j * 8 + warp) * 8 + 2 * tq + h;
+          if (pos >= b.PA) continue;
+          const int nl = pos / (t.MHc * t.MWc), r = pos - nl * t.MHc * t.MWc;
+          const int mh = r / t.MWc, mw = r - mh * t.MWc;
+          float* d =
+              slab + nl * b.RH * b.RW + (mh + b.dh) * b.RW + mw + b.dw;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int v8 = 0; v8 < 2; ++v8) {
+              const int row = mt * 16 + g + 8 * v8, cm = cm0 + row;
+              float v = totA[mt][j][2 * v8 + h];
+              if (s.b1 && cm < s.Cm) v += __ldg(s.b1 + cm);
+              if (s.relu1) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+              d[row * RS] = v;
+            }
+        }
+      }
+    }
+    bar_sync(cons_bar<NS>(), kConsumers);  // the chunk's slab is complete
+
+    // ---- phase B: conv2's terms of mid channels cm0 .. cm0 + 31 ----
+    const int nB = (min(kCM, s.Cm - cm0) + 7) / 8;
+    for (int q = 0; q < nB; ++q, ++sl) {
+      const int buf = sl % NS;
+      bar_sync(full_bar(buf), kThreads);
+      const float* W2s = smem + buf * a.STAGE + (wm * 32 + g) * SA2;
+      const float* sr = slab + (q * 8 + tq) * RS;
+#pragma unroll U2
+      for (int r = 0; r < FF2; ++r) {
+        if ((r & 3) == 0) {  // a chain of 4 taps (32 terms) from zero
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) accB[mt][nt][e] = 0.f;
+        }
+        unsigned abig[2][4], asmall[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const float* pa = W2s + mt * 16 * SA2 + tq * FF2 + r;
+          split_tf32(pa[0], abig[mt][0], asmall[mt][0]);
+          split_tf32(pa[8 * SA2], abig[mt][1], asmall[mt][1]);
+          split_tf32(pa[4 * FF2], abig[mt][2], asmall[mt][2]);
+          split_tf32(pa[8 * SA2 + 4 * FF2], abig[mt][3], asmall[mt][3]);
+        }
+        const float* br = sr + (r / F2) * b.RW + r % F2;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          if (nt >= ntw) break;
+          unsigned b0big, b0small, b1big, b1small;
+          split_tf32(br[boff[nt]], b0big, b0small);
+          split_tf32(br[4 * RS + boff[nt]], b1big, b1small);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(accB[mt][nt], asmall[mt], b0big, b1big, accB[mt][nt]);
+            mma_tf32(accB[mt][nt], abig[mt], b0small, b1small, accB[mt][nt]);
+            mma_tf32(accB[mt][nt], abig[mt], b0big, b1big, accB[mt][nt]);
+          }
+        }
+        if ((r & 3) == 3 || r == FF2 - 1) {  // flush the chain
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) totB[mt][nt][e] += accB[mt][nt][e];
+        }
+      }
+      if (sl + NS < nsl) bar_arrive(empty_bar<NS>(buf), kThreads);
+    }
+  }
+
+  if (a.stats && tid == 0) {
+    // what the blocks executed: phase A 32 mid channels x the box's
+    // 8-tiles x 8 channels x F1^2 taps a stage, phase B BM x the columns'
+    // 8-tiles x 8 channels x F2^2 taps a stage
+    unsigned long long f = 0;
+    for (int ch = 0; ch < a.chunks; ++ch)
+      f += 2ull * kCM * 8 * b.ntA * 8 * a.ga * a.a_stages * a.FF1 +
+           2ull * BM * 8 * b.ntB * 8 * a.FF2 *
+               ((min(kCM, s.Cm - ch * kCM) + 7) / 8);
+    atomicAdd(a.stats, f);
+  }
+
+  // ---- the epilogue: the sums into shared memory (over the ring, which
+  // the last stage freed), then bias2 -> residual -> ReLU [-> pool] ----
+  bar_sync(cons_bar<NS>(), kConsumers);
+  float* T = smem;  // [BM][TS]
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    if (nt >= ntw) break;
+    const int c = (nt * WN + wn) * 8 + 2 * tq;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(T + (wm * 32 + mt * 16 + g + 8 * h) * TS +
+                                   c) =
+            make_float2(totB[mt][nt][2 * h], totB[mt][nt][2 * h + 1]);
+  }
+  bar_sync(cons_bar<NS>(), kConsumers);
+  const int mrows = min(BM, s.Co - co0);
+  const int OHW = b.OH * b.OW;
+  for (int e = tid; e < mrows * b.C; e += kConsumers) {
+    const int m = e / b.C, c = e - m * b.C;
+    const int nl = c / OHW, r = c - nl * OHW;
+    const int ohl = r / b.OW, owl = r - ohl * b.OW;
+    const long long n = t.n0 + nl;
+    const int co = co0 + m, oh = b.oh0 + ohl, ow = b.ow0 + owl;
+    float v = T[m * TS + c];
+    if (s.b2) v += __ldg(s.b2 + co);
+    if (s.res)
+      v += __ldg(s.res + n * s.rs.n + static_cast<long long>(co) * s.rs.c +
+                 oh * s.rs.h + ow * s.rs.w);
+    if (s.relu2) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+    if (POOL)
+      T[m * TS + c] = v;
+    else
+      s.y[n * s.ys.n + static_cast<long long>(co) * s.ys.c + oh * s.ys.h +
+          ow * s.ys.w] = v;
+  }
+  if (!POOL) return;
+  bar_sync(cons_bar<NS>(), kConsumers);
+  const int outs = t.NBc * t.UTHc * t.UTWc;
+  const float area = static_cast<float>(s.pF * s.pF);
+  for (int e = tid; e < mrows * outs; e += kConsumers) {
+    const int m = e / outs;
+    int r = e - m * outs;
+    const int uwl = r % t.UTWc;
+    r /= t.UTWc;
+    const int uhl = r % t.UTHc, nl = r / t.UTHc;
+    const float* row = T + m * TS + nl * OHW;
+    float acc = s.pool_avg ? 0.f : -INFINITY;
+    for (int i = 0; i < s.pF; ++i)
+      for (int j = 0; j < s.pF; ++j) {
+        const float v = row[(uhl * s.pS + i) * b.OW + uwl * s.pS + j];
+        acc = s.pool_avg ? acc + v : nan_max(acc, v);
+      }
+    s.y[static_cast<long long>(t.n0 + nl) * s.ys.n +
+        static_cast<long long>(co0 + m) * s.ys.c + (t.uh0 + uhl) * s.ys.h +
+        (t.uw0 + uwl) * s.ys.w] = s.pool_avg ? acc / area : acc;
+  }
+}
+
+// the smallest v >= n with v % 32 == 8: x box and slab channels 8 banks
+// apart
+inline int rows8(int n) { return n + ((8 - n % 32) + 32) % 32; }
+
+// K5b's shared-memory layout at a block tile (ops.py::k5b_layout computes
+// the same): a phase-A stage holds ga 8-channel groups of Ci (the largest
+// divisor of Ci/8 whose stage fits the slot a phase-B stage needs)
+struct Layout {
+  int sa1, sa2, xstr, rstr, ga, stage;
+  long long bytes;  // -1: no such tile
+};
+Layout layout(int Ci, int F1, int S1, int F2, int S2, int pool_F, int pool_S,
+              int bm, int nb, int uth, int utw) {
+  Layout l{};
+  l.bytes = -1;
+  if ((bm != 64 && bm != 128 && bm != 256) || nb < 1 || uth < 1 || utw < 1)
+    return l;
+  const int oth = pool_F > 0 ? (uth - 1) * pool_S + pool_F : uth;
+  const int otw = pool_F > 0 ? (utw - 1) * pool_S + pool_F : utw;
+  if (static_cast<long long>(nb) * oth * otw > kTile / bm) return l;
+  const int rh = (oth - 1) * S2 + F2, rw = (otw - 1) * S2 + F2;
+  const int xh = (rh - 1) * S1 + F1, xw = (3 + (rw - 1) * S1 + F1 + 3) & ~3;
+  const int ff1 = F1 * F1, ci_oct = (Ci + 7) / 8;
+  l.sa2 = 8 * F2 * F2 + 4;
+  l.xstr = rows8(nb * xh * xw);
+  l.rstr = rows8(nb * rh * rw);
+  auto stage_a = [&](int ga) {
+    return kCM * (8 * ga * ff1 + 4) + 8 * ga * l.xstr;
+  };
+  const int slot = stage_a(1) > bm * l.sa2 ? stage_a(1) : bm * l.sa2;
+  l.ga = 1;
+  for (int ga = 2; ga <= ci_oct; ++ga)
+    if (ci_oct % ga == 0 && stage_a(ga) <= slot) l.ga = ga;
+  l.sa1 = 8 * l.ga * ff1 + 4;
+  l.stage = slot;
+  const long long ring = (bm == 256 ? 2LL : 3LL) * slot;
+  const long long tile = static_cast<long long>(bm) * (kTile / bm + 8);
+  l.bytes = 4 * ((ring > tile ? ring : tile) + 1LL * kCM * l.rstr);
+  return l;
+}
+
+template <int BM, bool POOL, int FT>
+cudaError_t launch_f(const K5bArgs& a, dim3 grid, int smem, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_stack_nchw_kernel<BM, POOL, FT, FT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  conv_stack_nchw_kernel<BM, POOL, FT, FT><<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int BM, bool POOL>
+cudaError_t launch(const K5bArgs& a, dim3 grid, int smem, cudaStream_t st) {
+  return a.s.F1 == 3 && a.s.F2 == 3 ? launch_f<BM, POOL, 3>(a, grid, smem, st)
+                                    : launch_f<BM, POOL, 0>(a, grid, smem, st);
+}
+
+}  // namespace
+
+// Host entry of K5b: fills the arguments from the shapes and the tile the
+// wrapper chose (bm output channels; nb x uth x utw output units), and
+// launches.  stats (or null): one uint64 on the card that the blocks add
+// their executed FLOPs to.  Returns a cudaError_t code.
 extern "C" int conv_stack_nchw_forward(
     const void* x, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* res, void* y, int N, int Ci, int H, int W,
     int Cm, int F1, int S1, int P1, int Co, int F2, int S2, int P2,
     int pool_F, int pool_S, int pool_avg, int relu1, int relu2, int src_nchw,
     int dst_nchw, int res_nchw, int bm, int nb, int uth, int utw,
-    void* stream) {
-  // w1 [Cm, Ci, F1, F1] is [Cm, K1]; w2 [Co, Cm, F2, F2] is [Co, K2]
-  return repro::stack::stack_forward(
-      x, w1, b1, w2, b2, res, y, N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2,
-      pool_F, pool_S, pool_avg, relu1, relu2, src_nchw, dst_nchw, res_nchw,
-      bm, nb, uth, utw, /*w1O=*/Ci * F1 * F1, /*w1K=*/1,
-      /*w2O=*/Cm * F2 * F2, /*w2K=*/1, stream);
+    void* stats, void* stream) {
+  const Layout l =
+      layout(Ci, F1, S1, F2, S2, pool_F, pool_S, bm, nb, uth, utw);
+  if (l.bytes < 0 || l.bytes > kSmemMax)
+    return static_cast<int>(cudaErrorInvalidValue);
+  K5bArgs a{};
+  StackArgs& s = a.s;
+  s.x = static_cast<const float*>(x);
+  s.w1 = static_cast<const float*>(w1);
+  s.b1 = static_cast<const float*>(b1);
+  s.w2 = static_cast<const float*>(w2);
+  s.b2 = static_cast<const float*>(b2);
+  s.res = static_cast<const float*>(res);
+  s.y = static_cast<float*>(y);
+  s.N = N; s.Ci = Ci; s.H = H; s.W = W; s.Cm = Cm;
+  s.F1 = F1; s.S1 = S1; s.P1 = P1; s.K1 = Ci * F1 * F1;
+  s.Ho1 = (H + 2 * P1 - F1) / S1 + 1;
+  s.Wo1 = (W + 2 * P1 - F1) / S1 + 1;
+  s.Co = Co; s.F2 = F2; s.S2 = S2; s.P2 = P2;
+  s.Ho2 = (s.Ho1 + 2 * P2 - F2) / S2 + 1;
+  s.Wo2 = (s.Wo1 + 2 * P2 - F2) / S2 + 1;
+  s.pF = pool_F; s.pS = pool_S; s.pool_avg = pool_avg;
+  s.relu1 = relu1; s.relu2 = relu2;
+  const bool pool = pool_F > 0;
+  s.UH = pool ? (s.Ho2 - pool_F) / pool_S + 1 : s.Ho2;
+  s.UW = pool ? (s.Wo2 - pool_F) / pool_S + 1 : s.Wo2;
+  s.NB = nb; s.UTH = uth; s.UTW = utw;
+  s.nTH = (s.UH + uth - 1) / uth;
+  s.nTW = (s.UW + utw - 1) / utw;
+  s.RSTR = l.rstr;
+  s.xs = repro::layout_strides(src_nchw, N, Ci, H, W);
+  s.rs = repro::layout_strides(res_nchw, N, Co, s.Ho2, s.Wo2);
+  s.ys = repro::layout_strides(dst_nchw, N, Co, s.UH, s.UW);
+  a.FF1 = F1 * F1;
+  a.FF2 = F2 * F2;
+  a.SA1 = l.sa1;
+  a.SA2 = l.sa2;
+  a.XSTR = l.xstr;
+  a.STAGE = l.stage;
+  a.ga = l.ga;
+  a.a_stages = (Ci + 7) / 8 / l.ga;
+  a.chunks = (Cm + kCM - 1) / kCM;
+  a.vec_x = src_nchw && W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  a.vec_w1 = s.K1 % 4 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
+  a.vec_w2 = (Cm * a.FF2) % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(w2) % 16 == 0;
+  a.stats = static_cast<unsigned long long*>(stats);
+  if (N <= 0 || Co <= 0 || Cm <= 0 || s.UH <= 0 || s.UW <= 0)
+    return static_cast<int>(cudaGetLastError());
+  const dim3 grid(((N + nb - 1) / nb) * s.nTH * s.nTW, (Co + bm - 1) / bm);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int sm = static_cast<int>(l.bytes);
+  cudaError_t e;
+  switch (bm) {
+    case 64:
+      e = pool ? launch<64, true>(a, grid, sm, st)
+               : launch<64, false>(a, grid, sm, st);
+      break;
+    case 128:
+      e = pool ? launch<128, true>(a, grid, sm, st)
+               : launch<128, false>(a, grid, sm, st);
+      break;
+    default:
+      e = pool ? launch<256, true>(a, grid, sm, st)
+               : launch<256, false>(a, grid, sm, st);
+  }
+  return static_cast<int>(e);
 }

@@ -441,14 +441,16 @@ def conv_im2col_nchw_fused(x: torch.Tensor, w: torch.Tensor,
 # conv -> conv stacks (K5a, K5b): the mid activation never leaves the SM
 # ---------------------------------------------------------------------------
 
-# the design constants of csrc/conv_stack_common.cuh (K5b)
-_STACK_THREADS = 256
-_STACK_BK = 8             # reduction slice
-_STACK_CM = 64            # mid channels per chunk
-_STACK_RA = 128           # mid positions per conv1 pass
-_STACK_TILE = 16384       # conv2 tile: bm x (16384 // bm) columns
+# the conv2 tile of both stack kernels: bm x (16384 // bm) GEMM columns
+_STACK_TILE = 16384
 _STACK_BMS = (64, 128, 256)
-# ... and of csrc/conv_stack_chwn.cu (K5a, the cluster kernel)
+# the design constants of csrc/conv_stack_nchw.cu (K5b)
+_K5B_CM = 32              # mid channels of a chunk
+_K5B_PASS = 32            # 8-position tiles of a conv1 pass
+# a stage's fixed cost beside its mma (the FULL/EMPTY hand-off, the weight
+# fragments of each tap), in mma of one warp (modeled)
+_K5B_STAGE_COST = 24
+# the design constants of csrc/conv_stack_chwn.cu (K5a, the cluster kernel)
 _CL_BK = 16               # reduction slice of both phases
 _CL_CM = 64               # mid channels per chunk
 _CL_PASS = 128            # mid positions of a conv1 pass (a 64-wide tail)
@@ -482,14 +484,6 @@ class StackTiling:
     cluster: int = 1
 
 
-def _smem_bytes(bm: int, rstr: int, pool: bool) -> int:
-    bn = _STACK_TILE // bm
-    astr = max(bm, _STACK_CM) + 4
-    bstr = max(bn, _STACK_RA)
-    slab = max(_STACK_CM * rstr, bm * (bn + 1) if pool else 0)
-    return 4 * (_STACK_BK * astr + _STACK_BK * bstr + slab)
-
-
 def _cluster_smem_bytes(bm: int, rstr: int, pool: bool) -> int:
     """One K5a block's dynamic shared memory (``smem_bytes`` in
     csrc/conv_stack_chwn.cu): the double-buffered ring of both phases'
@@ -503,17 +497,17 @@ def _cluster_smem_bytes(bm: int, rstr: int, pool: bool) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _mid_spans(U: int, UT: int, pF: int, pS: int, S2: int, F2: int, P2: int,
-               M1: int) -> Tuple[Tuple[int, int], ...]:
-    """(clipped mid rows a tile reads, number of such tiles) over the tiles
-    of ``UT`` units along a dim of ``U`` units (``make_tile`` in the
-    kernel)."""
+               M1: int) -> Tuple[Tuple[Tuple[int, int], int], ...]:
+    """((conv2 outputs, clipped mid rows a tile reads), number of such
+    tiles) over the tiles of ``UT`` units along a dim of ``U`` units
+    (``make_tile`` in the kernels)."""
     out = {}
     for u0 in range(0, U, UT):
         n = min(UT, U - u0)
         o0, on = (u0 * pS, (n - 1) * pS + pF) if pF else (u0, n)
         m0, m1 = o0 * S2 - P2, (o0 + on - 1) * S2 - P2 + F2
         span = max(0, min(m1, M1) - max(m0, 0))
-        out[span] = out.get(span, 0) + 1
+        out[(on, span)] = out.get((on, span), 0) + 1
     return tuple(out.items())
 
 
@@ -573,8 +567,8 @@ def _cluster_tiling(N, Ci, Cm, Co, F1, F2, S2, P2, Ho1, Wo1, UH, UW, T, pF,
                     if nb * uth * utw > units:
                         break
                     ws = _mid_spans(UW, utw, pF, pS, S2, F2, P2, Wo1)
-                    rstr = nbmax * max(h for h, _ in hs) * max(
-                        w for w, _ in ws)
+                    rstr = nbmax * max(h for (_, h), _ in hs) * max(
+                        w for (_, w), _ in ws)
                     rstr = -(-rstr // 4) * 4
                     tiles = -(-N // nb) * -(-UH // uth) * -(-UW // utw)
                     clusters = tiles * groups
@@ -586,8 +580,8 @@ def _cluster_tiling(N, Ci, Cm, Co, F1, F2, S2, P2, Ho1, Wo1, UH, UW, T, pF,
                     wide = tail = 0
                     slowest = 0.0    # summed over the tiles
                     for nbc, cn in n_tiles:
-                        for sh, ch in hs:
-                            for sw, cw in ws:
+                        for (_, sh), ch in hs:
+                            for (_, sw), cw in ws:
                                 w_, t_, s_ = _rank_passes(nbc * sh * sw, cl)
                                 n = cn * ch * cw
                                 wide, tail = wide + n * w_, tail + n * t_
@@ -606,32 +600,45 @@ def _cluster_tiling(N, Ci, Cm, Co, F1, F2, S2, P2, Ho1, Wo1, UH, UW, T, pF,
     return best
 
 
+def _stack_dims(N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pool):
+    """(Ho1, Wo1, Ho2, Wo2, UH, UW, pF, pS, direct FLOPs) of a stack: the
+    mid and conv2 extents, the unit grid (the pooled output, or conv2's)
+    and the pool's window and stride (0 without one)."""
+    Ho1, Wo1 = conv_out_hw(H, F1, S1, P1), conv_out_hw(W, F1, S1, P1)
+    Ho2, Wo2 = conv_out_hw(Ho1, F2, S2, P2), conv_out_hw(Wo1, F2, S2, P2)
+    pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+    UH, UW = ((pool_out_hw(Ho2, pF, pS), pool_out_hw(Wo2, pF, pS)) if pool
+              else (Ho2, Wo2))
+    direct = 2 * N * (Cm * Ho1 * Wo1 * Ci * F1 * F1
+                      + Co * Ho2 * Wo2 * Cm * F2 * F2)
+    return Ho1, Wo1, Ho2, Wo2, UH, UW, pF, pS, direct
+
+
 @functools.lru_cache(maxsize=None)
 def stack_tiling(engine: str, N: int, Ci: int, H: int, W: int, Cm: int,
                  F1: int, S1: int, P1: int, Co: int, F2: int, S2: int,
                  P2: int, pool: Optional[Tuple[int, int, str]] = None
                  ) -> StackTiling:
     """The block tile of one stack launch, among the tiles whose shared
-    memory fits a block, with the least executed work per wave.  K5b
-    ("NCHW") recomputes conv1 on each tile's halo and once per ``bm``-wide
-    slice of Co; K5a ("CHWN") shares one conv1 over a cluster of blocks
-    that covers Co, and keeps at least 8 images (or all of them) in a tile
-    so its gathers run along n.  ``executed_flops`` is what the kernel
-    executes.  Raises ``ValueError`` when no tile fits."""
-    Ho1, Wo1 = conv_out_hw(H, F1, S1, P1), conv_out_hw(W, F1, S1, P1)
-    Ho2, Wo2 = conv_out_hw(Ho1, F2, S2, P2), conv_out_hw(Wo1, F2, S2, P2)
-    pF, pS = (pool[0], pool[1]) if pool else (0, 0)
-    T = pF * pF if pool else 1
-    UH, UW = ((pool_out_hw(Ho2, pF, pS), pool_out_hw(Wo2, pF, pS)) if pool
-              else (Ho2, Wo2))
-    K1, K2 = Ci * F1 * F1, Cm * F2 * F2
-    direct = 2 * N * (Cm * Ho1 * Wo1 * K1 + Co * Ho2 * Wo2 * K2)
+    memory fits a block, with the least modeled time.  K5b ("NCHW")
+    recomputes conv1 on each tile's halo and once per ``bm``-wide slice of
+    Co; K5a ("CHWN") shares one conv1 over a cluster of blocks that covers
+    Co, and keeps at least 8 images (or all of them) in a tile so its
+    gathers run along n.  ``executed_flops`` is what the kernel executes.
+    Raises ``ValueError`` when no tile fits."""
+    Ho1, Wo1, Ho2, Wo2, UH, UW, pF, pS, direct = _stack_dims(
+        N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pool)
     if engine == "CHWN":
         best = _cluster_tiling(N, Ci, Cm, Co, F1, F2, S2, P2, Ho1, Wo1, UH,
-                               UW, T, pF, pS, pool, direct)
+                               UW, pF * pF if pool else 1, pF, pS, pool,
+                               direct)
     else:
-        best = _nchw_tiling(N, Cm, Co, F2, S2, P2, Ho1, Wo1, UH, UW, T, pF,
-                            pS, pool, K1, direct)
+        cands = k5b_tilings(N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2,
+                            pool)
+        # the least modeled time, then the fewer FLOPs and shared memory
+        best = min(cands, key=lambda c: (c[0], c[1].executed_flops,
+                                         c[1].smem_bytes))[1] if cands \
+            else None
     if best is None:
         raise ValueError(
             f"conv stack: no block tile of a {Ho2}x{Wo2} conv2 output "
@@ -640,57 +647,112 @@ def stack_tiling(engine: str, N: int, Ci: int, H: int, W: int, Cm: int,
     return best
 
 
-def _nchw_tiling(N, Cm, Co, F2, S2, P2, Ho1, Wo1, UH, UW, T, pF, pS, pool,
-                 K1, direct) -> Optional[StackTiling]:
-    """K5b's tile: the least executed work per wave of 132 blocks; conv1
-    runs on each tile's halo once per ``bm``-wide slice of Co."""
-    chunks = [min(_STACK_CM, Cm - c) for c in range(0, Cm, _STACK_CM)]
-    k2_exec = sum(-(-c * F2 * F2 // _STACK_BK) * _STACK_BK for c in chunks)
-    k1_exec = -(-K1 // _STACK_BK) * _STACK_BK
-    best, best_key = None, None
+def _rows8(n: int) -> int:
+    """The smallest v >= n with v % 32 == 8 (``rows8`` in the kernel)."""
+    return n + (8 - n % 32) % 32
+
+
+def k5b_layout(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
+               pS: int, bm: int, nb: int, uth: int, utw: int
+               ) -> Tuple[int, int]:
+    """(ga, bytes): one K5b block's 8-channel groups of Ci a phase-A stage
+    holds and its dynamic shared memory (``layout`` in
+    csrc/conv_stack_nchw.cu).  A ring slot holds a phase-B stage (the w2
+    slice of 8 mid channels) or a phase-A stage (the w1 slice and the x
+    box of ga x 8 input channels, ga the largest divisor of Ci/8 that fits
+    the slot); 3 slots, 2 at bm 256, or the epilogue tile over them where
+    that is larger; then the mid slab of 32 channels."""
+    oth = (uth - 1) * pS + pF if pF else uth
+    otw = (utw - 1) * pS + pF if pF else utw
+    rh, rw = (oth - 1) * S2 + F2, (otw - 1) * S2 + F2
+    xh, xw = (rh - 1) * S1 + F1, (3 + (rw - 1) * S1 + F1 + 3) // 4 * 4
+    ff1, ci_oct = F1 * F1, -(-Ci // 8)
+    xstr = _rows8(nb * xh * xw)
+
+    def stage_a(ga):
+        return _K5B_CM * (8 * ga * ff1 + 4) + 8 * ga * xstr
+
+    slot = max(stage_a(1), bm * (8 * F2 * F2 + 4))
+    ga = max(g for g in range(1, ci_oct + 1)
+             if ci_oct % g == 0 and (g == 1 or stage_a(g) <= slot))
+    ring = (2 if bm == 256 else 3) * slot
+    tile = bm * (_STACK_TILE // bm + 8)
+    return ga, 4 * (max(ring, tile) + _K5B_CM * _rows8(nb * rh * rw))
+
+
+def _balanced(U: int, cap: int):
+    """The tile sizes along a dim of ``U`` units that split it into equal
+    tiles (the last one no larger), up to ``cap``."""
+    return sorted({-(-U // -(-U // t)) for t in range(1, min(U, cap) + 1)})
+
+
+@functools.lru_cache(maxsize=None)
+def k5b_tilings(N: int, Ci: int, H: int, W: int, Cm: int, F1: int, S1: int,
+                P1: int, Co: int, F2: int, S2: int, P2: int,
+                pool: Optional[Tuple[int, int, str]] = None
+                ) -> Tuple[Tuple[float, StackTiling], ...]:
+    """K5b's candidate tiles, each with its modeled time: ``bm`` and a
+    rectangle of ``nb`` images x ``uth`` x ``utw`` units whose conv2
+    outputs fit the block's 16384 // bm columns and whose shared memory
+    fits.  The modeled time is waves of one block an SM times the mean
+    block's mma of one warp (phase A: 6 a tap for each of the warp's
+    8-position tiles of a pass, 8 warps along the box; phase B: 6 a tap for
+    each of its column tiles), plus ``_K5B_STAGE_COST`` a stage.
+    ``executed_flops`` is what the blocks execute
+    (``conv_stack_nchw_counted`` reads the kernel's own count)."""
+    Ho1, Wo1, _, _, UH, UW, pF, pS, direct = _stack_dims(
+        N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pool)
+    ci_oct, chunks = -(-Ci // 8), -(-Cm // _K5B_CM)
+    FF1, FF2 = F1 * F1, F2 * F2
+    b_stages = sum(-(-min(_K5B_CM, Cm - c) // 8)
+                   for c in range(0, Cm, _K5B_CM))
+    cands = []
     for bm in _STACK_BMS:
-        bn = _STACK_TILE // bm
-        units = bn // T
-        if units < 1:
-            continue
+        bn, wn = _STACK_TILE // bm, 256 // bm
         co_tiles = -(-Co // bm)
-        # powers of two up to the one that covers N
-        nbs = [1 << i for i in range(12) if (1 << i) <= units
-               and (1 << i) < 2 * N]
-        for nb in nbs:
-            # (images in a tile, tiles with that many)
-            n_tiles = ((nb, N // nb),) + (((N % nb, 1),) if N % nb else ())
-            for th in range(1, min(UH, units // nb) + 1):
-                uth = -(-UH // -(-UH // th))           # balanced tiles
-                utw = min(UW, units // (nb * uth))
-                utw = -(-UW // -(-UW // utw))
-                oth = (uth - 1) * pS + pF if pool else uth
-                otw = (utw - 1) * pS + pF if pool else utw
-                rstr = nb * ((oth - 1) * S2 + F2) * ((otw - 1) * S2 + F2)
-                smem = _smem_bytes(bm, rstr, pool is not None)
-                if smem > SMEM_PER_BLOCK:
-                    continue
+        for nb in [1 << i for i in range(9) if (1 << i) < 2 * N]:
+            ns = ((nb, N // nb),) + (((N % nb, 1),) if N % nb else ())
+            for uth in _balanced(UH, bn):
+                oth = (uth - 1) * pS + pF if pF else uth
+                if nb * oth > bn:
+                    break
                 hs = _mid_spans(UH, uth, pF, pS, S2, F2, P2, Ho1)
-                ws = _mid_spans(UW, utw, pF, pS, S2, F2, P2, Wo1)
-                conv1 = 0
-                for nbc, cn in n_tiles:
-                    for sh, ch in hs:
-                        for sw, cw in ws:
-                            ra = nbc * sh * sw
-                            conv1 += (cn * ch * cw * -(-ra // _STACK_RA)
-                                      * _STACK_RA)
-                tiles = -(-N // nb) * -(-UH // uth) * -(-UW // utw)
-                blocks = tiles * co_tiles
-                executed = 2 * co_tiles * (
-                    conv1 * len(chunks) * _STACK_CM * k1_exec
-                    + tiles * bm * bn * k2_exec)
-                waves = -(-blocks // _SMS)
-                key = (waves * executed / blocks, executed, smem)
-                if best_key is None or key < best_key:
-                    best_key = key
-                    best = StackTiling(bm, nb, uth, utw, blocks, smem,
-                                       executed, direct)
-    return best
+                for utw in _balanced(UW, bn):
+                    otw = (utw - 1) * pS + pF if pF else utw
+                    if nb * oth * otw > bn:
+                        break
+                    ga, smem = k5b_layout(Ci, F1, S1, F2, S2, pF, pS, bm,
+                                          nb, uth, utw)
+                    if smem > SMEM_PER_BLOCK:
+                        continue
+                    ws = _mid_spans(UW, utw, pF, pS, S2, F2, P2, Wo1)
+                    tiles = executed = work = 0
+                    for nbc, cn in ns:
+                        for (oh, mh), ch in hs:
+                            for (ow, mw), cw in ws:
+                                n = cn * ch * cw
+                                nta = -(-(nbc * mh * mw) // 8)
+                                ntb = -(-(nbc * oh * ow) // 8)
+                                tiles += n
+                                executed += n * (
+                                    2 * _K5B_CM * 64 * ci_oct * FF1 * chunks
+                                    * nta + 2 * bm * 64 * FF2 * b_stages * ntb)
+                                passes = -(-nta // _K5B_PASS)
+                                wa = sum(-(-min(_K5B_PASS,
+                                                nta - p * _K5B_PASS) // 8)
+                                         for p in range(passes))
+                                work += n * (
+                                    6 * chunks * ci_oct * FF1 * wa
+                                    + 6 * b_stages * FF2 * -(-ntb // wn)
+                                    + _K5B_STAGE_COST
+                                    * (chunks * passes * ci_oct // ga
+                                       + b_stages))
+                    blocks = tiles * co_tiles
+                    waves = -(-blocks // _SMS)
+                    cands.append((waves * work / tiles, StackTiling(
+                        bm, nb, uth, utw, blocks, smem, executed * co_tiles,
+                        direct)))
+    return tuple(cands)
 
 
 def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
@@ -699,8 +761,9 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
                   relu1: bool, relu2: bool, pool, res, res_layout: str,
                   src_layout: str, dst_layout: str, stats=None):
     """Check a stack call; on the CPU return the plain version, on the
-    card launch the kernel.  ``stats`` (K5a only): two int64 on the card
-    that the kernel adds its executed FLOPs and its cluster size to."""
+    card launch the kernel.  ``stats``: int64 on the card that the kernel
+    adds its executed FLOPs to (K5a also its cluster size, a second
+    one)."""
     name = wrapper.__name__
     _check_layouts(name, src_layout=src_layout, dst_layout=dst_layout,
                    res_layout=res_layout)
@@ -727,14 +790,14 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
     _build.require_cuda_f32(name, x.device, x=x, w1=w1, w2=w2, bias1=bias1,
                             bias2=bias2, res=res)
     y = _output(name, x, dst_layout, N, Co, OH, OW)
-    cluster = (tiling.cluster, _ptr(stats)) if engine == "CHWN" else ()
+    cluster = (tiling.cluster,) if engine == "CHWN" else ()
     err = getattr(_build.library(), entry)(
         x.data_ptr(), w1.data_ptr(), _ptr(bias1), w2.data_ptr(), _ptr(bias2),
         _ptr(res), y.data_ptr(), N, Ci, H, W, Cm, F1, stride1, pad1, Co, F2,
         stride2, pad2, pF, pS, avg, int(relu1), int(relu2),
         int(src_layout == "NCHW"), int(dst_layout == "NCHW"),
         int(res_layout == "NCHW"), tiling.bm, tiling.nb, tiling.uth,
-        tiling.utw, *cluster, _build.stream_of(x.device))
+        tiling.utw, *cluster, _ptr(stats), _build.stream_of(x.device))
     _build.check(name, err)
     wrapper.launches += 1
     return y
@@ -882,6 +945,28 @@ def conv_stack_chwn_counted(x: torch.Tensor, w1: torch.Tensor,
                kw["dst_layout"], stats=stats)
     flops, cluster = stats.tolist()
     return y, flops, cluster
+
+
+def conv_stack_nchw_counted(x: torch.Tensor, w1: torch.Tensor,
+                            w2: torch.Tensor, stride1: int = 1,
+                            pad1: int = 0, stride2: int = 1, pad2: int = 0,
+                            **kw) -> Tuple[torch.Tensor, int]:
+    """K5b once on the card (arguments as ``conv_stack_nchw``, outside
+    autograd), with the kernel counting what it runs: (y, the FLOPs its
+    blocks executed).  What shows that ``stack_tiling`` prices the kernel
+    exactly."""
+    if _build.on_cpu("conv_stack_nchw_counted", x):
+        raise ValueError("conv_stack_nchw_counted: the count comes from the "
+                         "kernel; pass CUDA tensors")
+    stats = torch.zeros(1, dtype=torch.int64, device=x.device)
+    kw = {"bias1": None, "bias2": None, "relu1": True, "relu2": False,
+          "pool": None, "res": None, "res_layout": "NCHW",
+          "src_layout": "NCHW", "dst_layout": "NCHW", **kw}
+    y = _stack("NCHW", x, w1, w2, stride1, pad1, stride2, pad2,
+               kw["bias1"], kw["bias2"], kw["relu1"], kw["relu2"],
+               kw["pool"], kw["res"], kw["res_layout"], kw["src_layout"],
+               kw["dst_layout"], stats=stats)
+    return y, int(stats.item())
 
 
 def stack_max_clusters(N: int, Ci: int, H: int, W: int, Cm: int, F1: int,

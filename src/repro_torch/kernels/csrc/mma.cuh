@@ -1,7 +1,9 @@
 // The tensor-core and async-copy helpers of the port's Hopper kernels:
 // the weight gradient K6 (conv/csrc/wgrad.cu), flash attention K11
 // (flash_attention/csrc/flash_attention.cu), the direct CHWN conv K1
-// (conv/csrc/conv_chwn.cu) and the fused unembed + cross entropy K12
+// (conv/csrc/conv_chwn.cu), the NCHW conv -> conv stack K5b
+// (conv/csrc/conv_stack_nchw.cu), the tiled matmul K10
+// (matmul/csrc/matmul.cu) and the fused unembed + cross entropy K12
 // (crossentropy/csrc/crossentropy.cu).
 //
 // - cp.async copies global -> shared (16 bytes, or 4 with zero fill),

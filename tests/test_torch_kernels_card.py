@@ -413,6 +413,118 @@ def test_stack_kernel_rejects_what_it_does_not_hold(card):
     assert conv_ops.conv_stack_nchw.launches == before
 
 
+# K5b on the tensor cores (3xTF32): ragged N, Ci, Cm and Co, both residual
+# layouts, max and avg pools (one overlapping), a CHWN source and a CHWN
+# output, stride-2 conv1 (ResNet-18's), W % 4 != 0 (4-byte x copies), the
+# 256-row tile, and a 5x5/1x1 pair (the kernel's generic-filter path).
+# (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, bias,
+#  res_layout or None, src, dst)
+K5B_CASES = [
+    (5, 16, 20, 40, 36, 3, 1, 1, 3, 1, 1, None, True, True, None, "NCHW",
+     "NCHW"),
+    (3, 32, 28, 64, 64, 3, 1, 1, 3, 1, 1, None, True, True, "NCHW", "NCHW",
+     "NCHW"),
+    (3, 32, 28, 64, 64, 3, 1, 1, 3, 1, 1, None, True, False, "CHWN", "NCHW",
+     "NCHW"),
+    (4, 8, 18, 24, 20, 3, 1, 1, 3, 1, 1, (2, 2, "avg"), True, True, None,
+     "NCHW", "NCHW"),
+    (4, 12, 17, 40, 70, 3, 1, 1, 3, 1, 1, (3, 2, "max"), True, True, "NCHW",
+     "NCHW", "CHWN"),
+    (6, 16, 15, 32, 48, 3, 1, 1, 3, 1, 1, None, True, True, None, "CHWN",
+     "NCHW"),
+    (4, 64, 29, 128, 128, 3, 2, 1, 3, 1, 1, None, True, False, "CHWN",
+     "NCHW", "NCHW"),
+    (2, 64, 27, 64, 64, 3, 1, 1, 3, 1, 1, None, True, False, "NCHW", "NCHW",
+     "NCHW"),
+    (2, 128, 28, 256, 256, 3, 1, 1, 3, 1, 1, None, True, True, None, "NCHW",
+     "NCHW"),
+    (3, 9, 13, 20, 33, 5, 1, 2, 1, 1, 0, (2, 2, "max"), False, True, None,
+     "NCHW", "NCHW"),
+]
+
+
+def _scaled_err(got, want64):
+    return ((got.double() - want64).abs().max()
+            / max(1.0, want64.abs().max().item())).item()
+
+
+def _k5b_case(case, dev, seed, nan_at=()):
+    (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, bias, rlay, src,
+     dst) = case
+    gen = torch.Generator().manual_seed(seed)
+    Ho1 = (H + 2 * P1 - F1) // S1 + 1
+    Ho2 = (Ho1 + 2 * P2 - F2) // S2 + 1
+    x = torch.randn(N, Ci, H, H, generator=gen)
+    for idx in nan_at:
+        x[idx] = float("nan")
+    w1 = torch.randn(Cm, Ci, F1, F1, generator=gen) / np.sqrt(Ci * F1 * F1)
+    w2 = torch.randn(Co, Cm, F2, F2, generator=gen) / np.sqrt(Cm * F2 * F2)
+    b1 = torch.randn(Cm, generator=gen) if bias else None
+    b2 = torch.randn(Co, generator=gen) if bias else None
+    r = torch.randn(N, Co, Ho2, Ho2, generator=gen) if rlay else None
+
+    def to(t, layout=None, dtype=torch.float32):
+        if t is None:
+            return None
+        if layout is not None:
+            t = t.permute(perm_between("NCHW", layout))
+        return t.contiguous().to(dev, dtype)
+
+    def kw(dtype=torch.float32):
+        return dict(bias1=to(b1, dtype=dtype), bias2=to(b2, dtype=dtype),
+                    relu1=relu1, relu2=True, pool=pool,
+                    res=to(r, rlay, dtype), res_layout=rlay or "NCHW",
+                    src_layout=src, dst_layout=dst)
+    args = (to(x, src), to(w1), to(w2), S1, P1, S2, P2)
+    want = conv_stack_ref(*args, **kw())
+    want64 = conv_stack_ref(to(x, src, torch.float64),
+                            to(w1, dtype=torch.float64),
+                            to(w2, dtype=torch.float64), S1, P1, S2, P2,
+                            **kw(torch.float64))
+    tiling = conv_ops.stack_tiling("NCHW", N, Ci, H, H, Cm, F1, S1, P1, Co,
+                                   F2, S2, P2, pool)
+    return args, kw(), want, want64, tiling
+
+
+def _k5b_id(c):
+    return _stack_id(("NCHW",) + c)
+
+
+@pytest.mark.parametrize(
+    "case", K5B_CASES + [c[1:] for c in STACK_CASES if c[0] == "NCHW"],
+    ids=[_k5b_id(c) for c in K5B_CASES]
+    + ["main-" + _stack_id(c) for c in STACK_CASES if c[0] == "NCHW"])
+def test_k5b_matches_plain_float64_and_its_tiling(case, card):
+    """The plain version at the conv tolerance, float64 within 1e-5
+    scale-relative (the 3xTF32 gate), and the FLOPs the blocks count equal
+    to ``stack_tiling``'s."""
+    args, kw, want, want64, tiling = _k5b_case(case, card, sum(case[:5]))
+    before = conv_ops.conv_stack_nchw.launches
+    got, flops = conv_ops.conv_stack_nchw_counted(*args, **kw)
+    assert conv_ops.conv_stack_nchw.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3)
+    assert _scaled_err(got, want64) <= K1_TOL
+    assert flops == tiling.executed_flops
+    torch.testing.assert_close(conv_ops.conv_stack_nchw(*args, **kw), got,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("pool", [None, (2, 2, "max"), (3, 2, "max")],
+                         ids=["nopool", "max2s2", "max3s2"])
+def test_k5b_nan_runs_through_relu_and_the_max_pool(pool, card):
+    """NaN in x reaches every conv1 output whose window covers it, through
+    ReLU (max(v, 0) keeps NaN), conv2 and the max pool (nan_max)."""
+    case = (3, 16, 14, 32, 40, 3, 1, 1, 3, 1, 1, pool, True, True, None,
+            "NCHW", "NCHW")
+    args, kw, want, _, _ = _k5b_case(case, card, 9,
+                                     nan_at=[(0, 3, 4, 5), (2, 11, 9, 1)])
+    got = conv_ops.conv_stack_nchw(*args, **kw)
+    assert torch.isnan(got).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
+                               equal_nan=True)
+
+
 # K5a's cluster kernel: the full AlexNet shape, Co that no C * bm matches,
 # N < 8 (one tile of all images; N 5 takes the 4-byte copies), the pool and
 # residual epilogues and the layout folds; the kernel counts the FLOPs it

@@ -30,7 +30,7 @@ from repro_torch.kernels.crossentropy.ops import fused_xent
 from repro_torch.kernels.crossentropy.ref import xent_ref
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
-from repro_torch.kernels.matmul.ops import matmul
+from repro_torch.kernels.matmul.ops import matmul, matmul_tiling
 from repro_torch.kernels.matmul.ref import matmul_ref
 
 BF16_EPS = 2.0 ** -8
@@ -39,6 +39,11 @@ DTYPES = [torch.float32, torch.bfloat16]
 # deep layer's K = 4608 with ragged M and N
 MATMUL_SHAPES = [(256, 256, 256), (100, 300, 50), (8, 1024, 128), (1, 7, 3),
                  (1000, 27, 64), (130, 4608, 129)]
+# (M, K, N) where matmul_tiling splits K in both dtypes: Table 1's CV12, a
+# CV4-like N 64, a ragged deep one
+SPLIT_K_SHAPES = [(4608, 4608, 512), (4096, 2304, 64), (257, 3001, 77)]
+# ragged M, N and K beside the tiles (128, 64) and the slices (32, 64)
+RAGGED_SHAPES = [(1001, 33, 77), (129, 100, 65), (64, 65, 64), (300, 25, 16)]
 # (Ci, H, W, N, F, Co, S, pad): the reference's CONV_CASES
 CONV_CASES = [(1, 28, 28, 32, 5, 16, 1, 0), (16, 14, 14, 64, 5, 16, 1, 2),
               (3, 32, 32, 32, 3, 8, 2, 0), (8, 13, 13, 32, 3, 16, 1, 1)]
@@ -98,6 +103,56 @@ def test_matmul_kernel_matches_plain(shape, x_t, y_t, dtype, card):
     rtol, atol = _tol(dtype, (2e-5, 2e-4))
     torch.testing.assert_close(got.float(), matmul_ref(x, y).float(),
                                rtol=rtol, atol=atol)
+
+
+def _f64_err(got, x, y):
+    want = x.double() @ y.double()
+    return ((got.double() - want).abs().max()
+            / max(1.0, want.abs().max().item())).item()
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", SPLIT_K_SHAPES, ids=str)
+def test_matmul_split_k_holds_float64_and_two_runs_are_bitwise_equal(
+        shape, dtype, card):
+    """Split K, the partials added in split order by a second launch: one
+    counted launch, fp32 within 1e-5 scale-relative of float64 (the 3xTF32
+    gate), bf16 within 8 * BF16_EPS of the plain version, and the same bits
+    on a second run."""
+    M, K, N = shape
+    assert matmul_tiling(M, N, K, dtype).splits > 1
+    gen = torch.Generator(device=card).manual_seed(M + N)
+    x = torch.randn(M, K, device=card, generator=gen).to(dtype)
+    y = (torch.randn(K, N, device=card, generator=gen)
+         / math.sqrt(K)).to(dtype)
+    got = _counted("matmul", lambda: matmul(x, y))
+    again = matmul(x, y)
+    assert torch.equal(got, again)
+    if dtype == torch.float32:
+        assert _f64_err(got, x, y) <= 1e-5
+    else:
+        torch.testing.assert_close(got.float(), matmul_ref(x, y).float(),
+                                   rtol=8 * BF16_EPS, atol=8 * BF16_EPS)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=str)
+@pytest.mark.parametrize("shape", RAGGED_SHAPES, ids=str)
+def test_matmul_ragged_edges_and_the_weights_view(shape, dtype, card):
+    """Ragged M, N and K, with y as the matrix-expansion conv passes it (a
+    transposed view of [N, K] weights, K contiguous), and x strided along
+    k (4-byte copies)."""
+    M, K, N = shape
+    gen = torch.Generator(device=card).manual_seed(M * N + K)
+    x = torch.randn(M, K, device=card, generator=gen).to(dtype)
+    w = (torch.randn(N, K, device=card, generator=gen)
+         / math.sqrt(K)).to(dtype)
+    for xx in (x, x.T.contiguous().T):
+        got = _counted("matmul", lambda: matmul(xx, w.T))
+        if dtype == torch.float32:
+            assert _f64_err(got, xx, w.T) <= 1e-5
+        torch.testing.assert_close(
+            got.float(), matmul_ref(xx, w.T).float(),
+            **dict(zip(("rtol", "atol"), _tol(dtype, (2e-5, 2e-4)))))
 
 
 @pytest.mark.parametrize("Ci,H,W,N,F,Co,S,pad", CONV_CASES)

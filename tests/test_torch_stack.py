@@ -402,8 +402,17 @@ def test_alexnet_conv3_conv4_executes_at_most_twice_the_direct_work():
 
 
 def test_nchw_stack_tiling_is_the_old_one():
-    """K5b keeps its design: no cluster."""
+    """K5b keeps the stack design without a cluster (the old one, beside
+    K5a's cluster kernel), and its tile on VGG16 conv1_1 -> conv1_2 at
+    batch 32 is pinned: 64 output channels by 6 x 8 pooled outputs (12 x 16 conv2
+    outputs of one image, 192 of the tile's 256 columns); one 8-channel
+    group of the 3-channel input a phase-A stage; 1.112x the direct FLOPs
+    (conv1 on the 14 x 18 halo box, its 3 input channels padded to 8)."""
     t = conv_ops.stack_tiling("NCHW", 32, 3, 224, 224, 64, 3, 1, 1, 64, 3,
                               1, 1, (2, 2, "max"))
     assert t.cluster == 1
-    assert (t.bm, t.nb, t.uth, t.utw) == (64, 1, 8, 8)
+    assert (t.bm, t.nb, t.uth, t.utw) == (64, 1, 6, 8)
+    assert conv_ops.k5b_layout(3, 3, 1, 3, 1, 2, 2, 64, 1, 6, 8) == (
+        1, t.smem_bytes)
+    assert t.blocks == 32 * 19 * 14
+    assert round(t.executed_flops / t.direct_flops, 3) == 1.112

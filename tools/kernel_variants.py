@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
-"""Time the port's tensor-core kernels K1 and K12 against variants of
-their sources, on one CUDA card.
+"""Time the port's tensor-core kernels K1, K5b, K10 and K12 against
+variants of their sources, and under other block tiles, on one CUDA card.
 
     python3 tools/kernel_variants.py [--tiles] [VARIANT.cu ...]
 
 Each VARIANT stands in for ``conv/csrc/conv_chwn.cu`` (K1, the direct
-CHWN conv) or ``crossentropy/csrc/crossentropy.cu`` (K12, the fused
-unembed + cross entropy), whichever entry point it defines: it is built
-by nvcc into a library of its own and swapped in for that entry point.
-K1 variants run each distinct K1 launch of ``chip_smoke.py``'s main path
-(fused serving, the unfused modes, training: 34 shapes, 85 launches), K12
-variants the smoke's three LM head cases; the checkout's kernel and the
-variants run in turns (checkout, variants, variants reversed, checkout),
-each held against the plain version as ``chip_smoke.py`` holds it, and
-the mean ms of each launch and the totals are printed.  ``--tiles`` also
-times AlexNet's conv2 with its 3/2 max pool (N 128) under a few K1 block
-tiles beside the one ``conv_tiling`` picks.  Needs a CUDA device and
-nvcc.
+CHWN conv), ``conv/csrc/conv_stack_nchw.cu`` (K5b, the NCHW conv -> conv
+stack), ``matmul/csrc/matmul.cu`` (K10, the tiled matmul) or
+``crossentropy/csrc/crossentropy.cu`` (K12, the fused unembed + cross
+entropy), whichever entry point it defines: it is built by nvcc into a
+library of its own and swapped in for that entry point.  K1 and K5b
+variants run each distinct launch of that kernel on ``chip_smoke.py``'s
+main path (fused serving, the unfused modes, training; K1: 34 shapes, 85
+launches, K5b: 14 shapes, 40 launches), K10 variants the 12 Table-1
+layers' matmuls, K12 variants the smoke's three LM head cases; the
+checkout's kernel and the variants run in turns (checkout, variants,
+variants reversed, checkout), each held against the plain version as
+``chip_smoke.py`` holds it, and the mean ms of each launch and the totals
+are printed.  The kernels compared are those a variant is given for; with
+no variant and no ``--tiles``, the checkout's four.
+
+``--tiles`` times the checkout's kernels under other block tiles beside
+the one their tiling picks, each launch held against the plain version
+(K5b) or the float64 product (K10): AlexNet's conv2 with its 3/2 max pool
+(N 128) under a few K1 tiles; each K5b main-path shape under the four
+tiles of least modeled time and the best one within 1.25x the direct
+FLOPs; each Table-1 matmul under K10's three tiles and split counts of K
+up to 16, and a least-squares fit of ``matmul_tilings``' cost constants
+to those times.  Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -34,18 +45,27 @@ sys.path.insert(0, str(REPO))
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
+from repro_torch.core.layout import perm_between  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels.conv.ops import conv_tiling  # noqa: E402
-from repro_torch.kernels.conv.ref import conv_ref  # noqa: E402
+from repro_torch.kernels.conv import ops as conv_ops  # noqa: E402
+from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref  # noqa: E402
 from repro_torch.kernels.crossentropy.ops import fused_xent  # noqa: E402
 from repro_torch.kernels.crossentropy.ref import xent_ref  # noqa: E402
+from repro_torch.kernels.matmul import ops as matmul_ops  # noqa: E402
+from repro_torch.shapes import conv_out_hw  # noqa: E402
 
 K1, K12 = "conv_chwn_forward", "xent_forward"
+K5B, K10 = "conv_stack_nchw_forward", "matmul_forward"
+# the csrc directory of the source that defines each entry point
+_SRC_DIR = {K1: "conv/csrc", K5B: "conv/csrc", K10: "matmul/csrc",
+            K12: "crossentropy/csrc"}
 # AlexNet conv2 (N, Ci, H, Co, F, S, pad) with its 3/2 max pool, and the
 # block tiles (bm, nb, ph, pw) timed beside conv_tiling's
 CONV2 = (128, 96, 27, 256, 5, 1, 2)
 TILES = [(64, 8, 3, 4), (64, 8, 4, 3), (128, 8, 2, 2), (64, 16, 2, 3),
          (128, 4, 3, 3), (64, 8, 2, 2), (64, 32, 1, 2)]
+# K10's split counts of K timed under each tile
+SPLITS = (1, 2, 3, 4, 6, 8, 12, 16)
 
 
 class _Swapped:
@@ -62,25 +82,26 @@ class _Swapped:
 def build_variant(src: Path, out_dir: Path):
     """(entry point, loaded library) of one variant source."""
     so = out_dir / (src.stem + ".so")
-    inc = REPO / "src/repro_torch/kernels" / (
-        "conv/csrc" if K1 in src.read_text() else "crossentropy/csrc")
+    text = src.read_text()
+    entry = next(e for e in _SRC_DIR if f"int {e}(" in text)
+    inc = REPO / "src/repro_torch/kernels" / _SRC_DIR[entry]
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(inc),
                     "-shared", "-o", str(so), str(src)], check=True)
     lib = ctypes.CDLL(str(so))
-    entry = K1 if hasattr(lib, K1) else K12
     fn = getattr(lib, entry)
     fn.argtypes = _build.SIGNATURES[entry]
     fn.restype = ctypes.c_int
     return entry, lib
 
 
-def k1_cases():
-    """{K1 case: launches} over chip_smoke.py's main path (Table 1 aside)."""
+def main_path_cases(kernel: str):
+    """{case: launches} of ``kernel`` over chip_smoke.py's main path (Table
+    1 aside)."""
     mult = {}
 
     def add(keys, times=1):
         for kern, case in keys:
-            if kern == "conv_chwn":
+            if kern == kernel:
                 mult[case] = mult.get(case, 0) + times
 
     for network, cap, n_req, stack in cs.SERVED:
@@ -102,6 +123,32 @@ def k1_launch(case, dev, seed) -> dict:
     if case[0] == "dgrad":
         return cs.dgrad_case("conv_chwn", case, dev, seed)
     return cs.conv_case("conv_chwn", case, dev, seed)
+
+
+def k5b_launch(case, dev, seed) -> dict:
+    return cs.stack_case("conv_stack_nchw", case, dev, seed)
+
+
+def k10_cases():
+    return {layer.name: 1 for layer in cs.CONV_LAYERS}
+
+
+def k10_launch(name, dev, seed) -> dict:
+    """One Table-1 layer's matmul (its patch matrix @ the weights' view),
+    held against the float64 product, beside ``torch.matmul``."""
+    layer = next(c for c in cs.CONV_LAYERS if c.name == name)
+    gen = torch.Generator(device=dev).manual_seed(100 + seed)
+    x = torch.randn(layer.N, layer.Ci, layer.HW, layer.HW, device=dev,
+                    generator=gen)
+    w = torch.randn(layer.Co, layer.Ci, layer.F, layer.F, device=dev,
+                    generator=gen) / math.sqrt(layer.Ci * layer.F ** 2)
+    patches, _ = cs.im2col_nchw(x, layer.F, layer.S, layer.pad)
+    wmat = w.reshape(layer.Co, -1).T
+    got = cs.matmul(patches, wmat)
+    err = cs._scaled_err(got, patches.double() @ wmat.double())
+    assert err <= cs.TC_FP32_TOL, (name, err)
+    return {"ms": cs.cuda_ms(lambda: cs.matmul(patches, wmat)),
+            "library_ms": cs.cuda_ms(lambda: torch.matmul(patches, wmat))}
 
 
 def k12_launch(case, dev, seed) -> dict:
@@ -155,7 +202,7 @@ def compare(label, entry, cases, launch, variants, dev):
         + f"; library {lib_total:.3f}", flush=True)
 
 
-def tiles(dev):
+def k1_tiles(dev):
     N, Ci, H, Co, F, S, pad = CONV2
     gen = torch.Generator(device=dev).manual_seed(3)
     x = torch.randn(Ci, H, H, N, device=dev, generator=gen)
@@ -167,7 +214,7 @@ def tiles(dev):
     y = torch.empty_like(want)
     fn = getattr(_build.library(), K1)
     st = _build.stream_of(dev)
-    t = conv_tiling(N, Ci, H, H, Co, F, S, pad, pool)
+    t = conv_ops.conv_tiling(N, Ci, H, H, Co, F, S, pad, pool)
     print(f"AlexNet conv2 + 3/2 pool: conv_tiling picks "
           f"{(t.bm, t.nb, t.ph, t.pw)}", flush=True)
     for tile in TILES:
@@ -180,6 +227,134 @@ def tiles(dev):
                                    atol=cs.CONV_ATOL)
         print(f"  tile (bm, nb, ph, pw) {tile}: {cs.cuda_ms(run):.4f} ms",
               flush=True)
+
+
+class _Forced:
+    """``module.<name>`` (a tiling function) answers ``tiling`` while the
+    block runs."""
+
+    def __init__(self, module, name, tiling):
+        self.module, self.name, self.tiling = module, name, tiling
+
+    def __enter__(self):
+        self.saved = getattr(self.module, self.name)
+        setattr(self.module, self.name, lambda *a, **k: self.tiling)
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.saved)
+
+
+def k5b_tiles(dev):
+    """Each K5b main-path shape under the four tiles of least modeled time
+    (``conv_ops.k5b_tilings``) and the best one that executes at most 1.25x
+    the direct FLOPs, beside the one ``stack_tiling`` picks."""
+    for i, (case, n) in enumerate(main_path_cases("conv_stack_nchw")
+                                  .items()):
+        (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, relu2,
+         rlay, src, dst) = case
+        shape = (N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2, pool)
+        cands = sorted(conv_ops.k5b_tilings(*shape), key=lambda c: c[0])
+        picked = conv_ops.stack_tiling("NCHW", *shape)
+        within = [c for c in cands
+                  if c[1].executed_flops <= 1.25 * c[1].direct_flops][:1]
+        chosen = [c for c in cands if c[1] == picked] + cands[:4] + within
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        Ho2 = conv_out_hw(conv_out_hw(H, F1, S1, P1), F2, S2, P2)
+        x = torch.randn(N, Ci, H, H, device=dev, generator=gen) \
+            .permute(perm_between("NCHW", src)).contiguous()
+        w1 = torch.randn(Cm, Ci, F1, F1, device=dev, generator=gen) \
+            / math.sqrt(Ci * F1 * F1)
+        w2 = torch.randn(Co, Cm, F2, F2, device=dev, generator=gen) \
+            / math.sqrt(Cm * F2 * F2)
+        r = (torch.randn(N, Co, Ho2, Ho2, device=dev, generator=gen)
+             .permute(perm_between("NCHW", rlay)).contiguous()
+             if rlay else None)
+        kw = dict(relu1=relu1, relu2=relu2, pool=pool, res=r,
+                  res_layout=rlay or "NCHW", src_layout=src, dst_layout=dst)
+        want = conv_stack_ref(x, w1, w2, S1, P1, S2, P2, **kw)
+        print(f"K5b {shape} x{n}:", flush=True)
+        seen = set()
+        for modeled, t in chosen:
+            key = (t.bm, t.nb, t.uth, t.utw)
+            if key in seen:
+                continue
+            seen.add(key)
+            with _Forced(conv_ops, "stack_tiling", t):
+                def run():
+                    return conv_ops.conv_stack_nchw(x, w1, w2, S1, P1, S2,
+                                                    P2, **kw)
+                torch.testing.assert_close(run(), want, rtol=cs.CONV_RTOL,
+                                           atol=cs.CONV_ATOL)
+                ms = cs.cuda_ms(run)
+            print(f"  tile (bm, nb, uth, utw) {key}: blocks {t.blocks}, "
+                  f"executed/direct "
+                  f"{t.executed_flops / t.direct_flops:.4f}, modeled "
+                  f"{modeled:.1f}: {ms:.4f} ms"
+                  + (" [picked]" if t == picked else ""), flush=True)
+
+
+def k10_tiles(dev):
+    """Each Table-1 layer's matmul (fp32) under K10's three tiles and the
+    split counts of ``SPLITS``, beside the one ``matmul_tiling`` picks;
+    then ``fit_k10`` of the times."""
+    rows = []
+    for i, layer in enumerate(cs.CONV_LAYERS):
+        gen = torch.Generator(device=dev).manual_seed(300 + i)
+        x = torch.randn(layer.N, layer.Ci, layer.HW, layer.HW, device=dev,
+                        generator=gen)
+        w = torch.randn(layer.Co, layer.Ci, layer.F, layer.F, device=dev,
+                        generator=gen) / math.sqrt(layer.Ci * layer.F ** 2)
+        patches, _ = cs.im2col_nchw(x, layer.F, layer.S, layer.pad)
+        wmat = w.reshape(layer.Co, -1).T
+        (M, K), N = patches.shape, wmat.shape[1]
+        want = patches.double() @ wmat.double()
+        picked = matmul_ops.matmul_tiling(M, N, K)
+        print(f"K10 {layer.name} [{M}, {K}] @ [{K}, {N}]:", flush=True)
+        for t in matmul_ops.matmul_tilings(M, N, K):
+            if t.splits not in SPLITS and t != picked:
+                continue
+            with _Forced(matmul_ops, "matmul_tiling", t):
+                err = cs._scaled_err(cs.matmul(patches, wmat), want)
+                assert err <= cs.TC_FP32_TOL, (layer.name, t, err)
+                ms = cs.cuda_ms(lambda: cs.matmul(patches, wmat))
+            rows.append((M, N, t, ms))
+            print(f"  tile {t.bm}x{t.bn} splits {t.splits}: blocks "
+                  f"{t.blocks}, waves {t.waves}, modeled "
+                  f"{1e3 * t.seconds:.4f} ms: {ms:.4f} ms"
+                  + (" [picked]" if t == picked else ""), flush=True)
+    fit_k10(rows)
+
+
+def fit_k10(rows):
+    """Least-squares fit (in log time) of ``matmul_tilings``' fp32 cost
+    constants to timed launches ``(M, N, MatmulTiling, ms)``: the seconds of
+    a 128 x 128 slice, the two narrower tiles' slice costs beside it, a
+    block's fill in slices and the rate the split partials move at."""
+    import numpy as np
+    from scipy.optimize import least_squares
+
+    def model(p, M, N, t):
+        slice_s, c_wide, c_narrow, fill, tbs = p
+        cost = {(128, 128): 1.0, (128, 64): c_wide,
+                (64, 64): c_narrow}[(t.bm, t.bn)]
+        per = t.k_per_split // matmul_ops._DEPTH[torch.float32]
+        sec = t.waves * (per * cost + fill) * slice_s
+        if t.splits > 1:
+            sec += (t.splits + 1) * 4.0 * M * N / (tbs * 1e12)
+        return sec
+
+    def resid(p):
+        return [math.log(model(p, M, N, t) / (ms * 1e-3))
+                for M, N, t, ms in rows]
+
+    fit = least_squares(resid, [2.8e-6, 0.6, 0.4, 2.0, 3.0],
+                        bounds=([1e-7, 0.1, 0.05, 0.0, 0.3],
+                                [1e-4, 2.0, 2.0, 50.0, 10.0]))
+    rms = float(np.sqrt(np.mean(np.square(fit.fun))))
+    print("K10 fit over {} launches: slice {:.3e} s, 128x64 {:.3f}, 64x64 "
+          "{:.3f}, fill {:.3f} slices, partials {:.3f} TB/s; rms log error "
+          "{:.3f}".format(len(rows), *fit.x, rms), flush=True)
+    return fit.x
 
 
 def main() -> int:
@@ -198,13 +373,24 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     built = {v.stem: build_variant(v, out) for v in args.variants}
     by_entry = {e: {k: lib for k, (en, lib) in built.items() if en == e}
-                for e in (K1, K12)}
+                for e in _SRC_DIR}
+    runs = {"K1": (K1, lambda: main_path_cases("conv_chwn"), k1_launch),
+            "K5b": (K5B, lambda: main_path_cases("conv_stack_nchw"),
+                    k5b_launch),
+            "K10": (K10, k10_cases, k10_launch),
+            "K12": (K12, lambda: {c: 1 for c in cs.lm_cases()[1]},
+                    k12_launch)}
+    chosen = [k for k, (e, _, _) in runs.items() if by_entry[e]]
+    if not chosen and not args.tiles:
+        chosen = list(runs)
     with torch.inference_mode():
-        compare("K1", K1, k1_cases(), k1_launch, by_entry[K1], dev)
-        compare("K12", K12, {c: 1 for c in cs.lm_cases()[1]}, k12_launch,
-                by_entry[K12], dev)
+        for label in chosen:
+            entry, cases, launch = runs[label]
+            compare(label, entry, cases(), launch, by_entry[entry], dev)
         if args.tiles:
-            tiles(dev)
+            k1_tiles(dev)
+            k5b_tiles(dev)
+            k10_tiles(dev)
     return 0
 
 
