@@ -11,12 +11,16 @@
    (conv and stack rtol 1e-4 / atol 1e-3, softmax atol 1e-6) and times the
    kernel, the plain version and one library chain for the same function
    (cuDNN conv [+ residual] + ReLU [+ pool], twice for a stack;
-   torch.softmax) with CUDA events.  K1 (3xTF32 on the tensor cores) is
-   also held against a float64 run of its plain version, within 1e-5
-   scale-relative, on every case (forward, save_act, dgrad, Table 1); its
-   lines add that error, the bound of its own design (three TF32 products
-   per fp32 one) and, where it pools, its block tile and the FLOPs the
-   tile executes over the direct ones (``conv_tiling``).  K5a runs once
+   torch.softmax) with CUDA events; K4's line adds the host time of a
+   launch's stream query, raw as the wrappers read it and through the
+   public ``torch.cuda.current_stream``.  K1 and K2 (3xTF32 on the tensor
+   cores) are also held against a float64 run of their plain version,
+   within 1e-5 scale-relative, on every case (forward, save_act, dgrad,
+   Table 1); their lines add that error, the bound of their own design
+   (three TF32 products per fp32 one) and their block tile with the FLOPs
+   it executes over the direct ones (K1 where it pools, ``conv_tiling``;
+   K2 always, ``nchw_tiling``, and K2 runs once more counting the FLOPs
+   its blocks execute, which must equal the tiling's).  K5a runs once
    more counting the FLOPs its blocks execute and the cluster they ran in,
    which must equal
    ``stack_tiling``'s; the line shows the cluster, executed/direct FLOPs,
@@ -79,10 +83,10 @@
    executed TFLOP/s and the bound of its own design, three TF32 products
    per fp32 one on the tensor cores, beside the fp32 one), K7 (max
    exactly, avg atol 1e-6; library the autograd backward of
-   ``max_pool2d``/``avg_pool2d`` times the ReLU mask; K7a's line adds the
-   share of its byte bound reached), dgrad on K1/K2 (library
-   ``conv2d_input``, also within the conv tolerance of it) and K1/K2 with
-   ``save_act``; and one K8 case off the path (VGG16's [32, 1000];
+   ``max_pool2d``/``avg_pool2d`` times the ReLU mask; K7a's and K7b's
+   lines add the share of their byte bound reached), dgrad on K1/K2
+   (library ``conv2d_input``, also within the conv tolerance of it) and
+   K1/K2 with ``save_act``; and one K8 case off the path (VGG16's [32, 1000];
    library ``cross_entropy``), listed with 0 launches.
 7. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
    path of the tiled matmul K10: the 12 Table-1 layers
@@ -111,11 +115,12 @@
    ``F.scaled_dot_product_attention`` or ``h @ tableᵀ`` +
    ``F.cross_entropy``; a line gives K11's largest bf16 error and every
    case's TFLOP/s.
-9. Prints "K1 over the main path", "K5b ...", "K10 ..." and "K12 ..." lines
-   in the form of K6's (launches, ms, TFLOP/s, K5b's executed TFLOP/s and
-   executed/direct, both bounds, library ms, the largest error from
-   float64), then one JSON line of every kernel
-   (launches, error, times, bound),
+9. Prints "K1 over the main path", "K2 ...", "K5b ...", "K10 ..." and
+   "K12 ..." lines in the form of K6's (launches, ms, TFLOP/s, K2's and
+   K5b's executed TFLOP/s and executed/direct, both bounds, library ms, the
+   largest error from float64), then one JSON line of every kernel
+   (launches, error, times, bound, and the 3xTF32 bound of the tensor-core
+   kernels),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
 TF32 is off throughout.  Any failure raises: the script then exits
@@ -158,11 +163,12 @@ from repro_torch.kernels.conv.backward import (conv_wgrad,  # noqa: E402
 from repro_torch.kernels.conv.ops import (_conv, conv_direct_chwn,  # noqa: E402
                                           conv_im2col_nchw,
                                           conv_im2col_nchw_fused,
+                                          conv_im2col_nchw_fused_counted,
                                           conv_stack_chwn,
                                           conv_stack_chwn_counted,
                                           conv_stack_nchw,
                                           conv_stack_nchw_counted,
-                                          conv_tiling,
+                                          conv_tiling, nchw_tiling,
                                           stack_max_clusters, stack_tiling)
 from repro_torch.kernels.conv.ref import (conv_ref,  # noqa: E402
                                           conv_stack_ref, im2col_nchw,
@@ -309,6 +315,7 @@ TRANSPOSE_KERNELS = {"transpose2d": (transpose2d, transpose2d_ref),
                                              transpose2d_batched_ref)}
 POOL_BWD_KERNELS = {"pool_backward_chwn": ("CHWN", pool_backward_chwn),
                     "pool_backward_nchw": ("NCHW", pool_backward_nchw)}
+_LABEL = {"conv_chwn": "K1", "conv_nchw": "K2"}
 
 
 def card_line() -> str:
@@ -613,11 +620,14 @@ def conv_case(kern: str, case, dev, seed: int) -> dict:
     nbytes = 4.0 * (x.numel() + w.numel() + N * Co * out_hw * out_hw
                     + (r.numel() if rlay else 0))
     m = _measure(kernel, plain, library, flops, nbytes)
+    want64 = conv_ref(x.double(), w.double(), S, pad,
+                      **{**kw, "res": r.double() if rlay else None})
     if kern == "conv_chwn":
-        want64 = conv_ref(x.double(), w.double(), S, pad,
-                          **{**kw, "res": r.double() if rlay else None})
         _fp32_gate(m, [(kernel(), want64)], f"K1 {case}")
         _k1_tile(m, case, N, Ci, H, Co, F, S, pad, pool)
+    else:
+        y = _k2_tile(m, case, x, w, S, pad, kw)
+        _fp32_gate(m, [(y, want64)], f"K2 {case}")
     return m
 
 
@@ -701,6 +711,15 @@ def stack_case(kern: str, case, dev, seed: int) -> dict:
     return m
 
 
+def host_us(fn, reps: int = 2000) -> float:
+    """Mean host time of ``fn()`` in microseconds over ``reps`` calls."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
 def softmax_case(case, dev, seed: int) -> dict:
     rows, cols = case
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -725,7 +744,12 @@ def softmax_case(case, dev, seed: int) -> dict:
     return {"max_abs_err": err, "max_rel_err": err / want.abs().max().item(),
             "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
             "library_ms": cuda_ms(library), "bound_ms": b_ms,
-            "bound_by": b_by, "flops": flops, "bytes": nbytes}
+            "bound_by": b_by, "flops": flops, "bytes": nbytes,
+            # the host time of a launch's stream query, as every wrapper
+            # reads it (raw) and through the public Stream object
+            "stream_raw_us": host_us(lambda: _build.stream_of(dev)),
+            "stream_object_us": host_us(
+                lambda: torch.cuda.current_stream(dev).cuda_stream)}
 
 
 def pool_case(kern: str, case, dev, seed: int) -> dict:
@@ -778,8 +802,8 @@ def _scaled_err(got, want) -> float:
 
 
 def _fp32_gate(m: dict, pairs, what) -> dict:
-    """The accuracy gate of the 3xTF32 kernels (K1, K5b, K10): each (kernel
-    output, the same in float64) within ``TC_FP32_TOL`` scale-relative;
+    """The accuracy gate of the 3xTF32 kernels (K1, K2, K5b, K10): each
+    (kernel output, the same in float64) within ``TC_FP32_TOL`` scale-relative;
     adds the largest error and the design's own bound (3xTF32: three TF32
     products per fp32 one on the tensor cores) to ``m``."""
     err = max(_scaled_err(got, want64) for got, want64 in pairs)
@@ -798,6 +822,26 @@ def _k1_tile(m: dict, case, N, Ci, H, Co, F, S, pad, pool) -> dict:
              tile={"bm": t.bm, "nb": t.nb, "ph": t.ph, "pw": t.pw},
              blocks=t.blocks, smem_bytes=t.smem_bytes)
     return m
+
+
+def _k2_tile(m: dict, case, x, w, S: int, pad: int, kw) -> torch.Tensor:
+    """K2 once more, counting the FLOPs its blocks execute, which must
+    equal its block tile's (``nchw_tiling``); adds the tile and those FLOPs
+    to ``m`` and returns that launch's output."""
+    N, Ci, H, W = (x.shape[kw.get("src_layout", "NCHW").index(d)]
+                   for d in "NCHW")
+    Co, _, F, _ = w.shape
+    pool = kw.get("pool")
+    t = nchw_tiling(N, Ci, H, W, Co, F, S, pad, tuple(pool) if pool else None)
+    y, counted = conv_im2col_nchw_fused_counted(x, w, S, pad, **kw)
+    if counted != t.executed_flops:
+        raise AssertionError(f"K2 {case}: the kernel executed {counted} "
+                             f"FLOPs; nchw_tiling says {t.executed_flops}")
+    m.update(executed_flops=float(counted),
+             tile={"bm": t.bm, "nb": t.nb, "uth": t.uth, "utw": t.utw,
+                   "tr": t.tr},
+             blocks=t.blocks, smem_bytes=t.smem_bytes)
+    return y
 
 
 def save_act_case(kern: str, case, dev, seed: int) -> dict:
@@ -836,12 +880,14 @@ def save_act_case(kern: str, case, dev, seed: int) -> dict:
         2.0 * N * Co * Ho * Ho * Ci * F * F,
         4.0 * (x.numel() + w.numel() + N * Co * (out_hw ** 2 + Ho * Ho)
                + (r.numel() if rlay else 0)))
+    y64, z64 = conv_ref(x.double(), w.double(), S, pad, save_act=True,
+                        act_layout=engine,
+                        **{**kw, "res": r.double() if rlay else None})
+    _fp32_gate(m, [(y, y64), (z, z64)], f"{_LABEL[kern]} {case}")
     if kern == "conv_chwn":
-        y64, z64 = conv_ref(x.double(), w.double(), S, pad, save_act=True,
-                            act_layout=engine,
-                            **{**kw, "res": r.double() if rlay else None})
-        _fp32_gate(m, [(y, y64), (z, z64)], f"K1 {case}")
         _k1_tile(m, case, N, Ci, H, Co, F, S, pad, pool)
+    else:
+        _k2_tile(m, case, x, w, S, pad, kw)
     return m
 
 
@@ -875,10 +921,14 @@ def dgrad_case(kern: str, case, dev, seed: int) -> dict:
                  4.0 * (g.numel() + w.numel() + N * Ci * H * H))
     torch.testing.assert_close(kernel().permute(perm_between(dst, "NCHW")),
                                library(), rtol=CONV_RTOL, atol=CONV_ATOL)
+    want64 = conv_ref(gd.double(), wt.double(), 1, p, src_layout=g_lay,
+                      dst_layout=dst)
     if kern == "conv_chwn":
-        _fp32_gate(m, [(kernel(), conv_ref(gd.double(), wt.double(), 1, p,
-                                           src_layout=g_lay,
-                                           dst_layout=dst))], f"K1 {case}")
+        _fp32_gate(m, [(kernel(), want64)], f"K1 {case}")
+    else:
+        y = _k2_tile(m, case, gd, wt, 1, p,
+                     dict(src_layout=g_lay, dst_layout=dst))
+        _fp32_gate(m, [(y, want64)], f"K2 {case}")
     return m
 
 
@@ -1050,13 +1100,16 @@ def kernel_phase(dev):
         if kern == "wgrad":
             extra = (f" TFLOP/s={m['flops'] / m['ms'] / 1e9:.1f} "
                      f"bound_3xtf32_ms={m['design_bound_ms']:.4f}")
-        if kern == "pool_backward_chwn":
+        if kern in POOL_BWD_KERNELS:
             extra = f" bound_share={m['bound_ms'] / m['ms']:.3f}"
-        if kern == "conv_chwn":
+        if kern == "softmax":
+            extra = (f" stream_raw_us={m['stream_raw_us']:.3f} "
+                     f"stream_object_us={m['stream_object_us']:.3f}")
+        if kern in ("conv_chwn", "conv_nchw"):
             extra = (f" f64_err={m['f64_err']:.3g} TFLOP/s="
                      f"{m['flops'] / m['ms'] / 1e9:.1f} "
                      f"bound_3xtf32_ms={m['design_bound_ms']:.4f}")
-            if "tile" in m and m["tile"]["nb"]:
+            if "tile" in m and (kern == "conv_nchw" or m["tile"]["nb"]):
                 extra += (f" executed/direct="
                           f"{m['executed_flops'] / m['flops']:.3f} "
                           f"tile={m['tile']} blocks={m['blocks']}")
@@ -1557,9 +1610,12 @@ def conv_layer_phase(dev):
                       lambda: conv_ref(xc, w, S, pad, src_layout="CHWN",
                                        dst_layout="CHWN"),
                       cudnn, flops, conv_bytes)
+        want64 = conv_ref(x.double(), w.double(), S, pad)
         _fp32_gate(k1, [(conv_direct_chwn(xc, wc, S, pad).permute(
-            3, 0, 1, 2), conv_ref(x.double(), w.double(), S, pad))],
-            f"K1 {layer.name}")
+            3, 0, 1, 2), want64)], f"K1 {layer.name}")
+        _fp32_gate(k2, [(_k2_tile(k2, layer.name, x, w, S, pad, {}),
+                         want64)], f"K2 {layer.name}")
+        del want64
         tag = {"network": "table1", "case": layer.name, "launches": 1}
         cases += [{**tag, "kernel": "matmul", **mm},
                   {**tag, "kernel": "conv_nchw", **k2},
@@ -1826,12 +1882,17 @@ def kernels_line(cases, launches) -> dict:
         t_ops = sum(r["flops"] * (r["launches"] or 1)
                     / r.get("peak_flops", PEAK_FP32_FLOPS) for r in rows)
         t_bytes = total("bytes") / PEAK_HBM_BYTES
-        out.append({"name": kern, **meta, "launches": launches[kern],
-                    "max_abs_err": max(r["max_abs_err"] for r in rows),
-                    "ms": total("ms"), "plain_ms": total("plain_ms"),
-                    "bound_ms": total("bound_ms"),
-                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                    "library_ms": total("library_ms")})
+        entry = {"name": kern, **meta, "launches": launches[kern],
+                 "max_abs_err": max(r["max_abs_err"] for r in rows),
+                 "ms": total("ms"), "plain_ms": total("plain_ms"),
+                 "bound_ms": total("bound_ms"),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "library_ms": total("library_ms")}
+        if all("design_bound_ms" in r for r in rows):
+            # the bound of the kernel's own arithmetic (3xTF32: three TF32
+            # products per fp32 one on the tensor cores)
+            entry["bound_3xtf32_ms"] = total("design_bound_ms")
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -1885,8 +1946,9 @@ def main() -> int:
             for k, v in counts.items():
                 launches[k] += v
         cases += t1_cases + lm_rows
-        for kern, label in (("conv_chwn", "K1"), ("conv_stack_nchw", "K5b"),
-                            ("matmul", "K10"), ("fused_xent", "K12")):
+        for kern, label in (("conv_chwn", "K1"), ("conv_nchw", "K2"),
+                            ("conv_stack_nchw", "K5b"), ("matmul", "K10"),
+                            ("fused_xent", "K12")):
             print(tensor_core_line(label, [r for r in cases
                                            if r["kernel"] == kern]),
                   flush=True)

@@ -37,9 +37,10 @@ L, F = ctypes.c_longlong, ctypes.c_float
 # C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES: Dict[str, List] = {
     # x, w, bias, res, y, z, N, Ci, H, W, Co, F, S, pad, pool_F, pool_S,
-    # pool_avg, relu, src_nchw, dst_nchw, res_nchw, [bm, nb, ph, pw,] stream
+    # pool_avg, relu, src_nchw, dst_nchw, res_nchw, then K1: bm, nb, ph, pw,
+    # stream; K2: bm, nb, uth, utw, tr, ga, stats, stream
     "conv_chwn_forward": [P] * 6 + [I] * 19 + [P],
-    "conv_nchw_forward": [P] * 6 + [I] * 15 + [P],
+    "conv_nchw_forward": [P] * 6 + [I] * 21 + [P, P],
     # x, g, ws, dw, N, Ci, H, W, Co, F, S, pad, x_nchw, g_nchw, bm, bn,
     # p_per_split, splits, stream
     "wgrad_forward": [P] * 4 + [I] * 14 + [P],
@@ -58,10 +59,10 @@ SIGNATURES: Dict[str, List] = {
     # x, y, N, C, H, W, F, S, avg, dst_nchw, stream
     "pool_chwn_forward": [P, P] + [I] * 8 + [P],
     "pool_nchw_forward": [P, P] + [I] * 8 + [P],
-    # x, g, dx, N, C, H, W, F, S, avg, relu_mask, g_nchw, [band, win_rows,]
-    # stream
+    # x, g, dx, N, C, H, W, F, S, avg, relu_mask, g_nchw, then K7a: band,
+    # win_rows, stream; K7b: planes, band, win_rows, stream
     "pool_backward_chwn": [P] * 3 + [I] * 11 + [P],
-    "pool_backward_nchw": [P] * 3 + [I] * 9 + [P],
+    "pool_backward_nchw": [P] * 3 + [I] * 12 + [P],
     # x, y, B, M, N, stream
     "transpose_forward": [P, P, I, I, I, P],
     # x, y, out, ws, M, N, K, sxm, sxk, syk, syn, bf16, bm, bn,
@@ -189,9 +190,11 @@ def on_cpu(name: str, x) -> bool:
 
 def require_cuda_f32(name: str, device, **tensors) -> None:
     """Raise unless every given tensor is a contiguous float32 tensor on
-    ``device``: the kernels take nothing else."""
+    ``device``: the kernels take nothing else.  One combined test a tensor;
+    the reason is worked out only for a tensor that fails it."""
     for arg, t in tensors.items():
-        if t is None:
+        if t is None or (t.dtype == torch.float32 and t.device == device
+                         and t.is_contiguous() and t.numel() < 2 ** 31):
             continue
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, x on {device}")
@@ -200,9 +203,8 @@ def require_cuda_f32(name: str, device, **tensors) -> None:
                             "float32 only")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
-        if t.numel() >= 2 ** 31:
-            raise ValueError(f"{name}: {arg} has {t.numel()} elements; the "
-                             "kernel indexes with 32-bit ints")
+        raise ValueError(f"{name}: {arg} has {t.numel()} elements; the "
+                         "kernel indexes with 32-bit ints")
 
 
 def require_cuda_float(name: str, device, contiguous: bool = True,
@@ -228,8 +230,14 @@ def require_cuda_float(name: str, device, contiguous: bool = True,
 
 def stream_of(device) -> int:
     """The current CUDA stream of ``device``, as the pointer the C entry
-    points take."""
-    return torch.cuda.current_stream(device).cuda_stream
+    points take.  Read raw, through PyTorch's private
+    ``torch._C._cuda_getCurrentRawStream``: building the public
+    ``torch.cuda.current_stream`` object costs more host time a launch
+    than a small kernel takes (``chip_smoke.py`` times both on K4's
+    line)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def toolchain_missing() -> Optional[str]:

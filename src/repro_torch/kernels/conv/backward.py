@@ -68,6 +68,17 @@ def dilate_grad(g: torch.Tensor, S: int, layout: str,
     return gd
 
 
+def dgrad_shape(N: int, Ci: int, H: int, W: int, Co: int, F: int,
+                stride: int, pad: int) -> Tuple[int, ...]:
+    """(N, Ci, H, W, Co, F, S, pad) of the stride-1 conv that
+    ``dgrad_problem`` poses for dx of a conv of an [N, Ci, H, W] input by
+    Co F x F filters: the dilated gradient's Co channels and size, the
+    rotated filter's Ci outputs, its padding."""
+    Hd, Wd = ((conv_out_hw(n, F, stride, pad) - 1) * stride + 1
+              + (n + 2 * pad - F) % stride for n in (H, W))
+    return N, Co, Hd, Wd, Ci, F, 1, F - 1 - pad
+
+
 def dgrad_problem(g: torch.Tensor, w: torch.Tensor, x_hw: Tuple[int, int],
                   stride: int, pad: int, g_layout: str):
     """The stride-1 conv whose output is dx: (dilated gradient, rotated

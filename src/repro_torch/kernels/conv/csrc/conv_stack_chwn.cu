@@ -53,6 +53,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "../../csrc/nan_max.cuh"
 #include "conv_stack_common.cuh"  // StackArgs, Tile, make_tile
 
 namespace repro {

@@ -73,10 +73,12 @@
 #include "../../csrc/mma.cuh"
 #include "../../csrc/nan_max.cuh"
 #include "conv_stack_common.cuh"  // StackArgs, Tile, make_tile, mid_span
+#include "conv_ring.cuh"          // ring barriers, copy_quad, rows8
 
 namespace {
 
 using namespace repro::mma;
+using namespace repro::ring;
 using repro::stack::StackArgs;
 using repro::stack::Tile;
 
@@ -163,30 +165,6 @@ __device__ __forceinline__ StageId stage_id(const K5bArgs& a, const Box& b,
     id.q = r - na;
   }
   return id;
-}
-
-// named barriers (0 is __syncthreads): FULL and EMPTY of each ring stage,
-// and one of the consumers alone
-__device__ __forceinline__ int full_bar(int s) { return 1 + s; }
-template <int NS>
-__device__ __forceinline__ int empty_bar(int s) { return 1 + NS + s; }
-template <int NS>
-__device__ __forceinline__ int cons_bar() { return 1 + 2 * NS; }
-
-// 4 floats of a weight row from src to dst by cp.async, zero past the
-// first `valid` (16 bytes at once where vec and all 4 are valid)
-__device__ __forceinline__ void copy_quad(float* dst, const float* src,
-                                          const float* any, int valid,
-                                          bool vec) {
-  if (vec && valid >= 4) {
-    cp16(dst, src, true);
-  } else if (valid <= 0) {
-    cp16(dst, any, false);
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      cp4(dst + j, j < valid ? src + j : any, j < valid);
-  }
 }
 
 // F1T, F2T: the convs' filter sizes where fixed at compile time (3), else 0
@@ -557,10 +535,6 @@ conv_stack_nchw_kernel(const K5bArgs a) {
         (t.uw0 + uwl) * s.ys.w] = s.pool_avg ? acc / area : acc;
   }
 }
-
-// the smallest v >= n with v % 32 == 8: x box and slab channels 8 banks
-// apart
-inline int rows8(int n) { return n + ((8 - n % 32) + 32) % 32; }
 
 // K5b's shared-memory layout at a block tile (ops.py::k5b_layout computes
 // the same): a phase-A stage holds ga 8-channel groups of Ci (the largest

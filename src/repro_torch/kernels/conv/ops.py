@@ -52,9 +52,6 @@ _ENTRY = {"CHWN": "conv_chwn_forward", "NCHW": "conv_nchw_forward"}
 _WEIGHT_SHAPE = {"CHWN": "[Ci,F,F,Co]", "NCHW": "[Co,Ci,F,F]"}
 _STACK_ENTRY = {"CHWN": "conv_stack_chwn_forward",
                 "NCHW": "conv_stack_nchw_forward"}
-# K2's block holds every tap of a pool window among its 128 GEMM columns
-# (BN in csrc/conv_common.cuh)
-_MAX_POOL_TAPS = 128
 SMEM_PER_BLOCK = 232448   # 227 KB: the most shared memory an H100 block has
 _SMS = 132                # H100 SXM streaming multiprocessors
 # the design constants of csrc/conv_chwn.cu (K1)
@@ -117,9 +114,6 @@ def _check_epilogue(name: str, N: int, Co: int, Ho: int, Wo: int, bias,
     pF, pS, op = pool
     if op not in ("max", "avg") or pF < 1 or pS < 1:
         raise ValueError(f"{name}: unsupported pool {pool!r}")
-    if pF * pF > _MAX_POOL_TAPS:
-        raise ValueError(f"{name}: a {pF}x{pF} pool window has more "
-                         f"than {_MAX_POOL_TAPS} taps")
     OH, OW = pool_out_hw(Ho, pF, pS), pool_out_hw(Wo, pF, pS)
     if OH < 1 or OW < 1:
         raise ValueError(f"{name}: pool {pool!r} does not fit the "
@@ -247,10 +241,251 @@ def conv_tiling(N: int, Ci: int, H: int, W: int, Co: int, F: int, S: int,
     return best
 
 
+# the design constants of csrc/conv_nchw.cu (K2)
+_K2_BMS = (64, 128, 256)  # output channels of a block
+_K2_TILE = 16384          # bm x the most conv outputs a block holds
+_K2_PRODUCERS = 128       # the threads that issue a stage's copies
+_K2_GAS = (1, 2, 4)       # 8-channel groups a 1x1 stage may hold
+# the modeled costs, in mma of one warp, fitted by least squares (log
+# time) by ``tools/kernel_variants.py --tiles`` to 778 tiles of the 53
+# distinct main-path K2 shapes timed on an H100 (rms error 8.8 %; PERF.md,
+# "Tile choices"): a stage's fixed cost beside its mma (the FULL/EMPTY
+# hand-off), one copy instruction of a producer thread, a byte of the w
+# slice and of the x box that a stage moves into shared memory (the box's
+# short rows cost more), a block's fixed cost (launch, prologue, epilogue,
+# drain), and how far a stage's mma, copies and bytes overlap (the order
+# of their power mean: 1 adds them, infinity takes the longest)
+_K2_STAGE_COST = 21.8
+_K2_COPY_COST = 5.4
+_K2_BYTE_COST = 0.0042
+_K2_XBYTE_COST = 0.0091
+_K2_BLOCK_COST = 1060
+_K2_OVERLAP = 1.9
+
+
+@dataclass(frozen=True)
+class NchwTiling:
+    """How K2 cuts one launch: ``bm`` output channels by the conv outputs
+    under ``nb`` images x ``uth`` x ``utw`` units (pooled outputs with a
+    pool, conv outputs without; neighbouring rectangles of pooled outputs
+    share ``pF - pS`` rows and columns of conv outputs, computed by both),
+    ``tr`` of the F tap rows and ``ga`` 8-channel groups a stage (1x1
+    convs; else 1).  What that
+    costs: ``blocks``, the shared memory of one block, and the FLOPs the
+    blocks execute (2*K for every conv output of every block, on every one
+    of its channels below Co; tile padding not counted) beside
+    ``direct_flops``."""
+    bm: int
+    nb: int
+    uth: int
+    utw: int
+    tr: int
+    ga: int
+    blocks: int
+    smem_bytes: int
+    executed_flops: int
+    direct_flops: int
+
+
+def _k2_thin(Ci: int) -> bool:
+    """Fewer than 8 input channels: K2 steps its reduction along the list
+    of (tap row, channel, dx) instead of 8 channels at one tap."""
+    return Ci < 8
+
+
+def _unit_rows(u: int, pF: int, pS: int) -> int:
+    """Conv output rows (or columns) under ``u`` units: pooled outputs of
+    an F x F / S pool (pF > 0), or the conv outputs themselves."""
+    return (u - 1) * pS + pF if pF else u
+
+
+def _k2_xw(ow: int, S: int, F: int) -> int:
+    """The x box width of ``ow`` conv output columns (``make_tile``: from
+    4-float alignment, its first column up to 3 in)."""
+    return (3 + (ow - 1) * S + F + 3) // 4 * 4
+
+
+def _k2_sa(Ci: int, F: int, tr: int, ga: int) -> Tuple[int, int]:
+    """(w slice row stride, KP) of a K2 stage: 8 ga tr F + 4, or thin the
+    k list of tr rows padded to 8 (KP), + 4."""
+    if _k2_thin(Ci):
+        kp = -(-(tr * Ci * F) // 8) * 8
+        return kp + 4, kp
+    return 8 * ga * tr * F + 4, 0
+
+
+def k2_layout(Ci: int, F: int, S: int, pF: int, pS: int, bm: int, nb: int,
+              uth: int, utw: int, tr: int, ga: int = 1) -> int:
+    """One K2 block's dynamic shared memory (``layout`` in
+    csrc/conv_nchw.cu): a ring of stages (3; 2 at bm 256), each the w slice
+    and the x box of its taps, or the epilogue tile [bm][16384 / bm + 8]
+    where that is larger.  A stage holds ``ga`` groups of 8 input channels
+    at ``tr`` tap rows (ga > 1 for 1x1 convs only): w [bm][8 ga tr F +
+    4], x [8 ga][nb x XH x XW]
+    (channels 8 mod 32 floats apart); thin (``_k2_thin``), the list of (tap
+    row, channel, dx) of ``tr`` rows padded to 8 (KP): w [bm][KP + 4], x
+    [Ci + 1][nb x XH x XW], and after the ring two tables of KP ints."""
+    xh = (_unit_rows(uth, pF, pS) - 1) * S + tr
+    xstr = _rows8(nb * xh * _k2_xw(_unit_rows(utw, pF, pS), S, F))
+    sa, kp = _k2_sa(Ci, F, tr, ga)
+    stage = bm * sa + (Ci + 1 if _k2_thin(Ci) else 8 * ga) * xstr
+    ring = (2 if bm == 256 else 3) * stage
+    return 4 * (max(ring, bm * (_K2_TILE // bm + 8)) + 2 * kp)
+
+
+def _k2_tap_rows(Ci: int, F: int) -> Tuple[int, ...]:
+    """The tap rows a K2 stage may hold, in order of preference: all F,
+    then fewer; a channel-major stage keeps a channel's ``tr * F`` taps odd
+    for an odd F (the A fragment loads stay free of bank conflicts)."""
+    return (F,) + tuple(t for t in range(F - 1, 0, -1)
+                        if _k2_thin(Ci) or F % 2 == 0 or t % 2 == 1)
+
+
+def _k2_overlap(*times: float) -> float:
+    """The time of work that overlaps only in part: the power mean of
+    order ``_K2_OVERLAP`` of the parts' times, between their sum (order 1)
+    and the longest alone (order infinity)."""
+    return sum(t ** _K2_OVERLAP for t in times) ** (1 / _K2_OVERLAP)
+
+
+def _k2_copy_time(items: int, ops: int) -> float:
+    """The producers' time for ``items`` row segments of ``ops`` copies
+    each, 128 threads taking one at a time."""
+    return -(-items // _K2_PRODUCERS) * ops * _K2_COPY_COST
+
+
+def _k2_block_cost(Ci: int, W: int, F: int, S: int, bm: int, tr: int,
+                   ga: int, nbc: int, oh: int, ow: int, xw: int,
+                   K: int) -> float:
+    """The modeled time of one K2 block over nbc images x oh x ow conv
+    outputs (box xw columns wide), in mma of one warp: each stage the
+    longest of its consumers' mma (6 a step for each of a warp's 8 column
+    tiles), its producers' copies (``conv_nchw_kernel``'s row segments: w,
+    then the x box) and the bytes it moves, and the block's fixed cost."""
+    thin = _k2_thin(Ci)
+    per_quad = 1 if W % 4 == 0 else 2 if W % 2 == 0 else 4
+    xq = xw // 4
+    NS = 2 if bm == 256 else 3
+    cost, sl = 0.0, 0
+    for _ in range(1 if thin else -(-(-(-Ci // 8)) // ga)):
+        for dy0 in range(0, F, tr):
+            trc = min(tr, F - dy0)
+            sa, _ = _k2_sa(Ci, F, trc, ga)
+            if thin:
+                steps = (sa - 4) // 8
+                segs = max(1, min(sa - 4, _K2_PRODUCERS // bm))
+                w = _k2_copy_time(bm * segs, -(-(sa - 4) // segs))
+            elif tr == F:
+                steps, wq = ga * trc * F, 2 * ga * F * F
+                segs = max(1, min(wq, _K2_PRODUCERS // bm))
+                w = _k2_copy_time(bm * segs, -(-wq // segs)
+                                  * (1 if K % 4 == 0 else 4))
+            else:
+                steps = trc * F
+                w = _k2_copy_time(bm * 8, trc * F)
+            rows = ((Ci + (sl < NS) if thin else 8 * ga) * nbc
+                    * ((oh - 1) * S + trc))
+            segs = max(1, min(xq, _K2_PRODUCERS // rows))
+            x = _k2_copy_time(rows * segs, -(-xq // segs) * per_quad)
+            cost += _k2_overlap(48 * steps + _K2_STAGE_COST, w + x,
+                                4 * bm * (sa - 4) * _K2_BYTE_COST
+                                + 4 * rows * xw * _K2_XBYTE_COST)
+            sl += 1
+    return cost + _K2_BLOCK_COST
+
+
+@functools.lru_cache(maxsize=None)
+def k2_tilings(N: int, Ci: int, H: int, W: int, Co: int, F: int, S: int,
+               pad: int, pool: Optional[Tuple[int, int, str]] = None
+               ) -> Tuple[Tuple[float, NchwTiling], ...]:
+    """K2's candidate tiles, each with its modeled time: ``bm`` and a
+    rectangle of ``nb`` images x ``uth`` x ``utw`` units whose conv outputs
+    fit the block's 16384 // bm columns, with the most tap rows a stage
+    (``_k2_tap_rows``) whose shared memory fits, and a 1x1 conv 1, 2 or 4
+    groups of 8 channels a stage.  The modeled time is waves of one block
+    an SM times the mean block's ``_k2_block_cost``."""
+    Ho, Wo = conv_out_hw(H, F, S, pad), conv_out_hw(W, F, S, pad)
+    pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+    UH, UW = ((pool_out_hw(Ho, pF, pS), pool_out_hw(Wo, pF, pS)) if pool
+              else (Ho, Wo))
+    K = Ci * F * F
+    direct = 2 * K * Co * N * Ho * Wo
+    thin = _k2_thin(Ci)
+
+    def rows(u: int) -> int:
+        return _unit_rows(u, pF, pS)
+
+    cands = []
+    for bm in _K2_BMS[:2] if thin else _K2_BMS:
+        bn = _K2_TILE // bm
+        co_tiles = -(-Co // bm)
+        for nb in [1 << i for i in range(9) if (1 << i) < 2 * N]:
+            ns = _spans(N, nb)
+            for uth in _balanced(UH, bn):
+                if nb * rows(uth) > bn:
+                    break
+                hs = [(rows(t), c) for t, c in _spans(UH, uth)]
+                for utw in _balanced(UW, bn):
+                    if nb * rows(uth) * rows(utw) > bn:
+                        break
+                    fits = [(tr, k2_layout(Ci, F, S, pF, pS, bm, nb, uth,
+                                           utw, tr))
+                            for tr in _k2_tap_rows(Ci, F)]
+                    fits = [f for f in fits if f[1] <= SMEM_PER_BLOCK]
+                    if not fits:
+                        continue
+                    tr, smem = fits[0]
+                    gas = [(1, smem)]
+                    if F == 1 and not thin:
+                        gas += [(ga, k2_layout(Ci, F, S, pF, pS, bm, nb, uth,
+                                               utw, tr, ga))
+                                for ga in _K2_GAS[1:] if 8 * ga < Ci]
+                    ws = [(rows(t), c) for t, c in _spans(UW, utw)]
+                    executed = (2 * K * Co * N * sum(r * c for r, c in hs)
+                                * sum(r * c for r, c in ws))
+                    for ga, smem in gas:
+                        if smem > SMEM_PER_BLOCK:
+                            continue
+                        tiles = work = 0
+                        for nbc, cn in ns:
+                            for rh, ch in hs:
+                                for rw, cw in ws:
+                                    tiles += cn * ch * cw
+                                    work += cn * ch * cw * _k2_block_cost(
+                                        Ci, W, F, S, bm, tr, ga, nbc, rh, rw,
+                                        _k2_xw(rw, S, F), K)
+                        blocks = tiles * co_tiles
+                        waves = -(-blocks // _SMS)
+                        cands.append((waves * work / tiles, NchwTiling(
+                            bm, nb, uth, utw, tr, ga, blocks, smem,
+                            executed, direct)))
+    return tuple(cands)
+
+
+@functools.lru_cache(maxsize=None)
+def nchw_tiling(N: int, Ci: int, H: int, W: int, Co: int, F: int, S: int,
+                pad: int, pool: Optional[Tuple[int, int, str]] = None
+                ) -> NchwTiling:
+    """K2's block tile: among ``k2_tilings``, the least modeled time, then
+    the fewer executed FLOPs and shared memory.  Raises ``ValueError`` when
+    no tile fits."""
+    cands = k2_tilings(N, Ci, H, W, Co, F, S, pad, pool)
+    if not cands:
+        raise ValueError(
+            f"conv_im2col_nchw_fused: no block tile of the conv output of "
+            f"a {H}x{W} input (F={F}, S={S}, pad={pad}) under pool {pool} "
+            f"fits the {SMEM_PER_BLOCK} bytes of shared memory a block can "
+            "use")
+    return min(cands, key=lambda c: (c[0], c[1].executed_flops,
+                                     c[1].smem_bytes))[1]
+
+
 def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
             F: int, stride: int, pad: int, bias, relu: bool, pool, res,
             res_layout: str, src_layout: str, dst_layout: str,
-            save_act: bool):
+            save_act: bool, stats=None):
+    """Check one K1/K2 call and launch it.  ``stats`` (K2 only): int64 on
+    the card that the kernel adds its executed FLOPs to."""
     name = wrapper.__name__
     _check_layouts(name, src_layout=src_layout, dst_layout=dst_layout,
                    res_layout=res_layout)
@@ -270,11 +505,13 @@ def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
         z = (torch.empty if covered else torch.zeros)(
             _shape(engine, N, Co, Ho, Wo), device=x.device,
             dtype=torch.float32)
-    tile = ()
+    pool = tuple(pool) if pool else None
     if engine == "CHWN":
-        t = conv_tiling(N, Ci, H, W, Co, F, stride, pad,
-                        tuple(pool) if pool else None)
+        t = conv_tiling(N, Ci, H, W, Co, F, stride, pad, pool)
         tile = (t.bm, t.nb, t.ph, t.pw)
+    else:
+        t = nchw_tiling(N, Ci, H, W, Co, F, stride, pad, pool)
+        tile = (t.bm, t.nb, t.uth, t.utw, t.tr, t.ga, _ptr(stats))
     err = getattr(_build.library(), entry)(
         x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(res), y.data_ptr(),
         _ptr(z), N, Ci, H, W, Co, F, stride, pad, pF, pS, avg, int(relu),
@@ -435,6 +672,31 @@ def conv_im2col_nchw_fused(x: torch.Tensor, w: torch.Tensor,
     return _conv("NCHW", x, w, stride, pad, bias=bias, relu=relu, pool=pool,
                  res=res, res_layout=res_layout, src_layout=src_layout,
                  dst_layout=dst_layout)
+
+
+def conv_im2col_nchw_fused_counted(x: torch.Tensor, w: torch.Tensor,
+                                   stride: int = 1, pad: int = 0, **kw
+                                   ) -> Tuple[torch.Tensor, int]:
+    """K2 once on the card (arguments as ``conv_im2col_nchw_fused``,
+    outside autograd), with the kernel counting what it runs: (y, the FLOPs
+    its blocks executed).  What shows that ``nchw_tiling`` prices the
+    kernel exactly."""
+    if _build.on_cpu("conv_im2col_nchw_fused_counted", x):
+        raise ValueError("conv_im2col_nchw_fused_counted: the count comes "
+                         "from the kernel; pass CUDA tensors")
+    if w.dim() != 4:
+        raise ValueError(f"w must be {_WEIGHT_SHAPE['NCHW']}, got "
+                         f"{tuple(w.shape)}")
+    stats = torch.zeros(1, dtype=torch.int64, device=x.device)
+    kw = {"bias": None, "relu": False, "pool": None, "res": None,
+          "res_layout": "NCHW", "src_layout": "NCHW", "dst_layout": "NCHW",
+          **kw}
+    Co, Ci, F, _ = w.shape
+    y = _launch(_ENTRY["NCHW"], conv_im2col_nchw_fused, "NCHW", x, w, Ci, Co,
+                F, stride, pad, kw["bias"], kw["relu"], kw["pool"],
+                kw["res"], kw["res_layout"], kw["src_layout"],
+                kw["dst_layout"], False, stats=stats)
+    return y, int(stats.item())
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 // The tensor-core and async-copy helpers of the port's Hopper kernels:
 // the weight gradient K6 (conv/csrc/wgrad.cu), flash attention K11
 // (flash_attention/csrc/flash_attention.cu), the direct CHWN conv K1
-// (conv/csrc/conv_chwn.cu), the NCHW conv -> conv stack K5b
+// (conv/csrc/conv_chwn.cu), the NCHW conv K2 (conv/csrc/conv_nchw.cu),
+// the NCHW conv -> conv stack K5b
 // (conv/csrc/conv_stack_nchw.cu), the tiled matmul K10
 // (matmul/csrc/matmul.cu) and the fused unembed + cross entropy K12
 // (crossentropy/csrc/crossentropy.cu).
 //
-// - cp.async copies global -> shared (16 bytes, or 4 with zero fill),
+// - cp.async copies global -> shared (16, 8 or 4 bytes, with zero fill),
 //   committed and waited on in groups;
 // - fp32 accuracy from the TF32 tensor cores (3xTF32): split_tf32 cuts a
 //   float into big + small, and mma_tf32 is one m16n8k8 TF32 product;
@@ -29,6 +30,12 @@ __device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 16 : 0));
+}
+// 8 bytes global -> shared; ok == false writes 8 zero bytes
+__device__ __forceinline__ void cp8(void* dst, const void* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0));
 }
 // 4 bytes global -> shared; ok == false writes 4 zero bytes
 __device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {

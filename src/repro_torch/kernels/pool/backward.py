@@ -30,6 +30,13 @@ _LAYOUTS = ("CHWN", "NCHW")
 _K7A_SMEM_AIM = 32 * 1024
 _K7A_MAX_BAND = 16
 _SMEM_PER_BLOCK = 232448
+# K7b's block: the dx elements it aims at (fewer where the launch would
+# not give every SM 4 blocks, down to _K7B_MIN_ELEMS) and the shared memory
+# it may take (4 blocks an SM)
+_K7B_ELEMS = 8192
+_K7B_MIN_ELEMS = 1024
+_K7B_SMEM_AIM = 48 * 1024
+_SMS = 132                # H100 SXM streaming multiprocessors
 
 
 class PoolBand(NamedTuple):
@@ -75,6 +82,70 @@ def pool_backward_band(H: int, W: int, F: int, S: int) -> PoolBand:
     return best
 
 
+class PoolPlanes(NamedTuple):
+    """K7b's split of the launch: blocks of ``planes`` consecutive (n, c)
+    planes by ``band`` dx rows (the last ones fewer), each touching at most
+    ``win_rows`` window rows."""
+    planes: int
+    band: int
+    groups: int
+    bands: int
+    win_rows: int
+    smem_bytes: int
+
+
+def _k7b_smem(planes: int, win_rows: int, F: int, S: int, W: int,
+              Wo: int) -> int:
+    """One K7b block's shared memory (``nchw_smem_bytes`` in
+    csrc/pool_backward.cu): per plane the x rows its windows cover and
+    their g (float) and first-max tap (uint16)."""
+    return planes * (4 * ((win_rows - 1) * S + F) * W + 6 * win_rows * Wo)
+
+
+@functools.lru_cache(maxsize=None)
+def pool_backward_planes(N: int, C: int, H: int, W: int, F: int,
+                         S: int) -> PoolPlanes:
+    """K7b's split: a block aims at ``_K7B_ELEMS`` dx elements (fewer where
+    the launch would give the card fewer than 4 blocks an SM).  A plane
+    larger than half that is cut into bands of rows, the most whose block
+    fits ``_K7B_SMEM_AIM``; smaller planes go whole, as many to a block as
+    the aim and the shared memory allow.  Raises where even one row
+    exceeds a block's 227 KB."""
+    Wo = pool_out_hw(W, F, S)
+    planes = N * C
+    aim = min(_K7B_ELEMS, max(_K7B_MIN_ELEMS,
+                              planes * H * W // (4 * _SMS)))
+
+    def tiling(p: int, b: int) -> PoolPlanes:
+        rows = 1
+        for h0 in range(0, H, b):
+            lo, hi = band_windows(h0, min(H, h0 + b), H, F, S)
+            rows = max(rows, hi - lo + 1)
+        return PoolPlanes(p, b, -(-planes // p), -(-H // b), rows,
+                          _k7b_smem(p, rows, F, S, W, Wo))
+
+    if 2 * H * W > aim:
+        best = tiling(1, 1)
+        for b in range(2, min(H, max(1, aim // W)) + 1):
+            t = tiling(1, b)
+            if t.smem_bytes > _K7B_SMEM_AIM:
+                break
+            best = t
+    else:
+        best = tiling(1, H)
+        for p in range(2, min(planes, aim // (H * W)) + 1):
+            t = tiling(p, H)
+            if t.smem_bytes > _K7B_SMEM_AIM:
+                break
+            best = t
+    if best.bands > 1:  # bands of equal height (the last no taller)
+        best = tiling(1, -(-H // best.bands))
+    if best.smem_bytes > _SMEM_PER_BLOCK:
+        raise ValueError(f"pool_backward_nchw: one row of a {W}-wide pool "
+                         f"needs {best.smem_bytes} bytes of shared memory")
+    return best
+
+
 def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
                    g: torch.Tensor, F: int, S: int, op: str,
                    g_layout: Optional[str], relu_mask: bool) -> torch.Tensor:
@@ -104,6 +175,9 @@ def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
     if layout == "CHWN":
         band = pool_backward_band(H, W, F, S)
         args += [band.band, band.win_rows]
+    else:
+        t = pool_backward_planes(N, C, H, W, F, S)
+        args += [t.planes, t.band, t.win_rows]
     err = getattr(_build.library(), entry)(*args, _build.stream_of(x.device))
     _build.check(name, err)
     wrapper.launches += 1
@@ -125,7 +199,9 @@ def pool_backward_nchw(x: torch.Tensor, g: torch.Tensor, F: int, S: int,
                        op: str = "max", g_layout: Optional[str] = None,
                        relu_mask: bool = False) -> torch.Tensor:
     """K7b: x [N, C, H, W], g [N, C, Ho, Wo] (or CHWN for ``g_layout``)
-    -> dx [N, C, H, W].  One thread per element, along w."""
+    -> dx [N, C, H, W].  A block takes a band of rows of one plane, or
+    several small planes whole (``pool_backward_planes``); it finds each
+    window's first maximum once, then forms dx from shared memory."""
     return _pool_backward(pool_backward_nchw, "pool_backward_nchw", "NCHW",
                           x, g, F, S, op, g_layout, relu_mask)
 

@@ -35,17 +35,29 @@
 // not once per window that holds it.  Avg skips the taps, and reads x in
 // phase 2 for its mask.
 //
-// K7b (NCHW) is a gather: one thread per dx element, along w, loops over
-// the windows that contain it and for max recomputes each window's
-// maximum and first-max position from x (L1/L2 serve the re-reads of
-// neighbouring threads).
+// K7b (NCHW) is K7a's design turned for NCHW, where w is the contiguous
+// dimension.  A block owns a band of dx rows [h0, h1) over all of W of
+// one (n, c) plane, or of several consecutive small planes whole (the
+// split is chosen in backward.py::pool_backward_planes).  Phase 1 stages,
+// per plane, the x rows that the windows touching the band cover (16-byte
+// coalesced loads along w where W is a multiple of 4) and every such
+// window's g, then finds each window's first-max tap once from shared
+// memory (kNoTap for a NaN window).  Phase 2, after one __syncthreads,
+// forms each dx element from shared memory alone, 4 along w a thread: the
+// g of the at most ceil(F/S)^2 windows whose stored tap is its own, times
+// (x > 0) from the staged rows, stored as one 16-byte vector.  Avg skips
+// the taps (and x, without the mask).  F and S are fixed at compile time
+// for 2/2 and 3/2, so the window arithmetic has no division.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned short kNoTap = 0xFFFF;  // a window holding a NaN
+constexpr int kDefaultSmem = 48 * 1024;  // dynamic shared memory a block
+                                         // has without the attribute
 
 struct Strides4 {  // element strides of (n, c, h, w)
   long long n, c, h, w;
@@ -62,6 +74,15 @@ Strides4 strides_of(bool nchw, int N, int C, int H, int W) {
 // [win][32], the ReLU words [band * W]
 int chwn_smem_bytes(int win, int band, int W) {
   return win * 33 * 4 + win * 32 * 2 + band * W * 4;
+}
+
+// dynamic shared memory of a K7b block: for each of its planes the x rows
+// its windows cover [(win_rows - 1) S + F][W], the window g values and
+// first-max taps [win_rows][Wo]
+long long nchw_smem_bytes(int planes, int win_rows, int F, int S, int W,
+                          int Wo) {
+  return static_cast<long long>(planes) *
+         (4LL * ((win_rows - 1) * S + F) * W + 6LL * win_rows * Wo);
 }
 
 // K7a: x, dx [C, H, W, N]; g through gs.  FT, ST > 0 fix F and S at
@@ -256,59 +277,168 @@ pool_backward_chwn_kernel(const float* __restrict__ x,
   }
 }
 
-// K7b: x, dx [N, C, H, W]; one thread per element along w
+// K7b: x, dx [N, C, H, W], the (n, c) planes p = n C + c; g through gs.
+// A block takes `P` consecutive planes and dx rows [h0, h0 + band) of each;
+// FT, ST > 0 fix F and S at compile time.
+template <int FT, int ST>
 __global__ void __launch_bounds__(kThreads)
 pool_backward_nchw_kernel(const float* __restrict__ x,
                           const float* __restrict__ g,
-                          float* __restrict__ dx, int N, int C, int H, int W,
-                          int F, int S, int Ho, int Wo, int avg,
-                          int relu_mask, Strides4 xs, Strides4 gs) {
-  long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= (long long)N * C * H * W) return;
-  int n, c, h, w;
-  long long r = i;
-  w = (int)(r % W); r /= W;
-  h = (int)(r % H); r /= H;
-  c = (int)(r % C);
-  n = (int)(r / C);
-  const float* xp = x + n * xs.n + c * xs.c;   // the (n, c) plane
-  const float* gp = g + n * gs.n + c * gs.c;
-  // windows oh with oh*S <= h <= oh*S + F - 1, inside [0, Ho)
-  const int oh_hi = min(h / S, Ho - 1), ow_hi = min(w / S, Wo - 1);
-  const int oh_lo = h >= F ? (h - F + S) / S : 0;
-  const int ow_lo = w >= F ? (w - F + S) / S : 0;
-  const float area = (float)(F * F);
-  float acc = 0.f;
-  // tap dy = h - oh*S ascending, then dx: the reference's summation order
-  for (int oh = oh_hi; oh >= oh_lo; --oh) {
-    for (int ow = ow_hi; ow >= ow_lo; --ow) {
-      const float gv = gp[oh * gs.h + ow * gs.w];
-      if (avg) {
-        acc += gv / area;
-        continue;
+                          float* __restrict__ dx, int planes, int C, int H,
+                          int W, int F_, int S_, int Ho, int Wo, int P,
+                          int band, int win_rows, int avg, int relu_mask,
+                          int vec, Strides4 gs) {
+  const int F = FT > 0 ? FT : F_, S = ST > 0 ? ST : S_;
+  extern __shared__ __align__(16) float sm[];
+  const int p0 = blockIdx.x * P, pc = min(P, planes - p0);
+  const int h0 = blockIdx.y * band, h1 = min(H, h0 + band);
+  // the window rows that touch [h0, h1), and the x rows they cover
+  const int oh_lo = h0 >= F ? (h0 - F + S) / S : 0;
+  const int oh_hi = min(Ho - 1, (h1 - 1) / S);
+  const int wr = max(0, oh_hi - oh_lo + 1);
+  const int xr0 = oh_lo * S, xr = wr > 0 ? min(H, oh_hi * S + F) - xr0 : 0;
+  const int XP = ((win_rows - 1) * S + F) * W;  // x floats of a plane
+  const int GP = win_rows * Wo;                   // windows of a plane
+  float* xs = sm;                                 // [P][x rows][W]
+  float* gsm = xs + P * XP;                       // [P][win_rows][Wo]
+  unsigned short* tap =
+      reinterpret_cast<unsigned short*>(gsm + P * GP);  // [P][win_rows][Wo]
+  const bool need_x = !avg || relu_mask;
+  const long long HW = static_cast<long long>(H) * W;
+  const float* xb = x + p0 * HW + static_cast<long long>(xr0) * W;
+
+  // phase 1a: the x rows (16-byte loads where W is a multiple of 4) and
+  // each window's g
+  if (need_x) {
+    if (vec) {
+      const int WQ = W / 4, per = xr * WQ;
+      for (int e = threadIdx.x; e < pc * per; e += kThreads) {
+        const int pl = e / per, r = e - pl * per;
+        *reinterpret_cast<float4*>(xs + pl * XP + 4 * r) =
+            __ldg(reinterpret_cast<const float4*>(xb + pl * HW) + r);
       }
-      // the window's max and the first tap that attains it
-      const float* wp =
-          xp + (long long)oh * S * xs.h + (long long)ow * S * xs.w;
-      // (one pass: the first strictly greater value is the first maximum,
-      // and a NaN poisons the window as nan_max would)
+    } else {
+      const int per = xr * W;
+      for (int e = threadIdx.x; e < pc * per; e += kThreads) {
+        const int pl = e / per, r = e - pl * per;
+        xs[pl * XP + r] = __ldg(xb + pl * HW + r);
+      }
+    }
+  }
+  {
+    const int per = wr * Wo;
+    for (int e = threadIdx.x; e < pc * per; e += kThreads) {
+      const int pl = e / per, r = e - pl * per;
+      const int rw = r / Wo, ow = r - rw * Wo;
+      const int p = p0 + pl, n = p / C, c = p - n * C;
+      gsm[pl * GP + r] = __ldg(g + n * gs.n + c * gs.c +
+                               (oh_lo + rw) * gs.h + ow * gs.w);
+    }
+  }
+  __syncthreads();
+
+  // phase 1b (max): each window's first maximal tap in row-major order
+  // (the first strictly greater value), kNoTap for a window with a NaN
+  if (!avg) {
+    const int per = wr * Wo;
+    for (int e = threadIdx.x; e < pc * per; e += kThreads) {
+      const int pl = e / per, r = e - pl * per;
+      const int rw = r / Wo, ow = r - rw * Wo;
+      const float* wp = xs + pl * XP + rw * S * W + ow * S;
       float m = -INFINITY;
       int first = 0;
       bool has_nan = false;
       for (int dy = 0; dy < F; ++dy)
         for (int dxx = 0; dxx < F; ++dxx) {
-          const float v = wp[dy * xs.h + dxx * xs.w];
+          const float v = wp[dy * W + dxx];
           if (v != v) has_nan = true;
           if (v > m) {
             m = v;
             first = dy * F + dxx;
           }
         }
-      if (!has_nan && first == (h - oh * S) * F + (w - ow * S)) acc += gv;
+      tap[pl * GP + r] = has_nan ? kNoTap : static_cast<unsigned short>(first);
+    }
+    __syncthreads();
+  }
+
+  // phase 2: every dx element of the band from shared memory, 4 along w a
+  // thread (a 16-byte store where W is a multiple of 4)
+  constexpr int WH = FT > 0 ? (FT + ST - 1) / ST : 0;  // windows over an
+  const int wh = WH > 0 ? WH : (F + S - 1) / S;         // element, a dim
+  const float area = static_cast<float>(F * F);
+  const int WQ = (W + 3) / 4, per = (h1 - h0) * WQ;
+  for (int e = threadIdx.x; e < pc * per; e += kThreads) {
+    const int pl = e / per, r = e - pl * per;
+    const int hh = r / WQ, w0 = 4 * (r - hh * WQ), h = h0 + hh;
+    const int oh_a = min(h / S, Ho - 1);
+    const int oh_b = h >= F ? (h - F + S) / S : 0;
+    const float* gp = gsm + pl * GP - oh_lo * Wo;
+    const unsigned short* tp = tap + pl * GP - oh_lo * Wo;
+    const float* xrow = xs + pl * XP + (h - xr0) * W;
+    float out[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int w = w0 + j;
+      float acc = 0.f;
+      if (w < W) {
+        const int ow_a = min(w / S, Wo - 1);
+        const int ow_b = w >= F ? (w - F + S) / S : 0;
+        // tap dy = h - oh*S ascending, then dx: the reference's summation
+        // order
+#pragma unroll
+        for (int i = 0; i < wh; ++i) {
+          const int oh = oh_a - i;
+          if (oh < oh_b) break;
+          const int tb = (h - oh * S) * F + w;  // tap of (h, w), less ow*S
+#pragma unroll
+          for (int k = 0; k < wh; ++k) {
+            const int ow = ow_a - k;
+            if (ow < ow_b) break;
+            const float gv = gp[oh * Wo + ow];
+            if (avg)
+              acc += gv / area;
+            else if (tp[oh * Wo + ow] == tb - ow * S)
+              acc += gv;
+          }
+        }
+        // an element under no window (past the last one) stays 0 and was
+        // not staged
+        if (relu_mask && oh_a >= oh_b && ow_a >= ow_b)
+          acc *= xrow[w] > 0.f ? 1.f : 0.f;
+      }
+      out[j] = acc;
+    }
+    float* d = dx + (p0 + pl) * HW + static_cast<long long>(h) * W + w0;
+    if (vec) {
+      *reinterpret_cast<float4*>(d) = make_float4(out[0], out[1], out[2],
+                                                  out[3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (w0 + j < W) d[j] = out[j];
     }
   }
-  if (relu_mask) acc *= xp[h * xs.h + w * xs.w] > 0.f ? 1.f : 0.f;
-  dx[i] = acc;
+}
+
+template <int FT, int ST>
+cudaError_t launch_nchw(const float* x, const float* g, float* dx, int N,
+                        int C, int H, int W, int F, int S, int Ho, int Wo,
+                        int P, int band, int win_rows, int smem, int avg,
+                        int relu_mask, int vec, Strides4 gs,
+                        cudaStream_t s) {
+  if (smem > kDefaultSmem) {  // the attribute costs host time a launch
+    const cudaError_t e = cudaFuncSetAttribute(
+        pool_backward_nchw_kernel<FT, ST>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int planes = N * C;
+  const dim3 grid((planes + P - 1) / P, (H + band - 1) / band);
+  pool_backward_nchw_kernel<FT, ST><<<grid, kThreads, smem, s>>>(
+      x, g, dx, planes, C, H, W, F, S, Ho, Wo, P, band, win_rows, avg,
+      relu_mask, vec, gs);
+  return cudaGetLastError();
 }
 
 template <int FT, int ST>
@@ -359,22 +489,39 @@ extern "C" int pool_backward_chwn(const void* x, const void* g, void* dx,
 }
 
 // K7b: x, dx [N, C, H, W]; g [N, C, Ho, Wo] or (g_nchw = 0) [C, Ho, Wo, N].
+// A block covers `planes` (n, c) planes and `band` dx rows of each, and
+// touches at most `win_rows` window rows
+// (backward.py::pool_backward_planes).
 extern "C" int pool_backward_nchw(const void* x, const void* g, void* dx,
                                   int N, int C, int H, int W, int F, int S,
                                   int avg, int relu_mask, int g_nchw,
+                                  int planes, int band, int win_rows,
                                   void* stream) {
   const int Ho = (H - F) / S + 1, Wo = (W - F) / S + 1;
-  const long long n = (long long)N * C * H * W;
-  if (n > 0 && Ho > 0 && Wo > 0) {
-    const long long blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-    const Strides4 xs = strides_of(true, N, C, H, W);
-    const Strides4 gs = strides_of(g_nchw != 0, N, C, Ho, Wo);
-    pool_backward_nchw_kernel<<<(unsigned)blocks, kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<float*>(dx), N, C, H, W, F, S, Ho, Wo, avg, relu_mask,
-        xs, gs);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (N <= 0 || C <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaGetLastError();
+  const long long np = static_cast<long long>(N) * C;
+  if (planes < 1 || band < 1 || win_rows < 1 || F * F >= kNoTap ||
+      np > 0x7fffffffLL || (np + planes - 1) / planes > 0x7fffffffLL ||
+      (H + band - 1) / band > 65535)
+    return (int)cudaErrorInvalidValue;
+  const long long smem = nchw_smem_bytes(planes, win_rows, F, S, W, Wo);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const Strides4 gs = strides_of(g_nchw != 0, N, C, Ho, Wo);
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  float* df = static_cast<float*>(dx);
+  const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(dx) % 16 == 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (F == 3 && S == 2)  // ResNet-18's overlapping pool
+    e = launch_nchw<3, 2>(xf, gf, df, N, C, H, W, F, S, Ho, Wo, planes, band,
+                          win_rows, (int)smem, avg, relu_mask, vec, gs, s);
+  else if (F == 2 && S == 2)  // VGG16's
+    e = launch_nchw<2, 2>(xf, gf, df, N, C, H, W, F, S, Ho, Wo, planes, band,
+                          win_rows, (int)smem, avg, relu_mask, vec, gs, s);
+  else
+    e = launch_nchw<0, 0>(xf, gf, df, N, C, H, W, F, S, Ho, Wo, planes, band,
+                          win_rows, (int)smem, avg, relu_mask, vec, gs, s);
+  return static_cast<int>(e);
 }

@@ -241,6 +241,75 @@ def test_k7a_band_edge_splits_overlapping_windows(card):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# K7b's own cases: VGG16's 2/2 and ResNet-18's 3/2 max pools and 7 x 7 avg
+# at reduced batch, g in either layout; a plane in bands, small planes
+# several to a block, W no multiple of 4 (the 4-byte path)
+# (N, C, H, F, S, op)
+K7B_CASES = [(2, 64, 224, 2, 2, "max"), (3, 64, 112, 3, 2, "max"),
+             (5, 512, 14, 2, 2, "max"), (4, 512, 7, 7, 7, "avg"),
+             (3, 6, 55, 3, 2, "max"), (2, 5, 27, 3, 2, "avg")]
+
+
+@pytest.mark.parametrize("g_layout", ["NCHW", "CHWN"])
+@pytest.mark.parametrize("N,C,H,F,S,op", K7B_CASES,
+                         ids=[f"N{n}-C{c}-H{h}-{o}{f}s{s}"
+                              for n, c, h, f, s, o in K7B_CASES])
+def test_k7b_pools_match_plain(N, C, H, F, S, op, g_layout, card):
+    """Max exactly, avg within 1e-6 of the plain version, with the ReLU
+    mask folded in."""
+    gen = torch.Generator(device=card).manual_seed(N * C + H + F)
+    x = _randn("NCHW", (N, C, H, H), gen, card)
+    Ho = pool_out_hw(H, F, S)
+    g = _randn(g_layout, (N, C, Ho, Ho), gen, card)
+    before = pool_bwd.pool_backward_nchw.launches
+    got = pool_bwd.pool_backward_nchw(x, g, F, S, op, g_layout=g_layout,
+                                      relu_mask=True)
+    want = pool_backward_ref(x, g, F, S, op, "NCHW", g_layout, True)
+    torch.cuda.synchronize()
+    assert pool_bwd.pool_backward_nchw.launches == before + 1
+    if op == "max":
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    else:
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("N,H", [(4, 17), (33, 23)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_k7b_ties_nan_and_all_inf_windows_route_as_the_reference(N, H,
+                                                                 relu,
+                                                                 card):
+    gen = torch.Generator(device=card).manual_seed(N * H + 1)
+    x = _special_windows(N, 3, H, gen, card)
+    Ho = pool_out_hw(H, 3, 2)
+    for g_layout in ("CHWN", "NCHW"):
+        g = _randn(g_layout, (N, 3, Ho, Ho), gen, card)
+        got = pool_bwd.pool_backward_nchw(x, g, 3, 2, "max",
+                                          g_layout=g_layout, relu_mask=relu)
+        want = pool_backward_ref(x, g, 3, 2, "max", "NCHW", g_layout, relu)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=0,
+                                   equal_nan=True)
+        assert not got[0, 1, 4:7, 4:7].any()          # the NaN window
+
+
+@pytest.mark.parametrize("W", [301, 300])
+def test_k7b_band_edge_splits_overlapping_windows(W, card):
+    """A plane cut into bands of an odd number of rows: 3/2 windows
+    straddle the band edges (their window rows are staged by both
+    blocks); W 301 loads and stores 4 bytes at a time, 300 16."""
+    t = pool_bwd.pool_backward_planes(1, 2, W, W, 3, 2)
+    assert t.bands > 1 and t.band % 2 == 1
+    gen = torch.Generator(device=card).manual_seed(W)
+    x = _pool_input("NCHW", 1, 2, W, gen, card, ties=True)
+    Ho = pool_out_hw(W, 3, 2)
+    for g_layout in ("CHWN", "NCHW"):
+        g = _randn(g_layout, (1, 2, Ho, Ho), gen, card)
+        got = pool_bwd.pool_backward_nchw(x, g, 3, 2, "max",
+                                          g_layout=g_layout, relu_mask=True)
+        want = pool_backward_ref(x, g, 3, 2, "max", "NCHW", g_layout, True)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("rows,cols", [(32, 1000), (128, 1000), (7, 10),
                                        (3, 1)])
 def test_softmax_xent_kernel_matches_plain(rows, cols, card):

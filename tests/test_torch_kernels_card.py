@@ -140,10 +140,12 @@ def test_conv_kernel_rejects_what_it_does_not_take(card):
                                                        device=card))
     with pytest.raises(ValueError, match="does not fit"):
         conv_ops.conv_im2col_nchw_fused(x, w, pool=(7, 2, "max"))
-    with pytest.raises(ValueError, match="taps"):
-        conv_ops.conv_im2col_nchw_fused(torch.zeros(1, 3, 16, 16,
+    # what bounds a pool window is the tile: 17 x 17 taps exceed the 256
+    # conv outputs of K2's widest one
+    with pytest.raises(ValueError, match="no block tile"):
+        conv_ops.conv_im2col_nchw_fused(torch.zeros(1, 3, 19, 19,
                                                     device=card), w,
-                                        pool=(12, 1, "max"))
+                                        pool=(17, 1, "max"))
 
 
 # --------------------------------------------------------------------------
@@ -273,6 +275,172 @@ def test_k1_dgrad_at_every_stride(S, g_layout, dst, card):
                     g_layout=g_layout, dst_layout=dst)
     torch.cuda.synchronize()
     assert conv_ops.conv_direct_chwn.launches == before + 1
+    want64 = torch.nn.grad.conv2d_input((N, Ci, H, H), w.double(),
+                                        g.double(), stride=S, padding=pad)
+    got = dx.permute(perm_between(dst, "NCHW")).cpu()
+    assert _k1_scaled_err(got, want64) <= K1_TOL
+    torch.testing.assert_close(
+        got, torch.nn.grad.conv2d_input((N, Ci, H, H), w, g, stride=S,
+                                        padding=pad),
+        rtol=1e-4, atol=1e-3)
+
+
+# --------------------------------------------------------------------------
+# K2 on the tensor cores (3xTF32): the layout folds, the pools (2/2, 3/2,
+# 7 x 7 avg), ragged N and Co, Ci F^2 no multiple of 8, strides 1, 2 and 4,
+# every filter size of the networks, save_act and dgrad; the FLOPs the
+# kernel counts held to ``nchw_tiling``
+# --------------------------------------------------------------------------
+# (N, Ci, H, Co, F, S, pad, pool, src, dst, res_layout or None)
+K2_CASES = [
+    (32, 3, 34, 64, 3, 1, 1, (2, 2, "max"), "NCHW", "NCHW", None),
+    (3, 5, 40, 64, 7, 2, 3, (3, 2, "max"), "NCHW", "NCHW", None),
+    (6, 3, 59, 96, 11, 4, 0, None, "NCHW", "NCHW", None),
+    (5, 96, 13, 70, 5, 1, 2, None, "CHWN", "NCHW", "CHWN"),
+    (4, 64, 15, 129, 3, 2, 1, None, "NCHW", "CHWN", "NCHW"),
+    (3, 512, 7, 512, 3, 1, 1, (7, 7, "avg"), "NCHW", "NCHW", "NCHW"),
+    (9, 40, 10, 256, 1, 2, 0, None, "NCHW", "NCHW", None),
+    (2, 17, 21, 33, 3, 1, 1, (3, 2, "max"), "CHWN", "CHWN", "CHWN"),
+    (1, 8, 9, 5, 3, 1, 0, (2, 2, "avg"), "NCHW", "NCHW", None),
+    (130, 6, 6, 20, 3, 1, 1, (2, 2, "max"), "NCHW", "CHWN", "NCHW"),
+]
+
+
+def _k2_inputs(case, dev, seed):
+    N, Ci, H, Co, F, S, pad, pool, src, dst, rlay = case
+    x, w, b, r = _k1_inputs(N, Ci, H, Co, F, S, pad, src, dev, seed,
+                            res_layout=rlay)
+    kw = dict(bias=b, relu=True, pool=pool, res=r, res_layout=rlay or "NCHW",
+              src_layout=src, dst_layout=dst)
+    k64 = {**kw, "bias": b.double(), "res": r.double() if rlay else None}
+    return x, w, kw, k64
+
+
+def _k2_id(c):
+    N, Ci, H, Co, F, S, pad, pool, src, dst, rlay = c
+    ptag = "nopool" if pool is None else f"{pool[2]}{pool[0]}s{pool[1]}"
+    return (f"N{N}-C{Ci}-H{H}-K{Co}-F{F}-S{S}-P{pad}-{ptag}-{src}to{dst}"
+            f"-res{rlay}")
+
+
+@pytest.mark.parametrize("case", K2_CASES, ids=[_k2_id(c) for c in K2_CASES])
+def test_k2_matches_plain_float64_and_its_tiling(case, card):
+    """y at the conv tolerance of the plain version and within 1e-5
+    scale-relative of float64; with a pool, the save_act z too (one writer
+    per conv output, 0 under no window); the FLOPs the blocks count equal
+    to ``nchw_tiling``'s."""
+    N, Ci, H, Co, F, S, pad, pool = case[:8]
+    x, w, kw, k64 = _k2_inputs(case, card, K2_CASES.index(case))
+    before = conv_ops.conv_im2col_nchw_fused.launches
+    y, flops = conv_ops.conv_im2col_nchw_fused_counted(x, w, S, pad, **kw)
+    torch.cuda.synchronize()
+    assert conv_ops.conv_im2col_nchw_fused.launches == before + 1
+    torch.testing.assert_close(y, conv_ref(x, w, S, pad, **kw), rtol=1e-4,
+                               atol=1e-3)
+    assert _k1_scaled_err(y, conv_ref(x.double(), w.double(), S, pad,
+                                      **k64)) <= K1_TOL
+    assert flops == conv_ops.nchw_tiling(N, Ci, H, H, Co, F, S, pad,
+                                         pool).executed_flops
+    if pool is not None:
+        y2, z = conv_ops._conv("NCHW", x, w, S, pad, save_act=True, **kw)
+        z_ref = conv_ref(x, w, S, pad, save_act=True, act_layout="NCHW",
+                         **kw)[1]
+        z64 = conv_ref(x.double(), w.double(), S, pad, save_act=True,
+                       act_layout="NCHW", **k64)[1]
+        assert torch.equal(y2, y)
+        torch.testing.assert_close(z, z_ref, rtol=1e-4, atol=1e-3)
+        assert _k1_scaled_err(z, z64) <= K1_TOL
+
+
+def test_k2_3xtf32_holds_1e5_where_one_pass_tf32_does_not(card):
+    """VGG16 conv4_2 at batch 2: K2 within 1e-5 scale-relative of float64,
+    cuDNN's one-pass TF32 conv on the same inputs far outside it."""
+    x, w, b, _ = _k1_inputs(2, 512, 28, 512, 3, 1, 1, "NCHW", card, 11)
+    x = torch.relu(x) * 4.0
+    want64 = conv_ref(x.double(), w.double(), 1, 1)
+    got = conv_ops.conv_im2col_nchw_fused(x, w, 1, 1)
+    assert _k1_scaled_err(got, want64) <= K1_TOL
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = torch.nn.functional.conv2d(x, w, padding=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert _k1_scaled_err(tf32, want64) > 10 * K1_TOL
+
+
+@pytest.mark.parametrize("src,dst,rlay",
+                         list(itertools.product(("NCHW", "CHWN"), repeat=3)))
+@pytest.mark.parametrize("pool", [None, (3, 2, "max"), (2, 2, "avg")],
+                         ids=["nopool", "max3s2", "avg2s2"])
+def test_k2_every_layout_fold(src, dst, rlay, pool, card):
+    x, w, b, r = _k1_inputs(12, 5, 13, 36, 3, 1, 1, src, card, 17,
+                            res_layout=rlay)
+    kw = dict(bias=b, relu=True, pool=pool, res=r, res_layout=rlay,
+              src_layout=src, dst_layout=dst)
+    got = conv_ops.conv_im2col_nchw_fused(x, w, 1, 1, **kw)
+    torch.testing.assert_close(got, conv_ref(x, w, 1, 1, **kw), rtol=1e-4,
+                               atol=1e-3)
+    k64 = {**kw, "bias": b.double(), "res": r.double()}
+    assert _k1_scaled_err(got, conv_ref(x.double(), w.double(), 1, 1,
+                                        **k64)) <= K1_TOL
+
+
+@pytest.mark.parametrize("N", [1, 3, 33, 130])
+@pytest.mark.parametrize("Co", [5, 70, 129, 300])
+@pytest.mark.parametrize("pool", [None, (3, 2, "max")],
+                         ids=["nopool", "max3s2"])
+def test_k2_ragged_batch_and_channels(N, Co, pool, card):
+    x, w, b, _ = _k1_inputs(N, 4, 11, Co, 3, 1, 0, "NCHW", card, N + Co)
+    kw = dict(bias=b, relu=False, pool=pool)
+    got = conv_ops.conv_im2col_nchw_fused(x, w, 1, 0, **kw)
+    torch.testing.assert_close(got, conv_ref(x, w, 1, 0, **kw), rtol=1e-4,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("Ci,F", [(3, 3), (3, 5), (3, 11), (5, 1), (7, 7),
+                                  (13, 3)], ids=lambda v: str(v))
+def test_k2_reductions_that_are_no_multiple_of_8(Ci, F, card):
+    """Ci*F*F = 27, 75, 363, 5, 343, 117: the last 8-channel group is
+    ragged, and the wide filters split their tap rows over stages."""
+    x, w, b, _ = _k1_inputs(8, Ci, 23, 64, F, 2, F // 2, "NCHW", card, F)
+    got = conv_ops.conv_im2col_nchw_fused(x, w, 2, F // 2)
+    want64 = conv_ref(x.double(), w.double(), 2, F // 2)
+    assert _k1_scaled_err(got, want64) <= K1_TOL
+
+
+@pytest.mark.parametrize("pool", [None, (3, 2, "max"), (2, 2, "max")],
+                         ids=["nopool", "max3s2", "max2s2"])
+def test_k2_nan_runs_through_relu_and_the_max_pool(pool, card):
+    x, w, b, _ = _k1_inputs(9, 6, 15, 70, 3, 1, 1, "NCHW", card, 16)
+    x[2, 4, 4, 2] = float("nan")     # x is [N, Ci, H, W]
+    x[7, 3, 10, 11] = float("nan")
+    kw = dict(bias=b, relu=True, pool=pool)
+    got = conv_ops.conv_im2col_nchw_fused(x, w, 1, 1, **kw)
+    want = conv_ref(x, w, 1, 1, **kw)
+    assert torch.isnan(got).any()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-3,
+                               equal_nan=True)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("g_layout,dst", [("NCHW", "NCHW"),
+                                          ("CHWN", "NCHW"),
+                                          ("NCHW", "CHWN")])
+def test_k2_dgrad_at_every_stride(S, g_layout, dst, card):
+    """dgrad on K2 (the stride-1 conv of the dilated gradient) against
+    float64 and ``conv2d_input``."""
+    N, Ci, H, Co, F, pad = 6, 16, 19, 40, (5 if S < 4 else 11), 2
+    Ho = (H + 2 * pad - F) // S + 1
+    gen = torch.Generator().manual_seed(10 + S)
+    g = torch.randn(N, Co, Ho, Ho, generator=gen)
+    w = torch.randn(Co, Ci, F, F, generator=gen) / np.sqrt(Ci * F * F)
+    gl = g.permute(perm_between("NCHW", g_layout)).contiguous().to(card)
+    before = conv_ops.conv_im2col_nchw_fused.launches
+    dx = conv_dgrad(gl, w.to(card), (H, H), S, pad, layout="NCHW",
+                    g_layout=g_layout, dst_layout=dst)
+    torch.cuda.synchronize()
+    assert conv_ops.conv_im2col_nchw_fused.launches == before + 1
     want64 = torch.nn.grad.conv2d_input((N, Ci, H, H), w.double(),
                                         g.double(), stride=S, padding=pad)
     got = dx.permute(perm_between(dst, "NCHW")).cpu()

@@ -401,10 +401,9 @@ def test_alexnet_conv3_conv4_executes_at_most_twice_the_direct_work():
     assert t.executed_flops / t.direct_flops <= 2.0
 
 
-def test_nchw_stack_tiling_is_the_old_one():
-    """K5b keeps the stack design without a cluster (the old one, beside
-    K5a's cluster kernel), and its tile on VGG16 conv1_1 -> conv1_2 at
-    batch 32 is pinned: 64 output channels by 6 x 8 pooled outputs (12 x 16 conv2
+def test_nchw_stack_tiling_pins_the_vgg16_conv1_tile():
+    """K5b runs without a cluster (beside K5a's cluster kernel), and its
+    tile on VGG16 conv1_1 -> conv1_2 at batch 32 is pinned: 64 output channels by 6 x 8 pooled outputs (12 x 16 conv2
     outputs of one image, 192 of the tile's 256 columns); one 8-channel
     group of the 3-channel input a phase-A stage; 1.112x the direct FLOPs
     (conv1 on the 14 x 18 halo box, its 3 input channels padded to 8)."""

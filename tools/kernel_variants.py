@@ -1,33 +1,36 @@
 #!/usr/bin/env python3
-"""Time the port's tensor-core kernels K1, K5b, K10 and K12 against
+"""Time the port's tensor-core kernels K1, K2, K5b, K10 and K12 against
 variants of their sources, and under other block tiles, on one CUDA card.
 
     python3 tools/kernel_variants.py [--tiles] [VARIANT.cu ...]
 
 Each VARIANT stands in for ``conv/csrc/conv_chwn.cu`` (K1, the direct
-CHWN conv), ``conv/csrc/conv_stack_nchw.cu`` (K5b, the NCHW conv -> conv
+CHWN conv), ``conv/csrc/conv_nchw.cu`` (K2, the virtual-im2col NCHW
+conv), ``conv/csrc/conv_stack_nchw.cu`` (K5b, the NCHW conv -> conv
 stack), ``matmul/csrc/matmul.cu`` (K10, the tiled matmul) or
 ``crossentropy/csrc/crossentropy.cu`` (K12, the fused unembed + cross
 entropy), whichever entry point it defines: it is built by nvcc into a
-library of its own and swapped in for that entry point.  K1 and K5b
+library of its own and swapped in for that entry point.  K1, K2 and K5b
 variants run each distinct launch of that kernel on ``chip_smoke.py``'s
-main path (fused serving, the unfused modes, training; K1: 34 shapes, 85
-launches, K5b: 14 shapes, 40 launches), K10 variants the 12 Table-1
-layers' matmuls, K12 variants the smoke's three LM head cases; the
-checkout's kernel and the variants run in turns (checkout, variants,
+main path (fused serving, the unfused modes, training), K10 variants the
+12 Table-1 layers' matmuls, K12 variants the smoke's three LM head cases;
+the checkout's kernel and the variants run in turns (checkout, variants,
 variants reversed, checkout), each held against the plain version as
 ``chip_smoke.py`` holds it, and the mean ms of each launch and the totals
 are printed.  The kernels compared are those a variant is given for; with
-no variant and no ``--tiles``, the checkout's four.
+no variant and no ``--tiles``, the checkout's five.
 
 ``--tiles`` times the checkout's kernels under other block tiles beside
 the one their tiling picks, each launch held against the plain version
-(K5b) or the float64 product (K10): AlexNet's conv2 with its 3/2 max pool
-(N 128) under a few K1 tiles; each K5b main-path shape under the four
+(K2, K5b) or the float64 product (K10): AlexNet's conv2 with its 3/2 max
+pool (N 128) under a few K1 tiles; each distinct K2 main-path shape under
+some ten tiles (the six of least modeled time from ``conv_ops.k2_tilings``
+and the best-modeled of several kinds for each bm), with the pick's time
+over the fastest's; each K5b main-path shape under the four
 tiles of least modeled time and the best one within 1.25x the direct
 FLOPs; each Table-1 matmul under K10's three tiles and split counts of K
-up to 16, and a least-squares fit of ``matmul_tilings``' cost constants
-to those times.  Needs a CUDA device and nvcc.
+up to 16; and least-squares fits of K2's and ``matmul_tilings``' cost
+constants to those times.  Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -48,17 +51,18 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.core.layout import perm_between  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv import ops as conv_ops  # noqa: E402
+from repro_torch.kernels.conv.backward import dgrad_shape  # noqa: E402
 from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref  # noqa: E402
 from repro_torch.kernels.crossentropy.ops import fused_xent  # noqa: E402
 from repro_torch.kernels.crossentropy.ref import xent_ref  # noqa: E402
 from repro_torch.kernels.matmul import ops as matmul_ops  # noqa: E402
 from repro_torch.shapes import conv_out_hw  # noqa: E402
 
-K1, K12 = "conv_chwn_forward", "xent_forward"
+K1, K2, K12 = "conv_chwn_forward", "conv_nchw_forward", "xent_forward"
 K5B, K10 = "conv_stack_nchw_forward", "matmul_forward"
 # the csrc directory of the source that defines each entry point
-_SRC_DIR = {K1: "conv/csrc", K5B: "conv/csrc", K10: "matmul/csrc",
-            K12: "crossentropy/csrc"}
+_SRC_DIR = {K1: "conv/csrc", K2: "conv/csrc", K5B: "conv/csrc",
+            K10: "matmul/csrc", K12: "crossentropy/csrc"}
 # AlexNet conv2 (N, Ci, H, Co, F, S, pad) with its 3/2 max pool, and the
 # block tiles (bm, nb, ph, pw) timed beside conv_tiling's
 CONV2 = (128, 96, 27, 256, 5, 1, 2)
@@ -123,6 +127,14 @@ def k1_launch(case, dev, seed) -> dict:
     if case[0] == "dgrad":
         return cs.dgrad_case("conv_chwn", case, dev, seed)
     return cs.conv_case("conv_chwn", case, dev, seed)
+
+
+def k2_launch(case, dev, seed) -> dict:
+    if case[0] == "save_act":
+        return cs.save_act_case("conv_nchw", case, dev, seed)
+    if case[0] == "dgrad":
+        return cs.dgrad_case("conv_nchw", case, dev, seed)
+    return cs.conv_case("conv_nchw", case, dev, seed)
 
 
 def k5b_launch(case, dev, seed) -> dict:
@@ -293,6 +305,201 @@ def k5b_tiles(dev):
                   + (" [picked]" if t == picked else ""), flush=True)
 
 
+def _k2_shape(case):
+    """The ``nchw_tiling`` shape of one K2 launch of the main path: a
+    forward or save_act case as the conv it runs, a dgrad case as the
+    stride-1 conv of the dilated gradient (``dgrad_problem``)."""
+    if case[0] == "dgrad":
+        N, Ci, H, Co, F, S, pad = case[1:8]
+        return (*dgrad_shape(N, Ci, H, H, Co, F, S, pad), None)
+    if case[0] == "save_act":
+        case = case[1:]
+    N, Ci, H, Co, F, S, pad, pool = case[:8]
+    return (N, Ci, H, H, Co, F, S, pad, tuple(pool) if pool else None)
+
+
+def _k2_problem(case, dev, seed):
+    """(x, w, S, pad, kwargs) of ``_conv("NCHW", ...)`` for one K2 launch
+    of the main path, seeded data."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if case[0] == "dgrad":
+        N, Ci, H, Co, F, S, pad, g_lay, dst = case[1:]
+        Ho = conv_out_hw(H, F, S, pad)
+        g = torch.randn(N, Co, Ho, Ho, device=dev, generator=gen) \
+            .permute(perm_between("NCHW", g_lay)).contiguous()
+        w = torch.randn(Co, Ci, F, F, device=dev, generator=gen) \
+            / math.sqrt(Ci * F * F)
+        gd, wt, p = cs.dgrad_problem(g, w, (H, H), S, pad, g_lay)
+        return gd, wt, 1, p, dict(src_layout=g_lay, dst_layout=dst)
+    if case[0] == "save_act":
+        case = case[1:]
+    N, Ci, H, Co, F, S, pad, pool, relu, rlay, src, dst = case
+    Ho = conv_out_hw(H, F, S, pad)
+    x = torch.randn(N, Ci, H, H, device=dev, generator=gen) \
+        .permute(perm_between("NCHW", src)).contiguous()
+    w = torch.randn(Co, Ci, F, F, device=dev, generator=gen) \
+        / math.sqrt(Ci * F * F)
+    r = (torch.randn(N, Co, Ho, Ho, device=dev, generator=gen)
+         .permute(perm_between("NCHW", rlay)).contiguous() if rlay else None)
+    return x, w, S, pad, dict(relu=relu, pool=pool, res=r,
+                              res_layout=rlay or "NCHW", src_layout=src,
+                              dst_layout=dst)
+
+
+def _k2_sweep(cands, picked):
+    """The tiles timed for one K2 shape: the one picked, the six of least
+    modeled time,
+    then for each bm the least-modeled tile overall, with 2 or 4 channel
+    groups a stage, of one image, of 4 or more, of the full width, of one
+    unit row, and of at most 64 units."""
+    cands = sorted(cands, key=lambda c: c[0])
+    out, seen = [], set()
+
+    def add(c):
+        t = c[1]
+        key = (t.bm, t.nb, t.uth, t.utw, t.tr, t.ga)
+        if key not in seen:
+            seen.add(key)
+            out.append(c)
+
+    for c in [c for c in cands if c[1] == picked] + cands[:6]:
+        add(c)
+    full = max(c[1].utw for c in cands)
+    preds = [lambda t: True, lambda t: t.ga == 2, lambda t: t.ga == 4,
+             lambda t: t.nb == 1, lambda t: t.nb >= 4,
+             lambda t: t.utw == full, lambda t: t.uth == 1,
+             lambda t: t.nb * t.uth * t.utw <= 64]
+    for bm in conv_ops._K2_BMS:
+        for pred in preds:
+            m = [c for c in cands if c[1].bm == bm and pred(c[1])]
+            if m:
+                add(m[0])
+    return out
+
+
+def k2_tiles(dev):
+    """Each distinct K2 shape of the main path (forward, save_act and
+    dgrad launches alike) under the tiles of ``_k2_sweep`` (from
+    ``conv_ops.k2_tilings``), the one ``nchw_tiling`` picks among them; then
+    the pick's time over the fastest tile's, shape by shape and over the
+    launches, and ``fit_k2`` of the times."""
+    groups = {}
+    for case, n in main_path_cases("conv_nchw").items():
+        first, count = groups.get(_k2_shape(case), (case, 0))
+        groups[_k2_shape(case)] = (first, count + n)
+    ratios, tot_pick, tot_best, timed = [], 0.0, 0.0, []
+    for i, (shape, (case, launches)) in enumerate(groups.items()):
+        x, w, S, pad, kw = _k2_problem(case, dev, 400 + i)
+        cands = conv_ops.k2_tilings(*shape)
+        picked = conv_ops.nchw_tiling(*shape)
+        want = conv_ref(x, w, S, pad, **kw)
+        print(f"K2 {shape} x{launches}:", flush=True)
+        # each tile timed twice, the list forwards then backwards, so that
+        # the order (the pick comes first) biases none: the mean is kept
+        sweep = _k2_sweep(cands, picked)
+        runs = {}
+        for modeled, t in sweep + sweep[::-1]:
+            key = (t.bm, t.nb, t.uth, t.utw, t.tr, t.ga)
+            with _Forced(conv_ops, "nchw_tiling", t):
+                def run():
+                    return conv_ops._conv("NCHW", x, w, S, pad, **kw)
+                if key not in runs:
+                    torch.testing.assert_close(run(), want,
+                                               rtol=cs.CONV_RTOL,
+                                               atol=cs.CONV_ATOL)
+                runs.setdefault(key, []).append(cs.cuda_ms(run))
+        times = {}
+        for modeled, t in sweep:
+            key = (t.bm, t.nb, t.uth, t.utw, t.tr, t.ga)
+            times[key] = sum(runs[key]) / len(runs[key])
+            timed.append((shape, t, times[key]))
+            print(f"  tile (bm, nb, uth, utw, tr, ga) {key}: "
+                  f"blocks {t.blocks}, executed/direct "
+                  f"{t.executed_flops / t.direct_flops:.4f}, modeled "
+                  f"{modeled:.1f}: {times[key]:.4f} ms"
+                  + (" [picked]" if t == picked else ""), flush=True)
+        pick = times[(picked.bm, picked.nb, picked.uth, picked.utw,
+                      picked.tr, picked.ga)]
+        best = min(times.values())
+        ratios.append((pick / best, shape))
+        tot_pick += launches * pick
+        tot_best += launches * best
+        print(f"  pick {pick / best:.3f}x the fastest tile timed", flush=True)
+    worst = max(ratios, key=lambda r: r[0])
+    print(f"K2 tiles over {len(ratios)} shapes: the pick within "
+          f"{100 * (worst[0] - 1):.1f} % of the fastest tile timed on every "
+          f"shape (worst {worst[1]}); over the main path's launches "
+          f"{tot_pick:.3f} ms picked, {tot_best:.3f} ms fastest", flush=True)
+    fit_k2(timed)
+
+
+# the constants of K2's tile model (``conv_ops._k2_block_cost``) that
+# fit_k2 fits, beside the seconds of its unit
+K2_MODEL = ("_K2_STAGE_COST", "_K2_COPY_COST", "_K2_BYTE_COST",
+            "_K2_XBYTE_COST", "_K2_BLOCK_COST", "_K2_OVERLAP")
+
+
+def _k2_modeled(shape, t) -> float:
+    """``k2_tilings``' modeled time of tile ``t`` alone (units of the
+    model), with the constants as ``conv_ops`` holds them now."""
+    N, Ci, H, W, Co, F, S, pad, pool = shape
+    Ho, Wo = conv_out_hw(H, F, S, pad), conv_out_hw(W, F, S, pad)
+    pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+    UH, UW = (((Ho - pF) // pS + 1, (Wo - pF) // pS + 1) if pool
+              else (Ho, Wo))
+    hs = [(conv_ops._unit_rows(u, pF, pS), c)
+          for u, c in conv_ops._spans(UH, t.uth)]
+    ws = [(conv_ops._unit_rows(u, pF, pS), c)
+          for u, c in conv_ops._spans(UW, t.utw)]
+    tiles = work = 0
+    for nbc, cn in conv_ops._spans(N, t.nb):
+        for rh, ch in hs:
+            for rw, cw in ws:
+                tiles += cn * ch * cw
+                work += cn * ch * cw * conv_ops._k2_block_cost(
+                    Ci, W, F, S, t.bm, t.tr, t.ga, nbc, rh, rw,
+                    conv_ops._k2_xw(rw, S, F), Ci * F * F)
+    blocks = tiles * -(-Co // t.bm)
+    return -(-blocks // conv_ops._SMS) * work / tiles
+
+
+def fit_k2(rows):
+    """Least-squares fit (in log time) of K2's tile-model constants
+    (``K2_MODEL``) and the seconds of its unit to timed tiles ``(shape,
+    NchwTiling, ms)``; prints them, the rms log error, and per shape the
+    fitted model's pick among the timed tiles over the fastest."""
+    import numpy as np
+    from scipy.optimize import least_squares
+
+    def use(p):
+        for name, v in zip(K2_MODEL, p[1:]):
+            setattr(conv_ops, name, v)
+
+    def resid(p):
+        use(p)
+        return [math.log(p[0] * _k2_modeled(s, t) / (ms * 1e-3))
+                for s, t, ms in rows]
+
+    saved = [getattr(conv_ops, n) for n in K2_MODEL]
+    fit = least_squares(resid, [1e-8] + saved,
+                        bounds=([1e-10, 0, 0, 0, 0, 0, 1.0],
+                                [1e-5, 2000, 100, 1, 1, 1e5, 64]))
+    rms = float(np.sqrt(np.mean(np.square(fit.fun))))
+    print("K2 fit over {} tiles: unit {:.4g} s; ".format(len(rows), fit.x[0])
+          + ", ".join(f"{n} {v:.4g}" for n, v in zip(K2_MODEL, fit.x[1:]))
+          + f"; rms log error {rms:.3f}", flush=True)
+    use(fit.x)
+    by = {}
+    for s, t, ms in rows:
+        by.setdefault(s, []).append((_k2_modeled(s, t), ms, t))
+    for s, v in by.items():
+        pick, best = min(v, key=lambda r: r[0]), min(v, key=lambda r: r[1])
+        print(f"  fitted pick {s}: {pick[1] / best[1]:.3f}x the fastest",
+              flush=True)
+    use([None] + saved)
+    return fit.x
+
+
 def k10_tiles(dev):
     """Each Table-1 layer's matmul (fp32) under K10's three tiles and the
     split counts of ``SPLITS``, beside the one ``matmul_tiling`` picks;
@@ -375,6 +582,7 @@ def main() -> int:
     by_entry = {e: {k: lib for k, (en, lib) in built.items() if en == e}
                 for e in _SRC_DIR}
     runs = {"K1": (K1, lambda: main_path_cases("conv_chwn"), k1_launch),
+            "K2": (K2, lambda: main_path_cases("conv_nchw"), k2_launch),
             "K5b": (K5B, lambda: main_path_cases("conv_stack_nchw"),
                     k5b_launch),
             "K10": (K10, k10_cases, k10_launch),
@@ -389,6 +597,7 @@ def main() -> int:
             compare(label, entry, cases(), launch, by_entry[entry], dev)
         if args.tiles:
             k1_tiles(dev)
+            k2_tiles(dev)
             k5b_tiles(dev)
             k10_tiles(dev)
     return 0
