@@ -11,12 +11,19 @@
    (conv and stack rtol 1e-4 / atol 1e-3, softmax atol 1e-6) and times the
    kernel, the plain version and one library chain for the same function
    (cuDNN conv [+ residual] + ReLU [+ pool], twice for a stack;
-   torch.softmax) with CUDA events; K4's line adds the host time of a
-   launch's stream query, raw as the wrappers read it and through the
-   public ``torch.cuda.current_stream``.  K1 and K2 (3xTF32 on the tensor
-   cores) are also held against a float64 run of their plain version,
-   within 1e-5 scale-relative, on every case (forward, save_act, dgrad,
-   Table 1); their lines add that error, the bound of their own design
+   torch.softmax) with CUDA events, launches back to back (for a launch
+   of a few microseconds that reading is the host's time a launch).
+   K4's and K8's lines add the same reading taken again in turns with
+   their plain version and library call, the median of 5 rounds
+   (``median5``), each one's device time a launch (100 launches captured
+   in a CUDA graph and replayed: no host between the kernels) and K4's
+   the host microseconds of each step of its wrapper (the shared
+   ``_build`` helpers as every wrapper runs them) beside
+   ``torch.softmax``'s.  K1
+   and K2 (3xTF32 on the tensor cores) are also held against a float64
+   run of their plain version, within 1e-5 scale-relative, on every case
+   (forward, save_act, dgrad, Table 1); their lines add that error, the
+   bound of their own design
    (three TF32 products per fp32 one) and their block tile with the FLOPs
    it executes over the direct ones (K1 where it pools, ``conv_tiling``;
    K2 always, ``nchw_tiling``, and K2 runs once more counting the FLOPs
@@ -30,6 +37,14 @@
    held within 1e-5 scale-relative of a float64 run of its plain version;
    its line adds the counted FLOPs, that error, the executed TFLOP/s,
    executed/direct, its tile and the bound of its own design.
+   Then the paper's Fig. 13, off the main path: its twelve (N, C)
+   softmax shapes (``SOFTMAX_LAYERS``) through K4, the five-step
+   baseline and ``torch.softmax``, each held against the plain version
+   (atol 1e-6) with device and back-to-back times and the modeled bytes,
+   one ``fig13`` line a shape; and K4 and K8 on one shape for each of
+   their variants (``SOFTMAX_VARIANTS``: narrow, wide and loop, 16-byte
+   and scalar access, a misaligned view), with a NaN row and an all -inf
+   row, held against their plain versions (atol 1e-6; rtol/atol 1e-5).
 3. Serving phase, the main path, each path with the launch counts zeroed
    just before it and read just after, through ``CNNServer(reduced=False)``
    at full width:
@@ -87,7 +102,8 @@
    lines add the share of their byte bound reached), dgrad on K1/K2
    (library ``conv2d_input``, also within the conv tolerance of it) and
    K1/K2 with ``save_act``; and one K8 case off the path (VGG16's [32, 1000];
-   library ``cross_entropy``), listed with 0 launches.
+   library ``cross_entropy``; also held with labels outside [0, C), which
+   give the bare logsumexp), listed with 0 launches.
 7. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
    path of the tiled matmul K10: the 12 Table-1 layers
    (``configs/paper_table1.py``) at their published N, HW, F, Ci, Co and
@@ -155,7 +171,8 @@ from repro_torch.cnn.network import (forward, forward_fused,  # noqa: E402
                                      plan_network, value_and_grad)
 from repro_torch.configs import TRAIN_4K, get_config  # noqa: E402
 from repro_torch.configs.cnn_networks import CNN_CONFIGS  # noqa: E402
-from repro_torch.configs.paper_table1 import CONV_LAYERS  # noqa: E402
+from repro_torch.configs.paper_table1 import (CONV_LAYERS,  # noqa: E402
+                                              SOFTMAX_LAYERS)
 from repro_torch.core.layout import perm_between, plan_transform  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv.backward import (conv_wgrad,  # noqa: E402
@@ -188,8 +205,8 @@ from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw  # noqa: E402
 from repro_torch.kernels.pool.ref import (pool_backward_ref,  # noqa: E402
                                           pool_ref)
 from repro_torch.kernels.softmax.ops import softmax, softmax_xent  # noqa: E402
-from repro_torch.kernels.softmax.ref import (softmax_ref,  # noqa: E402
-                                             softmax_xent_ref)
+from repro_torch.kernels.softmax.ref import (softmax_5step_ref,  # noqa: E402
+                                             softmax_ref, softmax_xent_ref)
 from repro_torch.kernels.transpose.ops import (transpose2d,  # noqa: E402
                                                transpose2d_batched)
 from repro_torch.kernels.transpose.ref import (  # noqa: E402
@@ -237,6 +254,18 @@ TRAIN_STEPS = 3
 K9B_CASE = (32, 64, 224 * 224)
 # the one K8 case, off the main path: VGG16's classifier at batch 32
 K8_CASE = (32, 1000)
+# one (rows, cols, base offset in floats) for each variant of K4 and K8
+# (``softmax.cu``'s launch()): narrow with scalar access, G = 4, 8, 16
+# lanes, then 32 lanes with STEPS 1-32; narrow with 16-byte access (cols
+# % 4 == 0), G = 4, 8, 16, then STEPS 1-8; wide, blocks of 128-1024
+# threads, each access; loop, each access; a batch of several rows a
+# block; a view 4 bytes past a 16-byte boundary
+SOFTMAX_VARIANTS = (
+    [(7, c, 0) for c in (3, 7, 10, 31, 63, 101, 255, 501, 1001)]
+    + [(7, c, 0) for c in (12, 32, 64, 100, 200, 400, 1000)]
+    + [(7, c, 0) for c in (1501, 1500, 4001, 4000, 5001, 5000, 10001,
+                           10000, 20001, 20000)]
+    + [(300, 1000, 0), (5, 1000, 1)])
 # the LM kernel phase: whisper-base's encoder attention over a batch of 8
 # clips; gemma2-27b's head over a quarter of one train_4k sequence (its
 # plain version materializes [T, 256000] fp32 logits: 1 GB at T 1024)
@@ -711,13 +740,99 @@ def stack_case(kern: str, case, dev, seed: int) -> dict:
     return m
 
 
-def host_us(fn, reps: int = 2000) -> float:
-    """Mean host time of ``fn()`` in microseconds over ``reps`` calls."""
+def host_us(fn, reps: int = 500) -> float:
+    """Mean host time of ``fn()`` in microseconds over ``reps`` calls,
+    started on an idle card (``reps`` launches stay well inside the
+    launch queue, so the host never waits for the card)."""
     fn()
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    return (time.perf_counter() - t0) / reps * 1e6
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
+
+
+def device_ms(fn, launches: int = 100, replays: int = 5) -> float:
+    """Device time of one ``fn()`` in ms: ``launches`` calls captured in
+    one CUDA graph, replayed ``replays`` times between CUDA events, per
+    call.  The card runs the graph's kernels back to back with no host in
+    between: the kernels' own time plus the graph's gap between nodes
+    (a capture also fails on any host-device sync in ``fn``)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                    # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * launches)
+    del graph
+    return ms
+
+
+def b2b_ms(fns: dict, rounds: int = 5) -> dict:
+    """``cuda_ms`` of each function of ``fns``, taken in turns over
+    ``rounds`` rounds (the order reversed every other round), the median
+    of each.  For a launch of a few microseconds that back-to-back reading
+    is the host's time, which drifts on a shared host: turns and medians
+    keep the drift out of a comparison."""
+    got = {k: [] for k in fns}
+    for r in range(rounds):
+        for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            got[k].append(cuda_ms(fns[k]))
+    return {k: sorted(v)[len(v) // 2] for k, v in got.items()}
+
+
+def softmax_host_steps(x) -> dict:
+    """Host microseconds of each step of a K4 launch (``softmax/ops.py``,
+    on the helpers of ``kernels/_build.py`` that every wrapper runs), each
+    timed alone, beside the whole wrapper, ``torch.softmax``, a
+    ``contiguous()`` of a contiguous tensor and the stream read through
+    the public ``torch.cuda.current_stream``."""
+    y = torch.empty_like(x)
+    dev = _build.require_cuda_f32("softmax", x)
+    xp, yp, (rows, cols) = x.data_ptr(), y.data_ptr(), x.shape
+    st = _build.stream_of(dev)
+    launch = _build.library().softmax_forward
+
+    class Counter:
+        launches = 0
+
+    def count():
+        Counter.launches += 1
+
+    steps = {
+        "grad_mode": lambda: x.requires_grad and torch.is_grad_enabled(),
+        "dim": lambda: x.dim(),
+        "on_cpu": lambda: _build.on_cpu("softmax", x),
+        "require_cuda_f32": lambda: _build.require_cuda_f32("softmax", x),
+        "shape": lambda: x.shape,
+        "alloc": lambda: torch.empty_like(x),
+        "data_ptr": lambda: (x.data_ptr(), y.data_ptr()),
+        "library_lookup": lambda: _build.library().softmax_forward,
+        "stream_of": lambda: _build.stream_of(dev),
+        "ctypes_launch": lambda: launch(xp, yp, rows, cols, st),
+        "check": lambda: _build.check("softmax", 0),
+        "count": count,
+        "wrapper": lambda: softmax(x),
+        "torch_softmax": lambda: torch.softmax(x, dim=-1),
+        "contiguous": lambda: x.contiguous(),
+        "stream_object": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+    }
+    return {k: host_us(fn) for k, fn in steps.items()}
 
 
 def softmax_case(case, dev, seed: int) -> dict:
@@ -743,13 +858,14 @@ def softmax_case(case, dev, seed: int) -> dict:
     b_ms, b_by = bound_ms(flops, nbytes)
     return {"max_abs_err": err, "max_rel_err": err / want.abs().max().item(),
             "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
-            "library_ms": cuda_ms(library), "bound_ms": b_ms,
-            "bound_by": b_by, "flops": flops, "bytes": nbytes,
-            # the host time of a launch's stream query, as every wrapper
-            # reads it (raw) and through the public Stream object
-            "stream_raw_us": host_us(lambda: _build.stream_of(dev)),
-            "stream_object_us": host_us(
-                lambda: torch.cuda.current_stream(dev).cuda_stream)}
+            "library_ms": cuda_ms(library),
+            "median5": b2b_ms({"ms": kernel, "plain_ms": plain,
+                               "library_ms": library}),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": nbytes, "device_ms": device_ms(kernel),
+            "plain_device_ms": device_ms(plain),
+            "library_device_ms": device_ms(library),
+            "host_us": softmax_host_steps(x)}
 
 
 def pool_case(kern: str, case, dev, seed: int) -> dict:
@@ -1011,17 +1127,135 @@ def pool_bwd_case(kern: str, case, dev, seed: int) -> dict:
 
 
 def xent_case(case, dev, seed: int) -> dict:
-    """K8 against ``softmax_xent_ref`` (rtol/atol 1e-5); the library is
-    ``F.cross_entropy(reduction="none")``."""
+    """K8 against ``softmax_xent_ref`` (rtol/atol 1e-5), also with labels
+    outside [0, C) (the bare logsumexp); the library is
+    ``F.cross_entropy(reduction="none")``.  Device times from graph
+    replays beside the back-to-back ones."""
     rows, cols = case
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(rows, cols, device=dev, generator=gen) * 4
     labels = torch.randint(0, cols, (rows,), device=dev, generator=gen)
-    return _measure(lambda: softmax_xent(x, labels),
-                    lambda: softmax_xent_ref(x, labels),
-                    lambda: nnf.cross_entropy(x, labels, reduction="none"),
-                    3.0 * rows * cols, 4.0 * rows * cols + 12.0 * rows,
-                    rtol=1e-5, atol=1e-5)
+    outside = labels.clone()
+    outside[::3], outside[1::3] = -1, cols
+    got = softmax_xent(x, outside)
+    torch.testing.assert_close(got, softmax_xent_ref(x, outside), rtol=1e-5,
+                               atol=1e-5)
+    bare = torch.logsumexp(x, dim=-1)
+    torch.testing.assert_close(got[::3], bare[::3], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1::3], bare[1::3], rtol=1e-5, atol=1e-5)
+
+    def kernel():
+        return softmax_xent(x, labels)
+
+    def plain():
+        return softmax_xent_ref(x, labels)
+
+    def library():
+        return nnf.cross_entropy(x, labels, reduction="none")
+
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    err = (got - want).abs().max().item()
+    flops, nbytes = 3.0 * rows * cols, 4.0 * rows * cols + 12.0 * rows
+    b_ms, b_by = bound_ms(flops, nbytes)
+    return {"max_abs_err": err, "max_rel_err": err / want.abs().max().item(),
+            "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
+            "library_ms": cuda_ms(library),
+            "median5": b2b_ms({"ms": kernel, "plain_ms": plain,
+                               "library_ms": library}),
+            "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "bytes": nbytes, "device_ms": device_ms(kernel),
+            "plain_device_ms": device_ms(plain),
+            "library_device_ms": device_ms(library),
+            "host_us": {"wrapper": host_us(kernel),
+                        "cross_entropy": host_us(library)}}
+
+
+def fig13_phase(dev) -> list:
+    """Paper Fig. 13: the twelve (N, C) softmax shapes of
+    ``SOFTMAX_LAYERS`` on standard normal logits (as the reference's
+    ``benchmarks/softmax_bench.py`` draws them), each through K4, the
+    paper's five-step baseline ``softmax_5step_ref`` and
+    ``torch.softmax``: both held against the plain version (atol 1e-6),
+    device times from graph replays and back-to-back times, and the modeled
+    bytes (fused 2 x N·C·4, five-step 10 x N·C·4).  Off the main path: not
+    in the kernels line."""
+    out = []
+    for i, l in enumerate(SOFTMAX_LAYERS):
+        gen = torch.Generator(device=dev).manual_seed(1300 + i)
+        x = torch.randn(l.N, l.C, device=dev, generator=gen)
+        want = softmax_ref(x)
+        got, five = softmax(x), softmax_5step_ref(x)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=SOFTMAX_ATOL)
+        torch.testing.assert_close(five, want, rtol=0, atol=SOFTMAX_ATOL)
+        fns = {"k4": lambda: softmax(x),
+               "five_step": lambda: softmax_5step_ref(x),
+               "torch": lambda: torch.softmax(x, dim=-1)}
+        row = {"name": l.name, "N": l.N, "C": l.C,
+               "max_abs_err": (got - want).abs().max().item(),
+               "fused_bytes": 2 * l.N * l.C * 4,
+               "five_step_bytes": 10 * l.N * l.C * 4}
+        for k, fn in fns.items():
+            row[f"{k}_device_ms"] = device_ms(fn)
+        row.update({f"{k}_ms": v for k, v in b2b_ms(fns).items()})
+        row["bound_ms"] = 1e3 * row["fused_bytes"] / PEAK_HBM_BYTES
+        row["bound_share"] = row["bound_ms"] / row["k4_device_ms"]
+        print(f"fig13 {l.name}: N={l.N} C={l.C} "
+              f"max_abs_err={row['max_abs_err']:.3g} device_ms: "
+              f"k4={row['k4_device_ms']:.5f} "
+              f"five_step={row['five_step_device_ms']:.5f} "
+              f"torch={row['torch_device_ms']:.5f}; back-to-back ms: "
+              f"k4={row['k4_ms']:.5f} five_step={row['five_step_ms']:.5f} "
+              f"torch={row['torch_ms']:.5f}; "
+              f"MB fused={row['fused_bytes'] / 1e6:.3f} "
+              f"five_step={row['five_step_bytes'] / 1e6:.3f}; "
+              f"bound_ms={row['bound_ms']:.5f} "
+              f"bound_share={row['bound_share']:.3f} "
+              f"k4/torch={row['k4_device_ms'] / row['torch_device_ms']:.3f}",
+              flush=True)
+        out.append(row)
+    return out
+
+
+def softmax_variants(dev) -> dict:
+    """K4 and K8 on one shape for each of their variants
+    (``SOFTMAX_VARIANTS``), off the main path: K4 held against the plain
+    version at atol 1e-6, K8 at rtol/atol 1e-5 with labels inside and
+    outside [0, C).  Row 1 holds a NaN and row 2 is all -inf: both come
+    out NaN, K8's row 2 with a label outside the row."""
+    err4 = err8 = 0.0
+    for i, (rows, cols, off) in enumerate(SOFTMAX_VARIANTS):
+        gen = torch.Generator(device=dev).manual_seed(1400 + i)
+        flat = torch.randn(rows * cols + off, device=dev, generator=gen) * 4
+        x = flat[off:].view(rows, cols)
+        x[1, cols // 2] = float("nan")
+        x[2] = float("-inf")
+        labels = torch.randint(-1, cols + 1, (rows,), device=dev,
+                               generator=gen)
+        labels[2] = cols
+        y, want = softmax(x), softmax_ref(x)
+        loss, want8 = softmax_xent(x, labels), softmax_xent_ref(x, labels)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(y, want, rtol=0, atol=SOFTMAX_ATOL,
+                                   equal_nan=True)
+        torch.testing.assert_close(loss, want8, rtol=1e-5, atol=1e-5,
+                                   equal_nan=True)
+        if not (torch.isnan(y[1:3]).all() and torch.isnan(loss[1:3]).all()):
+            raise AssertionError(f"softmax {rows}x{cols}: a NaN or all -inf "
+                                 "row did not come out NaN")
+        fin = torch.ones(rows, dtype=torch.bool, device=dev)
+        fin[1:3] = False
+        err4 = max(err4, (y[fin] - want[fin]).abs().max().item())
+        err8 = max(err8, (loss[fin] - want8[fin]).abs().max().item())
+    print(f"softmax variants: {len(SOFTMAX_VARIANTS)} shapes "
+          f"(rows, cols, offset) {SOFTMAX_VARIANTS} held: K4 "
+          f"max_abs_err={err4:.3g} (atol {SOFTMAX_ATOL}), K8 "
+          f"max_abs_err={err8:.3g} (rtol/atol 1e-5); NaN and all -inf rows "
+          f"NaN", flush=True)
+    return {"shapes": SOFTMAX_VARIANTS, "k4_max_abs_err": err4,
+            "k8_max_abs_err": err8}
 
 
 def kernel_phase(dev):
@@ -1102,9 +1336,13 @@ def kernel_phase(dev):
                      f"bound_3xtf32_ms={m['design_bound_ms']:.4f}")
         if kern in POOL_BWD_KERNELS:
             extra = f" bound_share={m['bound_ms'] / m['ms']:.3f}"
-        if kern == "softmax":
-            extra = (f" stream_raw_us={m['stream_raw_us']:.3f} "
-                     f"stream_object_us={m['stream_object_us']:.3f}")
+        if kern in ("softmax", "softmax_xent"):
+            host = " ".join(f"{k}={v:.3f}" for k, v in m["host_us"].items())
+            med = " ".join(f"{k}={v:.4f}" for k, v in m["median5"].items())
+            extra = (f" median5: {med} device_ms={m['device_ms']:.5f} "
+                     f"plain_device_ms={m['plain_device_ms']:.5f} "
+                     f"library_device_ms={m['library_device_ms']:.5f} "
+                     f"host_us: {host}")
         if kern in ("conv_chwn", "conv_nchw"):
             extra = (f" f64_err={m['f64_err']:.3g} TFLOP/s="
                      f"{m['flops'] / m['ms'] / 1e9:.1f} "
@@ -1888,6 +2126,16 @@ def kernels_line(cases, launches) -> dict:
                  "bound_ms": total("bound_ms"),
                  "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                  "library_ms": total("library_ms")}
+        if all("device_ms" in r for r in rows):
+            # the kernels' time replayed from a CUDA graph, beside "ms", the
+            # back-to-back reading that a short launch's host time sets
+            entry["device_ms"] = total("device_ms")
+        if all("median5" in r for r in rows):
+            # back to back again: the median of 5 rounds in turns with the
+            # plain version and the library call (``b2b_ms``)
+            entry["median5"] = {
+                k: sum(r["median5"][k] * (r["launches"] or 1) for r in rows)
+                for k in rows[0]["median5"]}
         if all("design_bound_ms" in r for r in rows):
             # the bound of the kernel's own arithmetic (3xTF32: three TF32
             # products per fp32 one on the tensor cores)
@@ -1922,6 +2170,10 @@ def main() -> int:
         t0 = time.perf_counter()
         cases = kernel_phase(dev)
         print(f"kernel phase: {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        fig13 = fig13_phase(dev)
+        variants = softmax_variants(dev)
+        print(f"fig13 phase: {time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         launches = serving_phase(dev)
         print(f"serving phase: {time.perf_counter() - t0:.1f}s", flush=True)
@@ -1967,7 +2219,8 @@ def main() -> int:
                                    "cases": cases, **line,
                                    "stack_compare": compared,
                                    "unfused": unfused,
-                                   "table1": table1,
+                                   "table1": table1, "fig13": fig13,
+                                   "softmax_variants": variants,
                                    "training": trained,
                                    "ptxas": ptxas.getvalue()}, indent=1))
     print(json.dumps(line))

@@ -166,7 +166,9 @@ def fc_forward(x2d: torch.Tensor, w: torch.Tensor,
 def softmax_forward(x2d: torch.Tensor, impl: str = "cuda") -> torch.Tensor:
     _check_impl(impl)
     if impl == "cuda":
-        return softmax_kernel(x2d.contiguous())
+        if not x2d.is_contiguous():
+            x2d = x2d.contiguous()
+        return softmax_kernel(x2d)
     return softmax_ref(x2d)
 
 

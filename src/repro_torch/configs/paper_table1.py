@@ -1,7 +1,8 @@
 """The paper's Table 1: benchmark layer configurations (verbatim).
 
 ``ConvLayer`` and ``PoolLayer`` are the per-layer descriptors the layout
-selector reads (``core.selector.LayerDesc``).  Columns: Ni (batch), Co
+selector reads (``core.selector.LayerDesc``); ``SOFTMAX_LAYERS`` are the
+twelve softmax shapes of Fig. 13.  Columns: Ni (batch), Co
 (output channels), HW (input height=width), F (filter), Ci (input
 channels), S (stride).  A copy of ``repro/configs/paper_table1.py``: the
 classes keep the reference's names and fields, so their reprs agree letter
@@ -44,6 +45,13 @@ class PoolLayer:
         return self.F > self.S
 
 
+@dataclass(frozen=True)
+class SoftmaxLayer:
+    name: str
+    N: int
+    C: int          # number of categories
+
+
 CONV_LAYERS = (
     ConvLayer("CV1", 128, 16, 28, 5, 1, 1, "lenet"),
     ConvLayer("CV2", 128, 16, 14, 5, 16, 1, "lenet"),
@@ -71,3 +79,22 @@ POOL_LAYERS = (
     PoolLayer("PL9", 64, 256, 26, 3, 2, "zfnet"),
     PoolLayer("PL10", 64, 256, 13, 3, 2, "zfnet"),
 )
+
+# Paper §VI Fig. 13: twelve (batch x categories) softmax configs.
+SOFTMAX_LAYERS = tuple(
+    SoftmaxLayer(f"SM_{n}x{c}", n, c)
+    for n in (32, 64, 128)
+    for c in (10, 100, 1000, 10000)
+)
+
+CONV_BY_NAME = {l.name: l for l in CONV_LAYERS}
+POOL_BY_NAME = {l.name: l for l in POOL_LAYERS}
+
+# Paper Table 1 / §VI ground truth: preferred layout per conv layer
+# (CHWN for CV1-CV5 & CV9; NCHW for CV6-CV8 & CV10-CV12); pooling always CHWN.
+PAPER_PREFERRED_CONV_LAYOUT = {
+    "CV1": "CHWN", "CV2": "CHWN", "CV3": "CHWN", "CV4": "CHWN",
+    "CV5": "CHWN", "CV9": "CHWN",
+    "CV6": "NCHW", "CV7": "NCHW", "CV8": "NCHW",
+    "CV10": "NCHW", "CV11": "NCHW", "CV12": "NCHW",
+}

@@ -76,6 +76,8 @@ SIGNATURES: Dict[str, List] = {
 }
 
 _lib: Optional[ctypes.CDLL] = None
+_F32 = torch.float32
+_MAX_NUMEL = 2 ** 31     # the kernels index with 32-bit ints
 
 
 class KernelBuildError(RuntimeError):
@@ -179,32 +181,47 @@ def check(name: str, err: int) -> None:
 
 def on_cpu(name: str, x) -> bool:
     """True for a CPU tensor (the wrapper runs the plain version), False for
-    a CUDA tensor (it launches the kernel); any other device raises."""
-    if x.device.type == "cpu":
-        return True
-    if x.device.type == "cuda":
+    a CUDA tensor (it launches the kernel); any other device raises.  Two
+    flag reads, no ``torch.device`` object: a launch runs this first."""
+    if x.is_cuda:
         return False
+    if x.is_cpu:
+        return True
     raise ValueError(f"{name}: tensors on {x.device} are not supported "
                      "(CUDA runs the kernel, CPU the plain version)")
 
 
-def require_cuda_f32(name: str, device, **tensors) -> None:
-    """Raise unless every given tensor is a contiguous float32 tensor on
-    ``device``: the kernels take nothing else.  One combined test a tensor;
-    the reason is worked out only for a tensor that fails it."""
-    for arg, t in tensors.items():
-        if t is None or (t.dtype == torch.float32 and t.device == device
-                         and t.is_contiguous() and t.numel() < 2 ** 31):
-            continue
-        if t.device != device:
-            raise ValueError(f"{name}: {arg} is on {t.device}, x on {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
-                            "float32 only")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {arg} must be contiguous")
-        raise ValueError(f"{name}: {arg} has {t.numel()} elements; the "
-                         "kernel indexes with 32-bit ints")
+def _refuse_f32(name: str, arg: str, t, device: int) -> None:
+    """Raise the reason ``t`` is not a contiguous float32 tensor with fewer
+    than 2^31 elements on the card of index ``device``."""
+    if t.get_device() != device:
+        raise ValueError(f"{name}: {arg} is on {t.device}, x on "
+                         f"cuda:{device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
+                        "float32 only")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {arg} must be contiguous")
+    raise ValueError(f"{name}: {arg} has {t.numel()} elements; the kernel "
+                     "indexes with 32-bit ints")
+
+
+def require_cuda_f32(name: str, x, **others) -> int:
+    """Raise unless the CUDA tensor ``x`` and every other given tensor
+    (None is skipped) are contiguous float32 tensors on x's card with fewer
+    than 2^31 elements: the kernels take nothing else.  Returns that card's
+    index, ``x.get_device()``, for ``stream_of``.  One combined test a
+    tensor, on ints and flags, not ``torch.device`` objects; the reason is
+    worked out only for a tensor that fails it."""
+    device = x.get_device()
+    if not (x.dtype is _F32 and x.is_contiguous() and x.numel() < _MAX_NUMEL):
+        _refuse_f32(name, "x", x, device)
+    for arg, t in others.items():
+        if t is not None and not (t.dtype is _F32 and t.get_device() == device
+                                  and t.is_contiguous()
+                                  and t.numel() < _MAX_NUMEL):
+            _refuse_f32(name, arg, t, device)
+    return device
 
 
 def require_cuda_float(name: str, device, contiguous: bool = True,
@@ -228,16 +245,14 @@ def require_cuda_float(name: str, device, contiguous: bool = True,
     return dtype
 
 
-def stream_of(device) -> int:
-    """The current CUDA stream of ``device``, as the pointer the C entry
-    points take.  Read raw, through PyTorch's private
+def stream_of(device: int) -> int:
+    """The current CUDA stream of the card of index ``device`` (what
+    ``require_cuda_f32`` returns, ``x.get_device()``), as the pointer the C
+    entry points take.  Read raw, through PyTorch's private
     ``torch._C._cuda_getCurrentRawStream``: building the public
-    ``torch.cuda.current_stream`` object costs more host time a launch
-    than a small kernel takes (``chip_smoke.py`` times both on K4's
-    line)."""
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    return torch._C._cuda_getCurrentRawStream(index)
+    ``torch.cuda.current_stream`` object costs more host time a launch than
+    a small kernel takes (``chip_smoke.py`` times both on K4's line)."""
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def toolchain_missing() -> Optional[str]:

@@ -194,7 +194,7 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
     if _build.on_cpu("conv_wgrad", x):
         return wgrad_ref(x, g, F, S, pad, x_layout=x_layout,
                          g_layout=g_layout)
-    _build.require_cuda_f32("conv_wgrad", x.device, x=x, g=g)
+    dev = _build.require_cuda_f32("conv_wgrad", x, g=g)
     t = wgrad_tiling(Co, Ci * F * F, N * Ho * Wo)
     if t.ws_elems >= 2 ** 31:
         raise ValueError("conv_wgrad: the split workspace needs 2^31 or "
@@ -206,7 +206,7 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
         x.data_ptr(), g.data_ptr(), ws.data_ptr() if ws is not None else None,
         dw.data_ptr(), N, Ci, H, W, Co, F, S, pad, int(x_layout == "NCHW"),
         int(g_layout == "NCHW"), t.bm, t.bn, t.per, t.splits,
-        _build.stream_of(x.device))
+        _build.stream_of(dev))
     _build.check("conv_wgrad", err)
     conv_wgrad.launches += 1
     return dw

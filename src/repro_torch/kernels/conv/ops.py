@@ -495,7 +495,7 @@ def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
     Ho, Wo = _conv_hw(name, H, W, F, stride, pad)
     pF, pS, avg, OH, OW = _check_epilogue(name, N, Co, Ho, Wo, bias, pool,
                                           res, res_layout)
-    _build.require_cuda_f32(name, x.device, x=x, w=w, bias=bias, res=res)
+    dev = _build.require_cuda_f32(name, x, w=w, bias=bias, res=res)
     y = _output(name, x, dst_layout, N, Co, OH, OW)
     z = None
     if save_act:
@@ -516,7 +516,7 @@ def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
         x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(res), y.data_ptr(),
         _ptr(z), N, Ci, H, W, Co, F, stride, pad, pF, pS, avg, int(relu),
         int(src_layout == "NCHW"), int(dst_layout == "NCHW"),
-        int(res_layout == "NCHW"), *tile, _build.stream_of(x.device))
+        int(res_layout == "NCHW"), *tile, _build.stream_of(dev))
     _build.check(name, err)
     wrapper.launches += 1
     return (y, z) if save_act else y
@@ -1049,8 +1049,8 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
                               dst_layout=dst_layout)
     tiling = stack_tiling(engine, N, Ci, H, W, Cm, F1, stride1, pad1, Co,
                           F2, stride2, pad2, tuple(pool) if pool else None)
-    _build.require_cuda_f32(name, x.device, x=x, w1=w1, w2=w2, bias1=bias1,
-                            bias2=bias2, res=res)
+    dev = _build.require_cuda_f32(name, x, w1=w1, w2=w2, bias1=bias1,
+                                  bias2=bias2, res=res)
     y = _output(name, x, dst_layout, N, Co, OH, OW)
     cluster = (tiling.cluster,) if engine == "CHWN" else ()
     err = getattr(_build.library(), entry)(
@@ -1059,7 +1059,7 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
         stride2, pad2, pF, pS, avg, int(relu1), int(relu2),
         int(src_layout == "NCHW"), int(dst_layout == "NCHW"),
         int(res_layout == "NCHW"), tiling.bm, tiling.nb, tiling.uth,
-        tiling.utw, *cluster, _ptr(stats), _build.stream_of(x.device))
+        tiling.utw, *cluster, _ptr(stats), _build.stream_of(dev))
     _build.check(name, err)
     wrapper.launches += 1
     return y

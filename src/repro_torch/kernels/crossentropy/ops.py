@@ -84,7 +84,7 @@ def fused_xent(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
     err = _build.library().xent_forward(
         h.data_ptr(), table.data_ptr(), lab.data_ptr(), ws.data_ptr(),
         loss.data_ptr(), T, V, D, float(softcap or 0.0), per, splits,
-        int(dtype == torch.bfloat16), _build.stream_of(h.device))
+        int(dtype == torch.bfloat16), _build.stream_of(h.get_device()))
     _build.check("fused_xent", err)
     fused_xent.launches += 1
     return loss

@@ -62,7 +62,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _build.library().flash_attention_forward(
         q3.data_ptr(), k3.data_ptr(), v3.data_ptr(), out.data_ptr(), BH, Sq,
         Sk, D, int(causal), 1.0 / math.sqrt(D), int(dtype == torch.bfloat16),
-        _build.stream_of(q.device))
+        _build.stream_of(q.get_device()))
     _build.check("flash_attention", err)
     flash_attention.launches += 1
     return out.reshape(q.shape)

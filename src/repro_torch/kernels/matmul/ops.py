@@ -123,7 +123,7 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         x.data_ptr(), y.data_ptr(), out.data_ptr(),
         ws.data_ptr() if ws is not None else None, M, N, K, *x.stride(),
         *y.stride(), int(dtype == torch.bfloat16), t.bm, t.bn,
-        t.k_per_split, t.splits, _build.stream_of(x.device))
+        t.k_per_split, t.splits, _build.stream_of(x.get_device()))
     _build.check("matmul", err)
     matmul.launches += 1
     return out

@@ -168,7 +168,7 @@ def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
                          f"({g_layout})")
     if _build.on_cpu(name, x):
         return pool_backward_ref(x, g, F, S, op, layout, g_layout, relu_mask)
-    _build.require_cuda_f32(name, x.device, x=x, g=g)
+    dev = _build.require_cuda_f32(name, x, g=g)
     dx = torch.empty_like(x)
     args = [x.data_ptr(), g.data_ptr(), dx.data_ptr(), N, C, H, W, F, S,
             int(op == "avg"), int(relu_mask), int(g_layout == "NCHW")]
@@ -178,7 +178,7 @@ def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
     else:
         t = pool_backward_planes(N, C, H, W, F, S)
         args += [t.planes, t.band, t.win_rows]
-    err = getattr(_build.library(), entry)(*args, _build.stream_of(x.device))
+    err = getattr(_build.library(), entry)(*args, _build.stream_of(dev))
     _build.check(name, err)
     wrapper.launches += 1
     return dx

@@ -40,13 +40,13 @@ def _pool(wrapper, entry: str, src: str, x: torch.Tensor, F: int, S: int,
                          f"fit {H}x{W}")
     if _build.on_cpu(name, x):
         return pool_ref(x, F, S, op, src, dst_layout)
-    _build.require_cuda_f32(name, x.device, x=x)
+    dev = _build.require_cuda_f32(name, x)
     dims = {"N": N, "C": C, "H": Ho, "W": Wo}
     y = torch.empty(tuple(dims[d] for d in dst_layout), device=x.device,
                     dtype=x.dtype)
     err = getattr(_build.library(), entry)(
         x.data_ptr(), y.data_ptr(), N, C, H, W, F, S, int(op == "avg"),
-        int(dst_layout == "NCHW"), _build.stream_of(x.device))
+        int(dst_layout == "NCHW"), _build.stream_of(dev))
     _build.check(name, err)
     wrapper.launches += 1
     return y

@@ -17,10 +17,10 @@ from repro_torch.kernels.transpose.ref import (transpose2d_batched_ref,
 
 def _launch(name: str, x: torch.Tensor, B: int, M: int, N: int,
             out_shape) -> torch.Tensor:
-    _build.require_cuda_f32(name, x.device, x=x)
+    dev = _build.require_cuda_f32(name, x)
     y = torch.empty(out_shape, device=x.device, dtype=x.dtype)
     err = _build.library().transpose_forward(
-        x.data_ptr(), y.data_ptr(), B, M, N, _build.stream_of(x.device))
+        x.data_ptr(), y.data_ptr(), B, M, N, _build.stream_of(dev))
     _build.check(name, err)
     return y
 

@@ -337,10 +337,51 @@ def test_softmax_xent_matches_reference(rows, cols):
                                atol=TOL)
 
 
+@pytest.mark.parametrize("rows,cols", [(4, 10), (32, 1000), (6, 3)])
+def test_softmax_xent_out_of_range_labels_match_reference(rows, cols):
+    """A label outside [0, C) (here -1, C and beyond) picks no column: the
+    reference's kernel (interpret mode) gives the bare logsumexp, and so
+    does the port."""
+    rng = np.random.default_rng(11 * rows + cols)
+    x = rng.standard_normal((rows, cols), np.float32) * np.float32(4)
+    labels = rng.integers(0, cols, rows)
+    labels[::2] = np.array([-1, cols, cols + 7, -5])[
+        np.arange(len(labels[::2])) % 4]
+    want = ref_softmax.softmax_xent(_j(x), jnp.asarray(labels, jnp.int32))
+    got = softmax_xent(_t(x), torch.from_numpy(labels).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
+                               atol=TOL)
+    lse = torch.logsumexp(_t(x), dim=-1).numpy()
+    np.testing.assert_allclose(got.numpy()[::2], lse[::2], rtol=TOL,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("label", [-1, 0, 5])
+def test_softmax_xent_nonfinite_rows_match_reference(label):
+    """An all -inf row, and a row with +inf, give NaN whatever the label,
+    inside [0, C) or not, as the reference's kernel (interpret mode) gives
+    it: x - max is NaN there."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((4, 5), np.float32)
+    x[1, :] = -np.inf
+    x[2, 3] = np.inf
+    labels = np.array([label, label, label, 2])
+    want = np.asarray(ref_softmax.softmax_xent(
+        _j(x), jnp.asarray(labels, jnp.int32)))
+    got = softmax_xent(_t(x), torch.from_numpy(labels).long()).numpy()
+    assert np.isnan(want[1:3]).all() and np.isnan(got[1:3]).all()
+    np.testing.assert_allclose(got[[0, 3]], want[[0, 3]], rtol=TOL, atol=TOL)
+
+
 def test_softmax_xent_rejects_bad_labels():
     x = torch.zeros(3, 4)
-    with pytest.raises(ValueError, match="outside"):
-        softmax_xent(x, torch.tensor([0, 4, 1]))
+    # a label outside [0, C) is no error: it gives the bare logsumexp, as
+    # the reference's kernel does
+    want = ref_softmax.softmax_xent(jnp.zeros((3, 4), jnp.float32),
+                                    jnp.asarray([0, 4, 1], jnp.int32))
+    np.testing.assert_allclose(
+        softmax_xent(x, torch.tensor([0, 4, 1])).numpy(), np.asarray(want),
+        rtol=TOL, atol=TOL)
     with pytest.raises(TypeError, match="int64"):
         softmax_xent(x, torch.tensor([0, 1, 1], dtype=torch.int32))
     with pytest.raises(ValueError, match=r"\[N\]"):

@@ -12,7 +12,8 @@ Tolerances: K6 against its float64 plain version at 1e-5 scale-relative
 (``|got - ref| <= 1e-5 * max(1, max|ref|)``), so the error is the kernel's
 own; K7 exact for max pooling where windows do not overlap and for ties,
 1e-6 scale-relative otherwise (K7a's own cases: max exact everywhere,
-avg 1e-6); K8 rtol 1e-5; the ``z`` output exactly the conv output of the
+avg 1e-6); K8 rtol 1e-5, a label outside [0, C) giving the bare
+logsumexp; the ``z`` output exactly the conv output of the
 same kernel launch without a pool (0 under no pool window), y and z
 within the conv tolerance (rtol 1e-4 / atol 1e-3) of
 ``conv_ref``'s; dgrad within 1e-5 scale-relative of
@@ -311,7 +312,8 @@ def test_k7b_band_edge_splits_overlapping_windows(W, card):
 
 
 @pytest.mark.parametrize("rows,cols", [(32, 1000), (128, 1000), (7, 10),
-                                       (3, 1)])
+                                       (3, 1), (130, 37), (5, 1001),
+                                       (9, 5000), (2, 20000)])
 def test_softmax_xent_kernel_matches_plain(rows, cols, card):
     gen = torch.Generator(device=card).manual_seed(rows + cols)
     x = torch.randn(rows, cols, generator=gen, device=card) * 4
@@ -322,10 +324,48 @@ def test_softmax_xent_kernel_matches_plain(rows, cols, card):
     torch.cuda.synchronize()
     assert softmax_xent.launches == before + 1
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # a label outside [0, C) picks no column: the bare logsumexp
+    outside = labels.clone()
+    outside[::2] = torch.tensor([-1, cols, cols + 5], device=card).repeat(
+        rows)[: outside[::2].numel()]
+    got = softmax_xent(x, outside)
+    torch.testing.assert_close(got, softmax_xent_ref(x, outside), rtol=1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(got[::2], torch.logsumexp(x, dim=-1)[::2],
+                               rtol=1e-5, atol=1e-5)
     x[0, 0] = float("nan")
     assert torch.isnan(softmax_xent(x, labels)[0])
-    with pytest.raises(ValueError, match="outside"):
-        softmax_xent(x, labels + cols)
+    # an all -inf row is NaN whatever its label, inside [0, C) or not
+    x[1] = float("-inf")
+    for label in (-1, 0, cols):
+        labels[1] = label
+        got = softmax_xent(x, labels)
+        torch.testing.assert_close(got, softmax_xent_ref(x, labels),
+                                   rtol=1e-5, atol=1e-5, equal_nan=True)
+        assert torch.isnan(got[1])
+
+
+def test_softmax_xent_on_misaligned_view(card):
+    flat = torch.randn(4 * 1000 + 1, device=card) * 4
+    x = flat[1:].view(4, 1000)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    labels = torch.tensor([3, -1, 999, 1000], device=card)
+    torch.testing.assert_close(softmax_xent(x, labels),
+                               softmax_xent_ref(x, labels), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_softmax_xent_launch_never_syncs(card):
+    x = torch.randn(32, 1000, device=card)
+    labels = torch.randint(-2, 1002, (32,), device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = softmax_xent(x, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(loss, softmax_xent_ref(x, labels), rtol=1e-5,
+                               atol=1e-5)
 
 
 # (engine, N, Ci, H, Co, F, S, pad, pool, relu, res, src, dst)

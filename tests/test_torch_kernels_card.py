@@ -451,8 +451,16 @@ def test_k2_dgrad_at_every_stride(S, g_layout, dst, card):
         rtol=1e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("shape", [(1, 10), (5, 37), (32, 1000),
-                                   (128, 1000), (3, 5000)],
+# K4's variants (``softmax.cu``): narrow (4, 8, 16 or 32 lanes a row,
+# cols <= 1024), wide (a block a row, cols <= 16384) and loop (wider), each
+# with 16-byte access (cols % 4 == 0) and scalar access
+SOFTMAX_COLS = [1, 3, 10, 31, 32, 100, 1000, 1001, 5000, 10000, 16388,
+                20001]
+SOFTMAX_ROWS = [1, 7, 128]
+
+
+@pytest.mark.parametrize("shape", list(itertools.product(SOFTMAX_ROWS,
+                                                         SOFTMAX_COLS)),
                          ids=lambda s: f"{s[0]}x{s[1]}")
 def test_softmax_kernel_matches_plain(shape, card):
     x = (torch.randn(*shape, generator=torch.Generator().manual_seed(1))
@@ -462,6 +470,48 @@ def test_softmax_kernel_matches_plain(shape, card):
     torch.cuda.synchronize()
     assert softmax.launches == before + 1
     torch.testing.assert_close(got, softmax_ref(x), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cols", [12, 100, 1000, 5000, 20000])
+def test_softmax_kernel_on_misaligned_view(cols, card):
+    """A contiguous view whose base is 4 bytes past a 16-byte boundary:
+    the kernel takes scalar access there (cols % 4 == 0 notwithstanding)."""
+    flat = (torch.randn(3 * cols + 1, generator=torch.Generator()
+                        .manual_seed(cols)) * 4).to(card)
+    x = flat[1:].view(3, cols)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = softmax(x)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, softmax_ref(x), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("cols", [10, 100, 1000, 1001, 10000, 20000])
+def test_softmax_kernel_nan_and_inf_rows(cols, card):
+    """A NaN anywhere in a row, an all -inf row and a row with +inf come
+    out NaN, as the plain version's; a partly -inf row is exact zeros
+    there."""
+    x = (torch.randn(5, cols, generator=torch.Generator().manual_seed(2))
+         * 4).to(card)
+    x[1, cols // 2] = float("nan")
+    x[2] = float("-inf")
+    x[3, : max(cols - 3, 1)] = float("-inf")
+    x[4, cols - 1] = float("inf")
+    got, want = softmax(x), softmax_ref(x)
+    torch.cuda.synchronize()
+    for r in (1, 2, 4):
+        assert torch.isnan(want[r]).all() and torch.isnan(got[r]).all()
+    torch.testing.assert_close(got[[0, 3]], want[[0, 3]], rtol=0, atol=1e-6)
+
+
+def test_softmax_launch_never_syncs(card):
+    x = torch.randn(32, 1000, device=card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = softmax(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.testing.assert_close(y, softmax_ref(x), rtol=0, atol=1e-6)
 
 
 # conv -> conv stacks (K5a, K5b):

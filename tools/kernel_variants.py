@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Time the port's tensor-core kernels K1, K2, K5b, K10 and K12 against
-variants of their sources, and under other block tiles, on one CUDA card.
+"""Time the port's tensor-core kernels K1, K2, K5b, K10 and K12 and the
+softmax kernels K4 and K8 against variants of their sources, and the
+tensor-core kernels under other block tiles, on one CUDA card.
 
     python3 tools/kernel_variants.py [--tiles] [VARIANT.cu ...]
 
 Each VARIANT stands in for ``conv/csrc/conv_chwn.cu`` (K1, the direct
 CHWN conv), ``conv/csrc/conv_nchw.cu`` (K2, the virtual-im2col NCHW
 conv), ``conv/csrc/conv_stack_nchw.cu`` (K5b, the NCHW conv -> conv
-stack), ``matmul/csrc/matmul.cu`` (K10, the tiled matmul) or
+stack), ``matmul/csrc/matmul.cu`` (K10, the tiled matmul),
 ``crossentropy/csrc/crossentropy.cu`` (K12, the fused unembed + cross
-entropy), whichever entry point it defines: it is built by nvcc into a
-library of its own and swapped in for that entry point.  K1, K2 and K5b
-variants run each distinct launch of that kernel on ``chip_smoke.py``'s
-main path (fused serving, the unfused modes, training), K10 variants the
-12 Table-1 layers' matmuls, K12 variants the smoke's three LM head cases;
+entropy) or ``softmax/csrc/softmax.cu`` (K4, the row softmax, and K8, the
+row cross entropy), whichever entry points it defines: it is built by nvcc
+into a library of its own and swapped in for those entry points.  K1, K2,
+K4 and K5b variants run each distinct launch of that kernel on
+``chip_smoke.py``'s main path (fused serving, the unfused modes,
+training), K4 also Fig. 13's twelve shapes, K8 the smoke's one case, K10
+variants the 12 Table-1 layers' matmuls, K12 variants the smoke's three LM
+head cases;
 the checkout's kernel and the variants run in turns (checkout, variants,
 variants reversed, checkout), each held against the plain version as
 ``chip_smoke.py`` holds it, and the mean ms of each launch and the totals
-are printed.  The kernels compared are those a variant is given for; with
-no variant and no ``--tiles``, the checkout's five.
+are printed (for K4 and K8 the device time, ``chip_smoke.device_ms``: a
+CUDA graph of 100 launches replayed, and the library call's beside it).
+The kernels compared are those a variant is given for; with no variant
+and no ``--tiles``, the checkout's seven.
 
 ``--tiles`` times the checkout's kernels under other block tiles beside
 the one their tiling picks, each launch held against the plain version
@@ -60,9 +66,11 @@ from repro_torch.shapes import conv_out_hw  # noqa: E402
 
 K1, K2, K12 = "conv_chwn_forward", "conv_nchw_forward", "xent_forward"
 K5B, K10 = "conv_stack_nchw_forward", "matmul_forward"
+K4, K8 = "softmax_forward", "softmax_xent_forward"
 # the csrc directory of the source that defines each entry point
 _SRC_DIR = {K1: "conv/csrc", K2: "conv/csrc", K5B: "conv/csrc",
-            K10: "matmul/csrc", K12: "crossentropy/csrc"}
+            K10: "matmul/csrc", K12: "crossentropy/csrc",
+            K4: "softmax/csrc", K8: "softmax/csrc"}
 # AlexNet conv2 (N, Ci, H, Co, F, S, pad) with its 3/2 max pool, and the
 # block tiles (bm, nb, ph, pw) timed beside conv_tiling's
 CONV2 = (128, 96, 27, 256, 5, 1, 2)
@@ -84,18 +92,19 @@ class _Swapped:
 
 
 def build_variant(src: Path, out_dir: Path):
-    """(entry point, loaded library) of one variant source."""
+    """(entry points, loaded library) of one variant source."""
     so = out_dir / (src.stem + ".so")
     text = src.read_text()
-    entry = next(e for e in _SRC_DIR if f"int {e}(" in text)
-    inc = REPO / "src/repro_torch/kernels" / _SRC_DIR[entry]
+    entries = [e for e in _SRC_DIR if f"int {e}(" in text]
+    inc = REPO / "src/repro_torch/kernels" / _SRC_DIR[entries[0]]
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(inc),
                     "-shared", "-o", str(so), str(src)], check=True)
     lib = ctypes.CDLL(str(so))
-    fn = getattr(lib, entry)
-    fn.argtypes = _build.SIGNATURES[entry]
-    fn.restype = ctypes.c_int
-    return entry, lib
+    for entry in entries:
+        fn = getattr(lib, entry)
+        fn.argtypes = _build.SIGNATURES[entry]
+        fn.restype = ctypes.c_int
+    return entries, lib
 
 
 def main_path_cases(kernel: str):
@@ -182,6 +191,37 @@ def k12_launch(case, dev, seed) -> dict:
             "library_ms": cs.cuda_ms(library)}
 
 
+def k4_launch(case, dev, seed, scale: float = 4.0) -> dict:
+    """One K4 case (chip_smoke's logits: randn x 4 on the main path,
+    standard normal, ``scale`` 1, for Fig. 13's) held against the plain
+    version; device times of the kernel and ``torch.softmax``."""
+    rows, cols = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, cols, device=dev, generator=gen) * scale
+    torch.testing.assert_close(cs.softmax(x), cs.softmax_ref(x), rtol=0,
+                               atol=cs.SOFTMAX_ATOL)
+    return {"ms": cs.device_ms(lambda: cs.softmax(x)),
+            "library_ms": cs.device_ms(lambda: torch.softmax(x, dim=-1))}
+
+
+def k8_launch(case, dev, seed) -> dict:
+    """K8 on chip_smoke's case, labels inside and outside [0, C), held
+    against the plain version; device times of the kernel and
+    ``cross_entropy``."""
+    rows, cols = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(rows, cols, device=dev, generator=gen) * 4
+    labels = torch.randint(-1, cols + 1, (rows,), device=dev, generator=gen)
+    torch.testing.assert_close(cs.softmax_xent(x, labels),
+                               cs.softmax_xent_ref(x, labels), rtol=1e-5,
+                               atol=1e-5)
+    inside = labels.clamp(0, cols - 1)
+    return {"ms": cs.device_ms(lambda: cs.softmax_xent(x, labels)),
+            "library_ms": cs.device_ms(lambda: torch.nn.functional
+                                       .cross_entropy(x, inside,
+                                                      reduction="none"))}
+
+
 def compare(label, entry, cases, launch, variants, dev):
     """Each case through the checkout's kernel and the variants of
     ``entry``, in turns; prints mean ms per case and the totals."""
@@ -225,7 +265,7 @@ def k1_tiles(dev):
                     src_layout="CHWN", dst_layout="CHWN")
     y = torch.empty_like(want)
     fn = getattr(_build.library(), K1)
-    st = _build.stream_of(dev)
+    st = _build.stream_of(x.get_device())
     t = conv_ops.conv_tiling(N, Ci, H, H, Co, F, S, pad, pool)
     print(f"AlexNet conv2 + 3/2 pool: conv_tiling picks "
           f"{(t.bm, t.nb, t.ph, t.pw)}", flush=True)
@@ -579,7 +619,7 @@ def main() -> int:
     out = _build.build().parent / "variants"
     out.mkdir(exist_ok=True)
     built = {v.stem: build_variant(v, out) for v in args.variants}
-    by_entry = {e: {k: lib for k, (en, lib) in built.items() if en == e}
+    by_entry = {e: {k: lib for k, (ens, lib) in built.items() if e in ens}
                 for e in _SRC_DIR}
     runs = {"K1": (K1, lambda: main_path_cases("conv_chwn"), k1_launch),
             "K2": (K2, lambda: main_path_cases("conv_nchw"), k2_launch),
@@ -587,7 +627,12 @@ def main() -> int:
                     k5b_launch),
             "K10": (K10, k10_cases, k10_launch),
             "K12": (K12, lambda: {c: 1 for c in cs.lm_cases()[1]},
-                    k12_launch)}
+                    k12_launch),
+            "K4": (K4, lambda: main_path_cases("softmax"), k4_launch),
+            "K4 Fig. 13": (K4, lambda: {(l.N, l.C): 1
+                                        for l in cs.SOFTMAX_LAYERS},
+                           lambda c, d, i: k4_launch(c, d, i, 1.0)),
+            "K8": (K8, lambda: {cs.K8_CASE: 1}, k8_launch)}
     chosen = [k for k, (e, _, _) in runs.items() if by_entry[e]]
     if not chosen and not args.tiles:
         chosen = list(runs)
