@@ -57,15 +57,33 @@
    1e-5), and each kernel's launch count must equal what the plans call
    for.  Afterwards each batch's whole forward is timed warm (CUDA events)
    through the kernels and through the torch engine.
-4. Stacked against unstacked: for VGG16 and ResNet-18 at bucket 32, the
+4. Planner phase, the main path's planned part: the paper's Fig. 4 on the
+   card (K1 and K2 timed by the card measure with CUDA events over its
+   whole grid: Ci 1-512 at N 64, then N 16-512 at Ci 256; Co 384, 13 x 13,
+   F 3), each point's K1 and K2 ms printed beside the H100 model's pick and
+   held once against ``conv_ref``, and the (Ct, Nt) ``calibrate`` takes
+   from those timings. Then lenet (133 requests at max_bucket 128: buckets
+   128 and 8), cifarnet (128 at 128), zfnet at 224 (64 at 64) and unet_mini
+   (8 at 8, 32 x 32), served through ``CNNServer`` from an empty cache, so
+   every bucket is a miss the planner plans on the H100 profile; counts
+   zeroed just before each run and read just after must equal the plans',
+   ``planner_calls`` the distinct buckets, and the answers be within 1e-5
+   of the torch engine. Then, for each served (network, bucket) and VGG16
+   b32 and AlexNet b128, the H100 model's ``total_s`` for stack "auto" and
+   "off" beside the warm forward ms of each plan on the kernels (both held
+   against the torch engine), and whether the model orders them as the card
+   does. The kernel phase holds every distinct launch of the served plans.
+5. Stacked against unstacked: for VGG16 and ResNet-18 at bucket 32, the
    warm whole forward at stack "auto", at "off" and through the torch
    engine, and the peak device memory of one forward at "auto" and "off"
    (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``).
-5. Unfused phase, the paper's own experiment (Fig. 14/15) and the main
+6. Unfused phase, the paper's own experiment (Fig. 14/15) and the main
    path's third part: AlexNet (227 px, batch 128) and VGG16 (224 px,
    batch 32) at full width, seed-0 weights, each in the modes
    "cuda-convnet" (every layer CHWN), "cudnn" (every layer NCHW) and "opt"
-   (the reference planner's per-layer layouts), through ``plan_network``
+   (the port's planner's per-layer layouts on the H100 profile; the
+   packaged TPU-priced assignment is timed beside it once, not counted),
+   through ``plan_network``
    and ``forward(impl="cuda")``: bare convs on K1/K2, standalone pools on
    K3a/K3b, re-layouts on the tiled transpose K9a, the softmax on K4.  Each forward runs with the launch counts zeroed
    just before it; the counts must equal what the layouts call for, the
@@ -77,7 +95,7 @@
    and ``permute(...).contiguous()``), and one K9b case off the path
    (NCHW -> NHWC of VGG16 conv1_1's output), which is listed with 0
    launches and its per-launch times.
-6. Training phase, the main path's fourth part, outside inference mode:
+7. Training phase, the main path's fourth part, outside inference mode:
    VGG16 b32, AlexNet b128 and ResNet-18 b32 at full width, seed-0
    weights, seeded input and labels, the packaged stack="auto" plan, 3
    SGD-with-momentum steps of ``make_train_step_fused`` on the kernels
@@ -104,7 +122,7 @@
    K1/K2 with ``save_act``; and one K8 case off the path (VGG16's [32, 1000];
    library ``cross_entropy``; also held with labels outside [0, C), which
    give the bare logsumexp), listed with 0 launches.
-7. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
+8. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
    path of the tiled matmul K10: the 12 Table-1 layers
    (``configs/paper_table1.py``) at their published N, HW, F, Ci, Co and
    S, seeded fp32 data, each through the matrix-expansion baseline
@@ -118,7 +136,7 @@
    adds that error, its TFLOP/s, the bound of its own design and its tile
    and split of K (``matmul_tiling``).  The K1/K2 launches of this phase
    join their kernels' rows.
-8. LM kernel phase, the path of K11 and K12, every width from
+9. LM kernel phase, the path of K11 and K12, every width from
    ``get_config``: K11 on qwen2-7b's attention (one 4096-token sequence,
    28 heads of 128, its 4 KV heads repeated, causal) in fp32 and bf16 and
    on whisper-base's encoder (8 clips of 1500 frames, 8 heads of 64);
@@ -131,7 +149,7 @@
    ``F.scaled_dot_product_attention`` or ``h @ tableᵀ`` +
    ``F.cross_entropy``; a line gives K11's largest bf16 error and every
    case's TFLOP/s.
-9. Prints "K1 over the main path", "K2 ...", "K5b ...", "K10 ..." and
+10. Prints "K1 over the main path", "K2 ...", "K5b ...", "K10 ..." and
    "K12 ..." lines in the form of K6's (launches, ms, TFLOP/s, K2's and
    K5b's executed TFLOP/s and executed/direct, both bounds, library ms, the
    largest error from float64), then one JSON line of every kernel
@@ -168,11 +186,12 @@ from repro_torch.cnn.layers import init_cnn, params_from_numpy  # noqa: E402
 from repro_torch.cnn.network import (forward, forward_fused,  # noqa: E402
                                      init_velocity, input_shape,
                                      loss_fn_fused, make_train_step_fused,
-                                     plan_network, value_and_grad)
+                                     plan_network, plan_network_fused,
+                                     value_and_grad)
 from repro_torch.configs import TRAIN_4K, get_config  # noqa: E402
 from repro_torch.configs.cnn_networks import CNN_CONFIGS  # noqa: E402
 from repro_torch.configs.paper_table1 import (CONV_LAYERS,  # noqa: E402
-                                              SOFTMAX_LAYERS)
+                                              SOFTMAX_LAYERS, ConvLayer)
 from repro_torch.core.layout import perm_between, plan_transform  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.conv.backward import (conv_wgrad,  # noqa: E402
@@ -212,8 +231,13 @@ from repro_torch.kernels.transpose.ops import (transpose2d,  # noqa: E402
 from repro_torch.kernels.transpose.ref import (  # noqa: E402
     transpose2d_batched_ref, transpose2d_ref)
 from repro_torch.launch.cnn_serve import CNNServer, ImageRequest  # noqa: E402
+from repro_torch.perfmodel import (calibrate,  # noqa: E402
+                                   card_conv_measure, hardware_id,
+                                   select_conv_layout_cost)
+from repro_torch.perfmodel.calibration import C_SWEEP, N_SWEEP  # noqa: E402
 from repro_torch.serve.plan_cache import (PlanCache,  # noqa: E402
-                                          packaged_plans, pad_to_bucket)
+                                          bucket_for, packaged_plans,
+                                          pad_to_bucket)
 from repro_torch.shapes import conv_out_hw, pool_out_hw  # noqa: E402
 
 # NVIDIA H100 SXM data sheet (dense, at the full 700 W power limit)
@@ -245,6 +269,14 @@ COMPARED = [("vgg16", 32), ("resnet18", 32)]
 # the unfused executor: (network, batch), each in every mode
 UNFUSED = [("alexnet", 128), ("vgg16", 32)]
 MODES = ("cuda-convnet", "cudnn", "opt")
+# the planner phase: networks no packaged file plans, served from an empty
+# cache (every bucket a miss planned on the H100 profile), at full width:
+# (network, max_bucket, requests)
+PLANNED = [("lenet", 128, 133), ("cifarnet", 128, 128), ("zfnet", 64, 64),
+           ("unet_mini", 8, 8)]
+# the H100 model's stack "auto" against "off", beside the card, at these
+# (network, bucket) too
+MODEL_VS_CARD = [("vgg16", 32), ("alexnet", 128)]
 # the training phase: (network, batch), TRAIN_STEPS SGD steps each on the
 # packaged stack="auto" plan
 TRAINED = [("vgg16", 32), ("alexnet", 128), ("resnet18", 32)]
@@ -398,21 +430,43 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
 
 def plan_launches(network: str, bucket: int, stack: str):
     """(kernel, case) for every kernel launch of the packaged ``stack``
-    plan of ``network`` at ``bucket``, in plan order.  A conv case carries
-    its folded residual's layout (None without one)."""
+    plan of ``network`` at ``bucket``, in plan order."""
     cfg = CNN_CONFIGS[network].replace(batch=bucket)
     plan = PlanCache(str(packaged_plans(network))).peek_fused(
         cfg, bucket, stack=stack)
     if plan is None:
         raise LookupError(f"no packaged {network} plan at bucket {bucket} "
                           f"(stack={stack})")
+    return fused_launches(cfg, plan)
+
+
+def fused_launches(cfg, plan):
+    """(kernel, case) for every kernel launch of ``forward_fused`` running
+    ``plan`` on ``cfg`` (at the plan's batch), in plan order: a conv op is
+    one K1/K2 launch (a stack op one K5a/K5b), a pool op one K3a/K3b, a
+    re-layout no kernel absorbed (before a pool, at a merge) one K9a on the
+    collapsed 2-D matrix, the softmax one K4.  A conv case carries its
+    folded residual's layout (None without one)."""
+    bucket = cfg.batch
     shapes, rins = layer_shapes(cfg), resolved_cfg_inputs(cfg)
-    out = []
+    held = {-1: "NCHW"}
+    prev, out = -1, []
+
+    def shape_of(p):
+        return input_shape(cfg) if p < 0 else shapes[p]
+
+    def relayout(p, cur, lay):
+        if cur != lay:
+            stored = tuple(shape_of(p)["NCHW".index(d)] for d in cur)
+            out.append(("transpose2d",
+                        plan_transform(cur, lay).collapsed_shape(stored)))
+
     for op in plan.ops:
+        p = op.inputs[0] if op.inputs else prev
+        cur = held[p]
         if op.kind == "conv":
             spec = cfg.layers[op.index]
-            p = rins[op.index][0]
-            _, ci, h, _ = input_shape(cfg) if p < 0 else shapes[p]
+            _, ci, h, _ = shape_of(rins[op.index][0])
             pool = None
             if op.pool_index is not None:
                 ps = cfg.layers[op.pool_index]
@@ -428,13 +482,28 @@ def plan_launches(network: str, bucket: int, stack: str):
                                    spec2.stride, spec2.pad, pool,
                                    op.stack_relu, op.relu, res,
                                    op.src_layout, op.dst_layout)))
-                continue
-            kern = "conv_chwn" if op.layout == "CHWN" else "conv_nchw"
-            out.append((kern, (bucket, ci, h, spec.out_channels, spec.kernel,
-                               spec.stride, spec.pad, pool, op.relu, res,
-                               op.src_layout, op.dst_layout)))
+            else:
+                kern = "conv_chwn" if op.layout == "CHWN" else "conv_nchw"
+                out.append((kern, (bucket, ci, h, spec.out_channels,
+                                   spec.kernel, spec.stride, spec.pad, pool,
+                                   op.relu, res, op.src_layout,
+                                   op.dst_layout)))
+            cur = op.dst_layout
+        elif op.kind == "pool":
+            spec = cfg.layers[op.index]
+            relayout(p, cur, op.layout)
+            kern = "pool_chwn" if op.layout == "CHWN" else "pool_nchw"
+            out.append((kern, (tuple(shape_of(p)), spec.kernel, spec.stride,
+                               spec.pool_op)))
+            cur = op.dst_layout
+        elif op.kind in ("add", "concat", "upsample"):
+            for q in (op.inputs or (p,)):
+                relayout(q, held[q], op.layout)
+            cur = op.layout
         elif op.kind == "softmax":
             out.append(("softmax", (bucket, cfg.num_classes)))
+        prev = op.out_index if op.out_index >= 0 else op.index
+        held[prev] = cur
     return out
 
 
@@ -1277,6 +1346,14 @@ def kernel_phase(dev):
                                max_bucket=cap).bucket(B)
             add(network, f"bucket={bucket} stack={stack}",
                 plan_launches(network, bucket, stack))
+    for network, cap, n_req in PLANNED:
+        for bucket in sorted({bucket_for(B, max_bucket=cap)
+                              for B in batch_sizes(n_req, cap)}):
+            cfg, plan = planned(network, bucket)
+            times = sum(bucket_for(B, max_bucket=cap) == bucket
+                        for B in batch_sizes(n_req, cap))
+            add(network, f"bucket={bucket} planned on the H100 profile",
+                fused_launches(cfg, plan), times=times)
     for network, batch in UNFUSED:
         for mode in MODES:
             add(network, f"batch={batch} unfused {mode}",
@@ -1380,13 +1457,13 @@ def kernel_phase(dev):
 
 # -- the main path ----------------------------------------------------------
 
-def serving_phase(dev):
-    """Serve the main path through CNNServer; returns launches per kernel
-    over the whole main path."""
+def serving_phase(dev, th):
+    """Serve the main path through CNNServer (thresholds ``th``, the
+    card's); returns launches per kernel over the whole main path."""
     total = {k: 0 for k in K.WRAPPERS}
     for network, cap, n_req, stack in SERVED:
         srv = CNNServer(network, reduced=False, max_bucket=cap, seed=0,
-                        stack=stack)
+                        stack=stack, thresholds=th)
         rng = np.random.default_rng(1)
         c, h = srv.cfg.in_channels, srv.cfg.image_hw
         images = [rng.standard_normal((c, h, h), np.float32)
@@ -1451,14 +1528,15 @@ def serving_phase(dev):
     return total
 
 
-def stack_compare(dev):
+def stack_compare(dev, th):
     """Warm whole-forward time and peak device memory of one forward,
     stacked ("auto") against unstacked ("off") plans, on the same weights
     and batch; the torch engine's forward beside them.  Outside the main
     path: these launches are not counted."""
     out = []
     for network, bucket in COMPARED:
-        srv = CNNServer(network, reduced=False, max_bucket=bucket, seed=0)
+        srv = CNNServer(network, reduced=False, max_bucket=bucket, seed=0,
+                        thresholds=th)
         cfg, params = srv.cfg, srv.model.params()
         rng = np.random.default_rng(2)
         x = torch.from_numpy(rng.standard_normal(
@@ -1503,6 +1581,201 @@ def stack_compare(dev):
         del srv, params, ys, x
         torch.cuda.empty_cache()
     return out
+
+
+def planned(network: str, bucket: int, stack: str = "auto"):
+    """(cfg at ``bucket``, the fused plan the port's planner makes for it
+    on its default, H100, profile): what a plan-cache miss plans."""
+    cfg = CNN_CONFIGS[network].replace(batch=bucket)
+    return cfg, plan_network_fused(cfg, stack_policy=stack)
+
+
+def calibration_sweep(dev):
+    """The paper's Fig. 4 on the card: K1 and K2 timed by the card measure
+    (CUDA events) over its whole grid (Ci 1-512 at N 64, then N 16-512 at
+    Ci 256; ``calibrate``'s base layer, Co 384, 13 x 13, F 3), each point
+    printed beside the H100 model's pick and held once against
+    ``conv_ref`` (not counted: a calibration is a measurement, not a
+    served path); then ``calibrate`` over those timings (measuring any
+    point it asks for beyond the grid) gives the (Ct, Nt) the card's
+    servers plan under."""
+    measure, points = card_conv_measure(device=dev), {}
+
+    def recorded(l, layout):
+        pt = points.setdefault((l.N, l.Ci), {"layer": l})
+        if layout not in pt:
+            pt[layout] = measure(l, layout)
+        return pt[layout]
+
+    t0 = time.perf_counter()
+    grid = ([ConvLayer("CAL", 64, 384, 13, 3, c, 1, "cal") for c in C_SWEEP]
+            + [ConvLayer("CAL", n, 384, 13, 3, 256, 1, "cal")
+               for n in N_SWEEP])
+    for l in grid:
+        for layout in ("CHWN", "NCHW"):
+            recorded(l, layout)
+    th = calibrate(measure=recorded, dtype_bytes=4)
+    sweep_s = time.perf_counter() - t0
+    hw = hardware_id(dev)
+    worst = 0.0
+    for (n, ci), pt in points.items():
+        l = pt["layer"]
+        gen = torch.Generator(device=dev).manual_seed(n * 1000 + ci)
+        x = torch.randn(n, ci, l.HW, l.HW, device=dev, generator=gen)
+        w = 0.1 * torch.randn(l.Co, ci, l.F, l.F, device=dev, generator=gen)
+        want = conv_ref(x, w, l.S, 0)
+        for layout in ("CHWN", "NCHW"):
+            got = conv_forward(x.permute(perm_between("NCHW", layout))
+                               .contiguous(), w, layout, l.S, 0)
+            got = got.permute(perm_between(layout, "NCHW"))
+            torch.testing.assert_close(got, want, rtol=CONV_RTOL,
+                                       atol=CONV_ATOL)
+            worst = max(worst, (got - want).abs().max().item())
+        pt["model"] = select_conv_layout_cost(l, 4)
+        print(f"calibrate {hw}: N={n} Ci={ci} Co={l.Co} {l.HW}x{l.HW} "
+              f"F={l.F}: K1 (CHWN) {1e3 * pt['CHWN']:.4f} ms, K2 (NCHW) "
+              f"{1e3 * pt['NCHW']:.4f} ms -> "
+              f"{'CHWN' if pt['CHWN'] <= pt['NCHW'] else 'NCHW'} (the "
+              f"model: {pt['model']})", flush=True)
+    model = calibrate(dtype_bytes=4)
+    print(f"calibrate {hw}: measured Ct={th.Ct} Nt={th.Nt} in "
+          f"{sweep_s:.2f}s ({len(points)} points, K1/K2 within "
+          f"{worst:.3g} of conv_ref); the H100 model's Ct={model.Ct} "
+          f"Nt={model.Nt}", flush=True)
+    return th, {"hardware": hw, "Ct": th.Ct, "Nt": th.Nt,
+                "model_Ct": model.Ct, "model_Nt": model.Nt,
+                "points": [{"N": n, "Ci": ci, "chwn_s": pt["CHWN"],
+                            "nchw_s": pt["NCHW"], "model": pt["model"]}
+                           for (n, ci), pt in points.items()]}
+
+
+def model_vs_card(dev, network: str, bucket: int, params) -> dict:
+    """The H100 model's seconds for stack "auto" and "off" beside the
+    warm forward of each plan on the kernels (CUDA events); both outputs
+    held against the torch engine.  Not counted on the main path."""
+    row = {"network": network, "bucket": bucket}
+    cfg = CNN_CONFIGS[network].replace(batch=bucket)
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        input_shape(cfg), np.float32)).to(dev)
+    for stack in ("auto", "off"):
+        _, plan = planned(network, bucket, stack)
+        y, _ = forward_fused(params, x, cfg, plan)
+        y_t, _ = forward_fused(params, x, cfg, plan, impl="torch")
+        err = (y - y_t).abs().max().item()
+        if err > PROBS_ATOL:
+            raise AssertionError(f"{network} bucket {bucket} {stack}: the "
+                                 f"planned forward differs from the torch "
+                                 f"engine by {err:.3g}")
+        row[stack] = {"model_s": plan.total_s, "stacks": plan.stacked_convs,
+                      "layouts": plan.conv_signature,
+                      "ms": cuda_ms(lambda plan=plan: forward_fused(
+                          params, x, cfg, plan), max_reps=20)}
+    a, o = row["auto"], row["off"]
+    same = (a["layouts"], a["stacks"]) == (o["layouts"], o["stacks"])
+    model_first = "auto" if a["model_s"] < o["model_s"] else "off"
+    card_first = "auto" if a["ms"] < o["ms"] else "off"
+    row["agree"] = same or model_first == card_first
+    verdict = ("one plan (no stack pays)" if same else
+               f"model orders {model_first} first, the card {card_first}: "
+               + ("agree" if row["agree"] else "DISAGREE"))
+    print(f"model vs card {network} bucket={bucket}: auto "
+          f"{a['layouts']}+{a['stacks']} stacks model "
+          f"{1e3 * a['model_s']:.4f} ms card {a['ms']:.3f} ms; off "
+          f"{o['layouts']} model {1e3 * o['model_s']:.4f} ms card "
+          f"{o['ms']:.3f} ms; {verdict}", flush=True)
+    return row
+
+
+def planner_phase(dev, th):
+    """Under the card's thresholds ``th``, serve each ``PLANNED`` network
+    from an empty cache: every bucket is a miss that the planner plans on
+    the H100 profile (counts zeroed just before each run and read just
+    after; they must equal the plans', and ``planner_calls`` the distinct
+    buckets), each answer within 1e-5 of the torch engine.  Then the
+    model's "auto"/"off" seconds beside the card's, for the served
+    buckets and ``MODEL_VS_CARD``.  Returns (launches per kernel over the
+    served runs, a record)."""
+    total = {k: 0 for k in K.WRAPPERS}
+    served, rows = [], []
+    for network, cap, n_req in PLANNED:
+        srv = CNNServer(network, reduced=False, max_bucket=cap, seed=0,
+                        thresholds=th)
+        if srv.cache.planner_calls or srv.cache.peek_fused(srv.cfg, cap):
+            raise AssertionError(f"{network}: the cache is not empty")
+        rng = np.random.default_rng(5)
+        c, h = srv.cfg.in_channels, srv.cfg.image_hw
+        images = [rng.standard_normal((c, h, h), np.float32)
+                  for _ in range(n_req)]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = srv.run([ImageRequest(i, im) for i, im in enumerate(images)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = K.launch_counts()
+        want_counts = {k: 0 for k in K.WRAPPERS}
+        params, start, worst = srv.model.params(), 0, 0.0
+        buckets = []
+        for B in batch_sizes(n_req, cap):
+            bucket = srv.cache.bucket(B)
+            buckets.append(bucket)
+            cfg, plan = planned(network, bucket)
+            if srv.cache.peek_fused(srv.cfg, bucket) != plan:
+                raise AssertionError(f"{network} bucket {bucket}: the "
+                                     f"server planned another plan")
+            for kern, _ in fused_launches(cfg, plan):
+                want_counts[kern] += 1
+            x = torch.from_numpy(np.stack(images[start:start + B])).to(dev)
+            y, _ = forward_fused(params, pad_to_bucket(x, bucket), srv.cfg,
+                                 plan, impl="torch")
+            got = np.stack([done[i] for i in range(start, start + B)])
+            if got.shape != (B, srv.cfg.num_classes) or not \
+                    np.isfinite(got).all():
+                raise AssertionError(f"{network}: answers of shape "
+                                     f"{got.shape}, or not finite")
+            err = float(np.abs(got - y[:B].cpu().numpy()).max())
+            if err > PROBS_ATOL:
+                raise AssertionError(
+                    f"{network} bucket {bucket}: served probabilities "
+                    f"differ from the torch engine by {err:.3g}")
+            worst = max(worst, err)
+            start += B
+        if counts != want_counts:
+            raise AssertionError(f"{network}: launches {counts} != the "
+                                 f"plans' {want_counts}")
+        if srv.cache.planner_calls != len(set(buckets)):
+            raise AssertionError(
+                f"{network}: {srv.cache.planner_calls} planner calls for "
+                f"{len(set(buckets))} distinct buckets")
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"planner serve {network}: {n_req} requests in {wall:.3f}s, "
+              f"planner_calls={srv.cache.planner_calls} (= the distinct "
+              f"buckets {sorted(set(buckets))}), launches {launched} (= "
+              f"the plans'), max |probs - torch engine| = {worst:.3g}",
+              flush=True)
+        for line in srv.report_lines():
+            print(line)
+        for k, v in counts.items():
+            total[k] += v
+        served.append({"network": network, "buckets": buckets,
+                       "planner_calls": srv.cache.planner_calls,
+                       "launches": launched, "max_abs_err": worst,
+                       "seconds": wall})
+        for bucket in sorted(set(buckets)):
+            rows.append(model_vs_card(dev, network, bucket, params))
+        del srv, params
+        torch.cuda.empty_cache()
+    for network, bucket in MODEL_VS_CARD:
+        cfg = CNN_CONFIGS[network]
+        params = params_from_numpy(init_cnn(cfg, 0), dev)
+        rows.append(model_vs_card(dev, network, bucket, params))
+        del params
+        torch.cuda.empty_cache()
+    wrong = [f"{r['network']} b{r['bucket']}" for r in rows
+             if not r["agree"]]
+    print(f"model vs card: the H100 model orders stack auto/off as the "
+          f"card does on {len(rows) - len(wrong)} of {len(rows)}"
+          + (f"; wrong on {', '.join(wrong)}" if wrong else ""), flush=True)
+    return total, {"served": served, "model_vs_card": rows}
 
 
 def unfused_phase(dev):
@@ -1568,6 +1841,26 @@ def unfused_phase(dev):
                          "hbm_bytes": st.hbm_bytes, "ms": ms_k,
                          "torch_ms": ms_t, "launches": launched,
                          "max_abs_err": err})
+            if mode == "opt":
+                # beside the H100-priced layouts, once: the packaged
+                # assignment the reference priced for its TPU (not counted)
+                tpu = PlanCache(str(packaged_plans(network))).assignment(
+                    cfg, batch)[0].layouts
+                y_p, _ = forward(params, x, cfg, tpu, impl="cuda")
+                err_p = (y_p - y_t).abs().max().item()
+                if err_p > PROBS_ATOL:
+                    raise AssertionError(
+                        f"{network} packaged opt: probabilities differ "
+                        f"from the torch engine by {err_p:.3g}")
+                ms_p = cuda_ms(lambda: forward(params, x, cfg, tpu,
+                                               impl="cuda"), max_reps=20)
+                rows[-1]["packaged_tpu_priced"] = {
+                    "layouts": "".join(l[0] for l in tpu), "ms": ms_p}
+                print(f"unfused {network} batch={batch} opt, the packaged "
+                      f"TPU-priced assignment: layouts="
+                      f"{''.join(l[0] for l in tpu)}: kernels {ms_p:.3f} ms "
+                      f"against {ms_k:.3f} for the H100-priced layouts",
+                      flush=True)
             for k, v in counts.items():
                 total[k] += v
         mine = [r for r in rows if r["network"] == network]
@@ -2175,10 +2468,19 @@ def main() -> int:
         variants = softmax_variants(dev)
         print(f"fig13 phase: {time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
-        launches = serving_phase(dev)
+        th, calib = calibration_sweep(dev)
+        print(f"calibration: {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        launches = serving_phase(dev, th)
         print(f"serving phase: {time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
-        compared = stack_compare(dev)
+        planner_counts, planner = planner_phase(dev, th)
+        planner["calibration"] = calib
+        for k, v in planner_counts.items():
+            launches[k] += v
+        print(f"planner phase: {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        compared = stack_compare(dev, th)
         print(f"stack comparison: {time.perf_counter() - t0:.1f}s",
               flush=True)
         t0 = time.perf_counter()
@@ -2218,6 +2520,7 @@ def main() -> int:
                                    "seconds": time.perf_counter() - t_start,
                                    "cases": cases, **line,
                                    "stack_compare": compared,
+                                   "planner": planner,
                                    "unfused": unfused,
                                    "table1": table1, "fig13": fig13,
                                    "softmax_variants": variants,

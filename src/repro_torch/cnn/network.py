@@ -4,13 +4,14 @@ Two executors, as in the reference:
 
 * The paper's unfused executor.  ``plan_network`` assigns a layout per
   layer in one of the paper's §VI modes ("cuda-convnet": every layer CHWN;
-  "cudnn": every layer NCHW; "opt": per layer, read from the reference
-  planner's packaged assignment, or the §IV.D heuristic under given
-  thresholds).  ``forward`` runs each conv and pool natively in its layout
+  "cudnn": every layer NCHW; "opt": per layer, by the layout DP or the
+  §IV.D heuristic, priced on the H100 profile unless a cost model is
+  given).  ``forward`` runs each conv and pool natively in its layout
   (a bare conv: no bias, no epilogue) and inserts a standalone transform
   wherever consecutive layers disagree; on the "cuda" engine that
   transform is the tiled transpose kernel K9.
-* The fused executor.  ``forward_fused`` runs a ``FusedPlan`` op by op:
+* The fused executor.  ``plan_network_fused`` plans a ``FusedPlan``;
+  ``forward_fused`` runs it op by op:
   each conv op is ONE kernel launch that folds its ReLU, its pool and every
   re-layout into the conv's output write (or its input read), so no
   standalone transform pass runs on a stock plan.  A stack op
@@ -45,13 +46,13 @@ from repro_torch.configs.base import CNNConfig
 from repro_torch.configs.paper_table1 import ConvLayer, PoolLayer
 from repro_torch.cnn import layers as CL
 from repro_torch.core.selector import (FusedPlan, LayerDesc,
-                                       paper_heuristic_layouts)
+                                       assign_layouts,
+                                       paper_heuristic_layouts, plan_fused)
 from repro_torch.core.transform import apply_transform
 from repro_torch.dtypes import (DEFAULT_DTYPE, INT8_DTYPE, canon_dtype,
                                 dtype_bytes)
-from repro_torch.perfmodel import Thresholds, conv_backward_bytes
-from repro_torch.serve.plan_cache import (PlanCache, PlanMissError,
-                                          packaged_plans)
+from repro_torch.perfmodel import (CostModel, Thresholds, calibrate,
+                                   conv_backward_bytes, default_cost_model)
 
 MODES = ("cuda-convnet", "cudnn", "opt")
 
@@ -100,40 +101,45 @@ def input_shape(cfg: CNNConfig) -> Tuple[int, int, int, int]:
 def plan_network(cfg: CNNConfig, mode: str = "opt",
                  thresholds: Optional[Thresholds] = None,
                  use_dp: bool = True,
-                 dtype: str = DEFAULT_DTYPE) -> List[str]:
+                 dtype: str = DEFAULT_DTYPE,
+                 cost_model: Optional[CostModel] = None) -> List[str]:
     """Per-layer layout list for the unfused ``forward``, in one of the
-    paper's modes.  "opt" with ``use_dp`` is the reference planner's DP
-    assignment at ``cfg.batch``, read from the network's packaged plan file
-    (the port has no DP planner yet): a network, batch or dtype the file
-    does not hold raises ``PlanMissError``.  "opt" without ``use_dp`` is
-    the paper's single-scan heuristic under ``thresholds``, which must be
-    given (the reference's default thresholds come from its TPU model)."""
+    paper's modes, planned at the storage ``dtype``.  "opt" with ``use_dp``
+    is the layout DP (``assign_layouts``); without it, the paper's
+    single-scan heuristic under ``thresholds``, or under ``calibrate()``'s
+    on the cost model's device when none are given.  The cost model is the
+    port's default (the H100 profile) unless one is passed."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; known: {MODES}")
+    descs = network_descs(cfg, dtype)
     if mode == "cuda-convnet":
-        return ["CHWN"] * len(cfg.layers)
+        return ["CHWN"] * len(descs)
     if mode == "cudnn":
-        return ["NCHW"] * len(cfg.layers)
-    if not use_dp:
-        if thresholds is None:
-            raise ValueError(
-                "plan_network(use_dp=False) needs explicit thresholds: the "
-                "port has no threshold calibration yet")
-        return paper_heuristic_layouts(network_descs(cfg, dtype), thresholds)
-    path = packaged_plans(cfg.name)
-    if not path.exists():
-        raise PlanMissError(f"no packaged plan file for {cfg.name!r} "
-                            f"({path}), and the port has no planner yet")
-    cache = PlanCache(str(path))
-    try:
-        bucket = cache.bucket(cfg.batch)
-    except ValueError as e:             # beyond the file's largest bucket
-        raise PlanMissError(str(e)) from e
-    if bucket != cfg.batch:
-        raise PlanMissError(
-            f"batch {cfg.batch} is not a plan bucket: the packaged "
-            "assignments are planned at pow-2 batches only")
-    return list(cache.assignment(cfg, cfg.batch, dtype=dtype)[0].layouts)
+        return ["NCHW"] * len(descs)
+    cm = cost_model or default_cost_model()
+    if use_dp:
+        return assign_layouts(descs, input_layout="NCHW",
+                              input_shape=input_shape(cfg),
+                              cost_model=cm).layouts
+    th = thresholds or calibrate(dtype_bytes=dtype_bytes(dtype), hw=cm.hw)
+    return paper_heuristic_layouts(descs, th)
+
+
+def plan_network_fused(cfg: CNNConfig, dtype: str = DEFAULT_DTYPE,
+                       policy: str = "uniform",
+                       stack_policy: str = "auto",
+                       cost_model: Optional[CostModel] = None) -> FusedPlan:
+    """Fused execution plan: the layout DP with fold-aware edges and chain
+    fusion (``plan_fused``), at the storage ``dtype`` (it scales every byte
+    model and the granules).  ``policy="mixed"`` searches per-layer (layout,
+    storage dtype) states (the executors here run uniform plans only);
+    ``stack_policy="auto"`` fuses the conv->conv stacks the cost model's
+    stack gate admits and finds profitable, ``"off"`` none.  The cost model
+    is the port's default (the H100 profile) unless one is passed."""
+    return plan_fused(network_descs(cfg, dtype), input_layout="NCHW",
+                      input_shape=input_shape(cfg), dtype_policy=policy,
+                      base_dtype=dtype, stack_policy=stack_policy,
+                      cost_model=cost_model)
 
 
 @dataclass

@@ -4,8 +4,8 @@ The checksum scheme of ``repro/runtime/resilience.py``: a sha256 over the
 canonical (sorted-key) JSON of the payload, stored under ``"checksum"``,
 and an fsync before the atomic rename.  Files written by either package
 verify in the other.  A file that fails its checksum raises
-``CorruptStateError`` here; renaming it aside and rebuilding needs a
-planner, which the port does not have yet.
+``CorruptStateError`` here (the reference renames it aside and rebuilds;
+that recovery belongs with its serving ladder, not yet ported).
 """
 from __future__ import annotations
 
@@ -40,6 +40,21 @@ def verify_checksum(obj: Dict[str, Any], path: str = "<mem>") -> None:
         raise CorruptStateError(
             f"{path}: payload checksum mismatch "
             f"(stored {stored[:12]}…, actual {actual[:12]}…)")
+
+
+def load_json(path: str) -> Dict[str, Any]:
+    """Read a JSON state file and verify its checksum.  Malformed JSON, a
+    top level that is not an object, or a checksum mismatch raises
+    ``CorruptStateError``."""
+    with open(path) as f:
+        try:
+            obj = json.load(f)
+        except json.JSONDecodeError as e:
+            raise CorruptStateError(f"{path}: not JSON ({e})") from e
+    if not isinstance(obj, dict):
+        raise CorruptStateError(f"{path}: top level is not an object")
+    verify_checksum(obj, path)
+    return obj
 
 
 def atomic_json_dump(obj: Dict[str, Any], path: str) -> str:

@@ -1,3 +1,3 @@
-from repro_torch.serve.plan_cache import (PlanCache, PlanKey,  # noqa: F401
-                                          PlanMissError, bucket_for,
-                                          network_id, pad_to_bucket)
+from repro_torch.serve.plan_cache import (CacheStats, PlanCache,  # noqa: F401
+                                          PlanKey, bucket_for, network_id,
+                                          pad_to_bucket)

@@ -10,6 +10,7 @@ batch): the fused plans at both stack policies and the unfused executor's
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -140,19 +141,30 @@ def test_resnet18_bucket32_auto_plan():
     assert not any(op.kind == "pool" for op in plan.ops)
 
 
-def test_plan_cache_miss_raises_and_never_plans(tmp_path):
-    cache = port_plan_cache.PlanCache(str(packaged_plans("vgg16")))
+def test_plan_cache_miss_plans_once_and_hits_after(tmp_path):
+    """A miss plans, as the reference's does: ``planner_calls`` goes up by
+    one, and under the reference's profile the plan is the reference's;
+    the same key again is a hit."""
+    from tests.test_torch_planner_plans import REF_CM
+    cache = port_plan_cache.PlanCache(str(packaged_plans("vgg16")),
+                                      cost_model=REF_CM)
     cfg = port_networks.CNN_CONFIGS["vgg16"]
-    with pytest.raises(port_plan_cache.PlanMissError, match="no planner"):
-        cache.fused_plan(cfg, 4, dtype="bfloat16")
+    plan, bucket, hit = cache.fused_plan(cfg, 4, dtype="bfloat16")
+    assert (bucket, hit, cache.planner_calls) == (4, False, 1)
+    want, _, _ = PlanCache().fused_plan(CNN_CONFIGS["vgg16"], 4,
+                                        dtype="bfloat16")
+    assert dataclasses.asdict(plan) == dataclasses.asdict(want)
+    assert cache.fused_plan(cfg, 3, dtype="bf16")[2]
     plan, bucket, hit = cache.fused_plan(cfg, 5, stack="off")
-    assert (bucket, hit) == (8, True) and cache.planner_calls == 0
+    assert (bucket, hit) == (8, True) and cache.planner_calls == 1
     # what the port saves, the reference loads to the same plans
     out = cache.save(str(tmp_path / "resaved.json"))
     ref = PlanCache(out)
     assert ref.corrupt_recoveries == []
     ref_plan = ref.peek_fused(CNN_CONFIGS["vgg16"], 5, stack="off")
     assert ref_plan.conv_signature == plan.conv_signature
+    assert dataclasses.asdict(ref.peek_fused(
+        CNN_CONFIGS["vgg16"], 4, dtype="bf16")) == dataclasses.asdict(want)
 
 
 @pytest.mark.parametrize("network", sorted(PACKAGED))
@@ -179,10 +191,13 @@ def test_unfused_assignment_hit_and_miss():
     assert (a.layouts, a.transforms, a.total_s) == (ref.layouts,
                                                     ref.transforms,
                                                     ref.total_s)
-    with pytest.raises(port_plan_cache.PlanMissError, match="unfused"):
-        cache.assignment(cfg, 8, dtype="bf16")
-    with pytest.raises(port_plan_cache.PlanMissError, match="unfused"):
-        cache.assignment(cfg, 8, training=True)
+    # a miss plans (the port's default profile here), once
+    for kw in ({"dtype": "bf16"}, {"training": True}):
+        a, bucket, hit = cache.assignment(cfg, 8, **kw)
+        assert (bucket, hit) == (8, False)
+        assert len(a.layouts) == len(cfg.layers)
+        assert cache.assignment(cfg, 7, **kw)[2]
+    assert cache.planner_calls == 2
 
 
 def test_paper_table1_reprs_match_reference():

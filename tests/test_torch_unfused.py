@@ -10,11 +10,13 @@ on the same weights and seeded input.  Probabilities within 1e-5,
 ``RunStats`` equal.  Lenet at batch 64 in "opt" (which flips it to CHWN)
 is also held against the reference's Pallas engine in interpret mode with
 the Pallas transpose.
-(b) ``plan_network``: "opt" from the packaged plan files equals the
-reference's DP at every packaged bucket; the heuristic mode equals the
-reference's ``paper_heuristic_layouts``; ``network_descs`` equal the
-reference's letter for letter.
-(c) What the port cannot plan or run raises.
+(b) ``plan_network``: "opt" under the reference's device profile, and the
+packaged files' assignments, equal the reference's DP at every packaged
+bucket; the heuristic mode equals the reference's
+``paper_heuristic_layouts``; ``network_descs`` equal the reference's
+letter for letter.
+(c) "opt" plans what no file holds (the port's default, H100, profile),
+and without thresholds the heuristic calibrates; an unknown mode raises.
 """
 from __future__ import annotations
 
@@ -34,8 +36,9 @@ from repro_torch.cnn.network import (forward, input_shape, network_descs,
                                      plan_network)
 from repro_torch.configs import cnn_networks as port_networks
 from repro_torch.kernels.transpose import ops as tr_ops
-from repro_torch.perfmodel import Thresholds
-from repro_torch.serve.plan_cache import PlanMissError, packaged_plans
+from repro_torch.perfmodel import Thresholds, calibrate
+from repro_torch.serve.plan_cache import PlanCache, packaged_plans
+from tests.test_torch_planner_plans import REF_CM
 from tests.test_torch_plans import PACKAGED
 
 PROB_ATOL = 1e-5
@@ -125,20 +128,29 @@ def test_relayouts_reach_the_transpose_wrapper_on_the_cuda_engine(
 
 @pytest.mark.parametrize("network", sorted(PACKAGED))
 def test_opt_layouts_from_packaged_plans_match_reference_dp(network):
+    cache = PlanCache(str(packaged_plans(network)))
     b = 1
     while b <= PACKAGED[network]:
         ref_cfg = CNN_CONFIGS[network].replace(batch=b)
         cfg = port_networks.CNN_CONFIGS[network].replace(batch=b)
-        assert (plan_network(cfg, "opt")
-                == ref_network.plan_network(ref_cfg, "opt")), b
+        want = ref_network.plan_network(ref_cfg, "opt")
+        assert cache.assignment(cfg, b)[0].layouts == want, b
+        assert plan_network(cfg, "opt", cost_model=REF_CM) == want, b
         b *= 2
+    assert cache.planner_calls == 0
 
 
 def test_opt_layouts_at_the_smoke_batches():
     vgg = port_networks.CNN_CONFIGS["vgg16"]
     alex = port_networks.CNN_CONFIGS["alexnet"]
-    assert "".join(l[0] for l in plan_network(vgg, "opt")) == (
+    # the reference's profile: its own DP's layouts
+    assert "".join(l[0] for l in plan_network(vgg, "opt",
+                                              cost_model=REF_CM)) == (
         "C" * 17 + "N" * 5 + "CC" + "N" * 5 + "C" * 9)
+    assert plan_network(alex, "opt", cost_model=REF_CM) == (
+        ["CHWN"] * len(alex.layers))
+    # the H100 profile prices every conv of both CHWN at these batches
+    assert plan_network(vgg, "opt") == ["CHWN"] * len(vgg.layers)
     assert plan_network(alex, "opt") == ["CHWN"] * len(alex.layers)
     assert plan_network(vgg, "cudnn") == ["NCHW"] * len(vgg.layers)
     assert plan_network(alex, "cuda-convnet") == ["CHWN"] * len(alex.layers)
@@ -164,16 +176,24 @@ def test_network_descs_match_reference(network):
                                                   dtype)))
 
 
-def test_what_the_port_cannot_plan_or_run_raises():
+def test_plan_network_plans_what_no_file_holds():
+    """What no packaged file holds is planned, as the reference plans it:
+    under the reference's profile, the reference's layouts."""
     vgg = port_networks.CNN_CONFIGS["vgg16"]
+    ref_vgg = CNN_CONFIGS["vgg16"]
     assert not packaged_plans("lenet").exists()
-    for cfg, kw in [(port_networks.CNN_CONFIGS["lenet"], {}),
-                    (vgg.replace(batch=3), {}), (vgg.replace(batch=64), {}),
-                    (vgg, {"dtype": "bf16"}),
-                    (port_networks.reduced_cnn(vgg, batch=4), {})]:
-        with pytest.raises(PlanMissError):
-            plan_network(cfg, "opt", **kw)
-    with pytest.raises(ValueError, match="thresholds"):
-        plan_network(vgg, "opt", use_dp=False)
+    for (cfg, ref_cfg), kw in [
+            ((port_networks.CNN_CONFIGS["lenet"], CNN_CONFIGS["lenet"]), {}),
+            ((vgg.replace(batch=3), ref_vgg.replace(batch=3)), {}),
+            ((vgg.replace(batch=64), ref_vgg.replace(batch=64)), {}),
+            ((vgg, ref_vgg), {"dtype": "bf16"}),
+            ((port_networks.reduced_cnn(vgg, batch=4),
+              reduced_cnn(ref_vgg, batch=4)), {})]:
+        assert (plan_network(cfg, "opt", cost_model=REF_CM, **kw)
+                == ref_network.plan_network(ref_cfg, "opt", **kw))
+        assert len(plan_network(cfg, "opt", **kw)) == len(cfg.layers)
+    # without thresholds the heuristic calibrates on the H100 profile
+    assert plan_network(vgg, "opt", use_dp=False) == plan_network(
+        vgg, "opt", calibrate(dtype_bytes=4), use_dp=False)
     with pytest.raises(ValueError, match="unknown mode"):
         plan_network(vgg, "fastest")
