@@ -57,6 +57,30 @@
    1e-5), and each kernel's launch count must equal what the plans call
    for.  Afterwards each batch's whole forward is timed warm (CUDA events)
    through the kernels and through the torch engine.
+3b. Dtype phase, the main path at narrow storage dtypes: VGG16 b32 bf16
+   stack "auto" (K1 + K5a + K4) and "off", AlexNet b128 and ResNet-18 b32
+   bf16 with ``dtype_policy="mixed"`` (int8 boundaries into K1), each one
+   batch through ``CNNServer(reduced=False, dtype="bf16")`` from an empty
+   plan cache (a miss planned on the H100 profile), calibration
+   "measured" into one threshold file the phase shares: the first server
+   measures the bf16 row on K1 and K2 in bf16, the first mixed one the
+   int8 row on K1 and K2 on int8 x with float32 w (their calibration
+   launches counted and printed with the rows' (Ct, Nt)).  Counts zeroed
+   just before each batch must equal the plan's by storage variant
+   ("conv_chwn.bf16", "conv_chwn.i8bf16", ...), with no float32 launch.
+   On the same seed-0 weights, bf16 uniform probabilities within 8 *
+   eps(bf16) = 0.0625 of the float32 forward (the packaged plan), mixed
+   ones within ``INT8_FORWARD_ATOL`` = 2e-2 of the bf16 stack="off"
+   forward, both differences printed; the warm forward ms and peak device
+   memory of the served plan, bf16 uniform "off" and float32 beside it.
+   The kernel phase holds every distinct launch of these plans against
+   its plain version on the card (bf16 within one bf16 step, 2^-7 |want|
+   + 1e-5 max|want|; int8 x with float32 w at the conv tolerance; library
+   the same PyTorch call in the output's dtype), and one case of each
+   variant that only the calibration launches (K2 in bf16, K1 and K2 on
+   int8 x with float32 w; their kernels-line launches are the
+   calibration's, their times the one case's) and of K2 on int8 x with
+   bf16 w (no path launches it: 0 launches).
 4. Planner phase, the main path's planned part: the paper's Fig. 4 on the
    card (K1 and K2 timed by the card measure with CUDA events over its
    whole grid: Ci 1-512 at N 64, then N 16-512 at Ci 256; Co 384, 13 x 13,
@@ -154,7 +178,8 @@
    K5b's executed TFLOP/s and executed/direct, both bounds, library ms, the
    largest error from float64), then one JSON line of every kernel
    (launches, error, times, bound, and the 3xTF32 bound of the tensor-core
-   kernels),
+   kernels; the storage variants as "<kernel>.<variant>", their bounds at
+   the narrow element sizes and the bf16 peak where w is bf16),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
 TF32 is off throughout.  Any failure raises: the script then exits
@@ -167,9 +192,12 @@ import argparse
 import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -235,6 +263,7 @@ from repro_torch.perfmodel import (calibrate,  # noqa: E402
                                    card_conv_measure, hardware_id,
                                    select_conv_layout_cost)
 from repro_torch.perfmodel.calibration import C_SWEEP, N_SWEEP  # noqa: E402
+from repro_torch.quant import INT8_FORWARD_ATOL  # noqa: E402
 from repro_torch.serve.plan_cache import (PlanCache,  # noqa: E402
                                           bucket_for, packaged_plans,
                                           pad_to_bucket)
@@ -298,6 +327,35 @@ SOFTMAX_VARIANTS = (
     + [(7, c, 0) for c in (1501, 1500, 4001, 4000, 5001, 5000, 10001,
                            10000, 20001, 20000)]
     + [(300, 1000, 0), (5, 1000, 1)])
+# the dtype phase: (network, bucket, dtype policy, stack policy), each one
+# full batch served in bf16 at full width from an empty plan cache (a miss
+# planned on the H100 profile), its threshold rows measured on the card
+# (bf16, and int8 for a mixed server) into one file the phase shares
+DTYPE_SERVED = [("vgg16", 32, "uniform", "auto"),
+                ("vgg16", 32, "uniform", "off"),
+                ("alexnet", 128, "mixed", "auto"),
+                ("resnet18", 32, "mixed", "auto")]
+BF16_STEP = 2.0 ** -7            # eps(bf16): one step relative to a value
+BF16_PROBS_ATOL = 8 * BF16_STEP  # bf16 against fp32 probabilities
+# the storage variants' (x, w) dtypes (``_build.CONV_VARIANTS``)
+VARIANT_DTYPES = {"bf16": (torch.bfloat16, torch.bfloat16),
+                  "i8f32": (torch.int8, torch.float32),
+                  "i8bf16": (torch.int8, torch.bfloat16)}
+# Fig. 4's base layer (N 64, Ci 256, Co 384, 13 x 13, F 3): the case of
+# each variant only the calibration launches (the bf16 and int8 rows time
+# K2 in bf16 and K1/K2 on int8 x with fp32 w), and of K2 on int8 x with
+# bf16 w, which no plan or calibration launches
+CAL_CASE = {"CHWN": (64, 256, 13, 384, 3, 1, 0, None, False, None, "CHWN",
+                     "CHWN"),
+            "NCHW": (64, 256, 13, 384, 3, 1, 0, None, False, None, "NCHW",
+                     "NCHW")}
+CALIBRATION_ONLY = {"conv_nchw.bf16": CAL_CASE["NCHW"],
+                    "conv_chwn.i8f32": CAL_CASE["CHWN"],
+                    "conv_nchw.i8f32": CAL_CASE["NCHW"]}
+# the launch the planner phase's plans never make: ResNet-18's 3x3 l3
+# conv at b32 with int8 input, bf16 weights and its residual
+DTYPE_OFF_PATH = {"conv_nchw.i8bf16": (32, 256, 14, 256, 3, 1, 1, None,
+                                       True, "NCHW", "NCHW", "NCHW")}
 # the LM kernel phase: whisper-base's encoder attention over a batch of 8
 # clips; gemma2-27b's head over a quarter of one train_4k sequence (its
 # plain version materializes [T, 256000] fp32 logits: 1 GB at T 1024)
@@ -364,9 +422,18 @@ KERNELS = {
         "source": "src/repro_torch/kernels/crossentropy/csrc/crossentropy.cu",
         "replaces": "src/repro/kernels/crossentropy/crossentropy.py:59"},
 }
+# the storage variants of the serving path's kernels (``_build.VARIANTS``):
+# the same sources, built again for bf16 and int8 input
+for _base, _variants in (("conv_chwn", ("bf16", "i8bf16", "i8f32")),
+                         ("conv_nchw", ("bf16", "i8f32", "i8bf16")),
+                         ("conv_stack_chwn", ("bf16",)),
+                         ("softmax", ("bf16",))):
+    for _v in _variants:
+        KERNELS[f"{_base}.{_v}"] = KERNELS[_base]
 # kernels held in the kernel phase that no path of this script launches,
 # with their one case
-OFF_PATH = {"transpose2d_batched": K9B_CASE, "softmax_xent": K8_CASE}
+OFF_PATH = {"transpose2d_batched": K9B_CASE, "softmax_xent": K8_CASE,
+            **DTYPE_OFF_PATH}
 STACK_KERNELS = {"conv_stack_chwn": ("CHWN", conv_stack_chwn),
                  "conv_stack_nchw": ("NCHW", conv_stack_nchw)}
 POOL_KERNELS = {"pool_chwn": ("CHWN", pool_chwn),
@@ -446,7 +513,9 @@ def fused_launches(cfg, plan):
     one K1/K2 launch (a stack op one K5a/K5b), a pool op one K3a/K3b, a
     re-layout no kernel absorbed (before a pool, at a merge) one K9a on the
     collapsed 2-D matrix, the softmax one K4.  A conv case carries its
-    folded residual's layout (None without one)."""
+    folded residual's layout (None without one).  A narrow plan's launches
+    name their storage variant, "<kernel>.<variant>": "bf16", or "i8bf16"
+    for a conv whose input is an int8 boundary (``launch_variant``)."""
     bucket = cfg.batch
     shapes, rins = layer_shapes(cfg), resolved_cfg_inputs(cfg)
     held = {-1: "NCHW"}
@@ -475,7 +544,7 @@ def fused_launches(cfg, plan):
             if op.stack_index is not None:
                 spec2 = cfg.layers[op.stack_index]
                 kern = ("conv_stack_chwn" if op.layout == "CHWN"
-                        else "conv_stack_nchw")
+                        else "conv_stack_nchw") + launch_variant(plan, op)
                 out.append((kern, (bucket, ci, h, spec.out_channels,
                                    spec2.out_channels, spec.kernel,
                                    spec.stride, spec.pad, spec2.kernel,
@@ -483,7 +552,8 @@ def fused_launches(cfg, plan):
                                    op.stack_relu, op.relu, res,
                                    op.src_layout, op.dst_layout)))
             else:
-                kern = "conv_chwn" if op.layout == "CHWN" else "conv_nchw"
+                kern = ("conv_chwn" if op.layout == "CHWN"
+                        else "conv_nchw") + launch_variant(plan, op)
                 out.append((kern, (bucket, ci, h, spec.out_channels,
                                    spec.kernel, spec.stride, spec.pad, pool,
                                    op.relu, res, op.src_layout,
@@ -501,10 +571,21 @@ def fused_launches(cfg, plan):
                 relayout(q, held[q], op.layout)
             cur = op.layout
         elif op.kind == "softmax":
-            out.append(("softmax", (bucket, cfg.num_classes)))
+            out.append(("softmax" + launch_variant(plan, op),
+                        (bucket, cfg.num_classes)))
         prev = op.out_index if op.out_index >= 0 else op.index
         held[prev] = cur
     return out
+
+
+def launch_variant(plan, op) -> str:
+    """The storage variant suffix of ``op``'s launch under ``plan``: "" at
+    float32, ".bf16" at bf16, ".i8bf16" (".i8f32" at a float32 base) for a
+    conv that takes an int8 boundary."""
+    base = {"float32": "", "bfloat16": "bf16"}[plan.base_dtype or "float32"]
+    if op.kind == "conv" and op.src_dtype == "int8":
+        return ".i8" + (base or "f32")
+    return "." + base if base else ""
 
 
 def unfused_launches(network: str, batch: int, mode: str):
@@ -664,16 +745,20 @@ def _library_epilogue(y, r_nchw, relu: bool, pool):
 
 def _measure(kernel, plain, library, flops: float, nbytes: float,
              rtol: float = CONV_RTOL, atol: float = CONV_ATOL,
-             peak: float = PEAK_FP32_FLOPS, got=None) -> dict:
+             peak: float = PEAK_FP32_FLOPS, got=None, check=None) -> dict:
     """Hold ``kernel()`` (or ``got``, its output from the main path)
-    against ``plain()``, then time the kernel, the plain version and the
-    library call; the bound is on ``peak``."""
+    against ``plain()`` (rtol/atol, or ``check(got, want)``), then time the
+    kernel, the plain version and the library call; the bound is on
+    ``peak``."""
     got = kernel() if got is None else got
     want = plain()
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     rel = err / max(want.float().abs().max().item(), 1e-30)
-    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    if check is None:
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    else:
+        check(got, want)
     del got, want
     b_ms, b_by = bound_ms(flops, nbytes, peak)
     return {"max_abs_err": err, "max_rel_err": rel, "ms": cuda_ms(kernel),
@@ -809,6 +894,135 @@ def stack_case(kern: str, case, dev, seed: int) -> dict:
     return m
 
 
+def bf16_check(got, want) -> None:
+    """A bf16 output against its plain version: both accumulate in
+    float32 and round once, so within one bf16 step, |got - want| <=
+    2^-7 |want| + 1e-5 max|want| (NaN where the plain version has it)."""
+    got, want = got.double(), want.double()
+    nan = want.isnan()
+    if not torch.equal(got.isnan(), nan):
+        raise AssertionError("bf16: NaN where the plain version has none, "
+                             "or the other way")
+    got, want = got[~nan], want[~nan]
+    bound = BF16_STEP * want.abs() + 1e-5 * want.abs().max()
+    over = ((got - want).abs() - bound).max().item()
+    if over > 0:
+        raise AssertionError(f"bf16: {over:.3g} past one bf16 step")
+
+
+def dtype_case(kern: str, case, dev, seed: int) -> dict:
+    """One launch of a storage variant ("<kernel>.<variant>") against its
+    plain version on the same card inputs: bf16 (or int8 x with bf16 w)
+    within one bf16 step (``bf16_check``), int8 x with float32 w at the
+    conv tolerance.  Library: the same PyTorch call in the output's dtype
+    (cuDNN ``conv2d`` [+ its epilogue], twice for a stack;
+    ``torch.softmax``), an int8 x cast to it beforehand, untimed.  The
+    bound takes each tensor at its element size and the operations at the
+    peak of the inputs' type (bf16 on the tensor cores where w is bf16,
+    fp32 where it is float32)."""
+    base, variant = kern.split(".")
+    xdt, wdt = VARIANT_DTYPES[variant]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    peak = PEAK_BF16_FLOPS if wdt is torch.bfloat16 else PEAK_FP32_FLOPS
+    check = bf16_check if wdt is torch.bfloat16 else None
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).to(wdt)
+
+    def nbytes(*ts):
+        return float(sum(t.numel() * t.element_size() for t in ts))
+
+    if base == "softmax":
+        rows, cols = case
+        x = rand(rows, cols, scale=4.0)
+        m = _measure(lambda: softmax(x), lambda: softmax_ref(x),
+                     lambda: torch.softmax(x, dim=-1), 5.0 * rows * cols,
+                     2.0 * nbytes(x), peak=peak, check=check)
+        m["device_ms"] = device_ms(lambda: softmax(x))
+        return m
+    if base == "conv_stack_chwn":
+        (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, relu2, rlay,
+         src, dst) = case
+        Ho1 = conv_out_hw(H, F1, S1, P1)
+        Ho2 = conv_out_hw(Ho1, F2, S2, P2)
+        x_nchw = rand(N, Ci, H, H)
+        w1 = rand(Cm, Ci, F1, F1, scale=1 / math.sqrt(Ci * F1 * F1))
+        w2 = rand(Co, Cm, F2, F2, scale=1 / math.sqrt(Cm * F2 * F2))
+        r_nchw = rand(N, Co, Ho2, Ho2) if rlay else None
+        x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
+        r = (r_nchw.permute(perm_between("NCHW", rlay)).contiguous()
+             if rlay else None)
+        kw = dict(relu1=relu1, relu2=relu2, pool=pool, res=r,
+                  res_layout=rlay or "CHWN", src_layout=src, dst_layout=dst)
+        w1k = w1.permute(1, 2, 3, 0).contiguous()
+        w2k = w2.permute(1, 2, 3, 0).contiguous()
+
+        def library():
+            y = nnf.conv2d(x_nchw, w1, stride=S1, padding=P1)
+            if relu1:
+                y = torch.relu_(y)
+            return _library_epilogue(nnf.conv2d(y, w2, stride=S2,
+                                                padding=P2),
+                                     r_nchw, relu2, pool)
+
+        flops = 2.0 * N * (Cm * Ho1 * Ho1 * Ci * F1 * F1
+                           + Co * Ho2 * Ho2 * Cm * F2 * F2)
+        out_hw = Ho2 if pool is None else (Ho2 - pool[0]) // pool[1] + 1
+        y_bytes = N * Co * out_hw * out_hw * 2.0
+        m = _measure(lambda: conv_stack_chwn(x, w1k, w2k, S1, P1, S2, P2,
+                                             **kw),
+                     lambda: conv_stack_ref(x, w1, w2, S1, P1, S2, P2,
+                                            **kw),
+                     library, flops,
+                     nbytes(x, w1, w2, *([r] if rlay else [])) + y_bytes,
+                     peak=peak, check=check)
+        t = stack_tiling("CHWN", N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2,
+                         pool)
+        m.update(executed_flops=float(t.executed_flops), cluster=t.cluster)
+        return m
+    N, Ci, H, Co, F, S, pad, pool, relu, rlay, src, dst = case
+    Ho = conv_out_hw(H, F, S, pad)
+    if xdt is torch.int8:   # quantized levels; the scale rides w
+        x_nchw = torch.randint(-127, 128, (N, Ci, H, H), device=dev,
+                               generator=gen, dtype=torch.int8)
+        w = rand(Co, Ci, F, F, scale=1 / (127 * math.sqrt(Ci * F * F)))
+    else:
+        x_nchw = rand(N, Ci, H, H)
+        w = rand(Co, Ci, F, F, scale=1 / math.sqrt(Ci * F * F))
+    r_nchw = rand(N, Co, Ho, Ho) if rlay else None
+    x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
+    r = (r_nchw.permute(perm_between("NCHW", rlay)).contiguous()
+         if rlay else None)
+    engine = "CHWN" if base == "conv_chwn" else "NCHW"
+    kw = dict(relu=relu, pool=pool, res=r, res_layout=rlay or engine,
+              src_layout=src, dst_layout=dst)
+    if base == "conv_chwn":
+        wk = w.permute(1, 2, 3, 0).contiguous()
+
+        def kernel():
+            return conv_direct_chwn(x, wk, S, pad, **kw)
+    else:
+        def kernel():
+            return conv_im2col_nchw_fused(x, w, S, pad, **kw)
+
+    x_lib = x_nchw.to(wdt)
+
+    def library():
+        return _library_epilogue(nnf.conv2d(x_lib, w, stride=S, padding=pad),
+                                 r_nchw, relu, pool)
+
+    out_hw = Ho if pool is None else (Ho - pool[0]) // pool[1] + 1
+    y_bytes = N * Co * out_hw * out_hw * w.element_size()
+    m = _measure(kernel, lambda: conv_ref(x, w, S, pad, **kw), library,
+                 2.0 * N * Co * Ho * Ho * Ci * F * F,
+                 nbytes(x, w, *([r] if rlay else [])) + y_bytes, peak=peak,
+                 check=check)
+    if base == "conv_chwn":
+        _k1_tile(m, case, N, Ci, H, Co, F, S, pad, pool)
+    return m
+
+
 def host_us(fn, reps: int = 500) -> float:
     """Mean host time of ``fn()`` in microseconds over ``reps`` calls,
     started on an idle card (``reps`` launches stay well inside the
@@ -871,10 +1085,10 @@ def softmax_host_steps(x) -> dict:
     ``contiguous()`` of a contiguous tensor and the stream read through
     the public ``torch.cuda.current_stream``."""
     y = torch.empty_like(x)
-    dev = _build.require_cuda_f32("softmax", x)
+    dev, variant = _build.require_cuda_storage("softmax", x)
     xp, yp, (rows, cols) = x.data_ptr(), y.data_ptr(), x.shape
     st = _build.stream_of(dev)
-    launch = _build.library().softmax_forward
+    launch = _build.entry("softmax_forward", variant)
 
     class Counter:
         launches = 0
@@ -886,11 +1100,12 @@ def softmax_host_steps(x) -> dict:
         "grad_mode": lambda: x.requires_grad and torch.is_grad_enabled(),
         "dim": lambda: x.dim(),
         "on_cpu": lambda: _build.on_cpu("softmax", x),
-        "require_cuda_f32": lambda: _build.require_cuda_f32("softmax", x),
+        "require_cuda_storage": lambda: _build.require_cuda_storage(
+            "softmax", x),
         "shape": lambda: x.shape,
         "alloc": lambda: torch.empty_like(x),
         "data_ptr": lambda: (x.data_ptr(), y.data_ptr()),
-        "library_lookup": lambda: _build.library().softmax_forward,
+        "library_lookup": lambda: _build.entry("softmax_forward", variant),
         "stream_of": lambda: _build.stream_of(dev),
         "ctypes_launch": lambda: launch(xp, yp, rows, cols, st),
         "check": lambda: _build.check("softmax", 0),
@@ -1364,9 +1579,19 @@ def kernel_phase(dev):
     for kern, case in OFF_PATH.items():
         mult[(kern, case)] = {"network": "vgg16", "kernel": kern,
                               "case": case, "launches": 0}
+    for network, bucket, policy, stack in DTYPE_SERVED:
+        cfg, plan = dtype_plan(network, bucket, policy, stack)
+        add(network, f"bucket={bucket} bf16 {policy} stack={stack}",
+            fused_launches(cfg, plan))
+    for kern, case in CALIBRATION_ONLY.items():
+        # its launches are the calibration's, counted by the dtype phase
+        mult[(kern, case)] = {"network": "calibration", "kernel": kern,
+                              "case": case, "launches": 0, "one_case": True}
     for i, ((kern, case), row) in enumerate(mult.items()):
         t0 = time.perf_counter()
-        if kern == "softmax":
+        if "." in kern:
+            m = dtype_case(kern, case, dev, i)
+        elif kern == "softmax":
             m = softmax_case(case, dev, i)
         elif kern == "softmax_xent":
             m = xent_case(case, dev, i)
@@ -1420,7 +1645,15 @@ def kernel_phase(dev):
                      f"plain_device_ms={m['plain_device_ms']:.5f} "
                      f"library_device_ms={m['library_device_ms']:.5f} "
                      f"host_us: {host}")
-        if kern in ("conv_chwn", "conv_nchw"):
+        if "." in kern:
+            extra = f" TFLOP/s={m['flops'] / m['ms'] / 1e9:.1f}"
+            if "cluster" in m:
+                extra += (f" executed/direct="
+                          f"{m['executed_flops'] / m['flops']:.3f} "
+                          f"cluster={m['cluster']}")
+            if "device_ms" in m:
+                extra = f" device_ms={m['device_ms']:.5f}"
+        elif kern in ("conv_chwn", "conv_nchw"):
             extra = (f" f64_err={m['f64_err']:.3g} TFLOP/s="
                      f"{m['flops'] / m['ms'] / 1e9:.1f} "
                      f"bound_3xtf32_ms={m['design_bound_ms']:.4f}")
@@ -1588,6 +1821,179 @@ def planned(network: str, bucket: int, stack: str = "auto"):
     on its default, H100, profile): what a plan-cache miss plans."""
     cfg = CNN_CONFIGS[network].replace(batch=bucket)
     return cfg, plan_network_fused(cfg, stack_policy=stack)
+
+
+def dtype_plan(network: str, bucket: int, policy: str, stack: str):
+    """(cfg at ``bucket``, the bf16 plan the port's planner makes for it on
+    the H100 profile at ``policy`` and ``stack``): what the dtype phase's
+    servers plan on their miss."""
+    cfg = CNN_CONFIGS[network].replace(batch=bucket)
+    return cfg, plan_network_fused(cfg, dtype="bfloat16", policy=policy,
+                                   stack_policy=stack)
+
+
+def _variant_only(counts) -> dict:
+    """The variant launches of ``K.variant_launch_counts()``-style counts
+    that are not 0."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _warm(fn) -> dict:
+    """Warm device ms (CUDA events) and the peak device memory over what
+    was allocated before, of one call of ``fn``."""
+    return {"ms": cuda_ms(fn, max_reps=20),
+            "peak_over_base_bytes": _peak_over_base(fn)}
+
+
+def dtype_phase(dev):
+    """bf16 storage and int8 boundaries on the main path (``DTYPE_SERVED``):
+    each network served through ``CNNServer(reduced=False, dtype="bf16",
+    dtype_policy=...)`` from an empty plan cache, calibration "measured"
+    into a threshold file the phase shares (so each dtype's Fig. 4 sweep
+    runs once: the first server measures the bf16 row on K1 and K2 in
+    bf16, the first mixed one the int8 row on K1 and K2 on int8 x with
+    float32 w).  Counts are zeroed before each server is made (its
+    calibration's launches) and again just before its batch (the plan's:
+    they must equal ``fused_launches`` of the plan the kernel phase
+    measured, by variant, and no float32 launch).  Then, not counted, on
+    the same seed-0 weights: bf16 uniform probabilities within 0.0625 of
+    the float32 forward (packaged plan), mixed ones within 2e-2 of the
+    bf16 stack="off" forward, and the warm forward ms and peak device
+    memory of the served plan, bf16 uniform and float32.  Returns (the
+    serving runs' launches by variant, the calibration's, a record)."""
+    serve = Counter()
+    calib = Counter()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        th_path = os.path.join(tmp, "thresholds.json")
+        measured = {}
+        for network, bucket, policy, stack in DTYPE_SERVED:
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            srv = CNNServer(network, reduced=False, max_bucket=bucket, seed=0,
+                            stack=stack, dtype="bf16", dtype_policy=policy,
+                            calibration="measured", calib_path=th_path,
+                            cache_path=os.path.join(
+                                tmp, f"{network}-{policy}-{stack}.json"))
+            setup_s = time.perf_counter() - t0
+            cal = _variant_only(K.variant_launch_counts())
+            calib.update(cal)
+            rows_th = {}
+            for row, var in (("bfloat16", "bf16"), ("int8", "i8f32")):
+                if row not in srv.rows:
+                    continue
+                th = srv.cache.thresholds_for(row, srv._hw)
+                k1 = cal.get(f"conv_chwn.{var}", 0)
+                k2 = cal.get(f"conv_nchw.{var}", 0)
+                if k1 and k2:
+                    measured[row] = (network, k1, k2)
+                elif row not in measured:
+                    raise AssertionError(f"{network}: the {row} row was "
+                                         "neither measured nor read back")
+                rows_th[row] = {"Ct": th.Ct, "Nt": th.Nt,
+                                "measured_by": measured[row][0],
+                                "K1_launches": measured[row][1],
+                                "K2_launches": measured[row][2]}
+            cfg, want_plan = dtype_plan(network, bucket, policy, stack)
+            rng = np.random.default_rng(7)
+            images = [rng.standard_normal(
+                (cfg.in_channels, cfg.image_hw, cfg.image_hw), np.float32)
+                for _ in range(bucket)]
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            done = srv.run([ImageRequest(i, im)
+                            for i, im in enumerate(images)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            base, var = K.launch_counts(), _variant_only(
+                K.variant_launch_counts())
+            plan = srv.cache.peek_fused(srv.cfg, bucket, dtype="bf16",
+                                        policy=policy, stack=stack)
+            if plan != want_plan:
+                raise AssertionError(f"{network}: the server planned "
+                                     "another plan than the kernel phase's")
+            want = dict(Counter(k for k, _ in fused_launches(cfg, plan)))
+            f32 = {k: n - sum(v for kv, v in var.items()
+                              if kv.split(".")[0] == k)
+                   for k, n in base.items()}
+            if var != want or any(f32.values()):
+                raise AssertionError(
+                    f"{network} bf16 {policy}: launches {var} (float32 "
+                    f"{_variant_only(f32)}) != the plan's {want}")
+            serve.update(var)
+            got = np.stack([done[i] for i in range(bucket)])
+            if not np.isfinite(got).all():
+                raise AssertionError(f"{network}: non-finite answers")
+
+            # not counted from here: the references and the timings
+            x32 = torch.from_numpy(np.stack(images)).to(dev)
+            x16 = x32.to(torch.bfloat16)
+            p16 = srv.model.params()
+            p32 = params_from_numpy(init_cnn(cfg, 0), dev)
+            packaged = PlanCache(str(packaged_plans(network))).peek_fused(
+                cfg, bucket, stack=stack if policy == "uniform" else "off")
+            y32, _ = forward_fused(p32, x32, cfg, packaged)
+            _, off16 = dtype_plan(network, bucket, "uniform", "off")
+            y_off, _ = forward_fused(p16, x16, cfg, off16)
+            d32 = float(np.abs(got - y32.float().cpu().numpy()).max())
+            d_off = float(np.abs(got - y_off.float().cpu().numpy()).max())
+            if policy == "uniform" and d32 > BF16_PROBS_ATOL:
+                raise AssertionError(f"{network} bf16: probabilities "
+                                     f"{d32:.3g} from float32 > "
+                                     f"{BF16_PROBS_ATOL}")
+            if policy == "mixed" and d_off > INT8_FORWARD_ATOL:
+                raise AssertionError(f"{network} bf16 mixed: probabilities "
+                                     f"{d_off:.3g} from bf16 stack=off > "
+                                     f"{INT8_FORWARD_ATOL}")
+            warm = {"served": _warm(lambda: forward_fused(p16, x16, cfg,
+                                                          plan)),
+                    "bf16_off": _warm(lambda: forward_fused(p16, x16, cfg,
+                                                            off16)),
+                    "fp32": _warm(lambda: forward_fused(p32, x32, cfg,
+                                                        packaged))}
+            row = {"network": network, "bucket": bucket, "policy": policy,
+                   "stack": stack, "conv_dtypes": plan.dtype_signature,
+                   "conv_layouts": plan.conv_signature,
+                   "stacks": plan.stacked_convs, "launches": var,
+                   "calibration_launches": cal, "rows": rows_th,
+                   "max_diff_fp32": d32, "max_diff_bf16_off": d_off,
+                   "setup_s": setup_s, "serve_s": wall, "warm": warm,
+                   "fp32_stack": stack if policy == "uniform" else "off"}
+            rows.append(row)
+            th_txt = " ".join(
+                f"{r}: Ct={v['Ct']} Nt={v['Nt']} (measured by the "
+                f"{v['measured_by']} server: K1 {v['K1_launches']}, K2 "
+                f"{v['K2_launches']} launches)" for r, v in rows_th.items())
+            print(f"dtype serve {network} bucket={bucket} bf16 "
+                  f"policy={policy} stack={stack}: {bucket} requests in "
+                  f"{wall:.3f}s (server made in {setup_s:.1f}s), "
+                  f"conv_dtypes={plan.dtype_signature} layouts="
+                  f"{plan.conv_signature} stacks={plan.stacked_convs}, "
+                  f"launches {var} (= the plan's), calibration launches "
+                  f"{cal}; max |probs - fp32| = {d32:.3g}"
+                  + (f" (<= {BF16_PROBS_ATOL})" if policy == "uniform"
+                     else "")
+                  + f", max |probs - bf16 off| = {d_off:.3g}"
+                  + (f" (<= {INT8_FORWARD_ATOL})" if policy == "mixed"
+                     else "")
+                  + f"; thresholds {th_txt}", flush=True)
+            print(f"dtype forward {network} bucket={bucket}: "
+                  + "; ".join(
+                      f"{label} {w['ms']:.3f} ms, peak "
+                      f"+{w['peak_over_base_bytes'] / 2**20:.1f} MiB"
+                      for label, w in (
+                          (f"bf16 {policy} {stack}", warm["served"]),
+                          ("bf16 uniform off", warm["bf16_off"]),
+                          (f"fp32 {row['fp32_stack']}", warm["fp32"]))),
+                  flush=True)
+            for line in srv.report_lines():
+                print(line)
+            del srv, p16, p32, x16, x32
+            torch.cuda.empty_cache()
+    for row in ("bfloat16", "int8"):
+        if row not in measured:
+            raise AssertionError(f"no server measured the {row} row")
+    return dict(serve), dict(calib), rows
 
 
 def calibration_sweep(dev):
@@ -2394,6 +2800,7 @@ def kernels_line(cases, launches) -> dict:
     out = []
     for kern, meta in KERNELS.items():
         rows = [r for r in cases if r["kernel"] == kern]
+        launches.setdefault(kern, 0)
         if sum(r["launches"] for r in rows) != launches[kern]:
             raise AssertionError(f"{kern}: measured cases cover "
                                  f"{sum(r['launches'] for r in rows)} "
@@ -2407,10 +2814,13 @@ def kernels_line(cases, launches) -> dict:
         elif launches[kern] == 0:
             raise AssertionError(f"{kern} was not launched on the main path")
 
-        def total(key):
-            return sum(r[key] * (r["launches"] or 1) for r in rows)
+        def weight(r):   # a calibration-only variant: its one case
+            return 1 if r.get("one_case") else (r["launches"] or 1)
 
-        t_ops = sum(r["flops"] * (r["launches"] or 1)
+        def total(key):
+            return sum(r[key] * weight(r) for r in rows)
+
+        t_ops = sum(r["flops"] * weight(r)
                     / r.get("peak_flops", PEAK_FP32_FLOPS) for r in rows)
         t_bytes = total("bytes") / PEAK_HBM_BYTES
         entry = {"name": kern, **meta, "launches": launches[kern],
@@ -2454,8 +2864,9 @@ def main() -> int:
 
     t_start = t0 = time.perf_counter()
     ptxas = io.StringIO()
-    lib = _build.build(log=ptxas)
-    _build.library()
+    lib = _build.build(log=ptxas, variants=_build.ALL_VARIANTS)
+    for variant in _build.ALL_VARIANTS:
+        _build.library(variant)
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f}s -> {lib.relative_to(REPO)}", flush=True)
 
@@ -2473,6 +2884,15 @@ def main() -> int:
         t0 = time.perf_counter()
         launches = serving_phase(dev, th)
         print(f"serving phase: {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        dtype_counts, calib_counts, dtyped = dtype_phase(dev)
+        for k, v in dtype_counts.items():
+            launches[k] = launches.get(k, 0) + v
+        for r in cases:
+            if r.get("one_case"):
+                r["launches"] = launches[r["kernel"]] = calib_counts.get(
+                    r["kernel"], 0)
+        print(f"dtype phase: {time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         planner_counts, planner = planner_phase(dev, th)
         planner["calibration"] = calib
@@ -2525,6 +2945,7 @@ def main() -> int:
                                    "table1": table1, "fig13": fig13,
                                    "softmax_variants": variants,
                                    "training": trained,
+                                   "dtype": dtyped,
                                    "ptxas": ptxas.getvalue()}, indent=1))
     print(json.dumps(line))
     print(card)

@@ -27,11 +27,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import CNNConfig
+from repro_torch.dtypes import DEFAULT_DTYPE, torch_dtype
 from repro_torch.kernels.conv.ops import (conv_direct_chwn,
                                           conv_fft_nchw,
                                           conv_im2col_nchw_fused,
                                           conv_stack_chwn, conv_stack_nchw)
-from repro_torch.kernels.conv.ref import conv_ref
+from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref
 from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw
 from repro_torch.kernels.pool.ref import pool_ref
 from repro_torch.kernels.softmax.ops import softmax as softmax_kernel
@@ -92,17 +93,17 @@ def fused_conv_stack(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
     [+pool] executed natively in ``layout``.  ``w1``/``w2`` are canonical
     [Co, Ci, F, F].  ``impl="cuda"`` runs it as ONE kernel (K5a for CHWN,
     K5b for NCHW) whose mid activation never reaches device memory;
-    ``impl="torch"`` decomposes it into two conv blocks (the oracle)."""
+    ``impl="torch"`` runs its plain version ``conv_stack_ref`` (the
+    oracle: two convs, the mid kept float32 as the kernels keep it)."""
     _check_impl(impl)
     src = src_layout or layout
     dst = dst_layout or layout
     rlay = res_layout or layout
-    if impl == "torch":
-        y = fused_conv_block(x, w1, layout, stride1, pad1, relu=relu1,
-                             src_layout=src, impl="torch")
-        return fused_conv_block(y, w2, layout, stride2, pad2, relu=relu2,
-                                pool=pool, res=res, res_layout=rlay,
-                                dst_layout=dst, impl="torch")
+    if impl == "torch":                   # the mid stays float32
+        return conv_stack_ref(x, w1, w2, stride1, pad1, stride2, pad2,
+                              relu1=relu1, relu2=relu2, pool=pool, res=res,
+                              res_layout=rlay, src_layout=src,
+                              dst_layout=dst)
     kw = dict(relu1=relu1, relu2=relu2, pool=pool, res=res, res_layout=rlay,
               src_layout=src, dst_layout=dst)
     if layout == "CHWN":
@@ -157,9 +158,15 @@ def flatten_forward(x: torch.Tensor, layout: str) -> torch.Tensor:
 
 def fc_forward(x2d: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
-    """y = xW + b, accumulated in float32 (``torch.matmul``; TF32 must be
-    off for fp32 exactness: ``torch.backends.cuda.matmul.allow_tf32``)."""
-    y = torch.matmul(x2d.float(), w.float())
+    """y = xW + b, accumulated in float32 and rounded once to x's dtype
+    (``torch.matmul``; TF32 must be off for fp32 exactness:
+    ``torch.backends.cuda.matmul.allow_tf32``).  A bf16 product on the card
+    asks cuBLAS for its float32 sums (``out_dtype``) rather than copy W to
+    float32: VGG16's fc6 alone would be a 411 MB copy a forward."""
+    if x2d.dtype is torch.bfloat16 and x2d.is_cuda:
+        y = torch.mm(x2d, w, out_dtype=torch.float32)
+    else:
+        y = torch.matmul(x2d.float(), w.float())
     return (y + b.float()).to(x2d.dtype)
 
 
@@ -259,13 +266,18 @@ def layer_shapes(cfg: CNNConfig) -> List[Tuple[int, ...]]:
     return out
 
 
-def init_cnn(cfg: CNNConfig, seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
-    """Random float32 weights as a numpy tree {layer: {"w": ..., "b": ...}}:
-    conv w [Co, Ci, F, F] ~ N(0, 1/(Ci*F*F)), fc w [in, out] ~ N(0, 1/in)
-    and b = 0, the reference ``init_cnn``'s distribution.  The numbers come
-    from ``numpy.random.default_rng(seed)``, so both packages can be handed
-    the same tree (``params_from_numpy`` here, ``jnp.asarray`` there)."""
+def init_cnn(cfg: CNNConfig, seed: int = 0,
+             dtype: str = DEFAULT_DTYPE) -> Dict[str, Dict[str, np.ndarray]]:
+    """Random weights as a numpy tree {layer: {"w": ..., "b": ...}}: conv
+    w [Co, Ci, F, F] ~ N(0, 1/(Ci*F*F)), fc w [in, out] ~ N(0, 1/in) and
+    b = 0, the reference ``init_cnn``'s distribution.  The numbers come
+    from ``numpy.random.default_rng(seed)`` in float32, so both packages
+    can be handed the same tree (``params_from_numpy`` here, ``jnp.asarray``
+    there).  A narrower float ``dtype`` (bf16) rounds each weight once, to
+    nearest even; the tree still holds float32 arrays, whose values
+    ``params_from_numpy(..., dtype)`` then casts exactly."""
     rng = np.random.default_rng(seed)
+    tdt = torch_dtype(dtype)
     params: Dict[str, Dict[str, np.ndarray]] = {}
     rins = resolved_cfg_inputs(cfg)
     shapes = layer_shapes(cfg)
@@ -275,8 +287,10 @@ def init_cnn(cfg: CNNConfig, seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
         return cfg.in_channels if p < 0 else shapes[p][1]
 
     def normal(shape, std) -> np.ndarray:
-        return (rng.standard_normal(shape, dtype=np.float32)
-                * np.float32(std))
+        v = rng.standard_normal(shape, dtype=np.float32) * np.float32(std)
+        if tdt is torch.float32:
+            return v
+        return torch.from_numpy(v).to(tdt).float().numpy()
 
     for i, spec in enumerate(cfg.layers):
         if spec.kind == "conv":
@@ -293,10 +307,14 @@ def init_cnn(cfg: CNNConfig, seed: int = 0) -> Dict[str, Dict[str, np.ndarray]]:
     return params
 
 
-def params_from_numpy(tree: Dict[str, Dict[str, np.ndarray]],
-                      device) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The same tree as float32 tensors on ``device``."""
-    return {layer: {k: torch.as_tensor(np.asarray(v, np.float32),
-                                       device=device)
+def params_from_numpy(tree: Dict[str, Dict[str, np.ndarray]], device,
+                      dtype: str = DEFAULT_DTYPE
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The same tree as tensors of the storage ``dtype`` on ``device``.
+    The arrays pass through float32 (exact for a bf16 array of the JAX
+    package), then are cast once, to nearest even."""
+    tdt = torch_dtype(dtype)
+    return {layer: {k: torch.as_tensor(np.asarray(v, np.float32)).to(
+                        device=device, dtype=tdt)
                     for k, v in p.items()}
             for layer, p in tree.items()}

@@ -21,9 +21,14 @@ Two executors, as in the reference:
 Both report ``RunStats``: the modeled device-memory traffic with the
 reference's accounting, so the two packages report the same bytes for the
 same plan; ``training=True`` adds the backward pass's bytes
-(``bwd_hbm_bytes``).  Both run at one uniform dtype; int8 storage
-boundaries raise ``NotImplementedError``.  ``FusedCNN`` owns the
-parameters for a server.
+(``bwd_hbm_bytes``).  The unfused executor runs one uniform dtype.  The
+fused one runs float32 or bf16 plans, and mixed-dtype plans whose interior
+conv chains store int8: the producing conv's output is quantized per
+channel (``repro_torch.quant``), and the consuming conv takes the int8
+tensor with the scale folded into its weights (K1/K2 widen it to float32
+as they load it); ``training`` carries such a boundary as a
+straight-through float instead.  ``FusedCNN`` owns the parameters for a
+server, in its storage dtype.
 
 Training, as the reference's: ``make_train_step_fused`` is SGD with
 momentum over ``loss_fn_fused``, the fused forward whose backward flows
@@ -50,9 +55,11 @@ from repro_torch.core.selector import (FusedPlan, LayerDesc,
                                        paper_heuristic_layouts, plan_fused)
 from repro_torch.core.transform import apply_transform
 from repro_torch.dtypes import (DEFAULT_DTYPE, INT8_DTYPE, canon_dtype,
-                                dtype_bytes)
+                                dtype_bytes, torch_dtype)
 from repro_torch.perfmodel import (CostModel, Thresholds, calibrate,
                                    conv_backward_bytes, default_cost_model)
+from repro_torch.quant import (dequantize, fake_quant,
+                               fold_scale_into_weights, quantize)
 
 MODES = ("cuda-convnet", "cudnn", "opt")
 
@@ -132,7 +139,7 @@ def plan_network_fused(cfg: CNNConfig, dtype: str = DEFAULT_DTYPE,
     """Fused execution plan: the layout DP with fold-aware edges and chain
     fusion (``plan_fused``), at the storage ``dtype`` (it scales every byte
     model and the granules).  ``policy="mixed"`` searches per-layer (layout,
-    storage dtype) states (the executors here run uniform plans only);
+    storage dtype) states (``forward_fused`` runs its int8 boundaries);
     ``stack_policy="auto"`` fuses the conv->conv stacks the cost model's
     stack gate admits and finds profitable, ``"off"`` none.  The cost model
     is the port's default (the H100 profile) unless one is passed."""
@@ -201,6 +208,21 @@ def _acct_pool(stats: RunStats, in_b: int, out_b: int,
 
 def _is_int8(dtype_name: str) -> bool:
     return bool(dtype_name) and canon_dtype(dtype_name) == INT8_DTYPE
+
+
+def _stored_nbytes(x: torch.Tensor, dtype_name: str) -> int:
+    """Device-memory bytes of ``x`` as stored under the plan's declared
+    dtype: the training path carries int8 boundaries as straight-through
+    floats, so the declared int8 wins over the tensor's own element size
+    (the per-channel scale vectors are not counted, as in the
+    reference)."""
+    if _is_int8(dtype_name):
+        return x.numel()
+    return _nbytes(x)
+
+
+def _channel_axis(layout: str) -> int:
+    return 0 if layout == "CHWN" else 1
 
 
 def forward(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
@@ -314,7 +336,17 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
     engines; ``training`` also accounts its backward (activation stash,
     one-kernel pool+mask backward, dgrad/wgrad with the re-layouts folded,
     the stack's replay) in ``stats.bwd_hbm_bytes``, as the reference
-    prices it."""
+    prices it.
+
+    Mixed-dtype plans store int8 boundaries between conv chains.
+    Inference carries real int8 tensors: the producing conv's output is
+    quantized per channel (``quantize``), and the consuming conv folds the
+    scale into its weights and takes the int8 tensor (on the card, K1/K2's
+    int8-input variants).  ``training`` keeps the carrier in the float
+    dtype with a straight-through quantize -> dequantize at each boundary
+    (``fake_quant``); the byte model prices those boundaries at 1 byte an
+    element either way.  A stack op never takes or stores int8 (no plan
+    makes one, and no stack kernel takes int8): it raises."""
     stats = RunStats()
     nref: Dict[int, int] = {}
     for op in plan.ops:
@@ -322,16 +354,18 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
             nref[p] = nref.get(p, 0) + 1
         if op.res_index is not None:
             nref[op.res_index] = nref.get(op.res_index, 0) + 1
-    outs: Dict[int, Tuple[torch.Tensor, str]] = {-1: (x_nchw, "NCHW")}
+    # producer index -> (tensor, layout, per-channel int8 scale or None)
+    outs: Dict[int, Tuple[torch.Tensor, str, Optional[torch.Tensor]]] = {
+        -1: (x_nchw, "NCHW", None)}
     prev_key = -1
 
-    def take(p: int) -> Tuple[torch.Tensor, str]:
-        t, t_lay = outs[p]
+    def take(p: int) -> Tuple[torch.Tensor, str, Optional[torch.Tensor]]:
+        t, t_lay, qs = outs[p]
         left = nref.get(p, 1) - 1    # legacy plans: single consumer
         nref[p] = left
         if left <= 0:
             outs.pop(p, None)
-        return t, t_lay
+        return t, t_lay, qs
 
     def retuned(t: torch.Tensor, t_lay: str, lay: str) -> torch.Tensor:
         """Standalone re-layout (no kernel absorbed it), with accounting."""
@@ -344,12 +378,20 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
 
     for op in plan.ops:
         spec = cfg.layers[op.index]
-        x, cur = take(op.inputs[0] if op.inputs else prev_key)
-        if _is_int8(op.src_dtype) or _is_int8(op.dst_dtype):
-            raise NotImplementedError(
-                f"op {op.name!r} stores int8; mixed-dtype plans are not "
-                "ported yet: run a policy='uniform' plan")
+        x, cur, qscale = take(op.inputs[0] if op.inputs else prev_key)
+        out_q = None                 # per-channel scale of an int8 output
+        if op.kind != "conv" and x.dtype == torch.int8:
+            # plans never route int8 into a non-conv op, but a hand-built
+            # plan must not feed int8 to a float kernel
+            x = dequantize(x, qscale, _channel_axis(cur),
+                           torch_dtype(plan.base_dtype or DEFAULT_DTYPE))
+            qscale = None
         if op.kind == "conv" and op.stack_index is not None:
+            if (x.dtype == torch.int8 or _is_int8(op.src_dtype)
+                    or _is_int8(op.dst_dtype)):
+                raise NotImplementedError(
+                    f"stack op {op.name!r} takes or stores int8: no stack "
+                    "kernel takes int8 (mixed-dtype plans never stack)")
             # conv->conv stack: ``op.index`` is conv1, ``op.stack_index``
             # conv2; the mid activation stays on chip, so the bytes are the
             # input, both weights and the final output (+ the skip's read)
@@ -361,9 +403,9 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
                 pool = (ps.kernel, ps.stride, ps.pool_op)
             res = res_lay = None
             if op.res_index is not None:   # residual folds into conv2
-                res, res_lay = take(op.res_index)
+                res, res_lay, _ = take(op.res_index)
                 stats.hbm_bytes += _nbytes(res)
-            in_b = _nbytes(x)
+            in_b = _stored_nbytes(x, op.src_dtype)
             if training:
                 # a training run over a stack replays the unfused pair, so
                 # price both convs plus the rematerialized mid round trip
@@ -388,7 +430,7 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
                                     res_layout=res_lay, src_layout=cur,
                                     dst_layout=op.dst_layout, impl=impl)
             stats.hbm_bytes += (in_b + _nbytes(p1["w"]) + _nbytes(p2["w"])
-                                + _nbytes(x))
+                                + _stored_nbytes(x, op.dst_dtype))
             stats.fused_ops += 1
             cur = op.dst_layout
         elif op.kind == "conv":
@@ -399,21 +441,31 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
                 pool = (ps.kernel, ps.stride, ps.pool_op)
             res = res_lay = None
             if op.res_index is not None:   # folded residual add: the skip
-                res, res_lay = take(op.res_index)
+                res, res_lay, _ = take(op.res_index)
                 stats.hbm_bytes += _nbytes(res)   # epilogue's second read
-            in_b = _nbytes(x)
+            in_b = _stored_nbytes(x, op.src_dtype)
             if training:
                 desc = _conv_desc(spec, x, cur, cfg.batch, cfg.name)
                 stats.bwd_hbm_bytes += conv_backward_bytes(
                     desc, op.layout, x.element_size(), relu=op.relu,
                     pool=pool[:2] if pool else None, bias="b" in p,
                     fused=True, residual=res is not None)
-            x = CL.fused_conv_block(x, p["w"], op.layout, spec.stride,
+            w = p["w"]
+            if x.dtype == torch.int8:      # the dequant folds into w
+                w = fold_scale_into_weights(w, qscale)
+                qscale = None
+            x = CL.fused_conv_block(x, w, op.layout, spec.stride,
                                     spec.pad, bias=p.get("b"), relu=op.relu,
                                     pool=pool, res=res, res_layout=res_lay,
                                     src_layout=cur, dst_layout=op.dst_layout,
                                     impl=impl)
-            stats.hbm_bytes += in_b + _nbytes(p["w"]) + _nbytes(x)
+            if _is_int8(op.dst_dtype):     # the storage cast of its output
+                if training:               # straight-through float carrier
+                    x = fake_quant(x, _channel_axis(op.dst_layout))
+                else:                      # real int8 storage
+                    x, out_q = quantize(x, _channel_axis(op.dst_layout))
+            stats.hbm_bytes += (in_b + _nbytes(p["w"])
+                                + _stored_nbytes(x, op.dst_dtype))
             if "b" in p:
                 stats.hbm_bytes += _nbytes(p["b"])
             if op.is_fused:          # folded an epilogue or a re-layout
@@ -446,14 +498,15 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
             x = CL.softmax_forward(x, impl=impl)
             _acct_eltwise(stats, x, training)
         elif op.kind == "add":       # standalone residual add (un-folded)
-            b2, b_lay = take(op.inputs[1])
+            b2, b_lay, _ = take(op.inputs[1])
             x = retuned(x, cur, op.layout) + retuned(b2, b_lay, op.layout)
             cur = op.layout
             # fwd: read both operands + write; bwd: pure gradient fan-out
             _acct(stats, 3 * _nbytes(x), 0, training)
         elif op.kind == "concat":
             parts = [retuned(x, cur, op.layout)]
-            parts += [retuned(*take(p), op.layout) for p in op.inputs[1:]]
+            parts += [retuned(*take(p)[:2], op.layout)
+                      for p in op.inputs[1:]]
             x = CL.concat_forward(parts, op.layout)
             cur = op.layout
             _acct(stats, 2 * _nbytes(x), 2 * _nbytes(x), training)
@@ -465,7 +518,7 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
         else:
             raise ValueError(f"unknown op kind {op.kind!r}")
         prev_key = op.out_index if op.out_index >= 0 else op.index
-        outs[prev_key] = (x, cur)
+        outs[prev_key] = (x, cur, out_q)
     return x, stats
 
 
@@ -559,20 +612,21 @@ def init_velocity(params: Dict) -> Dict:
 
 
 class FusedCNN(nn.Module):
-    """The parameters of one network, for a server: ``forward`` runs a
-    fused plan over them.  On a CPU ``device`` the "cuda" engine runs the
-    kernels' plain versions."""
+    """The parameters of one network, for a server, in its storage
+    ``dtype`` (float32 or bf16; cast once from the tree, to nearest
+    even): ``forward`` runs a fused plan over them.  On a CPU ``device``
+    the "cuda" engine runs the kernels' plain versions."""
 
     def __init__(self, cfg: CNNConfig, tree: Dict[str, Dict[str, np.ndarray]],
-                 device: torch.device):
+                 device: torch.device, dtype: str = DEFAULT_DTYPE):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleDict({
             name: nn.ParameterDict({
-                k: nn.Parameter(torch.as_tensor(v, device=device),
-                                requires_grad=False)
-                for k, v in p.items()})
-            for name, p in tree.items()})
+                k: nn.Parameter(t, requires_grad=False)
+                for k, t in p.items()})
+            for name, p in CL.params_from_numpy(tree, device,
+                                                dtype).items()})
 
     def params(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The parameters as the executor's {layer: {"w", "b"}} tree."""

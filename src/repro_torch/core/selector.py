@@ -29,8 +29,9 @@ the chain code path.
 With ``dtype_policy="mixed"`` both DPs search per-layer (layout, storage
 dtype) states: interior conv chains may store int8 where both casts fold
 (``plan_fused``), or pay standalone cast passes (``assign_layouts``, which
-therefore never picks int8).  The port's executors run uniform plans; int8
-boundaries raise there.
+therefore never picks int8).  The fused executor runs those int8
+boundaries (``cnn.network.forward_fused``); the unfused one runs uniform
+layouts only.
 
 Every expression keeps the reference's operation order, so under a
 profile built from the reference's constants the two packages' plans are

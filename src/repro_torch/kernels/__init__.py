@@ -16,7 +16,9 @@ conv ``conv.ops.conv_im2col_nchw``), the flash attention K11
 entropy K12 (``crossentropy.ops.fused_xent``).
 dgrad has no kernel of its own: it runs on K1/K2.  Each wrapper counts the
 kernels it launches; ``launch_counts``/``reset_launch_counts`` read and
-zero them.
+zero them.  K1, K2, K5a and K4 also take narrow storage dtypes (bf16; int8
+x into K1 and K2), and count those launches by variant as well:
+``variant_launch_counts`` reads them as "<wrapper>.<variant>".
 """
 from __future__ import annotations
 
@@ -60,6 +62,16 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
+def variant_launch_counts() -> Dict[str, int]:
+    """Launches of each narrow storage variant, as "<wrapper>.<variant>"
+    (e.g. "conv_chwn.bf16", "conv_nchw.i8bf16"); each also counts in its
+    wrapper's ``launch_counts``."""
+    return {f"{name}.{v}": n for name, fn in WRAPPERS.items()
+            for v, n in getattr(fn, "variant_launches", {}).items()}
+
+
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+        for v in getattr(fn, "variant_launches", {}):
+            fn.variant_launches[v] = 0

@@ -12,6 +12,15 @@ must work on a machine without ``nvcc``), into
 source and the flags, so an edited source rebuilds and an unchanged one
 loads the cached library.  Each C entry point takes its pointers and the
 CUDA stream as ``void*`` and returns ``cudaGetLastError()`` as an int.
+
+The serving path's kernels also take narrow storage dtypes (K1 and K2:
+bf16, and int8 x with float32 or bf16 weights; K5a and K4: bf16).  Each
+such variant (``VARIANTS``) is the same source compiled again with
+``-DREPRO_VARIANT_<NAME>``, which defines the variant's entry points,
+``<entry>_<variant>``, into a library of its own.  A variant's library
+builds the first time a launch needs it (``library(variant)``), so a
+float32 run never compiles them; ``build(variants=ALL_VARIANTS)`` compiles
+every library at once, one ``nvcc`` a (source, variant), all in parallel.
 """
 from __future__ import annotations
 
@@ -22,7 +31,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List, Optional, TextIO
+from typing import Dict, List, Optional, Sequence, TextIO, Tuple
 
 import torch
 
@@ -75,9 +84,29 @@ SIGNATURES: Dict[str, List] = {
     "xent_forward": [P] * 5 + [I] * 3 + [F] + [I] * 3 + [P],
 }
 
-_lib: Optional[ctypes.CDLL] = None
-_F32 = torch.float32
+# the storage-dtype variants: variant -> (its sources, relative to this
+# directory, and the entry points each defines with the suffix _<variant>)
+_CONV = ("conv/csrc/conv_chwn.cu", "conv/csrc/conv_nchw.cu")
+_CONV_ENTRIES = ("conv_chwn_forward", "conv_nchw_forward")
+VARIANTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
+    "bf16": (_CONV + ("conv/csrc/conv_stack_chwn.cu",
+                      "softmax/csrc/softmax.cu"),
+             _CONV_ENTRIES + ("conv_stack_chwn_forward", "softmax_forward")),
+    "i8f32": (_CONV, _CONV_ENTRIES),     # int8 x, float32 w
+    "i8bf16": (_CONV, _CONV_ENTRIES),    # int8 x, bf16 w
+}
+ALL_VARIANTS = ("",) + tuple(VARIANTS)   # "" is the float32 library
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, Dict[str, object]] = {}   # variant -> name -> entry
+_F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
 _MAX_NUMEL = 2 ** 31     # the kernels index with 32-bit ints
+# the (x, w) storage dtypes of the conv kernels K1 and K2 -> the variant
+# that computes them: bias, residual and output are w's dtype
+CONV_VARIANTS = {(_F32, _F32): "", (_BF16, _BF16): "bf16",
+                 (_I8, _F32): "i8f32", (_I8, _BF16): "i8bf16"}
+# the storage dtypes of a float kernel (K5a, K4), every tensor x's
+FLOAT_VARIANTS = {_F32: "", _BF16: "bf16"}
 
 
 class KernelBuildError(RuntimeError):
@@ -114,68 +143,107 @@ def source_hash() -> str:
     return h.hexdigest()[:16]
 
 
-def build(log: Optional[TextIO] = None) -> Path:
-    """Compile every source (in parallel) and link the library; returns
-    its path.  A cached library with the same source hash is reused.  With
-    ``log``, each kernel's registers, shared memory and spills
-    (``ptxas -v``) are written to it."""
+def _lib_name(variant: str) -> str:
+    return LIB_NAME if not variant else LIB_NAME.replace(
+        ".so", f"_{variant}.so")
+
+
+def _units(variant: str) -> List[Tuple[Path, List[str]]]:
+    """The (source, extra nvcc flags) compiled into ``variant``'s library;
+    every library holds ``errors.cu`` (the error text ``check`` reads)."""
+    if not variant:
+        return [(src, []) for src in sources()]
+    flag = f"-DREPRO_VARIANT_{variant.upper()}"
+    errors = _KERNELS_DIR / "csrc" / "errors.cu"
+    return [(errors, [])] + [(_KERNELS_DIR / rel, [flag])
+                             for rel in VARIANTS[variant][0]]
+
+
+def build(log: Optional[TextIO] = None,
+          variants: Sequence[str] = ("",)) -> Path:
+    """Compile and link the library of each of ``variants`` ("" is the
+    float32 library, the others ``VARIANTS``), every source of all of them
+    in parallel; returns the path of the first one's.  A cached library
+    with the same source hash is reused.  With ``log``, each kernel's
+    registers, shared memory and spills (``ptxas -v``) are written to it."""
     out_dir = BUILD_ROOT / source_hash()
-    lib_path = out_dir / LIB_NAME
-    if lib_path.exists():
-        return lib_path
+    paths = {v: out_dir / _lib_name(v) for v in variants}
+    todo = [v for v in variants if not paths[v].exists()]
+    if not todo:
+        return paths[variants[0]]
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     # a private scratch dir per build: concurrent builders never share
-    # object files, and the finished library lands by atomic rename
+    # object files, and each finished library lands by atomic rename
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         extra = ["-Xptxas", "-v"] if log is not None else []
-        procs = []
-        for i, src in enumerate(sources()):
-            obj = Path(tmp) / f"{i}_{src.stem}.o"
-            cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", str(src), "-o", str(obj)]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True)))
+        procs = {v: [] for v in todo}
+        for v in todo:
+            for i, (src, flags) in enumerate(_units(v)):
+                obj = Path(tmp) / f"{v or 'f32'}_{i}_{src.stem}.o"
+                cmd = [nvcc, *NVCC_FLAGS, *extra, *flags, "-c", str(src),
+                       "-o", str(obj)]
+                procs[v].append((src, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)))
         errors, logs = [], []
-        for src, _, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(out)
-            if proc.returncode != 0:
-                errors.append(f"{src.name}:\n{out}")
+        for v in todo:
+            for src, _, proc in procs[v]:
+                out, _ = proc.communicate()
+                logs.append(out)
+                if proc.returncode != 0:
+                    errors.append(f"{src.name} ({v or 'float32'}):\n{out}")
         if errors:
             raise KernelBuildError("nvcc failed:\n" + "\n".join(errors))
-        tmp_lib = Path(tmp) / LIB_NAME
-        link = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
-             *[str(obj) for _, obj, _ in procs]],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        if link.returncode != 0:
-            raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
+        for v in todo:
+            tmp_lib = Path(tmp) / _lib_name(v)
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp_lib),
+                 *[str(obj) for _, obj, _ in procs[v]]],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if link.returncode != 0:
+                raise KernelBuildError(f"nvcc link failed:\n{link.stdout}")
+            os.replace(tmp_lib, paths[v])
         if log is not None:
             log.write("".join(logs))
-        os.replace(tmp_lib, lib_path)
-    return lib_path
+    return paths[variants[0]]
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
-        lib.cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def library(variant: str = "") -> ctypes.CDLL:
+    """The loaded library of ``variant`` ("" for float32; built on first
+    call)."""
+    lib = _libs.get(variant)
+    if lib is not None:
+        return lib
+    lib = ctypes.CDLL(str(build(variants=(variant,))))
+    names = VARIANTS[variant][1] if variant else SIGNATURES
+    for name in names:
+        fn = getattr(lib, f"{name}_{variant}" if variant else name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    _libs[variant] = lib
+    return lib
+
+
+def entry(name: str, variant: str = ""):
+    """The C entry point ``name`` of ``variant``'s library (the float32
+    one for ""), looked up once (a launch's host path: two dict reads)."""
+    try:
+        return _entries[variant][name]
+    except KeyError:
+        fn = getattr(library(variant), f"{name}_{variant}" if variant
+                     else name)
+        _entries.setdefault(variant, {})[name] = fn
+        return fn
 
 
 def check(name: str, err: int) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
-        what = library().cuda_error_string(err).decode()
+        lib = _libs.get("") or next(iter(_libs.values()))
+        what = lib.cuda_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA launch failed: {what} ({err})")
 
 
@@ -222,6 +290,75 @@ def require_cuda_f32(name: str, x, **others) -> int:
                                   and t.numel() < _MAX_NUMEL):
             _refuse_f32(name, arg, t, device)
     return device
+
+
+def _refuse_dtype(name: str, arg: str, t, device: int, want: str,
+                  dtype_ok: bool) -> None:
+    """Raise the reason ``t`` fails its kernel's guard: another card, a
+    dtype other than ``want`` describes (``dtype_ok`` False), not
+    contiguous, or 2^31 elements or more."""
+    if t.get_device() != device:
+        raise ValueError(f"{name}: {arg} is on {t.device}, x on "
+                         f"cuda:{device}")
+    if not dtype_ok:
+        raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
+                        f"{want}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {arg} must be contiguous")
+    raise ValueError(f"{name}: {arg} has {t.numel()} elements; the kernel "
+                     "indexes with 32-bit ints")
+
+
+def require_cuda_storage(name: str, x, **others) -> Tuple[int, str]:
+    """The guard of the float kernels that take bf16 too (K5a, K4): raise
+    unless the CUDA tensor ``x`` is a contiguous float32 or bfloat16 tensor
+    with fewer than 2^31 elements and every other given tensor (None is
+    skipped) one of x's dtype on x's card.  Returns (the card's index, the
+    variant: "" or "bf16").  One combined test a tensor, as
+    ``require_cuda_f32``."""
+    device = x.get_device()
+    dt = x.dtype
+    variant = "" if dt is _F32 else FLOAT_VARIANTS.get(dt)
+    if variant is None or not (x.is_contiguous()
+                               and x.numel() < _MAX_NUMEL):
+        _refuse_dtype(name, "x", x, device, "float32 or bfloat16",
+                      variant is not None)
+    for arg, t in others.items():
+        if t is not None and not (t.dtype is dt and t.get_device() == device
+                                  and t.is_contiguous()
+                                  and t.numel() < _MAX_NUMEL):
+            _refuse_dtype(name, arg, t, device, f"{dt} (x's dtype)",
+                          t.dtype is dt)
+    return device, variant
+
+
+def require_cuda_conv(name: str, x, w, **others) -> Tuple[int, str]:
+    """The guard of the conv kernels K1 and K2: raise unless (x, w) is a
+    pair ``CONV_VARIANTS`` holds (float32 or bf16 both, or int8 x with
+    float32 or bf16 w), both contiguous with fewer than 2^31 elements on
+    x's card, and every other given tensor (bias, residual; None is
+    skipped) one of w's dtype there.  Returns (the card's index, the
+    variant)."""
+    device = x.get_device()
+    wt = w.dtype
+    variant = ("" if x.dtype is _F32 and wt is _F32
+               else CONV_VARIANTS.get((x.dtype, wt)))
+    if variant is None or not (x.is_contiguous()
+                               and x.numel() < _MAX_NUMEL):
+        x_ok = x.dtype in (_F32, _BF16, _I8)
+        if not (x_ok and x.is_contiguous() and x.numel() < _MAX_NUMEL):
+            _refuse_dtype(name, "x", x, device, "float32, bfloat16 or int8",
+                          x_ok)
+        _refuse_dtype(name, "w", w, device,
+                      "float32 or bfloat16, x's dtype where x is float",
+                      False)
+    for arg, t in (("w", w),) + tuple(others.items()):
+        if t is not None and not (t.dtype is wt and t.get_device() == device
+                                  and t.is_contiguous()
+                                  and t.numel() < _MAX_NUMEL):
+            _refuse_dtype(name, arg, t, device, f"{wt} (w's dtype)",
+                          t.dtype is wt)
+    return device, variant
 
 
 def require_cuda_float(name: str, device, contiguous: bool = True,

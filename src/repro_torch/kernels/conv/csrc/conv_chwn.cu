@@ -8,6 +8,22 @@
 // [Co,Ho',Wo',N] or [N,Co,Ho',Wo'] (Ho', Wo' after the pool).  dgrad runs
 // here too, as the stride-1 conv of the dilated gradient.
 //
+// Storage dtypes (csrc/storage.cuh): x float32, bf16 or int8, w (and bias,
+// residual, y) float32 or bf16, the (x, w) pairs ops.py admits; int8 x
+// holds per-channel quantized values whose scale the caller folded into w.
+// The producers widen a narrow operand to float32 on its way into the ring:
+// register loads instead of cp.async.  Where both operands are narrow (bf16
+// x bf16, int8 x bf16) a producer thread keeps its share of the next two
+// slices as raw bits in registers, loads in flight, while it widens and
+// stores the current one, so two slices' loads overlap as cp.async's ring
+// overlaps them; int8 x with float32 w (the calibration's int8 row) loads
+// x element by element and copies w by cp.async.  Everything after
+// that is float32,
+// and y is rounded once where it is stored.  A bf16 or int8 operand is exact
+// in TF32, so the 3xTF32 products that read its small part drop out: one
+// product a term for bf16 x bf16 and int8 x bf16, two for int8 x float32.
+// z (save_act) is float32 and only the float32 build writes it.
+//
 // What bounds it on an H100: operations.  It is an implicit GEMM out[co,
 // col] = sum_k w[k, co] P[k, col], k = (ci, dy, dx) over K = Ci*F*F and a
 // column per conv output (n, oh, ow), n fastest (the CHWN engine's order:
@@ -63,11 +79,13 @@
 
 #include "../../csrc/mma.cuh"
 #include "../../csrc/nan_max.cuh"
+#include "../../csrc/storage.cuh"
 #include "conv_common.cuh"  // Strides, layout_strides
 
 namespace {
 
 using namespace repro::mma;
+using namespace repro::storage;
 using repro::Strides;
 
 constexpr int kConsumers = 256;  // two warpgroups: the mma
@@ -83,12 +101,13 @@ constexpr int kSmemMax = 232448;
 constexpr int kStaticBytes = 3 * BN * 4;  // colofs
 constexpr int kPoolBar = 1 + 2 * kStages;  // consumers only
 
+template <typename TX, typename TW>
 struct K1Args {
-  const float* x;
-  const float* w;     // [K, Co]
-  const float* bias;  // [Co] or null
-  const float* res;   // conv-output shape, or null
-  float* y;
+  const TX* x;
+  const TW* w;        // [K, Co]
+  const TW* bias;     // [Co] or null
+  const TW* res;      // conv-output shape, or null
+  TW* y;
   float* z;           // save_act: the pre-pool activation (CHWN), or null
   int N, Ci, H, W, Co, F, S, pad, K, Ho, Wo;
   int pF, pS, pool_avg, relu;  // pF == 0: no pool
@@ -109,7 +128,8 @@ struct Tile {
   int C;          // columns of the tile
 };
 
-__device__ __forceinline__ Tile make_tile(const K1Args& a) {
+template <typename A>
+__device__ __forceinline__ Tile make_tile(const A& a) {
   Tile t;
   if (a.pF == 0) {
     t.c0 = blockIdx.x * BN;
@@ -138,7 +158,8 @@ __device__ __forceinline__ Tile make_tile(const K1Args& a) {
 }
 
 // (n, oh, ow) of column c of the tile (c < t.C)
-__device__ __forceinline__ void column(const K1Args& a, const Tile& t, int c,
+template <typename A>
+__device__ __forceinline__ void column(const A& a, const Tile& t, int c,
                                        int& n, int& oh, int& ow) {
   if (a.pF == 0) {
     const int gc = t.c0 + c, r = gc / a.N;
@@ -161,9 +182,11 @@ __host__ __device__ constexpr int ring_floats(int bm) {
 __device__ __forceinline__ int full_bar(int s) { return 1 + s; }
 __device__ __forceinline__ int empty_bar(int s) { return 1 + kStages + s; }
 
-template <int BM, bool POOL>
+template <typename TX, typename TW, int BM, bool POOL>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_chwn_kernel(const K1Args a) {
+conv_chwn_kernel(const K1Args<TX, TW> a) {
+  // a w (A) or x (B) operand of a narrow type has no small part
+  constexpr bool kAExact = kExactTf32<TW>, kBExact = kExactTf32<TX>;
   constexpr int SA = BM + kRowPad, SB = BN + kRowPad;
   constexpr int STAGE = BK * (SA + SB);
   constexpr int WM = BM / 32;   // consumer warps along co, 32 rows each
@@ -197,10 +220,14 @@ conv_chwn_kernel(const K1Args a) {
     int kci[BK / 8], kdy[BK / 8], kdx[BK / 8];
     const int sci = BK / FF, sdy = (BK - sci * FF) / a.F;
     const int sdx = BK - sci * FF - sdy * a.F;
-    auto stage = [&](int sl) {
+    // Walk slice sl: for each of this thread's P rows i (columns 4q ..
+    // 4q + 3) prow(i, p, v, vec) with p = x + the row's k offset (column j
+    // at p + xb[j], valid where v[j]; vec: all 4 valid, contiguous and
+    // 16-byte aligned), then for each of its w chunks i wchunk(i, src, kin,
+    // co): 4 weights from src = w[k][co], kin = (k < K).  Steps the k
+    // indices to the next slice's.
+    auto walk = [&](int sl, auto&& prow, auto&& wchunk) {
       const int pass = sl / kslices, k0 = (sl - pass * kslices) * BK;
-      float* As = smem + (sl % kStages) * STAGE;
-      float* Bs = As + BK * SA;
       if (k0 == 0) {  // a pass starts over at k = 0
 #pragma unroll
         for (int i = 0; i < BK / 8; ++i) {
@@ -225,11 +252,9 @@ conv_chwn_kernel(const K1Args a) {
         cont = a.vec_x && ok[3] && xb[1] == xb[0] + 1 &&
                xb[2] == xb[0] + 2 && xb[3] == xb[0] + 3;
       }
-      // P: rows row0 + 8 i of the slice, columns 4q .. 4q + 3
 #pragma unroll
       for (int i = 0; i < BK / 8; ++i) {
-        const int r = row0 + 8 * i, k = k0 + r;
-        float* d = Bs + r * SB + 4 * q;
+        const int k = k0 + row0 + 8 * i;
         const int dy = kdy[i], dx = kdx[i];
         const int ko = kci[i] * a.xs.c + dy * a.xs.h + dx * a.xs.w;
         // on to the next slice's k
@@ -252,15 +277,8 @@ conv_chwn_kernel(const K1Args a) {
                      static_cast<unsigned>(a.H) &&
                  static_cast<unsigned>(iw[j] + dx) <
                      static_cast<unsigned>(a.W);
-        if (cont && v[0] && v[1] && v[2] && v[3] && ((xb[0] + ko) & 3) == 0) {
-          cp16(d, a.x + xb[0] + ko, true);
-        } else if (!(v[0] || v[1] || v[2] || v[3])) {
-          cp16(d, a.x, false);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            cp4(d + j, v[j] ? a.x + xb[j] + ko : a.x, v[j]);
-        }
+        prow(i, a.x + ko, v,
+             cont && v[0] && v[1] && v[2] && v[3] && ((xb[0] + ko) & 3) == 0);
       }
       // w: chunk e of the [BK][BM] slice, co fastest
 #pragma unroll
@@ -268,19 +286,99 @@ conv_chwn_kernel(const K1Args a) {
         const int e = pt + kProducers * i;
         const int r = e / ACH, cq = e - r * ACH;
         const int k = k0 + r, co = co0 + 4 * cq;
-        float* d = As + r * SA + 4 * cq;
-        const float* src = a.w + static_cast<long long>(k) * a.Co + co;
-        if (k < a.K && a.vec_w && co + 3 < a.Co) {
-          cp16(d, src, true);
-        } else if (k >= a.K || co >= a.Co) {
-          cp16(d, a.w, false);
-        } else {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            cp4(d + j, co + j < a.Co ? src + j : a.w, co + j < a.Co);
-        }
+        wchunk(i, a.w + static_cast<long long>(k) * a.Co + co, k < a.K, co);
       }
     };
+    // the shared-memory floats of P row i and of w chunk i of a stage
+    auto prow_at = [&](float* Bs, int i) {
+      return Bs + (row0 + 8 * i) * SB + 4 * q;
+    };
+    auto wchunk_at = [&](float* As, int i) {
+      const int e = pt + kProducers * i, r = e / ACH;
+      return As + r * SA + 4 * (e - r * ACH);
+    };
+    // a slice straight into its stage (cp.async for a float32 operand)
+    auto stage = [&](int sl) {
+      float* As = smem + (sl % kStages) * STAGE;
+      float* Bs = As + BK * SA;
+      walk(
+          sl,
+          [&](int i, const TX* p, const bool (&v)[4], bool vec) {
+            float* d = prow_at(Bs, i);
+            if (vec) {
+              copy4(d, p + xb[0], true);
+            } else if (!(v[0] || v[1] || v[2] || v[3])) {
+              copy4(d, a.x, false);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                copy1(d + j, v[j] ? p + xb[j] : a.x, v[j]);
+            }
+          },
+          [&](int i, const TW* src, bool kin, int co) {
+            float* d = wchunk_at(As, i);
+            if (kin && a.vec_w && co + 3 < a.Co) {
+              copy4(d, src, true);
+            } else if (!kin || co >= a.Co) {
+              copy4(d, a.w, false);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                copy1(d + j, co + j < a.Co ? src + j : a.w, co + j < a.Co);
+            }
+          });
+    };
+    if constexpr (kAExact && kBExact) {
+      // both operands narrow: slice sl's raw bits are loaded two slices
+      // ahead of its store (fetch), then widened into the ring (put)
+      Raw4<TX> pa[BK / 8], pb[BK / 8];
+      Raw4<TW> wa[APT], wb[APT];
+      auto fetch = [&](int sl, Raw4<TX> (&rp)[BK / 8], Raw4<TW> (&rw)[APT]) {
+        walk(
+            sl,
+            [&](int i, const TX* p, const bool (&v)[4], bool vec) {
+              if (vec)
+                load_raw4(rp[i], p + xb[0]);
+              else
+                pack_raw4(rp[i], raw1(p + xb[0], v[0]),
+                          raw1(p + xb[1], v[1]), raw1(p + xb[2], v[2]),
+                          raw1(p + xb[3], v[3]));
+            },
+            [&](int i, const TW* src, bool kin, int co) {
+              if (kin && a.vec_w && co + 3 < a.Co)
+                load_raw4(rw[i], src);
+              else
+                pack_raw4(rw[i], raw1(src, kin && co < a.Co),
+                          raw1(src + 1, kin && co + 1 < a.Co),
+                          raw1(src + 2, kin && co + 2 < a.Co),
+                          raw1(src + 3, kin && co + 3 < a.Co));
+            });
+      };
+      auto put = [&](int sl, const Raw4<TX> (&rp)[BK / 8],
+                     const Raw4<TW> (&rw)[APT]) {
+        float* As = smem + (sl % kStages) * STAGE;
+        float* Bs = As + BK * SA;
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i)
+          *reinterpret_cast<float4*>(prow_at(Bs, i)) = widen4(rp[i]);
+#pragma unroll
+        for (int i = 0; i < APT; ++i)
+          *reinterpret_cast<float4*>(wchunk_at(As, i)) = widen4(rw[i]);
+      };
+      if (nsl > 0) fetch(0, pa, wa);
+      if (nsl > 1) fetch(1, pb, wb);
+      for (int sl = 0; sl < nsl; ++sl) {
+        if (sl >= kStages) bar_sync(empty_bar(sl % kStages), kThreads);
+        put(sl, pa, wa);
+        bar_arrive(full_bar(sl % kStages), kThreads);
+#pragma unroll
+        for (int i = 0; i < BK / 8; ++i) pa[i] = pb[i];
+#pragma unroll
+        for (int i = 0; i < APT; ++i) wa[i] = wb[i];
+        if (sl + 2 < nsl) fetch(sl + 2, pb, wb);
+      }
+      return;
+    }
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < nsl) stage(s);
@@ -339,10 +437,10 @@ conv_chwn_kernel(const K1Args a) {
           const float* pa = As + (kk + tq) * SA + wm * 32 + mt * 16 + 2 * g;
           const float2 lo = *reinterpret_cast<const float2*>(pa);
           const float2 hi = *reinterpret_cast<const float2*>(pa + 4 * SA);
-          split_tf32(lo.x, abig[mt][0], asmall[mt][0]);
-          split_tf32(lo.y, abig[mt][1], asmall[mt][1]);
-          split_tf32(hi.x, abig[mt][2], asmall[mt][2]);
-          split_tf32(hi.y, abig[mt][3], asmall[mt][3]);
+          split<kAExact>(lo.x, abig[mt][0], asmall[mt][0]);
+          split<kAExact>(lo.y, abig[mt][1], asmall[mt][1]);
+          split<kAExact>(hi.x, abig[mt][2], asmall[mt][2]);
+          split<kAExact>(hi.y, abig[mt][3], asmall[mt][3]);
         }
 #pragma unroll
         for (int nt = 0; nt < NT; nt += 2) {
@@ -354,21 +452,35 @@ conv_chwn_kernel(const K1Args a) {
           const float2 lo = *reinterpret_cast<const float2*>(pb);
           const float2 hi = *reinterpret_cast<const float2*>(pb + 4 * SB);
           unsigned b0big[2], b0small[2], b1big[2], b1small[2];
-          split_tf32(lo.x, b0big[0], b0small[0]);
-          split_tf32(lo.y, b0big[1], b0small[1]);
-          split_tf32(hi.x, b1big[0], b1small[0]);
-          split_tf32(hi.y, b1big[1], b1small[1]);
+          split<kBExact>(lo.x, b0big[0], b0small[0]);
+          split<kBExact>(lo.y, b0big[1], b0small[1]);
+          split<kBExact>(hi.x, b1big[0], b1small[0]);
+          split<kBExact>(hi.y, b1big[1], b1small[1]);
 #pragma unroll
           for (int p = 0; p < 2; ++p) {
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
+              // the chain's first product (kk == 0) starts from zero
               float (&c)[4] = acc[mt][nt + p];
-              if (kk == 0)
-                mma_tf32(c, asmall[mt], b0big[p], b1big[p], zero);
+              bool fresh = kk == 0;
+              if constexpr (!kAExact) {
+                if (fresh)
+                  mma_tf32(c, asmall[mt], b0big[p], b1big[p], zero);
+                else
+                  mma_tf32(c, asmall[mt], b0big[p], b1big[p], c);
+                fresh = false;
+              }
+              if constexpr (!kBExact) {
+                if (fresh)
+                  mma_tf32(c, abig[mt], b0small[p], b1small[p], zero);
+                else
+                  mma_tf32(c, abig[mt], b0small[p], b1small[p], c);
+                fresh = false;
+              }
+              if (fresh)
+                mma_tf32(c, abig[mt], b0big[p], b1big[p], zero);
               else
-                mma_tf32(c, asmall[mt], b0big[p], b1big[p], c);
-              mma_tf32(c, abig[mt], b0small[p], b1small[p], c);
-              mma_tf32(c, abig[mt], b0big[p], b1big[p], c);
+                mma_tf32(c, abig[mt], b0big[p], b1big[p], c);
             }
           }
         }
@@ -421,11 +533,11 @@ conv_chwn_kernel(const K1Args a) {
       if (c >= t.C) continue;
       const int co = co0 + m;
       float v = smem[m * SB + c];
-      if (a.bias) v += __ldg(a.bias + co);
+      if (a.bias) v += ld(a.bias + co);
       if (a.res)
-        v += __ldg(a.res + colofs[1][c] + static_cast<long long>(co) * a.rs.c);
+        v += ld(a.res + colofs[1][c] + static_cast<long long>(co) * a.rs.c);
       if (a.relu) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
-      a.y[colofs[0][c] + static_cast<long long>(co) * a.ys.c] = v;
+      put(a.y + colofs[0][c] + static_cast<long long>(co) * a.ys.c, v);
       if (a.z) a.z[colofs[2][c] + static_cast<long long>(co) * a.zs.c] = v;
     }
     return;
@@ -442,15 +554,15 @@ conv_chwn_kernel(const K1Args a) {
     const int co = co0 + m;
     float* p = tile + m * a.cs + c;
     float v = *p;
-    if (a.bias) v += __ldg(a.bias + co);
+    if (a.bias) v += ld(a.bias + co);
     if (a.res || a.z) {
       const int nl = c % t.nbt, r = c / t.nbt;
       const int rw = r % t.rwt, rh = r / t.rwt;
       const long long n = t.n0 + nl;
       const int oh = t.oh0 + rh, ow = t.ow0 + rw;
       if (a.res)
-        v += __ldg(a.res + n * a.rs.n + static_cast<long long>(co) * a.rs.c +
-                   oh * a.rs.h + ow * a.rs.w);
+        v += ld(a.res + n * a.rs.n + static_cast<long long>(co) * a.rs.c +
+                oh * a.rs.h + ow * a.rs.w);
       if (a.relu) v = v < 0.f ? 0.f : v;
       if (a.z && (rh < t.pht * a.pS || last_h) && rh % a.pS < a.pF &&
           (rw < t.pwt * a.pS || last_w) && rw % a.pS < a.pF)
@@ -478,43 +590,37 @@ conv_chwn_kernel(const K1Args a) {
             row[((phl * a.pS + i) * t.rwt + pwl * a.pS + j) * t.nbt + nl];
         acc = a.pool_avg ? acc + v : nan_max(acc, v);
       }
-    a.y[static_cast<long long>(t.n0 + nl) * a.ys.n +
-        static_cast<long long>(co0 + m) * a.ys.c + (t.ph0 + phl) * a.ys.h +
-        (t.pw0 + pwl) * a.ys.w] = a.pool_avg ? acc / area : acc;
+    put(a.y + static_cast<long long>(t.n0 + nl) * a.ys.n +
+            static_cast<long long>(co0 + m) * a.ys.c +
+            (t.ph0 + phl) * a.ys.h + (t.pw0 + pwl) * a.ys.w,
+        a.pool_avg ? acc / area : acc);
   }
 }
 
-template <int BM, bool POOL>
-cudaError_t launch(const K1Args& a, int blocks, int smem, cudaStream_t st) {
+template <int BM, bool POOL, typename TX, typename TW>
+cudaError_t launch(const K1Args<TX, TW>& a, int blocks, int smem,
+                   cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      conv_chwn_kernel<BM, POOL>,
+      conv_chwn_kernel<TX, TW, BM, POOL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid(blocks, (a.Co + BM - 1) / BM);
-  conv_chwn_kernel<BM, POOL><<<grid, kThreads, smem, st>>>(a);
+  conv_chwn_kernel<TX, TW, BM, POOL><<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// w [Ci, F, F, Co] is [K, Co]; z (or null) is [Co, Ho, Wo, N].  The block
-// tile is bm (64 or 128) output channels by 128 consecutive columns
-// without a pool, or by the conv outputs under nb images x ph x pw pooled
-// outputs with one (ops.conv_tiling).  Returns cudaGetLastError().
-extern "C" int conv_chwn_forward(const void* x, const void* w,
-                                 const void* bias, const void* res, void* y,
-                                 void* z, int N, int Ci, int H, int W, int Co,
-                                 int F, int S, int pad, int pool_F,
-                                 int pool_S, int pool_avg, int relu,
-                                 int src_nchw, int dst_nchw, int res_nchw,
-                                 int bm, int nb, int ph, int pw,
-                                 void* stream) {
-  K1Args a;
-  a.x = static_cast<const float*>(x);
-  a.w = static_cast<const float*>(w);
-  a.bias = static_cast<const float*>(bias);
-  a.res = static_cast<const float*>(res);
-  a.y = static_cast<float*>(y);
+template <typename TX, typename TW>
+int forward(const void* x, const void* w, const void* bias, const void* res,
+            void* y, void* z, int N, int Ci, int H, int W, int Co, int F,
+            int S, int pad, int pool_F, int pool_S, int pool_avg, int relu,
+            int src_nchw, int dst_nchw, int res_nchw, int bm, int nb, int ph,
+            int pw, void* stream) {
+  K1Args<TX, TW> a;
+  a.x = static_cast<const TX*>(x);
+  a.w = static_cast<const TW*>(w);
+  a.bias = static_cast<const TW*>(bias);
+  a.res = static_cast<const TW*>(res);
+  a.y = static_cast<TW*>(y);
   a.z = static_cast<float*>(z);
   a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Co = Co; a.F = F; a.S = S;
   a.pad = pad;
@@ -567,4 +673,28 @@ extern "C" int conv_chwn_forward(const void* x, const void* w,
     e = pool ? launch<128, true>(a, nblk, smem, st)
              : launch<128, false>(a, nblk, smem, st);
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// w [Ci, F, F, Co] is [K, Co]; z (or null, float32 builds only) is [Co, Ho,
+// Wo, N].  The block tile is bm (64 or 128) output channels by 128
+// consecutive columns without a pool, or by the conv outputs under nb images
+// x ph x pw pooled outputs with one (ops.conv_tiling).  x is REPRO_XT, w,
+// bias, res and y REPRO_WT (storage.cuh: conv_chwn_forward is float32,
+// conv_chwn_forward_<variant> a storage variant).  Returns
+// cudaGetLastError().
+extern "C" int REPRO_ENTRY(conv_chwn_forward)(
+    const void* x, const void* w, const void* bias, const void* res, void* y,
+    void* z, int N, int Ci, int H, int W, int Co, int F, int S, int pad,
+    int pool_F, int pool_S, int pool_avg, int relu, int src_nchw,
+    int dst_nchw, int res_nchw, int bm, int nb, int ph, int pw,
+    void* stream) {
+#ifdef REPRO_VARIANT
+  if (z) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+  return forward<REPRO_XT, REPRO_WT>(x, w, bias, res, y, z, N, Ci, H, W, Co,
+                                     F, S, pad, pool_F, pool_S, pool_avg,
+                                     relu, src_nchw, dst_nchw, res_nchw, bm,
+                                     nb, ph, pw, stream);
 }

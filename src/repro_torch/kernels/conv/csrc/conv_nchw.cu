@@ -12,6 +12,15 @@
 // [Co,Ci,F,F]; y is [N,Co,Ho',Wo'] or [Co,Ho',Wo',N].  dgrad runs here
 // too, as the stride-1 conv of the dilated gradient (backward.py).
 //
+// Storage dtypes (csrc/storage.cuh), as K1: x float32, bf16 or int8, w
+// (and bias, residual, y) float32 or bf16; int8 x carries per-channel
+// quantized values whose scale the caller folded into w.  The producer
+// widens a narrow x box and w slice to float32 as it stages them (a
+// register load instead of cp.async: once per element of the box, not once
+// per tap), the consumers multiply float32 as before, dropping the 3xTF32
+// products of a narrow operand's zero small part, and y is rounded once
+// where it is stored.  z (save_act) is float32, float32 builds only.
+//
 // What bounds it on an H100: operations, 2*Co*Ci*F^2 FLOPs per conv output
 // against a few bytes (VGG16's conv1_1, Ci = 3, writes 411 MB at batch 32
 // and is bound by bytes).  fp32 FMA on the CUDA cores peaks at 67 TFLOP/s,
@@ -69,6 +78,7 @@
 
 #include "../../csrc/mma.cuh"
 #include "../../csrc/nan_max.cuh"
+#include "../../csrc/storage.cuh"
 #include "conv_common.cuh"  // Strides, layout_strides
 #include "conv_ring.cuh"    // ring barriers, copy_quad, rows8
 
@@ -76,6 +86,7 @@ namespace {
 
 using namespace repro::mma;
 using namespace repro::ring;
+using namespace repro::storage;
 using repro::Strides;
 
 constexpr int kConsumers = 256;  // two warpgroups: the mma
@@ -88,12 +99,13 @@ constexpr int kProducerRegs = 56;
 constexpr int kTile = 16384;      // BM * BN
 constexpr int kSmemMax = 232448;  // 227 KB, what an H100 block may use
 
+template <typename TX, typename TW>
 struct K2Args {
-  const float* x;
-  const float* w;     // [Co, K], k = (ci, dy, dx)
-  const float* bias;  // [Co] or null
-  const float* res;   // conv-output (pre-pool) shape, or null
-  float* y;
+  const TX* x;
+  const TW* w;        // [Co, K], k = (ci, dy, dx)
+  const TW* bias;     // [Co] or null
+  const TW* res;      // conv-output (pre-pool) shape, or null
+  TW* y;
   float* z;           // save_act: the pre-pool activation (NCHW), or null
   int N, Ci, H, W, Co, F, S, pad, K, Ho, Wo;
   int pF, pS, pool_avg, relu;  // pF == 0: no pool
@@ -124,7 +136,8 @@ struct Tile {
   bool last_h, last_w;       // the last rectangle along the unit rows/cols
 };
 
-__device__ __forceinline__ Tile make_tile(const K2Args& a) {
+template <typename A>
+__device__ __forceinline__ Tile make_tile(const A& a) {
   Tile t;
   int b = blockIdx.x;
   const int tw = b % a.nTW;
@@ -186,17 +199,19 @@ __device__ __forceinline__ void radix_add(Radix& d, const Radix& s, int r0,
 
 // The A fragments of one 8-deep reduction step, split for 3xTF32: pa
 // points at (row g, k t) of the warp's first 16 rows, k t + 4 lies d4
-// floats further, row g + 8 eight rows (8 SA) down
+// floats further, row g + 8 eight rows (8 SA) down.  AX: w is of a narrow
+// storage type (its small part is zero and never read)
+template <bool AX>
 __device__ __forceinline__ void load_a(const float* pa, int SA, int d4,
                                        unsigned (&abig)[2][4],
                                        unsigned (&asmall)[2][4]) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt) {
     const float* p = pa + mt * 16 * SA;
-    split_tf32(p[0], abig[mt][0], asmall[mt][0]);
-    split_tf32(p[8 * SA], abig[mt][1], asmall[mt][1]);
-    split_tf32(p[d4], abig[mt][2], asmall[mt][2]);
-    split_tf32(p[8 * SA + d4], abig[mt][3], asmall[mt][3]);
+    split<AX>(p[0], abig[mt][0], asmall[mt][0]);
+    split<AX>(p[8 * SA], abig[mt][1], asmall[mt][1]);
+    split<AX>(p[d4], abig[mt][2], asmall[mt][2]);
+    split<AX>(p[8 * SA + d4], abig[mt][3], asmall[mt][3]);
   }
 }
 
@@ -204,7 +219,9 @@ __device__ __forceinline__ void load_a(const float* pa, int SA, int d4,
 // of column tile nt at xr0 + boff[nt] (k t) and xr1 + boff[nt] (k t + 4).
 // The tiles go in two halves of 4, and each of the three 3xTF32 products
 // runs over the half's 8 accumulators before the next reads them, so the
-// tensor core has independent mma to overlap
+// tensor core has independent mma to overlap.  AX / BX: w / x is of a
+// narrow storage type, and the products of its zero small part are skipped
+template <bool AX, bool BX>
 __device__ __forceinline__ void mma_step(float (&acc)[2][8][4],
                                          const unsigned (&abig)[2][4],
                                          const unsigned (&asmall)[2][4],
@@ -215,21 +232,25 @@ __device__ __forceinline__ void mma_step(float (&acc)[2][8][4],
     unsigned b0big[4], b0small[4], b1big[4], b1small[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      split_tf32(xr0[boff[4 * h + j]], b0big[j], b0small[j]);
-      split_tf32(xr1[boff[4 * h + j]], b1big[j], b1small[j]);
+      split<BX>(xr0[boff[4 * h + j]], b0big[j], b0small[j]);
+      split<BX>(xr1[boff[4 * h + j]], b1big[j], b1small[j]);
     }
+    if constexpr (!AX) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        mma_tf32(acc[mt][4 * h + j], asmall[mt], b0big[j], b1big[j],
-                 acc[mt][4 * h + j]);
+        for (int mt = 0; mt < 2; ++mt)
+          mma_tf32(acc[mt][4 * h + j], asmall[mt], b0big[j], b1big[j],
+                   acc[mt][4 * h + j]);
+    }
+    if constexpr (!BX) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        mma_tf32(acc[mt][4 * h + j], abig[mt], b0small[j], b1small[j],
-                 acc[mt][4 * h + j]);
+        for (int mt = 0; mt < 2; ++mt)
+          mma_tf32(acc[mt][4 * h + j], abig[mt], b0small[j], b1small[j],
+                   acc[mt][4 * h + j]);
+    }
 #pragma unroll
     for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -263,9 +284,10 @@ __device__ __forceinline__ void add_to(float (&tot)[2][8][4],
 // instead of 8 channels at one tap, so a 3-channel input fills 3/8 of an
 // mma instead of wasting 5/8; each lane reads its k's offsets in the x box
 // from a table, and k past the list reads a zero channel of the box
-template <int BM, bool POOL, int FT, bool THIN>
+template <typename TX, typename TW, int BM, bool POOL, int FT, bool THIN>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_nchw_kernel(const K2Args a) {
+conv_nchw_kernel(const K2Args<TX, TW> a) {
+  constexpr bool AX = kExactTf32<TW>, BX = kExactTf32<TX>;
   constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
   constexpr int BN = kTile / BM;
   constexpr int WM = BM / 32;   // warps along Co, 32 rows each
@@ -314,12 +336,12 @@ conv_nchw_kernel(const K2Args a) {
         for (int it = pt; it < BM * segs; it += kProducers) {
           const int r = it / segs, k0 = (it - r * segs) * len;
           const int co = co0 + r;
-          const float* src =
+          const TW* src =
               a.w + static_cast<long long>(co) * a.K + dy0 * a.F;
           float* dst = st + r * a.SA;
           for (int k = k0; k < min(a.KP, k0 + len); ++k) {
             const bool ok = co < a.Co && k < kv;
-            cp4(dst + k, ok ? src + kw[k] : a.w, ok);
+            copy1(dst + k, ok ? src + kw[k] : a.w, ok);
           }
         }
       } else if (a.TR == a.F) {
@@ -331,7 +353,7 @@ conv_nchw_kernel(const K2Args a) {
         for (int it = pt; it < BM * segs; it += kProducers) {
           const int r = it / segs, q0 = (it - r * segs) * len;
           const int co = co0 + r;
-          const float* src = a.w + static_cast<long long>(co) * a.K + k0;
+          const TW* src = a.w + static_cast<long long>(co) * a.K + k0;
           float* dst = st + r * a.SA;
           for (int q = q0; q < min(wq, q0 + len); ++q) {
             const int c = 4 * q;
@@ -347,10 +369,11 @@ conv_nchw_kernel(const K2Args a) {
           const int r = it >> 3, c8 = it & 7;
           const int co = co0 + r, ci = oct * 8 + c8;
           const bool ok = co < a.Co && ci < a.Ci;
-          const float* src = a.w + static_cast<long long>(co) * a.K +
-                             ci * FF + dy0 * a.F;
+          const TW* src = a.w + static_cast<long long>(co) * a.K + ci * FF +
+                          dy0 * a.F;
           float* dst = st + r * a.SA + c8 * a.TF;
-          for (int j = 0; j < run; ++j) cp4(dst + j, ok ? src + j : a.w, ok);
+          for (int j = 0; j < run; ++j)
+            copy1(dst + j, ok ? src + j : a.w, ok);
         }
       }
       // the x box of the stage's channels for these tap rows:
@@ -371,7 +394,7 @@ conv_nchw_kernel(const K2Args a) {
         float* dst = xs + c8 * a.XSTR + (nl * t.XH + xh) * t.XW;
         const bool rok = ci < a.Ci && static_cast<unsigned>(ih) <
                                           static_cast<unsigned>(a.H);
-        const float* src =
+        const TX* src =
             rok ? a.x + static_cast<long long>(t.n0 + nl) * a.xs.n +
                       static_cast<long long>(ci) * a.xs.c +
                       static_cast<long long>(ih) * a.xs.h
@@ -380,18 +403,18 @@ conv_nchw_kernel(const K2Args a) {
           const int iw = t.iw0 + 4 * q;
           float* d4 = dst + 4 * q;
           if (!rok || iw >= a.W || iw + 4 <= 0) {
-            cp16(d4, a.x, false);
+            copy4(d4, a.x, false);
           } else if (iw >= 0 && iw + 4 <= a.W && a.vec_x) {
-            cp16(d4, src + iw, true);
+            copy4(d4, src + iw, true);
           } else if (iw >= 0 && iw + 4 <= a.W && a.pair_x) {
-            cp8(d4, src + iw, true);
-            cp8(d4 + 2, src + iw + 2, true);
+            copy2(d4, src + iw, true);
+            copy2(d4 + 2, src + iw + 2, true);
           } else {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               const bool ok =
                   static_cast<unsigned>(iw + j) < static_cast<unsigned>(a.W);
-              cp4(d4 + j, ok ? src + (iw + j) * a.xs.w : a.x, ok);
+              copy1(d4 + j, ok ? src + (iw + j) * a.xs.w : a.x, ok);
             }
           }
         }
@@ -467,8 +490,8 @@ conv_nchw_kernel(const K2Args a) {
         if ((ks & 3) == 0) set_zero(acc);  // a chain from zero
         const int k0 = ks * 8 + tq;
         unsigned abig[2][4], asmall[2][4];
-        load_a(Ws + k0, SA, 4, abig, asmall);
-        mma_step(acc, abig, asmall, Xs + (k0 < kv ? kx[k0] : zx),
+        load_a<AX>(Ws + k0, SA, 4, abig, asmall);
+        mma_step<AX, BX>(acc, abig, asmall, Xs + (k0 < kv ? kx[k0] : zx),
                  Xs + (k0 + 4 < kv ? kx[k0 + 4] : zx), boff);
         if ((ks & 3) == 3 || ks == steps - 1) add_to(tot, acc);
       }
@@ -478,9 +501,9 @@ conv_nchw_kernel(const K2Args a) {
       for (int o2 = 0; o2 < a.GA; ++o2) {
         if ((o2 & 3) == 0) set_zero(acc);  // a chain from zero
         unsigned abig[2][4], asmall[2][4];
-        load_a(Ws + o2 * 8 + tq, SA, 4, abig, asmall);
+        load_a<AX>(Ws + o2 * 8 + tq, SA, 4, abig, asmall);
         const float* xr = Xs + (o2 * 8 + tq) * a.XSTR;
-        mma_step(acc, abig, asmall, xr, xr + 4 * a.XSTR, boff);
+        mma_step<AX, BX>(acc, abig, asmall, xr, xr + 4 * a.XSTR, boff);
         if ((o2 & 3) == 3 || o2 == a.GA - 1) add_to(tot, acc);
       }
     } else {
@@ -493,10 +516,10 @@ conv_nchw_kernel(const K2Args a) {
         // a0 (row g, k t), a1 (row g + 8, k t), a2 (g, t + 4), a3 (g + 8,
         // t + 4): k is input channel k of the stage's 8, at tap r
         unsigned abig[2][4], asmall[2][4];
-        load_a(Ws + tq * TF + r, SA, 4 * TF, abig, asmall);
+        load_a<AX>(Ws + tq * TF + r, SA, 4 * TF, abig, asmall);
         const int dy = r / F;
         const float* xr = Xq + dy * t.XW + (r - dy * F);
-        mma_step(acc, abig, asmall, xr, xr + 4 * a.XSTR, boff);
+        mma_step<AX, BX>(acc, abig, asmall, xr, xr + 4 * a.XSTR, boff);
         if ((r & 3) == 3 || r == taps - 1) add_to(tot, acc);
       }
     }
@@ -550,14 +573,14 @@ conv_nchw_kernel(const K2Args a) {
       for (int m = m0; m < mrows; m += per) {
         const long long co = co0 + m;
         float v = T[m * TS + c];
-        if (a.bias) v += __ldg(a.bias + co);
-        if (a.res) v += __ldg(a.res + ro + co * a.rs.c);
+        if (a.bias) v += ld(a.bias + co);
+        if (a.res) v += ld(a.res + ro + co * a.rs.c);
         if (a.relu) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
         if (zw) a.z[zo + co * a.zs.c] = v;
         if (POOL)
           T[m * TS + c] = v;
         else
-          a.y[yo + co * a.ys.c] = v;
+          put(a.y + yo + co * a.ys.c, v);
       }
     }
   }
@@ -589,8 +612,8 @@ conv_nchw_kernel(const K2Args a) {
         const float v = row[i * t.OW + j];
         acc = a.pool_avg ? acc + v : nan_max(acc, v);
       }
-    a.y[yo + static_cast<long long>(co0 + m) * a.ys.c] =
-        a.pool_avg ? acc / area : acc;
+    put(a.y + yo + static_cast<long long>(co0 + m) * a.ys.c,
+        a.pool_avg ? acc / area : acc);
   }
 }
 
@@ -630,18 +653,21 @@ Layout layout(int Ci, int F, int S, int pool_F, int pool_S, int bm, int nb,
   return l;
 }
 
-template <int BM, bool POOL, int FT, bool THIN>
-cudaError_t launch_f(const K2Args& a, dim3 grid, int smem, cudaStream_t st) {
+template <int BM, bool POOL, int FT, bool THIN, typename TX, typename TW>
+cudaError_t launch_f(const K2Args<TX, TW>& a, dim3 grid, int smem,
+                     cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      conv_nchw_kernel<BM, POOL, FT, THIN>,
+      conv_nchw_kernel<TX, TW, BM, POOL, FT, THIN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  conv_nchw_kernel<BM, POOL, FT, THIN><<<grid, kThreads, smem, st>>>(a);
+  conv_nchw_kernel<TX, TW, BM, POOL, FT, THIN>
+      <<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <int BM, bool POOL>
-cudaError_t launch(const K2Args& a, dim3 grid, int smem, cudaStream_t st) {
+template <int BM, bool POOL, typename TX, typename TW>
+cudaError_t launch(const K2Args<TX, TW>& a, dim3 grid, int smem,
+                   cudaStream_t st) {
   if constexpr (BM != 256) {  // thin inputs take 64 or 128 rows
     if (a.Ci < 8) return launch_f<BM, POOL, 0, true>(a, grid, smem, st);
   }
@@ -651,33 +677,22 @@ cudaError_t launch(const K2Args& a, dim3 grid, int smem, cudaStream_t st) {
   return launch_f<BM, POOL, 0, false>(a, grid, smem, st);
 }
 
-}  // namespace
-
-// Host entry of K2: w [Co, Ci, F, F] is [Co, K]; z (or null) is [N, Co,
-// Ho, Wo].  The block tile is bm output channels by the conv outputs under
-// nb images x uth x utw units (pooled outputs with a pool, conv outputs
-// without), tr tap rows and ga 8-channel groups a stage
-// (ops.nchw_tiling).  stats (or null): one
-// uint64 on the card that the blocks add their executed FLOPs to.  Returns
-// a cudaError_t code.
-extern "C" int conv_nchw_forward(const void* x, const void* w,
-                                 const void* bias, const void* res, void* y,
-                                 void* z, int N, int Ci, int H, int W, int Co,
-                                 int F, int S, int pad, int pool_F,
-                                 int pool_S, int pool_avg, int relu,
-                                 int src_nchw, int dst_nchw, int res_nchw,
-                                 int bm, int nb, int uth, int utw, int tr,
-                                 int ga, void* stats, void* stream) {
+template <typename TX, typename TW>
+int forward(const void* x, const void* w, const void* bias, const void* res,
+            void* y, void* z, int N, int Ci, int H, int W, int Co, int F,
+            int S, int pad, int pool_F, int pool_S, int pool_avg, int relu,
+            int src_nchw, int dst_nchw, int res_nchw, int bm, int nb, int uth,
+            int utw, int tr, int ga, void* stats, void* stream) {
   const Layout l =
       layout(Ci, F, S, pool_F, pool_S, bm, nb, uth, utw, tr, ga);
   if (l.bytes < 0 || l.bytes > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  K2Args a{};
-  a.x = static_cast<const float*>(x);
-  a.w = static_cast<const float*>(w);
-  a.bias = static_cast<const float*>(bias);
-  a.res = static_cast<const float*>(res);
-  a.y = static_cast<float*>(y);
+  K2Args<TX, TW> a{};
+  a.x = static_cast<const TX*>(x);
+  a.w = static_cast<const TW*>(w);
+  a.bias = static_cast<const TW*>(bias);
+  a.res = static_cast<const TW*>(res);
+  a.y = static_cast<TW*>(y);
   a.z = static_cast<float*>(z);
   a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Co = Co; a.F = F; a.S = S;
   a.pad = pad;
@@ -734,4 +749,30 @@ extern "C" int conv_nchw_forward(const void* x, const void* w,
                : launch<256, false>(a, grid, sm, st);
   }
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Host entry of K2: w [Co, Ci, F, F] is [Co, K]; z (or null, float32 builds
+// only) is [N, Co, Ho, Wo].  The block tile is bm output channels by the
+// conv outputs under nb images x uth x utw units (pooled outputs with a
+// pool, conv outputs without), tr tap rows and ga 8-channel groups a stage
+// (ops.nchw_tiling).  stats (or null): one uint64 on the card that the
+// blocks add their executed FLOPs to.  x is REPRO_XT, w, bias, res and y
+// REPRO_WT (storage.cuh: conv_nchw_forward is float32,
+// conv_nchw_forward_<variant> a storage variant).  Returns a cudaError_t
+// code.
+extern "C" int REPRO_ENTRY(conv_nchw_forward)(
+    const void* x, const void* w, const void* bias, const void* res, void* y,
+    void* z, int N, int Ci, int H, int W, int Co, int F, int S, int pad,
+    int pool_F, int pool_S, int pool_avg, int relu, int src_nchw,
+    int dst_nchw, int res_nchw, int bm, int nb, int uth, int utw, int tr,
+    int ga, void* stats, void* stream) {
+#ifdef REPRO_VARIANT
+  if (z) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+  return forward<REPRO_XT, REPRO_WT>(x, w, bias, res, y, z, N, Ci, H, W, Co,
+                                     F, S, pad, pool_F, pool_S, pool_avg,
+                                     relu, src_nchw, dst_nchw, res_nchw, bm,
+                                     nb, uth, utw, tr, ga, stats, stream);
 }

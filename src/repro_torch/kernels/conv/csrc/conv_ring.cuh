@@ -7,6 +7,7 @@
 #include <cuda_runtime.h>
 
 #include "../../csrc/mma.cuh"
+#include "../../csrc/storage.cuh"
 
 namespace repro {
 namespace ring {
@@ -21,20 +22,21 @@ __device__ __forceinline__ int cons_bar() { return 1 + 2 * NS; }
 template <int NS>
 __device__ __forceinline__ int prod_bar() { return 2 + 2 * NS; }
 
-// 4 floats from src to dst by cp.async, zero past the first `valid` (16
-// bytes at once where vec and all 4 are valid); `any` is a readable
-// address for the zero-filled copies
-__device__ __forceinline__ void copy_quad(float* dst, const float* src,
-                                          const float* any, int valid,
-                                          bool vec) {
+// 4 elements from src into 4 floats at dst (cp.async for float32; a
+// widening register load for a narrow storage type, storage.cuh), zero past
+// the first `valid` (4 at once where vec and all 4 are valid); `any` is a
+// readable address for the zero-filled copies
+template <typename T>
+__device__ __forceinline__ void copy_quad(float* dst, const T* src,
+                                          const T* any, int valid, bool vec) {
   if (vec && valid >= 4) {
-    mma::cp16(dst, src, true);
+    storage::copy4(dst, src, true);
   } else if (valid <= 0) {
-    mma::cp16(dst, any, false);
+    storage::copy4(dst, any, false);
   } else {
 #pragma unroll
     for (int j = 0; j < 4; ++j)
-      mma::cp4(dst + j, j < valid ? src + j : any, j < valid);
+      storage::copy1(dst + j, j < valid ? src + j : any, j < valid);
   }
 }
 

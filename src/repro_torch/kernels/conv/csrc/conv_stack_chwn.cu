@@ -8,6 +8,13 @@
 // [N,Co,Ho',Wo'] (Ho', Wo' after the pool); the residual is read in its own
 // layout, before the ReLU.  fp32 FMA on the CUDA cores (no TF32).
 //
+// Storage dtypes (csrc/storage.cuh): x, w1, w2, the biases, the residual
+// and y all float32 or all bf16.  A bf16 operand is widened to float32 on
+// its way into shared memory (a register load instead of cp.async); the
+// mid activation stays float32 (it never leaves the SM, so it is never
+// rounded to the storage type, as in the reference's kernel), and y is
+// rounded once where it is stored.
+//
 // What bounds it on an H100: operations.  At AlexNet's conv3 -> conv4
 // (N = 128, 256 -> 384 -> 384, 13x13) both convs are far above the fp32
 // ridge, so the bound is the CUDA cores' fp32 FMA rate, 67 TFLOP/s.  What
@@ -54,6 +61,7 @@
 #include <stdint.h>
 
 #include "../../csrc/nan_max.cuh"
+#include "../../csrc/storage.cuh"
 #include "conv_stack_common.cuh"  // StackArgs, Tile, make_tile
 
 namespace repro {
@@ -62,6 +70,10 @@ namespace stack_cluster {
 namespace cg = cooperative_groups;
 using stack::StackArgs;
 using stack::Tile;
+using storage::copy1;
+using storage::copy4;
+using storage::ld;
+using storage::put;
 
 constexpr int kThreads = 256;
 constexpr int kBK = 16;     // reduction slice of both phases
@@ -70,8 +82,9 @@ constexpr int kTile = 16384;  // bm * bn
 constexpr int kPassMax = 128;  // mid positions of the widest conv1 pass
 constexpr int kMaxSmem = 232448;  // 227 KB, what an H100 block may use
 
+template <typename E>
 struct ClusterArgs {
-  StackArgs s;
+  StackArgs<E> s;
   int CL;                      // blocks per cluster, along gridDim.y
   int vec_x, vec_w1, vec_w2;   // 16-byte copies: rows 4-aligned
   unsigned long long* stats;   // [executed FLOPs, cluster size] or null
@@ -86,8 +99,8 @@ struct SCol {
   bool ok;
 };
 
-__device__ __forceinline__ SCol scol(const StackArgs& a, const Tile& t,
-                                     int c) {
+template <typename A>
+__device__ __forceinline__ SCol scol(const A& a, const Tile& t, int c) {
   SCol s;
   const int tap = c / a.BU, ul = c - tap * a.BU;
   s.nl = ul % a.NB;
@@ -147,17 +160,8 @@ __device__ __forceinline__ void kstep(KIdx& s, int F) {
   }
 }
 
-// cp.async of 16 or 4 bytes; ok == false zero-fills dst and reads nothing
-__device__ __forceinline__ void cp16(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(ok ? 4 : 0));
-}
+// copy4 / copy1 (storage.cuh): 16- or 4-byte cp.async for float32, a
+// widening register load for bf16; ok == false zero-fills dst
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -186,14 +190,14 @@ struct CShape {
 // positions [p0, p0 + KRA) (clipped to this rank's range [p_lo, p_hi))
 // over K1, 4 x PW outputs a thread (PW 4 or 8: positions tx * 4 + j of
 // each 64-wide group), bias1 and ReLU, into the slab.
-template <int PW>
+template <int PW, typename E>
 __device__ __forceinline__ void conv1_pass(
-    const ClusterArgs& p, const Tile& t, float* As1, float* Bs1, float* mid,
-    int p0, int p_lo, int p_hi, int cm0, int cmn, const KIdx& dk1, int tid,
-    int tx, int ty) {
+    const ClusterArgs<E>& p, const Tile& t, float* As1, float* Bs1,
+    float* mid, int p0, int p_lo, int p_hi, int cm0, int cmn,
+    const KIdx& dk1, int tid, int tx, int ty) {
   constexpr int KRA = 16 * PW;
   constexpr int ASTR1 = kCM + 4;
-  const StackArgs& a = p.s;
+  const StackArgs<E>& a = p.s;
   const int nsl1 = (a.K1 + kBK - 1) / kBK;
   // x: vec, 4-position quads (rows kx0 + i * XR of the slice, quad qx,
   // one position a thread); else the scalar elements (kk, tid % KRA),
@@ -211,13 +215,12 @@ __device__ __forceinline__ void conv1_pass(
     mhl = q / t.MWc;
   }
   const bool pok = pp < p_hi;
-  const float* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
+  const E* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
   const int ih0 = (t.mh_lo + mhl) * a.S1 - a.P1;
   const int iw0 = (t.mw_lo + mwl) * a.S1 - a.P1;
   KIdx xk[XI];  // vec path: k = s * kBK + kx0 + i * XR
 #pragma unroll
   for (int i = 0; i < XI; ++i) xk[i] = kidx(kx0 + i * XR, a.F1);
-
   auto issue = [&](int s, int buf) {
     const int k0 = s * kBK;
     float* as = As1 + buf * kBK * ASTR1;
@@ -229,8 +232,8 @@ __device__ __forceinline__ void conv1_pass(
         const int kk = e / (kCM / 4), m4 = (e % (kCM / 4)) * 4;
         const int k = k0 + kk;
         const bool ok = k < a.K1 && m4 < cmn;
-        cp16(as + kk * ASTR1 + m4,
-             ok ? a.w1 + (long long)k * a.w1K + cm0 + m4 : a.w1, ok);
+        copy4(as + kk * ASTR1 + m4,
+              ok ? a.w1 + (long long)k * a.w1K + cm0 + m4 : a.w1, ok);
       }
     } else {
 #pragma unroll
@@ -238,8 +241,8 @@ __device__ __forceinline__ void conv1_pass(
         const int e = tid + i * kThreads, kk = e / kCM, m = e % kCM;
         const int k = k0 + kk;
         const bool ok = k < a.K1 && m < cmn;
-        cp4(as + kk * ASTR1 + m,
-            ok ? a.w1 + (long long)k * a.w1K + cm0 + m : a.w1, ok);
+        copy1(as + kk * ASTR1 + m,
+              ok ? a.w1 + (long long)k * a.w1K + cm0 + m : a.w1, ok);
       }
     }
     if (p.vec_x) {
@@ -250,10 +253,10 @@ __device__ __forceinline__ void conv1_pass(
           const int h = ih0 + xk[i].dy, w = iw0 + xk[i].dx;
           const bool ok = pok && k0 + kx < a.K1 && h >= 0 && h < a.H &&
                           w >= 0 && w < a.W;
-          cp16(bs + kx * KRA + 4 * qx,
-               ok ? xcol + xk[i].c * a.xs.c + h * a.xs.h + w * a.xs.w
-                  : a.x,
-               ok);
+          copy4(bs + kx * KRA + 4 * qx,
+                ok ? xcol + xk[i].c * a.xs.c + h * a.xs.h + w * a.xs.w
+                   : a.x,
+                ok);
           kadvance(xk[i], dk1, a.F1);
         }
       }
@@ -266,9 +269,9 @@ __device__ __forceinline__ void conv1_pass(
         const int h = ih0 + q.dy, w = iw0 + q.dx;
         const bool ok = pok && k < a.K1 && h >= 0 && h < a.H && w >= 0 &&
                         w < a.W;
-        cp4(bs + kk * KRA + tid % KRA,
-            ok ? xcol + q.c * a.xs.c + h * a.xs.h + w * a.xs.w : a.x,
-            ok);
+        copy1(bs + kk * KRA + tid % KRA,
+              ok ? xcol + q.c * a.xs.c + h * a.xs.h + w * a.xs.w : a.x,
+              ok);
       }
     }
   };
@@ -317,7 +320,7 @@ __device__ __forceinline__ void conv1_pass(
   for (int i = 0; i < 4; ++i) {
     const int cml = ty * 4 + i;
     if (cml >= cmn) continue;
-    const float b = a.b1 ? __ldg(a.b1 + cm0 + cml) : 0.f;
+    const float b = a.b1 ? ld(a.b1 + cm0 + cml) : 0.f;
 #pragma unroll
     for (int j = 0; j < PW; ++j) {
       const int r = p0 + (j / 4) * 64 + tx * 4 + (j % 4);
@@ -330,14 +333,14 @@ __device__ __forceinline__ void conv1_pass(
   __syncthreads();  // the next pass refills the ring
 }
 
-template <bool POOL, int GM>
+template <typename E, bool POOL, int GM>
 __global__ void __launch_bounds__(kThreads, 1)
-cluster_stack_kernel(const ClusterArgs p) {
+cluster_stack_kernel(const ClusterArgs<E> p) {
   using S = CShape<GM>;
   constexpr int GN = S::GN, TBM = S::TBM, TBN = S::TBN;
   constexpr int ASTR1 = S::ASTR1, ASTR = S::ASTR;
   constexpr int RPT_B = kBK * TBN / kThreads;  // slab values a thread, B
-  const StackArgs& a = p.s;
+  const StackArgs<E>& a = p.s;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;            // phase A: As1[2][kBK][ASTR1], Bs1[2][kBK][<=128]
                                  // phase B: As[2][kBK][ASTR], Bs[2][kBK][TBN]
@@ -463,8 +466,8 @@ cluster_stack_kernel(const ClusterArgs p) {
           const int kk = e / (TBM / 4), m4 = (e % (TBM / 4)) * 4;
           const int k = k0 + kk, co = co0 + m4;
           const bool ok = k < K2c && co < a.Co;
-          cp16(as + kk * ASTR + m4,
-               ok ? a.w2 + (k2base + k) * a.w2K + co : a.w2, ok);
+          copy4(as + kk * ASTR + m4,
+                ok ? a.w2 + (k2base + k) * a.w2K + co : a.w2, ok);
         }
       } else {
 #pragma unroll
@@ -473,8 +476,8 @@ cluster_stack_kernel(const ClusterArgs p) {
           const int kk = e / TBM, m = e % TBM;
           const int k = k0 + kk, co = co0 + m;
           const bool ok = k < K2c && co < a.Co;
-          cp4(as + kk * ASTR + m,
-              ok ? a.w2 + (k2base + k) * a.w2K + co : a.w2, ok);
+          copy1(as + kk * ASTR + m,
+                ok ? a.w2 + (k2base + k) * a.w2K + co : a.w2, ok);
         }
       }
     };
@@ -547,16 +550,17 @@ cluster_stack_kernel(const ClusterArgs p) {
       const int co = co0 + m;
       if (!col.ok || co >= a.Co) continue;
       float v = acc[i][j];
-      if (a.b2) v += __ldg(a.b2 + co);
+      if (a.b2) v += ld(a.b2 + co);
       if (a.res)
-        v += __ldg(a.res + (long long)col.n * a.rs.n + (long long)co * a.rs.c +
-                   col.oh * a.rs.h + col.ow * a.rs.w);
+        v += ld(a.res + (long long)col.n * a.rs.n + (long long)co * a.rs.c +
+                col.oh * a.rs.h + col.ow * a.rs.w);
       if (a.relu2) v = v < 0.f ? 0.f : v;
       if (POOL)
         Ts[m * TSTR + c] = v;
       else
-        a.y[(long long)col.n * a.ys.n + (long long)co * a.ys.c +
-            col.oh * a.ys.h + col.ow * a.ys.w] = v;
+        put(a.y + (long long)col.n * a.ys.n + (long long)co * a.ys.c +
+                col.oh * a.ys.h + col.ow * a.ys.w,
+            v);
     }
   }
   if (POOL) {
@@ -572,8 +576,9 @@ cluster_stack_kernel(const ClusterArgs p) {
         const float v = Ts[m * TSTR + tp * a.BU + ul];
         r = a.pool_avg ? r + v : nan_max(r, v);
       }
-      a.y[(long long)col.n * a.ys.n + (long long)co * a.ys.c +
-          col.uh * a.ys.h + col.uw * a.ys.w] = a.pool_avg ? r / area : r;
+      put(a.y + (long long)col.n * a.ys.n + (long long)co * a.ys.c +
+              col.uh * a.ys.h + col.uw * a.ys.w,
+          a.pool_avg ? r / area : r);
     }
   }
 }
@@ -589,11 +594,12 @@ inline long long smem_bytes(int rstr, bool pool) {
   return 4 * (S::RING + slab);
 }
 
-template <bool POOL, int GM>
-int launch(const ClusterArgs& p, dim3 grid, cudaStream_t st, int* clusters) {
+template <bool POOL, int GM, typename E>
+int launch(const ClusterArgs<E>& p, dim3 grid, cudaStream_t st,
+           int* clusters) {
   const long long bytes = smem_bytes<GM>(p.s.RSTR, POOL);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = cluster_stack_kernel<POOL, GM>;
+  auto kernel = cluster_stack_kernel<E, POOL, GM>;
   // a refused call leaves its error behind: clear it, so the next launch
   // does not report it
   auto fail = [](cudaError_t e) {
@@ -624,8 +630,8 @@ int launch(const ClusterArgs& p, dim3 grid, cudaStream_t st, int* clusters) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool POOL>
-int dispatch(const ClusterArgs& p, int gm, dim3 grid, cudaStream_t st,
+template <bool POOL, typename E>
+int dispatch(const ClusterArgs<E>& p, int gm, dim3 grid, cudaStream_t st,
              int* clusters) {
   switch (gm) {
     case 1: return launch<POOL, 1>(p, grid, st, clusters);
@@ -651,6 +657,7 @@ inline int max_span(int U, int UT, int pF, int pS, int S2, int P2, int F2,
   return best;
 }
 
+template <typename E>
 int forward(const void* x, const void* w1, const void* b1, const void* w2,
             const void* b2, const void* res, void* y, int N, int Ci, int H,
             int W, int Cm, int F1, int S1, int P1, int Co, int F2, int S2,
@@ -658,15 +665,15 @@ int forward(const void* x, const void* w1, const void* b1, const void* w2,
             int relu2, int src_nchw, int dst_nchw, int res_nchw, int bm,
             int nb, int uth, int utw, int cl, void* stats, void* stream,
             int* clusters) {
-  ClusterArgs p;
-  StackArgs& a = p.s;
-  a.x = static_cast<const float*>(x);
-  a.w1 = static_cast<const float*>(w1);
-  a.b1 = static_cast<const float*>(b1);
-  a.w2 = static_cast<const float*>(w2);
-  a.b2 = static_cast<const float*>(b2);
-  a.res = static_cast<const float*>(res);
-  a.y = static_cast<float*>(y);
+  ClusterArgs<E> p;
+  StackArgs<E>& a = p.s;
+  a.x = static_cast<const E*>(x);
+  a.w1 = static_cast<const E*>(w1);
+  a.b1 = static_cast<const E*>(b1);
+  a.w2 = static_cast<const E*>(w2);
+  a.b2 = static_cast<const E*>(b2);
+  a.res = static_cast<const E*>(res);
+  a.y = static_cast<E*>(y);
   a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Cm = Cm;
   a.F1 = F1; a.S1 = S1; a.P1 = P1; a.K1 = Ci * F1 * F1;
   a.Ho1 = (H + 2 * P1 - F1) / S1 + 1;
@@ -728,20 +735,24 @@ int forward(const void* x, const void* w1, const void* b1, const void* w2,
 // bm output channels a block; cl blocks a cluster along Co; nb x uth x utw
 // units a tile.  stats, if not
 // null, is two uint64 on the device: the FLOPs the kernel executes are
-// added to [0], the cluster size it ran with goes to [1].  Returns a
-// cudaError_t code.
-extern "C" int conv_stack_chwn_forward(
+// added to [0], the cluster size it ran with goes to [1].  Every tensor is
+// REPRO_WT (storage.cuh: conv_stack_chwn_forward is float32,
+// conv_stack_chwn_forward_bf16 the bf16 variant).  Returns a cudaError_t
+// code.
+extern "C" int REPRO_ENTRY(conv_stack_chwn_forward)(
     const void* x, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* res, void* y, int N, int Ci, int H, int W,
     int Cm, int F1, int S1, int P1, int Co, int F2, int S2, int P2,
     int pool_F, int pool_S, int pool_avg, int relu1, int relu2, int src_nchw,
     int dst_nchw, int res_nchw, int bm, int nb, int uth, int utw, int cl,
     void* stats, void* stream) {
-  return repro::stack_cluster::forward(
+  return repro::stack_cluster::forward<REPRO_WT>(
       x, w1, b1, w2, b2, res, y, N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2,
       pool_F, pool_S, pool_avg, relu1, relu2, src_nchw, dst_nchw, res_nchw,
       bm, nb, uth, utw, cl, stats, stream, nullptr);
 }
+
+#ifndef REPRO_VARIANT  // the tile's occupancy is the same in every variant
 
 // How many clusters of the tile above can be resident on the device at once
 // (cudaOccupancyMaxActiveClusters), into *clusters.  Returns a cudaError_t.
@@ -750,8 +761,9 @@ extern "C" int conv_stack_chwn_max_clusters(
     int F2, int S2, int P2, int pool_F, int pool_S, int bm, int nb, int uth,
     int utw, int cl, int* clusters) {
   *clusters = 0;
-  return repro::stack_cluster::forward(
+  return repro::stack_cluster::forward<float>(
       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, N, Ci,
       H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pool_F, pool_S, 0, 1, 1, 0, 0, 0,
       bm, nb, uth, utw, cl, nullptr, nullptr, clusters);
 }
+#endif

@@ -1,6 +1,7 @@
 // The tile helpers of the conv -> conv stack kernels, K5a
 // (conv_stack_chwn.cu) and K5b (conv_stack_nchw.cu): the launch arguments
-// (StackArgs), a block's tile of output units and the clipped mid box it
+// (StackArgs, over the storage type E: float32 for both, or bf16 for K5a,
+// whose mid activation stays float32), a block's tile of output units and the clipped mid box it
 // reads (make_tile, mid_span).
 //
 // A block owns NB images x UTH x UTW output units (a unit is one conv2
@@ -18,14 +19,15 @@
 namespace repro {
 namespace stack {
 
+template <typename E = float>
 struct StackArgs {
-  const float* x;
-  const float* w1;  // w1[cm * w1O + k1 * w1K], k1 = (ci, dy, dx)
-  const float* b1;  // [Cm] or null
-  const float* w2;  // w2[co * w2O + k2 * w2K], k2 = (cm, dy, dx)
-  const float* b2;  // [Co] or null
-  const float* res; // conv2-output (pre-pool) shape, or null
-  float* y;
+  const E* x;
+  const E* w1;      // w1[cm * w1O + k1 * w1K], k1 = (ci, dy, dx)
+  const E* b1;      // [Cm] or null
+  const E* w2;      // w2[co * w2O + k2 * w2K], k2 = (cm, dy, dx)
+  const E* b2;      // [Co] or null
+  const E* res;     // conv2-output (pre-pool) shape, or null
+  E* y;
   int N, Ci, H, W, Cm, F1, S1, P1, K1, Ho1, Wo1;
   int Co, F2, S2, P2, Ho2, Wo2;
   int pF, pS, pool_avg, relu1, relu2, T;
@@ -55,7 +57,8 @@ __device__ __forceinline__ void mid_span(int o0, int on, int S2, int P2,
   if (cnt < 0) cnt = 0;
 }
 
-__device__ __forceinline__ Tile make_tile(const StackArgs& a) {
+template <typename E>
+__device__ __forceinline__ Tile make_tile(const StackArgs<E>& a) {
   Tile t;
   int b = blockIdx.x;
   const int tw = b % a.nTW;

@@ -79,7 +79,7 @@ namespace {
 
 using namespace repro::mma;
 using namespace repro::ring;
-using repro::stack::StackArgs;
+using StackArgs = repro::stack::StackArgs<float>;
 using repro::stack::Tile;
 
 constexpr int kConsumers = 256;  // two warpgroups: the mma

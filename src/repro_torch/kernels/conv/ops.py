@@ -16,6 +16,15 @@ For a CPU tensor a wrapper returns the plain version (``ref.conv_ref``,
 raises; it never falls back, and a stack never splits into two convs.
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
+Storage dtypes (``_build.CONV_VARIANTS``): K1 and K2 take float32 or bf16
+x and w, or int8 x (per-channel quantized, its scale folded into w:
+``repro_torch.quant``) with float32 or bf16 w; bias and residual are w's
+dtype, and so is the output (the reference's ``result_type(x, w)``).  K5a
+takes float32 or bf16, every tensor one dtype; K5b float32 only.  A
+narrow launch also counts in ``<wrapper>.variant_launches[variant]``.
+The kernels accumulate in float32 and round once where they store; the
+plain versions do the same.  ``save_act`` (training) is float32 only.
+
 When an input requires grad, the wrappers run as ``torch.autograd
 .Function``s (``_ConvFn``, ``_StackFn``), the counterparts of the
 reference's custom VJPs: the forward saves the pre-pool activation
@@ -122,9 +131,9 @@ def _check_epilogue(name: str, N: int, Co: int, Ho: int, Wo: int, bias,
 
 
 def _output(name: str, x: torch.Tensor, dst_layout: str, N: int, Co: int,
-            OH: int, OW: int) -> torch.Tensor:
+            OH: int, OW: int, dtype: torch.dtype) -> torch.Tensor:
     y = torch.empty(_shape(dst_layout, N, Co, OH, OW), device=x.device,
-                    dtype=torch.float32)
+                    dtype=dtype)
     if y.numel() >= 2 ** 31:
         raise ValueError(f"{name}: output has {y.numel()} elements; the "
                          "kernel indexes with 32-bit ints")
@@ -495,10 +504,13 @@ def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
     Ho, Wo = _conv_hw(name, H, W, F, stride, pad)
     pF, pS, avg, OH, OW = _check_epilogue(name, N, Co, Ho, Wo, bias, pool,
                                           res, res_layout)
-    dev = _build.require_cuda_f32(name, x, w=w, bias=bias, res=res)
-    y = _output(name, x, dst_layout, N, Co, OH, OW)
+    dev, variant = _build.require_cuda_conv(name, x, w, bias=bias, res=res)
+    y = _output(name, x, dst_layout, N, Co, OH, OW, w.dtype)
     z = None
     if save_act:
+        if variant:
+            raise TypeError(f"{name}: save_act (training) takes float32 "
+                            f"only, not x {x.dtype} / w {w.dtype}")
         # conv outputs under no pool window are never computed: zero them
         covered = not pF or (pF >= pS and (Ho - pF) % pS == 0
                              and (Wo - pF) % pS == 0)
@@ -512,13 +524,15 @@ def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
     else:
         t = nchw_tiling(N, Ci, H, W, Co, F, stride, pad, pool)
         tile = (t.bm, t.nb, t.uth, t.utw, t.tr, t.ga, _ptr(stats))
-    err = getattr(_build.library(), entry)(
+    err = _build.entry(entry, variant)(
         x.data_ptr(), w.data_ptr(), _ptr(bias), _ptr(res), y.data_ptr(),
         _ptr(z), N, Ci, H, W, Co, F, stride, pad, pF, pS, avg, int(relu),
         int(src_layout == "NCHW"), int(dst_layout == "NCHW"),
         int(res_layout == "NCHW"), *tile, _build.stream_of(dev))
     _build.check(name, err)
     wrapper.launches += 1
+    if variant:
+        wrapper.variant_launches[variant] += 1
     return (y, z) if save_act else y
 
 
@@ -1049,11 +1063,15 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
                               dst_layout=dst_layout)
     tiling = stack_tiling(engine, N, Ci, H, W, Cm, F1, stride1, pad1, Co,
                           F2, stride2, pad2, tuple(pool) if pool else None)
-    dev = _build.require_cuda_f32(name, x, w1=w1, w2=w2, bias1=bias1,
-                                  bias2=bias2, res=res)
-    y = _output(name, x, dst_layout, N, Co, OH, OW)
+    if engine == "CHWN":
+        dev, variant = _build.require_cuda_storage(
+            name, x, w1=w1, w2=w2, bias1=bias1, bias2=bias2, res=res)
+    else:
+        dev, variant = _build.require_cuda_f32(
+            name, x, w1=w1, w2=w2, bias1=bias1, bias2=bias2, res=res), ""
+    y = _output(name, x, dst_layout, N, Co, OH, OW, x.dtype)
     cluster = (tiling.cluster,) if engine == "CHWN" else ()
-    err = getattr(_build.library(), entry)(
+    err = _build.entry(entry, variant)(
         x.data_ptr(), w1.data_ptr(), _ptr(bias1), w2.data_ptr(), _ptr(bias2),
         _ptr(res), y.data_ptr(), N, Ci, H, W, Cm, F1, stride1, pad1, Co, F2,
         stride2, pad2, pF, pS, avg, int(relu1), int(relu2),
@@ -1062,6 +1080,8 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
         tiling.utw, *cluster, _ptr(stats), _build.stream_of(dev))
     _build.check(name, err)
     wrapper.launches += 1
+    if variant:
+        wrapper.variant_launches[variant] += 1
     return y
 
 
@@ -1296,3 +1316,7 @@ conv_direct_chwn.launches = 0
 conv_im2col_nchw_fused.launches = 0
 conv_stack_chwn.launches = 0
 conv_stack_nchw.launches = 0
+conv_direct_chwn.variant_launches = {"bf16": 0, "i8f32": 0, "i8bf16": 0}
+conv_im2col_nchw_fused.variant_launches = {"bf16": 0, "i8f32": 0,
+                                           "i8bf16": 0}
+conv_stack_chwn.variant_launches = {"bf16": 0}

@@ -4,7 +4,9 @@
 ReLU -> max/avg pool -> permute to the destination layout; with
 ``save_act`` also the pre-pool activation (the kernels' ``z`` output).
 ``conv_stack_ref`` (K5a, K5b): two ``conv_ref`` calls, conv1 (+bias1,
-+ReLU) into the mid tensor and conv2 with the full epilogue.
++ReLU) into the float32 mid tensor and conv2 with the full epilogue.
+Both compute in float32 whatever the storage dtypes (bf16, int8 x) and
+round once, to the output's dtype, at the end, as the kernels do.
 ``wgrad_ref`` (K6): the conv weight gradient as one contraction per filter
 tap, in any float dtype (float64 is the card's oracle).
 ``im2col_nchw``: the matrix expansion of the baseline
@@ -30,18 +32,24 @@ def conv_ref(x: torch.Tensor, w_oihw: torch.Tensor, stride: int = 1,
              relu: bool = False, pool: Optional[Tuple[int, int, str]] = None,
              res: Optional[torch.Tensor] = None, res_layout: str = "NCHW",
              src_layout: str = "NCHW", dst_layout: str = "NCHW",
-             save_act: bool = False, act_layout: str = "NCHW"):
+             save_act: bool = False, act_layout: str = "NCHW",
+             out_dtype: Optional[torch.dtype] = None):
     """x in ``src_layout``; w canonical [Co, Ci, F, F]; ``res`` (the skip
     tensor of a folded residual add, conv-output shape) in ``res_layout``.
     Returns the result in ``dst_layout``, pooled when ``pool`` is
     ``(F, S, "max" | "avg")``.  With ``save_act`` returns ``(y, z)``: z is
     the conv output after bias, residual and ReLU, before the pool, in
     ``act_layout``, and 0 at the conv outputs under no pool window (the
-    kernels never compute those)."""
-    y = F.conv2d(x.permute(perm_between(src_layout, "NCHW")), w_oihw,
-                 bias, stride=stride, padding=pad)
+    kernels never compute those).  A narrow operand (bf16; int8 x, whose
+    per-channel scale is folded into w) is widened to float32, the whole
+    epilogue runs in float32 (float64 where w is: the card's oracle), and
+    the results are rounded once to ``out_dtype`` (default: w's dtype)."""
+    acc = _acc_dtype(w_oihw)
+    y = F.conv2d(x.permute(perm_between(src_layout, "NCHW")).to(acc),
+                 w_oihw.to(acc), None if bias is None else bias.to(acc),
+                 stride=stride, padding=pad)
     if res is not None:
-        y = y + res.permute(perm_between(res_layout, "NCHW"))
+        y = y + res.permute(perm_between(res_layout, "NCHW")).to(acc)
     if relu:
         y = torch.relu(y)
     z = y
@@ -53,10 +61,18 @@ def conv_ref(x: torch.Tensor, w_oihw: torch.Tensor, stride: int = 1,
             z = torch.where(_in_windows(z.shape[2], pF, pS, z.device)[:, None]
                             & _in_windows(z.shape[3], pF, pS, z.device),
                             z, 0.0)
-    y = y.permute(perm_between("NCHW", dst_layout)).contiguous()
+    dt = out_dtype or w_oihw.dtype
+    y = y.permute(perm_between("NCHW", dst_layout)).contiguous().to(dt)
     if save_act:
-        return y, z.permute(perm_between("NCHW", act_layout)).contiguous()
+        return y, z.permute(perm_between("NCHW", act_layout)).contiguous(
+            ).to(dt)
     return y
+
+
+def _acc_dtype(w: torch.Tensor) -> torch.dtype:
+    """What the plain versions compute in: float64 for a float64 w (the
+    oracle of the card's tests), float32 for every storage dtype."""
+    return torch.float64 if w.dtype == torch.float64 else torch.float32
 
 
 def _in_windows(n: int, pF: int, pS: int, device) -> torch.Tensor:
@@ -77,9 +93,11 @@ def conv_stack_ref(x: torch.Tensor, w1_oihw: torch.Tensor,
                    dst_layout: str = "NCHW") -> torch.Tensor:
     """conv1 [+bias1] [+ReLU] -> conv2 [+bias2] [+residual] [+ReLU]
     [+pool], with canonical weights [Cm, Ci, F1, F1] and [Co, Cm, F2, F2].
-    The mid tensor is NCHW here; the stack kernels never store it."""
+    The mid tensor is NCHW and float32 here, whatever the storage dtype:
+    the stack kernels never store it, so it is never rounded to bf16."""
     mid = conv_ref(x, w1_oihw, stride1, pad1, bias=bias1, relu=relu1,
-                   src_layout=src_layout, dst_layout="NCHW")
+                   src_layout=src_layout, dst_layout="NCHW",
+                   out_dtype=_acc_dtype(w1_oihw))
     return conv_ref(mid, w2_oihw, stride2, pad2, bias=bias2, relu=relu2,
                     pool=pool, res=res, res_layout=res_layout,
                     src_layout="NCHW", dst_layout=dst_layout)

@@ -1,0 +1,211 @@
+// Storage dtypes of the serving path's kernels: the conv kernels K1
+// (conv/csrc/conv_chwn.cu) and K2 (conv/csrc/conv_nchw.cu) load float32,
+// bf16 or int8 x and float32 or bf16 w, the stack K5a
+// (conv/csrc/conv_stack_chwn.cu) and the softmax K4 (softmax/csrc/
+// softmax.cu) float32 or bf16.  Every one of them widens what it loads to
+// float32, computes in float32 and rounds once, to nearest even, where it
+// stores (put).
+//
+// A narrow source is compiled again for each storage variant
+// (kernels/_build.py: VARIANTS) with one of the flags below, which set the
+// x type (REPRO_XT), the w and output type (REPRO_WT) and the suffix of the
+// entry points (REPRO_ENTRY); without a flag the source builds its float32
+// entries.
+//
+// cp.async copies whole 4-, 8- or 16-byte words and has no widening form,
+// so a narrow element reaches the kernels' float32 shared-memory rings
+// through registers: copy4/copy2/copy1 move 4, 2 or 1 consecutive elements
+// into as many floats, by one cp.async for float32 (the kernels' existing
+// copies) and by one register load of 4 * sizeof(T), 2 * sizeof(T) or
+// sizeof(T) bytes, widened, then one shared store, for bf16 and int8.  The
+// alignment a float32 quad needs (its first element a multiple of 4 from a
+// 16-byte-aligned base) is what a narrow quad needs too, so the kernels'
+// 16-byte conditions stand as they are.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "mma.cuh"
+
+#if defined(REPRO_VARIANT_BF16)
+#define REPRO_VARIANT 1
+#define REPRO_XT __nv_bfloat16
+#define REPRO_WT __nv_bfloat16
+#define REPRO_ENTRY(name) name##_bf16
+#elif defined(REPRO_VARIANT_I8F32)
+#define REPRO_VARIANT 1
+#define REPRO_XT int8_t
+#define REPRO_WT float
+#define REPRO_ENTRY(name) name##_i8f32
+#elif defined(REPRO_VARIANT_I8BF16)
+#define REPRO_VARIANT 1
+#define REPRO_XT int8_t
+#define REPRO_WT __nv_bfloat16
+#define REPRO_ENTRY(name) name##_i8bf16
+#else
+#define REPRO_XT float
+#define REPRO_WT float
+#define REPRO_ENTRY(name) name
+#endif
+
+namespace repro {
+namespace storage {
+
+using bf16 = __nv_bfloat16;
+
+// a bf16 or int8 value is exact in TF32 (8 significand bits; |q| <= 127):
+// its 3xTF32 small part is zero, so the products that read it drop out
+template <typename T>
+constexpr bool kExactTf32 = !std::is_same<T, float>::value;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float widen(int8_t v) {
+  return static_cast<float>(v);
+}
+
+// one element through the read-only cache, widened
+template <typename T>
+__device__ __forceinline__ float ld(const T* p) {
+  return widen(__ldg(p));
+}
+
+// a float32 result stored in the output's type: bf16 rounds to nearest even
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(bf16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+// the bf16 halves of a 32-bit word (element 0 in the low half) as floats
+__device__ __forceinline__ float lo_bf16(unsigned r) {
+  return __uint_as_float(r << 16);
+}
+__device__ __forceinline__ float hi_bf16(unsigned r) {
+  return __uint_as_float(r & 0xffff0000u);
+}
+// byte i of a 32-bit word as a signed int8, as a float
+__device__ __forceinline__ float i8_at(int r, int i) {
+  return static_cast<float>(
+      static_cast<int>(static_cast<unsigned>(r) << (24 - 8 * i)) >> 24);
+}
+
+// 4 consecutive narrow elements, widened, by one load of 4 * sizeof(T)
+// bytes (src aligned to it)
+__device__ __forceinline__ float4 ld4(const bf16* src) {
+  const uint2 r = __ldg(reinterpret_cast<const uint2*>(src));
+  return make_float4(lo_bf16(r.x), hi_bf16(r.x), lo_bf16(r.y), hi_bf16(r.y));
+}
+__device__ __forceinline__ float4 ld4(const int8_t* src) {
+  const int r = __ldg(reinterpret_cast<const int*>(src));
+  return make_float4(i8_at(r, 0), i8_at(r, 1), i8_at(r, 2), i8_at(r, 3));
+}
+
+// 4 elements of a narrow type as their raw bits: what a producer keeps in
+// registers while their loads are in flight, widened when it stores them
+template <typename T>
+struct Raw4;
+template <>
+struct Raw4<bf16> {
+  uint2 b;
+};
+template <>
+struct Raw4<int8_t> {
+  unsigned b;
+};
+// 4 consecutive elements by one load (aligned as ld4's)
+__device__ __forceinline__ void load_raw4(Raw4<bf16>& r, const bf16* p) {
+  r.b = __ldg(reinterpret_cast<const uint2*>(p));
+}
+__device__ __forceinline__ void load_raw4(Raw4<int8_t>& r, const int8_t* p) {
+  r.b = __ldg(reinterpret_cast<const unsigned*>(p));
+}
+// one element's bits where ok, else the bits of 0
+__device__ __forceinline__ unsigned raw1(const bf16* p, bool ok) {
+  return ok ? __ldg(reinterpret_cast<const unsigned short*>(p)) : 0u;
+}
+__device__ __forceinline__ unsigned raw1(const int8_t* p, bool ok) {
+  return ok ? __ldg(reinterpret_cast<const unsigned char*>(p)) : 0u;
+}
+__device__ __forceinline__ void pack_raw4(Raw4<bf16>& r, unsigned e0,
+                                          unsigned e1, unsigned e2,
+                                          unsigned e3) {
+  r.b = make_uint2(e0 | (e1 << 16), e2 | (e3 << 16));
+}
+__device__ __forceinline__ void pack_raw4(Raw4<int8_t>& r, unsigned e0,
+                                          unsigned e1, unsigned e2,
+                                          unsigned e3) {
+  r.b = e0 | (e1 << 8) | (e2 << 16) | (e3 << 24);
+}
+__device__ __forceinline__ float4 widen4(const Raw4<bf16>& r) {
+  return make_float4(lo_bf16(r.b.x), hi_bf16(r.b.x), lo_bf16(r.b.y),
+                     hi_bf16(r.b.y));
+}
+__device__ __forceinline__ float4 widen4(const Raw4<int8_t>& r) {
+  const int v = static_cast<int>(r.b);
+  return make_float4(i8_at(v, 0), i8_at(v, 1), i8_at(v, 2), i8_at(v, 3));
+}
+
+// 4 consecutive elements into 4 floats (dst 16-byte aligned); ok == false
+// writes zeros and reads nothing
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      bool ok) {
+  mma::cp16(dst, src, ok);
+}
+template <typename T>
+__device__ __forceinline__ void copy4(float* dst, const T* src, bool ok) {
+  *reinterpret_cast<float4*>(dst) =
+      ok ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// 2 consecutive elements into 2 floats (dst 8-byte aligned)
+__device__ __forceinline__ void copy2(float* dst, const float* src,
+                                      bool ok) {
+  mma::cp8(dst, src, ok);
+}
+__device__ __forceinline__ void copy2(float* dst, const bf16* src, bool ok) {
+  float2 v = make_float2(0.f, 0.f);
+  if (ok) {
+    const unsigned r = __ldg(reinterpret_cast<const unsigned*>(src));
+    v = make_float2(lo_bf16(r), hi_bf16(r));
+  }
+  *reinterpret_cast<float2*>(dst) = v;
+}
+__device__ __forceinline__ void copy2(float* dst, const int8_t* src,
+                                      bool ok) {
+  float2 v = make_float2(0.f, 0.f);
+  if (ok) {
+    const int r = __ldg(reinterpret_cast<const short*>(src));
+    v = make_float2(i8_at(r, 0), i8_at(r, 1));
+  }
+  *reinterpret_cast<float2*>(dst) = v;
+}
+
+// one element into one float
+__device__ __forceinline__ void copy1(float* dst, const float* src,
+                                      bool ok) {
+  mma::cp4(dst, src, ok);
+}
+template <typename T>
+__device__ __forceinline__ void copy1(float* dst, const T* src, bool ok) {
+  *dst = ok ? ld(src) : 0.f;
+}
+
+// 3xTF32's split of an A or B operand value: a value of an exact type
+// (kExactTf32) is its own TF32 big part and its small part is never read
+template <bool EXACT>
+__device__ __forceinline__ void split(float v, unsigned& big,
+                                      unsigned& small) {
+  if constexpr (EXACT) {
+    big = __float_as_uint(v);
+    small = 0u;
+  } else {
+    mma::split_tf32(v, big, small);
+  }
+}
+
+}  // namespace storage
+}  // namespace repro

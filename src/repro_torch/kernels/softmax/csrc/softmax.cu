@@ -1,5 +1,6 @@
-// K4: row softmax of a float32 [rows, cols] matrix in one kernel, and K8:
-// row-wise softmax cross entropy, loss[r] = lse(x[r]) - gold[r].
+// K4: row softmax of a float32 or bf16 [rows, cols] matrix in one kernel,
+// and K8: row-wise softmax cross entropy of float32 logits, loss[r] =
+// lse(x[r]) - gold[r].
 //
 // K4 replaces repro/kernels/softmax/softmax.py::softmax_pallas, the
 // paper's §V.B fusion of the five softmax steps (max, shift, exp, sum,
@@ -34,6 +35,10 @@
 // exp(-inf - -inf) = NaN, so it comes out NaN too, and so does K8's loss
 // of such a row whatever its label (xent_loss).
 //
+// bf16 (K4's variant build, csrc/storage.cuh): the same templates load
+// bf16 (4 elements, 8 bytes, where a float32 load takes 16), compute in
+// float32 and round y once, to nearest even, where they store it.
+//
 // K8's gold logit is x[row, label] for a label in [0, cols) and 0
 // otherwise: the reference kernel takes it through a one-hot, so a label
 // outside the row hits no column and the loss is the bare logsumexp.  The
@@ -44,8 +49,11 @@
 #include <stdint.h>
 
 #include "../../csrc/nan_max.cuh"
+#include "../../csrc/storage.cuh"
 
 namespace {
+
+using repro::storage::bf16;
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kNarrowThreads = 128;  // the most threads a narrow block has
@@ -106,26 +114,43 @@ __device__ __forceinline__ void fold(float& m, float& s, const float* v) {
   m = nm;
 }
 
-// W floats from p + c into v (W = 4: one 16-byte load); -inf where the
-// lane is off the row or past its end.
-template <int W>
-__device__ __forceinline__ void load(const float* p, int c, int cols,
-                                     bool live, float* v) {
-  if constexpr (W == 4) {
+// W elements from p + c into the floats v (W = 4: one 16-byte float32 or
+// 8-byte bf16 load); -inf where the lane is off the row or past its end.
+template <int W, typename T>
+__device__ __forceinline__ void load(const T* p, int c, int cols, bool live,
+                                     float* v) {
+  if constexpr (W == 4 && std::is_same<T, float>::value) {
     float4 t = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
     if (live && c < cols) t = *reinterpret_cast<const float4*>(p + c);
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if constexpr (W == 4) {
+    v[0] = v[1] = v[2] = v[3] = -INFINITY;
+    if (live && c < cols) {
+      const uint2 t = *reinterpret_cast<const uint2*>(p + c);
+      v[0] = repro::storage::lo_bf16(t.x);
+      v[1] = repro::storage::hi_bf16(t.x);
+      v[2] = repro::storage::lo_bf16(t.y);
+      v[3] = repro::storage::hi_bf16(t.y);
+    }
   } else {
-    v[0] = live && c < cols ? p[c] : -INFINITY;
+    v[0] = live && c < cols ? repro::storage::widen(p[c]) : -INFINITY;
   }
 }
 
-template <int W>
-__device__ __forceinline__ void store(float* p, int c, const float* v) {
-  if constexpr (W == 4)
+// W floats into p + c, rounded once to T
+template <int W, typename T>
+__device__ __forceinline__ void store(T* p, int c, const float* v) {
+  if constexpr (W == 4 && std::is_same<T, float>::value) {
     *reinterpret_cast<float4*>(p + c) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    p[c] = v[0];
+  } else if constexpr (W == 4) {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+    *reinterpret_cast<uint2*>(p + c) =
+        make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                   *reinterpret_cast<const unsigned*>(&hi));
+  } else {
+    repro::storage::put(p + c, v[0]);
+  }
 }
 
 // K8's loss from the row's (max, sum of exp(x - max)).  An all -inf row
@@ -140,9 +165,9 @@ __device__ __forceinline__ float xent_loss(const float* xr, long long label,
 
 // narrow: G lanes a row, STEPS loads a lane, blockDim.x / G rows a block.
 // K4 writes y [rows, cols]; K8 (XENT) writes y [rows], the loss.
-template <int G, int STEPS, bool VEC, bool XENT>
+template <typename T, typename TY, int G, int STEPS, bool VEC, bool XENT>
 __global__ void __launch_bounds__(kNarrowThreads)
-narrow_kernel(const float* __restrict__ x, float* __restrict__ y,
+narrow_kernel(const T* __restrict__ x, TY* __restrict__ y,
               const long long* __restrict__ labels, int rows, int cols) {
   constexpr int W = VEC ? 4 : 1, N = STEPS * W;
   const int lane = threadIdx.x % G;
@@ -183,9 +208,9 @@ narrow_kernel(const float* __restrict__ x, float* __restrict__ y,
 }
 
 // wide: a block of T threads a row.
-template <int T, bool VEC, bool XENT>
+template <typename E, typename TY, int T, bool VEC, bool XENT>
 __global__ void __launch_bounds__(T)
-wide_kernel(const float* __restrict__ x, float* __restrict__ y,
+wide_kernel(const E* __restrict__ x, TY* __restrict__ y,
             const long long* __restrict__ labels, int cols) {
   constexpr int W = VEC ? 4 : 1, STEPS = kWideFloats / W;
   __shared__ float red_max[T / 32], red_sum[T / 32];
@@ -234,15 +259,15 @@ wide_kernel(const float* __restrict__ x, float* __restrict__ y,
 }
 
 // loop: rows wider than a wide block holds.
-template <bool VEC, bool XENT>
+template <typename T, typename TY, bool VEC, bool XENT>
 __global__ void __launch_bounds__(kLoopThreads)
-loop_kernel(const float* __restrict__ x, float* __restrict__ y,
+loop_kernel(const T* __restrict__ x, TY* __restrict__ y,
             const long long* __restrict__ labels, int cols) {
   constexpr int W = VEC ? 4 : 1, STRIDE = kLoopThreads * W;
   __shared__ float red_m[kLoopThreads / 32], red_s[kLoopThreads / 32];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const long long base = (long long)blockIdx.x * cols;
-  const float* xr = x + base;
+  const T* xr = x + base;
   float m = -INFINITY, s = 0.f;
   for (int c0 = threadIdx.x * W; c0 < cols; c0 += kLoopLoads * STRIDE) {
     float v[kLoopLoads * W];
@@ -300,20 +325,20 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <int G, int STEPS, bool VEC, bool XENT>
-void launch_narrow(const float* x, float* y, const long long* labels,
-                   int rows, int cols, cudaStream_t st) {
+template <int G, int STEPS, bool VEC, bool XENT, typename T, typename TY>
+void launch_narrow(const T* x, TY* y, const long long* labels, int rows,
+                   int cols, cudaStream_t st) {
   const int rpb = rows_per_block(rows, G);
-  narrow_kernel<G, STEPS, VEC, XENT><<<(rows - 1) / rpb + 1, rpb * G, 0,
-                                       st>>>(x, y, labels, rows, cols);
+  narrow_kernel<T, TY, G, STEPS, VEC, XENT>
+      <<<(rows - 1) / rpb + 1, rpb * G, 0, st>>>(x, y, labels, rows, cols);
 }
 
 // The variant for (rows, cols): narrow with the least G, then the least
 // STEPS, whose G * STEPS loads cover the row's chunks rounded up to a
 // power of 2; wide with the least block that holds the row; loop past it.
-template <bool VEC, bool XENT>
-void launch(const float* x, float* y, const long long* labels, int rows,
-            int cols, cudaStream_t st) {
+template <bool VEC, bool XENT, typename T, typename TY>
+void launch(const T* x, TY* y, const long long* labels, int rows, int cols,
+            cudaStream_t st) {
   constexpr int W = VEC ? 4 : 1;
   if (cols <= 32 * kNarrowFloats) {
     const int chunks = (cols + W - 1) / W;
@@ -340,29 +365,34 @@ void launch(const float* x, float* y, const long long* labels, int rows,
         launch_narrow<32, 32, VEC, XENT>(x, y, labels, rows, cols, st);
     }
   } else if (cols <= 128 * kWideFloats) {
-    wide_kernel<128, VEC, XENT><<<rows, 128, 0, st>>>(x, y, labels, cols);
+    wide_kernel<T, TY, 128, VEC, XENT><<<rows, 128, 0, st>>>(x, y, labels,
+                                                              cols);
   } else if (cols <= 256 * kWideFloats) {
-    wide_kernel<256, VEC, XENT><<<rows, 256, 0, st>>>(x, y, labels, cols);
+    wide_kernel<T, TY, 256, VEC, XENT><<<rows, 256, 0, st>>>(x, y, labels,
+                                                              cols);
   } else if (cols <= 512 * kWideFloats) {
-    wide_kernel<512, VEC, XENT><<<rows, 512, 0, st>>>(x, y, labels, cols);
+    wide_kernel<T, TY, 512, VEC, XENT><<<rows, 512, 0, st>>>(x, y, labels,
+                                                              cols);
   } else if (cols <= 1024 * kWideFloats) {
-    wide_kernel<1024, VEC, XENT><<<rows, 1024, 0, st>>>(x, y, labels, cols);
+    wide_kernel<T, TY, 1024, VEC, XENT><<<rows, 1024, 0, st>>>(x, y, labels,
+                                                                cols);
   } else {
-    loop_kernel<VEC, XENT><<<rows, kLoopThreads, 0, st>>>(x, y, labels,
-                                                           cols);
+    loop_kernel<T, TY, VEC, XENT><<<rows, kLoopThreads, 0, st>>>(x, y, labels,
+                                                                 cols);
   }
 }
 
 }  // namespace
 
-// K4: x, y [rows, cols] f32 (any 4-byte-aligned bases; 16-byte access
-// where cols % 4 == 0 and both bases are 16-byte aligned).  The variant is
-// picked here from (rows, cols).
-extern "C" int softmax_forward(const void* x, void* y, int rows, int cols,
-                               void* stream) {
+// K4: x, y [rows, cols] REPRO_WT (storage.cuh: softmax_forward float32,
+// softmax_forward_bf16 bf16; bases aligned to the element; 4-element
+// access where cols % 4 == 0 and both bases are 16-byte aligned).  The
+// variant is picked here from (rows, cols).
+extern "C" int REPRO_ENTRY(softmax_forward)(const void* x, void* y, int rows,
+                                            int cols, void* stream) {
   if (rows > 0 && cols > 0) {
-    const float* xf = static_cast<const float*>(x);
-    float* yf = static_cast<float*>(y);
+    const REPRO_WT* xf = static_cast<const REPRO_WT*>(x);
+    REPRO_WT* yf = static_cast<REPRO_WT*>(y);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (cols % 4 == 0 && aligned16(x) && aligned16(y))
       launch<true, false>(xf, yf, nullptr, rows, cols, st);
@@ -372,6 +402,7 @@ extern "C" int softmax_forward(const void* x, void* y, int rows, int cols,
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifndef REPRO_VARIANT  // K8 is float32 only
 // K8: x [rows, cols] f32, labels [rows] int64 (any value) -> loss [rows].
 extern "C" int softmax_xent_forward(const void* x, const void* labels,
                                     void* loss, int rows, int cols,
@@ -388,3 +419,4 @@ extern "C" int softmax_xent_forward(const void* x, const void* labels,
   }
   return static_cast<int>(cudaGetLastError());
 }
+#endif

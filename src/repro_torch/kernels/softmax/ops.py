@@ -4,7 +4,9 @@ K4 (``softmax``) and the row cross entropy K8 (``softmax_xent``).
 For a CPU tensor each returns the plain version (``ref.softmax_ref``,
 ``ref.softmax_xent_ref``); for a CUDA tensor it launches its kernel or
 raises.  Launches are counted in ``softmax.launches`` and
-``softmax_xent.launches``.  ``softmax`` is differentiable: the gradient is
+``softmax_xent.launches`` (a bf16 K4 launch also in
+``softmax.variant_launches["bf16"]``).  K4 takes float32 or bf16 (computed
+in float32, rounded once to x's dtype); K8 float32.  ``softmax`` is differentiable: the gradient is
 the reference's closed form on the saved output, in plain tensor ops.
 
 Nothing in either wrapper reads device memory on the host, so a launch
@@ -23,12 +25,14 @@ def _softmax(x: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"softmax takes [N, C], got {tuple(x.shape)}")
     if _build.on_cpu("softmax", x):
         return softmax_ref(x)
-    dev = _build.require_cuda_f32("softmax", x)
+    dev, variant = _build.require_cuda_storage("softmax", x)
     rows, cols = x.shape
     y = torch.empty_like(x)
-    _build.check("softmax", _build.library().softmax_forward(
+    _build.check("softmax", _build.entry("softmax_forward", variant)(
         x.data_ptr(), y.data_ptr(), rows, cols, _build.stream_of(dev)))
     softmax.launches += 1
+    if variant:
+        softmax.variant_launches[variant] += 1
     return y
 
 
@@ -50,8 +54,8 @@ class _SoftmaxFn(torch.autograd.Function):
 
 
 def softmax(x: torch.Tensor) -> torch.Tensor:
-    """Fused row softmax of a float32 [N, C] matrix (paper §V.B: max,
-    shift, exp, sum and normalize in one kernel); differentiable."""
+    """Fused row softmax of a float32 or bf16 [N, C] matrix (paper §V.B:
+    max, shift, exp, sum and normalize in one kernel); differentiable."""
     if x.requires_grad and torch.is_grad_enabled():
         return _SoftmaxFn.apply(x)
     return _softmax(x)
@@ -86,4 +90,5 @@ def softmax_xent(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 softmax.launches = 0
+softmax.variant_launches = {"bf16": 0}
 softmax_xent.launches = 0

@@ -11,19 +11,26 @@ H100 profile (``planner_calls`` counts those).
 
 Thresholds are planning inputs too, one-time per (hardware id, dtype):
 ``calibration="measured"`` times K1 and K2 on the card over the paper's
-Fig. 4 sweep (``perfmodel.card_conv_measure``) and persists the row beside
-the cache; ``"analytic"`` runs ``calibrate()`` on the H100 profile.  The
-paper's heuristic plans under them (``PlanCache.heuristic_layouts``).
+Fig. 4 sweep (``perfmodel.card_conv_measure``, at the row's storage dtype)
+and persists the row beside the cache; ``"analytic"`` runs ``calibrate()``
+on the H100 profile at the row's element size.  The paper's heuristic
+plans under them (``PlanCache.heuristic_layouts``).
 
-The plans served are uniform float32 plans at the server's ``stack``
-policy: ``"auto"`` (the reference's top rung) fuses conv->conv pairs into
-one K5a (CHWN) or K5b (NCHW) launch, ``"off"`` (its second rung) does
-not.  Every other conv op is one K1 (CHWN) or K2 (NCHW) launch and the
-classifier softmax one K4 launch.  There is no degradation ladder: a
+The server stores activations and weights in its ``dtype`` (float32 or
+bf16: half the bytes, every kernel still accumulating in float32), and
+requests are cast to it.  ``dtype_policy="mixed"`` plans per layer
+(layout, storage dtype): interior conv chains store int8 (the conv kernels
+take it with the scale folded into the weights), so a mixed server also
+keeps, and measures, the int8 threshold row.  The plans are served at the
+server's ``stack`` policy: ``"auto"`` (the reference's top rung) fuses
+conv->conv pairs into one K5a (CHWN) or K5b (NCHW) launch where the plan
+is uniform, ``"off"`` (its second rung) does not.  Every other conv op is
+one K1 (CHWN) or K2 (NCHW) launch and the classifier softmax one K4
+launch.  There is no degradation ladder: a
 failing kernel raises, and the admitted batch returns to the front of the
-queue first.  The report shows the plan cache's hit rate and planner
-calls, per bucket the hit rate, the plans' conv layouts and stacks,
-modeled device-memory bytes and images/s.
+queue first.  The report shows the dtype and policy, the plan cache's hit
+rate and planner calls, per bucket the hit rate, the plans' conv layouts,
+storage dtypes and stacks, modeled device-memory bytes and images/s.
 """
 from __future__ import annotations
 
@@ -41,14 +48,16 @@ from repro_torch.cnn.layers import init_cnn
 from repro_torch.cnn.network import FusedCNN, batch_output_ok
 from repro_torch.configs.cnn_networks import (CNN_BUILDERS, CNN_CONFIGS,
                                               reduced_cnn)
-from repro_torch.dtypes import dtype_bytes
+from repro_torch.dtypes import (INT8_DTYPE, canon_dtype, dtype_bytes,
+                                torch_dtype)
 from repro_torch.perfmodel import (CostModel, Thresholds, calibrate,
                                    card_conv_measure, default_cost_model,
                                    hardware_id, measured_thresholds)
 from repro_torch.serve.plan_cache import (PlanCache, packaged_plans,
                                           pad_to_bucket)
 
-DTYPE = "float32"
+DTYPES = ("float32", "bfloat16")   # what the port's kernels serve
+DTYPE_POLICIES = ("uniform", "mixed")
 STACK_POLICIES = ("auto", "off")
 CALIBRATIONS = ("measured", "analytic")
 
@@ -104,11 +113,14 @@ class CNNServer:
     without one the server starts from the packaged plan file of
     ``network`` (never written) or from an empty cache.  ``stack`` is the
     plans' stack policy: "auto" (conv->conv stacks, the reference's
-    operating point) or "off".  ``calibration`` and ``thresholds`` set the
-    float32 threshold row of this card (module docstring); ``calib_path``
-    (default: ``thresholds.json`` beside ``cache_path``) persists a
-    measured row.  ``cost_model`` prices the plans a miss makes (default:
-    the H100 profile)."""
+    operating point) or "off".  ``dtype`` is the storage dtype (float32 or
+    bf16) and ``dtype_policy`` "uniform" or "mixed" (int8 interior
+    boundaries).  ``calibration`` sets the threshold rows this server
+    plans under, its dtype's and, mixed, int8's (module docstring);
+    ``thresholds``, when given, is its dtype's row; ``calib_path``
+    (default: ``thresholds.json`` beside ``cache_path``) persists measured
+    rows.  ``cost_model`` prices the plans a miss makes (default: the
+    H100 profile)."""
 
     def __init__(self, network: str = "lenet", *, reduced: bool = True,
                  max_bucket: int = 64, cache_path: Optional[str] = None,
@@ -116,7 +128,15 @@ class CNNServer:
                  calibration: str = "measured",
                  thresholds: Optional[Thresholds] = None,
                  calib_path: Optional[str] = None,
-                 cost_model: Optional[CostModel] = None):
+                 cost_model: Optional[CostModel] = None,
+                 dtype: str = "float32", dtype_policy: str = "uniform"):
+        self.dtype = canon_dtype(dtype)
+        if self.dtype not in DTYPES:
+            raise ValueError(f"the port serves {DTYPES}, not {dtype!r}")
+        if dtype_policy not in DTYPE_POLICIES:
+            raise ValueError(f"unknown dtype policy {dtype_policy!r}; "
+                             f"known: {DTYPE_POLICIES}")
+        self.dtype_policy = dtype_policy
         if stack not in STACK_POLICIES:
             raise ValueError(f"unknown stack policy {stack!r}; known: "
                              f"{STACK_POLICIES}")
@@ -142,22 +162,32 @@ class CNNServer:
             cache_path = str(packaged_plans(network))
         self.cache = PlanCache(
             None if cache_path is None else str(cache_path),
-            thresholds=thresholds, max_bucket=max_bucket,
+            thresholds=(None if thresholds is None
+                        else {self.dtype: thresholds}),
+            max_bucket=max_bucket,
             cost_model=cost_model or default_cost_model())
-        if self.cache.thresholds_for(DTYPE, self._hw) is None:
+        # a row for every storage dtype the plans use: the server's, and
+        # int8's where the plans are mixed
+        self.rows = [self.dtype] + (
+            [INT8_DTYPE] if dtype_policy == "mixed" else [])
+        if calib_path is None and self._persist:
+            calib_path = os.path.join(
+                os.path.dirname(os.path.abspath(cache_path)),
+                "thresholds.json")
+        for row in self.rows:
+            if self.cache.thresholds_for(row, self._hw) is not None:
+                continue
             if calibration == "measured":
-                if calib_path is None and self._persist:
-                    calib_path = os.path.join(
-                        os.path.dirname(os.path.abspath(cache_path)),
-                        "thresholds.json")
                 th = measured_thresholds(
-                    calib_path, dtype=DTYPE, hardware=self._hw,
-                    measure=card_conv_measure(device=self.device))
+                    calib_path, dtype=row, hardware=self._hw,
+                    measure=card_conv_measure(dtype=row,
+                                              device=self.device))
             else:
-                th = calibrate(dtype_bytes=dtype_bytes(DTYPE),
+                th = calibrate(dtype_bytes=dtype_bytes(row),
                                hw=self.cache.cost_model.hw)
-            self.cache.set_thresholds(th, DTYPE, hardware=self._hw)
-        self.model = FusedCNN(cfg, init_cnn(cfg, seed), self.device)
+            self.cache.set_thresholds(th, row, hardware=self._hw)
+        self.model = FusedCNN(cfg, init_cnn(cfg, seed), self.device,
+                              self.dtype)
         self.queue: Deque[ImageRequest] = deque()
         self.reports: Dict[int, BucketReport] = {}
 
@@ -185,9 +215,11 @@ class CNNServer:
         try:
             t0 = time.perf_counter()
             plan, bucket, hit = self.cache.fused_plan(
-                self.cfg, B, dtype=DTYPE, stack=self.stack)
+                self.cfg, B, dtype=self.dtype, policy=self.dtype_policy,
+                stack=self.stack)
             x = torch.from_numpy(np.stack([r.image for r in batch]))
-            x = pad_to_bucket(x.to(self.device, torch.float32), bucket)
+            x = pad_to_bucket(x.to(self.device, torch_dtype(self.dtype)),
+                              bucket)
             with torch.inference_mode():
                 y, stats = self.model(x, plan)
                 ok = bool(batch_output_ok(y[:B]))  # synchronizes
@@ -228,15 +260,19 @@ class CNNServer:
     def report_lines(self) -> List[str]:
         dev = (torch.cuda.get_device_name(self.device)
                if self.device.type == "cuda" else "cpu")
-        th = self.cache.thresholds_for(DTYPE, self._hw)
+        rows = " ".join(
+            f"thresholds[{row}]=Ct:{th.Ct},Nt:{th.Nt}"
+            for row in self.rows
+            for th in [self.cache.thresholds_for(row, self._hw)])
         lines = [f"net={self.cfg.name} image_hw={self.cfg.image_hw} "
-                 f"dtype={DTYPE} stack={self.stack} device={dev} "
-                 f"hw={self._hw} thresholds=Ct:{th.Ct},Nt:{th.Nt} "
+                 f"dtype={self.dtype} policy={self.dtype_policy} "
+                 f"stack={self.stack} device={dev} hw={self._hw} {rows} "
                  f"hit_rate={self.cache.stats.hit_rate:.2f} "
                  f"planner_calls={self.cache.planner_calls}"]
         for b in sorted(self.reports):
             rep = self.reports[b]
-            plan = self.cache.peek_fused(self.cfg, b, dtype=DTYPE,
+            plan = self.cache.peek_fused(self.cfg, b, dtype=self.dtype,
+                                         policy=self.dtype_policy,
                                          stack=self.stack)
             ips = rep.images / rep.seconds if rep.seconds else 0.0
             lines.append(
@@ -261,6 +297,16 @@ def main(argv=None) -> None:
                     help="plan-cache JSON, read if it exists and written "
                          "after the run (default: the packaged plans, "
                          "never written)")
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "fp32", "bfloat16", "bf16"],
+                    help="storage dtype: bf16 halves every activation and "
+                         "weight byte and plans under its own threshold "
+                         "row")
+    ap.add_argument("--dtype-policy", default="uniform",
+                    choices=list(DTYPE_POLICIES),
+                    help="mixed: per-layer (layout, dtype) plans whose "
+                         "interior conv chains store int8; boundaries stay "
+                         "--dtype")
     ap.add_argument("--calibration", default="measured",
                     choices=list(CALIBRATIONS),
                     help="thresholds: time K1/K2 on the card (persisted "
@@ -273,7 +319,8 @@ def main(argv=None) -> None:
     srv = CNNServer(args.network, reduced=args.reduced,
                     max_bucket=args.max_bucket, cache_path=args.cache_path,
                     device=args.device, seed=args.seed,
-                    calibration=args.calibration)
+                    calibration=args.calibration, dtype=args.dtype,
+                    dtype_policy=args.dtype_policy)
     rng = np.random.default_rng(args.seed)
     c, h = srv.cfg.in_channels, srv.cfg.image_hw
     reqs = [ImageRequest(i, rng.standard_normal((c, h, h), np.float32))

@@ -184,16 +184,22 @@ def card_conv_measure(*, proxy_hw: Optional[int] = None,
 
     N and Ci come from the layer; HW and Co too unless ``proxy_hw`` /
     ``proxy_co`` clamp them (``proxied_layer``).  Operands are seeded
-    random fp32 (the only dtype the conv kernels take).  Raises unless
-    ``device`` is a CUDA device: the measure times kernels, never their
-    plain versions."""
+    random in the storage ``dtype`` (float32 or bf16), so the time is the
+    kernels' at that element size; the int8 row times them on genuine int8
+    activations, random values in [-127, 127], with float32 weights, what
+    the mixed-dtype executor feeds them (the reference's measure does the
+    same).  Raises unless ``device`` is a CUDA device: the measure times
+    kernels, never their plain versions."""
     device = torch.device(device)
     if device.type != "cuda" or not torch.cuda.is_available():
         raise RuntimeError(
             f"card_conv_measure times the conv kernels on a CUDA device, "
             f"not on {device}")
-    if canon_dtype(dtype) != "float32":
-        raise ValueError(f"the conv kernels take float32, not {dtype!r}")
+    dtype = canon_dtype(dtype)
+    if dtype not in ("float32", "bfloat16", "int8"):
+        raise ValueError(f"the conv kernels take float32, bfloat16 or int8 "
+                         f"x, not {dtype!r}")
+    wdt = torch.float32 if dtype in ("float32", "int8") else torch.bfloat16
     from repro_torch.kernels.conv.ops import (conv_direct_chwn,
                                               conv_im2col_nchw_fused)
 
@@ -201,16 +207,23 @@ def card_conv_measure(*, proxy_hw: Optional[int] = None,
         hw = l.HW if proxy_hw is None else max(min(l.HW, proxy_hw), l.F)
         co = l.Co if proxy_co is None else min(l.Co, proxy_co)
         g = torch.Generator(device=device).manual_seed(0)
-        w = 0.1 * torch.randn((co, l.Ci, l.F, l.F), generator=g,
-                              device=device)
+        w = (0.1 * torch.randn((co, l.Ci, l.F, l.F), generator=g,
+                               device=device)).to(wdt)
+
+        def make_x(shape):
+            if dtype == "int8":
+                return torch.randint(-127, 128, shape, generator=g,
+                                     device=device, dtype=torch.int8)
+            return torch.randn(shape, generator=g, device=device).to(wdt)
+
         if layout == "CHWN":
-            x = torch.randn((l.Ci, hw, hw, l.N), generator=g, device=device)
+            x = make_x((l.Ci, hw, hw, l.N))
             wk = w.permute(1, 2, 3, 0).contiguous()
 
             def f():
                 return conv_direct_chwn(x, wk, l.S, 0)
         elif layout == "NCHW":
-            x = torch.randn((l.N, l.Ci, hw, hw), generator=g, device=device)
+            x = make_x((l.N, l.Ci, hw, hw))
 
             def f():
                 return conv_im2col_nchw_fused(x, w, l.S, 0)

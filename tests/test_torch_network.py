@@ -93,9 +93,15 @@ def test_fused_cnn_module_runs_the_plan():
 
 
 def test_unported_plan_features_raise():
-    _, _, cfg, plan, tree, x = _setup("vgg16")
+    """int8 into or out of a stack op has no kernel (no plan makes one):
+    the executor raises rather than run a plain version."""
+    ref_cfg, _, cfg, _, tree, x = _setup("vgg16")
+    plan = _plan_from_obj(dataclasses.asdict(plan_network_fused(ref_cfg)))
     params = params_from_numpy(tree, "cpu")
-    mixed = dataclasses.replace(plan, ops=[
-        dataclasses.replace(plan.ops[0], dst_dtype="int8")] + plan.ops[1:])
-    with pytest.raises(NotImplementedError, match="int8"):
-        forward_fused(params, torch.from_numpy(x), cfg, mixed)
+    i = next(i for i, op in enumerate(plan.ops) if op.stack_index is not None)
+    for field in ("src_dtype", "dst_dtype"):
+        mixed = dataclasses.replace(plan, ops=plan.ops[:i] + [
+            dataclasses.replace(plan.ops[i], **{field: "int8"})]
+            + plan.ops[i + 1:])
+        with pytest.raises(NotImplementedError, match="int8"):
+            forward_fused(params, torch.from_numpy(x), cfg, mixed)
