@@ -59,7 +59,9 @@
    through the kernels and through the torch engine.
 3b. Dtype phase, the main path at narrow storage dtypes: VGG16 b32 bf16
    stack "auto" (K1 + K5a + K4) and "off", AlexNet b128 and ResNet-18 b32
-   bf16 with ``dtype_policy="mixed"`` (int8 boundaries into K1), each one
+   bf16 with ``dtype_policy="mixed"`` (int8 boundaries into K1), unet_mini
+   b8 bf16 (K1, its standalone pools on K3a, K4; its float32 reference the
+   H100 planner's plan, none being packaged), each one
    batch through ``CNNServer(reduced=False, dtype="bf16")`` from an empty
    plan cache (a miss planned on the H100 profile), calibration
    "measured" into one threshold file the phase shares: the first server
@@ -134,7 +136,27 @@
    float64 run of it, within 1e-4 scale-relative on 99.9 % of its
    elements and within 1e-3 on all (``_step1_gradients`` says why); then
    one warm step of each engine is timed and the peak device memory of a
-   step read.  The kernel phase also holds every distinct training launch:
+   step read.
+7b. bf16 training phase, the main path's fifth part, outside inference
+   mode: VGG16 b32 (the H100 planner's bf16 "auto" plan: all CHWN, two
+   K5a stacks), ResNet-18 b32 (the plan the reference's own profile makes:
+   NCHW with three K5b stacks, CHWN shortcuts whose residual gradients
+   cross layouts on K9a, conv1's folded pool and the final average pool)
+   and unet_mini b8 (H100 plan: standalone pools on K3a, their gradients on
+   K7a), each from the seed-0 weights cast once to bf16 and a bf16 input:
+   5 SGD steps of ``make_train_step_fused`` on the kernels in bf16 (K1/K2
+   forward, ``save_act`` z and dgrad, K5a/K5b and the recompute, K6 on
+   bf16 x and g, K7, K3, K9a, K4), counts zeroed just before each step and
+   equal by variant to ``plan_train_launches`` with no float32 launch; the
+   same 5 steps on the torch engine in bf16.  Every loss finite; each
+   step's loss within 8 eps(bf16) of the torch engine's bf16 loss at the
+   same parameters; each parameter's step-1 gradient no further from the
+   float64 gradient of the same bf16 weights and input (L2) than twice the
+   torch engine's bf16 one, plus 2^-5 of its norm.  Reported: the torch
+   engine's trajectory, whether the loss falls, the warm step and the peak
+   device memory of a step on the kernels in bf16, on the torch engine in
+   bf16 and on the kernels over the same planner's float32 plan.
+   The kernel phase also holds every distinct training launch:
    K6 against its plain version in float64 (1e-5 scale-relative, and two
    launches bitwise equal; library ``conv2d_weight``; its line adds the
    executed TFLOP/s and the bound of its own design, three TF32 products
@@ -145,7 +167,14 @@
    (library ``conv2d_input``, also within the conv tolerance of it) and
    K1/K2 with ``save_act``; and one K8 case off the path (VGG16's [32, 1000];
    library ``cross_entropy``; also held with labels outside [0, C), which
-   give the bare logsumexp), listed with 0 launches.
+   give the bare logsumexp), listed with 0 launches.  And every distinct
+   bf16 training launch against its plain version in bf16: max pools, max
+   pool backwards and transposes exactly, K6 within 1e-5 scale-relative of
+   float64, the rest (avg pools and their backwards, K5b, ``save_act``
+   z, dgrad) within one bf16 step; with K3b and K9b in bf16 off the path
+   (one case each, 0 launches); a "K6 bf16 over the main path" line in
+   K6's form (its bounds at the bf16 peak and at one TF32 product a
+   term).
 8. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
    path of the tiled matmul K10: the 12 Table-1 layers
    (``configs/paper_table1.py``) at their published N, HW, F, Ci, Co and
@@ -259,8 +288,9 @@ from repro_torch.kernels.transpose.ops import (transpose2d,  # noqa: E402
 from repro_torch.kernels.transpose.ref import (  # noqa: E402
     transpose2d_batched_ref, transpose2d_ref)
 from repro_torch.launch.cnn_serve import CNNServer, ImageRequest  # noqa: E402
-from repro_torch.perfmodel import (calibrate,  # noqa: E402
-                                   card_conv_measure, hardware_id,
+from repro_torch.perfmodel import (AnalyticCostModel,  # noqa: E402
+                                   calibrate, card_conv_measure,
+                                   hardware_id, reference_hardware,
                                    select_conv_layout_cost)
 from repro_torch.perfmodel.calibration import C_SWEEP, N_SWEEP  # noqa: E402
 from repro_torch.quant import INT8_FORWARD_ATOL  # noqa: E402
@@ -334,7 +364,8 @@ SOFTMAX_VARIANTS = (
 DTYPE_SERVED = [("vgg16", 32, "uniform", "auto"),
                 ("vgg16", 32, "uniform", "off"),
                 ("alexnet", 128, "mixed", "auto"),
-                ("resnet18", 32, "mixed", "auto")]
+                ("resnet18", 32, "mixed", "auto"),
+                ("unet_mini", 8, "uniform", "auto")]
 BF16_STEP = 2.0 ** -7            # eps(bf16): one step relative to a value
 BF16_PROBS_ATOL = 8 * BF16_STEP  # bf16 against fp32 probabilities
 # the storage variants' (x, w) dtypes (``_build.CONV_VARIANTS``)
@@ -422,18 +453,45 @@ KERNELS = {
         "source": "src/repro_torch/kernels/crossentropy/csrc/crossentropy.cu",
         "replaces": "src/repro/kernels/crossentropy/crossentropy.py:59"},
 }
-# the storage variants of the serving path's kernels (``_build.VARIANTS``):
-# the same sources, built again for bf16 and int8 input
+# the storage variants of the serving and training paths' kernels
+# (``_build.VARIANTS``): the same sources, built again for bf16 and int8
+# input
 for _base, _variants in (("conv_chwn", ("bf16", "i8bf16", "i8f32")),
                          ("conv_nchw", ("bf16", "i8f32", "i8bf16")),
                          ("conv_stack_chwn", ("bf16",)),
-                         ("softmax", ("bf16",))):
+                         ("conv_stack_nchw", ("bf16",)),
+                         ("softmax", ("bf16",)), ("pool_chwn", ("bf16",)),
+                         ("pool_nchw", ("bf16",)), ("wgrad", ("bf16",)),
+                         ("pool_backward_chwn", ("bf16",)),
+                         ("pool_backward_nchw", ("bf16",)),
+                         ("transpose2d", ("bf16",)),
+                         ("transpose2d_batched", ("bf16",))):
     for _v in _variants:
         KERNELS[f"{_base}.{_v}"] = KERNELS[_base]
+# the bf16 training phase: (network, batch, the profile its bf16 "auto"
+# plan is priced on: the port's H100 one, or the reference's own, under
+# which ResNet-18 plans NCHW with K5b stacks and CHWN shortcuts), each
+# BF16_TRAIN_STEPS SGD steps from the seed-0 weights cast once to bf16
+BF16_TRAINED = [("vgg16", 32, "h100"), ("resnet18", 32, "reference"),
+                ("unet_mini", 8, "h100")]
+BF16_TRAIN_STEPS = 5
+# its gates (PERF.md §2): each step's loss within 8 eps(bf16) of the torch
+# engine's bf16 loss at the same parameters; each parameter's step-1
+# gradient no further from the float64 gradient of the same bf16 weights
+# and input, in the L2 norm, than BF16_GRAD_FACTOR times the torch
+# engine's bf16 gradient is, plus BF16_GRAD_SLACK of the float64 norm
+# (``_bf16_step1_gradients`` says why the bound is relative)
+BF16_LOSS_TOL = 8 * 2.0 ** -8
+BF16_GRAD_FACTOR, BF16_GRAD_SLACK = 2.0, 2.0 ** -5
+# the bf16 kernels no path of this script launches, with their one case:
+# K3b (no bf16 plan pools NCHW on its own: unet_mini's pools are CHWN) on
+# unet_mini's first pool in NCHW, K9b on the fp32 K9b case
+BF16_OFF_PATH = {"pool_nchw.bf16": ((8, 32, 32, 32), 2, 2, "max"),
+                 "transpose2d_batched.bf16": K9B_CASE}
 # kernels held in the kernel phase that no path of this script launches,
 # with their one case
 OFF_PATH = {"transpose2d_batched": K9B_CASE, "softmax_xent": K8_CASE,
-            **DTYPE_OFF_PATH}
+            **DTYPE_OFF_PATH, **BF16_OFF_PATH}
 STACK_KERNELS = {"conv_stack_chwn": ("CHWN", conv_stack_chwn),
                  "conv_stack_nchw": ("NCHW", conv_stack_nchw)}
 POOL_KERNELS = {"pool_chwn": ("CHWN", pool_chwn),
@@ -527,7 +585,7 @@ def fused_launches(cfg, plan):
     def relayout(p, cur, lay):
         if cur != lay:
             stored = tuple(shape_of(p)["NCHW".index(d)] for d in cur)
-            out.append(("transpose2d",
+            out.append(("transpose2d" + float_variant(plan),
                         plan_transform(cur, lay).collapsed_shape(stored)))
 
     for op in plan.ops:
@@ -563,8 +621,9 @@ def fused_launches(cfg, plan):
             spec = cfg.layers[op.index]
             relayout(p, cur, op.layout)
             kern = "pool_chwn" if op.layout == "CHWN" else "pool_nchw"
-            out.append((kern, (tuple(shape_of(p)), spec.kernel, spec.stride,
-                               spec.pool_op)))
+            out.append((kern + float_variant(plan),
+                        (tuple(shape_of(p)), spec.kernel, spec.stride,
+                         spec.pool_op)))
             cur = op.dst_layout
         elif op.kind in ("add", "concat", "upsample"):
             for q in (op.inputs or (p,)):
@@ -576,6 +635,13 @@ def fused_launches(cfg, plan):
         prev = op.out_index if op.out_index >= 0 else op.index
         held[prev] = cur
     return out
+
+
+def float_variant(plan) -> str:
+    """The storage variant suffix of a float kernel's launch (pool, pool
+    backward, transpose, weight gradient, stack, softmax) under ``plan``:
+    "" at float32, ".bf16" at bf16."""
+    return {"float32": "", "bfloat16": ".bf16"}[plan.base_dtype or "float32"]
 
 
 def launch_variant(plan, op) -> str:
@@ -665,46 +731,93 @@ def _conv_backward_launches(N, ci, h, co, F, S, pad, engine, pool, relu,
 def train_launches(network: str, batch: int):
     """(kernel, case) for every kernel launch of one training step
     (``make_train_step_fused``, impl="cuda") over the packaged
-    stack="auto" plan of ``network`` at ``batch``: what the plan calls for,
-    worked out from it alone.  A conv op launches its forward (with
-    ``save_act`` where it pools), then in the backward K7 where it pools,
-    dgrad on its engine's kernel (not for the network input, which needs no
-    gradient), K6, and a K9a re-layout where a folded residual's layout
-    differs from the gradient's.  A stack op launches K5, then recomputes
-    conv1 (and conv2 with ``save_act`` where it pools) and runs both convs'
-    backwards.  The softmax is K4 forward; its gradient is plain
-    arithmetic."""
+    stack="auto" plan of ``network`` at ``batch`` (``plan_train_launches``)."""
     cfg = CNN_CONFIGS[network].replace(batch=batch)
     plan = PlanCache(str(packaged_plans(network))).peek_fused(
         cfg, batch, stack="auto")
+    return plan_train_launches(cfg, plan)
+
+
+def plan_train_launches(cfg, plan):
+    """(kernel, case) for every kernel launch of one training step
+    (``make_train_step_fused``, impl="cuda") over ``plan`` on ``cfg``: what
+    the plan calls for, worked out from it alone.  A conv op launches its
+    forward (with ``save_act`` where it pools), then in the backward K7
+    where it pools, dgrad on its engine's kernel (not for the network
+    input, which needs no gradient), K6, and a K9a re-layout where a folded
+    residual's layout differs from the gradient's.  A stack op launches K5,
+    then recomputes conv1 (and conv2 with ``save_act`` where it pools) and
+    runs both convs' backwards.  A standalone pool launches K3 and, in the
+    backward, K7 (g in the pool's output layout, no ReLU mask); a
+    re-layout no kernel absorbed (before a pool, at a merge) one K9a each
+    way.  The softmax is K4 forward; its gradient is plain arithmetic.  A
+    bf16 plan's launches name their variant, "<kernel>.bf16"."""
+    batch, v = cfg.batch, float_variant(plan)
     shapes, rins = layer_shapes(cfg), resolved_cfg_inputs(cfg)
+    held = {-1: "NCHW"}
     out, prev_key = [], -1
+
+    def shape_of(p):
+        return input_shape(cfg) if p < 0 else shapes[p]
+
+    def relayout(p, cur, lay):   # forward and backward, both on K9a
+        if cur != lay:
+            stored = tuple(shape_of(p)["NCHW".index(d)] for d in cur)
+            back = tuple(shape_of(p)["NCHW".index(d)] for d in lay)
+            out.append(("transpose2d" + v,
+                        plan_transform(cur, lay).collapsed_shape(stored)))
+            out.append(("transpose2d" + v,
+                        plan_transform(lay, cur).collapsed_shape(back)))
+
+    def conv_backward(N, ci, h, co, F, S, pad, E, pool, relu, res, src,
+                      dst, needs_dx, save_act):
+        return [(k + v, c) for k, c in _conv_backward_launches(
+            N, ci, h, co, F, S, pad, E, pool, relu, res, src, dst, needs_dx,
+            save_act)]
+
     for op in plan.ops:
-        needs_dx = (op.inputs[0] if op.inputs else prev_key) != -1
+        p = op.inputs[0] if op.inputs else prev_key
+        needs_dx = p != -1
+        cur = held[p]
         prev_key = op.out_index if op.out_index >= 0 else op.index
-        if op.kind in ("pool", "add", "concat", "upsample"):
-            raise ValueError(f"{network}: a standalone {op.kind} op is not "
-                             "on this path")
-        if op.kind == "softmax":
-            out.append(("softmax", (batch, cfg.num_classes)))
-        if op.kind != "conv":
-            continue
         spec = cfg.layers[op.index]
-        p = rins[op.index][0]
-        _, ci, h, _ = input_shape(cfg) if p < 0 else shapes[p]
+        if op.kind == "pool":
+            relayout(p, cur, op.layout)
+            n, c, h, _ = shape_of(p)
+            src = "pool_chwn" if op.layout == "CHWN" else "pool_nchw"
+            out.append((src + v, (tuple(shape_of(p)), spec.kernel,
+                                  spec.stride, spec.pool_op)))
+            out.append((("pool_backward_chwn" if op.layout == "CHWN"
+                         else "pool_backward_nchw") + v,
+                        (n, c, h, spec.kernel, spec.stride, spec.pool_op,
+                         op.dst_layout, False)))
+            held[prev_key] = op.dst_layout
+            continue
+        if op.kind in ("add", "concat", "upsample"):
+            for q in (op.inputs or (p,)):
+                relayout(q, held[q], op.layout)
+            held[prev_key] = op.layout
+            continue
+        if op.kind == "softmax":
+            out.append(("softmax" + v, (batch, cfg.num_classes)))
+        if op.kind != "conv":
+            held[prev_key] = cur
+            continue
+        _, ci, h, _ = shape_of(rins[op.index][0])
         pool = None
         if op.pool_index is not None:
             ps = cfg.layers[op.pool_index]
             pool = (ps.kernel, ps.stride, ps.pool_op)
         res = op.res_layout if op.res_index is not None else None
         E = op.layout
+        held[prev_key] = op.dst_layout
         if op.stack_index is None:
             if pool is None:
-                out.append((_engine_kernel(E), (
+                out.append((_engine_kernel(E) + v, (
                     batch, ci, h, spec.out_channels, spec.kernel,
                     spec.stride, spec.pad, None, op.relu, res,
                     op.src_layout, op.dst_layout)))
-            out += _conv_backward_launches(
+            out += conv_backward(
                 batch, ci, h, spec.out_channels, spec.kernel, spec.stride,
                 spec.pad, E, pool, op.relu, res, op.src_layout,
                 op.dst_layout, needs_dx, save_act=pool is not None)
@@ -712,21 +825,21 @@ def train_launches(network: str, batch: int):
         spec2 = cfg.layers[op.stack_index]
         cm = spec.out_channels
         h1 = conv_out_hw(h, spec.kernel, spec.stride, spec.pad)
-        out.append((("conv_stack_chwn" if E == "CHWN" else "conv_stack_nchw"),
-                    (batch, ci, h, cm, spec2.out_channels, spec.kernel,
-                     spec.stride, spec.pad, spec2.kernel, spec2.stride,
-                     spec2.pad, pool, op.stack_relu, op.relu, res,
-                     op.src_layout, op.dst_layout)))
+        out.append((("conv_stack_chwn" if E == "CHWN" else "conv_stack_nchw")
+                    + v, (batch, ci, h, cm, spec2.out_channels, spec.kernel,
+                          spec.stride, spec.pad, spec2.kernel, spec2.stride,
+                          spec2.pad, pool, op.stack_relu, op.relu, res,
+                          op.src_layout, op.dst_layout)))
         # the backward: recompute y1, then conv2's and conv1's backwards
-        out.append((_engine_kernel(E), (batch, ci, h, cm, spec.kernel,
-                                        spec.stride, spec.pad, None,
-                                        op.stack_relu, None, op.src_layout,
-                                        E)))
-        out += _conv_backward_launches(
+        out.append((_engine_kernel(E) + v, (batch, ci, h, cm, spec.kernel,
+                                            spec.stride, spec.pad, None,
+                                            op.stack_relu, None,
+                                            op.src_layout, E)))
+        out += conv_backward(
             batch, cm, h1, spec2.out_channels, spec2.kernel, spec2.stride,
             spec2.pad, E, pool, op.relu, res, E, op.dst_layout, True,
             save_act=pool is not None)
-        out += _conv_backward_launches(
+        out += conv_backward(
             batch, ci, h, cm, spec.kernel, spec.stride, spec.pad, E, None,
             op.stack_relu, None, op.src_layout, E, needs_dx, save_act=False)
     return out
@@ -910,16 +1023,28 @@ def bf16_check(got, want) -> None:
         raise AssertionError(f"bf16: {over:.3g} past one bf16 step")
 
 
+def exact_check(got, want) -> None:
+    """A bf16 max pool, max pool backward or transpose against its plain
+    version: bit for bit (a max is exact; each dx element sums its
+    windows' shares in float32 in the same order and rounds once)."""
+    torch.testing.assert_close(got, want, rtol=0.0, atol=0.0,
+                               equal_nan=True)
+
+
 def dtype_case(kern: str, case, dev, seed: int) -> dict:
     """One launch of a storage variant ("<kernel>.<variant>") against its
     plain version on the same card inputs: bf16 (or int8 x with bf16 w)
-    within one bf16 step (``bf16_check``), int8 x with float32 w at the
-    conv tolerance.  Library: the same PyTorch call in the output's dtype
-    (cuDNN ``conv2d`` [+ its epilogue], twice for a stack;
-    ``torch.softmax``), an int8 x cast to it beforehand, untimed.  The
-    bound takes each tensor at its element size and the operations at the
-    peak of the inputs' type (bf16 on the tensor cores where w is bf16,
-    fp32 where it is float32)."""
+    within one bf16 step (``bf16_check``), except max pools, max pool
+    backwards and transposes, exactly, and K6, within ``WGRAD_TOL``
+    scale-relative of float64 (a product of two bf16 values is exact);
+    int8 x with float32 w at the conv tolerance.  Library: the same
+    PyTorch call in the output's dtype (cuDNN ``conv2d`` [+ its epilogue],
+    twice for a stack; ``conv2d_input`` for dgrad, ``conv2d_weight`` for
+    K6; the pools and their aten backwards times the ReLU mask;
+    ``permute().contiguous()``; ``torch.softmax``), an int8 x cast to it
+    beforehand, untimed.  The bound takes each tensor at its element size
+    and the operations at the peak of the inputs' type (bf16 on the tensor
+    cores where w is bf16, fp32 where it is float32)."""
     base, variant = kern.split(".")
     xdt, wdt = VARIANT_DTYPES[variant]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -933,6 +1058,43 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
     def nbytes(*ts):
         return float(sum(t.numel() * t.element_size() for t in ts))
 
+    if base in POOL_KERNELS:
+        (N, C, H, W), F, S, op = case
+        src, wrapper = POOL_KERNELS[base]
+        x_nchw = rand(N, C, H, W)
+        x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
+        Ho, Wo = pool_out_hw(H, F, S), pool_out_hw(W, F, S)
+        pool_fn = nnf.max_pool2d if op == "max" else nnf.avg_pool2d
+        return _measure(lambda: wrapper(x, F, S, op),
+                        lambda: pool_ref(x, F, S, op, src, src),
+                        lambda: pool_fn(x_nchw, F, S),
+                        float(F * F * N * C * Ho * Wo),
+                        nbytes(x) * (1 + 1 / (S * S)), peak=peak,
+                        check=exact_check if op == "max" else check)
+    if base in POOL_BWD_KERNELS:
+        N, C, H, F, S, op, g_lay, relu = case
+        layout, wrapper = POOL_BWD_KERNELS[base]
+        Ho = pool_out_hw(H, F, S)
+        z_nchw, g_nchw = rand(N, C, H, H), rand(N, C, Ho, Ho)
+        z = z_nchw.permute(perm_between("NCHW", layout)).contiguous()
+        g = g_nchw.permute(perm_between("NCHW", g_lay)).contiguous()
+        library = _pool_bwd_library(z_nchw, g_nchw, F, S, op, relu)
+        return _measure(
+            lambda: wrapper(z, g, F, S, op, g_layout=g_lay, relu_mask=relu),
+            lambda: pool_backward_ref(z, g, F, S, op, layout, g_lay, relu),
+            library, float(N * C * H * H * (-(-F // S)) ** 2
+                           * (F * F if op == "max" else 1)),
+            2 * nbytes(z) + nbytes(g), peak=peak,
+            check=exact_check if op == "max" else check)
+    if base in TRANSPOSE_KERNELS:
+        wrapper, ref = TRANSPOSE_KERNELS[base]
+        x = rand(*case)
+        perm = (1, 0) if len(case) == 2 else (0, 2, 1)
+        return _measure(lambda: wrapper(x), lambda: ref(x),
+                        lambda: x.permute(perm).contiguous(), 0.0,
+                        2 * nbytes(x), peak=peak, check=exact_check)
+    if base == "wgrad":
+        return wgrad_case(case, dev, seed, dtype=wdt)
     if base == "softmax":
         rows, cols = case
         x = rand(rows, cols, scale=4.0)
@@ -941,9 +1103,10 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                      2.0 * nbytes(x), peak=peak, check=check)
         m["device_ms"] = device_ms(lambda: softmax(x))
         return m
-    if base == "conv_stack_chwn":
+    if base in STACK_KERNELS:
         (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, relu2, rlay,
          src, dst) = case
+        engine, wrapper = STACK_KERNELS[base]
         Ho1 = conv_out_hw(H, F1, S1, P1)
         Ho2 = conv_out_hw(Ho1, F2, S2, P2)
         x_nchw = rand(N, Ci, H, H)
@@ -954,9 +1117,10 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         r = (r_nchw.permute(perm_between("NCHW", rlay)).contiguous()
              if rlay else None)
         kw = dict(relu1=relu1, relu2=relu2, pool=pool, res=r,
-                  res_layout=rlay or "CHWN", src_layout=src, dst_layout=dst)
-        w1k = w1.permute(1, 2, 3, 0).contiguous()
-        w2k = w2.permute(1, 2, 3, 0).contiguous()
+                  res_layout=rlay or engine, src_layout=src, dst_layout=dst)
+        w1k, w2k = ((w1.permute(1, 2, 3, 0).contiguous(),
+                     w2.permute(1, 2, 3, 0).contiguous())
+                    if engine == "CHWN" else (w1, w2))
 
         def library():
             y = nnf.conv2d(x_nchw, w1, stride=S1, padding=P1)
@@ -970,18 +1134,37 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                            + Co * Ho2 * Ho2 * Cm * F2 * F2)
         out_hw = Ho2 if pool is None else (Ho2 - pool[0]) // pool[1] + 1
         y_bytes = N * Co * out_hw * out_hw * 2.0
-        m = _measure(lambda: conv_stack_chwn(x, w1k, w2k, S1, P1, S2, P2,
-                                             **kw),
+        m = _measure(lambda: wrapper(x, w1k, w2k, S1, P1, S2, P2, **kw),
                      lambda: conv_stack_ref(x, w1, w2, S1, P1, S2, P2,
                                             **kw),
                      library, flops,
                      nbytes(x, w1, w2, *([r] if rlay else [])) + y_bytes,
                      peak=peak, check=check)
-        t = stack_tiling("CHWN", N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2,
+        t = stack_tiling(engine, N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2,
                          pool)
         m.update(executed_flops=float(t.executed_flops), cluster=t.cluster)
         return m
-    N, Ci, H, Co, F, S, pad, pool, relu, rlay, src, dst = case
+    engine = "CHWN" if base == "conv_chwn" else "NCHW"
+    if case[0] == "dgrad":
+        N, Ci, H, Co, F, S, pad, g_lay, dst = case[1:]
+        Ho = conv_out_hw(H, F, S, pad)
+        g_nchw = rand(N, Co, Ho, Ho)
+        w = rand(Co, Ci, F, F, scale=1 / math.sqrt(Ci * F * F))
+        g = g_nchw.permute(perm_between("NCHW", g_lay)).contiguous()
+        gd, wt, pd = dgrad_problem(g, w, (H, H), S, pad, g_lay)
+        wk = wt.permute(1, 2, 3, 0).contiguous() if engine == "CHWN" else wt
+        return _measure(
+            lambda: _conv(engine, gd, wk, 1, pd, src_layout=g_lay,
+                          dst_layout=dst),
+            lambda: conv_ref(gd, wt, 1, pd, src_layout=g_lay,
+                             dst_layout=dst),
+            lambda: torch.nn.grad.conv2d_input((N, Ci, H, H), w, g_nchw,
+                                               stride=S, padding=pad),
+            2.0 * N * Co * Ho * Ho * Ci * F * F,
+            nbytes(g, w) + N * Ci * H * H * w.element_size(), peak=peak,
+            check=check)
+    save_act = case[0] == "save_act"
+    N, Ci, H, Co, F, S, pad, pool, relu, rlay, src, dst = case[save_act:]
     Ho = conv_out_hw(H, F, S, pad)
     if xdt is torch.int8:   # quantized levels; the scale rides w
         x_nchw = torch.randint(-127, 128, (N, Ci, H, H), device=dev,
@@ -994,17 +1177,25 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
     x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
     r = (r_nchw.permute(perm_between("NCHW", rlay)).contiguous()
          if rlay else None)
-    engine = "CHWN" if base == "conv_chwn" else "NCHW"
     kw = dict(relu=relu, pool=pool, res=r, res_layout=rlay or engine,
               src_layout=src, dst_layout=dst)
-    if base == "conv_chwn":
-        wk = w.permute(1, 2, 3, 0).contiguous()
+    wk = w.permute(1, 2, 3, 0).contiguous() if engine == "CHWN" else w
+    if save_act:   # the training forward: z held, y checked beside
+        y, _ = _conv(engine, x, wk, S, pad, save_act=True, **kw)
+        check(y, conv_ref(x, w, S, pad, **kw))
 
         def kernel():
-            return conv_direct_chwn(x, wk, S, pad, **kw)
+            return _conv(engine, x, wk, S, pad, save_act=True, **kw)[1]
+
+        def plain():
+            return conv_ref(x, w, S, pad, save_act=True, act_layout=engine,
+                            **kw)[1]
     else:
         def kernel():
-            return conv_im2col_nchw_fused(x, w, S, pad, **kw)
+            return _conv(engine, x, wk, S, pad, **kw)
+
+        def plain():
+            return conv_ref(x, w, S, pad, **kw)
 
     x_lib = x_nchw.to(wdt)
 
@@ -1013,8 +1204,9 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                                  r_nchw, relu, pool)
 
     out_hw = Ho if pool is None else (Ho - pool[0]) // pool[1] + 1
-    y_bytes = N * Co * out_hw * out_hw * w.element_size()
-    m = _measure(kernel, lambda: conv_ref(x, w, S, pad, **kw), library,
+    y_bytes = N * Co * (out_hw * out_hw + (Ho * Ho if save_act else 0)) \
+        * w.element_size()
+    m = _measure(kernel, plain, library,
                  2.0 * N * Co * Ho * Ho * Ci * F * F,
                  nbytes(x, w, *([r] if rlay else [])) + y_bytes, peak=peak,
                  check=check)
@@ -1332,15 +1524,17 @@ def dgrad_case(kern: str, case, dev, seed: int) -> dict:
     return m
 
 
-def wgrad_case(case, dev, seed: int) -> dict:
+def wgrad_case(case, dev, seed: int, dtype=torch.float32) -> dict:
     """K6 against its plain version in float64 (the error reported is the
     kernel's own, scale-relative), timed beside the plain version in
-    float32 and ``torch.nn.grad.conv2d_weight``."""
+    float32 and ``torch.nn.grad.conv2d_weight``, all on x and g of
+    ``dtype`` (float32, or bf16: the bf16 build; dw float32 either way;
+    its bound at the bf16 peak)."""
     N, Ci, H, Co, F, S, pad, x_lay, g_lay = case
     gen = torch.Generator(device=dev).manual_seed(seed)
     Ho = conv_out_hw(H, F, S, pad)
-    x_nchw = torch.randn(N, Ci, H, H, device=dev, generator=gen)
-    g_nchw = torch.randn(N, Co, Ho, Ho, device=dev, generator=gen)
+    x_nchw = torch.randn(N, Ci, H, H, device=dev, generator=gen).to(dtype)
+    g_nchw = torch.randn(N, Co, Ho, Ho, device=dev, generator=gen).to(dtype)
     x = x_nchw.permute(perm_between("NCHW", x_lay)).contiguous()
     g = g_nchw.permute(perm_between("NCHW", g_lay)).contiguous()
     kw = dict(x_layout=x_lay, g_layout=g_lay)
@@ -1359,18 +1553,42 @@ def wgrad_case(case, dev, seed: int) -> dict:
     if not torch.equal(got, kernel()):
         raise AssertionError(f"K6 {case}: two launches differ")
     flops = 2.0 * Co * Ci * F * F * N * Ho * Ho
-    nbytes = 4.0 * (x.numel() + g.numel() + Co * Ci * F * F)
-    b_ms, b_by = bound_ms(flops, nbytes)
+    nbytes = float(x.element_size() * (x.numel() + g.numel())
+                   + 4 * Co * Ci * F * F)
+    peak = PEAK_FP32_FLOPS if dtype is torch.float32 else PEAK_BF16_FLOPS
+    b_ms, b_by = bound_ms(flops, nbytes, peak)
+    # the design's own bound: 3xTF32 runs 3 TF32 products per term, the
+    # bf16 build one
+    products = 3 if dtype is torch.float32 else 1
     return {"max_abs_err": abs_err, "max_rel_err": err, "f64_err": err,
-            # the design's own bound: 3xTF32 runs 3 TF32 products per term
-            "design_bound_ms": bound_ms(3 * flops, nbytes,
+            "design_bound_ms": bound_ms(products * flops, nbytes,
                                         PEAK_TF32_FLOPS)[0],
+            "design": "3xtf32" if products == 3 else "tf32",
             "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(lambda: wgrad_ref(x, g, F, S, pad, **kw)),
             "library_ms": cuda_ms(lambda: torch.nn.grad.conv2d_weight(
                 x_nchw, (Co, Ci, F, F), g_nchw, stride=S, padding=pad)),
             "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
-            "bytes": 4.0 * (x.numel() + g.numel() + Co * Ci * F * F)}
+            "bytes": nbytes, "peak_flops": peak}
+
+
+def _pool_bwd_library(z_nchw, g_nchw, F: int, S: int, op: str, relu: bool):
+    """The library call for a pool backward: aten's backward of
+    ``max_pool2d``/``avg_pool2d`` in NCHW, times the ReLU mask."""
+    mask = (z_nchw > 0).to(z_nchw.dtype) if relu else None
+    if op == "max":
+        _, idx = nnf.max_pool2d(z_nchw, F, S, return_indices=True)
+
+        def library():
+            d = torch.ops.aten.max_pool2d_with_indices_backward(
+                g_nchw, z_nchw, [F, F], [S, S], [0, 0], [1, 1], False, idx)
+            return d * mask if relu else d
+    else:
+        def library():
+            d = torch.ops.aten.avg_pool2d_backward(
+                g_nchw, z_nchw, [F, F], [S, S], [0, 0], False, True, None)
+            return d * mask if relu else d
+    return library
 
 
 def pool_bwd_case(kern: str, case, dev, seed: int) -> dict:
@@ -1386,20 +1604,7 @@ def pool_bwd_case(kern: str, case, dev, seed: int) -> dict:
     g_nchw = torch.randn(N, C, Ho, Ho, device=dev, generator=gen)
     z = z_nchw.permute(perm_between("NCHW", layout)).contiguous()
     g = g_nchw.permute(perm_between("NCHW", g_lay)).contiguous()
-    mask = (z_nchw > 0).float() if relu else None
-    if op == "max":
-        _, idx = nnf.max_pool2d(z_nchw, F, S, return_indices=True)
-
-        def library():
-            d = torch.ops.aten.max_pool2d_with_indices_backward(
-                g_nchw, z_nchw, [F, F], [S, S], [0, 0], [1, 1], False, idx)
-            return d * mask if relu else d
-    else:
-        def library():
-            d = torch.ops.aten.avg_pool2d_backward(
-                g_nchw, z_nchw, [F, F], [S, S], [0, 0], False, True, None)
-            return d * mask if relu else d
-
+    library = _pool_bwd_library(z_nchw, g_nchw, F, S, op, relu)
     windows = (-(-F // S)) ** 2
     tol = (0.0, 0.0) if op == "max" else (0.0, AVG_POOL_ATOL)
     return _measure(
@@ -1576,6 +1781,11 @@ def kernel_phase(dev):
     for network, batch in TRAINED:
         add(network, f"batch={batch} stack=auto", train_launches(
             network, batch), kind="training step", times=TRAIN_STEPS)
+    for network, batch, profile in BF16_TRAINED:
+        cfg, plan = bf16_train_plan(network, batch, profile)
+        add(network, f"batch={batch} bf16 stack=auto ({profile} plan)",
+            plan_train_launches(cfg, plan), kind="bf16 training step",
+            times=BF16_TRAIN_STEPS)
     for kern, case in OFF_PATH.items():
         mult[(kern, case)] = {"network": "vgg16", "kernel": kern,
                               "case": case, "launches": 0}
@@ -1670,6 +1880,9 @@ def kernel_phase(dev):
               f"[{time.perf_counter() - t0:.1f}s]", flush=True)
     print(tensor_core_line("K6", [r for r in mult.values()
                                   if r["kernel"] == "wgrad"]), flush=True)
+    print(tensor_core_line("K6 bf16", [r for r in mult.values()
+                                       if r["kernel"] == "wgrad.bf16"],
+                           peak="bf16", design="tf32"), flush=True)
     # per forward (and training step): each kernel's launches summed
     for kind, network, label, keys in batches:
         for kern in KERNELS:
@@ -1859,8 +2072,10 @@ def dtype_phase(dev):
     the same seed-0 weights: bf16 uniform probabilities within 0.0625 of
     the float32 forward (packaged plan), mixed ones within 2e-2 of the
     bf16 stack="off" forward, and the warm forward ms and peak device
-    memory of the served plan, bf16 uniform and float32.  Returns (the
-    serving runs' launches by variant, the calibration's, a record)."""
+    memory of the served plan, bf16 uniform and float32 (the packaged
+    plan, or the H100 planner's where none is packaged: unet_mini, whose
+    bf16 pools run K3a in bf16).  Returns (the serving runs' launches by
+    variant, the calibration's, a record)."""
     serve = Counter()
     calib = Counter()
     rows = []
@@ -1930,8 +2145,12 @@ def dtype_phase(dev):
             x16 = x32.to(torch.bfloat16)
             p16 = srv.model.params()
             p32 = params_from_numpy(init_cnn(cfg, 0), dev)
-            packaged = PlanCache(str(packaged_plans(network))).peek_fused(
-                cfg, bucket, stack=stack if policy == "uniform" else "off")
+            fp32_stack = stack if policy == "uniform" else "off"
+            # the packaged float32 plan; the H100 planner's where none is
+            # packaged (unet_mini)
+            packaged = (PlanCache(str(packaged_plans(network))).peek_fused(
+                cfg, bucket, stack=fp32_stack)
+                or planned(network, bucket, fp32_stack)[1])
             y32, _ = forward_fused(p32, x32, cfg, packaged)
             _, off16 = dtype_plan(network, bucket, "uniform", "off")
             y_off, _ = forward_fused(p16, x16, cfg, off16)
@@ -1958,7 +2177,7 @@ def dtype_phase(dev):
                    "calibration_launches": cal, "rows": rows_th,
                    "max_diff_fp32": d32, "max_diff_bf16_off": d_off,
                    "setup_s": setup_s, "serve_s": wall, "warm": warm,
-                   "fp32_stack": stack if policy == "uniform" else "off"}
+                   "fp32_stack": fp32_stack}
             rows.append(row)
             th_txt = " ".join(
                 f"{r}: Ct={v['Ct']} Nt={v['Nt']} (measured by the "
@@ -2323,6 +2542,23 @@ def _step1_gradients(network, cfg, plan, params, x, labels) -> dict:
     return out
 
 
+def _step_ms_and_peak(step, params, vel, x, labels) -> dict:
+    """Warm ms of one training step (CUDA events) and the peak device
+    memory of one, also over what was allocated before it (weights,
+    velocity, input)."""
+    out = {"ms": cuda_ms(lambda: step(params, vel, x, labels), max_reps=10)}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = step(params, vel, x, labels)
+    torch.cuda.synchronize()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["peak_over_base_bytes"] = out["peak_bytes"] - base
+    del res
+    return out
+
+
 def training_phase(dev):
     """Train each of ``TRAINED`` at full width from the seed-0 weights on
     its packaged stack="auto" plan: ``TRAIN_STEPS`` SGD-with-momentum steps
@@ -2404,19 +2640,9 @@ def training_phase(dev):
                "launches": {k: v for k, v in want.items() if v}}
         vel = init_velocity(params)
         for impl in ("cuda", "torch"):
-            step = make_train_step_fused(cfg, plan, impl=impl)
-            row[f"{impl}_ms"] = cuda_ms(lambda: step(params, vel, x, labels),
-                                        max_reps=10)
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            out = step(params, vel, x, labels)
-            torch.cuda.synchronize()
-            row[f"{impl}_peak_bytes"] = torch.cuda.max_memory_allocated()
-            row[f"{impl}_peak_over_base_bytes"] = (
-                row[f"{impl}_peak_bytes"] - base)
-            del out
+            w = _step_ms_and_peak(make_train_step_fused(cfg, plan, impl=impl),
+                                  params, vel, x, labels)
+            row.update({f"{impl}_{k}": v for k, v in w.items()})
         print(f"train {network} batch={batch} stack=auto: losses kernels "
               f"{losses['cuda']}, torch engine at the same parameters "
               f"{same_point} (max diff {max(diffs):.3g}); independent "
@@ -2438,6 +2664,181 @@ def training_phase(dev):
         del params, vel, x, labels
         torch.cuda.empty_cache()
     return total, rows
+
+
+def bf16_train_plan(network: str, batch: int, profile: str):
+    """(cfg at ``batch``, its bf16 stack="auto" plan): on the H100 profile
+    (``profile`` "h100", what a plan-cache miss plans) or on the
+    reference's own (``"reference"``, ``reference_hardware``)."""
+    cfg = CNN_CONFIGS[network].replace(batch=batch)
+    cm = (AnalyticCostModel(reference_hardware()) if profile == "reference"
+          else None)
+    return cfg, plan_network_fused(cfg, dtype="bfloat16", cost_model=cm)
+
+
+def _bf16_step1_gradients(network, cfg, plan, params, x, labels) -> dict:
+    """The step-1 gradient of every parameter on the kernels and on the
+    torch engine, both in bf16, and on the torch engine in float64 from the
+    same bf16 weights and input (the oracle); not counted on the main
+    path.  For each parameter, the L2 distances of the kernels' and the
+    torch engine's gradients from float64, over the float64 norm.  Fails
+    unless, for every parameter, the kernels' distance is at most
+    ``BF16_GRAD_FACTOR`` times the torch engine's plus ``BF16_GRAD_SLACK``
+    of the float64 norm.  The bound is relative because bf16 itself moves
+    a gradient far from float64 (PERF.md §7): rounded activations tie
+    within pool windows (the gradient routes to the first of them) and sit
+    on the other side of a ReLU, so whole window or channel shares land
+    elsewhere, in the torch engine as in the kernels (on the CPU, reduced
+    VGG16's conv4_3 lies 24 % from float64 in the torch engine); a kernel
+    fault moves a gradient further than that rounding does."""
+    p64 = {l: {k: v.double() for k, v in p.items()}
+           for l, p in params.items()}
+    runs = {"cuda": (params, x, "cuda"), "torch": (params, x, "torch"),
+            "f64": (p64, x.double(), "torch")}
+    g = {name: value_and_grad(
+        lambda p, a, b, impl=impl: loss_fn_fused(p, a, b, cfg, plan, impl),
+        ps, xs, labels)[1] for name, (ps, xs, impl) in runs.items()}
+    del p64
+    worst = {"cuda_vs_f64": 0.0, "torch_vs_f64": 0.0, "cuda_vs_torch": 0.0}
+    for layer, gs in g["f64"].items():
+        for k, ref in gs.items():
+            n64 = max(ref.norm().item(), 1e-30)
+            d = {a: (g[a][layer][k].double() - ref).norm().item()
+                 for a in ("cuda", "torch")}
+            ct = (g["cuda"][layer][k].double()
+                  - g["torch"][layer][k].double()).norm().item()
+            for key, v in (("cuda_vs_f64", d["cuda"]),
+                           ("torch_vs_f64", d["torch"]),
+                           ("cuda_vs_torch", ct)):
+                worst[key] = max(worst[key], v / n64)
+            if d["cuda"] > BF16_GRAD_FACTOR * d["torch"] + (
+                    BF16_GRAD_SLACK * n64):
+                raise AssertionError(
+                    f"bf16 train {network}: step-1 gradient of {layer}.{k} "
+                    f"{d['cuda'] / n64:.3g} from float64 (L2, relative), "
+                    f"past {BF16_GRAD_FACTOR} x the torch engine's "
+                    f"{d['torch'] / n64:.3g} + {BF16_GRAD_SLACK}")
+    return {k: float(f"{v:.4g}") for k, v in worst.items()}
+
+
+def bf16_training_phase(dev):
+    """bf16 training on the card (``BF16_TRAINED``): each network's bf16
+    stack="auto" plan (``bf16_train_plan``), the seed-0 weights cast once
+    to bf16 and a seeded input cast to bf16, ``BF16_TRAIN_STEPS`` SGD steps
+    of ``make_train_step_fused`` on the kernels (counts zeroed just before
+    each step and read just after: every launch a bf16 one, equal by
+    variant to ``plan_train_launches``), the same steps on the torch engine
+    in bf16 from the same start (its trajectory, reported), and at every
+    step the torch engine's bf16 loss at the kernels' parameters.  Gates:
+    every loss finite; each kernels' loss within ``BF16_LOSS_TOL`` of the
+    torch engine's at the same parameters; the step-1 gradients as
+    ``_bf16_step1_gradients`` says.  Reported beside: whether the loss
+    falls over the steps (the reference's LeNet criterion), one warm step
+    on each engine in bf16 (ms, img/s) and on the kernels over the same
+    planner's float32 plan, and the peak device memory of each.  Runs
+    outside inference mode.  Returns (launches by variant over the counted
+    steps, rows)."""
+    total = Counter()
+    rows = []
+    for network, batch, profile in BF16_TRAINED:
+        cfg, plan = bf16_train_plan(network, batch, profile)
+        want = dict(Counter(k for k, _ in plan_train_launches(cfg, plan)))
+        params = params_from_numpy(init_cnn(cfg, 0), dev, "bf16")
+        rng = np.random.default_rng(4)
+        x = torch.from_numpy(rng.standard_normal(
+            input_shape(cfg), np.float32)).to(dev, torch.bfloat16)
+        labels = torch.from_numpy(rng.integers(
+            0, cfg.num_classes, batch)).to(dev)
+        grad = _bf16_step1_gradients(network, cfg, plan, params, x, labels)
+        losses, same_point = {}, []
+        for run in ("cuda", "torch"):
+            step = make_train_step_fused(cfg, plan, impl=run)
+            p, v, ls = params, init_velocity(params), []
+            for _ in range(BF16_TRAIN_STEPS):
+                if run == "cuda":   # the torch engine at the same point
+                    with torch.no_grad():
+                        same_point.append(loss_fn_fused(
+                            p, x, labels, cfg, plan, "torch").item())
+                K.reset_launch_counts()
+                p, v, loss = step(p, v, x, labels)
+                torch.cuda.synchronize()
+                counts = K.launch_counts()
+                if run != "cuda" and any(counts.values()):
+                    raise AssertionError(f"bf16 train {network}: the torch "
+                                         f"engine launched {counts}")
+                if run == "cuda":
+                    var = _variant_only(K.variant_launch_counts())
+                    if var != want or sum(counts.values()) != sum(
+                            var.values()):
+                        raise AssertionError(
+                            f"bf16 train {network}: launches {var} (all "
+                            f"{_variant_only(counts)}) != the plan's {want}")
+                    total.update(var)
+                    if any(t.dtype != torch.bfloat16
+                           for q in p.values() for t in q.values()):
+                        raise AssertionError(f"bf16 train {network}: a "
+                                             "parameter left bf16")
+                ls.append(loss.item())
+            losses[run] = ls
+            del p, v
+        if not all(math.isfinite(v) for ls in losses.values() for v in ls):
+            raise AssertionError(f"bf16 train {network}: non-finite loss "
+                                 f"{losses}")
+        diffs = [abs(a - b) for a, b in zip(losses["cuda"], same_point)]
+        if max(diffs) > BF16_LOSS_TOL:
+            raise AssertionError(
+                f"bf16 train {network}: losses {losses['cuda']} differ from "
+                f"the torch engine's at the same parameters {same_point} by "
+                f"{max(diffs):.3g} > {BF16_LOSS_TOL}")
+        vel = init_velocity(params)
+        warm = {impl: _step_ms_and_peak(make_train_step_fused(
+            cfg, plan, impl=impl), params, vel, x, labels)
+            for impl in ("cuda", "torch")}
+        del vel
+        # the same planner's float32 plan on the kernels, for the memory
+        # and time a bf16 step saves (not counted)
+        plan32 = plan_network_fused(
+            cfg, cost_model=(AnalyticCostModel(reference_hardware())
+                             if profile == "reference" else None))
+        p32 = params_from_numpy(init_cnn(cfg, 0), dev)
+        warm["fp32"] = _step_ms_and_peak(
+            make_train_step_fused(cfg, plan32), p32, init_velocity(p32),
+            x.float(), labels)
+        del p32
+        row = {"network": network, "batch": batch, "profile": profile,
+               "conv_layouts": plan.conv_signature,
+               "fp32_conv_layouts": plan32.conv_signature,
+               "stacks": plan.stacked_convs, "losses": losses,
+               "torch_at_same_params": same_point, "loss_diffs": diffs,
+               "loss_falls": losses["cuda"][-1] < losses["cuda"][0],
+               "grad": grad, "launches": want, "warm": warm}
+        rows.append(row)
+        print(f"bf16 train {network} batch={batch} stack=auto ({profile} "
+              f"plan, layouts {plan.conv_signature}, {plan.stacked_convs} "
+              f"stacks): losses kernels {losses['cuda']}, torch engine at "
+              f"the same parameters {same_point} (max diff "
+              f"{max(diffs):.3g} <= {BF16_LOSS_TOL}); torch engine "
+              f"trajectory {losses['torch']}; loss falls "
+              f"{row['loss_falls']}; step-1 gradients (L2 from float64, "
+              f"relative, worst parameter) {grad}; launches per step "
+              f"{want} (= the plan's); warm step kernels "
+              f"{warm['cuda']['ms']:.3f} ms "
+              f"({1e3 * batch / warm['cuda']['ms']:.1f} img/s), torch "
+              f"engine bf16 {warm['torch']['ms']:.3f} ms "
+              f"({1e3 * batch / warm['torch']['ms']:.1f} img/s), kernels "
+              f"fp32 ({plan32.conv_signature}) {warm['fp32']['ms']:.3f} ms; "
+              f"peak device memory of a step kernels bf16 "
+              f"{warm['cuda']['peak_bytes'] / 2**20:.1f} MiB (+"
+              f"{warm['cuda']['peak_over_base_bytes'] / 2**20:.1f} over "
+              f"weights, velocity and input), torch engine bf16 "
+              f"{warm['torch']['peak_bytes'] / 2**20:.1f} (+"
+              f"{warm['torch']['peak_over_base_bytes'] / 2**20:.1f}), "
+              f"kernels fp32 {warm['fp32']['peak_bytes'] / 2**20:.1f} (+"
+              f"{warm['fp32']['peak_over_base_bytes'] / 2**20:.1f})",
+              flush=True)
+        del params, x, labels
+        torch.cuda.empty_cache()
+    return dict(total), rows
 
 
 def _expect_counts(label: str, counts, want) -> None:
@@ -2768,13 +3169,15 @@ def lm_phase(dev):
     return counts, cases
 
 
-def tensor_core_line(label: str, rows) -> str:
+def tensor_core_line(label: str, rows, peak: str = "fp32",
+                     design: str = "3xtf32") -> str:
     """One tensor-core kernel (K1, K5b, K6, K10, K12) summed over the main
     path's launches: ms, TFLOP/s (direct FLOPs; where the rows know what
-    the kernel executed, also the executed rate), the bound on the fp32
-    peak (the bf16 one for bf16 cases) and the design's own (3xTF32: three
-    TF32 products at 495 TFLOP/s; bf16 cases their bf16 bound), the library
-    time and the largest error scale-relative to float64."""
+    the kernel executed, also the executed rate), the bound on the
+    ``peak`` named (fp32, or bf16 for a bf16 build) and the design's own
+    (``design``: 3xTF32, three TF32 products at 495 TFLOP/s; K6 bf16's one
+    a term, "tf32"), the library time and the largest error
+    scale-relative to float64."""
     def tot(f):
         return sum(r[f] * (r["launches"] or 1) for r in rows)
     executed = ""
@@ -2786,8 +3189,8 @@ def tensor_core_line(label: str, rows) -> str:
     return (f"{label} over the main path: launches="
             f"{sum(r['launches'] for r in rows)} ms={tot('ms'):.3f} "
             f"TFLOP/s={tot('flops') / tot('ms') / 1e9:.1f} {executed}"
-            f"bound_fp32_ms={tot('bound_ms'):.3f} "
-            f"bound_3xtf32_ms={tot('design_bound_ms'):.3f} "
+            f"bound_{peak}_ms={tot('bound_ms'):.3f} "
+            f"bound_{design}_ms={tot('design_bound_ms'):.3f} "
             f"library_ms={tot('library_ms'):.3f} "
             f"max_rel_err={max(r['f64_err'] for r in rows):.3g}")
 
@@ -2841,8 +3244,9 @@ def kernels_line(cases, launches) -> dict:
                 for k in rows[0]["median5"]}
         if all("design_bound_ms" in r for r in rows):
             # the bound of the kernel's own arithmetic (3xTF32: three TF32
-            # products per fp32 one on the tensor cores)
-            entry["bound_3xtf32_ms"] = total("design_bound_ms")
+            # products per fp32 one on the tensor cores; K6 bf16's one)
+            design = rows[0].get("design", "3xtf32")
+            entry[f"bound_{design}_ms"] = total("design_bound_ms")
         out.append(entry)
     return {"kernels": out}
 
@@ -2932,6 +3336,12 @@ def main() -> int:
     for k, v in train_counts.items():
         launches[k] += v
     print(f"training phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    bf16_counts, bf16_trained = bf16_training_phase(dev)
+    for k, v in bf16_counts.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"bf16 training phase: {time.perf_counter() - t0:.1f}s",
+          flush=True)
     line = kernels_line(cases, launches)
     if args.json:
         out = Path(args.json)
@@ -2945,6 +3355,7 @@ def main() -> int:
                                    "table1": table1, "fig13": fig13,
                                    "softmax_variants": variants,
                                    "training": trained,
+                                   "bf16_training": bf16_trained,
                                    "dtype": dtyped,
                                    "ptxas": ptxas.getvalue()}, indent=1))
     print(json.dumps(line))

@@ -162,8 +162,13 @@ def fc_forward(x2d: torch.Tensor, w: torch.Tensor,
     (``torch.matmul``; TF32 must be off for fp32 exactness:
     ``torch.backends.cuda.matmul.allow_tf32``).  A bf16 product on the card
     asks cuBLAS for its float32 sums (``out_dtype``) rather than copy W to
-    float32: VGG16's fc6 alone would be a 411 MB copy a forward."""
-    if x2d.dtype is torch.bfloat16 and x2d.is_cuda:
+    float32: VGG16's fc6 alone would be a 411 MB copy a forward.  Under
+    autograd (training) it takes the float32 copies, whose gradient is the
+    reference's (dx = g W^T in float32, rounded once to x's dtype): the
+    ``out_dtype`` product has no such derivative."""
+    if (x2d.dtype is torch.bfloat16 and x2d.is_cuda
+            and not (torch.is_grad_enabled()
+                     and (x2d.requires_grad or w.requires_grad))):
         y = torch.mm(x2d, w, out_dtype=torch.float32)
     else:
         y = torch.matmul(x2d.float(), w.float())

@@ -577,9 +577,29 @@ def value_and_grad(loss, params: Dict, *args) -> Tuple[torch.Tensor, Dict]:
 
 
 def _sgd_step(loss, lr: float, momentum: float):
+    """SGD with momentum as the reference takes it under ``jax.jit``: vel =
+    momentum * vel - lr * grad; params += vel, each leaf in its own dtype.
+    JAX holds ``momentum`` and ``lr`` as weak-typed scalars and rounds them
+    to a bf16 leaf's dtype (0.9 -> 0.8984375, 0.01 -> 0.010009765625)
+    before it multiplies, rounding each product and difference; so the
+    scalars here are 0-d tensors of the leaf's dtype (a Python float would
+    multiply a bf16 tensor in float32).  A float32 leaf gets float32(0.9),
+    as it did from the Python float: the same bits."""
+    scalars: Dict[torch.dtype, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def scaled(dt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+        if dt not in scalars:
+            scalars[dt] = (torch.tensor(momentum, dtype=dt),
+                           torch.tensor(lr, dtype=dt))
+        return scalars[dt]
+
+    def update(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        m, r = scaled(v.dtype)
+        return m * v - r * g
+
     def step(params: Dict, vel: Dict, x: torch.Tensor, y: torch.Tensor):
         value, grads = value_and_grad(loss, params, x, y)
-        new_vel = {layer: {k: momentum * vel[layer][k] - lr * g
+        new_vel = {layer: {k: update(vel[layer][k], g)
                            for k, g in gs.items()}
                    for layer, gs in grads.items()}
         new_params = {layer: {k: params[layer][k] + v for k, v in vs.items()}

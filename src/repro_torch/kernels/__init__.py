@@ -16,9 +16,10 @@ conv ``conv.ops.conv_im2col_nchw``), the flash attention K11
 entropy K12 (``crossentropy.ops.fused_xent``).
 dgrad has no kernel of its own: it runs on K1/K2.  Each wrapper counts the
 kernels it launches; ``launch_counts``/``reset_launch_counts`` read and
-zero them.  K1, K2, K5a and K4 also take narrow storage dtypes (bf16; int8
-x into K1 and K2), and count those launches by variant as well:
-``variant_launch_counts`` reads them as "<wrapper>.<variant>".
+zero them.  K1-K7 and K9 also take narrow storage dtypes (bf16; int8 x
+into K1 and K2), each a build of its own, and count those launches by
+variant as well: ``variant_launch_counts`` reads them as
+"<wrapper>.<variant>".  (K10-K12 take bf16 in their one build.)
 """
 from __future__ import annotations
 

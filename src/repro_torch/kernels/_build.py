@@ -13,8 +13,10 @@ source and the flags, so an edited source rebuilds and an unchanged one
 loads the cached library.  Each C entry point takes its pointers and the
 CUDA stream as ``void*`` and returns ``cudaGetLastError()`` as an int.
 
-The serving path's kernels also take narrow storage dtypes (K1 and K2:
-bf16, and int8 x with float32 or bf16 weights; K5a and K4: bf16).  Each
+The serving and training paths' kernels also take narrow storage dtypes
+(K1 and K2: bf16, and int8 x with float32 or bf16 weights; the stacks
+K5a/K5b, the softmax K4, the pools K3a/K3b and their backwards K7a/K7b,
+the transposes K9a/K9b and the weight gradient K6: bf16).  Each
 such variant (``VARIANTS``) is the same source compiled again with
 ``-DREPRO_VARIANT_<NAME>``, which defines the variant's entry points,
 ``<entry>_<variant>``, into a library of its own.  A variant's library
@@ -90,8 +92,15 @@ _CONV = ("conv/csrc/conv_chwn.cu", "conv/csrc/conv_nchw.cu")
 _CONV_ENTRIES = ("conv_chwn_forward", "conv_nchw_forward")
 VARIANTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "bf16": (_CONV + ("conv/csrc/conv_stack_chwn.cu",
-                      "softmax/csrc/softmax.cu"),
-             _CONV_ENTRIES + ("conv_stack_chwn_forward", "softmax_forward")),
+                      "conv/csrc/conv_stack_nchw.cu",
+                      "conv/csrc/wgrad.cu", "softmax/csrc/softmax.cu",
+                      "pool/csrc/pool.cu", "pool/csrc/pool_backward.cu",
+                      "transpose/csrc/transpose.cu"),
+             _CONV_ENTRIES + ("conv_stack_chwn_forward",
+                              "conv_stack_nchw_forward", "wgrad_forward",
+                              "softmax_forward", "pool_chwn_forward",
+                              "pool_nchw_forward", "pool_backward_chwn",
+                              "pool_backward_nchw", "transpose_forward")),
     "i8f32": (_CONV, _CONV_ENTRIES),     # int8 x, float32 w
     "i8bf16": (_CONV, _CONV_ENTRIES),    # int8 x, bf16 w
 }
@@ -105,7 +114,8 @@ _MAX_NUMEL = 2 ** 31     # the kernels index with 32-bit ints
 # that computes them: bias, residual and output are w's dtype
 CONV_VARIANTS = {(_F32, _F32): "", (_BF16, _BF16): "bf16",
                  (_I8, _F32): "i8f32", (_I8, _BF16): "i8bf16"}
-# the storage dtypes of a float kernel (K5a, K4), every tensor x's
+# the storage dtypes of a float kernel (K3, K4, K5, K6's inputs, K7, K9),
+# every tensor x's
 FLOAT_VARIANTS = {_F32: "", _BF16: "bf16"}
 
 
@@ -310,12 +320,12 @@ def _refuse_dtype(name: str, arg: str, t, device: int, want: str,
 
 
 def require_cuda_storage(name: str, x, **others) -> Tuple[int, str]:
-    """The guard of the float kernels that take bf16 too (K5a, K4): raise
-    unless the CUDA tensor ``x`` is a contiguous float32 or bfloat16 tensor
-    with fewer than 2^31 elements and every other given tensor (None is
-    skipped) one of x's dtype on x's card.  Returns (the card's index, the
-    variant: "" or "bf16").  One combined test a tensor, as
-    ``require_cuda_f32``."""
+    """The guard of the float kernels that take bf16 too (K3, K4, K5, K6,
+    K7, K9): raise unless the CUDA tensor ``x`` is a contiguous float32 or
+    bfloat16 tensor with fewer than 2^31 elements and every other given
+    tensor (None is skipped) one of x's dtype on x's card.  Returns (the
+    card's index, the variant: "" or "bf16").  One combined test a tensor,
+    as ``require_cuda_f32``."""
     device = x.get_device()
     dt = x.dtype
     variant = "" if dt is _F32 else FLOAT_VARIANTS.get(dt)

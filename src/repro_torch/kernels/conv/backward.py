@@ -21,7 +21,11 @@ output positions; ``conv_wgrad`` is its wrapper and ``wgrad_tiling`` picks
 its block tile and splits.  ``bias_grad`` is a plain
 reduction, as in the reference.  For a CPU tensor ``conv_wgrad`` returns the
 plain version (``ref.wgrad_ref``); for a CUDA tensor it launches K6 or
-raises, and counts its launches in ``conv_wgrad.launches``.
+raises, and counts its launches in ``conv_wgrad.launches``.  x and g are
+float32 or bf16, one dtype; dw is float32 either way (the reference's
+``wgrad_pallas`` emits float32 whatever its inputs), and ``conv_backward``
+rounds it to w's dtype, as the reference's ``_conv_bwd`` does.  A bf16
+launch also counts in ``conv_wgrad.variant_launches["bf16"]``.
 """
 from __future__ import annotations
 
@@ -174,10 +178,10 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
                pad: int = 0, *, x_layout: str = "CHWN",
                g_layout: Optional[str] = None) -> torch.Tensor:
     """K6: weight gradient of conv(x, w, S, pad) -> canonical [Co, Ci, F,
-    F], accumulated in fp32.  x: the forward input (unpadded) in
-    ``x_layout``; g: the conv-output gradient in ``g_layout``.  Two
-    launches (the split partials, then their fixed-order sum) count as one
-    call."""
+    F], accumulated and returned in float32.  x: the forward input
+    (unpadded) in ``x_layout``; g: the conv-output gradient in
+    ``g_layout``, of x's dtype (float32 or bf16).  Two launches (the split
+    partials, then their fixed-order sum) count as one call."""
     g_layout = g_layout or x_layout
     for lay in (x_layout, g_layout):
         if lay not in ("CHWN", "NCHW"):
@@ -194,7 +198,7 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
     if _build.on_cpu("conv_wgrad", x):
         return wgrad_ref(x, g, F, S, pad, x_layout=x_layout,
                          g_layout=g_layout)
-    dev = _build.require_cuda_f32("conv_wgrad", x, g=g)
+    dev, variant = _build.require_cuda_storage("conv_wgrad", x, g=g)
     t = wgrad_tiling(Co, Ci * F * F, N * Ho * Wo)
     if t.ws_elems >= 2 ** 31:
         raise ValueError("conv_wgrad: the split workspace needs 2^31 or "
@@ -202,14 +206,17 @@ def conv_wgrad(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
     dw = torch.empty((Co, Ci, F, F), device=x.device, dtype=torch.float32)
     ws = (torch.empty((t.splits, Co, Ci * F * F), device=x.device,
                       dtype=torch.float32) if t.splits > 1 else None)
-    err = _build.library().wgrad_forward(
+    err = _build.entry("wgrad_forward", variant)(
         x.data_ptr(), g.data_ptr(), ws.data_ptr() if ws is not None else None,
         dw.data_ptr(), N, Ci, H, W, Co, F, S, pad, int(x_layout == "NCHW"),
         int(g_layout == "NCHW"), t.bm, t.bn, t.per, t.splits,
         _build.stream_of(dev))
     _build.check("conv_wgrad", err)
     conv_wgrad.launches += 1
+    if variant:
+        conv_wgrad.variant_launches[variant] += 1
     return dw
 
 
 conv_wgrad.launches = 0
+conv_wgrad.variant_launches = {"bf16": 0}

@@ -22,7 +22,11 @@
 // and y is rounded once where it is stored.  A bf16 or int8 operand is exact
 // in TF32, so the 3xTF32 products that read its small part drop out: one
 // product a term for bf16 x bf16 and int8 x bf16, two for int8 x float32.
-// z (save_act) is float32 and only the float32 build writes it.
+// z (save_act, training) is stored in y's type, rounded once as y is: the
+// reference saves it in the output dtype (its odt), so a bf16 conv saves
+// bf16 z and the activation memory halves.  The pool then reads the
+// float32 values of its tile, whose max rounds to the max of the rounded
+// z (rounding is monotonic): y is the max of z, as the backward assumes.
 //
 // What bounds it on an H100: operations.  It is an implicit GEMM out[co,
 // col] = sum_k w[k, co] P[k, col], k = (ci, dy, dx) over K = Ci*F*F and a
@@ -108,7 +112,7 @@ struct K1Args {
   const TW* bias;     // [Co] or null
   const TW* res;      // conv-output shape, or null
   TW* y;
-  float* z;           // save_act: the pre-pool activation (CHWN), or null
+  TW* z;              // save_act: the pre-pool activation (CHWN), or null
   int N, Ci, H, W, Co, F, S, pad, K, Ho, Wo;
   int pF, pS, pool_avg, relu;  // pF == 0: no pool
   int UH, UW;                  // the pooled output
@@ -538,7 +542,8 @@ conv_chwn_kernel(const K1Args<TX, TW> a) {
         v += ld(a.res + colofs[1][c] + static_cast<long long>(co) * a.rs.c);
       if (a.relu) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
       put(a.y + colofs[0][c] + static_cast<long long>(co) * a.ys.c, v);
-      if (a.z) a.z[colofs[2][c] + static_cast<long long>(co) * a.zs.c] = v;
+      if (a.z)
+        put(a.z + colofs[2][c] + static_cast<long long>(co) * a.zs.c, v);
     }
     return;
   }
@@ -566,8 +571,9 @@ conv_chwn_kernel(const K1Args<TX, TW> a) {
       if (a.relu) v = v < 0.f ? 0.f : v;
       if (a.z && (rh < t.pht * a.pS || last_h) && rh % a.pS < a.pF &&
           (rw < t.pwt * a.pS || last_w) && rw % a.pS < a.pF)
-        a.z[n * a.zs.n + static_cast<long long>(co) * a.zs.c + oh * a.zs.h +
-            ow * a.zs.w] = v;
+        put(a.z + n * a.zs.n + static_cast<long long>(co) * a.zs.c +
+                oh * a.zs.h + ow * a.zs.w,
+            v);
     } else if (a.relu) {
       v = v < 0.f ? 0.f : v;
     }
@@ -621,7 +627,7 @@ int forward(const void* x, const void* w, const void* bias, const void* res,
   a.bias = static_cast<const TW*>(bias);
   a.res = static_cast<const TW*>(res);
   a.y = static_cast<TW*>(y);
-  a.z = static_cast<float*>(z);
+  a.z = static_cast<TW*>(z);
   a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Co = Co; a.F = F; a.S = S;
   a.pad = pad;
   a.K = Ci * F * F;
@@ -677,8 +683,8 @@ int forward(const void* x, const void* w, const void* bias, const void* res,
 
 }  // namespace
 
-// w [Ci, F, F, Co] is [K, Co]; z (or null, float32 builds only) is [Co, Ho,
-// Wo, N].  The block tile is bm (64 or 128) output channels by 128
+// w [Ci, F, F, Co] is [K, Co]; z (or null) is [Co, Ho, Wo, N], of y's
+// type.  The block tile is bm (64 or 128) output channels by 128
 // consecutive columns without a pool, or by the conv outputs under nb images
 // x ph x pw pooled outputs with one (ops.conv_tiling).  x is REPRO_XT, w,
 // bias, res and y REPRO_WT (storage.cuh: conv_chwn_forward is float32,
@@ -690,9 +696,6 @@ extern "C" int REPRO_ENTRY(conv_chwn_forward)(
     int pool_F, int pool_S, int pool_avg, int relu, int src_nchw,
     int dst_nchw, int res_nchw, int bm, int nb, int ph, int pw,
     void* stream) {
-#ifdef REPRO_VARIANT
-  if (z) return static_cast<int>(cudaErrorInvalidValue);
-#endif
   return forward<REPRO_XT, REPRO_WT>(x, w, bias, res, y, z, N, Ci, H, W, Co,
                                      F, S, pad, pool_F, pool_S, pool_avg,
                                      relu, src_nchw, dst_nchw, res_nchw, bm,

@@ -19,7 +19,7 @@
 // register load instead of cp.async: once per element of the box, not once
 // per tap), the consumers multiply float32 as before, dropping the 3xTF32
 // products of a narrow operand's zero small part, and y is rounded once
-// where it is stored.  z (save_act) is float32, float32 builds only.
+// where it is stored.  z (save_act) is stored in y's type, as K1's.
 //
 // What bounds it on an H100: operations, 2*Co*Ci*F^2 FLOPs per conv output
 // against a few bytes (VGG16's conv1_1, Ci = 3, writes 411 MB at batch 32
@@ -106,7 +106,7 @@ struct K2Args {
   const TW* bias;     // [Co] or null
   const TW* res;      // conv-output (pre-pool) shape, or null
   TW* y;
-  float* z;           // save_act: the pre-pool activation (NCHW), or null
+  TW* z;              // save_act: the pre-pool activation (NCHW), or null
   int N, Ci, H, W, Co, F, S, pad, K, Ho, Wo;
   int pF, pS, pool_avg, relu;  // pF == 0: no pool
   int UH, UW;         // unit grid: the pooled output, or the conv output
@@ -576,7 +576,7 @@ conv_nchw_kernel(const K2Args<TX, TW> a) {
         if (a.bias) v += ld(a.bias + co);
         if (a.res) v += ld(a.res + ro + co * a.rs.c);
         if (a.relu) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
-        if (zw) a.z[zo + co * a.zs.c] = v;
+        if (zw) put(a.z + zo + co * a.zs.c, v);
         if (POOL)
           T[m * TS + c] = v;
         else
@@ -693,7 +693,7 @@ int forward(const void* x, const void* w, const void* bias, const void* res,
   a.bias = static_cast<const TW*>(bias);
   a.res = static_cast<const TW*>(res);
   a.y = static_cast<TW*>(y);
-  a.z = static_cast<float*>(z);
+  a.z = static_cast<TW*>(z);
   a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Co = Co; a.F = F; a.S = S;
   a.pad = pad;
   a.K = Ci * F * F;
@@ -753,8 +753,8 @@ int forward(const void* x, const void* w, const void* bias, const void* res,
 
 }  // namespace
 
-// Host entry of K2: w [Co, Ci, F, F] is [Co, K]; z (or null, float32 builds
-// only) is [N, Co, Ho, Wo].  The block tile is bm output channels by the
+// Host entry of K2: w [Co, Ci, F, F] is [Co, K]; z (or null) is [N, Co, Ho,
+// Wo], of y's type.  The block tile is bm output channels by the
 // conv outputs under nb images x uth x utw units (pooled outputs with a
 // pool, conv outputs without), tr tap rows and ga 8-channel groups a stage
 // (ops.nchw_tiling).  stats (or null): one uint64 on the card that the
@@ -768,9 +768,6 @@ extern "C" int REPRO_ENTRY(conv_nchw_forward)(
     int pool_F, int pool_S, int pool_avg, int relu, int src_nchw,
     int dst_nchw, int res_nchw, int bm, int nb, int uth, int utw, int tr,
     int ga, void* stats, void* stream) {
-#ifdef REPRO_VARIANT
-  if (z) return static_cast<int>(cudaErrorInvalidValue);
-#endif
   return forward<REPRO_XT, REPRO_WT>(x, w, bias, res, y, z, N, Ci, H, W, Co,
                                      F, S, pad, pool_F, pool_S, pool_avg,
                                      relu, src_nchw, dst_nchw, res_nchw, bm,

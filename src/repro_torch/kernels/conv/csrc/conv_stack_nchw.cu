@@ -66,12 +66,23 @@
 // is recomputed on each block's halo and once per BM-wide slice of Co;
 // ops.stack_tiling picks the tile and prices the FLOPs the blocks execute,
 // which the kernel adds to ``stats`` when given.
+//
+// Storage dtypes (csrc/storage.cuh): the bf16 build (-DREPRO_VARIANT_BF16)
+// defines conv_stack_nchw_forward_bf16 over bf16 x, w1, b1, w2, b2,
+// residual and y.  The producer widens the x box and the weight slices to
+// float32 on their way into the ring (register loads, storage::copy4/
+// copy1, where float32 takes cp.async); the mid slab stays float32, as in
+// K5a's bf16 build and the reference (stack.py keeps its mid in f32), and
+// y is rounded once where it is stored.  A bf16 value is exact in TF32, so
+// conv1 (bf16 w1 by bf16 x) runs one TF32 product a term, and conv2 (bf16
+// w2 by the float32 mid) two: w2 * mid_big + w2 * mid_small.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "../../csrc/mma.cuh"
 #include "../../csrc/nan_max.cuh"
+#include "../../csrc/storage.cuh"
 #include "conv_stack_common.cuh"  // StackArgs, Tile, make_tile, mid_span
 #include "conv_ring.cuh"          // ring barriers, copy_quad, rows8
 
@@ -79,8 +90,16 @@ namespace {
 
 using namespace repro::mma;
 using namespace repro::ring;
-using StackArgs = repro::stack::StackArgs<float>;
+using repro::storage::copy1;
+using repro::storage::copy4;
+using repro::storage::ld;
+using repro::storage::put;
+using repro::storage::split;
+using T = REPRO_WT;  // the storage type of every tensor (the mid: float32)
+using StackArgs = repro::stack::StackArgs<T>;
 using repro::stack::Tile;
+// a bf16 operand is exact in TF32: its small part is zero, never read
+constexpr bool kExact = repro::storage::kExactTf32<T>;
 
 constexpr int kConsumers = 256;  // two warpgroups: the mma
 constexpr int kProducers = 128;  // one warpgroup: the copies
@@ -224,15 +243,15 @@ conv_stack_nchw_kernel(const K5bArgs a) {
                                  static_cast<long long>(ci) * s.xs.c +
                                  static_cast<long long>(ih) * s.xs.h;
           if (!rok || iw >= s.W || iw + 4 <= 0) {
-            cp16(d, s.x, false);
+            copy4(d, s.x, false);
           } else if (a.vec_x && iw >= 0 && iw + 4 <= s.W) {
-            cp16(d, s.x + base + iw, true);
+            copy4(d, s.x + base + iw, true);
           } else {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               const bool ok = static_cast<unsigned>(iw + j) <
                               static_cast<unsigned>(s.W);
-              cp4(d + j, ok ? s.x + base + (iw + j) * s.xs.w : s.x, ok);
+              copy1(d + j, ok ? s.x + base + (iw + j) * s.xs.w : s.x, ok);
             }
           }
         }
@@ -350,22 +369,27 @@ conv_stack_nchw_kernel(const K5bArgs a) {
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
               const float* pa = W1s + mt * 16 * SA1 + tq * FF1 + r;
-              split_tf32(pa[0], abig[mt][0], asmall[mt][0]);
-              split_tf32(pa[8 * SA1], abig[mt][1], asmall[mt][1]);
-              split_tf32(pa[4 * FF1], abig[mt][2], asmall[mt][2]);
-              split_tf32(pa[8 * SA1 + 4 * FF1], abig[mt][3], asmall[mt][3]);
+              split<kExact>(pa[0], abig[mt][0], asmall[mt][0]);
+              split<kExact>(pa[8 * SA1], abig[mt][1], asmall[mt][1]);
+              split<kExact>(pa[4 * FF1], abig[mt][2], asmall[mt][2]);
+              split<kExact>(pa[8 * SA1 + 4 * FF1], abig[mt][3],
+                            asmall[mt][3]);
             }
             const float* xr = Xs + (r / F1) * b.XW + r % F1;
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               if (j >= nj) break;
               unsigned b0big, b0small, b1big, b1small;
-              split_tf32(xr[xoff[j]], b0big, b0small);
-              split_tf32(xr[4 * a.XSTR + xoff[j]], b1big, b1small);
+              split<kExact>(xr[xoff[j]], b0big, b0small);
+              split<kExact>(xr[4 * a.XSTR + xoff[j]], b1big, b1small);
 #pragma unroll
               for (int mt = 0; mt < 2; ++mt) {
-                mma_tf32(accA[mt][j], asmall[mt], b0big, b1big, accA[mt][j]);
-                mma_tf32(accA[mt][j], abig[mt], b0small, b1small, accA[mt][j]);
+                if constexpr (!kExact) {  // w1 and x small parts
+                  mma_tf32(accA[mt][j], asmall[mt], b0big, b1big,
+                           accA[mt][j]);
+                  mma_tf32(accA[mt][j], abig[mt], b0small, b1small,
+                           accA[mt][j]);
+                }
                 mma_tf32(accA[mt][j], abig[mt], b0big, b1big, accA[mt][j]);
               }
             }
@@ -402,7 +426,7 @@ conv_stack_nchw_kernel(const K5bArgs a) {
             for (int v8 = 0; v8 < 2; ++v8) {
               const int row = mt * 16 + g + 8 * v8, cm = cm0 + row;
               float v = totA[mt][j][2 * v8 + h];
-              if (s.b1 && cm < s.Cm) v += __ldg(s.b1 + cm);
+              if (s.b1 && cm < s.Cm) v += ld(s.b1 + cm);
               if (s.relu1) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
               d[row * RS] = v;
             }
@@ -432,10 +456,10 @@ conv_stack_nchw_kernel(const K5bArgs a) {
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           const float* pa = W2s + mt * 16 * SA2 + tq * FF2 + r;
-          split_tf32(pa[0], abig[mt][0], asmall[mt][0]);
-          split_tf32(pa[8 * SA2], abig[mt][1], asmall[mt][1]);
-          split_tf32(pa[4 * FF2], abig[mt][2], asmall[mt][2]);
-          split_tf32(pa[8 * SA2 + 4 * FF2], abig[mt][3], asmall[mt][3]);
+          split<kExact>(pa[0], abig[mt][0], asmall[mt][0]);
+          split<kExact>(pa[8 * SA2], abig[mt][1], asmall[mt][1]);
+          split<kExact>(pa[4 * FF2], abig[mt][2], asmall[mt][2]);
+          split<kExact>(pa[8 * SA2 + 4 * FF2], abig[mt][3], asmall[mt][3]);
         }
         const float* br = sr + (r / F2) * b.RW + r % F2;
 #pragma unroll
@@ -446,7 +470,8 @@ conv_stack_nchw_kernel(const K5bArgs a) {
           split_tf32(br[4 * RS + boff[nt]], b1big, b1small);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            mma_tf32(accB[mt][nt], asmall[mt], b0big, b1big, accB[mt][nt]);
+            if constexpr (!kExact)  // w2's small part (the mid's is read)
+              mma_tf32(accB[mt][nt], asmall[mt], b0big, b1big, accB[mt][nt]);
             mma_tf32(accB[mt][nt], abig[mt], b0small, b1small, accB[mt][nt]);
             mma_tf32(accB[mt][nt], abig[mt], b0big, b1big, accB[mt][nt]);
           }
@@ -502,16 +527,17 @@ conv_stack_nchw_kernel(const K5bArgs a) {
     const long long n = t.n0 + nl;
     const int co = co0 + m, oh = b.oh0 + ohl, ow = b.ow0 + owl;
     float v = T[m * TS + c];
-    if (s.b2) v += __ldg(s.b2 + co);
+    if (s.b2) v += ld(s.b2 + co);
     if (s.res)
-      v += __ldg(s.res + n * s.rs.n + static_cast<long long>(co) * s.rs.c +
-                 oh * s.rs.h + ow * s.rs.w);
+      v += ld(s.res + n * s.rs.n + static_cast<long long>(co) * s.rs.c +
+              oh * s.rs.h + ow * s.rs.w);
     if (s.relu2) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
     if (POOL)
       T[m * TS + c] = v;
     else
-      s.y[n * s.ys.n + static_cast<long long>(co) * s.ys.c + oh * s.ys.h +
-          ow * s.ys.w] = v;
+      put(s.y + n * s.ys.n + static_cast<long long>(co) * s.ys.c +
+              oh * s.ys.h + ow * s.ys.w,
+          v);
   }
   if (!POOL) return;
   bar_sync(cons_bar<NS>(), kConsumers);
@@ -530,9 +556,10 @@ conv_stack_nchw_kernel(const K5bArgs a) {
         const float v = row[(uhl * s.pS + i) * b.OW + uwl * s.pS + j];
         acc = s.pool_avg ? acc + v : nan_max(acc, v);
       }
-    s.y[static_cast<long long>(t.n0 + nl) * s.ys.n +
-        static_cast<long long>(co0 + m) * s.ys.c + (t.uh0 + uhl) * s.ys.h +
-        (t.uw0 + uwl) * s.ys.w] = s.pool_avg ? acc / area : acc;
+    put(s.y + static_cast<long long>(t.n0 + nl) * s.ys.n +
+            static_cast<long long>(co0 + m) * s.ys.c +
+            (t.uh0 + uhl) * s.ys.h + (t.uw0 + uwl) * s.ys.w,
+        s.pool_avg ? acc / area : acc);
   }
 }
 
@@ -593,9 +620,11 @@ cudaError_t launch(const K5bArgs& a, dim3 grid, int smem, cudaStream_t st) {
 
 // Host entry of K5b: fills the arguments from the shapes and the tile the
 // wrapper chose (bm output channels; nb x uth x utw output units), and
-// launches.  stats (or null): one uint64 on the card that the blocks add
-// their executed FLOPs to.  Returns a cudaError_t code.
-extern "C" int conv_stack_nchw_forward(
+// launches.  Every tensor is REPRO_WT (storage.cuh: conv_stack_nchw_forward
+// is float32, conv_stack_nchw_forward_bf16 bf16).  stats (or null): one
+// uint64 on the card that the blocks add their executed FLOPs to.  Returns
+// a cudaError_t code.
+extern "C" int REPRO_ENTRY(conv_stack_nchw_forward)(
     const void* x, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* res, void* y, int N, int Ci, int H, int W,
     int Cm, int F1, int S1, int P1, int Co, int F2, int S2, int P2,
@@ -608,13 +637,13 @@ extern "C" int conv_stack_nchw_forward(
     return static_cast<int>(cudaErrorInvalidValue);
   K5bArgs a{};
   StackArgs& s = a.s;
-  s.x = static_cast<const float*>(x);
-  s.w1 = static_cast<const float*>(w1);
-  s.b1 = static_cast<const float*>(b1);
-  s.w2 = static_cast<const float*>(w2);
-  s.b2 = static_cast<const float*>(b2);
-  s.res = static_cast<const float*>(res);
-  s.y = static_cast<float*>(y);
+  s.x = static_cast<const T*>(x);
+  s.w1 = static_cast<const T*>(w1);
+  s.b1 = static_cast<const T*>(b1);
+  s.w2 = static_cast<const T*>(w2);
+  s.b2 = static_cast<const T*>(b2);
+  s.res = static_cast<const T*>(res);
+  s.y = static_cast<T*>(y);
   s.N = N; s.Ci = Ci; s.H = H; s.W = W; s.Cm = Cm;
   s.F1 = F1; s.S1 = S1; s.P1 = P1; s.K1 = Ci * F1 * F1;
   s.Ho1 = (H + 2 * P1 - F1) / S1 + 1;

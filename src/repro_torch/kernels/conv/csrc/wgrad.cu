@@ -60,15 +60,39 @@
 // float atomics).  With one split the first launch writes dw itself.  The
 // wrapper (backward.py::wgrad_tiling) picks the tile and the splits and
 // counts the two launches as one K6 call.
+//
+// Storage dtypes (csrc/storage.cuh): the bf16 build (-DREPRO_VARIANT_BF16)
+// defines wgrad_forward_bf16 over bf16 x and g; dw stays float32 in both
+// builds, as the reference's out_shape (backward.py, float32 whatever the
+// inputs), and the caller rounds it to w's dtype.  No cp.async widens, so
+// the producers load a bf16 slice into registers as raw bits (one 8-byte
+// load for 4 contiguous aligned positions, else element by element), one
+// slice ahead of the stage it fills, and widen and store it when the
+// consumers free that stage: the loads fly while the producer waits, as
+// cp.async's do in float32.  A bf16 value is exact in
+// TF32 and a product of two of them exact in float32, so the bf16 build
+// runs ONE TF32 product a term (big * big; both small parts are zero), on
+// the same 32-position chains flushed into float32 registers.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "../../csrc/mma.cuh"
+#include "../../csrc/storage.cuh"
 #include "conv_common.cuh"  // Strides, layout_strides
 
 namespace {
 
 using namespace repro::mma;
+using repro::storage::kExactTf32;
+using repro::storage::split;
+#ifdef REPRO_VARIANT
+using repro::storage::load_raw4;
+using repro::storage::pack_raw4;
+using repro::storage::raw1;
+using repro::storage::widen4;
+#endif
+using T = REPRO_XT;  // the storage type of x and g (dw is float32)
+constexpr bool kExact = kExactTf32<T>;  // one TF32 product a term
 
 constexpr int kConsumers = 256;     // two warpgroups: the mma
 constexpr int kProducers = 256;     // two warpgroups: the copies
@@ -83,8 +107,8 @@ constexpr int kRow = kBP + 8;       // shared row stride in floats
 constexpr int kNoRow = -(1 << 28);  // k past Ci*F*F: every bound check fails
 
 struct WgradArgs {
-  const float* x;
-  const float* g;
+  const T* x;
+  const T* g;
   float* out;     // [splits, Co, K] partials, or dw [Co, K] for one split
   int N, Ci, H, W, Co, F, S, pad, Ho, Wo, K, P;  // K = Ci*F*F, P = N*Ho*Wo
   int p_per_split;
@@ -159,6 +183,9 @@ wgrad_partial_kernel(const WgradArgs a) {
         pn = r / a.Ho;
       }
     }
+#ifndef REPRO_VARIANT
+    // float32: cp.async straight into the ring, kStages - 1 slices in
+    // flight
     auto stage = [&](int sl) {
       const int buf = sl % kStages;
       const int pf = p_begin + sl * kBP + 4 * q;
@@ -270,6 +297,163 @@ wgrad_partial_kernel(const WgradArgs a) {
       }
       cp_commit();
     }
+#else
+    // the thread's 4 positions of slice sl (called for sl = 0, 1, ... in
+    // turn: it steps (pn, poh, pow_) on to the next slice) and whether
+    // they run contiguously in g and in x
+    struct Pos {
+      int gb[4], xb[4], ih[4], iw[4];
+      bool ok[4], gcont, xcont;
+    };
+    auto positions = [&](int sl) {
+      Pos P;
+      const int pf = p_begin + sl * kBP + 4 * q;
+      int n = pn, oh = poh, ow = pow_;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        P.ok[j] = pf + j < p_end;
+        P.gb[j] = n * a.gs.n + oh * a.gs.h + ow * a.gs.w;
+        P.ih[j] = oh * a.S - a.pad;
+        P.iw[j] = ow * a.S - a.pad;
+        P.xb[j] = n * a.xs.n + P.ih[j] * a.xs.h + P.iw[j] * a.xs.w;
+        if (a.n_fastest) {
+          if (++n == a.N) {
+            n = 0;
+            if (++ow == a.Wo) {
+              ow = 0;
+              ++oh;
+            }
+          }
+        } else if (++ow == a.Wo) {
+          ow = 0;
+          if (++oh == a.Ho) {
+            oh = 0;
+            ++n;
+          }
+        }
+      }
+      if (a.n_fastest) {  // on to the next slice: kBP positions further
+        pn += kBP;
+        while (pn >= a.N) {
+          pn -= a.N;
+          if (++pow_ == a.Wo) {
+            pow_ = 0;
+            ++poh;
+          }
+        }
+      } else {
+        pow_ += kBP;
+        while (pow_ >= a.Wo) {
+          pow_ -= a.Wo;
+          if (++poh == a.Ho) {
+            poh = 0;
+            ++pn;
+          }
+        }
+      }
+      P.gcont = a.vec && P.ok[3] && P.gb[1] == P.gb[0] + 1 &&
+                P.gb[2] == P.gb[0] + 2 && P.gb[3] == P.gb[0] + 3;
+      P.xcont = a.vec && P.ok[3] && P.xb[1] == P.xb[0] + 1 &&
+                P.xb[2] == P.xb[0] + 2 && P.xb[3] == P.xb[0] + 3;
+      return P;
+    };
+    // the sources of the thread's chunk in each of its RPT rows: quad(i,
+    // src, ok) where the 4 elements are contiguous and aligned (or all
+    // zero: ok false), else each(i, j, src, ok) element by element
+    auto rows = [&](const Pos& P, auto&& quad, auto&& each) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int r = row0 + PASS * i;
+        if (PASS * i < BM) {  // a row of G
+          const int co = co0 + r;
+          if (co >= a.Co) {
+            quad(i, a.g, false);
+            continue;
+          }
+          const int co_off = co * a.gs.c;
+          if (P.gcont && ((P.gb[0] + co_off) & 3) == 0) {
+            quad(i, a.g + P.gb[0] + co_off, true);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              each(i, j, P.ok[j] ? a.g + P.gb[j] + co_off : a.g, P.ok[j]);
+          }
+        } else {  // a row of X^
+          const int c = r - BM;
+          const int dy = kdy[c], dx = kdx[c], ko = koff[c];
+          bool v[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            v[j] = P.ok[j] &&
+                   static_cast<unsigned>(P.ih[j] + dy) <
+                       static_cast<unsigned>(a.H) &&
+                   static_cast<unsigned>(P.iw[j] + dx) <
+                       static_cast<unsigned>(a.W);
+          if (P.xcont && v[0] && v[1] && v[2] && v[3] &&
+              ((P.xb[0] + ko) & 3) == 0) {
+            quad(i, a.x + P.xb[0] + ko, true);
+          } else if (!(v[0] || v[1] || v[2] || v[3])) {
+            quad(i, a.x, false);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              each(i, j, v[j] ? a.x + P.xb[j] + ko : a.x, v[j]);
+          }
+        }
+      }
+    };
+    // row i of the thread's chunk in stage buf
+    auto dst = [&](int buf, int i) {
+      return smem + (buf * ROWS + row0 + PASS * i) * kRow + 4 * q;
+    };
+    {
+      // bf16: no cp.async widens, so a slice's loads go to registers as raw
+      // bits, issued one slice ahead: they are in flight while the
+      // producer waits for the stage they will fill, then widened and
+      // stored
+      using Raw = repro::storage::Raw4<T>;
+      Raw raw[RPT];
+      auto fetch = [&](int sl) {
+        rows(positions(sl),
+             [&](int i, const T* src, bool ok) {
+               if (ok)
+                 load_raw4(raw[i], src);
+               else
+                 pack_raw4(raw[i], 0u, 0u, 0u, 0u);
+             },
+             [&](int i, int j, const T* src, bool ok) {
+               // the 4 elements of row i arrive as j = 0, 1, 2, 3
+               const unsigned e = raw1(src, ok);
+               if (j == 0) pack_raw4(raw[i], e, 0u, 0u, 0u);
+               else if (j == 1) raw[i].b.x |= e << 16;
+               else if (j == 2) raw[i].b.y = e;
+               else raw[i].b.y |= e << 16;
+             });
+      };
+      auto store = [&](int buf) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+          *reinterpret_cast<float4*>(dst(buf, i)) = widen4(raw[i]);
+      };
+      if (nslices > 0) fetch(0);
+#pragma unroll
+      for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nslices) {
+          store(s);
+          if (s + 1 < nslices) fetch(s + 1);
+        }
+      }
+      for (int sl = 0; sl < nslices; ++sl) {
+        bar_arrive(full_bar(sl % kStages), kThreads);  // slice sl stored
+        const int nx = sl + kStages - 1;
+        if (nx < nslices) {
+          if (nx >= kStages) bar_sync(empty_bar(nx % kStages), kThreads);
+          store(nx % kStages);
+          if (nx + 1 < nslices) fetch(nx + 1);
+        }
+      }
+    }
+#endif
     return;
   }
 
@@ -303,26 +487,33 @@ wgrad_partial_kernel(const WgradArgs a) {
         const float2 hi = *reinterpret_cast<const float2*>(pa + 8 * kRow);
         // a0 (row g, col t), a1 (row g+8, col t), a2 (row g, col t+4),
         // a3 (row g+8, col t+4): col t is physical 2t, col t+4 is 2t+1
-        split_tf32(lo.x, abig[mt][0], asmall[mt][0]);
-        split_tf32(hi.x, abig[mt][1], asmall[mt][1]);
-        split_tf32(lo.y, abig[mt][2], asmall[mt][2]);
-        split_tf32(hi.y, abig[mt][3], asmall[mt][3]);
+        split<kExact>(lo.x, abig[mt][0], asmall[mt][0]);
+        split<kExact>(hi.x, abig[mt][1], asmall[mt][1]);
+        split<kExact>(lo.y, abig[mt][2], asmall[mt][2]);
+        split<kExact>(hi.y, abig[mt][3], asmall[mt][3]);
       }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         const float2 bv = *reinterpret_cast<const float2*>(
             Bs + (wn * WTN + nt * 8 + gq) * kRow + kk + 2 * tq);
         unsigned b0big, b0small, b1big, b1small;
-        split_tf32(bv.x, b0big, b0small);
-        split_tf32(bv.y, b1big, b1small);
+        split<kExact>(bv.x, b0big, b0small);
+        split<kExact>(bv.y, b1big, b1small);
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
-          if (kk == 0)
-            mma_tf32(acc[mt][nt], asmall[mt], b0big, b1big, zero);
-          else
-            mma_tf32(acc[mt][nt], asmall[mt], b0big, b1big, acc[mt][nt]);
-          mma_tf32(acc[mt][nt], abig[mt], b0small, b1small, acc[mt][nt]);
-          mma_tf32(acc[mt][nt], abig[mt], b0big, b1big, acc[mt][nt]);
+          if constexpr (kExact) {  // big * big is the whole product
+            if (kk == 0)
+              mma_tf32(acc[mt][nt], abig[mt], b0big, b1big, zero);
+            else
+              mma_tf32(acc[mt][nt], abig[mt], b0big, b1big, acc[mt][nt]);
+          } else {
+            if (kk == 0)
+              mma_tf32(acc[mt][nt], asmall[mt], b0big, b1big, zero);
+            else
+              mma_tf32(acc[mt][nt], asmall[mt], b0big, b1big, acc[mt][nt]);
+            mma_tf32(acc[mt][nt], abig[mt], b0small, b1small, acc[mt][nt]);
+            mma_tf32(acc[mt][nt], abig[mt], b0big, b1big, acc[mt][nt]);
+          }
         }
       }
     }
@@ -392,19 +583,19 @@ cudaError_t launch_bn(const WgradArgs& a, int bn, int splits,
 }  // namespace
 
 // x [N,Ci,H,W] (x_nchw) or [Ci,H,W,N]; g [N,Co,Ho,Wo] (g_nchw) or
-// [Co,Ho,Wo,N]; dw [Co, Ci*F*F] (canonical [Co,Ci,F,F]); ws [splits, Co,
+// [Co,Ho,Wo,N], both REPRO_XT (float32, or bf16 in the bf16 build); dw
+// float32 [Co, Ci*F*F] (canonical [Co,Ci,F,F]); ws float32 [splits, Co,
 // Ci*F*F] when splits > 1 (else unused).  The block tile is bm x bn (bm 64
 // or 128, bn 32, 64 or 128); split s reduces the output positions
 // [s * p_per_split, (s + 1) * p_per_split), p_per_split a multiple of 32.
 // Returns cudaGetLastError().
-extern "C" int wgrad_forward(const void* x, const void* g, void* ws,
-                             void* dw, int N, int Ci, int H, int W, int Co,
-                             int F, int S, int pad, int x_nchw, int g_nchw,
-                             int bm, int bn, int p_per_split, int splits,
-                             void* stream) {
+extern "C" int REPRO_ENTRY(wgrad_forward)(
+    const void* x, const void* g, void* ws, void* dw, int N, int Ci, int H,
+    int W, int Co, int F, int S, int pad, int x_nchw, int g_nchw, int bm,
+    int bn, int p_per_split, int splits, void* stream) {
   WgradArgs a;
-  a.x = static_cast<const float*>(x);
-  a.g = static_cast<const float*>(g);
+  a.x = static_cast<const T*>(x);
+  a.g = static_cast<const T*>(g);
   a.out = static_cast<float*>(splits > 1 ? ws : dw);
   a.N = N; a.Ci = Ci; a.H = H; a.W = W; a.Co = Co; a.F = F; a.S = S;
   a.pad = pad;

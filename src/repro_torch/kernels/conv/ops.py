@@ -20,10 +20,11 @@ Storage dtypes (``_build.CONV_VARIANTS``): K1 and K2 take float32 or bf16
 x and w, or int8 x (per-channel quantized, its scale folded into w:
 ``repro_torch.quant``) with float32 or bf16 w; bias and residual are w's
 dtype, and so is the output (the reference's ``result_type(x, w)``).  K5a
-takes float32 or bf16, every tensor one dtype; K5b float32 only.  A
-narrow launch also counts in ``<wrapper>.variant_launches[variant]``.
-The kernels accumulate in float32 and round once where they store; the
-plain versions do the same.  ``save_act`` (training) is float32 only.
+and K5b take float32 or bf16, every tensor one dtype.  A narrow launch
+also counts in ``<wrapper>.variant_launches[variant]``.  The kernels
+accumulate in float32 and round once where they store; the plain versions
+do the same.  ``save_act`` (training) stores z in the output's dtype, as
+the reference does.
 
 When an input requires grad, the wrappers run as ``torch.autograd
 .Function``s (``_ConvFn``, ``_StackFn``), the counterparts of the
@@ -508,15 +509,11 @@ def _launch(entry: str, wrapper, engine: str, x, w, Ci: int, Co: int,
     y = _output(name, x, dst_layout, N, Co, OH, OW, w.dtype)
     z = None
     if save_act:
-        if variant:
-            raise TypeError(f"{name}: save_act (training) takes float32 "
-                            f"only, not x {x.dtype} / w {w.dtype}")
         # conv outputs under no pool window are never computed: zero them
         covered = not pF or (pF >= pS and (Ho - pF) % pS == 0
                              and (Wo - pF) % pS == 0)
         z = (torch.empty if covered else torch.zeros)(
-            _shape(engine, N, Co, Ho, Wo), device=x.device,
-            dtype=torch.float32)
+            _shape(engine, N, Co, Ho, Wo), device=x.device, dtype=w.dtype)
     pool = tuple(pool) if pool else None
     if engine == "CHWN":
         t = conv_tiling(N, Ci, H, W, Co, F, stride, pad, pool)
@@ -587,9 +584,10 @@ def conv_backward(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     scatter and applies the ReLU mask in one pass; without, the mask is
     ``g * (y > 0)``.  dgrad is the engine's own conv kernel on the
     dilated, rotated problem, written straight in ``src_layout``; dw comes
-    from K6 (in the engine's weight layout); a folded residual's gradient
-    is the masked gradient, re-laid-out into ``res_layout`` (K9a on the
-    card)."""
+    from K6 (in the engine's weight layout), in float32, and db from a
+    float32 sum, each rounded once to its parameter's dtype as the
+    reference rounds them; a folded residual's gradient is the masked
+    gradient, re-laid-out into ``res_layout`` (K9a on the card)."""
     need_dx, need_dw, need_db, need_dres = needs
     F = w.shape[1] if engine == "CHWN" else w.shape[2]
     g = g.contiguous()
@@ -608,11 +606,11 @@ def conv_backward(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                         g_layout=g_lay, dst_layout=src_layout)
     if need_dw:
         dw = conv_wgrad(x, ga, F, stride, pad, x_layout=src_layout,
-                        g_layout=g_lay)
+                        g_layout=g_lay).to(w.dtype)
         if engine == "CHWN":
             dw = dw.permute(1, 2, 3, 0).contiguous()
     if need_db:
-        db = bias_grad(ga, g_lay)
+        db = bias_grad(ga, g_lay).to(w.dtype)
     if need_dres:
         dres = apply_transform(ga, g_lay, res_layout, use_kernel=True)
     return dx, dw, db, dres
@@ -1063,12 +1061,8 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
                               dst_layout=dst_layout)
     tiling = stack_tiling(engine, N, Ci, H, W, Cm, F1, stride1, pad1, Co,
                           F2, stride2, pad2, tuple(pool) if pool else None)
-    if engine == "CHWN":
-        dev, variant = _build.require_cuda_storage(
-            name, x, w1=w1, w2=w2, bias1=bias1, bias2=bias2, res=res)
-    else:
-        dev, variant = _build.require_cuda_f32(
-            name, x, w1=w1, w2=w2, bias1=bias1, bias2=bias2, res=res), ""
+    dev, variant = _build.require_cuda_storage(
+        name, x, w1=w1, w2=w2, bias1=bias1, bias2=bias2, res=res)
     y = _output(name, x, dst_layout, N, Co, OH, OW, x.dtype)
     cluster = (tiling.cluster,) if engine == "CHWN" else ()
     err = _build.entry(entry, variant)(
@@ -1320,3 +1314,4 @@ conv_direct_chwn.variant_launches = {"bf16": 0, "i8f32": 0, "i8bf16": 0}
 conv_im2col_nchw_fused.variant_launches = {"bf16": 0, "i8f32": 0,
                                            "i8bf16": 0}
 conv_stack_chwn.variant_launches = {"bf16": 0}
+conv_stack_nchw.variant_launches = {"bf16": 0}

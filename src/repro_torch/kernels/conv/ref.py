@@ -8,7 +8,8 @@ ReLU -> max/avg pool -> permute to the destination layout; with
 Both compute in float32 whatever the storage dtypes (bf16, int8 x) and
 round once, to the output's dtype, at the end, as the kernels do.
 ``wgrad_ref`` (K6): the conv weight gradient as one contraction per filter
-tap, in any float dtype (float64 is the card's oracle).
+tap, in float32 for float32 or bf16 inputs (float64 is the card's
+oracle).
 ``im2col_nchw``: the matrix expansion of the baseline
 ``ops.conv_im2col_nchw``, whose matmul runs on K10.  The wrappers
 in ``ops.py`` run them for tensors on the CPU, and the tests and
@@ -112,8 +113,11 @@ def wgrad_ref(x: torch.Tensor, g: torch.Tensor, F: int, S: int = 1,
     with the tap's strided window of the padded x over (n, oh, ow), as
     the reference's ``_wgrad_kernel`` sums its taps.  ``x`` in
     ``x_layout``, ``g`` in ``g_layout``; computed and returned in
-    ``dtype`` (default x's)."""
-    dtype = dtype or x.dtype
+    ``dtype``: by default float32 for a float32 or bf16 x (bf16 inputs are
+    widened, summed in float32 and returned unrounded, as K6 and the
+    reference's kernel, whose ``preferred_element_type`` is float32, do),
+    else x's."""
+    dtype = dtype or _acc_dtype(x)
     xn = x.permute(perm_between(x_layout, "NCHW")).to(dtype)
     gn = g.permute(perm_between(g_layout, "NCHW")).to(dtype)
     if pad:

@@ -10,7 +10,9 @@ an NCHW one K7b (``pool_backward_nchw``); the identity pool (F = S = 1) is
 a re-layout of g and runs no K7.  For a CPU tensor a wrapper returns the
 plain version (``ref.pool_backward_ref``); for a CUDA tensor it launches
 its kernel or raises.  Launches are counted in
-``pool_backward_chwn.launches`` and ``pool_backward_nchw.launches``.
+``pool_backward_chwn.launches`` and ``pool_backward_nchw.launches``; a
+bf16 launch (x, g and dx bf16: the windows' shares summed in float32 and
+rounded once) also in ``variant_launches["bf16"]``.
 """
 from __future__ import annotations
 
@@ -168,7 +170,7 @@ def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
                          f"({g_layout})")
     if _build.on_cpu(name, x):
         return pool_backward_ref(x, g, F, S, op, layout, g_layout, relu_mask)
-    dev = _build.require_cuda_f32(name, x, g=g)
+    dev, variant = _build.require_cuda_storage(name, x, g=g)
     dx = torch.empty_like(x)
     args = [x.data_ptr(), g.data_ptr(), dx.data_ptr(), N, C, H, W, F, S,
             int(op == "avg"), int(relu_mask), int(g_layout == "NCHW")]
@@ -178,9 +180,11 @@ def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
     else:
         t = pool_backward_planes(N, C, H, W, F, S)
         args += [t.planes, t.band, t.win_rows]
-    err = getattr(_build.library(), entry)(*args, _build.stream_of(dev))
+    err = _build.entry(entry, variant)(*args, _build.stream_of(dev))
     _build.check(name, err)
     wrapper.launches += 1
+    if variant:
+        wrapper.variant_launches[variant] += 1
     return dx
 
 
@@ -230,3 +234,5 @@ def pool_backward(x: torch.Tensor, g: torch.Tensor, F: int, S: int,
 
 pool_backward_chwn.launches = 0
 pool_backward_nchw.launches = 0
+pool_backward_chwn.variant_launches = {"bf16": 0}
+pool_backward_nchw.variant_launches = {"bf16": 0}

@@ -28,12 +28,24 @@
 // (dy, dx) order, then divides by F*F, as the reference does.  The TPU
 // version's N-tile / C-tile padding and its VMEM-sized N tile are not
 // carried over: the kernels check the ragged edges of N and C themselves.
+//
+// Storage dtypes (csrc/storage.cuh): the float32 build defines
+// pool_{chwn,nchw}_forward, the bf16 build (-DREPRO_VARIANT_BF16)
+// pool_{chwn,nchw}_forward_bf16 over bf16 x and y.  Both widen each tap to
+// float32, take the max or the float32 sum, divide, and round once where
+// they store, as the reference's kernels do (x.astype(f32), then
+// acc.astype(o_ref.dtype)); a bf16 max is exact.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "../../csrc/nan_max.cuh"
+#include "../../csrc/storage.cuh"
 
 namespace {
+
+using repro::storage::widen;
+using repro::storage::put;
+using T = REPRO_WT;  // the storage type of x and y
 
 constexpr int kE = 4;       // K3a outputs per thread along wo
 constexpr int kWarps = 8;   // K3a warps per block
@@ -55,7 +67,7 @@ __device__ __forceinline__ float tap(float r, float v) {
 
 template <bool AVG>
 __global__ void __launch_bounds__(32 * kWarps)
-pool_chwn_kernel(const float* __restrict__ x, float* __restrict__ y, int N,
+pool_chwn_kernel(const T* __restrict__ x, T* __restrict__ y, int N,
                  int C, int H, int W, int F, int S, int Ho, int Wo,
                  int n_chunks, int strips, Out ys) {
   long long item = (long long)blockIdx.x * kWarps + threadIdx.y;
@@ -72,11 +84,11 @@ pool_chwn_kernel(const float* __restrict__ x, float* __restrict__ y, int N,
   float acc[kE];
 #pragma unroll
   for (int e = 0; e < kE; ++e) acc[e] = AVG ? 0.f : -INFINITY;
-  const float* xc = x + ((c * H + (long long)ho * S) * W + w0) * N + n;
+  const T* xc = x + ((c * H + (long long)ho * S) * W + w0) * N + n;
   for (int dy = 0; dy < F; ++dy) {
-    const float* xr = xc + (long long)dy * W * N;
+    const T* xr = xc + (long long)dy * W * N;
     for (int j = 0; j < cols && w0 + j < W; ++j) {
-      const float v = xr[(long long)j * N];
+      const float v = widen(xr[(long long)j * N]);
 #pragma unroll
       for (int e = 0; e < kE; ++e) {
         const int dx = j - e * S;
@@ -85,16 +97,16 @@ pool_chwn_kernel(const float* __restrict__ x, float* __restrict__ y, int N,
     }
   }
   const float area = (float)(F * F);
-  float* yp = y + (long long)n * ys.n + c * ys.c + (long long)ho * ys.h;
+  T* yp = y + (long long)n * ys.n + c * ys.c + (long long)ho * ys.h;
 #pragma unroll
   for (int e = 0; e < kE; ++e)
     if (wo0 + e < Wo)
-      yp[(long long)(wo0 + e) * ys.w] = AVG ? acc[e] / area : acc[e];
+      put(yp + (long long)(wo0 + e) * ys.w, AVG ? acc[e] / area : acc[e]);
 }
 
 template <bool AVG>
 __global__ void __launch_bounds__(kThreads)
-pool_nchw_kernel(const float* __restrict__ x, float* __restrict__ y, int N,
+pool_nchw_kernel(const T* __restrict__ x, T* __restrict__ y, int N,
                  int C, int H, int W, int F, int S, int Ho, int Wo, Out ys) {
   long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= (long long)N * C * Ho * Wo) return;
@@ -104,13 +116,14 @@ pool_nchw_kernel(const float* __restrict__ x, float* __restrict__ y, int N,
   i /= Ho;
   const int c = (int)(i % C);
   const long long n = i / C;
-  const float* xp =
+  const T* xp =
       x + ((n * C + c) * H + (long long)ho * S) * W + (long long)wo * S;
   float r = AVG ? 0.f : -INFINITY;
   for (int dy = 0; dy < F; ++dy)
-    for (int dx = 0; dx < F; ++dx) r = tap<AVG>(r, xp[dy * W + dx]);
-  y[n * ys.n + (long long)c * ys.c + (long long)ho * ys.h +
-    (long long)wo * ys.w] = AVG ? r / (float)(F * F) : r;
+    for (int dx = 0; dx < F; ++dx) r = tap<AVG>(r, widen(xp[dy * W + dx]));
+  put(y + n * ys.n + (long long)c * ys.c + (long long)ho * ys.h +
+          (long long)wo * ys.w,
+      AVG ? r / (float)(F * F) : r);
 }
 
 int pool_out(int hw, int F, int S) { return (hw - F) / S + 1; }
@@ -118,10 +131,12 @@ int pool_out(int hw, int F, int S) { return (hw - F) / S + 1; }
 }  // namespace
 
 // K3a: x [C, H, W, N] -> y [C, Ho, Wo, N] (dst_nchw = 0) or
-// [N, C, Ho, Wo] (dst_nchw = 1).  Returns cudaGetLastError().
-extern "C" int pool_chwn_forward(const void* x, void* y, int N, int C, int H,
-                                 int W, int F, int S, int avg, int dst_nchw,
-                                 void* stream) {
+// [N, C, Ho, Wo] (dst_nchw = 1), both REPRO_WT (float32, or bf16 in the
+// bf16 build).  Returns cudaGetLastError().
+extern "C" int REPRO_ENTRY(pool_chwn_forward)(const void* x, void* y,
+                                             int N, int C, int H, int W,
+                                             int F, int S, int avg,
+                                             int dst_nchw, void* stream) {
   const int Ho = pool_out(H, F, S), Wo = pool_out(W, F, S);
   if (N > 0 && C > 0 && Ho > 0 && Wo > 0) {
     const int n_chunks = (N + 31) / 32, strips = (Wo + kE - 1) / kE;
@@ -131,8 +146,8 @@ extern "C" int pool_chwn_forward(const void* x, void* y, int N, int C, int H,
     const Out ys = out_strides(N, C, Ho, Wo, dst_nchw != 0);
     const dim3 block(32, kWarps);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* xf = static_cast<const float*>(x);
-    float* yf = static_cast<float*>(y);
+    const T* xf = static_cast<const T*>(x);
+    T* yf = static_cast<T*>(y);
     if (avg)
       pool_chwn_kernel<true><<<(unsigned)blocks, block, 0, s>>>(
           xf, yf, N, C, H, W, F, S, Ho, Wo, n_chunks, strips, ys);
@@ -144,10 +159,12 @@ extern "C" int pool_chwn_forward(const void* x, void* y, int N, int C, int H,
 }
 
 // K3b: x [N, C, H, W] -> y [N, C, Ho, Wo] (dst_nchw = 1) or
-// [C, Ho, Wo, N] (dst_nchw = 0).  Returns cudaGetLastError().
-extern "C" int pool_nchw_forward(const void* x, void* y, int N, int C, int H,
-                                 int W, int F, int S, int avg, int dst_nchw,
-                                 void* stream) {
+// [C, Ho, Wo, N] (dst_nchw = 0), both REPRO_WT.  Returns
+// cudaGetLastError().
+extern "C" int REPRO_ENTRY(pool_nchw_forward)(const void* x, void* y,
+                                             int N, int C, int H, int W,
+                                             int F, int S, int avg,
+                                             int dst_nchw, void* stream) {
   const int Ho = pool_out(H, F, S), Wo = pool_out(W, F, S);
   if (N > 0 && C > 0 && Ho > 0 && Wo > 0) {
     const long long outs = (long long)N * C * Ho * Wo;
@@ -155,8 +172,8 @@ extern "C" int pool_nchw_forward(const void* x, void* y, int N, int C, int H,
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
     const Out ys = out_strides(N, C, Ho, Wo, dst_nchw != 0);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const float* xf = static_cast<const float*>(x);
-    float* yf = static_cast<float*>(y);
+    const T* xf = static_cast<const T*>(x);
+    T* yf = static_cast<T*>(y);
     if (avg)
       pool_nchw_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
           xf, yf, N, C, H, W, F, S, Ho, Wo, ys);

@@ -48,11 +48,52 @@
 // (x > 0) from the staged rows, stored as one 16-byte vector.  Avg skips
 // the taps (and x, without the mask).  F and S are fixed at compile time
 // for 2/2 and 3/2, so the window arithmetic has no division.
+//
+// Storage dtypes (csrc/storage.cuh): the float32 build defines
+// pool_backward_{chwn,nchw}, the bf16 build (-DREPRO_VARIANT_BF16)
+// pool_backward_{chwn,nchw}_bf16 over bf16 x, g and dx.  x and g are
+// widened to float32 as they are loaded (into registers and the float32
+// shared arrays above), each window's first max is found among the
+// widened values, so ties, frequent in bf16, are broken exactly as in
+// float32 (the first maximal tap in row-major order, the reference's
+// _route), and dx sums its windows' shares in float32 registers (F > S
+// windows overlap: AlexNet's and ResNet-18's 3/2 pools) and is rounded
+// once, to nearest even, where it is stored, as the reference casts acc.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "../../csrc/storage.cuh"
+
 namespace {
+
+using repro::storage::ld;
+using repro::storage::ld4;
+using repro::storage::put;
+using repro::storage::widen;
+using T = REPRO_WT;  // the storage type of x, g and dx
+
+// elements 4 r .. 4 r + 3 of base widened to float32, by one load of
+// 4 * sizeof(T) bytes (16-byte aligned for float32, 8 for bf16)
+__device__ __forceinline__ float4 load4(const float* base, int r) {
+  return __ldg(reinterpret_cast<const float4*>(base) + r);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* base, int r) {
+  return ld4(base + 4 * r);
+}
+// 4 float32 values stored as 4 consecutive elements of T, by one store
+__device__ __forceinline__ void store4(float* p, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
+                                       float c, float d) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
+}
 
 constexpr int kThreads = 256;
 constexpr unsigned short kNoTap = 0xFFFF;  // a window holding a NaN
@@ -89,9 +130,9 @@ long long nchw_smem_bytes(int planes, int win_rows, int F, int S, int W,
 // compile time (the index arithmetic of phase 2 then has no division).
 template <int FT, int ST>
 __global__ void __launch_bounds__(kThreads)
-pool_backward_chwn_kernel(const float* __restrict__ x,
-                          const float* __restrict__ g,
-                          float* __restrict__ dx, int N, int H, int W,
+pool_backward_chwn_kernel(const T* __restrict__ x,
+                          const T* __restrict__ g,
+                          T* __restrict__ dx, int N, int H, int W,
                           int F_, int S_, int Ho, int Wo, int band, int avg,
                           int relu_mask, int g_nchw, Strides4 gs) {
   constexpr int kWarps = kThreads / 32;
@@ -118,16 +159,16 @@ pool_backward_chwn_kernel(const float* __restrict__ x,
   if (g_nchw) {  // runs along the windows: lanes over r
     for (int nl = warp; nl < 32; nl += kWarps) {
       const bool ok = n0 + nl < N;
-      const float* gp = g + gc + (long long)(n0 + nl) * gs.n;
+      const T* gp = g + gc + (long long)(n0 + nl) * gs.n;
 #pragma unroll 4
       for (int r = lane; r < nwin; r += 32)
-        gsm[r * 33 + nl] = ok ? __ldg(gp + r) : 0.f;
+        gsm[r * 33 + nl] = ok ? ld(gp + r) : 0.f;
     }
   } else {  // runs along n: lanes over n
 #pragma unroll 4
     for (int r = warp; r < nwin; r += kWarps)
       gsm[r * 33 + lane] =
-          nok ? __ldg(g + gc + (long long)r * gs.w + n) : 0.f;
+          nok ? ld(g + gc + (long long)r * gs.w + n) : 0.f;
   }
 
   // phase 1b (max): each window's first-max tap, and the band's ReLU words.
@@ -141,7 +182,7 @@ pool_backward_chwn_kernel(const float* __restrict__ x,
       constexpr int KEEP = FT > ST ? FT - ST : 0;
       const int wrows = max(0, oh_hi - oh_lo + 1);
       for (int ow = warp; ow < Wo; ow += kWarps) {
-        const float* col = x + xc + (long long)ow * S * N + n;
+        const T* col = x + xc + (long long)ow * S * N + n;
         float v[FT][FT];
         for (int wr = 0; wr < wrows; ++wr) {
           const int oh = oh_lo + wr;
@@ -156,7 +197,7 @@ pool_backward_chwn_kernel(const float* __restrict__ x,
             if (wr == 0 || rr >= KEEP)
 #pragma unroll
               for (int c = 0; c < FT; ++c)
-                v[rr][c] = nok ? __ldg(col + ((long long)(oh * S + rr) * W
+                v[rr][c] = nok ? ld(col + ((long long)(oh * S + rr) * W
                                               + c) * N)
                                : -INFINITY;
           float m = -INFINITY;
@@ -198,14 +239,14 @@ pool_backward_chwn_kernel(const float* __restrict__ x,
       }
       for (int r = warp; r < nwin; r += kWarps) {
         const int oh = oh_lo + wr;
-        const float* wp = x + xc + ((long long)oh * S * W + ow * S) * N + n;
+        const T* wp = x + xc + ((long long)oh * S * W + ow * S) * N + n;
         float m = -INFINITY;
         int first = 0;
         bool has_nan = false;
         for (int dy = 0; dy < F; ++dy) {
           const int h = oh * S + dy;
           for (int dxx = 0; dxx < F; ++dxx) {
-            const float v = nok ? __ldg(wp + (long long)(dy * W + dxx) * N)
+            const float v = nok ? ld(wp + (long long)(dy * W + dxx) * N)
                                 : -INFINITY;
             if (v != v) has_nan = true;
             if (v > m) {
@@ -269,10 +310,10 @@ pool_backward_chwn_kernel(const float* __restrict__ x,
       }
       const long long i = row + (long long)w * N;
       if (relu_mask) {
-        const bool on = avg ? x[i] > 0.f : (prow[w] >> lane) & 1u;
+        const bool on = avg ? widen(x[i]) > 0.f : (prow[w] >> lane) & 1u;
         acc *= on ? 1.f : 0.f;
       }
-      dx[i] = acc;
+      put(dx + i, acc);
     }
   }
 }
@@ -282,9 +323,9 @@ pool_backward_chwn_kernel(const float* __restrict__ x,
 // FT, ST > 0 fix F and S at compile time.
 template <int FT, int ST>
 __global__ void __launch_bounds__(kThreads)
-pool_backward_nchw_kernel(const float* __restrict__ x,
-                          const float* __restrict__ g,
-                          float* __restrict__ dx, int planes, int C, int H,
+pool_backward_nchw_kernel(const T* __restrict__ x,
+                          const T* __restrict__ g,
+                          T* __restrict__ dx, int planes, int C, int H,
                           int W, int F_, int S_, int Ho, int Wo, int P,
                           int band, int win_rows, int avg, int relu_mask,
                           int vec, Strides4 gs) {
@@ -305,7 +346,7 @@ pool_backward_nchw_kernel(const float* __restrict__ x,
       reinterpret_cast<unsigned short*>(gsm + P * GP);  // [P][win_rows][Wo]
   const bool need_x = !avg || relu_mask;
   const long long HW = static_cast<long long>(H) * W;
-  const float* xb = x + p0 * HW + static_cast<long long>(xr0) * W;
+  const T* xb = x + p0 * HW + static_cast<long long>(xr0) * W;
 
   // phase 1a: the x rows (16-byte loads where W is a multiple of 4) and
   // each window's g
@@ -315,13 +356,13 @@ pool_backward_nchw_kernel(const float* __restrict__ x,
       for (int e = threadIdx.x; e < pc * per; e += kThreads) {
         const int pl = e / per, r = e - pl * per;
         *reinterpret_cast<float4*>(xs + pl * XP + 4 * r) =
-            __ldg(reinterpret_cast<const float4*>(xb + pl * HW) + r);
+            load4(xb + pl * HW, r);
       }
     } else {
       const int per = xr * W;
       for (int e = threadIdx.x; e < pc * per; e += kThreads) {
         const int pl = e / per, r = e - pl * per;
-        xs[pl * XP + r] = __ldg(xb + pl * HW + r);
+        xs[pl * XP + r] = ld(xb + pl * HW + r);
       }
     }
   }
@@ -331,7 +372,7 @@ pool_backward_nchw_kernel(const float* __restrict__ x,
       const int pl = e / per, r = e - pl * per;
       const int rw = r / Wo, ow = r - rw * Wo;
       const int p = p0 + pl, n = p / C, c = p - n * C;
-      gsm[pl * GP + r] = __ldg(g + n * gs.n + c * gs.c +
+      gsm[pl * GP + r] = ld(g + n * gs.n + c * gs.c +
                                (oh_lo + rw) * gs.h + ow * gs.w);
     }
   }
@@ -409,20 +450,19 @@ pool_backward_nchw_kernel(const float* __restrict__ x,
       }
       out[j] = acc;
     }
-    float* d = dx + (p0 + pl) * HW + static_cast<long long>(h) * W + w0;
+    T* d = dx + (p0 + pl) * HW + static_cast<long long>(h) * W + w0;
     if (vec) {
-      *reinterpret_cast<float4*>(d) = make_float4(out[0], out[1], out[2],
-                                                  out[3]);
+      store4(d, out[0], out[1], out[2], out[3]);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (w0 + j < W) d[j] = out[j];
+        if (w0 + j < W) put(d + j, out[j]);
     }
   }
 }
 
 template <int FT, int ST>
-cudaError_t launch_nchw(const float* x, const float* g, float* dx, int N,
+cudaError_t launch_nchw(const T* x, const T* g, T* dx, int N,
                         int C, int H, int W, int F, int S, int Ho, int Wo,
                         int P, int band, int win_rows, int smem, int avg,
                         int relu_mask, int vec, Strides4 gs,
@@ -442,7 +482,7 @@ cudaError_t launch_nchw(const float* x, const float* g, float* dx, int N,
 }
 
 template <int FT, int ST>
-cudaError_t launch_chwn(const float* x, const float* g, float* dx, int N,
+cudaError_t launch_chwn(const T* x, const T* g, T* dx, int N,
                         int C, int H, int W, int F, int S, int Ho, int Wo,
                         int band, int smem, int avg, int relu_mask,
                         int g_nchw, Strides4 gs, cudaStream_t s) {
@@ -458,22 +498,23 @@ cudaError_t launch_chwn(const float* x, const float* g, float* dx, int N,
 
 }  // namespace
 
-// K7a: x, dx [C, H, W, N]; g [C, Ho, Wo, N] or (g_nchw) [N, C, Ho, Wo].
+// K7a: x, dx [C, H, W, N]; g [C, Ho, Wo, N] or (g_nchw) [N, C, Ho, Wo]; all
+// three REPRO_WT (float32, or bf16 in the bf16 build).
 // A block covers `band` dx rows and touches at most `win_rows` window rows
 // (backward.py::pool_backward_band).
-extern "C" int pool_backward_chwn(const void* x, const void* g, void* dx,
-                                  int N, int C, int H, int W, int F, int S,
-                                  int avg, int relu_mask, int g_nchw,
-                                  int band, int win_rows, void* stream) {
+extern "C" int REPRO_ENTRY(pool_backward_chwn)(
+    const void* x, const void* g, void* dx, int N, int C, int H, int W,
+    int F, int S, int avg, int relu_mask, int g_nchw, int band, int win_rows,
+    void* stream) {
   const int Ho = (H - F) / S + 1, Wo = (W - F) / S + 1;
   if (N <= 0 || C <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaGetLastError();
   if (band < 1 || win_rows < 1 || F * F >= kNoTap || C > 65535)
     return (int)cudaErrorInvalidValue;
   const int smem = chwn_smem_bytes(win_rows * Wo, band, W);
   const Strides4 gs = strides_of(g_nchw != 0, N, C, Ho, Wo);
-  const float* xf = static_cast<const float*>(x);
-  const float* gf = static_cast<const float*>(g);
-  float* df = static_cast<float*>(dx);
+  const T* xf = static_cast<const T*>(x);
+  const T* gf = static_cast<const T*>(g);
+  T* df = static_cast<T*>(dx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (F == 3 && S == 2)  // AlexNet's overlapping pools
@@ -488,15 +529,15 @@ extern "C" int pool_backward_chwn(const void* x, const void* g, void* dx,
   return static_cast<int>(e);
 }
 
-// K7b: x, dx [N, C, H, W]; g [N, C, Ho, Wo] or (g_nchw = 0) [C, Ho, Wo, N].
+// K7b: x, dx [N, C, H, W]; g [N, C, Ho, Wo] or (g_nchw = 0) [C, Ho, Wo, N];
+// all three REPRO_WT.
 // A block covers `planes` (n, c) planes and `band` dx rows of each, and
 // touches at most `win_rows` window rows
 // (backward.py::pool_backward_planes).
-extern "C" int pool_backward_nchw(const void* x, const void* g, void* dx,
-                                  int N, int C, int H, int W, int F, int S,
-                                  int avg, int relu_mask, int g_nchw,
-                                  int planes, int band, int win_rows,
-                                  void* stream) {
+extern "C" int REPRO_ENTRY(pool_backward_nchw)(
+    const void* x, const void* g, void* dx, int N, int C, int H, int W,
+    int F, int S, int avg, int relu_mask, int g_nchw, int planes, int band,
+    int win_rows, void* stream) {
   const int Ho = (H - F) / S + 1, Wo = (W - F) / S + 1;
   if (N <= 0 || C <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaGetLastError();
   const long long np = static_cast<long long>(N) * C;
@@ -507,9 +548,9 @@ extern "C" int pool_backward_nchw(const void* x, const void* g, void* dx,
   const long long smem = nchw_smem_bytes(planes, win_rows, F, S, W, Wo);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   const Strides4 gs = strides_of(g_nchw != 0, N, C, Ho, Wo);
-  const float* xf = static_cast<const float*>(x);
-  const float* gf = static_cast<const float*>(g);
-  float* df = static_cast<float*>(dx);
+  const T* xf = static_cast<const T*>(x);
+  const T* gf = static_cast<const T*>(g);
+  T* df = static_cast<T*>(dx);
   const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -4,8 +4,10 @@
 ``pool_nchw`` an NCHW one; each writes its result in ``dst_layout``.  For a
 CPU tensor a wrapper returns the plain version (``ref.pool_ref``); for a
 CUDA tensor it launches its kernel or raises.  Launches are counted in
-``pool_chwn.launches`` and ``pool_nchw.launches``.  The reference wrappers'
-N/C-tile padding and ``autotune_nt`` are not carried over.  When x
+``pool_chwn.launches`` and ``pool_nchw.launches``; a bf16 launch (the
+kernels take float32 or bf16, y in x's dtype, summed in float32 and
+rounded once) also in ``variant_launches["bf16"]``.  The reference
+wrappers' N/C-tile padding and ``autotune_nt`` are not carried over.  When x
 requires grad, the wrappers run as a ``torch.autograd.Function`` whose
 backward is the pool backward K7 (``backward.pool_backward``), reading the
 gradient in ``dst_layout``, as the reference's custom VJPs do.
@@ -40,15 +42,17 @@ def _pool(wrapper, entry: str, src: str, x: torch.Tensor, F: int, S: int,
                          f"fit {H}x{W}")
     if _build.on_cpu(name, x):
         return pool_ref(x, F, S, op, src, dst_layout)
-    dev = _build.require_cuda_f32(name, x)
+    dev, variant = _build.require_cuda_storage(name, x)
     dims = {"N": N, "C": C, "H": Ho, "W": Wo}
     y = torch.empty(tuple(dims[d] for d in dst_layout), device=x.device,
                     dtype=x.dtype)
-    err = getattr(_build.library(), entry)(
+    err = _build.entry(entry, variant)(
         x.data_ptr(), y.data_ptr(), N, C, H, W, F, S, int(op == "avg"),
         int(dst_layout == "NCHW"), _build.stream_of(dev))
     _build.check(name, err)
     wrapper.launches += 1
+    if variant:
+        wrapper.variant_launches[variant] += 1
     return y
 
 
@@ -97,3 +101,5 @@ def pool_nchw(x: torch.Tensor, F: int, S: int, op: str = "max",
 
 pool_chwn.launches = 0
 pool_nchw.launches = 0
+pool_chwn.variant_launches = {"bf16": 0}
+pool_nchw.variant_launches = {"bf16": 0}

@@ -17,17 +17,36 @@
 // along gridDim.x, which reaches 2^31 - 1: a [C*H*W, N] matrix of VGG16's
 // conv1_1 output has 100352 row tiles, beyond gridDim.y's 65535.  It copies
 // bits, so any 4-byte dtype is the same kernel.
+//
+// Two-byte elements (bf16): the bf16 build (-DREPRO_VARIANT_BF16,
+// csrc/storage.cuh) defines transpose_forward_bf16, the same kernel over
+// 16-bit words.  Its tile rows are padded to 34 halfwords (68 bytes, 17
+// banks): lane t of a transposed read takes the halfword at byte 68 t +
+// 2 i, in bank 17 t + i/2 mod 32, a different bank for each of the 32
+// lanes since 17 is odd (33 halfwords would put lanes 0 and 31 in one
+// bank at odd i).  A warp's row of the tile is then 64 bytes of x and of
+// y, half a 128-byte line, still one contiguous run each.
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "../../csrc/storage.cuh"  // REPRO_WT, REPRO_ENTRY
+
 namespace {
+
+// the element's bits: 4 bytes in the float32 build, 2 in the bf16 one
+using Word = std::conditional<sizeof(REPRO_WT) == 2, unsigned short,
+                              unsigned>::type;
+// tile row padding in elements: 33 floats, 34 halfwords (above)
+constexpr int kPad = sizeof(Word) == 2 ? 2 : 1;
 
 constexpr int kTile = 32;
 constexpr int kRows = 8;  // block is kTile x kRows threads
 
 __global__ void __launch_bounds__(kTile * kRows)
-transpose_kernel(const unsigned* __restrict__ x, unsigned* __restrict__ y,
-                 int M, int N, int tiles_m, int tiles_n) {
-  __shared__ unsigned tile[kTile][kTile + 1];
+transpose_kernel(const Word* __restrict__ x, Word* __restrict__ y, int M,
+                 int N, int tiles_m, int tiles_n) {
+  __shared__ Word tile[kTile][kTile + kPad];
   long long t = blockIdx.x;
   const int tn = (int)(t % tiles_n);
   t /= tiles_n;
@@ -51,9 +70,10 @@ transpose_kernel(const unsigned* __restrict__ x, unsigned* __restrict__ y,
 
 }  // namespace
 
-// x [B, M, N] -> y [B, N, M], 4-byte elements.  Returns cudaGetLastError().
-extern "C" int transpose_forward(const void* x, void* y, int B, int M, int N,
-                                 void* stream) {
+// x [B, M, N] -> y [B, N, M], elements of sizeof(REPRO_WT) bytes (4 in the
+// float32 build, 2 in the bf16 one).  Returns cudaGetLastError().
+extern "C" int REPRO_ENTRY(transpose_forward)(const void* x, void* y, int B,
+                                              int M, int N, void* stream) {
   if (B > 0 && M > 0 && N > 0) {
     const int tiles_m = (M + kTile - 1) / kTile;
     const int tiles_n = (N + kTile - 1) / kTile;
@@ -61,7 +81,7 @@ extern "C" int transpose_forward(const void* x, void* y, int B, int M, int N,
     if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
     transpose_kernel<<<(unsigned)blocks, dim3(kTile, kRows), 0,
                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const unsigned*>(x), static_cast<unsigned*>(y), M, N,
+        static_cast<const Word*>(x), static_cast<Word*>(y), M, N,
         tiles_m, tiles_n);
   }
   return static_cast<int>(cudaGetLastError());

@@ -2,9 +2,10 @@
 
 For a CPU tensor each wrapper returns the plain version (``ref.py``); for a
 CUDA tensor it launches the kernel or raises.  Launches are counted in
-``transpose2d.launches`` and ``transpose2d_batched.launches``.  The
-reference wrappers' padding to a block multiple is not carried over: the
-kernel checks the ragged edges itself.
+``transpose2d.launches`` and ``transpose2d_batched.launches``; a bf16
+launch (the same kernel over 2-byte elements) also in
+``variant_launches["bf16"]``.  The reference wrappers' padding to a block
+multiple is not carried over: the kernel checks the ragged edges itself.
 """
 from __future__ import annotations
 
@@ -15,13 +16,17 @@ from repro_torch.kernels.transpose.ref import (transpose2d_batched_ref,
                                                transpose2d_ref)
 
 
-def _launch(name: str, x: torch.Tensor, B: int, M: int, N: int,
+def _launch(wrapper, x: torch.Tensor, B: int, M: int, N: int,
             out_shape) -> torch.Tensor:
-    dev = _build.require_cuda_f32(name, x)
+    name = wrapper.__name__
+    dev, variant = _build.require_cuda_storage(name, x)
     y = torch.empty(out_shape, device=x.device, dtype=x.dtype)
-    err = _build.library().transpose_forward(
+    err = _build.entry("transpose_forward", variant)(
         x.data_ptr(), y.data_ptr(), B, M, N, _build.stream_of(dev))
     _build.check(name, err)
+    wrapper.launches += 1
+    if variant:
+        wrapper.variant_launches[variant] += 1
     return y
 
 
@@ -32,9 +37,7 @@ def transpose2d(x: torch.Tensor) -> torch.Tensor:
     if _build.on_cpu("transpose2d", x):
         return transpose2d_ref(x)
     M, N = x.shape
-    y = _launch("transpose2d", x, 1, M, N, (N, M))
-    transpose2d.launches += 1
-    return y
+    return _launch(transpose2d, x, 1, M, N, (N, M))
 
 
 def transpose2d_batched(x: torch.Tensor) -> torch.Tensor:
@@ -45,10 +48,10 @@ def transpose2d_batched(x: torch.Tensor) -> torch.Tensor:
     if _build.on_cpu("transpose2d_batched", x):
         return transpose2d_batched_ref(x)
     B, M, N = x.shape
-    y = _launch("transpose2d_batched", x, B, M, N, (B, N, M))
-    transpose2d_batched.launches += 1
-    return y
+    return _launch(transpose2d_batched, x, B, M, N, (B, N, M))
 
 
 transpose2d.launches = 0
 transpose2d_batched.launches = 0
+transpose2d.variant_launches = {"bf16": 0}
+transpose2d_batched.variant_launches = {"bf16": 0}

@@ -6,7 +6,8 @@ roofline seconds per (fused op, layout, dtype).
 
   * ``hardware``    -- the ``Hardware`` profile that holds every device
                        input of the model; ``default_hardware()`` is the
-                       H100's, ``hardware_id()`` names the silicon;
+                       H100's, ``reference_hardware()`` the reference's
+                       TPU v5e model, ``hardware_id()`` names the silicon;
   * ``traffic``     -- the analytic byte/seconds models (conv chains,
                        stacks, backward, cast edges);
   * ``calibration`` -- the paper's (Ct, Nt) thresholds, the Fig. 4 sweep
@@ -17,7 +18,7 @@ roofline seconds per (fused op, layout, dtype).
                        (``AnalyticCostModel``, ``CalibratedCostModel``).
 """
 from repro_torch.perfmodel.hardware import (  # noqa: F401
-    Hardware, default_hardware, hardware_id)
+    Hardware, default_hardware, hardware_id, reference_hardware)
 from repro_torch.perfmodel.traffic import (  # noqa: F401
     DEFAULT_DTYPE_BYTES, STACK_NT_CANDIDATES, ConvCost, cast_bytes,
     cast_cost, chain_bytes, chain_fits, conv_backward_bytes,

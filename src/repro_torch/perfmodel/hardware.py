@@ -109,6 +109,37 @@ def default_hardware() -> Hardware:
         stack_gate="smem")
 
 
+# The JAX package's device model (a TPU v5e chip): its peak rate and
+# memory bandwidth (``repro/launch/mesh.py``), the lane and sublane tiling,
+# the 256-byte coalescing span and the stack footprint budget
+# (``repro/perfmodel/traffic.py``), copied: the port imports nothing of it
+TPU_V5E_BF16_FLOPS = 197e12         # per chip
+TPU_V5E_HBM_BW = 819e9              # bytes/s per chip
+TPU_LANES = 128
+TPU_SUBLANES = ((4, 8), (2, 16), (1, 32))
+TPU_STACK_BUDGET = 14 * (1 << 20)   # bytes of VMEM a stack's tile may take
+
+
+@functools.lru_cache(maxsize=None)
+def reference_hardware() -> Hardware:
+    """The reference's own device profile: the JAX package's cost model
+    of a TPU v5e, with its stack gate (a staged-tile footprint under a
+    fixed budget, row-blocked as ``traffic.stack_blocking``, the port's
+    copy of the reference's geometry).  Under it the port's planner makes
+    the reference's plans, field for field; the card runs such a plan (the
+    packaged plans are made so).  One shared, immutable instance."""
+    return Hardware(
+        name="reference (TPU v5e model)",
+        peak_flops=tuple((b, TPU_V5E_BF16_FLOPS) for b in (4, 2, 1)),
+        mem_bw=TPU_V5E_HBM_BW,
+        minor=tuple((b, TPU_LANES) for b in (4, 2, 1)),
+        second_minor=TPU_SUBLANES,
+        co_block=TPU_LANES,
+        span_bytes=TPU_LANES * 2,
+        stack_gate="budget",
+        stack_budget=TPU_STACK_BUDGET)
+
+
 def hardware_id(device=None) -> str:
     """Identity of the silicon a measurement ran on: the CUDA device's
     name, or ``"cpu"``.  ``device`` defaults to the CUDA device when there

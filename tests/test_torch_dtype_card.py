@@ -3,10 +3,12 @@
 K1 and K2 in bf16 and with int8 input (float32 or bf16 weights), K5a and
 K4 in bf16, each against its plain version on the same card inputs, at
 edge shapes: N and Co not multiples of 8 or 16, odd widths, pools, the
-residual in the other layout, src/dst folds.  Then what no kernel takes
-yet: a bf16 tensor reaching K3, K5b, K6, K7 or K9, a bf16 training step,
-and any (x, w) pair outside ``_build.CONV_VARIANTS`` raise ``TypeError``
-naming the kernel; nothing falls back to a plain version.
+residual in the other layout, src/dst folds.  Then what no kernel takes:
+a bf16 tensor reaching K8, float16 or mixed dtypes reaching the kernels
+that take bf16 (K3, K5b, K6, K7, K9: their bf16 builds are held in
+``tests/test_torch_bf16_train_card.py``), a bf16 training step fed a
+float32 input, and any (x, w) pair outside ``_build.CONV_VARIANTS`` raise
+``TypeError`` naming the kernel; nothing falls back to a plain version.
 
 Every test needs a CUDA device and ``nvcc`` and skips with the reason
 where either is missing.  No jax, no reference package:
@@ -36,7 +38,7 @@ from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref
 from repro_torch.kernels.pool.backward import (pool_backward_chwn,
                                                pool_backward_nchw)
 from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw
-from repro_torch.kernels.softmax.ops import softmax
+from repro_torch.kernels.softmax.ops import softmax, softmax_xent
 from repro_torch.kernels.softmax.ref import softmax_ref
 from repro_torch.kernels.transpose.ops import transpose2d
 
@@ -202,29 +204,33 @@ def test_k4_bf16_matches_plain(rows, cols, offset, card):
 
 
 def test_kernels_without_bf16_raise(card):
-    bf = torch.bfloat16
-    x = torch.randn(4, 8, 8, 3, device=card, dtype=bf)    # CHWN
-    xn = torch.randn(3, 4, 8, 8, device=card, dtype=bf)   # NCHW
+    bf, hf = torch.bfloat16, torch.float16
+    with pytest.raises(TypeError, match="softmax_xent"):
+        softmax_xent(torch.randn(4, 10, device=card, dtype=bf),
+                     torch.zeros(4, dtype=torch.int64, device=card))
+    # the kernels that take bf16 take neither float16 nor mixed dtypes
+    x = torch.randn(4, 8, 8, 3, device=card, dtype=hf)    # CHWN
+    xn = torch.randn(3, 4, 8, 8, device=card, dtype=hf)   # NCHW
     with pytest.raises(TypeError, match="pool_chwn"):
         pool_chwn(x, 2, 2)
     with pytest.raises(TypeError, match="pool_nchw"):
         pool_nchw(xn, 2, 2)
     with pytest.raises(TypeError, match="conv_stack_nchw"):
-        conv_ops.conv_stack_nchw(xn, torch.randn(5, 4, 3, 3, device=card,
-                                                 dtype=bf),
+        conv_ops.conv_stack_nchw(xn.to(bf), torch.randn(5, 4, 3, 3,
+                                                        device=card),
                                  torch.randn(6, 5, 3, 3, device=card,
                                              dtype=bf), 1, 1, 1, 1)
     with pytest.raises(TypeError, match="conv_wgrad"):
-        conv_wgrad(xn, torch.randn(3, 6, 6, 6, device=card, dtype=bf), 3,
+        conv_wgrad(xn.to(bf), torch.randn(3, 6, 6, 6, device=card), 3,
                    x_layout="NCHW", g_layout="NCHW")
-    g = torch.randn(4, 4, 4, 3, device=card, dtype=bf)
+    g = torch.randn(4, 4, 4, 3, device=card)
     with pytest.raises(TypeError, match="pool_backward_chwn"):
-        pool_backward_chwn(x, g, 2, 2)
+        pool_backward_chwn(x.to(bf), g, 2, 2)
     with pytest.raises(TypeError, match="pool_backward_nchw"):
         pool_backward_nchw(xn, torch.randn(3, 4, 4, 4, device=card,
-                                           dtype=bf), 2, 2)
+                                           dtype=hf), 2, 2)
     with pytest.raises(TypeError, match="transpose2d"):
-        transpose2d(torch.randn(8, 8, device=card, dtype=bf))
+        transpose2d(torch.randn(8, 8, device=card, dtype=hf))
 
 
 def test_conv_kernels_refuse_other_pairs(card):
@@ -253,11 +259,14 @@ def test_conv_kernels_refuse_other_pairs(card):
 
 
 def test_bf16_training_raises(card):
+    """A bf16 training step takes a bf16 input (its plan's dtype); fed a
+    float32 one, the first conv refuses the (float32 x, bf16 w) pair
+    rather than fall back (bf16 steps run: test_torch_bf16_train_card.py)."""
     cfg = CNN_CONFIGS["lenet"].replace(batch=4)
     plan = plan_network_fused(cfg, dtype="bf16")
     params = params_from_numpy(init_cnn(cfg, 0), card, "bf16")
     x = torch.randn(4, cfg.in_channels, cfg.image_hw, cfg.image_hw,
-                    device=card, dtype=torch.bfloat16)
+                    device=card)
     labels = torch.zeros(4, dtype=torch.int64, device=card)
     step = make_train_step_fused(cfg, plan)
     with pytest.raises(TypeError,

@@ -1,10 +1,11 @@
 """The port's cost model (``repro_torch.perfmodel``) against the reference's.
 
-Under a ``Hardware`` profile built from the reference's own constants
-(``reference_hardware``: the v5e peak and bandwidth of
-``repro.launch.mesh``, the lane/sublane tiling, coalescing span and stack
-budget of ``repro.perfmodel.traffic``, the geometry of
-``repro.kernels.conv.ops.stack_blocking``) every byte and seconds model
+Under the reference's own device profile (``repro_torch.perfmodel.
+reference_hardware``: the port's copy of the v5e peak and bandwidth of
+``repro.launch.mesh`` and the lane/sublane tiling, coalescing span and
+stack budget of ``repro.perfmodel.traffic``, held against them here; the
+stacks row-blocked by ``repro.kernels.conv.ops.stack_blocking``, the
+port's copy of it held against it too) every byte and seconds model
 equals the reference's exactly, on the Table-1 layers and on the conv
 layers of every network in ``CNN_CONFIGS``; so do ``calibrate``,
 ``cross_validate`` with a fake measure, ``CalibratedCostModel`` and
@@ -39,26 +40,17 @@ from repro_torch.configs.paper_table1 import ConvLayer
 from repro_torch.core.selector import plan_fused
 from repro_torch.kernels.conv.ops import stack_tiling
 from repro_torch.perfmodel import traffic
+from repro_torch.perfmodel.hardware import reference_hardware
 
 DTYPE_BYTES = (4, 2, 1)
 
 
-def reference_hardware() -> pm.Hardware:
-    """The reference's device, as a port profile, from its own constants."""
-    return pm.Hardware(
-        name="reference (TPU v5e model)",
-        peak_flops=tuple((b, PEAK_FLOPS_BF16) for b in DTYPE_BYTES),
-        mem_bw=HBM_BW,
-        minor=tuple((b, ref_traffic.LANES) for b in DTYPE_BYTES),
-        second_minor=tuple(sorted(ref_traffic._SUBLANES.items())),
-        co_block=ref_traffic.LANES,
-        span_bytes=ref_traffic.LANES * 2,
-        stack_gate="budget",
-        stack_budget=ref_traffic.STACK_VMEM_BUDGET,
-        stack_blocking=ref_stack_blocking)
-
-
-REF_HW = reference_hardware()
+# the reference's device as a port profile (``reference_hardware``, its
+# constants copied into the port), row-blocking stacks with the
+# reference's own ``stack_blocking``; the port's copy of that geometry is
+# held against it below
+REF_HW = dataclasses.replace(reference_hardware(),
+                             stack_blocking=ref_stack_blocking)
 
 
 def port_layer(l: RefConvLayer) -> ConvLayer:
@@ -86,6 +78,13 @@ def test_the_reference_profile_is_the_reference_constants():
     assert REF_HW.peak(2) == PEAK_FLOPS_BF16 and REF_HW.mem_bw == HBM_BW
     for db in DTYPE_BYTES:
         assert REF_HW.second_minor_granule(db) == ref_traffic.sublanes(db)
+        assert REF_HW.minor_granule(db) == ref_traffic.LANES
+        assert REF_HW.peak(db) == PEAK_FLOPS_BF16
+    assert REF_HW.co_block == ref_traffic.LANES
+    assert REF_HW.span_bytes == 2 * ref_traffic.LANES
+    assert REF_HW.stack_gate == "budget"
+    assert REF_HW.stack_budget == ref_traffic.STACK_VMEM_BUDGET
+    assert reference_hardware().stack_blocking is None  # the port's copy
     # an element size no profile prices raises, as the reference's does
     for hw in (REF_HW, None):
         with pytest.raises(ValueError, match="dtype_bytes=8"):
@@ -209,7 +208,7 @@ def test_stack_models_match_reference(db):
 
 
 def test_the_port_copy_of_stack_blocking_prices_like_the_reference():
-    own = dataclasses.replace(REF_HW, stack_blocking=None)
+    own = reference_hardware()   # the port's copy of the blocking
     for ref_l1, ref_l2 in NET_PAIRS:
         l1, l2 = port_layer(ref_l1), port_layer(ref_l2)
         for lay in ("CHWN", "NCHW"):

@@ -1,0 +1,138 @@
+#!/usr/bin/env python3
+"""Time one storage variant of a kernel against variants of its source,
+over that variant's launches on ``chip_smoke.py``'s main path, on one CUDA
+card.
+
+    python3 tools/storage_variants.py KERNEL.VARIANT [SOURCE.cu ...]
+
+KERNEL.VARIANT names a row of the smoke's kernels line (``wgrad.bf16``,
+``conv_stack_nchw.bf16``, ``pool_backward_chwn.bf16``, ...).  Its cases
+are every distinct launch of that row on the bf16 training path
+(``chip_smoke.plan_train_launches`` of ``BF16_TRAINED``) and the dtype
+phase's served plans (``fused_launches`` of ``DTYPE_SERVED``), with the
+launches each makes.  Each SOURCE stands in for the checkout's source of
+that entry point: it is compiled by nvcc with the variant's flag
+(``-DREPRO_VARIANT_<VARIANT>``) into a library of its own, and its entry
+point is swapped in for the checkout's.  The checkout's build and the
+sources run in turns (checkout, sources, sources reversed, checkout);
+each case is held against its plain version as the smoke holds it
+(``chip_smoke.dtype_case``), and the ms summed over each network's
+launches (a case's ms times its launches) is printed beside the library
+call's.  Needs a CUDA device and nvcc.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import sys
+import tempfile
+from collections import Counter
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO / "src"))
+sys.path.insert(0, str(REPO))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+
+
+def main_path_cases(name: str) -> Counter:
+    """{(network, case): launches} of kernels-line row ``name``."""
+    cases = Counter()
+    for network, batch, profile in cs.BF16_TRAINED:
+        cfg, plan = cs.bf16_train_plan(network, batch, profile)
+        for kern, case in cs.plan_train_launches(cfg, plan):
+            if kern == name:
+                cases[(network, case)] += cs.BF16_TRAIN_STEPS
+    for network, bucket, policy, stack in cs.DTYPE_SERVED:
+        cfg, plan = cs.dtype_plan(network, bucket, policy, stack)
+        for kern, case in cs.fused_launches(cfg, plan):
+            if kern == name:
+                cases[(network, case)] += 1
+    return cases
+
+
+# a kernels-line row's wrapper -> the C entry point it launches
+_ENTRY = {"conv_chwn": "conv_chwn_forward", "conv_nchw": "conv_nchw_forward",
+          "conv_stack_chwn": "conv_stack_chwn_forward",
+          "conv_stack_nchw": "conv_stack_nchw_forward",
+          "wgrad": "wgrad_forward", "softmax": "softmax_forward",
+          "pool_chwn": "pool_chwn_forward", "pool_nchw": "pool_nchw_forward",
+          "pool_backward_chwn": "pool_backward_chwn",
+          "pool_backward_nchw": "pool_backward_nchw",
+          "transpose2d": "transpose_forward",
+          "transpose2d_batched": "transpose_forward"}
+
+
+def entry_of(name: str, variant: str):
+    """(C entry point, the checkout's source defining it) of row
+    ``name``."""
+    entry = _ENTRY[name.split(".")[0]]
+    for rel in _build.VARIANTS[variant][0]:
+        src = _build._KERNELS_DIR / rel
+        if f"REPRO_ENTRY({entry})" in src.read_text():
+            return entry, src
+    raise SystemExit(f"no {variant} build defines {entry}")
+
+
+def build(src: Path, variant: str, entry: str, include: Path, out: Path):
+    """The entry point of ``src`` built for ``variant``."""
+    so = out / f"{src.stem}_{variant}.so"
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
+                    f"-DREPRO_VARIANT_{variant.upper()}", "-I", str(include),
+                    "-shared", "-o", str(so), str(src)], check=True)
+    fn = getattr(ctypes.CDLL(str(so)), f"{entry}_{variant}")
+    fn.argtypes = _build.SIGNATURES[entry]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def timed(name: str, cases: Counter, dev) -> Counter:
+    tot = Counter()
+    with torch.inference_mode():
+        for i, ((network, case), n) in enumerate(cases.items()):
+            m = cs.dtype_case(name, case, dev, i)
+            tot[network] += n * m["ms"]
+            tot[f"{network} library"] += n * m["library_ms"]
+    return tot
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("name", help="a kernels-line row, KERNEL.VARIANT")
+    ap.add_argument("sources", nargs="*", type=Path)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("storage_variants: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    variant = args.name.split(".")[1]
+    entry, checkout_src = entry_of(args.name, variant)
+    cases = main_path_cases(args.name)
+    print(f"{args.name}: {len(cases)} distinct launches, "
+          f"{sum(cases.values())} on the main path; {cs.card_line()}")
+    own = _build.entry(entry, variant)
+    with tempfile.TemporaryDirectory() as tmp:
+        fns = {"checkout": own}
+        for src in args.sources:
+            fns[str(src)] = build(src, variant, entry, checkout_src.parent,
+                                  Path(tmp))
+        order = ["checkout"] + [str(s) for s in args.sources]
+        for label in order + order[::-1]:
+            _build._entries[variant][entry] = fns[label]
+            tot = timed(args.name, cases, dev)
+            print(f"{label}: " + ", ".join(f"{k} {v:.3f} ms"
+                                           for k, v in tot.items()),
+                  flush=True)
+        _build._entries[variant][entry] = own
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
