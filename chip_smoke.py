@@ -82,7 +82,12 @@
    variant that only the calibration launches (K2 in bf16, K1 and K2 on
    int8 x with float32 w; their kernels-line launches are the
    calibration's, their times the one case's) and of K2 on int8 x with
-   bf16 w (no path launches it: 0 launches).
+   bf16 w (no path launches it: 0 launches).  K1's bf16 and int8->bf16
+   builds and K5a's bf16 build (the bf16 tensor cores) run each case
+   three times, bitwise equal; K5a bf16 also counts the FLOPs its blocks
+   execute and the cluster they ran in, which must equal
+   ``stack_tiling``'s, and prints how many of its clusters the card holds
+   (``stack_max_clusters`` of the bf16 build).
 4. Planner phase, the main path's planned part: the paper's Fig. 4 on the
    card (K1 and K2 timed by the card measure with CUDA events over its
    whole grid: Ci 1-512 at N 64, then N 16-512 at Ci 256; Co 384, 13 x 13,
@@ -1143,6 +1148,24 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         t = stack_tiling(engine, N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2,
                          pool)
         m.update(executed_flops=float(t.executed_flops), cluster=t.cluster)
+        if engine == "CHWN":
+            # K5a bf16 counts what its blocks execute and the cluster they
+            # ran in, as the float32 build does; its runs are bitwise equal
+            y, counted, cluster = conv_stack_chwn_counted(
+                x, w1k, w2k, S1, P1, S2, P2, **kw)
+            check(y, conv_stack_ref(x, w1, w2, S1, P1, S2, P2, **kw))
+            if counted != t.executed_flops or cluster != t.cluster:
+                raise AssertionError(
+                    f"{kern} {case}: the kernel executed {counted} FLOPs in "
+                    f"clusters of {cluster}; stack_tiling says "
+                    f"{t.executed_flops} in clusters of {t.cluster}")
+            bitwise_runs(lambda: wrapper(x, w1k, w2k, S1, P1, S2, P2, **kw),
+                         f"{kern} {case}", first=y)
+            m.update(counted_flops=float(counted), counted_cluster=cluster,
+                     bitwise_equal_runs=3,
+                     resident_clusters=stack_max_clusters(
+                         N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2, pool,
+                         t, dtype=wdt))
         return m
     engine = "CHWN" if base == "conv_chwn" else "NCHW"
     if case[0] == "dgrad":
@@ -1212,7 +1235,19 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                  check=check)
     if base == "conv_chwn":
         _k1_tile(m, case, N, Ci, H, Co, F, S, pad, pool)
+        if wdt is torch.bfloat16:   # the narrow builds' runs: bitwise equal
+            bitwise_runs(kernel, f"{kern} {case}")
+            m["bitwise_equal_runs"] = 3
     return m
+
+
+def bitwise_runs(fn, what: str, first=None, runs: int = 3) -> None:
+    """``runs`` outputs of ``fn()`` (``first`` the first, if given) bit for
+    bit equal: a kernel that sums in a fixed order."""
+    want = fn() if first is None else first
+    for _ in range(runs - 1):
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"{what}: two runs differ")
 
 
 def host_us(fn, reps: int = 500) -> float:
@@ -1861,6 +1896,12 @@ def kernel_phase(dev):
                 extra += (f" executed/direct="
                           f"{m['executed_flops'] / m['flops']:.3f} "
                           f"cluster={m['cluster']}")
+            if "counted_cluster" in m:
+                extra += (f" counted_GFLOP={m['counted_flops'] / 1e9:.2f} "
+                          f"counted_cluster={m['counted_cluster']} "
+                          f"resident_clusters={m['resident_clusters']}")
+            if "bitwise_equal_runs" in m:
+                extra += f" bitwise_equal_runs={m['bitwise_equal_runs']}"
             if "device_ms" in m:
                 extra = f" device_ms={m['device_ms']:.5f}"
         elif kern in ("conv_chwn", "conv_nchw"):

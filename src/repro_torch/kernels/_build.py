@@ -97,6 +97,7 @@ VARIANTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
                       "pool/csrc/pool.cu", "pool/csrc/pool_backward.cu",
                       "transpose/csrc/transpose.cu"),
              _CONV_ENTRIES + ("conv_stack_chwn_forward",
+                              "conv_stack_chwn_max_clusters",
                               "conv_stack_nchw_forward", "wgrad_forward",
                               "softmax_forward", "pool_chwn_forward",
                               "pool_nchw_forward", "pool_backward_chwn",

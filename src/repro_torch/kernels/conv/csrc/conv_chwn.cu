@@ -11,17 +11,14 @@
 // Storage dtypes (csrc/storage.cuh): x float32, bf16 or int8, w (and bias,
 // residual, y) float32 or bf16, the (x, w) pairs ops.py admits; int8 x
 // holds per-channel quantized values whose scale the caller folded into w.
-// The producers widen a narrow operand to float32 on its way into the ring:
-// register loads instead of cp.async.  Where both operands are narrow (bf16
-// x bf16, int8 x bf16) a producer thread keeps its share of the next two
-// slices as raw bits in registers, loads in flight, while it widens and
-// stores the current one, so two slices' loads overlap as cp.async's ring
-// overlaps them; int8 x with float32 w (the calibration's int8 row) loads
-// x element by element and copies w by cp.async.  Everything after
-// that is float32,
-// and y is rounded once where it is stored.  A bf16 or int8 operand is exact
-// in TF32, so the 3xTF32 products that read its small part drop out: one
-// product a term for bf16 x bf16 and int8 x bf16, two for int8 x float32.
+// Where w is bf16 (bf16 x, int8 x) the narrow kernel below runs: a bf16
+// ring and bf16 products on the tensor cores, summed in fp32 (its own note
+// says how).  int8 x with float32 w (the calibration's int8 row) runs the
+// float32 kernel: x loaded element by element and widened on its way into
+// the float32 ring, w copied by cp.async; an int8 value is exact in TF32,
+// so the 3xTF32 product that reads its small part drops out (two products
+// a term).  Everything after the products is float32, and y is rounded
+// once where it is stored.
 // z (save_act, training) is stored in y's type, rounded once as y is: the
 // reference saves it in the output dtype (its odt), so a bf16 conv saves
 // bf16 z and the activation memory halves.  The pool then reads the
@@ -332,57 +329,6 @@ conv_chwn_kernel(const K1Args<TX, TW> a) {
             }
           });
     };
-    if constexpr (kAExact && kBExact) {
-      // both operands narrow: slice sl's raw bits are loaded two slices
-      // ahead of its store (fetch), then widened into the ring (put)
-      Raw4<TX> pa[BK / 8], pb[BK / 8];
-      Raw4<TW> wa[APT], wb[APT];
-      auto fetch = [&](int sl, Raw4<TX> (&rp)[BK / 8], Raw4<TW> (&rw)[APT]) {
-        walk(
-            sl,
-            [&](int i, const TX* p, const bool (&v)[4], bool vec) {
-              if (vec)
-                load_raw4(rp[i], p + xb[0]);
-              else
-                pack_raw4(rp[i], raw1(p + xb[0], v[0]),
-                          raw1(p + xb[1], v[1]), raw1(p + xb[2], v[2]),
-                          raw1(p + xb[3], v[3]));
-            },
-            [&](int i, const TW* src, bool kin, int co) {
-              if (kin && a.vec_w && co + 3 < a.Co)
-                load_raw4(rw[i], src);
-              else
-                pack_raw4(rw[i], raw1(src, kin && co < a.Co),
-                          raw1(src + 1, kin && co + 1 < a.Co),
-                          raw1(src + 2, kin && co + 2 < a.Co),
-                          raw1(src + 3, kin && co + 3 < a.Co));
-            });
-      };
-      auto put = [&](int sl, const Raw4<TX> (&rp)[BK / 8],
-                     const Raw4<TW> (&rw)[APT]) {
-        float* As = smem + (sl % kStages) * STAGE;
-        float* Bs = As + BK * SA;
-#pragma unroll
-        for (int i = 0; i < BK / 8; ++i)
-          *reinterpret_cast<float4*>(prow_at(Bs, i)) = widen4(rp[i]);
-#pragma unroll
-        for (int i = 0; i < APT; ++i)
-          *reinterpret_cast<float4*>(wchunk_at(As, i)) = widen4(rw[i]);
-      };
-      if (nsl > 0) fetch(0, pa, wa);
-      if (nsl > 1) fetch(1, pb, wb);
-      for (int sl = 0; sl < nsl; ++sl) {
-        if (sl >= kStages) bar_sync(empty_bar(sl % kStages), kThreads);
-        put(sl, pa, wa);
-        bar_arrive(full_bar(sl % kStages), kThreads);
-#pragma unroll
-        for (int i = 0; i < BK / 8; ++i) pa[i] = pb[i];
-#pragma unroll
-        for (int i = 0; i < APT; ++i) wa[i] = wb[i];
-        if (sl + 2 < nsl) fetch(sl + 2, pb, wb);
-      }
-      return;
-    }
 #pragma unroll
     for (int s = 0; s < kStages - 1; ++s) {
       if (s < nsl) stage(s);
@@ -615,6 +561,417 @@ cudaError_t launch(const K1Args<TX, TW>& a, int blocks, int smem,
   return cudaGetLastError();
 }
 
+// ---- the narrow builds: bf16 w with bf16 or int8 x, on bf16 tensor cores ---
+//
+// Instantiated only by the bf16 and int8->bf16 builds (forward below).  The
+// block tile, the producer/consumer split, the FULL/EMPTY hand-off, the
+// passes and the whole epilogue are the float32 kernel's; what differs is
+// the ring and the products.  The ring holds bf16: a stage is a 64-deep
+// slice (kNBK, four k16 steps: the bytes of the float32 kernel's 32-deep
+// one) of w ([k][co]) and P ([k][column]), each row of 16-byte chunks
+// XOR-swizzled by the row (mma.cuh::swz), so the 8 rows one ldmatrix reads
+// lie in 8 bank groups.  Both operands are MN-major (co, column fastest);
+// ldmatrix.trans turns them into the m16n8k16 fragments, and the bf16
+// products (exact in fp32) are summed in fp32 on the tensor cores, each
+// 64-deep slice from zero in the mma registers and then added to fp32
+// registers (an unflushed chain over K 4608 and 6400 held the bf16 gate on
+// the card too: tools/chain_accuracy.py).
+//
+// Producers fill a chunk of 8 columns of a P row by one 16-byte cp.async
+// where the 8 are 8 consecutive, 16-byte-aligned, in-range elements of x (a
+// run of n in CHWN with N a multiple of 8: every CHWN launch of the main
+// path), by a zero-filling one where none is in range, and else element by
+// element through registers, packed into bf16 pairs and stored as 16 bytes
+// (the padding halo's edge, ragged N, an NCHW source, strided 1x1 taps).
+// int8 x is widened to bf16 in registers (exact: |q| <= 127): a run of 8 is
+// one 8-byte load, issued before the producer waits for its stage to be
+// free, so the wait hides it.  A w chunk (8 output channels) is one 16-byte
+// cp.async where Co % 8 == 0 and all 8 are below Co, else elements.
+//
+// What bounds it: by its work, operations, at the bf16 tensor cores' 989
+// TFLOP/s; as built, its producers: each slice's copies are issued by 256
+// threads that compute their own addresses, and timed alone (consumers
+// that multiply nothing) they take most of the kernel's time, while
+// halving the bytes they move barely changes it (PERF.md, Findings;
+// tools/storage_variants.py --timing-only).  TMA, which computes the
+// addresses in hardware, and wgmma are the next step.
+constexpr int kNBK = 64;            // reduction slice, the flush length
+constexpr int kNRows = kNBK / 16;   // P rows of a producer thread
+
+__host__ __device__ constexpr int narrow_ring_bytes(int bm) {
+  return kStages * kNBK * (bm + BN) * 2;
+}
+
+template <typename TX, int BM, bool POOL>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_chwn_narrow_kernel(const K1Args<TX, bf16> a) {
+  constexpr bool kI8 = std::is_same<TX, int8_t>::value;
+  constexpr int STAGE = kNBK * (BM + BN);  // bf16 elements of a stage
+  constexpr int SB = BN + kRowPad;         // float row stride of the sums
+  constexpr int WM = BM / 32;   // consumer warps along co, 32 rows each
+  constexpr int WN = 8 / WM;    // consumer warps along the columns
+  constexpr int WTN = BN / WN;  // columns per consumer warp
+  constexpr int NT = WTN / 8;   // m16n8 tiles per consumer warp
+  constexpr int WCH = BM / 8;   // 16-byte chunks of a w row
+  constexpr int WPT = kNBK * WCH / kProducers;  // w chunks per producer
+  static_assert(WM * WN == 8 && NT % 2 == 0 && WPT >= 1, "tile");
+  extern __shared__ __align__(128) unsigned char smem_n[];
+  bf16* const ring = reinterpret_cast<bf16*>(smem_n);
+  __shared__ int colofs[3][BN];  // no pool: y, res, z offset of a column
+
+  const Tile t = make_tile(a);
+  const int co0 = blockIdx.y * BM;
+  const int kslices = (a.K + kNBK - 1) / kNBK;
+  const int passes = (t.C + BN - 1) / BN;
+  const int nsl = passes * kslices;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroups: every slice's copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    const int q = pt % 16, row0 = pt / 16;  // P: 8-column chunk, first row
+    const int FF = a.F * a.F;
+    int cur = -1;  // the pass whose columns xb/ih/iw describe
+    // this thread's 8 columns: x offset and first input row and column of
+    // each (ih far out of range past the tile's last column)
+    int xb[8], ih[8], iw[8];
+    // the 8 are 8 consecutive elements of x at one input position (a run
+    // of n): one bounds test covers them
+    bool cont = false;
+    // (ci, dy, dx) of this thread's P rows row0 + 16 i in the next slice,
+    // stepped by kNBK in the mixed radix (Ci, F, F)
+    int kci[kNRows], kdy[kNRows], kdx[kNRows];
+    const int sci = kNBK / FF, sdy = (kNBK - sci * FF) / a.F;
+    const int sdx = kNBK - sci * FF - sdy * a.F;
+    auto stage = [&](int sl) {
+      const int pass = sl / kslices, k0 = (sl - pass * kslices) * kNBK;
+      if (k0 == 0) {  // a pass starts over at k = 0
+#pragma unroll
+        for (int i = 0; i < kNRows; ++i) {
+          const int k = row0 + 16 * i, ci = k / FF, rem = k - ci * FF;
+          kci[i] = ci;
+          kdy[i] = rem / a.F;
+          kdx[i] = rem - kdy[i] * a.F;
+        }
+      }
+      if (pass != cur) {  // this thread's 8 columns of the new pass
+        cur = pass;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = pass * BN + 8 * q + j;
+          int n = 0, oh = 0, ow = 0;
+          const bool ok = c < t.C;
+          if (ok) column(a, t, c, n, oh, ow);
+          ih[j] = ok ? oh * a.S - a.pad : -0x40000000;
+          iw[j] = ow * a.S - a.pad;
+          xb[j] = n * a.xs.n + (oh * a.S - a.pad) * a.xs.h + iw[j] * a.xs.w;
+        }
+        cont = a.vec_x;
+#pragma unroll
+        for (int j = 1; j < 8; ++j)
+          cont = cont && xb[j] == xb[0] + j && ih[j] == ih[0] &&
+                 iw[j] == iw[0];
+      }
+      // each P row's x offset (ko) and its columns in range (bits 0-7;
+      // bit 8: a whole aligned run of 8), then, for int8, the run's load
+      int ko[kNRows];
+      unsigned vm[kNRows];
+      uint2 raw[kNRows];
+#pragma unroll
+      for (int i = 0; i < kNRows; ++i) {
+        const int k = k0 + row0 + 16 * i;
+        const int dy = kdy[i], dx = kdx[i];
+        ko[i] = kci[i] * a.xs.c + dy * a.xs.h + dx * a.xs.w;
+        // on to the next slice's k
+        kdx[i] += sdx;
+        if (kdx[i] >= a.F) {
+          kdx[i] -= a.F;
+          ++kdy[i];
+        }
+        kdy[i] += sdy;
+        if (kdy[i] >= a.F) {
+          kdy[i] -= a.F;
+          ++kci[i];
+        }
+        kci[i] += sci;
+        unsigned m = 0;
+        if (cont) {
+          if (k < a.K &&
+              static_cast<unsigned>(ih[0] + dy) < static_cast<unsigned>(a.H) &&
+              static_cast<unsigned>(iw[0] + dx) < static_cast<unsigned>(a.W))
+            m = ((xb[0] + ko[i]) & 7) == 0 ? 0x1ffu : 0xffu;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            m |= static_cast<unsigned>(
+                     k < a.K &&
+                     static_cast<unsigned>(ih[j] + dy) <
+                         static_cast<unsigned>(a.H) &&
+                     static_cast<unsigned>(iw[j] + dx) <
+                         static_cast<unsigned>(a.W))
+                 << j;
+        }
+        vm[i] = m;
+        if constexpr (kI8) {
+          if (m & 0x100u)
+            raw[i] = __ldg(reinterpret_cast<const uint2*>(a.x + xb[0] + ko[i]));
+        }
+      }
+      if (sl >= kStages) bar_sync(empty_bar(sl % kStages), kThreads);
+      bf16* As = ring + (sl % kStages) * STAGE;
+      bf16* Bs = As + kNBK * BM;
+#pragma unroll
+      for (int i = 0; i < kNRows; ++i) {
+        bf16* d = Bs + swz<BN>(row0 + 16 * i, q);
+        const TX* p = a.x + ko[i];
+        if (vm[i] == 0) {
+          cp16(d, a.x, false);
+        } else if (vm[i] & 0x100u) {
+          if constexpr (kI8)
+            *reinterpret_cast<uint4*>(d) = bf16x8(raw[i]);
+          else
+            cp16(d, p + xb[0], true);
+        } else {
+          unsigned e[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const bool v = (vm[i] >> j) & 1u;
+            e[j] = bf16_bits(v ? p + xb[j] : a.x, v);
+          }
+          *reinterpret_cast<uint4*>(d) =
+              make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16),
+                         e[4] | (e[5] << 16), e[6] | (e[7] << 16));
+        }
+      }
+      // w: chunk e of the [kNBK][BM] slice, co fastest
+#pragma unroll
+      for (int i = 0; i < WPT; ++i) {
+        const int e = pt + kProducers * i;
+        const int r = e / WCH, cq = e - r * WCH;
+        const int k = k0 + r, co = co0 + 8 * cq;
+        bf16* d = As + swz<BM>(r, cq);
+        const bf16* src = a.w + static_cast<long long>(k) * a.Co + co;
+        if (k >= a.K || co >= a.Co) {
+          cp16(d, a.w, false);
+        } else if (a.vec_w && co + 7 < a.Co) {
+          cp16(d, src, true);
+        } else {
+          unsigned v[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            v[j] = bf16_bits(co + j < a.Co ? src + j : a.w, co + j < a.Co);
+          *reinterpret_cast<uint4*>(d) =
+              make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16),
+                         v[4] | (v[5] << 16), v[6] | (v[7] << 16));
+        }
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < nsl) stage(s);
+      cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      cp_wait<kStages - 2>();  // slice sl has landed: announce it
+      bar_arrive(full_bar(sl % kStages), kThreads);
+      const int nx = sl + kStages - 1;
+      if (nx < nsl) stage(nx);  // waits for the stage to be free
+      cp_commit();
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: the products and the epilogue ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  if (!POOL && tid < t.C) {  // y, res and z offsets of column tid (n, oh, ow)
+    int n, oh, ow;
+    column(a, t, tid, n, oh, ow);
+    colofs[0][tid] = n * a.ys.n + oh * a.ys.h + ow * a.ys.w;
+    colofs[1][tid] = n * a.rs.n + oh * a.rs.h + ow * a.rs.w;
+    colofs[2][tid] = n * a.zs.n + oh * a.zs.h + ow * a.zs.w;
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;
+  // the row (k) and 16-byte chunk of this lane's ldmatrix.trans address: A
+  // matrices (co 0-7, k 0-7), (co 8-15, k 0-7), (co 0-7, k 8-15), (co 8-15,
+  // k 8-15); B (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15,
+  // n 8-15)
+  const int ar = (lane & 7) + ((lane >> 4) << 3), ac = (lane >> 3) & 1;
+  const int br = (lane & 7) + (((lane >> 3) & 1) << 3), bc = lane >> 4;
+  // their swizzled offsets in a stage: a k16 step adds 16 rows, which
+  // leaves the row's XOR term (row mod 8) as it is
+  int aoff[2], boff[NT / 2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+    aoff[mt] = swz<BM>(ar, (wm * 32 + mt * 16) / 8 + ac);
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np)
+    boff[np] = swz<BN>(br, (wn * WTN + np * 16) / 8 + bc);
+  float* sums = reinterpret_cast<float*>(smem_n);  // no pool: over the ring
+  float* tile = reinterpret_cast<float*>(smem_n + narrow_ring_bytes(BM));
+  int sl = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int cvalid = min(BN, t.C - pass * BN);  // columns of this pass
+    const bool busy = wn * WTN < cvalid;  // the warp holds a column
+    float total[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) total[mt][nt][e] = 0.f;
+    for (int ks = 0; ks < kslices; ++ks, ++sl) {
+      const int buf = sl % kStages;
+      bar_sync(full_bar(buf), kThreads);
+      if (busy) {
+        const bf16* As = ring + buf * STAGE;
+        const bf16* Bs = As + kNBK * BM;
+        // every k16 step, those past K too (zero-filled): no branch
+        // between the steps' fragment loads and products
+        float acc[2][NT][4];
+#pragma unroll
+        for (int kk = 0; kk < kNBK / 16; ++kk) {
+          unsigned af[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            ldsm_x4_t(af[mt], As + aoff[mt] + 16 * kk * BM);
+#pragma unroll
+          for (int nt = 0; nt < NT; nt += 2) {
+            unsigned bq[4];
+            ldsm_x4_t(bq, Bs + boff[nt / 2] + 16 * kk * BN);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              // the chain's first product (kk == 0) starts from zero
+              if (kk == 0) {
+                mma_bf16_z(acc[mt][nt], af[mt], bq[0], bq[1]);
+                mma_bf16_z(acc[mt][nt + 1], af[mt], bq[2], bq[3]);
+              } else {
+                mma_bf16(acc[mt][nt], af[mt], bq[0], bq[1]);
+                mma_bf16(acc[mt][nt + 1], af[mt], bq[2], bq[3]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) total[mt][nt][e] += acc[mt][nt][e];
+      }
+      // the stage is free for the producers (they wait only for the
+      // stages they refill)
+      if (sl + kStages < nsl) bar_arrive(empty_bar(buf), kThreads);
+    }
+
+    // the pass's sums into the conv tile: accumulator e of (mt, nt) is
+    // channel wm*32 + mt*16 + g + 8 (e >= 2), column nt*8 + 2 tq + (e & 1)
+    // of the warp's
+    if (!POOL) bar_sync(kPoolBar, kConsumers);  // the ring is read no more
+    float* T = POOL ? tile + pass * BN : sums;
+    const int ts = POOL ? a.cs : SB;
+    if (busy) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int cl = wn * WTN + nt * 8 + 2 * tq;
+        if (cl >= cvalid) continue;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          float* r = T + (wm * 32 + mt * 16 + g) * ts + cl;
+          *reinterpret_cast<float2*>(r) =
+              make_float2(total[mt][nt][0], total[mt][nt][1]);
+          *reinterpret_cast<float2*>(r + 8 * ts) =
+              make_float2(total[mt][nt][2], total[mt][nt][3]);
+        }
+      }
+    }
+  }
+  bar_sync(kPoolBar, kConsumers);
+  const int mrows = min(BM, a.Co - co0);
+
+  // the float32 kernel's epilogue, from here on as it is there
+  if (!POOL) {
+    const int npos = (a.ys.n != 1 && BN % a.N == 0) ? BN / a.N : 0;
+    for (int e = tid; e < mrows * BN; e += kConsumers) {
+      const int m = e / BN, j = e - m * BN;
+      const int c = npos ? (j % npos) * a.N + j / npos : j;
+      if (c >= t.C) continue;
+      const int co = co0 + m;
+      float v = sums[m * SB + c];
+      if (a.bias) v += ld(a.bias + co);
+      if (a.res)
+        v += ld(a.res + colofs[1][c] + static_cast<long long>(co) * a.rs.c);
+      if (a.relu) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+      put(a.y + colofs[0][c] + static_cast<long long>(co) * a.ys.c, v);
+      if (a.z)
+        put(a.z + colofs[2][c] + static_cast<long long>(co) * a.zs.c, v);
+    }
+    return;
+  }
+  const bool last_h = t.ph0 + t.pht == a.UH, last_w = t.pw0 + t.pwt == a.UW;
+  for (int e = tid; e < mrows * t.C; e += kConsumers) {
+    const int m = e / t.C, c = e - m * t.C;
+    const int co = co0 + m;
+    float* p = tile + m * a.cs + c;
+    float v = *p;
+    if (a.bias) v += ld(a.bias + co);
+    if (a.res || a.z) {
+      const int nl = c % t.nbt, r = c / t.nbt;
+      const int rw = r % t.rwt, rh = r / t.rwt;
+      const long long n = t.n0 + nl;
+      const int oh = t.oh0 + rh, ow = t.ow0 + rw;
+      if (a.res)
+        v += ld(a.res + n * a.rs.n + static_cast<long long>(co) * a.rs.c +
+                oh * a.rs.h + ow * a.rs.w);
+      if (a.relu) v = v < 0.f ? 0.f : v;
+      if (a.z && (rh < t.pht * a.pS || last_h) && rh % a.pS < a.pF &&
+          (rw < t.pwt * a.pS || last_w) && rw % a.pS < a.pF)
+        put(a.z + n * a.zs.n + static_cast<long long>(co) * a.zs.c +
+                oh * a.zs.h + ow * a.zs.w,
+            v);
+    } else if (a.relu) {
+      v = v < 0.f ? 0.f : v;
+    }
+    *p = v;
+  }
+  bar_sync(kPoolBar, kConsumers);
+  const int outs = t.pht * t.pwt * t.nbt;
+  const float area = static_cast<float>(a.pF * a.pF);
+  for (int e = tid; e < mrows * outs; e += kConsumers) {
+    const int m = e / outs;
+    int r = e - m * outs;
+    const int nl = r % t.nbt;
+    r /= t.nbt;
+    const int pwl = r % t.pwt, phl = r / t.pwt;
+    const float* row = tile + m * a.cs;
+    float acc = a.pool_avg ? 0.f : -INFINITY;
+    for (int i = 0; i < a.pF; ++i)
+      for (int j = 0; j < a.pF; ++j) {
+        const float v =
+            row[((phl * a.pS + i) * t.rwt + pwl * a.pS + j) * t.nbt + nl];
+        acc = a.pool_avg ? acc + v : nan_max(acc, v);
+      }
+    put(a.y + static_cast<long long>(t.n0 + nl) * a.ys.n +
+            static_cast<long long>(co0 + m) * a.ys.c +
+            (t.ph0 + phl) * a.ys.h + (t.pw0 + pwl) * a.ys.w,
+        a.pool_avg ? acc / area : acc);
+  }
+}
+
+template <int BM, bool POOL, typename TX>
+cudaError_t launch_narrow(const K1Args<TX, bf16>& a, int blocks, int smem,
+                          cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_chwn_narrow_kernel<TX, BM, POOL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks, (a.Co + BM - 1) / BM);
+  conv_chwn_narrow_kernel<TX, BM, POOL><<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename TX, typename TW>
 int forward(const void* x, const void* w, const void* bias, const void* res,
             void* y, void* z, int N, int Ci, int H, int W, int Co, int F,
@@ -637,14 +994,19 @@ int forward(const void* x, const void* w, const void* bias, const void* res,
   a.xs = repro::layout_strides(src_nchw, N, Ci, H, W);
   a.rs = repro::layout_strides(res_nchw, N, Co, a.Ho, a.Wo);
   a.zs = repro::layout_strides(false, N, Co, a.Ho, a.Wo);
-  a.vec_x = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  a.vec_w = reinterpret_cast<uintptr_t>(w) % 16 == 0 && Co % 4 == 0;
+  // the narrow builds copy 8 elements at a time: 16 bytes of bf16 (8 of
+  // int8 x, loaded into registers)
+  constexpr bool kNarrow = std::is_same<TW, bf16>::value;
+  a.vec_x = reinterpret_cast<uintptr_t>(x) % (kNarrow ? 8 * sizeof(TX) : 16) ==
+            0;
+  a.vec_w = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+            Co % (kNarrow ? 8 : 4) == 0;
   const long long cols = static_cast<long long>(N) * a.Ho * a.Wo;
   if (cols >= 0x7fffffffLL - BN) return static_cast<int>(cudaErrorInvalidValue);
   a.cols = static_cast<int>(cols);
   const bool pool = pool_F > 0;
   long long blocks;
-  int smem = 4 * ring_floats(bm);
+  int smem = kNarrow ? narrow_ring_bytes(bm) : 4 * ring_floats(bm);
   if (pool) {
     a.UH = (a.Ho - pool_F) / pool_S + 1;
     a.UW = (a.Wo - pool_F) / pool_S + 1;
@@ -672,12 +1034,20 @@ int forward(const void* x, const void* w, const void* bias, const void* res,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nblk = static_cast<int>(blocks);
   cudaError_t e;
-  if (bm == 64)
+  if constexpr (kNarrow) {
+    if (bm == 64)
+      e = pool ? launch_narrow<64, true>(a, nblk, smem, st)
+               : launch_narrow<64, false>(a, nblk, smem, st);
+    else
+      e = pool ? launch_narrow<128, true>(a, nblk, smem, st)
+               : launch_narrow<128, false>(a, nblk, smem, st);
+  } else if (bm == 64) {
     e = pool ? launch<64, true>(a, nblk, smem, st)
              : launch<64, false>(a, nblk, smem, st);
-  else
+  } else {
     e = pool ? launch<128, true>(a, nblk, smem, st)
              : launch<128, false>(a, nblk, smem, st);
+  }
   return static_cast<int>(e);
 }
 

@@ -6,14 +6,15 @@
 // shared memory and never written to device memory.  x is [Ci,H,W,N] or
 // [N,Ci,H,W]; w1 is [Ci,F1,F1,Cm], w2 [Cm,F2,F2,Co]; y is [Co,Ho',Wo',N] or
 // [N,Co,Ho',Wo'] (Ho', Wo' after the pool); the residual is read in its own
-// layout, before the ReLU.  fp32 FMA on the CUDA cores (no TF32).
+// layout, before the ReLU.  The float32 build runs fp32 FMA on the CUDA
+// cores (no TF32).
 //
 // Storage dtypes (csrc/storage.cuh): x, w1, w2, the biases, the residual
-// and y all float32 or all bf16.  A bf16 operand is widened to float32 on
-// its way into shared memory (a register load instead of cp.async); the
-// mid activation stays float32 (it never leaves the SM, so it is never
-// rounded to the storage type, as in the reference's kernel), and y is
-// rounded once where it is stored.
+// and y all float32 or all bf16.  The bf16 build runs its own kernel on the
+// bf16 tensor cores (cluster_stack_bf16_kernel below, whose note says how);
+// in both the mid activation stays float32 (it never leaves the SM, so it
+// is never rounded to the storage type, as in the reference's kernel), and
+// y is rounded once where it is stored.
 //
 // What bounds it on an H100: operations.  At AlexNet's conv3 -> conv4
 // (N = 128, 256 -> 384 -> 384, 13x13) both convs are far above the fp32
@@ -583,6 +584,496 @@ cluster_stack_kernel(const ClusterArgs<E> p) {
   }
 }
 
+// ---- the bf16 build: both convs on the bf16 tensor cores -------------------
+//
+// Instantiated only by the bf16 build (launch below).  The cluster, the
+// chunks of kCM mid channels, the float32 mid slab and its exchange through
+// distributed shared memory, the tiles and every count are the float32
+// kernel's, and so is the epilogue; the products and the rings differ.  The
+// rings lie inside the float32 kernel's ring (smem_bytes is the same).
+//
+//   phase A (conv1): bf16 x and w1 in a 4-stage ring of k16 slices (three
+//     slices of loads in flight), each row of 16-byte chunks XOR-swizzled
+//     by the row (mma.cuh::swz); w1 [k][cm] and the x gather [k][position]
+//     are both MN-major, so ldmatrix.trans forms the m16n8k16 fragments.  A
+//     pass is a [64 x 128] (or [64 x 64]) GEMM, eight warps of 32 x 32 (32
+//     x 16), the bf16 products (exact in fp32) summed in fp32 on the tensor
+//     cores in one chain over K1 (K1 <= 2304 on the networks: at most 144
+//     k16 steps, inside what K1's narrow build was measured to hold
+//     unflushed; its source note).  Bias1 and ReLU in fp32; the mid slab
+//     stays float32.  x runs of 8 positions (a
+//     run of n: CHWN x, N and nb multiples of 8) arrive by 16-byte cp.async,
+//     w1 rows of 8 mid channels too; anything else element by element,
+//     stored as bf16 halfwords.
+//   phase B (conv2): the reference reads the mid at float32, so each mid
+//     value m enters as three bf16 parts, hi = bf16(m), md = bf16(m - hi),
+//     lo = bf16(m - hi - md), whose sum is m exactly (24 significand bits),
+//     and a term is three bf16 products (lo, md, hi) with the exact bf16 w2.
+//     w2 [k][co] arrives in a 3-stage bf16 ring of k16 slices (16-byte
+//     cp.async where Co % 8 == 0); the mid tile, gathered from the slab one
+//     slice ahead, stays float32 ([k][column], rows 4 mod 32 floats apart),
+//     and each lane splits its B values into the three bf16 fragments after
+//     two float2 loads a k pair.  A warp owns 64 x 32 of the bm x bn tile (4
+//     x 4 m16n8 tiles); its chain runs over one chunk (64 x F2 x F2 terms,
+//     three products each: 108 k16 products for a 3 x 3 conv2) and is then
+//     added to fp32 registers.  GEMM column g of a pair of n tiles is shared
+//     column 2g (first tile) and 2g + 1 (second), so one float2 holds both
+//     tiles' values.
+//
+// What bounds it: operations, at the bf16 tensor cores' 989 TFLOP/s, three
+// products a conv2 term and one a conv1 term (mma.sync m16n8k16, 256
+// threads that both copy and multiply); conv2 dominates wherever Cm*F2*F2
+// is long (VGG16's pairs: 576 against conv1's 27 or 576).
+// Both phases step k16 a slice.  Their global loads run ahead of the
+// products: phase A's w1 and x slices in a ring of kNS1 (three slices
+// ahead), phase B's w2 in a ring of kNS2 (two ahead); phase B's mid tile,
+// gathered from shared memory, one ahead.
+constexpr int kNBK = 16;   // a slice: one k16 step
+constexpr int kNS1 = 4;    // phase A's ring
+constexpr int kNS2 = 3;    // phase B's w2 ring
+
+template <int GM>
+struct NShape {
+  static constexpr int TBM = 64 * GM, TBN = kTile / TBM;
+  static constexpr int SB2 = TBN + 4;  // float row stride of the mid tile
+  // byte offsets in the ring: phase A's w1 and x slices, phase B's w2
+  // slices and two mid tiles
+  static constexpr int B1 = kNS1 * kNBK * kCM * 2;
+  static constexpr int RING_A = B1 + kNS1 * kNBK * kPassMax * 2;
+  static constexpr int B2 = kNS2 * kNBK * TBM * 2;
+  static constexpr int RING_B = B2 + 2 * kNBK * SB2 * 4;
+  static_assert(RING_A <= 4 * CShape<GM>::RING &&
+                    RING_B <= 4 * CShape<GM>::RING,
+                "the bf16 rings fit the float32 kernel's");
+};
+
+// (x0, x1) as three bf16 pairs (element 0 in the low half) that sum to them
+// exactly: hi, the rest md, the rest lo
+__device__ __forceinline__ void split3(float x0, float x1, unsigned& hi,
+                                       unsigned& md, unsigned& lo) {
+  hi = mma::pack_bf16(x0, x1);
+  const float r0 = x0 - storage::lo_bf16(hi), r1 = x1 - storage::hi_bf16(hi);
+  md = mma::pack_bf16(r0, r1);
+  lo = mma::pack_bf16(r0 - storage::lo_bf16(md), r1 - storage::hi_bf16(md));
+}
+
+// 8 bf16 from src into a 16-byte chunk: by cp.async where run (all 8 there,
+// src 16-byte aligned), zeros where n == 0, else element by element (the
+// first n of the 8)
+__device__ __forceinline__ void chunk8(storage::bf16* dst,
+                                       const storage::bf16* src, int n,
+                                       bool run) {
+  if (n <= 0) {
+    mma::cp16(dst, src, false);
+  } else if (run) {
+    mma::cp16(dst, src, true);
+  } else {
+    unsigned v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = storage::bf16_bits(src + j, j < n);
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16),
+                   v[4] | (v[5] << 16), v[6] | (v[7] << 16));
+  }
+}
+
+// One conv1 pass of the bf16 build's phase A: the [kCM x KRA] GEMM of mid
+// positions [p0, p0 + KRA) (clipped to this rank's range [p_lo, p_hi))
+// over K1, bias1 and ReLU, into the slab.
+template <int KRA>
+__device__ __forceinline__ void conv1_pass_bf16(
+    const ClusterArgs<storage::bf16>& p, const Tile& t, unsigned char* ring,
+    float* mid, int p0, int p_lo, int p_hi, int cm0, int cmn, int tid) {
+  using storage::bf16;
+  constexpr int NTA = KRA / 32;    // n8 tiles of a warp (2 x 4 warps)
+  constexpr int XCH = KRA / 8;     // 16-byte chunks of an x row
+  constexpr int SPT = kNBK * KRA / kThreads;   // x elements a thread
+  const StackArgs<bf16>& a = p.s;
+  bf16* As1 = reinterpret_cast<bf16*>(ring);
+  bf16* Bs1 = reinterpret_cast<bf16*>(ring + NShape<1>::B1);
+  const int nsl = (a.K1 + kNBK - 1) / kNBK;
+  // x: runs, chunk xq of row xr (positions p0 + 8 xq ..), threads below
+  // kNBK * XCH; else the elements of position tid % KRA, rows tid / KRA +
+  // (kThreads / KRA) i
+  const int xq = tid % XCH, xr = tid / XCH;
+  const int pp = p.vec_x ? p0 + 8 * xq : p0 + tid % KRA;
+  int nl, mhl, mwl;
+  {
+    const int rr = pp < p_hi ? pp : p_lo;
+    nl = rr % t.NBc;
+    const int q = rr / t.NBc;
+    mwl = q % t.MWc;
+    mhl = q / t.MWc;
+  }
+  const bool pok = pp < p_hi;
+  const bf16* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
+  const int ih0 = (t.mh_lo + mhl) * a.S1 - a.P1;
+  const int iw0 = (t.mw_lo + mwl) * a.S1 - a.P1;
+  const KIdx dk1 = kidx(kNBK, a.F1);
+  KIdx xk = kidx(xr, a.F1);  // runs: (c, dy, dx) of this thread's row
+  auto issue = [&](int s) {
+    const int k0 = s * kNBK, buf = s % kNS1;
+    bf16* as = As1 + buf * kNBK * kCM;
+    bf16* bs = Bs1 + buf * kNBK * KRA;
+    if (tid < kNBK * (kCM / 8)) {  // w1: kNBK rows of 8 chunks
+      const int r = tid >> 3, cq = tid & 7, k = k0 + r, m = 8 * cq;
+      chunk8(as + mma::swz<kCM>(r, cq),
+             k < a.K1 && m < cmn ? a.w1 + (long long)k * a.w1K + cm0 + m
+                                 : a.w1,
+             k < a.K1 ? cmn - m : 0, p.vec_w1 && m + 8 <= cmn);
+    }
+    if (p.vec_x) {
+      if (tid < kNBK * XCH) {
+        const int h = ih0 + xk.dy, w = iw0 + xk.dx;
+        const bool ok = pok && k0 + xr < a.K1 && h >= 0 && h < a.H &&
+                        w >= 0 && w < a.W;
+        mma::cp16(bs + mma::swz<KRA>(xr, xq),
+                  ok ? xcol + xk.c * a.xs.c + h * a.xs.h + w * a.xs.w : a.x,
+                  ok);
+        kadvance(xk, dk1, a.F1);
+      }
+    } else {
+      const int pc = tid % KRA;
+#pragma unroll
+      for (int i = 0; i < SPT; ++i) {
+        const int kk = tid / KRA + (kThreads / KRA) * i;
+        const int k = k0 + kk;
+        const KIdx q = kidx(k, a.F1);
+        const int h = ih0 + q.dy, w = iw0 + q.dx;
+        const bool ok = pok && k < a.K1 && h >= 0 && h < a.H && w >= 0 &&
+                        w < a.W;
+        reinterpret_cast<unsigned short*>(
+            bs)[mma::swz<KRA>(kk, pc >> 3) + (pc & 7)] =
+            static_cast<unsigned short>(storage::bf16_bits(
+                ok ? xcol + q.c * a.xs.c + h * a.xs.h + w * a.xs.w : a.x,
+                ok));
+      }
+    }
+  };
+
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;  // 32 mid channels, KRA/4 positions
+  const int ar = (lane & 7) + ((lane >> 4) << 3), ac = (lane >> 3) & 1;
+  const int br = (lane & 7) + (((lane >> 3) & 1) << 3), bc = lane >> 4;
+  int aoff[2], boff[NTA / 2];  // this lane's swizzled ldmatrix offsets
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+    aoff[mt] = mma::swz<kCM>(ar, (wm * 32 + mt * 16) / 8 + ac);
+#pragma unroll
+  for (int np = 0; np < NTA / 2; ++np)
+    boff[np] = mma::swz<KRA>(br, (wn * (KRA / 4) + np * 16) / 8 + bc);
+  float acc[2][NTA][4];  // the pass's sums: one chain over K1
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTA; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kNS1 - 1; ++s) {
+    if (s < nsl) issue(s);
+    cp_commit();
+  }
+  for (int s = 0; s < nsl; ++s) {
+    mma::cp_wait<kNS1 - 2>();
+    __syncthreads();  // slice s has landed; slice s-1 is consumed
+    if (s + kNS1 - 1 < nsl) issue(s + kNS1 - 1);
+    cp_commit();
+    const bf16* as = As1 + (s % kNS1) * kNBK * kCM;
+    const bf16* bs = Bs1 + (s % kNS1) * kNBK * KRA;
+    unsigned af[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma::ldsm_x4_t(af[mt], as + aoff[mt]);
+#pragma unroll
+    for (int nt = 0; nt < NTA; nt += 2) {
+      unsigned bq[4];
+      mma::ldsm_x4_t(bq, bs + boff[nt / 2]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma::mma_bf16(acc[mt][nt], af[mt], bq[0], bq[1]);
+        mma::mma_bf16(acc[mt][nt + 1], af[mt], bq[2], bq[3]);
+      }
+    }
+  }
+  // conv1's epilogue: bias, ReLU, into my range of the slab; accumulator e
+  // of (mt, nt) is mid channel wm*32 + mt*16 + g + 8 (e >= 2), position
+  // wn*KRA/4 + nt*8 + 2 tq + (e & 1)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cml = wm * 32 + mt * 16 + g + 8 * h;
+      if (cml >= cmn) continue;
+      const float b = a.b1 ? storage::ld(a.b1 + cm0 + cml) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NTA; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = p0 + wn * (KRA / 4) + nt * 8 + 2 * tq + e;
+          if (r >= p_hi) continue;
+          float v = acc[mt][nt][2 * h + e] + b;
+          if (a.relu1) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+          mid[cml * a.RSTR + r] = v;
+        }
+    }
+  __syncthreads();  // the next pass refills the ring
+}
+
+template <bool POOL, int GM>
+__global__ void __launch_bounds__(kThreads, 1)
+cluster_stack_bf16_kernel(const ClusterArgs<storage::bf16> p) {
+  using storage::bf16;
+  using S = NShape<GM>;
+  constexpr int TBM = S::TBM, TBN = S::TBN, SB2 = S::SB2;
+  constexpr int RPT_B = kNBK * TBN / kThreads;  // slab values a thread, B
+  constexpr int WCH2 = TBM / 8;                 // 16-byte chunks of a w2 row
+  constexpr int W2PT = (kNBK * WCH2 + kThreads - 1) / kThreads;
+  const StackArgs<bf16>& a = p.s;
+  extern __shared__ __align__(128) unsigned char smem_b[];
+  unsigned char* ring = smem_b;
+  // [kCM][RSTR] slab; later the pool tile: where the float32 kernel has it
+  float* mid = reinterpret_cast<float*>(smem_b) + CShape<GM>::RING;
+  bf16* As = reinterpret_cast<bf16*>(ring);              // [kNS2][16][TBM]
+  float* Bs = reinterpret_cast<float*>(ring + S::B2);    // [2][16][SB2]
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int CL = p.CL;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % GM, wn = warp / GM;  // 64 rows x 32 columns a warp
+  const int ar = (lane & 7) + ((lane >> 4) << 3), ac = (lane >> 3) & 1;
+  int aoff[4];  // this lane's swizzled ldmatrix offsets in a w2 slice
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+    aoff[mt] = mma::swz<TBM>(ar, (wm * 64 + mt * 16) / 8 + ac);
+  const Tile t = stack::make_tile(a);
+  const int rs_w = t.NBc, rs_h = t.NBc * t.MWc;
+  const int co0 = blockIdx.y * TBM;
+
+  const int RR = (((t.RA + CL - 1) / CL) + 63) & ~63;
+  const int p_lo = min(t.RA, rank * RR), p_hi = min(t.RA, p_lo + RR);
+  const int cB = tid % TBN, kkB0 = (tid / TBN) * RPT_B;
+  const SCol gb = scol(a, t, cB);
+  const int ohb = gb.oh * a.S2 - a.P2, owb = gb.ow * a.S2 - a.P2;
+  const int rbase = gb.nl + (ohb - t.mh_lo) * rs_h + (owb - t.mw_lo) * rs_w;
+
+  const KIdx dk2 = kidx(kNBK, a.F2);
+  const int F2sq = a.F2 * a.F2;
+  const int k16 = (a.K1 + kNBK - 1) / kNBK;  // conv1's slices
+  unsigned long long fma_count = 0;
+
+  float tot[4][4][4], chain[4][4][4];  // conv2 sums; this chunk's chain
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[mt][nt][e] = chain[mt][nt][e] = 0.f;
+
+  for (int cm0 = 0; cm0 < a.Cm; cm0 += kCM) {
+    const int cmn = min(kCM, a.Cm - cm0);
+    __syncthreads();  // local phase B is done with the ring and the slab
+    if (cm0 > 0) cluster_wait();  // and the other ranks with my share
+
+    // ---- phase A: my share of conv1 -> mid slab (cm0 .. cm0+cmn) --------
+    for (int p0 = p_lo; p0 < p_hi;) {
+      if (p_hi - p0 > 64) {
+        conv1_pass_bf16<128>(p, t, ring, mid, p0, p_lo, p_hi, cm0, cmn, tid);
+        fma_count += (unsigned long long)kCM * 128 * k16 * kNBK;
+        p0 += 128;
+      } else {
+        conv1_pass_bf16<64>(p, t, ring, mid, p0, p_lo, p_hi, cm0, cmn, tid);
+        fma_count += (unsigned long long)kCM * 64 * k16 * kNBK;
+        p0 += 64;
+      }
+    }
+
+    // ---- the other ranks' shares, through distributed shared memory -----
+    cluster.sync();  // every rank's share of this chunk is in its slab
+    for (int q = 0; q < CL; ++q) {
+      if (q == rank) continue;
+      const int lo = min(t.RA, q * RR), hi = min(t.RA, lo + RR);
+      const float* rem = cluster.map_shared_rank(mid, q);
+      if (((lo | hi) & 3) == 0) {
+        const int nq = (hi - lo) / 4;
+        for (int e = tid; e < cmn * nq; e += kThreads) {
+          const int c = e / nq, j = lo + 4 * (e - c * nq);
+          *reinterpret_cast<float4*>(mid + c * a.RSTR + j) =
+              *reinterpret_cast<const float4*>(rem + c * a.RSTR + j);
+        }
+      } else {
+        const int n = hi - lo;
+        for (int e = tid; e < cmn * n; e += kThreads) {
+          const int c = e / n, j = lo + (e - c * n);
+          mid[c * a.RSTR + j] = rem[c * a.RSTR + j];
+        }
+      }
+    }
+    cluster_arrive();  // done reading the other ranks' slabs
+    __syncthreads();   // the whole slab is here
+
+    // ---- phase B: conv2's (cm, dy, dx) terms of this chunk --------------
+    const int K2c = cmn * F2sq;
+    const long long k2base = (long long)cm0 * F2sq;
+    const int nsl2 = (K2c + kNBK - 1) / kNBK;
+    KIdx gk = kidx(kkB0, a.F2);  // (cm, dy, dx) of this thread's first row
+    // slice s of the mid tile, gathered from the slab straight into buffer
+    // buf (no registers held across the products)
+    auto gather = [&](int s) {
+      const int k0 = s * kNBK;
+      float* bs = Bs + (s & 1) * kNBK * SB2;
+      KIdx st = gk;
+      float rb[RPT_B];
+#pragma unroll
+      for (int kk = 0; kk < RPT_B; ++kk) {
+        const int mh = ohb + st.dy, mw = owb + st.dx;
+        // outside [0, Ho1) x [0, Wo1) is conv2's zero padding
+        const bool ok = gb.ok && k0 + kkB0 + kk < K2c && mh >= 0 &&
+                        mh < a.Ho1 && mw >= 0 && mw < a.Wo1;
+        rb[kk] = ok ? mid[st.c * a.RSTR + rbase + st.dy * rs_h +
+                          st.dx * rs_w]
+                    : 0.f;
+        kstep(st, a.F2);
+      }
+#pragma unroll
+      for (int kk = 0; kk < RPT_B; ++kk) bs[(kkB0 + kk) * SB2 + cB] = rb[kk];
+      kadvance(gk, dk2, a.F2);
+    };
+    auto issue_w2 = [&](int s) {
+      const int k0 = s * kNBK;
+      bf16* as = As + (s % kNS2) * kNBK * TBM;
+#pragma unroll
+      for (int i = 0; i < W2PT; ++i) {
+        const int e = tid + i * kThreads;
+        if (kNBK * WCH2 % kThreads != 0 && e >= kNBK * WCH2) break;
+        const int r = e / WCH2, cq = e - r * WCH2;
+        const int k = k0 + r, co = co0 + 8 * cq;
+        chunk8(as + mma::swz<TBM>(r, cq),
+               k < K2c && co < a.Co ? a.w2 + (k2base + k) * a.w2K + co : a.w2,
+               k < K2c ? a.Co - co : 0, p.vec_w2 && co + 8 <= a.Co);
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kNS2 - 1; ++s) {
+      if (s < nsl2) issue_w2(s);
+      cp_commit();
+    }
+    gather(0);
+    for (int s = 0; s < nsl2; ++s) {
+      const bool more = s + 1 < nsl2;
+      mma::cp_wait<kNS2 - 2>();
+      __syncthreads();  // slice s is staged; slice s-1 is consumed
+      if (s + kNS2 - 1 < nsl2) issue_w2(s + kNS2 - 1);
+      cp_commit();
+      if (more) gather(s + 1);
+      const bf16* as = As + (s % kNS2) * kNBK * TBM;
+      const float* bs = Bs + (s & 1) * kNBK * SB2;
+      unsigned af[4][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) mma::ldsm_x4_t(af[mt], as + aoff[mt]);
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        // k rows 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of shared columns 2g, 2g + 1
+        // of the pair: .x the first n tile's column g, .y the second's
+        const float* b = bs + (2 * tq) * SB2 + wn * 32 + 16 * pr + 2 * g;
+        const float2 r0 = *reinterpret_cast<const float2*>(b);
+        const float2 r1 = *reinterpret_cast<const float2*>(b + SB2);
+        const float2 r2 = *reinterpret_cast<const float2*>(b + 8 * SB2);
+        const float2 r3 = *reinterpret_cast<const float2*>(b + 9 * SB2);
+        unsigned hi[2][2], md[2][2], lo[2][2];  // [n tile][b0, b1]
+        split3(r0.x, r1.x, hi[0][0], md[0][0], lo[0][0]);
+        split3(r2.x, r3.x, hi[0][1], md[0][1], lo[0][1]);
+        split3(r0.y, r1.y, hi[1][0], md[1][0], lo[1][0]);
+        split3(r2.y, r3.y, hi[1][1], md[1][1], lo[1][1]);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float (&c)[4] = chain[mt][2 * pr + h];
+            mma::mma_bf16(c, af[mt], lo[h][0], lo[h][1]);
+            mma::mma_bf16(c, af[mt], md[h][0], md[h][1]);
+            mma::mma_bf16(c, af[mt], hi[h][0], hi[h][1]);
+          }
+      }
+      if (!more) {  // flush the chain: once a chunk
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              tot[mt][nt][e] += chain[mt][nt][e];
+              chain[mt][nt][e] = 0.f;
+            }
+      }
+    }
+    fma_count += (unsigned long long)TBM * TBN * nsl2 * kNBK;
+  }
+  cluster_wait();   // no rank reads my slab any more
+  __syncthreads();  // the pool tile overlays the slab
+
+  if (p.stats && tid == 0) {
+    atomicAdd(p.stats, 2ull * fma_count);
+    atomicMax(p.stats + 1, (unsigned long long)cluster.num_blocks());
+  }
+
+  // conv2's epilogue on the registers, as the float32 kernel's: bias,
+  // residual, ReLU; then store, or stage the tile (over the slab) for the
+  // pool.  Accumulator e of (mt, nt) is row wm*64 + mt*16 + g + 8 (e >= 2),
+  // column wn*32 + 16 (nt / 2) + 4 tq + 2 (e & 1) + (nt & 1).
+  constexpr int TSTR = TBN + 1;
+  float* Ts = mid;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int ce = 0; ce < 2; ++ce) {
+      const int c = wn * 32 + 16 * (nt / 2) + 4 * tq + 2 * ce + (nt & 1);
+      const SCol col = scol(a, t, c);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = wm * 64 + mt * 16 + g + 8 * h;
+          const int co = co0 + m;
+          if (!col.ok || co >= a.Co) continue;
+          float v = tot[mt][nt][2 * h + ce];
+          if (a.b2) v += storage::ld(a.b2 + co);
+          if (a.res)
+            v += storage::ld(a.res + (long long)col.n * a.rs.n +
+                             (long long)co * a.rs.c + col.oh * a.rs.h +
+                             col.ow * a.rs.w);
+          if (a.relu2) v = v < 0.f ? 0.f : v;
+          if (POOL)
+            Ts[m * TSTR + c] = v;
+          else
+            storage::put(a.y + (long long)col.n * a.ys.n +
+                             (long long)co * a.ys.c + col.oh * a.ys.h +
+                             col.ow * a.ys.w,
+                         v);
+        }
+    }
+  if (POOL) {
+    __syncthreads();
+    const float area = (float)(a.pF * a.pF);
+    for (int e = tid; e < TBM * a.BU; e += kThreads) {
+      const int m = e / a.BU, ul = e - m * a.BU;
+      const SCol col = scol(a, t, ul);  // tap 0 of unit ul
+      const int co = co0 + m;
+      if (!col.ok || co >= a.Co) continue;
+      float r = a.pool_avg ? 0.f : -INFINITY;
+      for (int tp = 0; tp < a.T; ++tp) {
+        const float v = Ts[m * TSTR + tp * a.BU + ul];
+        r = a.pool_avg ? r + v : nan_max(r, v);
+      }
+      storage::put(a.y + (long long)col.n * a.ys.n + (long long)co * a.ys.c +
+                       col.uh * a.ys.h + col.uw * a.ys.w,
+                   a.pool_avg ? r / area : r);
+    }
+  }
+}
+
 // dynamic shared memory of one block, in bytes (ops.py::stack_tiling
 // computes the same number)
 template <int GM>
@@ -599,7 +1090,12 @@ int launch(const ClusterArgs<E>& p, dim3 grid, cudaStream_t st,
            int* clusters) {
   const long long bytes = smem_bytes<GM>(p.s.RSTR, POOL);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = cluster_stack_kernel<E, POOL, GM>;
+  // the bf16 build runs its own kernel (on the bf16 tensor cores)
+  void (*kernel)(ClusterArgs<E>);
+  if constexpr (std::is_same<E, storage::bf16>::value)
+    kernel = cluster_stack_bf16_kernel<POOL, GM>;
+  else
+    kernel = cluster_stack_kernel<E, POOL, GM>;
   // a refused call leaves its error behind: clear it, so the next launch
   // does not report it
   auto fail = [](cudaError_t e) {
@@ -715,9 +1211,11 @@ int forward(const void* x, const void* w1, const void* b1, const void* w2,
   auto al16 = [](const void* q) {
     return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
   };
-  p.vec_x = !src_nchw && N % 4 == 0 && nb % 4 == 0 && al16(x);
-  p.vec_w1 = Cm % 4 == 0 && al16(w1);
-  p.vec_w2 = Co % 4 == 0 && al16(w2);
+  // runs of 4 float32 or 8 bf16 elements: 16 bytes
+  constexpr int kRun = 16 / static_cast<int>(sizeof(E));
+  p.vec_x = !src_nchw && N % kRun == 0 && nb % kRun == 0 && al16(x);
+  p.vec_w1 = Cm % kRun == 0 && al16(w1);
+  p.vec_w2 = Co % kRun == 0 && al16(w2);
   p.stats = static_cast<unsigned long long*>(stats);
   if (!clusters && (N <= 0 || Co <= 0 || a.UH <= 0 || a.UW <= 0))
     return static_cast<int>(cudaGetLastError());
@@ -752,18 +1250,17 @@ extern "C" int REPRO_ENTRY(conv_stack_chwn_forward)(
       bm, nb, uth, utw, cl, stats, stream, nullptr);
 }
 
-#ifndef REPRO_VARIANT  // the tile's occupancy is the same in every variant
-
 // How many clusters of the tile above can be resident on the device at once
-// (cudaOccupancyMaxActiveClusters), into *clusters.  Returns a cudaError_t.
-extern "C" int conv_stack_chwn_max_clusters(
+// (cudaOccupancyMaxActiveClusters of this build's kernel: the float32 and
+// the bf16 kernels differ in registers), into *clusters.  Returns a
+// cudaError_t.
+extern "C" int REPRO_ENTRY(conv_stack_chwn_max_clusters)(
     int N, int Ci, int H, int W, int Cm, int F1, int S1, int P1, int Co,
     int F2, int S2, int P2, int pool_F, int pool_S, int bm, int nb, int uth,
     int utw, int cl, int* clusters) {
   *clusters = 0;
-  return repro::stack_cluster::forward<float>(
+  return repro::stack_cluster::forward<REPRO_WT>(
       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, N, Ci,
       H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pool_F, pool_S, 0, 1, 1, 0, 0, 0,
       bm, nb, uth, utw, cl, nullptr, nullptr, clusters);
 }
-#endif

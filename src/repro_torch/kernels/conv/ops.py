@@ -67,6 +67,7 @@ _SMS = 132                # H100 SXM streaming multiprocessors
 # the design constants of csrc/conv_chwn.cu (K1)
 _K1_BN = 128              # GEMM columns of a pass
 _K1_BK = 32               # reduction slice
+_K1_NBK = 64              # reduction slice of the narrow (bf16 w) builds
 _K1_STAGES = 3            # cp.async ring depth
 _K1_PAD = 8               # shared row stride = width + 8 floats
 _K1_BMS = (64, 128)       # output channels of a block
@@ -173,6 +174,17 @@ def _k1_smem(bm: int, cmax: int) -> int:
     ring = _K1_STAGES * _K1_BK * (bm + _K1_PAD + _K1_BN + _K1_PAD)
     cs = -(-cmax // 32) * 32 + 8 if cmax else 0
     return 4 * (ring + bm * cs + 3 * _K1_BN)
+
+
+def k1_narrow_smem(bm: int, cmax: int) -> int:
+    """One block's shared memory in K1's narrow builds (bf16 w: the
+    ``conv_chwn_narrow_kernel`` of csrc/conv_chwn.cu): a ring of
+    ``_K1_STAGES`` bf16 stages, each a 64-deep slice of w [k][bm] and P
+    [k][128], then the float32 conv tile and the column table as the float32
+    kernel's.  Never more than ``_k1_smem``, which ``conv_tiling`` fits."""
+    ring = _K1_STAGES * _K1_NBK * (bm + _K1_BN) * 2
+    cs = -(-cmax // 32) * 32 + 8 if cmax else 0
+    return ring + 4 * (bm * cs + 3 * _K1_BN)
 
 
 def _spans(U: int, t: int) -> Tuple[Tuple[int, int], ...]:
@@ -758,15 +770,35 @@ class StackTiling:
     cluster: int = 1
 
 
+def _cluster_ring_bytes(bm: int) -> int:
+    """The ring of one K5a block (``CShape::RING`` floats in
+    csrc/conv_stack_chwn.cu): two slices of either phase."""
+    bn = _STACK_TILE // bm
+    return 4 * max(2 * _CL_BK * (_CL_CM + 4 + _CL_PASS),
+                   2 * _CL_BK * (bm + 4 + bn))
+
+
 def _cluster_smem_bytes(bm: int, rstr: int, pool: bool) -> int:
     """One K5a block's dynamic shared memory (``smem_bytes`` in
     csrc/conv_stack_chwn.cu): the double-buffered ring of both phases'
     slices, then the mid slab (or the pool tile over it)."""
     bn = _STACK_TILE // bm
-    ring = max(2 * _CL_BK * (_CL_CM + 4 + _CL_PASS),
-               2 * _CL_BK * (bm + 4 + bn))
     slab = max(_CL_CM * rstr, bm * (bn + 1) if pool else 0)
-    return 4 * (ring + slab)
+    return _cluster_ring_bytes(bm) + 4 * slab
+
+
+def k5a_bf16_ring_bytes(bm: int) -> int:
+    """The rings of K5a's bf16 build (``NShape`` in
+    csrc/conv_stack_chwn.cu): the larger of phase A's (four 16-deep bf16
+    slices of w1 [k][64] and of x [k][128]) and phase B's (three 16-deep
+    bf16 slices of w2 [k][bm], two float32 mid tiles [16][bn + 4]).  They
+    lie inside the float32 build's ring (``_cluster_ring_bytes``), so the
+    slab sits where it does there and a block's shared memory is the
+    float32 build's, which ``stack_tiling`` fits."""
+    bn = _STACK_TILE // bm
+    phase_a = 4 * 16 * _CL_CM * 2 + 4 * 16 * _CL_PASS * 2
+    phase_b = 3 * 16 * bm * 2 + 2 * 16 * (bn + 4) * 4
+    return max(phase_a, phase_b)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1248,13 +1280,16 @@ def conv_stack_nchw_counted(x: torch.Tensor, w1: torch.Tensor,
 def stack_max_clusters(N: int, Ci: int, H: int, W: int, Cm: int, F1: int,
                        S1: int, P1: int, Co: int, F2: int, S2: int, P2: int,
                        pool: Optional[Tuple[int, int, str]],
-                       tiling: StackTiling) -> int:
+                       tiling: StackTiling,
+                       dtype: torch.dtype = torch.float32) -> int:
     """How many of K5a's clusters at ``tiling`` the card holds at once
-    (``cudaOccupancyMaxActiveClusters``)."""
+    (``cudaOccupancyMaxActiveClusters``), for the build of ``dtype``
+    (float32 or bf16: their kernels differ in registers)."""
     n = ctypes.c_int(0)
     pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+    variant = _build.FLOAT_VARIANTS[dtype]
     _build.check("stack_max_clusters",
-                 _build.library().conv_stack_chwn_max_clusters(
+                 _build.entry("conv_stack_chwn_max_clusters", variant)(
                      N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pF, pS,
                      tiling.bm, tiling.nb, tiling.uth, tiling.utw,
                      tiling.cluster, ctypes.byref(n)))

@@ -1,7 +1,8 @@
 // The tensor-core and async-copy helpers of the port's Hopper kernels:
 // the weight gradient K6 (conv/csrc/wgrad.cu), flash attention K11
 // (flash_attention/csrc/flash_attention.cu), the direct CHWN conv K1
-// (conv/csrc/conv_chwn.cu), the NCHW conv K2 (conv/csrc/conv_nchw.cu),
+// (conv/csrc/conv_chwn.cu), the bf16 build of the CHWN stack K5a
+// (conv/csrc/conv_stack_chwn.cu), the NCHW conv K2 (conv/csrc/conv_nchw.cu),
 // the NCHW conv -> conv stack K5b
 // (conv/csrc/conv_stack_nchw.cu), the tiled matmul K10
 // (matmul/csrc/matmul.cu) and the fused unembed + cross entropy K12
@@ -117,6 +118,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d = a * b, the first product of a chain (no C operand to zero first)
+__device__ __forceinline__ void mma_bf16_z(float (&d)[4],
+                                           const unsigned (&a)[4],
+                                           unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
 }
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);

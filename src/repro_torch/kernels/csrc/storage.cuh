@@ -2,9 +2,8 @@
 // (conv/csrc/conv_chwn.cu) and K2 (conv/csrc/conv_nchw.cu) load float32,
 // bf16 or int8 x and float32 or bf16 w, the stack K5a
 // (conv/csrc/conv_stack_chwn.cu) and the softmax K4 (softmax/csrc/
-// softmax.cu) float32 or bf16.  Every one of them widens what it loads to
-// float32, computes in float32 and rounds once, to nearest even, where it
-// stores (put).
+// softmax.cu) float32 or bf16.  Every one of them sums in float32 and
+// rounds once, to nearest even, where it stores (put).
 //
 // A narrow source is compiled again for each storage variant
 // (kernels/_build.py: VARIANTS) with one of the flags below, which set the
@@ -13,14 +12,17 @@
 // entries.
 //
 // cp.async copies whole 4-, 8- or 16-byte words and has no widening form,
-// so a narrow element reaches the kernels' float32 shared-memory rings
-// through registers: copy4/copy2/copy1 move 4, 2 or 1 consecutive elements
-// into as many floats, by one cp.async for float32 (the kernels' existing
-// copies) and by one register load of 4 * sizeof(T), 2 * sizeof(T) or
-// sizeof(T) bytes, widened, then one shared store, for bf16 and int8.  The
-// alignment a float32 quad needs (its first element a multiple of 4 from a
+// so a narrow element reaches a float32 shared-memory ring through
+// registers: copy4/copy2/copy1 move 4, 2 or 1 consecutive elements into as
+// many floats, by one cp.async for float32 (the kernels' existing copies)
+// and by one register load of 4 * sizeof(T), 2 * sizeof(T) or sizeof(T)
+// bytes, widened, then one shared store, for bf16 and int8.  The alignment
+// a float32 quad needs (its first element a multiple of 4 from a
 // 16-byte-aligned base) is what a narrow quad needs too, so the kernels'
-// 16-byte conditions stand as they are.
+// 16-byte conditions stand as they are.  Where w is bf16, K1 and K5a keep
+// bf16 rings instead (16-byte cp.async of 8 elements; bf16_bits and bf16x8
+// for what arrives through registers) and multiply on the bf16 tensor
+// cores; their notes say how.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -147,6 +149,24 @@ __device__ __forceinline__ float4 widen4(const Raw4<bf16>& r) {
 __device__ __forceinline__ float4 widen4(const Raw4<int8_t>& r) {
   const int v = static_cast<int>(r.b);
   return make_float4(i8_at(v, 0), i8_at(v, 1), i8_at(v, 2), i8_at(v, 3));
+}
+
+// The bf16 bits of one element where ok, else 0: a bf16 as it is, an int8
+// widened (exact, |q| <= 127), for the narrow builds' bf16 rings (K1, K5a)
+__device__ __forceinline__ unsigned bf16_bits(const bf16* p, bool ok) {
+  return raw1(p, ok);
+}
+__device__ __forceinline__ unsigned bf16_bits(const int8_t* p, bool ok) {
+  return ok ? __float_as_uint(static_cast<float>(__ldg(p))) >> 16 : 0u;
+}
+// 8 int8 (bytes of r, element 0 lowest) as 8 bf16, two to a word
+__device__ __forceinline__ uint4 bf16x8(uint2 r) {
+  auto two = [](unsigned w, int i) {
+    return (__float_as_uint(i8_at(static_cast<int>(w), 2 * i)) >> 16) |
+           (__float_as_uint(i8_at(static_cast<int>(w), 2 * i + 1)) &
+            0xffff0000u);
+  };
+  return make_uint4(two(r.x, 0), two(r.x, 1), two(r.y, 0), two(r.y, 1));
 }
 
 // 4 consecutive elements into 4 floats (dst 16-byte aligned); ok == false

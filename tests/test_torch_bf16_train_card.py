@@ -47,7 +47,7 @@ from repro_torch.configs.cnn_networks import CNN_CONFIGS
 from repro_torch.core.layout import perm_between
 from repro_torch.kernels import _build
 from repro_torch.kernels.conv import ops as conv_ops
-from repro_torch.kernels.conv.backward import conv_wgrad
+from repro_torch.kernels.conv.backward import conv_wgrad, dgrad_problem
 from repro_torch.kernels.conv.ref import conv_ref, conv_stack_ref, wgrad_ref
 from repro_torch.kernels.pool import backward as pool_bwd
 from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw
@@ -257,6 +257,8 @@ SAVE_ACT_CASES = [
      "NCHW"),
     ("NCHW", 5, 20, 15, 33, 3, 1, 1, (2, 2, "avg"), False, "CHWN", "CHWN",
      "CHWN"),
+    ("CHWN", 32, 64, 16, 64, 3, 1, 1, (2, 2, "max"), True, None, "CHWN",
+     "NCHW"),
 ]
 
 
@@ -281,6 +283,33 @@ def test_save_act_z_bf16_matches_plain(case, card):
     assert y.dtype == z.dtype == BF
     assert_bf16_close(y, y_ref)
     assert_bf16_close(z, z_ref)
+
+
+# K1 bf16 dgrad (the stride-1 conv of the dilated gradient on the bf16
+# tensor cores): (N, Ci, H, Co, F, S, pad, g layout, dx layout) of the
+# forward conv: VGG16's 3x3, ResNet-18's 1x1/2 shortcut, AlexNet conv2's
+# 5x5 (K = 256 x 25 = 6400: the longest flushed reduction), ragged N
+DGRAD_CASES = [(8, 64, 16, 64, 3, 1, 1, "CHWN", "CHWN"),
+               (8, 64, 15, 128, 1, 2, 0, "CHWN", "NCHW"),
+               (8, 96, 13, 256, 5, 1, 2, "CHWN", "CHWN"),
+               (13, 24, 9, 40, 3, 2, 1, "NCHW", "CHWN")]
+
+
+@pytest.mark.parametrize("case", DGRAD_CASES)
+def test_k1_bf16_dgrad_matches_plain(case, card):
+    N, Ci, H, Co, F, S, pad, g_lay, dst = case
+    gen = torch.Generator(device=card).manual_seed(DGRAD_CASES.index(case))
+    Ho = conv_out_hw(H, F, S, pad)
+    g = _randn(g_lay, (N, Co, Ho, Ho), gen, card)
+    w = (torch.randn(Co, Ci, F, F, generator=gen, device=card)
+         / np.sqrt(Ci * F * F)).to(BF)
+    gd, wt, pd = dgrad_problem(g, w, (H, H), S, pad, g_lay)
+    wk = wt.permute(1, 2, 3, 0).contiguous()
+    got = _counted(conv_ops.conv_direct_chwn, lambda: conv_ops._conv(
+        "CHWN", gd, wk, 1, pd, src_layout=g_lay, dst_layout=dst))
+    assert got.dtype == BF
+    assert_bf16_close(got, conv_ref(gd, wt, 1, pd, src_layout=g_lay,
+                                    dst_layout=dst))
 
 
 # one bf16 training step per conv engine: the H100 planner makes lenet at

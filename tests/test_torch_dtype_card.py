@@ -184,6 +184,107 @@ def test_k5a_bf16_matches_plain_mid_float32(case, card):
     assert_bf16_close(got, want)
 
 
+# K1's narrow builds (bf16 and int8->bf16: the bf16 tensor cores), one
+# case per producer lane: (what, N, Ci, H, Co, F, S, pad, pool, src, dst)
+K1_LANE_CASES = [
+    ("N8-runs", 8, 16, 12, 64, 3, 1, 1, None, "CHWN", "CHWN"),
+    ("N32-runs-pool", 32, 24, 10, 96, 3, 1, 1, (2, 2, "max"), "CHWN",
+     "CHWN"),
+    ("N128-runs", 128, 8, 7, 128, 3, 1, 1, None, "CHWN", "NCHW"),
+    ("N13-ragged", 13, 16, 9, 40, 3, 1, 1, None, "CHWN", "CHWN"),
+    ("N130-ragged-pool", 130, 5, 6, 24, 3, 1, 1, (3, 2, "max"), "CHWN",
+     "CHWN"),
+    ("F11-S4-nchw-src-pool", 8, 3, 35, 96, 11, 4, 0, (3, 2, "max"), "NCHW",
+     "CHWN"),
+    ("1x1-S2", 16, 32, 15, 72, 1, 2, 0, None, "CHWN", "NCHW"),
+    ("Co100", 8, 40, 9, 100, 3, 1, 1, None, "CHWN", "CHWN"),
+    ("K5184-flush", 8, 576, 6, 64, 3, 1, 1, None, "CHWN", "CHWN"),
+    ("K6400-flush", 8, 256, 8, 72, 5, 1, 2, None, "CHWN", "CHWN"),
+]
+
+
+@pytest.mark.parametrize("variant", ["bf16", "i8bf16"])
+@pytest.mark.parametrize("case", K1_LANE_CASES,
+                         ids=[c[0] for c in K1_LANE_CASES])
+def test_k1_narrow_lanes_match_plain_and_repeat_bitwise(case, variant, card):
+    _, N, Ci, H, Co, F, S, pad, pool, src, dst = case
+    xdt, wdt = XW[variant]
+    gen = torch.Generator().manual_seed(200 + K1_LANE_CASES.index(case))
+    if xdt == torch.int8:
+        x = torch.randint(-127, 128, (N, Ci, H, H), generator=gen).float()
+        scale = 1.0 / 127
+    else:
+        x, scale = torch.randn(N, Ci, H, H, generator=gen), 1.0
+    w = torch.randn(Co, Ci, F, F, generator=gen) * scale / np.sqrt(
+        Ci * F * F)
+    b = torch.randn(Co, generator=gen)
+    kw = dict(bias=_on(b, card, dtype=wdt), relu=True, pool=pool,
+              src_layout=src, dst_layout=dst)
+    xs, wc = _on(x, card, src, xdt), _on(w, card, dtype=wdt)
+    wk = wc.permute(1, 2, 3, 0).contiguous()
+    wrapper = conv_ops.conv_direct_chwn
+    before = wrapper.variant_launches[variant]
+    got = wrapper(xs, wk, S, pad, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.variant_launches[variant] == before + 1
+    assert_bf16_close(got, conv_ref(xs, wc, S, pad, **kw))
+    for _ in range(2):
+        assert torch.equal(wrapper(xs, wk, S, pad, **kw), got)
+
+
+# K5a bf16: VGG16's conv1 pair (Ci 3) at reduced maps from either source,
+# Cm and Co off multiples of 16 (and of 8: element copies), clusters of 1,
+# 2, 3, 4 and 6 blocks
+# (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, src)
+K5A_BF16_CASES = [
+    (32, 3, 24, 64, 64, 3, 1, 1, 3, 1, 1, (2, 2, "max"), "CHWN"),
+    (16, 3, 40, 64, 64, 3, 1, 1, 3, 1, 1, (2, 2, "max"), "NCHW"),
+    (8, 16, 12, 36, 44, 3, 1, 1, 3, 1, 1, None, "CHWN"),
+    (16, 24, 10, 64, 200, 3, 1, 1, 3, 1, 1, None, "CHWN"),
+    (32, 32, 13, 96, 384, 3, 1, 1, 3, 1, 1, None, "CHWN"),
+    (24, 40, 9, 72, 130, 3, 1, 1, 3, 1, 1, (3, 2, "max"), "CHWN"),
+    (128, 64, 13, 64, 256, 3, 1, 1, 3, 1, 1, None, "CHWN"),
+]
+
+
+def _k5a_tiling(case):
+    N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, _ = case
+    return conv_ops.stack_tiling("CHWN", N, Ci, H, H, Cm, F1, S1, P1, Co,
+                                 F2, S2, P2, pool)
+
+
+def test_k5a_bf16_cases_span_cluster_sizes():
+    assert {_k5a_tiling(c).cluster for c in K5A_BF16_CASES} == {
+        1, 2, 3, 4, 6}
+
+
+@pytest.mark.parametrize("case", K5A_BF16_CASES)
+def test_k5a_bf16_counts_its_flops_and_repeats_bitwise(case, card):
+    N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, src = case
+    gen = torch.Generator().manual_seed(300 + K5A_BF16_CASES.index(case))
+    bf = torch.bfloat16
+    x = _on(torch.randn(N, Ci, H, H, generator=gen), card, src, bf)
+    w1 = _on(torch.randn(Cm, Ci, F1, F1, generator=gen)
+             / np.sqrt(Ci * F1 * F1), card, dtype=bf)
+    w2 = _on(torch.randn(Co, Cm, F2, F2, generator=gen)
+             / np.sqrt(Cm * F2 * F2), card, dtype=bf)
+    b1 = _on(torch.randn(Cm, generator=gen) * 0.1, card, dtype=bf)
+    b2 = _on(torch.randn(Co, generator=gen) * 0.1, card, dtype=bf)
+    kw = dict(bias1=b1, bias2=b2, relu1=True, relu2=True, pool=pool,
+              src_layout=src, dst_layout="CHWN")
+    w1k = w1.permute(1, 2, 3, 0).contiguous()
+    w2k = w2.permute(1, 2, 3, 0).contiguous()
+    t = _k5a_tiling(case)
+    got, flops, cluster = conv_ops.conv_stack_chwn_counted(
+        x, w1k, w2k, S1, P1, S2, P2, **kw)
+    assert (flops, cluster) == (t.executed_flops, t.cluster)
+    assert got.dtype == bf
+    assert_bf16_close(got, conv_stack_ref(x, w1, w2, S1, P1, S2, P2, **kw))
+    for _ in range(2):
+        assert torch.equal(
+            conv_ops.conv_stack_chwn(x, w1k, w2k, S1, P1, S2, P2, **kw), got)
+
+
 @pytest.mark.parametrize("rows,cols,offset", [
     (7, 10, 0), (32, 1000, 0), (5, 1001, 0), (3, 3, 0), (4, 5000, 0),
     (2, 20001, 0), (2, 20000, 0), (300, 1000, 0), (5, 1000, 1)])

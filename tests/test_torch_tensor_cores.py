@@ -1,11 +1,26 @@
-"""K1 (the direct CHWN conv) and K12 (the fused unembed + cross entropy) on
-the tensor cores, checked on the CPU.
+"""K1 (the direct CHWN conv), K5a (the CHWN conv -> conv stack) and K12
+(the fused unembed + cross entropy) on the tensor cores, checked on the
+CPU.
 
 - Their fp32 arithmetic, 3xTF32 with a flush every 32 reduction terms
   (``repro_torch.kernels.tf32``), over the longest reductions they run:
   K1 within 1e-5 scale-relative to float64 (K6's ``WGRAD_TOL``, the
   accuracy gate of the kernel), where one TF32 product a term misses it;
   K12's loss within ``LM_TOL`` (1e-4 rtol and atol) of float64.
+- The bf16 arithmetic of K1's narrow builds and K5a's bf16 build
+  (``repro_torch.kernels.bf16_mma``): bf16 products summed in fp32 with a
+  flush every 64 terms (K1) or once a 64-channel chunk (K5a's conv2) hold
+  the bf16 gate (one bf16 step,
+  2^-7 |want| + 1e-5 max|want|) against float64 at K1's longest
+  reductions; K5a's conv2, which reads the float32 mid as three bf16 parts,
+  holds the gate and float32 accuracy (``MID_TOL``) at its longest
+  reductions, where two parts miss float32 accuracy and a bf16-rounded mid
+  misses the gate.
+- The narrow builds' shared memory (``k1_narrow_smem``,
+  ``k5a_bf16_ring_bytes``, mirrors of their layouts) within what the tile
+  models reckon (``conv_tiling``, ``stack_tiling``) at every bf16 and
+  int8-input launch of the smoke's bf16 serving and training plans, and
+  the H100 profile's plans of every network unchanged.
 - K1's block tile ``conv_tiling``: a block-by-block recount of what the
   kernel computes (its conv outputs, its FLOPs, its blocks), that every
   pooled output has exactly one owner block and every conv output under a
@@ -15,11 +30,21 @@ the tensor cores, checked on the CPU.
 """
 from __future__ import annotations
 
+import hashlib
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels.conv.ops import SMEM_PER_BLOCK, conv_tiling
+import chip_smoke
+from repro_torch.cnn.network import plan_network_fused
+from repro_torch.configs.cnn_networks import CNN_CONFIGS
+from repro_torch.kernels import bf16_mma
+from repro_torch.kernels.conv.backward import dgrad_shape
+from repro_torch.kernels.conv.ops import (SMEM_PER_BLOCK,
+                                          _cluster_ring_bytes, conv_tiling,
+                                          k1_narrow_smem,
+                                          k5a_bf16_ring_bytes, stack_tiling)
 from repro_torch.kernels.tf32 import gemm_emulated
 from repro_torch.shapes import conv_out_hw, pool_out_hw
 from tests.test_torch_kernels_card import CONV_CASES
@@ -54,6 +79,176 @@ def test_k1_3xtf32_holds_1e5_and_one_pass_tf32_does_not(what, K):
     err1 = _scaled_err(gemm_emulated(w, p, split=False), want)
     assert err3 <= K1_TOL, (what, err3)
     assert err1 > K1_TOL, (what, err1)
+
+
+# --------------------------------------------------------------------------
+# the bf16 builds' arithmetic: K1 bf16 / int8->bf16, K5a bf16
+# --------------------------------------------------------------------------
+
+BF16_STEP = 2.0 ** -7
+# float32 accuracy: 16 float32 steps (2^-20) of the largest output, what
+# the reference's float32 mid times bf16 w2 keeps (its own float32 product
+# lies within 2.4e-7..3.4e-7 of float64 here)
+MID_TOL = 2.0 ** -20
+# K5a's longest conv2 reductions (Cm x F2 x F2) on the main path: VGG16's
+# conv1_1 -> conv1_2 pair (64 x 3 x 3) and AlexNet's conv3 -> conv4 (384 x
+# 3 x 3)
+K5A_CONV2_REDUCTIONS = [("vgg16-conv1_2", 64 * 9), ("alexnet-conv4", 384 * 9)]
+
+
+def _bf16_gate(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| over one bf16 step (2^-7 |want| + 1e-5
+    max|want|): at most 1 within the gate."""
+    bound = BF16_STEP * want.abs() + 1e-5 * want.abs().max()
+    return ((got.double() - want).abs() / bound).max().item()
+
+
+def _he_bf16(rng, rows: int, K: int) -> torch.Tensor:
+    return bf16_mma.to_bf16(torch.from_numpy(
+        rng.standard_normal((rows, K), np.float32)
+        * np.float32(np.sqrt(2.0 / K))))
+
+
+@pytest.mark.parametrize("what,K", K1_REDUCTIONS,
+                         ids=[w for w, _ in K1_REDUCTIONS])
+def test_k1_bf16_products_summed_per_slice_hold_the_bf16_gate(what, K):
+    """out[co, col] = sum_k w[k, co] P[k, col] as K1's narrow builds form
+    it: bf16 w at the He scale and bf16 activations, products exact, a
+    flush into fp32 every 64 terms."""
+    rng = np.random.default_rng(K)
+    w = _he_bf16(rng, 64, K)
+    p = bf16_mma.to_bf16(torch.from_numpy(
+        rng.standard_normal((K, 256), np.float32)))
+    want = w.double() @ p.double()
+    got = bf16_mma.gemm_emulated(w, [p], bf16_mma.K1_SLICE)
+    assert _bf16_gate(got, want) <= 1.0, what
+    assert _scaled_err(got, want) <= K1_TOL, what
+
+
+@pytest.mark.parametrize("what,K", K5A_CONV2_REDUCTIONS,
+                         ids=[w for w, _ in K5A_CONV2_REDUCTIONS])
+def test_k5a_conv2_three_part_mid_holds_float32_and_fewer_parts_do_not(
+        what, K):
+    """K5a's conv2 of a float32 mid (a ReLU output, unit scale) by bf16 w2
+    at the He scale, against float64 of the same values.  Three bf16 parts
+    (the kernel's split) give the mid exactly: within the bf16 gate and
+    float32 accuracy.  Two parts leave up to 2^-16 of each value: within
+    the bf16 gate here (about a fifth of it), but not float32 accuracy, so
+    not the reference's function.  One part (the mid rounded to bf16)
+    misses the gate."""
+    rng = np.random.default_rng(K)
+    w2 = _he_bf16(rng, 64, K)
+    mid = torch.from_numpy(np.maximum(
+        rng.standard_normal((K, 512), np.float32), np.float32(0)))
+    want = w2.double() @ mid.double()
+    three = bf16_mma.conv2_emulated(w2, mid, 3, parts=3)
+    assert _bf16_gate(three, want) <= 1.0, what
+    assert _scaled_err(three, want) <= MID_TOL, what
+    assert _scaled_err(bf16_mma.conv2_emulated(w2, mid, 3, parts=2),
+                       want) > MID_TOL, what
+    assert _bf16_gate(bf16_mma.conv2_emulated(w2, mid, 3, parts=1),
+                      want) > 1.0, what
+
+
+def test_mid_parts_sum_to_the_float32_value_exactly():
+    rng = np.random.default_rng(0)
+    m = torch.from_numpy(rng.standard_normal(4096, np.float32)
+                         * np.float32(2.0) ** rng.integers(-30, 30, 4096))
+    hi, md, lo = bf16_mma.mid_parts(m, 3)
+    for part in (hi, md, lo):
+        assert torch.equal(part, bf16_mma.to_bf16(part))
+    assert torch.equal((hi.double() + md.double() + lo.double()).float(), m)
+    assert torch.equal(hi + md + lo, m)
+
+
+# --------------------------------------------------------------------------
+# the narrow builds' shared memory against the tile models
+# --------------------------------------------------------------------------
+
+def _narrow_launches():
+    """(kernel, case) of every bf16 and int8->bf16 K1 and K5a launch of the
+    smoke's bf16 serving plans and bf16 training steps, planned on the
+    CPU as the smoke plans them (each distinct one once)."""
+    out = []
+    for network, bucket, policy, stack in chip_smoke.DTYPE_SERVED:
+        cfg, plan = chip_smoke.dtype_plan(network, bucket, policy, stack)
+        out += chip_smoke.fused_launches(cfg, plan)
+    for network, batch, profile in chip_smoke.BF16_TRAINED:
+        cfg, plan = chip_smoke.bf16_train_plan(network, batch, profile)
+        out += chip_smoke.plan_train_launches(cfg, plan)
+    narrow = ("conv_chwn.bf16", "conv_chwn.i8bf16", "conv_stack_chwn.bf16")
+    return sorted({(k, c) for k, c in out if k in narrow}, key=repr)
+
+
+def _k1_shape(case):
+    """(N, Ci, H, Co, F, S, pad, pool) of K1's launch for a smoke case:
+    the forward's, or the stride-1 conv a dgrad poses."""
+    if case[0] == "dgrad":
+        N, Ci, H, Co, F, S, pad = case[1:8]
+        N, Ci, H, _, Co, F, S, pad = dgrad_shape(N, Ci, H, H, Co, F, S, pad)
+        return N, Ci, H, Co, F, S, pad, None
+    return case[case[0] == "save_act":][:8]
+
+
+def test_narrow_builds_fit_the_tile_models_at_every_main_path_launch():
+    launches = _narrow_launches()
+    kinds = {k for k, _ in launches}
+    assert kinds == {"conv_chwn.bf16", "conv_chwn.i8bf16",
+                     "conv_stack_chwn.bf16"}
+    assert any(c[0] == "dgrad" for k, c in launches)
+    assert any(c[0] == "save_act" for k, c in launches)
+    for kern, case in launches:
+        if kern == "conv_stack_chwn.bf16":
+            N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool = case[:12]
+            t = stack_tiling("CHWN", N, Ci, H, H, Cm, F1, S1, P1, Co, F2,
+                             S2, P2, pool)
+            # the bf16 rings lie inside the float32 ring, so the slab (and
+            # the block's shared memory) is where stack_tiling puts it
+            assert k5a_bf16_ring_bytes(t.bm) <= _cluster_ring_bytes(t.bm),                 case
+            assert t.smem_bytes <= SMEM_PER_BLOCK, case
+            continue
+        N, Ci, H, Co, F, S, pad, pool = _k1_shape(case)
+        t = conv_tiling(N, Ci, H, H, Co, F, S, pad, pool)
+        cmax = 0
+        if pool is not None:
+            Ho = conv_out_hw(H, F, S, pad)
+            UH = pool_out_hw(Ho, pool[0], pool[1])
+            cmax = min(t.nb, N) * ((min(t.ph, UH) - 1) * pool[1]
+                                   + pool[0]) * ((min(t.pw, UH) - 1)
+                                                 * pool[1] + pool[0])
+        assert k1_narrow_smem(t.bm, cmax) <= t.smem_bytes, (kern, case)
+        # unpooled sums are staged over the ring: bm rows of 128 + 8 floats
+        assert 4 * t.bm * (128 + 8) <= k1_narrow_smem(t.bm, 0) - 4 * 3 * 128
+
+
+# sha256 of repr(plan_network_fused(cfg, dtype=...)) on the H100 profile,
+# each network at its config's batch: the kernels' narrow builds change no
+# tile model, so no plan
+H100_PLANS = {
+    ("alexnet", "float32"): "d72a53d44275359c",
+    ("alexnet", "bfloat16"): "9c99bfe7274d84ff",
+    ("cifarnet", "float32"): "607a87ee371e808c",
+    ("cifarnet", "bfloat16"): "e27651400ade6392",
+    ("lenet", "float32"): "6ed13fca016967da",
+    ("lenet", "bfloat16"): "7fae476522ed200b",
+    ("resnet18", "float32"): "6ada4d74a2e8ed7b",
+    ("resnet18", "bfloat16"): "22e21b5c69c63682",
+    ("unet_mini", "float32"): "53be6b30e0dfbf3f",
+    ("unet_mini", "bfloat16"): "c3cb062a1e04ff4e",
+    ("vgg16", "float32"): "bd4ee4cba2c5f9ec",
+    ("vgg16", "bfloat16"): "e2e15d8b8348c12d",
+    ("zfnet", "float32"): "554753bb906356e6",
+    ("zfnet", "bfloat16"): "51e3631e7f094c91",
+}
+
+
+@pytest.mark.parametrize("network", sorted(CNN_CONFIGS))
+def test_h100_plans_of_every_network_are_unchanged(network):
+    cfg = CNN_CONFIGS[network]
+    for dtype in ("float32", "bfloat16"):
+        plan = plan_network_fused(cfg, dtype=dtype)
+        got = hashlib.sha256(repr(plan).encode()).hexdigest()[:16]
+        assert got == H100_PLANS[(network, dtype)], (network, dtype)
 
 
 def _loss(logits: torch.Tensor, labels: torch.Tensor, cap):
