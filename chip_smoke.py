@@ -177,9 +177,10 @@
    pool backwards and transposes exactly, K6 within 1e-5 scale-relative of
    float64, the rest (avg pools and their backwards, K5b, ``save_act``
    z, dgrad) within one bf16 step; with K3b and K9b in bf16 off the path
-   (one case each, 0 launches); a "K6 bf16 over the main path" line in
-   K6's form (its bounds at the bf16 peak and at one TF32 product a
-   term).
+   (one case each, 0 launches); K5b bf16 also counts the FLOPs its blocks
+   execute (equal to ``stack_tiling``'s), three runs bitwise equal, and
+   reports its error against float64; a "K6 bf16 over the main path" line
+   in K6's form (its bound at the bf16 peak: one bf16 product a term).
 8. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
    path of the tiled matmul K10: the 12 Table-1 layers
    (``configs/paper_table1.py``) at their published N, HW, F, Ci, Co and
@@ -207,10 +208,12 @@
    ``F.scaled_dot_product_attention`` or ``h @ tableᵀ`` +
    ``F.cross_entropy``; a line gives K11's largest bf16 error and every
    case's TFLOP/s.
-10. Prints "K1 over the main path", "K2 ...", "K5b ...", "K10 ..." and
-   "K12 ..." lines in the form of K6's (launches, ms, TFLOP/s, K2's and
-   K5b's executed TFLOP/s and executed/direct, both bounds, library ms, the
-   largest error from float64), then one JSON line of every kernel
+10. Prints "K1 over the main path", "K2 ...", "K5b ...", "K10 ...",
+   "K12 ..." and "K5b bf16 ..." lines in the form of K6's (launches, ms,
+   TFLOP/s, K2's and K5b's executed TFLOP/s and executed/direct, both
+   bounds, library ms, the largest error from float64; K5b bf16's design
+   bound counts one bf16 product a conv1 term and three a conv2 term),
+   then one JSON line of every kernel
    (launches, error, times, bound, and the 3xTF32 bound of the tensor-core
    kernels; the storage variants as "<kernel>.<variant>", their bounds at
    the narrow element sizes and the bf16 peak where w is bf16),
@@ -1166,6 +1169,33 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                      resident_clusters=stack_max_clusters(
                          N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2, pool,
                          t, dtype=wdt))
+        else:
+            # K5b bf16 counts the FLOPs its blocks execute as the float32
+            # build does; its runs are bitwise equal; its error against
+            # float64 of the same bf16 values is reported (the gate is one
+            # bf16 step of the plain version, above)
+            y, counted = conv_stack_nchw_counted(x, w1k, w2k, S1, P1, S2,
+                                                 P2, **kw)
+            check(y, conv_stack_ref(x, w1, w2, S1, P1, S2, P2, **kw))
+            if counted != t.executed_flops:
+                raise AssertionError(
+                    f"{kern} {case}: the kernel executed {counted} FLOPs; "
+                    f"stack_tiling says {t.executed_flops}")
+            bitwise_runs(lambda: wrapper(x, w1k, w2k, S1, P1, S2, P2, **kw),
+                         f"{kern} {case}", first=y)
+            k64 = {**kw, "res": r.double() if rlay else None}
+            conv1 = 2.0 * N * Cm * Ho1 * Ho1 * Ci * F1 * F1
+            m.update(counted_flops=float(counted), bitwise_equal_runs=3,
+                     f64_err=_scaled_err(y, conv_stack_ref(
+                         x.double(), w1.double(), w2.double(), S1, P1, S2,
+                         P2, **k64)),
+                     # the design's own bound: one bf16 product a conv1
+                     # term, three a conv2 term (the float32 mid in three
+                     # bf16 parts)
+                     design_bound_ms=bound_ms(
+                         conv1 + 3 * (flops - conv1), m["bytes"],
+                         PEAK_BF16_FLOPS)[0],
+                     design="bf16_split3")
         return m
     engine = "CHWN" if base == "conv_chwn" else "NCHW"
     if case[0] == "dgrad":
@@ -1585,20 +1615,20 @@ def wgrad_case(case, dev, seed: int, dtype=torch.float32) -> dict:
     if err > WGRAD_TOL:
         raise AssertionError(f"K6 {case}: {err:.3g} from float64 (scale-"
                              f"relative) > {WGRAD_TOL}")
-    if not torch.equal(got, kernel()):
-        raise AssertionError(f"K6 {case}: two launches differ")
+    bitwise_runs(kernel, f"K6 {case}", first=got)
     flops = 2.0 * Co * Ci * F * F * N * Ho * Ho
     nbytes = float(x.element_size() * (x.numel() + g.numel())
                    + 4 * Co * Ci * F * F)
     peak = PEAK_FP32_FLOPS if dtype is torch.float32 else PEAK_BF16_FLOPS
     b_ms, b_by = bound_ms(flops, nbytes, peak)
     # the design's own bound: 3xTF32 runs 3 TF32 products per term, the
-    # bf16 build one
-    products = 3 if dtype is torch.float32 else 1
+    # bf16 build one bf16 product (its peak bound)
+    fp32 = dtype is torch.float32
     return {"max_abs_err": abs_err, "max_rel_err": err, "f64_err": err,
-            "design_bound_ms": bound_ms(products * flops, nbytes,
-                                        PEAK_TF32_FLOPS)[0],
-            "design": "3xtf32" if products == 3 else "tf32",
+            "design_bound_ms": (bound_ms(3 * flops, nbytes,
+                                         PEAK_TF32_FLOPS)[0] if fp32
+                                else b_ms),
+            "design": "3xtf32" if fp32 else "bf16",
             "ms": cuda_ms(kernel),
             "plain_ms": cuda_ms(lambda: wgrad_ref(x, g, F, S, pad, **kw)),
             "library_ms": cuda_ms(lambda: torch.nn.grad.conv2d_weight(
@@ -1923,7 +1953,7 @@ def kernel_phase(dev):
                                   if r["kernel"] == "wgrad"]), flush=True)
     print(tensor_core_line("K6 bf16", [r for r in mult.values()
                                        if r["kernel"] == "wgrad.bf16"],
-                           peak="bf16", design="tf32"), flush=True)
+                           peak="bf16", design="bf16"), flush=True)
     # per forward (and training step): each kernel's launches summed
     for kind, network, label, keys in batches:
         for kern in KERNELS:
@@ -3217,8 +3247,9 @@ def tensor_core_line(label: str, rows, peak: str = "fp32",
     the kernel executed, also the executed rate), the bound on the
     ``peak`` named (fp32, or bf16 for a bf16 build) and the design's own
     (``design``: 3xTF32, three TF32 products at 495 TFLOP/s; K6 bf16's one
-    a term, "tf32"), the library time and the largest error
-    scale-relative to float64."""
+    bf16 product a term, "bf16", its peak bound; K5b bf16's one a conv1
+    term and three a conv2 term, "bf16_split3"), the library time and the
+    largest error scale-relative to float64."""
     def tot(f):
         return sum(r[f] * (r["launches"] or 1) for r in rows)
     executed = ""
@@ -3231,8 +3262,9 @@ def tensor_core_line(label: str, rows, peak: str = "fp32",
             f"{sum(r['launches'] for r in rows)} ms={tot('ms'):.3f} "
             f"TFLOP/s={tot('flops') / tot('ms') / 1e9:.1f} {executed}"
             f"bound_{peak}_ms={tot('bound_ms'):.3f} "
-            f"bound_{design}_ms={tot('design_bound_ms'):.3f} "
-            f"library_ms={tot('library_ms'):.3f} "
+            + (f"bound_{design}_ms={tot('design_bound_ms'):.3f} "
+               if design != peak else "")
+            + f"library_ms={tot('library_ms'):.3f} "
             f"max_rel_err={max(r['f64_err'] for r in rows):.3g}")
 
 
@@ -3285,7 +3317,8 @@ def kernels_line(cases, launches) -> dict:
                 for k in rows[0]["median5"]}
         if all("design_bound_ms" in r for r in rows):
             # the bound of the kernel's own arithmetic (3xTF32: three TF32
-            # products per fp32 one on the tensor cores; K6 bf16's one)
+            # products per fp32 one on the tensor cores; K6 bf16's one bf16
+            # product; K5b bf16's one a conv1 term, three a conv2 term)
             design = rows[0].get("design", "3xtf32")
             entry[f"bound_{design}_ms"] = total("design_bound_ms")
         out.append(entry)
@@ -3371,6 +3404,9 @@ def main() -> int:
             print(tensor_core_line(label, [r for r in cases
                                            if r["kernel"] == kern]),
                   flush=True)
+        print(tensor_core_line("K5b bf16", [
+            r for r in cases if r["kernel"] == "conv_stack_nchw.bf16"],
+            peak="bf16", design="bf16_split3"), flush=True)
     # autograd needs tensors made outside inference mode
     t0 = time.perf_counter()
     train_counts, trained = training_phase(dev)

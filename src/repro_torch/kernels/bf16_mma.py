@@ -1,15 +1,19 @@
 """The arithmetic of the port's bf16 tensor-core kernels (K1's narrow
-builds, K5a's bf16 build), in plain torch, so the CPU can hold it against
-float64.
+builds, the bf16 builds of K5a, K5b and K6), in plain torch, so the CPU can
+hold it against float64.
 
 A product of two bf16 values is exact in fp32.  The tensor core sums the
 products in fp32, and the kernels sum each slice of reduction terms from
 zero in the mma registers and add the slices to an fp32 total in order: K1
 every 64 terms (``K1_SLICE``), K5a's conv2 once a chunk of 64 mid channels
-(``K5A_CHUNK`` x F2 x F2 terms; its conv1 runs one chain over K1).
-``gemm_emulated`` forms a product that way, each slice's sum in fp32.
+(``K5A_CHUNK`` x F2 x F2 terms; its conv1 runs one chain over K1), K5b's
+conv2 once a chunk of 32 (``K5B_CHUNK``; its conv1 one chain a pass, over
+all of K1), K6 every 32 output positions (``K6_SLICE``), each split of
+the positions into its own total, the splits then summed in order
+(``wgrad_emulated``).  ``gemm_emulated`` forms a product that way, each
+slice's sum in fp32.
 
-K5a's conv2 reads the float32 mid activation, as the reference does.
+The stacks' conv2 reads the float32 mid activation, as the reference does.
 ``mid_parts`` cuts a float32 value into the bf16 parts the kernel
 multiplies: three (hi = bf16(m), md = bf16(m - hi), lo = bf16(m - hi - md)),
 whose sum is m exactly; two or one (m rounded to bf16) to compare.
@@ -23,6 +27,8 @@ import torch
 
 K1_SLICE = 64     # reduction terms K1's narrow builds sum before a flush
 K5A_CHUNK = 64    # mid channels of a K5a chunk: conv2 flushes once a chunk
+K5B_CHUNK = 32    # mid channels of a K5b chunk: conv2 flushes once a chunk
+K6_SLICE = 32     # output positions of a K6 slice: flushed every slice
 
 
 def to_bf16(a: torch.Tensor) -> torch.Tensor:
@@ -66,10 +72,24 @@ def gemm_emulated(a: torch.Tensor, bs: List[torch.Tensor],
 
 
 def conv2_emulated(w2: torch.Tensor, mid: torch.Tensor, F2: int,
-                   parts: int = 3) -> torch.Tensor:
-    """K5a's conv2 product w2 [Co, K2] (bf16 values) @ mid [K2, cols]
+                   parts: int = 3, chunk: int = K5A_CHUNK) -> torch.Tensor:
+    """A stack's conv2 product w2 [Co, K2] (bf16 values) @ mid [K2, cols]
     (float32), K2 = Cm x F2 x F2, with the mid cut into ``parts`` bf16
     parts (``mid_parts``), lo first, summed as ``gemm_emulated`` does, a
-    slice a chunk of ``K5A_CHUNK`` mid channels."""
-    return gemm_emulated(w2, mid_parts(mid, parts)[::-1],
-                         K5A_CHUNK * F2 * F2)
+    slice a chunk of ``chunk`` mid channels (K5a's ``K5A_CHUNK``, K5b's
+    ``K5B_CHUNK``)."""
+    return gemm_emulated(w2, mid_parts(mid, parts)[::-1], chunk * F2 * F2)
+
+
+def wgrad_emulated(g: torch.Tensor, x: torch.Tensor,
+                   per: int) -> torch.Tensor:
+    """K6 bf16's dw [Co, K] = g [Co, P] @ x [P, K] (bf16 values): the
+    positions in splits of ``per`` (``wgrad_tiling``'s), each split
+    summed as ``gemm_emulated`` does with a slice every ``K6_SLICE``
+    positions, then the splits' fp32 totals added in split order (the
+    kernel's second launch)."""
+    total = None
+    for p0 in range(0, g.shape[1], per):
+        part = gemm_emulated(g[:, p0:p0 + per], [x[p0:p0 + per]], K6_SLICE)
+        total = part if total is None else total + part
+    return total

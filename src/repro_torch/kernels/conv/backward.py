@@ -16,9 +16,11 @@ gradient, with no padded copy and no slice.  For S == 1 nothing is
 materialized at all.
 
 wgrad (the weight gradient) is K6, a GEMM over the virtual im2col matrix
-on the tensor cores in fp32 accuracy (3xTF32), with split-K over the
-output positions; ``conv_wgrad`` is its wrapper and ``wgrad_tiling`` picks
-its block tile and splits.  ``bias_grad`` is a plain
+on the tensor cores in fp32 accuracy (3xTF32; bf16 x and g: one bf16
+product a term, a kernel of its own), with split-K over the output
+positions; ``conv_wgrad`` is its wrapper and ``wgrad_tiling`` picks its
+block tile and splits, for both builds (the bf16 kernel reduces the same
+32-position slices).  ``bias_grad`` is a plain
 reduction, as in the reference.  For a CPU tensor ``conv_wgrad`` returns the
 plain version (``ref.wgrad_ref``); for a CUDA tensor it launches K6 or
 raises, and counts its launches in ``conv_wgrad.launches``.  x and g are
@@ -41,6 +43,7 @@ from repro_torch.shapes import conv_out_hw
 _SMS = 132                # H100 SXM streaming multiprocessors
 _HBM_BYTES_S = 3.35e12    # H100 SXM device memory, bytes/s
 _WG_BP = 32               # positions per slice of csrc/wgrad.cu
+_WG_BF16_STAGES = 4       # ring depth of its bf16 kernel (32-deep slices)
 _WG_MAX_SPLITS = 65535    # gridDim.z
 # the splits' cost model: the rate a block's tensor-core work is assumed
 # to run at (3xTF32, fp32-equivalent FLOP/s over the card), and the
@@ -140,6 +143,13 @@ class WgradTiling(NamedTuple):
     splits: int
     tiles: int           # block tiles over [Co, K]
     ws_elems: int        # split workspace [splits, Co, K], 0 for one split
+
+
+def wgrad_bf16_smem(bm: int, bn: int) -> int:
+    """Shared memory of one block of K6's bf16 kernel (``wgrad_bf16_kernel``
+    in csrc/wgrad.cu): a ring of 4 stages of (bm + bn) bf16 rows of 32
+    positions, and the block's table of k offsets and taps."""
+    return _WG_BF16_STAGES * (bm + bn) * _WG_BP * 2 + 3 * 4 * bn
 
 
 @functools.lru_cache(maxsize=None)

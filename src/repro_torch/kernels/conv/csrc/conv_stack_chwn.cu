@@ -71,10 +71,12 @@ namespace stack_cluster {
 namespace cg = cooperative_groups;
 using stack::StackArgs;
 using stack::Tile;
+using storage::chunk8;
 using storage::copy1;
 using storage::copy4;
 using storage::ld;
 using storage::put;
+using storage::split3;
 
 constexpr int kThreads = 256;
 constexpr int kBK = 16;     // reduction slice of both phases
@@ -646,36 +648,6 @@ struct NShape {
                     RING_B <= 4 * CShape<GM>::RING,
                 "the bf16 rings fit the float32 kernel's");
 };
-
-// (x0, x1) as three bf16 pairs (element 0 in the low half) that sum to them
-// exactly: hi, the rest md, the rest lo
-__device__ __forceinline__ void split3(float x0, float x1, unsigned& hi,
-                                       unsigned& md, unsigned& lo) {
-  hi = mma::pack_bf16(x0, x1);
-  const float r0 = x0 - storage::lo_bf16(hi), r1 = x1 - storage::hi_bf16(hi);
-  md = mma::pack_bf16(r0, r1);
-  lo = mma::pack_bf16(r0 - storage::lo_bf16(md), r1 - storage::hi_bf16(md));
-}
-
-// 8 bf16 from src into a 16-byte chunk: by cp.async where run (all 8 there,
-// src 16-byte aligned), zeros where n == 0, else element by element (the
-// first n of the 8)
-__device__ __forceinline__ void chunk8(storage::bf16* dst,
-                                       const storage::bf16* src, int n,
-                                       bool run) {
-  if (n <= 0) {
-    mma::cp16(dst, src, false);
-  } else if (run) {
-    mma::cp16(dst, src, true);
-  } else {
-    unsigned v[8];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) v[j] = storage::bf16_bits(src + j, j < n);
-    *reinterpret_cast<uint4*>(dst) =
-        make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16),
-                   v[4] | (v[5] << 16), v[6] | (v[7] << 16));
-  }
-}
 
 // One conv1 pass of the bf16 build's phase A: the [kCM x KRA] GEMM of mid
 // positions [p0, p0 + KRA) (clipped to this rank's range [p_lo, p_hi))

@@ -69,16 +69,17 @@
 //
 // Storage dtypes (csrc/storage.cuh): the bf16 build (-DREPRO_VARIANT_BF16)
 // defines conv_stack_nchw_forward_bf16 over bf16 x, w1, b1, w2, b2,
-// residual and y.  The producer widens the x box and the weight slices to
-// float32 on their way into the ring (register loads, storage::copy4/
-// copy1, where float32 takes cp.async); the mid slab stays float32, as in
+// residual and y, and runs a kernel of its own on the bf16 tensor cores
+// (conv_stack_nchw_bf16_kernel below, whose note says how and what bounds
+// it): bf16 rings stepping 16 channels at one tap, one bf16 product a
+// conv1 term and three a conv2 term.  The mid slab stays float32, as in
 // K5a's bf16 build and the reference (stack.py keeps its mid in f32), and
-// y is rounded once where it is stored.  A bf16 value is exact in TF32, so
-// conv1 (bf16 w1 by bf16 x) runs one TF32 product a term, and conv2 (bf16
-// w2 by the float32 mid) two: w2 * mid_big + w2 * mid_small.
+// y is rounded once where it is stored.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "../../csrc/mma.cuh"
 #include "../../csrc/nan_max.cuh"
@@ -90,16 +91,16 @@ namespace {
 
 using namespace repro::mma;
 using namespace repro::ring;
+using repro::storage::bf16;
+using repro::storage::chunk8;
 using repro::storage::copy1;
 using repro::storage::copy4;
 using repro::storage::ld;
 using repro::storage::put;
-using repro::storage::split;
+using repro::storage::split3;
 using T = REPRO_WT;  // the storage type of every tensor (the mid: float32)
-using StackArgs = repro::stack::StackArgs<T>;
+using repro::stack::StackArgs;
 using repro::stack::Tile;
-// a bf16 operand is exact in TF32: its small part is zero, never read
-constexpr bool kExact = repro::storage::kExactTf32<T>;
 
 constexpr int kConsumers = 256;  // two warpgroups: the mma
 constexpr int kProducers = 128;  // one warpgroup: the copies
@@ -113,8 +114,9 @@ constexpr int kPassTiles = 32;     // 8-position tiles of a conv1 pass
 constexpr int kTile = 16384;       // BM * BN
 constexpr int kSmemMax = 232448;   // 227 KB, what an H100 block may use
 
+template <typename E>
 struct K5bArgs {
-  StackArgs s;
+  StackArgs<E> s;
   int FF1, FF2;          // taps of conv1 and conv2
   int SA1, SA2;          // weight slice row strides: 8 ga F1^2 + 4, 8 F2^2 + 4
   int XSTR;              // x box channel stride (8 mod 32)
@@ -137,8 +139,9 @@ struct Box {
                              // 4) and the first column's shift in it
 };
 
-__device__ __forceinline__ Box make_box(const K5bArgs& a, const Tile& t) {
-  const StackArgs& s = a.s;
+template <typename E>
+__device__ __forceinline__ Box make_box(const K5bArgs<E>& a, const Tile& t) {
+  const StackArgs<E>& s = a.s;
   Box b;
   const bool pool = s.pF > 0;
   b.oh0 = pool ? t.uh0 * s.pS : t.uh0;
@@ -169,8 +172,8 @@ __device__ __forceinline__ Box make_box(const K5bArgs& a, const Tile& t) {
 struct StageId {
   int chunk, pass, oct, q;  // oct: the first 8-channel group; q >= 0: B
 };
-__device__ __forceinline__ StageId stage_id(const K5bArgs& a, const Box& b,
-                                            int sl) {
+__device__ __forceinline__ StageId stage_id(const K5bArgs<float>& a,
+                                            const Box& b, int sl) {
   const int na = b.passes * a.a_stages, per = na + kCM / 8;
   StageId id;
   id.chunk = sl / per;
@@ -189,14 +192,14 @@ __device__ __forceinline__ StageId stage_id(const K5bArgs& a, const Box& b,
 // F1T, F2T: the convs' filter sizes where fixed at compile time (3), else 0
 template <int BM, bool POOL, int F1T, int F2T>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_stack_nchw_kernel(const K5bArgs a) {
+conv_stack_nchw_kernel(const K5bArgs<float> a) {
   constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
   constexpr int BN = kTile / BM;
   constexpr int WM = BM / 32;   // phase B warps along Co, 32 rows each
   constexpr int WN = 8 / WM;    // phase B warps along the columns
   constexpr int TS = BN + 8;    // epilogue tile row stride
   extern __shared__ __align__(16) float smem[];  // ring, then the slab
-  const StackArgs& s = a.s;
+  const StackArgs<float>& s = a.s;
   const Tile t = repro::stack::make_tile(s);
   const Box b = make_box(a, t);
   const int co0 = blockIdx.y * BM;
@@ -369,27 +372,24 @@ conv_stack_nchw_kernel(const K5bArgs a) {
 #pragma unroll
             for (int mt = 0; mt < 2; ++mt) {
               const float* pa = W1s + mt * 16 * SA1 + tq * FF1 + r;
-              split<kExact>(pa[0], abig[mt][0], asmall[mt][0]);
-              split<kExact>(pa[8 * SA1], abig[mt][1], asmall[mt][1]);
-              split<kExact>(pa[4 * FF1], abig[mt][2], asmall[mt][2]);
-              split<kExact>(pa[8 * SA1 + 4 * FF1], abig[mt][3],
-                            asmall[mt][3]);
+              split_tf32(pa[0], abig[mt][0], asmall[mt][0]);
+              split_tf32(pa[8 * SA1], abig[mt][1], asmall[mt][1]);
+              split_tf32(pa[4 * FF1], abig[mt][2], asmall[mt][2]);
+              split_tf32(pa[8 * SA1 + 4 * FF1], abig[mt][3], asmall[mt][3]);
             }
             const float* xr = Xs + (r / F1) * b.XW + r % F1;
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
               if (j >= nj) break;
               unsigned b0big, b0small, b1big, b1small;
-              split<kExact>(xr[xoff[j]], b0big, b0small);
-              split<kExact>(xr[4 * a.XSTR + xoff[j]], b1big, b1small);
+              split_tf32(xr[xoff[j]], b0big, b0small);
+              split_tf32(xr[4 * a.XSTR + xoff[j]], b1big, b1small);
 #pragma unroll
               for (int mt = 0; mt < 2; ++mt) {
-                if constexpr (!kExact) {  // w1 and x small parts
-                  mma_tf32(accA[mt][j], asmall[mt], b0big, b1big,
-                           accA[mt][j]);
-                  mma_tf32(accA[mt][j], abig[mt], b0small, b1small,
-                           accA[mt][j]);
-                }
+                mma_tf32(accA[mt][j], asmall[mt], b0big, b1big,
+                         accA[mt][j]);
+                mma_tf32(accA[mt][j], abig[mt], b0small, b1small,
+                         accA[mt][j]);
                 mma_tf32(accA[mt][j], abig[mt], b0big, b1big, accA[mt][j]);
               }
             }
@@ -456,10 +456,10 @@ conv_stack_nchw_kernel(const K5bArgs a) {
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           const float* pa = W2s + mt * 16 * SA2 + tq * FF2 + r;
-          split<kExact>(pa[0], abig[mt][0], asmall[mt][0]);
-          split<kExact>(pa[8 * SA2], abig[mt][1], asmall[mt][1]);
-          split<kExact>(pa[4 * FF2], abig[mt][2], asmall[mt][2]);
-          split<kExact>(pa[8 * SA2 + 4 * FF2], abig[mt][3], asmall[mt][3]);
+          split_tf32(pa[0], abig[mt][0], asmall[mt][0]);
+          split_tf32(pa[8 * SA2], abig[mt][1], asmall[mt][1]);
+          split_tf32(pa[4 * FF2], abig[mt][2], asmall[mt][2]);
+          split_tf32(pa[8 * SA2 + 4 * FF2], abig[mt][3], asmall[mt][3]);
         }
         const float* br = sr + (r / F2) * b.RW + r % F2;
 #pragma unroll
@@ -470,8 +470,7 @@ conv_stack_nchw_kernel(const K5bArgs a) {
           split_tf32(br[4 * RS + boff[nt]], b1big, b1small);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            if constexpr (!kExact)  // w2's small part (the mid's is read)
-              mma_tf32(accB[mt][nt], asmall[mt], b0big, b1big, accB[mt][nt]);
+            mma_tf32(accB[mt][nt], asmall[mt], b0big, b1big, accB[mt][nt]);
             mma_tf32(accB[mt][nt], abig[mt], b0small, b1small, accB[mt][nt]);
             mma_tf32(accB[mt][nt], abig[mt], b0big, b1big, accB[mt][nt]);
           }
@@ -563,6 +562,561 @@ conv_stack_nchw_kernel(const K5bArgs a) {
   }
 }
 
+// ---- the bf16 build: both convs on the bf16 tensor cores -----------------
+//
+// Instantiated only by the bf16 build (launch_f below).  The tile, the
+// chunks of kCM mid channels, the float32 mid slab, the phase A / phase B
+// walk of ring stages, the roles and barriers and the epilogue are the
+// float32 kernel's; the rings and the products differ.
+//
+// Rings: bf16.  A stage steps k16, 16 channels at one tap, where the
+// float32 kernel's steps 8: a 16-channel bf16 stage takes the bytes of an
+// 8-channel float32 one, so every stage lies inside the float32 kernel's
+// slot (layout_bf16 below, ops.py::k5b_bf16_layout) and the shared memory,
+// the tiles and the plans stay the float32 build's.  A phase-A stage holds
+// gb 16-channel groups of Ci (the largest divisor of ceil(Ci / 16) that
+// fits) of w1 ([32][16 gb F1^2], contiguous along k in w1) and of the x
+// box ([16 gb][NB x XH x XW]); a phase-B stage the w2 slice of 16 mid
+// channels ([BM][16 F2^2]).  Weight rows arrive by 16-byte cp.async where
+// the row length is a multiple of 8 (storage::chunk8), box rows where W %
+// 8 == 0 (the box origin aligned down to 8 and its width rounded up to 8,
+// where that box fits the slot), halfwords elsewhere (Ci or Cm not a
+// multiple of 16 zero-pads k; W = 55, 28, a CHWN source, the halo): four
+// 4-column copies a thread with their loads issued together, no branch
+// between them, each copy's place stepped on from the thread's first
+// without a division (two copies at a time, each placed by three
+// divisions, ran 1.12x slower on ResNet-18's launches; 4-byte cp.async for
+// the quads that start on an even element, slower again).
+//
+// Products: one bf16 m16n8k16 product a conv1 term, three a conv2 term:
+// the reference reads the mid at float32, so each mid value enters as
+// hi + md + lo (storage::split3, exact) times the exact bf16 w2, as in
+// K5a's bf16 build.  A fragment register holds the k pair (2t, 2t+1),
+// which the kernel maps to channels t and t + 4 of the step (the pair 2t +
+// 8, 2t + 9 to t + 8 and t + 12): both operands agree on the order, and
+// channels 4 apart hit other banks.  Neither operand suits ldmatrix (a
+// conv1 B column is a gathered window whose start moves with the tap, not
+// 16-byte aligned; a weight k pair is F^2 apart), so each register is two
+// halfword shared loads packed into a word.  Phase A's warps take the 32
+// mid channels by 4 8-position tiles (one A fragment serves 4 tiles);
+// phase B's take 64 output channels by 4 column tiles, so a split mid
+// value serves 4 x 3 products.  conv1 runs one chain a pass (K1 <= 4608
+// on the networks) and conv2 one a chunk (288 terms for 3 x 3, three
+// products each), added to fp32 registers; the CPU emulation
+// (kernels/bf16_mma.py) holds both at those lengths to one bf16 step.
+//
+// What bounds it: operations at the bf16 tensor cores' 989 TFLOP/s by
+// design, one product a conv1 term and three a conv2 term.  On the card
+// (ResNet-18's launches, W 55: every box row by halfwords), timed apart
+// with tools/storage_variants.py --timing-only: the consumers alone take
+// two thirds of the kernel's time, a third each in conv1's products,
+// conv2's and the rest (fragment packing, split3, barriers); conv1's
+// B fragments from 32-bit loads instead of halfword pairs change nothing,
+// so the shared loads do not bound phase A (and interleaving channel
+// pairs in the box would not help); the box copy adds the last third.
+// ``stats`` counts the FLOPs as the float32 build does, 8-channel
+// granules, so the smoke's check against stack_tiling stands.
+static_assert(16 * sizeof(bf16) == 8 * sizeof(float),
+              "a 16-channel bf16 stage takes the bytes of an 8-channel "
+              "float32 one");
+
+// the bf16 build's box of a block: the float32 one's rows, its columns
+// from an origin aligned down to 8 and a width rounded up to 8 where the
+// rows copy by 16 bytes (vec_x), else from the first column itself and a
+// width rounded up to 4
+__device__ __forceinline__ Box make_box_bf16(const K5bArgs<bf16>& a,
+                                             const Tile& t) {
+  Box b = make_box(a, t);
+  const int iws = b.iw0 + b.sh;
+  const int span = (b.RW - 1) * a.s.S1 + a.s.F1;
+  if (a.vec_x) {
+    b.iw0 = iws & ~7;
+    b.sh = iws - b.iw0;
+    b.XW = (b.sh + span + 7) & ~7;
+  } else {
+    b.iw0 = iws;
+    b.sh = 0;
+    b.XW = (span + 3) & ~3;
+  }
+  return b;
+}
+
+// stage sl of the bf16 walk: phase A stages of gb 16-channel groups of Ci,
+// then kCM / 16 phase-B stages a chunk
+__device__ __forceinline__ StageId stage_id_bf16(const K5bArgs<bf16>& a,
+                                                 const Box& b, int sl) {
+  const int na = b.passes * a.a_stages, per = na + kCM / 16;
+  StageId id;
+  id.chunk = sl / per;
+  const int r = sl - id.chunk * per;
+  if (r < na) {
+    id.pass = r / a.a_stages;
+    id.oct = (r - id.pass * a.a_stages) * a.ga;  // the first 16-channel group
+    id.q = -1;
+  } else {
+    id.pass = id.oct = 0;
+    id.q = r - na;
+  }
+  return id;
+}
+
+// two bf16 bits into one fragment register, lo in the low half
+__device__ __forceinline__ unsigned pack2(unsigned short lo,
+                                          unsigned short hi) {
+  return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+}
+
+template <int BM, bool POOL, int F1T, int F2T>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_stack_nchw_bf16_kernel(const K5bArgs<bf16> a) {
+  constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
+  constexpr int BN = kTile / BM;
+  constexpr int WM = BM / 64;   // phase B warps along Co, 64 rows each
+  constexpr int WN = 8 / WM;    // phase B warps along the columns
+  constexpr int TS = BN + 8;    // epilogue tile row stride
+  extern __shared__ __align__(16) float smem[];  // ring, then the slab
+  // the ring in bf16 bits: stage s at 2 s STAGE halfwords
+  unsigned short* ring = reinterpret_cast<unsigned short*>(smem);
+  const StackArgs<bf16>& s = a.s;
+  const Tile t = repro::stack::make_tile(s);
+  const Box b = make_box_bf16(a, t);
+  const int co0 = blockIdx.y * BM;
+  // the slab: 32 mid channels of conv1 outputs, [32][RSTR], float32
+  float* slab = smem + (NS * a.STAGE > BM * TS ? NS * a.STAGE : BM * TS);
+  const int last = a.chunks - 1;
+  const int nsl = a.chunks * (b.passes * a.a_stages + kCM / 16) - kCM / 16 +
+                  (min(kCM, s.Cm - last * kCM) + 15) / 16;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroup: every stage's copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    const int QW = a.vec_x ? 8 : 4;     // columns of a box copy
+    const int XQ = b.XW / QW;           // copies of an x box row
+    const int xrows = t.NBc * b.XH;     // x box rows of one channel
+    constexpr int kU = 4;               // halfword copies in flight at once
+    // the thread's first halfword copy (column xq0 of row (nl0, xh0) of
+    // channel c160), and how far kProducers copies step: dq columns and
+    // drow rows (one more on a column carry)
+    const int xq0 = pt % XQ, dq = kProducers % XQ, drow = kProducers / XQ;
+    int c160 = 0, nl0 = 0, xh0 = pt / XQ;
+    while (xh0 >= b.XH) {
+      xh0 -= b.XH;
+      if (++nl0 == t.NBc) {
+        nl0 = 0;
+        ++c160;
+      }
+    }
+    const unsigned short* xbits = reinterpret_cast<const unsigned short*>(s.x);
+    auto stage = [&](int sl) {
+      const StageId id = stage_id_bf16(a, b, sl);
+      unsigned short* st = ring + (sl % NS) * 2 * a.STAGE;
+      if (id.q < 0) {
+        // w1 rows cm0 .. cm0 + 31, k1 [oct 16 F1^2, + gb 16 F1^2)
+        const int wq = 2 * a.ga * a.FF1;  // 16-byte chunks of a row
+        const int k0 = id.oct * 16 * a.FF1;
+        for (int e = pt; e < kCM * wq; e += kProducers) {
+          const int r = e / wq, c = 8 * (e - r * wq);
+          const int cm = id.chunk * kCM + r;
+          const int valid = cm < s.Cm ? min(8, s.K1 - (k0 + c)) : 0;
+          chunk8(
+              reinterpret_cast<bf16*>(st + r * a.SA1 + c),
+              valid > 0 ? s.w1 + static_cast<long long>(cm) * s.K1 + k0 + c
+                        : s.w1,
+              valid, a.vec_w1);
+        }
+        // the x box of channels oct 16 .. + 16 gb - 1: [16 gb][NB][XH][XW]
+        unsigned short* xs = st + kCM * a.SA1;
+        const int total = 16 * a.ga * xrows * XQ;
+        if (!a.vec_x) {
+          // halfwords, 4 columns a copy, kU copies' loads issued together
+          // with no branch between them; each copy's (column, c16, nl, xh)
+          // stepped on from the thread's first, never divided
+          int xq = xq0, c16 = c160, nl = nl0, xh = xh0;
+          while (c16 < 16 * a.ga) {
+            unsigned h[kU][4];
+            int off[kU];
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              const int ci = id.oct * 16 + c16, ih = b.ih0 + xh;
+              const int iw = b.iw0 + 4 * xq;
+              off[u] = c16 < 16 * a.ga
+                           ? c16 * a.XSTR + (nl * b.XH + xh) * b.XW + 4 * xq
+                           : -1;
+              const bool rok = off[u] >= 0 && ci < s.Ci &&
+                               static_cast<unsigned>(ih) <
+                                   static_cast<unsigned>(s.H);
+              const long long base = static_cast<long long>(t.n0 + nl) *
+                                         s.xs.n +
+                                     static_cast<long long>(ci) * s.xs.c +
+                                     static_cast<long long>(ih) * s.xs.h;
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                h[u][j] = rok && static_cast<unsigned>(iw + j) <
+                                     static_cast<unsigned>(s.W)
+                              ? __ldg(xbits + base +
+                                      static_cast<long long>(iw + j) *
+                                          s.xs.w)
+                              : 0u;
+              xq += dq;  // on by kProducers copies
+              int rows = drow;
+              if (xq >= XQ) {
+                xq -= XQ;
+                ++rows;
+              }
+              xh += rows;
+              while (xh >= b.XH) {
+                xh -= b.XH;
+                if (++nl == t.NBc) {
+                  nl = 0;
+                  ++c16;
+                }
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < kU; ++u)
+              if (off[u] >= 0)
+                *reinterpret_cast<uint2*>(xs + off[u]) =
+                    make_uint2(h[u][0] | (h[u][1] << 16),
+                               h[u][2] | (h[u][3] << 16));
+          }
+        } else {
+          // 16-byte copies of 8 columns (element by element where the row
+          // leaves [0, W)), two at a time
+          for (int e0 = pt; e0 < total; e0 += 2 * kProducers) {
+            unsigned v[2][4];
+            unsigned short* d[2];
+            bool run[2];
+            const unsigned short* src[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int e = e0 + u * kProducers;
+              const int xq = e % XQ, row = e / XQ;
+              const int c16 = row / xrows, rr = row - c16 * xrows;
+              const int nl = rr / b.XH, xh = rr - nl * b.XH;
+              const int ci = id.oct * 16 + c16, ih = b.ih0 + xh;
+              const int iw = b.iw0 + 8 * xq;
+              d[u] = xs + c16 * a.XSTR + rr * b.XW + 8 * xq;
+              const bool rok = e < total && ci < s.Ci &&
+                               static_cast<unsigned>(ih) <
+                                   static_cast<unsigned>(s.H);
+              const long long base =
+                  static_cast<long long>(t.n0 + nl) * s.xs.n +
+                  static_cast<long long>(ci) * s.xs.c +
+                  static_cast<long long>(ih) * s.xs.h;
+              run[u] = rok && iw >= 0 && iw + 8 <= s.W;
+              src[u] = xbits + base + iw;
+              unsigned h[8];
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                h[j] = !run[u] && rok &&
+                               static_cast<unsigned>(iw + j) <
+                                   static_cast<unsigned>(s.W)
+                           ? __ldg(xbits + base + iw + j)
+                           : 0u;
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                v[u][j] = h[2 * j] | (h[2 * j + 1] << 16);
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              if (e0 + u * kProducers >= total) break;
+              if (run[u])
+                cp16(d[u], src[u], true);
+              else
+                *reinterpret_cast<uint4*>(d[u]) =
+                    make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
+            }
+          }
+        }
+      } else {
+        // w2 rows co0 .. co0 + BM - 1, k2 [(chunk 32 + q 16) F2^2, + 16 F2^2)
+        const int wq = 2 * a.FF2;
+        const int k0 = (id.chunk * kCM + id.q * 16) * a.FF2;
+        for (int e = pt; e < BM * wq; e += kProducers) {
+          const int r = e / wq, c = 8 * (e - r * wq);
+          const int co = co0 + r;
+          const int valid = co < s.Co ? min(8, s.Cm * a.FF2 - (k0 + c)) : 0;
+          chunk8(
+              reinterpret_cast<bf16*>(st + r * a.SA2 + c),
+              valid > 0
+                  ? s.w2 + static_cast<long long>(co) * s.Cm * a.FF2 + k0 + c
+                  : s.w2,
+              valid, a.vec_w2);
+        }
+      }
+    };
+#pragma unroll
+    for (int q = 0; q < NS - 1; ++q) {
+      if (q < nsl) stage(q);
+      cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      cp_wait<NS - 2>();  // stage sl has landed: announce it
+      bar_arrive(full_bar(sl % NS), kThreads);
+      const int nx = sl + NS - 1;
+      if (nx < nsl) {
+        if (nx >= NS) bar_sync(empty_bar<NS>(nx % NS), kThreads);
+        stage(nx);
+      }
+      cp_commit();
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: both GEMMs and the epilogue ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;      // phase B
+  const int RS = a.s.RSTR;
+  // the taps: compile-time for 3x3 convs (the loops unroll), else the
+  // arguments'
+  const int F1 = F1T ? F1T : s.F1, F2 = F2T ? F2T : s.F2;
+  const int FF1 = F1 * F1, FF2 = F2 * F2;
+  const int SA1 = a.SA1, SA2 = 16 * FF2 + 8;
+  constexpr int U1 = F1T ? F1T * F1T : 1, U2 = F2T ? F2T * F2T : 1;
+  for (int e = tid; e < kCM * RS; e += kConsumers)
+    slab[e] = 0.f;
+
+  // phase B: the slab offset of column g of each of this warp's column
+  // tiles (ct = nt * WN + wn); past the last column, the last one
+  int boff[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const int c = min((nt * WN + wn) * 8 + g, b.C - 1);
+    const int nl = c / (b.OH * b.OW), r = c - nl * b.OH * b.OW;
+    const int ohl = r / b.OW, owl = r - ohl * b.OW;
+    boff[nt] = nl * b.RH * b.RW + ohl * s.S2 * b.RW + owl * s.S2;
+  }
+  const int ntw = (b.ntB - wn + WN - 1) / WN;  // this warp's column tiles
+
+  float totB[4][4][4], accB[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) totB[mt][nt][e] = 0.f;
+
+  int sl = 0;
+  for (int ch = 0; ch < a.chunks; ++ch) {
+    const int cm0 = ch * kCM;
+    // ---- phase A: conv1 of mid channels cm0 .. cm0 + 31 ----
+    for (int p = 0; p < b.passes; ++p) {
+      // this warp's tiles of the clipped box: jt = p * 32 + j * 8 + warp
+      const int nj = min(4, max(0, (b.ntA - p * kPassTiles - warp + 7) / 8));
+      int xoff[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int pos =
+            min((p * kPassTiles + j * 8 + warp) * 8 + g, b.PA - 1);
+        const int nl = pos / (t.MHc * t.MWc), r = pos - nl * t.MHc * t.MWc;
+        const int mh = r / t.MWc, mw = r - mh * t.MWc;
+        xoff[j] = nl * b.XH * b.XW + (mh + b.dh) * s.S1 * b.XW +
+                  (mw + b.dw) * s.S1 + b.sh;
+      }
+      float accA[2][4][4];  // the pass's sums: one chain over K1
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) accA[mt][j][e] = 0.f;
+      for (int o = 0; o < a.a_stages; ++o, ++sl) {
+        const int buf = sl % NS;
+        bar_sync(full_bar(buf), kThreads);
+        for (int o2 = 0; o2 < a.ga; ++o2) {
+          // k pair (2t, 2t + 1) is channels t, t + 4 of the group; (2t +
+          // 8, 2t + 9) channels t + 8, t + 12
+          const unsigned short* W1s =
+              ring + buf * 2 * a.STAGE + g * SA1 + (o2 * 16 + tq) * FF1;
+          const unsigned short* Xs = ring + buf * 2 * a.STAGE + kCM * SA1 +
+                                     (o2 * 16 + tq) * a.XSTR;
+#pragma unroll U1
+          for (int r = 0; r < FF1; ++r) {
+            // a0 (row g, k 2t..), a1 (row g + 8), a2 (g, 2t + 8..), a3
+            unsigned af[2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              const unsigned short* pa = W1s + mt * 16 * SA1 + r;
+              af[mt][0] = pack2(pa[0], pa[4 * FF1]);
+              af[mt][1] = pack2(pa[8 * SA1], pa[8 * SA1 + 4 * FF1]);
+              af[mt][2] = pack2(pa[8 * FF1], pa[12 * FF1]);
+              af[mt][3] = pack2(pa[8 * SA1 + 8 * FF1], pa[8 * SA1 + 12 * FF1]);
+            }
+            const unsigned short* xr = Xs + (r / F1) * b.XW + r % F1;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (j >= nj) break;
+              const unsigned short* xp = xr + xoff[j];
+              const unsigned b0 = pack2(xp[0], xp[4 * a.XSTR]);
+              const unsigned b1 = pack2(xp[8 * a.XSTR], xp[12 * a.XSTR]);
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt)
+                mma_bf16(accA[mt][j], af[mt], b0, b1);
+            }
+          }
+        }
+        if (sl + NS < nsl) bar_arrive(empty_bar<NS>(buf), kThreads);
+      }
+      // bias1, ReLU, into the slab at the clipped box's positions; the
+      // previous chunk's phase B must be done with the slab first
+      if (p == 0) bar_sync(cons_bar<NS>(), kConsumers);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (j >= nj) break;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int pos =
+              (p * kPassTiles + j * 8 + warp) * 8 + 2 * tq + h;
+          if (pos >= b.PA) continue;
+          const int nl = pos / (t.MHc * t.MWc), r = pos - nl * t.MHc * t.MWc;
+          const int mh = r / t.MWc, mw = r - mh * t.MWc;
+          float* d =
+              slab + nl * b.RH * b.RW + (mh + b.dh) * b.RW + mw + b.dw;
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int v8 = 0; v8 < 2; ++v8) {
+              const int row = mt * 16 + g + 8 * v8, cm = cm0 + row;
+              float v = accA[mt][j][2 * v8 + h];
+              if (s.b1 && cm < s.Cm) v += ld(s.b1 + cm);
+              if (s.relu1) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+              d[row * RS] = v;
+            }
+        }
+      }
+    }
+    bar_sync(cons_bar<NS>(), kConsumers);  // the chunk's slab is complete
+
+    // ---- phase B: conv2's terms of mid channels cm0 .. cm0 + 31, one
+    // chain a chunk ----
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) accB[mt][nt][e] = 0.f;
+    const int nB = (min(kCM, s.Cm - cm0) + 15) / 16;
+    for (int q = 0; q < nB; ++q, ++sl) {
+      const int buf = sl % NS;
+      bar_sync(full_bar(buf), kThreads);
+      const unsigned short* W2s =
+          ring + buf * 2 * a.STAGE + (wm * 64 + g) * SA2 + tq * FF2;
+      const float* sr = slab + (q * 16 + tq) * RS;
+#pragma unroll U2
+      for (int r = 0; r < FF2; ++r) {
+        unsigned af[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          const unsigned short* pa = W2s + mt * 16 * SA2 + r;
+          af[mt][0] = pack2(pa[0], pa[4 * FF2]);
+          af[mt][1] = pack2(pa[8 * SA2], pa[8 * SA2 + 4 * FF2]);
+          af[mt][2] = pack2(pa[8 * FF2], pa[12 * FF2]);
+          af[mt][3] = pack2(pa[8 * SA2 + 8 * FF2], pa[8 * SA2 + 12 * FF2]);
+        }
+        const float* br = sr + (r / F2) * b.RW + r % F2;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          if (nt >= ntw) break;
+          const float* bp = br + boff[nt];
+          unsigned hi0, md0, lo0, hi1, md1, lo1;
+          split3(bp[0], bp[4 * RS], hi0, md0, lo0);
+          split3(bp[8 * RS], bp[12 * RS], hi1, md1, lo1);
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            mma_bf16(accB[mt][nt], af[mt], lo0, lo1);
+            mma_bf16(accB[mt][nt], af[mt], md0, md1);
+            mma_bf16(accB[mt][nt], af[mt], hi0, hi1);
+          }
+        }
+      }
+      if (sl + NS < nsl) bar_arrive(empty_bar<NS>(buf), kThreads);
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) totB[mt][nt][e] += accB[mt][nt][e];
+  }
+
+  if (a.stats && tid == 0) {
+    // what the float32 build counts (8-channel granules): phase A 32 mid
+    // channels x the box's 8-tiles x Ci in 8s x F1^2 taps, phase B BM x the
+    // columns' 8-tiles x the chunk's mid channels in 8s x F2^2 taps
+    unsigned long long f = 0;
+    for (int ch = 0; ch < a.chunks; ++ch)
+      f += 2ull * kCM * 8 * b.ntA * 8 * ((s.Ci + 7) / 8) * a.FF1 +
+           2ull * BM * 8 * b.ntB * 8 * a.FF2 *
+               ((min(kCM, s.Cm - ch * kCM) + 7) / 8);
+    atomicAdd(a.stats, f);
+  }
+
+  // ---- the epilogue: the sums into shared memory (over the ring, which
+  // the last stage freed), then bias2 -> residual -> ReLU [-> pool] ----
+  bar_sync(cons_bar<NS>(), kConsumers);
+  float* T = smem;  // [BM][TS]
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    if (nt >= ntw) break;
+    const int c = (nt * WN + wn) * 8 + 2 * tq;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(T + (wm * 64 + mt * 16 + g + 8 * h) * TS +
+                                   c) =
+            make_float2(totB[mt][nt][2 * h], totB[mt][nt][2 * h + 1]);
+  }
+  bar_sync(cons_bar<NS>(), kConsumers);
+  const int mrows = min(BM, s.Co - co0);
+  const int OHW = b.OH * b.OW;
+  for (int e = tid; e < mrows * b.C; e += kConsumers) {
+    const int m = e / b.C, c = e - m * b.C;
+    const int nl = c / OHW, r = c - nl * OHW;
+    const int ohl = r / b.OW, owl = r - ohl * b.OW;
+    const long long n = t.n0 + nl;
+    const int co = co0 + m, oh = b.oh0 + ohl, ow = b.ow0 + owl;
+    float v = T[m * TS + c];
+    if (s.b2) v += ld(s.b2 + co);
+    if (s.res)
+      v += ld(s.res + n * s.rs.n + static_cast<long long>(co) * s.rs.c +
+              oh * s.rs.h + ow * s.rs.w);
+    if (s.relu2) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+    if (POOL)
+      T[m * TS + c] = v;
+    else
+      put(s.y + n * s.ys.n + static_cast<long long>(co) * s.ys.c +
+              oh * s.ys.h + ow * s.ys.w,
+          v);
+  }
+  if (!POOL) return;
+  bar_sync(cons_bar<NS>(), kConsumers);
+  const int outs = t.NBc * t.UTHc * t.UTWc;
+  const float area = static_cast<float>(s.pF * s.pF);
+  for (int e = tid; e < mrows * outs; e += kConsumers) {
+    const int m = e / outs;
+    int r = e - m * outs;
+    const int uwl = r % t.UTWc;
+    r /= t.UTWc;
+    const int uhl = r % t.UTHc, nl = r / t.UTHc;
+    const float* row = T + m * TS + nl * OHW;
+    float acc = s.pool_avg ? 0.f : -INFINITY;
+    for (int i = 0; i < s.pF; ++i)
+      for (int j = 0; j < s.pF; ++j) {
+        const float v = row[(uhl * s.pS + i) * b.OW + uwl * s.pS + j];
+        acc = s.pool_avg ? acc + v : nan_max(acc, v);
+      }
+    put(s.y + static_cast<long long>(t.n0 + nl) * s.ys.n +
+            static_cast<long long>(co0 + m) * s.ys.c +
+            (t.uh0 + uhl) * s.ys.h + (t.uw0 + uwl) * s.ys.w,
+        s.pool_avg ? acc / area : acc);
+  }
+}
+
 // K5b's shared-memory layout at a block tile (ops.py::k5b_layout computes
 // the same): a phase-A stage holds ga 8-channel groups of Ci (the largest
 // divisor of Ci/8 whose stage fits the slot a phase-B stage needs)
@@ -600,18 +1154,61 @@ Layout layout(int Ci, int F1, int S1, int F2, int S2, int pool_F, int pool_S,
   return l;
 }
 
+// The bf16 build's layout at the same tile (ops.py::k5b_bf16_layout
+// computes the same): every stage in the float32 layout's slot, so the
+// slab and the shared memory are the float32 layout's.  A phase-B stage,
+// BM w2 rows of 16 F2^2 + 8 halfwords, takes the float32 one's bytes.  A
+// phase-A stage holds gb 16-channel groups of Ci, gb the largest divisor of
+// ceil(Ci / 16) whose stage fits: w1 rows of 16 gb F1^2 + 8 halfwords and
+// the x box, its channels XSTR halfwords apart (8 mod 32, as the float32
+// box's floats).  want8: the box rows may copy by 16 bytes (an NCHW
+// source, W % 8 == 0, aligned); box8 says whether they do: the box of an
+// origin aligned down to 8 and a width rounded up to 8 fits the slot at gb
+// = 1.  Else the box starts at its first column, width rounded up to 4,
+// which fits as the float32 box does (at most its columns, half its bytes).
+Layout layout_bf16(const Layout& l, int Ci, int F1, int S1, int F2, int S2,
+                   int pool_F, int pool_S, int nb, int uth, int utw,
+                   bool want8, bool& box8) {
+  Layout b = l;
+  const int oth = pool_F > 0 ? (uth - 1) * pool_S + pool_F : uth;
+  const int otw = pool_F > 0 ? (utw - 1) * pool_S + pool_F : utw;
+  const int rh = (oth - 1) * S2 + F2, rw = (otw - 1) * S2 + F2;
+  const int xh = (rh - 1) * S1 + F1, span = (rw - 1) * S1 + F1;
+  const int ff1 = F1 * F1, ci16 = (Ci + 15) / 16;
+  const long long slot = 2LL * l.stage;  // halfwords
+  auto stage_a = [&](int gb, int xstr) {
+    return 1LL * kCM * (16 * gb * ff1 + 8) + 16LL * gb * xstr;
+  };
+  const int x8 = rows8(nb * xh * ((7 + span + 7) & ~7));
+  box8 = want8 && stage_a(1, x8) <= slot;
+  b.xstr = box8 ? x8 : rows8(nb * xh * ((span + 3) & ~3));
+  b.ga = 1;
+  for (int g = 2; g <= ci16; ++g)
+    if (ci16 % g == 0 && stage_a(g, b.xstr) <= slot) b.ga = g;
+  b.sa1 = 16 * b.ga * ff1 + 8;
+  b.sa2 = 16 * F2 * F2 + 8;
+  if (stage_a(b.ga, b.xstr) > slot) b.bytes = -1;
+  return b;
+}
+
 template <int BM, bool POOL, int FT>
-cudaError_t launch_f(const K5bArgs& a, dim3 grid, int smem, cudaStream_t st) {
+cudaError_t launch_f(const K5bArgs<T>& a, dim3 grid, int smem,
+                     cudaStream_t st) {
+  void (*kernel)(const K5bArgs<T>);
+  if constexpr (std::is_same<T, bf16>::value)
+    kernel = conv_stack_nchw_bf16_kernel<BM, POOL, FT, FT>;
+  else
+    kernel = conv_stack_nchw_kernel<BM, POOL, FT, FT>;
   const cudaError_t e = cudaFuncSetAttribute(
-      conv_stack_nchw_kernel<BM, POOL, FT, FT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  conv_stack_nchw_kernel<BM, POOL, FT, FT><<<grid, kThreads, smem, st>>>(a);
+  kernel<<<grid, kThreads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
 template <int BM, bool POOL>
-cudaError_t launch(const K5bArgs& a, dim3 grid, int smem, cudaStream_t st) {
+cudaError_t launch(const K5bArgs<T>& a, dim3 grid, int smem,
+                   cudaStream_t st) {
   return a.s.F1 == 3 && a.s.F2 == 3 ? launch_f<BM, POOL, 3>(a, grid, smem, st)
                                     : launch_f<BM, POOL, 0>(a, grid, smem, st);
 }
@@ -631,12 +1228,18 @@ extern "C" int REPRO_ENTRY(conv_stack_nchw_forward)(
     int pool_F, int pool_S, int pool_avg, int relu1, int relu2, int src_nchw,
     int dst_nchw, int res_nchw, int bm, int nb, int uth, int utw,
     void* stats, void* stream) {
-  const Layout l =
-      layout(Ci, F1, S1, F2, S2, pool_F, pool_S, bm, nb, uth, utw);
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  Layout l = layout(Ci, F1, S1, F2, S2, pool_F, pool_S, bm, nb, uth, utw);
+  bool box8 = false;
+  if (kBf16 && l.bytes >= 0)
+    l = layout_bf16(l, Ci, F1, S1, F2, S2, pool_F, pool_S, nb, uth, utw,
+                    src_nchw && W % 8 == 0 &&
+                        reinterpret_cast<uintptr_t>(x) % 16 == 0,
+                    box8);
   if (l.bytes < 0 || l.bytes > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  K5bArgs a{};
-  StackArgs& s = a.s;
+  K5bArgs<T> a{};
+  StackArgs<T>& s = a.s;
   s.x = static_cast<const T*>(x);
   s.w1 = static_cast<const T*>(w1);
   s.b1 = static_cast<const T*>(b1);
@@ -670,12 +1273,20 @@ extern "C" int REPRO_ENTRY(conv_stack_nchw_forward)(
   a.XSTR = l.xstr;
   a.STAGE = l.stage;
   a.ga = l.ga;
-  a.a_stages = (Ci + 7) / 8 / l.ga;
   a.chunks = (Cm + kCM - 1) / kCM;
+  if (kBf16) {  // 16-channel stages, runs of 8 elements
+    a.a_stages = (Ci + 15) / 16 / l.ga;
+    a.vec_x = box8;
+    a.vec_w1 = s.K1 % 8 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
+    a.vec_w2 = (Cm * a.FF2) % 8 == 0 &&
+               reinterpret_cast<uintptr_t>(w2) % 16 == 0;
+  } else {
+  a.a_stages = (Ci + 7) / 8 / l.ga;
   a.vec_x = src_nchw && W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   a.vec_w1 = s.K1 % 4 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
   a.vec_w2 = (Cm * a.FF2) % 4 == 0 &&
              reinterpret_cast<uintptr_t>(w2) % 16 == 0;
+  }
   a.stats = static_cast<unsigned long long*>(stats);
   if (N <= 0 || Co <= 0 || Cm <= 0 || s.UH <= 0 || s.UW <= 0)
     return static_cast<int>(cudaGetLastError());

@@ -958,6 +958,16 @@ def _rows8(n: int) -> int:
     return n + (8 - n % 32) % 32
 
 
+def _k5b_box(F1: int, S1: int, F2: int, S2: int, pF: int, pS: int,
+             uth: int, utw: int) -> Tuple[int, int, int, int]:
+    """(rh, rw, xh, span) of a K5b tile of uth x utw units: its unclipped
+    mid box and the rows and columns of the x box under it."""
+    oth = (uth - 1) * pS + pF if pF else uth
+    otw = (utw - 1) * pS + pF if pF else utw
+    rh, rw = (oth - 1) * S2 + F2, (otw - 1) * S2 + F2
+    return rh, rw, (rh - 1) * S1 + F1, (rw - 1) * S1 + F1
+
+
 def k5b_layout(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
                pS: int, bm: int, nb: int, uth: int, utw: int
                ) -> Tuple[int, int]:
@@ -968,10 +978,8 @@ def k5b_layout(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
     box of ga x 8 input channels, ga the largest divisor of Ci/8 that fits
     the slot); 3 slots, 2 at bm 256, or the epilogue tile over them where
     that is larger; then the mid slab of 32 channels."""
-    oth = (uth - 1) * pS + pF if pF else uth
-    otw = (utw - 1) * pS + pF if pF else utw
-    rh, rw = (oth - 1) * S2 + F2, (otw - 1) * S2 + F2
-    xh, xw = (rh - 1) * S1 + F1, (3 + (rw - 1) * S1 + F1 + 3) // 4 * 4
+    rh, rw, xh, span = _k5b_box(F1, S1, F2, S2, pF, pS, uth, utw)
+    xw = (3 + span + 3) // 4 * 4
     ff1, ci_oct = F1 * F1, -(-Ci // 8)
     xstr = _rows8(nb * xh * xw)
 
@@ -984,6 +992,38 @@ def k5b_layout(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
     ring = (2 if bm == 256 else 3) * slot
     tile = bm * (_STACK_TILE // bm + 8)
     return ga, 4 * (max(ring, tile) + _K5B_CM * _rows8(nb * rh * rw))
+
+
+def k5b_bf16_layout(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
+                    pS: int, bm: int, nb: int, uth: int, utw: int,
+                    want8: bool = True) -> Tuple[int, int, int, int, bool]:
+    """(gb, phase-A stage bytes, phase-B stage bytes, slot bytes, box8) of
+    K5b's bf16 build at a tile (``layout_bf16`` in csrc/
+    conv_stack_nchw.cu).  A stage steps 16 channels at one tap: a phase-B
+    stage holds bm w2 rows of 16 F2^2 + 8 halfwords (the float32 stage's
+    bytes), a phase-A stage gb 16-channel groups of Ci (the largest
+    divisor of ceil(Ci / 16) that fits) of w1 rows (16 gb F1^2 + 8
+    halfwords) and of the x box.  Both lie inside ``k5b_layout``'s slot, so
+    the slab and the block's shared memory are the float32 build's.
+    ``want8``: the x rows may copy by 16 bytes (an NCHW source, W % 8 ==
+    0); ``box8``: they do, the box of an origin aligned down to 8 and a
+    width rounded up to 8 fitting the slot."""
+    _, _, xh, span = _k5b_box(F1, S1, F2, S2, pF, pS, uth, utw)
+    xw = (3 + span + 3) // 4 * 4
+    ff1, ci16 = F1 * F1, -(-Ci // 16)
+    slot = 2 * max(_K5B_CM * (8 * ff1 + 4) + 8 * _rows8(nb * xh * xw),
+                   bm * (8 * F2 * F2 + 4))          # halfwords
+
+    def stage_a(gb, xstr):
+        return _K5B_CM * (16 * gb * ff1 + 8) + 16 * gb * xstr
+
+    x8 = _rows8(nb * xh * ((7 + span + 7) // 8 * 8))
+    box8 = want8 and stage_a(1, x8) <= slot
+    xstr = x8 if box8 else _rows8(nb * xh * ((span + 3) // 4 * 4))
+    gb = max(g for g in range(1, ci16 + 1)
+             if ci16 % g == 0 and (g == 1 or stage_a(g, xstr) <= slot))
+    return (gb, 2 * stage_a(gb, xstr), 2 * bm * (16 * F2 * F2 + 8),
+            2 * slot, box8)
 
 
 def _balanced(U: int, cap: int):

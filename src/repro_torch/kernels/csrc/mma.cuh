@@ -6,7 +6,8 @@
 // the NCHW conv -> conv stack K5b
 // (conv/csrc/conv_stack_nchw.cu), the tiled matmul K10
 // (matmul/csrc/matmul.cu) and the fused unembed + cross entropy K12
-// (crossentropy/csrc/crossentropy.cu).
+// (crossentropy/csrc/crossentropy.cu).  The bf16 products run in K1's
+// narrow builds, K5a's, K5b's and K6's bf16 builds, K10, K11 and K12.
 //
 // - cp.async copies global -> shared (16, 8 or 4 bytes, with zero fill),
 //   committed and waited on in groups;
@@ -88,10 +89,17 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4],
 
 // element offset of 16-byte chunk c of row r in a [rows][DT] bf16 tile
 // whose chunk index is XORed with r mod 8: ldmatrix's 8 row addresses of
-// one 8 x 8 matrix then fall in 8 different bank groups
+// one 8 x 8 matrix then fall in 8 different bank groups (rows of 64
+// elements: the 128-byte swizzle of wgmma's shared-memory descriptors)
 template <int DT>
 __device__ __forceinline__ int swz(int r, int c) {
   return r * DT + ((c ^ (r & 7)) << 3);
+}
+// the same for rows of 32 bf16 (64 bytes, 4 chunks), two rows to a
+// 128-byte line: chunk c of row r XORed with (r / 2) mod 4, so the 8 rows of
+// an 8 x 8 matrix again fall in 8 bank groups (wgmma's 64-byte swizzle)
+__device__ __forceinline__ int swz32(int r, int c) {
+  return r * 32 + ((c ^ ((r >> 1) & 3)) << 3);
 }
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
@@ -100,6 +108,12 @@ __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2(unsigned (&r)[2], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
 }
 __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));

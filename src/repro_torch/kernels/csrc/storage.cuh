@@ -22,7 +22,7 @@
 // 16-byte conditions stand as they are.  Where w is bf16, K1 and K5a keep
 // bf16 rings instead (16-byte cp.async of 8 elements; bf16_bits and bf16x8
 // for what arrives through registers) and multiply on the bf16 tensor
-// cores; their notes say how.
+// cores, as the bf16 builds of K5b and K6 do; their notes say how.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -106,49 +106,12 @@ __device__ __forceinline__ float4 ld4(const int8_t* src) {
   return make_float4(i8_at(r, 0), i8_at(r, 1), i8_at(r, 2), i8_at(r, 3));
 }
 
-// 4 elements of a narrow type as their raw bits: what a producer keeps in
-// registers while their loads are in flight, widened when it stores them
-template <typename T>
-struct Raw4;
-template <>
-struct Raw4<bf16> {
-  uint2 b;
-};
-template <>
-struct Raw4<int8_t> {
-  unsigned b;
-};
-// 4 consecutive elements by one load (aligned as ld4's)
-__device__ __forceinline__ void load_raw4(Raw4<bf16>& r, const bf16* p) {
-  r.b = __ldg(reinterpret_cast<const uint2*>(p));
-}
-__device__ __forceinline__ void load_raw4(Raw4<int8_t>& r, const int8_t* p) {
-  r.b = __ldg(reinterpret_cast<const unsigned*>(p));
-}
 // one element's bits where ok, else the bits of 0
 __device__ __forceinline__ unsigned raw1(const bf16* p, bool ok) {
   return ok ? __ldg(reinterpret_cast<const unsigned short*>(p)) : 0u;
 }
 __device__ __forceinline__ unsigned raw1(const int8_t* p, bool ok) {
   return ok ? __ldg(reinterpret_cast<const unsigned char*>(p)) : 0u;
-}
-__device__ __forceinline__ void pack_raw4(Raw4<bf16>& r, unsigned e0,
-                                          unsigned e1, unsigned e2,
-                                          unsigned e3) {
-  r.b = make_uint2(e0 | (e1 << 16), e2 | (e3 << 16));
-}
-__device__ __forceinline__ void pack_raw4(Raw4<int8_t>& r, unsigned e0,
-                                          unsigned e1, unsigned e2,
-                                          unsigned e3) {
-  r.b = e0 | (e1 << 8) | (e2 << 16) | (e3 << 24);
-}
-__device__ __forceinline__ float4 widen4(const Raw4<bf16>& r) {
-  return make_float4(lo_bf16(r.b.x), hi_bf16(r.b.x), lo_bf16(r.b.y),
-                     hi_bf16(r.b.y));
-}
-__device__ __forceinline__ float4 widen4(const Raw4<int8_t>& r) {
-  const int v = static_cast<int>(r.b);
-  return make_float4(i8_at(v, 0), i8_at(v, 1), i8_at(v, 2), i8_at(v, 3));
 }
 
 // The bf16 bits of one element where ok, else 0: a bf16 as it is, an int8
@@ -167,6 +130,36 @@ __device__ __forceinline__ uint4 bf16x8(uint2 r) {
             0xffff0000u);
   };
   return make_uint4(two(r.x, 0), two(r.x, 1), two(r.y, 0), two(r.y, 1));
+}
+
+// 8 bf16 from src into a 16-byte chunk of a bf16 ring (K5a, K5b): by
+// cp.async where run (all 8 there, src 16-byte aligned), zeros where n <=
+// 0, else element by element (the first n of the 8)
+__device__ __forceinline__ void chunk8(bf16* dst, const bf16* src, int n,
+                                       bool run) {
+  if (n <= 0) {
+    mma::cp16(dst, src, false);
+  } else if (run) {
+    mma::cp16(dst, src, true);
+  } else {
+    unsigned v[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = bf16_bits(src + j, j < n);
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(v[0] | (v[1] << 16), v[2] | (v[3] << 16),
+                   v[4] | (v[5] << 16), v[6] | (v[7] << 16));
+  }
+}
+
+// (x0, x1) as three bf16 pairs (element 0 in the low half) that sum to them
+// exactly: hi, the rest md, the rest lo (8 significand bits each cover the
+// float32's 24).  K5a's and K5b's bf16 conv2 multiply the float32 mid so.
+__device__ __forceinline__ void split3(float x0, float x1, unsigned& hi,
+                                       unsigned& md, unsigned& lo) {
+  hi = mma::pack_bf16(x0, x1);
+  const float r0 = x0 - lo_bf16(hi), r1 = x1 - hi_bf16(hi);
+  md = mma::pack_bf16(r0, r1);
+  lo = mma::pack_bf16(r0 - lo_bf16(md), r1 - hi_bf16(md));
 }
 
 // 4 consecutive elements into 4 floats (dst 16-byte aligned); ok == false

@@ -183,11 +183,24 @@ def test_k9_bf16_is_exact(shape, card):
 
 
 # (N, Ci, H, Co, F, S, pad): stride 1/2/4, F 1/3/7/11, Ci 3, ragged Co,
-# one split and many
+# one split and many; the bf16 kernel's producer lanes: 16-byte runs of n
+# (N 32) and of ow (W 56), halfwords at Wo 28, 14 and 7 and at stride 2,
+# thin K (bn 32 at K 27, bn 64 at K 64)
 WGRAD_SHAPES = [(4, 3, 19, 70, 3, 1, 1), (1, 3, 35, 33, 11, 4, 0),
                 (3, 8, 15, 129, 1, 2, 0), (2, 4, 17, 64, 7, 1, 3),
                 (8, 64, 56, 64, 3, 1, 1), (32, 64, 14, 128, 3, 2, 1),
-                (2, 512, 4, 512, 3, 1, 1)]
+                (2, 512, 4, 512, 3, 1, 1), (32, 64, 28, 64, 3, 1, 1),
+                (4, 256, 14, 256, 3, 1, 1), (8, 64, 28, 128, 1, 2, 0)]
+
+
+def _offset(t):
+    """``t``'s values in a contiguous tensor whose data starts one element
+    past an aligned allocation: no 16-byte copy can start on it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 != 0
+    return out
 
 
 @pytest.mark.parametrize("x_layout,g_layout", list(itertools.product(
@@ -210,8 +223,28 @@ def test_k6_bf16_matches_float64(x_layout, g_layout, card):
         assert plain.dtype == torch.float32
 
 
+@pytest.mark.parametrize("x_layout,g_layout", list(itertools.product(
+    ("CHWN", "NCHW"), repeat=2)))
+def test_k6_bf16_unaligned_bases_match_float64(x_layout, g_layout, card):
+    """x and g starting 2 bytes past an aligned address: every chunk goes
+    element by element."""
+    N, Ci, H, Co, F, S, pad = 32, 64, 14, 128, 3, 1, 1
+    gen = torch.Generator(device=card).manual_seed(11)
+    x = _offset(_randn(x_layout, (N, Ci, H, H), gen, card))
+    g = _offset(_randn(g_layout, (N, Co, H, H), gen, card))
+    kw = dict(x_layout=x_layout, g_layout=g_layout)
+    dw = _counted(conv_wgrad, lambda: conv_wgrad(x, g, F, S, pad, **kw))
+    assert torch.equal(dw, conv_wgrad(x, g, F, S, pad, **kw))
+    want = wgrad_ref(x, g, F, S, pad, dtype=torch.float64, **kw)
+    err = (dw.double() - want).abs().max() / max(1.0, want.abs().max().item())
+    assert err.item() <= WGRAD_TOL, err.item()
+
+
 # (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, res, src, dst): the
-# ResNet-18 and VGG16 shapes of the training path, and edges
+# ResNet-18 and VGG16 shapes of the training path, and edges; the bf16
+# kernel's producer lanes: x box rows by 16 bytes (NCHW, W % 8 == 0) and
+# by halfwords (W 55, 13, 14, 7; a CHWN source), stride 2, Ci and Cm not
+# multiples of 16 (3, 7, 24; 24, 40), K1 4608 (one conv1 chain)
 STACK_CASES = [
     (4, 64, 56, 64, 64, 3, 1, 1, 3, 1, 1, None, "NCHW", "NCHW", "NCHW"),
     (4, 64, 56, 128, 128, 3, 2, 1, 3, 1, 1, None, "CHWN", "NCHW", "NCHW"),
@@ -219,6 +252,12 @@ STACK_CASES = [
      "CHWN"),
     (5, 7, 13, 24, 70, 3, 2, 1, 3, 1, 1, (2, 2, "avg"), "NCHW", "CHWN",
      "NCHW"),
+    (4, 64, 55, 64, 64, 3, 1, 1, 3, 1, 1, None, "NCHW", "NCHW", "NCHW"),
+    (4, 256, 14, 256, 256, 3, 1, 1, 3, 1, 1, None, "NCHW", "NCHW", "NCHW"),
+    (2, 512, 7, 512, 512, 3, 1, 1, 3, 1, 1, None, None, "NCHW", "NCHW"),
+    (3, 24, 16, 40, 48, 3, 1, 1, 3, 1, 1, (2, 2, "max"), None, "NCHW",
+     "NCHW"),
+    (2, 32, 32, 32, 64, 3, 1, 1, 3, 1, 1, None, "CHWN", "CHWN", "CHWN"),
 ]
 
 
@@ -243,6 +282,25 @@ def test_k5b_bf16_matches_plain(case, card):
     want = conv_stack_ref(x, w1, w2, S1, P1, S2, P2, **kw)
     assert got.dtype == BF
     assert_bf16_close(got, want)
+    # a fixed summation order: repeated runs bit for bit equal
+    assert torch.equal(got, wrapper(x, w1, w2, S1, P1, S2, P2, **kw))
+
+
+def test_k5b_bf16_unaligned_bases_match_plain(card):
+    """x, w1 and w2 starting 2 bytes past an aligned address, W % 8 == 0:
+    the box rows and weight rows go by halfwords."""
+    N, Ci, H, Cm, Co = 4, 64, 32, 64, 64
+    gen = torch.Generator(device=card).manual_seed(9)
+    x = _offset(_randn("NCHW", (N, Ci, H, H), gen, card))
+    w1 = _offset((torch.randn(Cm, Ci, 3, 3, generator=gen, device=card)
+                  / np.sqrt(Ci * 9)).to(BF))
+    w2 = _offset((torch.randn(Co, Cm, 3, 3, generator=gen, device=card)
+                  / np.sqrt(Cm * 9)).to(BF))
+    kw = dict(relu1=True, relu2=True)
+    wrapper = conv_ops.conv_stack_nchw
+    got = _counted(wrapper, lambda: wrapper(x, w1, w2, 1, 1, 1, 1, **kw))
+    assert_bf16_close(got, conv_stack_ref(x, w1, w2, 1, 1, 1, 1, **kw))
+    assert torch.equal(got, wrapper(x, w1, w2, 1, 1, 1, 1, **kw))
 
 
 # (engine, N, Ci, H, Co, F, S, pad, pool, relu, res, src, dst): the pooled

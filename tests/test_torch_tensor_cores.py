@@ -7,20 +7,24 @@ CPU.
   K1 within 1e-5 scale-relative to float64 (K6's ``WGRAD_TOL``, the
   accuracy gate of the kernel), where one TF32 product a term misses it;
   K12's loss within ``LM_TOL`` (1e-4 rtol and atol) of float64.
-- The bf16 arithmetic of K1's narrow builds and K5a's bf16 build
-  (``repro_torch.kernels.bf16_mma``): bf16 products summed in fp32 with a
-  flush every 64 terms (K1) or once a 64-channel chunk (K5a's conv2) hold
-  the bf16 gate (one bf16 step,
-  2^-7 |want| + 1e-5 max|want|) against float64 at K1's longest
-  reductions; K5a's conv2, which reads the float32 mid as three bf16 parts,
-  holds the gate and float32 accuracy (``MID_TOL``) at its longest
+- The bf16 arithmetic of K1's narrow builds and the bf16 builds of K5a,
+  K5b and K6 (``repro_torch.kernels.bf16_mma``): bf16 products summed in
+  fp32 with a flush every 64 terms (K1), once a 64-channel chunk (K5a's
+  conv2) or a 32-channel one (K5b's conv2), one chain over K1 (K5b's
+  conv1) hold the bf16 gate (one bf16 step,
+  2^-7 |want| + 1e-5 max|want|) against float64 at the longest
+  reductions; the stacks' conv2, which reads the float32 mid as three bf16
+  parts, holds the gate and float32 accuracy (``MID_TOL``) at its longest
   reductions, where two parts miss float32 accuracy and a bf16-rounded mid
-  misses the gate.
+  misses the gate; K6's slices of 32 positions, flushed each slice and
+  summed split by split, hold K6's gate (1e-5 scale-relative to float64)
+  over VGG16 conv1_2's 1.6M positions.
 - The narrow builds' shared memory (``k1_narrow_smem``,
-  ``k5a_bf16_ring_bytes``, mirrors of their layouts) within what the tile
-  models reckon (``conv_tiling``, ``stack_tiling``) at every bf16 and
-  int8-input launch of the smoke's bf16 serving and training plans, and
-  the H100 profile's plans of every network unchanged.
+  ``k5a_bf16_ring_bytes``, ``k5b_bf16_layout``, ``wgrad_bf16_smem``,
+  mirrors of their layouts) within what the tile models reckon
+  (``conv_tiling``, ``stack_tiling``, ``k5b_layout``, 227 KB) at every
+  bf16 and int8-input launch of the smoke's bf16 serving and training
+  plans, and the H100 profile's plans of every network unchanged.
 - K1's block tile ``conv_tiling``: a block-by-block recount of what the
   kernel computes (its conv outputs, its FLOPs, its blocks), that every
   pooled output has exactly one owner block and every conv output under a
@@ -40,13 +44,16 @@ import chip_smoke
 from repro_torch.cnn.network import plan_network_fused
 from repro_torch.configs.cnn_networks import CNN_CONFIGS
 from repro_torch.kernels import bf16_mma
-from repro_torch.kernels.conv.backward import dgrad_shape
+from repro_torch.kernels.conv.backward import (dgrad_shape, wgrad_bf16_smem,
+                                               wgrad_tiling)
 from repro_torch.kernels.conv.ops import (SMEM_PER_BLOCK,
                                           _cluster_ring_bytes, conv_tiling,
                                           k1_narrow_smem,
-                                          k5a_bf16_ring_bytes, stack_tiling)
+                                          k5a_bf16_ring_bytes, k5b_bf16_layout,
+                                          k5b_layout, stack_tiling)
 from repro_torch.kernels.tf32 import gemm_emulated
 from repro_torch.shapes import conv_out_hw, pool_out_hw
+from tests.test_torch_bf16_train_card import STACK_CASES, WGRAD_SHAPES
 from tests.test_torch_kernels_card import CONV_CASES
 
 K1_TOL = 1e-5        # scale-relative to float64
@@ -150,6 +157,67 @@ def test_k5a_conv2_three_part_mid_holds_float32_and_fewer_parts_do_not(
                       want) > 1.0, what
 
 
+# K5b's longest reductions on the main path: ResNet-18's layer4 (512 x 3 x
+# 3, conv1 and conv2 alike) and the stacks it runs (layer1, 64 x 3 x 3)
+K5B_REDUCTIONS = [("resnet18-layer1", 64 * 9), ("resnet18-layer4", 512 * 9)]
+
+
+@pytest.mark.parametrize("what,K", K5B_REDUCTIONS,
+                         ids=[w for w, _ in K5B_REDUCTIONS])
+def test_k5b_bf16_conv1_one_chain_a_pass_holds_the_bf16_gate(what, K):
+    """K5b bf16's conv1: bf16 w1 at the He scale by bf16 activations,
+    products exact, summed in fp32 in ONE chain over all of K1 (a pass
+    never flushes), against float64."""
+    rng = np.random.default_rng(K + 1)
+    w1 = _he_bf16(rng, 32, K)
+    x = bf16_mma.to_bf16(torch.from_numpy(
+        rng.standard_normal((K, 256), np.float32)))
+    want = w1.double() @ x.double()
+    got = bf16_mma.gemm_emulated(w1, [x], K)
+    assert _bf16_gate(got, want) <= 1.0, what
+    assert _scaled_err(got, want) <= K1_TOL, what
+
+
+@pytest.mark.parametrize("what,K", K5B_REDUCTIONS,
+                         ids=[w for w, _ in K5B_REDUCTIONS])
+def test_k5b_bf16_conv2_three_part_mid_in_32_channel_chunks(what, K):
+    """K5b bf16's conv2: the float32 mid (a ReLU output) as three bf16
+    parts by bf16 w2, one chain a chunk of 32 mid channels (288 terms of
+    a 3 x 3 conv2, three products each), the chunks added in fp32: within
+    the bf16 gate and float32 accuracy of float64."""
+    rng = np.random.default_rng(K + 2)
+    w2 = _he_bf16(rng, 64, K)
+    mid = torch.from_numpy(np.maximum(
+        rng.standard_normal((K, 512), np.float32), np.float32(0)))
+    want = w2.double() @ mid.double()
+    got = bf16_mma.conv2_emulated(w2, mid, 3, parts=3,
+                                  chunk=bf16_mma.K5B_CHUNK)
+    assert _bf16_gate(got, want) <= 1.0, what
+    assert _scaled_err(got, want) <= MID_TOL, what
+
+
+WGRAD_TOL = 1e-5     # K6's gate, scale-relative to float64
+
+
+def test_k6_bf16_slices_hold_its_gate_over_vgg16_conv1_2():
+    """K6 bf16 at VGG16 conv1_2's 32 x 224 x 224 output positions (its
+    longest reduction): bf16 g and x of unit scale, as the smoke draws
+    them, one bf16 product a term, each 32-position slice summed from zero
+    and added to its split's fp32 total, the splits of ``wgrad_tiling``
+    added in order; within 1e-5 scale-relative of float64."""
+    P = 32 * 224 * 224
+    t = wgrad_tiling(64, 64 * 9, P)
+    assert t.splits > 1
+    rng = np.random.default_rng(7)
+    g = bf16_mma.to_bf16(torch.from_numpy(
+        rng.standard_normal((4, P), np.float32)))
+    x = bf16_mma.to_bf16(torch.from_numpy(
+        rng.standard_normal((P, 8), np.float32)))
+    want = g.double() @ x.double()
+    got = bf16_mma.wgrad_emulated(g, x, t.per)
+    assert _scaled_err(got, want) <= WGRAD_TOL
+
+
 def test_mid_parts_sum_to_the_float32_value_exactly():
     rng = np.random.default_rng(0)
     m = torch.from_numpy(rng.standard_normal(4096, np.float32)
@@ -176,7 +244,8 @@ def _narrow_launches():
     for network, batch, profile in chip_smoke.BF16_TRAINED:
         cfg, plan = chip_smoke.bf16_train_plan(network, batch, profile)
         out += chip_smoke.plan_train_launches(cfg, plan)
-    narrow = ("conv_chwn.bf16", "conv_chwn.i8bf16", "conv_stack_chwn.bf16")
+    narrow = ("conv_chwn.bf16", "conv_chwn.i8bf16", "conv_stack_chwn.bf16",
+              "conv_stack_nchw.bf16", "wgrad.bf16")
     return sorted({(k, c) for k, c in out if k in narrow}, key=repr)
 
 
@@ -194,7 +263,8 @@ def test_narrow_builds_fit_the_tile_models_at_every_main_path_launch():
     launches = _narrow_launches()
     kinds = {k for k, _ in launches}
     assert kinds == {"conv_chwn.bf16", "conv_chwn.i8bf16",
-                     "conv_stack_chwn.bf16"}
+                     "conv_stack_chwn.bf16", "conv_stack_nchw.bf16",
+                     "wgrad.bf16"}
     assert any(c[0] == "dgrad" for k, c in launches)
     assert any(c[0] == "save_act" for k, c in launches)
     for kern, case in launches:
@@ -206,6 +276,25 @@ def test_narrow_builds_fit_the_tile_models_at_every_main_path_launch():
             # the block's shared memory) is where stack_tiling puts it
             assert k5a_bf16_ring_bytes(t.bm) <= _cluster_ring_bytes(t.bm),                 case
             assert t.smem_bytes <= SMEM_PER_BLOCK, case
+            continue
+        if kern == "conv_stack_nchw.bf16":
+            N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool = case[:12]
+            t = stack_tiling("NCHW", N, Ci, H, H, Cm, F1, S1, P1, Co, F2,
+                             S2, P2, pool)
+            pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+            tile = (F2, S2, pF, pS, t.bm, t.nb, t.uth, t.utw)
+            # 16-channel bf16 stages inside the float32 layout's slot: the
+            # block's shared memory is k5b_layout's, which the tiling fits
+            _, stage_a, stage_b, slot, _ = k5b_bf16_layout(Ci, F1, S1, *tile)
+            assert max(stage_a, stage_b) <= slot, case
+            assert k5b_layout(Ci, F1, S1, *tile)[1] == t.smem_bytes, case
+            assert t.smem_bytes <= SMEM_PER_BLOCK, case
+            continue
+        if kern == "wgrad.bf16":
+            N, Ci, H, Co, F, S, pad = case[:7]
+            Ho = conv_out_hw(H, F, S, pad)
+            t = wgrad_tiling(Co, Ci * F * F, N * Ho * Ho)
+            assert wgrad_bf16_smem(t.bm, t.bn) <= SMEM_PER_BLOCK, case
             continue
         N, Ci, H, Co, F, S, pad, pool = _k1_shape(case)
         t = conv_tiling(N, Ci, H, H, Co, F, S, pad, pool)
@@ -219,6 +308,45 @@ def test_narrow_builds_fit_the_tile_models_at_every_main_path_launch():
         assert k1_narrow_smem(t.bm, cmax) <= t.smem_bytes, (kern, case)
         # unpooled sums are staged over the ring: bm rows of 128 + 8 floats
         assert 4 * t.bm * (128 + 8) <= k1_narrow_smem(t.bm, 0) - 4 * 3 * 128
+
+
+def test_bf16_card_cases_reach_every_producer_lane():
+    """The card tests of K5b bf16 and K6 bf16 (tests/
+    test_torch_bf16_train_card.py) reach each path of the bf16 kernels'
+    producers and tiles: K5b's x box by 16-byte copies (an NCHW source, W
+    % 8 == 0, the 8-aligned box fitting the slot) and by halfwords, stride
+    2, Ci and Cm not multiples of 16, both sources and residual layouts,
+    both pools; K6 at one split and many, each block width (thin K at bn
+    32 and 64), Wo 28, 14 and 7, stride 2."""
+    box16 = halfwords = 0
+    for (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, rlay, src,
+         _) in STACK_CASES:
+        t = stack_tiling("NCHW", N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2,
+                         P2, pool)
+        pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+        box8 = k5b_bf16_layout(Ci, F1, S1, F2, S2, pF, pS, t.bm, t.nb,
+                               t.uth, t.utw)[4]
+        if src == "NCHW" and H % 8 == 0 and box8:
+            box16 += 1
+        else:
+            halfwords += 1
+    assert box16 and halfwords
+    assert {c[6] for c in STACK_CASES} >= {1, 2}
+    assert any(c[1] % 16 for c in STACK_CASES)
+    assert any(c[3] % 16 for c in STACK_CASES)
+    assert {c[14] for c in STACK_CASES} == {"NCHW", "CHWN"}
+    assert {c[12] for c in STACK_CASES} == {None, "NCHW", "CHWN"}
+    assert {c[11][2] for c in STACK_CASES if c[11]} == {"max", "avg"}
+    splits, widths, wos = set(), set(), set()
+    for N, Ci, H, Co, F, S, pad in WGRAD_SHAPES:
+        Ho = conv_out_hw(H, F, S, pad)
+        t = wgrad_tiling(Co, Ci * F * F, N * Ho * Ho)
+        splits.add(t.splits > 1)
+        widths.add(t.bn)
+        wos.add(Ho)
+    assert splits == {False, True} and widths == {32, 64, 128}
+    assert wos >= {28, 14, 7}
+    assert {c[5] for c in WGRAD_SHAPES} >= {1, 2}
 
 
 # sha256 of repr(plan_network_fused(cfg, dtype=...)) on the H100 profile,

@@ -18,9 +18,11 @@ sources run in turns (checkout, sources, sources reversed, checkout);
 each case is held against its plain version as the smoke holds it
 (``chip_smoke.dtype_case``), and the ms summed over each network's
 launches (a case's ms times its launches) is printed beside the library
-call's.  ``--timing-only`` skips the checks, for variants that time a
-part of the kernel (producers that copy nothing, consumers that multiply
-nothing) and so compute nothing to check.  Needs a CUDA device and nvcc.
+call's; ``--per-case`` also prints each distinct launch's ms (its
+case, the launches it makes, ms and library ms a launch).
+``--timing-only`` skips the checks, for variants that time a part of the
+kernel (producers that copy nothing, consumers that multiply nothing) and
+so compute nothing to check.  Needs a CUDA device and nvcc.
 """
 from __future__ import annotations
 
@@ -93,13 +95,17 @@ def build(src: Path, variant: str, entry: str, include: Path, out: Path):
     return fn
 
 
-def timed(name: str, cases: Counter, dev) -> Counter:
+def timed(name: str, cases: Counter, dev, per_case: bool = False
+          ) -> Counter:
     tot = Counter()
     with torch.inference_mode():
         for i, ((network, case), n) in enumerate(cases.items()):
             m = cs.dtype_case(name, case, dev, i)
             tot[network] += n * m["ms"]
             tot[f"{network} library"] += n * m["library_ms"]
+            if per_case:
+                print(f"  {network} {case} x{n}: ms={m['ms']:.4f} "
+                      f"library_ms={m['library_ms']:.4f}", flush=True)
     return tot
 
 
@@ -107,6 +113,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("name", help="a kernels-line row, KERNEL.VARIANT")
     ap.add_argument("sources", nargs="*", type=Path)
+    ap.add_argument("--per-case", action="store_true",
+                    help="print each distinct launch's times")
     ap.add_argument("--timing-only", action="store_true",
                     help="time without holding outputs against the plain "
                          "version")
@@ -114,6 +122,7 @@ def main() -> int:
     if args.timing_only:
         cs.bf16_check = cs.exact_check = lambda got, want: None
         cs.bitwise_runs = lambda *a, **k: None
+        cs.WGRAD_TOL = float("inf")
     if not torch.cuda.is_available():
         print("storage_variants: no CUDA device", file=sys.stderr)
         return 2
@@ -134,7 +143,7 @@ def main() -> int:
         order = ["checkout"] + [str(s) for s in args.sources]
         for label in order + order[::-1]:
             _build._entries[variant][entry] = fns[label]
-            tot = timed(args.name, cases, dev)
+            tot = timed(args.name, cases, dev, args.per_case)
             print(f"{label}: " + ", ".join(f"{k} {v:.3f} ms"
                                            for k, v in tot.items()),
                   flush=True)
