@@ -1206,16 +1206,19 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         g = g_nchw.permute(perm_between("NCHW", g_lay)).contiguous()
         gd, wt, pd = dgrad_problem(g, w, (H, H), S, pad, g_lay)
         wk = wt.permute(1, 2, 3, 0).contiguous() if engine == "CHWN" else wt
-        return _measure(
-            lambda: _conv(engine, gd, wk, 1, pd, src_layout=g_lay,
-                          dst_layout=dst),
-            lambda: conv_ref(gd, wt, 1, pd, src_layout=g_lay,
-                             dst_layout=dst),
+        kw = dict(src_layout=g_lay, dst_layout=dst)
+        m = _measure(
+            lambda: _conv(engine, gd, wk, 1, pd, **kw),
+            lambda: conv_ref(gd, wt, 1, pd, **kw),
             lambda: torch.nn.grad.conv2d_input((N, Ci, H, H), w, g_nchw,
                                                stride=S, padding=pad),
             2.0 * N * Co * Ho * Ho * Ci * F * F,
             nbytes(g, w) + N * Ci * H * H * w.element_size(), peak=peak,
             check=check)
+        if base == "conv_nchw":
+            _k2_narrow(m, kern, case, gd, wt, 1, pd, kw, check,
+                       lambda: _conv(engine, gd, wk, 1, pd, **kw))
+        return m
     save_act = case[0] == "save_act"
     N, Ci, H, Co, F, S, pad, pool, relu, rlay, src, dst = case[save_act:]
     Ho = conv_out_hw(H, F, S, pad)
@@ -1268,7 +1271,30 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         if wdt is torch.bfloat16:   # the narrow builds' runs: bitwise equal
             bitwise_runs(kernel, f"{kern} {case}")
             m["bitwise_equal_runs"] = 3
+    else:
+        _k2_narrow(m, kern, case, x, w, S, pad, kw, check, kernel)
     return m
+
+
+def _k2_narrow(m: dict, kern: str, case, x, w, S: int, pad: int, kw,
+               check, kernel) -> None:
+    """A narrow K2 launch (``kernel()`` runs it) once more counting the
+    FLOPs its blocks execute, which must equal ``nchw_tiling``'s, its
+    output held as the launch's (``check``); where w is bf16 (the bf16
+    tensor cores) also three runs bitwise equal and the error against
+    float64 of the same values, scale-relative (its gate is one bf16 step
+    of the plain version)."""
+    y = _k2_tile(m, case, x, w, S, pad, kw)
+    plain = conv_ref(x, w, S, pad, **kw)
+    if check is None:
+        torch.testing.assert_close(y, plain, rtol=CONV_RTOL, atol=CONV_ATOL)
+        return
+    check(y, plain)
+    bitwise_runs(kernel, f"{kern} {case}")
+    res = kw.get("res")
+    want = conv_ref(x.double(), w.double(), S, pad,
+                    **{**kw, "res": None if res is None else res.double()})
+    m.update(bitwise_equal_runs=3, f64_err=_scaled_err(y, want))
 
 
 def bitwise_runs(fn, what: str, first=None, runs: int = 3) -> None:
@@ -1932,6 +1958,12 @@ def kernel_phase(dev):
                           f"resident_clusters={m['resident_clusters']}")
             if "bitwise_equal_runs" in m:
                 extra += f" bitwise_equal_runs={m['bitwise_equal_runs']}"
+            if kern.startswith("conv_nchw."):
+                extra += (f" executed/direct="
+                          f"{m['executed_flops'] / m['flops']:.3f} "
+                          f"tile={m['tile']} blocks={m['blocks']}")
+                if "f64_err" in m:
+                    extra += f" f64_err={m['f64_err']:.3g}"
             if "device_ms" in m:
                 extra = f" device_ms={m['device_ms']:.5f}"
         elif kern in ("conv_chwn", "conv_nchw"):
@@ -1953,6 +1985,9 @@ def kernel_phase(dev):
                                   if r["kernel"] == "wgrad"]), flush=True)
     print(tensor_core_line("K6 bf16", [r for r in mult.values()
                                        if r["kernel"] == "wgrad.bf16"],
+                           peak="bf16", design="bf16"), flush=True)
+    print(tensor_core_line("K2 bf16", [r for r in mult.values()
+                                       if r["kernel"] == "conv_nchw.bf16"],
                            peak="bf16", design="bf16"), flush=True)
     # per forward (and training step): each kernel's launches summed
     for kind, network, label, keys in batches:

@@ -96,6 +96,7 @@ using repro::storage::chunk8;
 using repro::storage::copy1;
 using repro::storage::copy4;
 using repro::storage::ld;
+using repro::storage::pack2;
 using repro::storage::put;
 using repro::storage::split3;
 using T = REPRO_WT;  // the storage type of every tensor (the mid: float32)
@@ -658,12 +659,6 @@ __device__ __forceinline__ StageId stage_id_bf16(const K5bArgs<bf16>& a,
     id.q = r - na;
   }
   return id;
-}
-
-// two bf16 bits into one fragment register, lo in the low half
-__device__ __forceinline__ unsigned pack2(unsigned short lo,
-                                          unsigned short hi) {
-  return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
 }
 
 template <int BM, bool POOL, int F1T, int F2T>

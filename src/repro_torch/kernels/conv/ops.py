@@ -355,6 +355,58 @@ def k2_layout(Ci: int, F: int, S: int, pF: int, pS: int, bm: int, nb: int,
     return 4 * (max(ring, bm * (_K2_TILE // bm + 8)) + 2 * kp)
 
 
+def k2_bf16_xv(x_dtype: torch.dtype, src_layout: str, W: int) -> int:
+    """The widest copy lane K2's bf16 builds may take for an x box row, as
+    elements one copy moves (``forward`` in csrc/conv_nchw.cu picks it the
+    same way, for an x as aligned as a fresh tensor): bf16 x in NCHW by
+    16-byte ``cp.async`` (8) where W % 8 == 0, 8-byte (4) where W % 4 ==
+    0, 4-byte (2) where W % 2 == 0; int8 x in NCHW by 8-byte loads
+    widened in registers (8) where W % 8 == 0; else element by element
+    (1), as every CHWN source."""
+    if src_layout != "NCHW":
+        return 1
+    if W % 8 == 0:
+        return 8
+    if x_dtype == torch.int8:
+        return 1
+    return 4 if W % 4 == 0 else 2 if W % 2 == 0 else 1
+
+
+def k2_bf16_layout(Ci: int, F: int, S: int, pF: int, pS: int, bm: int,
+                   nb: int, uth: int, utw: int, tr: int, ga: int = 1,
+                   xv: int = 8, int8_x: bool = False) -> Tuple[int, int]:
+    """(copy lane, block bytes) of K2's bf16 builds at a tile
+    (``layout_bf16`` in csrc/conv_nchw.cu).  A stage steps 16 input
+    channels at one tap: ceil(ga / 2) groups of 16 at ``tr`` tap rows, w
+    [bm][16 gb tr F + 8] and x [16 gb][nb x XH x XW] in halfwords (the
+    bytes of the float32 stage's 8 channels); thin, the k list padded to
+    16 (KP), w [bm][KP + 8], x [Ci + 1][nb x XH x XW] and two tables of KP
+    ints after the ring; the epilogue tile over all.  ``xv`` is the widest
+    lane the source allows (``k2_bf16_xv``); its box starts at a column
+    aligned down to xv and is 8 (xv 8) or 4 columns a multiple wide, and
+    where lane 8's box would take more than ``k2_layout``'s bytes the rows
+    copy by lane 4 (bf16) or element by element (``int8_x``)."""
+    fit = k2_layout(Ci, F, S, pF, pS, bm, nb, uth, utw, tr, ga)
+    thin = _k2_thin(Ci)
+    xh = (_unit_rows(uth, pF, pS) - 1) * S + tr
+    span = (_unit_rows(utw, pF, pS) - 1) * S + F
+    gb = -(-ga // 2)
+    kp = -(-(tr * Ci * F) // 16) * 16 if thin else 0
+    sa = kp + 8 if thin else 16 * gb * tr * F + 8
+    cv = Ci + 1 if thin else 16 * gb
+
+    def at(v):
+        m = 8 if v == 8 else 4
+        xstr = _rows8(nb * xh * (-(-(v - 1 + span) // m) * m))
+        ring = (2 if bm == 256 else 3) * (bm * sa + cv * xstr)  # halfwords
+        return v, max(2 * ring + 8 * kp, 4 * bm * (_K2_TILE // bm + 8))
+
+    lane = at(xv)
+    if xv == 8 and lane[1] > fit:
+        lane = at(1 if int8_x else 4)
+    return lane
+
+
 def _k2_tap_rows(Ci: int, F: int) -> Tuple[int, ...]:
     """The tap rows a K2 stage may hold, in order of preference: all F,
     then fewer; a channel-major stage keeps a channel's ``tr * F`` taps odd

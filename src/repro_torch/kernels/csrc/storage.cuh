@@ -19,10 +19,10 @@
 // bytes, widened, then one shared store, for bf16 and int8.  The alignment
 // a float32 quad needs (its first element a multiple of 4 from a
 // 16-byte-aligned base) is what a narrow quad needs too, so the kernels'
-// 16-byte conditions stand as they are.  Where w is bf16, K1 and K5a keep
-// bf16 rings instead (16-byte cp.async of 8 elements; bf16_bits and bf16x8
-// for what arrives through registers) and multiply on the bf16 tensor
-// cores, as the bf16 builds of K5b and K6 do; their notes say how.
+// 16-byte conditions stand as they are.  Where w is bf16, K1, K2 and K5a
+// keep bf16 rings instead (16-byte cp.async of 8 elements; bf16_bits and
+// bf16x8 for what arrives through registers) and multiply on the bf16
+// tensor cores, as the bf16 builds of K5b and K6 do; their notes say how.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -115,7 +115,8 @@ __device__ __forceinline__ unsigned raw1(const int8_t* p, bool ok) {
 }
 
 // The bf16 bits of one element where ok, else 0: a bf16 as it is, an int8
-// widened (exact, |q| <= 127), for the narrow builds' bf16 rings (K1, K5a)
+// widened (exact, |q| <= 127), for the narrow builds' bf16 rings (K1, K2,
+// K5a)
 __device__ __forceinline__ unsigned bf16_bits(const bf16* p, bool ok) {
   return raw1(p, ok);
 }
@@ -132,7 +133,14 @@ __device__ __forceinline__ uint4 bf16x8(uint2 r) {
   return make_uint4(two(r.x, 0), two(r.x, 1), two(r.y, 0), two(r.y, 1));
 }
 
-// 8 bf16 from src into a 16-byte chunk of a bf16 ring (K5a, K5b): by
+// two bf16 bits into one fragment register, lo in the low half (K2's and
+// K5b's bf16 builds)
+__device__ __forceinline__ unsigned pack2(unsigned short lo,
+                                          unsigned short hi) {
+  return static_cast<unsigned>(lo) | (static_cast<unsigned>(hi) << 16);
+}
+
+// 8 bf16 from src into a 16-byte chunk of a bf16 ring (K2, K5a, K5b): by
 // cp.async where run (all 8 there, src 16-byte aligned), zeros where n <=
 // 0, else element by element (the first n of the 8)
 __device__ __forceinline__ void chunk8(bf16* dst, const bf16* src, int n,
@@ -178,14 +186,6 @@ __device__ __forceinline__ void copy4(float* dst, const T* src, bool ok) {
 __device__ __forceinline__ void copy2(float* dst, const float* src,
                                       bool ok) {
   mma::cp8(dst, src, ok);
-}
-__device__ __forceinline__ void copy2(float* dst, const bf16* src, bool ok) {
-  float2 v = make_float2(0.f, 0.f);
-  if (ok) {
-    const unsigned r = __ldg(reinterpret_cast<const unsigned*>(src));
-    v = make_float2(lo_bf16(r), hi_bf16(r));
-  }
-  *reinterpret_cast<float2*>(dst) = v;
 }
 __device__ __forceinline__ void copy2(float* dst, const int8_t* src,
                                       bool ok) {

@@ -7,11 +7,11 @@ CPU.
   K1 within 1e-5 scale-relative to float64 (K6's ``WGRAD_TOL``, the
   accuracy gate of the kernel), where one TF32 product a term misses it;
   K12's loss within ``LM_TOL`` (1e-4 rtol and atol) of float64.
-- The bf16 arithmetic of K1's narrow builds and the bf16 builds of K5a,
-  K5b and K6 (``repro_torch.kernels.bf16_mma``): bf16 products summed in
-  fp32 with a flush every 64 terms (K1), once a 64-channel chunk (K5a's
-  conv2) or a 32-channel one (K5b's conv2), one chain over K1 (K5b's
-  conv1) hold the bf16 gate (one bf16 step,
+- The bf16 arithmetic of K1's and K2's narrow builds and the bf16 builds
+  of K5a, K5b and K6 (``repro_torch.kernels.bf16_mma``): bf16 products
+  summed in fp32 with a flush every 64 terms (K1), once a 64-channel chunk
+  (K5a's conv2) or a 32-channel one (K5b's conv2), one chain over K1 (K5b's
+  conv1) or over all of K (K2) hold the bf16 gate (one bf16 step,
   2^-7 |want| + 1e-5 max|want|) against float64 at the longest
   reductions; the stacks' conv2, which reads the float32 mid as three bf16
   parts, holds the gate and float32 accuracy (``MID_TOL``) at its longest
@@ -20,11 +20,13 @@ CPU.
   summed split by split, hold K6's gate (1e-5 scale-relative to float64)
   over VGG16 conv1_2's 1.6M positions.
 - The narrow builds' shared memory (``k1_narrow_smem``,
-  ``k5a_bf16_ring_bytes``, ``k5b_bf16_layout``, ``wgrad_bf16_smem``,
-  mirrors of their layouts) within what the tile models reckon
-  (``conv_tiling``, ``stack_tiling``, ``k5b_layout``, 227 KB) at every
-  bf16 and int8-input launch of the smoke's bf16 serving and training
-  plans, and the H100 profile's plans of every network unchanged.
+  ``k2_bf16_layout``, ``k5a_bf16_ring_bytes``, ``k5b_bf16_layout``,
+  ``wgrad_bf16_smem``, mirrors of their layouts) within what the tile
+  models reckon (``conv_tiling``, ``k2_layout``, ``stack_tiling``,
+  ``k5b_layout``, 227 KB) at every bf16 and int8-input launch of the
+  smoke's bf16 serving and training plans, that the card cases of the bf16
+  kernels reach each of their producers' lanes, and the H100 profile's
+  plans of every network unchanged.
 - K1's block tile ``conv_tiling``: a block-by-block recount of what the
   kernel computes (its conv outputs, its FLOPs, its blocks), that every
   pooled output has exactly one owner block and every conv output under a
@@ -48,12 +50,15 @@ from repro_torch.kernels.conv.backward import (dgrad_shape, wgrad_bf16_smem,
                                                wgrad_tiling)
 from repro_torch.kernels.conv.ops import (SMEM_PER_BLOCK,
                                           _cluster_ring_bytes, conv_tiling,
-                                          k1_narrow_smem,
+                                          k1_narrow_smem, k2_bf16_layout,
+                                          k2_bf16_xv, k2_layout,
                                           k5a_bf16_ring_bytes, k5b_bf16_layout,
-                                          k5b_layout, stack_tiling)
+                                          k5b_layout, nchw_tiling,
+                                          stack_tiling)
 from repro_torch.kernels.tf32 import gemm_emulated
 from repro_torch.shapes import conv_out_hw, pool_out_hw
 from tests.test_torch_bf16_train_card import STACK_CASES, WGRAD_SHAPES
+from tests.test_torch_k2_bf16_card import K2_BF16_CASES, problem
 from tests.test_torch_kernels_card import CONV_CASES
 
 K1_TOL = 1e-5        # scale-relative to float64
@@ -196,6 +201,29 @@ def test_k5b_bf16_conv2_three_part_mid_in_32_channel_chunks(what, K):
     assert _scaled_err(got, want) <= MID_TOL, what
 
 
+# K2 bf16's reductions on the main path: the calibration case (Fig. 4's
+# 256 x 3 x 3), ResNet-18's layer4 (512 x 3 x 3, forward and dgrad) and its
+# thin 7x7 first layer (3 x 7 x 7: one stage's k list)
+K2_REDUCTIONS = [("calibration", 256 * 9), ("resnet18-layer4", 512 * 9),
+                 ("resnet18-conv1-thin", 3 * 7 * 7)]
+
+
+@pytest.mark.parametrize("what,K", K2_REDUCTIONS,
+                         ids=[w for w, _ in K2_REDUCTIONS])
+def test_k2_bf16_one_chain_over_k_holds_the_bf16_gate(what, K):
+    """K2 bf16: bf16 w at the He scale by bf16 activations (int8 levels
+    are exact in bf16 too), products exact, summed in fp32 in ONE chain
+    over all of K (the kernel never flushes), against float64."""
+    rng = np.random.default_rng(K + 3)
+    w = _he_bf16(rng, 64, K)
+    x = bf16_mma.to_bf16(torch.from_numpy(
+        rng.standard_normal((K, 256), np.float32)))
+    want = w.double() @ x.double()
+    got = bf16_mma.gemm_emulated(w, [x], K)
+    assert _bf16_gate(got, want) <= 1.0, what
+    assert _scaled_err(got, want) <= K1_TOL, what
+
+
 WGRAD_TOL = 1e-5     # K6's gate, scale-relative to float64
 
 
@@ -244,8 +272,8 @@ def _narrow_launches():
     for network, batch, profile in chip_smoke.BF16_TRAINED:
         cfg, plan = chip_smoke.bf16_train_plan(network, batch, profile)
         out += chip_smoke.plan_train_launches(cfg, plan)
-    narrow = ("conv_chwn.bf16", "conv_chwn.i8bf16", "conv_stack_chwn.bf16",
-              "conv_stack_nchw.bf16", "wgrad.bf16")
+    narrow = ("conv_chwn.bf16", "conv_chwn.i8bf16", "conv_nchw.bf16",
+              "conv_stack_chwn.bf16", "conv_stack_nchw.bf16", "wgrad.bf16")
     return sorted({(k, c) for k, c in out if k in narrow}, key=repr)
 
 
@@ -262,7 +290,7 @@ def _k1_shape(case):
 def test_narrow_builds_fit_the_tile_models_at_every_main_path_launch():
     launches = _narrow_launches()
     kinds = {k for k, _ in launches}
-    assert kinds == {"conv_chwn.bf16", "conv_chwn.i8bf16",
+    assert kinds == {"conv_chwn.bf16", "conv_chwn.i8bf16", "conv_nchw.bf16",
                      "conv_stack_chwn.bf16", "conv_stack_nchw.bf16",
                      "wgrad.bf16"}
     assert any(c[0] == "dgrad" for k, c in launches)
@@ -289,6 +317,18 @@ def test_narrow_builds_fit_the_tile_models_at_every_main_path_launch():
             assert max(stage_a, stage_b) <= slot, case
             assert k5b_layout(Ci, F1, S1, *tile)[1] == t.smem_bytes, case
             assert t.smem_bytes <= SMEM_PER_BLOCK, case
+            continue
+        if kern == "conv_nchw.bf16":
+            N, Ci, H, Co, F, S, pad, pool = _k1_shape(case)
+            src = case[-2]      # x's layout (a dgrad's: g's)
+            t = nchw_tiling(N, Ci, H, H, Co, F, S, pad, pool)
+            pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+            tile = (Ci, F, S, pF, pS, t.bm, t.nb, t.uth, t.utw, t.tr, t.ga)
+            # 16-channel bf16 stages inside the float32 layout's bytes
+            _, nbytes = k2_bf16_layout(
+                *tile, xv=k2_bf16_xv(torch.bfloat16, src, H))
+            assert k2_layout(*tile) == t.smem_bytes, case
+            assert nbytes <= t.smem_bytes <= SMEM_PER_BLOCK, case
             continue
         if kern == "wgrad.bf16":
             N, Ci, H, Co, F, S, pad = case[:7]
@@ -347,6 +387,46 @@ def test_bf16_card_cases_reach_every_producer_lane():
     assert splits == {False, True} and widths == {32, 64, 128}
     assert wos >= {28, 14, 7}
     assert {c[5] for c in WGRAD_SHAPES} >= {1, 2}
+
+
+def _k2_lane(case, x_dtype):
+    """(copy lane, tiling) of K2's bf16 build for a card case."""
+    N, Ci, H, W, Co, F, S, pad, pool = problem(case)
+    t = nchw_tiling(N, Ci, H, W, Co, F, S, pad, pool)
+    pF, pS = (pool[0], pool[1]) if pool else (0, 0)
+    lane, nbytes = k2_bf16_layout(
+        Ci, F, S, pF, pS, t.bm, t.nb, t.uth, t.utw, t.tr, t.ga,
+        xv=k2_bf16_xv(x_dtype, case[10], W), int8_x=x_dtype == torch.int8)
+    assert nbytes <= t.smem_bytes, case
+    return lane, t
+
+
+def test_k2_bf16_card_cases_reach_every_producer_lane():
+    """The card cases of K2's bf16 builds (tests/
+    test_torch_k2_bf16_card.py) reach each lane of the kernel's box copy
+    (bf16: 16-, 8- and 4-byte ``cp.async`` and halfwords; int8: 8-byte
+    loads widened and bytes), a CHWN source, thin inputs on two lanes, a
+    1x1 conv of several 16-channel groups a stage, stages that split the
+    tap rows, Ci off multiples of 16 and K off multiples of 8, stride 2,
+    dgrads posed from strides 1 and 2, both pools and the residual in both
+    layouts."""
+    bf16 = {c[0]: _k2_lane(c, torch.bfloat16) for c in K2_BF16_CASES}
+    int8 = {c[0]: _k2_lane(c, torch.int8) for c in K2_BF16_CASES}
+    assert {lane for lane, _ in bf16.values()} == {8, 4, 2, 1}
+    assert {lane for lane, _ in int8.values()} == {8, 1}
+    cases = {c[0]: c for c in K2_BF16_CASES}
+    thin = [w for w, c in cases.items() if problem(c)[1] < 8]
+    assert {bf16[w][0] for w in thin} == {8, 1}
+    assert any(t.ga > 1 for _, t in bf16.values())
+    assert any(t.tr < problem(cases[w])[5] for w, (_, t) in bf16.items()
+               if problem(cases[w])[1] >= 8)
+    assert any(problem(c)[1] % 16 and problem(c)[1] * problem(c)[5] ** 2 % 8
+               for c in K2_BF16_CASES)
+    assert {c[10] for c in K2_BF16_CASES} == {"NCHW", "CHWN"}
+    assert {c[6] for c in K2_BF16_CASES if not c[12]} >= {1, 2}
+    assert {c[6] for c in K2_BF16_CASES if c[12]} == {1, 2}
+    assert {c[8][2] for c in K2_BF16_CASES if c[8]} == {"max", "avg"}
+    assert {c[9] for c in K2_BF16_CASES} == {None, "NCHW", "CHWN"}
 
 
 # sha256 of repr(plan_network_fused(cfg, dtype=...)) on the H100 profile,

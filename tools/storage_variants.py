@@ -10,7 +10,9 @@ KERNEL.VARIANT names a row of the smoke's kernels line (``wgrad.bf16``,
 are every distinct launch of that row on the bf16 training path
 (``chip_smoke.plan_train_launches`` of ``BF16_TRAINED``) and the dtype
 phase's served plans (``fused_launches`` of ``DTYPE_SERVED``), with the
-launches each makes.  Each SOURCE stands in for the checkout's source of
+launches each makes, and the row's one calibration or off-path case
+(``CALIBRATION_ONLY``, ``DTYPE_OFF_PATH``) once, as the kernels line
+weighs it.  Each SOURCE stands in for the checkout's source of
 that entry point: it is compiled by nvcc with the variant's flag
 (``-DREPRO_VARIANT_<VARIANT>``) into a library of its own, and its entry
 point is swapped in for the checkout's.  The checkout's build and the
@@ -19,7 +21,9 @@ each case is held against its plain version as the smoke holds it
 (``chip_smoke.dtype_case``), and the ms summed over each network's
 launches (a case's ms times its launches) is printed beside the library
 call's; ``--per-case`` also prints each distinct launch's ms (its
-case, the launches it makes, ms and library ms a launch).
+case, the launches it makes, ms and library ms a launch) and, for a conv
+row, the sums over the launches of each map width W the kernel reads (a
+dgrad's: the width of the conv it poses).
 ``--timing-only`` skips the checks, for variants that time a part of the
 kernel (producers that copy nothing, consumers that multiply nothing) and
 so compute nothing to check.  Needs a CUDA device and nvcc.
@@ -42,6 +46,7 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.conv.backward import dgrad_shape  # noqa: E402
 
 
 def main_path_cases(name: str) -> Counter:
@@ -57,7 +62,22 @@ def main_path_cases(name: str) -> Counter:
         for kern, case in cs.fused_launches(cfg, plan):
             if kern == name:
                 cases[(network, case)] += 1
+    for label, one in (("calibration", cs.CALIBRATION_ONLY),
+                       ("off path", cs.DTYPE_OFF_PATH)):
+        if name in one:
+            cases[(label, one[name])] += 1
     return cases
+
+
+def map_width(name: str, case):
+    """The width of the map a conv row's launch reads (a dgrad's: that
+    of the conv it poses), or None for another kernel."""
+    if not name.startswith(("conv_chwn.", "conv_nchw.")):
+        return None
+    if case[0] == "dgrad":
+        N, Ci, H, Co, F, S, pad = case[1:8]
+        return dgrad_shape(N, Ci, H, H, Co, F, S, pad)[3]
+    return case[case[0] == "save_act":][2]
 
 
 # a kernels-line row's wrapper -> the C entry point it launches
@@ -84,8 +104,9 @@ def entry_of(name: str, variant: str):
 
 
 def build(src: Path, variant: str, entry: str, include: Path, out: Path):
-    """The entry point of ``src`` built for ``variant``."""
-    so = out / f"{src.stem}_{variant}.so"
+    """The entry point of ``src`` built for ``variant`` (into a directory
+    of its own under ``out``: two sources of one name are two libraries)."""
+    so = Path(tempfile.mkdtemp(dir=out)) / f"{src.stem}_{variant}.so"
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS,
                     f"-DREPRO_VARIANT_{variant.upper()}", "-I", str(include),
                     "-shared", "-o", str(so), str(src)], check=True)
@@ -106,6 +127,10 @@ def timed(name: str, cases: Counter, dev, per_case: bool = False
             if per_case:
                 print(f"  {network} {case} x{n}: ms={m['ms']:.4f} "
                       f"library_ms={m['library_ms']:.4f}", flush=True)
+                W = map_width(name, case)
+                if W is not None:
+                    tot[f"{network} W{W}"] += n * m["ms"]
+                    tot[f"{network} W{W} library"] += n * m["library_ms"]
     return tot
 
 

@@ -1,0 +1,87 @@
+#!/usr/bin/env python3
+"""Write timing-only variants of a warp-specialised conv kernel's source,
+to split its time between its producers and its consumers on the card.
+
+    python3 tools/timing_variants.py SRC.cu [SRC.cu ...]
+
+Beside each SRC (which must lie outside the checkout's ``src/repro_torch``:
+every ``.cu`` there is built into the kernels' library) it writes
+
+- ``<stem>_nocopy.cu``: each ring stage's copies removed (the producer's
+  ``stage`` lambda returns at once), so the consumers multiply whatever
+  the ring holds and only they and the barriers take time;
+- ``<stem>_nomma.cu``: each ``mma.sync`` (``mma_bf16``, ``mma_bf16_z``,
+  ``mma_tf32``) replaced by an empty ``asm volatile`` that still reads its
+  operand registers, so the fragments are loaded but never multiplied;
+- ``<stem>_nocopy_nomma.cu``: both.
+
+Time them with ``tools/storage_variants.py --timing-only KERNEL.VARIANT
+SRC_nocopy.cu ...``; their outputs are garbage by design.  A copy of
+another tree's kernels (``git archive`` under ``build/``) keeps that tree's
+headers beside its variants.
+"""
+from __future__ import annotations
+
+import re
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+# the products, as no-ops that read the operands the mma would have read
+NOMMA = """
+namespace {
+__device__ __forceinline__ void nomma(float (&c)[4], const unsigned (&a)[4],
+                                      unsigned b0, unsigned b1) {
+  asm volatile("" ::"r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+               "r"(b1));
+  (void)c;
+}
+__device__ __forceinline__ void nomma(float (&d)[4], const unsigned (&a)[4],
+                                      unsigned b0, unsigned b1,
+                                      const float (&c)[4]) {
+  nomma(d, a, b0, b1);
+  (void)c;
+}
+}  // namespace
+"""
+_MMA = re.compile(r"\bmma_(?:bf16_z|bf16|tf32)\(")
+_STAGE = "auto stage = [&](int sl) {"
+
+
+def variants(src: Path) -> dict:
+    text = src.read_text()
+    if (_STAGE not in text or not _MMA.search(text)
+            or "namespace {\n" not in text):
+        raise SystemExit(f"{src}: no producer stage lambda, mma call or "
+                         "anonymous namespace")
+    nocopy = text.replace(_STAGE, _STAGE + "\n      return;")
+
+    def nomma(t: str) -> str:
+        # the no-ops go in before the kernel's own namespace, after the
+        # includes
+        head, sep, rest = t.partition("namespace {\n")
+        return head + NOMMA + sep + _MMA.sub("nomma(", rest)
+
+    return {"nocopy": nocopy, "nomma": nomma(text),
+            "nocopy_nomma": nomma(nocopy)}
+
+
+def main(argv) -> int:
+    if not argv:
+        print(__doc__)
+        return 2
+    for arg in argv:
+        src = Path(arg).resolve()
+        if (REPO / "src" / "repro_torch") in src.parents:
+            raise SystemExit(f"{src}: lies in the kernels' sources; copy the "
+                             "tree under build/ first")
+        for name, text in variants(src).items():
+            out = src.with_name(f"{src.stem}_{name}.cu")
+            out.write_text(text)
+            print(out)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))
