@@ -176,11 +176,22 @@
    bf16 training launch against its plain version in bf16: max pools, max
    pool backwards and transposes exactly, K6 within 1e-5 scale-relative of
    float64, the rest (avg pools and their backwards, K5b, ``save_act``
-   z, dgrad) within one bf16 step; with K3b and K9b in bf16 off the path
-   (one case each, 0 launches); K5b bf16 also counts the FLOPs its blocks
-   execute (equal to ``stack_tiling``'s), three runs bitwise equal, and
-   reports its error against float64; a "K6 bf16 over the main path" line
-   in K6's form (its bound at the bf16 peak: one bf16 product a term).
+   z, dgrad) within one bf16 step; with K3b, K9b and K8 in bf16 off the
+   path (one case each, 0 launches; K8 on bf16 logits, a float32 loss,
+   rtol and atol 1e-5, labels outside [0, C) too); K5b bf16 also counts
+   the FLOPs its blocks execute (equal to ``stack_tiling``'s), three runs
+   bitwise equal, and reports its error against float64; a "K6 bf16 over
+   the main path" line in K6's form (its bound at the bf16 peak: one bf16
+   product a term).  K3a bf16, K7a bf16 and K8 bf16 add their device time
+   (graph replays) and the library call's beside the back-to-back
+   readings, on each launch's line and, for K3a bf16 and K7a bf16, summed
+   in "K3a bf16 over the main path" and "K7a bf16 over the main path"
+   lines with the share of the byte bound the device time reaches.  K3a
+   bf16 is also held and timed on every launch of the float32 K3a row
+   cast to bf16 (a line each, and "K3a bf16 on the float32 K3a row's
+   shapes"), where bytes, not the host, set the time; and a "pool host_us"
+   line gives the host microseconds of each step of a K3a bf16 launch
+   (unet_mini's first pool) beside the wrapper's and the library call's.
 8. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
    path of the tiled matmul K10: the 12 Table-1 layers
    (``configs/paper_table1.py``) at their published N, HW, F, Ci, Co and
@@ -468,7 +479,8 @@ for _base, _variants in (("conv_chwn", ("bf16", "i8bf16", "i8f32")),
                          ("conv_nchw", ("bf16", "i8f32", "i8bf16")),
                          ("conv_stack_chwn", ("bf16",)),
                          ("conv_stack_nchw", ("bf16",)),
-                         ("softmax", ("bf16",)), ("pool_chwn", ("bf16",)),
+                         ("softmax", ("bf16",)), ("softmax_xent", ("bf16",)),
+                         ("pool_chwn", ("bf16",)),
                          ("pool_nchw", ("bf16",)), ("wgrad", ("bf16",)),
                          ("pool_backward_chwn", ("bf16",)),
                          ("pool_backward_nchw", ("bf16",)),
@@ -493,9 +505,11 @@ BF16_LOSS_TOL = 8 * 2.0 ** -8
 BF16_GRAD_FACTOR, BF16_GRAD_SLACK = 2.0, 2.0 ** -5
 # the bf16 kernels no path of this script launches, with their one case:
 # K3b (no bf16 plan pools NCHW on its own: unet_mini's pools are CHWN) on
-# unet_mini's first pool in NCHW, K9b on the fp32 K9b case
+# unet_mini's first pool in NCHW, K9b on the fp32 K9b case, K8 on the fp32
+# K8 case
 BF16_OFF_PATH = {"pool_nchw.bf16": ((8, 32, 32, 32), 2, 2, "max"),
-                 "transpose2d_batched.bf16": K9B_CASE}
+                 "transpose2d_batched.bf16": K9B_CASE,
+                 "softmax_xent.bf16": K8_CASE}
 # kernels held in the kernel phase that no path of this script launches,
 # with their one case
 OFF_PATH = {"transpose2d_batched": K9B_CASE, "softmax_xent": K8_CASE,
@@ -1073,12 +1087,21 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
         Ho, Wo = pool_out_hw(H, F, S), pool_out_hw(W, F, S)
         pool_fn = nnf.max_pool2d if op == "max" else nnf.avg_pool2d
-        return _measure(lambda: wrapper(x, F, S, op),
-                        lambda: pool_ref(x, F, S, op, src, src),
-                        lambda: pool_fn(x_nchw, F, S),
-                        float(F * F * N * C * Ho * Wo),
-                        nbytes(x) * (1 + 1 / (S * S)), peak=peak,
-                        check=exact_check if op == "max" else check)
+
+        def kernel():
+            return wrapper(x, F, S, op)
+
+        def library():
+            return pool_fn(x_nchw, F, S)
+
+        m = _measure(kernel, lambda: pool_ref(x, F, S, op, src, src),
+                     library, float(F * F * N * C * Ho * Wo),
+                     nbytes(x) * (1 + 1 / (S * S)), peak=peak,
+                     check=exact_check if op == "max" else check)
+        if base == "pool_chwn":   # K3a bf16: the card's share, not the host's
+            m.update(device_ms=device_ms(kernel),
+                     library_device_ms=device_ms(library))
+        return m
     if base in POOL_BWD_KERNELS:
         N, C, H, F, S, op, g_lay, relu = case
         layout, wrapper = POOL_BWD_KERNELS[base]
@@ -1087,13 +1110,21 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         z = z_nchw.permute(perm_between("NCHW", layout)).contiguous()
         g = g_nchw.permute(perm_between("NCHW", g_lay)).contiguous()
         library = _pool_bwd_library(z_nchw, g_nchw, F, S, op, relu)
-        return _measure(
-            lambda: wrapper(z, g, F, S, op, g_layout=g_lay, relu_mask=relu),
+
+        def kernel():
+            return wrapper(z, g, F, S, op, g_layout=g_lay, relu_mask=relu)
+
+        m = _measure(
+            kernel,
             lambda: pool_backward_ref(z, g, F, S, op, layout, g_lay, relu),
             library, float(N * C * H * H * (-(-F // S)) ** 2
                            * (F * F if op == "max" else 1)),
             2 * nbytes(z) + nbytes(g), peak=peak,
             check=exact_check if op == "max" else check)
+        if base == "pool_backward_chwn":   # K7a bf16, as K3a bf16
+            m.update(device_ms=device_ms(kernel),
+                     library_device_ms=device_ms(library))
+        return m
     if base in TRANSPOSE_KERNELS:
         wrapper, ref = TRANSPOSE_KERNELS[base]
         x = rand(*case)
@@ -1103,6 +1134,31 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                         2 * nbytes(x), peak=peak, check=exact_check)
     if base == "wgrad":
         return wgrad_case(case, dev, seed, dtype=wdt)
+    if base == "softmax_xent":
+        # K8 on bf16 logits: a float32 loss, held as the float32 K8 (rtol
+        # and atol 1e-5), labels outside [0, C) too; its operations run on
+        # the CUDA cores in float32
+        rows, cols = case
+        x = rand(rows, cols, scale=4.0)
+        labels = torch.randint(0, cols, (rows,), device=dev, generator=gen)
+        outside = labels.clone()
+        outside[::3], outside[1::3] = -1, cols
+        torch.testing.assert_close(softmax_xent(x, outside),
+                                   softmax_xent_ref(x, outside), rtol=1e-5,
+                                   atol=1e-5)
+
+        def kernel():
+            return softmax_xent(x, labels)
+
+        def library():
+            return nnf.cross_entropy(x, labels, reduction="none")
+
+        m = _measure(kernel, lambda: softmax_xent_ref(x, labels), library,
+                     3.0 * rows * cols, nbytes(x) + 12.0 * rows, rtol=1e-5,
+                     atol=1e-5)
+        m.update(device_ms=device_ms(kernel),
+                 library_device_ms=device_ms(library))
+        return m
     if base == "softmax":
         rows, cols = case
         x = rand(rows, cols, scale=4.0)
@@ -1838,6 +1894,88 @@ def softmax_variants(dev) -> dict:
             "k8_max_abs_err": err8}
 
 
+def device_line(label: str, rows, what: str = "over the main path") -> str:
+    """A short-launch kernel (K3a bf16, K7a bf16) summed over ``rows``' launches:
+    the back-to-back ms (the host's time where a launch is short) beside
+    the device ms (``device_ms``: graph replays), each with the library
+    call's, the byte bound and the share of it the device time reaches."""
+    def tot(f):
+        return sum(r[f] * (r["launches"] or 1) for r in rows)
+    return (f"{label} {what}: launches={sum(r['launches'] for r in rows)} "
+            f"ms={tot('ms'):.4f} device_ms={tot('device_ms'):.4f} "
+            f"library_ms={tot('library_ms'):.4f} "
+            f"library_device_ms={tot('library_device_ms'):.4f} "
+            f"bound_ms={tot('bound_ms'):.5f} device_bound_share="
+            f"{tot('bound_ms') / tot('device_ms'):.3f} "
+            f"x_lib={tot('ms') / tot('library_ms'):.3f} device_x_lib="
+            f"{tot('device_ms') / tot('library_device_ms'):.3f}")
+
+
+def pool_host_steps(x, F: int, S: int, op: str) -> dict:
+    """Host microseconds of each step of a K3a launch (``pool/ops.py``'s
+    ``_pool`` on the ``_build`` helpers), each timed alone, beside the
+    whole wrapper and the library call (``max_pool2d``/``avg_pool2d`` on
+    the NCHW view of x)."""
+    dev, variant = _build.require_cuda_storage("pool_chwn", x)
+    C, H, W, N = x.shape
+    Ho, Wo = (H - F) // S + 1, (W - F) // S + 1
+    y = x.new_empty((C, Ho, Wo, N))
+    xp, yp = x.data_ptr(), y.data_ptr()
+    st = _build.stream_of(dev)
+    launch = _build.entry("pool_chwn_forward", variant)
+    x_nchw = x.permute(3, 0, 1, 2)
+    pool_fn = nnf.max_pool2d if op == "max" else nnf.avg_pool2d
+
+    class Counter:
+        launches = 0
+
+    def count():
+        Counter.launches += 1
+
+    steps = {
+        "grad_mode": lambda: torch.is_grad_enabled() and x.requires_grad,
+        "shape": lambda: x.shape,
+        "out_hw": lambda: ((H - F) // S + 1, (W - F) // S + 1),
+        "on_cpu": lambda: _build.on_cpu("pool_chwn", x),
+        "require_cuda_storage": lambda: _build.require_cuda_storage(
+            "pool_chwn", x),
+        "alloc": lambda: x.new_empty((C, Ho, Wo, N)),
+        "data_ptr": lambda: (x.data_ptr(), y.data_ptr()),
+        "library_lookup": lambda: _build.entry("pool_chwn_forward", variant),
+        "stream_of": lambda: _build.stream_of(dev),
+        "ctypes_launch": lambda: launch(xp, yp, N, C, H, W, F, S,
+                                        op == "avg", False, st),
+        "check": lambda: _build.check("pool_chwn", 0),
+        "count": count,
+        "wrapper": lambda: pool_chwn(x, F, S, op),
+        "library": lambda: pool_fn(x_nchw, F, S),
+    }
+    return {k: host_us(fn) for k, fn in steps.items()}
+
+
+def k3a_bf16_fp32_shapes(cases, dev) -> dict:
+    """K3a bf16 on every launch of the float32 K3a row (the unfused path's
+    AlexNet b128 and VGG16 b32 pools and unet_mini's), each cast to bf16,
+    held and timed as the dtype phase's K3a bf16 launches; one line a
+    shape and a sum weighted by the float32 row's launches.  There bytes,
+    not the host, set the time."""
+    rows = []
+    for i, r in enumerate(c for c in cases if c["kernel"] == "pool_chwn"):
+        m = dtype_case("pool_chwn.bf16", r["case"], dev, 1000 + i)
+        m.update(case=r["case"], launches=r["launches"],
+                 network=r["network"])
+        rows.append(m)
+        print(f"K3a bf16 on {r['network']} case={r['case']} "
+              f"x{r['launches']}: ms={m['ms']:.4f} "
+              f"device_ms={m['device_ms']:.5f} "
+              f"library_device_ms={m['library_device_ms']:.5f} "
+              f"bound_ms={m['bound_ms']:.5f} device_bound_share="
+              f"{m['bound_ms'] / m['device_ms']:.3f}", flush=True)
+    print(device_line("K3a bf16", rows, "on the float32 K3a row's shapes"),
+          flush=True)
+    return {"cases": rows}
+
+
 def kernel_phase(dev):
     """Measure every distinct launch of the main path once; returns the
     cases with their multiplicity (launches on the main path)."""
@@ -1966,6 +2104,10 @@ def kernel_phase(dev):
                     extra += f" f64_err={m['f64_err']:.3g}"
             if "device_ms" in m:
                 extra = f" device_ms={m['device_ms']:.5f}"
+            if "library_device_ms" in m:
+                extra += (f" library_device_ms={m['library_device_ms']:.5f}"
+                          f" device_bound_share="
+                          f"{m['bound_ms'] / m['device_ms']:.3f}")
         elif kern in ("conv_chwn", "conv_nchw"):
             extra = (f" f64_err={m['f64_err']:.3g} TFLOP/s="
                      f"{m['flops'] / m['ms'] / 1e9:.1f} "
@@ -1989,6 +2131,10 @@ def kernel_phase(dev):
     print(tensor_core_line("K2 bf16", [r for r in mult.values()
                                        if r["kernel"] == "conv_nchw.bf16"],
                            peak="bf16", design="bf16"), flush=True)
+    for label, kern in (("K3a bf16", "pool_chwn.bf16"),
+                        ("K7a bf16", "pool_backward_chwn.bf16")):
+        print(device_line(label, [r for r in mult.values()
+                                  if r["kernel"] == kern]), flush=True)
     # per forward (and training step): each kernel's launches summed
     for kind, network, label, keys in batches:
         for kern in KERNELS:
@@ -3344,6 +3490,8 @@ def kernels_line(cases, launches) -> dict:
             # the kernels' time replayed from a CUDA graph, beside "ms", the
             # back-to-back reading that a short launch's host time sets
             entry["device_ms"] = total("device_ms")
+        if all("library_device_ms" in r for r in rows):
+            entry["library_device_ms"] = total("library_device_ms")
         if all("median5" in r for r in rows):
             # back to back again: the median of 5 rounds in turns with the
             # plain version and the library call (``b2b_ms``)
@@ -3386,6 +3534,11 @@ def main() -> int:
     with torch.inference_mode():
         t0 = time.perf_counter()
         cases = kernel_phase(dev)
+        k3a_fp32_shapes = k3a_bf16_fp32_shapes(cases, dev)
+        x_pool = torch.randn(8, 32, 32, 8, device=dev).to(torch.bfloat16)
+        pool_host = pool_host_steps(x_pool, 2, 2, "max")
+        print("pool host_us (K3a bf16, unet_mini's first pool): " + " ".join(
+            f"{k}={v:.3f}" for k, v in pool_host.items()), flush=True)
         print(f"kernel phase: {time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         fig13 = fig13_phase(dev)
@@ -3469,6 +3622,8 @@ def main() -> int:
                                    "training": trained,
                                    "bf16_training": bf16_trained,
                                    "dtype": dtyped,
+                                   "k3a_bf16_fp32_shapes": k3a_fp32_shapes,
+                                   "pool_host_us": pool_host,
                                    "ptxas": ptxas.getvalue()}, indent=1))
     print(json.dumps(line))
     print(card)

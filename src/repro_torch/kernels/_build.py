@@ -15,8 +15,9 @@ CUDA stream as ``void*`` and returns ``cudaGetLastError()`` as an int.
 
 The serving and training paths' kernels also take narrow storage dtypes
 (K1 and K2: bf16, and int8 x with float32 or bf16 weights; the stacks
-K5a/K5b, the softmax K4, the pools K3a/K3b and their backwards K7a/K7b,
-the transposes K9a/K9b and the weight gradient K6: bf16).  Each
+K5a/K5b, the softmax K4 and cross entropy K8, the pools K3a/K3b and their
+backwards K7a/K7b, the transposes K9a/K9b and the weight gradient K6:
+bf16).  Each
 such variant (``VARIANTS``) is the same source compiled again with
 ``-DREPRO_VARIANT_<NAME>``, which defines the variant's entry points,
 ``<entry>_<variant>``, into a library of its own.  A variant's library
@@ -99,7 +100,8 @@ VARIANTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
              _CONV_ENTRIES + ("conv_stack_chwn_forward",
                               "conv_stack_chwn_max_clusters",
                               "conv_stack_nchw_forward", "wgrad_forward",
-                              "softmax_forward", "pool_chwn_forward",
+                              "softmax_forward", "softmax_xent_forward",
+                              "pool_chwn_forward",
                               "pool_nchw_forward", "pool_backward_chwn",
                               "pool_backward_nchw", "transpose_forward")),
     "i8f32": (_CONV, _CONV_ENTRIES),     # int8 x, float32 w
@@ -115,8 +117,8 @@ _MAX_NUMEL = 2 ** 31     # the kernels index with 32-bit ints
 # that computes them: bias, residual and output are w's dtype
 CONV_VARIANTS = {(_F32, _F32): "", (_BF16, _BF16): "bf16",
                  (_I8, _F32): "i8f32", (_I8, _BF16): "i8bf16"}
-# the storage dtypes of a float kernel (K3, K4, K5, K6's inputs, K7, K9),
-# every tensor x's
+# the storage dtypes of a float kernel (K3, K4, K5, K6's inputs, K7, K8's
+# logits, K9), every tensor x's
 FLOAT_VARIANTS = {_F32: "", _BF16: "bf16"}
 
 
@@ -270,39 +272,6 @@ def on_cpu(name: str, x) -> bool:
                      "(CUDA runs the kernel, CPU the plain version)")
 
 
-def _refuse_f32(name: str, arg: str, t, device: int) -> None:
-    """Raise the reason ``t`` is not a contiguous float32 tensor with fewer
-    than 2^31 elements on the card of index ``device``."""
-    if t.get_device() != device:
-        raise ValueError(f"{name}: {arg} is on {t.device}, x on "
-                         f"cuda:{device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: {arg} is {t.dtype}; the kernel takes "
-                        "float32 only")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: {arg} must be contiguous")
-    raise ValueError(f"{name}: {arg} has {t.numel()} elements; the kernel "
-                     "indexes with 32-bit ints")
-
-
-def require_cuda_f32(name: str, x, **others) -> int:
-    """Raise unless the CUDA tensor ``x`` and every other given tensor
-    (None is skipped) are contiguous float32 tensors on x's card with fewer
-    than 2^31 elements: the kernels take nothing else.  Returns that card's
-    index, ``x.get_device()``, for ``stream_of``.  One combined test a
-    tensor, on ints and flags, not ``torch.device`` objects; the reason is
-    worked out only for a tensor that fails it."""
-    device = x.get_device()
-    if not (x.dtype is _F32 and x.is_contiguous() and x.numel() < _MAX_NUMEL):
-        _refuse_f32(name, "x", x, device)
-    for arg, t in others.items():
-        if t is not None and not (t.dtype is _F32 and t.get_device() == device
-                                  and t.is_contiguous()
-                                  and t.numel() < _MAX_NUMEL):
-            _refuse_f32(name, arg, t, device)
-    return device
-
-
 def _refuse_dtype(name: str, arg: str, t, device: int, want: str,
                   dtype_ok: bool) -> None:
     """Raise the reason ``t`` fails its kernel's guard: another card, a
@@ -322,11 +291,13 @@ def _refuse_dtype(name: str, arg: str, t, device: int, want: str,
 
 def require_cuda_storage(name: str, x, **others) -> Tuple[int, str]:
     """The guard of the float kernels that take bf16 too (K3, K4, K5, K6,
-    K7, K9): raise unless the CUDA tensor ``x`` is a contiguous float32 or
+    K7, K8, K9): raise unless the CUDA tensor ``x`` is a contiguous float32 or
     bfloat16 tensor with fewer than 2^31 elements and every other given
     tensor (None is skipped) one of x's dtype on x's card.  Returns (the
-    card's index, the variant: "" or "bf16").  One combined test a tensor,
-    as ``require_cuda_f32``."""
+    card's index, ``x.get_device()``, for ``stream_of``, and the variant:
+    "" or "bf16").  One combined test a tensor, on ints and flags, not
+    ``torch.device`` objects; the reason is worked out only for a tensor
+    that fails it."""
     device = x.get_device()
     dt = x.dtype
     variant = "" if dt is _F32 else FLOAT_VARIANTS.get(dt)
@@ -394,8 +365,8 @@ def require_cuda_float(name: str, device, contiguous: bool = True,
 
 
 def stream_of(device: int) -> int:
-    """The current CUDA stream of the card of index ``device`` (what
-    ``require_cuda_f32`` returns, ``x.get_device()``), as the pointer the C
+    """The current CUDA stream of the card of index ``device`` (what the
+    guards return, ``x.get_device()``), as the pointer the C
     entry points take.  Read raw, through PyTorch's private
     ``torch._C._cuda_getCurrentRawStream``: building the public
     ``torch.cuda.current_stream`` object costs more host time a launch than

@@ -58,12 +58,22 @@ def band_windows(h0: int, h1: int, H: int, F: int, S: int):
     return lo, min(Ho - 1, (h1 - 1) // S)
 
 
+def k7a_bf16_smem_bytes(win: int) -> int:
+    """One banded K7a bf16 block's shared memory (``chwn_bf16_smem_bytes``
+    in csrc/pool_backward.cu): for each of ``win`` windows and each of the
+    chunk's 32 units, its g word and its first-max taps word."""
+    return win * 32 * 8
+
+
 @functools.lru_cache(maxsize=None)
-def pool_backward_band(H: int, W: int, F: int, S: int) -> PoolBand:
+def pool_backward_band(H: int, W: int, F: int, S: int,
+                       itemsize: int = 4) -> PoolBand:
     """K7a's band: the most rows (up to ``_K7A_MAX_BAND``) whose block
-    fits ``_K7A_SMEM_AIM`` bytes of shared memory (window g values [win][33]
-    floats, taps [win][32] shorts, ReLU words [band * W]), or one row
-    where none does; raises where even one row exceeds a block's 227 KB."""
+    fits ``_K7A_SMEM_AIM`` bytes of shared memory, or one row where none
+    does; raises where even one row exceeds a block's 227 KB.  A float32
+    block (``itemsize`` 4) holds window g values [win][33] floats, taps
+    [win][32] shorts and ReLU words [band * W]; a banded bf16 block
+    (``itemsize`` 2) ``k7a_bf16_smem_bytes``."""
     Wo = pool_out_hw(W, F, S)
 
     def tiling(b: int) -> PoolBand:
@@ -72,7 +82,8 @@ def pool_backward_band(H: int, W: int, F: int, S: int) -> PoolBand:
             lo, hi = band_windows(h0, min(H, h0 + b), H, F, S)
             rows = max(rows, hi - lo + 1)
         rows = max(rows, 1)
-        smem = rows * Wo * (33 * 4 + 32 * 2) + b * W * 4
+        smem = (k7a_bf16_smem_bytes(rows * Wo) if itemsize == 2
+                else rows * Wo * (33 * 4 + 32 * 2) + b * W * 4)
         return PoolBand(b, -(-H // b), rows, smem)
 
     fits = [t for t in map(tiling, range(1, min(H, _K7A_MAX_BAND) + 1))
@@ -82,6 +93,64 @@ def pool_backward_band(H: int, W: int, F: int, S: int) -> PoolBand:
         raise ValueError(f"pool_backward_chwn: one row of a {W}-wide pool "
                          f"needs {best.smem_bytes} bytes of shared memory")
     return best
+
+
+def k7a_bf16_direct(op: str, F: int, S: int) -> bool:
+    """Whether a K7a bf16 launch runs the direct kernel (max windows that
+    share no element), else the banded one."""
+    return op == "max" and F <= S
+
+
+def _units(N: int, pair: bool):
+    """(units a position, images of unit q) of the bf16 pool kernels: two
+    neighbouring images a unit where ``pair``, else one."""
+    if pair:
+        return N // 2, lambda q: (2 * q, 2 * q + 1)
+    return N, lambda q: (q,)
+
+
+def k7a_bf16_direct_unit(u: int, N: int, C: int, H: int, W: int, F: int,
+                         S: int, pair: bool):
+    """What thread ``u`` of the direct K7a bf16 kernel
+    (``pool_backward_direct_bf16``) writes: (c, its window (oh, ow), its
+    images, the (h, w) of dx it owns: the window's taps and the rows and
+    columns up to the next window or the edge).  Units run n fastest, then
+    ow, oh, c."""
+    Ho, Wo = pool_out_hw(H, F, S), pool_out_hw(W, F, S)
+    U, images = _units(N, pair)
+    r, q = divmod(u, U)
+    r, ow = divmod(r, Wo)
+    c, oh = divmod(r, Ho)
+    h1 = H if oh == Ho - 1 else (oh + 1) * S
+    w1 = W if ow == Wo - 1 else (ow + 1) * S
+    owned = [(h, w) for h in range(oh * S, h1) for w in range(ow * S, w1)]
+    return c, (oh, ow), images(q), owned
+
+
+def k7a_bf16_banded_grid(N: int, C: int, H: int, W: int, F: int, S: int,
+                         pair: bool):
+    """The banded K7a bf16 kernel's grid (bands, C, chunks of 32 units)."""
+    U = _units(N, pair)[0]
+    return (pool_backward_band(H, W, F, S, 2).bands, C, -(-U // 32))
+
+
+def k7a_bf16_banded_unit(block, e: int, N: int, H: int, W: int, F: int,
+                         S: int, pair: bool):
+    """What iteration ``e`` (thread ``e % 256``'s ``e // 256``-th) of block
+    ``(bx, c, z)`` of the banded K7a bf16 kernel
+    (``pool_backward_banded_bf16``) writes in phase 2: (c, h, w, images),
+    or None past the block's units.  Its dx units run n fastest, then w,
+    h; the block's windows are ``band_windows`` of its rows."""
+    bx, c, z = block
+    band = pool_backward_band(H, W, F, S, 2).band
+    U, images = _units(N, pair)
+    nu = min(32, U - 32 * z)
+    h0, h1 = bx * band, min(H, bx * band + band)
+    if e >= (h1 - h0) * W * nu:
+        return None
+    rw, j = divmod(e, nu)
+    hh, w = divmod(rw, W)
+    return c, h0 + hh, w, images(32 * z + j)
 
 
 class PoolPlanes(NamedTuple):
@@ -175,7 +244,7 @@ def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
     args = [x.data_ptr(), g.data_ptr(), dx.data_ptr(), N, C, H, W, F, S,
             int(op == "avg"), int(relu_mask), int(g_layout == "NCHW")]
     if layout == "CHWN":
-        band = pool_backward_band(H, W, F, S)
+        band = pool_backward_band(H, W, F, S, x.element_size())
         args += [band.band, band.win_rows]
     else:
         t = pool_backward_planes(N, C, H, W, F, S)
@@ -192,9 +261,12 @@ def pool_backward_chwn(x: torch.Tensor, g: torch.Tensor, F: int, S: int,
                        op: str = "max", g_layout: Optional[str] = None,
                        relu_mask: bool = False) -> torch.Tensor:
     """K7a: x [C, H, W, N], g [C, Ho, Wo, N] (or NCHW for ``g_layout``)
-    -> dx [C, H, W, N].  A block takes one channel, a band of rows
-    (``pool_backward_band``) and 32 images on the lanes; it finds each
-    window's first maximum once, then forms dx from shared memory."""
+    -> dx [C, H, W, N].  float32: a block takes one channel, a band of
+    rows (``pool_backward_band``) and 32 images on the lanes; it finds each
+    window's first maximum once, then forms dx from shared memory.  bf16:
+    lanes over (w, image pairs); max pools whose windows share no element
+    run a thread a window (``k7a_bf16_direct_unit``), the others the two
+    phases in bf16 bytes (``k7a_bf16_banded_unit``)."""
     return _pool_backward(pool_backward_chwn, "pool_backward_chwn", "CHWN",
                           x, g, F, S, op, g_layout, relu_mask)
 

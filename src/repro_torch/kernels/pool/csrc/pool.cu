@@ -35,8 +35,26 @@
 // float32, take the max or the float32 sum, divide, and round once where
 // they store, as the reference's kernels do (x.astype(f32), then
 // acc.astype(o_ref.dtype)); a bf16 max is exact.
+//
+// K3a bf16 runs a kernel of its own (pool_chwn_bf16_kernel), built only
+// into the bf16 library.  Its lanes run over (wo, n), n fastest, so a warp
+// fills at any N: at N = 8 it takes 8 neighbouring outputs of a row, where
+// the float32 design's lanes along n left 24 of 32 idle.  Where N is even
+// (and x 4-byte aligned) a lane moves two neighbouring images by one 4-byte
+// access, so a unit is an image pair; else a single image.  A thread makes
+// one output unit: it issues all the loads of its window (for a window
+// other than 2/2 and 3/2, a row 8 taps at a time, with no branch between
+// them) before it combines any, then takes the max or the float32 sum in
+// row-major (dy, dx) order, divides and rounds once.  Overlapping windows
+// read their shared columns again, from L1.  A window wider than 8 whose
+// taps fit 48 KB (unet_mini's 32 x 32 global pool) is copied into shared
+// memory by a block first, every load in flight at once, and each unit's
+// thread combines its taps from there in the same order
+// (pool_chwn_bf16_window_kernel), so that no thread waits on a chain of
+// 1024 global loads.  pool.ops.k3a_bf16_unit is the map in Python.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "../../csrc/nan_max.cuh"
 #include "../../csrc/storage.cuh"
@@ -126,18 +144,223 @@ pool_nchw_kernel(const T* __restrict__ x, T* __restrict__ y, int N,
       AVG ? r / (float)(F * F) : r);
 }
 
+#if defined(REPRO_VARIANT_BF16)
+constexpr int kBf16Threads = 256;  // K3a bf16 threads per block
+constexpr int kRow = 8;  // taps of a window row a K3a bf16 thread loads at once
+
+// one unit's taps: two images (the halves of a 4-byte word) or one (the
+// low half)
+__device__ __forceinline__ unsigned load_unit(const __nv_bfloat16* p,
+                                              bool pair) {
+  return pair ? __ldg(reinterpret_cast<const unsigned*>(p))
+              : __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+
+// a unit's max or float32 sum (divided by F * F for avg), rounded once
+// into y at (c, ho, wo) of images n (and n + 1): one 4-byte word where y
+// runs along n, else a halfword each
+template <bool AVG, bool PAIR>
+__device__ __forceinline__ void store_unit(__nv_bfloat16* y, const Out& ys,
+                                           long long c, int ho, int wo,
+                                           int n, int F, float a0,
+                                           float a1) {
+  if (AVG) {
+    const float area = (float)(F * F);
+    a0 /= area;
+    a1 /= area;
+  }
+  __nv_bfloat16* yp = y + (long long)n * ys.n + c * ys.c +
+                      (long long)ho * ys.h + (long long)wo * ys.w;
+  if (PAIR && ys.n == 1) {
+    *reinterpret_cast<unsigned*>(yp) = repro::mma::pack_bf16(a0, a1);
+  } else {
+    put(yp, a0);
+    if (PAIR) put(yp + ys.n, a1);
+  }
+}
+
+// K3a bf16: unit u = ((c Ho + ho) Wo + wo) U + q, U = N / 2 image pairs
+// (PAIR) or N images; the unit's images are 2q, 2q + 1 or q.  FT, ST > 0
+// fix F and S at compile time (every load of the window issued at once);
+// else a window row is loaded kRow taps at a time.
+template <int FT, int ST, bool AVG, bool PAIR>
+__global__ void __launch_bounds__(kBf16Threads)
+pool_chwn_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                      __nv_bfloat16* __restrict__ y, int N, int H, int W,
+                      int F_, int S_, int Ho, int Wo, int U, long long units,
+                      Out ys) {
+  const long long u = (long long)blockIdx.x * kBf16Threads + threadIdx.x;
+  if (u >= units) return;
+  const int F = FT > 0 ? FT : F_, S = ST > 0 ? ST : S_;
+  long long r = u / U;
+  const int q = (int)(u - r * U);
+  const int wo = (int)(r % Wo);
+  r /= Wo;
+  const int ho = (int)(r % Ho);
+  const long long c = r / Ho;
+  const int n = PAIR ? 2 * q : q;
+  const __nv_bfloat16* xp =
+      x + ((c * H + (long long)ho * S) * W + (long long)wo * S) * N + n;
+  float a0 = AVG ? 0.f : -INFINITY, a1 = a0;
+  if constexpr (FT > 0) {
+    unsigned v[FT * FT];
+#pragma unroll
+    for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < FT; ++dx)
+        v[dy * FT + dx] = load_unit(xp + (dy * W + dx) * N, PAIR);
+#pragma unroll
+    for (int t = 0; t < FT * FT; ++t) {
+      a0 = tap<AVG>(a0, repro::storage::lo_bf16(v[t]));
+      if (PAIR) a1 = tap<AVG>(a1, repro::storage::hi_bf16(v[t]));
+    }
+  } else {
+    // a row of the window kRow taps at a time, every load issued before any
+    // is combined, and no branch among them (which would serialise the
+    // rows' latencies): a tap past the row reloads the row's last one and
+    // combines the neutral value (0 or -inf), which changes nothing
+    const float none = AVG ? 0.f : -INFINITY;
+#pragma unroll 2
+    for (int dy = 0; dy < F; ++dy) {
+      const __nv_bfloat16* xr = xp + dy * W * N;
+      for (int dx0 = 0; dx0 < F; dx0 += kRow) {
+        unsigned v[kRow];
+#pragma unroll
+        for (int k = 0; k < kRow; ++k)
+          v[k] = load_unit(xr + min(dx0 + k, F - 1) * N, PAIR);
+#pragma unroll
+        for (int k = 0; k < kRow; ++k) {
+          const bool in = dx0 + k < F;
+          a0 = tap<AVG>(a0, in ? repro::storage::lo_bf16(v[k]) : none);
+          if (PAIR)
+            a1 = tap<AVG>(a1, in ? repro::storage::hi_bf16(v[k]) : none);
+        }
+      }
+    }
+  }
+  store_unit<AVG, PAIR>(y, ys, c, ho, wo, n, F, a0, a1);
+}
+
+// large windows whose taps of every image fit kWindowSmem (unet_mini's 32
+// x 32 global pool: 16 KB): a block an output position (c, ho, wo), whose
+// threads copy the window's rows into shared memory, every load in flight
+// at once, before thread q < U combines unit q's taps from there in
+// row-major order.  Block b's thread q makes unit b U + q, the same map.
+constexpr int kWindowSmem = 48 * 1024;
+
+template <bool AVG, bool PAIR>
+__global__ void __launch_bounds__(kBf16Threads)
+pool_chwn_bf16_window_kernel(const __nv_bfloat16* __restrict__ x,
+                             __nv_bfloat16* __restrict__ y, int N, int H,
+                             int W, int F, int S, int Ho, int Wo, int U,
+                             Out ys) {
+  extern __shared__ unsigned win[];  // [F * F][U] unit words
+  long long r = blockIdx.x;
+  const int wo = (int)(r % Wo);
+  r /= Wo;
+  const int ho = (int)(r % Ho);
+  const long long c = r / Ho;
+  const __nv_bfloat16* xp =
+      x + ((c * H + (long long)ho * S) * W + (long long)wo * S) * N;
+  const int row = F * U;  // a window row's unit words, contiguous in x
+#pragma unroll 4
+  for (int i = threadIdx.x; i < F * row; i += kBf16Threads) {
+    const int dy = i / row, k = i - dy * row;
+    win[i] = load_unit(xp + dy * W * N + (PAIR ? 2 * k : k), PAIR);
+  }
+  __syncthreads();
+  const int q = threadIdx.x;
+  if (q >= U) return;
+  float a0 = AVG ? 0.f : -INFINITY, a1 = a0;
+#pragma unroll 8
+  for (int t = 0; t < F * F; ++t) {
+    const unsigned v = win[t * U + q];
+    a0 = tap<AVG>(a0, repro::storage::lo_bf16(v));
+    if (PAIR) a1 = tap<AVG>(a1, repro::storage::hi_bf16(v));
+  }
+  store_unit<AVG, PAIR>(y, ys, c, ho, wo, PAIR ? 2 * q : q, F, a0, a1);
+}
+
+template <int FT, int ST, bool AVG>
+void launch_chwn_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int N,
+                      int C, int H, int W, int F, int S, int Ho, int Wo,
+                      bool pair, Out ys, cudaStream_t s) {
+  const int U = pair ? N / 2 : N;
+  const long long units = (long long)C * Ho * Wo * U;
+  const unsigned blocks = (unsigned)((units + kBf16Threads - 1) / kBf16Threads);
+  if (pair)
+    pool_chwn_bf16_kernel<FT, ST, AVG, true>
+        <<<blocks, kBf16Threads, 0, s>>>(x, y, N, H, W, F, S, Ho, Wo, U,
+                                         units, ys);
+  else
+    pool_chwn_bf16_kernel<FT, ST, AVG, false>
+        <<<blocks, kBf16Threads, 0, s>>>(x, y, N, H, W, F, S, Ho, Wo, U,
+                                         units, ys);
+}
+
+// the kernel for (F, S): 2/2 and 3/2 at compile time; a window wider than
+// 8 whose taps fit kWindowSmem through shared memory; else a row kRow taps
+// at a time
+template <bool AVG>
+void pool_chwn_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int N, int C,
+                    int H, int W, int F, int S, int Ho, int Wo, bool pair,
+                    Out ys, cudaStream_t s) {
+  const int U = pair ? N / 2 : N;
+  const long long smem = 4LL * F * F * U;
+  if (F > 8 && smem <= kWindowSmem && U <= kBf16Threads) {
+    const unsigned blocks = (unsigned)((long long)C * Ho * Wo);
+    if (pair)
+      pool_chwn_bf16_window_kernel<AVG, true>
+          <<<blocks, kBf16Threads, (int)smem, s>>>(x, y, N, H, W, F, S, Ho,
+                                                   Wo, U, ys);
+    else
+      pool_chwn_bf16_window_kernel<AVG, false>
+          <<<blocks, kBf16Threads, (int)smem, s>>>(x, y, N, H, W, F, S, Ho,
+                                                   Wo, U, ys);
+  } else if (F == 2 && S == 2) {
+    launch_chwn_bf16<2, 2, AVG>(x, y, N, C, H, W, F, S, Ho, Wo, pair, ys, s);
+  } else if (F == 3 && S == 2) {
+    launch_chwn_bf16<3, 2, AVG>(x, y, N, C, H, W, F, S, Ho, Wo, pair, ys, s);
+  } else {
+    launch_chwn_bf16<0, 0, AVG>(x, y, N, C, H, W, F, S, Ho, Wo, pair, ys, s);
+  }
+}
+#endif
+
 int pool_out(int hw, int F, int S) { return (hw - F) / S + 1; }
 
 }  // namespace
 
 // K3a: x [C, H, W, N] -> y [C, Ho, Wo, N] (dst_nchw = 0) or
 // [N, C, Ho, Wo] (dst_nchw = 1), both REPRO_WT (float32, or bf16 in the
-// bf16 build).  Returns cudaGetLastError().
+// bf16 build, which runs pool_chwn_bf16_kernel).  Returns
+// cudaGetLastError().
 extern "C" int REPRO_ENTRY(pool_chwn_forward)(const void* x, void* y,
                                              int N, int C, int H, int W,
                                              int F, int S, int avg,
                                              int dst_nchw, void* stream) {
   const int Ho = pool_out(H, F, S), Wo = pool_out(W, F, S);
+#if defined(REPRO_VARIANT_BF16)
+  if (N > 0 && C > 0 && Ho > 0 && Wo > 0) {
+    const long long units = (long long)C * Ho * Wo * N;
+    if ((units + kBf16Threads - 1) / kBf16Threads > 2147483647LL)
+      return (int)cudaErrorInvalidConfiguration;
+    const Out ys = out_strides(N, C, Ho, Wo, dst_nchw != 0);
+    // two images a lane where both bases allow a 4-byte word at every even
+    // n (the output's only where it runs along n)
+    const bool pair = N % 2 == 0 &&
+                      reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
+                      (dst_nchw || reinterpret_cast<uintptr_t>(y) % 4 == 0);
+    const T* xf = static_cast<const T*>(x);
+    T* yf = static_cast<T*>(y);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (avg)
+      pool_chwn_bf16<true>(xf, yf, N, C, H, W, F, S, Ho, Wo, pair, ys, s);
+    else
+      pool_chwn_bf16<false>(xf, yf, N, C, H, W, F, S, Ho, Wo, pair, ys, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+#else
   if (N > 0 && C > 0 && Ho > 0 && Wo > 0) {
     const int n_chunks = (N + 31) / 32, strips = (Wo + kE - 1) / kE;
     const long long items = (long long)C * Ho * strips * n_chunks;
@@ -156,6 +379,7 @@ extern "C" int REPRO_ENTRY(pool_chwn_forward)(const void* x, void* y,
           xf, yf, N, C, H, W, F, S, Ho, Wo, n_chunks, strips, ys);
   }
   return static_cast<int>(cudaGetLastError());
+#endif
 }
 
 // K3b: x [N, C, H, W] -> y [N, C, Ho, Wo] (dst_nchw = 1) or

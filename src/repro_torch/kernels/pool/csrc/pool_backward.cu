@@ -59,6 +59,32 @@
 // _route), and dx sums its windows' shares in float32 registers (F > S
 // windows overlap: AlexNet's and ResNet-18's 3/2 pools) and is rounded
 // once, to nearest even, where it is stored, as the reference casts acc.
+//
+// K7a bf16 runs kernels of its own, built only into the bf16 library, that
+// work in bf16 bytes.  Their lanes run over (w or window, n), n fastest, a
+// unit being two neighbouring images moved by one 4-byte access where N is
+// even and the bases allow it (else one image): at VGG16's N = 32 a warp
+// covers two neighbouring windows or columns, 128 bytes a tap, where the
+// float32 design's lanes took 32 images of 2 bytes each.  Each first max is
+// found among the widened values (ties break as the reference's _route),
+// and dx sums its shares in float32 registers in the reference's order and
+// is rounded once where it is stored.
+//   direct (max with F <= S, every VGG16 and unet_mini max pool): no two
+//     windows share an element, so a thread takes one window unit: it loads
+//     the window's taps and its g, finds each image's first max, and writes
+//     the block of dx the window owns (its taps, and the rows and columns
+//     up to the next window or the edge, which no window covers and get 0),
+//     with the ReLU mask from the taps in its registers.  No shared memory,
+//     no barrier: x and g are read once and dx written once.
+//   banded (avg, and max with overlapping windows): K7a's two phases in
+//     bf16 bytes.  A block owns one channel, a band of dx rows
+//     (backward.py::pool_backward_band with itemsize 2) and a chunk of 32
+//     units; phase 1 stages each touching window's g as its 4-byte word
+//     and, for max, both images' first-max taps as one word; phase 2 forms
+//     each dx unit of the band from shared memory, reading x again (from
+//     L2) for the ReLU mask.
+// backward.py::k7a_bf16_direct_unit and ::k7a_bf16_banded_unit are these
+// maps in Python.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -496,12 +522,294 @@ cudaError_t launch_chwn(const T* x, const T* g, T* dx, int N,
   return cudaGetLastError();
 }
 
+#if defined(REPRO_VARIANT_BF16)
+// K7a bf16's units: two images (a 4-byte word) or one (a halfword)
+__device__ __forceinline__ unsigned ld_unit(const __nv_bfloat16* p,
+                                            bool pair) {
+  return pair ? __ldg(reinterpret_cast<const unsigned*>(p))
+              : __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ void st_unit(__nv_bfloat16* p, float a0, float a1,
+                                        bool pair) {
+  if (pair)
+    *reinterpret_cast<unsigned*>(p) = repro::mma::pack_bf16(a0, a1);
+  else
+    put(p, a0);
+}
+// g of images n (and n + 1) at window offset o: one word where g runs
+// along n (gs.n == 1), else a halfword each
+__device__ __forceinline__ unsigned ld_g(const __nv_bfloat16* g, long long o,
+                                         long long sn, int n, bool pair) {
+  const __nv_bfloat16* p = g + o + n * sn;
+  if (sn == 1) return ld_unit(p, pair);
+  const unsigned lo = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return pair ? lo | (static_cast<unsigned>(__ldg(
+                          reinterpret_cast<const unsigned short*>(p + sn)))
+                      << 16)
+              : lo;
+}
+__device__ __forceinline__ float mask(float v, bool relu_mask) {
+  return relu_mask && !(v > 0.f) ? 0.f : 1.f;
+}
+
+// direct: unit u = ((c Ho + oh) Wo + ow) U + q (U = N / 2 pairs or N
+// images) owns dx rows [oh S, oh S + S) and columns [ow S, ow S + S), the
+// last window row and column up to H and W.  F <= S.
+template <int FT, int ST, bool PAIR>
+__global__ void __launch_bounds__(kThreads)
+pool_backward_direct_bf16(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ g,
+                          __nv_bfloat16* __restrict__ dx, int N, int H,
+                          int W, int F_, int S_, int Ho, int Wo, int U,
+                          long long units, int relu_mask, Strides4 gs) {
+  const long long u = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (u >= units) return;
+  const int F = FT > 0 ? FT : F_, S = ST > 0 ? ST : S_;
+  long long r = u / U;
+  const int q = (int)(u - r * U);
+  const int ow = (int)(r % Wo);
+  r /= Wo;
+  const int oh = (int)(r % Ho);
+  const long long c = r / Ho;
+  const int n = PAIR ? 2 * q : q;
+  const unsigned gw = ld_g(g, c * gs.c + oh * gs.h + ow * gs.w, gs.n, n, PAIR);
+  const float g0 = repro::storage::lo_bf16(gw);
+  const float g1 = repro::storage::hi_bf16(gw);
+  const int h0 = oh * S, w0 = ow * S;
+  const long long base = ((c * H + h0) * W + w0) * N + n;
+  const int rows = oh == Ho - 1 ? H - h0 : S;  // the owned block
+  const int cols = ow == Wo - 1 ? W - w0 : S;
+  // each image's first max in row-major tap order; a NaN routes nothing
+  float m0 = -INFINITY, m1 = -INFINITY;
+  int f0 = 0, f1 = 0;
+  bool nan0 = false, nan1 = false;
+  if constexpr (FT > 0) {
+    unsigned v[FT * FT];
+#pragma unroll
+    for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+      for (int dxx = 0; dxx < FT; ++dxx)
+        v[dy * FT + dxx] = ld_unit(x + base + (dy * W + dxx) * N, PAIR);
+#pragma unroll
+    for (int t = 0; t < FT * FT; ++t) {
+      const float a = repro::storage::lo_bf16(v[t]);
+      const float b = repro::storage::hi_bf16(v[t]);
+      nan0 |= a != a;
+      if (a > m0) { m0 = a; f0 = t; }
+      if (PAIR) {
+        nan1 |= b != b;
+        if (b > m1) { m1 = b; f1 = t; }
+      }
+    }
+#pragma unroll
+    for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+      for (int dxx = 0; dxx < FT; ++dxx) {
+        const int t = dy * FT + dxx;
+        const float a = repro::storage::lo_bf16(v[t]);
+        const float b = repro::storage::hi_bf16(v[t]);
+        const float d0 = (!nan0 && f0 == t ? g0 : 0.f) * mask(a, relu_mask);
+        const float d1 = (!nan1 && f1 == t ? g1 : 0.f) * mask(b, relu_mask);
+        st_unit(dx + base + (dy * W + dxx) * N, d0, d1, PAIR);
+      }
+  } else {
+    for (int t = 0; t < F * F; ++t) {
+      const unsigned v =
+          ld_unit(x + base + ((t / F) * W + t % F) * N, PAIR);
+      const float a = repro::storage::lo_bf16(v);
+      const float b = repro::storage::hi_bf16(v);
+      nan0 |= a != a;
+      if (a > m0) { m0 = a; f0 = t; }
+      if (PAIR) {
+        nan1 |= b != b;
+        if (b > m1) { m1 = b; f1 = t; }
+      }
+    }
+    for (int t = 0; t < F * F; ++t) {
+      const long long o = base + ((t / F) * W + t % F) * N;
+      const unsigned v = ld_unit(x + o, PAIR);
+      const float d0 = (!nan0 && f0 == t ? g0 : 0.f) *
+                       mask(repro::storage::lo_bf16(v), relu_mask);
+      const float d1 = (!nan1 && f1 == t ? g1 : 0.f) *
+                       mask(repro::storage::hi_bf16(v), relu_mask);
+      st_unit(dx + o, d0, d1, PAIR);
+    }
+  }
+  // the owned elements under no window: 0
+  for (int dy = 0; dy < rows; ++dy)
+    for (int dxx = dy < F ? F : 0; dxx < cols; ++dxx)
+      st_unit(dx + base + (dy * W + dxx) * N, 0.f, 0.f, PAIR);
+}
+
+// dynamic shared memory of a banded K7a bf16 block: for each window of the
+// band and each of the chunk's 32 units, its g word and its taps word
+int chwn_bf16_smem_bytes(int win) { return win * 32 * 8; }
+
+// banded: a block takes channel blockIdx.y, dx rows [h0, h0 + band) and
+// units [32 blockIdx.z, + 32); window unit r = win * NU + j, win = (oh -
+// oh_lo) Wo + ow; dx unit e = ((h - h0) W + w) NU + j.
+template <int FT, int ST, bool PAIR>
+__global__ void __launch_bounds__(kThreads)
+pool_backward_banded_bf16(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ g,
+                          __nv_bfloat16* __restrict__ dx, int N, int H,
+                          int W, int F_, int S_, int Ho, int Wo, int U,
+                          int band, int avg, int relu_mask, Strides4 gs) {
+  const int F = FT > 0 ? FT : F_, S = ST > 0 ? ST : S_;
+  extern __shared__ __align__(16) unsigned smw[];
+  const long long c = blockIdx.y;
+  const int h0 = blockIdx.x * band, h1 = min(H, h0 + band);
+  const int q0 = blockIdx.z * 32, NU = min(32, U - q0);
+  const int oh_lo = h0 >= F ? (h0 - F + S) / S : 0;
+  const int oh_hi = min(Ho - 1, (h1 - 1) / S);
+  const int nwin = max(0, oh_hi - oh_lo + 1) * Wo;
+  unsigned* gsm = smw;                  // [nwin][NU] g words
+  unsigned* tsm = smw + nwin * NU;      // [nwin][NU] taps words
+  const long long xc = c * H * W * N;   // the channel's plane
+
+  // phase 1: each window's g word and, for max, its taps word (image 0's
+  // first-max tap in the low half; kNoTap for a window holding a NaN)
+  for (int r = threadIdx.x; r < nwin * NU; r += kThreads) {
+    const int win = r / NU, j = r - win * NU;
+    const int wr = win / Wo, ow = win - wr * Wo, oh = oh_lo + wr;
+    const int n = PAIR ? 2 * (q0 + j) : q0 + j;
+    gsm[r] = ld_g(g, c * gs.c + oh * gs.h + ow * gs.w, gs.n, n, PAIR);
+    if (!avg) {
+      const __nv_bfloat16* wp =
+          x + xc + ((long long)oh * S * W + ow * S) * N + n;
+      float m0 = -INFINITY, m1 = -INFINITY;
+      unsigned f0 = 0, f1 = 0;
+      bool nan0 = false, nan1 = false;
+      auto visit = [&](int yy, int xx) {
+        const unsigned v = ld_unit(wp + (yy * W + xx) * N, PAIR);
+        const float a = repro::storage::lo_bf16(v);
+        const float b = repro::storage::hi_bf16(v);
+        const unsigned t = yy * F + xx;
+        nan0 |= a != a;
+        if (a > m0) { m0 = a; f0 = t; }
+        nan1 |= b != b;
+        if (b > m1) { m1 = b; f1 = t; }
+      };
+      if constexpr (FT > 0) {
+#pragma unroll
+        for (int yy = 0; yy < FT; ++yy)
+#pragma unroll
+          for (int xx = 0; xx < FT; ++xx) visit(yy, xx);
+      } else {
+        for (int yy = 0; yy < F; ++yy)
+          for (int xx = 0; xx < F; ++xx) visit(yy, xx);
+      }
+      tsm[r] = (nan0 ? kNoTap : f0) | ((nan1 ? kNoTap : f1) << 16);
+    }
+  }
+  __syncthreads();
+
+  // phase 2: every dx unit of the band, its windows' shares summed in the
+  // reference's order (tap dy ascending, then dx: windows oh, ow
+  // descending), rounded once
+  constexpr int WH = FT > 0 ? (FT + ST - 1) / ST : 0;  // windows over an
+  const int wh = WH > 0 ? WH : (F + S - 1) / S;         // element, a dim
+  const float area = (float)(F * F);
+  const int per = (h1 - h0) * W * NU;
+  for (int e = threadIdx.x; e < per; e += kThreads) {
+    const int rw = e / NU, j = e - rw * NU;
+    const int hh = rw / W, w = rw - hh * W, h = h0 + hh;
+    const int oh_a = min(h / S, Ho - 1);
+    const int oh_b = h >= F ? (h - F + S) / S : 0;
+    const int ow_a = min(w / S, Wo - 1);
+    const int ow_b = w >= F ? (w - F + S) / S : 0;
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < wh; ++i) {
+      const int oh = oh_a - i;
+      if (oh < oh_b) break;
+      const int tb = (h - oh * S) * F + w;  // tap of (h, w), less ow*S
+#pragma unroll
+      for (int k = 0; k < wh; ++k) {
+        const int ow = ow_a - k;
+        if (ow < ow_b) break;
+        const int idx = ((oh - oh_lo) * Wo + ow) * NU + j;
+        const unsigned gw = gsm[idx];
+        const float g0 = repro::storage::lo_bf16(gw);
+        const float g1 = repro::storage::hi_bf16(gw);
+        if (avg) {
+          a0 += g0 / area;
+          a1 += g1 / area;
+        } else {
+          const unsigned tw = tsm[idx], t = tb - ow * S;
+          if ((tw & 0xFFFFu) == t) a0 += g0;
+          if ((tw >> 16) == t) a1 += g1;
+        }
+      }
+    }
+    const int n = PAIR ? 2 * (q0 + j) : q0 + j;
+    const long long i = xc + ((long long)h * W + w) * N + n;
+    if (relu_mask) {
+      const unsigned v = ld_unit(x + i, PAIR);
+      a0 *= mask(repro::storage::lo_bf16(v), true);
+      a1 *= mask(repro::storage::hi_bf16(v), true);
+    }
+    st_unit(dx + i, a0, a1, PAIR);
+  }
+}
+
+template <int FT, int ST, bool PAIR>
+cudaError_t launch_chwn_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                             __nv_bfloat16* dx, int N, int C, int H, int W,
+                             int F, int S, int Ho, int Wo, int band,
+                             int win_rows, int avg, int relu_mask,
+                             Strides4 gs, cudaStream_t s) {
+  const int U = PAIR ? N / 2 : N;
+  if (!avg && F <= S) {
+    const long long units = (long long)C * Ho * Wo * U;
+    const long long blocks = (units + kThreads - 1) / kThreads;
+    if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+    pool_backward_direct_bf16<FT, ST, PAIR>
+        <<<(unsigned)blocks, kThreads, 0, s>>>(x, g, dx, N, H, W, F, S, Ho,
+                                                Wo, U, units, relu_mask, gs);
+    return cudaGetLastError();
+  }
+  const int smem = chwn_bf16_smem_bytes(win_rows * Wo);
+  if (smem > kDefaultSmem) {  // the attribute costs host time a launch
+    const cudaError_t e = cudaFuncSetAttribute(
+        pool_backward_banded_bf16<FT, ST, PAIR>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 grid((H + band - 1) / band, C, (U + 31) / 32);
+  pool_backward_banded_bf16<FT, ST, PAIR><<<grid, kThreads, smem, s>>>(
+      x, g, dx, N, H, W, F, S, Ho, Wo, U, band, avg, relu_mask, gs);
+  return cudaGetLastError();
+}
+
+template <bool PAIR>
+cudaError_t pool_backward_chwn_bf16(const __nv_bfloat16* x,
+                                    const __nv_bfloat16* g,
+                                    __nv_bfloat16* dx, int N, int C, int H,
+                                    int W, int F, int S, int Ho, int Wo,
+                                    int band, int win_rows, int avg,
+                                    int relu_mask, Strides4 gs,
+                                    cudaStream_t s) {
+  if (F == 2 && S == 2)
+    return launch_chwn_bf16<2, 2, PAIR>(x, g, dx, N, C, H, W, F, S, Ho, Wo,
+                                        band, win_rows, avg, relu_mask, gs,
+                                        s);
+  if (F == 3 && S == 2)
+    return launch_chwn_bf16<3, 2, PAIR>(x, g, dx, N, C, H, W, F, S, Ho, Wo,
+                                        band, win_rows, avg, relu_mask, gs,
+                                        s);
+  return launch_chwn_bf16<0, 0, PAIR>(x, g, dx, N, C, H, W, F, S, Ho, Wo,
+                                      band, win_rows, avg, relu_mask, gs, s);
+}
+#endif
+
 }  // namespace
 
 // K7a: x, dx [C, H, W, N]; g [C, Ho, Wo, N] or (g_nchw) [N, C, Ho, Wo]; all
-// three REPRO_WT (float32, or bf16 in the bf16 build).
+// three REPRO_WT (float32, or bf16 in the bf16 build, which runs the direct
+// or the banded bf16 kernel).
 // A block covers `band` dx rows and touches at most `win_rows` window rows
-// (backward.py::pool_backward_band).
+// (backward.py::pool_backward_band; the direct kernel has no band).
 extern "C" int REPRO_ENTRY(pool_backward_chwn)(
     const void* x, const void* g, void* dx, int N, int C, int H, int W,
     int F, int S, int avg, int relu_mask, int g_nchw, int band, int win_rows,
@@ -510,12 +818,28 @@ extern "C" int REPRO_ENTRY(pool_backward_chwn)(
   if (N <= 0 || C <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaGetLastError();
   if (band < 1 || win_rows < 1 || F * F >= kNoTap || C > 65535)
     return (int)cudaErrorInvalidValue;
-  const int smem = chwn_smem_bytes(win_rows * Wo, band, W);
   const Strides4 gs = strides_of(g_nchw != 0, N, C, Ho, Wo);
   const T* xf = static_cast<const T*>(x);
   const T* gf = static_cast<const T*>(g);
   T* df = static_cast<T*>(dx);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if defined(REPRO_VARIANT_BF16)
+  if (chwn_bf16_smem_bytes(win_rows * Wo) > 232448)
+    return (int)cudaErrorInvalidValue;
+  // two images a unit where every even n starts a 4-byte word of x, dx and
+  // (where it runs along n) g
+  const bool pair = N % 2 == 0 && reinterpret_cast<uintptr_t>(x) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(dx) % 4 == 0 &&
+                    (g_nchw || reinterpret_cast<uintptr_t>(g) % 4 == 0);
+  return static_cast<int>(
+      pair ? pool_backward_chwn_bf16<true>(xf, gf, df, N, C, H, W, F, S, Ho,
+                                           Wo, band, win_rows, avg,
+                                           relu_mask, gs, s)
+           : pool_backward_chwn_bf16<false>(xf, gf, df, N, C, H, W, F, S, Ho,
+                                            Wo, band, win_rows, avg,
+                                            relu_mask, gs, s));
+#else
+  const int smem = chwn_smem_bytes(win_rows * Wo, band, W);
   cudaError_t e;
   if (F == 3 && S == 2)  // AlexNet's overlapping pools
     e = launch_chwn<3, 2>(xf, gf, df, N, C, H, W, F, S, Ho, Wo, band, smem,
@@ -527,6 +851,7 @@ extern "C" int REPRO_ENTRY(pool_backward_chwn)(
     e = launch_chwn<0, 0>(xf, gf, df, N, C, H, W, F, S, Ho, Wo, band, smem,
                           avg, relu_mask, g_nchw, gs, s);
   return static_cast<int>(e);
+#endif
 }
 
 // K7b: x, dx [N, C, H, W]; g [N, C, Ho, Wo] or (g_nchw = 0) [C, Ho, Wo, N];

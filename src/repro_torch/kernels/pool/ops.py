@@ -19,37 +19,66 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.pool.backward import pool_backward
 from repro_torch.kernels.pool.ref import pool_ref
-from repro_torch.shapes import pool_out_hw
 
 _LAYOUTS = ("CHWN", "NCHW")
+_OPS = ("max", "avg")
 
 
-def _pool(wrapper, entry: str, src: str, x: torch.Tensor, F: int, S: int,
-          op: str, dst_layout: str) -> torch.Tensor:
-    name = wrapper.__name__
+def k3a_bf16_unit(u: int, N: int, C: int, Ho: int, Wo: int,
+                  pair: bool):
+    """The output unit thread ``u`` of K3a's bf16 kernel
+    (``pool_chwn_bf16_kernel`` in csrc/pool.cu) makes: (c, ho, wo, its
+    images).  Units run n fastest, then wo, ho, c: two neighbouring images
+    a unit where ``pair`` (N even and x 4-byte aligned), else one; the
+    kernel runs ``C * Ho * Wo * units a position`` threads (the window
+    kernel of a window wider than 8: block ``u // U``'s thread ``u % U``,
+    U the units a position)."""
+    U = N // 2 if pair else N
+    r, q = divmod(u, U)
+    r, wo = divmod(r, Wo)
+    c, ho = divmod(r, Ho)
+    return c, ho, wo, (2 * q, 2 * q + 1) if pair else (q,)
+
+
+def _refuse(name: str, x: torch.Tensor, F: int, S: int, op: str,
+            dst_layout: str) -> None:
+    """Raise the reason a pool launch's arguments are refused."""
     if x.dim() != 4:
-        raise ValueError(f"{name}: expected a 4-D {src} tensor, got shape "
+        raise ValueError(f"{name}: expected a 4-D tensor, got shape "
                          f"{tuple(x.shape)}")
-    if op not in ("max", "avg"):
+    if op not in _OPS:
         raise ValueError(f"{name}: unknown pool op {op!r}")
     if dst_layout not in _LAYOUTS:
         raise ValueError(f"{name}: dst_layout={dst_layout!r} not in "
                          f"{_LAYOUTS}")
-    N, C, H, W = (x.shape[src.index(d)] for d in "NCHW")
-    Ho, Wo = pool_out_hw(H, F, S), pool_out_hw(W, F, S)
-    if F < 1 or S < 1 or Ho < 1 or Wo < 1:
-        raise ValueError(f"{name}: a {F}x{F} window at stride {S} does not "
-                         f"fit {H}x{W}")
-    if _build.on_cpu(name, x):
+    raise ValueError(f"{name}: a {F}x{F} window at stride {S} does not fit "
+                     f"the input {tuple(x.shape)}")
+
+
+def _pool(wrapper, entry: str, src: str, x: torch.Tensor, F: int, S: int,
+          op: str, dst_layout: str) -> torch.Tensor:
+    # the host path of every K3a/K3b launch: one combined test of the
+    # arguments (the reason is worked out only where it fails), y by
+    # new_empty, the shared _build helpers
+    if src == "CHWN" and x.dim() == 4:
+        C, H, W, N = x.shape
+    elif x.dim() == 4:
+        N, C, H, W = x.shape
+    else:
+        _refuse(wrapper.__name__, x, F, S, op, dst_layout)
+    Ho = (H - F) // S + 1 if S >= 1 else 0
+    Wo = (W - F) // S + 1 if S >= 1 else 0
+    if not (F >= 1 and Ho >= 1 and Wo >= 1 and op in _OPS
+            and dst_layout in _LAYOUTS):
+        _refuse(wrapper.__name__, x, F, S, op, dst_layout)
+    if _build.on_cpu(wrapper.__name__, x):
         return pool_ref(x, F, S, op, src, dst_layout)
-    dev, variant = _build.require_cuda_storage(name, x)
-    dims = {"N": N, "C": C, "H": Ho, "W": Wo}
-    y = torch.empty(tuple(dims[d] for d in dst_layout), device=x.device,
-                    dtype=x.dtype)
-    err = _build.entry(entry, variant)(
-        x.data_ptr(), y.data_ptr(), N, C, H, W, F, S, int(op == "avg"),
-        int(dst_layout == "NCHW"), _build.stream_of(dev))
-    _build.check(name, err)
+    dev, variant = _build.require_cuda_storage(wrapper.__name__, x)
+    y = x.new_empty((C, Ho, Wo, N) if dst_layout == "CHWN"
+                    else (N, C, Ho, Wo))
+    _build.check(wrapper.__name__, _build.entry(entry, variant)(
+        x.data_ptr(), y.data_ptr(), N, C, H, W, F, S, op == "avg",
+        dst_layout == "NCHW", _build.stream_of(dev)))
     wrapper.launches += 1
     if variant:
         wrapper.variant_launches[variant] += 1
@@ -84,8 +113,10 @@ def _pool_public(wrapper, entry: str, src: str, x: torch.Tensor, F: int,
 def pool_chwn(x: torch.Tensor, F: int, S: int, op: str = "max",
               dst_layout: str = "CHWN") -> torch.Tensor:
     """K3a: x [C, H, W, N] -> [C, Ho, Wo, N] (or [N, C, Ho, Wo] for
-    ``dst_layout="NCHW"``).  Threads run along N (coalesced); each makes
-    four neighbouring outputs of a row from one pass over their columns."""
+    ``dst_layout="NCHW"``).  float32: threads run along N (coalesced);
+    each makes four neighbouring outputs of a row from one pass over their
+    columns.  bf16: lanes run over (wo, image pairs), a thread an output
+    unit (``k3a_bf16_unit``)."""
     return _pool_public(pool_chwn, "pool_chwn_forward", "CHWN", x, F, S, op,
                         dst_layout)
 

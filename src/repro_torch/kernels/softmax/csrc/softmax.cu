@@ -1,6 +1,6 @@
 // K4: row softmax of a float32 or bf16 [rows, cols] matrix in one kernel,
-// and K8: row-wise softmax cross entropy of float32 logits, loss[r] =
-// lse(x[r]) - gold[r].
+// and K8: row-wise softmax cross entropy of float32 or bf16 logits, a
+// float32 loss[r] = lse(x[r]) - gold[r].
 //
 // K4 replaces repro/kernels/softmax/softmax.py::softmax_pallas, the
 // paper's §V.B fusion of the five softmax steps (max, shift, exp, sum,
@@ -35,9 +35,11 @@
 // exp(-inf - -inf) = NaN, so it comes out NaN too, and so does K8's loss
 // of such a row whatever its label (xent_loss).
 //
-// bf16 (K4's variant build, csrc/storage.cuh): the same templates load
-// bf16 (4 elements, 8 bytes, where a float32 load takes 16), compute in
-// float32 and round y once, to nearest even, where they store it.
+// bf16 (the variant build, csrc/storage.cuh): the same templates load
+// bf16 (4 elements, 8 bytes, where a float32 load takes 16) and compute in
+// float32; K4 rounds y once, to nearest even, where it stores it, and K8
+// widens the gold logit too and writes a float32 loss, as the reference's
+// kernel (x.astype(f32)) does.
 //
 // K8's gold logit is x[row, label] for a label in [0, cols) and 0
 // otherwise: the reference kernel takes it through a one-hot, so a label
@@ -156,10 +158,12 @@ __device__ __forceinline__ void store(T* p, int c, const float* v) {
 // K8's loss from the row's (max, sum of exp(x - max)).  An all -inf row
 // (m = -inf) is NaN whatever its label, as in the reference's kernel, where
 // x - max is NaN: fold() leaves such a row's sum 0, so it is set here.
-__device__ __forceinline__ float xent_loss(const float* xr, long long label,
+template <typename T>
+__device__ __forceinline__ float xent_loss(const T* xr, long long label,
                                            int cols, float m, float s) {
   if (m == -INFINITY) return NAN;
-  const float gold = label >= 0 && label < cols ? xr[label] : 0.f;
+  const float gold =
+      label >= 0 && label < cols ? repro::storage::widen(xr[label]) : 0.f;
   return (logf(s) + m) - gold;
 }
 
@@ -402,13 +406,15 @@ extern "C" int REPRO_ENTRY(softmax_forward)(const void* x, void* y, int rows,
   return static_cast<int>(cudaGetLastError());
 }
 
-#ifndef REPRO_VARIANT  // K8 is float32 only
-// K8: x [rows, cols] f32, labels [rows] int64 (any value) -> loss [rows].
-extern "C" int softmax_xent_forward(const void* x, const void* labels,
-                                    void* loss, int rows, int cols,
-                                    void* stream) {
+// K8: x [rows, cols] REPRO_WT (softmax_xent_forward float32,
+// softmax_xent_forward_bf16 bf16), labels [rows] int64 (any value) -> loss
+// [rows] float32.
+extern "C" int REPRO_ENTRY(softmax_xent_forward)(const void* x,
+                                                 const void* labels,
+                                                 void* loss, int rows,
+                                                 int cols, void* stream) {
   if (rows > 0 && cols > 0) {
-    const float* xf = static_cast<const float*>(x);
+    const REPRO_WT* xf = static_cast<const REPRO_WT*>(x);
     const long long* lab = static_cast<const long long*>(labels);
     float* lf = static_cast<float*>(loss);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -419,4 +425,3 @@ extern "C" int softmax_xent_forward(const void* x, const void* labels,
   }
   return static_cast<int>(cudaGetLastError());
 }
-#endif

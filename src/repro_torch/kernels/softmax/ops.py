@@ -4,9 +4,10 @@ K4 (``softmax``) and the row cross entropy K8 (``softmax_xent``).
 For a CPU tensor each returns the plain version (``ref.softmax_ref``,
 ``ref.softmax_xent_ref``); for a CUDA tensor it launches its kernel or
 raises.  Launches are counted in ``softmax.launches`` and
-``softmax_xent.launches`` (a bf16 K4 launch also in
-``softmax.variant_launches["bf16"]``).  K4 takes float32 or bf16 (computed
-in float32, rounded once to x's dtype); K8 float32.  ``softmax`` is differentiable: the gradient is
+``softmax_xent.launches`` (a bf16 launch also in the wrapper's
+``variant_launches["bf16"]``).  K4 takes float32 or bf16 (computed in
+float32, rounded once to x's dtype); K8 takes float32 or bf16 logits and
+gives a float32 loss.  ``softmax`` is differentiable: the gradient is
 the reference's closed form on the saved output, in plain tensor ops.
 
 Nothing in either wrapper reads device memory on the host, so a launch
@@ -62,8 +63,9 @@ def softmax(x: torch.Tensor) -> torch.Tensor:
 
 
 def softmax_xent(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """K8: row-wise cross entropy of float32 logits x [N, C] against int64
-    ``labels`` [N]: ``lse(x) - x[label]`` -> [N] float32.  A label outside
+    """K8: row-wise cross entropy of float32 or bf16 logits x [N, C]
+    against int64 ``labels`` [N]: ``lse(x) - x[label]`` -> [N] float32,
+    computed in float32 (bf16 widened, as the reference's kernel does).  A label outside
     [0, C) picks no column and its loss is the bare logsumexp, as the
     reference's kernel gives it (its gold logit is a one-hot sum); a row
     that holds a NaN or +inf, or is all -inf, gives NaN, as there."""
@@ -77,18 +79,21 @@ def softmax_xent(x: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
                          f"{x.device}")
     if _build.on_cpu("softmax_xent", x):
         return softmax_xent_ref(x, labels)
-    dev = _build.require_cuda_f32("softmax_xent", x)
+    dev, variant = _build.require_cuda_storage("softmax_xent", x)
     if not labels.is_contiguous():
         raise ValueError("softmax_xent: labels must be contiguous")
     rows, cols = x.shape
     loss = torch.empty(rows, device=x.device, dtype=torch.float32)
-    _build.check("softmax_xent", _build.library().softmax_xent_forward(
+    _build.check("softmax_xent", _build.entry("softmax_xent_forward", variant)(
         x.data_ptr(), labels.data_ptr(), loss.data_ptr(), rows, cols,
         _build.stream_of(dev)))
     softmax_xent.launches += 1
+    if variant:
+        softmax_xent.variant_launches[variant] += 1
     return loss
 
 
 softmax.launches = 0
 softmax.variant_launches = {"bf16": 0}
 softmax_xent.launches = 0
+softmax_xent.variant_launches = {"bf16": 0}

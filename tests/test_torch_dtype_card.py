@@ -4,9 +4,10 @@ K1 and K2 in bf16 and with int8 input (float32 or bf16 weights), K5a and
 K4 in bf16, each against its plain version on the same card inputs, at
 edge shapes: N and Co not multiples of 8 or 16, odd widths, pools, the
 residual in the other layout, src/dst folds.  Then what no kernel takes:
-a bf16 tensor reaching K8, float16 or mixed dtypes reaching the kernels
-that take bf16 (K3, K5b, K6, K7, K9: their bf16 builds are held in
-``tests/test_torch_bf16_train_card.py``), a bf16 training step fed a
+float16 or mixed dtypes reaching the kernels that take bf16 (K3, K5b, K6,
+K7, K8, K9: their bf16 builds are held in
+``tests/test_torch_bf16_train_card.py`` and
+``tests/test_torch_pool_bf16_card.py``), a bf16 training step fed a
 float32 input, and any (x, w) pair outside ``_build.CONV_VARIANTS`` raise
 ``TypeError`` naming the kernel; nothing falls back to a plain version.
 
@@ -306,10 +307,11 @@ def test_k4_bf16_matches_plain(rows, cols, offset, card):
 
 def test_kernels_without_bf16_raise(card):
     bf, hf = torch.bfloat16, torch.float16
+    # the kernels that take bf16 (K8 too) take neither float16 nor mixed
+    # dtypes
     with pytest.raises(TypeError, match="softmax_xent"):
-        softmax_xent(torch.randn(4, 10, device=card, dtype=bf),
+        softmax_xent(torch.randn(4, 10, device=card, dtype=hf),
                      torch.zeros(4, dtype=torch.int64, device=card))
-    # the kernels that take bf16 take neither float16 nor mixed dtypes
     x = torch.randn(4, 8, 8, 3, device=card, dtype=hf)    # CHWN
     xn = torch.randn(3, 4, 8, 8, device=card, dtype=hf)   # NCHW
     with pytest.raises(TypeError, match="pool_chwn"):

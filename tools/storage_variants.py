@@ -20,8 +20,10 @@ sources run in turns (checkout, sources, sources reversed, checkout);
 each case is held against its plain version as the smoke holds it
 (``chip_smoke.dtype_case``), and the ms summed over each network's
 launches (a case's ms times its launches) is printed beside the library
-call's; ``--per-case`` also prints each distinct launch's ms (its
-case, the launches it makes, ms and library ms a launch) and, for a conv
+call's (and, for the rows the smoke times by graph replay too, K3a bf16,
+K7a bf16 and K8 bf16, the device ms); ``--per-case`` also prints each
+distinct launch's ms (its case, the launches it makes, ms and library ms
+a launch) and, for a conv
 row, the sums over the launches of each map width W the kernel reads (a
 dgrad's: the width of the conv it poses).
 ``--timing-only`` skips the checks, for variants that time a part of the
@@ -85,6 +87,7 @@ _ENTRY = {"conv_chwn": "conv_chwn_forward", "conv_nchw": "conv_nchw_forward",
           "conv_stack_chwn": "conv_stack_chwn_forward",
           "conv_stack_nchw": "conv_stack_nchw_forward",
           "wgrad": "wgrad_forward", "softmax": "softmax_forward",
+          "softmax_xent": "softmax_xent_forward",
           "pool_chwn": "pool_chwn_forward", "pool_nchw": "pool_nchw_forward",
           "pool_backward_chwn": "pool_backward_chwn",
           "pool_backward_nchw": "pool_backward_nchw",
@@ -124,8 +127,12 @@ def timed(name: str, cases: Counter, dev, per_case: bool = False
             m = cs.dtype_case(name, case, dev, i)
             tot[network] += n * m["ms"]
             tot[f"{network} library"] += n * m["library_ms"]
+            if "device_ms" in m:   # rows the smoke also times by graph replay
+                tot[f"{network} device"] += n * m["device_ms"]
             if per_case:
-                print(f"  {network} {case} x{n}: ms={m['ms']:.4f} "
+                dev_ms = (f" device_ms={m['device_ms']:.5f}"
+                          if "device_ms" in m else "")
+                print(f"  {network} {case} x{n}: ms={m['ms']:.4f}{dev_ms} "
                       f"library_ms={m['library_ms']:.4f}", flush=True)
                 W = map_width(name, case)
                 if W is not None:

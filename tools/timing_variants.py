@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Write timing-only variants of a warp-specialised conv kernel's source,
-to split its time between its producers and its consumers on the card.
+"""Write timing-only variants of a kernel's source, to split its time
+between its parts on the card.
 
     python3 tools/timing_variants.py SRC.cu [SRC.cu ...]
 
 Beside each SRC (which must lie outside the checkout's ``src/repro_torch``:
-every ``.cu`` there is built into the kernels' library) it writes
+every ``.cu`` there is built into the kernels' library) it writes, for a
+warp-specialised conv kernel,
 
 - ``<stem>_nocopy.cu``: each ring stage's copies removed (the producer's
   ``stage`` lambda returns at once), so the consumers multiply whatever
@@ -13,7 +14,16 @@ every ``.cu`` there is built into the kernels' library) it writes
 - ``<stem>_nomma.cu``: each ``mma.sync`` (``mma_bf16``, ``mma_bf16_z``,
   ``mma_tf32``) replaced by an empty ``asm volatile`` that still reads its
   operand registers, so the fragments are loaded but never multiplied;
-- ``<stem>_nocopy_nomma.cu``: both.
+- ``<stem>_nocopy_nomma.cu``: both;
+
+and for the bf16 pool backward (``pool_backward.cu``: K7a bf16's direct
+and banded kernels, whose loads and stores go through ``ld_g``,
+``ld_unit`` and ``st_unit``)
+
+- ``<stem>_nog.cu``: g never read (a word made from its offset);
+- ``<stem>_nox.cu``: x never read (a word made from its address);
+- ``<stem>_nostore.cu``: dx stored only under a test no value passes, so
+  the loads and the arithmetic stay and the writes go.
 
 Time them with ``tools/storage_variants.py --timing-only KERNEL.VARIANT
 SRC_nocopy.cu ...``; their outputs are garbage by design.  A copy of
@@ -47,10 +57,39 @@ __device__ __forceinline__ void nomma(float (&d)[4], const unsigned (&a)[4],
 """
 _MMA = re.compile(r"\bmma_(?:bf16_z|bf16|tf32)\(")
 _STAGE = "auto stage = [&](int sl) {"
+# the bf16 pool backward's accesses, as stand-ins that touch no memory (or
+# write none); they go in after the kernel's own helpers
+FAKE = """
+__device__ __forceinline__ unsigned fake_g(const __nv_bfloat16*, long long o,
+                                          long long, int n, bool) {
+  return 0x3f803f80u ^ static_cast<unsigned>((o + n) & 0x00010001);
+}
+__device__ __forceinline__ unsigned fake_unit(const __nv_bfloat16* p, bool) {
+  return static_cast<unsigned>(reinterpret_cast<uintptr_t>(p)) & 0x3f7f3f7fu;
+}
+__device__ __forceinline__ void st_never(__nv_bfloat16* p, float a0,
+                                         float a1, bool pair) {
+  if (a0 == -12345.f && a1 == -12345.f) st_unit(p, a0, a1, pair);
+}
+"""
+_HELPERS_END = "__device__ __forceinline__ float mask("
+
+
+def pool_variants(text: str) -> dict:
+    """K7a bf16's part variants (``FAKE``'s stand-ins after its helpers)."""
+    head, sep, rest = text.partition(_HELPERS_END)
+    body = rest.partition("\n}\n")
+    base = head + FAKE + sep + body[0] + body[1]
+    tail = body[2]
+    return {"nog": base + tail.replace("ld_g(", "fake_g("),
+            "nox": base + tail.replace("ld_unit(x + ", "fake_unit(x + "),
+            "nostore": base + tail.replace("st_unit(", "st_never(")}
 
 
 def variants(src: Path) -> dict:
     text = src.read_text()
+    if _HELPERS_END in text:
+        return pool_variants(text)
     if (_STAGE not in text or not _MMA.search(text)
             or "namespace {\n" not in text):
         raise SystemExit(f"{src}: no producer stage lambda, mma call or "
