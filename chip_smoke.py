@@ -182,14 +182,17 @@
    the FLOPs its blocks execute (equal to ``stack_tiling``'s), three runs
    bitwise equal, and reports its error against float64; a "K6 bf16 over
    the main path" line in K6's form (its bound at the bf16 peak: one bf16
-   product a term).  K3a bf16, K7a bf16 and K8 bf16 add their device time
-   (graph replays) and the library call's beside the back-to-back
-   readings, on each launch's line and, for K3a bf16 and K7a bf16, summed
-   in "K3a bf16 over the main path" and "K7a bf16 over the main path"
-   lines with the share of the byte bound the device time reaches.  K3a
-   bf16 is also held and timed on every launch of the float32 K3a row
+   product a term).  The bf16 pools K3a and K3b, their backwards K7a and
+   K7b, and K8 bf16 add their device time (graph replays) and the library
+   call's beside the back-to-back readings, on each launch's line and,
+   for the pools and their backwards, summed in "K3a bf16 over the main
+   path", "K3b bf16 on its case (off every path)", "K7a bf16 over the
+   main path" and "K7b bf16 over the main path" lines with the share of
+   the byte bound the device time reaches.  K3a bf16 and K3b bf16 are
+   also held and timed on every launch of the float32 K3a and K3b rows
    cast to bf16 (a line each, and "K3a bf16 on the float32 K3a row's
-   shapes"), where bytes, not the host, set the time; and a "pool host_us"
+   shapes", "K3b bf16 on the float32 K3b row's shapes"), where bytes, not
+   the host, set the time; and a "pool host_us"
    line gives the host microseconds of each step of a K3a bf16 launch
    (unet_mini's first pool) beside the wrapper's and the library call's.
 8. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
@@ -1098,9 +1101,9 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                      library, float(F * F * N * C * Ho * Wo),
                      nbytes(x) * (1 + 1 / (S * S)), peak=peak,
                      check=exact_check if op == "max" else check)
-        if base == "pool_chwn":   # K3a bf16: the card's share, not the host's
-            m.update(device_ms=device_ms(kernel),
-                     library_device_ms=device_ms(library))
+        # K3a and K3b bf16: the card's share, not the host's
+        m.update(device_ms=device_ms(kernel),
+                 library_device_ms=device_ms(library))
         return m
     if base in POOL_BWD_KERNELS:
         N, C, H, F, S, op, g_lay, relu = case
@@ -1121,9 +1124,9 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                            * (F * F if op == "max" else 1)),
             2 * nbytes(z) + nbytes(g), peak=peak,
             check=exact_check if op == "max" else check)
-        if base == "pool_backward_chwn":   # K7a bf16, as K3a bf16
-            m.update(device_ms=device_ms(kernel),
-                     library_device_ms=device_ms(library))
+        # K7a and K7b bf16, as the pools
+        m.update(device_ms=device_ms(kernel),
+                 library_device_ms=device_ms(library))
         return m
     if base in TRANSPOSE_KERNELS:
         wrapper, ref = TRANSPOSE_KERNELS[base]
@@ -1953,26 +1956,27 @@ def pool_host_steps(x, F: int, S: int, op: str) -> dict:
     return {k: host_us(fn) for k, fn in steps.items()}
 
 
-def k3a_bf16_fp32_shapes(cases, dev) -> dict:
-    """K3a bf16 on every launch of the float32 K3a row (the unfused path's
-    AlexNet b128 and VGG16 b32 pools and unet_mini's), each cast to bf16,
-    held and timed as the dtype phase's K3a bf16 launches; one line a
-    shape and a sum weighted by the float32 row's launches.  There bytes,
-    not the host, set the time."""
+def pool_bf16_fp32_shapes(cases, dev, kern: str, label: str) -> dict:
+    """K3a bf16 (``kern`` "pool_chwn", ``label`` "K3a") or K3b bf16
+    ("pool_nchw", "K3b") on every launch of the float32 row (the unfused
+    path's AlexNet b128 and VGG16 b32 pools, and for K3a unet_mini's), each
+    cast to bf16, held and timed as the dtype phase's bf16 launches; one
+    line a shape and a sum weighted by the float32 row's launches.  There
+    bytes, not the host, set the time."""
     rows = []
-    for i, r in enumerate(c for c in cases if c["kernel"] == "pool_chwn"):
-        m = dtype_case("pool_chwn.bf16", r["case"], dev, 1000 + i)
+    for i, r in enumerate(c for c in cases if c["kernel"] == kern):
+        m = dtype_case(f"{kern}.bf16", r["case"], dev, 1000 + i)
         m.update(case=r["case"], launches=r["launches"],
                  network=r["network"])
         rows.append(m)
-        print(f"K3a bf16 on {r['network']} case={r['case']} "
+        print(f"{label} bf16 on {r['network']} case={r['case']} "
               f"x{r['launches']}: ms={m['ms']:.4f} "
               f"device_ms={m['device_ms']:.5f} "
               f"library_device_ms={m['library_device_ms']:.5f} "
               f"bound_ms={m['bound_ms']:.5f} device_bound_share="
               f"{m['bound_ms'] / m['device_ms']:.3f}", flush=True)
-    print(device_line("K3a bf16", rows, "on the float32 K3a row's shapes"),
-          flush=True)
+    print(device_line(f"{label} bf16", rows,
+                      f"on the float32 {label} row's shapes"), flush=True)
     return {"cases": rows}
 
 
@@ -2131,10 +2135,13 @@ def kernel_phase(dev):
     print(tensor_core_line("K2 bf16", [r for r in mult.values()
                                        if r["kernel"] == "conv_nchw.bf16"],
                            peak="bf16", design="bf16"), flush=True)
-    for label, kern in (("K3a bf16", "pool_chwn.bf16"),
-                        ("K7a bf16", "pool_backward_chwn.bf16")):
+    for label, kern, what in (
+            ("K3a bf16", "pool_chwn.bf16", "over the main path"),
+            ("K3b bf16", "pool_nchw.bf16", "on its case (off every path)"),
+            ("K7a bf16", "pool_backward_chwn.bf16", "over the main path"),
+            ("K7b bf16", "pool_backward_nchw.bf16", "over the main path")):
         print(device_line(label, [r for r in mult.values()
-                                  if r["kernel"] == kern]), flush=True)
+                                  if r["kernel"] == kern], what), flush=True)
     # per forward (and training step): each kernel's launches summed
     for kind, network, label, keys in batches:
         for kern in KERNELS:
@@ -3534,7 +3541,8 @@ def main() -> int:
     with torch.inference_mode():
         t0 = time.perf_counter()
         cases = kernel_phase(dev)
-        k3a_fp32_shapes = k3a_bf16_fp32_shapes(cases, dev)
+        k3a_fp32_shapes = pool_bf16_fp32_shapes(cases, dev, "pool_chwn", "K3a")
+        k3b_fp32_shapes = pool_bf16_fp32_shapes(cases, dev, "pool_nchw", "K3b")
         x_pool = torch.randn(8, 32, 32, 8, device=dev).to(torch.bfloat16)
         pool_host = pool_host_steps(x_pool, 2, 2, "max")
         print("pool host_us (K3a bf16, unet_mini's first pool): " + " ".join(
@@ -3623,6 +3631,7 @@ def main() -> int:
                                    "bf16_training": bf16_trained,
                                    "dtype": dtyped,
                                    "k3a_bf16_fp32_shapes": k3a_fp32_shapes,
+                                   "k3b_bf16_fp32_shapes": k3b_fp32_shapes,
                                    "pool_host_us": pool_host,
                                    "ptxas": ptxas.getvalue()}, indent=1))
     print(json.dumps(line))

@@ -173,19 +173,36 @@ def _k7b_smem(planes: int, win_rows: int, F: int, S: int, W: int,
     return planes * (4 * ((win_rows - 1) * S + F) * W + 6 * win_rows * Wo)
 
 
+def k7b_bf16_xw(W: int) -> int:
+    """Elements of a staged x row of K7b bf16's banded kernel (``k7b_xw``):
+    W rounded up to 8 (16-byte rows)."""
+    return -(-W // 8) * 8
+
+
+def k7b_bf16_smem_bytes(planes: int, win_rows: int, F: int, S: int, W: int,
+                        Wo: int) -> int:
+    """One banded K7b bf16 block's shared memory (``nchw_bf16_smem_bytes``
+    in csrc/pool_backward.cu): per plane the x rows its windows cover in
+    bf16 and a 4-byte word a window (its g and first-max tap)."""
+    return planes * (2 * ((win_rows - 1) * S + F) * k7b_bf16_xw(W)
+                     + 4 * win_rows * Wo)
+
+
 @functools.lru_cache(maxsize=None)
 def pool_backward_planes(N: int, C: int, H: int, W: int, F: int,
-                         S: int) -> PoolPlanes:
+                         S: int, itemsize: int = 4) -> PoolPlanes:
     """K7b's split: a block aims at ``_K7B_ELEMS`` dx elements (fewer where
     the launch would give the card fewer than 4 blocks an SM).  A plane
     larger than half that is cut into bands of rows, the most whose block
     fits ``_K7B_SMEM_AIM``; smaller planes go whole, as many to a block as
     the aim and the shared memory allow.  Raises where even one row
-    exceeds a block's 227 KB."""
+    exceeds a block's 227 KB.  A float32 block (``itemsize`` 4) holds
+    ``_k7b_smem``, a bf16 one (``itemsize`` 2) ``k7b_bf16_smem_bytes``."""
     Wo = pool_out_hw(W, F, S)
     planes = N * C
     aim = min(_K7B_ELEMS, max(_K7B_MIN_ELEMS,
                               planes * H * W // (4 * _SMS)))
+    smem = k7b_bf16_smem_bytes if itemsize == 2 else _k7b_smem
 
     def tiling(p: int, b: int) -> PoolPlanes:
         rows = 1
@@ -193,7 +210,7 @@ def pool_backward_planes(N: int, C: int, H: int, W: int, F: int,
             lo, hi = band_windows(h0, min(H, h0 + b), H, F, S)
             rows = max(rows, hi - lo + 1)
         return PoolPlanes(p, b, -(-planes // p), -(-H // b), rows,
-                          _k7b_smem(p, rows, F, S, W, Wo))
+                          smem(p, rows, F, S, W, Wo))
 
     if 2 * H * W > aim:
         best = tiling(1, 1)
@@ -215,6 +232,113 @@ def pool_backward_planes(N: int, C: int, H: int, W: int, F: int,
         raise ValueError(f"pool_backward_nchw: one row of a {W}-wide pool "
                          f"needs {best.smem_bytes} bytes of shared memory")
     return best
+
+
+def _k7b_block(block, N: int, C: int, H: int, W: int, F: int, S: int):
+    """(first plane, planes, h0, h1, oh_lo, window rows) of the banded K7b
+    bf16 kernel's block ``(bx, by)``."""
+    t = pool_backward_planes(N, C, H, W, F, S, 2)
+    bx, by = block
+    p0 = bx * t.planes
+    h0 = by * t.band
+    h1 = min(H, h0 + t.band)
+    lo, hi = band_windows(h0, h1, H, F, S)
+    return p0, min(t.planes, N * C - p0), h0, h1, lo, max(0, hi - lo + 1)
+
+
+def k7b_bf16_phase1_item(block, e: int, N: int, C: int, H: int, W: int,
+                         F: int, S: int):
+    """What iteration ``e`` (thread ``e % 256``'s ``e // 256``-th) of the
+    banded K7b bf16 kernel's block ``block`` writes in phase 1: (plane, oh,
+    ow) of one window's word, or None past the block's items."""
+    p0, pc, _, _, lo, wr = _k7b_block(block, N, C, H, W, F, S)
+    Wo = pool_out_hw(W, F, S)
+    if e >= pc * wr * Wo:
+        return None
+    pl, r = divmod(e, wr * Wo)
+    rw, ow = divmod(r, Wo)
+    return p0 + pl, lo + rw, ow
+
+
+def k7b_bf16_phase2_item(block, e: int, N: int, C: int, H: int, W: int,
+                         F: int, S: int):
+    """What iteration ``e`` of the banded K7b bf16 kernel's block ``block``
+    forms in phase 2: (plane, h, the columns w0 .. w0 + 7 inside W, the
+    windows (oh, ow) it visits in its order: oh, then ow, descending), or
+    None past the block's items."""
+    p0, pc, h0, h1, _, _ = _k7b_block(block, N, C, H, W, F, S)
+    Ho, Wo = pool_out_hw(H, F, S), pool_out_hw(W, F, S)
+    WQ = -(-W // 8)
+    if e >= pc * (h1 - h0) * WQ:
+        return None
+    pl, r = divmod(e, (h1 - h0) * WQ)
+    hh, i = divmod(r, WQ)
+    h, w0 = h0 + hh, 8 * i
+    oh_a = min(h // S, Ho - 1)
+    oh_b = max((h - F + S) // S if h >= F else 0, oh_a - (-(-F // S)) + 1)
+    ow_a = min((w0 + 7) // S, Wo - 1)
+    ow_b = (w0 - F + S) // S if w0 >= F else 0
+    wins = [(oh, ow) for oh in range(oh_a, oh_b - 1, -1)
+            for ow in range(ow_a, ow_b - 1, -1)]
+    return p0 + pl, h, list(range(w0, min(W, w0 + 8))), wins
+
+
+def k7b_bf16_mask_row(block, h: int, N: int, C: int, H: int, W: int, F: int,
+                      S: int):
+    """(staged row, staged rows) of the banded K7b bf16 kernel's block
+    ``block``: the x row in shared memory whose elements mask dx row ``h``
+    of a max pool (the nearest where no window covers ``h``), and how many
+    rows the block staged."""
+    _, _, _, _, lo, wr = _k7b_block(block, N, C, H, W, F, S)
+    xr = min(H, (lo + wr - 1) * S + F) - lo * S if wr else 0
+    return max(0, min(h - lo * S, xr - 1)), xr
+
+
+def k7b_bf16_pairs(H: int, W: int, F: int, S: int) -> int:
+    """The window rows a block of K7b bf16's pair kernel takes
+    (``pair_rows`` in csrc/pool_backward.cu), or 0 where the launch runs
+    the banded kernel.  The pair kernel takes S = 2 and F = 2 or 3 where W
+    % 8 == 0 (and x and dx are 16-byte aligned): a thread a window row and
+    8 columns, the block the most rows whose threads (with the row above
+    for F = 3) fit 256, evened out over the bands the plane's ceil(H / 2)
+    row pairs need."""
+    if not (S == 2 and F in (2, 3) and W % 8 == 0):
+        return 0
+    most = 256 // (W // 8) - (F == 3)
+    if most < 1:
+        return 0
+    K = -(-H // 2)
+    bands = -(-K // most)
+    return -(-K // bands)
+
+
+def k7b_bf16_pair_item(block, t: int, N: int, C: int, H: int, W: int,
+                       F: int):
+    """What thread ``t`` of block ``(p, b)`` of K7b bf16's pair kernel
+    does: (plane, window row k, the windows (k, ow) whose words it makes,
+    and [(h, columns, the windows it visits in its order)] of the dx rows
+    it forms), or None for a thread past the block's items.  Thread t = r
+    WQ + i takes window row k = b KB - (F == 3) + r and columns 8 i .. 8 i +
+    7; dx row 2k visits row k's windows 4 i + 3 down to 4 i - (F - 2), then
+    row k - 1's (F = 3); dx row 2k + 1 row k's."""
+    Ho, Wo = pool_out_hw(H, F, 2), pool_out_hw(W, F, 2)
+    WQ, KB, halo = W // 8, k7b_bf16_pairs(H, W, F, 2), int(F == 3)
+    p, b = block
+    r, i = divmod(t, WQ)
+    if r >= KB + halo:
+        return None
+    k = b * KB - halo + r
+    made = [(k, ow) for ow in range(4 * i, 4 * i + 4)
+            if 0 <= k < Ho and ow < Wo]
+    if r < halo or 2 * k >= H:
+        return p, k, made, []
+    ows = list(range(4 * i + 3, 4 * i - (F - 1), -1))
+    top = [(k, ow) for ow in ows] + [(k - 1, ow) for ow in ows if F == 3]
+    cols = list(range(8 * i, 8 * i + 8))
+    rows = [(2 * k, cols, top)]
+    if 2 * k + 1 < H:
+        rows.append((2 * k + 1, cols, [(k, ow) for ow in ows]))
+    return p, k, made, rows
 
 
 def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
@@ -247,7 +371,7 @@ def _pool_backward(wrapper, entry: str, layout: str, x: torch.Tensor,
         band = pool_backward_band(H, W, F, S, x.element_size())
         args += [band.band, band.win_rows]
     else:
-        t = pool_backward_planes(N, C, H, W, F, S)
+        t = pool_backward_planes(N, C, H, W, F, S, x.element_size())
         args += [t.planes, t.band, t.win_rows]
     err = _build.entry(entry, variant)(*args, _build.stream_of(dev))
     _build.check(name, err)
@@ -277,7 +401,12 @@ def pool_backward_nchw(x: torch.Tensor, g: torch.Tensor, F: int, S: int,
     """K7b: x [N, C, H, W], g [N, C, Ho, Wo] (or CHWN for ``g_layout``)
     -> dx [N, C, H, W].  A block takes a band of rows of one plane, or
     several small planes whole (``pool_backward_planes``); it finds each
-    window's first maximum once, then forms dx from shared memory."""
+    window's first maximum once, then forms dx from shared memory.  bf16,
+    S = 2 and F = 2 or 3 on 16-byte rows: a thread a window row and 8
+    columns, x and g in registers, dx 8 along w of two rows
+    (``k7b_bf16_pair_item``); else the bands with x and a word a window in
+    shared memory at their storage width (``k7b_bf16_phase1_item``,
+    ``k7b_bf16_phase2_item``)."""
     return _pool_backward(pool_backward_nchw, "pool_backward_nchw", "NCHW",
                           x, g, F, S, op, g_layout, relu_mask)
 

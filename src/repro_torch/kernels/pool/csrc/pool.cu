@@ -52,6 +52,20 @@
 // thread combines its taps from there in the same order
 // (pool_chwn_bf16_window_kernel), so that no thread waits on a chain of
 // 1024 global loads.  pool.ops.k3a_bf16_unit is the map in Python.
+//
+// K3b bf16 runs a kernel of its own too (pool_nchw_bf16_kernel), not the
+// float32 K3b's uncoalesced design, which stays for the unfused layout
+// comparison (whose executor takes no dtype).  A thread makes two
+// neighbouring outputs of a row (wo = 2q, 2q + 1), lanes along q: for each
+// window row it loads the S + F columns the pair spans once, by 8-byte
+// loads where W % 4 == 0 and x is 8-byte aligned (for 2/2 one load a row,
+// neighbouring lanes 8 bytes apart: coalesced), else 4-byte words where W
+// is even, else halfwords; every load of the window is issued before any
+// is combined, with no branch between them.  Each tap is widened; the max
+// (NaN-propagating, from -inf) or the float32 sum in row-major (dy, dx)
+// order, divided by F * F, is rounded once where it is stored: the pair as
+// one 4-byte word where y runs along w (NCHW, Wo even), else a halfword
+// each through y's strides.  pool.ops.k3b_bf16_unit is the map in Python.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -145,8 +159,9 @@ pool_nchw_kernel(const T* __restrict__ x, T* __restrict__ y, int N,
 }
 
 #if defined(REPRO_VARIANT_BF16)
-constexpr int kBf16Threads = 256;  // K3a bf16 threads per block
-constexpr int kRow = 8;  // taps of a window row a K3a bf16 thread loads at once
+constexpr int kBf16Threads = 256;  // K3a and K3b bf16 threads per block
+constexpr int kRow = 8;  // taps of a window row a K3a (K3b) bf16 thread
+                         // loads at once
 
 // one unit's taps: two images (the halves of a 4-byte word) or one (the
 // low half)
@@ -325,6 +340,171 @@ void pool_chwn_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int N, int C,
     launch_chwn_bf16<0, 0, AVG>(x, y, N, C, H, W, F, S, Ho, Wo, pair, ys, s);
   }
 }
+
+// K3b bf16: unit u = ((n C + c) Ho + ho) Q + q, Q = ceil(Wo / 2), makes
+// outputs wo = 2q and 2q + 1 (where 2q + 1 < Wo) of row (n, c, ho).  A
+// window row of the unit spans L = S + F columns from w0 = 2 q S.  FT, ST
+// > 0 fix F and S at compile time (2/2 and 3/2, where w0 = 4q): each row's
+// span is loaded by XV elements at a time (XV 4: 8-byte loads, 2: 4-byte
+// words, 1: halfwords), every load of the window issued before any is
+// combined.  A load past the row's last whole one is clamped to it: it
+// only feeds the second output of a unit that has none.  Else a row's span
+// is loaded kRow halfwords at a time, a column past the row clamped to its
+// last (it feeds no output that exists).
+template <int FT, int ST, int XV, bool AVG>
+__global__ void __launch_bounds__(kBf16Threads)
+pool_nchw_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                      __nv_bfloat16* __restrict__ y, int C, int H, int W,
+                      int F_, int S_, int Ho, int Wo, int Q, long long units,
+                      Out ys, bool word_store) {
+  const long long u = (long long)blockIdx.x * kBf16Threads + threadIdx.x;
+  if (u >= units) return;
+  const int F = FT > 0 ? FT : F_, S = ST > 0 ? ST : S_;
+  long long r = u / Q;
+  const int q = (int)(u - r * Q);
+  const int ho = (int)(r % Ho);
+  r /= Ho;                       // the plane n C + c
+  const int w0 = 2 * q * S;
+  const __nv_bfloat16* xp = x + (r * H + (long long)ho * S) * W;
+  float a0 = AVG ? 0.f : -INFINITY, a1 = a0;
+  if constexpr (FT > 0) {
+    constexpr int L = ST + FT, NV = (L + XV - 1) / XV;
+    float v[FT][NV * XV];
+    if constexpr (XV == 4) {
+      const int last = W / 4 - 1;
+      uint2 t[FT][NV];
+#pragma unroll
+      for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          t[dy][k] = __ldg(reinterpret_cast<const uint2*>(xp + dy * W) +
+                           min(w0 / 4 + k, last));
+#pragma unroll
+      for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          v[dy][4 * k] = repro::storage::lo_bf16(t[dy][k].x);
+          v[dy][4 * k + 1] = repro::storage::hi_bf16(t[dy][k].x);
+          v[dy][4 * k + 2] = repro::storage::lo_bf16(t[dy][k].y);
+          v[dy][4 * k + 3] = repro::storage::hi_bf16(t[dy][k].y);
+        }
+    } else if constexpr (XV == 2) {
+      const int last = W / 2 - 1;
+      unsigned t[FT][NV];
+#pragma unroll
+      for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+          t[dy][k] = __ldg(reinterpret_cast<const unsigned*>(xp + dy * W) +
+                           min(w0 / 2 + k, last));
+#pragma unroll
+      for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+          v[dy][2 * k] = repro::storage::lo_bf16(t[dy][k]);
+          v[dy][2 * k + 1] = repro::storage::hi_bf16(t[dy][k]);
+        }
+    } else {
+      unsigned short t[FT][L];
+#pragma unroll
+      for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+        for (int k = 0; k < L; ++k)
+          t[dy][k] = __ldg(reinterpret_cast<const unsigned short*>(xp) +
+                           dy * W + min(w0 + k, W - 1));
+#pragma unroll
+      for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+        for (int k = 0; k < L; ++k)
+          v[dy][k] = repro::storage::lo_bf16(t[dy][k]);
+    }
+#pragma unroll
+    for (int dy = 0; dy < FT; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < FT; ++dx) {
+        a0 = tap<AVG>(a0, v[dy][dx]);
+        a1 = tap<AVG>(a1, v[dy][ST + dx]);
+      }
+  } else {
+    // column k of the span feeds output 0 where k < F and output 1 where
+    // S <= k < S + F; elsewhere the neutral value (0 or -inf)
+    const float none = AVG ? 0.f : -INFINITY;
+    const int L = S + F;
+#pragma unroll 2
+    for (int dy = 0; dy < F; ++dy) {
+      const unsigned short* xr =
+          reinterpret_cast<const unsigned short*>(xp) + dy * W;
+      for (int k0 = 0; k0 < L; k0 += kRow) {
+        unsigned short t[kRow];
+#pragma unroll
+        for (int k = 0; k < kRow; ++k)
+          t[k] = __ldg(xr + min(w0 + k0 + k, W - 1));
+#pragma unroll
+        for (int k = 0; k < kRow; ++k) {
+          const int kk = k0 + k;
+          const float val = repro::storage::lo_bf16(t[k]);
+          a0 = tap<AVG>(a0, kk < F ? val : none);
+          a1 = tap<AVG>(a1, kk >= S && kk < L ? val : none);
+        }
+      }
+    }
+  }
+  if (AVG) {
+    const float area = (float)(F * F);
+    a0 /= area;
+    a1 /= area;
+  }
+  const long long c = r % C, n = r / C;
+  __nv_bfloat16* yp = y + n * ys.n + c * ys.c + (long long)ho * ys.h +
+                      (long long)(2 * q) * ys.w;
+  if (word_store) {
+    *reinterpret_cast<unsigned*>(yp) = repro::mma::pack_bf16(a0, a1);
+  } else {
+    put(yp, a0);
+    if (2 * q + 1 < Wo) put(yp + ys.w, a1);
+  }
+}
+
+template <int FT, int ST, bool AVG>
+void launch_nchw_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int C,
+                      int H, int W, int F, int S, int Ho, int Wo, int Q,
+                      long long units, Out ys, bool word_store, int xv,
+                      cudaStream_t s) {
+  const unsigned blocks = (unsigned)((units + kBf16Threads - 1) / kBf16Threads);
+  if (xv == 4)
+    pool_nchw_bf16_kernel<FT, ST, 4, AVG><<<blocks, kBf16Threads, 0, s>>>(
+        x, y, C, H, W, F, S, Ho, Wo, Q, units, ys, word_store);
+  else if (xv == 2)
+    pool_nchw_bf16_kernel<FT, ST, 2, AVG><<<blocks, kBf16Threads, 0, s>>>(
+        x, y, C, H, W, F, S, Ho, Wo, Q, units, ys, word_store);
+  else
+    pool_nchw_bf16_kernel<FT, ST, 1, AVG><<<blocks, kBf16Threads, 0, s>>>(
+        x, y, C, H, W, F, S, Ho, Wo, Q, units, ys, word_store);
+}
+
+// the kernel for (F, S): 2/2 and 3/2 at compile time, by the widest load
+// that the row's width and x's base allow; else halfwords kRow at a time
+template <bool AVG>
+void pool_nchw_bf16(const __nv_bfloat16* x, __nv_bfloat16* y, int N, int C,
+                    int H, int W, int F, int S, int Ho, int Wo,
+                    bool word_store, Out ys, cudaStream_t s) {
+  const int Q = (Wo + 1) / 2;
+  const long long units = (long long)N * C * Ho * Q;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const int xv = W % 4 == 0 && xa % 8 == 0 ? 4
+                 : W % 2 == 0 && xa % 4 == 0 ? 2 : 1;
+  if (F == 2 && S == 2)
+    launch_nchw_bf16<2, 2, AVG>(x, y, C, H, W, F, S, Ho, Wo, Q, units, ys,
+                                word_store, xv, s);
+  else if (F == 3 && S == 2)
+    launch_nchw_bf16<3, 2, AVG>(x, y, C, H, W, F, S, Ho, Wo, Q, units, ys,
+                                word_store, xv, s);
+  else
+    pool_nchw_bf16_kernel<0, 0, 1, AVG>
+        <<<(unsigned)((units + kBf16Threads - 1) / kBf16Threads),
+           kBf16Threads, 0, s>>>(x, y, C, H, W, F, S, Ho, Wo, Q, units, ys,
+                                 word_store);
+}
 #endif
 
 int pool_out(int hw, int F, int S) { return (hw - F) / S + 1; }
@@ -383,13 +563,36 @@ extern "C" int REPRO_ENTRY(pool_chwn_forward)(const void* x, void* y,
 }
 
 // K3b: x [N, C, H, W] -> y [N, C, Ho, Wo] (dst_nchw = 1) or
-// [C, Ho, Wo, N] (dst_nchw = 0), both REPRO_WT.  Returns
+// [C, Ho, Wo, N] (dst_nchw = 0), both REPRO_WT (float32, or bf16 in the
+// bf16 build, which runs pool_nchw_bf16_kernel).  Returns
 // cudaGetLastError().
 extern "C" int REPRO_ENTRY(pool_nchw_forward)(const void* x, void* y,
                                              int N, int C, int H, int W,
                                              int F, int S, int avg,
                                              int dst_nchw, void* stream) {
   const int Ho = pool_out(H, F, S), Wo = pool_out(W, F, S);
+#if defined(REPRO_VARIANT_BF16)
+  if (N > 0 && C > 0 && Ho > 0 && Wo > 0) {
+    const long long units = (long long)N * C * Ho * ((Wo + 1) / 2);
+    if ((units + kBf16Threads - 1) / kBf16Threads > 2147483647LL)
+      return (int)cudaErrorInvalidConfiguration;
+    const Out ys = out_strides(N, C, Ho, Wo, dst_nchw != 0);
+    // a unit's two outputs as one 4-byte word where y runs along w and
+    // every unit's first output starts a word
+    const bool word_store = dst_nchw && Wo % 2 == 0 &&
+                            reinterpret_cast<uintptr_t>(y) % 4 == 0;
+    const T* xf = static_cast<const T*>(x);
+    T* yf = static_cast<T*>(y);
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (avg)
+      pool_nchw_bf16<true>(xf, yf, N, C, H, W, F, S, Ho, Wo, word_store, ys,
+                           s);
+    else
+      pool_nchw_bf16<false>(xf, yf, N, C, H, W, F, S, Ho, Wo, word_store,
+                            ys, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+#else
   if (N > 0 && C > 0 && Ho > 0 && Wo > 0) {
     const long long outs = (long long)N * C * Ho * Wo;
     const long long blocks = (outs + kThreads - 1) / kThreads;
@@ -406,4 +609,5 @@ extern "C" int REPRO_ENTRY(pool_nchw_forward)(const void* x, void* y,
           xf, yf, N, C, H, W, F, S, Ho, Wo, ys);
   }
   return static_cast<int>(cudaGetLastError());
+#endif
 }

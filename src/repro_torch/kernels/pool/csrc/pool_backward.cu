@@ -51,9 +51,8 @@
 //
 // Storage dtypes (csrc/storage.cuh): the float32 build defines
 // pool_backward_{chwn,nchw}, the bf16 build (-DREPRO_VARIANT_BF16)
-// pool_backward_{chwn,nchw}_bf16 over bf16 x, g and dx.  x and g are
-// widened to float32 as they are loaded (into registers and the float32
-// shared arrays above), each window's first max is found among the
+// pool_backward_{chwn,nchw}_bf16 over bf16 x, g and dx, which run kernels
+// of their own (below).  Each window's first max is found among the
 // widened values, so ties, frequent in bf16, are broken exactly as in
 // float32 (the first maximal tap in row-major order, the reference's
 // _route), and dx sums its windows' shares in float32 registers (F > S
@@ -85,6 +84,24 @@
 //     L2) for the ReLU mask.
 // backward.py::k7a_bf16_direct_unit and ::k7a_bf16_banded_unit are these
 // maps in Python.
+//
+// K7b bf16 works in bf16 bytes too:
+//   pair (S = 2, F = 2 or 3, W % 8 == 0 and 16-byte aligned x and dx:
+//     ResNet-18's 3/2 pool, VGG16's 2/2 ones): a thread takes a window row
+//     k and 8 columns.  It holds the x rows of its four windows and their g
+//     in registers, finds their first-max taps, and forms dx rows 2k and
+//     2k + 1 of its columns as 16-byte stores; for 3/2 the block passes
+//     each thread's window words to the row below and the chunk to the
+//     right through shared memory (one barrier).  x is read 1.5 times
+//     (row 2k + 2 by two threads, the second from L1 or L2), g and dx once.
+//   banded (every other case, the 7 x 7 global average pool among them):
+//     the float32 design's two phases in bf16 bytes: max stages the x rows
+//     as bf16 (halfword copies) and a block keeps a word a window (g and
+//     the first-max tap's row and column); a thread forms 8 dx elements
+//     along w, stored as halfwords; avg reads each element's x once, for
+//     its mask, in phase 2.
+// backward.py::k7b_bf16_pair_item, ::k7b_bf16_phase1_item and
+// ::k7b_bf16_phase2_item are these maps in Python.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -94,32 +111,21 @@
 namespace {
 
 using repro::storage::ld;
-using repro::storage::ld4;
 using repro::storage::put;
 using repro::storage::widen;
 using T = REPRO_WT;  // the storage type of x, g and dx
 
-// elements 4 r .. 4 r + 3 of base widened to float32, by one load of
-// 4 * sizeof(T) bytes (16-byte aligned for float32, 8 for bf16)
+#if !defined(REPRO_VARIANT_BF16)
+// K7b float32's row quads: elements 4 r .. 4 r + 3 of base by one 16-byte
+// load, and 4 values by one 16-byte store
 __device__ __forceinline__ float4 load4(const float* base, int r) {
   return __ldg(reinterpret_cast<const float4*>(base) + r);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* base, int r) {
-  return ld4(base + 4 * r);
-}
-// 4 float32 values stored as 4 consecutive elements of T, by one store
 __device__ __forceinline__ void store4(float* p, float a, float b, float c,
                                        float d) {
   *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
-                 *reinterpret_cast<const unsigned*>(&hi));
-}
+#endif
 
 constexpr int kThreads = 256;
 constexpr unsigned short kNoTap = 0xFFFF;  // a window holding a NaN
@@ -344,6 +350,7 @@ pool_backward_chwn_kernel(const T* __restrict__ x,
   }
 }
 
+#if !defined(REPRO_VARIANT_BF16)  // K7b bf16 runs kernels of its own
 // K7b: x, dx [N, C, H, W], the (n, c) planes p = n C + c; g through gs.
 // A block takes `P` consecutive planes and dx rows [h0, h0 + band) of each;
 // FT, ST > 0 fix F and S at compile time.
@@ -506,6 +513,7 @@ cudaError_t launch_nchw(const T* x, const T* g, T* dx, int N,
       relu_mask, vec, gs);
   return cudaGetLastError();
 }
+#endif
 
 template <int FT, int ST>
 cudaError_t launch_chwn(const T* x, const T* g, T* dx, int N,
@@ -801,6 +809,457 @@ cudaError_t pool_backward_chwn_bf16(const __nv_bfloat16* x,
   return launch_chwn_bf16<0, 0, PAIR>(x, g, dx, N, C, H, W, F, S, Ho, Wo,
                                       band, win_rows, avg, relu_mask, gs, s);
 }
+
+// a staged x row of K7b bf16's banded kernel: W rounded up to 8 (16-byte
+// rows; a thread reads 8 elements of a row for its mask)
+constexpr int kXRound = 8;
+__host__ __device__ __forceinline__ int k7b_xw(int W) {
+  return (W + kXRound - 1) / kXRound * kXRound;
+}
+// a K7b bf16 window's word: its g (bf16 bits) in the low half, its
+// first-max tap's row ty in byte 2 and column tx in byte 3; kNoWin (ty
+// 0xFF, g +0) matches no element: a window holding a NaN (its g kept), a
+// slot with no window
+constexpr unsigned kNoWin = 0xFFFF0000u;
+
+// dynamic shared memory of a banded K7b bf16 block: for each of its planes
+// the x rows its windows cover [(win_rows - 1) S + F][k7b_xw] bf16, and a
+// word a window [win_rows][Wo]
+long long nchw_bf16_smem_bytes(int planes, int win_rows, int F, int S, int W,
+                               int Wo) {
+  return static_cast<long long>(planes) *
+         (2LL * ((win_rows - 1) * S + F) * k7b_xw(W) + 4LL * win_rows * Wo);
+}
+
+// K7b bf16's memory accesses (tools/timing_variants.py swaps them for
+// stand-ins to time the kernel's parts): one x element into shared memory,
+// 8 x elements by one 16-byte load, one g element's bits, 8 dx elements
+// by one 16-byte store (wide) or [0, n) by halfwords
+__device__ __forceinline__ void stage_x(__nv_bfloat16* dst,
+                                        const __nv_bfloat16* src) {
+  *reinterpret_cast<unsigned short*>(dst) =
+      __ldg(reinterpret_cast<const unsigned short*>(src));
+}
+__device__ __forceinline__ uint4 ld_x8(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+// 8 x elements [0, n) of a row (0 past n) by halfwords
+__device__ __forceinline__ uint4 ld_row8(const __nv_bfloat16* p, int n) {
+  unsigned v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    v[j] = j < n ? __ldg(reinterpret_cast<const unsigned short*>(p) + j) : 0u;
+  return make_uint4(v[0] | v[1] << 16, v[2] | v[3] << 16, v[4] | v[5] << 16,
+                    v[6] | v[7] << 16);
+}
+__device__ __forceinline__ unsigned ld_g1(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned short*>(p));
+}
+__device__ __forceinline__ void store_dx(__nv_bfloat16* d,
+                                         const float (&acc)[8], bool wide,
+                                         int n) {
+  if (wide) {
+    *reinterpret_cast<uint4*>(d) = make_uint4(
+        repro::mma::pack_bf16(acc[0], acc[1]),
+        repro::mma::pack_bf16(acc[2], acc[3]),
+        repro::mma::pack_bf16(acc[4], acc[5]),
+        repro::mma::pack_bf16(acc[6], acc[7]));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (j < n) put(d + j, acc[j]);
+  }
+}
+
+// the index e = (a B + b) C + c of a block-stride loop, stepped by kThreads
+// with no division a step
+struct Step3 {
+  int a, b, c;
+  __device__ __forceinline__ Step3(int e, int B, int C)
+      : a(e / (B * C)), b(e / C % B), c(e % C) {}
+  __device__ __forceinline__ void add(const Step3& d, int B, int C) {
+    c += d.c;
+    b += d.b;
+    a += d.a;
+    if (c >= C) {
+      c -= C;
+      ++b;
+    }
+    if (b >= B) {
+      b -= B;
+      ++a;
+    }
+  }
+};
+
+// g's offset of plane p = n C + c (p Ho Wo where g is NCHW)
+__device__ __forceinline__ long long g_plane(const Strides4& gs, int C,
+                                             long long p) {
+  return gs.n == C * gs.c ? p * gs.c : (p / C) * gs.n + (p % C) * gs.c;
+}
+
+// the windows of one window row that can hold 8 dx elements w0 .. w0 + 7
+// of a row at tap row dy, for S = 2 and w0 = 8 i: wd[m + 1] is the word of
+// window ow = 4 i + m, m = -1 .. 3.  Element j lies in the windows with
+// 2 m <= j < 2 m + FT, at tap column j - 2 m; each adds its g (divided by
+// F * F for avg; for max only where its first-max tap is (dy, j - 2 m)) in
+// ow-descending order.
+template <int FT>
+__device__ __forceinline__ void add_row(float (&acc)[8],
+                                        const unsigned (&wd)[5], int dy,
+                                        bool avg) {
+  float gv[5];
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    gv[m] = repro::storage::lo_bf16(wd[m]);
+    if (avg) gv[m] /= static_cast<float>(FT * FT);
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int m = j >> 1; m >= -((FT - 1 - j) >> 1); --m) {
+      const unsigned want = static_cast<unsigned>(dy) |
+                            static_cast<unsigned>(j - 2 * m) << 8;
+      acc[j] += avg || wd[m + 1] >> 16 == want ? gv[m + 1] : 0.f;
+    }
+}
+
+// dx *= (x > 0) for 8 elements, x as 8 bf16
+__device__ __forceinline__ void mask8(float (&acc)[8], const uint4& q) {
+  const unsigned qq[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    acc[2 * j] *= mask(repro::storage::lo_bf16(qq[j]), true);
+    acc[2 * j + 1] *= mask(repro::storage::hi_bf16(qq[j]), true);
+  }
+}
+
+// bf16 pairs: the NaN-propagating max, and 0xFFFF in each half where a ==
+// b (as numbers: -0 == +0, NaN equals nothing)
+__device__ __forceinline__ unsigned bmax2_nan(unsigned a, unsigned b) {
+  unsigned d;
+  asm("max.NaN.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ unsigned beq2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("set.eq.u32.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// the first-max tap keys (ty | tx << 8; 0xFFFF where the window holds a
+// NaN) of windows m and m + 1 at S = 2, both at once in bf16 pairs: q[rr][j]
+// holds columns 2j and 2j + 1 of tap row rr, q[rr][4] column 8
+template <int FT>
+__device__ __forceinline__ void first_max2(const unsigned (&q)[FT][5], int m,
+                                           unsigned& k0, unsigned& k1) {
+  unsigned t[FT * FT];
+#pragma unroll
+  for (int rr = 0; rr < FT; ++rr)
+#pragma unroll
+    for (int cc = 0; cc < FT; ++cc)
+      t[rr * FT + cc] = __byte_perm(q[rr][m + cc / 2], q[rr][m + cc / 2 + 1],
+                                    cc % 2 ? 0x7632 : 0x5410);
+  unsigned mx = t[0];
+#pragma unroll
+  for (int u = 1; u < FT * FT; ++u) mx = bmax2_nan(mx, t[u]);
+  unsigned bits = 0;
+#pragma unroll
+  for (int u = 0; u < FT * FT; ++u)
+    bits |= (beq2(t[u], mx) & 0x00010001u) << u;
+  const int f0 = __ffs(bits & 0xFFFFu) - 1, f1 = __ffs(bits >> 16) - 1;
+  k0 = (mx & 0x7FFFu) > 0x7F80u ? 0xFFFFu : f0 / FT | (f0 % FT) << 8;
+  k1 = (mx & 0x7FFF0000u) > 0x7F800000u ? 0xFFFFu : f1 / FT | (f1 % FT) << 8;
+}
+
+// K7b bf16's pair kernel: S = 2, F = FT (2 or 3), W % 8 == 0, x and dx
+// 16-byte aligned (ResNet-18's 3/2 pool, VGG16's 2/2 ones).  Block (p, b)
+// takes plane p and window rows [k0, k0 + KB), k0 = b KB, and for FT = 3
+// the row k0 - 1 above them (its words only).  Thread t = r WQ + i (WQ =
+// W / 8) takes window row k = k0 - H3 + r (H3 = 1 for FT = 3, else 0) and
+// chunk i: it loads x rows 2k .. 2k + FT - 1 at columns 8 i .. 8 i + 7 by
+// 16-byte loads (and column 8 i + 8 for FT = 3) and the g of windows ow = 4
+// i .. 4 i + 3, every load issued before any is used, finds those windows'
+// first-max taps two windows at once in bf16 pairs (the max, then the
+// first tap equal to it: the first strictly greater one), and forms dx
+// rows 2k and 2k + 1 of its chunk, masked by the x it holds, as two 16-byte
+// stores.  For FT = 3 a row's element at tap row 2 also takes the window
+// row above, and column 8 i the window to the left: the block exchanges
+// the words through shared memory (one barrier).  FT = 2's windows share
+// no element: no shared memory, no barrier.
+template <int FT>
+__global__ void __launch_bounds__(kThreads)
+pool_backward_pair_bf16(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ g,
+                        __nv_bfloat16* __restrict__ dx, int C, int H, int W,
+                        int Ho, int Wo, int KB, int avg, int relu_mask,
+                        Strides4 gs) {
+  constexpr int H3 = FT == 3 ? 1 : 0;
+  extern __shared__ __align__(16) unsigned pw[];  // [KB + 1][4 + W / 2]
+  const int WQ = W / 8, RS = 4 + 4 * WQ;
+  const int r = threadIdx.x / WQ, i = threadIdx.x - r * WQ;
+  const int k = blockIdx.y * KB - H3 + r;
+  const long long p = blockIdx.x;
+  const bool live = r < KB + H3;
+  const bool win = live && k >= 0 && k < Ho;        // a window row
+  const bool own = live && r >= H3 && 2 * k < H;    // dx rows 2k, 2k + 1
+  const __nv_bfloat16* xr = x + (p * H + 2 * k) * W + 8 * i;
+
+  uint4 xq[FT];
+  unsigned short x9[FT];
+  unsigned wd[4];
+#pragma unroll
+  for (int rr = 0; rr < FT; ++rr) {
+    // the window's rows, and the mask's (2k and 2k + 1, which may lie
+    // under the row above's windows only); one predicate a load, no branch
+    const bool need = (win || (own && rr < 2)) && 2 * k + rr < H;
+    xq[rr] = need ? ld_x8(xr + rr * W) : make_uint4(0u, 0u, 0u, 0u);
+    x9[rr] = FT == 3 && win && 8 * i + 8 < W
+                 ? __ldg(reinterpret_cast<const unsigned short*>(xr + rr * W) +
+                         8)
+                 : 0;
+  }
+  const __nv_bfloat16* gp = g + g_plane(gs, C, p) + k * gs.h;
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    wd[m] = win && 4 * i + m < Wo ? ld_g1(gp + (4 * i + m) * gs.w) : 0u;
+
+  // the four windows' words
+  if (!avg) {
+    unsigned q[FT][5];
+#pragma unroll
+    for (int rr = 0; rr < FT; ++rr) {
+      q[rr][0] = xq[rr].x;
+      q[rr][1] = xq[rr].y;
+      q[rr][2] = xq[rr].z;
+      q[rr][3] = xq[rr].w;
+      q[rr][4] = x9[rr];
+    }
+#pragma unroll
+    for (int m = 0; m < 4; m += 2) {
+      unsigned k0, k1;
+      first_max2<FT>(q, m, k0, k1);
+      wd[m] |= k0 << 16;
+      wd[m + 1] |= k1 << 16;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    if (!win || 4 * i + m >= Wo) wd[m] = kNoWin;
+
+  // the words of this window row (w5[m + 1]: ow = 4 i + m) and, for FT = 3,
+  // of the row above
+  unsigned w5[5] = {kNoWin, wd[0], wd[1], wd[2], wd[3]};
+  unsigned up[5] = {kNoWin, kNoWin, kNoWin, kNoWin, kNoWin};
+  if constexpr (FT == 3) {
+    if (live) {
+      unsigned* row = pw + r * RS + 4;
+      *reinterpret_cast<uint4*>(row + 4 * i) =
+          make_uint4(wd[0], wd[1], wd[2], wd[3]);
+      if (i == 0)
+        *reinterpret_cast<uint4*>(row - 4) =
+            make_uint4(kNoWin, kNoWin, kNoWin, kNoWin);
+    }
+    __syncthreads();
+    if (!own) return;
+    const unsigned* row = pw + r * RS + 4;
+    const unsigned* above = row - RS;
+    const uint4 q = *reinterpret_cast<const uint4*>(above + 4 * i);
+    w5[0] = row[4 * i - 1];
+    up[0] = above[4 * i - 1];
+    up[1] = q.x;
+    up[2] = q.y;
+    up[3] = q.z;
+    up[4] = q.w;
+  } else {
+    if (!own) return;
+  }
+
+  // dx row 2k: this window row at tap row 0, then (FT = 3) the one above
+  // at tap row 2; dx row 2k + 1: this window row at tap row 1
+  __nv_bfloat16* d = dx + (p * H + 2 * k) * W + 8 * i;
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+  add_row<FT>(acc, w5, 0, avg);
+  if constexpr (FT == 3) add_row<FT>(acc, up, 2, avg);
+  if (relu_mask) mask8(acc, xq[0]);
+  store_dx(d, acc, true, 8);
+  if (2 * k + 1 < H) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+    add_row<FT>(acc, w5, 1, avg);
+    if (relu_mask) mask8(acc, xq[1]);
+    store_dx(d + W, acc, true, 8);
+  }
+}
+
+// K7b bf16's banded kernel, every other case: x, dx [N, C, H, W] bf16, the
+// (n, c) planes p = n C + c; g through gs.  A block takes P consecutive
+// planes and dx rows [h0, h0 + band) of each (pool_backward_planes with
+// itemsize 2).
+__global__ void __launch_bounds__(kThreads)
+pool_backward_nchw_bf16(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ g,
+                        __nv_bfloat16* __restrict__ dx, int planes, int C,
+                        int H, int W, int F, int S, int Ho, int Wo, int P,
+                        int band, int win_rows, int avg, int relu_mask,
+                        Strides4 gs) {
+  extern __shared__ __align__(16) unsigned smw[];
+  const int p0 = blockIdx.x * P, pc = min(P, planes - p0);
+  const int h0 = blockIdx.y * band, h1 = min(H, h0 + band);
+  // the window rows that touch [h0, h1), and the x rows they cover
+  const int oh_lo = h0 >= F ? (h0 - F + S) / S : 0;
+  const int oh_hi = min(Ho - 1, (h1 - 1) / S);
+  const int wr = max(0, oh_hi - oh_lo + 1);
+  const int xr0 = oh_lo * S, xr = wr > 0 ? min(H, oh_hi * S + F) - xr0 : 0;
+  const int XW = k7b_xw(W), XP = ((win_rows - 1) * S + F) * XW;
+  const int GP = win_rows * Wo;
+  // [P][x rows][XW] bf16, then [P][win_rows][Wo] words
+  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smw);
+  unsigned* wsm = smw + P * XP / 2;
+  const long long HW = static_cast<long long>(H) * W;
+
+  // staging (max): the x rows of every plane, at their storage width (a
+  // band under no window has none, and no window words); avg reads each
+  // element's x once, for its mask, in phase 2
+  if (!avg && xr > 0) {
+    const __nv_bfloat16* xb = x + p0 * HW + static_cast<long long>(xr0) * W;
+    const Step3 d(kThreads, xr, W);
+    for (Step3 it(threadIdx.x, xr, W); it.a < pc; it.add(d, xr, W))
+      stage_x(xs + it.a * XP + it.b * XW + it.c,
+              xb + it.a * HW + it.b * W + it.c);
+  }
+  if (!avg) __syncthreads();  // phase 1 reads them
+
+  // phase 1: each window's word: its g, and for max its first maximal tap
+  // in row-major order among the widened values (the first strictly
+  // greater one; a window holding a NaN gets kNoWin's taps)
+  if (wr > 0) {
+    const Step3 d(kThreads, wr, Wo);
+    for (Step3 it(threadIdx.x, wr, Wo); it.a < pc; it.add(d, wr, Wo)) {
+      const int pl = it.a, rw = it.b, ow = it.c, oh = oh_lo + rw;
+      unsigned wd =
+          ld_g1(g + g_plane(gs, C, p0 + pl) + oh * gs.h + ow * gs.w);
+      if (!avg) {
+        const __nv_bfloat16* xw = xs + pl * XP + rw * S * XW + ow * S;
+        float mx = -INFINITY;
+        unsigned ty = 0, tx = 0;
+        bool has_nan = false;
+        for (int dy = 0; dy < F; ++dy)
+          for (int dxx = 0; dxx < F; ++dxx) {
+            const float val = widen(xw[dy * XW + dxx]);
+            has_nan |= val != val;
+            if (val > mx) {
+              mx = val;
+              ty = dy;
+              tx = dxx;
+            }
+          }
+        wd |= has_nan ? kNoWin : (ty << 16) | (tx << 24);
+      }
+      wsm[pl * GP + rw * Wo + ow] = wd;
+    }
+  }
+  __syncthreads();
+
+  // phase 2: a thread forms 8 dx elements along w of one row from the
+  // words: each window's share added in the reference's order (windows
+  // oh, then ow, descending: taps dy, dx ascending) in float32, the ReLU
+  // mask from the staged row, rounded once, stored by halfwords
+  const int wh = (F + S - 1) / S;  // window rows over an element, at most
+  const float area = static_cast<float>(F * F);
+  const int WQ = (W + 7) / 8, rows = h1 - h0;
+  const Step3 d(kThreads, rows, WQ);
+  for (Step3 it(threadIdx.x, rows, WQ); it.a < pc; it.add(d, rows, WQ)) {
+    const int pl = it.a, h = h0 + it.b, w0 = 8 * it.c;
+    const int oh_a = min(h / S, Ho - 1);
+    const int oh_b = h >= F ? (h - F + S) / S : 0;
+    const int ow_a = min((w0 + 7) / S, Wo - 1);
+    const int ow_b = w0 >= F ? (w0 - F + S) / S : 0;
+    float acc[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+    for (int oh = oh_a; oh >= max(oh_b, oh_a - wh + 1); --oh) {
+      const int dy = h - oh * S;
+      // the word of window (oh, ow) is row[ow]
+      const unsigned* row = wsm + pl * GP + (oh - oh_lo) * Wo;
+      for (int ow = ow_a; ow >= ow_b; --ow) {
+        const unsigned wd = row[ow];
+        const float gv = repro::storage::lo_bf16(wd);
+        if (avg) {
+          const float ga = gv / area;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = w0 + j - ow * S;
+            acc[j] += col >= 0 && col < F ? ga : 0.f;
+          }
+        } else {
+          const bool hit = static_cast<int>((wd >> 16) & 0xFFu) == dy;
+          const int col = ow * S + static_cast<int>(wd >> 24) - w0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[j] += hit && col == j ? gv : 0.f;
+        }
+      }
+    }
+    // a row under no window (acc all 0: above the first window row where
+    // F < S, or past the last) reads the nearest staged row
+    if (relu_mask && avg)
+      mask8(acc, ld_row8(x + (p0 + pl) * HW + static_cast<long long>(h) * W +
+                             w0,
+                         W - w0));
+    else if (relu_mask && xr > 0)
+      mask8(acc, *reinterpret_cast<const uint4*>(
+                     xs + pl * XP + max(0, min(h - xr0, xr - 1)) * XW + w0));
+    store_dx(dx + (p0 + pl) * HW + static_cast<long long>(h) * W + w0, acc,
+             false, W - w0);
+  }
+}
+
+cudaError_t launch_nchw_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                             __nv_bfloat16* dx, int N, int C, int H, int W,
+                             int F, int S, int Ho, int Wo, int P, int band,
+                             int win_rows, int smem, int avg, int relu_mask,
+                             Strides4 gs, cudaStream_t s) {
+  if (smem > kDefaultSmem) {  // the attribute costs host time a launch
+    const cudaError_t e = cudaFuncSetAttribute(
+        pool_backward_nchw_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return e;
+  }
+  const int planes = N * C;
+  const dim3 grid((planes + P - 1) / P, (H + band - 1) / band);
+  pool_backward_nchw_bf16<<<grid, kThreads, smem, s>>>(
+      x, g, dx, planes, C, H, W, F, S, Ho, Wo, P, band, win_rows, avg,
+      relu_mask, gs);
+  return cudaGetLastError();
+}
+
+// the pair kernel's window rows a block (backward.py::k7b_bf16_pairs): the
+// most whose threads, with the row above for FT = 3, fit kThreads, evened
+// out over the bands the plane's ceil(H / 2) row pairs then need; 0 where
+// a block of two rows would not fit
+int pair_rows(int H, int W, int F) {
+  const int WQ = W / 8, halo = F == 3 ? 1 : 0;
+  const int most = kThreads / WQ - halo;
+  if (most < 1) return 0;
+  const int K = (H + 1) / 2, bands = (K + most - 1) / most;
+  return (K + bands - 1) / bands;
+}
+
+template <int FT>
+cudaError_t launch_pair_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                             __nv_bfloat16* dx, int N, int C, int H, int W,
+                             int Ho, int Wo, int KB, int avg, int relu_mask,
+                             Strides4 gs, cudaStream_t s) {
+  const int WQ = W / 8, rows = KB + (FT == 3 ? 1 : 0);
+  const int threads = (rows * WQ + 31) / 32 * 32;
+  const int smem = FT == 3 ? rows * (4 + 4 * WQ) * 4 : 0;
+  const dim3 grid(N * C, ((H + 1) / 2 + KB - 1) / KB);
+  pool_backward_pair_bf16<FT><<<grid, threads, smem, s>>>(
+      x, g, dx, C, H, W, Ho, Wo, KB, avg, relu_mask, gs);
+  return cudaGetLastError();
+}
 #endif
 
 }  // namespace
@@ -870,15 +1329,36 @@ extern "C" int REPRO_ENTRY(pool_backward_nchw)(
       np > 0x7fffffffLL || (np + planes - 1) / planes > 0x7fffffffLL ||
       (H + band - 1) / band > 65535)
     return (int)cudaErrorInvalidValue;
-  const long long smem = nchw_smem_bytes(planes, win_rows, F, S, W, Wo);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
   const Strides4 gs = strides_of(g_nchw != 0, N, C, Ho, Wo);
   const T* xf = static_cast<const T*>(x);
   const T* gf = static_cast<const T*>(g);
   T* df = static_cast<T*>(dx);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#if defined(REPRO_VARIANT_BF16)
+  const long long smem = nchw_bf16_smem_bytes(planes, win_rows, F, S, W, Wo);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  // S = 2 and F = 2 or 3 on whole 16-byte rows: the pair kernel
+  const int kb = S == 2 && (F == 2 || F == 3) && W % 8 == 0 &&
+                         reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                         reinterpret_cast<uintptr_t>(dx) % 16 == 0
+                     ? pair_rows(H, W, F)
+                     : 0;
+  cudaError_t e;
+  if (kb > 0 && F == 3)
+    e = launch_pair_bf16<3>(xf, gf, df, N, C, H, W, Ho, Wo, kb, avg,
+                            relu_mask, gs, s);
+  else if (kb > 0)
+    e = launch_pair_bf16<2>(xf, gf, df, N, C, H, W, Ho, Wo, kb, avg,
+                            relu_mask, gs, s);
+  else
+    e = launch_nchw_bf16(xf, gf, df, N, C, H, W, F, S, Ho, Wo, planes, band,
+                         win_rows, (int)smem, avg, relu_mask, gs, s);
+  return static_cast<int>(e);
+#else
+  const long long smem = nchw_smem_bytes(planes, win_rows, F, S, W, Wo);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
   const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(dx) % 16 == 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (F == 3 && S == 2)  // ResNet-18's overlapping pool
     e = launch_nchw<3, 2>(xf, gf, df, N, C, H, W, F, S, Ho, Wo, planes, band,
@@ -890,4 +1370,5 @@ extern "C" int REPRO_ENTRY(pool_backward_nchw)(
     e = launch_nchw<0, 0>(xf, gf, df, N, C, H, W, F, S, Ho, Wo, planes, band,
                           win_rows, (int)smem, avg, relu_mask, vec, gs, s);
   return static_cast<int>(e);
+#endif
 }

@@ -40,6 +40,19 @@ def k3a_bf16_unit(u: int, N: int, C: int, Ho: int, Wo: int,
     return c, ho, wo, (2 * q, 2 * q + 1) if pair else (q,)
 
 
+def k3b_bf16_unit(u: int, C: int, Ho: int, Wo: int):
+    """The outputs thread ``u`` of K3b's bf16 kernel
+    (``pool_nchw_bf16_kernel`` in csrc/pool.cu) makes: (n, c, ho, its wo).
+    A unit is two neighbouring outputs of a row, wo = 2q and 2q + 1 (one
+    where 2q + 1 = Wo); units run q fastest, then ho, c, n, and the kernel
+    runs ``N * C * Ho * ceil(Wo / 2)`` threads."""
+    Q = -(-Wo // 2)
+    r, q = divmod(u, Q)
+    r, ho = divmod(r, Ho)
+    n, c = divmod(r, C)
+    return n, c, ho, tuple(wo for wo in (2 * q, 2 * q + 1) if wo < Wo)
+
+
 def _refuse(name: str, x: torch.Tensor, F: int, S: int, op: str,
             dst_layout: str) -> None:
     """Raise the reason a pool launch's arguments are refused."""
@@ -124,8 +137,10 @@ def pool_chwn(x: torch.Tensor, F: int, S: int, op: str = "max",
 def pool_nchw(x: torch.Tensor, F: int, S: int, op: str = "max",
               dst_layout: str = "NCHW") -> torch.Tensor:
     """K3b: x [N, C, H, W] -> [N, C, Ho, Wo] (or [C, Ho, Wo, N] for
-    ``dst_layout="CHWN"``).  Windows slide along the contiguous W: the
-    strided access the paper measures for this layout."""
+    ``dst_layout="CHWN"``).  float32: a thread an output, windows sliding
+    along the contiguous W (the strided access the paper measures for this
+    layout).  bf16: a thread two neighbouring outputs of a row, each window
+    row's span by the widest loads W allows (``k3b_bf16_unit``)."""
     return _pool_public(pool_nchw, "pool_nchw_forward", "NCHW", x, F, S, op,
                         dst_layout)
 

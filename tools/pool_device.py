@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K3a bf16 and K7a bf16 on their main-path launches, through the
-tree in the current directory, on one CUDA card.
+"""Time the bf16 pools K3a and K3b and their backwards K7a and K7b on
+their main-path launches, through the tree in the current directory, on
+one CUDA card.
 
     cd TREE && python3 /path/to/tools/pool_device.py
 
@@ -8,11 +9,17 @@ TREE is a checkout (or a ``git archive`` of one under ``build/``): its
 ``src`` and its ``chip_smoke.py`` are the ones imported, so the same
 script times two trees' kernels in one call (run it in each, in turns).
 Each launch of unet_mini b8's standalone pools (K3a bf16, 6 a run of the
-smoke) and of the bf16 pool backwards of VGG16 b32's and unet_mini b8's
-training steps (K7a bf16, 5 each) is timed back to back (``cuda_ms``) and
-by graph replay (``device_ms``), K3a bf16 beside ``max_pool2d`` /
-``avg_pool2d`` on the same data in NCHW; the totals weigh each launch by
-its count.  Needs a CUDA device and nvcc.
+smoke), of K3b bf16's one case (unet_mini's first pool in NCHW, off every
+path) and of the float32 K3b row's eight shapes cast to bf16 (AlexNet
+b128's and VGG16 b32's unfused pools), and of the bf16 pool backwards of
+VGG16 b32's and unet_mini b8's training steps (K7a bf16, 5 each) and of
+ResNet-18 b32's (K7b bf16, 5 each), of the float32 K7b row's VGG16 b32
+2/2 shapes cast to bf16, and of the float32 K7a row's AlexNet b128
+launches (3 each), is timed back to back (``cuda_ms``) and by graph
+replay (``device_ms``), each beside the library call on the same data in
+NCHW (``max_pool2d`` / ``avg_pool2d``, their aten backwards times the ReLU
+mask); the totals weigh each launch by its count.  Needs a CUDA device
+and nvcc.
 """
 import sys
 from pathlib import Path
@@ -25,21 +32,50 @@ from torch.nn import functional as nnf  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 from repro_torch.core.layout import perm_between  # noqa: E402
-from repro_torch.kernels.pool.backward import pool_backward_chwn  # noqa: E402
-from repro_torch.kernels.pool.ops import pool_chwn  # noqa: E402
+from repro_torch.kernels.pool.backward import (  # noqa: E402
+    pool_backward_chwn, pool_backward_nchw)
+from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw  # noqa: E402
 
-# ((N, C, H, W), F, S, op), launches
-K3A = [(((8, 8, 32, 32), 2, 2, "max"), 6), (((8, 16, 16, 16), 2, 2, "max"), 6),
-       (((8, 8, 32, 32), 32, 32, "avg"), 6)]
-# (N, C, H, F, S, op, g_layout, relu_mask), launches
-K7A = [((32, 64, 224, 2, 2, "max", "CHWN", True), 5),
-       ((32, 128, 112, 2, 2, "max", "CHWN", True), 5),
-       ((32, 256, 56, 2, 2, "max", "CHWN", True), 5),
-       ((32, 512, 28, 2, 2, "max", "CHWN", True), 5),
-       ((32, 512, 14, 2, 2, "max", "NCHW", True), 5),
-       ((8, 8, 32, 2, 2, "max", "CHWN", False), 5),
-       ((8, 16, 16, 2, 2, "max", "CHWN", False), 5),
-       ((8, 8, 32, 32, 32, "avg", "NCHW", False), 5)]
+# (label, wrapper, layout): [(((N, C, H, W), F, S, op), launches)]
+POOLS = [
+    (("K3a bf16", pool_chwn, "CHWN"),
+     [(((8, 8, 32, 32), 2, 2, "max"), 6), (((8, 16, 16, 16), 2, 2, "max"), 6),
+      (((8, 8, 32, 32), 32, 32, "avg"), 6)]),
+    (("K3b bf16", pool_nchw, "NCHW"), [(((8, 32, 32, 32), 2, 2, "max"), 1)]),
+    (("K3b bf16 fp32-row", pool_nchw, "NCHW"),
+     [(((128, 96, 55, 55), 3, 2, "max"), 1),
+      (((128, 256, 27, 27), 3, 2, "max"), 1),
+      (((128, 256, 13, 13), 3, 2, "max"), 1),
+      (((32, 64, 224, 224), 2, 2, "max"), 1),
+      (((32, 128, 112, 112), 2, 2, "max"), 1),
+      (((32, 256, 56, 56), 2, 2, "max"), 1),
+      (((32, 512, 28, 28), 2, 2, "max"), 1),
+      (((32, 512, 14, 14), 2, 2, "max"), 1)])]
+# (label, wrapper, layout, dtype): [((N, C, H, F, S, op, g_layout,
+# relu_mask), launches)]
+BACKWARDS = [
+    (("K7a bf16", pool_backward_chwn, "CHWN", torch.bfloat16),
+     [((32, 64, 224, 2, 2, "max", "CHWN", True), 5),
+      ((32, 128, 112, 2, 2, "max", "CHWN", True), 5),
+      ((32, 256, 56, 2, 2, "max", "CHWN", True), 5),
+      ((32, 512, 28, 2, 2, "max", "CHWN", True), 5),
+      ((32, 512, 14, 2, 2, "max", "NCHW", True), 5),
+      ((8, 8, 32, 2, 2, "max", "CHWN", False), 5),
+      ((8, 16, 16, 2, 2, "max", "CHWN", False), 5),
+      ((8, 8, 32, 32, 32, "avg", "NCHW", False), 5)]),
+    (("K7b bf16", pool_backward_nchw, "NCHW", torch.bfloat16),
+     [((32, 64, 112, 3, 2, "max", "NCHW", True), 5),
+      ((32, 512, 7, 7, 7, "avg", "NCHW", True), 5)]),
+    (("K7b bf16 fp32-row", pool_backward_nchw, "NCHW", torch.bfloat16),
+     [((32, 64, 224, 2, 2, "max", "NCHW", True), 1),
+      ((32, 128, 112, 2, 2, "max", "NCHW", True), 1),
+      ((32, 256, 56, 2, 2, "max", "NCHW", True), 1),
+      ((32, 512, 28, 2, 2, "max", "NCHW", True), 1),
+      ((32, 512, 14, 2, 2, "max", "NCHW", True), 1)]),
+    (("K7a fp32", pool_backward_chwn, "CHWN", torch.float32),
+     [((128, 96, 55, 3, 2, "max", "CHWN", True), 3),
+      ((128, 256, 27, 3, 2, "max", "CHWN", True), 3),
+      ((128, 256, 13, 3, 2, "max", "NCHW", True), 3)])]
 
 
 def main() -> int:
@@ -54,42 +90,37 @@ def main() -> int:
         for k, v in r.items():
             tot[f"{kern} {k}"] = tot.get(f"{kern} {k}", 0.0) + n * v
 
+    def timed(kernel, library):
+        return {"ms": cs.cuda_ms(kernel), "device_ms": cs.device_ms(kernel),
+                "library_ms": cs.cuda_ms(library),
+                "library_device_ms": cs.device_ms(library)}
+
+    def show(label, case, n, r):
+        print(f"{label} {case} x{n}: "
+              + " ".join(f"{k}={v:.5f}" for k, v in r.items()), flush=True)
+        add(label, n, r)
+
     with torch.inference_mode():
-        for (shape, F, S, op), n in K3A:
-            N, C, H, W = shape
-            xn = torch.randn(N, C, H, W, device=dev).to(torch.bfloat16)
-            x = xn.permute(1, 2, 3, 0).contiguous()
-            pool_fn = nnf.max_pool2d if op == "max" else nnf.avg_pool2d
-
-            def kernel():
-                return pool_chwn(x, F, S, op)
-
-            def library():
-                return pool_fn(xn, F, S)
-
-            r = {"ms": cs.cuda_ms(kernel), "device_ms": cs.device_ms(kernel),
-                 "library_ms": cs.cuda_ms(library),
-                 "library_device_ms": cs.device_ms(library)}
-            print(f"K3a bf16 {shape} {F}/{S} {op} x{n}: "
-                  + " ".join(f"{k}={v:.5f}" for k, v in r.items()),
-                  flush=True)
-            add("K3a bf16", n, r)
-        for (N, C, H, F, S, op, g_lay, relu), n in K7A:
-            Ho = (H - F) // S + 1
-            zn = torch.randn(N, C, H, H, device=dev).to(torch.bfloat16)
-            gn = torch.randn(N, C, Ho, Ho, device=dev).to(torch.bfloat16)
-            z = zn.permute(1, 2, 3, 0).contiguous()
-            g = gn.permute(perm_between("NCHW", g_lay)).contiguous()
-
-            def kernel():
-                return pool_backward_chwn(z, g, F, S, op, g_layout=g_lay,
-                                          relu_mask=relu)
-
-            r = {"ms": cs.cuda_ms(kernel), "device_ms": cs.device_ms(kernel)}
-            print(f"K7a bf16 {(N, C, H, F, S, op, g_lay, relu)} x{n}: "
-                  + " ".join(f"{k}={v:.5f}" for k, v in r.items()),
-                  flush=True)
-            add("K7a bf16", n, r)
+        for (label, wrapper, layout), cases in POOLS:
+            for (shape, F, S, op), n in cases:
+                xn = torch.randn(*shape, device=dev).to(torch.bfloat16)
+                x = xn.permute(perm_between("NCHW", layout)).contiguous()
+                pool_fn = nnf.max_pool2d if op == "max" else nnf.avg_pool2d
+                show(label, (shape, F, S, op), n, timed(
+                    lambda: wrapper(x, F, S, op),
+                    lambda: pool_fn(xn, F, S)))
+        for (label, wrapper, layout, dtype), cases in BACKWARDS:
+            for case, n in cases:
+                N, C, H, F, S, op, g_lay, relu = case
+                Ho = (H - F) // S + 1
+                zn = torch.randn(N, C, H, H, device=dev).to(dtype)
+                gn = torch.randn(N, C, Ho, Ho, device=dev).to(dtype)
+                z = zn.permute(perm_between("NCHW", layout)).contiguous()
+                g = gn.permute(perm_between("NCHW", g_lay)).contiguous()
+                show(label, case, n, timed(
+                    lambda: wrapper(z, g, F, S, op, g_layout=g_lay,
+                                    relu_mask=relu),
+                    cs._pool_bwd_library(zn, gn, F, S, op, relu)))
     print("total: " + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()))
     return 0
 

@@ -11,8 +11,8 @@ are every distinct launch of that row on the bf16 training path
 (``chip_smoke.plan_train_launches`` of ``BF16_TRAINED``) and the dtype
 phase's served plans (``fused_launches`` of ``DTYPE_SERVED``), with the
 launches each makes, and the row's one calibration or off-path case
-(``CALIBRATION_ONLY``, ``DTYPE_OFF_PATH``) once, as the kernels line
-weighs it.  Each SOURCE stands in for the checkout's source of
+(``CALIBRATION_ONLY``, ``DTYPE_OFF_PATH``, ``BF16_OFF_PATH``) once, as the
+kernels line weighs it.  Each SOURCE stands in for the checkout's source of
 that entry point: it is compiled by nvcc with the variant's flag
 (``-DREPRO_VARIANT_<VARIANT>``) into a library of its own, and its entry
 point is swapped in for the checkout's.  The checkout's build and the
@@ -65,7 +65,8 @@ def main_path_cases(name: str) -> Counter:
             if kern == name:
                 cases[(network, case)] += 1
     for label, one in (("calibration", cs.CALIBRATION_ONLY),
-                       ("off path", cs.DTYPE_OFF_PATH)):
+                       ("off path", {**cs.DTYPE_OFF_PATH,
+                                     **cs.BF16_OFF_PATH})):
         if name in one:
             cases[(label, one[name])] += 1
     return cases

@@ -23,7 +23,21 @@ and banded kernels, whose loads and stores go through ``ld_g``,
 - ``<stem>_nog.cu``: g never read (a word made from its offset);
 - ``<stem>_nox.cu``: x never read (a word made from its address);
 - ``<stem>_nostore.cu``: dx stored only under a test no value passes, so
-  the loads and the arithmetic stay and the writes go.
+  the loads and the arithmetic stay and the writes go;
+
+and for K7b bf16 (its pair and banded kernels, whose accesses go through
+``ld_x8``, ``stage_x``, ``ld_g1`` and ``store_dx``)
+
+- ``<stem>_nox_nchw.cu``: the pair kernel reads no x (8 elements made
+  from their address);
+- ``<stem>_nostage_nchw.cu``: the banded kernel copies no x row into
+  shared memory (phase 1 and the mask read whatever it holds);
+- ``<stem>_nog_nchw.cu``: g never read;
+- ``<stem>_nostore_nchw.cu``: dx never stored (the arithmetic stays);
+- ``<stem>_nophase1_nchw.cu``: the banded kernel's phase 1 runs no item
+  (no first max, no g read; phase 2 reads whatever the words hold);
+- ``<stem>_nophase2_nchw.cu``: its phase 2 runs no item (no dx formed or
+  stored).
 
 Time them with ``tools/storage_variants.py --timing-only KERNEL.VARIANT
 SRC_nocopy.cu ...``; their outputs are garbage by design.  A copy of
@@ -73,17 +87,51 @@ __device__ __forceinline__ void st_never(__nv_bfloat16* p, float a0,
 }
 """
 _HELPERS_END = "__device__ __forceinline__ float mask("
+# K7b bf16's accesses, as stand-ins; they go in after its own helpers
+FAKE_NCHW = """
+__device__ __forceinline__ void stage_none(__nv_bfloat16*,
+                                           const __nv_bfloat16*) {}
+__device__ __forceinline__ uint4 fake_x8(const __nv_bfloat16* p) {
+  const unsigned a = static_cast<unsigned>(reinterpret_cast<uintptr_t>(p));
+  return make_uint4(a & 0x3f7f3f7fu, a >> 3, a ^ 0x3f003f00u, a >> 5);
+}
+__device__ __forceinline__ unsigned fake_g1(const __nv_bfloat16* p) {
+  return static_cast<unsigned>(reinterpret_cast<uintptr_t>(p) >> 1) & 0x3f7fu;
+}
+__device__ __forceinline__ void store_never(__nv_bfloat16* d,
+                                            const float (&acc)[8], bool wide,
+                                            int n) {
+  if (acc[0] == -12345.f && acc[7] == -12345.f) store_dx(d, acc, wide, n);
+}
+"""
+_NCHW_KERNEL = "// K7b bf16's pair kernel:"
 
 
 def pool_variants(text: str) -> dict:
-    """K7a bf16's part variants (``FAKE``'s stand-ins after its helpers)."""
+    """K7a bf16's part variants (``FAKE``'s stand-ins after its helpers)
+    and K7b bf16's (``FAKE_NCHW``'s after its own)."""
     head, sep, rest = text.partition(_HELPERS_END)
     body = rest.partition("\n}\n")
     base = head + FAKE + sep + body[0] + body[1]
     tail = body[2]
-    return {"nog": base + tail.replace("ld_g(", "fake_g("),
-            "nox": base + tail.replace("ld_unit(x + ", "fake_unit(x + "),
-            "nostore": base + tail.replace("st_unit(", "st_never(")}
+    out = {"nog": base + tail.replace("ld_g(", "fake_g("),
+           "nox": base + tail.replace("ld_unit(x + ", "fake_unit(x + "),
+           "nostore": base + tail.replace("st_unit(", "st_never(")}
+    if _NCHW_KERNEL in text:
+        head, sep, tail = text.partition(_NCHW_KERNEL)
+        head += FAKE_NCHW
+        out.update(
+            nostage_nchw=head + sep + tail.replace("stage_x(",
+                                                   "stage_none("),
+            nox_nchw=head + sep + tail.replace("ld_x8(xr", "fake_x8(xr"),
+            nog_nchw=head + sep + tail.replace("ld_g1(g", "fake_g1(g"),
+            nostore_nchw=head + sep + tail.replace("store_dx(d",
+                                                   "store_never(d"),
+            nophase1_nchw=head + sep + tail.replace(
+                "it.a < pc; it.add(d, wr,", "false; it.add(d, wr,"),
+            nophase2_nchw=head + sep + tail.replace(
+                "it.a < pc; it.add(d, rows,", "false; it.add(d, rows,"))
+    return out
 
 
 def variants(src: Path) -> dict:
