@@ -82,10 +82,13 @@
    variant that only the calibration launches (K2 in bf16, K1 and K2 on
    int8 x with float32 w; their kernels-line launches are the
    calibration's, their times the one case's) and of K2 on int8 x with
-   bf16 w (no path launches it: 0 launches).  K1's bf16 and int8->bf16
-   builds and K5a's bf16 build (the bf16 tensor cores) run each case
-   three times, bitwise equal; K5a bf16 also counts the FLOPs its blocks
-   execute and the cluster they ran in, which must equal
+   bf16 w (no path launches it: 0 launches).  K1's bf16, int8->bf16 and
+   int8->fp32 builds and K5a's bf16 build (the bf16 tensor cores) run
+   each case three times, bitwise equal; K1 int8->fp32 is also held
+   within 1e-5 scale-relative of float64 and timed by graph replay beside
+   cuDNN ("K1 int8→fp32 on its case (the calibration's)", with the bound
+   of its design, three bf16 products a term); K5a bf16 also counts the
+   FLOPs its blocks execute and the cluster they ran in, which must equal
    ``stack_tiling``'s, and prints how many of its clusters the card holds
    (``stack_max_clusters`` of the bf16 build).
 4. Planner phase, the main path's planned part: the paper's Fig. 4 on the
@@ -192,7 +195,9 @@
    also held and timed on every launch of the float32 K3a and K3b rows
    cast to bf16 (a line each, and "K3a bf16 on the float32 K3a row's
    shapes", "K3b bf16 on the float32 K3b row's shapes"), where bytes, not
-   the host, set the time; and a "pool host_us"
+   the host, set the time.  K4 bf16 and the bf16 transposes K9a and K9b
+   do the same ("K4 bf16 over the main path", "K9a bf16 over the main
+   path", "K9b bf16 on its case (off every path)"); and a "pool host_us"
    line gives the host microseconds of each step of a K3a bf16 launch
    (unet_mini's first pool) beside the wrapper's and the library call's.
 8. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
@@ -1132,9 +1137,16 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         wrapper, ref = TRANSPOSE_KERNELS[base]
         x = rand(*case)
         perm = (1, 0) if len(case) == 2 else (0, 2, 1)
-        return _measure(lambda: wrapper(x), lambda: ref(x),
-                        lambda: x.permute(perm).contiguous(), 0.0,
-                        2 * nbytes(x), peak=peak, check=exact_check)
+
+        def library():
+            return x.permute(perm).contiguous()
+
+        m = _measure(lambda: wrapper(x), lambda: ref(x), library, 0.0,
+                     2 * nbytes(x), peak=peak, check=exact_check)
+        # K9a and K9b bf16: the card's share, not the host's
+        m.update(device_ms=device_ms(lambda: wrapper(x)),
+                 library_device_ms=device_ms(library))
+        return m
     if base == "wgrad":
         return wgrad_case(case, dev, seed, dtype=wdt)
     if base == "softmax_xent":
@@ -1168,7 +1180,9 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         m = _measure(lambda: softmax(x), lambda: softmax_ref(x),
                      lambda: torch.softmax(x, dim=-1), 5.0 * rows * cols,
                      2.0 * nbytes(x), peak=peak, check=check)
-        m["device_ms"] = device_ms(lambda: softmax(x))
+        m.update(device_ms=device_ms(lambda: softmax(x)),
+                 library_device_ms=device_ms(
+                     lambda: torch.softmax(x, dim=-1)))
         return m
     if base in STACK_KERNELS:
         (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool, relu1, relu2, rlay,
@@ -1327,9 +1341,20 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                  check=check)
     if base == "conv_chwn":
         _k1_tile(m, case, N, Ci, H, Co, F, S, pad, pool)
-        if wdt is torch.bfloat16:   # the narrow builds' runs: bitwise equal
-            bitwise_runs(kernel, f"{kern} {case}")
-            m["bitwise_equal_runs"] = 3
+        # the narrow and int8->fp32 builds' runs: bitwise equal
+        bitwise_runs(kernel, f"{kern} {case}")
+        m["bitwise_equal_runs"] = 3
+        if variant == "i8f32" and not save_act:
+            # fp32 accuracy from three bf16 products a term: the 3xTF32
+            # kernels' gate against float64; the card's time by graph
+            # replay beside the host's
+            k64 = {**kw, "res": r.double() if rlay else None}
+            _fp32_gate(m, [(kernel(), conv_ref(x, w.double(), S, pad,
+                                               **k64))], f"{kern} {case}")
+            m.update(design_bound_ms=bound_ms(3 * m["flops"], m["bytes"],
+                                              PEAK_BF16_FLOPS)[0],
+                     design="bf16_split3", device_ms=device_ms(kernel),
+                     library_device_ms=device_ms(library))
     else:
         _k2_narrow(m, kern, case, x, w, S, pad, kw, check, kernel)
     return m
@@ -1898,10 +1923,12 @@ def softmax_variants(dev) -> dict:
 
 
 def device_line(label: str, rows, what: str = "over the main path") -> str:
-    """A short-launch kernel (K3a bf16, K7a bf16) summed over ``rows``' launches:
-    the back-to-back ms (the host's time where a launch is short) beside
-    the device ms (``device_ms``: graph replays), each with the library
-    call's, the byte bound and the share of it the device time reaches."""
+    """A kernel also timed by graph replay (K1 int8→fp32, the bf16 pools
+    and their backwards, K4 bf16, the bf16 transposes) summed over
+    ``rows``' launches: the back-to-back ms (the host's time where a
+    launch is short) beside the device ms (``device_ms``: graph replays),
+    each with the library call's, the bound (bytes; K1's operations) and
+    the share of it the device time reaches."""
     def tot(f):
         return sum(r[f] * (r["launches"] or 1) for r in rows)
     return (f"{label} {what}: launches={sum(r['launches'] for r in rows)} "
@@ -2112,6 +2139,11 @@ def kernel_phase(dev):
                 extra += (f" library_device_ms={m['library_device_ms']:.5f}"
                           f" device_bound_share="
                           f"{m['bound_ms'] / m['device_ms']:.3f}")
+            if kern == "conv_chwn.i8f32" and "f64_err" in m:
+                extra += (f" TFLOP/s={m['flops'] / m['ms'] / 1e9:.1f} "
+                          f"f64_err={m['f64_err']:.3g} bound_split3_ms="
+                          f"{m['design_bound_ms']:.4f} tile={m['tile']} "
+                          f"blocks={m['blocks']}")
         elif kern in ("conv_chwn", "conv_nchw"):
             extra = (f" f64_err={m['f64_err']:.3g} TFLOP/s="
                      f"{m['flops'] / m['ms'] / 1e9:.1f} "
@@ -2136,10 +2168,16 @@ def kernel_phase(dev):
                                        if r["kernel"] == "conv_nchw.bf16"],
                            peak="bf16", design="bf16"), flush=True)
     for label, kern, what in (
+            ("K1 int8→fp32", "conv_chwn.i8f32",
+             "on its case (the calibration's)"),
             ("K3a bf16", "pool_chwn.bf16", "over the main path"),
             ("K3b bf16", "pool_nchw.bf16", "on its case (off every path)"),
+            ("K4 bf16", "softmax.bf16", "over the main path"),
             ("K7a bf16", "pool_backward_chwn.bf16", "over the main path"),
-            ("K7b bf16", "pool_backward_nchw.bf16", "over the main path")):
+            ("K7b bf16", "pool_backward_nchw.bf16", "over the main path"),
+            ("K9a bf16", "transpose2d.bf16", "over the main path"),
+            ("K9b bf16", "transpose2d_batched.bf16",
+             "on its case (off every path)")):
         print(device_line(label, [r for r in mult.values()
                                   if r["kernel"] == kern], what), flush=True)
     # per forward (and training step): each kernel's launches summed

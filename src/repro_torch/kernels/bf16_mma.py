@@ -5,7 +5,9 @@ hold it against float64.
 A product of two bf16 values is exact in fp32.  The tensor core sums the
 products in fp32, and the kernels sum each slice of reduction terms from
 zero in the mma registers and add the slices to an fp32 total in order: K1
-every 64 terms (``K1_SLICE``), K5a's conv2 once a chunk of 64 mid channels
+every 64 terms (``K1_SLICE``; its int8->fp32 build every 16,
+``K1_I8F32_SLICE``, over the float32 w in three bf16 parts:
+``k1_i8f32_emulated``), K5a's conv2 once a chunk of 64 mid channels
 (``K5A_CHUNK`` x F2 x F2 terms; its conv1 runs one chain over K1), K5b's
 conv2 once a chunk of 32 (``K5B_CHUNK``; its conv1 one chain a pass, over
 all of K1), K6 every 32 output positions (``K6_SLICE``), each split of
@@ -29,6 +31,7 @@ K1_SLICE = 64     # reduction terms K1's narrow builds sum before a flush
 K5A_CHUNK = 64    # mid channels of a K5a chunk: conv2 flushes once a chunk
 K5B_CHUNK = 32    # mid channels of a K5b chunk: conv2 flushes once a chunk
 K6_SLICE = 32     # output positions of a K6 slice: flushed every slice
+K1_I8F32_SLICE = 16   # terms of a chain of K1's int8->fp32 build (k16)
 
 
 def to_bf16(a: torch.Tensor) -> torch.Tensor:
@@ -93,3 +96,13 @@ def wgrad_emulated(g: torch.Tensor, x: torch.Tensor,
         part = gemm_emulated(g[:, p0:p0 + per], [x[p0:p0 + per]], K6_SLICE)
         total = part if total is None else total + part
     return total
+
+
+def k1_i8f32_emulated(w: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """K1's int8->fp32 product w [K, Co] (float32)^T @ p [K, cols] (int8
+    values, exact in bf16) as its kernel forms it: w cut into three bf16
+    parts (``mid_parts``), each k16 step's products summed from zero over
+    the parts lo, md, hi, the steps added to an fp32 total in order.
+    Returns [Co, cols]."""
+    return gemm_emulated(p.float().t(), mid_parts(w)[::-1],
+                         K1_I8F32_SLICE).t()

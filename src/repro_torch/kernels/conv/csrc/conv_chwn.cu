@@ -13,12 +13,11 @@
 // holds per-channel quantized values whose scale the caller folded into w.
 // Where w is bf16 (bf16 x, int8 x) the narrow kernel below runs: a bf16
 // ring and bf16 products on the tensor cores, summed in fp32 (its own note
-// says how).  int8 x with float32 w (the calibration's int8 row) runs the
-// float32 kernel: x loaded element by element and widened on its way into
-// the float32 ring, w copied by cp.async; an int8 value is exact in TF32,
-// so the 3xTF32 product that reads its small part drops out (two products
-// a term).  Everything after the products is float32, and y is rounded
-// once where it is stored.
+// says how).  int8 x with float32 w (the calibration's int8 row) runs a
+// kernel of its own (conv_chwn_i8f32_kernel, below): x widened to bf16 as
+// in the narrow builds, w float32 cut into three bf16 parts, three bf16
+// products a term.  Everything after the products is float32, and y is
+// rounded once where it is stored.
 // z (save_act, training) is stored in y's type, rounded once as y is: the
 // reference saves it in the output dtype (its odt), so a bf16 conv saves
 // bf16 z and the activation memory halves.  The pool then reads the
@@ -972,6 +971,434 @@ cudaError_t launch_narrow(const K1Args<TX, bf16>& a, int blocks, int smem,
   return cudaGetLastError();
 }
 
+// ---- the int8->fp32 build: int8 x, float32 w, on bf16 tensor cores -----
+//
+// Instantiated only by the int8->fp32 build (forward below; the
+// calibration's int8 row).  The block tile, the producer/consumer split,
+// the passes and the epilogue are the float32 kernel's; the ring and the
+// products differ.  An int8 value is exact in bf16 (|q| <= 127), so x
+// goes the narrow kernels' way: widened to bf16 in registers (a run of 8,
+// one 8-byte load issued before the producer waits for its stage; the
+// halo, ragged N and NCHW element by element) into a bf16 P ring of
+// XOR-swizzled 16-byte chunks, read by ldmatrix.trans.  w stays float32:
+// 16-byte cp.async into rows of BM + 4 floats (so a quarter warp's float2
+// fragment loads hit 32 banks), and the consumers cut each pair of
+// weights into three bf16 parts (storage::split3: hi, md, lo, exact), so
+// a term is three mma.sync m16n8k16 products of exact bf16 values, each
+// exact in fp32: fp32 accuracy at three bf16 products a term (3 / 989 of
+// tensor time against 3xTF32's 2 / 495 with x exact).  Rows of the GEMM
+// are permuted within each 16 as in the float32 kernel (mma row g is
+// channel 2g, row g + 8 channel 2g + 1), so a fragment is float2 loads.
+// The tensor core truncates as it accumulates: each k16 step's three
+// products (lo, md, hi) are a chain from zero, added to fp32 registers at
+// once (flushed every 16 terms; the float32 kernel flushes every 32), so
+// four independent chains (two channel tiles by two column tiles)
+// interleave and the consumers' registers hold no second set of sums.
+// Its ring (4 stages of 32-deep slices) is smaller than the float32
+// kernel's 3, so conv_tiling's tiles fit as they are (ops.k1_i8f32_smem).
+//
+// What bounds it: operations, at the bf16 tensor cores' 989 TFLOP/s over
+// three products a term; as built, neither side alone: timed apart, the
+// consumers (fragment loads, the split, each chain's fp32 adds) and the
+// producers (16 KB of float32 w a slice from L2, x through registers)
+// each take most of the kernel's time (tools/storage_variants.py
+// --timing-only; PERF.md, Findings).  TMA (w multicast across the blocks
+// that share it) and wgmma are the next step.
+constexpr int kIBK = 32;                // reduction slice
+constexpr int kIStages = 4;             // ring depth
+constexpr int kIRows = kIBK / 16;       // P rows of a producer thread
+constexpr int kIPad = 4;                // w row stride: BM + 4 floats
+constexpr int kIPoolBar = 1 + 2 * kIStages;  // consumers only
+
+__host__ __device__ constexpr int i8f32_ring_bytes(int bm) {
+  return kIStages * kIBK * ((bm + kIPad) * 4 + BN * 2);
+}
+__device__ __forceinline__ int i8_full(int s) { return 1 + s; }
+__device__ __forceinline__ int i8_empty(int s) { return 1 + kIStages + s; }
+
+// bias, residual, ReLU, z and the stores of a block's sums: sums[m * SB +
+// c] (no pool; SB = BN + kRowPad) or the conv tile (a pool), as the float32
+// kernel's epilogue
+template <bool POOL, typename A>
+__device__ __forceinline__ void epilogue(const A& a, const Tile& t, int co0,
+                                         int mrows, const float* sums,
+                                         float* tile, const int (*colofs)[BN],
+                                         int bar) {
+  const int tid = threadIdx.x;
+  if (!POOL) {
+    const int npos = (a.ys.n != 1 && BN % a.N == 0) ? BN / a.N : 0;
+    for (int e = tid; e < mrows * BN; e += kConsumers) {
+      const int m = e / BN, j = e - m * BN;
+      const int c = npos ? (j % npos) * a.N + j / npos : j;
+      if (c >= t.C) continue;
+      const int co = co0 + m;
+      float v = sums[m * (BN + kRowPad) + c];
+      if (a.bias) v += ld(a.bias + co);
+      if (a.res)
+        v += ld(a.res + colofs[1][c] + static_cast<long long>(co) * a.rs.c);
+      if (a.relu) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+      put(a.y + colofs[0][c] + static_cast<long long>(co) * a.ys.c, v);
+      if (a.z)
+        put(a.z + colofs[2][c] + static_cast<long long>(co) * a.zs.c, v);
+    }
+    return;
+  }
+  const bool last_h = t.ph0 + t.pht == a.UH, last_w = t.pw0 + t.pwt == a.UW;
+  for (int e = tid; e < mrows * t.C; e += kConsumers) {
+    const int m = e / t.C, c = e - m * t.C;
+    const int co = co0 + m;
+    float* p = tile + m * a.cs + c;
+    float v = *p;
+    if (a.bias) v += ld(a.bias + co);
+    if (a.res || a.z) {
+      const int nl = c % t.nbt, r = c / t.nbt;
+      const int rw = r % t.rwt, rh = r / t.rwt;
+      const long long n = t.n0 + nl;
+      const int oh = t.oh0 + rh, ow = t.ow0 + rw;
+      if (a.res)
+        v += ld(a.res + n * a.rs.n + static_cast<long long>(co) * a.rs.c +
+                oh * a.rs.h + ow * a.rs.w);
+      if (a.relu) v = v < 0.f ? 0.f : v;
+      if (a.z && (rh < t.pht * a.pS || last_h) && rh % a.pS < a.pF &&
+          (rw < t.pwt * a.pS || last_w) && rw % a.pS < a.pF)
+        put(a.z + n * a.zs.n + static_cast<long long>(co) * a.zs.c +
+                oh * a.zs.h + ow * a.zs.w,
+            v);
+    } else if (a.relu) {
+      v = v < 0.f ? 0.f : v;
+    }
+    *p = v;
+  }
+  bar_sync(bar, kConsumers);
+  const int outs = t.pht * t.pwt * t.nbt;
+  const float area = static_cast<float>(a.pF * a.pF);
+  for (int e = tid; e < mrows * outs; e += kConsumers) {
+    const int m = e / outs;
+    int r = e - m * outs;
+    const int nl = r % t.nbt;
+    r /= t.nbt;
+    const int pwl = r % t.pwt, phl = r / t.pwt;
+    const float* row = tile + m * a.cs;
+    float acc = a.pool_avg ? 0.f : -INFINITY;
+    for (int i = 0; i < a.pF; ++i)
+      for (int j = 0; j < a.pF; ++j) {
+        const float v =
+            row[((phl * a.pS + i) * t.rwt + pwl * a.pS + j) * t.nbt + nl];
+        acc = a.pool_avg ? acc + v : nan_max(acc, v);
+      }
+    put(a.y + static_cast<long long>(t.n0 + nl) * a.ys.n +
+            static_cast<long long>(co0 + m) * a.ys.c +
+            (t.ph0 + phl) * a.ys.h + (t.pw0 + pwl) * a.ys.w,
+        a.pool_avg ? acc / area : acc);
+  }
+}
+
+template <int BM, bool POOL>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_chwn_i8f32_kernel(const K1Args<int8_t, float> a) {
+  constexpr int SA = BM + kIPad;          // float row stride of the w ring
+  constexpr int ABYTES = kIBK * SA * 4;   // w slice of a stage
+  constexpr int STAGE = ABYTES + kIBK * BN * 2;  // bytes of a stage
+  constexpr int SB = BN + kRowPad;        // float row stride of the sums
+  constexpr int WM = BM / 32;   // consumer warps along co, 32 rows each
+  constexpr int WN = 8 / WM;    // consumer warps along the columns
+  constexpr int WTN = BN / WN;  // columns per consumer warp
+  constexpr int NT = WTN / 8;   // m16n8 tiles per consumer warp
+  constexpr int ACH = BM / 4;   // 16-byte chunks of a w row
+  constexpr int APT = kIBK * ACH / kProducers;  // w chunks per producer
+  static_assert(WM * WN == 8 && NT % 2 == 0 && APT >= 1, "tile");
+  static_assert((2 * SA) % 32 == 8, "w fragment loads: 32 banks");
+  extern __shared__ __align__(128) unsigned char smem_i[];
+  __shared__ int colofs[3][BN];  // no pool: y, res, z offset of a column
+
+  const Tile t = make_tile(a);
+  const int co0 = blockIdx.y * BM;
+  const int kslices = (a.K + kIBK - 1) / kIBK;
+  const int passes = (t.C + BN - 1) / BN;
+  const int nsl = passes * kslices;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroups: every slice's copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    const int q = pt % 16, row0 = pt / 16;  // P: 8-column chunk, first row
+    const int FF = a.F * a.F;
+    int cur = -1;  // the pass whose columns xb/ih/iw describe
+    // this thread's 8 columns: x offset and first input row and column of
+    // each (ih far out of range past the tile's last column)
+    int xb[8], ih[8], iw[8];
+    bool cont = false;  // the 8 are 8 consecutive elements of x (a run of n)
+    // (ci, dy, dx) of this thread's P rows row0 + 16 i in the next slice,
+    // stepped by kIBK in the mixed radix (Ci, F, F)
+    int kci[kIRows], kdy[kIRows], kdx[kIRows];
+    const int sci = kIBK / FF, sdy = (kIBK - sci * FF) / a.F;
+    const int sdx = kIBK - sci * FF - sdy * a.F;
+    auto stage = [&](int sl) {
+      const int pass = sl / kslices, k0 = (sl - pass * kslices) * kIBK;
+      if (k0 == 0) {  // a pass starts over at k = 0
+#pragma unroll
+        for (int i = 0; i < kIRows; ++i) {
+          const int k = row0 + 16 * i, ci = k / FF, rem = k - ci * FF;
+          kci[i] = ci;
+          kdy[i] = rem / a.F;
+          kdx[i] = rem - kdy[i] * a.F;
+        }
+      }
+      if (pass != cur) {  // this thread's 8 columns of the new pass
+        cur = pass;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = pass * BN + 8 * q + j;
+          int n = 0, oh = 0, ow = 0;
+          const bool ok = c < t.C;
+          if (ok) column(a, t, c, n, oh, ow);
+          ih[j] = ok ? oh * a.S - a.pad : -0x40000000;
+          iw[j] = ow * a.S - a.pad;
+          xb[j] = n * a.xs.n + (oh * a.S - a.pad) * a.xs.h + iw[j] * a.xs.w;
+        }
+        cont = a.vec_x;
+#pragma unroll
+        for (int j = 1; j < 8; ++j)
+          cont = cont && xb[j] == xb[0] + j && ih[j] == ih[0] &&
+                 iw[j] == iw[0];
+      }
+      // each P row's x offset (ko) and its columns in range (bits 0-7;
+      // bit 8: a whole aligned run of 8, loaded now)
+      int ko[kIRows];
+      unsigned vm[kIRows];
+      uint2 raw[kIRows];
+#pragma unroll
+      for (int i = 0; i < kIRows; ++i) {
+        const int k = k0 + row0 + 16 * i;
+        const int dy = kdy[i], dx = kdx[i];
+        ko[i] = kci[i] * a.xs.c + dy * a.xs.h + dx * a.xs.w;
+        // on to the next slice's k
+        kdx[i] += sdx;
+        if (kdx[i] >= a.F) {
+          kdx[i] -= a.F;
+          ++kdy[i];
+        }
+        kdy[i] += sdy;
+        if (kdy[i] >= a.F) {
+          kdy[i] -= a.F;
+          ++kci[i];
+        }
+        kci[i] += sci;
+        unsigned m = 0;
+        if (cont) {
+          if (k < a.K &&
+              static_cast<unsigned>(ih[0] + dy) < static_cast<unsigned>(a.H) &&
+              static_cast<unsigned>(iw[0] + dx) < static_cast<unsigned>(a.W))
+            m = ((xb[0] + ko[i]) & 7) == 0 ? 0x1ffu : 0xffu;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            m |= static_cast<unsigned>(
+                     k < a.K &&
+                     static_cast<unsigned>(ih[j] + dy) <
+                         static_cast<unsigned>(a.H) &&
+                     static_cast<unsigned>(iw[j] + dx) <
+                         static_cast<unsigned>(a.W))
+                 << j;
+        }
+        vm[i] = m;
+        if (m & 0x100u)
+          raw[i] = __ldg(reinterpret_cast<const uint2*>(a.x + xb[0] + ko[i]));
+      }
+      if (sl >= kIStages) bar_sync(i8_empty(sl % kIStages), kThreads);
+      unsigned char* st = smem_i + (sl % kIStages) * STAGE;
+      float* As = reinterpret_cast<float*>(st);
+      bf16* Bs = reinterpret_cast<bf16*>(st + ABYTES);
+#pragma unroll
+      for (int i = 0; i < kIRows; ++i) {
+        bf16* d = Bs + swz<BN>(row0 + 16 * i, q);
+        const int8_t* p = a.x + ko[i];
+        if (vm[i] == 0) {
+          cp16(d, a.x, false);
+        } else if (vm[i] & 0x100u) {
+          *reinterpret_cast<uint4*>(d) = bf16x8(raw[i]);
+        } else {
+          unsigned e[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const bool v = (vm[i] >> j) & 1u;
+            e[j] = bf16_bits(v ? p + xb[j] : a.x, v);
+          }
+          *reinterpret_cast<uint4*>(d) =
+              make_uint4(e[0] | (e[1] << 16), e[2] | (e[3] << 16),
+                         e[4] | (e[5] << 16), e[6] | (e[7] << 16));
+        }
+      }
+      // w: chunk e of the [kIBK][BM] slice, co fastest, by 16-byte cp.async
+#pragma unroll
+      for (int i = 0; i < APT; ++i) {
+        const int e = pt + kProducers * i;
+        const int r = e / ACH, cq = e - r * ACH;
+        const int k = k0 + r, co = co0 + 4 * cq;
+        float* d = As + r * SA + 4 * cq;
+        const float* src = a.w + static_cast<long long>(k) * a.Co + co;
+        if (k < a.K && a.vec_w && co + 3 < a.Co) {
+          cp16(d, src, true);
+        } else if (k >= a.K || co >= a.Co) {
+          cp16(d, a.w, false);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            cp4(d + j, co + j < a.Co ? src + j : a.w, co + j < a.Co);
+        }
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kIStages - 1; ++s) {
+      if (s < nsl) stage(s);
+      cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      cp_wait<kIStages - 2>();  // slice sl has landed: announce it
+      bar_arrive(i8_full(sl % kIStages), kThreads);
+      const int nx = sl + kIStages - 1;
+      if (nx < nsl) stage(nx);  // waits for the stage to be free
+      cp_commit();
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: the products and the epilogue ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  if (!POOL && tid < t.C) {  // y, res and z offsets of column tid (n, oh, ow)
+    int n, oh, ow;
+    column(a, t, tid, n, oh, ow);
+    colofs[0][tid] = n * a.ys.n + oh * a.ys.h + ow * a.ys.w;
+    colofs[1][tid] = n * a.rs.n + oh * a.rs.h + ow * a.rs.w;
+    colofs[2][tid] = n * a.zs.n + oh * a.zs.h + ow * a.zs.w;
+  }
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % WM, wn = warp / WM;
+  // B: the row (k) and 16-byte chunk of this lane's ldmatrix.trans address
+  // ((k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)),
+  // swizzled; a k16 step adds 16 rows, which leaves the XOR term as it is
+  const int br = (lane & 7) + (((lane >> 3) & 1) << 3), bc = lane >> 4;
+  int boff[NT / 2];
+#pragma unroll
+  for (int np = 0; np < NT / 2; ++np)
+    boff[np] = swz<BN>(br, (wn * WTN + np * 16) / 8 + bc);
+  // A: this lane's float2 of channels (2g, 2g + 1) at k = 2 tq of the step
+  const int aoff = 2 * tq * SA + wm * 32 + 2 * g;
+  float* sums = reinterpret_cast<float*>(smem_i);  // no pool: over the ring
+  float* tile = reinterpret_cast<float*>(smem_i + i8f32_ring_bytes(BM));
+  int sl = 0;
+  for (int pass = 0; pass < passes; ++pass) {
+    const int cvalid = min(BN, t.C - pass * BN);  // columns of this pass
+    const bool busy = wn * WTN < cvalid;  // the warp holds a column
+    float total[2][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) total[mt][nt][e] = 0.f;
+    for (int ks = 0; ks < kslices; ++ks, ++sl) {
+      const int buf = sl % kIStages;
+      bar_sync(i8_full(buf), kThreads);
+      if (busy) {
+        const unsigned char* st = smem_i + buf * STAGE;
+        const float* As = reinterpret_cast<const float*>(st);
+        const bf16* Bs = reinterpret_cast<const bf16*>(st + ABYTES);
+        // every k16 step, those past K too (zero-filled): no branch
+        // between the steps' fragment loads and products
+#pragma unroll
+        for (int kk = 0; kk < kIBK / 16; ++kk) {
+          // w's three parts: a0 (row g: k 2tq, 2tq + 1), a1 (row g + 8),
+          // a2, a3 (k + 8); rows g and g + 8 are channels 2g and 2g + 1
+          unsigned ahi[2][4], amd[2][4], alo[2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const float* pa = As + aoff + 16 * kk * SA + mt * 16;
+            const float2 k0 = *reinterpret_cast<const float2*>(pa);
+            const float2 k1 = *reinterpret_cast<const float2*>(pa + SA);
+            const float2 k8 = *reinterpret_cast<const float2*>(pa + 8 * SA);
+            const float2 k9 = *reinterpret_cast<const float2*>(pa + 9 * SA);
+            split3(k0.x, k1.x, ahi[mt][0], amd[mt][0], alo[mt][0]);
+            split3(k0.y, k1.y, ahi[mt][1], amd[mt][1], alo[mt][1]);
+            split3(k8.x, k9.x, ahi[mt][2], amd[mt][2], alo[mt][2]);
+            split3(k8.y, k9.y, ahi[mt][3], amd[mt][3], alo[mt][3]);
+          }
+#pragma unroll
+          for (int np = 0; np < NT / 2; ++np) {
+            unsigned bq[4];
+            ldsm_x4_t(bq, Bs + boff[np] + 16 * kk * BN);
+            // four chains of three products (lo, md, hi), interleaved
+            float c[2][2][4];
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                mma_bf16_z(c[mt][h], alo[mt], bq[2 * h], bq[2 * h + 1]);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                mma_bf16(c[mt][h], amd[mt], bq[2 * h], bq[2 * h + 1]);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                mma_bf16(c[mt][h], ahi[mt], bq[2 * h], bq[2 * h + 1]);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                  total[mt][2 * np + h][e] += c[mt][h][e];
+          }
+        }
+      }
+      // the stage is free for the producers (they wait only for the
+      // stages they refill)
+      if (sl + kIStages < nsl) bar_arrive(i8_empty(buf), kThreads);
+    }
+
+    // the pass's sums into the conv tile: accumulator e of (mt, nt) is
+    // channel wm*32 + mt*16 + 2g + (e >= 2), column nt*8 + 2 tq + (e & 1)
+    // of the warp's
+    if (!POOL) bar_sync(kIPoolBar, kConsumers);  // the ring is read no more
+    float* T = POOL ? tile + pass * BN : sums;
+    const int ts = POOL ? a.cs : SB;
+    if (busy) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int cl = wn * WTN + nt * 8 + 2 * tq;
+        if (cl >= cvalid) continue;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(
+                T + (wm * 32 + mt * 16 + 2 * g + h) * ts + cl) =
+                make_float2(total[mt][nt][2 * h], total[mt][nt][2 * h + 1]);
+      }
+    }
+  }
+  bar_sync(kIPoolBar, kConsumers);
+  epilogue<POOL>(a, t, co0, min(BM, a.Co - co0), sums, tile, colofs,
+                 kIPoolBar);
+}
+
+template <int BM, bool POOL>
+cudaError_t launch_i8f32(const K1Args<int8_t, float>& a, int blocks,
+                         int smem, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_chwn_i8f32_kernel<BM, POOL>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(blocks, (a.Co + BM - 1) / BM);
+  conv_chwn_i8f32_kernel<BM, POOL><<<grid, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename TX, typename TW>
 int forward(const void* x, const void* w, const void* bias, const void* res,
             void* y, void* z, int N, int Ci, int H, int W, int Co, int F,
@@ -995,9 +1422,12 @@ int forward(const void* x, const void* w, const void* bias, const void* res,
   a.rs = repro::layout_strides(res_nchw, N, Co, a.Ho, a.Wo);
   a.zs = repro::layout_strides(false, N, Co, a.Ho, a.Wo);
   // the narrow builds copy 8 elements at a time: 16 bytes of bf16 (8 of
-  // int8 x, loaded into registers)
+  // int8 x, loaded into registers); so does the int8->fp32 build
   constexpr bool kNarrow = std::is_same<TW, bf16>::value;
-  a.vec_x = reinterpret_cast<uintptr_t>(x) % (kNarrow ? 8 * sizeof(TX) : 16) ==
+  constexpr bool kI8F32 =
+      std::is_same<TX, int8_t>::value && std::is_same<TW, float>::value;
+  a.vec_x = reinterpret_cast<uintptr_t>(x) %
+                (kNarrow || kI8F32 ? 8 * sizeof(TX) : 16) ==
             0;
   a.vec_w = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
             Co % (kNarrow ? 8 : 4) == 0;
@@ -1006,7 +1436,9 @@ int forward(const void* x, const void* w, const void* bias, const void* res,
   a.cols = static_cast<int>(cols);
   const bool pool = pool_F > 0;
   long long blocks;
-  int smem = kNarrow ? narrow_ring_bytes(bm) : 4 * ring_floats(bm);
+  int smem = kNarrow   ? narrow_ring_bytes(bm)
+             : kI8F32 ? i8f32_ring_bytes(bm)
+                      : 4 * ring_floats(bm);
   if (pool) {
     a.UH = (a.Ho - pool_F) / pool_S + 1;
     a.UW = (a.Wo - pool_F) / pool_S + 1;
@@ -1041,6 +1473,13 @@ int forward(const void* x, const void* w, const void* bias, const void* res,
     else
       e = pool ? launch_narrow<128, true>(a, nblk, smem, st)
                : launch_narrow<128, false>(a, nblk, smem, st);
+  } else if constexpr (kI8F32) {
+    if (bm == 64)
+      e = pool ? launch_i8f32<64, true>(a, nblk, smem, st)
+               : launch_i8f32<64, false>(a, nblk, smem, st);
+    else
+      e = pool ? launch_i8f32<128, true>(a, nblk, smem, st)
+               : launch_i8f32<128, false>(a, nblk, smem, st);
   } else if (bm == 64) {
     e = pool ? launch<64, true>(a, nblk, smem, st)
              : launch<64, false>(a, nblk, smem, st);

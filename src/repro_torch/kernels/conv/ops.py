@@ -71,6 +71,9 @@ _K1_NBK = 64              # reduction slice of the narrow (bf16 w) builds
 _K1_STAGES = 3            # cp.async ring depth
 _K1_PAD = 8               # shared row stride = width + 8 floats
 _K1_BMS = (64, 128)       # output channels of a block
+_K1_I8_BK = 32            # reduction slice of the int8->fp32 build
+_K1_I8_STAGES = 4         # its ring depth
+_K1_I8_PAD = 4            # its w row stride: bm + 4 floats
 # what a slice of a 64-row tile costs beside a 128-row one's (half the
 # work, but the same fragment loads feed half the mma): modeled, and set so
 # that AlexNet's 3/2 layers take the 64-row rectangles that
@@ -183,6 +186,18 @@ def k1_narrow_smem(bm: int, cmax: int) -> int:
     [k][128], then the float32 conv tile and the column table as the float32
     kernel's.  Never more than ``_k1_smem``, which ``conv_tiling`` fits."""
     ring = _K1_STAGES * _K1_NBK * (bm + _K1_BN) * 2
+    cs = -(-cmax // 32) * 32 + 8 if cmax else 0
+    return ring + 4 * (bm * cs + 3 * _K1_BN)
+
+
+def k1_i8f32_smem(bm: int, cmax: int) -> int:
+    """One block's shared memory in K1's int8->fp32 build
+    (``conv_chwn_i8f32_kernel`` of csrc/conv_chwn.cu): a ring of
+    ``_K1_I8_STAGES`` stages, each a 32-deep slice of float32 w [k][bm + 4]
+    and bf16 P [k][128], then the float32 conv tile and the column table as
+    the float32 kernel's.  Never more than ``_k1_smem``, which
+    ``conv_tiling`` fits."""
+    ring = _K1_I8_STAGES * _K1_I8_BK * ((bm + _K1_I8_PAD) * 4 + _K1_BN * 2)
     cs = -(-cmax // 32) * 32 + 8 if cmax else 0
     return ring + 4 * (bm * cs + 3 * _K1_BN)
 

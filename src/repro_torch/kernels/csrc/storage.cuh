@@ -22,7 +22,9 @@
 // 16-byte conditions stand as they are.  Where w is bf16, K1, K2 and K5a
 // keep bf16 rings instead (16-byte cp.async of 8 elements; bf16_bits and
 // bf16x8 for what arrives through registers) and multiply on the bf16
-// tensor cores, as the bf16 builds of K5b and K6 do; their notes say how.
+// tensor cores, as the bf16 builds of K5b and K6 do; so does K1 on int8
+// x with float32 w, its w cut into three bf16 parts (split3); their notes
+// say how.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""Time the bf16 pools K3a and K3b and their backwards K7a and K7b on
-their main-path launches, through the tree in the current directory, on
-one CUDA card.
+"""Time the bf16 pools K3a and K3b and their backwards K7a and K7b, the
+bf16 transposes K9a and K9b, and K1 on the calibration's case (int8 x
+with float32 w, and float32), on their main-path launches, through the
+tree in the current directory, on one CUDA card.
 
-    cd TREE && python3 /path/to/tools/pool_device.py
+    cd TREE && python3 /path/to/tools/pool_device.py [pools] [transposes] [k1]
+
+(no group named: all three).
 
 TREE is a checkout (or a ``git archive`` of one under ``build/``): its
 ``src`` and its ``chip_smoke.py`` are the ones imported, so the same
@@ -18,9 +21,15 @@ ResNet-18 b32's (K7b bf16, 5 each), of the float32 K7b row's VGG16 b32
 launches (3 each), is timed back to back (``cuda_ms``) and by graph
 replay (``device_ms``), each beside the library call on the same data in
 NCHW (``max_pool2d`` / ``avg_pool2d``, their aten backwards times the ReLU
-mask); the totals weigh each launch by its count.  Needs a CUDA device
-and nvcc.
+mask); the totals weigh each launch by its count.  The transposes: the
+ResNet-18 b32 bf16 training step's K9a launches (``[32, X] -> [X, 32]``,
+5 each in a run of the smoke) and K9b's one case (off every path)
+against ``permute(...).contiguous()``.  K1: the Fig. 4 base layer
+(``chip_smoke.CAL_CASE``, CHWN) on int8 x with float32 w and on float32
+x, against cuDNN's float32 conv (TF32 off).  Needs a CUDA device and
+nvcc.
 """
+import math
 import sys
 from pathlib import Path
 
@@ -34,7 +43,10 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.core.layout import perm_between  # noqa: E402
 from repro_torch.kernels.pool.backward import (  # noqa: E402
     pool_backward_chwn, pool_backward_nchw)
+from repro_torch.kernels.conv.ops import conv_direct_chwn  # noqa: E402
 from repro_torch.kernels.pool.ops import pool_chwn, pool_nchw  # noqa: E402
+from repro_torch.kernels.transpose.ops import (  # noqa: E402
+    transpose2d, transpose2d_batched)
 
 # (label, wrapper, layout): [(((N, C, H, W), F, S, op), launches)]
 POOLS = [
@@ -77,11 +89,20 @@ BACKWARDS = [
       ((128, 256, 27, 3, 2, "max", "CHWN", True), 3),
       ((128, 256, 13, 3, 2, "max", "NCHW", True), 3)])]
 
+# (label, wrapper): [(shape, launches)], bf16
+TRANSPOSES = [
+    (("K9a bf16", transpose2d), [((32, 100352), 5), ((32, 50176), 5)]),
+    (("K9b bf16", transpose2d_batched), [(cs.K9B_CASE, 1)])]
+GROUPS = ("pools", "transposes", "k1")
+
 
 def main() -> int:
+    groups = [a for a in sys.argv[1:] if a in GROUPS] or list(GROUPS)
     if not torch.cuda.is_available():
         print("pool_device: no CUDA device", file=sys.stderr)
         return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     print(Path.cwd().name, cs.card_line(), flush=True)
     tot = {}
@@ -101,7 +122,8 @@ def main() -> int:
         add(label, n, r)
 
     with torch.inference_mode():
-        for (label, wrapper, layout), cases in POOLS:
+        for (label, wrapper, layout), cases in (
+                POOLS if "pools" in groups else []):
             for (shape, F, S, op), n in cases:
                 xn = torch.randn(*shape, device=dev).to(torch.bfloat16)
                 x = xn.permute(perm_between("NCHW", layout)).contiguous()
@@ -109,7 +131,8 @@ def main() -> int:
                 show(label, (shape, F, S, op), n, timed(
                     lambda: wrapper(x, F, S, op),
                     lambda: pool_fn(xn, F, S)))
-        for (label, wrapper, layout, dtype), cases in BACKWARDS:
+        for (label, wrapper, layout, dtype), cases in (
+                BACKWARDS if "pools" in groups else []):
             for case, n in cases:
                 N, C, H, F, S, op, g_lay, relu = case
                 Ho = (H - F) // S + 1
@@ -121,6 +144,25 @@ def main() -> int:
                     lambda: wrapper(z, g, F, S, op, g_layout=g_lay,
                                     relu_mask=relu),
                     cs._pool_bwd_library(zn, gn, F, S, op, relu)))
+        for (label, wrapper), cases in (
+                TRANSPOSES if "transposes" in groups else []):
+            for shape, n in cases:
+                x = torch.randn(*shape, device=dev).to(torch.bfloat16)
+                perm = (1, 0) if len(shape) == 2 else (0, 2, 1)
+                show(label, shape, n, timed(
+                    lambda: wrapper(x),
+                    lambda: x.permute(perm).contiguous()))
+        if "k1" in groups:
+            N, Ci, H, Co, F, S, pad = cs.CAL_CASE["CHWN"][:7]
+            q = torch.randint(-127, 128, (Ci, H, H, N), device=dev,
+                              dtype=torch.int8)
+            w = torch.randn(Co, Ci, F, F, device=dev) / math.sqrt(Ci * F * F)
+            wk = w.permute(1, 2, 3, 0).contiguous()
+            for label, x in (("K1 int8->fp32", q), ("K1 fp32", q.float())):
+                xn = x.permute(3, 0, 1, 2).float()
+                show(label, cs.CAL_CASE["CHWN"], 1, timed(
+                    lambda: conv_direct_chwn(x, wk, S, pad),
+                    lambda: nnf.conv2d(xn, w, stride=S, padding=pad)))
     print("total: " + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()))
     return 0
 

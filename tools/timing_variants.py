@@ -9,8 +9,9 @@ every ``.cu`` there is built into the kernels' library) it writes, for a
 warp-specialised conv kernel,
 
 - ``<stem>_nocopy.cu``: each ring stage's copies removed (the producer's
-  ``stage`` lambda returns at once), so the consumers multiply whatever
-  the ring holds and only they and the barriers take time;
+  ``stage`` lambda returns at once, after its wait for the stage where it
+  has one), so the consumers multiply whatever the ring holds and only
+  they and the barriers take time;
 - ``<stem>_nomma.cu``: each ``mma.sync`` (``mma_bf16``, ``mma_bf16_z``,
   ``mma_tf32``) replaced by an empty ``asm volatile`` that still reads its
   operand registers, so the fragments are loaded but never multiplied;
@@ -70,7 +71,8 @@ __device__ __forceinline__ void nomma(float (&d)[4], const unsigned (&a)[4],
 }  // namespace
 """
 _MMA = re.compile(r"\bmma_(?:bf16_z|bf16|tf32)\(")
-_STAGE = "auto stage = [&](int sl) {"
+_STAGE = re.compile(r"auto stage = \[&\]\(int sl\) \{")
+_WAIT = re.compile(r"\n\s*(if \(sl >= \w+\) bar_sync\([^;]*\);)")
 # the bf16 pool backward's accesses, as stand-ins that touch no memory (or
 # write none); they go in after the kernel's own helpers
 FAKE = """
@@ -134,15 +136,30 @@ def pool_variants(text: str) -> dict:
     return out
 
 
+def _nocopy(text: str) -> str:
+    """Each stage lambda returning at once; where the lambda itself waits
+    for its stage to be free (``if (sl >= ...) bar_sync(...);``: the
+    narrow and int8->fp32 K1 kernels), it still waits first, so the
+    consumers' EMPTY arrivals keep meeting the producers'."""
+    out, pos = [], 0
+    for m in _STAGE.finditer(text):
+        body = text[m.end():].partition("\n    };")[0]
+        wait = _WAIT.search(body)
+        out += [text[pos:m.end()], "\n      " + wait.group(1) if wait else "",
+                "\n      return;"]
+        pos = m.end()
+    return "".join(out) + text[pos:]
+
+
 def variants(src: Path) -> dict:
     text = src.read_text()
     if _HELPERS_END in text:
         return pool_variants(text)
-    if (_STAGE not in text or not _MMA.search(text)
+    if (not _STAGE.search(text) or not _MMA.search(text)
             or "namespace {\n" not in text):
         raise SystemExit(f"{src}: no producer stage lambda, mma call or "
                          "anonymous namespace")
-    nocopy = text.replace(_STAGE, _STAGE + "\n      return;")
+    nocopy = _nocopy(text)
 
     def nomma(t: str) -> str:
         # the no-ops go in before the kernel's own namespace, after the
