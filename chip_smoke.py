@@ -55,8 +55,15 @@
        AlexNet traffic, and 40 ResNet-18 requests at max_bucket 32.
    Every answer is held against the torch engine on the card (max abs
    1e-5), and each kernel's launch count must equal what the plans call
-   for.  Afterwards each batch's whole forward is timed warm (CUDA events)
-   through the kernels and through the torch engine.
+   for.  Every server of the serving, dtype and planner phases is guarded
+   (a degradation ladder, no fault injected) and must end with no
+   incident, nothing quarantined and every bucket served on its ladder's
+   top rung.  Afterwards each batch's whole forward is timed warm (CUDA
+   events) through the kernels and through the torch engine, and the
+   guarded step's host time a batch around a stub forward (one image, the
+   forward's output kept from a real step, nothing launched) beside its
+   data path and its plan lookup alone, in turns: the step less both
+   bounds the guard's own cost a batch (``guard host cost`` lines).
 3b. Dtype phase, the main path at narrow storage dtypes: VGG16 b32 bf16
    stack "auto" (K1 + K5a + K4) and "off", AlexNet b128 and ResNet-18 b32
    bf16 with ``dtype_policy="mixed"`` (int8 boundaries into K1), unet_mini
@@ -107,6 +114,21 @@
    "off" beside the warm forward ms of each plan on the kernels (both held
    against the torch engine), and whether the model orders them as the card
    does. The kernel phase holds every distinct launch of the served plans.
+4b. Resilience phase, the guarded server under faults: the reference's
+   ``tools/resilience_smoke.py`` scenario on the card (lenet, mixed,
+   max_bucket 8: a warm server persists its plan cache and threshold
+   table, both files are corrupted, a server with
+   ``kernel=0.1,nan@mixed=1.0`` at seed 0 must count two corrupt_state
+   incidents, rename both aside, measure its rows again on K1 and K2 and
+   serve 48 seeded requests in bursty chunks), then the same injection on
+   AlexNet at 227 px (128 requests, max_bucket 128).  Each scenario: all
+   answers finite, each bit-equal to ``forward_fused(impl="cuda")`` of
+   the serving rung's plan on the same padded batch and within 1e-5 of
+   the torch engine; ``kernel_fault`` and ``nonfinite`` equal to the
+   injector's own counts; every bucket served on the ``cuda`` rung; the
+   launches (counts zeroed before the run) equal to the plans of the
+   rungs whose forward ran.  These launches are checked within the phase
+   and not added to the kernels line.
 5. Stacked against unstacked: for VGG16 and ResNet-18 at bucket 32, the
    warm whole forward at stack "auto", at "off" and through the torch
    engine, and the peak device memory of one forward at "auto" and "off"
@@ -200,6 +222,14 @@
    path", "K9b bf16 on its case (off every path)"); and a "pool host_us"
    line gives the host microseconds of each step of a K3a bf16 launch
    (unet_mini's first pool) beside the wrapper's and the library call's.
+7c. Runner phase, outside inference mode: ``FaultTolerantRunner`` over
+   ``make_train_step_fused`` on ResNet-18 b32 fp32 (the training phase's
+   plan), 6 steps, ``save_every=2``, an asynchronous ``Checkpointer``:
+   uninterrupted; a ``StepFailure`` at step 3 (restored from step 2);
+   step 4's manifest corrupted before a failure at step 5 (restored from
+   step 2 after step 4 fails).  Both restarted runs must end with
+   parameters and velocity bit-equal to the uninterrupted run; one bf16
+   checkpoint of the ResNet-18 b32 bf16 step round trips bit for bit.
 8. Conv-layer phase, the paper's Fig. 3 / Table 1 comparison and the
    path of the tiled matmul K10: the 12 Table-1 layers
    (``configs/paper_table1.py``) at their published N, HW, F, Ci, Co and
@@ -267,7 +297,8 @@ from repro_torch import kernels as K  # noqa: E402
 from repro_torch.cnn.layers import conv_forward  # noqa: E402
 from repro_torch.cnn.layers import layer_shapes, resolved_cfg_inputs  # noqa: E402
 from repro_torch.cnn.layers import init_cnn, params_from_numpy  # noqa: E402
-from repro_torch.cnn.network import (forward, forward_fused,  # noqa: E402
+from repro_torch.cnn.network import (batch_output_ok,  # noqa: E402
+                                     forward, forward_fused,
                                      init_velocity, input_shape,
                                      loss_fn_fused, make_train_step_fused,
                                      plan_network, plan_network_fused,
@@ -314,13 +345,20 @@ from repro_torch.kernels.transpose.ops import (transpose2d,  # noqa: E402
                                                transpose2d_batched)
 from repro_torch.kernels.transpose.ref import (  # noqa: E402
     transpose2d_batched_ref, transpose2d_ref)
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.launch.cnn_serve import CNNServer, ImageRequest  # noqa: E402
 from repro_torch.perfmodel import (AnalyticCostModel,  # noqa: E402
                                    calibrate, card_conv_measure,
                                    hardware_id, reference_hardware,
                                    select_conv_layout_cost)
-from repro_torch.perfmodel.calibration import C_SWEEP, N_SWEEP  # noqa: E402
+from repro_torch.perfmodel.calibration import (C_SWEEP,  # noqa: E402
+                                               N_SWEEP, Thresholds,
+                                               save_thresholds)
 from repro_torch.quant import INT8_FORWARD_ATOL  # noqa: E402
+from repro_torch.runtime.fault_tolerance import (  # noqa: E402
+    FaultTolerantRunner, StepFailure)
+from repro_torch.runtime.resilience import (FaultInjector,  # noqa: E402
+                                            parse_inject_spec)
 from repro_torch.serve.plan_cache import (PlanCache,  # noqa: E402
                                           bucket_for, packaged_plans,
                                           pad_to_bucket)
@@ -367,6 +405,13 @@ MODEL_VS_CARD = [("vgg16", 32), ("alexnet", 128)]
 # packaged stack="auto" plan
 TRAINED = [("vgg16", 32), ("alexnet", 128), ("resnet18", 32)]
 TRAIN_STEPS = 3
+# the resilience phase's fault injection (the reference's smoke's), and
+# the fault-tolerant runner's steps (ResNet-18 b32 fp32)
+INJECT_SPEC = "kernel=0.1,nan@mixed=1.0"
+# its full-width scenario: (network, max_bucket, requests), at 227 px
+RESILIENT = ("alexnet", 128, 128)
+RUNNER = ("resnet18", 32)
+RUNNER_STEPS = 6
 # the one K9b case, off the main path: NCHW -> NHWC of VGG16 conv1_1's
 # output [32, 64, 224, 224], collapsed to [N, C, H*W]
 K9B_CASE = (32, 64, 224 * 224)
@@ -2202,8 +2247,10 @@ def kernel_phase(dev):
 
 def serving_phase(dev, th):
     """Serve the main path through CNNServer (thresholds ``th``, the
-    card's); returns launches per kernel over the whole main path."""
+    card's); returns (launches per kernel over the whole main path, a row
+    a server: its warm forwards and the guard's host cost)."""
     total = {k: 0 for k in K.WRAPPERS}
+    rows = []
     for network, cap, n_req, stack in SERVED:
         srv = CNNServer(network, reduced=False, max_bucket=cap, seed=0,
                         stack=stack, thresholds=th)
@@ -2253,9 +2300,11 @@ def serving_phase(dev, th):
         if counts != want_counts:
             raise AssertionError(f"{network} stack={stack}: launches "
                                  f"{counts} != the plans' {want_counts}")
+        assert_clean(srv, f"serve {network} stack={stack}")
         print(f"serve {network} stack={stack}: {n_req} requests in "
               f"{wall:.3f}s, launches {counts} (= the plans'), max |probs - "
-              f"torch engine| = {worst:.3g}")
+              f"torch engine| = {worst:.3g}, {srv.incidents.summary()}, "
+              f"every bucket on {srv.ladder[0].name}")
         for line in srv.report_lines():
             print(line)
         for bucket, ms_k, ms_t in warm:
@@ -2264,11 +2313,24 @@ def serving_phase(dev, th):
                   f"{ms_k:.3f} ms ({1e3 * bucket / ms_k:.1f} img/s), torch "
                   f"engine (cuDNN, TF32 off) {ms_t:.3f} ms "
                   f"({1e3 * bucket / ms_t:.1f} img/s)")
+        # not counted: the guarded step around a stub forward
+        guard_ms, data_ms, plan_ms = guard_host_ms(srv, images[0])
+        print(f"guard host cost {network} stack={stack}: guarded step of "
+              f"one image around a stub forward {guard_ms:.4f} ms, its data "
+              f"path alone {data_ms:.4f} ms, its plan lookup alone "
+              f"{plan_ms:.4f} ms (host clock, medians of {GUARD_ROUNDS} in "
+              f"turns), the rest {guard_ms - data_ms - plan_ms:+.4f} ms a "
+              f"batch", flush=True)
+        rows.append({"network": network, "stack": stack,
+                     "guard_host_ms": guard_ms, "data_path_ms": data_ms,
+                     "plan_lookup_ms": plan_ms,
+                     "warm": [{"bucket": b, "ms": k, "torch_ms": t}
+                              for b, k, t in warm]})
         for k, v in counts.items():
             total[k] += v
         del srv
         torch.cuda.empty_cache()
-    return total
+    return total, rows
 
 
 def stack_compare(dev, th):
@@ -2323,6 +2385,381 @@ def stack_compare(dev, th):
         out.append(row)
         del srv, params, ys, x
         torch.cuda.empty_cache()
+    return out
+
+
+def assert_clean(srv, label: str) -> None:
+    """A server of a clean phase (no injector) had no incident, quarantined
+    nothing and served every bucket on its ladder's top rung: a kernel that
+    failed over silently fails the smoke.  Stragglers follow the host
+    clock, not the kernels: they are printed (in the incident summary),
+    not gated."""
+    top = srv.ladder[0].name
+    off = {b: rep.rung for b, rep in srv.reports.items() if rep.rung != top}
+    faults = srv.incidents.total - srv.incidents.counts.get("straggler", 0)
+    if faults or srv._quarantine or off:
+        raise AssertionError(
+            f"{label}: the clean server {srv.incidents.summary()}, "
+            f"quarantined {sorted(srv._quarantine)}, buckets off {top}: "
+            f"{off}")
+
+
+GUARD_ROUNDS = 51
+
+
+def guard_host_ms(srv, image, rounds: int = GUARD_ROUNDS) -> tuple:
+    """Host ms of one guarded ``step`` of a one-image batch around a stub
+    forward that returns the output of a real step and launches nothing,
+    and, in turns with it (the order reversed every other round), of two
+    parts of it that the unguarded step made too: its data path on the
+    same image and output (the image's copy to the card, the finite check
+    and its synchronization, the output's copy back) and the top rung's
+    plan lookup (a cache hit).  The medians of ``rounds``.  The step holds
+    every per-batch cost of the guard, so the step less both parts (the
+    ladder walk, the report, the watchdog and the host finite check)
+    bounds the guard's own cost a batch from above."""
+    forward, kept = srv.model.forward, []
+
+    def record(x, plan, impl="cuda"):
+        kept.append(forward(x, plan, impl))
+        return kept[-1]
+
+    def step():
+        srv.submit(ImageRequest(0, image))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.step()
+        return time.perf_counter() - t0
+
+    def data_path():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.from_numpy(np.stack([image])).to(srv.device)
+        y = kept[0][0]
+        bool(batch_output_ok(y))
+        y.float().cpu().numpy()
+        return time.perf_counter() - t0
+
+    def plan_lookup():
+        top = srv.ladder[0]
+        t0 = time.perf_counter()
+        srv.cache.fused_plan(srv.cfg, 1, dtype=srv.dtype, policy=top.policy,
+                             stack=top.stack)
+        return time.perf_counter() - t0
+
+    srv.model.forward = record
+    try:
+        srv.submit(ImageRequest(0, image))
+        srv.step()
+        srv.model.forward = lambda x, plan, impl="cuda": kept[0]
+        fns = (step, data_path, plan_lookup)
+        times = {fn: [] for fn in fns}
+        for i in range(rounds):
+            for fn in fns[::1 - 2 * (i % 2)]:
+                times[fn].append(1e3 * fn())
+    finally:
+        srv.model.forward = forward
+    return tuple(float(np.median(times[fn])) for fn in fns)
+
+
+def launches_by_variant() -> dict:
+    """The launch counts that are not 0, a storage variant's under
+    "<kernel>.<variant>" and a float32 launch under the kernel's name."""
+    var = _variant_only(K.variant_launch_counts())
+    out = dict(var)
+    for k, n in K.launch_counts().items():
+        f32 = n - sum(v for kv, v in var.items() if kv.split(".")[0] == k)
+        if f32:
+            out[k] = f32
+    return out
+
+
+def injected_scenario(label: str, srv, dev, n_req: int, seed: int) -> dict:
+    """Serve ``n_req`` seeded requests through ``srv`` (a guarded server
+    built with ``INJECT_SPEC`` at seed 0, dtype policy "mixed") in the
+    reference's bursty chunks (``run(rng=)``), one step a chunk, then
+    drained; a fully failed step is retried.  Holds: every answer finite,
+    served and bit-equal to ``forward_fused(impl="cuda")`` of the serving
+    rung's plan on the same padded batch and within ``PROBS_ATOL`` of the
+    torch engine; ``kernel_fault`` and ``nonfinite`` equal to the injector's own
+    counts; every bucket served on the last rung (``cuda``: uniform, no
+    stacks); the launches, counted from zero over the whole run, equal to
+    the plans of the rungs whose forward ran (an injected kernel fault
+    fires before any launch; a poisoned batch has launched)."""
+    ran = []                           # the plan of every forward that ran
+    forward = srv.model.forward
+
+    def recorded(x, plan, impl="cuda"):
+        ran.append((x.shape[0], plan))
+        return forward(x, plan, impl)
+
+    srv.model.forward = recorded
+    rng = np.random.default_rng(seed)
+    c, h = srv.cfg.in_channels, srv.cfg.image_hw
+    images = [rng.standard_normal((c, h, h), np.float32)
+              for _ in range(n_req)]
+    params, served = srv.model.params(), []
+
+    def on_batch(batch):
+        bucket, plan = ran[-1]         # the forward that served the batch
+        served.append(([r.rid for r in batch], bucket, plan,
+                       srv.reports[bucket].rung))
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = srv.run([ImageRequest(j, im) for j, im in enumerate(images)],
+                   rng=rng, on_batch=on_batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches_by_variant()
+    srv.model.forward = forward
+    want = Counter(k for bucket, plan in ran
+                   for k, _ in fused_launches(srv.cfg.replace(batch=bucket),
+                                              plan))
+    if counts != dict(want):
+        raise AssertionError(f"{label}: launches {counts} != the plans of "
+                             f"the {len(ran)} forwards that ran {dict(want)}")
+    if sorted(done) != list(range(n_req)):
+        raise AssertionError(f"{label}: served {len(done)} of {n_req}")
+    last = srv.ladder[-1].name
+    worst = 0.0
+    for rids, bucket, plan, rung in served:
+        if rung != last:
+            raise AssertionError(f"{label}: a bucket-{bucket} batch served "
+                                 f"on {rung}, not {last}")
+        x = pad_to_bucket(torch.from_numpy(np.stack(
+            [images[r] for r in rids])).to(dev), bucket)
+        got = np.stack([done[r] for r in rids])
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite answers")
+        ys = {impl: forward_fused(params, x, srv.cfg, plan, impl=impl)[0]
+              [:len(rids)].float().cpu().numpy()
+              for impl in ("cuda", "torch")}
+        if not np.array_equal(got, ys["cuda"]):
+            raise AssertionError(
+                f"{label} bucket {bucket}: answers not bit-equal to the "
+                f"{rung} plan on the kernels (max diff "
+                f"{float(np.abs(got - ys['cuda']).max()):.3g})")
+        worst = max(worst, float(np.abs(got - ys["torch"]).max()))
+    if worst > PROBS_ATOL:
+        raise AssertionError(f"{label}: answers {worst:.3g} from the torch "
+                             f"engine > {PROBS_ATOL}")
+    inc, fired = srv.incidents.counts, srv.injector.counts
+    if (inc.get("kernel_fault", 0), inc.get("nonfinite", 0)) != (
+            fired.get("kernel", 0), fired.get("nan@mixed", 0)):
+        raise AssertionError(f"{label}: incidents {inc} != the injector's "
+                             f"faults {fired}")
+    row = {"label": label, "requests": n_req, "served": len(done),
+           "wall_s": wall, "batches": len(served), "forwards": len(ran),
+           "buckets": sorted({b for _, b, _, _ in served}),
+           "rungs": [r.name for r in srv.ladder],
+           "incidents": dict(inc), "summary": srv.incidents.summary(),
+           "injected": dict(fired), "launches": counts,
+           "max_abs_err": worst}
+    print(f"resilience {label}: {len(done)}/{n_req} served in {wall:.3f}s "
+          f"({len(served)} batches, {len(ran)} forwards ran), ladder "
+          f"{row['rungs']}, every bucket {row['buckets']} on {last}; "
+          f"{row['summary']}; injected {row['injected']}; launches "
+          f"{counts} (= the plans of the forwards that ran); bit-equal to "
+          f"the {last} plan on the kernels, max |probs - torch engine| = "
+          f"{worst:.3g}", flush=True)
+    for line in srv.report_lines():
+        print(line)
+    return row
+
+
+def resilience_phase(dev, th_fp32, th_int8) -> list:
+    """The reference's resilience scenario (``tools/resilience_smoke.py``)
+    on the card, then at full width.  lenet, mixed, max_bucket 8: a warm
+    server persists a plan cache and the measured threshold table (its
+    float32 and int8 rows those the calibration and dtype phases measured,
+    written beforehand) in a temporary directory; both files are
+    corrupted (garbage, truncate); a second server with ``INJECT_SPEC`` at
+    seed 0 must count two ``corrupt_state`` incidents, rename both files
+    aside, measure both rows again on the card and serve 48 seeded
+    requests (``injected_scenario``).  Then AlexNet at 227 px, mixed,
+    max_bucket 128, under the same injection: 128 requests."""
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        cache_path = os.path.join(tmp, "lenet.plans.json")
+        calib_path = os.path.join(tmp, "thresholds.json")
+        hw = hardware_id(dev)
+        save_thresholds(th_fp32, calib_path, dtype="float32", hardware=hw)
+        save_thresholds(th_int8, calib_path, dtype="int8", hardware=hw)
+        kw = dict(max_bucket=8, cache_path=cache_path, calib_path=calib_path,
+                  dtype_policy="mixed", calibration="measured", seed=0,
+                  device=dev)
+        K.reset_launch_counts()
+        warm = CNNServer("lenet", **kw)
+        if any(K.launch_counts().values()):
+            raise AssertionError("resilience: the warm server measured rows "
+                                 "its threshold file holds")
+        rng = np.random.default_rng(8)
+        done = warm.run([ImageRequest(i, rng.standard_normal(
+            (1, 28, 28), np.float32)) for i in range(16)])
+        assert_clean(warm, "resilience warm lenet")
+        if len(done) != 16 or not (os.path.exists(cache_path)
+                                   and os.path.exists(calib_path)):
+            raise AssertionError("resilience: the warm run did not serve "
+                                 "and persist its state")
+        FaultInjector.corrupt_json(cache_path, "garbage")
+        FaultInjector.corrupt_json(calib_path, "truncate")
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        srv = CNNServer("lenet", **kw,
+                        injector=parse_inject_spec(INJECT_SPEC, seed=0))
+        setup_s = time.perf_counter() - t0
+        remeasured = _variant_only(launches_by_variant())
+        if srv.incidents.counts != {"corrupt_state": 2} or not (
+                os.path.exists(cache_path + ".corrupt")
+                and os.path.exists(calib_path + ".corrupt")):
+            raise AssertionError(f"resilience: corrupt state not recovered: "
+                                 f"{srv.incidents.counts}")
+        if not (remeasured.get("conv_chwn") and remeasured.get("conv_nchw")
+                and remeasured.get("conv_chwn.i8f32")
+                and remeasured.get("conv_nchw.i8f32")):
+            raise AssertionError(f"resilience: the rows were not measured "
+                                 f"again on the card: {remeasured}")
+        print(f"resilience lenet restart: both files renamed aside, "
+              f"{srv.incidents.summary()}, rows measured again on the card "
+              f"in {setup_s:.1f}s (launches {remeasured}), thresholds "
+              + " ".join(f"{r}: {srv.cache.thresholds_for(r, hw)}"
+                         for r in srv.rows), flush=True)
+        row = injected_scenario("lenet max_bucket=8 mixed", srv, dev, 48, 1)
+        row.update(setup_s=setup_s, remeasured=remeasured)
+        rows.append(row)
+        del srv, warm
+        network, cap, n_req = RESILIENT
+        srv = CNNServer(network, reduced=False, max_bucket=cap, seed=0,
+                        dtype_policy="mixed", calibration="measured",
+                        calib_path=calib_path, device=dev,
+                        injector=parse_inject_spec(INJECT_SPEC, seed=0))
+        rows.append(injected_scenario(
+            f"{network} {srv.cfg.image_hw}px max_bucket={cap} mixed", srv,
+            dev, n_req, 2))
+        del srv
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _state_equal(a, b) -> bool:
+    return all(torch.equal(a[part][l][k], v)
+               for part in ("params", "vel")
+               for l, p in b[part].items() for k, v in p.items())
+
+
+def runner_phase(dev) -> dict:
+    """``FaultTolerantRunner`` over ``make_train_step_fused`` on the
+    kernels: ResNet-18 b32 fp32 at full width on the training phase's plan
+    (the packaged stack "auto" one), 6 steps (a seeded batch each),
+    ``save_every=2``, an asynchronous ``Checkpointer`` in a temporary
+    directory.  Three runs from the seed-0 weights: uninterrupted; a
+    ``StepFailure`` once at step 3 (restored from step 2); step 4's
+    manifest corrupted before a failure at step 5 (restore falls back to
+    step 2).  Both restarted runs must end with parameters and velocity
+    bit-equal to the uninterrupted run.  Then one bf16 checkpoint of the
+    ResNet-18 b32 bf16 step (the bf16 training phase's plan) round trips
+    bit for bit.  Runs outside inference mode."""
+    network, batch = RUNNER
+    cfg = CNN_CONFIGS[network].replace(batch=batch)
+    plan = (PlanCache(str(packaged_plans(network))).peek_fused(
+        cfg, batch, stack="auto") or planned(network, batch)[1])
+    step_k = make_train_step_fused(cfg, plan)
+    rng = np.random.default_rng(6)
+    xs = [torch.from_numpy(rng.standard_normal(input_shape(cfg),
+                                               np.float32)).to(dev)
+          for _ in range(RUNNER_STEPS)]
+    ys = [torch.from_numpy(rng.integers(0, cfg.num_classes, batch)).to(dev)
+          for _ in range(RUNNER_STEPS)]
+
+    def start():
+        params = params_from_numpy(init_cnn(cfg, 0), dev)
+        return {"params": params, "vel": init_velocity(params)}
+
+    out = {"network": network, "batch": batch, "runs": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        final = None
+        for label, fail_at, corrupt in (("uninterrupted", None, None),
+                                        ("failure at step 3", 3, None),
+                                        ("step 4's manifest corrupted, "
+                                         "failure at step 5", 5, 4)):
+            ck = Checkpointer(os.path.join(tmp, f"run{len(out['runs'])}"))
+            restores, failed, losses = [], [], []
+            restore = ck.restore
+
+            def recorded(*a, **kw):
+                restores.append(kw["step"])
+                return restore(*a, **kw)
+
+            ck.restore = recorded
+
+            def step_fn(state, step):
+                if step == fail_at and not failed:
+                    failed.append(step)
+                    if corrupt is not None:
+                        ck.wait()
+                        (ck.dir / f"step_{corrupt:010d}" /
+                         "manifest.json").write_text("not json")
+                    raise StepFailure(f"injected at step {step}")
+                p, v, loss = step_k(state["params"], state["vel"], xs[step],
+                                    ys[step])
+                losses.append(loss.item())
+                return {"params": p, "vel": v}, {}
+
+            runner = FaultTolerantRunner(ck, save_every=2, max_restarts=2)
+            t0 = time.perf_counter()
+            step, state = runner.run(start(), step_fn, RUNNER_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if step != RUNNER_STEPS or not all(map(math.isfinite, losses)):
+                raise AssertionError(f"runner {label}: ended at step {step}, "
+                                     f"losses {losses}")
+            want_restores = {None: [], 3: [2], 5: [4, 2]}[fail_at]
+            if restores != want_restores:
+                raise AssertionError(f"runner {label}: restored {restores}, "
+                                     f"not {want_restores}")
+            if final is None:
+                final = state
+            elif not _state_equal(state, final):
+                diff = max(float((state[part][l][k] - v).abs().max())
+                           for part in ("params", "vel")
+                           for l, p in final[part].items()
+                           for k, v in p.items())
+                raise AssertionError(f"runner {label}: parameters and "
+                                     f"velocity not bit-equal to the "
+                                     f"uninterrupted run (max diff "
+                                     f"{diff:.3g})")
+            run = {"label": label, "restores": restores, "losses": losses,
+                   "wall_s": wall, "checkpoints": ck.steps()}
+            out["runs"].append(run)
+            print(f"runner {network} b{batch} fp32 {label}: {RUNNER_STEPS} "
+                  f"steps in {wall:.3f}s, {len(losses)} steps run, "
+                  f"restored from {restores or 'nothing'}, checkpoints "
+                  f"{run['checkpoints']}; parameters and velocity "
+                  + ("the reference run" if fail_at is None else
+                     "bit-equal to the uninterrupted run"), flush=True)
+            del state
+        del final
+        cfg16, plan16 = bf16_train_plan(network, batch, "reference")
+        params = params_from_numpy(init_cnn(cfg16, 0), dev, "bfloat16")
+        p, v, _ = make_train_step_fused(cfg16, plan16)(
+            params, init_velocity(params), xs[0].to(torch.bfloat16), ys[0])
+        ck = Checkpointer(os.path.join(tmp, "bf16"))
+        ck.save(1, {"params": p, "vel": v})
+        ck.wait()
+        _, back = ck.restore({"params": p, "vel": v})
+        if not _state_equal(back, {"params": p, "vel": v}) or any(
+                t.dtype != torch.bfloat16 or t.device != p[l][k].device
+                for l, q in back["params"].items() for k, t in q.items()):
+            raise AssertionError("runner: the bf16 checkpoint did not round "
+                                 "trip bit for bit")
+        nbytes = sum(t.numel() * 2 for part in (p, v) for q in part.values()
+                     for t in q.values())
+        print(f"runner {network} b{batch} bf16: one step's parameters and "
+              f"velocity ({nbytes / 2**20:.1f} MiB) round trip a checkpoint "
+              f"bit for bit", flush=True)
+        out["bf16_checkpoint_bytes"] = nbytes
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2436,6 +2873,8 @@ def dtype_phase(dev):
             got = np.stack([done[i] for i in range(bucket)])
             if not np.isfinite(got).all():
                 raise AssertionError(f"{network}: non-finite answers")
+            assert_clean(srv, f"dtype serve {network} bf16 {policy} "
+                              f"stack={stack}")
 
             # not counted from here: the references and the timings
             x32 = torch.from_numpy(np.stack(images)).to(dev)
@@ -2482,7 +2921,9 @@ def dtype_phase(dev):
                 f"{v['K2_launches']} launches)" for r, v in rows_th.items())
             print(f"dtype serve {network} bucket={bucket} bf16 "
                   f"policy={policy} stack={stack}: {bucket} requests in "
-                  f"{wall:.3f}s (server made in {setup_s:.1f}s), "
+                  f"{wall:.3f}s (server made in {setup_s:.1f}s, "
+                  f"{srv.incidents.summary()}, every bucket on "
+                  f"{srv.ladder[0].name}), "
                   f"conv_dtypes={plan.dtype_signature} layouts="
                   f"{plan.conv_signature} stacks={plan.stacked_convs}, "
                   f"launches {var} (= the plan's), calibration launches "
@@ -2664,6 +3105,7 @@ def planner_phase(dev, th):
         if counts != want_counts:
             raise AssertionError(f"{network}: launches {counts} != the "
                                  f"plans' {want_counts}")
+        assert_clean(srv, f"planner serve {network}")
         if srv.cache.planner_calls != len(set(buckets)):
             raise AssertionError(
                 f"{network}: {srv.cache.planner_calls} planner calls for "
@@ -3594,7 +4036,7 @@ def main() -> int:
         th, calib = calibration_sweep(dev)
         print(f"calibration: {time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
-        launches = serving_phase(dev, th)
+        launches, serving = serving_phase(dev, th)
         print(f"serving phase: {time.perf_counter() - t0:.1f}s", flush=True)
         t0 = time.perf_counter()
         dtype_counts, calib_counts, dtyped = dtype_phase(dev)
@@ -3611,6 +4053,13 @@ def main() -> int:
         for k, v in planner_counts.items():
             launches[k] += v
         print(f"planner phase: {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
+        int8 = next(r["rows"]["int8"] for r in dtyped
+                    if "int8" in r["rows"])
+        resilience = resilience_phase(dev, th, Thresholds(Ct=int8["Ct"],
+                                                          Nt=int8["Nt"]))
+        print(f"resilience phase: {time.perf_counter() - t0:.1f}s",
+              flush=True)
         t0 = time.perf_counter()
         compared = stack_compare(dev, th)
         print(f"stack comparison: {time.perf_counter() - t0:.1f}s",
@@ -3653,6 +4102,9 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + v
     print(f"bf16 training phase: {time.perf_counter() - t0:.1f}s",
           flush=True)
+    t0 = time.perf_counter()
+    runner = runner_phase(dev)
+    print(f"runner phase: {time.perf_counter() - t0:.1f}s", flush=True)
     line = kernels_line(cases, launches)
     if args.json:
         out = Path(args.json)
@@ -3668,6 +4120,9 @@ def main() -> int:
                                    "training": trained,
                                    "bf16_training": bf16_trained,
                                    "dtype": dtyped,
+                                   "serving": serving,
+                                   "resilience": resilience,
+                                   "runner": runner,
                                    "k3a_bf16_fp32_shapes": k3a_fp32_shapes,
                                    "k3b_bf16_fp32_shapes": k3b_fp32_shapes,
                                    "pool_host_us": pool_host,

@@ -652,6 +652,7 @@ class FusedCNN(nn.Module):
         """The parameters as the executor's {layer: {"w", "b"}} tree."""
         return {name: dict(pd.items()) for name, pd in self.layers.items()}
 
-    def forward(self, x_nchw: torch.Tensor,
-                plan: FusedPlan) -> Tuple[torch.Tensor, RunStats]:
-        return forward_fused(self.params(), x_nchw, self.cfg, plan)
+    def forward(self, x_nchw: torch.Tensor, plan: FusedPlan,
+                impl: str = "cuda") -> Tuple[torch.Tensor, RunStats]:
+        return forward_fused(self.params(), x_nchw, self.cfg, plan,
+                             impl=impl)

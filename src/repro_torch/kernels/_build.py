@@ -126,6 +126,16 @@ class KernelBuildError(RuntimeError):
     """``nvcc`` is missing or refused a source."""
 
 
+class KernelLaunchError(RuntimeError):
+    """A kernel's C entry returned a CUDA error: the launch was refused or
+    failed, and no result was written."""
+
+
+# faults of the card's kernels themselves: no fallback or restart steps
+# over them (the guarded server and the fault-tolerant runner re-raise)
+KERNEL_ERRORS = (KernelBuildError, KernelLaunchError)
+
+
 def _csrc(suffix: str) -> List[Path]:
     return sorted(p for p in _KERNELS_DIR.rglob(f"*{suffix}")
                   if p.parent.name == "csrc")
@@ -257,7 +267,8 @@ def check(name: str, err: int) -> None:
     if err != 0:
         lib = _libs.get("") or next(iter(_libs.values()))
         what = lib.cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA launch failed: {what} ({err})")
+        raise KernelLaunchError(f"{name}: CUDA launch failed: {what} "
+                                f"({err})")
 
 
 def on_cpu(name: str, x) -> bool:

@@ -11,7 +11,11 @@ al. 2019).
    Thresholds persist as rows keyed by (hardware id, storage dtype), in
    the reference's file format: ``hardware_id`` is the CUDA device's name
    (or "cpu"); legacy files (flat {Ct, Nt} or per-dtype ``rows``) load as
-   the unversioned ``default`` row, which lookups fall back to.
+   the unversioned ``default`` row, which lookups fall back to.  A
+   corrupt threshold file (torn or garbage JSON, a checksum mismatch, a
+   table that does not parse) is renamed aside as ``*.corrupt``
+   (``on_corrupt`` is told) and read as an empty table, so its rows are
+   measured again, as the reference does.
 
 2. **Cross-validation.**  ``cross_validate`` times the kernels on the
    sweep, fits the ``CalibratedCostModel`` overlay (``t = a * s^b`` per
@@ -20,6 +24,7 @@ al. 2019).
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 import os
 from dataclasses import dataclass
@@ -31,7 +36,13 @@ from repro_torch.configs.paper_table1 import ConvLayer, PoolLayer
 from repro_torch.dtypes import DEFAULT_DTYPE, canon_dtype, dtype_bytes
 from repro_torch.perfmodel.hardware import Hardware, hardware_id
 from repro_torch.perfmodel.traffic import DEFAULT_DTYPE_BYTES, conv_cost
-from repro_torch.runtime.resilience import atomic_json_dump, load_json
+from repro_torch.runtime.resilience import (atomic_json_dump,
+                                            load_json_guarded,
+                                            quarantine_file)
+
+log = logging.getLogger("repro_torch.calibration")
+
+OnCorrupt = Optional[Callable[[str, Exception], None]]
 
 # Row key for threshold files that predate hardware versioning (and for
 # callers that do not say where their measurements came from).
@@ -127,15 +138,25 @@ def _parse_table(obj: Dict) -> Dict[str, Dict[str, Dict]]:
     return {}
 
 
-def _load_table(path: str) -> Dict[str, Dict[str, Dict]]:
+def _load_table(path: str, on_corrupt: OnCorrupt = None
+                ) -> Dict[str, Dict[str, Dict]]:
     """All persisted rows keyed (hardware id, canonical dtype), from the
     v3 hardware-versioned format, the v2 per-dtype format or the legacy
     flat file (both pre-v3 shapes become the ``DEFAULT_HARDWARE`` row).  A
-    missing file is an empty table; a corrupt one raises
-    ``CorruptStateError``."""
-    if not os.path.exists(path):
+    missing file is an empty table; so is a corrupt one, after it is
+    renamed aside and ``on_corrupt(dst, error)`` told."""
+    obj = load_json_guarded(path, on_corrupt=on_corrupt)
+    if obj is None:
         return {}
-    return _parse_table(load_json(path))
+    try:
+        return _parse_table(obj)
+    except (KeyError, TypeError, AttributeError, ValueError) as e:
+        dst = quarantine_file(path)
+        log.warning("malformed threshold table %s (%s): renamed aside to "
+                    "%s; recalibrating", path, e, dst)
+        if on_corrupt is not None:
+            on_corrupt(dst, e)
+        return {}
 
 
 def save_thresholds(th: Thresholds, path: str, *,
@@ -146,7 +167,7 @@ def save_thresholds(th: Thresholds, path: str, *,
     (``hardware=None``: the unversioned default row), crash-safely."""
     dtype = canon_dtype(dtype)
     hw = hardware or DEFAULT_HARDWARE
-    table = _load_table(path)
+    table = _load_table(path) if os.path.exists(path) else {}
     table.setdefault(hw, {})[dtype] = {**dataclasses.asdict(th),
                                        "source": source}
     atomic_json_dump({"version": 3,
@@ -156,11 +177,13 @@ def save_thresholds(th: Thresholds, path: str, *,
 
 
 def load_thresholds(path: str, dtype: str = DEFAULT_DTYPE,
-                    hardware: Optional[str] = None) -> Thresholds:
+                    hardware: Optional[str] = None,
+                    on_corrupt: OnCorrupt = None) -> Thresholds:
     """The persisted row for (``hardware``, ``dtype``), falling back to the
     unversioned default row; KeyError when neither exists (the caller
-    calibrates).  ``hardware=None`` means this machine (``hardware_id``)."""
-    table = _load_table(path)
+    calibrates), also for a corrupt file, renamed aside (``on_corrupt``).
+    ``hardware=None`` means this machine (``hardware_id``)."""
+    table = _load_table(path, on_corrupt=on_corrupt)
     dtype = canon_dtype(dtype)
     cands = [hardware or hardware_id(), DEFAULT_HARDWARE]
     for hw in cands:
@@ -258,17 +281,20 @@ def proxied_layer(l: ConvLayer, *, proxy_hw: int = 8,
 def measured_thresholds(path: Optional[str] = None, *,
                         dtype: str = DEFAULT_DTYPE, force: bool = False,
                         measure: Optional[Callable[[ConvLayer, str], float]]
-                        = None, hardware: Optional[str] = None
-                        ) -> Thresholds:
+                        = None, hardware: Optional[str] = None,
+                        on_corrupt: OnCorrupt = None) -> Thresholds:
     """Serving-default thresholds for one storage dtype: the persisted
     measurement for this hardware + ``dtype`` when ``path`` has it (unless
     ``force``), else ``calibrate`` with ``measure`` (default: the card
-    measure) merged into ``path`` under this machine's hardware id."""
+    measure) merged into ``path`` under this machine's hardware id.  A
+    corrupt file is renamed aside (``on_corrupt`` told) and the row
+    measured again."""
     dtype = canon_dtype(dtype)
     hw = hardware or hardware_id()
     if path and os.path.exists(path) and not force:
         try:
-            return load_thresholds(path, dtype, hardware=hw)
+            return load_thresholds(path, dtype, hardware=hw,
+                                   on_corrupt=on_corrupt)
         except KeyError:
             pass                        # file exists but lacks this row
     th = calibrate(measure or card_conv_measure(dtype=dtype),

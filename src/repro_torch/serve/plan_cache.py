@@ -20,11 +20,18 @@ id, dtype) that ``heuristic_layouts`` plans under, and the bounds.  A file
 either package saves loads in the other.  The plan files packaged with
 the port (``packaged_plans``: VGG16, AlexNet and ResNet-18 at full width,
 both stack policies) were written by the reference planner.
+
+A corrupt cache file (torn or garbage JSON, an unknown version, a
+checksum mismatch, an entry that does not deserialize) is renamed aside
+as ``*.corrupt``, recorded in ``corrupt_recoveries``, and the cache
+starts empty, as the reference's does.  A packaged plan file is part of
+the repo and is never renamed: a corrupt one raises ``CorruptStateError``.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import logging
 import os
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -39,7 +46,11 @@ from repro_torch.core.selector import Assignment, FusedOp, FusedPlan
 from repro_torch.dtypes import DEFAULT_DTYPE, canon_dtype
 from repro_torch.perfmodel import CostModel, DEFAULT_HARDWARE, Thresholds
 from repro_torch.runtime.resilience import (CorruptStateError,
-                                            atomic_json_dump, load_json)
+                                            atomic_json_dump, load_json,
+                                            load_json_guarded,
+                                            quarantine_file)
+
+log = logging.getLogger("repro_torch.plan_cache")
 
 PLANS_DIR = Path(__file__).resolve().parents[1] / "plans"
 
@@ -47,6 +58,12 @@ PLANS_DIR = Path(__file__).resolve().parents[1] / "plans"
 def packaged_plans(network: str) -> Path:
     """The plan file packaged for ``network`` (it may not exist)."""
     return PLANS_DIR / f"{network}.plans.json"
+
+
+def is_packaged(path: str) -> bool:
+    """True for a file in the packaged plans' directory (part of the repo:
+    never renamed, never written by a server)."""
+    return Path(path).resolve().parent == PLANS_DIR.resolve()
 
 
 def bucket_for(batch: int, *, min_bucket: int = 1,
@@ -194,6 +211,7 @@ class PlanCache:
         # in recency order (least-recently-hit first)
         self._fused: "OrderedDict[PlanKey, FusedPlan]" = OrderedDict()
         self._unfused: "OrderedDict[PlanKey, Assignment]" = OrderedDict()
+        self.corrupt_recoveries: List[str] = []   # files renamed aside
         if path and os.path.exists(path):
             self.load(path)
 
@@ -366,19 +384,44 @@ class PlanCache:
         return path
 
     def load(self, path: str) -> None:
-        """Load a plan-cache file.  Malformed JSON, an unknown version, a
-        checksum mismatch or an entry that does not deserialize raises
-        ``CorruptStateError``."""
-        obj = load_json(path)
-        if obj.get("version") not in (1, 2):
-            raise CorruptStateError(
-                f"unknown plan-cache version {obj.get('version')!r} in "
-                f"{path!r}")
+        """Load a plan-cache file, or recover from its corruption.  Torn or
+        garbage JSON, an unknown version, a checksum mismatch or an entry
+        that does not deserialize renames the file aside as ``*.corrupt``
+        (recorded in ``corrupt_recoveries``) and leaves the cache empty: a
+        server constructs and replans.  A packaged plan file raises
+        ``CorruptStateError`` instead and stays where it is."""
+        packaged = is_packaged(path)
+
+        def _validate(o: Dict) -> None:
+            if o.get("version") not in (1, 2):
+                raise CorruptStateError(
+                    f"unknown plan-cache version {o.get('version')!r} in "
+                    f"{path!r}")
+
+        if packaged:
+            obj = load_json(path)
+            _validate(obj)
+        else:
+            obj = load_json_guarded(
+                path, validate=_validate,
+                on_corrupt=lambda dst, e: self.corrupt_recoveries.append(
+                    dst))
+            if obj is None:
+                return
         try:
             self._load_obj(obj)
-        except (KeyError, TypeError, ValueError) as e:
-            raise CorruptStateError(
-                f"{path}: malformed plan entry ({e})") from e
+        except (KeyError, TypeError, ValueError, AttributeError) as e:
+            if packaged:
+                raise CorruptStateError(
+                    f"{path}: malformed plan entry ({e})") from e
+            # valid JSON whose entries do not deserialize (a legacy,
+            # checksum-free file): _load_obj changed nothing before it
+            # raised, so renaming the file aside is all there is to do
+            dst = quarantine_file(path)
+            log.warning("malformed plan-cache payload %s (%s): renamed "
+                        "aside to %s; rebuilding", path, e, dst)
+            self.corrupt_recoveries.append(dst)
+            return
         self.path = path
 
     def _load_obj(self, obj: Dict) -> None:

@@ -209,13 +209,19 @@ def test_paper_table1_reprs_match_reference():
             == [l.overlapped for l in ref_table1.POOL_LAYERS])
 
 
-def test_corrupt_plan_file_raises(tmp_path):
-    path = tmp_path / "vgg16.plans.json"
+def test_corrupt_plan_file_raises(tmp_path, monkeypatch):
+    """A packaged plan file is part of the repo: a corrupt one raises and
+    stays where it is (a server's own cache file is renamed aside instead,
+    tests/test_torch_resilience.py)."""
     obj = json.loads(packaged_plans("vgg16").read_text())
+    monkeypatch.setattr(port_plan_cache, "PLANS_DIR", tmp_path)
+    path = packaged_plans("vgg16")
+    assert path.parent == tmp_path
     obj["fused"][0]["plan"]["total_s"] += 1.0     # stale checksum
     path.write_text(json.dumps(obj))
     with pytest.raises(port_plan_cache.CorruptStateError, match="checksum"):
         port_plan_cache.PlanCache(str(path))
+    assert path.exists() and not list(tmp_path.glob("*.corrupt*"))
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ from repro.serve.plan_cache import PlanCache as RefPlanCache
 
 from repro_torch.cnn.layers import init_cnn
 from repro_torch.launch.cnn_serve import CNNServer, ImageRequest
+from repro_torch.runtime.resilience import ServingFault
 from tests.test_torch_planner_plans import REF_CM
 
 PROB_ATOL = 1e-5
@@ -82,7 +83,8 @@ def test_server_answers_like_reference(network, n_requests, tmp_path):
     with pytest.raises(ValueError, match="calibration"):
         CNNServer(network, cache_path=path, device="cpu",
                   calibration="guess")
-    assert all("hit_rate=1.00" in ln for ln in lines[1:])
+    assert all("hit_rate=1.00" in ln for ln in lines[1:-1])
+    assert lines[-1].strip() == "incidents=0 quarantined_variants=0"
     # fp32 means fp32 on the card too: the server turns TF32 off
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
@@ -113,18 +115,26 @@ def test_server_plans_a_missing_bucket_and_keeps_requests(tmp_path,
     # the planned bucket was saved beside the reference's own
     assert dataclasses.asdict(RefPlanCache(path).peek_fused(ref.cfg,
                                                             2)) == plan
-    # a failing forward puts the admitted batch back, in order
+    # a forward that fails on every rung of the guarded server's ladder
+    # (both run the kernels): ServingFault, the admitted batch back in
+    # order, and one planner call for the rung variant not yet planned
+    # (bucket 2 at stack "off")
     for i in range(2):
         srv.submit(ImageRequest(10 + i, images[i]))
 
     def boom(*args, **kwargs):
         raise RuntimeError("kernel failed")
 
+    assert [r.name for r in srv.ladder] == ["cuda+stacks", "cuda"]
     monkeypatch.setattr(srv.model, "forward", boom)
-    with pytest.raises(RuntimeError, match="kernel failed"):
+    with pytest.raises(ServingFault, match="kernel failed") as err:
         srv.step()
+    assert "cuda+stacks: RuntimeError" in str(err.value)
+    assert "cuda: RuntimeError" in str(err.value)
     assert [r.rid for r in srv.queue] == [10, 11]
-    assert srv.cache.planner_calls == 1
+    assert srv.cache.planner_calls == 2
+    assert srv.incidents.counts == {"kernel_fault": 2, "quarantine": 2,
+                                    "requeue": 1}
     with pytest.raises(ValueError, match="image shape"):
         srv.submit(ImageRequest(9, np.zeros((3, 28, 28), np.float32)))
 

@@ -3,7 +3,8 @@
 call on one card.
 
     python3 tools/smoke_compare.py --before P1.json P2.json \\
-        --after C1.json C2.json
+        --after C1.json C2.json [--before-logs P1.log P2.log \\
+        --after-logs C1.log C2.log]
 
 Run the trees in turns (before, after, after, before) so that a drift of
 the card or its shared host falls on both.  Each tree's runs are averaged.
@@ -11,12 +12,15 @@ Printed: every kernel of the kernels line (ms, the back-to-back reading
 summed over the main path; library_ms; ms over library_ms) with each
 run's ms and the change of the mean in percent; K4's main-path launches
 one by one; the fused forwards (``stack_compare``), the unfused forwards
-and the training steps, each with its change.
+and the training steps, each with its change; with the runs' printed
+output (``--before-logs``, ``--after-logs``), also the serving phase's
+warm forwards (its ``warm forward`` lines).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
 from statistics import mean
 
 
@@ -34,6 +38,17 @@ def _row(label: str, before, after) -> None:
           f"after {b:.5f} {[round(v, 5) for v in after]} {_pct(a, b)}")
 
 
+WARM = re.compile(r"^warm forward (\S+) bucket=(\d+) stack=(\S+): kernels "
+                  r"([\d.]+) ms")
+
+
+def _warm_forwards(path: str) -> dict:
+    """{(network, bucket, stack): kernels ms} from a run's printed lines."""
+    with open(path) as f:
+        return {m.group(1, 2, 3): float(m.group(4))
+                for m in map(WARM.match, f) if m}
+
+
 def _kernels(runs) -> dict:
     return {k["name"]: k for k in runs["kernels"]}
 
@@ -42,6 +57,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--before", nargs="+", required=True)
     ap.add_argument("--after", nargs="+", required=True)
+    ap.add_argument("--before-logs", nargs="*", default=[])
+    ap.add_argument("--after-logs", nargs="*", default=[])
     args = ap.parse_args()
     before, after = _load(args.before), _load(args.after)
     for tree, runs in (("before", before), ("after", after)):
@@ -90,6 +107,12 @@ def main() -> int:
         _row(f"{row['network']} b{row['batch']}",
              [r["training"][i]["cuda_ms"] for r in before],
              [r["training"][i]["cuda_ms"] for r in after])
+    if args.before_logs and args.after_logs:
+        print("-- serving phase, warm forwards on the kernels (ms)")
+        wb = [_warm_forwards(p) for p in args.before_logs]
+        wa = [_warm_forwards(p) for p in args.after_logs]
+        for key in wb[0]:
+            _row(" ".join(key), [w[key] for w in wb], [w[key] for w in wa])
     return 0
 
 
