@@ -97,7 +97,15 @@
    of its design, three bf16 products a term); K5a bf16 also counts the
    FLOPs its blocks execute and the cluster they ran in, which must equal
    ``stack_tiling``'s, and prints how many of its clusters the card holds
-   (``stack_max_clusters`` of the bf16 build).
+   (``stack_max_clusters`` of the bf16 build).  The four int8 builds of
+   the stacks (K5a and K5b, int8->fp32 and int8->bf16), which no plan
+   launches, run one case each (``STACK_INT8_OFF_PATH``: VGG16 b32's
+   conv1 pair on K5a, a ResNet-18 layer1 block on K5b), x quantized per
+   channel with its scale folded into w1: int8->fp32 within 1e-5
+   scale-relative of float64 and the conv tolerance of the plain version,
+   int8->bf16 within one bf16 step; counted FLOPs (and K5a's cluster)
+   equal to ``stack_tiling``'s, three runs bitwise equal; library cuDNN's
+   two convs on the dequantized x in w's dtype.
 4. Planner phase, the main path's planned part: the paper's Fig. 4 on the
    card (K1 and K2 timed by the card measure with CUDA events over its
    whole grid: Ci 1-512 at N 64, then N 16-512 at Ci 256; Co 384, 13 x 13,
@@ -133,6 +141,12 @@
    warm whole forward at stack "auto", at "off" and through the torch
    engine, and the peak device memory of one forward at "auto" and "off"
    (``torch.cuda.max_memory_allocated`` after ``reset_peak_memory_stats``).
+5b. Mesh phase (``mesh_phase``): ``CNNServer(devices=1)`` bit-equal to
+   the default server and to its plan's forward; then AlexNet b128 and
+   ResNet-18 b32 served over a mesh of two shards on the one card (every
+   card where there are more), answers bit-equal to the per-shard
+   forwards, launches twice a shard's, ``per_chip_MB`` and img/s printed
+   beside the unsharded warm forwards.
 6. Unfused phase, the paper's own experiment (Fig. 14/15) and the main
    path's third part: AlexNet (227 px, batch 128) and VGG16 (224 px,
    batch 32) at full width, seed-0 weights, each in the modes
@@ -222,7 +236,15 @@
    path", "K9b bf16 on its case (off every path)"); and a "pool host_us"
    line gives the host microseconds of each step of a K3a bf16 launch
    (unet_mini's first pool) beside the wrapper's and the library call's.
-7c. Runner phase, outside inference mode: ``FaultTolerantRunner`` over
+7c. Unfused and mixed training (``unfused_training_phase``,
+   ``mixed_training_phase``): ``make_train_step(impl="cuda")`` on AlexNet
+   b128 ("cudnn") and VGG16 b32 (the packaged layouts) in fp32 and bf16,
+   held as the fused steps are, launches equal to
+   ``unfused_train_counts``; ``make_train_step_fused`` over AlexNet b128's
+   mixed plan (``fake_quant`` at its int8 boundaries), the gates of
+   ``MIXED_TRAINED``.  These phases, like the mesh's and the resilience
+   phase's, check their own launches and add none to the kernels line.
+7d. Runner phase, outside inference mode: ``FaultTolerantRunner`` over
    ``make_train_step_fused`` on ResNet-18 b32 fp32 (the training phase's
    plan), 6 steps, ``save_every=2``, an asynchronous ``Checkpointer``:
    uninterrupted; a ``StepFailure`` at step 3 (restored from step 2);
@@ -275,6 +297,7 @@ case, and the compiler's register/spill report, to OUT.
 from __future__ import annotations
 
 import argparse
+import functools
 import io
 import json
 import math
@@ -299,12 +322,16 @@ from repro_torch.cnn.layers import layer_shapes, resolved_cfg_inputs  # noqa: E4
 from repro_torch.cnn.layers import init_cnn, params_from_numpy  # noqa: E402
 from repro_torch.cnn.network import (batch_output_ok,  # noqa: E402
                                      forward, forward_fused,
-                                     init_velocity, input_shape,
-                                     loss_fn_fused, make_train_step_fused,
+                                     init_velocity, input_shape, loss_fn,
+                                     loss_fn_fused, make_train_step,
+                                     make_train_step_fused,
                                      plan_network, plan_network_fused,
                                      value_and_grad)
 from repro_torch.configs import TRAIN_4K, get_config  # noqa: E402
 from repro_torch.configs.cnn_networks import CNN_CONFIGS  # noqa: E402
+from repro_torch.distributed.cnn_mesh import (  # noqa: E402
+    forward_fused_sharded, replicate_params, verify_shard_plan)
+from repro_torch.dtypes import torch_dtype  # noqa: E402
 from repro_torch.configs.paper_table1 import (CONV_LAYERS,  # noqa: E402
                                               SOFTMAX_LAYERS, ConvLayer)
 from repro_torch.core.layout import perm_between, plan_transform  # noqa: E402
@@ -354,7 +381,9 @@ from repro_torch.perfmodel import (AnalyticCostModel,  # noqa: E402
 from repro_torch.perfmodel.calibration import (C_SWEEP,  # noqa: E402
                                                N_SWEEP, Thresholds,
                                                save_thresholds)
-from repro_torch.quant import INT8_FORWARD_ATOL  # noqa: E402
+from repro_torch.quant import (INT8_FORWARD_ATOL,  # noqa: E402
+                               dequantize, fold_scale_into_weights,
+                               quantize)
 from repro_torch.runtime.fault_tolerance import (  # noqa: E402
     FaultTolerantRunner, StepFailure)
 from repro_torch.runtime.resilience import (FaultInjector,  # noqa: E402
@@ -530,8 +559,8 @@ KERNELS = {
 # input
 for _base, _variants in (("conv_chwn", ("bf16", "i8bf16", "i8f32")),
                          ("conv_nchw", ("bf16", "i8f32", "i8bf16")),
-                         ("conv_stack_chwn", ("bf16",)),
-                         ("conv_stack_nchw", ("bf16",)),
+                         ("conv_stack_chwn", ("bf16", "i8f32", "i8bf16")),
+                         ("conv_stack_nchw", ("bf16", "i8f32", "i8bf16")),
                          ("softmax", ("bf16",)), ("softmax_xent", ("bf16",)),
                          ("pool_chwn", ("bf16",)),
                          ("pool_nchw", ("bf16",)), ("wgrad", ("bf16",)),
@@ -563,10 +592,48 @@ BF16_GRAD_FACTOR, BF16_GRAD_SLACK = 2.0, 2.0 ** -5
 BF16_OFF_PATH = {"pool_nchw.bf16": ((8, 32, 32, 32), 2, 2, "max"),
                  "transpose2d_batched.bf16": K9B_CASE,
                  "softmax_xent.bf16": K8_CASE}
+# int8 x into the stacks (K5a and K5b, int8->fp32 and int8->bf16): no plan
+# makes one (the executor folds no scale into a stack, as the reference's
+# does not), so each build is held on one case off every path: VGG16 b32's
+# conv1 pair with its pool on K5a, a ResNet-18 layer1 block (64 -> 64 ->
+# 64 at 56 x 56, its residual) on K5b; x quantized per channel, the scale
+# folded into w1
+VGG16_CONV1_PAIR = (32, 3, 224, 64, 64, 3, 1, 1, 3, 1, 1, (2, 2, "max"),
+                    True, True, None, "CHWN", "CHWN")
+RESNET18_BLOCK = (32, 64, 56, 64, 64, 3, 1, 1, 3, 1, 1, None, True, True,
+                  "NCHW", "NCHW", "NCHW")
+STACK_INT8_OFF_PATH = {
+    f"{kern}.{v}": case
+    for kern, case in (("conv_stack_chwn", VGG16_CONV1_PAIR),
+                       ("conv_stack_nchw", RESNET18_BLOCK))
+    for v in ("i8f32", "i8bf16")}
 # kernels held in the kernel phase that no path of this script launches,
 # with their one case
 OFF_PATH = {"transpose2d_batched": K9B_CASE, "softmax_xent": K8_CASE,
-            **DTYPE_OFF_PATH, **BF16_OFF_PATH}
+            **DTYPE_OFF_PATH, **BF16_OFF_PATH, **STACK_INT8_OFF_PATH}
+# the unfused training step (``make_train_step``, autodiff of the unfused
+# forward): (network, batch, layouts: a mode of ``plan_network``, or
+# "packaged", the reference's TPU-priced assignment, whose CHWN and NCHW
+# runs re-lay out on K9a both ways), each in float32 and bf16
+UNFUSED_TRAINED = [("alexnet", 128, "cudnn"), ("vgg16", 32, "packaged")]
+# the mixed-dtype training step: AlexNet b128's float32 "mixed" plan on
+# the H100 profile (int8 boundaries, fake_quant on the float carrier),
+# MIXED_TRAIN_STEPS steps.  Its gates are the reference's
+# tests/test_mixed_dtype.py ones: the loss falls over the steps, stays
+# finite and the parameters float32 (test_int8_train_step_differentiable),
+# and the mixed forward's probabilities within INT8_FORWARD_ATOL = 2e-2 of
+# the uniform float32 forward's (test_int8_fused_forward_matches_fp32);
+# and each loss within that tolerance of the torch engine's over the same
+# plan at the same parameters: a conv output within rounding of a
+# quantization boundary lands one int8 level apart in two float32
+# evaluations (K1's 3xTF32 order and cuDNN's), which moved the loss by up
+# to 9.4e-5 a step on the card, at the fp32 steps' LOSS_ATOL
+MIXED_TRAINED = ("alexnet", 128)
+MIXED_TRAIN_STEPS = 5
+# the serving mesh: a rehearsal of two shards on the one card (all the
+# cards where there are more), each network's global batch split in two
+# shard buckets
+MESHED = [("alexnet", 128), ("resnet18", 32)]
 STACK_KERNELS = {"conv_stack_chwn": ("CHWN", conv_stack_chwn),
                  "conv_stack_nchw": ("NCHW", conv_stack_nchw)}
 POOL_KERNELS = {"pool_chwn": ("CHWN", pool_chwn),
@@ -731,12 +798,20 @@ def launch_variant(plan, op) -> str:
 
 def unfused_launches(network: str, batch: int, mode: str):
     """(layouts, [(kernel, case)]) of the unfused ``forward`` of
-    ``network`` at ``batch`` in ``mode``, in layer order: what the layouts
-    call for, worked out from the config alone.  A re-layout (before a
-    conv or pool whose layout differs from its input's, never after
-    flatten) is one K9a launch on the collapsed 2-D matrix."""
+    ``network`` at ``batch`` in ``mode``, in layer order
+    (``layout_launches``)."""
     cfg = CNN_CONFIGS[network].replace(batch=batch)
     layouts = plan_network(cfg, mode)
+    return layouts, layout_launches(cfg, layouts)
+
+
+def layout_launches(cfg, layouts):
+    """[(kernel, case)] of the unfused ``forward`` of ``cfg`` in the
+    per-layer ``layouts``, in layer order: what the layouts call for,
+    worked out from the config alone.  A re-layout (before a conv or pool
+    whose layout differs from its input's, never after flatten) is one
+    K9a launch on the collapsed 2-D matrix."""
+    network, batch = cfg.name, cfg.batch
     shapes, rins = layer_shapes(cfg), resolved_cfg_inputs(cfg)
     held = {-1: "NCHW"}
     flat, out = False, []
@@ -766,7 +841,7 @@ def unfused_launches(network: str, batch: int, mode: str):
         elif spec.kind == "flatten":
             flat = True
         held[i] = cur
-    return layouts, out
+    return out
 
 
 def _engine_kernel(layout: str) -> str:
@@ -1235,8 +1310,20 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         engine, wrapper = STACK_KERNELS[base]
         Ho1 = conv_out_hw(H, F1, S1, P1)
         Ho2 = conv_out_hw(Ho1, F2, S2, P2)
-        x_nchw = rand(N, Ci, H, H)
-        w1 = rand(Cm, Ci, F1, F1, scale=1 / math.sqrt(Ci * F1 * F1))
+        if xdt is torch.int8:
+            # x quantized per channel, its scale folded into w1; the
+            # library runs on the dequantized x and the unfolded w1
+            q, scale = quantize(torch.randn(N, Ci, H, H, device=dev,
+                                            generator=gen), 1)
+            w1_lib = torch.randn(Cm, Ci, F1, F1, device=dev, generator=gen) \
+                / math.sqrt(Ci * F1 * F1)
+            w1 = fold_scale_into_weights(w1_lib, scale).to(wdt)
+            w1_lib = w1_lib.to(wdt)
+            x_nchw, x_lib = q, dequantize(q, scale, 1, wdt)
+        else:
+            x_nchw = x_lib = rand(N, Ci, H, H)
+            w1 = w1_lib = rand(Cm, Ci, F1, F1,
+                               scale=1 / math.sqrt(Ci * F1 * F1))
         w2 = rand(Co, Cm, F2, F2, scale=1 / math.sqrt(Cm * F2 * F2))
         r_nchw = rand(N, Co, Ho2, Ho2) if rlay else None
         x = x_nchw.permute(perm_between("NCHW", src)).contiguous()
@@ -1249,7 +1336,7 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                     if engine == "CHWN" else (w1, w2))
 
         def library():
-            y = nnf.conv2d(x_nchw, w1, stride=S1, padding=P1)
+            y = nnf.conv2d(x_lib, w1_lib, stride=S1, padding=P1)
             if relu1:
                 y = torch.relu_(y)
             return _library_epilogue(nnf.conv2d(y, w2, stride=S2,
@@ -1259,7 +1346,7 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         flops = 2.0 * N * (Cm * Ho1 * Ho1 * Ci * F1 * F1
                            + Co * Ho2 * Ho2 * Cm * F2 * F2)
         out_hw = Ho2 if pool is None else (Ho2 - pool[0]) // pool[1] + 1
-        y_bytes = N * Co * out_hw * out_hw * 2.0
+        y_bytes = N * Co * out_hw * out_hw * w1.element_size()
         m = _measure(lambda: wrapper(x, w1k, w2k, S1, P1, S2, P2, **kw),
                      lambda: conv_stack_ref(x, w1, w2, S1, P1, S2, P2,
                                             **kw),
@@ -1269,9 +1356,14 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
         t = stack_tiling(engine, N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2,
                          pool)
         m.update(executed_flops=float(t.executed_flops), cluster=t.cluster)
+        if check is None:   # int8->fp32: the plain version's tolerance
+            check = functools.partial(torch.testing.assert_close,
+                                      rtol=CONV_RTOL, atol=CONV_ATOL)
+        k64 = {**kw, "res": r.double() if rlay else None}
         if engine == "CHWN":
-            # K5a bf16 counts what its blocks execute and the cluster they
-            # ran in, as the float32 build does; its runs are bitwise equal
+            # K5a bf16 and int8 count what their blocks execute and the
+            # cluster they ran in, as the float32 build does; its runs are
+            # bitwise equal
             y, counted, cluster = conv_stack_chwn_counted(
                 x, w1k, w2k, S1, P1, S2, P2, **kw)
             check(y, conv_stack_ref(x, w1, w2, S1, P1, S2, P2, **kw))
@@ -1286,12 +1378,22 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                      bitwise_equal_runs=3,
                      resident_clusters=stack_max_clusters(
                          N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2, pool,
-                         t, dtype=wdt))
+                         t, dtype=xdt, w_dtype=wdt))
+            if variant == "i8f32":
+                # fp32 FMA over x widened exactly: K1 int8->fp32's gate
+                # against float64
+                _fp32_gate(m, [(y, conv_stack_ref(
+                    x, w1.double(), w2.double(), S1, P1, S2, P2, **k64))],
+                    f"{kern} {case}")
+                # its design is the float32 build's, fp32 FMA on the CUDA
+                # cores: no bound of its own beside the plain one
+                del m["design_bound_ms"]
         else:
-            # K5b bf16 counts the FLOPs its blocks execute as the float32
-            # build does; its runs are bitwise equal; its error against
-            # float64 of the same bf16 values is reported (the gate is one
-            # bf16 step of the plain version, above)
+            # K5b bf16 and int8 count the FLOPs their blocks execute as
+            # the float32 build does; its runs are bitwise equal; its error
+            # against float64 of the same values is reported (the gate is
+            # one bf16 step of the plain version, above; int8->fp32 is held
+            # within 1e-5 scale-relative of float64, as K1 int8->fp32)
             y, counted = conv_stack_nchw_counted(x, w1k, w2k, S1, P1, S2,
                                                  P2, **kw)
             check(y, conv_stack_ref(x, w1, w2, S1, P1, S2, P2, **kw))
@@ -1301,19 +1403,22 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                     f"stack_tiling says {t.executed_flops}")
             bitwise_runs(lambda: wrapper(x, w1k, w2k, S1, P1, S2, P2, **kw),
                          f"{kern} {case}", first=y)
-            k64 = {**kw, "res": r.double() if rlay else None}
             conv1 = 2.0 * N * Cm * Ho1 * Ho1 * Ci * F1 * F1
-            m.update(counted_flops=float(counted), bitwise_equal_runs=3,
-                     f64_err=_scaled_err(y, conv_stack_ref(
-                         x.double(), w1.double(), w2.double(), S1, P1, S2,
-                         P2, **k64)),
-                     # the design's own bound: one bf16 product a conv1
-                     # term, three a conv2 term (the float32 mid in three
-                     # bf16 parts)
-                     design_bound_ms=bound_ms(
-                         conv1 + 3 * (flops - conv1), m["bytes"],
-                         PEAK_BF16_FLOPS)[0],
-                     design="bf16_split3")
+            y64 = conv_stack_ref(x, w1.double(), w2.double(), S1, P1, S2,
+                                 P2, **k64)
+            m.update(counted_flops=float(counted), bitwise_equal_runs=3)
+            if variant == "i8f32":   # the float32 build: 3xTF32
+                _fp32_gate(m, [(y, y64)], f"{kern} {case}")
+                m["design"] = "3xtf32"
+            else:
+                m.update(f64_err=_scaled_err(y, y64),
+                         # the design's own bound: one bf16 product a conv1
+                         # term, three a conv2 term (the float32 mid in
+                         # three bf16 parts)
+                         design_bound_ms=bound_ms(
+                             conv1 + 3 * (flops - conv1), m["bytes"],
+                             PEAK_BF16_FLOPS)[0],
+                         design="bf16_split3")
         return m
     engine = "CHWN" if base == "conv_chwn" else "NCHW"
     if case[0] == "dgrad":
@@ -2172,6 +2277,8 @@ def kernel_phase(dev):
                           f"resident_clusters={m['resident_clusters']}")
             if "bitwise_equal_runs" in m:
                 extra += f" bitwise_equal_runs={m['bitwise_equal_runs']}"
+            if kern.startswith("conv_stack") and "f64_err" in m:
+                extra += f" f64_err={m['f64_err']:.3g}"
             if kern.startswith("conv_nchw."):
                 extra += (f" executed/direct="
                           f"{m['executed_flops'] / m['flops']:.3f} "
@@ -2465,7 +2572,7 @@ def guard_host_ms(srv, image, rounds: int = GUARD_ROUNDS) -> tuple:
 def launches_by_variant() -> dict:
     """The launch counts that are not 0, a storage variant's under
     "<kernel>.<variant>" and a float32 launch under the kernel's name."""
-    var = _variant_only(K.variant_launch_counts())
+    var = _nonzero(K.variant_launch_counts())
     out = dict(var)
     for k, n in K.launch_counts().items():
         f32 = n - sum(v for kv, v in var.items() if kv.split(".")[0] == k)
@@ -2609,7 +2716,7 @@ def resilience_phase(dev, th_fp32, th_int8) -> list:
         srv = CNNServer("lenet", **kw,
                         injector=parse_inject_spec(INJECT_SPEC, seed=0))
         setup_s = time.perf_counter() - t0
-        remeasured = _variant_only(launches_by_variant())
+        remeasured = _nonzero(launches_by_variant())
         if srv.incidents.counts != {"corrupt_state": 2} or not (
                 os.path.exists(cache_path + ".corrupt")
                 and os.path.exists(calib_path + ".corrupt")):
@@ -2779,9 +2886,9 @@ def dtype_plan(network: str, bucket: int, policy: str, stack: str):
                                    stack_policy=stack)
 
 
-def _variant_only(counts) -> dict:
-    """The variant launches of ``K.variant_launch_counts()``-style counts
-    that are not 0."""
+def _nonzero(counts) -> dict:
+    """The launches of ``K.launch_counts()``- or
+    ``K.variant_launch_counts()``-style counts that are not 0."""
     return {k: v for k, v in counts.items() if v}
 
 
@@ -2825,7 +2932,7 @@ def dtype_phase(dev):
                             cache_path=os.path.join(
                                 tmp, f"{network}-{policy}-{stack}.json"))
             setup_s = time.perf_counter() - t0
-            cal = _variant_only(K.variant_launch_counts())
+            cal = _nonzero(K.variant_launch_counts())
             calib.update(cal)
             rows_th = {}
             for row, var in (("bfloat16", "bf16"), ("int8", "i8f32")):
@@ -2854,7 +2961,7 @@ def dtype_phase(dev):
                             for i, im in enumerate(images)])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            base, var = K.launch_counts(), _variant_only(
+            base, var = K.launch_counts(), _nonzero(
                 K.variant_launch_counts())
             plan = srv.cache.peek_fused(srv.cfg, bucket, dtype="bf16",
                                         policy=policy, stack=stack)
@@ -2868,7 +2975,7 @@ def dtype_phase(dev):
             if var != want or any(f32.values()):
                 raise AssertionError(
                     f"{network} bf16 {policy}: launches {var} (float32 "
-                    f"{_variant_only(f32)}) != the plan's {want}")
+                    f"{_nonzero(f32)}) != the plan's {want}")
             serve.update(var)
             got = np.stack([done[i] for i in range(bucket)])
             if not np.isfinite(got).all():
@@ -3238,7 +3345,7 @@ def unfused_phase(dev):
     return total, rows
 
 
-def _step1_gradients(network, cfg, plan, params, x, labels) -> dict:
+def _step1_gradients(network, loss, params, x, labels) -> dict:
     """The step-1 gradient of every parameter on the kernels, on the torch
     engine, and on the torch engine in float64 (the oracle); not counted
     on the main path.  For each pair, the largest max-abs scale-relative
@@ -3250,13 +3357,14 @@ def _step1_gradients(network, cfg, plan, params, x, labels) -> dict:
     within rounding of zero lands on the other side of the mask in one of
     two fp32 evaluations, and that one element moves a few weight-gradient
     entries by |g|*|x| (the torch engine's own distance to float64 shows
-    the same outliers)."""
+    the same outliers).  ``loss(p, x, labels, impl)`` is the step's
+    loss."""
     p64 = {l: {k: v.double() for k, v in p.items()}
            for l, p in params.items()}
     runs = {"cuda": (params, x, "cuda"), "torch": (params, x, "torch"),
             "f64": (p64, x.double(), "torch")}
     g = {name: value_and_grad(
-        lambda p, a, b, impl=impl: loss_fn_fused(p, a, b, cfg, plan, impl),
+        lambda p, a, b, impl=impl: loss(p, a, b, impl),
         ps, xs, labels)[1] for name, (ps, xs, impl) in runs.items()}
     del p64
     out = {}
@@ -3279,6 +3387,17 @@ def _step1_gradients(network, cfg, plan, params, x, labels) -> dict:
                 f"(at most {GRAD_OUTLIERS}), largest {worst:.3g} (at most "
                 f"{GRAD_OUTLIER_TOL}), scale-relative")
     return out
+
+
+def _fused_loss(cfg, plan):
+    """The fused training step's loss, as ``loss(p, x, labels, impl)``."""
+    return lambda p, a, b, impl: loss_fn_fused(p, a, b, cfg, plan, impl)
+
+
+def _unfused_loss(cfg, layouts):
+    """The unfused training step's loss (``make_train_step``'s), as
+    ``loss(p, x, labels, impl)``."""
+    return lambda p, a, b, impl: loss_fn(p, a, b, cfg, layouts, impl)
 
 
 def _step_ms_and_peak(step, params, vel, x, labels) -> dict:
@@ -3330,7 +3449,8 @@ def training_phase(dev):
             input_shape(cfg), np.float32)).to(dev)
         labels = torch.from_numpy(rng.integers(
             0, cfg.num_classes, batch)).to(dev)
-        grad = _step1_gradients(network, cfg, plan, params, x, labels)
+        grad = _step1_gradients(network, _fused_loss(cfg, plan), params, x,
+                                labels)
         losses, same_point = {}, []
         for run in ("cuda", "torch", "f64"):
             impl = "torch" if run == "f64" else run
@@ -3415,7 +3535,7 @@ def bf16_train_plan(network: str, batch: int, profile: str):
     return cfg, plan_network_fused(cfg, dtype="bfloat16", cost_model=cm)
 
 
-def _bf16_step1_gradients(network, cfg, plan, params, x, labels) -> dict:
+def _bf16_step1_gradients(network, loss, params, x, labels) -> dict:
     """The step-1 gradient of every parameter on the kernels and on the
     torch engine, both in bf16, and on the torch engine in float64 from the
     same bf16 weights and input (the oracle); not counted on the main
@@ -3429,13 +3549,14 @@ def _bf16_step1_gradients(network, cfg, plan, params, x, labels) -> dict:
     on the other side of a ReLU, so whole window or channel shares land
     elsewhere, in the torch engine as in the kernels (on the CPU, reduced
     VGG16's conv4_3 lies 24 % from float64 in the torch engine); a kernel
-    fault moves a gradient further than that rounding does."""
+    fault moves a gradient further than that rounding does.  ``loss(p, x,
+    labels, impl)`` is the step's loss."""
     p64 = {l: {k: v.double() for k, v in p.items()}
            for l, p in params.items()}
     runs = {"cuda": (params, x, "cuda"), "torch": (params, x, "torch"),
             "f64": (p64, x.double(), "torch")}
     g = {name: value_and_grad(
-        lambda p, a, b, impl=impl: loss_fn_fused(p, a, b, cfg, plan, impl),
+        lambda p, a, b, impl=impl: loss(p, a, b, impl),
         ps, xs, labels)[1] for name, (ps, xs, impl) in runs.items()}
     del p64
     worst = {"cuda_vs_f64": 0.0, "torch_vs_f64": 0.0, "cuda_vs_torch": 0.0}
@@ -3488,7 +3609,8 @@ def bf16_training_phase(dev):
             input_shape(cfg), np.float32)).to(dev, torch.bfloat16)
         labels = torch.from_numpy(rng.integers(
             0, cfg.num_classes, batch)).to(dev)
-        grad = _bf16_step1_gradients(network, cfg, plan, params, x, labels)
+        grad = _bf16_step1_gradients(network, _fused_loss(cfg, plan),
+                                     params, x, labels)
         losses, same_point = {}, []
         for run in ("cuda", "torch"):
             step = make_train_step_fused(cfg, plan, impl=run)
@@ -3506,12 +3628,12 @@ def bf16_training_phase(dev):
                     raise AssertionError(f"bf16 train {network}: the torch "
                                          f"engine launched {counts}")
                 if run == "cuda":
-                    var = _variant_only(K.variant_launch_counts())
+                    var = _nonzero(K.variant_launch_counts())
                     if var != want or sum(counts.values()) != sum(
                             var.values()):
                         raise AssertionError(
                             f"bf16 train {network}: launches {var} (all "
-                            f"{_variant_only(counts)}) != the plan's {want}")
+                            f"{_nonzero(counts)}) != the plan's {want}")
                     total.update(var)
                     if any(t.dtype != torch.bfloat16
                            for q in p.values() for t in q.values()):
@@ -3578,6 +3700,365 @@ def bf16_training_phase(dev):
         del params, x, labels
         torch.cuda.empty_cache()
     return dict(total), rows
+
+
+def unfused_train_counts(cfg, layouts, v: str = "") -> dict:
+    """Launches by kernel of one unfused training step (``make_train_step``,
+    impl="cuda") in ``layouts``, worked out from them alone: the forward's
+    (``layout_launches``: bare K1/K2, K3a/K3b, K9a, K4), then in the
+    backward dgrad on the conv's own kernel and K6 for every conv, K7 for
+    every pool and the K9a re-layout back for every re-layout, except
+    where the tensor needs no gradient (the network input, up to the first
+    conv).  The softmax's, the ReLUs' and the fc layers' gradients are
+    plain arithmetic.  ``v`` is the storage variant's suffix (".bf16")."""
+    want = Counter()
+    grad = False       # whether the tensor at hand needs a gradient
+    for kern, _ in layout_launches(cfg, layouts):
+        want[kern + v] += 1
+        if kern in ("conv_chwn", "conv_nchw"):
+            want["wgrad" + v] += 1
+            if grad:   # dgrad on the conv's kernel
+                want[kern + v] += 1
+            grad = True
+        elif kern in ("pool_chwn", "pool_nchw") and grad:
+            want[kern.replace("pool", "pool_backward") + v] += 1
+        elif kern == "transpose2d" and grad:
+            want[kern + v] += 1
+    return dict(want)
+
+
+def _step_counts(v: str) -> dict:
+    """One step's launches read just after it, by kernel ("<kernel>.bf16"
+    for a bf16 step); raises if a bf16 step launched a float32 kernel."""
+    counts = _nonzero(K.launch_counts())
+    if not v:
+        return counts
+    var = _nonzero(K.variant_launch_counts())
+    if sum(var.values()) != sum(counts.values()):
+        raise AssertionError(f"a bf16 step launched {counts}, of them "
+                             f"narrow {var}")
+    return var
+
+
+def unfused_training_phase(dev):
+    """The unfused training step on the card (``UNFUSED_TRAINED``): each
+    network in its layouts, float32 and bf16, from the seed-0 weights (cast
+    once to bf16) and a seeded input, ``TRAIN_STEPS`` SGD steps of
+    ``make_train_step(impl="cuda")`` (autodiff of the unfused forward: bare
+    K1/K2 and their dgrad, K6, K3 and K7, K9a both ways, K4), counts zeroed
+    just before each step and read just after, equal to
+    ``unfused_train_counts`` (a bf16 step's all bf16).  Held as the fused
+    steps are: float32 losses within ``LOSS_ATOL`` of the torch engine's at
+    the same parameters and step-1 gradients as ``_step1_gradients``
+    says; bf16 losses within ``BF16_LOSS_TOL`` and gradients as
+    ``_bf16_step1_gradients`` says.  Then one warm step on each engine and
+    its peak device memory.  Runs outside inference mode.  These launches
+    are checked here and not added to the kernels line (their dgrad and
+    pool-backward shapes are not the fused path's)."""
+    rows = []
+    for network, batch, which in UNFUSED_TRAINED:
+        cfg = CNN_CONFIGS[network].replace(batch=batch)
+        layouts = (PlanCache(str(packaged_plans(network))).assignment(
+            cfg, batch)[0].layouts if which == "packaged"
+            else plan_network(cfg, which))
+        sig = "".join(l[0] for l in layouts)
+        loss = _unfused_loss(cfg, layouts)
+        for dtype in ("float32", "bfloat16"):
+            bf16 = dtype == "bfloat16"
+            v, tol = (".bf16", BF16_LOSS_TOL) if bf16 else ("", LOSS_ATOL)
+            label = f"unfused train {network} batch={batch} {dtype}"
+            want = unfused_train_counts(cfg, layouts, v)
+            params = params_from_numpy(init_cnn(cfg, 0), dev, dtype)
+            rng = np.random.default_rng(4)
+            x = torch.from_numpy(rng.standard_normal(
+                input_shape(cfg), np.float32)).to(dev, torch_dtype(dtype))
+            labels = torch.from_numpy(rng.integers(
+                0, cfg.num_classes, batch)).to(dev)
+            grad = (_bf16_step1_gradients if bf16 else _step1_gradients)(
+                label, loss, params, x, labels)
+            step = make_train_step(cfg, layouts, impl="cuda")
+            p, vel, losses, same = params, init_velocity(params), [], []
+            for _ in range(TRAIN_STEPS):
+                with torch.no_grad():   # the torch engine at the same point
+                    same.append(loss(p, x, labels, "torch").item())
+                K.reset_launch_counts()
+                p, vel, value = step(p, vel, x, labels)
+                torch.cuda.synchronize()
+                counts = _step_counts(v)
+                if counts != want:
+                    raise AssertionError(f"{label}: launches {counts} != the "
+                                         f"layouts' {want}")
+                losses.append(value.item())
+            del p, vel
+            diffs = [abs(a - b) for a, b in zip(losses, same)]
+            if not all(math.isfinite(u) for u in losses + same):
+                raise AssertionError(f"{label}: non-finite loss {losses}")
+            if max(diffs) > tol:
+                raise AssertionError(
+                    f"{label}: losses {losses} differ from the torch "
+                    f"engine's at the same parameters {same} by "
+                    f"{max(diffs):.3g} > {tol}")
+            warm = {impl: _step_ms_and_peak(
+                make_train_step(cfg, layouts, impl=impl), params,
+                init_velocity(params), x, labels)
+                for impl in ("cuda", "torch")}
+            row = {"network": network, "batch": batch, "dtype": dtype,
+                   "layouts": sig, "losses": losses,
+                   "torch_at_same_params": same, "loss_diffs": diffs,
+                   "grad": grad, "launches": want, "warm": warm}
+            rows.append(row)
+            print(f"{label} layouts={sig} ({which}): losses kernels "
+                  f"{losses}, torch engine at the same parameters {same} "
+                  f"(max diff {max(diffs):.3g} <= {tol}); step-1 gradients "
+                  f"{grad}; launches per step {want} (= the layouts'); "
+                  f"warm step kernels {warm['cuda']['ms']:.3f} ms "
+                  f"({1e3 * batch / warm['cuda']['ms']:.1f} img/s), torch "
+                  f"engine (cuDNN, TF32 off) {warm['torch']['ms']:.3f} ms "
+                  f"({1e3 * batch / warm['torch']['ms']:.1f} img/s); peak "
+                  f"device memory of a step kernels "
+                  f"{warm['cuda']['peak_bytes'] / 2**20:.1f} MiB, torch "
+                  f"engine {warm['torch']['peak_bytes'] / 2**20:.1f} MiB",
+                  flush=True)
+            del params, x, labels
+            torch.cuda.empty_cache()
+    return rows
+
+
+def mixed_training_phase(dev):
+    """The mixed-dtype training step on the card (``MIXED_TRAINED``): the
+    H100 planner's float32 "mixed" plan (int8 boundaries between convs),
+    ``MIXED_TRAIN_STEPS`` SGD steps of ``make_train_step_fused`` on the
+    kernels, each boundary ``fake_quant`` on the float32 carrier (the
+    stored int8 value forward, the identity gradient), counts zeroed just
+    before each step and read just after, equal to
+    ``plan_train_launches``.  Gates (``MIXED_TRAINED`` says where they
+    come from): every loss finite; the loss falls over the steps; the
+    parameters stay float32; each loss within ``INT8_FORWARD_ATOL`` of the
+    torch engine's over the same plan at the same parameters; the plan's
+    inference forward on the kernels (real int8 into K1's int8->fp32
+    build) within ``INT8_FORWARD_ATOL`` of the uniform float32 plan's.
+    Reported: a warm step of the mixed plan and of the uniform plan on the
+    kernels, and their peak device memory.  Runs outside inference mode;
+    its launches are checked here and not added to the kernels line."""
+    network, batch = MIXED_TRAINED
+    label = f"mixed train {network} batch={batch}"
+    cfg = CNN_CONFIGS[network].replace(batch=batch)
+    plan = plan_network_fused(cfg, policy="mixed")
+    uniform = plan_network_fused(cfg)
+    if "8" not in plan.dtype_signature:
+        raise AssertionError(f"{label}: the plan stores no int8 "
+                             f"({plan.dtype_signature})")
+    want = dict(Counter(k for k, _ in plan_train_launches(cfg, plan)))
+    params = params_from_numpy(init_cnn(cfg, 0), dev)
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.standard_normal(
+        input_shape(cfg), np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes,
+                                           batch)).to(dev)
+    with torch.no_grad():
+        ym, _ = forward_fused(params, x, cfg, plan)
+        yu, _ = forward_fused(params, x, cfg, uniform)
+    forward_diff = (ym - yu).abs().max().item()
+    if not forward_diff <= INT8_FORWARD_ATOL:
+        raise AssertionError(f"{label}: mixed probabilities {forward_diff:.3g}"
+                             f" from the uniform ones > {INT8_FORWARD_ATOL}")
+    step = make_train_step_fused(cfg, plan, impl="cuda")
+    p, vel, losses, same = params, init_velocity(params), [], []
+    for _ in range(MIXED_TRAIN_STEPS):
+        with torch.no_grad():   # the torch engine at the same point
+            same.append(loss_fn_fused(p, x, labels, cfg, plan,
+                                      "torch").item())
+        K.reset_launch_counts()
+        p, vel, value = step(p, vel, x, labels)
+        torch.cuda.synchronize()
+        counts = _nonzero(K.launch_counts())
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts} != the plan's "
+                                 f"{want}")
+        if any(t.dtype != torch.float32 for q in p.values()
+               for t in q.values()):
+            raise AssertionError(f"{label}: a parameter left float32")
+        losses.append(value.item())
+    del p, vel
+    diffs = [abs(a - b) for a, b in zip(losses, same)]
+    if not all(math.isfinite(u) for u in losses + same):
+        raise AssertionError(f"{label}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: the loss does not fall: {losses}")
+    if max(diffs) > INT8_FORWARD_ATOL:
+        raise AssertionError(
+            f"{label}: losses {losses} differ from the torch engine's at "
+            f"the same parameters {same} by {max(diffs):.3g} > "
+            f"{INT8_FORWARD_ATOL}")
+    vel0 = init_velocity(params)
+    warm = {"mixed": _step_ms_and_peak(step, params, vel0, x, labels),
+            "uniform": _step_ms_and_peak(
+                make_train_step_fused(cfg, uniform), params, vel0, x,
+                labels)}
+    row = {"network": network, "batch": batch,
+           "dtype_signature": plan.dtype_signature,
+           "conv_layouts": plan.conv_signature, "losses": losses,
+           "torch_at_same_params": same, "loss_diffs": diffs,
+           "forward_diff_vs_uniform": forward_diff, "launches": want,
+           "warm": warm}
+    print(f"{label} (plan {plan.conv_signature}, dtypes "
+          f"{plan.dtype_signature}, fake_quant at the int8 boundaries): "
+          f"losses kernels {losses} (falls; finite; parameters float32), "
+          f"torch engine at the same parameters {same} (max diff "
+          f"{max(diffs):.3g} <= {INT8_FORWARD_ATOL}); inference "
+          f"probabilities {forward_diff:.3g} from the uniform plan's (<= "
+          f"{INT8_FORWARD_ATOL}); launches per step {want} (= the plan's); "
+          f"warm step mixed {warm['mixed']['ms']:.3f} ms "
+          f"({1e3 * batch / warm['mixed']['ms']:.1f} img/s), uniform "
+          f"float32 {warm['uniform']['ms']:.3f} ms "
+          f"({1e3 * batch / warm['uniform']['ms']:.1f} img/s); peak device "
+          f"memory of a step mixed "
+          f"{warm['mixed']['peak_bytes'] / 2**20:.1f} MiB, uniform "
+          f"{warm['uniform']['peak_bytes'] / 2**20:.1f} MiB", flush=True)
+    del params, x, labels
+    torch.cuda.empty_cache()
+    return row
+
+
+def mesh_phase(dev, th):
+    """The data-parallel serving mesh (``distributed.cnn_mesh``).  First
+    ``devices=1``: AlexNet b128 through ``CNNServer(devices=1)`` and the
+    default server, every answer bit-equal between them and to the
+    kernels' forward of the plan on the padded batch.  Then, for each of
+    ``MESHED``, a server over the mesh: two shards on the one card (a
+    rehearsal of the split, pad and gather on the kernels), or every card
+    where there is more than one.  The global batch is admitted in one
+    step; its plan is the shard bucket's (``verify_shard_plan``); every
+    answer is bit-equal to the per-shard forwards on the kernels and within
+    ``PROBS_ATOL`` of the torch engine; the launches are the shards'
+    (counted here, not added to the kernels line); ``hbm_bytes`` is
+    ``per_chip_bytes`` times the shards.  Printed: which mesh ran, the
+    server's img/s and per-card modeled MB, and the warm sharded forward
+    beside two unsharded ones at the same global batch (CUDA events): the
+    packaged plan a single-card server serves, and the plan the H100
+    planner makes for the global batch (the shards' planner: only the
+    split differs)."""
+    n = torch.cuda.device_count()
+    mesh = (tuple(torch.device("cuda", i) for i in range(n)) if n > 1
+            else (dev, dev))
+    what = (f"{n} cards" if n > 1 else
+            "2 shards on the one card (a rehearsal)")
+    rows = []
+    network, batch = MESHED[0]
+    servers = [CNNServer(network, reduced=False, max_bucket=batch, seed=0,
+                         thresholds=th, **kw) for kw in ({"devices": 1}, {})]
+    cfg = servers[0].cfg
+    rng = np.random.default_rng(5)
+    images = [rng.standard_normal((cfg.in_channels, cfg.image_hw,
+                                   cfg.image_hw), np.float32)
+              for _ in range(batch - 3)]
+    answers = [srv.run([ImageRequest(i, im) for i, im in enumerate(images)])
+               for srv in servers]
+    bucket = servers[0].cache.bucket(len(images))
+    plan = servers[0].cache.peek_fused(cfg, bucket)
+    y, _ = forward_fused(servers[0].model.params(), pad_to_bucket(
+        torch.from_numpy(np.stack(images)).to(dev), bucket), cfg, plan)
+    y = y.cpu().numpy()
+    for i in range(len(images)):
+        if not (np.array_equal(answers[0][i], answers[1][i])
+                and np.array_equal(answers[0][i], y[i])):
+            raise AssertionError(f"mesh devices=1 {network}: answer {i} is "
+                                 "not bit-equal to the unsharded server's "
+                                 "and the plan's forward")
+    print(f"mesh devices=1 {network} batch={len(images)} (bucket {bucket}):"
+          f" every answer bit-equal to the unsharded server's and to the "
+          f"kernels' forward of its plan", flush=True)
+    del servers, answers, y
+    for network, batch in MESHED:
+        d = len(mesh)
+        shard = batch // d
+        label = f"mesh {network} batch={batch} over {what}"
+        srv = CNNServer(network, reduced=False, max_bucket=shard, seed=0,
+                        thresholds=th, mesh=mesh)
+        cfg, scfg = srv.cfg, srv.cfg.replace(batch=shard)
+        rng = np.random.default_rng(6)
+        images = [rng.standard_normal((cfg.in_channels, cfg.image_hw,
+                                       cfg.image_hw), np.float32)
+                  for _ in range(batch)]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        done = srv.run([ImageRequest(i, im) for i, im in enumerate(images)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        served = _nonzero(K.launch_counts())
+        rep = srv.reports[shard]
+        plan = srv.cache.peek_fused(cfg, shard, devices=d, pre_sharded=True)
+        verify_shard_plan(plan, cfg, shard, cost_model=srv.cache.cost_model)
+        if rep.hbm_bytes != rep.per_chip_bytes * d:
+            raise AssertionError(f"{label}: hbm_bytes {rep.hbm_bytes} != "
+                                 f"{d} x per_chip_bytes {rep.per_chip_bytes}")
+        x = torch.from_numpy(np.stack(images)).to(dev)
+        replicas = replicate_params(srv.model.params(), mesh)
+        shards = []
+        for i, (sd, p) in enumerate(zip(mesh, replicas)):
+            K.reset_launch_counts()
+            with torch.cuda.device(sd):
+                ys, _ = forward_fused(p, x[i * shard:(i + 1) * shard].to(sd),
+                                      scfg, plan)
+            torch.cuda.synchronize()
+            one = _nonzero(K.launch_counts())
+            shards.append(ys.to(dev))
+        want = torch.cat(shards).cpu().numpy()
+        if served != {k: d * v for k, v in one.items()}:
+            raise AssertionError(f"{label}: launches {served} != {d} x a "
+                                 f"shard's {one}")
+        got = np.stack([done[i] for i in range(batch)])
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{label}: answers not bit-equal to the "
+                                 "per-shard forwards")
+        # the unsharded plan of the global batch: the packaged one
+        full = PlanCache(str(packaged_plans(network))).peek_fused(cfg, batch)
+        yt, _ = forward_fused(srv.model.params(), x, cfg, full, impl="torch")
+        err = float(np.abs(got - yt.cpu().numpy()).max())
+        if err > PROBS_ATOL:
+            raise AssertionError(f"{label}: answers {err:.3g} from the torch "
+                                 f"engine > {PROBS_ATOL}")
+        assert_clean(srv, label)
+        h100 = plan_network_fused(cfg)
+        sharded_ms = cuda_ms(lambda: forward_fused_sharded(
+            replicas, x, scfg, plan, mesh), max_reps=20)
+        single_ms = cuda_ms(lambda: forward_fused(
+            srv.model.params(), x, cfg, full), max_reps=20)
+        h100_ms = cuda_ms(lambda: forward_fused(
+            srv.model.params(), x, cfg, h100), max_reps=20)
+        per_chip_mb = rep.per_chip_bytes / rep.batches / 1e6
+        row = {"network": network, "batch": batch, "mesh": what,
+               "devices": d, "shard_bucket": shard,
+               "conv_layouts": plan.conv_signature,
+               "unsharded_conv_layouts": full.conv_signature,
+               "planner_calls": srv.cache.planner_calls,
+               "served_img_s": batch / wall, "per_chip_MB": per_chip_mb,
+               "modeled_MB": rep.hbm_bytes / rep.batches / 1e6,
+               "h100_conv_layouts": h100.conv_signature,
+               "sharded_ms": sharded_ms, "unsharded_ms": single_ms,
+               "unsharded_h100_ms": h100_ms,
+               "launches": served, "max_abs_err": err}
+        rows.append(row)
+        print(f"{label}: shard bucket {shard} (plan {plan.conv_signature}, "
+              f"the unsharded b{batch} plan {full.conv_signature}), served "
+              f"{batch} in {wall:.3f}s ({batch / wall:.1f} img/s, host "
+              f"clock, planning included), per_chip_MB={per_chip_mb:.1f} "
+              f"modeled_MB={rep.hbm_bytes / rep.batches / 1e6:.1f}; "
+              f"answers bit-equal to the per-shard forwards, "
+              f"{err:.3g} from the torch engine; launches {served} (= {d} x "
+              f"a shard's); warm forward sharded {sharded_ms:.3f} ms "
+              f"({1e3 * batch / sharded_ms:.1f} img/s), unsharded on the "
+              f"packaged plan {single_ms:.3f} ms "
+              f"({1e3 * batch / single_ms:.1f} img/s), unsharded on the "
+              f"H100 planner's b{batch} plan ({h100.conv_signature}, "
+              f"{h100.stacked_convs} stacks; the shards' "
+              f"{plan.stacked_convs}) {h100_ms:.3f} ms "
+              f"({1e3 * batch / h100_ms:.1f} img/s)", flush=True)
+        for line in srv.report_lines():
+            print(line)
+        del srv, replicas, x, shards
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _expect_counts(label: str, counts, want) -> None:
@@ -4065,6 +4546,9 @@ def main() -> int:
         print(f"stack comparison: {time.perf_counter() - t0:.1f}s",
               flush=True)
         t0 = time.perf_counter()
+        meshed = mesh_phase(dev, th)
+        print(f"mesh phase: {time.perf_counter() - t0:.1f}s", flush=True)
+        t0 = time.perf_counter()
         unfused_counts, unfused = unfused_phase(dev)
         for k, v in unfused_counts.items():
             launches[k] += v
@@ -4103,6 +4587,14 @@ def main() -> int:
     print(f"bf16 training phase: {time.perf_counter() - t0:.1f}s",
           flush=True)
     t0 = time.perf_counter()
+    unfused_trained = unfused_training_phase(dev)
+    print(f"unfused training phase: {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
+    mixed_trained = mixed_training_phase(dev)
+    print(f"mixed training phase: {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    t0 = time.perf_counter()
     runner = runner_phase(dev)
     print(f"runner phase: {time.perf_counter() - t0:.1f}s", flush=True)
     line = kernels_line(cases, launches)
@@ -4119,6 +4611,9 @@ def main() -> int:
                                    "softmax_variants": variants,
                                    "training": trained,
                                    "bf16_training": bf16_trained,
+                                   "unfused_training": unfused_trained,
+                                   "mixed_training": mixed_trained,
+                                   "mesh": meshed,
                                    "dtype": dtyped,
                                    "serving": serving,
                                    "resilience": resilience,

@@ -346,7 +346,8 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
     dtype with a straight-through quantize -> dequantize at each boundary
     (``fake_quant``); the byte model prices those boundaries at 1 byte an
     element either way.  A stack op never takes or stores int8 (no plan
-    makes one, and no stack kernel takes int8): it raises."""
+    makes one, and the reference's executor folds no scale into a stack;
+    the stack kernels themselves take int8 x): it raises."""
     stats = RunStats()
     nref: Dict[int, int] = {}
     for op in plan.ops:
@@ -390,8 +391,10 @@ def forward_fused(params: Dict, x_nchw: torch.Tensor, cfg: CNNConfig,
             if (x.dtype == torch.int8 or _is_int8(op.src_dtype)
                     or _is_int8(op.dst_dtype)):
                 raise NotImplementedError(
-                    f"stack op {op.name!r} takes or stores int8: no stack "
-                    "kernel takes int8 (mixed-dtype plans never stack)")
+                    f"stack op {op.name!r} takes or stores int8: the stack "
+                    "kernels take int8 x (conv_stack_chwn/conv_stack_nchw), "
+                    "but the executor folds no scale into a stack, as the "
+                    "reference's does not (mixed-dtype plans never stack)")
             # conv->conv stack: ``op.index`` is conv1, ``op.stack_index``
             # conv2; the mid activation stays on chip, so the bytes are the
             # input, both weights and the final output (+ the skip's read)
@@ -555,8 +558,12 @@ def loss_fn_fused(params: Dict, x_nchw: torch.Tensor, labels: torch.Tensor,
     """Differentiable NLL over the FUSED engine: the forward runs the fused
     kernels and the backward flows through their autograd Functions
     (dgrad on K1/K2, K6, the one-kernel pool+mask backward K7, the stack
-    recompute)."""
-    probs, _ = forward_fused(params, x_nchw, cfg, plan, impl=impl)
+    recompute).  It is the training forward: a mixed-dtype plan's int8
+    boundaries are straight-through ``fake_quant`` on the float carrier
+    (the stored value, the identity gradient), so every kernel of the
+    backward reads a float tensor."""
+    probs, _ = forward_fused(params, x_nchw, cfg, plan, impl=impl,
+                             training=True)
     return _nll(probs, labels)
 
 

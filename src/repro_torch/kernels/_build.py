@@ -14,8 +14,8 @@ loads the cached library.  Each C entry point takes its pointers and the
 CUDA stream as ``void*`` and returns ``cudaGetLastError()`` as an int.
 
 The serving and training paths' kernels also take narrow storage dtypes
-(K1 and K2: bf16, and int8 x with float32 or bf16 weights; the stacks
-K5a/K5b, the softmax K4 and cross entropy K8, the pools K3a/K3b and their
+(K1, K2 and the stacks K5a/K5b: bf16, and int8 x with float32 or bf16
+weights; the softmax K4 and cross entropy K8, the pools K3a/K3b and their
 backwards K7a/K7b, the transposes K9a/K9b and the weight gradient K6:
 bf16).  Each
 such variant (``VARIANTS``) is the same source compiled again with
@@ -89,19 +89,18 @@ SIGNATURES: Dict[str, List] = {
 
 # the storage-dtype variants: variant -> (its sources, relative to this
 # directory, and the entry points each defines with the suffix _<variant>)
-_CONV = ("conv/csrc/conv_chwn.cu", "conv/csrc/conv_nchw.cu")
-_CONV_ENTRIES = ("conv_chwn_forward", "conv_nchw_forward")
+# the conv kernels that take int8 x too: K1, K2 and the stacks K5a, K5b
+_CONV = ("conv/csrc/conv_chwn.cu", "conv/csrc/conv_nchw.cu",
+         "conv/csrc/conv_stack_chwn.cu", "conv/csrc/conv_stack_nchw.cu")
+_CONV_ENTRIES = ("conv_chwn_forward", "conv_nchw_forward",
+                 "conv_stack_chwn_forward", "conv_stack_chwn_max_clusters",
+                 "conv_stack_nchw_forward")
 VARIANTS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
-    "bf16": (_CONV + ("conv/csrc/conv_stack_chwn.cu",
-                      "conv/csrc/conv_stack_nchw.cu",
-                      "conv/csrc/wgrad.cu", "softmax/csrc/softmax.cu",
+    "bf16": (_CONV + ("conv/csrc/wgrad.cu", "softmax/csrc/softmax.cu",
                       "pool/csrc/pool.cu", "pool/csrc/pool_backward.cu",
                       "transpose/csrc/transpose.cu"),
-             _CONV_ENTRIES + ("conv_stack_chwn_forward",
-                              "conv_stack_chwn_max_clusters",
-                              "conv_stack_nchw_forward", "wgrad_forward",
-                              "softmax_forward", "softmax_xent_forward",
-                              "pool_chwn_forward",
+             _CONV_ENTRIES + ("wgrad_forward", "softmax_forward",
+                              "softmax_xent_forward", "pool_chwn_forward",
                               "pool_nchw_forward", "pool_backward_chwn",
                               "pool_backward_nchw", "transpose_forward")),
     "i8f32": (_CONV, _CONV_ENTRIES),     # int8 x, float32 w
@@ -113,11 +112,11 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, Dict[str, object]] = {}   # variant -> name -> entry
 _F32, _BF16, _I8 = torch.float32, torch.bfloat16, torch.int8
 _MAX_NUMEL = 2 ** 31     # the kernels index with 32-bit ints
-# the (x, w) storage dtypes of the conv kernels K1 and K2 -> the variant
-# that computes them: bias, residual and output are w's dtype
+# the (x, w) storage dtypes of the conv kernels K1, K2, K5a and K5b -> the
+# variant that computes them: biases, residual and output are w's dtype
 CONV_VARIANTS = {(_F32, _F32): "", (_BF16, _BF16): "bf16",
                  (_I8, _F32): "i8f32", (_I8, _BF16): "i8bf16"}
-# the storage dtypes of a float kernel (K3, K4, K5, K6's inputs, K7, K8's
+# the storage dtypes of a float kernel (K3, K4, K6's inputs, K7, K8's
 # logits, K9), every tensor x's
 FLOAT_VARIANTS = {_F32: "", _BF16: "bf16"}
 
@@ -301,8 +300,8 @@ def _refuse_dtype(name: str, arg: str, t, device: int, want: str,
 
 
 def require_cuda_storage(name: str, x, **others) -> Tuple[int, str]:
-    """The guard of the float kernels that take bf16 too (K3, K4, K5, K6,
-    K7, K8, K9): raise unless the CUDA tensor ``x`` is a contiguous float32 or
+    """The guard of the float kernels that take bf16 too (K3, K4, K6, K7,
+    K8, K9): raise unless the CUDA tensor ``x`` is a contiguous float32 or
     bfloat16 tensor with fewer than 2^31 elements and every other given
     tensor (None is skipped) one of x's dtype on x's card.  Returns (the
     card's index, ``x.get_device()``, for ``stream_of``, and the variant:
@@ -326,12 +325,12 @@ def require_cuda_storage(name: str, x, **others) -> Tuple[int, str]:
 
 
 def require_cuda_conv(name: str, x, w, **others) -> Tuple[int, str]:
-    """The guard of the conv kernels K1 and K2: raise unless (x, w) is a
-    pair ``CONV_VARIANTS`` holds (float32 or bf16 both, or int8 x with
-    float32 or bf16 w), both contiguous with fewer than 2^31 elements on
-    x's card, and every other given tensor (bias, residual; None is
-    skipped) one of w's dtype there.  Returns (the card's index, the
-    variant)."""
+    """The guard of the conv kernels K1, K2 and the stacks K5a, K5b: raise
+    unless (x, w) is a pair ``CONV_VARIANTS`` holds (float32 or bf16 both,
+    or int8 x with float32 or bf16 w), both contiguous with fewer than 2^31
+    elements on x's card, and every other given tensor (a stack's w2,
+    biases, residual; None is skipped) one of w's dtype there.  Returns
+    (the card's index, the variant)."""
     device = x.get_device()
     wt = w.dtype
     variant = ("" if x.dtype is _F32 and wt is _F32

@@ -9,12 +9,19 @@
 // layout, before the ReLU.  The float32 build runs fp32 FMA on the CUDA
 // cores (no TF32).
 //
-// Storage dtypes (csrc/storage.cuh): x, w1, w2, the biases, the residual
-// and y all float32 or all bf16.  The bf16 build runs its own kernel on the
-// bf16 tensor cores (cluster_stack_bf16_kernel below, whose note says how);
-// in both the mid activation stays float32 (it never leaves the SM, so it
-// is never rounded to the storage type, as in the reference's kernel), and
-// y is rounded once where it is stored.
+// Storage dtypes (csrc/storage.cuh): w1, w2, the biases, the residual and
+// y all float32 or all bf16, and x of their dtype or int8 (quantized per
+// channel, its scale folded into w1, as the reference's stack takes it).
+// The bf16 build runs its own kernel on the bf16 tensor cores
+// (cluster_stack_bf16_kernel below, whose note says how); in both the mid
+// activation stays float32 (it never leaves the SM, so it is never rounded
+// to the storage type, as in the reference's kernel), and y is rounded
+// once where it is stored.  The int8 builds keep their float twin's kernel
+// and tiles and widen x as it lands in shared memory: int8->fp32 into the
+// float32 ring (copy4/copy1: a 4-byte load of 4 elements, widened), so
+// conv1 keeps fp32 accuracy; int8->bf16 into the bf16 ring (a run of 8 by
+// one 8-byte load, storage::bf16x8; bf16_bits else), exact, as |q| <= 127
+// fits bf16's 8-bit significand.
 //
 // What bounds it on an H100: operations.  At AlexNet's conv3 -> conv4
 // (N = 128, 256 -> 384 -> 384, 13x13) both convs are far above the fp32
@@ -85,9 +92,9 @@ constexpr int kTile = 16384;  // bm * bn
 constexpr int kPassMax = 128;  // mid positions of the widest conv1 pass
 constexpr int kMaxSmem = 232448;  // 227 KB, what an H100 block may use
 
-template <typename E>
+template <typename E, typename X = E>
 struct ClusterArgs {
-  StackArgs<E> s;
+  StackArgs<E, X> s;
   int CL;                      // blocks per cluster, along gridDim.y
   int vec_x, vec_w1, vec_w2;   // 16-byte copies: rows 4-aligned
   unsigned long long* stats;   // [executed FLOPs, cluster size] or null
@@ -164,7 +171,7 @@ __device__ __forceinline__ void kstep(KIdx& s, int F) {
 }
 
 // copy4 / copy1 (storage.cuh): 16- or 4-byte cp.async for float32, a
-// widening register load for bf16; ok == false zero-fills dst
+// widening register load for bf16 or int8; ok == false zero-fills dst
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -193,14 +200,14 @@ struct CShape {
 // positions [p0, p0 + KRA) (clipped to this rank's range [p_lo, p_hi))
 // over K1, 4 x PW outputs a thread (PW 4 or 8: positions tx * 4 + j of
 // each 64-wide group), bias1 and ReLU, into the slab.
-template <int PW, typename E>
+template <int PW, typename E, typename X>
 __device__ __forceinline__ void conv1_pass(
-    const ClusterArgs<E>& p, const Tile& t, float* As1, float* Bs1,
+    const ClusterArgs<E, X>& p, const Tile& t, float* As1, float* Bs1,
     float* mid, int p0, int p_lo, int p_hi, int cm0, int cmn,
     const KIdx& dk1, int tid, int tx, int ty) {
   constexpr int KRA = 16 * PW;
   constexpr int ASTR1 = kCM + 4;
-  const StackArgs<E>& a = p.s;
+  const StackArgs<E, X>& a = p.s;
   const int nsl1 = (a.K1 + kBK - 1) / kBK;
   // x: vec, 4-position quads (rows kx0 + i * XR of the slice, quad qx,
   // one position a thread); else the scalar elements (kk, tid % KRA),
@@ -218,7 +225,7 @@ __device__ __forceinline__ void conv1_pass(
     mhl = q / t.MWc;
   }
   const bool pok = pp < p_hi;
-  const E* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
+  const X* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
   const int ih0 = (t.mh_lo + mhl) * a.S1 - a.P1;
   const int iw0 = (t.mw_lo + mwl) * a.S1 - a.P1;
   KIdx xk[XI];  // vec path: k = s * kBK + kx0 + i * XR
@@ -336,14 +343,14 @@ __device__ __forceinline__ void conv1_pass(
   __syncthreads();  // the next pass refills the ring
 }
 
-template <typename E, bool POOL, int GM>
+template <typename E, typename X, bool POOL, int GM>
 __global__ void __launch_bounds__(kThreads, 1)
-cluster_stack_kernel(const ClusterArgs<E> p) {
+cluster_stack_kernel(const ClusterArgs<E, X> p) {
   using S = CShape<GM>;
   constexpr int GN = S::GN, TBM = S::TBM, TBN = S::TBN;
   constexpr int ASTR1 = S::ASTR1, ASTR = S::ASTR;
   constexpr int RPT_B = kBK * TBN / kThreads;  // slab values a thread, B
-  const StackArgs<E>& a = p.s;
+  const StackArgs<E, X>& a = p.s;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;            // phase A: As1[2][kBK][ASTR1], Bs1[2][kBK][<=128]
                                  // phase B: As[2][kBK][ASTR], Bs[2][kBK][TBN]
@@ -604,9 +611,10 @@ cluster_stack_kernel(const ClusterArgs<E> p) {
 //     k16 steps, inside what K1's narrow build was measured to hold
 //     unflushed; its source note).  Bias1 and ReLU in fp32; the mid slab
 //     stays float32.  x runs of 8 positions (a
-//     run of n: CHWN x, N and nb multiples of 8) arrive by 16-byte cp.async,
-//     w1 rows of 8 mid channels too; anything else element by element,
-//     stored as bf16 halfwords.
+//     run of n: CHWN x, N and nb multiples of 8) arrive by 16-byte cp.async
+//     (int8 x: one 8-byte load, widened to 8 bf16 in registers), w1 rows of
+//     8 mid channels too; anything else element by element, stored as bf16
+//     halfwords.
 //   phase B (conv2): the reference reads the mid at float32, so each mid
 //     value m enters as three bf16 parts, hi = bf16(m), md = bf16(m - hi),
 //     lo = bf16(m - hi - md), whose sum is m exactly (24 significand bits),
@@ -652,15 +660,15 @@ struct NShape {
 // One conv1 pass of the bf16 build's phase A: the [kCM x KRA] GEMM of mid
 // positions [p0, p0 + KRA) (clipped to this rank's range [p_lo, p_hi))
 // over K1, bias1 and ReLU, into the slab.
-template <int KRA>
+template <int KRA, typename X>
 __device__ __forceinline__ void conv1_pass_bf16(
-    const ClusterArgs<storage::bf16>& p, const Tile& t, unsigned char* ring,
+    const ClusterArgs<storage::bf16, X>& p, const Tile& t, unsigned char* ring,
     float* mid, int p0, int p_lo, int p_hi, int cm0, int cmn, int tid) {
   using storage::bf16;
   constexpr int NTA = KRA / 32;    // n8 tiles of a warp (2 x 4 warps)
   constexpr int XCH = KRA / 8;     // 16-byte chunks of an x row
   constexpr int SPT = kNBK * KRA / kThreads;   // x elements a thread
-  const StackArgs<bf16>& a = p.s;
+  const StackArgs<bf16, X>& a = p.s;
   bf16* As1 = reinterpret_cast<bf16*>(ring);
   bf16* Bs1 = reinterpret_cast<bf16*>(ring + NShape<1>::B1);
   const int nsl = (a.K1 + kNBK - 1) / kNBK;
@@ -678,7 +686,7 @@ __device__ __forceinline__ void conv1_pass_bf16(
     mhl = q / t.MWc;
   }
   const bool pok = pp < p_hi;
-  const bf16* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
+  const X* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
   const int ih0 = (t.mh_lo + mhl) * a.S1 - a.P1;
   const int iw0 = (t.mw_lo + mwl) * a.S1 - a.P1;
   const KIdx dk1 = kidx(kNBK, a.F1);
@@ -699,9 +707,15 @@ __device__ __forceinline__ void conv1_pass_bf16(
         const int h = ih0 + xk.dy, w = iw0 + xk.dx;
         const bool ok = pok && k0 + xr < a.K1 && h >= 0 && h < a.H &&
                         w >= 0 && w < a.W;
-        mma::cp16(bs + mma::swz<KRA>(xr, xq),
-                  ok ? xcol + xk.c * a.xs.c + h * a.xs.h + w * a.xs.w : a.x,
-                  ok);
+        const X* src =
+            ok ? xcol + xk.c * a.xs.c + h * a.xs.h + w * a.xs.w : a.x;
+        if constexpr (std::is_same<X, bf16>::value) {
+          mma::cp16(bs + mma::swz<KRA>(xr, xq), src, ok);
+        } else {  // 8 int8 by one 8-byte load, widened to bf16
+          *reinterpret_cast<uint4*>(bs + mma::swz<KRA>(xr, xq)) =
+              ok ? storage::bf16x8(__ldg(reinterpret_cast<const uint2*>(src)))
+                 : make_uint4(0u, 0u, 0u, 0u);
+        }
         kadvance(xk, dk1, a.F1);
       }
     } else {
@@ -792,16 +806,16 @@ __device__ __forceinline__ void conv1_pass_bf16(
   __syncthreads();  // the next pass refills the ring
 }
 
-template <bool POOL, int GM>
+template <typename X, bool POOL, int GM>
 __global__ void __launch_bounds__(kThreads, 1)
-cluster_stack_bf16_kernel(const ClusterArgs<storage::bf16> p) {
+cluster_stack_bf16_kernel(const ClusterArgs<storage::bf16, X> p) {
   using storage::bf16;
   using S = NShape<GM>;
   constexpr int TBM = S::TBM, TBN = S::TBN, SB2 = S::SB2;
   constexpr int RPT_B = kNBK * TBN / kThreads;  // slab values a thread, B
   constexpr int WCH2 = TBM / 8;                 // 16-byte chunks of a w2 row
   constexpr int W2PT = (kNBK * WCH2 + kThreads - 1) / kThreads;
-  const StackArgs<bf16>& a = p.s;
+  const StackArgs<bf16, X>& a = p.s;
   extern __shared__ __align__(128) unsigned char smem_b[];
   unsigned char* ring = smem_b;
   // [kCM][RSTR] slab; later the pool tile: where the float32 kernel has it
@@ -1057,17 +1071,18 @@ inline long long smem_bytes(int rstr, bool pool) {
   return 4 * (S::RING + slab);
 }
 
-template <bool POOL, int GM, typename E>
-int launch(const ClusterArgs<E>& p, dim3 grid, cudaStream_t st,
+template <bool POOL, int GM, typename E, typename X>
+int launch(const ClusterArgs<E, X>& p, dim3 grid, cudaStream_t st,
            int* clusters) {
   const long long bytes = smem_bytes<GM>(p.s.RSTR, POOL);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  // the bf16 build runs its own kernel (on the bf16 tensor cores)
-  void (*kernel)(ClusterArgs<E>);
+  // where w is bf16 the build runs its own kernel (on the bf16 tensor
+  // cores)
+  void (*kernel)(ClusterArgs<E, X>);
   if constexpr (std::is_same<E, storage::bf16>::value)
-    kernel = cluster_stack_bf16_kernel<POOL, GM>;
+    kernel = cluster_stack_bf16_kernel<X, POOL, GM>;
   else
-    kernel = cluster_stack_kernel<E, POOL, GM>;
+    kernel = cluster_stack_kernel<E, X, POOL, GM>;
   // a refused call leaves its error behind: clear it, so the next launch
   // does not report it
   auto fail = [](cudaError_t e) {
@@ -1098,8 +1113,8 @@ int launch(const ClusterArgs<E>& p, dim3 grid, cudaStream_t st,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool POOL, typename E>
-int dispatch(const ClusterArgs<E>& p, int gm, dim3 grid, cudaStream_t st,
+template <bool POOL, typename E, typename X>
+int dispatch(const ClusterArgs<E, X>& p, int gm, dim3 grid, cudaStream_t st,
              int* clusters) {
   switch (gm) {
     case 1: return launch<POOL, 1>(p, grid, st, clusters);
@@ -1125,7 +1140,7 @@ inline int max_span(int U, int UT, int pF, int pS, int S2, int P2, int F2,
   return best;
 }
 
-template <typename E>
+template <typename E, typename X>
 int forward(const void* x, const void* w1, const void* b1, const void* w2,
             const void* b2, const void* res, void* y, int N, int Ci, int H,
             int W, int Cm, int F1, int S1, int P1, int Co, int F2, int S2,
@@ -1133,9 +1148,9 @@ int forward(const void* x, const void* w1, const void* b1, const void* w2,
             int relu2, int src_nchw, int dst_nchw, int res_nchw, int bm,
             int nb, int uth, int utw, int cl, void* stats, void* stream,
             int* clusters) {
-  ClusterArgs<E> p;
-  StackArgs<E>& a = p.s;
-  a.x = static_cast<const E*>(x);
+  ClusterArgs<E, X> p;
+  StackArgs<E, X>& a = p.s;
+  a.x = static_cast<const X*>(x);
   a.w1 = static_cast<const E*>(w1);
   a.b1 = static_cast<const E*>(b1);
   a.w2 = static_cast<const E*>(w2);
@@ -1183,9 +1198,12 @@ int forward(const void* x, const void* w1, const void* b1, const void* w2,
   auto al16 = [](const void* q) {
     return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
   };
-  // runs of 4 float32 or 8 bf16 elements: 16 bytes
+  // runs of 4 float32 or 8 bf16 elements: 16 bytes of the ring, from kRun
+  // elements of x (int8: 4 or 8 bytes, aligned to that)
   constexpr int kRun = 16 / static_cast<int>(sizeof(E));
-  p.vec_x = !src_nchw && N % kRun == 0 && nb % kRun == 0 && al16(x);
+  constexpr uintptr_t kXRun = kRun * sizeof(X);
+  p.vec_x = !src_nchw && N % kRun == 0 && nb % kRun == 0 &&
+            reinterpret_cast<uintptr_t>(x) % kXRun == 0;
   p.vec_w1 = Cm % kRun == 0 && al16(w1);
   p.vec_w2 = Co % kRun == 0 && al16(w2);
   p.stats = static_cast<unsigned long long*>(stats);
@@ -1205,10 +1223,10 @@ int forward(const void* x, const void* w1, const void* b1, const void* w2,
 // bm output channels a block; cl blocks a cluster along Co; nb x uth x utw
 // units a tile.  stats, if not
 // null, is two uint64 on the device: the FLOPs the kernel executes are
-// added to [0], the cluster size it ran with goes to [1].  Every tensor is
-// REPRO_WT (storage.cuh: conv_stack_chwn_forward is float32,
-// conv_stack_chwn_forward_bf16 the bf16 variant).  Returns a cudaError_t
-// code.
+// added to [0], the cluster size it ran with goes to [1].  x is REPRO_XT,
+// every other tensor REPRO_WT (storage.cuh: conv_stack_chwn_forward is
+// float32, conv_stack_chwn_forward_bf16 bf16, _i8f32 and _i8bf16 int8 x
+// with float32 or bf16 w).  Returns a cudaError_t code.
 extern "C" int REPRO_ENTRY(conv_stack_chwn_forward)(
     const void* x, const void* w1, const void* b1, const void* w2,
     const void* b2, const void* res, void* y, int N, int Ci, int H, int W,
@@ -1216,22 +1234,21 @@ extern "C" int REPRO_ENTRY(conv_stack_chwn_forward)(
     int pool_F, int pool_S, int pool_avg, int relu1, int relu2, int src_nchw,
     int dst_nchw, int res_nchw, int bm, int nb, int uth, int utw, int cl,
     void* stats, void* stream) {
-  return repro::stack_cluster::forward<REPRO_WT>(
+  return repro::stack_cluster::forward<REPRO_WT, REPRO_XT>(
       x, w1, b1, w2, b2, res, y, N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2,
       pool_F, pool_S, pool_avg, relu1, relu2, src_nchw, dst_nchw, res_nchw,
       bm, nb, uth, utw, cl, stats, stream, nullptr);
 }
 
 // How many clusters of the tile above can be resident on the device at once
-// (cudaOccupancyMaxActiveClusters of this build's kernel: the float32 and
-// the bf16 kernels differ in registers), into *clusters.  Returns a
-// cudaError_t.
+// (cudaOccupancyMaxActiveClusters of this build's kernel: the builds'
+// kernels differ in registers), into *clusters.  Returns a cudaError_t.
 extern "C" int REPRO_ENTRY(conv_stack_chwn_max_clusters)(
     int N, int Ci, int H, int W, int Cm, int F1, int S1, int P1, int Co,
     int F2, int S2, int P2, int pool_F, int pool_S, int bm, int nb, int uth,
     int utw, int cl, int* clusters) {
   *clusters = 0;
-  return repro::stack_cluster::forward<REPRO_WT>(
+  return repro::stack_cluster::forward<REPRO_WT, REPRO_XT>(
       nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, N, Ci,
       H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pool_F, pool_S, 0, 1, 1, 0, 0, 0,
       bm, nb, uth, utw, cl, nullptr, nullptr, clusters);

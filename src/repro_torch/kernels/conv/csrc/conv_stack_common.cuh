@@ -1,8 +1,9 @@
 // The tile helpers of the conv -> conv stack kernels, K5a
 // (conv_stack_chwn.cu) and K5b (conv_stack_nchw.cu): the launch arguments
-// (StackArgs, over the storage type E: float32 for both, or bf16 for K5a,
-// whose mid activation stays float32), a block's tile of output units and the clipped mid box it
-// reads (make_tile, mid_span).
+// (StackArgs, over the storage type E of the weights, biases, residual and
+// output, float32 or bf16, and X of x, E's or int8; the mid activation
+// stays float32), a block's tile of output units and the clipped mid box
+// it reads (make_tile, mid_span).
 //
 // A block owns NB images x UTH x UTW output units (a unit is one conv2
 // output, or one pooled output whose T = pF*pF taps are the conv2 outputs
@@ -19,9 +20,9 @@
 namespace repro {
 namespace stack {
 
-template <typename E = float>
+template <typename E = float, typename X = E>
 struct StackArgs {
-  const E* x;
+  const X* x;
   const E* w1;      // w1[cm * w1O + k1 * w1K], k1 = (ci, dy, dx)
   const E* b1;      // [Cm] or null
   const E* w2;      // w2[co * w2O + k2 * w2K], k2 = (cm, dy, dx)
@@ -57,8 +58,8 @@ __device__ __forceinline__ void mid_span(int o0, int on, int S2, int P2,
   if (cnt < 0) cnt = 0;
 }
 
-template <typename E>
-__device__ __forceinline__ Tile make_tile(const StackArgs<E>& a) {
+template <typename E, typename X>
+__device__ __forceinline__ Tile make_tile(const StackArgs<E, X>& a) {
   Tile t;
   int b = blockIdx.x;
   const int tw = b % a.nTW;

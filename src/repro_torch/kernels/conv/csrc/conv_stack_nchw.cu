@@ -74,7 +74,14 @@
 // it): bf16 rings stepping 16 channels at one tap, one bf16 product a
 // conv1 term and three a conv2 term.  The mid slab stays float32, as in
 // K5a's bf16 build and the reference (stack.py keeps its mid in f32), and
-// y is rounded once where it is stored.
+// y is rounded once where it is stored.  The int8 builds take int8 x
+// (quantized per channel, its scale folded into w1, as the reference's
+// stack takes it) and keep their float twin's kernel and tiles, x widened
+// as it lands in shared memory: int8->fp32 into the float32 box (copy4:
+// one 4-byte load of 4 elements; copy1), where an int8 value is exact in
+// TF32 and conv1 keeps fp32 accuracy; int8->bf16 into the bf16 box (a run
+// of 8 by one 8-byte load, storage::bf16x8; bytes else), exact, as |q| <=
+// 127 fits bf16's 8-bit significand.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -99,7 +106,8 @@ using repro::storage::ld;
 using repro::storage::pack2;
 using repro::storage::put;
 using repro::storage::split3;
-using T = REPRO_WT;  // the storage type of every tensor (the mid: float32)
+using T = REPRO_WT;  // the storage type of w, bias, residual and y
+using X = REPRO_XT;  // x's: T's, or int8 (the mid: float32)
 using repro::stack::StackArgs;
 using repro::stack::Tile;
 
@@ -115,9 +123,9 @@ constexpr int kPassTiles = 32;     // 8-position tiles of a conv1 pass
 constexpr int kTile = 16384;       // BM * BN
 constexpr int kSmemMax = 232448;   // 227 KB, what an H100 block may use
 
-template <typename E>
+template <typename E, typename XT = E>
 struct K5bArgs {
-  StackArgs<E> s;
+  StackArgs<E, XT> s;
   int FF1, FF2;          // taps of conv1 and conv2
   int SA1, SA2;          // weight slice row strides: 8 ga F1^2 + 4, 8 F2^2 + 4
   int XSTR;              // x box channel stride (8 mod 32)
@@ -140,9 +148,9 @@ struct Box {
                              // 4) and the first column's shift in it
 };
 
-template <typename E>
-__device__ __forceinline__ Box make_box(const K5bArgs<E>& a, const Tile& t) {
-  const StackArgs<E>& s = a.s;
+template <typename A>
+__device__ __forceinline__ Box make_box(const A& a, const Tile& t) {
+  const auto& s = a.s;
   Box b;
   const bool pool = s.pF > 0;
   b.oh0 = pool ? t.uh0 * s.pS : t.uh0;
@@ -173,7 +181,8 @@ __device__ __forceinline__ Box make_box(const K5bArgs<E>& a, const Tile& t) {
 struct StageId {
   int chunk, pass, oct, q;  // oct: the first 8-channel group; q >= 0: B
 };
-__device__ __forceinline__ StageId stage_id(const K5bArgs<float>& a,
+template <typename XT>
+__device__ __forceinline__ StageId stage_id(const K5bArgs<float, XT>& a,
                                             const Box& b, int sl) {
   const int na = b.passes * a.a_stages, per = na + kCM / 8;
   StageId id;
@@ -191,16 +200,16 @@ __device__ __forceinline__ StageId stage_id(const K5bArgs<float>& a,
 }
 
 // F1T, F2T: the convs' filter sizes where fixed at compile time (3), else 0
-template <int BM, bool POOL, int F1T, int F2T>
+template <typename XT, int BM, bool POOL, int F1T, int F2T>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_stack_nchw_kernel(const K5bArgs<float> a) {
+conv_stack_nchw_kernel(const K5bArgs<float, XT> a) {
   constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
   constexpr int BN = kTile / BM;
   constexpr int WM = BM / 32;   // phase B warps along Co, 32 rows each
   constexpr int WN = 8 / WM;    // phase B warps along the columns
   constexpr int TS = BN + 8;    // epilogue tile row stride
   extern __shared__ __align__(16) float smem[];  // ring, then the slab
-  const StackArgs<float>& s = a.s;
+  const StackArgs<float, XT>& s = a.s;
   const Tile t = repro::stack::make_tile(s);
   const Box b = make_box(a, t);
   const int co0 = blockIdx.y * BM;
@@ -625,7 +634,8 @@ static_assert(16 * sizeof(bf16) == 8 * sizeof(float),
 // from an origin aligned down to 8 and a width rounded up to 8 where the
 // rows copy by 16 bytes (vec_x), else from the first column itself and a
 // width rounded up to 4
-__device__ __forceinline__ Box make_box_bf16(const K5bArgs<bf16>& a,
+template <typename XT>
+__device__ __forceinline__ Box make_box_bf16(const K5bArgs<bf16, XT>& a,
                                              const Tile& t) {
   Box b = make_box(a, t);
   const int iws = b.iw0 + b.sh;
@@ -644,7 +654,8 @@ __device__ __forceinline__ Box make_box_bf16(const K5bArgs<bf16>& a,
 
 // stage sl of the bf16 walk: phase A stages of gb 16-channel groups of Ci,
 // then kCM / 16 phase-B stages a chunk
-__device__ __forceinline__ StageId stage_id_bf16(const K5bArgs<bf16>& a,
+template <typename XT>
+__device__ __forceinline__ StageId stage_id_bf16(const K5bArgs<bf16, XT>& a,
                                                  const Box& b, int sl) {
   const int na = b.passes * a.a_stages, per = na + kCM / 16;
   StageId id;
@@ -661,9 +672,17 @@ __device__ __forceinline__ StageId stage_id_bf16(const K5bArgs<bf16>& a,
   return id;
 }
 
-template <int BM, bool POOL, int F1T, int F2T>
+// one x element's bf16 bits: a bf16 as it is, an int8 widened (exact)
+__device__ __forceinline__ unsigned xbits_at(const bf16* x, long long i) {
+  return __ldg(reinterpret_cast<const unsigned short*>(x) + i);
+}
+__device__ __forceinline__ unsigned xbits_at(const int8_t* x, long long i) {
+  return __float_as_uint(static_cast<float>(__ldg(x + i))) >> 16;
+}
+
+template <typename XT, int BM, bool POOL, int F1T, int F2T>
 __global__ void __launch_bounds__(kThreads, 1)
-conv_stack_nchw_bf16_kernel(const K5bArgs<bf16> a) {
+conv_stack_nchw_bf16_kernel(const K5bArgs<bf16, XT> a) {
   constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
   constexpr int BN = kTile / BM;
   constexpr int WM = BM / 64;   // phase B warps along Co, 64 rows each
@@ -672,7 +691,7 @@ conv_stack_nchw_bf16_kernel(const K5bArgs<bf16> a) {
   extern __shared__ __align__(16) float smem[];  // ring, then the slab
   // the ring in bf16 bits: stage s at 2 s STAGE halfwords
   unsigned short* ring = reinterpret_cast<unsigned short*>(smem);
-  const StackArgs<bf16>& s = a.s;
+  const StackArgs<bf16, XT>& s = a.s;
   const Tile t = repro::stack::make_tile(s);
   const Box b = make_box_bf16(a, t);
   const int co0 = blockIdx.y * BM;
@@ -703,7 +722,6 @@ conv_stack_nchw_bf16_kernel(const K5bArgs<bf16> a) {
         ++c160;
       }
     }
-    const unsigned short* xbits = reinterpret_cast<const unsigned short*>(s.x);
     auto stage = [&](int sl) {
       const StageId id = stage_id_bf16(a, b, sl);
       unsigned short* st = ring + (sl % NS) * 2 * a.STAGE;
@@ -750,9 +768,9 @@ conv_stack_nchw_bf16_kernel(const K5bArgs<bf16> a) {
               for (int j = 0; j < 4; ++j)
                 h[u][j] = rok && static_cast<unsigned>(iw + j) <
                                      static_cast<unsigned>(s.W)
-                              ? __ldg(xbits + base +
-                                      static_cast<long long>(iw + j) *
-                                          s.xs.w)
+                              ? xbits_at(s.x, base +
+                                                  static_cast<long long>(
+                                                      iw + j) * s.xs.w)
                               : 0u;
               xq += dq;  // on by kProducers copies
               int rows = drow;
@@ -783,7 +801,7 @@ conv_stack_nchw_bf16_kernel(const K5bArgs<bf16> a) {
             unsigned v[2][4];
             unsigned short* d[2];
             bool run[2];
-            const unsigned short* src[2];
+            const XT* src[2];
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
               const int e = e0 + u * kProducers;
@@ -801,23 +819,33 @@ conv_stack_nchw_bf16_kernel(const K5bArgs<bf16> a) {
                   static_cast<long long>(ci) * s.xs.c +
                   static_cast<long long>(ih) * s.xs.h;
               run[u] = rok && iw >= 0 && iw + 8 <= s.W;
-              src[u] = xbits + base + iw;
+              src[u] = s.x + base + iw;
               unsigned h[8];
 #pragma unroll
               for (int j = 0; j < 8; ++j)
                 h[j] = !run[u] && rok &&
                                static_cast<unsigned>(iw + j) <
                                    static_cast<unsigned>(s.W)
-                           ? __ldg(xbits + base + iw + j)
+                           ? xbits_at(s.x, base + iw + j)
                            : 0u;
 #pragma unroll
               for (int j = 0; j < 4; ++j)
                 v[u][j] = h[2 * j] | (h[2 * j + 1] << 16);
+              if constexpr (!std::is_same<XT, bf16>::value) {
+                if (run[u]) {  // 8 int8 by one 8-byte load, widened
+                  const uint4 r = repro::storage::bf16x8(
+                      __ldg(reinterpret_cast<const uint2*>(src[u])));
+                  v[u][0] = r.x;
+                  v[u][1] = r.y;
+                  v[u][2] = r.z;
+                  v[u][3] = r.w;
+                }
+              }
             }
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
               if (e0 + u * kProducers >= total) break;
-              if (run[u])
+              if (std::is_same<XT, bf16>::value && run[u])
                 cp16(d[u], src[u], true);
               else
                 *reinterpret_cast<uint4*>(d[u]) =
@@ -1187,13 +1215,13 @@ Layout layout_bf16(const Layout& l, int Ci, int F1, int S1, int F2, int S2,
 }
 
 template <int BM, bool POOL, int FT>
-cudaError_t launch_f(const K5bArgs<T>& a, dim3 grid, int smem,
+cudaError_t launch_f(const K5bArgs<T, X>& a, dim3 grid, int smem,
                      cudaStream_t st) {
-  void (*kernel)(const K5bArgs<T>);
+  void (*kernel)(const K5bArgs<T, X>);
   if constexpr (std::is_same<T, bf16>::value)
-    kernel = conv_stack_nchw_bf16_kernel<BM, POOL, FT, FT>;
+    kernel = conv_stack_nchw_bf16_kernel<X, BM, POOL, FT, FT>;
   else
-    kernel = conv_stack_nchw_kernel<BM, POOL, FT, FT>;
+    kernel = conv_stack_nchw_kernel<X, BM, POOL, FT, FT>;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -1202,7 +1230,7 @@ cudaError_t launch_f(const K5bArgs<T>& a, dim3 grid, int smem,
 }
 
 template <int BM, bool POOL>
-cudaError_t launch(const K5bArgs<T>& a, dim3 grid, int smem,
+cudaError_t launch(const K5bArgs<T, X>& a, dim3 grid, int smem,
                    cudaStream_t st) {
   return a.s.F1 == 3 && a.s.F2 == 3 ? launch_f<BM, POOL, 3>(a, grid, smem, st)
                                     : launch_f<BM, POOL, 0>(a, grid, smem, st);
@@ -1212,8 +1240,9 @@ cudaError_t launch(const K5bArgs<T>& a, dim3 grid, int smem,
 
 // Host entry of K5b: fills the arguments from the shapes and the tile the
 // wrapper chose (bm output channels; nb x uth x utw output units), and
-// launches.  Every tensor is REPRO_WT (storage.cuh: conv_stack_nchw_forward
-// is float32, conv_stack_nchw_forward_bf16 bf16).  stats (or null): one
+// launches.  x is REPRO_XT, every other tensor REPRO_WT (storage.cuh:
+// conv_stack_nchw_forward is float32, conv_stack_nchw_forward_bf16 bf16,
+// _i8f32 and _i8bf16 int8 x with float32 or bf16 w).  stats (or null): one
 // uint64 on the card that the blocks add their executed FLOPs to.  Returns
 // a cudaError_t code.
 extern "C" int REPRO_ENTRY(conv_stack_nchw_forward)(
@@ -1233,9 +1262,9 @@ extern "C" int REPRO_ENTRY(conv_stack_nchw_forward)(
                     box8);
   if (l.bytes < 0 || l.bytes > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  K5bArgs<T> a{};
-  StackArgs<T>& s = a.s;
-  s.x = static_cast<const T*>(x);
+  K5bArgs<T, X> a{};
+  StackArgs<T, X>& s = a.s;
+  s.x = static_cast<const X*>(x);
   s.w1 = static_cast<const T*>(w1);
   s.b1 = static_cast<const T*>(b1);
   s.w2 = static_cast<const T*>(w2);

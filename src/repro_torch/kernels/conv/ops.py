@@ -16,12 +16,12 @@ For a CPU tensor a wrapper returns the plain version (``ref.conv_ref``,
 raises; it never falls back, and a stack never splits into two convs.
 Each wrapper counts its launches in ``<wrapper>.launches``.
 
-Storage dtypes (``_build.CONV_VARIANTS``): K1 and K2 take float32 or bf16
-x and w, or int8 x (per-channel quantized, its scale folded into w:
-``repro_torch.quant``) with float32 or bf16 w; bias and residual are w's
-dtype, and so is the output (the reference's ``result_type(x, w)``).  K5a
-and K5b take float32 or bf16, every tensor one dtype.  A narrow launch
-also counts in ``<wrapper>.variant_launches[variant]``.  The kernels
+Storage dtypes (``_build.CONV_VARIANTS``): K1, K2 and the stacks K5a and
+K5b take float32 or bf16 x and w, or int8 x (per-channel quantized, its
+scale folded into w, a stack's w1: ``repro_torch.quant``) with float32 or
+bf16 w; biases, w2 and residual are w's dtype, and so is the output (the
+reference's ``result_type(x, w)``).  A narrow launch also counts in
+``<wrapper>.variant_launches[variant]``.  The kernels
 accumulate in float32 and round once where they store; the plain versions
 do the same.  ``save_act`` (training) stores z in the output's dtype, as
 the reference does.
@@ -1200,9 +1200,9 @@ def _stack_launch(entry: str, wrapper, engine: str, x, w1, w2, Ci: int,
                               dst_layout=dst_layout)
     tiling = stack_tiling(engine, N, Ci, H, W, Cm, F1, stride1, pad1, Co,
                           F2, stride2, pad2, tuple(pool) if pool else None)
-    dev, variant = _build.require_cuda_storage(
-        name, x, w1=w1, w2=w2, bias1=bias1, bias2=bias2, res=res)
-    y = _output(name, x, dst_layout, N, Co, OH, OW, x.dtype)
+    dev, variant = _build.require_cuda_conv(
+        name, x, w1, w2=w2, bias1=bias1, bias2=bias2, res=res)
+    y = _output(name, x, dst_layout, N, Co, OH, OW, w1.dtype)
     cluster = (tiling.cluster,) if engine == "CHWN" else ()
     err = _build.entry(entry, variant)(
         x.data_ptr(), w1.data_ptr(), _ptr(bias1), w2.data_ptr(), _ptr(bias2),
@@ -1248,7 +1248,9 @@ class _StackFn(torch.autograd.Function):
     (``conv_backward``).  conv2's ReLU mask comes from the saved stack
     output; where the stack pools, conv2 is recomputed once more with
     ``save_act`` for the pre-pool activation that the pool backward
-    routes through."""
+    routes through.  An int8 x (quantized, its scale folded into w1) has
+    no gradient, as the reference trains on a float carrier; w1's gradient
+    then reads x widened to w1's dtype, exactly."""
 
     @staticmethod
     def forward(ctx, x, w1, b1, w2, b2, res, engine, stride1, pad1, stride2,
@@ -1282,6 +1284,8 @@ class _StackFn(torch.autograd.Function):
             g, y1, w2, act2, engine=engine, stride=stride2, pad=pad2,
             relu=relu2, pool=pool, res_layout=res_layout, src_layout=engine,
             dst_layout=dst_layout, needs=(True, need_w2, need_b2, need_res))
+        if x.dtype == torch.int8:      # K6 takes float x: widen, exactly
+            x = x.to(w1.dtype)
         dx, dw1, db1, _ = conv_backward(
             dy1, x, w1, y1, engine=engine, stride=stride1, pad=pad1,
             relu=relu1, pool=None, res_layout=engine, src_layout=src_layout,
@@ -1388,13 +1392,15 @@ def stack_max_clusters(N: int, Ci: int, H: int, W: int, Cm: int, F1: int,
                        S1: int, P1: int, Co: int, F2: int, S2: int, P2: int,
                        pool: Optional[Tuple[int, int, str]],
                        tiling: StackTiling,
-                       dtype: torch.dtype = torch.float32) -> int:
+                       dtype: torch.dtype = torch.float32,
+                       w_dtype: Optional[torch.dtype] = None) -> int:
     """How many of K5a's clusters at ``tiling`` the card holds at once
-    (``cudaOccupancyMaxActiveClusters``), for the build of ``dtype``
-    (float32 or bf16: their kernels differ in registers)."""
+    (``cudaOccupancyMaxActiveClusters``), for the build of x's ``dtype``
+    and w's ``w_dtype`` (default: x's), the pair's variant in
+    ``_build.CONV_VARIANTS`` (the builds' kernels differ in registers)."""
     n = ctypes.c_int(0)
     pF, pS = (pool[0], pool[1]) if pool else (0, 0)
-    variant = _build.FLOAT_VARIANTS[dtype]
+    variant = _build.CONV_VARIANTS[(dtype, w_dtype or dtype)]
     _build.check("stack_max_clusters",
                  _build.entry("conv_stack_chwn_max_clusters", variant)(
                      N, Ci, H, W, Cm, F1, S1, P1, Co, F2, S2, P2, pF, pS,
@@ -1455,5 +1461,5 @@ conv_stack_nchw.launches = 0
 conv_direct_chwn.variant_launches = {"bf16": 0, "i8f32": 0, "i8bf16": 0}
 conv_im2col_nchw_fused.variant_launches = {"bf16": 0, "i8f32": 0,
                                            "i8bf16": 0}
-conv_stack_chwn.variant_launches = {"bf16": 0}
-conv_stack_nchw.variant_launches = {"bf16": 0}
+conv_stack_chwn.variant_launches = {"bf16": 0, "i8f32": 0, "i8bf16": 0}
+conv_stack_nchw.variant_launches = {"bf16": 0, "i8f32": 0, "i8bf16": 0}

@@ -1,8 +1,8 @@
 // Storage dtypes of the serving path's kernels: the conv kernels K1
-// (conv/csrc/conv_chwn.cu) and K2 (conv/csrc/conv_nchw.cu) load float32,
-// bf16 or int8 x and float32 or bf16 w, the stack K5a
-// (conv/csrc/conv_stack_chwn.cu) and the softmax K4 (softmax/csrc/
-// softmax.cu) float32 or bf16.  Every one of them sums in float32 and
+// (conv/csrc/conv_chwn.cu), K2 (conv/csrc/conv_nchw.cu) and the stacks K5a
+// (conv/csrc/conv_stack_chwn.cu) and K5b (conv/csrc/conv_stack_nchw.cu)
+// load float32, bf16 or int8 x and float32 or bf16 w, the softmax K4
+// (softmax/csrc/softmax.cu) float32 or bf16.  Every one of them sums in float32 and
 // rounds once, to nearest even, where it stores (put).
 //
 // A narrow source is compiled again for each storage variant

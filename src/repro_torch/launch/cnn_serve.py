@@ -52,9 +52,18 @@ Two differences from the reference are deliberate:
     admitted batch goes back to the front of the queue and the error
     propagates at once, with no lower rung tried.
 
+``devices`` > 1 serves over a data-parallel mesh
+(``distributed.cnn_mesh``): a step drains up to ``max_bucket * devices``
+requests, the batch is padded to ``bucket * devices`` and split batch-wise
+over the first ``devices`` cards, the weights replicated, and every shard
+runs the plan of the PER-SHARD bucket (``max_bucket`` bounds the shard
+bucket; plans are keyed on it and on ``devices``).  Every rung of the
+ladder runs sharded.  ``devices=1`` is the single-card server unchanged.
+
 The report shows the dtype and policy, the plan cache's hit rate and
 planner calls, per bucket the hit rate, the plans' conv layouts, storage
-dtypes and stacks, modeled device-memory bytes, images/s, the prediction
+dtypes and stacks, modeled device-memory bytes (all cards, and a card's
+a batch), images/s, the prediction
 error of the plan's modeled seconds, the rung that served, degraded
 batches, failed rung attempts and stragglers, then the incident totals.
 """
@@ -75,6 +84,9 @@ from repro_torch.cnn.layers import init_cnn
 from repro_torch.cnn.network import FusedCNN, batch_output_ok
 from repro_torch.configs.cnn_networks import (CNN_BUILDERS, CNN_CONFIGS,
                                               reduced_cnn)
+from repro_torch.distributed.cnn_mesh import (cnn_data_mesh,
+                                              forward_fused_sharded,
+                                              replicate_params)
 from repro_torch.dtypes import (INT8_DTYPE, canon_dtype, dtype_bytes,
                                 torch_dtype)
 from repro_torch.kernels._build import KERNEL_ERRORS
@@ -130,7 +142,9 @@ class BucketReport:
     padded: int = 0                    # pad rows executed (bucket waste)
     hits: int = 0
     misses: int = 0
-    hbm_bytes: int = 0                 # modeled bytes, summed over batches
+    hbm_bytes: int = 0                 # modeled bytes of all cards, summed
+                                       # over batches
+    per_chip_bytes: int = 0            # modeled bytes of one card, summed
     seconds: float = 0.0               # host clock, each batch synchronized
     degraded: int = 0                  # batches served below the top rung
     failures: int = 0                  # rung attempts that failed
@@ -177,7 +191,10 @@ class CNNServer:
     (least-recently-hit eviction).  ``injector`` injects faults;
     ``backoff_s`` is the first delay between rungs (doubling down the
     ladder; 0 for none); ``run`` gives up after ``max_step_failures``
-    consecutive fully failed steps."""
+    consecutive fully failed steps.  ``devices`` > 1 shards every batch
+    over ``cnn_data_mesh(devices, device)`` (module docstring); ``mesh``,
+    a tuple of devices, names the shards' devices instead (two shards on
+    one card rehearse the split), and ``devices`` is then its length."""
 
     def __init__(self, network: str = "lenet", *, reduced: bool = True,
                  max_bucket: int = 64, cache_path: Optional[str] = None,
@@ -189,7 +206,8 @@ class CNNServer:
                  dtype: str = "float32", dtype_policy: str = "uniform",
                  max_plans: Optional[int] = None,
                  injector: Optional[FaultInjector] = None,
-                 backoff_s: float = 0.0, max_step_failures: int = 8):
+                 backoff_s: float = 0.0, max_step_failures: int = 8,
+                 devices: int = 1, mesh=None):
         self.dtype = canon_dtype(dtype)
         if self.dtype not in DTYPES:
             raise ValueError(f"the port serves {DTYPES}, not {dtype!r}")
@@ -218,6 +236,14 @@ class CNNServer:
         # a quarantine costs no replan
         self._quarantine: set = set()
         self.device = resolve_device(device)
+        if mesh is not None:
+            devices = len(mesh)
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        self.devices = devices
+        # the shards' devices; devices == 1 keeps the single-card path
+        self.mesh = (None if devices == 1 else tuple(mesh) if mesh is not None
+                     else cnn_data_mesh(devices, self.device))
         self._hw = hardware_id(self.device)
         cfg = CNN_CONFIGS[network]
         if reduced and cfg.image_hw > 96:
@@ -267,6 +293,9 @@ class CNNServer:
             self.cache.set_thresholds(th, row, hardware=self._hw)
         self.model = FusedCNN(cfg, init_cnn(cfg, seed), self.device,
                               self.dtype)
+        # replicate once, serve forever
+        self._replicas = (None if self.mesh is None else
+                          replicate_params(self.model.params(), self.mesh))
         self.queue: Deque[ImageRequest] = deque()
         self.reports: Dict[int, BucketReport] = {}
         self._fwd: Dict[Tuple[int, str], Callable] = {}
@@ -284,23 +313,36 @@ class CNNServer:
         self.queue.append(req)
 
     def _forward_for(self, bucket: int, rung: Rung) -> Callable:
-        """The forward of (bucket, rung): the rung's plan from the cache
-        (``_run_guarded`` has just planned it) on the rung's engine,
-        returning (probabilities, the finite check); each run files the
-        plan's modeled bytes under (bucket, rung name)."""
+        """The forward of (shard bucket, rung): the rung's plan from the
+        cache (``_run_guarded`` has just planned it) on the rung's engine,
+        sharded over the mesh where there is one, returning
+        (probabilities, the finite check); each run files one card's
+        modeled bytes under (bucket, rung name)."""
         key = (bucket, rung.name)
         if key not in self._fwd:
+            # ``bucket`` is the per-shard bucket: pre_sharded, or the key
+            # would divide by devices a second time
             plan = self.cache.peek_fused(self.cfg, bucket, dtype=self.dtype,
                                          policy=rung.policy,
-                                         stack=rung.stack)
+                                         stack=rung.stack,
+                                         devices=self.devices,
+                                         pre_sharded=True)
             if plan is None:
                 plan, _, _ = self.cache.fused_plan(self.cfg, bucket,
                                                    dtype=self.dtype,
                                                    policy=rung.policy,
-                                                   stack=rung.stack)
+                                                   stack=rung.stack,
+                                                   devices=self.devices,
+                                                   pre_sharded=True)
+            scfg = self.cfg.replace(batch=bucket)   # the shard's config
 
             def fwd(x: torch.Tensor):
-                y, stats = self.model(x, plan, rung.impl)
+                if self.mesh is None:
+                    y, stats = self.model(x, plan, rung.impl)
+                else:
+                    y, stats = forward_fused_sharded(
+                        self._replicas, x, scfg, plan, self.mesh,
+                        impl=rung.impl)
                 self._plan_stats[key] = stats.hbm_bytes
                 return y, batch_output_ok(y)
 
@@ -314,11 +356,16 @@ class CNNServer:
         engine running it."""
         return (bucket, rung.policy, rung.stack, rung.impl)
 
+    def _shard_bucket(self, B: int) -> int:
+        """The per-shard bucket an admitted batch of ``B`` lands in (the
+        bucket itself where devices == 1)."""
+        return self.cache.bucket(-(-B // self.devices))
+
     def _run_guarded(self, x_np: np.ndarray, B: int) -> _GuardResult:
         """Run one admitted batch down the ladder.  Raises ``ServingFault``
         when every rung failed, and a kernel's build or launch error at
         once; the caller re-queues the batch either way."""
-        bucket = self.cache.bucket(B)
+        bucket = self._shard_bucket(B)
         # the first rung not quarantined; a fully quarantined bucket still
         # serves on the last rung
         start = next((i for i, r in enumerate(self.ladder)
@@ -336,12 +383,13 @@ class CNNServer:
                     self.injector.maybe_kernel_fault(quals)
                 _, _, hit = self.cache.fused_plan(
                     self.cfg, B, dtype=self.dtype, policy=rung.policy,
-                    stack=rung.stack)
+                    stack=rung.stack, devices=self.devices)
                 fwd = self._forward_for(bucket, rung)
                 x = torch.from_numpy(x_np).to(self.device,
                                               torch_dtype(self.dtype))
                 with torch.inference_mode():
-                    y, ok = fwd(pad_to_bucket(x, bucket))
+                    # global pad: every shard gets exactly ``bucket`` rows
+                    y, ok = fwd(pad_to_bucket(x, bucket * self.devices))
                     ok = bool(ok)              # synchronizes
                 probs = y.float().cpu().numpy()
                 if self.injector is not None:
@@ -379,14 +427,16 @@ class CNNServer:
     # -- serving loop --------------------------------------------------------
 
     def step(self) -> List[ImageRequest]:
-        """Drain up to ``max_bucket`` queued requests as one fused batch.
+        """Drain up to ``max_bucket * devices`` queued requests as one
+        fused batch.
         The batch completes on some rung of the ladder, or returns to the
         FRONT of the queue in its order before the error propagates: a
         failed step loses no request."""
         if not self.queue:
             return []
         batch = [self.queue.popleft()
-                 for _ in range(min(len(self.queue), self.cache.max_bucket))]
+                 for _ in range(min(len(self.queue),
+                                    self.cache.max_bucket * self.devices))]
         B = len(batch)
         x_np = np.stack([r.image for r in batch])
         try:
@@ -404,8 +454,10 @@ class CNNServer:
             r.probs = res.probs[i]
         rep.batches += 1
         rep.images += B
-        rep.padded += res.bucket - B
-        rep.hbm_bytes += self._plan_stats[(res.bucket, res.rung.name)]
+        rep.padded += res.bucket * self.devices - B
+        per_chip = self._plan_stats[(res.bucket, res.rung.name)]
+        rep.per_chip_bytes += per_chip
+        rep.hbm_bytes += per_chip * self.devices
         rep.seconds += res.seconds
         rep.rung = res.rung.name
         if res.rung_index > 0:
@@ -470,7 +522,8 @@ class CNNServer:
         when the rung failed before it planned."""
         top = self.ladder[0]
         return self.cache.peek_fused(self.cfg, bucket, dtype=self.dtype,
-                                     policy=top.policy, stack=top.stack)
+                                     policy=top.policy, stack=top.stack,
+                                     devices=self.devices, pre_sharded=True)
 
     def prediction_errors(self) -> Dict[int, float]:
         """Per-bucket relative error of the top rung's plan's modeled
@@ -503,6 +556,7 @@ class CNNServer:
         lines = [f"net={self.cfg.name} image_hw={self.cfg.image_hw} "
                  f"dtype={self.dtype} policy={self.dtype_policy} "
                  f"stack={self.stack} impl={self.impl} device={dev} "
+                 f"devices={self.devices} "
                  f"hw={self._hw} {rows} "
                  f"hit_rate={self.cache.stats.hit_rate:.2f} "
                  f"planner_calls={self.cache.planner_calls} "
@@ -516,6 +570,8 @@ class CNNServer:
                                  (plan.conv_signature, plan.dtype_signature,
                                   plan.stacked_convs))
             ips = rep.images / rep.seconds if rep.seconds else 0.0
+            pcmb = (rep.per_chip_bytes / rep.batches / 1e6 if rep.batches
+                    else 0.0)
             perr = f"{errs[b]:.2f}" if b in errs else "n/a"
             wd = self._watchdogs.get(b)
             lines.append(
@@ -523,7 +579,8 @@ class CNNServer:
                 f"images={rep.images:<5d} pad_waste={rep.padded:<4d} "
                 f"hit_rate={rep.hit_rate:.2f} "
                 f"conv_layouts={sig} conv_dtypes={dsig} stacks={stacks} "
-                f"modeled_MB={rep.hbm_bytes / 1e6:.1f} img/s={ips:.1f} "
+                f"modeled_MB={rep.hbm_bytes / 1e6:.1f} "
+                f"per_chip_MB={pcmb:.1f} img/s={ips:.1f} "
                 f"pred_err={perr} rung={rep.rung or 'n/a'} "
                 f"degraded={rep.degraded} failures={rep.failures} "
                 f"stragglers={len(wd.flagged) if wd else 0}")
@@ -574,6 +631,10 @@ def main(argv=None) -> None:
     ap.add_argument("--backoff", type=float, default=0.0,
                     help="first delay (s) between rungs of the ladder, "
                          "doubling down it")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shard each batch data-parallel over this many "
+                         "cards (the first ones; with --device cpu, CPU "
+                         "copies); plans are made for the per-shard bucket")
     ap.add_argument("--device", default=None,
                     help="default: the CUDA device; 'cpu' runs the plain "
                          "versions")
@@ -586,7 +647,7 @@ def main(argv=None) -> None:
                     dtype_policy=args.dtype_policy, max_plans=args.max_plans,
                     injector=parse_inject_spec(args.inject,
                                                seed=args.inject_seed),
-                    backoff_s=args.backoff)
+                    backoff_s=args.backoff, devices=args.devices)
     rng = np.random.default_rng(args.seed)
     c, h = srv.cfg.in_channels, srv.cfg.image_hw
     reqs = [ImageRequest(i, rng.standard_normal((c, h, h), np.float32))
@@ -599,7 +660,7 @@ def main(argv=None) -> None:
     rr = sum(max(0, st.misses - 1) for st in srv.cache.per_key.values())
     print(f"served {len(done)}/{len(reqs)} requests in {dt:.2f}s "
           f"({len(done) / dt:.1f} img/s overall, dropped={dropped}, "
-          f"replans_repeat={rr})")
+          f"devices={srv.devices}, replans_repeat={rr})")
     for line in srv.report_lines():
         print(line)
 

@@ -14,6 +14,12 @@ given), and counts ``planner_calls``.  ``CacheStats`` count hits and
 misses over all keys and per key; ``max_entries`` bounds each plan map
 with least-recently-hit eviction, and the recency order is persisted.
 
+A data-parallel server (``distributed.cnn_mesh``) keys its plans on
+``devices`` too, and on the per-shard bucket, ceil(batch / devices):
+the per-shard batch is what crosses the Nt threshold or not, so a global
+batch of 128 on 8 cards gets the 16-image plan.  ``devices == 1`` is left
+out of the saved key, so single-card files stay as they were.
+
 The cache reads and writes the reference's plan-cache JSON (versions 1
 and 2): plans, the calibrated (Ct, Nt) threshold rows keyed by (hardware
 id, dtype) that ``heuristic_layouts`` plans under, and the bounds.  A file
@@ -248,14 +254,20 @@ class PlanCache:
 
     def _key(self, cfg: CNNConfig, batch: Optional[int], dtype: str,
              training: bool, policy: str = "uniform",
-             stack: str = "auto") -> PlanKey:
+             stack: str = "auto", devices: int = 1,
+             pre_sharded: bool = False) -> PlanKey:
         if policy not in ("uniform", "mixed"):
             raise ValueError(f"unknown dtype policy {policy!r}")
         if stack not in ("auto", "off"):
             raise ValueError(f"unknown stack policy {stack!r}")
-        b = self.bucket(cfg.batch if batch is None else batch)
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        # the bucket is the per-shard batch's, divided by devices exactly
+        # once: a pre-sharded batch is already the per-shard one
+        g = cfg.batch if batch is None else batch
+        b = self.bucket(g if pre_sharded else -(-g // devices))
         return PlanKey(network_id(cfg), b, canon_dtype(dtype), training,
-                       policy, stack)
+                       policy, stack, devices)
 
     def _record(self, key: PlanKey, hit: bool) -> None:
         ks = self.per_key.setdefault(key, CacheStats())
@@ -280,13 +292,20 @@ class PlanCache:
 
     def fused_plan(self, cfg: CNNConfig, batch: Optional[int] = None, *,
                    dtype: str = DEFAULT_DTYPE, training: bool = False,
-                   policy: str = "uniform", stack: str = "auto"
+                   policy: str = "uniform", stack: str = "auto",
+                   devices: int = 1, pre_sharded: bool = False
                    ) -> Tuple[FusedPlan, int, bool]:
         """Fused-engine plan for ``batch``'s bucket (default: cfg.batch),
         planned on a miss at the bucket size and the key's storage dtype,
-        policy and stack policy.  Returns (plan, bucket, cache_hit)."""
+        policy and stack policy.  ``devices`` > 1 buckets and plans the
+        per-shard batch, ceil(batch / devices): every shard of a
+        data-parallel mesh runs the one plan.  ``pre_sharded`` says
+        ``batch`` is already the per-shard batch; the key still carries
+        ``devices``, so it is the entry the global batch resolves to.
+        Returns (plan, shard bucket, cache_hit)."""
         from repro_torch.cnn.network import plan_network_fused
-        key = self._key(cfg, batch, dtype, training, policy, stack)
+        key = self._key(cfg, batch, dtype, training, policy, stack, devices,
+                        pre_sharded)
         hit = key in self._fused
         self._record(key, hit)
         if not hit:
@@ -320,12 +339,14 @@ class PlanCache:
 
     def peek_fused(self, cfg: CNNConfig, batch: Optional[int] = None, *,
                    dtype: str = DEFAULT_DTYPE, training: bool = False,
-                   policy: str = "uniform", stack: str = "auto"
+                   policy: str = "uniform", stack: str = "auto",
+                   devices: int = 1, pre_sharded: bool = False
                    ) -> Optional[FusedPlan]:
         """Cached fused plan or None: no stats, no planning, no recency
-        refresh."""
+        refresh.  ``devices`` and ``pre_sharded`` as in ``fused_plan``."""
         return self._fused.get(self._key(cfg, batch, dtype, training,
-                                         policy, stack))
+                                         policy, stack, devices,
+                                         pre_sharded))
 
     def heuristic_layouts(self, cfg: CNNConfig,
                           batch: Optional[int] = None,

@@ -352,11 +352,13 @@ def test_conv_kernels_refuse_other_pairs(card):
         with pytest.raises(TypeError, match="bias"):
             wrapper(q, w, bias=torch.zeros(4, device=card,
                                            dtype=torch.bfloat16))
+    # the stacks take int8 x, but w2 must be w1's dtype
     with pytest.raises(TypeError, match="conv_stack_chwn"):
         conv_ops.conv_stack_chwn(
             torch.zeros(3, 8, 8, 2, device=card, dtype=torch.int8),
             torch.zeros(3, 3, 3, 4, device=card),
-            torch.zeros(4, 3, 3, 5, device=card), 1, 1, 1, 1)
+            torch.zeros(4, 3, 3, 5, device=card, dtype=torch.bfloat16),
+            1, 1, 1, 1)
     with pytest.raises(TypeError, match="softmax"):
         softmax(torch.zeros(2, 10, device=card, dtype=torch.float16))
 

@@ -50,7 +50,8 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "'kernels.flash_attention.ops', 'kernels.crossentropy.ops', "
         "'configs.registry', 'configs.qwen2_7b', 'configs.gemma2_27b', "
         "'configs.whisper_base', 'runtime.resilience', "
-        "'runtime.fault_tolerance', 'checkpoint.checkpointer'):\n"
+        "'runtime.fault_tolerance', 'checkpoint.checkpointer', "
+        "'distributed.cnn_mesh'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
