@@ -105,7 +105,11 @@
    scale-relative of float64 and the conv tolerance of the plain version,
    int8->bf16 within one bf16 step; counted FLOPs (and K5a's cluster)
    equal to ``stack_tiling``'s, three runs bitwise equal; library cuDNN's
-   two convs on the dequantized x in w's dtype.
+   two convs on the dequantized x in w's dtype.  Each int8->bf16 row also
+   times its bf16 twin on the same values (``twin_ms``: x widened
+   beforehand, exactly) and says whether the two outputs are bitwise
+   equal (``twin_bitwise``; K5b's must be: its int8->bf16 consumers are
+   the twin's).
 4. Planner phase, the main path's planned part: the paper's Fig. 4 on the
    card (K1 and K2 timed by the card measure with CUDA events over its
    whole grid: Ci 1-512 at N 64, then N 16-512 at Ci 256; Co 384, 13 x 13,
@@ -1419,6 +1423,21 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                              conv1 + 3 * (flops - conv1), m["bytes"],
                              PEAK_BF16_FLOPS)[0],
                          design="bf16_split3")
+        if variant == "i8bf16":
+            # the bf16 twin on the same values (x widened beforehand,
+            # exactly): what the int8 build's copy path costs beside the
+            # twin's; K5b's int8->bf16 consumers are the twin's, so its
+            # output is the twin's bit for bit
+            x_twin = x.to(torch.bfloat16)
+
+            def twin():
+                return wrapper(x_twin, w1k, w2k, S1, P1, S2, P2, **kw)
+
+            y_twin = twin()
+            m.update(twin_ms=cuda_ms(twin),
+                     twin_bitwise=bool(torch.equal(y_twin, y)))
+            if engine == "NCHW":
+                exact_check(y, y_twin)
         return m
     engine = "CHWN" if base == "conv_chwn" else "NCHW"
     if case[0] == "dgrad":
@@ -2279,6 +2298,9 @@ def kernel_phase(dev):
                 extra += f" bitwise_equal_runs={m['bitwise_equal_runs']}"
             if kern.startswith("conv_stack") and "f64_err" in m:
                 extra += f" f64_err={m['f64_err']:.3g}"
+            if "twin_ms" in m:
+                extra += (f" twin_ms={m['twin_ms']:.4f} "
+                          f"twin_bitwise={m['twin_bitwise']}")
             if kern.startswith("conv_nchw."):
                 extra += (f" executed/direct="
                           f"{m['executed_flops'] / m['flops']:.3f} "
@@ -4460,6 +4482,9 @@ def kernels_line(cases, launches) -> dict:
             entry["device_ms"] = total("device_ms")
         if all("library_device_ms" in r for r in rows):
             entry["library_device_ms"] = total("library_device_ms")
+        if all("twin_ms" in r for r in rows):
+            # the int8->bf16 stacks: their bf16 twin on the same values
+            entry["twin_ms"] = total("twin_ms")
         if all("median5" in r for r in rows):
             # back to back again: the median of 5 rounds in turns with the
             # plain version and the library call (``b2b_ms``)

@@ -16,12 +16,13 @@
 // (cluster_stack_bf16_kernel below, whose note says how); in both the mid
 // activation stays float32 (it never leaves the SM, so it is never rounded
 // to the storage type, as in the reference's kernel), and y is rounded
-// once where it is stored.  The int8 builds keep their float twin's kernel
-// and tiles and widen x as it lands in shared memory: int8->fp32 into the
-// float32 ring (copy4/copy1: a 4-byte load of 4 elements, widened), so
-// conv1 keeps fp32 accuracy; int8->bf16 into the bf16 ring (a run of 8 by
-// one 8-byte load, storage::bf16x8; bf16_bits else), exact, as |q| <= 127
-// fits bf16's 8-bit significand.
+// once where it is stored.  The int8 builds keep their float twin's tiles
+// and widen x as it lands in shared memory: int8->fp32 in the float32
+// kernel (copy4/copy1: a 4-byte load of 4 elements, widened into the
+// float32 ring), so conv1 keeps fp32 accuracy; int8->bf16 in a
+// warp-specialised kernel of its own (cluster_stack_i8bf16_kernel, whose
+// note says how): the bytes by cp.async, widened to bf16 in shared memory,
+// exact, as |q| <= 127 fits bf16's 8-bit significand.
 //
 // What bounds it on an H100: operations.  At AlexNet's conv3 -> conv4
 // (N = 128, 256 -> 384 -> 384, 13x13) both convs are far above the fp32
@@ -70,6 +71,7 @@
 
 #include "../../csrc/nan_max.cuh"
 #include "../../csrc/storage.cuh"
+#include "conv_ring.cuh"          // the ring barriers (int8->bf16 build)
 #include "conv_stack_common.cuh"  // StackArgs, Tile, make_tile
 
 namespace repro {
@@ -195,6 +197,84 @@ struct CShape {
   static constexpr int RING_B = 2 * kBK * (ASTR + TBN);
   static constexpr int RING = RING_A > RING_B ? RING_A : RING_B;
 };
+
+// The other ranks' shares of a chunk's mid slab, copied into this block's
+// slab through distributed shared memory (after the cluster barrier that
+// follows phase A), by threads tid of nthreads
+template <typename E, typename X>
+__device__ __forceinline__ void exchange_mid(const StackArgs<E, X>& a,
+                                             const Tile& t,
+                                             cg::cluster_group& cluster,
+                                             float* mid, int RR, int CL,
+                                             int rank, int cmn, int tid,
+                                             int nthreads) {
+  for (int q = 0; q < CL; ++q) {
+    if (q == rank) continue;
+    const int lo = min(t.RA, q * RR), hi = min(t.RA, lo + RR);
+    const float* rem = cluster.map_shared_rank(mid, q);
+    if (((lo | hi) & 3) == 0) {
+      const int nq = (hi - lo) / 4;
+      for (int e = tid; e < cmn * nq; e += nthreads) {
+        const int c = e / nq, j = lo + 4 * (e - c * nq);
+        *reinterpret_cast<float4*>(mid + c * a.RSTR + j) =
+            *reinterpret_cast<const float4*>(rem + c * a.RSTR + j);
+      }
+    } else {
+      const int n = hi - lo;
+      for (int e = tid; e < cmn * n; e += nthreads) {
+        const int c = e / n, j = lo + (e - c * n);
+        mid[c * a.RSTR + j] = rem[c * a.RSTR + j];
+      }
+    }
+  }
+}
+
+// conv2's epilogue of one sum v, tile row m (channel co), tile column c
+// (col = scol(c)): bias, residual, ReLU; then store, or stage it in the
+// pool tile Ts (over the slab)
+template <bool POOL, typename E, typename X>
+__device__ __forceinline__ void epilogue_one(const StackArgs<E, X>& a,
+                                             const SCol& col, int co, int m,
+                                             int c, float v, float* Ts,
+                                             int TSTR) {
+  if (!col.ok || co >= a.Co) return;
+  if (a.b2) v += ld(a.b2 + co);
+  if (a.res)
+    v += ld(a.res + (long long)col.n * a.rs.n + (long long)co * a.rs.c +
+            col.oh * a.rs.h + col.ow * a.rs.w);
+  if (a.relu2) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+  if (POOL)
+    Ts[m * TSTR + c] = v;
+  else
+    put(a.y + (long long)col.n * a.ys.n + (long long)co * a.ys.c +
+            col.oh * a.ys.h + col.ow * a.ys.w,
+        v);
+}
+
+// the pool over the staged tile Ts (TBM rows, once every thread that staged
+// it has passed a barrier): each unit's T taps, max (nan_max) or avg, by
+// threads tid of nthreads
+template <typename E, typename X>
+__device__ __forceinline__ void pool_tile(const StackArgs<E, X>& a,
+                                          const Tile& t, const float* Ts,
+                                          int TSTR, int TBM, int co0,
+                                          int tid, int nthreads) {
+  const float area = (float)(a.pF * a.pF);
+  for (int e = tid; e < TBM * a.BU; e += nthreads) {
+    const int m = e / a.BU, ul = e - m * a.BU;
+    const SCol col = scol(a, t, ul);  // tap 0 of unit ul
+    const int co = co0 + m;
+    if (!col.ok || co >= a.Co) continue;
+    float r = a.pool_avg ? 0.f : -INFINITY;
+    for (int tp = 0; tp < a.T; ++tp) {
+      const float v = Ts[m * TSTR + tp * a.BU + ul];
+      r = a.pool_avg ? r + v : nan_max(r, v);
+    }
+    put(a.y + (long long)col.n * a.ys.n + (long long)co * a.ys.c +
+            col.uh * a.ys.h + col.uw * a.ys.w,
+        a.pool_avg ? r / area : r);
+  }
+}
 
 // One conv1 pass of K5a's phase A: the [kCM x KRA] implicit GEMM of mid
 // positions [p0, p0 + KRA) (clipped to this rank's range [p_lo, p_hi))
@@ -417,25 +497,7 @@ cluster_stack_kernel(const ClusterArgs<E, X> p) {
 
     // ---- the other ranks' shares, through distributed shared memory -----
     cluster.sync();  // every rank's share of this chunk is in its slab
-    for (int q = 0; q < CL; ++q) {
-      if (q == rank) continue;
-      const int lo = min(t.RA, q * RR), hi = min(t.RA, lo + RR);
-      const float* rem = cluster.map_shared_rank(mid, q);
-      if (((lo | hi) & 3) == 0) {
-        const int nq = (hi - lo) / 4;
-        for (int e = tid; e < cmn * nq; e += kThreads) {
-          const int c = e / nq, j = lo + 4 * (e - c * nq);
-          *reinterpret_cast<float4*>(mid + c * a.RSTR + j) =
-              *reinterpret_cast<const float4*>(rem + c * a.RSTR + j);
-        }
-      } else {
-        const int n = hi - lo;
-        for (int e = tid; e < cmn * n; e += kThreads) {
-          const int c = e / n, j = lo + (e - c * n);
-          mid[c * a.RSTR + j] = rem[c * a.RSTR + j];
-        }
-      }
-    }
+    exchange_mid(a, t, cluster, mid, RR, CL, rank, cmn, tid, kThreads);
     cluster_arrive();  // done reading the other ranks' slabs
     __syncthreads();   // the whole slab is here
 
@@ -557,39 +619,12 @@ cluster_stack_kernel(const ClusterArgs<E, X> p) {
 #pragma unroll
     for (int i = 0; i < 4 * GM; ++i) {
       const int m = (i / 4) * 64 + ty * 4 + (i % 4);
-      const int co = co0 + m;
-      if (!col.ok || co >= a.Co) continue;
-      float v = acc[i][j];
-      if (a.b2) v += ld(a.b2 + co);
-      if (a.res)
-        v += ld(a.res + (long long)col.n * a.rs.n + (long long)co * a.rs.c +
-                col.oh * a.rs.h + col.ow * a.rs.w);
-      if (a.relu2) v = v < 0.f ? 0.f : v;
-      if (POOL)
-        Ts[m * TSTR + c] = v;
-      else
-        put(a.y + (long long)col.n * a.ys.n + (long long)co * a.ys.c +
-                col.oh * a.ys.h + col.ow * a.ys.w,
-            v);
+      epilogue_one<POOL>(a, col, co0 + m, m, c, acc[i][j], Ts, TSTR);
     }
   }
   if (POOL) {
     __syncthreads();
-    const float area = (float)(a.pF * a.pF);
-    for (int e = tid; e < TBM * a.BU; e += kThreads) {
-      const int m = e / a.BU, ul = e - m * a.BU;
-      const SCol col = scol(a, t, ul);  // tap 0 of unit ul
-      const int co = co0 + m;
-      if (!col.ok || co >= a.Co) continue;
-      float r = a.pool_avg ? 0.f : -INFINITY;
-      for (int tp = 0; tp < a.T; ++tp) {
-        const float v = Ts[m * TSTR + tp * a.BU + ul];
-        r = a.pool_avg ? r + v : nan_max(r, v);
-      }
-      put(a.y + (long long)col.n * a.ys.n + (long long)co * a.ys.c +
-              col.uh * a.ys.h + col.uw * a.ys.w,
-          a.pool_avg ? r / area : r);
-    }
+    pool_tile(a, t, Ts, TSTR, TBM, co0, tid, kThreads);
   }
 }
 
@@ -611,10 +646,9 @@ cluster_stack_kernel(const ClusterArgs<E, X> p) {
 //     k16 steps, inside what K1's narrow build was measured to hold
 //     unflushed; its source note).  Bias1 and ReLU in fp32; the mid slab
 //     stays float32.  x runs of 8 positions (a
-//     run of n: CHWN x, N and nb multiples of 8) arrive by 16-byte cp.async
-//     (int8 x: one 8-byte load, widened to 8 bf16 in registers), w1 rows of
-//     8 mid channels too; anything else element by element, stored as bf16
-//     halfwords.
+//     run of n: CHWN x, N and nb multiples of 8) arrive by 16-byte
+//     cp.async, w1 rows of 8 mid channels too; anything else element by
+//     element, stored as bf16 halfwords.
 //   phase B (conv2): the reference reads the mid at float32, so each mid
 //     value m enters as three bf16 parts, hi = bf16(m), md = bf16(m - hi),
 //     lo = bf16(m - hi - md), whose sum is m exactly (24 significand bits),
@@ -656,6 +690,39 @@ struct NShape {
                     RING_B <= 4 * CShape<GM>::RING,
                 "the bf16 rings fit the float32 kernel's");
 };
+
+// conv2's epilogue of the bf16 builds' sums, as their products lay them
+// out: accumulator e of (mt, nt) of warp (wm, wn) is row wm*64 + mt*16 + g
+// + 8 (e >= 2) and, where PAIRED (the twin: a pair of n tiles shares one
+// float2 of its mid tile), column wn*32 + 16 (nt / 2) + 4 tq + 2 (e & 1) +
+// (nt & 1), else column wn*32 + 8 nt + 2 tq + (e & 1)
+template <bool POOL, int GM, bool PAIRED = true, typename E, typename X>
+__device__ __forceinline__ void tile_epilogue(const StackArgs<E, X>& a,
+                                              const Tile& t,
+                                              const float (&tot)[4][4][4],
+                                              float* Ts, int TSTR, int co0,
+                                              int tid) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % GM, wn = warp / GM;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+    for (int ce = 0; ce < 2; ++ce) {
+      const int c = PAIRED
+                        ? wn * 32 + 16 * (nt / 2) + 4 * tq + 2 * ce + (nt & 1)
+                        : wn * 32 + 8 * nt + 2 * tq + ce;
+      const SCol col = scol(a, t, c);
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = wm * 64 + mt * 16 + g + 8 * h;
+          epilogue_one<POOL>(a, col, co0 + m, m, c, tot[mt][nt][2 * h + ce],
+                             Ts, TSTR);
+        }
+    }
+}
 
 // One conv1 pass of the bf16 build's phase A: the [kCM x KRA] GEMM of mid
 // positions [p0, p0 + KRA) (clipped to this rank's range [p_lo, p_hi))
@@ -709,13 +776,7 @@ __device__ __forceinline__ void conv1_pass_bf16(
                         w >= 0 && w < a.W;
         const X* src =
             ok ? xcol + xk.c * a.xs.c + h * a.xs.h + w * a.xs.w : a.x;
-        if constexpr (std::is_same<X, bf16>::value) {
-          mma::cp16(bs + mma::swz<KRA>(xr, xq), src, ok);
-        } else {  // 8 int8 by one 8-byte load, widened to bf16
-          *reinterpret_cast<uint4*>(bs + mma::swz<KRA>(xr, xq)) =
-              ok ? storage::bf16x8(__ldg(reinterpret_cast<const uint2*>(src)))
-                 : make_uint4(0u, 0u, 0u, 0u);
-        }
+        mma::cp16(bs + mma::swz<KRA>(xr, xq), src, ok);
         kadvance(xk, dk1, a.F1);
       }
     } else {
@@ -878,25 +939,7 @@ cluster_stack_bf16_kernel(const ClusterArgs<storage::bf16, X> p) {
 
     // ---- the other ranks' shares, through distributed shared memory -----
     cluster.sync();  // every rank's share of this chunk is in its slab
-    for (int q = 0; q < CL; ++q) {
-      if (q == rank) continue;
-      const int lo = min(t.RA, q * RR), hi = min(t.RA, lo + RR);
-      const float* rem = cluster.map_shared_rank(mid, q);
-      if (((lo | hi) & 3) == 0) {
-        const int nq = (hi - lo) / 4;
-        for (int e = tid; e < cmn * nq; e += kThreads) {
-          const int c = e / nq, j = lo + 4 * (e - c * nq);
-          *reinterpret_cast<float4*>(mid + c * a.RSTR + j) =
-              *reinterpret_cast<const float4*>(rem + c * a.RSTR + j);
-        }
-      } else {
-        const int n = hi - lo;
-        for (int e = tid; e < cmn * n; e += kThreads) {
-          const int c = e / n, j = lo + (e - c * n);
-          mid[c * a.RSTR + j] = rem[c * a.RSTR + j];
-        }
-      }
-    }
+    exchange_mid(a, t, cluster, mid, RR, CL, rank, cmn, tid, kThreads);
     cluster_arrive();  // done reading the other ranks' slabs
     __syncthreads();   // the whole slab is here
 
@@ -1011,52 +1054,550 @@ cluster_stack_bf16_kernel(const ClusterArgs<storage::bf16, X> p) {
   // column wn*32 + 16 (nt / 2) + 4 tq + 2 (e & 1) + (nt & 1).
   constexpr int TSTR = TBN + 1;
   float* Ts = mid;
-#pragma unroll
-  for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-    for (int ce = 0; ce < 2; ++ce) {
-      const int c = wn * 32 + 16 * (nt / 2) + 4 * tq + 2 * ce + (nt & 1);
-      const SCol col = scol(a, t, c);
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = wm * 64 + mt * 16 + g + 8 * h;
-          const int co = co0 + m;
-          if (!col.ok || co >= a.Co) continue;
-          float v = tot[mt][nt][2 * h + ce];
-          if (a.b2) v += storage::ld(a.b2 + co);
-          if (a.res)
-            v += storage::ld(a.res + (long long)col.n * a.rs.n +
-                             (long long)co * a.rs.c + col.oh * a.rs.h +
-                             col.ow * a.rs.w);
-          if (a.relu2) v = v < 0.f ? 0.f : v;
-          if (POOL)
-            Ts[m * TSTR + c] = v;
-          else
-            storage::put(a.y + (long long)col.n * a.ys.n +
-                             (long long)co * a.ys.c + col.oh * a.ys.h +
-                             col.ow * a.ys.w,
-                         v);
-        }
-    }
+  tile_epilogue<POOL, GM>(a, t, tot, Ts, TSTR, co0, tid);
   if (POOL) {
     __syncthreads();
-    const float area = (float)(a.pF * a.pF);
-    for (int e = tid; e < TBM * a.BU; e += kThreads) {
-      const int m = e / a.BU, ul = e - m * a.BU;
-      const SCol col = scol(a, t, ul);  // tap 0 of unit ul
-      const int co = co0 + m;
-      if (!col.ok || co >= a.Co) continue;
-      float r = a.pool_avg ? 0.f : -INFINITY;
-      for (int tp = 0; tp < a.T; ++tp) {
-        const float v = Ts[m * TSTR + tp * a.BU + ul];
-        r = a.pool_avg ? r + v : nan_max(r, v);
+    pool_tile(a, t, Ts, TSTR, TBM, co0, tid, kThreads);
+  }
+}
+
+// ---- the int8->bf16 build: warp-specialised, x in flight as bytes ----------
+//
+// Instantiated only by the int8->bf16 build (launch below).  The twin's
+// kernel above on int8 x: 256 threads that both copy and multiply, each x
+// run a blocking 8-byte load widened in registers, a __syncthreads a k16
+// slice, and phase B's mid tile gathered from the slab into shared memory
+// by the same threads that run mma.sync.  On VGG16 b32's conv1 pair
+// (PERF.md, timed apart on the card) its products took 1.1 of its 3.5 ms,
+// its x copies 0.33 and its w copies 0.22: the rest, the non-product work
+// of the threads that multiply, set its pace.
+//
+// Design.  The cluster, its DSMEM exchange of the mid slab (exchange_mid),
+// the tiles, the cluster size, the passes and the counted FLOPs are the
+// twin's, and so is the epilogue (tile_epilogue, pool_tile).  384 threads:
+//
+//   one producer warpgroup keeps every global copy in flight on the ring
+//   barriers of conv_ring.cuh (FULL when a stage landed, EMPTY when it was
+//   used), NS - 1 stages ahead across passes, phases and chunks.  A stage
+//   is phase A's k16 slice, w1 [16][64] and x [16][KRA] bf16 (swizzled as
+//   the twin's, mma::swz) with the x bytes [16][KRA] beside them, or
+//   phase B's KB = 4 / GM k16 slices of w2 [16][TBM] (one FULL / EMPTY
+//   hand-off for KB slices); NS of them fill the twin's ring (IShape).
+//   w1 and w2 rows come by 16-byte cp.async (storage::chunk8); each x run
+//   of 8 positions (CHWN x, N and nb multiples of 8) by one 8-byte
+//   cp.async into the bytes, zero-filled off the map by its source size
+//   (its 16-byte window straight into its bf16 chunk timed the same);
+//   once its group has landed, the thread that copied a run widens it into
+//   the bf16 slice (storage::bf16x8, exact) and arrives on FULL.  Without
+//   runs (an NCHW source, N or nb not multiples of 8) a thread loads its
+//   elements 8 at a time, every load issued before any is used, and stores
+//   their bf16 bits.
+//
+//   two consumer warpgroups (setmaxnreg gives them the producer's spare
+//   registers) run conv1 (the twin's warp tiles, ldmatrix.trans, one bf16
+//   product a term, a chain a pass, bias1 and ReLU into the slab), the
+//   exchange, and conv2: the w2 fragments by ldmatrix.trans from the ring;
+//   the B fragments read straight from the slab, no gathered mid tile and
+//   no block barrier a slice: 8 lanes on 8 neighbouring columns, each lane
+//   its 4 columns' slab bases and its 4 k rows' offsets, every load made
+//   (word 0 where it reads nothing) and its value selected, so the 16
+//   loads issue back to back (written as conditional loads they compiled
+//   to a branch and a reconvergence apiece, and the kernel ran 1.5x
+//   slower), the next k16 slice's in flight while this one's products run;
+//   three bf16 products a term from split3, in one chain over all of K2
+//   (as K1's narrow build runs one over K1), which leaves the registers
+//   for that prefetch.
+//
+//   The producers take part in every cluster barrier phase (after phase A,
+//   after the exchange), each one NS - 1 stages after the chunk's first
+//   phase-B stage, where the EMPTY wait they meet there has already held
+//   them until the consumers finished the chunk's phase A.
+//
+// What bounds it: as the twin, operations by design (one bf16 product a
+// conv1 term, three a conv2 term, mma.sync).  On the card (VGG16 b32's
+// conv1 pair, timed apart with tools/timing_variants.py, PERF.md) the
+// consumers alone take ~2.3 of its ~3.0 ms and the products ~1.5, and
+// without its x copies it takes ~2.6: conv1 on 3 channels makes phase-A
+// stages that the consumers finish faster than one producer warp a
+// sub-partition issues and widens them, so phase A runs at the producers'
+// pace (the copies' latency, size and values were each ruled out:
+// near-address copies, 16-byte windows and zeroed x all timed within 4 %).
+constexpr int kI8Consumers = 256;  // two warpgroups: the mma
+constexpr int kI8Producers = 128;  // one warpgroup: the copies
+constexpr int kI8Threads = kI8Consumers + kI8Producers;
+// registers of a thread of each role (setmaxnreg): 384 x 168 at launch,
+// then 256 x 216 + 128 x 72, the same 64512 (ptxas fits the producers'
+// code to their share: at 40 they spilled and the kernel ran 6 % slower,
+// at 56 3 %)
+constexpr int kI8ConsumerRegs = 216;
+constexpr int kI8ProducerRegs = 72;
+
+template <int GM>
+struct IShape {
+  static constexpr int TBM = 64 * GM, TBN = kTile / TBM;
+  // byte offsets in a stage: phase A's x bf16 slice and x bytes (after
+  // the w1 slice at 0); phase B's KB k16 w2 slices from 0, KB = 4 / GM
+  // (a phase-B stage takes a phase-A one's bytes, and one FULL / EMPTY
+  // hand-off serves KB slices of conv2)
+  static constexpr int XB = kNBK * kCM * 2;
+  static constexpr int X8 = XB + kNBK * kPassMax * 2;
+  static constexpr int A_BYTES = X8 + kNBK * kPassMax;
+  static constexpr int KB = 4 / GM;
+  static constexpr int B_BYTES = KB * kNBK * TBM * 2;
+  static constexpr int SLOT = A_BYTES > B_BYTES ? A_BYTES : B_BYTES;
+  // as many stages as the twin's ring holds (the slab stays where it is)
+  static constexpr int NS = 4 * CShape<GM>::RING / SLOT;
+  static_assert(NS >= 3 && NS * SLOT <= 4 * CShape<GM>::RING,
+                "the stages fit the twin's ring");
+};
+
+// a stage of a block's walk (ops.py::k5a_i8bf16_stage gives stage sl in
+// closed form): chunk, then phase A (pass, k16 slice s) or phase B (stage q
+// >= 0 of KB k16 slices)
+struct IStage {
+  int chunk, pass, s, q;
+};
+struct IWalk {
+  int nsl1, nA, nB;  // conv1's slices; a chunk's A and B stages
+  __device__ __forceinline__ IStage first() const {
+    return IStage{0, 0, 0, nA ? -1 : 0};
+  }
+  // id becomes the stage after it (the producers walk in order, with no
+  // division)
+  __device__ __forceinline__ void step(IStage& id) const {
+    if (id.q < 0) {
+      if (++id.s == nsl1) {
+        id.s = 0;
+        if (++id.pass * nsl1 == nA) {
+          id.pass = 0;
+          id.q = 0;
+        }
       }
-      storage::put(a.y + (long long)col.n * a.ys.n + (long long)co * a.ys.c +
-                       col.uh * a.ys.h + col.uw * a.ys.w,
-                   a.pool_avg ? r / area : r);
+    } else if (++id.q == nB) {
+      id.q = nA ? -1 : 0;
+      ++id.chunk;
     }
+  }
+};
+
+// element offset of 16-byte chunk c of row r of a [rows][DT] bf16 slice,
+// DT 64 or 128 at run time (mma::swz)
+__device__ __forceinline__ int swz_rt(int DT, int r, int c) {
+  return r * DT + ((c ^ (r & 7)) << 3);
+}
+
+// One conv1 pass of the consumers: the [kCM x KRA] GEMM of mid positions
+// [p0, p0 + KRA) over K1 from the ring's stages sl .. sl + nsl1 - 1, bias1
+// and ReLU into the slab (the twin's conv1_pass_bf16 on ring stages)
+template <int KRA, int NS, int SLOT, int XB>
+__device__ __forceinline__ void conv1_pass_i8(
+    const ClusterArgs<storage::bf16, int8_t>& p, const unsigned char* stages,
+    float* mid, int p0, int p_hi, int cm0, int cmn, int tid, int nsl1,
+    int& sl, int nsl) {
+  using storage::bf16;
+  constexpr int NTA = KRA / 32;  // n8 tiles of a warp (2 x 4 warps)
+  const StackArgs<bf16, int8_t>& a = p.s;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;  // 32 mid channels, KRA/4 positions
+  const int ar = (lane & 7) + ((lane >> 4) << 3), ac = (lane >> 3) & 1;
+  const int br = (lane & 7) + (((lane >> 3) & 1) << 3), bc = lane >> 4;
+  int aoff[2], boff[NTA / 2];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+    aoff[mt] = mma::swz<kCM>(ar, (wm * 32 + mt * 16) / 8 + ac);
+#pragma unroll
+  for (int np = 0; np < NTA / 2; ++np)
+    boff[np] = mma::swz<KRA>(br, (wn * (KRA / 4) + np * 16) / 8 + bc);
+  float acc[2][NTA][4];  // the pass's sums: one chain over K1
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTA; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+  for (int s = 0; s < nsl1; ++s, ++sl) {
+    const int buf = sl % NS;
+    mma::bar_sync(ring::full_bar(buf), kI8Threads);
+    const bf16* as = reinterpret_cast<const bf16*>(stages + buf * SLOT);
+    const bf16* bs = reinterpret_cast<const bf16*>(stages + buf * SLOT + XB);
+    unsigned af[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) mma::ldsm_x4_t(af[mt], as + aoff[mt]);
+#pragma unroll
+    for (int nt = 0; nt < NTA; nt += 2) {
+      unsigned bq[4];
+      mma::ldsm_x4_t(bq, bs + boff[nt / 2]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        mma::mma_bf16(acc[mt][nt], af[mt], bq[0], bq[1]);
+        mma::mma_bf16(acc[mt][nt + 1], af[mt], bq[2], bq[3]);
+      }
+    }
+    if (sl + NS < nsl) mma::bar_arrive(ring::empty_bar<NS>(buf), kI8Threads);
+  }
+  // bias, ReLU, into my range of the slab; accumulator e of (mt, nt) is
+  // mid channel wm*32 + mt*16 + g + 8 (e >= 2), position wn*KRA/4 + nt*8 +
+  // 2 tq + (e & 1)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cml = wm * 32 + mt * 16 + g + 8 * h;
+      if (cml >= cmn) continue;
+      const float b = a.b1 ? storage::ld(a.b1 + cm0 + cml) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NTA; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = p0 + wn * (KRA / 4) + nt * 8 + 2 * tq + e;
+          if (r >= p_hi) continue;
+          float v = acc[mt][nt][2 * h + e] + b;
+          if (a.relu1) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+          mid[cml * a.RSTR + r] = v;
+        }
+    }
+}
+
+template <bool POOL, int GM>
+__global__ void __launch_bounds__(kI8Threads, 1)
+cluster_stack_i8bf16_kernel(const ClusterArgs<storage::bf16, int8_t> p) {
+  using storage::bf16;
+  using S = IShape<GM>;
+  constexpr int NS = S::NS, SLOT = S::SLOT;
+  constexpr int TBM = S::TBM, TBN = S::TBN;
+  constexpr int WCH2 = TBM / 8;  // 16-byte chunks of a w2 row
+  const StackArgs<bf16, int8_t>& a = p.s;
+  extern __shared__ __align__(128) unsigned char smem_b[];
+  unsigned char* stages = smem_b;  // the ring: NS stages of SLOT bytes
+  // [kCM][RSTR] slab; later the pool tile: where the twin has it
+  float* mid = reinterpret_cast<float*>(smem_b) + CShape<GM>::RING;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int CL = p.CL;
+  const int tid = threadIdx.x;
+  const Tile t = stack::make_tile(a);
+  const int rs_w = t.NBc, rs_h = t.NBc * t.MWc;
+  const int co0 = blockIdx.y * TBM;
+  const int RR = (((t.RA + CL - 1) / CL) + 63) & ~63;
+  const int p_lo = min(t.RA, rank * RR), p_hi = min(t.RA, p_lo + RR);
+  const int F2sq = a.F2 * a.F2;
+  const int chunks = (a.Cm + kCM - 1) / kCM;
+  IWalk wk;
+  wk.nsl1 = (a.K1 + kNBK - 1) / kNBK;
+  wk.nA = (p_hi - p_lo + kPassMax - 1) / kPassMax * wk.nsl1;
+  wk.nB = (kCM * F2sq + S::KB * kNBK - 1) / (S::KB * kNBK);
+  const int nsl = (chunks - 1) * (wk.nA + wk.nB) + wk.nA +
+                  ((a.Cm - (chunks - 1) * kCM) * F2sq + S::KB * kNBK - 1) /
+                      (S::KB * kNBK);
+
+  if (tid >= kI8Consumers) {
+    // ---- the producer warpgroup: every stage's copies, x widened ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kI8ProducerRegs));
+    const int pt = tid - kI8Consumers;
+    const KIdx dk1 = kidx(kNBK, a.F1);
+    struct {
+      bool ok;          // the runs' position lies in this rank's range
+      int ih, iw;       // its first tap's row and column in x
+      const int8_t* col;  // its 8 images' column of x
+      KIdx k[2];        // each run's (c, dy, dx) at this slice
+    } rx;               // this thread's runs of the pass being issued
+    IStage is = wk.first(), ws = is;  // the stages to issue and to widen
+    auto stage = [&](int sl) {
+      const IStage id = is;
+      wk.step(is);
+      unsigned char* st = stages + (sl % NS) * SLOT;
+      const int cm0 = id.chunk * kCM, cmn = min(kCM, a.Cm - cm0);
+      if (id.q >= 0) {
+        // w2 rows k2 [cm0 F2^2 + KB 16 q, + KB 16) of Co co0 .. co0 + TBM -
+        // 1: KB k16 slices, each [16][TBM] swizzled (zeros past K2c)
+        const int K2c = cmn * F2sq, k0 = id.q * S::KB * kNBK;
+        const long long k2base = (long long)cm0 * F2sq;
+        bf16* as = reinterpret_cast<bf16*>(st);
+        for (int e = pt; e < S::KB * kNBK * WCH2; e += kI8Producers) {
+          const int r = e / WCH2, cq = e - r * WCH2;
+          const int k = k0 + r, co = co0 + 8 * cq;
+          chunk8(as + (r / kNBK) * kNBK * TBM + mma::swz<TBM>(r % kNBK, cq),
+                 k < K2c && co < a.Co ? a.w2 + (k2base + k) * a.w2K + co
+                                      : a.w2,
+                 k < K2c ? a.Co - co : 0, p.vec_w2 && co + 8 <= a.Co);
+        }
+        return;
+      }
+      const int k0 = id.s * kNBK, p0 = p_lo + id.pass * kPassMax;
+      const int KRA = p_hi - p0 > 64 ? 128 : 64;
+      {  // w1: kNBK rows of 8 chunks, one a thread
+        const int r = pt >> 3, cq = pt & 7, k = k0 + r, m = 8 * cq;
+        chunk8(reinterpret_cast<bf16*>(st) + mma::swz<kCM>(r, cq),
+               k < a.K1 && m < cmn ? a.w1 + (long long)k * a.w1K + cm0 + m
+                                   : a.w1,
+               k < a.K1 ? cmn - m : 0, p.vec_w1 && m + 8 <= cmn);
+      }
+      if (p.vec_x) {
+        // runs of 8 positions (8 images at one mid position): the bytes.
+        // A thread's runs of a pass share a position (run xq of rows xr0,
+        // xr0 + 128 / (KRA / 8)): it is decoded once a pass, and each run's
+        // tap (c, dy, dx) stepped on by 16 a slice, never divided
+        const int kq = KRA / 8, nrun = KRA / 64;
+        if (id.s == 0) {
+          const int xq = pt & (kq - 1), pp = p0 + 8 * xq;
+          const int rr = pp < p_hi ? pp : p_lo;
+          const int nl = rr % t.NBc, mq = rr / t.NBc;
+          rx.ok = pp < p_hi;
+          rx.ih = (t.mh_lo + mq / t.MWc) * a.S1 - a.P1;
+          rx.iw = (t.mw_lo + mq % t.MWc) * a.S1 - a.P1;
+          rx.col = a.x + (long long)(t.n0 + nl) * a.xs.n;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            rx.k[i] = kidx(pt / kq + i * (kI8Producers / kq), a.F1);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (i >= nrun) break;
+          const int xq = pt & (kq - 1);
+          const int xr = pt / kq + i * (kI8Producers / kq), k = k0 + xr;
+          const int h = rx.ih + rx.k[i].dy, w = rx.iw + rx.k[i].dx;
+          const bool ok = rx.ok && k < a.K1 && h >= 0 && h < a.H && w >= 0 &&
+                          w < a.W;
+          mma::cp8(st + S::X8 + xr * KRA + 8 * xq,
+                   ok ? rx.col + rx.k[i].c * a.xs.c + h * a.xs.h +
+                            w * a.xs.w
+                      : a.x,
+                   ok);
+          kadvance(rx.k[i], dk1, a.F1);
+        }
+        return;
+      }
+      // elements, 8 loads a thread issued before any is stored
+      unsigned short* bs = reinterpret_cast<unsigned short*>(st + S::XB);
+      const int pc = pt % KRA, pp = p0 + pc;
+      const int rr = pp < p_hi ? pp : p_lo;
+      const int nl = rr % t.NBc, mq = rr / t.NBc;
+      const int ih0 = (t.mh_lo + mq / t.MWc) * a.S1 - a.P1;
+      const int iw0 = (t.mw_lo + mq % t.MWc) * a.S1 - a.P1;
+      const int8_t* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
+      const int rstep = kI8Producers / KRA;  // rows between a thread's
+      for (int i0 = 0; i0 < kNBK * KRA / kI8Producers; i0 += 8) {
+        unsigned v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int kk = pt / KRA + rstep * (i0 + i), k = k0 + kk;
+          const KIdx q = kidx(k, a.F1);
+          const int h = ih0 + q.dy, w = iw0 + q.dx;
+          const bool ok = pp < p_hi && k < a.K1 && h >= 0 && h < a.H &&
+                          w >= 0 && w < a.W;
+          v[i] = storage::bf16_bits(
+              ok ? xcol + q.c * a.xs.c + h * a.xs.h + w * a.xs.w : a.x, ok);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int kk = pt / KRA + rstep * (i0 + i);
+          bs[swz_rt(KRA, kk, pc >> 3) + (pc & 7)] =
+              static_cast<unsigned short>(v[i]);
+        }
+      }
+    };
+    // the runs this thread copied into stage sl, widened into the bf16
+    // slice
+    auto widen = [&](int sl) {
+      const IStage id = ws;
+      wk.step(ws);
+      if (!p.vec_x || id.q >= 0) return;
+      unsigned char* st = stages + (sl % NS) * SLOT;
+      const int KRA = p_hi - (p_lo + id.pass * kPassMax) > 64 ? 128 : 64;
+      const int kq = KRA / 8, xq = pt & (kq - 1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (i >= KRA / 64) break;
+        const int xr = pt / kq + i * (kI8Producers / kq);
+        *reinterpret_cast<uint4*>(st + S::XB + 2 * swz_rt(KRA, xr, xq)) =
+            storage::bf16x8(*reinterpret_cast<const uint2*>(
+                st + S::X8 + xr * KRA + 8 * xq));
+      }
+    };
+    // the cluster barrier's phases of chunk pc (after its phase A, after
+    // its exchange), once stage `upto` is NS - 1 past its first B stage
+    int pc = 0;
+    auto phases = [&](int upto) {
+      while (pc < chunks && pc * (wk.nA + wk.nB) + wk.nA + NS - 1 <= upto) {
+        cluster_wait();
+        cluster_arrive();
+        cluster_wait();
+        if (++pc < chunks) cluster_arrive();
+      }
+    };
+    cluster_arrive();  // chunk 0's first phase
+#pragma unroll
+    for (int q = 0; q < NS - 1; ++q) {
+      if (q < nsl) stage(q);
+      mma::cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      mma::cp_wait<NS - 2>();  // stage sl has landed: widen, announce it
+      widen(sl);
+      mma::bar_arrive(ring::full_bar(sl % NS), kI8Threads);
+      const int nx = sl + NS - 1;
+      if (nx < nsl) {
+        phases(nx);
+        if (nx >= NS) mma::bar_sync(ring::empty_bar<NS>(nx % NS), kI8Threads);
+        stage(nx);
+      }
+      mma::cp_commit();
+    }
+    phases(nsl + NS);
+    return;
+  }
+
+  // ---- the consumer warpgroups: both GEMMs, the exchange, the epilogue ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kI8ConsumerRegs));
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % GM, wn = warp / GM;  // 64 rows x 32 columns a warp
+  const int ar = (lane & 7) + ((lane >> 4) << 3), ac = (lane >> 3) & 1;
+  int aoff[4];  // this lane's swizzled ldmatrix offsets in a w2 slice
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+    aoff[mt] = mma::swz<TBM>(ar, (wm * 64 + mt * 16) / 8 + ac);
+  // phase B: this lane's column of each n tile, wn*32 + 8 nt + g (8 lanes
+  // on 8 neighbouring columns: 8 images of one tap where nb >= 8), its slab
+  // base and its first tap's mid row and column (-2^20 where the column
+  // lies past the tile, so every tap tests outside the mid extent)
+  int cbase[4], ohb[4], owb[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const SCol col = scol(a, t, wn * 32 + 8 * nt + g);
+    ohb[nt] = col.ok ? col.oh * a.S2 - a.P2 : -(1 << 20);
+    owb[nt] = col.ok ? col.ow * a.S2 - a.P2 : -(1 << 20);
+    cbase[nt] = col.nl + (ohb[nt] - t.mh_lo) * rs_h + (owb[nt] - t.mw_lo) * rs_w;
+  }
+  const KIdx dk2 = kidx(kNBK, a.F2);
+  const int k16 = wk.nsl1;
+  unsigned long long fma_count = 0;
+
+  // conv2's sums: one chain over all of K2 (as K1's narrow build runs one
+  // over K1), which leaves the registers to load the next slice's B values
+  // while this one's products run
+  float tot[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[mt][nt][e] = 0.f;
+
+  int sl = 0;
+  for (int cm0 = 0; cm0 < a.Cm; cm0 += kCM) {
+    const int cmn = min(kCM, a.Cm - cm0);
+    // local phase B is done with the slab, and the other ranks with my share
+    mma::bar_sync(ring::cons_bar<NS>(), kI8Consumers);
+    if (cm0 > 0) cluster_wait();
+
+    // ---- phase A: my share of conv1 -> mid slab (cm0 .. cm0+cmn) --------
+    for (int p0 = p_lo; p0 < p_hi;) {
+      if (p_hi - p0 > 64) {
+        conv1_pass_i8<128, NS, SLOT, S::XB>(p, stages, mid, p0, p_hi, cm0, cmn,
+                                            tid, k16, sl, nsl);
+        fma_count += (unsigned long long)kCM * 128 * k16 * kNBK;
+        p0 += 128;
+      } else {
+        conv1_pass_i8<64, NS, SLOT, S::XB>(p, stages, mid, p0, p_hi, cm0, cmn,
+                                           tid, k16, sl, nsl);
+        fma_count += (unsigned long long)kCM * 64 * k16 * kNBK;
+        p0 += 64;
+      }
+    }
+
+    // ---- the other ranks' shares, through distributed shared memory -----
+    cluster_arrive();  // every rank's share of this chunk is in its slab
+    cluster_wait();
+    exchange_mid(a, t, cluster, mid, RR, CL, rank, cmn, tid, kI8Consumers);
+    cluster_arrive();  // done reading the other ranks' slabs
+    mma::bar_sync(ring::cons_bar<NS>(), kI8Consumers);  // the whole slab
+
+    // ---- phase B: conv2's (cm, dy, dx) terms of this chunk --------------
+    const int K2c = cmn * F2sq;
+    const int nsl2 = (K2c + kNBK - 1) / kNBK;
+    // this lane's k rows 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of each slice
+    KIdx kr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      kr[i] = kidx(2 * tq + (i & 1) + 8 * (i >> 1), a.F2);
+    // B[k][column] of this lane for slice q: the slab at the column's tap
+    // (dy, dx) of mid channel c, 0 outside the mid extent (conv2's zero
+    // padding) or past the chunk's K2c.  Branch-free: every lane loads
+    // (slab word 0 where it reads nothing) and selects, so the 16 loads
+    // issue back to back (as a conditional load each, they compiled to a
+    // branch and a reconvergence apiece)
+    float bv[4][4];  // [k row][n tile]
+    auto load_b = [&](int q) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = q * kNBK + 2 * tq + (i & 1) + 8 * (i >> 1);
+        const int koff = kr[i].c * a.RSTR + kr[i].dy * rs_h + kr[i].dx * rs_w;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const bool ok = k < K2c &&
+                          static_cast<unsigned>(ohb[nt] + kr[i].dy) <
+                              static_cast<unsigned>(a.Ho1) &&
+                          static_cast<unsigned>(owb[nt] + kr[i].dx) <
+                              static_cast<unsigned>(a.Wo1);
+          const float v = mid[ok ? koff + cbase[nt] : 0];
+          bv[i][nt] = ok ? v : 0.f;
+        }
+        kadvance(kr[i], dk2, a.F2);
+      }
+    };
+    load_b(0);
+    for (int qs = 0; qs < nsl2; qs += S::KB, ++sl) {
+      const int buf = sl % NS;
+      mma::bar_sync(ring::full_bar(buf), kI8Threads);
+#pragma unroll
+      for (int j = 0; j < S::KB; ++j) {
+        const int q = qs + j;  // the k16 slice
+        if (q >= nsl2) break;
+        unsigned bf[4][6];  // per n tile: (hi, md, lo) of b0, then of b1
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          split3(bv[0][nt], bv[1][nt], bf[nt][0], bf[nt][1], bf[nt][2]);
+          split3(bv[2][nt], bv[3][nt], bf[nt][3], bf[nt][4], bf[nt][5]);
+        }
+        if (q + 1 < nsl2) load_b(q + 1);  // in flight during the products
+        const bf16* as = reinterpret_cast<const bf16*>(stages + buf * SLOT) +
+                         j * kNBK * TBM;
+        unsigned af[4][4];
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma::ldsm_x4_t(af[mt], as + aoff[mt]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int mt = 0; mt < 4; ++mt) {
+            float (&c)[4] = tot[mt][nt];
+            mma::mma_bf16(c, af[mt], bf[nt][2], bf[nt][5]);
+            mma::mma_bf16(c, af[mt], bf[nt][1], bf[nt][4]);
+            mma::mma_bf16(c, af[mt], bf[nt][0], bf[nt][3]);
+          }
+      }
+      if (sl + NS < nsl)
+        mma::bar_arrive(ring::empty_bar<NS>(buf), kI8Threads);
+    }
+    fma_count += (unsigned long long)TBM * TBN * nsl2 * kNBK;
+  }
+  cluster_wait();  // no rank reads my slab any more
+  mma::bar_sync(ring::cons_bar<NS>(), kI8Consumers);  // the pool tile
+                                                      // overlays the slab
+  if (p.stats && tid == 0) {
+    atomicAdd(p.stats, 2ull * fma_count);
+    atomicMax(p.stats + 1, (unsigned long long)cluster.num_blocks());
+  }
+  constexpr int TSTR = TBN + 1;
+  float* Ts = mid;
+  tile_epilogue<POOL, GM, false>(a, t, tot, Ts, TSTR, co0, tid);
+  if (POOL) {
+    mma::bar_sync(ring::cons_bar<NS>(), kI8Consumers);
+    pool_tile(a, t, Ts, TSTR, TBM, co0, tid, kI8Consumers);
   }
 }
 
@@ -1077,12 +1618,18 @@ int launch(const ClusterArgs<E, X>& p, dim3 grid, cudaStream_t st,
   const long long bytes = smem_bytes<GM>(p.s.RSTR, POOL);
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   // where w is bf16 the build runs its own kernel (on the bf16 tensor
-  // cores)
+  // cores), int8 x with bf16 w another (warp-specialised, 384 threads)
   void (*kernel)(ClusterArgs<E, X>);
-  if constexpr (std::is_same<E, storage::bf16>::value)
+  int threads = kThreads;
+  if constexpr (std::is_same<E, storage::bf16>::value &&
+                std::is_same<X, int8_t>::value) {
+    kernel = cluster_stack_i8bf16_kernel<POOL, GM>;
+    threads = kI8Threads;
+  } else if constexpr (std::is_same<E, storage::bf16>::value) {
     kernel = cluster_stack_bf16_kernel<X, POOL, GM>;
-  else
+  } else {
     kernel = cluster_stack_kernel<E, X, POOL, GM>;
+  }
   // a refused call leaves its error behind: clear it, so the next launch
   // does not report it
   auto fail = [](cudaError_t e) {
@@ -1094,7 +1641,7 @@ int launch(const ClusterArgs<E, X>& p, dim3 grid, cudaStream_t st,
   if (e != cudaSuccess) return fail(e);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = (size_t)bytes;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];

@@ -76,12 +76,14 @@
 // K5a's bf16 build and the reference (stack.py keeps its mid in f32), and
 // y is rounded once where it is stored.  The int8 builds take int8 x
 // (quantized per channel, its scale folded into w1, as the reference's
-// stack takes it) and keep their float twin's kernel and tiles, x widened
-// as it lands in shared memory: int8->fp32 into the float32 box (copy4:
-// one 4-byte load of 4 elements; copy1), where an int8 value is exact in
-// TF32 and conv1 keeps fp32 accuracy; int8->bf16 into the bf16 box (a run
-// of 8 by one 8-byte load, storage::bf16x8; bytes else), exact, as |q| <=
-// 127 fits bf16's 8-bit significand.
+// stack takes it) and keep their float twin's tiles, x widened as it lands
+// in shared memory: int8->fp32 in the float32 kernel (copy4: one 4-byte
+// load of 4 elements, widened into the float32 box; copy1), where an int8
+// value is exact in TF32 and conv1 keeps fp32 accuracy; int8->bf16 in a
+// kernel of its own (conv_stack_nchw_i8bf16_kernel, whose note says how):
+// the bf16 twin's consumers, the int8 bytes by cp.async into the stage and
+// widened there to bf16, exact, as |q| <= 127 fits bf16's 8-bit
+// significand.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -99,6 +101,8 @@ namespace {
 using namespace repro::mma;
 using namespace repro::ring;
 using repro::storage::bf16;
+using repro::storage::bf16x4;
+using repro::storage::bf16x8;
 using repro::storage::chunk8;
 using repro::storage::copy1;
 using repro::storage::copy4;
@@ -132,7 +136,8 @@ struct K5bArgs {
   int STAGE;             // floats of a ring stage
   int ga;                // 8-channel groups of Ci a phase-A stage holds
   int a_stages, chunks;  // phase-A stages a pass; 32-channel chunks of Cm
-  int vec_x, vec_w1, vec_w2;  // 16-byte copies allowed
+  int vec_x, vec_w1, vec_w2;  // 16-byte copies allowed (vec_x of the bf16
+                              // builds: layout_bf16's box mode)
   unsigned long long* stats;  // executed FLOPs, or null
 };
 
@@ -680,215 +685,146 @@ __device__ __forceinline__ unsigned xbits_at(const int8_t* x, long long i) {
   return __float_as_uint(static_cast<float>(__ldg(x + i))) >> 16;
 }
 
-template <typename XT, int BM, bool POOL, int F1T, int F2T>
-__global__ void __launch_bounds__(kThreads, 1)
-conv_stack_nchw_bf16_kernel(const K5bArgs<bf16, XT> a) {
+// The int8->bf16 kernel's producer pieces below are the bf16 twin's stage
+// loops, which the twin keeps inline: called through these functions it
+// ran 4.4 % slower on the card (PERF.md), while its consumers
+// (consumers_bf16) are shared at no cost.
+//
+// a phase-A stage's w1 slice: rows cm0 .. cm0 + 31, k1 [oct 16 F1^2, + gb
+// 16 F1^2), by 16-byte cp.async where the rows allow it
+template <typename XT>
+__device__ __forceinline__ void w1_slice_bf16(const K5bArgs<bf16, XT>& a,
+                                              const StageId& id,
+                                              unsigned short* st, int pt) {
+  const StackArgs<bf16, XT>& s = a.s;
+  const int wq = 2 * a.ga * a.FF1;  // 16-byte chunks of a row
+  const int k0 = id.oct * 16 * a.FF1;
+  for (int e = pt; e < kCM * wq; e += kProducers) {
+    const int r = e / wq, c = 8 * (e - r * wq);
+    const int cm = id.chunk * kCM + r;
+    const int valid = cm < s.Cm ? min(8, s.K1 - (k0 + c)) : 0;
+    chunk8(reinterpret_cast<bf16*>(st + r * a.SA1 + c),
+           valid > 0 ? s.w1 + static_cast<long long>(cm) * s.K1 + k0 + c
+                     : s.w1,
+           valid, a.vec_w1);
+  }
+}
+
+// a phase-B stage's w2 slice: rows co0 .. co0 + BM - 1, k2 [(chunk 32 + q
+// 16) F2^2, + 16 F2^2)
+template <int BM, typename XT>
+__device__ __forceinline__ void w2_slice_bf16(const K5bArgs<bf16, XT>& a,
+                                              const StageId& id,
+                                              unsigned short* st, int co0,
+                                              int pt) {
+  const StackArgs<bf16, XT>& s = a.s;
+  const int wq = 2 * a.FF2;
+  const int k0 = (id.chunk * kCM + id.q * 16) * a.FF2;
+  for (int e = pt; e < BM * wq; e += kProducers) {
+    const int r = e / wq, c = 8 * (e - r * wq);
+    const int co = co0 + r;
+    const int valid = co < s.Co ? min(8, s.Cm * a.FF2 - (k0 + c)) : 0;
+    chunk8(reinterpret_cast<bf16*>(st + r * a.SA2 + c),
+           valid > 0
+               ? s.w2 + static_cast<long long>(co) * s.Cm * a.FF2 + k0 + c
+               : s.w2,
+           valid, a.vec_w2);
+  }
+}
+
+// a producer thread's first 4-column element copy of the box (column xq0
+// of row (nl0, xh0) of channel c160), and how far kProducers copies step:
+// dq columns and drow rows (one more on a column carry)
+struct BoxWalk {
+  int xq0, dq, drow, c160, nl0, xh0;
+};
+__device__ __forceinline__ BoxWalk box_walk(const Box& b, const Tile& t,
+                                            int XQ, int pt) {
+  BoxWalk w{pt % XQ, kProducers % XQ, kProducers / XQ, 0, 0, pt / XQ};
+  while (w.xh0 >= b.XH) {
+    w.xh0 -= b.XH;
+    if (++w.nl0 == t.NBc) {
+      w.nl0 = 0;
+      ++w.c160;
+    }
+  }
+  return w;
+}
+
+// a phase-A stage's x box element by element (a CHWN source, W not a
+// multiple of the copies', the halo): halfwords, 4 columns a copy, kU
+// copies' loads issued together with no branch between them; each copy's
+// (column, c16, nl, xh) stepped on from the thread's first, never divided
+template <typename XT>
+__device__ __forceinline__ void box_elements_bf16(
+    const K5bArgs<bf16, XT>& a, const Box& b, const Tile& t,
+    const StageId& id, unsigned short* xs, int XQ, const BoxWalk& w) {
+  constexpr int kU = 4;  // copies in flight at once
+  const StackArgs<bf16, XT>& s = a.s;
+  int xq = w.xq0, c16 = w.c160, nl = w.nl0, xh = w.xh0;
+  while (c16 < 16 * a.ga) {
+    unsigned h[kU][4];
+    int off[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int ci = id.oct * 16 + c16, ih = b.ih0 + xh;
+      const int iw = b.iw0 + 4 * xq;
+      off[u] = c16 < 16 * a.ga
+                   ? c16 * a.XSTR + (nl * b.XH + xh) * b.XW + 4 * xq
+                   : -1;
+      const bool rok = off[u] >= 0 && ci < s.Ci &&
+                       static_cast<unsigned>(ih) <
+                           static_cast<unsigned>(s.H);
+      const long long base = static_cast<long long>(t.n0 + nl) * s.xs.n +
+                             static_cast<long long>(ci) * s.xs.c +
+                             static_cast<long long>(ih) * s.xs.h;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        h[u][j] = rok && static_cast<unsigned>(iw + j) <
+                             static_cast<unsigned>(s.W)
+                      ? xbits_at(s.x, base + static_cast<long long>(iw + j) *
+                                                 s.xs.w)
+                      : 0u;
+      xq += w.dq;  // on by kProducers copies
+      int rows = w.drow;
+      if (xq >= XQ) {
+        xq -= XQ;
+        ++rows;
+      }
+      xh += rows;
+      while (xh >= b.XH) {
+        xh -= b.XH;
+        if (++nl == t.NBc) {
+          nl = 0;
+          ++c16;
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (off[u] >= 0)
+        *reinterpret_cast<uint2*>(xs + off[u]) = make_uint2(
+            h[u][0] | (h[u][1] << 16), h[u][2] | (h[u][3] << 16));
+  }
+}
+
+// The consumer warpgroups of the bf16 builds (the twin's kernel and the
+// int8->bf16 one): both GEMMs from the ring's bf16 stages and the epilogue.
+template <int BM, bool POOL, int F1T, int F2T, typename XT>
+__device__ __forceinline__ void consumers_bf16(const K5bArgs<bf16, XT>& a,
+                                               const Tile& t, const Box& b,
+                                               int nsl) {
   constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
   constexpr int BN = kTile / BM;
   constexpr int WM = BM / 64;   // phase B warps along Co, 64 rows each
   constexpr int WN = 8 / WM;    // phase B warps along the columns
   constexpr int TS = BN + 8;    // epilogue tile row stride
   extern __shared__ __align__(16) float smem[];  // ring, then the slab
-  // the ring in bf16 bits: stage s at 2 s STAGE halfwords
-  unsigned short* ring = reinterpret_cast<unsigned short*>(smem);
+  const unsigned short* ring = reinterpret_cast<unsigned short*>(smem);
   const StackArgs<bf16, XT>& s = a.s;
-  const Tile t = repro::stack::make_tile(s);
-  const Box b = make_box_bf16(a, t);
   const int co0 = blockIdx.y * BM;
-  // the slab: 32 mid channels of conv1 outputs, [32][RSTR], float32
   float* slab = smem + (NS * a.STAGE > BM * TS ? NS * a.STAGE : BM * TS);
-  const int last = a.chunks - 1;
-  const int nsl = a.chunks * (b.passes * a.a_stages + kCM / 16) - kCM / 16 +
-                  (min(kCM, s.Cm - last * kCM) + 15) / 16;
   const int tid = threadIdx.x;
-
-  if (tid >= kConsumers) {
-    // ---- the producer warpgroup: every stage's copies ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int pt = tid - kConsumers;
-    const int QW = a.vec_x ? 8 : 4;     // columns of a box copy
-    const int XQ = b.XW / QW;           // copies of an x box row
-    const int xrows = t.NBc * b.XH;     // x box rows of one channel
-    constexpr int kU = 4;               // halfword copies in flight at once
-    // the thread's first halfword copy (column xq0 of row (nl0, xh0) of
-    // channel c160), and how far kProducers copies step: dq columns and
-    // drow rows (one more on a column carry)
-    const int xq0 = pt % XQ, dq = kProducers % XQ, drow = kProducers / XQ;
-    int c160 = 0, nl0 = 0, xh0 = pt / XQ;
-    while (xh0 >= b.XH) {
-      xh0 -= b.XH;
-      if (++nl0 == t.NBc) {
-        nl0 = 0;
-        ++c160;
-      }
-    }
-    auto stage = [&](int sl) {
-      const StageId id = stage_id_bf16(a, b, sl);
-      unsigned short* st = ring + (sl % NS) * 2 * a.STAGE;
-      if (id.q < 0) {
-        // w1 rows cm0 .. cm0 + 31, k1 [oct 16 F1^2, + gb 16 F1^2)
-        const int wq = 2 * a.ga * a.FF1;  // 16-byte chunks of a row
-        const int k0 = id.oct * 16 * a.FF1;
-        for (int e = pt; e < kCM * wq; e += kProducers) {
-          const int r = e / wq, c = 8 * (e - r * wq);
-          const int cm = id.chunk * kCM + r;
-          const int valid = cm < s.Cm ? min(8, s.K1 - (k0 + c)) : 0;
-          chunk8(
-              reinterpret_cast<bf16*>(st + r * a.SA1 + c),
-              valid > 0 ? s.w1 + static_cast<long long>(cm) * s.K1 + k0 + c
-                        : s.w1,
-              valid, a.vec_w1);
-        }
-        // the x box of channels oct 16 .. + 16 gb - 1: [16 gb][NB][XH][XW]
-        unsigned short* xs = st + kCM * a.SA1;
-        const int total = 16 * a.ga * xrows * XQ;
-        if (!a.vec_x) {
-          // halfwords, 4 columns a copy, kU copies' loads issued together
-          // with no branch between them; each copy's (column, c16, nl, xh)
-          // stepped on from the thread's first, never divided
-          int xq = xq0, c16 = c160, nl = nl0, xh = xh0;
-          while (c16 < 16 * a.ga) {
-            unsigned h[kU][4];
-            int off[kU];
-#pragma unroll
-            for (int u = 0; u < kU; ++u) {
-              const int ci = id.oct * 16 + c16, ih = b.ih0 + xh;
-              const int iw = b.iw0 + 4 * xq;
-              off[u] = c16 < 16 * a.ga
-                           ? c16 * a.XSTR + (nl * b.XH + xh) * b.XW + 4 * xq
-                           : -1;
-              const bool rok = off[u] >= 0 && ci < s.Ci &&
-                               static_cast<unsigned>(ih) <
-                                   static_cast<unsigned>(s.H);
-              const long long base = static_cast<long long>(t.n0 + nl) *
-                                         s.xs.n +
-                                     static_cast<long long>(ci) * s.xs.c +
-                                     static_cast<long long>(ih) * s.xs.h;
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                h[u][j] = rok && static_cast<unsigned>(iw + j) <
-                                     static_cast<unsigned>(s.W)
-                              ? xbits_at(s.x, base +
-                                                  static_cast<long long>(
-                                                      iw + j) * s.xs.w)
-                              : 0u;
-              xq += dq;  // on by kProducers copies
-              int rows = drow;
-              if (xq >= XQ) {
-                xq -= XQ;
-                ++rows;
-              }
-              xh += rows;
-              while (xh >= b.XH) {
-                xh -= b.XH;
-                if (++nl == t.NBc) {
-                  nl = 0;
-                  ++c16;
-                }
-              }
-            }
-#pragma unroll
-            for (int u = 0; u < kU; ++u)
-              if (off[u] >= 0)
-                *reinterpret_cast<uint2*>(xs + off[u]) =
-                    make_uint2(h[u][0] | (h[u][1] << 16),
-                               h[u][2] | (h[u][3] << 16));
-          }
-        } else {
-          // 16-byte copies of 8 columns (element by element where the row
-          // leaves [0, W)), two at a time
-          for (int e0 = pt; e0 < total; e0 += 2 * kProducers) {
-            unsigned v[2][4];
-            unsigned short* d[2];
-            bool run[2];
-            const XT* src[2];
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              const int e = e0 + u * kProducers;
-              const int xq = e % XQ, row = e / XQ;
-              const int c16 = row / xrows, rr = row - c16 * xrows;
-              const int nl = rr / b.XH, xh = rr - nl * b.XH;
-              const int ci = id.oct * 16 + c16, ih = b.ih0 + xh;
-              const int iw = b.iw0 + 8 * xq;
-              d[u] = xs + c16 * a.XSTR + rr * b.XW + 8 * xq;
-              const bool rok = e < total && ci < s.Ci &&
-                               static_cast<unsigned>(ih) <
-                                   static_cast<unsigned>(s.H);
-              const long long base =
-                  static_cast<long long>(t.n0 + nl) * s.xs.n +
-                  static_cast<long long>(ci) * s.xs.c +
-                  static_cast<long long>(ih) * s.xs.h;
-              run[u] = rok && iw >= 0 && iw + 8 <= s.W;
-              src[u] = s.x + base + iw;
-              unsigned h[8];
-#pragma unroll
-              for (int j = 0; j < 8; ++j)
-                h[j] = !run[u] && rok &&
-                               static_cast<unsigned>(iw + j) <
-                                   static_cast<unsigned>(s.W)
-                           ? xbits_at(s.x, base + iw + j)
-                           : 0u;
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                v[u][j] = h[2 * j] | (h[2 * j + 1] << 16);
-              if constexpr (!std::is_same<XT, bf16>::value) {
-                if (run[u]) {  // 8 int8 by one 8-byte load, widened
-                  const uint4 r = repro::storage::bf16x8(
-                      __ldg(reinterpret_cast<const uint2*>(src[u])));
-                  v[u][0] = r.x;
-                  v[u][1] = r.y;
-                  v[u][2] = r.z;
-                  v[u][3] = r.w;
-                }
-              }
-            }
-#pragma unroll
-            for (int u = 0; u < 2; ++u) {
-              if (e0 + u * kProducers >= total) break;
-              if (std::is_same<XT, bf16>::value && run[u])
-                cp16(d[u], src[u], true);
-              else
-                *reinterpret_cast<uint4*>(d[u]) =
-                    make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
-            }
-          }
-        }
-      } else {
-        // w2 rows co0 .. co0 + BM - 1, k2 [(chunk 32 + q 16) F2^2, + 16 F2^2)
-        const int wq = 2 * a.FF2;
-        const int k0 = (id.chunk * kCM + id.q * 16) * a.FF2;
-        for (int e = pt; e < BM * wq; e += kProducers) {
-          const int r = e / wq, c = 8 * (e - r * wq);
-          const int co = co0 + r;
-          const int valid = co < s.Co ? min(8, s.Cm * a.FF2 - (k0 + c)) : 0;
-          chunk8(
-              reinterpret_cast<bf16*>(st + r * a.SA2 + c),
-              valid > 0
-                  ? s.w2 + static_cast<long long>(co) * s.Cm * a.FF2 + k0 + c
-                  : s.w2,
-              valid, a.vec_w2);
-        }
-      }
-    };
-#pragma unroll
-    for (int q = 0; q < NS - 1; ++q) {
-      if (q < nsl) stage(q);
-      cp_commit();
-    }
-    for (int sl = 0; sl < nsl; ++sl) {
-      cp_wait<NS - 2>();  // stage sl has landed: announce it
-      bar_arrive(full_bar(sl % NS), kThreads);
-      const int nx = sl + NS - 1;
-      if (nx < nsl) {
-        if (nx >= NS) bar_sync(empty_bar<NS>(nx % NS), kThreads);
-        stage(nx);
-      }
-      cp_commit();
-    }
-    return;
-  }
-
-  // ---- the consumer warpgroups: both GEMMs and the epilogue ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
@@ -1140,6 +1076,448 @@ conv_stack_nchw_bf16_kernel(const K5bArgs<bf16, XT> a) {
   }
 }
 
+
+template <typename XT, int BM, bool POOL, int F1T, int F2T>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_stack_nchw_bf16_kernel(const K5bArgs<bf16, XT> a) {
+  constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
+  extern __shared__ __align__(16) float smem[];  // ring, then the slab
+  // the ring in bf16 bits: stage s at 2 s STAGE halfwords
+  unsigned short* ring = reinterpret_cast<unsigned short*>(smem);
+  const StackArgs<bf16, XT>& s = a.s;
+  const Tile t = repro::stack::make_tile(s);
+  const Box b = make_box_bf16(a, t);
+  const int co0 = blockIdx.y * BM;
+  const int last = a.chunks - 1;
+  const int nsl = a.chunks * (b.passes * a.a_stages + kCM / 16) - kCM / 16 +
+                  (min(kCM, s.Cm - last * kCM) + 15) / 16;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroup: every stage's copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    const int QW = a.vec_x ? 8 : 4;     // columns of a box copy
+    const int XQ = b.XW / QW;           // copies of an x box row
+    const int xrows = t.NBc * b.XH;     // x box rows of one channel
+    constexpr int kU = 4;               // halfword copies in flight at once
+    // the thread's first halfword copy (column xq0 of row (nl0, xh0) of
+    // channel c160), and how far kProducers copies step: dq columns and
+    // drow rows (one more on a column carry)
+    const int xq0 = pt % XQ, dq = kProducers % XQ, drow = kProducers / XQ;
+    int c160 = 0, nl0 = 0, xh0 = pt / XQ;
+    while (xh0 >= b.XH) {
+      xh0 -= b.XH;
+      if (++nl0 == t.NBc) {
+        nl0 = 0;
+        ++c160;
+      }
+    }
+    auto stage = [&](int sl) {
+      const StageId id = stage_id_bf16(a, b, sl);
+      unsigned short* st = ring + (sl % NS) * 2 * a.STAGE;
+      if (id.q < 0) {
+        // w1 rows cm0 .. cm0 + 31, k1 [oct 16 F1^2, + gb 16 F1^2)
+        const int wq = 2 * a.ga * a.FF1;  // 16-byte chunks of a row
+        const int k0 = id.oct * 16 * a.FF1;
+        for (int e = pt; e < kCM * wq; e += kProducers) {
+          const int r = e / wq, c = 8 * (e - r * wq);
+          const int cm = id.chunk * kCM + r;
+          const int valid = cm < s.Cm ? min(8, s.K1 - (k0 + c)) : 0;
+          chunk8(
+              reinterpret_cast<bf16*>(st + r * a.SA1 + c),
+              valid > 0 ? s.w1 + static_cast<long long>(cm) * s.K1 + k0 + c
+                        : s.w1,
+              valid, a.vec_w1);
+        }
+        // the x box of channels oct 16 .. + 16 gb - 1: [16 gb][NB][XH][XW]
+        unsigned short* xs = st + kCM * a.SA1;
+        const int total = 16 * a.ga * xrows * XQ;
+        if (!a.vec_x) {
+          // halfwords, 4 columns a copy, kU copies' loads issued together
+          // with no branch between them; each copy's (column, c16, nl, xh)
+          // stepped on from the thread's first, never divided
+          int xq = xq0, c16 = c160, nl = nl0, xh = xh0;
+          while (c16 < 16 * a.ga) {
+            unsigned h[kU][4];
+            int off[kU];
+#pragma unroll
+            for (int u = 0; u < kU; ++u) {
+              const int ci = id.oct * 16 + c16, ih = b.ih0 + xh;
+              const int iw = b.iw0 + 4 * xq;
+              off[u] = c16 < 16 * a.ga
+                           ? c16 * a.XSTR + (nl * b.XH + xh) * b.XW + 4 * xq
+                           : -1;
+              const bool rok = off[u] >= 0 && ci < s.Ci &&
+                               static_cast<unsigned>(ih) <
+                                   static_cast<unsigned>(s.H);
+              const long long base = static_cast<long long>(t.n0 + nl) *
+                                         s.xs.n +
+                                     static_cast<long long>(ci) * s.xs.c +
+                                     static_cast<long long>(ih) * s.xs.h;
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                h[u][j] = rok && static_cast<unsigned>(iw + j) <
+                                     static_cast<unsigned>(s.W)
+                              ? xbits_at(s.x, base +
+                                                  static_cast<long long>(
+                                                      iw + j) * s.xs.w)
+                              : 0u;
+              xq += dq;  // on by kProducers copies
+              int rows = drow;
+              if (xq >= XQ) {
+                xq -= XQ;
+                ++rows;
+              }
+              xh += rows;
+              while (xh >= b.XH) {
+                xh -= b.XH;
+                if (++nl == t.NBc) {
+                  nl = 0;
+                  ++c16;
+                }
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < kU; ++u)
+              if (off[u] >= 0)
+                *reinterpret_cast<uint2*>(xs + off[u]) =
+                    make_uint2(h[u][0] | (h[u][1] << 16),
+                               h[u][2] | (h[u][3] << 16));
+          }
+        } else {
+          // 16-byte copies of 8 columns (element by element where the row
+          // leaves [0, W)), two at a time
+          for (int e0 = pt; e0 < total; e0 += 2 * kProducers) {
+            unsigned v[2][4];
+            unsigned short* d[2];
+            bool run[2];
+            const XT* src[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int e = e0 + u * kProducers;
+              const int xq = e % XQ, row = e / XQ;
+              const int c16 = row / xrows, rr = row - c16 * xrows;
+              const int nl = rr / b.XH, xh = rr - nl * b.XH;
+              const int ci = id.oct * 16 + c16, ih = b.ih0 + xh;
+              const int iw = b.iw0 + 8 * xq;
+              d[u] = xs + c16 * a.XSTR + rr * b.XW + 8 * xq;
+              const bool rok = e < total && ci < s.Ci &&
+                               static_cast<unsigned>(ih) <
+                                   static_cast<unsigned>(s.H);
+              const long long base =
+                  static_cast<long long>(t.n0 + nl) * s.xs.n +
+                  static_cast<long long>(ci) * s.xs.c +
+                  static_cast<long long>(ih) * s.xs.h;
+              run[u] = rok && iw >= 0 && iw + 8 <= s.W;
+              src[u] = s.x + base + iw;
+              unsigned h[8];
+#pragma unroll
+              for (int j = 0; j < 8; ++j)
+                h[j] = !run[u] && rok &&
+                               static_cast<unsigned>(iw + j) <
+                                   static_cast<unsigned>(s.W)
+                           ? xbits_at(s.x, base + iw + j)
+                           : 0u;
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                v[u][j] = h[2 * j] | (h[2 * j + 1] << 16);
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              if (e0 + u * kProducers >= total) break;
+              if (run[u])
+                cp16(d[u], src[u], true);
+              else
+                *reinterpret_cast<uint4*>(d[u]) =
+                    make_uint4(v[u][0], v[u][1], v[u][2], v[u][3]);
+            }
+          }
+        }
+      } else {
+        // w2 rows co0 .. co0 + BM - 1, k2 [(chunk 32 + q 16) F2^2, + 16 F2^2)
+        const int wq = 2 * a.FF2;
+        const int k0 = (id.chunk * kCM + id.q * 16) * a.FF2;
+        for (int e = pt; e < BM * wq; e += kProducers) {
+          const int r = e / wq, c = 8 * (e - r * wq);
+          const int co = co0 + r;
+          const int valid = co < s.Co ? min(8, s.Cm * a.FF2 - (k0 + c)) : 0;
+          chunk8(
+              reinterpret_cast<bf16*>(st + r * a.SA2 + c),
+              valid > 0
+                  ? s.w2 + static_cast<long long>(co) * s.Cm * a.FF2 + k0 + c
+                  : s.w2,
+              valid, a.vec_w2);
+        }
+      }
+    };
+#pragma unroll
+    for (int q = 0; q < NS - 1; ++q) {
+      if (q < nsl) stage(q);
+      cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      cp_wait<NS - 2>();  // stage sl has landed: announce it
+      bar_arrive(full_bar(sl % NS), kThreads);
+      const int nx = sl + NS - 1;
+      if (nx < nsl) {
+        if (nx >= NS) bar_sync(empty_bar<NS>(nx % NS), kThreads);
+        stage(nx);
+      }
+      cp_commit();
+    }
+    return;
+  }
+
+  consumers_bf16<BM, POOL, F1T, F2T>(a, t, b, nsl);
+}
+
+// ---- the int8->bf16 build: x in flight as bytes -----------------------------
+//
+// Instantiated only by the int8->bf16 build (launch_f below).  The twin's
+// kernel above on int8 x loaded each box run of 8 by one blocking 8-byte
+// load (and the other columns byte by byte), a producer thread two runs at
+// a time: on ResNet-18's layer1 block (W 56, where the twin's 8-aligned box
+// does not fit the slot, so every column went by bytes) everything but its
+// products took 0.35 ms and its consumers alone 0.28 of its 0.47 (PERF.md).
+// This kernel keeps the twin's tile, walk, ring, barriers, consumers
+// (consumers_bf16: fragments, products, epilogue) and counted FLOPs, and
+// changes how x reaches the stage: the int8 bytes travel by cp.async,
+// NS - 1 stages ahead as w1 does, and are widened in shared memory.
+//
+//   Copy units (vec_x 2: W % 8 == 0, the box origin aligned down to 8 and
+//   its width rounded up to 8, where that box fits the slot; vec_x 1: W %
+//   4 == 0, aligned to 4, the float32 box's columns, which always fit): a
+//   unit is 2Q columns of a box row (Q = 8 or 4; Q where the row ends),
+//   and its bf16 span in the stage (4Q bytes) holds its bytes until they
+//   are widened, at the span's upper half.  One 2Q-byte cp.async where
+//   both halves lie in x and the source is 2Q-aligned, else one Q-byte
+//   copy a half; a half off [0, W) x [0, H) (or past Ci) is zero-filled by
+//   the copy's source size.  Both ends are aligned (x and W multiples of Q,
+//   the box rows and channels 16 bytes apart).
+//   Widening: once its cp.async group has landed (cp.async.wait_group makes
+//   a thread's own copies visible to it), each producer thread reads the
+//   bytes it copied and writes their bf16 over its units' spans, then
+//   arrives on the stage's FULL barrier, which publishes the box as the
+//   twin's does.  A unit's bytes lie inside its own span, so no thread
+//   reads bytes another writes, and the stage never outgrows the twin's
+//   slot: the kernel's shared memory is the twin's at every tile.
+//   Elements (vec_x 0: a CHWN source, W % 4 != 0, x misaligned): the
+//   twin's box and its batched loads (box_elements_bf16), a byte each.
+//
+// What bounds it: as the twin, operations by design (one bf16 product a
+// conv1 term, three a conv2 term).  On the card (ResNet-18's layer1 block,
+// timed apart with tools/timing_variants.py, PERF.md) the consumers alone
+// (the twin's body) take ~0.28 of its ~0.37 ms, and everything but the
+// products ~0.26: the copies no longer wait on memory, and what is left of
+// them is their share of the sub-partitions' issue slots, which the
+// consumers' halfword fragment loads keep busy.
+
+// the int8 build's box of a block: the float32 one's rows; its columns from
+// an origin aligned down to Q (8 at vec_x 2, 4 at vec_x 1) and a width
+// rounded up to Q, else (vec_x 0) the bf16 build's element box
+__device__ __forceinline__ Box make_box_i8(const K5bArgs<bf16, int8_t>& a,
+                                           const Tile& t) {
+  Box b = make_box(a, t);
+  const int iws = b.iw0 + b.sh;
+  const int span = (b.RW - 1) * a.s.S1 + a.s.F1;
+  if (a.vec_x) {
+    const int Q = a.vec_x == 2 ? 8 : 4;
+    b.iw0 = iws & -Q;
+    b.sh = iws - b.iw0;
+    b.XW = (b.sh + span + Q - 1) & -Q;
+  } else {
+    b.iw0 = iws;
+    b.sh = 0;
+    b.XW = (span + 3) & ~3;
+  }
+  return b;
+}
+
+// One copy unit of the int8 box (ops.py::k5b_i8bf16_unit mirrors it): 2Q
+// columns of a box row, or Q where the row ends (half)
+struct I8Unit {
+  unsigned char* d;   // its bf16 span in the stage (4Q bytes; 2Q if half)
+  const int8_t* src;  // its first element in x
+  bool ok0, ok1;      // its first and second Q columns lie in x
+  bool half;
+};
+
+// every unit of a phase-A stage's box that a producer thread owns, from its
+// first (w: box_walk over XU units a row) stepped on by kProducers units,
+// never divided; Q (8 or 4) the bytes of one aligned copy.  The units'
+// sources lie within the block's box, 32-bit offsets from its origin.
+template <int Q, typename F>
+__device__ __forceinline__ void i8_units(const K5bArgs<bf16, int8_t>& a,
+                                         const Box& b, const Tile& t,
+                                         const StageId& id,
+                                         unsigned short* xs, int XU,
+                                         const BoxWalk& w, F f) {
+  const StackArgs<bf16, int8_t>& s = a.s;
+  const int8_t* x0 = s.x + static_cast<long long>(t.n0) * s.xs.n +
+                     static_cast<long long>(id.oct * 16) * s.xs.c +
+                     static_cast<long long>(b.ih0) * s.xs.h + b.iw0;
+  int xu = w.xq0, c16 = w.c160, nl = w.nl0, xh = w.xh0;
+  while (c16 < 16 * a.ga) {
+    const int ci = id.oct * 16 + c16, ih = b.ih0 + xh;
+    const int c0 = 2 * Q * xu, iw = b.iw0 + c0;
+    const bool rok = ci < s.Ci && static_cast<unsigned>(ih) <
+                                      static_cast<unsigned>(s.H);
+    I8Unit u;
+    u.d = reinterpret_cast<unsigned char*>(
+        xs + c16 * a.XSTR + (nl * b.XH + xh) * b.XW + c0);
+    u.half = c0 + Q == b.XW;
+    u.ok0 = rok && iw >= 0 && iw + Q <= s.W;
+    u.ok1 = !u.half && rok && iw + Q >= 0 && iw + 2 * Q <= s.W;
+    u.src = x0 + (nl * s.xs.n + c16 * s.xs.c + xh * s.xs.h + c0);
+    f(u);
+    xu += w.dq;  // on by kProducers units
+    int rows = w.drow;
+    if (xu >= XU) {
+      xu -= XU;
+      ++rows;
+    }
+    xh += rows;
+    while (xh >= b.XH) {
+      xh -= b.XH;
+      if (++nl == t.NBc) {
+        nl = 0;
+        ++c16;
+      }
+    }
+  }
+}
+
+// N bytes (16, 8 or 4) global -> shared by cp.async; ok == false writes
+// zeros
+template <int N>
+__device__ __forceinline__ void cp_n(void* d, const void* src, bool ok) {
+  if constexpr (N == 16)
+    cp16(d, src, ok);
+  else if constexpr (N == 8)
+    cp8(d, src, ok);
+  else
+    cp4(d, src, ok);
+}
+
+// a unit's bytes into the upper part of its span: one 2Q-byte copy where
+// both halves lie in x and the source is 2Q-aligned, else a Q-byte copy a
+// half (zeros where it lies off x; `any` a readable address)
+template <int Q>
+__device__ __forceinline__ void copy_unit(const I8Unit& u, const int8_t* any) {
+  if (u.half) {
+    cp_n<Q>(u.d + Q, u.ok0 ? u.src : any, u.ok0);
+  } else if (u.ok0 && u.ok1 &&
+             (reinterpret_cast<uintptr_t>(u.src) & (2 * Q - 1)) == 0) {
+    cp_n<2 * Q>(u.d + 2 * Q, u.src, true);
+  } else {
+    cp_n<Q>(u.d + 2 * Q, u.ok0 ? u.src : any, u.ok0);
+    cp_n<Q>(u.d + 3 * Q, u.ok1 ? u.src + Q : any, u.ok1);
+  }
+}
+
+// a unit's bytes, once landed, widened to bf16 over its span (all read
+// before any is written: they lie inside the span)
+template <int Q>
+__device__ __forceinline__ void widen_unit(const I8Unit& u) {
+  if constexpr (Q == 8) {
+    if (u.half) {
+      *reinterpret_cast<uint4*>(u.d) =
+          bf16x8(*reinterpret_cast<const uint2*>(u.d + 8));
+    } else {
+      const uint4 r = *reinterpret_cast<const uint4*>(u.d + 16);
+      *reinterpret_cast<uint4*>(u.d) = bf16x8(make_uint2(r.x, r.y));
+      *reinterpret_cast<uint4*>(u.d + 16) = bf16x8(make_uint2(r.z, r.w));
+    }
+  } else {
+    if (u.half) {
+      *reinterpret_cast<uint2*>(u.d) =
+          bf16x4(*reinterpret_cast<const unsigned*>(u.d + 4));
+    } else {
+      const uint2 r = *reinterpret_cast<const uint2*>(u.d + 8);
+      *reinterpret_cast<uint2*>(u.d) = bf16x4(r.x);
+      *reinterpret_cast<uint2*>(u.d + 8) = bf16x4(r.y);
+    }
+  }
+}
+
+template <int BM, bool POOL, int F1T, int F2T>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_stack_nchw_i8bf16_kernel(const K5bArgs<bf16, int8_t> a) {
+  constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
+  extern __shared__ __align__(16) float smem[];  // ring, then the slab
+  unsigned short* ring = reinterpret_cast<unsigned short*>(smem);
+  const StackArgs<bf16, int8_t>& s = a.s;
+  const Tile t = repro::stack::make_tile(s);
+  const Box b = make_box_i8(a, t);
+  const int co0 = blockIdx.y * BM;
+  const int last = a.chunks - 1;
+  const int nsl = a.chunks * (b.passes * a.a_stages + kCM / 16) - kCM / 16 +
+                  (min(kCM, s.Cm - last * kCM) + 15) / 16;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroup: every stage's copies, x widened ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    const int Q = a.vec_x == 2 ? 8 : 4;  // bytes of an aligned copy
+    // element copies (4 columns) or units (2Q columns) of a box row, and
+    // this thread's first
+    const int XQ = a.vec_x ? (b.XW + 2 * Q - 1) / (2 * Q) : b.XW / 4;
+    const BoxWalk w = box_walk(b, t, XQ, pt);
+    auto stage = [&](int sl) {
+      const StageId id = stage_id_bf16(a, b, sl);
+      unsigned short* st = ring + (sl % NS) * 2 * a.STAGE;
+      if (id.q >= 0) {
+        w2_slice_bf16<BM>(a, id, st, co0, pt);
+        return;
+      }
+      w1_slice_bf16(a, id, st, pt);
+      unsigned short* xs = st + kCM * a.SA1;
+      if (!a.vec_x) {
+        box_elements_bf16(a, b, t, id, xs, XQ, w);
+        return;
+      }
+      if (a.vec_x == 2)
+        i8_units<8>(a, b, t, id, xs, XQ, w,
+                    [&](const I8Unit& u) { copy_unit<8>(u, s.x); });
+      else
+        i8_units<4>(a, b, t, id, xs, XQ, w,
+                    [&](const I8Unit& u) { copy_unit<4>(u, s.x); });
+    };
+    // the bytes this thread copied into stage sl, widened to bf16 in place
+    auto widen = [&](int sl) {
+      const StageId id = stage_id_bf16(a, b, sl);
+      if (!a.vec_x || id.q >= 0) return;
+      unsigned short* xs = ring + (sl % NS) * 2 * a.STAGE + kCM * a.SA1;
+      if (a.vec_x == 2)
+        i8_units<8>(a, b, t, id, xs, XQ, w,
+                    [&](const I8Unit& u) { widen_unit<8>(u); });
+      else
+        i8_units<4>(a, b, t, id, xs, XQ, w,
+                    [&](const I8Unit& u) { widen_unit<4>(u); });
+    };
+#pragma unroll
+    for (int q = 0; q < NS - 1; ++q) {
+      if (q < nsl) stage(q);
+      cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      cp_wait<NS - 2>();  // stage sl has landed: widen it, announce it
+      widen(sl);
+      bar_arrive(full_bar(sl % NS), kThreads);
+      const int nx = sl + NS - 1;
+      if (nx < nsl) {
+        if (nx >= NS) bar_sync(empty_bar<NS>(nx % NS), kThreads);
+        stage(nx);
+      }
+      cp_commit();
+    }
+    return;
+  }
+  consumers_bf16<BM, POOL, F1T, F2T>(a, t, b, nsl);
+}
+
 // K5b's shared-memory layout at a block tile (ops.py::k5b_layout computes
 // the same): a phase-A stage holds ga 8-channel groups of Ci (the largest
 // divisor of Ci/8 whose stage fits the slot a phase-B stage needs)
@@ -1177,21 +1555,24 @@ Layout layout(int Ci, int F1, int S1, int F2, int S2, int pool_F, int pool_S,
   return l;
 }
 
-// The bf16 build's layout at the same tile (ops.py::k5b_bf16_layout
-// computes the same): every stage in the float32 layout's slot, so the
-// slab and the shared memory are the float32 layout's.  A phase-B stage,
-// BM w2 rows of 16 F2^2 + 8 halfwords, takes the float32 one's bytes.  A
-// phase-A stage holds gb 16-channel groups of Ci, gb the largest divisor of
-// ceil(Ci / 16) whose stage fits: w1 rows of 16 gb F1^2 + 8 halfwords and
-// the x box, its channels XSTR halfwords apart (8 mod 32, as the float32
-// box's floats).  want8: the box rows may copy by 16 bytes (an NCHW
-// source, W % 8 == 0, aligned); box8 says whether they do: the box of an
-// origin aligned down to 8 and a width rounded up to 8 fits the slot at gb
-// = 1.  Else the box starts at its first column, width rounded up to 4,
-// which fits as the float32 box does (at most its columns, half its bytes).
+// The bf16 builds' layout at the same tile (ops.py::k5b_bf16_layout and
+// k5b_i8bf16_layout compute the same): every stage in the float32 layout's
+// slot, so the slab and the shared memory are the float32 layout's.  A
+// phase-B stage, BM w2 rows of 16 F2^2 + 8 halfwords, takes the float32
+// one's bytes.  A phase-A stage holds gb 16-channel groups of Ci, gb the
+// largest divisor of ceil(Ci / 16) whose stage fits: w1 rows of 16 gb F1^2
+// + 8 halfwords and the x box, its channels XSTR halfwords apart (8 mod 32,
+// as the float32 box's floats).  The box (mode, the kernels' vec_x): 2, an
+// origin aligned down to 8 and a width rounded up to 8, where want8 (the
+// rows may copy by 8 or 16 bytes: an NCHW source, W % 8 == 0, x aligned)
+// and that box fits the slot at gb = 1; 1, aligned down to 4 and rounded
+// up to 4 (want4: W % 4 == 0; the int8->bf16 build's 4-byte copies), the
+// float32 box's columns, which fit as the float32 box does; else 0, the
+// box from its first column, width rounded up to 4 (at most the float32
+// box's columns, half its bytes).
 Layout layout_bf16(const Layout& l, int Ci, int F1, int S1, int F2, int S2,
                    int pool_F, int pool_S, int nb, int uth, int utw,
-                   bool want8, bool& box8) {
+                   bool want8, bool want4, int& mode) {
   Layout b = l;
   const int oth = pool_F > 0 ? (uth - 1) * pool_S + pool_F : uth;
   const int otw = pool_F > 0 ? (utw - 1) * pool_S + pool_F : utw;
@@ -1203,8 +1584,13 @@ Layout layout_bf16(const Layout& l, int Ci, int F1, int S1, int F2, int S2,
     return 1LL * kCM * (16 * gb * ff1 + 8) + 16LL * gb * xstr;
   };
   const int x8 = rows8(nb * xh * ((7 + span + 7) & ~7));
-  box8 = want8 && stage_a(1, x8) <= slot;
-  b.xstr = box8 ? x8 : rows8(nb * xh * ((span + 3) & ~3));
+  const int x4 = rows8(nb * xh * ((3 + span + 3) & ~3));
+  mode = want8 && stage_a(1, x8) <= slot   ? 2
+         : want4 && stage_a(1, x4) <= slot ? 1
+                                           : 0;
+  b.xstr = mode == 2   ? x8
+           : mode == 1 ? x4
+                       : rows8(nb * xh * ((span + 3) & ~3));
   b.ga = 1;
   for (int g = 2; g <= ci16; ++g)
     if (ci16 % g == 0 && stage_a(g, b.xstr) <= slot) b.ga = g;
@@ -1218,7 +1604,10 @@ template <int BM, bool POOL, int FT>
 cudaError_t launch_f(const K5bArgs<T, X>& a, dim3 grid, int smem,
                      cudaStream_t st) {
   void (*kernel)(const K5bArgs<T, X>);
-  if constexpr (std::is_same<T, bf16>::value)
+  if constexpr (std::is_same<T, bf16>::value &&
+                std::is_same<X, int8_t>::value)
+    kernel = conv_stack_nchw_i8bf16_kernel<BM, POOL, FT, FT>;
+  else if constexpr (std::is_same<T, bf16>::value)
     kernel = conv_stack_nchw_bf16_kernel<X, BM, POOL, FT, FT>;
   else
     kernel = conv_stack_nchw_kernel<X, BM, POOL, FT, FT>;
@@ -1253,13 +1642,16 @@ extern "C" int REPRO_ENTRY(conv_stack_nchw_forward)(
     int dst_nchw, int res_nchw, int bm, int nb, int uth, int utw,
     void* stats, void* stream) {
   constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  constexpr bool kI8 = std::is_same<X, int8_t>::value;
   Layout l = layout(Ci, F1, S1, F2, S2, pool_F, pool_S, bm, nb, uth, utw);
-  bool box8 = false;
-  if (kBf16 && l.bytes >= 0)
+  int box = 0;  // the bf16 builds' box (layout_bf16's mode)
+  if (kBf16 && l.bytes >= 0) {
+    // bf16 x: 16-byte runs of 8; int8 x: runs of 8 or 4 bytes
+    const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
     l = layout_bf16(l, Ci, F1, S1, F2, S2, pool_F, pool_S, nb, uth, utw,
-                    src_nchw && W % 8 == 0 &&
-                        reinterpret_cast<uintptr_t>(x) % 16 == 0,
-                    box8);
+                    src_nchw && W % 8 == 0 && xa % (kI8 ? 8 : 16) == 0,
+                    kI8 && src_nchw && W % 4 == 0 && xa % 4 == 0, box);
+  }
   if (l.bytes < 0 || l.bytes > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
   K5bArgs<T, X> a{};
@@ -1300,7 +1692,7 @@ extern "C" int REPRO_ENTRY(conv_stack_nchw_forward)(
   a.chunks = (Cm + kCM - 1) / kCM;
   if (kBf16) {  // 16-channel stages, runs of 8 elements
     a.a_stages = (Ci + 15) / 16 / l.ga;
-    a.vec_x = box8;
+    a.vec_x = box;
     a.vec_w1 = s.K1 % 8 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
     a.vec_w2 = (Cm * a.FF2) % 8 == 0 &&
                reinterpret_cast<uintptr_t>(w2) % 16 == 0;

@@ -868,6 +868,80 @@ def k5a_bf16_ring_bytes(bm: int) -> int:
     return max(phase_a, phase_b)
 
 
+# K5a's int8->bf16 kernel (``cluster_stack_i8bf16_kernel``): a stage is
+# one k16 slice, phase A's w1 [16][64] and x [16][<= 128] bf16 slices and
+# the x bytes [16][<= 128], or phase B's w2 [16][bm] bf16 slice
+_K5A_I8_XB = 16 * _CL_CM * 2          # byte offset of the x bf16 slice
+_K5A_I8_X8 = _K5A_I8_XB + 16 * _CL_PASS * 2   # ... and of the x bytes
+
+
+def k5a_i8bf16_stages(bm: int) -> Tuple[int, int]:
+    """(NS, slot bytes) of K5a's int8->bf16 kernel (``IShape``): as many
+    stages as the twin's ring (``_cluster_ring_bytes``) holds, so its slab
+    stays where the twin's is."""
+    slot = max(_K5A_I8_X8 + 16 * _CL_PASS, 16 * bm * 2)
+    return _cluster_ring_bytes(bm) // slot, slot
+
+
+def k5a_i8bf16_smem(bm: int, rstr: int, pool: bool) -> int:
+    """One K5a int8->bf16 block's dynamic shared memory: its NS stages lie
+    inside the twin's ring and the slab (or the pool tile) follows it, so
+    it allocates what the twin does (``_cluster_smem_bytes``).  Raises
+    ``ValueError`` where the stages would outgrow the twin's ring."""
+    ns, slot = k5a_i8bf16_stages(bm)
+    if ns < 3 or ns * slot > _cluster_ring_bytes(bm):
+        raise ValueError(f"K5a int8->bf16: {ns} stages of {slot} bytes do "
+                         f"not fit the twin's {_cluster_ring_bytes(bm)}-"
+                         "byte ring")
+    return _cluster_smem_bytes(bm, rstr, pool)
+
+
+def k5a_i8bf16_stage(sl: int, nsl1: int, nA: int, nB: int
+                     ) -> Tuple[int, int, int, int]:
+    """(chunk, pass, slice, q) of stage ``sl`` of a K5a int8->bf16 block,
+    in closed form: per chunk ``nA`` phase-A stages (passes of ``nsl1`` k16
+    slices), then ``nB`` phase-B ones (q >= 0; -1 in phase A).  The kernel
+    walks it from ``IWalk::first`` by ``IWalk::step``
+    (``k5a_i8bf16_step``)."""
+    per = nA + nB
+    chunk, r = divmod(sl, per)
+    if r < nA:
+        return chunk, r // nsl1, r % nsl1, -1
+    return chunk, 0, 0, r - nA
+
+
+def k5a_i8bf16_step(stage: Tuple[int, int, int, int], nsl1: int, nA: int,
+                    nB: int) -> Tuple[int, int, int, int]:
+    """The stage after ``stage`` in K5a int8->bf16's walk (``IWalk::step``,
+    how its producers move on without a division)."""
+    chunk, pas, s, q = stage
+    if q < 0:
+        s += 1
+        if s == nsl1:
+            s, pas = 0, pas + 1
+            if pas * nsl1 == nA:
+                pas, q = 0, 0
+        return chunk, pas, s, q
+    q += 1
+    if q == nB:
+        return chunk + 1, pas, s, (-1 if nA else 0)
+    return chunk, pas, s, q
+
+
+def k5a_i8bf16_runs(KRA: int, pt: int):
+    """(k row, run) of each x run of 8 positions that producer thread
+    ``pt`` copies into a phase-A stage of ``KRA`` positions, in its
+    order."""
+    for e in range(pt, 16 * KRA // 8, 128):
+        yield divmod(e, KRA // 8)
+
+
+def k5a_i8bf16_swz(KRA: int, r: int, c: int) -> int:
+    """Halfword offset of 16-byte chunk ``c`` of row ``r`` of a [16][KRA]
+    bf16 slice, XOR-swizzled by the row (``mma::swz``)."""
+    return r * KRA + ((c ^ (r & 7)) << 3)
+
+
 @functools.lru_cache(maxsize=None)
 def _mid_spans(U: int, UT: int, pF: int, pS: int, S2: int, F2: int, P2: int,
                M1: int) -> Tuple[Tuple[Tuple[int, int], int], ...]:
@@ -1061,20 +1135,23 @@ def k5b_layout(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
     return ga, 4 * (max(ring, tile) + _K5B_CM * _rows8(nb * rh * rw))
 
 
-def k5b_bf16_layout(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
-                    pS: int, bm: int, nb: int, uth: int, utw: int,
-                    want8: bool = True) -> Tuple[int, int, int, int, bool]:
-    """(gb, phase-A stage bytes, phase-B stage bytes, slot bytes, box8) of
-    K5b's bf16 build at a tile (``layout_bf16`` in csrc/
-    conv_stack_nchw.cu).  A stage steps 16 channels at one tap: a phase-B
-    stage holds bm w2 rows of 16 F2^2 + 8 halfwords (the float32 stage's
-    bytes), a phase-A stage gb 16-channel groups of Ci (the largest
+def _k5b_narrow_layout(Ci: int, F1: int, S1: int, F2: int, S2: int,
+                       pF: int, pS: int, bm: int, nb: int, uth: int,
+                       utw: int, want8: bool, want4: bool
+                       ) -> Tuple[int, int, int, int, int, int]:
+    """(gb, phase-A stage bytes, phase-B stage bytes, slot bytes, box
+    mode, x box channel stride in elements) of K5b's bf16 builds at a tile (``layout_bf16`` in
+    csrc/conv_stack_nchw.cu).  A stage steps 16 channels at one tap: a
+    phase-B stage holds bm w2 rows of 16 F2^2 + 8 halfwords (the float32
+    stage's bytes), a phase-A stage gb 16-channel groups of Ci (the largest
     divisor of ceil(Ci / 16) that fits) of w1 rows (16 gb F1^2 + 8
     halfwords) and of the x box.  Both lie inside ``k5b_layout``'s slot, so
-    the slab and the block's shared memory are the float32 build's.
-    ``want8``: the x rows may copy by 16 bytes (an NCHW source, W % 8 ==
-    0); ``box8``: they do, the box of an origin aligned down to 8 and a
-    width rounded up to 8 fitting the slot."""
+    the slab and the block's shared memory are the float32 build's.  The
+    box mode: 2, an origin aligned down to 8 and a width rounded up to 8,
+    where ``want8`` (the rows may copy by 8 or 16 bytes: an NCHW source, W
+    % 8 == 0) and that box fits the slot; 1, aligned to 4 (``want4``: W % 4
+    == 0, the int8->bf16 build's 4-byte copies), the float32 box's
+    columns, which always fit; else 0, the box from its first column."""
     _, _, xh, span = _k5b_box(F1, S1, F2, S2, pF, pS, uth, utw)
     xw = (3 + span + 3) // 4 * 4
     ff1, ci16 = F1 * F1, -(-Ci // 16)
@@ -1084,13 +1161,153 @@ def k5b_bf16_layout(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
     def stage_a(gb, xstr):
         return _K5B_CM * (16 * gb * ff1 + 8) + 16 * gb * xstr
 
-    x8 = _rows8(nb * xh * ((7 + span + 7) // 8 * 8))
-    box8 = want8 and stage_a(1, x8) <= slot
-    xstr = x8 if box8 else _rows8(nb * xh * ((span + 3) // 4 * 4))
+    x8, x4 = _rows8(nb * xh * ((7 + span + 7) // 8 * 8)), _rows8(nb * xh * xw)
+    mode = (2 if want8 and stage_a(1, x8) <= slot else
+            1 if want4 and stage_a(1, x4) <= slot else 0)
+    xstr = (x8, x4, _rows8(nb * xh * ((span + 3) // 4 * 4)))[2 - mode]
     gb = max(g for g in range(1, ci16 + 1)
              if ci16 % g == 0 and (g == 1 or stage_a(g, xstr) <= slot))
     return (gb, 2 * stage_a(gb, xstr), 2 * bm * (16 * F2 * F2 + 8),
-            2 * slot, box8)
+            2 * slot, mode, xstr)
+
+
+def k5b_bf16_layout(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
+                    pS: int, bm: int, nb: int, uth: int, utw: int,
+                    want8: bool = True) -> Tuple[int, int, int, int, bool]:
+    """(gb, phase-A stage bytes, phase-B stage bytes, slot bytes, box8) of
+    K5b's bf16 build at a tile (``_k5b_narrow_layout``): ``want8``, the x
+    rows may copy by 16 bytes (an NCHW source, W % 8 == 0); ``box8``, they
+    do, the box of an origin aligned down to 8 and a width rounded up to 8
+    fitting the slot."""
+    gb, stage_a, stage_b, slot, mode, _ = _k5b_narrow_layout(
+        Ci, F1, S1, F2, S2, pF, pS, bm, nb, uth, utw, want8, False)
+    return gb, stage_a, stage_b, slot, mode == 2
+
+
+def k5b_i8bf16_layout(Ci: int, F1: int, S1: int, F2: int, S2: int,
+                      pF: int, pS: int, bm: int, nb: int, uth: int,
+                      utw: int, want8: bool = True, want4: bool = True
+                      ) -> Tuple[int, int, int, int, int, int]:
+    """(gb, phase-A stage bytes, phase-B stage bytes, slot bytes, box
+    mode, x box channel stride) of K5b's int8->bf16 kernel at a tile: the bf16 build's stages in
+    the same slots, its box by mode (``_k5b_narrow_layout``; the kernels'
+    ``vec_x``): 2, copies of 8 or 16 bytes (``want8``: an NCHW source, W %
+    8 == 0, x 8-byte aligned); 1, of 4 or 8 bytes (``want4``: W % 4 == 0, x
+    4-byte aligned); 0, element loads."""
+    return _k5b_narrow_layout(Ci, F1, S1, F2, S2, pF, pS, bm, nb, uth, utw,
+                              want8, want4)
+
+
+def k5b_i8bf16_smem(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
+                    pS: int, bm: int, nb: int, uth: int, utw: int,
+                    want8: bool = True, want4: bool = True) -> int:
+    """One block's dynamic shared memory in K5b's int8->bf16 kernel: its
+    stages (``k5b_i8bf16_layout``, the x bytes inside the box's own bf16
+    spans) lie in the float32 layout's slots, so it allocates
+    ``k5b_layout``'s bytes.  Raises ``ValueError`` where a stage would not
+    fit its slot."""
+    _, stage_a, stage_b, slot, _, _ = k5b_i8bf16_layout(
+        Ci, F1, S1, F2, S2, pF, pS, bm, nb, uth, utw, want8, want4)
+    if max(stage_a, stage_b) > slot:
+        raise ValueError(f"K5b int8->bf16: a {max(stage_a, stage_b)}-byte "
+                         f"stage outgrows its {slot}-byte slot")
+    return k5b_layout(Ci, F1, S1, F2, S2, pF, pS, bm, nb, uth, utw)[1]
+
+
+def stack_tile(N: int, H: int, W: int, F1: int, S1: int, P1: int, F2: int,
+               S2: int, P2: int, pool, nb: int, uth: int, utw: int,
+               ng: int, th: int, tw: int) -> dict:
+    """One block's tile of a stack launch (``make_tile`` in
+    csrc/conv_stack_common.cuh): images [n0, n0 + NBc), its conv2 output
+    rectangle (oh0, ow0, OH x OW; the outputs under its units where it
+    pools) and the clipped mid box it reads (rows [mh_lo, mh_lo + MHc),
+    columns [mw_lo, mw_lo + MWc)), with the unclipped box's origin (mh_u,
+    mw_u) and extent (RH x RW), for the block of image group ``ng`` and
+    unit tile (``th``, ``tw``)."""
+    Ho1, Wo1, Ho2, Wo2, UH, UW, pF, pS, _ = _stack_dims(
+        N, 1, H, W, 1, F1, S1, P1, 1, F2, S2, P2, pool)
+    n0, uh0, uw0 = ng * nb, th * uth, tw * utw
+    UTHc, UTWc = min(uth, UH - uh0), min(utw, UW - uw0)
+    oh0, ow0 = (uh0 * pS, uw0 * pS) if pF else (uh0, uw0)
+    OH = (UTHc - 1) * pS + pF if pF else UTHc
+    OW = (UTWc - 1) * pS + pF if pF else UTWc
+
+    def span(o0, on, M1):
+        m0, m1 = o0 * S2 - P2, (o0 + on - 1) * S2 - P2 + F2
+        lo = max(m0, 0)
+        return lo, max(0, min(m1, M1) - lo)
+
+    mh_lo, MHc = span(oh0, OH, Ho1)
+    mw_lo, MWc = span(ow0, OW, Wo1)
+    return dict(n0=n0, NBc=min(nb, N - n0), UTHc=UTHc, UTWc=UTWc, oh0=oh0,
+                ow0=ow0, OH=OH, OW=OW, mh_lo=mh_lo, MHc=MHc, mw_lo=mw_lo,
+                MWc=MWc, mh_u=oh0 * S2 - P2, mw_u=ow0 * S2 - P2,
+                RH=(OH - 1) * S2 + F2, RW=(OW - 1) * S2 + F2)
+
+
+def k5b_i8bf16_box(tile: dict, F1: int, S1: int, P1: int,
+                   mode: int) -> Tuple[int, int, int, int]:
+    """(ih0, XH, iw0, XW) of a block's x box in K5b's int8->bf16 kernel
+    (``make_box_i8``): the rows under the unclipped mid box; its columns
+    from an origin aligned down to Q (8 at mode 2, 4 at mode 1) and a width
+    rounded up to Q, or (mode 0) from the first column, width rounded up
+    to 4.  The consumers read column (mw + dw) S1 + sh + dx of it."""
+    ih0 = tile["mh_u"] * S1 - P1
+    XH = (tile["RH"] - 1) * S1 + F1
+    iws = tile["mw_u"] * S1 - P1
+    span = (tile["RW"] - 1) * S1 + F1
+    if mode:
+        q = 8 if mode == 2 else 4
+        iw0 = iws // q * q
+        return ih0, XH, iw0, (iws - iw0 + span + q - 1) // q * q
+    return ih0, XH, iws, (span + 3) // 4 * 4
+
+
+def k5b_i8bf16_walk(XU: int, XH: int, NBc: int, channels: int, pt: int):
+    """The units of a phase-A stage's box that producer thread ``pt``
+    owns, in its order, as (c16, nl, xh, xu): from its first (``box_walk``)
+    stepped on by 128 units without a division (``i8_units``)."""
+    xu, drow, dq = pt % XU, 128 // XU, 128 % XU
+    c16, nl, xh = 0, 0, pt // XU
+    while xh >= XH:
+        xh -= XH
+        nl += 1
+        if nl == NBc:
+            nl, c16 = 0, c16 + 1
+    while c16 < channels:
+        yield c16, nl, xh, xu
+        xu += dq
+        rows = drow
+        if xu >= XU:
+            xu, rows = xu - XU, rows + 1
+        xh += rows
+        while xh >= XH:
+            xh -= XH
+            nl += 1
+            if nl == NBc:
+                nl, c16 = 0, c16 + 1
+
+
+def k5b_i8bf16_unit(q: int, XW: int, xu: int, iw0: int, W: int,
+                    row_ok: bool, src_addr: int):
+    """One copy unit of K5b's int8->bf16 box (``I8Unit``): 2Q columns of a
+    box row from column 2Q xu (Q where the row ends).  Returns (copies,
+    widen): each copy (byte offset in the unit's bf16 span, bytes, global
+    byte address of its source or None for a zero fill), and the widening
+    (byte offset of the bytes in the span, how many; they become bf16 at
+    the span's start).  ``src_addr``: x's address of the unit's first
+    column; ``row_ok``: its row and channel lie in x."""
+    c0 = 2 * q * xu
+    iw = iw0 + c0
+    half = c0 + q == XW
+    ok0 = row_ok and iw >= 0 and iw + q <= W
+    ok1 = not half and row_ok and iw + q >= 0 and iw + 2 * q <= W
+    if half:
+        return [(q, q, src_addr if ok0 else None)], (q, q)
+    if ok0 and ok1 and src_addr % (2 * q) == 0:
+        return [(2 * q, 2 * q, src_addr)], (2 * q, 2 * q)
+    return [(2 * q, q, src_addr if ok0 else None),
+            (3 * q, q, src_addr + q if ok1 else None)], (2 * q, 2 * q)
 
 
 def _balanced(U: int, cap: int):

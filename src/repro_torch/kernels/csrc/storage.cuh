@@ -125,6 +125,15 @@ __device__ __forceinline__ unsigned bf16_bits(const bf16* p, bool ok) {
 __device__ __forceinline__ unsigned bf16_bits(const int8_t* p, bool ok) {
   return ok ? __float_as_uint(static_cast<float>(__ldg(p))) >> 16 : 0u;
 }
+// 4 int8 (bytes of w, element 0 lowest) as 4 bf16, two to a word
+__device__ __forceinline__ uint2 bf16x4(unsigned w) {
+  auto two = [](unsigned v, int i) {
+    return (__float_as_uint(i8_at(static_cast<int>(v), 2 * i)) >> 16) |
+           (__float_as_uint(i8_at(static_cast<int>(v), 2 * i + 1)) &
+            0xffff0000u);
+  };
+  return make_uint2(two(w, 0), two(w, 1));
+}
 // 8 int8 (bytes of r, element 0 lowest) as 8 bf16, two to a word
 __device__ __forceinline__ uint4 bf16x8(uint2 r) {
   auto two = [](unsigned w, int i) {

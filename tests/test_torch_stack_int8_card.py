@@ -15,6 +15,13 @@ K5b int8->fp32 and K5b int8->bf16 (``conv_stack_nchw.cu``).
   the FLOPs the blocks execute (and K5a's cluster) are ``stack_tiling``'s;
   three runs are bitwise equal; ``stack_max_clusters`` answers for the
   int8 builds.
+- The int8->bf16 kernels' copy paths at their edges (``EDGE_CASES``): W
+  of 55, 13 and 7, pad 0 and 2, conv1 stride 2, CHWN N of 4 and 12 (no
+  runs of n), an NCHW source into K5a, x as a view 1, 2 and 4 bytes past
+  an aligned base, W 64 (K5b's 8-aligned box), several chunks of Cm in a
+  cluster of 3 (K5a): each within one bf16 step of the plain version, with
+  bitwise repeats and the counted FLOPs; K5b's output also bitwise equal
+  to its bf16 twin's on the same values (the same consumers and sums).
 - A build error or a launch the card refuses raises
   (``KernelBuildError``, ``KernelLaunchError``): nothing falls back.
 
@@ -64,6 +71,55 @@ K5B_CASES = [
 ]
 CASES = ([("CHWN", c) for c in K5A_CASES]
          + [("NCHW", c) for c in K5B_CASES])
+# the int8->bf16 kernels' copy paths at their edges
+EDGE_CASES = [
+    ("NCHW", (2, 16, 55, 16, 16, 3, 1, 1, 3, 1, 1, None, "NCHW", "NCHW",
+              "NCHW", 0)),
+    ("NCHW", (3, 8, 13, 16, 8, 3, 1, 1, 3, 1, 1, (2, 2, "max"), None,
+              "NCHW", "NCHW", 0)),
+    ("NCHW", (4, 16, 7, 24, 16, 3, 1, 1, 3, 1, 1, None, None, "NCHW",
+              "NCHW", 0)),
+    ("NCHW", (2, 20, 16, 16, 16, 3, 1, 0, 3, 1, 1, None, None, "NCHW",
+              "NCHW", 0)),
+    ("NCHW", (2, 16, 20, 16, 16, 5, 1, 2, 3, 1, 1, None, None, "NCHW",
+              "NCHW", 0)),
+    ("NCHW", (2, 16, 32, 32, 16, 3, 2, 1, 3, 1, 1, None, "NCHW", "NCHW",
+              "NCHW", 0)),
+    ("NCHW", (2, 16, 64, 64, 32, 3, 1, 1, 3, 1, 1, None, None, "NCHW",
+              "NCHW", 0)),
+    ("NCHW", (2, 16, 16, 16, 16, 3, 1, 1, 3, 1, 1, None, None, "NCHW",
+              "NCHW", 1)),
+    ("NCHW", (2, 16, 16, 16, 16, 3, 1, 1, 3, 1, 1, None, None, "NCHW",
+              "NCHW", 2)),
+    ("NCHW", (2, 16, 16, 16, 16, 3, 1, 1, 3, 1, 1, None, None, "NCHW",
+              "NCHW", 4)),
+    ("CHWN", (8, 3, 55, 16, 16, 3, 1, 1, 3, 1, 1, None, None, "CHWN",
+              "CHWN", 0)),
+    ("CHWN", (8, 8, 13, 16, 24, 3, 1, 1, 3, 1, 1, (2, 2, "max"), None,
+              "CHWN", "CHWN", 0)),
+    ("CHWN", (8, 8, 7, 16, 16, 3, 1, 1, 3, 1, 1, None, "CHWN", "CHWN",
+              "NCHW", 0)),
+    ("CHWN", (8, 8, 12, 16, 16, 3, 1, 0, 3, 1, 1, None, None, "CHWN",
+              "CHWN", 0)),
+    ("CHWN", (8, 8, 12, 16, 16, 5, 1, 2, 3, 1, 1, None, None, "CHWN",
+              "CHWN", 0)),
+    ("CHWN", (8, 8, 16, 16, 16, 3, 2, 1, 3, 1, 1, None, None, "CHWN",
+              "CHWN", 0)),
+    ("CHWN", (4, 8, 12, 16, 24, 3, 1, 1, 3, 1, 1, (2, 2, "max"), None,
+              "CHWN", "CHWN", 0)),
+    ("CHWN", (12, 8, 12, 16, 24, 3, 1, 1, 3, 1, 1, (2, 2, "max"), None,
+              "CHWN", "CHWN", 0)),
+    ("CHWN", (8, 8, 12, 16, 24, 3, 1, 1, 3, 1, 1, None, None, "NCHW",
+              "CHWN", 0)),
+    ("CHWN", (8, 8, 12, 16, 16, 3, 1, 1, 3, 1, 1, None, None, "CHWN",
+              "CHWN", 1)),
+    ("CHWN", (8, 8, 12, 16, 16, 3, 1, 1, 3, 1, 1, None, None, "CHWN",
+              "CHWN", 2)),
+    ("CHWN", (8, 8, 12, 16, 16, 3, 1, 1, 3, 1, 1, None, None, "CHWN",
+              "CHWN", 4)),
+    ("CHWN", (8, 4, 10, 160, 192, 3, 1, 1, 3, 1, 1, None, None, "CHWN",
+              "CHWN", 0)),
+]
 
 
 @pytest.fixture
@@ -168,6 +224,31 @@ def test_int8_stack_counts_the_tilings_work(card, variant, engine):
         y, flops = conv_ops.conv_stack_nchw_counted(x, *wk, *args, **kw)
         assert flops == t.executed_flops
     _check(variant, y, x, w1, w2, args, kw)
+
+
+@pytest.mark.parametrize("engine,case", EDGE_CASES,
+                         ids=[f"{e}-{i}" for i, (e, _) in
+                              enumerate(EDGE_CASES)])
+def test_i8bf16_copy_path_edges(card, engine, case):
+    x, w1, w2, wk, args, kw = _inputs(engine, case, torch.bfloat16, card)
+    (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool) = case[:12]
+    t = conv_ops.stack_tiling(engine, N, Ci, H, H, Cm, F1, S1, P1, Co, F2,
+                              S2, P2, pool)
+    wrapper = _wrapper(engine)
+    if engine == "CHWN":
+        y, flops, cluster = conv_ops.conv_stack_chwn_counted(
+            x, *wk, *args, **kw)
+        assert (flops, cluster) == (t.executed_flops, t.cluster)
+    else:
+        y, flops = conv_ops.conv_stack_nchw_counted(x, *wk, *args, **kw)
+        assert flops == t.executed_flops
+        # the int8 kernel's consumers are the twin's: the same sums
+        assert torch.equal(wrapper(x.to(torch.bfloat16), *wk, *args, **kw),
+                           y)
+    torch.cuda.synchronize()
+    _check("i8bf16", y, x, w1, w2, args, kw)
+    for _ in range(2):
+        assert torch.equal(wrapper(x, *wk, *args, **kw), y)
 
 
 def test_a_refused_int8_stack_launch_raises(card, monkeypatch):

@@ -22,7 +22,8 @@ each case is held against its plain version as the smoke holds it
 (``chip_smoke.dtype_case``), and the ms summed over each network's
 launches (a case's ms times its launches) is printed beside the library
 call's (and, for the rows the smoke times by graph replay too, K3a bf16,
-K7a bf16 and K8 bf16, the device ms); ``--per-case`` also prints each
+K7a bf16 and K8 bf16, the device ms; for the int8->bf16 stacks, the bf16
+twin's ms on the same values, ``twin_ms``); ``--per-case`` also prints each
 distinct launch's ms (its case, the launches it makes, ms and library ms
 a launch) and, for a conv
 row, the sums over the launches of each map width W the kernel reads (a
@@ -67,7 +68,8 @@ def main_path_cases(name: str) -> Counter:
                 cases[(network, case)] += 1
     for label, one in (("calibration", cs.CALIBRATION_ONLY),
                        ("off path", {**cs.DTYPE_OFF_PATH,
-                                     **cs.BF16_OFF_PATH})):
+                                     **cs.BF16_OFF_PATH,
+                                     **cs.STACK_INT8_OFF_PATH})):
         if name in one:
             cases[(label, one[name])] += 1
     return cases
@@ -141,11 +143,15 @@ def timed(name: str, cases: Counter, dev, per_case: bool = False
             tot[f"{network} library"] += n * m["library_ms"]
             if "device_ms" in m:   # rows the smoke also times by graph replay
                 tot[f"{network} device"] += n * m["device_ms"]
+            if "twin_ms" in m:     # the int8->bf16 stacks' bf16 twin
+                tot[f"{network} twin"] += n * m["twin_ms"]
             if per_case:
                 dev_ms = (f" device_ms={m['device_ms']:.5f}"
                           if "device_ms" in m else "")
+                twin = (f" twin_ms={m['twin_ms']:.4f}" if "twin_ms" in m
+                        else "")
                 print(f"  {network} {case} x{n}: ms={m['ms']:.4f}{dev_ms} "
-                      f"library_ms={m['library_ms']:.4f}", flush=True)
+                      f"library_ms={m['library_ms']:.4f}{twin}", flush=True)
                 W = map_width(name, case)
                 if W is not None:
                     tot[f"{network} W{W}"] += n * m["ms"]

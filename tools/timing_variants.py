@@ -10,12 +10,39 @@ warp-specialised conv kernel,
 
 - ``<stem>_nocopy.cu``: each ring stage's copies removed (the producer's
   ``stage`` lambda returns at once, after its wait for the stage where it
-  has one), so the consumers multiply whatever the ring holds and only
-  they and the barriers take time;
+  has one, and so does the int8->bf16 stacks' ``widen``), so the consumers
+  multiply whatever the ring holds and only they and the barriers take
+  time;
 - ``<stem>_nomma.cu``: each ``mma.sync`` (``mma_bf16``, ``mma_bf16_z``,
   ``mma_tf32``) replaced by an empty ``asm volatile`` that still reads its
   operand registers, so the fragments are loaded but never multiplied;
 - ``<stem>_nocopy_nomma.cu``: both;
+
+and for the int8->bf16 stacks' kernels (a ``widen`` lambda beside
+``stage``; K5b's ``w1_slice_bf16`` / ``w2_slice_bf16`` calls)
+
+- ``<stem>_nowiden.cu``: the x bytes copied but never widened;
+- ``<stem>_now_k5b.cu``: K5b's w1 and w2 slices never copied;
+- ``<stem>_nox_k5a.cu``, ``<stem>_now_k5a.cu``: K5a's int8->bf16 kernel
+  copies no x (bytes or elements), or no w1 and w2;
+- ``<stem>_noslab_k5a.cu``: its consumers read no conv2 B value from the
+  slab (a value made from the address instead);
+- ``<stem>_xnear_k5a.cu``: its x runs decoded as ever but copied from the
+  first 64 bytes of x (cache-resident), so the copies' latency goes and
+  the producers' work stays;
+- ``<stem>_noepi_k5a.cu``: its conv1 passes write nothing to the slab;
+- ``<stem>_xzero_k5a.cu``: its x copied as ever but widened to zeros (the
+  copies and their waits stay; the operands change), to tell the copy
+  path's cost from the data's;
+
+and for K5a's bf16 kernels (``conv_stack_chwn.cu``: ``conv1_pass_bf16``
+and phase B's ``issue_w2``, in which every thread both copies and
+multiplies)
+
+- ``<stem>_nox.cu``: phase A's x never copied (its ring slices keep what
+  they hold);
+- ``<stem>_now.cu``: w1 and w2 never copied;
+- ``<stem>_nomma.cu``: the products removed, as above;
 
 and for the bf16 pool backward (``pool_backward.cu``: K7a bf16's direct
 and banded kernels, whose loads and stores go through ``ld_g``,
@@ -71,7 +98,8 @@ __device__ __forceinline__ void nomma(float (&d)[4], const unsigned (&a)[4],
 }  // namespace
 """
 _MMA = re.compile(r"\bmma_(?:bf16_z|bf16|tf32)\(")
-_STAGE = re.compile(r"auto stage = \[&\]\(int sl\) \{")
+# the producers' stage lambdas, and the int8->bf16 kernels' widening ones
+_STAGE = re.compile(r"auto (?:stage|widen) = \[&\]\(int sl\) \{")
 _WAIT = re.compile(r"\n\s*(if \(sl >= \w+\) bar_sync\([^;]*\);)")
 # the bf16 pool backward's accesses, as stand-ins that touch no memory (or
 # write none); they go in after the kernel's own helpers
@@ -136,6 +164,69 @@ def pool_variants(text: str) -> dict:
     return out
 
 
+# K5a's bf16 kernels: the copies of every thread's issue lambdas
+_K5A_PASS = "conv1_pass_bf16("
+_K5A_NOX = (("    if (p.vec_x) {\n      if (tid < kNBK * XCH) {",
+             "    if (false) {\n      if (tid < kNBK * XCH) {"),
+            ("    } else {\n      const int pc = tid % KRA;",
+             "    } else if (false) {\n      const int pc = tid % KRA;"))
+_K5A_NOW = (("    if (tid < kNBK * (kCM / 8)) {  // w1",
+             "    if (false) {  // w1"),
+            ("      for (int i = 0; i < W2PT; ++i) {",
+             "      for (int i = 0; false && i < W2PT; ++i) {"))
+
+
+_WIDEN = "auto widen = [&](int sl) {"
+_K5B_NOW = (("\n        w1_slice_bf16(a, id, st, pt);", "\n"),
+            ("\n      w1_slice_bf16(a, id, st, pt);", "\n"),
+            ("\n        w2_slice_bf16<BM>(a, id, st, co0, pt);", "\n"))
+
+
+_K5A_I8_NOX = (("      if (p.vec_x) {\n        // runs of 8 positions",
+                "      return;\n      if (p.vec_x) {\n        // runs of 8 "
+                "positions"),)
+_K5A_I8_NOW = (("      {  // w1: kNBK rows of 8 chunks, one a thread",
+                "      if (false) {  // w1: kNBK rows of 8 chunks"),
+               ("        for (int e = pt; e < S::KB * kNBK * WCH2; "
+                "e += kI8Producers) {",
+                "        for (int e = pt; false; e += kI8Producers) {"))
+_K5A_I8_XNEAR = (("ok ? rx.col + rx.k[i].c * a.xs.c + h * a.xs.h +\n"
+                  "                            w * a.xs.w\n"
+                  "                      : a.x,",
+                  "a.x + ((rx.k[i].c * a.xs.c + h * a.xs.h + w * a.xs.w)"
+                  " & 56),"),)
+_K5A_I8_NOEPI = (("          if (r >= p_hi) continue;\n"
+                  "          float v = acc[mt][nt][2 * h + e] + b;\n"
+                  "          if (a.relu1) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)\n"
+                  "          mid[cml * a.RSTR + r] = v;",
+                  "          if (r >= p_hi) continue;\n"
+                  "          float v = acc[mt][nt][2 * h + e] + b;\n"
+                  "          if (v == -12345.f) mid[cml * a.RSTR + r] = v;"),)
+_K5A_I8_XZERO = (("            storage::bf16x8(*reinterpret_cast<const uint2*>(\n"
+                  "                st + S::X8 + xr * KRA + 8 * xq));",
+                  "            make_uint4(0u, 0u, 0u, 0u);"),)
+_K5A_I8_NOSLAB = (("const float v = mid[ok ? koff + cbase[nt] : 0];",
+                   "const float v = __int_as_float(0x3f800000 ^ "
+                   "((koff + cbase[nt]) & 0x7fff));"),)
+
+
+def _swap(text: str, pairs) -> str:
+    for old, new in pairs:
+        if old not in text:
+            raise SystemExit(f"K5a variant: {old!r} not found")
+        text = text.replace(old, new)
+    return text
+
+
+def _nomma(text: str) -> str:
+    """Every product a no-op (``NOMMA``, which goes in before the
+    kernel's own namespace, after the includes)."""
+    at = min(i for i in (text.find("namespace {\n"),
+                         text.find("namespace repro {\n")) if i >= 0)
+    return text[:at] + NOMMA + _MMA.sub("nomma(", text[at:]).replace(
+        "mma::nomma(", "nomma(")
+
+
 def _nocopy(text: str) -> str:
     """Each stage lambda returning at once; where the lambda itself waits
     for its stage to be free (``if (sl >= ...) bar_sync(...);``: the
@@ -155,20 +246,30 @@ def variants(src: Path) -> dict:
     text = src.read_text()
     if _HELPERS_END in text:
         return pool_variants(text)
-    if (not _STAGE.search(text) or not _MMA.search(text)
-            or "namespace {\n" not in text):
-        raise SystemExit(f"{src}: no producer stage lambda, mma call or "
-                         "anonymous namespace")
-    nocopy = _nocopy(text)
-
-    def nomma(t: str) -> str:
-        # the no-ops go in before the kernel's own namespace, after the
-        # includes
-        head, sep, rest = t.partition("namespace {\n")
-        return head + NOMMA + sep + _MMA.sub("nomma(", rest)
-
-    return {"nocopy": nocopy, "nomma": nomma(text),
-            "nocopy_nomma": nomma(nocopy)}
+    if not _MMA.search(text) or (not _STAGE.search(text)
+                                 and _K5A_PASS not in text):
+        raise SystemExit(f"{src}: no producer stage lambda, K5a issue "
+                         "lambda or mma call")
+    out = {"nomma": _nomma(text)}
+    if _STAGE.search(text):
+        nocopy = _nocopy(text)
+        out.update(nocopy=nocopy, nocopy_nomma=_nomma(nocopy))
+    if _K5A_PASS in text:
+        out.update(nox=_swap(text, _K5A_NOX), now=_swap(text, _K5A_NOW))
+    if _WIDEN in text:
+        out["nowiden"] = text.replace(_WIDEN, _WIDEN + "\n      return;")
+    if "w1_slice_bf16(a, id, st, pt);" in text:
+        out["now_k5b"] = _swap(text, _K5B_NOW)
+    if "cluster_stack_i8bf16_kernel" in text:
+        i8 = text.index("// ---- the int8->bf16 build: warp-specialised")
+        head, tail = text[:i8], text[i8:]
+        out.update(nox_k5a=_swap(text, _K5A_I8_NOX),
+                   now_k5a=_swap(text, _K5A_I8_NOW),
+                   noslab_k5a=_swap(text, _K5A_I8_NOSLAB),
+                   xnear_k5a=_swap(text, _K5A_I8_XNEAR),
+                   noepi_k5a=head + _swap(tail, _K5A_I8_NOEPI),
+                   xzero_k5a=_swap(text, _K5A_I8_XZERO))
+    return out
 
 
 def main(argv) -> int:
