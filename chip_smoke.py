@@ -105,11 +105,11 @@
    scale-relative of float64 and the conv tolerance of the plain version,
    int8->bf16 within one bf16 step; counted FLOPs (and K5a's cluster)
    equal to ``stack_tiling``'s, three runs bitwise equal; library cuDNN's
-   two convs on the dequantized x in w's dtype.  Each int8->bf16 row also
-   times its bf16 twin on the same values (``twin_ms``: x widened
+   two convs on the dequantized x in w's dtype.  Each int8 row also
+   times its float twin on the same values (``twin_ms``: x widened
    beforehand, exactly) and says whether the two outputs are bitwise
-   equal (``twin_bitwise``; K5b's must be: its int8->bf16 consumers are
-   the twin's).
+   equal (``twin_bitwise``; K5b's must be: its int8 builds' consumers
+   are the twin's).
 4. Planner phase, the main path's planned part: the paper's Fig. 4 on the
    card (K1 and K2 timed by the card measure with CUDA events over its
    whole grid: Ci 1-512 at N 64, then N 16-512 at Ci 256; Co 384, 13 x 13,
@@ -301,7 +301,6 @@ case, and the compiler's register/spill report, to OUT.
 from __future__ import annotations
 
 import argparse
-import functools
 import io
 import json
 import math
@@ -1177,6 +1176,12 @@ def bf16_check(got, want) -> None:
         raise AssertionError(f"bf16: {over:.3g} past one bf16 step")
 
 
+def conv_check(got, want) -> None:
+    """A float32 conv or stack output (int8 x with float32 w) against its
+    plain version at the conv tolerance."""
+    torch.testing.assert_close(got, want, rtol=CONV_RTOL, atol=CONV_ATOL)
+
+
 def exact_check(got, want) -> None:
     """A bf16 max pool, max pool backward or transpose against its plain
     version: bit for bit (a max is exact; each dx element sums its
@@ -1361,9 +1366,9 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                          pool)
         m.update(executed_flops=float(t.executed_flops), cluster=t.cluster)
         if check is None:   # int8->fp32: the plain version's tolerance
-            check = functools.partial(torch.testing.assert_close,
-                                      rtol=CONV_RTOL, atol=CONV_ATOL)
+            check = conv_check
         k64 = {**kw, "res": r.double() if rlay else None}
+        conv1 = 2.0 * N * Cm * Ho1 * Ho1 * Ci * F1 * F1
         if engine == "CHWN":
             # K5a bf16 and int8 count what their blocks execute and the
             # cluster they ran in, as the float32 build does; its runs are
@@ -1384,14 +1389,16 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                          N, Ci, H, H, Cm, F1, S1, P1, Co, F2, S2, P2, pool,
                          t, dtype=xdt, w_dtype=wdt))
             if variant == "i8f32":
-                # fp32 FMA over x widened exactly: K1 int8->fp32's gate
-                # against float64
+                # K1 int8->fp32's gate against float64
                 _fp32_gate(m, [(y, conv_stack_ref(
                     x, w1.double(), w2.double(), S1, P1, S2, P2, **k64))],
                     f"{kern} {case}")
-                # its design is the float32 build's, fp32 FMA on the CUDA
-                # cores: no bound of its own beside the plain one
-                del m["design_bound_ms"]
+                # its design's bound: three bf16 products a conv1 term (w1
+                # in three parts, x exact), three TF32 ones a conv2 term
+                m.update(design_bound_ms=max(
+                    1e3 * (3 * conv1 / PEAK_BF16_FLOPS
+                           + 3 * (flops - conv1) / PEAK_TF32_FLOPS),
+                    bound_ms(0.0, m["bytes"])[0]), design="split3_3xtf32")
         else:
             # K5b bf16 and int8 count the FLOPs their blocks execute as
             # the float32 build does; its runs are bitwise equal; its error
@@ -1407,13 +1414,14 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                     f"stack_tiling says {t.executed_flops}")
             bitwise_runs(lambda: wrapper(x, w1k, w2k, S1, P1, S2, P2, **kw),
                          f"{kern} {case}", first=y)
-            conv1 = 2.0 * N * Cm * Ho1 * Ho1 * Ci * F1 * F1
             y64 = conv_stack_ref(x, w1.double(), w2.double(), S1, P1, S2,
                                  P2, **k64)
             m.update(counted_flops=float(counted), bitwise_equal_runs=3)
-            if variant == "i8f32":   # the float32 build: 3xTF32
+            if variant == "i8f32":   # 3xTF32, x exact: two a conv1 term
                 _fp32_gate(m, [(y, y64)], f"{kern} {case}")
-                m["design"] = "3xtf32"
+                m.update(design_bound_ms=bound_ms(
+                    2 * conv1 + 3 * (flops - conv1), m["bytes"],
+                    PEAK_TF32_FLOPS)[0], design="3xtf32")
             else:
                 m.update(f64_err=_scaled_err(y, y64),
                          # the design's own bound: one bf16 product a conv1
@@ -1423,12 +1431,13 @@ def dtype_case(kern: str, case, dev, seed: int) -> dict:
                              conv1 + 3 * (flops - conv1), m["bytes"],
                              PEAK_BF16_FLOPS)[0],
                          design="bf16_split3")
-        if variant == "i8bf16":
-            # the bf16 twin on the same values (x widened beforehand,
-            # exactly): what the int8 build's copy path costs beside the
-            # twin's; K5b's int8->bf16 consumers are the twin's, so its
-            # output is the twin's bit for bit
-            x_twin = x.to(torch.bfloat16)
+        if variant in ("i8bf16", "i8f32"):
+            # the float twin on the same values (x widened beforehand,
+            # exactly, to w's dtype): what the int8 build's copy path costs
+            # beside the twin's; K5b's int8 builds run the twin's consumers
+            # (int8->fp32 without x's small-part product, which is zero),
+            # so their output is the twin's bit for bit
+            x_twin = x.to(wdt)
 
             def twin():
                 return wrapper(x_twin, w1k, w2k, S1, P1, S2, P2, **kw)
@@ -4483,7 +4492,7 @@ def kernels_line(cases, launches) -> dict:
         if all("library_device_ms" in r for r in rows):
             entry["library_device_ms"] = total("library_device_ms")
         if all("twin_ms" in r for r in rows):
-            # the int8->bf16 stacks: their bf16 twin on the same values
+            # the int8 stacks: their float twin on the same values
             entry["twin_ms"] = total("twin_ms")
         if all("median5" in r for r in rows):
             # back to back again: the median of 5 rounds in turns with the

@@ -7,7 +7,7 @@
 // [N,Ci,H,W]; w1 is [Ci,F1,F1,Cm], w2 [Cm,F2,F2,Co]; y is [Co,Ho',Wo',N] or
 // [N,Co,Ho',Wo'] (Ho', Wo' after the pool); the residual is read in its own
 // layout, before the ReLU.  The float32 build runs fp32 FMA on the CUDA
-// cores (no TF32).
+// cores (no TF32); the int8->fp32 build does not (below).
 //
 // Storage dtypes (csrc/storage.cuh): w1, w2, the biases, the residual and
 // y all float32 or all bf16, and x of their dtype or int8 (quantized per
@@ -17,12 +17,12 @@
 // activation stays float32 (it never leaves the SM, so it is never rounded
 // to the storage type, as in the reference's kernel), and y is rounded
 // once where it is stored.  The int8 builds keep their float twin's tiles
-// and widen x as it lands in shared memory: int8->fp32 in the float32
-// kernel (copy4/copy1: a 4-byte load of 4 elements, widened into the
-// float32 ring), so conv1 keeps fp32 accuracy; int8->bf16 in a
-// warp-specialised kernel of its own (cluster_stack_i8bf16_kernel, whose
-// note says how): the bytes by cp.async, widened to bf16 in shared memory,
-// exact, as |q| <= 127 fits bf16's 8-bit significand.
+// and run warp-specialised kernels of their own (whose notes say how): the
+// bytes by cp.async, widened to bf16 in shared memory, exact, as |q| <= 127
+// fits bf16's 8-bit significand; int8->bf16 (cluster_stack_i8bf16_kernel)
+// on the bf16 tensor cores as its twin, int8->fp32
+// (cluster_stack_i8f32_kernel) on the tensor cores at fp32 accuracy
+// (conv1 three bf16 products a term, conv2 3xTF32).
 //
 // What bounds it on an H100: operations.  At AlexNet's conv3 -> conv4
 // (N = 128, 256 -> 384 -> 384, 13x13) both convs are far above the fp32
@@ -1601,6 +1601,554 @@ cluster_stack_i8bf16_kernel(const ClusterArgs<storage::bf16, int8_t> p) {
   }
 }
 
+// ---- the int8->fp32 build: warp-specialised, on the tensor cores ----------
+//
+// Instantiated only by the int8->fp32 build (launch below).  The float32
+// kernel above on int8 x: fp32 FMA on the CUDA cores (67 TFLOP/s), 256
+// threads that both copy and multiply around a __syncthreads a slice, each
+// x quad a blocking 4-byte load widened in registers.  On VGG16 b32's
+// conv1 pair (118.4 of its 123.9 GFLOP in conv2) it bounds the row at
+// 1.85 ms, where the tensor cores at fp32 accuracy bound it near 0.73.
+//
+// Design: the int8->bf16 kernel's skeleton (cluster_stack_i8bf16_kernel):
+// the cluster, its DSMEM exchange (exchange_mid), the tiles, the cluster
+// size, the passes, the epilogue (tile_epilogue, pool_tile) and the
+// counted FLOPs are the float32 kernel's; 384 threads on conv_ring.cuh's
+// barriers, NS stages of SLOT bytes inside the twin's ring (FShape).
+//
+//   one producer warpgroup keeps every global copy in flight, NS - 1
+//   stages ahead across passes, phases and chunks.  Phase A's stage is a
+//   k16 slice: w1 [16][64] float32 (rows of 64 + 4 floats) by 16-byte
+//   cp.async, and x as the int8->bf16 kernel takes it (runs of 8 images by
+//   one 8-byte cp.async into the bytes, widened by the thread that copied
+//   them into the swizzled bf16 slice, exact; elsewhere 8 element loads
+//   issued together).  Phase B's stage is KB8 = 4 / GM k8 slices of w2
+//   [8][TBM] float32 (rows of TBM + 8 floats) by 16-byte cp.async.
+//
+//   two consumer warpgroups.  conv1 (conv1_pass_f32): each w1 pair cut
+//   into three bf16 parts in registers (storage::split3: hi, md, lo, sum
+//   exact, as K1 int8->fp32 does), three m16n8k16 products a term of exact
+//   bf16 values with the exact bf16 x from ldmatrix.trans, a chain of 32
+//   terms (two k16 slices) flushed into fp32 registers, mma rows g and g +
+//   8 mid channels 2g and 2g + 1 so a fragment pair is one float2 load;
+//   bias1 and ReLU in fp32, the mid slab float32.  conv2 (conv2_3xtf32, a
+//   function over a float32 mid and float32 w2 rings): 3xTF32 mma.sync
+//   m16n8k8 (split_tf32 of both operands: small.big + big.small +
+//   big.big), the B values read straight from the slab, branch-free (every
+//   load made, its value selected), the next k8 slice's in flight during
+//   this one's products; chains of 32 terms flushed into fp32 registers
+//   (the tensor core truncates as it accumulates).  3xTF32 and not six
+//   bf16 products (split3 of both operands): the same tensor time (a
+//   m16n8k8 TF32 product takes a m16n8k16 bf16 one's), but two parts of
+//   each operand where split3 makes three, in two integer ops each: fewer
+//   registers beside the chain and its sums.
+//
+// What bounds it: operations on the tensor cores, three bf16 products a
+// conv1 term (989 TFLOP/s) and three TF32 products a conv2 term (495); on
+// VGG16 b32's conv1 pair about 0.73 ms.  On the card (timed apart with
+// tools/timing_variants.py, PERF.md) it runs ~3.9 ms: ~1.7 without its
+// products (phase A at its producers' pace, as in the int8->bf16 kernel,
+// the exchange, the epilogue), ~3.35 without its copies; the products run
+// after phase A, not beside it (one block an SM), at a third of their
+// bound, and their order (chains interleaved or not) changes nothing.
+constexpr int kFConsumerRegs = 216;  // setmaxnreg, as the int8->bf16 kernel
+constexpr int kFProducerRegs = 72;
+constexpr int kW1F = kCM + 4;        // float row stride of a w1 slice
+
+template <int GM>
+struct FShape {
+  static constexpr int TBM = 64 * GM, TBN = kTile / TBM;
+  static constexpr int W2S = TBM + 8;  // float row stride of a w2 slice
+  static constexpr int KB8 = 4 / GM;   // k8 slices of a phase-B stage
+  // byte offsets in a stage: phase A's x bf16 slice and x bytes (after the
+  // w1 slice at 0); phase B's KB8 w2 slices from 0
+  static constexpr int XB = kNBK * kW1F * 4;
+  static constexpr int X8 = XB + kNBK * kPassMax * 2;
+  static constexpr int A_BYTES = X8 + kNBK * kPassMax;
+  static constexpr int B_BYTES = KB8 * 8 * W2S * 4;
+  static constexpr int SLOT = A_BYTES > B_BYTES ? A_BYTES : B_BYTES;
+  // as many stages as the twin's ring holds (the slab stays where it is)
+  static constexpr int NS = 4 * CShape<GM>::RING / SLOT;
+  static_assert(NS >= 3 && NS * SLOT <= 4 * CShape<GM>::RING,
+                "the stages fit the twin's ring");
+  static_assert(XB % 128 == 0 && SLOT % 128 == 0,
+                "bf16 slices on 128-byte rows (the swizzle's)");
+};
+
+// One conv1 pass of the int8->fp32 consumers: the [kCM x KRA] GEMM of mid
+// positions [p0, p0 + KRA) over K1 from the ring's stages sl .. sl + nsl1
+// - 1 (w1 float32 in three bf16 parts, x bf16), bias1 and ReLU into the
+// slab
+template <int KRA, int NS, int SLOT, int XB>
+__device__ __forceinline__ void conv1_pass_f32(
+    const ClusterArgs<float, int8_t>& p, const unsigned char* stages,
+    float* mid, int p0, int p_hi, int cm0, int cmn, int tid, int nsl1,
+    int& sl, int nsl) {
+  using storage::bf16;
+  constexpr int NTA = KRA / 32;  // n8 tiles of a warp (2 x 4 warps)
+  const StackArgs<float, int8_t>& a = p.s;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp & 1, wn = warp >> 1;  // 32 mid channels, KRA/4 positions
+  const int br = (lane & 7) + (((lane >> 3) & 1) << 3), bc = lane >> 4;
+  // this lane's w1 float2 (mid channels 2g, 2g + 1 of each 16) at k 2tq
+  const int aoff = 2 * tq * kW1F + wm * 32 + 2 * g;
+  int boff[NTA / 2];
+#pragma unroll
+  for (int np = 0; np < NTA / 2; ++np)
+    boff[np] = mma::swz<KRA>(br, (wn * (KRA / 4) + np * 16) / 8 + bc);
+  float acc[2][NTA][4], chain[2][NTA][4];  // the pass's sums; a chain
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NTA; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = chain[mt][nt][e] = 0.f;
+  for (int s = 0; s < nsl1; ++s, ++sl) {
+    const int buf = sl % NS;
+    mma::bar_sync(ring::full_bar(buf), kI8Threads);
+    const float* as = reinterpret_cast<const float*>(stages + buf * SLOT);
+    const bf16* bs = reinterpret_cast<const bf16*>(stages + buf * SLOT + XB);
+    // w1's three parts: a0 (row g: k 2tq, 2tq + 1), a1 (row g + 8), a2, a3
+    // (k + 8); rows g and g + 8 are mid channels 2g and 2g + 1
+    unsigned ahi[2][4], amd[2][4], alo[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const float* pa = as + aoff + mt * 16;
+      const float2 k0 = *reinterpret_cast<const float2*>(pa);
+      const float2 k1 = *reinterpret_cast<const float2*>(pa + kW1F);
+      const float2 k8 = *reinterpret_cast<const float2*>(pa + 8 * kW1F);
+      const float2 k9 = *reinterpret_cast<const float2*>(pa + 9 * kW1F);
+      split3(k0.x, k1.x, ahi[mt][0], amd[mt][0], alo[mt][0]);
+      split3(k0.y, k1.y, ahi[mt][1], amd[mt][1], alo[mt][1]);
+      split3(k8.x, k9.x, ahi[mt][2], amd[mt][2], alo[mt][2]);
+      split3(k8.y, k9.y, ahi[mt][3], amd[mt][3], alo[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < NTA; nt += 2) {
+      unsigned bq[4];
+      mma::ldsm_x4_t(bq, bs + boff[nt / 2]);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float (&c)[4] = chain[mt][nt + h];
+          mma::mma_bf16(c, alo[mt], bq[2 * h], bq[2 * h + 1]);
+          mma::mma_bf16(c, amd[mt], bq[2 * h], bq[2 * h + 1]);
+          mma::mma_bf16(c, ahi[mt], bq[2 * h], bq[2 * h + 1]);
+        }
+    }
+    if (sl + NS < nsl) mma::bar_arrive(ring::empty_bar<NS>(buf), kI8Threads);
+    if ((s & 1) || s == nsl1 - 1) {  // flush the chain: 32 terms
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NTA; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[mt][nt][e] += chain[mt][nt][e];
+            chain[mt][nt][e] = 0.f;
+          }
+    }
+  }
+  // bias, ReLU, into my range of the slab; accumulator e of (mt, nt) is
+  // mid channel wm*32 + mt*16 + 2g + (e >= 2), position wn*KRA/4 + nt*8 +
+  // 2 tq + (e & 1)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cml = wm * 32 + mt * 16 + 2 * g + h;
+      if (cml >= cmn) continue;
+      const float b = a.b1 ? storage::ld(a.b1 + cm0 + cml) : 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NTA; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int r = p0 + wn * (KRA / 4) + nt * 8 + 2 * tq + e;
+          if (r >= p_hi) continue;
+          float v = acc[mt][nt][2 * h + e] + b;
+          if (a.relu1) v = v < 0.f ? 0.f : v;  // keeps NaN, as max(v, 0)
+          mid[cml * a.RSTR + r] = v;
+        }
+    }
+}
+
+// conv2's terms of one chunk at fp32 accuracy on the tensor cores, for a
+// warp of a block's 256 consumers (64 x 32 of the TBM x TBN tile: 4 x 4
+// m16n8 tiles): 3xTF32 mma.sync m16n8k8 over K2c = cmn F2^2 terms, from
+// the float32 mid slab (B, read straight from it) and float32 w2 k8
+// slices [8][W2S] (A, KB8 of them a ring stage of SLOT bytes, stages sl
+// ..), chains of 32 terms flushed into tot.  cbase, ohb, owb: this lane's
+// column (wn*32 + 8 nt + g) of each n tile: its slab base and its first
+// tap's mid row and column (-2^20 past the tile); rs_h, rs_w the slab's
+// row and column strides.
+template <int GM, int NS, int SLOT, int KB8, int W2S, int NTHREADS,
+          typename E, typename X>
+__device__ __forceinline__ void conv2_3xtf32(
+    const StackArgs<E, X>& a, const float* mid, const unsigned char* stages,
+    int K2c, const int (&cbase)[4], const int (&ohb)[4], const int (&owb)[4],
+    int rs_h, int rs_w, float (&tot)[4][4][4], int tid, int& sl, int nsl) {
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wm = warp % GM;
+  const int nsl2 = (K2c + 7) / 8;  // k8 slices
+  const KIdx dk = kidx(8, a.F2);
+  // this lane's k rows tq, tq + 4 of each slice
+  KIdx kr[2] = {kidx(tq, a.F2), kidx(tq + 4, a.F2)};
+  // B[k][column] of this lane for slice q: the slab at the column's tap
+  // (dy, dx) of mid channel c, 0 outside the mid extent (conv2's zero
+  // padding) or past K2c.  Branch-free: every lane loads (slab word 0
+  // where it reads nothing) and selects
+  float bv[2][4];  // [k row][n tile]
+  auto load_b = [&](int q) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int k = 8 * q + tq + 4 * i;
+      const int koff = kr[i].c * a.RSTR + kr[i].dy * rs_h + kr[i].dx * rs_w;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const bool ok = k < K2c &&
+                        static_cast<unsigned>(ohb[nt] + kr[i].dy) <
+                            static_cast<unsigned>(a.Ho1) &&
+                        static_cast<unsigned>(owb[nt] + kr[i].dx) <
+                            static_cast<unsigned>(a.Wo1);
+        const float v = mid[ok ? koff + cbase[nt] : 0];
+        bv[i][nt] = ok ? v : 0.f;
+      }
+      kadvance(kr[i], dk, a.F2);
+    }
+  };
+  float chain[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) chain[mt][nt][e] = 0.f;
+  load_b(0);
+  for (int qs = 0; qs < nsl2; qs += KB8, ++sl) {
+    const int buf = sl % NS;
+    mma::bar_sync(ring::full_bar(buf), NTHREADS);
+#pragma unroll
+    for (int j = 0; j < KB8; ++j) {
+      const int q = qs + j;  // the k8 slice
+      if (q >= nsl2) break;
+      unsigned bbig[4][2], bsmall[4][2];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          mma::split_tf32(bv[i][nt], bbig[nt][i], bsmall[nt][i]);
+      if (q + 1 < nsl2) load_b(q + 1);  // in flight during the products
+      const float* as = reinterpret_cast<const float*>(stages + buf * SLOT) +
+                        j * 8 * W2S + tq * W2S + wm * 64 + g;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+        // a0 (row g, k tq), a1 (row g + 8), a2 (k tq + 4), a3
+        unsigned abig[4], asmall[4];
+        const float* pa = as + mt * 16;
+        mma::split_tf32(pa[0], abig[0], asmall[0]);
+        mma::split_tf32(pa[8], abig[1], asmall[1]);
+        mma::split_tf32(pa[4 * W2S], abig[2], asmall[2]);
+        mma::split_tf32(pa[4 * W2S + 8], abig[3], asmall[3]);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          float (&c)[4] = chain[mt][nt];
+          mma::mma_tf32(c, asmall, bbig[nt][0], bbig[nt][1], c);
+          mma::mma_tf32(c, abig, bsmall[nt][0], bsmall[nt][1], c);
+          mma::mma_tf32(c, abig, bbig[nt][0], bbig[nt][1], c);
+        }
+      }
+      if ((q & 3) == 3 || q == nsl2 - 1) {  // flush the chain: 32 terms
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              tot[mt][nt][e] += chain[mt][nt][e];
+              chain[mt][nt][e] = 0.f;
+            }
+      }
+    }
+    if (sl + NS < nsl) mma::bar_arrive(ring::empty_bar<NS>(buf), NTHREADS);
+  }
+}
+
+template <bool POOL, int GM>
+__global__ void __launch_bounds__(kI8Threads, 1)
+cluster_stack_i8f32_kernel(const ClusterArgs<float, int8_t> p) {
+  using storage::bf16;
+  using S = FShape<GM>;
+  constexpr int NS = S::NS, SLOT = S::SLOT;
+  constexpr int TBM = S::TBM, TBN = S::TBN;
+  constexpr int WQ2 = TBM / 4;  // 16-byte quads of a w2 row
+  const StackArgs<float, int8_t>& a = p.s;
+  extern __shared__ __align__(128) unsigned char smem_f[];
+  unsigned char* stages = smem_f;  // the ring: NS stages of SLOT bytes
+  // [kCM][RSTR] slab; later the pool tile: where the twin has it
+  float* mid = reinterpret_cast<float*>(smem_f) + CShape<GM>::RING;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int CL = p.CL;
+  const int tid = threadIdx.x;
+  const Tile t = stack::make_tile(a);
+  const int rs_w = t.NBc, rs_h = t.NBc * t.MWc;
+  const int co0 = blockIdx.y * TBM;
+  const int RR = (((t.RA + CL - 1) / CL) + 63) & ~63;
+  const int p_lo = min(t.RA, rank * RR), p_hi = min(t.RA, p_lo + RR);
+  const int F2sq = a.F2 * a.F2;
+  const int chunks = (a.Cm + kCM - 1) / kCM;
+  constexpr int BK = S::KB8 * 8;  // k2 terms of a phase-B stage
+  IWalk wk;
+  wk.nsl1 = (a.K1 + kNBK - 1) / kNBK;
+  wk.nA = (p_hi - p_lo + kPassMax - 1) / kPassMax * wk.nsl1;
+  wk.nB = (kCM * F2sq + BK - 1) / BK;
+  const int nsl = (chunks - 1) * (wk.nA + wk.nB) + wk.nA +
+                  ((a.Cm - (chunks - 1) * kCM) * F2sq + BK - 1) / BK;
+
+  if (tid >= kI8Consumers) {
+    // ---- the producer warpgroup: every stage's copies, x widened ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kFProducerRegs));
+    const int pt = tid - kI8Consumers;
+    const KIdx dk1 = kidx(kNBK, a.F1);
+    struct {
+      bool ok;          // the runs' position lies in this rank's range
+      int ih, iw;       // its first tap's row and column in x
+      const int8_t* col;  // its 8 images' column of x
+      KIdx k[2];        // each run's (c, dy, dx) at this slice
+    } rx;               // this thread's runs of the pass being issued
+    IStage is = wk.first(), ws = is;  // the stages to issue and to widen
+    auto stage = [&](int sl) {
+      const IStage id = is;
+      wk.step(is);
+      unsigned char* st = stages + (sl % NS) * SLOT;
+      const int cm0 = id.chunk * kCM, cmn = min(kCM, a.Cm - cm0);
+      if (id.q >= 0) {
+        // w2 rows k2 [cm0 F2^2 + BK q, + BK) of Co co0 .. co0 + TBM - 1:
+        // KB8 k8 slices [8][W2S] (zeros past K2c and Co)
+        const int K2c = cmn * F2sq, k0 = id.q * BK;
+        const long long k2base = (long long)cm0 * F2sq;
+        float* as = reinterpret_cast<float*>(st);
+        for (int e = pt; e < BK * WQ2; e += kI8Producers) {
+          const int r = e / WQ2, cq = e - r * WQ2;
+          const int k = k0 + r, co = co0 + 4 * cq;
+          ring::copy_quad(as + r * S::W2S + 4 * cq,
+                          a.w2 + (k2base + k) * a.w2K + co, a.w2,
+                          k < K2c && co < a.Co ? min(4, a.Co - co) : 0,
+                          p.vec_w2);
+        }
+        return;
+      }
+      const int k0 = id.s * kNBK, p0 = p_lo + id.pass * kPassMax;
+      const int KRA = p_hi - p0 > 64 ? 128 : 64;
+      // w1: kNBK rows of 16 quads, two a thread
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = pt + i * kI8Producers;
+        const int r = e >> 4, m = 4 * (e & 15), k = k0 + r;
+        ring::copy_quad(reinterpret_cast<float*>(st) + r * kW1F + m,
+                        a.w1 + (long long)k * a.w1K + cm0 + m, a.w1,
+                        k < a.K1 ? min(4, cmn - m) : 0, p.vec_w1);
+      }
+      if (p.vec_x) {
+        // runs of 8 positions (8 images at one mid position): the bytes.
+        // A thread's runs of a pass share a position (run xq of rows xr0,
+        // xr0 + 128 / (KRA / 8)): it is decoded once a pass, and each run's
+        // tap (c, dy, dx) stepped on by 16 a slice, never divided
+        const int kq = KRA / 8, nrun = KRA / 64;
+        if (id.s == 0) {
+          const int xq = pt & (kq - 1), pp = p0 + 8 * xq;
+          const int rr = pp < p_hi ? pp : p_lo;
+          const int nl = rr % t.NBc, mq = rr / t.NBc;
+          rx.ok = pp < p_hi;
+          rx.ih = (t.mh_lo + mq / t.MWc) * a.S1 - a.P1;
+          rx.iw = (t.mw_lo + mq % t.MWc) * a.S1 - a.P1;
+          rx.col = a.x + (long long)(t.n0 + nl) * a.xs.n;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            rx.k[i] = kidx(pt / kq + i * (kI8Producers / kq), a.F1);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if (i >= nrun) break;
+          const int xq = pt & (kq - 1);
+          const int xr = pt / kq + i * (kI8Producers / kq), k = k0 + xr;
+          const int h = rx.ih + rx.k[i].dy, w = rx.iw + rx.k[i].dx;
+          const bool ok = rx.ok && k < a.K1 && h >= 0 && h < a.H && w >= 0 &&
+                          w < a.W;
+          mma::cp8(st + S::X8 + xr * KRA + 8 * xq,
+                   ok ? rx.col + rx.k[i].c * a.xs.c + h * a.xs.h +
+                            w * a.xs.w
+                      : a.x,
+                   ok);
+          kadvance(rx.k[i], dk1, a.F1);
+        }
+        return;
+      }
+      // elements, 8 loads a thread issued before any is stored
+      unsigned short* bs = reinterpret_cast<unsigned short*>(st + S::XB);
+      const int pc = pt % KRA, pp = p0 + pc;
+      const int rr = pp < p_hi ? pp : p_lo;
+      const int nl = rr % t.NBc, mq = rr / t.NBc;
+      const int ih0 = (t.mh_lo + mq / t.MWc) * a.S1 - a.P1;
+      const int iw0 = (t.mw_lo + mq % t.MWc) * a.S1 - a.P1;
+      const int8_t* xcol = a.x + (long long)(t.n0 + nl) * a.xs.n;
+      const int rstep = kI8Producers / KRA;  // rows between a thread's
+      for (int i0 = 0; i0 < kNBK * KRA / kI8Producers; i0 += 8) {
+        unsigned v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int kk = pt / KRA + rstep * (i0 + i), k = k0 + kk;
+          const KIdx q = kidx(k, a.F1);
+          const int h = ih0 + q.dy, w = iw0 + q.dx;
+          const bool ok = pp < p_hi && k < a.K1 && h >= 0 && h < a.H &&
+                          w >= 0 && w < a.W;
+          v[i] = storage::bf16_bits(
+              ok ? xcol + q.c * a.xs.c + h * a.xs.h + w * a.xs.w : a.x, ok);
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const int kk = pt / KRA + rstep * (i0 + i);
+          bs[swz_rt(KRA, kk, pc >> 3) + (pc & 7)] =
+              static_cast<unsigned short>(v[i]);
+        }
+      }
+    };
+    // the runs this thread copied into stage sl, widened into the bf16
+    // slice
+    auto widen = [&](int sl) {
+      const IStage id = ws;
+      wk.step(ws);
+      if (!p.vec_x || id.q >= 0) return;
+      unsigned char* st = stages + (sl % NS) * SLOT;
+      const int KRA = p_hi - (p_lo + id.pass * kPassMax) > 64 ? 128 : 64;
+      const int kq = KRA / 8, xq = pt & (kq - 1);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        if (i >= KRA / 64) break;
+        const int xr = pt / kq + i * (kI8Producers / kq);
+        *reinterpret_cast<uint4*>(st + S::XB + 2 * swz_rt(KRA, xr, xq)) =
+            storage::bf16x8(*reinterpret_cast<const uint2*>(
+                st + S::X8 + xr * KRA + 8 * xq));
+      }
+    };
+    // the cluster barrier's phases of chunk pc (after its phase A, after
+    // its exchange), once stage `upto` is NS - 1 past its first B stage
+    int pc = 0;
+    auto phases = [&](int upto) {
+      while (pc < chunks && pc * (wk.nA + wk.nB) + wk.nA + NS - 1 <= upto) {
+        cluster_wait();
+        cluster_arrive();
+        cluster_wait();
+        if (++pc < chunks) cluster_arrive();
+      }
+    };
+    cluster_arrive();  // chunk 0's first phase
+#pragma unroll
+    for (int q = 0; q < NS - 1; ++q) {
+      if (q < nsl) stage(q);
+      mma::cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      mma::cp_wait<NS - 2>();  // stage sl has landed: widen, announce it
+      widen(sl);
+      mma::bar_arrive(ring::full_bar(sl % NS), kI8Threads);
+      const int nx = sl + NS - 1;
+      if (nx < nsl) {
+        phases(nx);
+        if (nx >= NS) mma::bar_sync(ring::empty_bar<NS>(nx % NS), kI8Threads);
+        stage(nx);
+      }
+      mma::cp_commit();
+    }
+    phases(nsl + NS);
+    return;
+  }
+
+  // ---- the consumer warpgroups: both GEMMs, the exchange, the epilogue ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+      kFConsumerRegs));
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2;
+  const int wn = warp / GM;  // 64 rows x 32 columns a warp
+  // phase B: this lane's column of each n tile, wn*32 + 8 nt + g, its slab
+  // base and its first tap's mid row and column (-2^20 where the column
+  // lies past the tile, so every tap tests outside the mid extent)
+  int cbase[4], ohb[4], owb[4];
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+    const SCol col = scol(a, t, wn * 32 + 8 * nt + g);
+    ohb[nt] = col.ok ? col.oh * a.S2 - a.P2 : -(1 << 20);
+    owb[nt] = col.ok ? col.ow * a.S2 - a.P2 : -(1 << 20);
+    cbase[nt] = col.nl + (ohb[nt] - t.mh_lo) * rs_h + (owb[nt] - t.mw_lo) * rs_w;
+  }
+  const int k16 = wk.nsl1;
+  unsigned long long fma_count = 0;
+  float tot[4][4][4];  // conv2's sums
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) tot[mt][nt][e] = 0.f;
+
+  int sl = 0;
+  for (int cm0 = 0; cm0 < a.Cm; cm0 += kCM) {
+    const int cmn = min(kCM, a.Cm - cm0);
+    // local phase B is done with the slab, and the other ranks with my share
+    mma::bar_sync(ring::cons_bar<NS>(), kI8Consumers);
+    if (cm0 > 0) cluster_wait();
+
+    // ---- phase A: my share of conv1 -> mid slab (cm0 .. cm0+cmn) --------
+    for (int p0 = p_lo; p0 < p_hi;) {
+      if (p_hi - p0 > 64) {
+        conv1_pass_f32<128, NS, SLOT, S::XB>(p, stages, mid, p0, p_hi, cm0,
+                                             cmn, tid, k16, sl, nsl);
+        fma_count += (unsigned long long)kCM * 128 * k16 * kNBK;
+        p0 += 128;
+      } else {
+        conv1_pass_f32<64, NS, SLOT, S::XB>(p, stages, mid, p0, p_hi, cm0,
+                                            cmn, tid, k16, sl, nsl);
+        fma_count += (unsigned long long)kCM * 64 * k16 * kNBK;
+        p0 += 64;
+      }
+    }
+
+    // ---- the other ranks' shares, through distributed shared memory -----
+    cluster_arrive();  // every rank's share of this chunk is in its slab
+    cluster_wait();
+    exchange_mid(a, t, cluster, mid, RR, CL, rank, cmn, tid, kI8Consumers);
+    cluster_arrive();  // done reading the other ranks' slabs
+    mma::bar_sync(ring::cons_bar<NS>(), kI8Consumers);  // the whole slab
+
+    // ---- phase B: conv2's (cm, dy, dx) terms of this chunk --------------
+    const int K2c = cmn * F2sq;
+    conv2_3xtf32<GM, NS, SLOT, S::KB8, S::W2S, kI8Threads>(
+        a, mid, stages, K2c, cbase, ohb, owb, rs_h, rs_w, tot, tid, sl, nsl);
+    // the twin's count: k16 granules
+    fma_count += (unsigned long long)TBM * TBN * ((K2c + kNBK - 1) / kNBK) *
+                 kNBK;
+  }
+  cluster_wait();  // no rank reads my slab any more
+  mma::bar_sync(ring::cons_bar<NS>(), kI8Consumers);  // the pool tile
+                                                      // overlays the slab
+  if (p.stats && tid == 0) {
+    atomicAdd(p.stats, 2ull * fma_count);
+    atomicMax(p.stats + 1, (unsigned long long)cluster.num_blocks());
+  }
+  constexpr int TSTR = TBN + 1;
+  float* Ts = mid;
+  tile_epilogue<POOL, GM, false>(a, t, tot, Ts, TSTR, co0, tid);
+  if (POOL) {
+    mma::bar_sync(ring::cons_bar<NS>(), kI8Consumers);
+    pool_tile(a, t, Ts, TSTR, TBM, co0, tid, kI8Consumers);
+  }
+}
+
 // dynamic shared memory of one block, in bytes (ops.py::stack_tiling
 // computes the same number)
 template <int GM>
@@ -1624,6 +2172,9 @@ int launch(const ClusterArgs<E, X>& p, dim3 grid, cudaStream_t st,
   if constexpr (std::is_same<E, storage::bf16>::value &&
                 std::is_same<X, int8_t>::value) {
     kernel = cluster_stack_i8bf16_kernel<POOL, GM>;
+    threads = kI8Threads;
+  } else if constexpr (std::is_same<X, int8_t>::value) {
+    kernel = cluster_stack_i8f32_kernel<POOL, GM>;
     threads = kI8Threads;
   } else if constexpr (std::is_same<E, storage::bf16>::value) {
     kernel = cluster_stack_bf16_kernel<X, POOL, GM>;
@@ -1746,10 +2297,12 @@ int forward(const void* x, const void* w1, const void* b1, const void* w2,
     return (reinterpret_cast<uintptr_t>(q) & 15) == 0;
   };
   // runs of 4 float32 or 8 bf16 elements: 16 bytes of the ring, from kRun
-  // elements of x (int8: 4 or 8 bytes, aligned to that)
+  // elements of x (int8: 8 bytes, aligned to that; both int8 kernels copy
+  // runs of 8 images)
   constexpr int kRun = 16 / static_cast<int>(sizeof(E));
-  constexpr uintptr_t kXRun = kRun * sizeof(X);
-  p.vec_x = !src_nchw && N % kRun == 0 && nb % kRun == 0 &&
+  constexpr int kXN = std::is_same<X, int8_t>::value ? 8 : kRun;
+  constexpr uintptr_t kXRun = kXN * sizeof(X);
+  p.vec_x = !src_nchw && N % kXN == 0 && nb % kXN == 0 &&
             reinterpret_cast<uintptr_t>(x) % kXRun == 0;
   p.vec_w1 = Cm % kRun == 0 && al16(w1);
   p.vec_w2 = Co % kRun == 0 && al16(w2);

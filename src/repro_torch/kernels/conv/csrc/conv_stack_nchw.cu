@@ -76,14 +76,13 @@
 // K5a's bf16 build and the reference (stack.py keeps its mid in f32), and
 // y is rounded once where it is stored.  The int8 builds take int8 x
 // (quantized per channel, its scale folded into w1, as the reference's
-// stack takes it) and keep their float twin's tiles, x widened as it lands
-// in shared memory: int8->fp32 in the float32 kernel (copy4: one 4-byte
-// load of 4 elements, widened into the float32 box; copy1), where an int8
-// value is exact in TF32 and conv1 keeps fp32 accuracy; int8->bf16 in a
-// kernel of its own (conv_stack_nchw_i8bf16_kernel, whose note says how):
-// the bf16 twin's consumers, the int8 bytes by cp.async into the stage and
-// widened there to bf16, exact, as |q| <= 127 fits bf16's 8-bit
-// significand.
+// stack takes it) and keep their float twin's tiles, x widened in shared
+// memory, each in a kernel of its own (whose note says how): int8->fp32
+// (conv_stack_nchw_i8f32_kernel) behind the float32 twin's consumers,
+// where an int8 value is exact in TF32 and conv1 keeps fp32 accuracy;
+// int8->bf16 (conv_stack_nchw_i8bf16_kernel) behind the bf16 twin's, exact
+// as |q| <= 127 fits bf16's 8-bit significand.  Both copy the int8 bytes
+// by cp.async into the stage and widen them there.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -109,6 +108,8 @@ using repro::storage::copy4;
 using repro::storage::ld;
 using repro::storage::pack2;
 using repro::storage::put;
+using repro::storage::kExactTf32;
+using repro::storage::split;
 using repro::storage::split3;
 using T = REPRO_WT;  // the storage type of w, bias, residual and y
 using X = REPRO_XT;  // x's: T's, or int8 (the mid: float32)
@@ -204,10 +205,14 @@ __device__ __forceinline__ StageId stage_id(const K5bArgs<float, XT>& a,
   return id;
 }
 
-// F1T, F2T: the convs' filter sizes where fixed at compile time (3), else 0
+// The consumer warpgroups of the float32 builds (the float32 kernel and the
+// int8->fp32 one): both GEMMs from the ring's float32 stages (3xTF32) and
+// the epilogue.  x of an exact type (kExactTf32: int8) is its own TF32 big
+// part, so conv1 drops the product of its small part, which is zero.
 template <typename XT, int BM, bool POOL, int F1T, int F2T>
-__global__ void __launch_bounds__(kThreads, 1)
-conv_stack_nchw_kernel(const K5bArgs<float, XT> a) {
+__device__ __forceinline__ void consumers_f32(const K5bArgs<float, XT>& a,
+                                              const Tile& t, const Box& b,
+                                              int nsl) {
   constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
   constexpr int BN = kTile / BM;
   constexpr int WM = BM / 32;   // phase B warps along Co, 32 rows each
@@ -215,97 +220,9 @@ conv_stack_nchw_kernel(const K5bArgs<float, XT> a) {
   constexpr int TS = BN + 8;    // epilogue tile row stride
   extern __shared__ __align__(16) float smem[];  // ring, then the slab
   const StackArgs<float, XT>& s = a.s;
-  const Tile t = repro::stack::make_tile(s);
-  const Box b = make_box(a, t);
   const int co0 = blockIdx.y * BM;
-  // the slab: 32 mid channels of conv1 outputs, [32][RSTR]
   float* slab = smem + (NS * a.STAGE > BM * TS ? NS * a.STAGE : BM * TS);
-  const int last = a.chunks - 1;
-  const int nsl = a.chunks * (b.passes * a.a_stages + kCM / 8) - kCM / 8 +
-                  (min(kCM, s.Cm - last * kCM) + 7) / 8;
   const int tid = threadIdx.x;
-
-  if (tid >= kConsumers) {
-    // ---- the producer warpgroup: every stage's copies ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int pt = tid - kConsumers;
-    const int XQ = b.XW / 4;            // 16-byte quads of an x box row
-    const int xrows = t.NBc * b.XH;     // x box rows of one channel
-    auto stage = [&](int sl) {
-      const StageId id = stage_id(a, b, sl);
-      float* st = smem + (sl % NS) * a.STAGE;
-      if (id.q < 0) {
-        // w1 rows cm0 .. cm0 + 31, k1 [oct * 8 F1^2, + ga 8 F1^2)
-        const int w = 8 * a.ga * a.FF1, wq = w / 4;
-        const int k0 = id.oct * 8 * a.FF1;
-        for (int e = pt; e < kCM * wq; e += kProducers) {
-          const int r = e / wq, c = 4 * (e - r * wq);
-          const int cm = id.chunk * kCM + r;
-          const int valid = cm < s.Cm ? min(4, s.K1 - (k0 + c)) : 0;
-          copy_quad(st + r * a.SA1 + c,
-                    s.w1 + static_cast<long long>(cm) * s.K1 + k0 + c, s.w1,
-                    valid, a.vec_w1);
-        }
-        // the x box of channels oct * 8 .. + 8 ga - 1: [8 ga][NB][XH][XW]
-        float* xs = st + kCM * a.SA1;
-        for (int e = pt; e < 8 * a.ga * xrows * XQ; e += kProducers) {
-          const int xq = e % XQ, row = e / XQ;
-          const int c8 = row / xrows, rr = row - c8 * xrows;
-          const int nl = rr / b.XH, xh = rr - nl * b.XH;
-          const int ci = id.oct * 8 + c8, ih = b.ih0 + xh;
-          const int iw = b.iw0 + 4 * xq;
-          float* d = xs + c8 * a.XSTR + rr * b.XW + 4 * xq;
-          const bool rok = ci < s.Ci && static_cast<unsigned>(ih) <
-                                            static_cast<unsigned>(s.H);
-          const long long base = static_cast<long long>(t.n0 + nl) * s.xs.n +
-                                 static_cast<long long>(ci) * s.xs.c +
-                                 static_cast<long long>(ih) * s.xs.h;
-          if (!rok || iw >= s.W || iw + 4 <= 0) {
-            copy4(d, s.x, false);
-          } else if (a.vec_x && iw >= 0 && iw + 4 <= s.W) {
-            copy4(d, s.x + base + iw, true);
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const bool ok = static_cast<unsigned>(iw + j) <
-                              static_cast<unsigned>(s.W);
-              copy1(d + j, ok ? s.x + base + (iw + j) * s.xs.w : s.x, ok);
-            }
-          }
-        }
-      } else {
-        // w2 rows co0 .. co0 + BM - 1, k2 [(chunk 32 + q 8) F2^2, + 8 F2^2)
-        const int w = 8 * a.FF2, wq = w / 4;
-        const int k0 = (id.chunk * kCM + id.q * 8) * a.FF2;
-        for (int e = pt; e < BM * wq; e += kProducers) {
-          const int r = e / wq, c = 4 * (e - r * wq);
-          const int co = co0 + r;
-          const int valid = co < s.Co ? min(4, s.Cm * a.FF2 - (k0 + c)) : 0;
-          copy_quad(st + r * a.SA2 + c,
-                    s.w2 + static_cast<long long>(co) * s.Cm * a.FF2 + k0 + c,
-                    s.w2, valid, a.vec_w2);
-        }
-      }
-    };
-#pragma unroll
-    for (int q = 0; q < NS - 1; ++q) {
-      if (q < nsl) stage(q);
-      cp_commit();
-    }
-    for (int sl = 0; sl < nsl; ++sl) {
-      cp_wait<NS - 2>();  // stage sl has landed: announce it
-      bar_arrive(full_bar(sl % NS), kThreads);
-      const int nx = sl + NS - 1;
-      if (nx < nsl) {
-        if (nx >= NS) bar_sync(empty_bar<NS>(nx % NS), kThreads);
-        stage(nx);
-      }
-      cp_commit();
-    }
-    return;
-  }
-
-  // ---- the consumer warpgroups: both GEMMs and the epilogue ----
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   const int lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, tq = lane & 3;
@@ -397,14 +314,16 @@ conv_stack_nchw_kernel(const K5bArgs<float, XT> a) {
             for (int j = 0; j < 4; ++j) {
               if (j >= nj) break;
               unsigned b0big, b0small, b1big, b1small;
-              split_tf32(xr[xoff[j]], b0big, b0small);
-              split_tf32(xr[4 * a.XSTR + xoff[j]], b1big, b1small);
+              split<kExactTf32<XT>>(xr[xoff[j]], b0big, b0small);
+              split<kExactTf32<XT>>(xr[4 * a.XSTR + xoff[j]], b1big,
+                                    b1small);
 #pragma unroll
               for (int mt = 0; mt < 2; ++mt) {
                 mma_tf32(accA[mt][j], asmall[mt], b0big, b1big,
                          accA[mt][j]);
-                mma_tf32(accA[mt][j], abig[mt], b0small, b1small,
-                         accA[mt][j]);
+                if constexpr (!kExactTf32<XT>)
+                  mma_tf32(accA[mt][j], abig[mt], b0small, b1small,
+                           accA[mt][j]);
                 mma_tf32(accA[mt][j], abig[mt], b0big, b1big, accA[mt][j]);
               }
             }
@@ -577,6 +496,104 @@ conv_stack_nchw_kernel(const K5bArgs<float, XT> a) {
   }
 }
 
+// F1T, F2T: the convs' filter sizes where fixed at compile time (3), else 0
+template <typename XT, int BM, bool POOL, int F1T, int F2T>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_stack_nchw_kernel(const K5bArgs<float, XT> a) {
+  constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
+  extern __shared__ __align__(16) float smem[];  // ring, then the slab
+  const StackArgs<float, XT>& s = a.s;
+  const Tile t = repro::stack::make_tile(s);
+  const Box b = make_box(a, t);
+  const int co0 = blockIdx.y * BM;
+  const int last = a.chunks - 1;
+  const int nsl = a.chunks * (b.passes * a.a_stages + kCM / 8) - kCM / 8 +
+                  (min(kCM, s.Cm - last * kCM) + 7) / 8;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroup: every stage's copies ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    const int XQ = b.XW / 4;            // 16-byte quads of an x box row
+    const int xrows = t.NBc * b.XH;     // x box rows of one channel
+    auto stage = [&](int sl) {
+      const StageId id = stage_id(a, b, sl);
+      float* st = smem + (sl % NS) * a.STAGE;
+      if (id.q < 0) {
+        // w1 rows cm0 .. cm0 + 31, k1 [oct * 8 F1^2, + ga 8 F1^2)
+        const int w = 8 * a.ga * a.FF1, wq = w / 4;
+        const int k0 = id.oct * 8 * a.FF1;
+        for (int e = pt; e < kCM * wq; e += kProducers) {
+          const int r = e / wq, c = 4 * (e - r * wq);
+          const int cm = id.chunk * kCM + r;
+          const int valid = cm < s.Cm ? min(4, s.K1 - (k0 + c)) : 0;
+          copy_quad(st + r * a.SA1 + c,
+                    s.w1 + static_cast<long long>(cm) * s.K1 + k0 + c, s.w1,
+                    valid, a.vec_w1);
+        }
+        // the x box of channels oct * 8 .. + 8 ga - 1: [8 ga][NB][XH][XW]
+        float* xs = st + kCM * a.SA1;
+        for (int e = pt; e < 8 * a.ga * xrows * XQ; e += kProducers) {
+          const int xq = e % XQ, row = e / XQ;
+          const int c8 = row / xrows, rr = row - c8 * xrows;
+          const int nl = rr / b.XH, xh = rr - nl * b.XH;
+          const int ci = id.oct * 8 + c8, ih = b.ih0 + xh;
+          const int iw = b.iw0 + 4 * xq;
+          float* d = xs + c8 * a.XSTR + rr * b.XW + 4 * xq;
+          const bool rok = ci < s.Ci && static_cast<unsigned>(ih) <
+                                            static_cast<unsigned>(s.H);
+          const long long base = static_cast<long long>(t.n0 + nl) * s.xs.n +
+                                 static_cast<long long>(ci) * s.xs.c +
+                                 static_cast<long long>(ih) * s.xs.h;
+          if (!rok || iw >= s.W || iw + 4 <= 0) {
+            copy4(d, s.x, false);
+          } else if (a.vec_x && iw >= 0 && iw + 4 <= s.W) {
+            copy4(d, s.x + base + iw, true);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const bool ok = static_cast<unsigned>(iw + j) <
+                              static_cast<unsigned>(s.W);
+              copy1(d + j, ok ? s.x + base + (iw + j) * s.xs.w : s.x, ok);
+            }
+          }
+        }
+      } else {
+        // w2 rows co0 .. co0 + BM - 1, k2 [(chunk 32 + q 8) F2^2, + 8 F2^2)
+        const int w = 8 * a.FF2, wq = w / 4;
+        const int k0 = (id.chunk * kCM + id.q * 8) * a.FF2;
+        for (int e = pt; e < BM * wq; e += kProducers) {
+          const int r = e / wq, c = 4 * (e - r * wq);
+          const int co = co0 + r;
+          const int valid = co < s.Co ? min(4, s.Cm * a.FF2 - (k0 + c)) : 0;
+          copy_quad(st + r * a.SA2 + c,
+                    s.w2 + static_cast<long long>(co) * s.Cm * a.FF2 + k0 + c,
+                    s.w2, valid, a.vec_w2);
+        }
+      }
+    };
+#pragma unroll
+    for (int q = 0; q < NS - 1; ++q) {
+      if (q < nsl) stage(q);
+      cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      cp_wait<NS - 2>();  // stage sl has landed: announce it
+      bar_arrive(full_bar(sl % NS), kThreads);
+      const int nx = sl + NS - 1;
+      if (nx < nsl) {
+        if (nx >= NS) bar_sync(empty_bar<NS>(nx % NS), kThreads);
+        stage(nx);
+      }
+      cp_commit();
+    }
+    return;
+  }
+
+  consumers_f32<XT, BM, POOL, F1T, F2T>(a, t, b, nsl);
+}
+
 // ---- the bf16 build: both convs on the bf16 tensor cores -----------------
 //
 // Instantiated only by the bf16 build (launch_f below).  The tile, the
@@ -737,6 +754,26 @@ __device__ __forceinline__ void w2_slice_bf16(const K5bArgs<bf16, XT>& a,
 // dq columns and drow rows (one more on a column carry)
 struct BoxWalk {
   int xq0, dq, drow, c160, nl0, xh0;
+  // (column xq, channel c, image nl, row xh) on by kProducers copies of
+  // XQ a row (the int8->fp32 kernel's walks)
+  __device__ __forceinline__ void step(int& xq, int& c, int& nl, int& xh,
+                                       int XQ, const Box& b,
+                                       const Tile& t) const {
+    xq += dq;
+    int rows = drow;
+    if (xq >= XQ) {
+      xq -= XQ;
+      ++rows;
+    }
+    xh += rows;
+    while (xh >= b.XH) {
+      xh -= b.XH;
+      if (++nl == t.NBc) {
+        nl = 0;
+        ++c;
+      }
+    }
+  }
 };
 __device__ __forceinline__ BoxWalk box_walk(const Box& b, const Tile& t,
                                             int XQ, int pt) {
@@ -1518,6 +1555,308 @@ conv_stack_nchw_i8bf16_kernel(const K5bArgs<bf16, int8_t> a) {
   consumers_bf16<BM, POOL, F1T, F2T>(a, t, b, nsl);
 }
 
+// ---- the int8->fp32 build: x in flight as bytes ----------------------------
+//
+// Instantiated only by the int8->fp32 build (launch_f below).  The float32
+// kernel above on int8 x filled its box by storage::copy4 / copy1: each a
+// blocking 4-byte (or 1-byte) load, widened in registers and stored, one in
+// flight a producer thread, while w1 and w2 went by cp.async.  This kernel
+// keeps the float32 kernel's tile, box, walk, ring, barriers, consumers
+// (consumers_f32: 3xTF32, conv1 without x's small part, which is zero;
+// chains flushed every 32 terms; the epilogue) and counted FLOPs, and
+// changes how x reaches the stage: the int8 bytes travel by cp.async, NS - 1
+// stages ahead as w1 does, and are widened to float32 in shared memory.
+//
+//   Copy units (vec_x = C: 16, 8 or 4, an NCHW source with W % C == 0 and x
+//   C-byte aligned, so every row of x starts on a C-byte boundary): a unit
+//   is the box quads (4 columns; the box origin is aligned down to 4) of a
+//   row that lie in one C-byte chunk of x, chunk quads [j0, j1) of Cq = C /
+//   4; a row's first and last units may hold fewer.  A whole unit is one
+//   C-byte cp.async, a part of one 8-byte copies of even quad pairs and
+//   4-byte ones; a chunk lies wholly inside [0, W) or wholly outside it (W
+//   % C == 0), so one off [0, W) x [0, H) (or past Ci) is zero-filled by the
+//   copies' source size.  The bytes go into the last C bytes of the unit's
+//   own float32 span (a whole unit's upper quarter), chunk quad j at 4 j,
+//   so each copy is aligned at both ends as it is in x.
+//   Widening: once its cp.async group has landed (cp.async.wait_group makes
+//   a thread's own copies visible to it), each producer thread reads the
+//   bytes of its units and writes their floats over the units' spans, every
+//   byte read before any float is written (exact: |q| <= 127), then arrives
+//   on the stage's FULL barrier.  No thread reads bytes another writes, and
+//   the box is the float32 kernel's: the shared memory is the twin's.
+//   Elements (vec_x 0: a CHWN source, W % 4 != 0, x misaligned): 4 columns
+//   a copy, kU copies' byte loads issued together before any is stored
+//   (box_elements_f32).
+//
+// What bounds it: as the twin, operations (3xTF32 on the tensor cores, two
+// TF32 products a conv1 term, three a conv2 term).  On the card
+// (ResNet-18's layer1 block, timed apart with tools/timing_variants.py,
+// PERF.md) the consumers alone take ~0.51 of its ~0.58 ms, cuDNN's time
+// for the whole block; the copies, off the consumers' path, add the rest.
+
+// a phase-A stage's w1 slice: rows cm0 .. cm0 + 31, k1 [oct 8 F1^2, + ga 8
+// F1^2), by 16-byte cp.async where the rows allow it
+__device__ __forceinline__ void w1_slice_f32(const K5bArgs<float, int8_t>& a,
+                                             const StageId& id, float* st,
+                                             int pt) {
+  const StackArgs<float, int8_t>& s = a.s;
+  const int wq = 2 * a.ga * a.FF1;  // quads of a row
+  const int k0 = id.oct * 8 * a.FF1;
+  for (int e = pt; e < kCM * wq; e += kProducers) {
+    const int r = e / wq, c = 4 * (e - r * wq);
+    const int cm = id.chunk * kCM + r;
+    const int valid = cm < s.Cm ? min(4, s.K1 - (k0 + c)) : 0;
+    copy_quad(st + r * a.SA1 + c,
+              s.w1 + static_cast<long long>(cm) * s.K1 + k0 + c, s.w1, valid,
+              a.vec_w1);
+  }
+}
+
+// a phase-B stage's w2 slice: rows co0 .. co0 + BM - 1, k2 [(chunk 32 + q
+// 8) F2^2, + 8 F2^2)
+template <int BM>
+__device__ __forceinline__ void w2_slice_f32(const K5bArgs<float, int8_t>& a,
+                                             const StageId& id, float* st,
+                                             int co0, int pt) {
+  const StackArgs<float, int8_t>& s = a.s;
+  const int wq = 2 * a.FF2;
+  const int k0 = (id.chunk * kCM + id.q * 8) * a.FF2;
+  for (int e = pt; e < BM * wq; e += kProducers) {
+    const int r = e / wq, c = 4 * (e - r * wq);
+    const int co = co0 + r;
+    const int valid = co < s.Co ? min(4, s.Cm * a.FF2 - (k0 + c)) : 0;
+    copy_quad(st + r * a.SA2 + c,
+              s.w2 + static_cast<long long>(co) * s.Cm * a.FF2 + k0 + c, s.w2,
+              valid, a.vec_w2);
+  }
+}
+
+// 4 int8 (bytes of w, element 0 lowest) as 4 floats
+__device__ __forceinline__ float4 f32x4(unsigned w) {
+  const int v = static_cast<int>(w);
+  return make_float4(repro::storage::i8_at(v, 0), repro::storage::i8_at(v, 1),
+                     repro::storage::i8_at(v, 2), repro::storage::i8_at(v, 3));
+}
+
+// a phase-A stage's x box element by element (vec_x 0), 4 columns a copy,
+// kU copies' loads issued together with no branch between them; each
+// copy's (column, c8, nl, xh) stepped on from the thread's first, never
+// divided
+__device__ __forceinline__ void box_elements_f32(
+    const K5bArgs<float, int8_t>& a, const Box& b, const Tile& t,
+    const StageId& id, float* xs, int XQ, const BoxWalk& w) {
+  constexpr int kU = 4;  // copies in flight at once
+  const StackArgs<float, int8_t>& s = a.s;
+  int xq = w.xq0, c8 = w.c160, nl = w.nl0, xh = w.xh0;
+  while (c8 < 8 * a.ga) {
+    float4 v[kU];
+    int off[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int ci = id.oct * 8 + c8, ih = b.ih0 + xh;
+      const int iw = b.iw0 + 4 * xq;
+      off[u] = c8 < 8 * a.ga
+                   ? c8 * a.XSTR + (nl * b.XH + xh) * b.XW + 4 * xq
+                   : -1;
+      const bool rok = off[u] >= 0 && ci < s.Ci &&
+                       static_cast<unsigned>(ih) <
+                           static_cast<unsigned>(s.H);
+      const long long base = static_cast<long long>(t.n0 + nl) * s.xs.n +
+                             static_cast<long long>(ci) * s.xs.c +
+                             static_cast<long long>(ih) * s.xs.h;
+      float e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        e[j] = rok && static_cast<unsigned>(iw + j) <
+                          static_cast<unsigned>(s.W)
+                   ? static_cast<float>(__ldg(
+                         s.x + base + static_cast<long long>(iw + j) * s.xs.w))
+                   : 0.f;
+      v[u] = make_float4(e[0], e[1], e[2], e[3]);
+      w.step(xq, c8, nl, xh, XQ, b, t);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+      if (off[u] >= 0) *reinterpret_cast<float4*>(xs + off[u]) = v[u];
+  }
+}
+
+// One copy unit of the int8->fp32 box (ops.py::k5b_i8f32_unit mirrors it):
+// chunk quads [j0, j1) of a C-byte chunk of x that lie in a box row
+struct F32Unit {
+  unsigned char* d;   // the (virtual) float32 span of chunk quad 0
+  const int8_t* src;  // x's address of chunk quad 0
+  int j0, j1;
+  bool ok;            // the chunk lies in x (row, channel and columns)
+};
+
+// every unit of a phase-A stage's box that a producer thread owns, from its
+// first (w: box_walk over XU units a row) stepped on by kProducers units,
+// never divided; phi: the box origin's quad in its chunk.  The units'
+// sources lie within the block's box, 32-bit offsets from its origin.
+template <int C, typename F>
+__device__ __forceinline__ void f32_units(const K5bArgs<float, int8_t>& a,
+                                          const Box& b, const Tile& t,
+                                          const StageId& id, float* xs,
+                                          int XU, int phi, const BoxWalk& w,
+                                          F f) {
+  constexpr int Cq = C / 4;
+  const StackArgs<float, int8_t>& s = a.s;
+  const int cw0 = b.iw0 - 4 * phi;  // the first chunk's column (C-aligned)
+  const int8_t* x0 = s.x + static_cast<long long>(t.n0) * s.xs.n +
+                     static_cast<long long>(id.oct * 8) * s.xs.c +
+                     static_cast<long long>(b.ih0) * s.xs.h + cw0;
+  const int XQ = b.XW / 4;
+  int xu = w.xq0, c8 = w.c160, nl = w.nl0, xh = w.xh0;
+  while (c8 < 8 * a.ga) {
+    const int ci = id.oct * 8 + c8, ih = b.ih0 + xh;
+    const int q0 = Cq * xu - phi;  // the box quad of chunk quad 0
+    const int cw = cw0 + C * xu;
+    F32Unit u;
+    u.j0 = max(0, -q0);
+    u.j1 = min(Cq, XQ - q0);
+    u.d = reinterpret_cast<unsigned char*>(
+        xs + c8 * a.XSTR + (nl * b.XH + xh) * b.XW + 4 * q0);
+    u.src = x0 + (nl * s.xs.n + c8 * s.xs.c + xh * s.xs.h + C * xu);
+    u.ok = ci < s.Ci &&
+           static_cast<unsigned>(ih) < static_cast<unsigned>(s.H) &&
+           cw >= 0 && cw + C <= s.W;
+    f(u);
+    w.step(xu, c8, nl, xh, XU, b, t);
+  }
+}
+
+// where a unit's bytes lie: the last C bytes of its span (a whole unit's
+// upper quarter), chunk quad j at 4 j, so each copy is aligned in shared
+// memory as its source is in x
+template <int C>
+__device__ __forceinline__ unsigned char* unit_bytes(const F32Unit& u) {
+  return u.d + 16 * u.j1 - C;
+}
+
+// a unit's bytes into its span: one C-byte copy where the unit is whole,
+// else an 8-byte copy a pair of even and odd quads and a 4-byte one a quad
+// left (zeros where it lies off x; `any` a readable address)
+template <int C>
+__device__ __forceinline__ void copy_unit_f32(const F32Unit& u,
+                                              const int8_t* any) {
+  constexpr int Cq = C / 4;
+  unsigned char* b = unit_bytes<C>(u);
+  if (u.j0 == 0 && u.j1 == Cq) {
+    cp_n<C>(b, u.ok ? u.src : any, u.ok);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < Cq; ++j) {
+    const bool in = j >= u.j0 && j < u.j1;
+    const bool pair = C >= 8 && (j & 1) == 0 && in && j + 1 < u.j1;
+    const bool paired = C >= 8 && (j & 1) == 1 && in && j - 1 >= u.j0;
+    if (pair)
+      cp8(b + 4 * j, u.ok ? u.src + 4 * j : any, u.ok);
+    else if (in && !paired)
+      cp4(b + 4 * j, u.ok ? u.src + 4 * j : any, u.ok);
+  }
+}
+
+// a unit's bytes, once landed, widened to float32 over its span (all read
+// before any is written: they lie inside the span)
+template <int C>
+__device__ __forceinline__ void widen_unit_f32(const F32Unit& u) {
+  constexpr int Cq = C / 4;
+  const unsigned char* b = unit_bytes<C>(u);
+  unsigned q[Cq];
+#pragma unroll
+  for (int j = 0; j < Cq; ++j)
+    q[j] = j >= u.j0 && j < u.j1
+               ? *reinterpret_cast<const unsigned*>(b + 4 * j)
+               : 0u;
+#pragma unroll
+  for (int j = 0; j < Cq; ++j)
+    if (j >= u.j0 && j < u.j1)
+      *reinterpret_cast<float4*>(u.d + 16 * j) = f32x4(q[j]);
+}
+
+template <int BM, bool POOL, int F1T, int F2T>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_stack_nchw_i8f32_kernel(const K5bArgs<float, int8_t> a) {
+  constexpr int NS = BM == 256 ? 2 : 3;  // ring stages
+  extern __shared__ __align__(16) float smem[];  // ring, then the slab
+  const StackArgs<float, int8_t>& s = a.s;
+  const Tile t = repro::stack::make_tile(s);
+  const Box b = make_box(a, t);
+  const int co0 = blockIdx.y * BM;
+  const int last = a.chunks - 1;
+  const int nsl = a.chunks * (b.passes * a.a_stages + kCM / 8) - kCM / 8 +
+                  (min(kCM, s.Cm - last * kCM) + 7) / 8;
+  const int tid = threadIdx.x;
+
+  if (tid >= kConsumers) {
+    // ---- the producer warpgroup: every stage's copies, x widened ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kConsumers;
+    const int C = a.vec_x;                 // bytes of a chunk, or 0
+    const int Cq = C / 4;
+    const int phi = C ? (b.iw0 & (C - 1)) / 4 : 0;
+    // units (or 4-column element copies) of a box row, this thread's first
+    const int XU = C ? (b.XW / 4 + phi + Cq - 1) / Cq : b.XW / 4;
+    const BoxWalk w = box_walk(b, t, XU, pt);
+    auto stage = [&](int sl) {
+      const StageId id = stage_id(a, b, sl);
+      float* st = smem + (sl % NS) * a.STAGE;
+      if (id.q >= 0) {
+        w2_slice_f32<BM>(a, id, st, co0, pt);
+        return;
+      }
+      w1_slice_f32(a, id, st, pt);
+      float* xs = st + kCM * a.SA1;
+      if (C == 16)
+        f32_units<16>(a, b, t, id, xs, XU, phi, w,
+                      [&](const F32Unit& u) { copy_unit_f32<16>(u, s.x); });
+      else if (C == 8)
+        f32_units<8>(a, b, t, id, xs, XU, phi, w,
+                     [&](const F32Unit& u) { copy_unit_f32<8>(u, s.x); });
+      else if (C == 4)
+        f32_units<4>(a, b, t, id, xs, XU, phi, w,
+                     [&](const F32Unit& u) { copy_unit_f32<4>(u, s.x); });
+      else
+        box_elements_f32(a, b, t, id, xs, XU, w);
+    };
+    // the bytes this thread copied into stage sl, widened in place
+    auto widen = [&](int sl) {
+      const StageId id = stage_id(a, b, sl);
+      if (!C || id.q >= 0) return;
+      float* xs = smem + (sl % NS) * a.STAGE + kCM * a.SA1;
+      if (C == 16)
+        f32_units<16>(a, b, t, id, xs, XU, phi, w,
+                      [&](const F32Unit& u) { widen_unit_f32<16>(u); });
+      else if (C == 8)
+        f32_units<8>(a, b, t, id, xs, XU, phi, w,
+                     [&](const F32Unit& u) { widen_unit_f32<8>(u); });
+      else
+        f32_units<4>(a, b, t, id, xs, XU, phi, w,
+                     [&](const F32Unit& u) { widen_unit_f32<4>(u); });
+    };
+#pragma unroll
+    for (int q = 0; q < NS - 1; ++q) {
+      if (q < nsl) stage(q);
+      cp_commit();
+    }
+    for (int sl = 0; sl < nsl; ++sl) {
+      cp_wait<NS - 2>();  // stage sl has landed: widen it, announce it
+      widen(sl);
+      bar_arrive(full_bar(sl % NS), kThreads);
+      const int nx = sl + NS - 1;
+      if (nx < nsl) {
+        if (nx >= NS) bar_sync(empty_bar<NS>(nx % NS), kThreads);
+        stage(nx);
+      }
+      cp_commit();
+    }
+    return;
+  }
+  consumers_f32<int8_t, BM, POOL, F1T, F2T>(a, t, b, nsl);
+}
+
 // K5b's shared-memory layout at a block tile (ops.py::k5b_layout computes
 // the same): a phase-A stage holds ga 8-channel groups of Ci (the largest
 // divisor of Ci/8 whose stage fits the slot a phase-B stage needs)
@@ -1607,6 +1946,8 @@ cudaError_t launch_f(const K5bArgs<T, X>& a, dim3 grid, int smem,
   if constexpr (std::is_same<T, bf16>::value &&
                 std::is_same<X, int8_t>::value)
     kernel = conv_stack_nchw_i8bf16_kernel<BM, POOL, FT, FT>;
+  else if constexpr (std::is_same<X, int8_t>::value)
+    kernel = conv_stack_nchw_i8f32_kernel<BM, POOL, FT, FT>;
   else if constexpr (std::is_same<T, bf16>::value)
     kernel = conv_stack_nchw_bf16_kernel<X, BM, POOL, FT, FT>;
   else
@@ -1698,7 +2039,13 @@ extern "C" int REPRO_ENTRY(conv_stack_nchw_forward)(
                reinterpret_cast<uintptr_t>(w2) % 16 == 0;
   } else {
   a.a_stages = (Ci + 7) / 8 / l.ga;
-  a.vec_x = src_nchw && W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  if (kI8) {  // int8 x: chunks of C bytes, every row C-aligned
+    const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+    for (int c = 16; c >= 4 && !a.vec_x; c /= 2)
+      if (src_nchw && W % c == 0 && xa % c == 0) a.vec_x = c;
+  } else {
+    a.vec_x = src_nchw && W % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  }
   a.vec_w1 = s.K1 % 4 == 0 && reinterpret_cast<uintptr_t>(w1) % 16 == 0;
   a.vec_w2 = (Cm * a.FF2) % 4 == 0 &&
              reinterpret_cast<uintptr_t>(w2) % 16 == 0;

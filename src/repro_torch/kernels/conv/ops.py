@@ -942,6 +942,37 @@ def k5a_i8bf16_swz(KRA: int, r: int, c: int) -> int:
     return r * KRA + ((c ^ (r & 7)) << 3)
 
 
+# K5a's int8->fp32 kernel (``cluster_stack_i8f32_kernel``): a stage is a
+# phase-A k16 slice, w1 [16][64] float32 in rows of 64 + 4 floats, then x
+# [16][<= 128] as bf16 and as bytes (the int8->bf16 kernel's x), or a
+# phase-B stage of 4 // (bm // 64) k8 slices of w2 [8][bm] float32 in rows
+# of bm + 8 floats
+_K5A_F32_XB = 16 * (_CL_CM + 4) * 4     # byte offset of the x bf16 slice
+_K5A_F32_X8 = _K5A_F32_XB + 16 * _CL_PASS * 2   # ... and of the x bytes
+
+
+def k5a_i8f32_stages(bm: int) -> Tuple[int, int]:
+    """(NS, slot bytes) of K5a's int8->fp32 kernel (``FShape``): as many
+    stages as the twin's ring (``_cluster_ring_bytes``) holds, so its slab
+    stays where the twin's is."""
+    phase_b = (4 // (bm // 64)) * 8 * (bm + 8) * 4
+    slot = max(_K5A_F32_X8 + 16 * _CL_PASS, phase_b)
+    return _cluster_ring_bytes(bm) // slot, slot
+
+
+def k5a_i8f32_smem(bm: int, rstr: int, pool: bool) -> int:
+    """One K5a int8->fp32 block's dynamic shared memory: its NS stages lie
+    inside the twin's ring and the slab (or the pool tile) follows it, so
+    it allocates what the twin does (``_cluster_smem_bytes``).  Raises
+    ``ValueError`` where fewer than 3 stages fit the twin's ring."""
+    ns, slot = k5a_i8f32_stages(bm)
+    if ns < 3 or ns * slot > _cluster_ring_bytes(bm):
+        raise ValueError(f"K5a int8->fp32: {ns} stages of {slot} bytes do "
+                         f"not fit the twin's {_cluster_ring_bytes(bm)}-"
+                         "byte ring")
+    return _cluster_smem_bytes(bm, rstr, pool)
+
+
 @functools.lru_cache(maxsize=None)
 def _mid_spans(U: int, UT: int, pF: int, pS: int, S2: int, F2: int, P2: int,
                M1: int) -> Tuple[Tuple[Tuple[int, int], int], ...]:
@@ -1308,6 +1339,82 @@ def k5b_i8bf16_unit(q: int, XW: int, xu: int, iw0: int, W: int,
         return [(2 * q, 2 * q, src_addr)], (2 * q, 2 * q)
     return [(2 * q, q, src_addr if ok0 else None),
             (3 * q, q, src_addr + q if ok1 else None)], (2 * q, 2 * q)
+
+
+def k5b_i8f32_mode(W: int, x_addr: int, src_layout: str = "NCHW") -> int:
+    """The x copies of K5b's int8->fp32 kernel (its ``vec_x``): C = 16, 8
+    or 4, the largest with W % C == 0 and x C-byte aligned (so every row of
+    an NCHW x starts on a C-byte boundary), copies of C-byte chunks; 0
+    (a CHWN source, W % 4 != 0, x misaligned) element loads."""
+    if src_layout != "NCHW":
+        return 0
+    return next((c for c in (16, 8, 4) if W % c == 0 and x_addr % c == 0),
+                0)
+
+
+def k5b_i8f32_box(tile: dict, F1: int, S1: int, P1: int
+                  ) -> Tuple[int, int, int, int]:
+    """(ih0, XH, iw0, XW) of a block's x box in K5b's int8->fp32 kernel:
+    the float32 twin's (``make_box``): the rows under the unclipped mid
+    box, its columns from an origin aligned down to 4, the width rounded
+    up to 4."""
+    ih0 = tile["mh_u"] * S1 - P1
+    XH = (tile["RH"] - 1) * S1 + F1
+    iws = tile["mw_u"] * S1 - P1
+    iw0 = iws // 4 * 4
+    return ih0, XH, iw0, (iws - iw0 + (tile["RW"] - 1) * S1 + F1 + 3) // 4 * 4
+
+
+def k5b_i8f32_units(C: int, iw0: int, XW: int) -> Tuple[int, int]:
+    """(XU, phi): the copy units of a box row in K5b's int8->fp32 kernel
+    (its C-byte chunks of x that hold box columns) and the quad of the box
+    origin in its chunk."""
+    cq = C // 4
+    phi = (iw0 % C) // 4
+    return -(-(XW // 4 + phi) // cq), phi
+
+
+def k5b_i8f32_unit(C: int, xu: int, phi: int, XW: int, iw0: int, W: int,
+                   row_ok: bool, chunk_addr: int):
+    """One copy unit of K5b's int8->fp32 box (``F32Unit``): chunk quads
+    [j0, j1) of the C-byte chunk ``xu`` of a row (its first column iw0 - 4
+    phi + C xu; ``chunk_addr`` its address in x).  Returns (q0, j0, j1,
+    copies, bytes_at): q0 the box quad of chunk quad 0; each copy
+    (byte offset from chunk quad 0's float32 span, bytes, source address or
+    None for a zero fill); ``bytes_at`` where the bytes lie (chunk quad j
+    at bytes_at + 4 j, the last C bytes of the unit's span).  The thread
+    widens them into the floats of box quads q0 + j0 .. q0 + j1 - 1."""
+    cq = C // 4
+    q0 = cq * xu - phi
+    j0, j1 = max(0, -q0), min(cq, XW // 4 - q0)
+    cw = iw0 - 4 * phi + C * xu
+    ok = row_ok and cw >= 0 and cw + C <= W
+    at = 16 * j1 - C
+    src = chunk_addr if ok else None
+
+    def off(j):
+        return None if src is None else src + 4 * j
+
+    if j0 == 0 and j1 == cq:
+        return q0, j0, j1, [(at, C, src)], at
+    copies, j = [], j0
+    while j < j1:
+        if C >= 8 and j % 2 == 0 and j + 1 < j1:
+            copies.append((at + 4 * j, 8, off(j)))
+            j += 2
+        else:
+            copies.append((at + 4 * j, 4, off(j)))
+            j += 1
+    return q0, j0, j1, copies, at
+
+
+def k5b_i8f32_smem(Ci: int, F1: int, S1: int, F2: int, S2: int, pF: int,
+                   pS: int, bm: int, nb: int, uth: int, utw: int) -> int:
+    """One block's dynamic shared memory in K5b's int8->fp32 kernel: its
+    stages are the float32 twin's (the x box at the twin's columns, each
+    unit's bytes inside its own float32 span), so it allocates
+    ``k5b_layout``'s bytes."""
+    return k5b_layout(Ci, F1, S1, F2, S2, pF, pS, bm, nb, uth, utw)[1]
 
 
 def _balanced(U: int, cap: int):

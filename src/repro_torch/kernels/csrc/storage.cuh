@@ -24,7 +24,8 @@
 // bf16x8 for what arrives through registers) and multiply on the bf16
 // tensor cores, as the bf16 builds of K5b and K6 do; so does K1 on int8
 // x with float32 w, its w cut into three bf16 parts (split3); their notes
-// say how.
+// say how.  The stacks' int8 builds copy x's bytes by cp.async and widen
+// them in shared memory (conv_stack_nchw.cu, conv_stack_chwn.cu).
 #pragma once
 
 #include <cuda_bf16.h>

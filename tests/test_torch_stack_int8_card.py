@@ -22,6 +22,11 @@ K5b int8->fp32 and K5b int8->bf16 (``conv_stack_nchw.cu``).
   cluster of 3 (K5a): each within one bf16 step of the plain version, with
   bitwise repeats and the counted FLOPs; K5b's output also bitwise equal
   to its bf16 twin's on the same values (the same consumers and sums).
+- The int8->fp32 kernels at the same edges (K5b: x by 16-, 8- or 4-byte
+  chunks, or element loads; K5a: runs of 8 images, or element loads),
+  each within 1e-5 scale-relative of float64, with bitwise repeats and
+  the counted FLOPs; K5b int8->fp32's output bitwise equal to its float32
+  twin's on the same values.
 - A build error or a launch the card refuses raises
   (``KernelBuildError``, ``KernelLaunchError``): nothing falls back.
 
@@ -249,6 +254,45 @@ def test_i8bf16_copy_path_edges(card, engine, case):
     _check("i8bf16", y, x, w1, w2, args, kw)
     for _ in range(2):
         assert torch.equal(wrapper(x, *wk, *args, **kw), y)
+
+
+@pytest.mark.parametrize("engine,case", EDGE_CASES,
+                         ids=[f"{e}-{i}" for i, (e, _) in
+                              enumerate(EDGE_CASES)])
+def test_i8f32_copy_path_edges(card, engine, case):
+    """The int8->fp32 kernels' copy paths at the same edges: K5b's x by 4-,
+    8- or 16-byte chunks (or element loads), K5a's runs of 8 images (or
+    element loads), each within 1e-5 of float64, bitwise repeats, the
+    counted FLOPs."""
+    x, w1, w2, wk, args, kw = _inputs(engine, case, torch.float32, card)
+    (N, Ci, H, Cm, Co, F1, S1, P1, F2, S2, P2, pool) = case[:12]
+    t = conv_ops.stack_tiling(engine, N, Ci, H, H, Cm, F1, S1, P1, Co, F2,
+                              S2, P2, pool)
+    wrapper = _wrapper(engine)
+    if engine == "CHWN":
+        y, flops, cluster = conv_ops.conv_stack_chwn_counted(
+            x, *wk, *args, **kw)
+        assert (flops, cluster) == (t.executed_flops, t.cluster)
+    else:
+        y, flops = conv_ops.conv_stack_nchw_counted(x, *wk, *args, **kw)
+        assert flops == t.executed_flops
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32
+    _check("i8f32", y, x, w1, w2, args, kw)
+    for _ in range(2):
+        assert torch.equal(wrapper(x, *wk, *args, **kw), y)
+
+
+@pytest.mark.parametrize("case", [c for e, c in EDGE_CASES if e == "NCHW"]
+                         + K5B_CASES)
+def test_k5b_i8f32_is_its_twin_bit_for_bit(card, case):
+    """K5b int8->fp32's consumers are its float32 twin's: on x widened
+    beforehand the twin gives the same bits (the product of x's small
+    part, zero for int8, is left out without changing a sum)."""
+    x, _, _, wk, args, kw = _inputs("NCHW", case, torch.float32, card)
+    y = conv_ops.conv_stack_nchw(x, *wk, *args, **kw)
+    assert torch.equal(conv_ops.conv_stack_nchw(x.float(), *wk, *args, **kw),
+                       y)
 
 
 def test_a_refused_int8_stack_launch_raises(card, monkeypatch):

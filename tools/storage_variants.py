@@ -22,7 +22,7 @@ each case is held against its plain version as the smoke holds it
 (``chip_smoke.dtype_case``), and the ms summed over each network's
 launches (a case's ms times its launches) is printed beside the library
 call's (and, for the rows the smoke times by graph replay too, K3a bf16,
-K7a bf16 and K8 bf16, the device ms; for the int8->bf16 stacks, the bf16
+K7a bf16 and K8 bf16, the device ms; for the int8 stacks, the float
 twin's ms on the same values, ``twin_ms``); ``--per-case`` also prints each
 distinct launch's ms (its case, the launches it makes, ms and library ms
 a launch) and, for a conv
@@ -143,12 +143,13 @@ def timed(name: str, cases: Counter, dev, per_case: bool = False
             tot[f"{network} library"] += n * m["library_ms"]
             if "device_ms" in m:   # rows the smoke also times by graph replay
                 tot[f"{network} device"] += n * m["device_ms"]
-            if "twin_ms" in m:     # the int8->bf16 stacks' bf16 twin
+            if "twin_ms" in m:     # the int8 stacks' float twin
                 tot[f"{network} twin"] += n * m["twin_ms"]
             if per_case:
                 dev_ms = (f" device_ms={m['device_ms']:.5f}"
                           if "device_ms" in m else "")
-                twin = (f" twin_ms={m['twin_ms']:.4f}" if "twin_ms" in m
+                twin = (f" twin_ms={m['twin_ms']:.4f} "
+                        f"twin_bitwise={m['twin_bitwise']}" if "twin_ms" in m
                         else "")
                 print(f"  {network} {case} x{n}: ms={m['ms']:.4f}{dev_ms} "
                       f"library_ms={m['library_ms']:.4f}{twin}", flush=True)
@@ -170,7 +171,8 @@ def main() -> int:
                          "version")
     args = ap.parse_intermixed_args()
     if args.timing_only:
-        cs.bf16_check = cs.exact_check = lambda got, want: None
+        cs.bf16_check = cs.exact_check = cs.conv_check = (
+            lambda got, want: None)
         cs.bitwise_runs = lambda *a, **k: None
         cs.WGRAD_TOL = cs.TC_FP32_TOL = float("inf")
         measure = cs._measure

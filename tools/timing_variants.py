@@ -18,13 +18,13 @@ warp-specialised conv kernel,
   operand registers, so the fragments are loaded but never multiplied;
 - ``<stem>_nocopy_nomma.cu``: both;
 
-and for the int8->bf16 stacks' kernels (a ``widen`` lambda beside
-``stage``; K5b's ``w1_slice_bf16`` / ``w2_slice_bf16`` calls)
+and for the int8 stacks' kernels (int8->bf16 and int8->fp32: a ``widen``
+lambda beside ``stage``; K5b's ``w1_slice_*`` / ``w2_slice_*`` calls)
 
 - ``<stem>_nowiden.cu``: the x bytes copied but never widened;
 - ``<stem>_now_k5b.cu``: K5b's w1 and w2 slices never copied;
-- ``<stem>_nox_k5a.cu``, ``<stem>_now_k5a.cu``: K5a's int8->bf16 kernel
-  copies no x (bytes or elements), or no w1 and w2;
+- ``<stem>_nox_k5a.cu``, ``<stem>_now_k5a.cu``: K5a's int8 kernels copy
+  no x (bytes or elements), or no w1 and w2;
 - ``<stem>_noslab_k5a.cu``: its consumers read no conv2 B value from the
   slab (a value made from the address instead);
 - ``<stem>_xnear_k5a.cu``: its x runs decoded as ever but copied from the
@@ -34,6 +34,14 @@ and for the int8->bf16 stacks' kernels (a ``widen`` lambda beside
 - ``<stem>_xzero_k5a.cu``: its x copied as ever but widened to zeros (the
   copies and their waits stay; the operands change), to tell the copy
   path's cost from the data's;
+
+and for K5a's float32 kernel (``cluster_stack_kernel``, whose 256 threads
+each copy and multiply: the float32 build's)
+
+- ``<stem>_nox_k5a32.cu``: phase A's x never copied;
+- ``<stem>_now_k5a32.cu``: w1 and w2 never copied;
+- ``<stem>_nofma_k5a32.cu``: each ``fmaf`` an empty ``asm volatile``
+  that reads its operands;
 
 and for K5a's bf16 kernels (``conv_stack_chwn.cu``: ``conv1_pass_bf16``
 and phase B's ``issue_w2``, in which every thread both copies and
@@ -177,9 +185,10 @@ _K5A_NOW = (("    if (tid < kNBK * (kCM / 8)) {  // w1",
 
 
 _WIDEN = "auto widen = [&](int sl) {"
-_K5B_NOW = (("\n        w1_slice_bf16(a, id, st, pt);", "\n"),
-            ("\n      w1_slice_bf16(a, id, st, pt);", "\n"),
-            ("\n        w2_slice_bf16<BM>(a, id, st, co0, pt);", "\n"))
+_K5B_NOW = (("w1_slice_bf16(a, id, st, pt);", ""),
+            ("w2_slice_bf16<BM>(a, id, st, co0, pt);", ""))
+_K5B_F32_NOW = (("w1_slice_f32(a, id, st, pt);", ""),
+                ("w2_slice_f32<BM>(a, id, st, co0, pt);", ""))
 
 
 _K5A_I8_NOX = (("      if (p.vec_x) {\n        // runs of 8 positions",
@@ -190,6 +199,12 @@ _K5A_I8_NOW = (("      {  // w1: kNBK rows of 8 chunks, one a thread",
                ("        for (int e = pt; e < S::KB * kNBK * WCH2; "
                 "e += kI8Producers) {",
                 "        for (int e = pt; false; e += kI8Producers) {"))
+_K5A_F32_NOW = (("      // w1: kNBK rows of 16 quads, two a thread\n#pragma unroll\n"
+                 "      for (int i = 0; i < 2; ++i) {",
+                 "      // w1: kNBK rows of 16 quads, two a thread\n#pragma unroll\n"
+                 "      for (int i = 0; false && i < 2; ++i) {"),
+                ("        for (int e = pt; e < BK * WQ2; e += kI8Producers) {",
+                 "        for (int e = pt; false; e += kI8Producers) {"))
 _K5A_I8_XNEAR = (("ok ? rx.col + rx.k[i].c * a.xs.c + h * a.xs.h +\n"
                   "                            w * a.xs.w\n"
                   "                      : a.x,",
@@ -208,6 +223,50 @@ _K5A_I8_XZERO = (("            storage::bf16x8(*reinterpret_cast<const uint2*>(\
 _K5A_I8_NOSLAB = (("const float v = mid[ok ? koff + cbase[nt] : 0];",
                    "const float v = __int_as_float(0x3f800000 ^ "
                    "((koff + cbase[nt]) & 0x7fff));"),)
+
+
+# K5a's float32 kernel (``cluster_stack_kernel``: the float32 build and
+# the int8->fp32 build before it had a kernel of its own): every thread
+# both copies (``conv1_pass``'s ``issue``, phase B's ``issue_w2``) and
+# multiplies (``fmaf``)
+_K5A32_NOX = (("    if (p.vec_x) {\n#pragma unroll\n      for (int i = 0; i < XI;",
+               "    if (false) {\n#pragma unroll\n      for (int i = 0; i < XI;"),
+              ("    } else {\n#pragma unroll\n      for (int i = 0; i < kBK * "
+               "KRA / kThreads; ++i) {",
+               "    } else if (false) {\n#pragma unroll\n      for (int i = 0; "
+               "i < kBK * KRA / kThreads; ++i) {"))
+_K5A32_NOW = (("    if (p.vec_w1) {  // kBK x kCM / 4 quads",
+               "    if (false) {  // kBK x kCM / 4 quads"),
+              ("    } else {\n#pragma unroll\n      for (int i = 0; i < kBK * "
+               "kCM / kThreads; ++i) {",
+               "    } else if (false) {\n#pragma unroll\n      for (int i = 0; "
+               "i < kBK * kCM / kThreads; ++i) {"),
+              ("      if (p.vec_w2) {\n#pragma unroll\n        for (int i = 0; "
+               "i < kBK * TBM / 4 / kThreads; ++i) {",
+               "      if (false) {\n#pragma unroll\n        for (int i = 0; "
+               "i < kBK * TBM / 4 / kThreads; ++i) {"),
+              ("      } else {\n#pragma unroll\n        for (int i = 0; "
+               "i < kBK * TBM / kThreads; ++i) {",
+               "      } else if (false) {\n#pragma unroll\n        for (int "
+               "i = 0; i < kBK * TBM / kThreads; ++i) {"))
+# its products as no-ops that read the operands an FMA would have read
+NOFMA = """
+namespace {
+__device__ __forceinline__ float nofma(float a, float b, float c) {
+  asm volatile("" : "+f"(c) : "f"(a), "f"(b));
+  return c;
+}
+}  // namespace
+"""
+_K5A32_NOFMA = (("= fmaf(avv[i], bv[j]", "= nofma(avv[i], bv[j]"),
+                ("= fmaf(av[i], bv[j]", "= nofma(av[i], bv[j]"))
+
+
+def _nofma(text: str) -> str:
+    """K5a's float32 products as ``nofma`` (``NOFMA`` goes in before the
+    kernel's namespace, after the includes)."""
+    at = text.index("namespace repro {\n")
+    return text[:at] + NOFMA + _swap(text[at:], _K5A32_NOFMA)
 
 
 def _swap(text: str, pairs) -> str:
@@ -259,12 +318,22 @@ def variants(src: Path) -> dict:
     if _WIDEN in text:
         out["nowiden"] = text.replace(_WIDEN, _WIDEN + "\n      return;")
     if "w1_slice_bf16(a, id, st, pt);" in text:
-        out["now_k5b"] = _swap(text, _K5B_NOW)
+        now = _swap(text, _K5B_NOW)
+        if "w1_slice_f32(a, id, st, pt);" in text:
+            now = _swap(now, _K5B_F32_NOW)
+        out["now_k5b"] = now
+    if "cluster_stack_kernel(" in text:
+        out.update(nox_k5a32=_swap(text, _K5A32_NOX),
+                   now_k5a32=_swap(text, _K5A32_NOW),
+                   nofma_k5a32=_nofma(text))
     if "cluster_stack_i8bf16_kernel" in text:
         i8 = text.index("// ---- the int8->bf16 build: warp-specialised")
         head, tail = text[:i8], text[i8:]
+        now = _swap(text, _K5A_I8_NOW)
+        if "cluster_stack_i8f32_kernel" in text:
+            now = _swap(now, _K5A_F32_NOW)
         out.update(nox_k5a=_swap(text, _K5A_I8_NOX),
-                   now_k5a=_swap(text, _K5A_I8_NOW),
+                   now_k5a=now,
                    noslab_k5a=_swap(text, _K5A_I8_NOSLAB),
                    xnear_k5a=_swap(text, _K5A_I8_XNEAR),
                    noepi_k5a=head + _swap(tail, _K5A_I8_NOEPI),
