@@ -283,6 +283,28 @@
    ``F.scaled_dot_product_attention`` or ``h @ tableᵀ`` +
    ``F.cross_entropy``; a line gives K11's largest bf16 error and every
    case's TFLOP/s.
+9b. LM serve phase (``lm_serve_phase``, last, outside the kernels line):
+   the LM serving path ``launch/serve.Server(reduced=False)`` on the card
+   at full width, seed-0 weights: qwen2-7b whole (28 layers, 7.6 B
+   parameters), gemma2-27b cut to 2 periods (4 layers; local window,
+   softcaps, post-norms, tied embeddings) and whisper-base whole (its
+   encoder over 1500 zero frames), in bf16, then qwen2-7b whole in
+   float32 (the bf16 model freed first).  Each serves 4 seeded prompts of
+   32, 48, 64 and 96 tokens, 16 new tokens each, in both KV layouts
+   (float32: the layout ``select_kv_layout`` picks): every token in [0,
+   V), and the logits of prefill and of each decode step held against one
+   teacher-forced ``forward`` over the left-padded prompts and the
+   generated tokens (bf16 within the reference's decode tolerance, atol
+   0.15 / rtol 0.05; float32 within 1e-4 scale-relative), and the two
+   layouts' logits against each other (the same tolerance) over the steps
+   whose input tokens agree.  The path is plain torch (cuBLAS products;
+   the reference's is plain jnp): no kernel of the port may launch in it.
+   A line a model (beside the card's name and power limit): parameter
+   GB, prefill ms and decode ms a step (CUDA events, medians of 5),
+   ``Server.run``'s tokens/s on the host clock and its peak device
+   memory in each layout, ``select_kv_layout``'s pick beside the layout
+   whose decode step ran faster, and the largest deviation beside its
+   tolerance.
 10. Prints "K1 over the main path", "K2 ...", "K5b ...", "K10 ...",
    "K12 ..." and "K5b bf16 ..." lines in the form of K6's (launches, ms,
    TFLOP/s, K2's and K5b's executed TFLOP/s and executed/direct, both
@@ -294,13 +316,15 @@
    the narrow element sizes and the bf16 peak where w is bf16),
    the card line, and ``{"ok": true, "device": {...}}`` last.
 
-TF32 is off throughout.  Any failure raises: the script then exits
-nonzero without the last line.  ``--json`` also writes every measured
-case, and the compiler's register/spill report, to OUT.
+TF32 and bf16 reduced-precision reductions are off throughout.  Any
+failure raises: the script then exits nonzero without the last line.
+``--json`` also writes every measured case, and the compiler's
+register/spill report, to OUT.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import io
 import json
 import math
@@ -377,10 +401,15 @@ from repro_torch.kernels.transpose.ref import (  # noqa: E402
     transpose2d_batched_ref, transpose2d_ref)
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.launch.cnn_serve import CNNServer, ImageRequest  # noqa: E402
+from repro_torch.launch.serve import Request as LMRequest  # noqa: E402
+from repro_torch.launch.serve import Server as LMServer  # noqa: E402
+from repro_torch.models import transformer as LMT  # noqa: E402
+from repro_torch.models.registry import leaves_with_path  # noqa: E402
 from repro_torch.perfmodel import (AnalyticCostModel,  # noqa: E402
                                    calibrate, card_conv_measure,
                                    hardware_id, reference_hardware,
-                                   select_conv_layout_cost)
+                                   select_conv_layout_cost,
+                                   select_kv_layout)
 from repro_torch.perfmodel.calibration import (C_SWEEP,  # noqa: E402
                                                N_SWEEP, Thresholds,
                                                save_thresholds)
@@ -395,6 +424,8 @@ from repro_torch.serve.plan_cache import (PlanCache,  # noqa: E402
                                           bucket_for, packaged_plans,
                                           pad_to_bucket)
 from repro_torch.shapes import conv_out_hw, pool_out_hw  # noqa: E402
+from repro_torch.train.steps import (  # noqa: E402
+    make_decode_step as make_lm_decode_step)
 
 # NVIDIA H100 SXM data sheet (dense, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12          # CUDA cores, fp32
@@ -496,6 +527,21 @@ DTYPE_OFF_PATH = {"conv_nchw.i8bf16": (32, 256, 14, 256, 3, 1, 1, None,
 # plain version materializes [T, 256000] fp32 logits: 1 GB at T 1024)
 WHISPER_CLIPS = 8
 GEMMA_TOKENS = TRAIN_4K.seq_len // 4
+# the LM serving phase: (arch, periods kept or None for all, dtype or None
+# for the config's bf16), batch 4 of these prompt lengths, 16 new tokens
+LM_GEMMA_PERIODS = 2
+LM_SERVED = (("qwen2_7b", None, None),
+             ("gemma2_27b", LM_GEMMA_PERIODS, None),
+             ("whisper_base", None, None),
+             ("qwen2_7b", None, "float32"))
+LM_PROMPTS = (32, 48, 64, 96)
+LM_MAX_NEW = 16
+LM_MAX_LEN = 256
+LM_SEED = 0
+# (rtol, atol): the reference's decode-vs-forward tolerance
+# (tests/test_models.py:105-113); float32 scale-relative
+LM_DECODE_TOL = (0.05, 0.15)
+LM_F32_TOL = 1e-4
 
 KERNELS = {
     "conv_chwn": {"route": "cuda",
@@ -4420,6 +4466,227 @@ def lm_phase(dev):
     return counts, cases
 
 
+# -- the LM serving path (launch/serve.Server) -------------------------------
+
+def _lm_requests(vocab: int):
+    """``LM_PROMPTS`` seeded prompts in [0, vocab), ``LM_MAX_NEW`` tokens
+    each."""
+    rng = np.random.default_rng(LM_SEED)
+    prompts = [rng.integers(0, vocab, size=(n,), dtype=np.int32)
+               for n in LM_PROMPTS]
+    return [LMRequest(i, p, max_new=LM_MAX_NEW)
+            for i, p in enumerate(prompts)]
+
+
+def _lm_check_run(srv, reqs, out, logits) -> dict:
+    """The served tokens in [0, V) and ``max_new`` of them each; each step's
+    logits (prefill's, then every decode step's) against one teacher-forced
+    ``forward`` over the left-padded prompts and the generated tokens.
+    Returns the forward's logits at those positions and the deviation."""
+    cfg = srv.cfg
+    prompts = srv.pad(reqs)
+    B, S0 = prompts.shape
+    for r in reqs:
+        got = out[r.rid]
+        if len(got) != LM_MAX_NEW or not all(0 <= t < cfg.vocab_size
+                                             for t in got):
+            raise AssertionError(f"lm serve {cfg.name}: tokens {got}")
+    if len(logits) != LM_MAX_NEW + 1:
+        raise AssertionError(f"lm serve {cfg.name}: {len(logits)} steps")
+    toks = np.concatenate([prompts, np.array([out[r.rid] for r in reqs],
+                                             np.int32)], axis=1)
+    tok = torch.from_numpy(toks).to(srv.device)
+    pos = torch.arange(tok.shape[1], device=srv.device)[None].expand(B, -1)
+    h, _ = LMT.forward(srv.params, tok, pos, cfg, **srv.stubs(B))
+    first = srv.front + S0 - 1
+    want = LMT.logits_fwd(srv.params, h[:, first:first + LM_MAX_NEW + 1],
+                          cfg)
+    got = torch.stack(logits, dim=1)                 # [B, steps, V]
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"lm serve {cfg.name}: logits {got.shape} "
+                             f"against {want.shape}, or non-finite")
+    return {"want": want, "got": got, **_lm_dev(got, want, cfg.dtype)}
+
+
+def _lm_dev(got, want, dtype) -> dict:
+    """bf16: the largest |got - want| and its share of the decode tolerance
+    (atol + rtol |want|), which must not pass 1; float32: the largest error
+    scale-relative (``_scaled_err``), which must not pass ``LM_F32_TOL``."""
+    err = (got - want).abs()
+    if dtype == "float32":
+        rel = _scaled_err(got, want)
+        return {"max_abs_err": err.max().item(), "rel_err": rel,
+                "ok": rel <= LM_F32_TOL}
+    rtol, atol = LM_DECODE_TOL
+    share = (err / (atol + rtol * want.abs())).max().item()
+    return {"max_abs_err": err.max().item(), "tol_share": share,
+            "ok": share <= 1.0}
+
+
+def _lm_step_fns(srv, reqs, layout: str) -> dict:
+    """The server's own prefill of the batch and one decode step after it,
+    in ``layout``, as functions to time."""
+    prompts = srv.pad(reqs)
+
+    def prefill():
+        return srv.prefill(prompts, layout)
+
+    logits, cache, cross = prefill()
+    nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    pos = prompts.shape[1] + srv.front
+    return {("prefill_ms", layout): prefill,
+            ("decode_ms", layout): lambda: srv.decode(layout, cache, nxt, pos,
+                                                      cross)}
+
+
+def _lm_serve_one(arch: str, periods, dtype, card: str) -> dict:
+    """Serve ``_lm_requests`` through ``Server(reduced=False)`` on the card
+    in both KV layouts (bf16: with times, peak memory and host tokens/s;
+    float32: the pick's layout only), each run held against the
+    teacher-forced forward, and the two layouts' logits against each
+    other while their tokens agree."""
+    t0 = time.perf_counter()
+    srv = LMServer(arch, reduced=False, batch=len(LM_PROMPTS),
+                   max_len=LM_MAX_LEN, periods=periods, dtype=dtype,
+                   seed=LM_SEED)
+    if srv.device.type != "cuda":
+        raise AssertionError(f"lm serve {arch}: server on {srv.device}")
+    cfg = srv.cfg
+    init_s = time.perf_counter() - t0
+    gb = sum(t.numel() * t.element_size()
+             for _, t in leaves_with_path(srv.params)) / 1e9
+    B = len(LM_PROMPTS)
+    pick = select_kv_layout(B, cfg.num_kv_heads, srv.max_len, cfg.head_dim,
+                            dtype_bytes=torch_dtype(cfg.dtype).itemsize)
+    layouts = ("bksd", "sbkd") if cfg.dtype != "float32" else (pick,)
+    runs = {}
+    for layout in layouts:
+        reqs = _lm_requests(cfg.vocab_size)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        out = srv.run(reqs, keep_logits=True, kv_layout=layout)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t1
+        peak = torch.cuda.max_memory_allocated()
+        launched = {k: v for k, v in K.launch_counts().items() if v}
+        if launched:
+            raise AssertionError(f"lm serve {arch}: the path is plain "
+                                 f"torch, yet {launched} launched")
+        with torch.inference_mode():
+            run = _lm_check_run(srv, reqs, out, srv.logits)
+        n_tok = sum(len(v) for v in out.values())
+        run.update(tokens=out, host_s=host_s, tok_per_s=n_tok / host_s,
+                   peak_gb=peak / 1e9)
+        runs[layout] = run
+    # prefill and a decode step of each layout, timed in turns (b2b_ms:
+    # CUDA events, medians of 5 rounds)
+    with torch.inference_mode():
+        fns = {}
+        for layout in runs:
+            fns.update(_lm_step_fns(srv, _lm_requests(cfg.vocab_size),
+                                    layout))
+        for (what, layout), ms in b2b_ms(fns).items():
+            runs[layout][what] = ms
+        del fns
+    res = {"arch": arch, "layers": cfg.num_layers, "dtype": cfg.dtype,
+           "card": card, "params_gb": gb, "init_s": init_s, "pick": pick,
+           "vocab": cfg.vocab_size, "d_model": cfg.d_model}
+    if len(runs) == 2:
+        a, b = runs["bksd"], runs["sbkd"]
+        same = 0          # leading generated tokens both layouts agree on
+        while same < LM_MAX_NEW and all(
+                a["tokens"][i][:same + 1] == b["tokens"][i][:same + 1]
+                for i in range(B)):
+            same += 1
+        # step t's logits (0: prefill's) follow generated tokens 0 .. t - 1
+        cross = _lm_dev(a["got"][:, :same + 1], b["got"][:, :same + 1],
+                        cfg.dtype)
+        res.update(layouts_agree=cross, steps_compared=same + 1,
+                   faster=min(runs, key=lambda k: runs[k]["decode_ms"]))
+    for layout, run in runs.items():
+        del run["want"], run["got"]
+        res[layout] = run
+    bad = [k for k, r in runs.items() if not r["ok"]]
+    if bad or not res.get("layouts_agree", {"ok": True})["ok"]:
+        raise AssertionError(f"lm serve {arch} {cfg.dtype}: {res}")
+    del srv
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _lm_line(res: dict) -> str:
+    cut = (f"{res['layers']} layers" if res["arch"] != "gemma2_27b"
+           else f"{res['layers']} layers, cut to {LM_GEMMA_PERIODS} periods")
+    head = (f"lm serve {res['arch']} ({cut}, d_model {res['d_model']}, "
+            f"vocab {res['vocab']}, full width) {res['dtype']} "
+            f"[{res['card']}]: params {res['params_gb']:.3f} GB "
+            f"(init {res['init_s']:.1f}s); B={len(LM_PROMPTS)} prompts "
+            f"{'/'.join(map(str, LM_PROMPTS))} +{LM_MAX_NEW}; "
+            f"select_kv_layout picks {res['pick']}")
+    if "faster" in res:
+        head += f", faster by decode {res['faster']}"
+    parts = [head]
+    for layout in ("bksd", "sbkd"):
+        if layout not in res:
+            continue
+        r = res[layout]
+        times = (f"prefill {r['prefill_ms']:.3f} ms, decode "
+                 f"{r['decode_ms']:.3f} ms a step ({len(LM_PROMPTS)} "
+                 f"tokens), ")
+        if "rel_err" in r:
+            dev = (f"vs forward {r['rel_err']:.3g} scale-relative (gate "
+                   f"{LM_F32_TOL:g})")
+        else:
+            dev = (f"vs forward max |err| {r['max_abs_err']:.4g}, "
+                   f"{r['tol_share']:.3f} of atol {LM_DECODE_TOL[1]} + rtol "
+                   f"{LM_DECODE_TOL[0]} |want|")
+        parts.append(f"  {layout}: {times}Server.run {r['tok_per_s']:.1f} "
+                     f"tok/s (host clock, {r['host_s']:.3f}s), peak "
+                     f"{r['peak_gb']:.2f} GB; {dev}")
+    if "layouts_agree" in res:
+        c = res["layouts_agree"]
+        parts.append(f"  bksd vs sbkd over {res['steps_compared']} steps "
+                     f"whose tokens agree: max |err| {c['max_abs_err']:.4g}, "
+                     f"{c['tol_share']:.3f} of the tolerance")
+    return "\n".join(parts)
+
+
+def lm_serve_phase(card: str) -> list:
+    """The LM serving path, ``launch/serve.Server(reduced=False)`` on the
+    card at full width: qwen2-7b whole, gemma2-27b cut to
+    ``LM_GEMMA_PERIODS`` periods, whisper-base whole (``LM_SERVED``), in
+    bf16, then qwen2-7b whole in float32 (the bf16 model freed first).
+    Each serves ``_lm_requests`` (4 seeded prompts of ``LM_PROMPTS``
+    tokens, ``LM_MAX_NEW`` new tokens each) in both KV layouts; every
+    step's logits are held against one teacher-forced forward (bf16: the
+    reference's decode tolerance ``LM_DECODE_TOL``; float32:
+    ``LM_F32_TOL`` scale-relative) and the two layouts against each
+    other.  The path is plain torch (the reference's is plain jnp): no
+    kernel of the port may launch in it.  TF32 is off, and so are bf16
+    reduced-precision reductions, within this phase only: cuBLAS may add
+    a bf16 product's split-K partials in bf16, where the reference adds
+    in float32; the earlier phases' library times keep torch's default."""
+    mm = torch.backends.cuda.matmul
+    saved = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    try:
+        print(f"lm serve: allow_tf32={mm.allow_tf32}, "
+              f"allow_bf16_reduced_precision_reduction="
+              f"{mm.allow_bf16_reduced_precision_reduction} [{card}]",
+              flush=True)
+        done = []
+        for arch, periods, dtype in LM_SERVED:
+            res = _lm_serve_one(arch, periods, dtype, card)
+            print(_lm_line(res), flush=True)
+            done.append(res)
+        return done
+    finally:
+        mm.allow_bf16_reduced_precision_reduction = saved
+
+
 def tensor_core_line(label: str, rows, peak: str = "fp32",
                      design: str = "3xtf32") -> str:
     """One tensor-core kernel (K1, K5b, K6, K10, K12) summed over the main
@@ -4631,6 +4898,9 @@ def main() -> int:
     t0 = time.perf_counter()
     runner = runner_phase(dev)
     print(f"runner phase: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    lm_served = lm_serve_phase(card)
+    print(f"lm serve phase: {time.perf_counter() - t0:.1f}s", flush=True)
     line = kernels_line(cases, launches)
     if args.json:
         out = Path(args.json)
@@ -4652,6 +4922,7 @@ def main() -> int:
                                    "serving": serving,
                                    "resilience": resilience,
                                    "runner": runner,
+                                   "lm_serve": lm_served,
                                    "k3a_bf16_fp32_shapes": k3a_fp32_shapes,
                                    "k3b_bf16_fp32_shapes": k3b_fp32_shapes,
                                    "pool_host_us": pool_host,

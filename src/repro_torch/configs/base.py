@@ -5,10 +5,12 @@ architecture and input-shape descriptors.
 field, and keep the same class names: ``serve.plan_cache.network_id``
 hashes ``repr(cfg.layers)``, so a plan file written by either package
 resolves in the other only while the two reprs agree letter for letter.
-``ModelConfig`` and ``ShapeConfig`` are copies of the reference's too (its
-``repr`` agrees letter for letter, a test holds it), without
-``param_count``/``active_param_count``: those walk the LM modules' abstract
-parameter tree, which the port does not have yet.
+``ModelConfig``, ``ShapeConfig`` and ``ParallelConfig`` are copies of the
+reference's too (each ``repr`` agrees letter for letter, a test holds it).
+``param_count``/``active_param_count`` count the port's own parameter tree
+(``models.registry``, built on the meta device); an architecture whose
+blocks are not ported yet raises there.  ``TrainConfig`` waits for the
+LM training slice.
 """
 from __future__ import annotations
 
@@ -119,6 +121,15 @@ class ModelConfig:
     def mamba_d_inner(self) -> int:
         return self.mamba_expand * self.d_model
 
+    def param_count(self) -> int:
+        """Analytical parameter count (embedding + blocks + head)."""
+        from repro_torch.models import registry as _r  # lazy, avoids cycle
+        return _r.param_count(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models import registry as _r
+        return _r.param_count(self, active_only=True)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -153,6 +164,31 @@ def shapes_for(cfg: ModelConfig) -> Tuple[ShapeConfig, ...]:
     if cfg.sub_quadratic:
         out.append(LONG_500K)
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Mesh / parallelism
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ParallelConfig:
+    """How a model is laid out on the mesh.  On one card only
+    ``window_kv_cache`` changes what runs (the step factories read it);
+    the server takes its KV layout from ``Server(kv_layout=)``.  The other
+    fields are kept so that the two packages' reprs agree."""
+
+    fsdp: bool = True               # shard params/opt over the data axis
+    fsdp_pod: bool = False          # additionally shard over the pod axis
+    seq_shard_saved: bool = True    # SP: shard saved residuals over model axis
+    remat: str = "block"            # none | block | full
+    remat_policy: str = "none"      # none | save_moe (keep MoE outs in bwd)
+    microbatches: int = 1           # gradient accumulation steps
+    accum_dtype: str = "float32"    # grad-accum dtype (bf16 for >=300B cfgs)
+    window_kv_cache: bool = False   # local-attn layers cache only the window
+    pipeline_stages: int = 1        # >1: GPipe over the pod axis
+    grad_compression: str = "none"  # none | bf16 | int8
+    scan_layers: bool = True
+    # Decode cache layout: auto = let the layout selector pick.
+    kv_cache_layout: str = "auto"   # auto | bksd | sbkd
 
 
 # ---------------------------------------------------------------------------

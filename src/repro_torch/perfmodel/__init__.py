@@ -9,7 +9,8 @@ roofline seconds per (fused op, layout, dtype).
                        H100's, ``reference_hardware()`` the reference's
                        TPU v5e model, ``hardware_id()`` names the silicon;
   * ``traffic``     -- the analytic byte/seconds models (conv chains,
-                       stacks, backward, cast edges);
+                       stacks, backward, cast edges) and the LM's KV-cache
+                       layout pick (``select_kv_layout``);
   * ``calibration`` -- the paper's (Ct, Nt) thresholds, the Fig. 4 sweep
                        (over the model, or timing K1/K2 on the card),
                        threshold rows versioned by hardware id, and the
@@ -24,7 +25,7 @@ from repro_torch.perfmodel.traffic import (  # noqa: F401
     cast_cost, chain_bytes, chain_fits, conv_backward_bytes,
     conv_backward_cost, conv_cost, conv_flops, dgrad_bytes, dilated_hw,
     fused_chain_cost, fusion_saved_bytes, select_conv_layout_cost,
-    stack_blocking, stack_bytes, stack_fused_cost, stack_nt,
+    select_kv_layout, stack_blocking, stack_bytes, stack_fused_cost, stack_nt,
     stack_vmem_bytes, tile_utilization, train_chain_bytes, wgrad_bytes)
 from repro_torch.perfmodel.calibration import (  # noqa: F401
     DEFAULT_HARDWARE, CalibrationPoint, CrossValidation, Thresholds,

@@ -541,3 +541,48 @@ def conv_backward_cost(l: ConvLayer, layout: str,
                                     pool=pool, fused=fused,
                                     residual=residual)
     return ConvCost(layout, 2 * fwd.compute_s, mem_bytes / hw.mem_bw)
+
+
+# ---------------------------------------------------------------------------
+# LM-side layout scoring (the KV cache) — the paper's principle carried to
+# the LM architectures
+# ---------------------------------------------------------------------------
+
+def select_kv_layout(batch: int, kv_heads: int, seq: int, head_dim: int,
+                     steps_per_read: float = 1.0,
+                     dtype_bytes: int = 2,
+                     hw: Optional[Hardware] = None) -> str:
+    """Choose the decode KV-cache layout (the reference's DESIGN.md §4.1b).
+
+    ``bksd`` reads contiguously but each decode step UPDATES a size-1 slice
+    of the S dim (the second-minor dim) -> update writes pad to a full
+    (second-minor x minor granule) tile per (b,k):
+    waste = B*K*(granule-1)*head_dim.  ``sbkd`` updates one full row
+    [1,B,K,Dh] but attention reads stride across S-major tiles; read cost
+    is identical at the memory level (the whole cache is streamed) as long
+    as B*K*Dh fills tiles.  Prefer ``sbkd`` when the padded-update waste
+    exceeds the read-side tile waste.
+
+    The reference's arithmetic, with its TPU constants taken from ``hw``:
+    the sublane count is ``hw.second_minor_granule``, the 128 lanes
+    ``hw.minor_granule``.  Under ``reference_hardware()`` it picks what
+    the reference picks; under the H100 profile (the default) the card's
+    pick, with the granules of the port's kernels (their cost terms are
+    not yet refit for the card).
+    """
+    hw = _hw(hw)
+    sl = hw.second_minor_granule(dtype_bytes)
+    lanes = hw.minor_granule(dtype_bytes)
+    # bksd: update touches B*K tiles of (sl x lanes) to write 1 x Dh each
+    upd_bksd = batch * kv_heads * sl * max(head_dim, lanes) * dtype_bytes
+    # sbkd: update writes ceil(B*K*Dh / lanes) contiguous tiles exactly once
+    row = batch * kv_heads * head_dim
+    upd_sbkd = _round_up(row, sl * lanes) * dtype_bytes
+    # read: both stream B*K*S*Dh; sbkd wastes if row < tile
+    read_eff_sbkd = row / _round_up(row, sl * lanes)
+    read_eff_bksd = min(1.0, (seq * head_dim) /
+                        (_round_up(seq, sl) * _round_up(head_dim, lanes)))
+    read_bytes = batch * kv_heads * seq * head_dim * dtype_bytes
+    cost_bksd = upd_bksd + steps_per_read * read_bytes / max(read_eff_bksd, 1e-3)
+    cost_sbkd = upd_sbkd + steps_per_read * read_bytes / max(read_eff_sbkd, 1e-3)
+    return "bksd" if cost_bksd <= cost_sbkd else "sbkd"

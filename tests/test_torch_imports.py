@@ -40,7 +40,7 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "import pkgutil, sys, repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):"
         "\n    __import__(m.name)\n"
-        "import repro_torch.launch.cnn_serve\n"
+        "import repro_torch.launch.cnn_serve, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "for m in ('perfmodel.calibration', 'kernels.pool.ops', "
@@ -51,7 +51,9 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
         "'configs.registry', 'configs.qwen2_7b', 'configs.gemma2_27b', "
         "'configs.whisper_base', 'runtime.resilience', "
         "'runtime.fault_tolerance', 'checkpoint.checkpointer', "
-        "'distributed.cnn_mesh'):\n"
+        "'distributed.cnn_mesh', 'models.layers', 'models.transformer', "
+        "'models.registry', 'models.convert', 'train.steps', "
+        "'launch.serve'):\n"
         "    assert 'repro_torch.' + m in sys.modules, m\n"
         "print(len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
         "assert not bad, bad\n")
