@@ -284,7 +284,7 @@
    ``F.cross_entropy``; a line gives K11's largest bf16 error and every
    case's TFLOP/s.
 9b. LM serve phase (``lm_serve_phase``, last, outside the kernels line):
-   the LM serving path ``launch/serve.Server(reduced=False)`` on the card
+   the LM serving path ``launch/serve.Server`` on the card
    at full width, seed-0 weights: qwen2-7b whole (28 layers, 7.6 B
    parameters), gemma2-27b cut to 2 periods (4 layers; local window,
    softcaps, post-norms, tied embeddings) and whisper-base whole (its
@@ -304,7 +304,23 @@
    ``Server.run``'s tokens/s on the host clock and its peak device
    memory in each layout, ``select_kv_layout``'s pick beside the layout
    whose decode step ran faster, and the largest deviation beside its
-   tolerance.
+   tolerance.  Then the four recurrent and MoE architectures, each
+   model freed before the next: rwkv6-7b whole (32 layers, 7.58 B
+   parameters; no KV cache, so one layout), dbrx-132b cut to 2 periods
+   (16 experts top-4) in bf16 and float32, llama4-maverick cut to 1
+   period (128 experts top-1 and a shared expert) and jamba-1.5-large at
+   ``reduced_config``'s widths (its hybrid cache list of Mamba states
+   and KV caches; no full-width period fits).  An MoE model's capacity
+   follows its token count, so at its published capacity factor only
+   prefill is held against a forward (over the prompts alone: the same
+   tokens, capacity and drops), beside the tokens' range and the two
+   layouts' agreement; then at the drop-free factor E/k every step is
+   held against the forward, where a bf16 step out of tolerance passes
+   only at or past a token whose routing left the forward's at a router
+   margin under 1e-2 (counted and printed; float32 allows none).  Last
+   the full-width mixers alone in bf16: jamba's Mamba mixer (d_inner
+   16384), prefill then 16 decode steps against one ``mamba_fwd``, and
+   rwkv6's WKV scan against its chunk-parallel form (5e-3).
 10. Prints "K1 over the main path", "K2 ...", "K5b ...", "K10 ...",
    "K12 ..." and "K5b bf16 ..." lines in the form of K6's (launches, ms,
    TFLOP/s, K2's and K5b's executed TFLOP/s and executed/direct, both
@@ -324,6 +340,7 @@ register/spill report, to OUT.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import io
 import json
@@ -354,7 +371,7 @@ from repro_torch.cnn.network import (batch_output_ok,  # noqa: E402
                                      make_train_step_fused,
                                      plan_network, plan_network_fused,
                                      value_and_grad)
-from repro_torch.configs import TRAIN_4K, get_config  # noqa: E402
+from repro_torch.configs import TRAIN_4K, ShapeConfig, get_config  # noqa: E402
 from repro_torch.configs.cnn_networks import CNN_CONFIGS  # noqa: E402
 from repro_torch.distributed.cnn_mesh import (  # noqa: E402
     forward_fused_sharded, replicate_params, verify_shard_plan)
@@ -403,6 +420,9 @@ from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.launch.cnn_serve import CNNServer, ImageRequest  # noqa: E402
 from repro_torch.launch.serve import Request as LMRequest  # noqa: E402
 from repro_torch.launch.serve import Server as LMServer  # noqa: E402
+from repro_torch.models import layers as LML  # noqa: E402
+from repro_torch.models import mamba as LMM  # noqa: E402
+from repro_torch.models import rwkv as LMR  # noqa: E402
 from repro_torch.models import transformer as LMT  # noqa: E402
 from repro_torch.models.registry import leaves_with_path  # noqa: E402
 from repro_torch.perfmodel import (AnalyticCostModel,  # noqa: E402
@@ -425,7 +445,8 @@ from repro_torch.serve.plan_cache import (PlanCache,  # noqa: E402
                                           pad_to_bucket)
 from repro_torch.shapes import conv_out_hw, pool_out_hw  # noqa: E402
 from repro_torch.train.steps import (  # noqa: E402
-    make_decode_step as make_lm_decode_step)
+    make_decode_step as make_lm_decode_step,
+    make_prefill_step as make_lm_prefill_step)
 
 # NVIDIA H100 SXM data sheet (dense, at the full 700 W power limit)
 PEAK_FP32_FLOPS = 67e12          # CUDA cores, fp32
@@ -527,13 +548,44 @@ DTYPE_OFF_PATH = {"conv_nchw.i8bf16": (32, 256, 14, 256, 3, 1, 1, None,
 # plain version materializes [T, 256000] fp32 logits: 1 GB at T 1024)
 WHISPER_CLIPS = 8
 GEMMA_TOKENS = TRAIN_4K.seq_len // 4
-# the LM serving phase: (arch, periods kept or None for all, dtype or None
-# for the config's bf16), batch 4 of these prompt lengths, 16 new tokens
+# the LM serving phase: (arch, periods kept, None for all or LM_REDUCED for
+# reduced_config's widths, dtype or None for the config's bf16, how the
+# served steps are held against the teacher-forced forward: LM_WHOLE, the
+# whole model's logits, or LM_BLOCKS, each block alone, fed the forward's
+# input to it, then the head), batch 4 of these prompt lengths, 16 new
+# tokens.  What one 80 GB card holds at full width: gemma2 and dbrx 2
+# periods, llama4 one (128 experts); no full-width period of jamba fits
+# (45.2 B parameters a period).  rwkv6-7b whole is held block by block: at
+# random init its 32 layers amplify a rounding ~2x a layer, so far that
+# its forward of one row alone lies 16.4 times the bf16 decode tolerance
+# from the batch's; at LM_RWKV_CUT periods its whole model is held
 LM_GEMMA_PERIODS = 2
-LM_SERVED = (("qwen2_7b", None, None),
-             ("gemma2_27b", LM_GEMMA_PERIODS, None),
-             ("whisper_base", None, None),
-             ("qwen2_7b", None, "float32"))
+LM_DBRX_PERIODS = 2
+LM_RWKV_CUT = 2
+LM_LLAMA4_PERIODS = 1
+LM_REDUCED = "reduced"
+LM_WHOLE, LM_BLOCKS = "whole model", "block by block"
+LM_SERVED = (("qwen2_7b", None, None, LM_WHOLE),
+             ("gemma2_27b", LM_GEMMA_PERIODS, None, LM_WHOLE),
+             ("whisper_base", None, None, LM_WHOLE),
+             ("qwen2_7b", None, "float32", LM_WHOLE),
+             ("rwkv6_7b", None, None, LM_BLOCKS),
+             ("rwkv6_7b", None, "float32", LM_BLOCKS),
+             ("rwkv6_7b", LM_RWKV_CUT, None, LM_WHOLE),
+             ("rwkv6_7b", LM_RWKV_CUT, "float32", LM_WHOLE),
+             ("dbrx_132b", LM_DBRX_PERIODS, None, LM_WHOLE),
+             ("dbrx_132b", LM_DBRX_PERIODS, "float32", LM_WHOLE),
+             ("llama4_maverick_400b", LM_LLAMA4_PERIODS, None, LM_WHOLE),
+             ("jamba_1p5_large_398b", LM_REDUCED, None, LM_WHOLE))
+# a bf16 step's MoE layer, dispatching as the forward did, would have
+# chosen other experts only where the forward's k-th and (k+1)-th router
+# probabilities lie within this (decode and forward round bf16 hidden
+# states differently)
+LM_ROUTE_MARGIN = 1e-2
+# the full-width mixers alone: the WKV scan against its chunk-parallel
+# form within the reference's own tolerance (tests/test_perf_features.py)
+LM_WKV_TOL = 5e-3
+LM_WKV_CHUNK = 16
 LM_PROMPTS = (32, 48, 64, 96)
 LM_MAX_NEW = 16
 LM_MAX_LEN = 256
@@ -4478,14 +4530,18 @@ def _lm_requests(vocab: int):
             for i, p in enumerate(prompts)]
 
 
-def _lm_check_run(srv, reqs, out, logits) -> dict:
+def _lm_check_run(srv, reqs, out, logits, held: str = LM_WHOLE,
+                  prompt_only: bool = False) -> dict:
     """The served tokens in [0, V) and ``max_new`` of them each; each step's
     logits (prefill's, then every decode step's) against one teacher-forced
-    ``forward`` over the left-padded prompts and the generated tokens.
-    Returns the forward's logits at those positions and the deviation."""
+    ``forward`` over the left-padded prompts and the generated tokens, or,
+    with ``prompt_only`` (an MoE model at its published capacity: the
+    capacity follows the token count), prefill's against a forward over
+    the prompts alone.  ``held`` ``LM_BLOCKS``: the gate is
+    ``_lm_blockwise`` over the same tokens, and the whole model's
+    deviation is kept as ``whole`` beside it.  Returns the served logits,
+    the forward's at those positions and the deviation."""
     cfg = srv.cfg
-    prompts = srv.pad(reqs)
-    B, S0 = prompts.shape
     for r in reqs:
         got = out[r.rid]
         if len(got) != LM_MAX_NEW or not all(0 <= t < cfg.vocab_size
@@ -4493,25 +4549,50 @@ def _lm_check_run(srv, reqs, out, logits) -> dict:
             raise AssertionError(f"lm serve {cfg.name}: tokens {got}")
     if len(logits) != LM_MAX_NEW + 1:
         raise AssertionError(f"lm serve {cfg.name}: {len(logits)} steps")
-    toks = np.concatenate([prompts, np.array([out[r.rid] for r in reqs],
-                                             np.int32)], axis=1)
-    tok = torch.from_numpy(toks).to(srv.device)
+    toks, S0 = _lm_tokens(srv, reqs, out)
+    steps = 1 if prompt_only else LM_MAX_NEW + 1
+    want = _lm_forward_logits(srv, toks, S0, steps)
+    got = torch.stack(logits, dim=1)                 # [B, steps, V]
+    if got.shape[:2] != (len(reqs), LM_MAX_NEW + 1) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"lm serve {cfg.name}: logits {got.shape}, "
+                             f"or non-finite")
+    dev = _lm_dev(got[:, :steps], want, cfg.dtype)
+    if held == LM_BLOCKS:
+        dev = {**_lm_blockwise(srv, toks, S0, steps),
+               "whole": dev["rel_err" if cfg.dtype == "float32"
+                            else "tol_share"]}
+    return {"want": want, "got": got, **dev}
+
+
+def _lm_tokens(srv, reqs, out):
+    """[B, S0 + max_new] int32: the left-padded prompts, then the
+    generated tokens; and S0."""
+    prompts = srv.pad(reqs)
+    gen = np.array([out[r.rid] for r in reqs], np.int32)
+    return np.concatenate([prompts, gen], axis=1), prompts.shape[1]
+
+
+def _lm_forward_logits(srv, toks, S0: int, steps: int, cfg=None):
+    """The teacher-forced forward of ``cfg`` (the server's by default) on
+    the server's weights over ``toks`` (``_lm_tokens``), cut to what the
+    first ``steps`` served steps read; its logits at their positions."""
+    cfg = cfg or srv.cfg
+    B = toks.shape[0]
+    tok = torch.from_numpy(np.ascontiguousarray(
+        toks[:, :S0 + steps - 1])).to(srv.device)
     pos = torch.arange(tok.shape[1], device=srv.device)[None].expand(B, -1)
     h, _ = LMT.forward(srv.params, tok, pos, cfg, **srv.stubs(B))
     first = srv.front + S0 - 1
-    want = LMT.logits_fwd(srv.params, h[:, first:first + LM_MAX_NEW + 1],
-                          cfg)
-    got = torch.stack(logits, dim=1)                 # [B, steps, V]
-    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"lm serve {cfg.name}: logits {got.shape} "
-                             f"against {want.shape}, or non-finite")
-    return {"want": want, "got": got, **_lm_dev(got, want, cfg.dtype)}
+    return LMT.logits_fwd(srv.params, h[:, first:first + steps], cfg)
 
 
 def _lm_dev(got, want, dtype) -> dict:
     """bf16: the largest |got - want| and its share of the decode tolerance
-    (atol + rtol |want|), which must not pass 1; float32: the largest error
-    scale-relative (``_scaled_err``), which must not pass ``LM_F32_TOL``."""
+    (atol + rtol |want|), which must not pass 1; float32: the largest
+    error scale-relative (``_scaled_err``), which must not pass
+    ``LM_F32_TOL``."""
+    got, want = got.float(), want.float()
     err = (got - want).abs()
     if dtype == "float32":
         rel = _scaled_err(got, want)
@@ -4521,6 +4602,52 @@ def _lm_dev(got, want, dtype) -> dict:
     share = (err / (atol + rtol * want.abs())).max().item()
     return {"max_abs_err": err.max().item(), "tol_share": share,
             "ok": share <= 1.0}
+
+
+def _lm_blockwise(srv, toks, S0: int, steps: int) -> dict:
+    """Each block held alone against the teacher-forced forward, so that no
+    rounding compounds through depth: fed the forward's input to it over
+    ``toks`` (``_lm_tokens``), the block's prefill over the first ``S0``
+    positions, then ``steps - 1`` decode steps of one position each, every
+    output against the block's forward output there (``_lm_dev``); the
+    last block's outputs then through the final norm and the head, those
+    logits against the forward's.  Returns the worst block's deviation
+    (``block_*``: which block, its measure) and the head's (``_lm_dev``'s
+    keys, ``ok`` for both)."""
+    cfg, params = srv.cfg, srv.params
+    if srv.front or cfg.family == "encdec":
+        raise ValueError(f"{cfg.name}: the blockwise check takes a plain "
+                         f"decoder")
+    B, n = toks.shape[0], S0 + steps - 1
+    tok = torch.from_numpy(np.ascontiguousarray(toks[:, :n])).to(srv.device)
+    pos = torch.arange(n, device=srv.device)[None].expand(B, -1)
+    layout = srv.kv_layout or "bksd"
+    x = LMT.embed_tokens(params, tok, cfg)
+    worst, key = None, "rel_err" if cfg.dtype == "float32" else "tol_share"
+    for p_i, period in enumerate(params["blocks"]):
+        for i, kind in enumerate(cfg.block_pattern):
+            bp = period[f"b{i}"]
+            want, _, _ = LMT._block_fwd(bp, kind, x, pos, cfg, "train")
+            y, cache, _ = LMT._block_fwd(
+                bp, kind, x[:, :S0], pos[:, :S0], cfg, "prefill",
+                kv_layout=layout, max_len=srv.max_len)
+            ys = [y]
+            for t in range(S0, n):
+                y, cache, _ = LMT._block_fwd(
+                    bp, kind, x[:, t:t + 1], None, cfg, "decode",
+                    cache=cache, cache_len=t, kv_layout=layout)
+                ys.append(y)
+            got = torch.cat(ys, dim=1)
+            d = _lm_dev(got, want, cfg.dtype)
+            if worst is None or d[key] > worst[key]:
+                worst = {**d, "block": p_i * len(cfg.block_pattern) + i}
+            x = want
+    head = _lm_dev(LMT.logits_fwd(params, LML.norm_fwd(
+        params["final_norm"], got[:, S0 - 1:], cfg), cfg),
+        LMT.logits_fwd(params, LML.norm_fwd(
+            params["final_norm"], want[:, S0 - 1:], cfg), cfg), cfg.dtype)
+    return {**head, "ok": head["ok"] and worst["ok"],
+            "block": worst["block"], f"block_{key}": worst[key]}
 
 
 def _lm_step_fns(srv, reqs, layout: str) -> dict:
@@ -4539,16 +4666,119 @@ def _lm_step_fns(srv, reqs, layout: str) -> dict:
                                                       cross)}
 
 
-def _lm_serve_one(arch: str, periods, dtype, card: str) -> dict:
-    """Serve ``_lm_requests`` through ``Server(reduced=False)`` on the card
-    in both KV layouts (bf16: with times, peak memory and host tokens/s;
-    float32: the pick's layout only), each run held against the
-    teacher-forced forward, and the two layouts' logits against each
-    other while their tokens agree."""
+def lm_generate(srv, cfg, prompts, max_new: int, layout: str, feed=None):
+    """Generation through the port's own prefill and decode steps
+    (``train/steps``) built for ``cfg`` on the server's weights (an MoE
+    model at another capacity factor than the server's): greedy, or fed
+    ``feed`` [B, max_new] (teacher forcing).  Returns the tokens
+    [B, max_new] int32 (numpy) and each step's logits [B, max_new + 1, V]
+    (prefill's first)."""
+    B, S0 = prompts.shape
+    prefill = make_lm_prefill_step(
+        cfg, srv.parallel, ShapeConfig("serve", "prefill", srv.max_len, B),
+        layout)
+    decode = make_lm_decode_step(cfg, srv.parallel, layout)
+    logits, cache = prefill(srv.params, {
+        "tokens": torch.from_numpy(prompts).to(srv.device)})
+    out, toks = [logits], []
+    for t in range(max_new):
+        tok = (torch.argmax(logits, dim=-1).to(torch.int32) if feed is None
+               else torch.from_numpy(feed[:, t]).to(srv.device))
+        toks.append(tok)
+        logits, cache = decode(srv.params, cache, tok[:, None],
+                               S0 + srv.front + t)
+        out.append(logits)
+    return torch.stack(toks, dim=1).cpu().numpy(), torch.stack(out, dim=1)
+
+
+def lm_nodrop_run(srv, reqs, layout: str) -> dict:
+    """An MoE model at the capacity factor E/k (cap = T: no token drops, so
+    a forward over B x S tokens routes as prefill and decode do), on the
+    server's weights through its own prefill and decode steps
+    (``lm_generate``): greedy generation of ``reqs``, the teacher-forced
+    forward over the prompts and those tokens, then the same tokens fed
+    through prefill and decode again, each MoE layer dispatching to the
+    experts the forward chose there (``layers.record_routes``).  Returns
+    that run's logits (``got``) and the forward's (``want``), every step,
+    and where a layer's own choice left the forward's: the (layer, token)
+    pairs (``flips`` of ``pairs``) and the largest of the forward's router
+    margins (k-th minus (k+1)-th probability) among them."""
+    cfg = srv.cfg.replace(capacity_factor=srv.cfg.num_experts
+                          / srv.cfg.experts_per_token)
+    k = cfg.experts_per_token
+    prompts = srv.pad(reqs)
+    B, S0 = prompts.shape
+    n = max(r.max_new for r in reqs)
+    gen, _ = lm_generate(srv, cfg, prompts, n, layout)
+    with LML.record_routes() as fwd:
+        want = _lm_forward_logits(srv, np.concatenate([prompts, gen], 1),
+                                  S0, n + 1, cfg)
+    # the forward's choices and margins [B, S0 + n, ...] a layer, cut as
+    # the served calls take them: prefill's a layer, then a step's a layer
+    sel = [s.reshape(B, -1, k) for s, _ in fwd]
+    top = [torch.topk(p, k + 1, dim=-1).values for _, p in fwd]
+    gap = [(v[:, k - 1] - v[:, k]).reshape(B, -1) for v in top]
+
+    def cut(per_layer):
+        return ([a[:, :S0].reshape(B * S0, *a.shape[2:]) for a in per_layer]
+                + [a[:, S0 + t] for t in range(n) for a in per_layer])
+
+    lead, margins = cut(sel), cut(gap)
+    with LML.record_routes(follow=list(lead)) as own:
+        _, got = lm_generate(srv, cfg, prompts, n, layout, feed=gen)
+    flips, margin = 0, 0.0
+    for (mine, _), theirs, m in zip(own, lead, margins):
+        d = (mine.sort(-1).values != theirs.sort(-1).values).any(-1)
+        if bool(d.any()):
+            flips += int(d.sum())
+            margin = max(margin, m[d].max().item())
+    return {"capacity_factor": cfg.capacity_factor, "tokens": B * (S0 + n),
+            "cap": LML.moe_capacity(cfg, B * (S0 + n)), "got": got,
+            "want": want, "flips": flips,
+            "pairs": sum(mine.shape[0] for mine, _ in own),
+            "flip_margin": margin}
+
+
+def _lm_nodrop_gate(srv, layout: str) -> dict:
+    """``lm_nodrop_run`` of ``_lm_requests``, every step held against the
+    forward (``_lm_dev``); a layer's own choice may leave the forward's
+    only in bf16, and there only at a router margin under
+    ``LM_ROUTE_MARGIN``."""
+    res = lm_nodrop_run(srv, _lm_requests(srv.cfg.vocab_size), layout)
+    got, want = res.pop("got"), res.pop("want")
+    res.update(_lm_dev(got, want, srv.cfg.dtype))
+    res["ok"] &= (res["flips"] == 0 if srv.cfg.dtype == "float32"
+                  else res["flip_margin"] < LM_ROUTE_MARGIN)
+    if not res["ok"]:
+        raise AssertionError(f"lm serve {srv.cfg.name} no-drop {layout}: "
+                             f"{res}")
+    return res
+
+
+def _lm_cut(arch: str, periods) -> str:
+    if periods == LM_REDUCED:
+        return "reduced_config widths"
+    if periods is None:
+        return "whole, full width"
+    return (f"cut to {periods} period{'s' if periods > 1 else ''}, full "
+            f"width")
+
+
+def _lm_serve_one(arch: str, periods, dtype, held: str, card: str) -> dict:
+    """Serve ``_lm_requests`` through ``Server`` on the card (full width
+    unless ``periods`` is ``LM_REDUCED``) in both KV layouts (bf16 with a
+    KV cache: with times, peak memory and host tokens/s; float32, or no
+    KV cache: the pick's layout only), each run held against the
+    teacher-forced forward (``held``: ``_lm_check_run``), and the two
+    layouts' logits against each other while their tokens agree.  An MoE
+    model is served at its published capacity factor, where prefill is
+    held against a forward over the prompts alone, then at the drop-free
+    factor E/k (``_lm_nodrop_gate``)."""
     t0 = time.perf_counter()
-    srv = LMServer(arch, reduced=False, batch=len(LM_PROMPTS),
-                   max_len=LM_MAX_LEN, periods=periods, dtype=dtype,
-                   seed=LM_SEED)
+    reduced = periods == LM_REDUCED
+    srv = LMServer(arch, reduced=reduced, batch=len(LM_PROMPTS),
+                   max_len=LM_MAX_LEN, periods=None if reduced else periods,
+                   dtype=dtype, seed=LM_SEED)
     if srv.device.type != "cuda":
         raise AssertionError(f"lm serve {arch}: server on {srv.device}")
     cfg = srv.cfg
@@ -4556,9 +4786,12 @@ def _lm_serve_one(arch: str, periods, dtype, card: str) -> dict:
     gb = sum(t.numel() * t.element_size()
              for _, t in leaves_with_path(srv.params)) / 1e9
     B = len(LM_PROMPTS)
+    moe = cfg.num_experts > 0
+    has_kv = any(kind.startswith("attn") for kind in cfg.block_pattern)
     pick = select_kv_layout(B, cfg.num_kv_heads, srv.max_len, cfg.head_dim,
                             dtype_bytes=torch_dtype(cfg.dtype).itemsize)
-    layouts = ("bksd", "sbkd") if cfg.dtype != "float32" else (pick,)
+    layouts = (("bksd", "sbkd") if cfg.dtype != "float32" and has_kv
+               else (pick,))
     runs = {}
     for layout in layouts:
         reqs = _lm_requests(cfg.vocab_size)
@@ -4575,7 +4808,8 @@ def _lm_serve_one(arch: str, periods, dtype, card: str) -> dict:
             raise AssertionError(f"lm serve {arch}: the path is plain "
                                  f"torch, yet {launched} launched")
         with torch.inference_mode():
-            run = _lm_check_run(srv, reqs, out, srv.logits)
+            run = _lm_check_run(srv, reqs, out, srv.logits, held,
+                                prompt_only=moe)
         n_tok = sum(len(v) for v in out.values())
         run.update(tokens=out, host_s=host_s, tok_per_s=n_tok / host_s,
                    peak_gb=peak / 1e9)
@@ -4592,7 +4826,8 @@ def _lm_serve_one(arch: str, periods, dtype, card: str) -> dict:
         del fns
     res = {"arch": arch, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "card": card, "params_gb": gb, "init_s": init_s, "pick": pick,
-           "vocab": cfg.vocab_size, "d_model": cfg.d_model}
+           "vocab": cfg.vocab_size, "d_model": cfg.d_model,
+           "cut": _lm_cut(arch, periods), "moe": moe, "held": held}
     if len(runs) == 2:
         a, b = runs["bksd"], runs["sbkd"]
         same = 0          # leading generated tokens both layouts agree on
@@ -4611,6 +4846,13 @@ def _lm_serve_one(arch: str, periods, dtype, card: str) -> dict:
     bad = [k for k, r in runs.items() if not r["ok"]]
     if bad or not res.get("layouts_agree", {"ok": True})["ok"]:
         raise AssertionError(f"lm serve {arch} {cfg.dtype}: {res}")
+    if moe:
+        with torch.inference_mode():
+            res["nodrop"] = {layout: _lm_nodrop_gate(srv, layout)
+                             for layout in layouts}
+        launched = {k: v for k, v in K.launch_counts().items() if v}
+        if launched:
+            raise AssertionError(f"lm serve {arch}: {launched} launched")
     del srv
     gc.collect()
     torch.cuda.empty_cache()
@@ -4618,17 +4860,19 @@ def _lm_serve_one(arch: str, periods, dtype, card: str) -> dict:
 
 
 def _lm_line(res: dict) -> str:
-    cut = (f"{res['layers']} layers" if res["arch"] != "gemma2_27b"
-           else f"{res['layers']} layers, cut to {LM_GEMMA_PERIODS} periods")
-    head = (f"lm serve {res['arch']} ({cut}, d_model {res['d_model']}, "
-            f"vocab {res['vocab']}, full width) {res['dtype']} "
-            f"[{res['card']}]: params {res['params_gb']:.3f} GB "
-            f"(init {res['init_s']:.1f}s); B={len(LM_PROMPTS)} prompts "
+    head = (f"lm serve {res['arch']} ({res['layers']} layers, {res['cut']}, "
+            f"d_model {res['d_model']}, vocab {res['vocab']}) "
+            f"{res['dtype']} [{res['card']}]: params {res['params_gb']:.3f} "
+            f"GB (init {res['init_s']:.1f}s); B={len(LM_PROMPTS)} prompts "
             f"{'/'.join(map(str, LM_PROMPTS))} +{LM_MAX_NEW}; "
             f"select_kv_layout picks {res['pick']}")
     if "faster" in res:
         head += f", faster by decode {res['faster']}"
     parts = [head]
+    vs = ("prefill vs forward over the prompts" if res["moe"] else
+          "each block alone vs forward" if res["held"] == LM_BLOCKS else
+          "vs forward")
+    rtol, atol = LM_DECODE_TOL
     for layout in ("bksd", "sbkd"):
         if layout not in res:
             continue
@@ -4637,12 +4881,19 @@ def _lm_line(res: dict) -> str:
                  f"{r['decode_ms']:.3f} ms a step ({len(LM_PROMPTS)} "
                  f"tokens), ")
         if "rel_err" in r:
-            dev = (f"vs forward {r['rel_err']:.3g} scale-relative (gate "
-                   f"{LM_F32_TOL:g})")
+            dev = (f"{vs} {r.get('block_rel_err', r['rel_err']):.3g} "
+                   f"scale-relative (gate {LM_F32_TOL:g})")
         else:
-            dev = (f"vs forward max |err| {r['max_abs_err']:.4g}, "
-                   f"{r['tol_share']:.3f} of atol {LM_DECODE_TOL[1]} + rtol "
-                   f"{LM_DECODE_TOL[0]} |want|")
+            dev = (f"{vs} {r.get('block_tol_share', r['tol_share']):.3f} of "
+                   f"atol {atol} + rtol {rtol} |want|")
+        if "block" in r:
+            logit = r.get("rel_err", r.get("tol_share"))
+            dev += (f" (worst block {r['block']}); the head on the last "
+                    f"block's outputs {logit:.3g}; the whole model, "
+                    f"compounding through depth (no gate) "
+                    f"{r['whole']:.3g}")
+        else:
+            dev += f", max |err| {r['max_abs_err']:.4g}"
         parts.append(f"  {layout}: {times}Server.run {r['tok_per_s']:.1f} "
                      f"tok/s (host clock, {r['host_s']:.3f}s), peak "
                      f"{r['peak_gb']:.2f} GB; {dev}")
@@ -4651,24 +4902,136 @@ def _lm_line(res: dict) -> str:
         parts.append(f"  bksd vs sbkd over {res['steps_compared']} steps "
                      f"whose tokens agree: max |err| {c['max_abs_err']:.4g}, "
                      f"{c['tol_share']:.3f} of the tolerance")
+    for layout, n in res.get("nodrop", {}).items():
+        share = (f"{n['rel_err']:.3g} scale-relative" if "rel_err" in n
+                 else f"{n['tol_share']:.3f} of the tolerance")
+        parts.append(
+            f"  drop-free (capacity_factor {n['capacity_factor']:g}, cap "
+            f"{n['cap']} of the forward's {n['tokens']} tokens) {layout}, "
+            f"dispatching as the forward: every step vs forward {share}; "
+            f"own expert choices left the forward's at {n['flips']} of "
+            f"{n['pairs']} (layer, token) pairs, largest router margin "
+            f"{n['flip_margin']:.2e} (gate {LM_ROUTE_MARGIN:g}, float32 "
+            f"none)")
     return "\n".join(parts)
 
 
-def lm_serve_phase(card: str) -> list:
-    """The LM serving path, ``launch/serve.Server(reduced=False)`` on the
-    card at full width: qwen2-7b whole, gemma2-27b cut to
-    ``LM_GEMMA_PERIODS`` periods, whisper-base whole (``LM_SERVED``), in
-    bf16, then qwen2-7b whole in float32 (the bf16 model freed first).
-    Each serves ``_lm_requests`` (4 seeded prompts of ``LM_PROMPTS``
-    tokens, ``LM_MAX_NEW`` new tokens each) in both KV layouts; every
-    step's logits are held against one teacher-forced forward (bf16: the
-    reference's decode tolerance ``LM_DECODE_TOL``; float32:
-    ``LM_F32_TOL`` scale-relative) and the two layouts against each
-    other.  The path is plain torch (the reference's is plain jnp): no
-    kernel of the port may launch in it.  TF32 is off, and so are bf16
-    reduced-precision reductions, within this phase only: cuBLAS may add
-    a bf16 product's split-K partials in bf16, where the reference adds
-    in float32; the earlier phases' library times keep torch's default."""
+def lm_mixer_phase(card: str) -> list:
+    """The full-width mixers alone, bf16, on seeded weights and inputs
+    (B = 4, the longest prompt and 16 more positions): jamba's Mamba
+    mixer, ``mamba_fwd`` with its state over the prompt then
+    ``mamba_decode`` step by step, against ``mamba_fwd`` over the whole
+    sequence (the decode tolerance; its float32 state scale-relative);
+    rwkv6's time mix's WKV, ``_wkv_scan`` against
+    ``_wkv_chunked_parallel`` in chunks of ``LM_WKV_CHUNK`` (the
+    reference's own 5e-3), the bonus ``u`` drawn (its init is 0)."""
+    dev = torch.device("cuda")
+    B, S0, n = len(LM_PROMPTS), max(LM_PROMPTS), LM_MAX_NEW
+    rtol, atol = LM_DECODE_TOL
+    out = []
+    with torch.inference_mode():
+        cfg = get_config("jamba_1p5_large_398b")
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+        p = LMM.init_mamba(gen, cfg, dev)
+        x = torch.randn((B, S0 + n, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        whole, st_whole = LMM.mamba_fwd(p, x, cfg, return_state=True)
+        y0, st = LMM.mamba_fwd(p, x[:, :S0], cfg, return_state=True)
+        ys = [y0]
+        for t in range(S0, S0 + n):
+            y, st = LMM.mamba_decode(p, x[:, t:t + 1], st, cfg)
+            ys.append(y)
+        got = torch.cat(ys, dim=1).float()
+        want = whole.float()
+        share = ((got - want).abs() / (atol + rtol * want.abs())).max().item()
+        ssm_err = _scaled_err(st["ssm"], st_whole["ssm"])
+        ms = b2b_ms({"prefill": lambda: LMM.mamba_fwd(
+                        p, x[:, :S0], cfg, return_state=True),
+                     "decode": lambda: LMM.mamba_decode(
+                        p, x[:, S0:S0 + 1], st, cfg)})
+        gb = sum(t.numel() * t.element_size() for t in p.values()) / 1e9
+        res = {"mixer": "mamba", "arch": cfg.name, "params_gb": gb,
+               "d_inner": cfg.mamba_d_inner, "d_state": cfg.mamba_d_state,
+               "dt_rank": LMM.dt_rank(cfg), "tol_share": share,
+               "max_abs_err": (got - want).abs().max().item(),
+               "ssm_rel_err": ssm_err, "prefill_ms": ms["prefill"],
+               "decode_ms": ms["decode"], "card": card,
+               "finite": bool(torch.isfinite(got).all())}
+        out.append(res)
+        print(f"lm mixer mamba ({cfg.name}: d_model {cfg.d_model}, d_inner "
+              f"{cfg.mamba_d_inner}, d_state {cfg.mamba_d_state}, dt_rank "
+              f"{res['dt_rank']}, {gb:.3f} GB) bf16 [{card}]: mamba_fwd over "
+              f"{S0} then {n} mamba_decode steps vs mamba_fwd over "
+              f"{S0 + n}: max |err| {res['max_abs_err']:.4g}, {share:.3f} "
+              f"of atol {atol} + rtol {rtol} |want|; final ssm state "
+              f"{ssm_err:.3g} scale-relative; prefill {ms['prefill']:.3f} "
+              f"ms, decode {ms['decode']:.3f} ms a step (B={B})",
+              flush=True)
+        if not res["finite"] or share > 1 or ssm_err > rtol:
+            raise AssertionError(f"lm mixer mamba: {res}")
+        del p, x, whole, st_whole, st, ys, got, want
+
+        cfg = get_config("rwkv6_7b")
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+        p = LMR.init_rwkv_time(gen, cfg, dev)
+        H, N = LMR._heads(cfg)
+        u = torch.randn((H, N), generator=gen, device=dev) * 0.1
+        x = torch.randn((B, S0 + n, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        r, k, v, w, _ = LMR._time_inputs(p, x, cfg)
+        s0 = torch.zeros((B, H, N, N), device=dev)
+        fns = {"scan": lambda: LMR._wkv_scan(r, k, v, w, u, s0,
+                                             LM_WKV_CHUNK),
+               "chunked": lambda: LMR._wkv_chunked_parallel(
+                   r, k, v, w, u, s0, LM_WKV_CHUNK)}
+        (y1, s1), (y2, s2) = fns["scan"](), fns["chunked"]()
+        share = max(((a - b).abs() / (LM_WKV_TOL + LM_WKV_TOL * b.abs())
+                     ).max().item() for a, b in ((y2, y1), (s2, s1)))
+        ms = b2b_ms(fns)
+        res = {"mixer": "wkv", "arch": cfg.name, "heads": H,
+               "head_dim": N, "tol_share": share,
+               "max_abs_err": max((y2 - y1).abs().max().item(),
+                                  (s2 - s1).abs().max().item()),
+               "max_abs": y1.abs().max().item(), "scan_ms": ms["scan"],
+               "chunked_ms": ms["chunked"], "card": card,
+               "finite": bool(torch.isfinite(y2).all())}
+        out.append(res)
+        print(f"lm mixer wkv ({cfg.name}: {H} heads of {N}, B={B}, S="
+              f"{S0 + n}, chunks of {LM_WKV_CHUNK}) [{card}]: "
+              f"_wkv_chunked_parallel vs _wkv_scan max |err| "
+              f"{res['max_abs_err']:.4g} (|y| up to {res['max_abs']:.4g}), "
+              f"{share:.3f} of rtol/atol {LM_WKV_TOL:g}; scan "
+              f"{ms['scan']:.3f} ms, chunked {ms['chunked']:.3f} ms",
+              flush=True)
+        if not res["finite"] or share > 1:
+            raise AssertionError(f"lm mixer wkv: {res}")
+        del p, x, r, k, v, w, y1, y2, s1, s2, fns
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_serve_phase(card: str) -> dict:
+    """The LM serving path, ``launch/serve.Server`` on the card
+    (``LM_SERVED``, each model freed before the next): qwen2-7b whole,
+    gemma2-27b cut to ``LM_GEMMA_PERIODS`` periods, whisper-base whole, in
+    bf16, and qwen2-7b whole in float32; rwkv6-7b whole, dbrx-132b cut to
+    ``LM_DBRX_PERIODS`` periods in bf16 and float32, llama4-maverick cut
+    to ``LM_LLAMA4_PERIODS`` period and jamba-1.5-large at
+    ``reduced_config``'s widths, in bf16.  Each serves ``_lm_requests``
+    (4 seeded prompts of ``LM_PROMPTS`` tokens, ``LM_MAX_NEW`` new tokens
+    each) in both KV layouts (one where there is no KV cache or in
+    float32); every step's logits are held against one teacher-forced
+    forward (bf16: the reference's decode tolerance ``LM_DECODE_TOL``;
+    float32: ``LM_F32_TOL`` scale-relative), rwkv6-7b whole block by
+    block (``_lm_blockwise``), and the two layouts against each other;
+    an MoE model as ``_lm_serve_one`` says.  Then the
+    full-width mixers alone (``lm_mixer_phase``).  The path is plain
+    torch (the reference's is plain jnp): no kernel of the port may
+    launch in it.  TF32 is off, and so are bf16 reduced-precision
+    reductions, within this phase only: cuBLAS may add a bf16 product's
+    split-K partials in bf16, where the reference adds in float32; the
+    earlier phases' library times keep torch's default."""
     mm = torch.backends.cuda.matmul
     saved = mm.allow_bf16_reduced_precision_reduction
     mm.allow_bf16_reduced_precision_reduction = False
@@ -4678,11 +5041,18 @@ def lm_serve_phase(card: str) -> list:
               f"{mm.allow_bf16_reduced_precision_reduction} [{card}]",
               flush=True)
         done = []
-        for arch, periods, dtype in LM_SERVED:
-            res = _lm_serve_one(arch, periods, dtype, card)
-            print(_lm_line(res), flush=True)
+        for arch, periods, dtype, held in LM_SERVED:
+            t0 = time.perf_counter()
+            res = _lm_serve_one(arch, periods, dtype, held, card)
+            res["seconds"] = time.perf_counter() - t0
+            print(_lm_line(res) + f" [{res['seconds']:.1f}s]", flush=True)
             done.append(res)
-        return done
+        K.reset_launch_counts()
+        mixers = lm_mixer_phase(card)
+        launched = {k: v for k, v in K.launch_counts().items() if v}
+        if launched:
+            raise AssertionError(f"lm mixers: {launched} launched")
+        return {"served": done, "mixers": mixers}
     finally:
         mm.allow_bf16_reduced_precision_reduction = saved
 

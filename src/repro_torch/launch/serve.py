@@ -7,7 +7,9 @@ reference's), then decodes in lockstep.  The KV-cache layout is chosen by
 ``perfmodel.select_kv_layout`` per run, from the ACTUAL number of admitted
 requests (the selector's update-vs-read arbitration depends on the batch)
 on the port's device profile (the H100's); the decode step is built once
-per distinct layout and reused.
+per distinct layout and reused.  A model with no KV cache
+(rwkv6's recurrent states) picks a layout all the same, as the
+reference's server does; it reads none.
 
 The device is the card unless the caller passes one (``device="cpu"``
 runs the same code on the CPU, as the tests do); with no CUDA device and

@@ -1,6 +1,6 @@
 """Core LM layers (``repro/models/layers.py``): norms, RoPE, softcap,
-(GQA / local / softcapped / cross) attention with its KV cache, and the
-dense MLP.
+(GQA / local / softcapped / cross) attention with its KV cache, the dense
+MLP and the capacity-bounded top-k MoE FFN.
 
 Plain functions over tensors: ``init_*`` builds a dict of parameters from
 an explicit ``torch.Generator``, ``*_fwd`` applies it.  Every ``x @ w``
@@ -34,10 +34,15 @@ returns it (the reference's ``dynamic_update_slice``, start clamped the
 same way); a "masked" write returns new tensors, as the reference's
 select does.
 
-MoE (``init_moe`` / ``moe_fwd``) is not ported yet and raises.
+The MoE FFN (``init_moe``, ``moe_fwd``, ``_moe_local_dispatch``) routes
+in float32 and runs its expert products in the storage dtype, as the
+reference's.  The expert-parallel ``moe_fwd_a2a`` needs a mesh of cards
+and raises.  ``record_routes`` hands out the routing each MoE layer
+computed, for checks that hold one run's routing against another's.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
@@ -48,6 +53,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.dtypes import torch_dtype
 
 NEG_INF = -1e30       # the reference's masked score (not -inf)
+# while ``record_routes`` lasts: the list it hands out, and the expert
+# choices to follow (None: each layer follows its own)
+_ROUTE_LOG: Optional[list] = None
+_ROUTE_FOLLOW: Optional[list] = None
 
 # ---------------------------------------------------------------------------
 # helpers
@@ -94,7 +103,8 @@ def dense_init(gen: torch.Generator, shape, in_axis: int, dtype,
     through ``models.convert``."""
     std = 1.0 / math.sqrt(shape[in_axis])
     x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * std).to(dtype)
+    # in place: one float32 temporary (a full-width expert stack's is 21 GB)
+    return x.mul_(std).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -424,17 +434,132 @@ def mlp_fwd(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# MoE: the next slice
+# MoE (top-k, capacity-bounded, scatter/gather dispatch)
 # ---------------------------------------------------------------------------
-
-_MOE_TODO = ("the MoE FFN (block kinds 'attn_moe' and 'mamba_moe') is not "
-             "ported to repro_torch yet; ROADMAP queue 1 item 7 lists it "
-             "next")
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device):
-    raise NotImplementedError(_MOE_TODO)
+    dt = _dtype(cfg)
+    E, D, F_ = cfg.num_experts, cfg.d_model, cfg.expert_d_ff
+    p = {
+        "router": dense_init(gen, (D, E), 0, torch.float32, device),
+        "w_gate": dense_init(gen, (E, D, F_), 1, dt, device),
+        "w_up": dense_init(gen, (E, D, F_), 1, dt, device),
+        "w_down": dense_init(gen, (E, F_, D), 1, dt, device),
+    }
+    if cfg.num_shared_experts:
+        p["shared"] = init_mlp(gen, cfg, F_ * cfg.num_shared_experts,
+                               device=device)
+    return p
+
+
+def moe_capacity(cfg: ModelConfig, T: int) -> int:
+    """Slots per expert for ``T`` tokens: the reference's expression, in
+    the same order, in Python floats (layers.py:406-407)."""
+    cap = int(cfg.capacity_factor * T * cfg.experts_per_token
+              / cfg.num_experts)
+    return max(8, min(cap, T))
+
+
+@contextlib.contextmanager
+def record_routes(follow: Optional[list] = None):
+    """While the context lasts, every MoE routing (``_route``) appends what
+    it computed to the list handed out, in call order: (the experts it
+    chose [T, k], largest first; the router's probabilities [T, E],
+    float32), on the tokens' device.
+
+    ``follow``, a list of [T, k] expert choices, one a call in the same
+    order, makes each call dispatch to the next of them instead, weighted
+    by its own probabilities of those experts: a run held against
+    another then routes as that one did, and what is recorded stays each
+    layer's own choice.  Every choice in it must be used."""
+    global _ROUTE_LOG, _ROUTE_FOLLOW
+    saved = _ROUTE_LOG, _ROUTE_FOLLOW
+    _ROUTE_LOG, _ROUTE_FOLLOW = [], follow
+    try:
+        yield _ROUTE_LOG
+        if follow:
+            raise ValueError(f"{len(follow)} routings to follow were not "
+                             f"used")
+    finally:
+        _ROUTE_LOG, _ROUTE_FOLLOW = saved
+
+
+def _route(xt: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
+           cap: int):
+    """Top-k routing of ``xt`` [T, D] in float32 and each (token, slot)'s
+    row in the [E*cap + 1, D] expert buffer.  Returns (weights [T, k],
+    slot [T, k], keep [T, k], aux).
+
+    The slots are taken sorted, largest first (``lax.top_k``'s order): it
+    decides which pairs overflow and the aux loss's first choice.  A pair's
+    place in its expert is the exclusive cumsum over the flattened
+    [T*k, E] one-hot, token-major then slot; past ``cap`` it goes to the
+    spare row E*cap."""
+    T = xt.shape[0]
+    E, k = cfg.num_experts, cfg.experts_per_token
+    probs = torch.softmax(xt.float() @ router, dim=-1)        # [T, E]
+    weights, sel = torch.topk(probs, k, dim=-1, sorted=True)  # [T, k]
+    if _ROUTE_LOG is not None:
+        _ROUTE_LOG.append((sel, probs))
+        if _ROUTE_FOLLOW is not None:
+            sel = _ROUTE_FOLLOW.pop(0).to(device=sel.device, dtype=sel.dtype)
+            weights = probs.gather(-1, sel)
+    weights = weights / weights.sum(-1, keepdim=True).clamp(min=1e-9)
+    flat = F.one_hot(sel, E).reshape(T * k, E)
+    pos = ((flat.cumsum(0) - flat) * flat).sum(-1).reshape(T, k)
+    keep = pos < cap
+    slot = torch.where(keep, sel * cap + pos, E * cap)
+    # Switch-style load-balance loss over each token's first choice
+    density = F.one_hot(sel[:, 0], E).float().mean(0)
+    aux = E * (density * probs.mean(0)).sum()
+    return weights, slot, keep, aux
+
+
+def _scatter(xt: torch.Tensor, slot: torch.Tensor, E: int,
+             cap: int) -> torch.Tensor:
+    """Each token copied to its k slots of a [E, cap, D] buffer; the
+    overflow pairs land on the spare row, which is cut off."""
+    T, D = xt.shape
+    buf = torch.zeros((E * cap + 1, D), dtype=xt.dtype, device=xt.device)
+    k = slot.shape[1]
+    buf.index_copy_(0, slot.reshape(-1), xt.repeat_interleave(k, dim=0))
+    return buf[:E * cap].reshape(E, cap, D)
 
 
 def moe_fwd(p, x: torch.Tensor, cfg: ModelConfig):
-    raise NotImplementedError(_MOE_TODO)
+    """Capacity-bounded top-k MoE with scatter dispatch and gather
+    combine.  x: [B, S, D] -> ([B, S, D], aux)."""
+    B, S, D = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    T = B * S
+    cap = moe_capacity(cfg, T)
+    xt = x.reshape(T, D)
+    weights, slot, keep, aux = _route(xt, p["router"], cfg, cap)
+    expert_in = _scatter(xt, slot, E, cap)
+    h = _act(cfg)(mm(expert_in, p["w_gate"])) * mm(expert_in, p["w_up"])
+    expert_out = mm(h, p["w_down"])                            # [E, cap, D]
+    # the spare row gathers back as zeros
+    flat_out = torch.cat([expert_out.reshape(E * cap, D),
+                          expert_out.new_zeros((1, D))])
+    gathered = flat_out[slot.reshape(-1)].reshape(T, k, D)
+    y = (gathered * (weights * keep).to(x.dtype)[..., None]).sum(1)
+    if cfg.num_shared_experts:
+        y = y + mlp_fwd(p["shared"], xt, cfg)
+    return y.reshape(B, S, D), aux
+
+
+def _moe_local_dispatch(xt: torch.Tensor, p, cfg: ModelConfig, cap: int):
+    """Local top-k routing + scatter into per-expert buffers.  xt: [T, D].
+    Returns (buf [E, cap, D], slot, weights, keep, aux)."""
+    weights, slot, keep, aux = _route(xt, p["router"], cfg, cap)
+    return (_scatter(xt, slot, cfg.num_experts, cap), slot, weights, keep,
+            aux)
+
+
+def moe_fwd_a2a(p, x: torch.Tensor, cfg: ModelConfig, ctx):
+    """The reference's expert-parallel MoE (all-to-all over a mesh's model
+    axis) needs several cards; one card serves through ``moe_fwd``."""
+    raise NotImplementedError(
+        "moe_fwd_a2a (expert-parallel MoE over a mesh) is not ported: it "
+        "needs several cards (ROADMAP queue 1 item 4)")

@@ -4,9 +4,7 @@ and analytical MODEL_FLOPS.
 The count walks the port's own parameter tree built on the meta device
 (shapes only, nothing allocated), with the reference's key rules over
 paths written as ``jax.tree_util.keystr`` writes them (``['embed']``,
-``['blocks'][0]['b0']['attn']['wq']``).  An architecture whose blocks are
-not ported yet raises ``NotImplementedError`` (``transformer.init_params``
-does).
+``['blocks'][0]['b0']['attn']['wq']``), for all ten architectures.
 """
 from __future__ import annotations
 

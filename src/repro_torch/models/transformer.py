@@ -1,16 +1,16 @@
 """The LM stack (``repro/models/transformer.py``): embedding -> blocks ->
-norm -> head, for the dense, local-attention, VLM-stub and
-encoder-decoder architectures.
+norm -> head, for all six block kinds: dense and local attention, MoE
+attention blocks, the Mamba and Mamba-MoE blocks, and RWKV-6; with the
+VLM stub and the encoder-decoder.
 
 Parameters are a nested dict of tensors laid out per layer: ``blocks`` is
 a list over periods, each a dict ``{"b<i>": block}`` over
 ``cfg.block_pattern`` (the reference stacks every leaf over periods and
 scans; here a Python loop walks the list, without remat and without
 sharding hints: one card needs neither).  Caches are lists over periods
-too.  ``models.convert`` carries the reference's stacked trees over.
-
-Ported block kinds: ``attn`` and ``attn_local``.  Any other (MoE, Mamba,
-RWKV) raises ``NotImplementedError`` naming itself; nothing falls back.
+too: a KV cache for an attention block, the recurrent state for a Mamba
+or RWKV block.  ``models.convert`` carries the reference's stacked trees
+over.
 """
 from __future__ import annotations
 
@@ -22,22 +22,13 @@ from repro_torch.configs.base import (ATTN, ATTN_LOCAL, ATTN_MOE, MAMBA,
                                       MAMBA_MOE, RWKV, ModelConfig)
 from repro_torch.dtypes import torch_dtype
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import rwkv as R
 
 CLIP_DIM = 1024   # stubbed vision-tower output width
-PORTED_KINDS = (ATTN, ATTN_LOCAL)
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported to repro_torch yet; ROADMAP "
-        "queue 1 item 7 lists MoE, Mamba and RWKV as the next slice")
-
-
-def _check_kind(kind: str) -> None:
-    if kind in (ATTN_MOE, MAMBA, MAMBA_MOE, RWKV):
-        raise _not_ported(kind)
-    if kind not in PORTED_KINDS:
-        raise ValueError(kind)
+ATTN_KINDS = (ATTN, ATTN_LOCAL, ATTN_MOE)
+MAMBA_KINDS = (MAMBA, MAMBA_MOE)
+MOE_KINDS = (ATTN_MOE, MAMBA_MOE)
 
 
 # ---------------------------------------------------------------------------
@@ -45,13 +36,22 @@ def _check_kind(kind: str) -> None:
 # ---------------------------------------------------------------------------
 
 def _init_block(gen, kind: str, cfg: ModelConfig, device):
-    if kind == ATTN_MOE:
-        L.init_moe(gen, cfg, device)          # raises: not ported yet
-    _check_kind(kind)
-    p: Dict[str, Any] = {"norm1": L.init_norm(cfg, device=device),
-                         "attn": L.init_attention(gen, cfg, device),
-                         "norm2": L.init_norm(cfg, device=device),
-                         "mlp": L.init_mlp(gen, cfg, device=device)}
+    p: Dict[str, Any] = {"norm1": L.init_norm(cfg, device=device)}
+    if kind in ATTN_KINDS:
+        p["attn"] = L.init_attention(gen, cfg, device)
+    elif kind in MAMBA_KINDS:
+        p["mamba"] = M.init_mamba(gen, cfg, device)
+    elif kind == RWKV:
+        p["time"] = R.init_rwkv_time(gen, cfg, device)
+    else:
+        raise ValueError(kind)
+    p["norm2"] = L.init_norm(cfg, device=device)
+    if kind in MOE_KINDS:
+        p["moe"] = L.init_moe(gen, cfg, device)
+    elif kind == RWKV:
+        p["channel"] = R.init_rwkv_channel(gen, cfg, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg, device=device)
     if cfg.post_norm:
         p["post_norm1"] = L.init_norm(cfg, device=device)
         p["post_norm2"] = L.init_norm(cfg, device=device)
@@ -120,27 +120,46 @@ def _block_fwd(bp, kind: str, x, positions, cfg: ModelConfig, mode: str,
                kv_layout: str = "bksd", max_len: int = 0,
                kv_update: str = "dus", kv_window: bool = False):
     """``mode``: "train" | "prefill" | "decode".  Returns (x, new_cache,
-    aux_loss); aux is 0 (no MoE)."""
-    _check_kind(kind)
+    aux_loss); aux is the MoE balance loss, 0 without MoE."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = cache
     h = L.norm_fwd(bp["norm1"], x, cfg)
     local = kind == ATTN_LOCAL
-    if mode == "train":
-        y = L.attention_fwd(bp["attn"], h, positions, cfg, local=local)
-    elif mode == "prefill":
-        cap = max_len
-        if kv_window and local and cfg.local_window:
-            cap = min(max_len, cfg.local_window)
-        y, new_cache = L.attention_prefill(bp["attn"], h, positions, cfg,
-                                           cap, layout=kv_layout, local=local)
-    elif mode == "decode":
-        win = kv_window and local and cfg.local_window is not None
-        y, new_cache = L.attention_decode(
-            bp["attn"], h, cache, cache_len, cfg, layout=kv_layout,
-            local=local, update=kv_update, windowed=win)
+    if kind in ATTN_KINDS:
+        if mode == "train":
+            y = L.attention_fwd(bp["attn"], h, positions, cfg, local=local)
+        elif mode == "prefill":
+            cap = max_len
+            if kv_window and local and cfg.local_window:
+                cap = min(max_len, cfg.local_window)
+            y, new_cache = L.attention_prefill(bp["attn"], h, positions, cfg,
+                                               cap, layout=kv_layout,
+                                               local=local)
+        else:
+            win = kv_window and local and cfg.local_window is not None
+            y, new_cache = L.attention_decode(
+                bp["attn"], h, cache, cache_len, cfg, layout=kv_layout,
+                local=local, update=kv_update, windowed=win)
+    elif kind in MAMBA_KINDS:
+        if mode == "decode":
+            y, new_cache = M.mamba_decode(bp["mamba"], h, cache, cfg)
+        elif mode == "prefill":
+            y, new_cache = M.mamba_fwd(bp["mamba"], h, cfg,
+                                       return_state=True)
+        else:
+            y = M.mamba_fwd(bp["mamba"], h, cfg)
+    elif kind == RWKV:
+        if mode == "train":
+            y = R.rwkv_time_fwd(bp["time"], h, cfg)
+        else:
+            state = (None if mode == "prefill" else
+                     {"shift": cache["tm_shift"], "wkv": cache["wkv"]})
+            y, tm = R.rwkv_time_fwd(bp["time"], h, cfg, state=state,
+                                    return_state=True)
     else:
-        raise ValueError(f"unknown mode {mode!r}")
+        raise ValueError(kind)
     x = _apply_sub(x, y, bp.get("post_norm1"), cfg)
 
     # cross attention (encoder-decoder only)
@@ -160,8 +179,23 @@ def _block_fwd(bp, kind: str, x, positions, cfg: ModelConfig, mode: str,
         x = x + yc
 
     h2 = L.norm_fwd(bp["norm2"], x, cfg)
-    x = _apply_sub(x, L.mlp_fwd(bp["mlp"], h2, cfg), bp.get("post_norm2"),
-                   cfg)
+    if kind in MOE_KINDS:
+        # one card: the local dispatch (the reference's all-to-all path
+        # runs only under an expert-parallel mesh)
+        y2, aux = L.moe_fwd(bp["moe"], h2, cfg)
+    elif kind == RWKV:
+        if mode == "train":
+            y2 = R.rwkv_channel_fwd(bp["channel"], h2, cfg)
+        else:
+            state = (None if mode == "prefill" else
+                     {"shift": cache["cm_shift"]})
+            y2, cm = R.rwkv_channel_fwd(bp["channel"], h2, cfg, state=state,
+                                        return_state=True)
+            new_cache = {"tm_shift": tm["shift"], "wkv": tm["wkv"],
+                         "cm_shift": cm["shift"]}
+    else:
+        y2 = L.mlp_fwd(bp["mlp"], h2, cfg)
+    x = _apply_sub(x, y2, bp.get("post_norm2"), cfg)
     return x, new_cache, aux
 
 
@@ -172,15 +206,21 @@ def _block_fwd(bp, kind: str, x, positions, cfg: ModelConfig, mode: str,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                kv_layout: str = "bksd", dtype=torch.bfloat16,
                kv_window: bool = False, *, device) -> List[Dict]:
-    """Per-period caches on ``device`` (required), a list over periods.
-    With ``kv_window``, sliding-window layers allocate only the window (a
-    ring buffer)."""
+    """Per-period caches on ``device`` (required), a list over periods: a
+    KV cache per attention block, a recurrent state per Mamba or RWKV
+    block.  With ``kv_window``, sliding-window layers allocate only the
+    window (a ring buffer)."""
     def one_block(kind):
-        _check_kind(kind)
-        cap = max_len
-        if kv_window and kind == ATTN_LOCAL and cfg.local_window:
-            cap = min(max_len, cfg.local_window)
-        return L.init_kv_cache(cfg, batch, cap, kv_layout, dtype, device)
+        if kind in ATTN_KINDS:
+            cap = max_len
+            if kv_window and kind == ATTN_LOCAL and cfg.local_window:
+                cap = min(max_len, cfg.local_window)
+            return L.init_kv_cache(cfg, batch, cap, kv_layout, dtype, device)
+        if kind in MAMBA_KINDS:
+            return M.init_mamba_state(cfg, batch, dtype, device=device)
+        if kind == RWKV:
+            return R.init_rwkv_state(cfg, batch, dtype, device=device)
+        raise ValueError(kind)
 
     return [{f"b{i}": one_block(k) for i, k in enumerate(cfg.block_pattern)}
             for _ in range(cfg.num_periods)]
@@ -286,8 +326,8 @@ def forward(params, tokens: torch.Tensor, positions: torch.Tensor,
 
     ``embeds``: optional [B,T_front,CLIP_DIM] stubbed patch embeddings
     (VLM), prepended to the token embeddings.  ``frames``: optional
-    [B,T_enc,D] stubbed audio frames (enc-dec).  aux (the MoE balance
-    loss, averaged over layers) is 0: no MoE block is ported."""
+    [B,T_enc,D] stubbed audio frames (enc-dec).  aux: the MoE balance
+    loss summed over the layers and divided by ``cfg.num_layers``."""
     x = _front(params, tokens, cfg, embeds)
     B, S, _ = x.shape
     if positions.shape[1] != S:

@@ -3,26 +3,28 @@ the KV-layout selector, the step factories and the server.
 
 * ``ParallelConfig``'s repr equals the reference's letter for letter;
 * ``param_count`` (all, active, without embeddings; the config methods)
-  and ``model_flops`` equal the reference's for the six ported
-  architectures at their published widths and reduced;
+  and ``model_flops`` equal the reference's for the ten architectures at
+  their published widths and reduced;
 * ``select_kv_layout`` on ``reference_hardware()`` picks what the
   reference picks over a grid of (batch, kv heads, seq, head dim, element
   size);
 * the port's ``Server`` on the reference server's own weights (carried by
   ``models.convert``) returns the reference server's tokens for the
-  requests of ``tests/test_system.py`` (yi-9b, phi3-mini; bf16, so
-  tokens, not logits, are compared);
+  requests of ``tests/test_system.py`` (yi-9b, phi3-mini; rwkv6 and dbrx
+  on the same kind of requests; bf16, so tokens, not logits, are
+  compared);
 * the server's kept logits follow one teacher-forced forward in float32
   (rtol / atol 1e-4) in both KV layouts, as the card's smoke holds them
   at full width; the step factories read ``window_kv_cache``;
   ``init_cache`` has the reference's shapes;
-* unported architectures raise and name their block kind; no model tree
-  is built without a device named; a server with no CUDA device and no
+* the expert-parallel MoE raises and names itself; no model tree is built
+  without a device named; a server with no CUDA device and no
   device given raises; the server's KV layout comes from its constructor
   or from ``run``; ``main`` serves on the CPU when asked.
 """
 from __future__ import annotations
 
+import functools
 import sys
 
 import jax
@@ -43,10 +45,7 @@ from repro_torch.models.convert import params_from_reference, unstack
 from repro_torch.perfmodel import reference_hardware, select_kv_layout
 from repro_torch.train.steps import make_decode_step, make_prefill_step
 
-ARCHS = ["qwen2_7b", "yi_9b", "phi3_mini_3p8b", "gemma2_27b",
-         "phi3_vision_4p2b", "whisper_base"]
-UNPORTED = ["dbrx_132b", "rwkv6_7b", "jamba_1p5_large_398b",
-            "llama4_maverick_400b"]
+ARCHS = list(configs.ARCH_IDS)
 
 
 def _both(arch, reduced):
@@ -83,20 +82,25 @@ def test_qwen2_7b_has_its_published_size():
 
 
 @pytest.mark.parametrize("arch", ARCHS)
-def test_model_flops_match_reference(arch):
+def test_model_flops_match_reference(arch, monkeypatch):
+    # each shape's flops count the same parameters: count them once
+    for mod in (registry, ref_registry):
+        monkeypatch.setattr(mod, "param_count",
+                            functools.lru_cache(maxsize=None)(
+                                mod.param_count))
     ref, port = _both(arch, False)
     for shape in configs.shapes_for(port):
         assert registry.model_flops(port, shape) == \
             ref_registry.model_flops(ref, shape)
 
 
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_architectures_raise_naming_their_block(arch):
-    cfg = configs.reduced_config(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        registry.param_count(cfg)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve.Server(arch, device="cpu")
+def test_expert_parallel_moe_raises_naming_itself():
+    """One card serves MoE through the local dispatch; the reference's
+    all-to-all over a mesh (``moe_fwd_a2a``) is not ported."""
+    from repro_torch.models import layers as L
+    cfg = configs.reduced_config(configs.get_config("dbrx_132b"))
+    with pytest.raises(NotImplementedError, match="moe_fwd_a2a"):
+        L.moe_fwd_a2a({}, torch.zeros((1, 2, cfg.d_model)), cfg, None)
 
 
 @pytest.mark.parametrize("dtype_bytes", [2, 4])
@@ -139,7 +143,9 @@ def _ref_requests(lens, max_new=4, vocab=256):
 @pytest.mark.parametrize("arch,batch,max_len,lens", [
     ("yi_9b", 2, 64, (6, 6)),            # tests/test_system.py's requests
     ("phi3_mini_3p8b", 1, 32, (5,)),
-    ("yi_9b", 2, 64, (9, 4))])           # left-padded
+    ("yi_9b", 2, 64, (9, 4)),            # left-padded
+    ("rwkv6_7b", 2, 64, (6, 6)),
+    ("dbrx_132b", 2, 64, (9, 4))])
 def test_server_returns_the_reference_servers_tokens(arch, batch, max_len,
                                                      lens):
     ref_srv = ref_serve.Server(arch, reduced=True, batch=batch,
